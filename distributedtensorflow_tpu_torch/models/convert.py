@@ -1,0 +1,101 @@
+"""Parameters for the port's ``GPTLM``: from a JAX tree, or seeded random.
+
+Both functions return a ``state_dict`` of fp32 CPU tensors for
+``GPTLM.load_state_dict``.  The JAX tree is the nested dict of arrays
+that ``distributedtensorflow_tpu.models.GPTLM.init`` returns under
+``"params"`` (numpy arrays, or anything ``np.asarray`` takes); nothing
+of JAX is imported here.  Flax Dense kernels are (in, out) and become
+(out, in) ``nn.Linear`` weights; embedding and LayerNorm parameters
+keep their shapes.
+"""
+
+from __future__ import annotations
+
+import math
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+from .gpt import GPTConfig
+
+
+def _shapes(cfg: GPTConfig) -> dict[str, tuple[int, ...]]:
+    """Port parameter name -> (out, in) shape for dense weights, the
+    tensor shape otherwise."""
+    e, f = cfg.hidden_size, cfg.intermediate_size
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim
+    dense = {"attn/qkv": (q + 2 * kv, e), "attn/proj": (e, q),
+             "fc_in": (f, e), "fc_out": (e, f)}
+    shapes = {"wte.weight": (cfg.vocab_size, e),
+              "ln_f.scale": (e,), "ln_f.bias": (e,)}
+    for i in range(cfg.num_layers):
+        for ln in ("ln1", "ln2"):
+            shapes[f"h.{i}.{ln}.scale"] = (e,)
+            shapes[f"h.{i}.{ln}.bias"] = (e,)
+        for name, shape in dense.items():
+            shapes[f"h.{i}.{name.replace('/', '.')}.weight"] = shape
+    return shapes
+
+
+def _flax_path(name: str) -> tuple[tuple[str, ...], bool]:
+    """Port parameter name -> (path in the flax tree, is a Dense kernel)."""
+    if name == "wte.weight":
+        return ("wte", "embedding"), False
+    parts = name.split(".")
+    if parts[0] == "h":
+        parts = [f"h{parts[1]}"] + parts[2:]
+    if parts[-1] == "weight":
+        return tuple(parts[:-1]) + ("kernel",), True
+    return tuple(parts), False
+
+
+def params_from_flax(tree, cfg: GPTConfig) -> dict[str, torch.Tensor]:
+    """The port's state for the JAX ``GPTLM`` parameter ``tree``.  Raises
+    when a leaf is missing, left over or of the wrong shape."""
+    state = {}
+    used = set()
+    for name, shape in _shapes(cfg).items():
+        path, is_kernel = _flax_path(name)
+        leaf = tree
+        for key in path:
+            if not isinstance(leaf, Mapping) or key not in leaf:
+                raise ValueError(f"the tree has no {'/'.join(path)}")
+            leaf = leaf[key]
+        arr = np.asarray(leaf, dtype=np.float32)
+        if is_kernel:
+            arr = arr.T
+        if arr.shape != shape:
+            raise ValueError(f"{'/'.join(path)}: shape {arr.shape}, "
+                             f"expected {shape} for {name}")
+        state[name] = torch.tensor(arr)  # a copy the port owns
+        used.add(path)
+
+    def leaves(node, prefix=()):
+        for key, val in node.items():
+            if isinstance(val, Mapping):
+                yield from leaves(val, prefix + (key,))
+            else:
+                yield prefix + (key,)
+
+    extra = [p for p in leaves(tree) if p not in used]
+    if extra:
+        raise ValueError(f"unexpected parameters in the tree: {extra}")
+    return state
+
+
+def init_params(cfg: GPTConfig, generator: torch.Generator
+                ) -> dict[str, torch.Tensor]:
+    """Seeded random state on the CPU: normal embeddings and dense
+    weights at std 1/sqrt(fan_in) (flax's default scales, untruncated),
+    LayerNorm scale 1 and bias 0."""
+    state = {}
+    for name, shape in _shapes(cfg).items():
+        if name.endswith(".scale"):
+            state[name] = torch.ones(shape)
+        elif name.endswith(".bias"):
+            state[name] = torch.zeros(shape)
+        else:
+            std = 1.0 / math.sqrt(shape[1])
+            state[name] = torch.randn(shape, generator=generator) * std
+    return state

@@ -1,0 +1,204 @@
+"""Attention ops of the serving path.
+
+Twin of ``distributedtensorflow_tpu/ops/attention.py``:
+
+- :func:`cached_decode_attention` (``:67-158``): one KV-cache step
+  against the dense (B, Hkv, max_seq, D) cache.  A single new token goes
+  through :func:`decode_attention`, whose CUDA route is the hand-written
+  kernel ``csrc/decode_attention.cu`` (the port of the TPU kernel
+  ``_decode_attn_kernel``, ``:279``); prefill chunks take the grouped
+  matmul path.
+- :func:`paged_decode_attention` (``:161-219``): the serving engine's
+  decode step against the paged pool, a gather plus matmuls.  The JAX
+  package has no kernel for it, so it stays plain PyTorch here.
+
+Products of bf16 operands are taken in fp32 (``.float()`` on both
+operands: the products are exact and the sums fp32), which is what the
+JAX path's ``preferred_element_type=float32`` computes; a torch bf16
+matmul would round its result to bf16 instead.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _cuda
+
+#: Finite mask value: a fully masked row averages V instead of giving NaN.
+NEG_INF = -1e9
+
+#: Dynamic shared memory one block may use on the H100 (227 KB).
+SMEM_LIMIT = 232448
+_MAX_GROUP = 8  # query heads per kv head the kernel keeps in registers
+_WARPS = 8
+_SIGNATURES = {"dtf_decode_attention": [ctypes.c_void_p] * 4
+               + [ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_int] * 2
+               + [ctypes.c_void_p]}
+
+
+def cached_decode_attention(
+    q: torch.Tensor,         # (B, s_new, H, D) new queries
+    k_new: torch.Tensor,     # (B, s_new, Hkv, D) new keys (Hkv <= H: GQA)
+    v_new: torch.Tensor,     # (B, s_new, Hkv, D) new values
+    cached_k: torch.Tensor,  # (B, Hkv, max_seq, D) cache
+    cached_v: torch.Tensor,  # (B, Hkv, max_seq, D)
+    cache_index: int,        # next write slot
+    window: int | None = None,  # sliding window (matches training masking)
+):
+    """Write the new K/V at ``cache_index`` and attend the new queries
+    against the cache; returns ``(out, cached_k, cached_v, cache_index +
+    s_new)``.  A query at absolute position ``ix + i`` sees keys at
+    positions ``<= ix + i`` (and ``> ix + i - window`` with a window).
+
+    The caller owns the cache; unlike the JAX twin, which returns new
+    arrays, the K/V write goes into ``cached_k``/``cached_v`` in place and
+    the same tensors are returned."""
+    b, s_new, h, d = q.shape
+    max_seq = cached_k.shape[2]
+    ix = int(cache_index)
+    if ix + s_new > max_seq:
+        raise ValueError(
+            f"cache of {max_seq} positions cannot take {s_new} more at {ix}")
+    cached_k[:, :, ix:ix + s_new] = k_new.transpose(1, 2)
+    cached_v[:, :, ix:ix + s_new] = v_new.transpose(1, 2)
+    if s_new == 1:
+        lo = 0 if window is None else max(ix - window + 1, 0)
+        out = decode_attention(q, cached_k, cached_v, lo, ix + 1)
+        return out, cached_k, cached_v, ix + 1
+    h_kv = cached_k.shape[1]
+    g = h // h_kv
+    q_pos = ix + torch.arange(s_new, device=q.device)
+    k_idx = torch.arange(max_seq, device=q.device)
+    valid = k_idx[None, :] <= q_pos[:, None]  # (s_new, max_seq)
+    if window is not None:
+        valid &= k_idx[None, :] > q_pos[:, None] - window
+    qg = q.reshape(b, s_new, h_kv, g, d).float()
+    scores = torch.einsum(
+        "bqhgd,bhkd->bhgqk", qg, cached_k.float()
+    ).reshape(b, h, s_new, max_seq) / (d ** 0.5)
+    scores = torch.where(valid[None, None], scores, NEG_INF)
+    weights = torch.softmax(scores, dim=-1)
+    wg = weights.to(q.dtype).reshape(b, h_kv, g, s_new, max_seq)
+    out = torch.einsum("bhgqk,bhkd->bqhgd", wg.float(), cached_v.float())
+    return out.reshape(b, s_new, h, d).to(q.dtype), cached_k, cached_v, \
+        ix + s_new
+
+
+def paged_decode_attention(
+    q: torch.Tensor,             # (B, H, D) one new query per serving slot
+    k_pool: torch.Tensor,        # (num_blocks, block_size, Hkv, D)
+    v_pool: torch.Tensor,        # (num_blocks, block_size, Hkv, D)
+    block_tables: torch.Tensor,  # (B, max_blocks) int physical block ids
+    seq_lens: torch.Tensor,      # (B,) int valid tokens incl. this step's
+) -> torch.Tensor:
+    """Single-token attention against the paged pool: each slot gathers
+    its blocks to a (Hkv, max_blocks * block_size, D) view, masks
+    positions ``>= seq_lens`` and runs the fp32-softmax scaled dot
+    product of the dense decode path (GQA grouped, the pool never
+    broadcast to H)."""
+    b, h, d = q.shape
+    _, block_size, h_kv, _ = k_pool.shape
+    cap = block_tables.shape[1] * block_size
+    k = k_pool[block_tables].reshape(b, cap, h_kv, d).transpose(1, 2)
+    v = v_pool[block_tables].reshape(b, cap, h_kv, d).transpose(1, 2)
+    valid = torch.arange(cap, device=q.device)[None, :] < seq_lens[:, None]
+    g = h // h_kv
+    qg = q.reshape(b, h_kv, g, d).float()
+    scores = torch.einsum(
+        "bhgd,bhkd->bhgk", qg, k.float()).reshape(b, h, cap) / (d ** 0.5)
+    scores = torch.where(valid[:, None, :], scores, NEG_INF)
+    weights = torch.softmax(scores, dim=-1)
+    wg = weights.to(q.dtype).reshape(b, h_kv, g, cap)
+    out = torch.einsum("bhgk,bhkd->bhgd", wg.float(), v.float())
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def decode_attention(q, cached_k, cached_v, lo: int, hi: int) -> torch.Tensor:
+    """One query per (b, h) against cache positions ``[lo, hi)``:
+    ``q`` (B, 1, H, D), cache (B, Hkv, S, D); returns (B, 1, H, D).  A
+    CUDA tensor launches the kernel, a CPU tensor takes the plain twin."""
+    if q.device.type == "cpu":
+        return _plain_decode_attention(q, cached_k, cached_v, lo, hi)
+    return decode_attention_cuda(q, cached_k, cached_v, lo, hi)
+
+
+def _plain_decode_attention(q, cached_k, cached_v, lo: int, hi: int):
+    """PyTorch twin of the TPU kernel: scale * q.k over the whole cache,
+    a shared (S,) validity band, fp32 softmax normalised before the cast
+    to V's dtype, w.V with fp32 sums; query head h reads kv head
+    h // group."""
+    b, _, h, d = q.shape
+    h_kv, s = cached_k.shape[1], cached_k.shape[2]
+    g = h // h_kv
+    qg = q[:, 0].reshape(b, h_kv, g, d).float()
+    scores = torch.einsum(
+        "bhgd,bhsd->bhgs", qg, cached_k.float()) * (1.0 / d ** 0.5)
+    k_idx = torch.arange(s, device=q.device)
+    valid = (k_idx >= lo) & (k_idx < hi)
+    scores = torch.where(valid, scores, NEG_INF)
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    w = (p / p.sum(dim=-1, keepdim=True)).to(cached_v.dtype)
+    out = torch.einsum("bhgs,bhsd->bhgd", w.float(), cached_v.float())
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def decode_smem_bytes(h: int, h_kv: int, d: int, lo: int, hi: int) -> int:
+    """Dynamic shared memory of one kernel block: the group's fp32 scores
+    plus the per-warp partial outputs."""
+    g = h // h_kv
+    return (g * (hi - lo) + _WARPS * g * d) * 4
+
+
+def decode_attention_cuda(q, cached_k, cached_v, lo: int, hi: int):
+    """Launch ``csrc/decode_attention.cu`` on the current stream.
+
+    The port of ``_decode_attn_kernel``
+    (``distributedtensorflow_tpu/ops/attention.py:279``).  Bound on the
+    H100 by the K/V read: ``2 * B * Hkv * (hi - lo) * D * itemsize``
+    bytes over 3.35 TB/s."""
+    if q.device.type != "cuda":
+        raise ValueError(f"decode attention kernel needs CUDA, got {q.device}")
+    b, one, h, d = q.shape
+    if one != 1:
+        raise ValueError(f"decode attention kernel takes one query, got {one}")
+    if cached_k.shape != cached_v.shape or cached_k.dim() != 4 \
+            or cached_k.shape[0] != b or cached_k.shape[3] != d:
+        raise ValueError(
+            f"cache shapes {tuple(cached_k.shape)}/{tuple(cached_v.shape)} do "
+            f"not fit q {tuple(q.shape)}")
+    h_kv, s = cached_k.shape[1], cached_k.shape[2]
+    if q.dtype not in (torch.float32, torch.bfloat16) \
+            or cached_k.dtype != q.dtype or cached_v.dtype != q.dtype:
+        raise TypeError(
+            f"decode attention kernel takes all-fp32 or all-bf16, got q "
+            f"{q.dtype}, K {cached_k.dtype}, V {cached_v.dtype}")
+    vec = 16 // q.element_size()
+    if h % h_kv or h // h_kv > _MAX_GROUP or d % vec or 32 % (d // vec):
+        raise ValueError(
+            f"decode attention kernel needs H % Hkv == 0, H / Hkv <= "
+            f"{_MAX_GROUP} and D / {vec} dividing 32; got H={h} Hkv={h_kv} "
+            f"D={d}")
+    if not 0 <= lo < hi <= s:
+        raise ValueError(f"attended band [{lo}, {hi}) is not inside [0, {s})")
+    smem = decode_smem_bytes(h, h_kv, d, lo, hi)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"decode attention scores of {hi - lo} positions need {smem} "
+            f"bytes of shared memory; a block has {SMEM_LIMIT}")
+    for t in (q, cached_k, cached_v):
+        if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(
+                "decode attention kernel needs contiguous, 16-byte aligned "
+                "tensors on one device")
+    out = torch.empty_like(q)
+    lib = _cuda.load("decode_attention", _SIGNATURES)
+    err = lib.dtf_decode_attention(
+        q.data_ptr(), cached_k.data_ptr(), cached_v.data_ptr(),
+        out.data_ptr(), b, h, h_kv, s, d, lo, hi, 1.0 / d ** 0.5,
+        q.dtype == torch.bfloat16, q.device.index or 0,
+        _cuda.stream_handle(q.device))
+    _cuda.launches["decode_attention"] += 1
+    _cuda.check(lib, err, "decode_attention")
+    return out

@@ -1,0 +1,111 @@
+"""The port's LayerNorm against the JAX Pallas LayerNorm kernel.
+
+The JAX side runs its kernel as ``tests/test_layernorm.py`` does on the
+CPU, in interpret mode; the port's side is the plain PyTorch twin that
+its CUDA kernel is checked against on the card (``chip_smoke.py``).
+Inputs come from numpy with a fixed seed and feed both packages.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from distributedtensorflow_tpu.ops.layernorm import layer_norm as jax_layer_norm
+from distributedtensorflow_tpu_torch.ops import _cuda
+from distributedtensorflow_tpu_torch.ops.layernorm import (
+    _plain_layer_norm,
+    layer_norm,
+    layer_norm_cuda,
+)
+
+DTYPES = {"fp32": (jnp.float32, torch.float32),
+          "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _inputs(shape, seed):
+    rng = np.random.default_rng(seed)
+    d = shape[-1]
+    x = (2.0 * rng.standard_normal(shape) + 0.5).astype(np.float32)
+    g = (1.0 + 0.1 * rng.standard_normal(d)).astype(np.float32)
+    b = (0.1 * rng.standard_normal(d)).astype(np.float32)
+    return x, g, b
+
+
+def _both(x, g, b, dt_in, dt_out, eps=1e-6):
+    (j_in, t_in), (j_out, t_out) = DTYPES[dt_in], DTYPES[dt_out]
+    ref = jax_layer_norm(jnp.asarray(x).astype(j_in), jnp.asarray(g),
+                         jnp.asarray(b), eps=eps, out_dtype=j_out,
+                         impl="pallas", interpret=True)
+    got = _plain_layer_norm(torch.from_numpy(x).to(t_in), torch.from_numpy(g),
+                            torch.from_numpy(b), eps, t_out)
+    assert got.dtype == t_out
+    return (got.float().numpy(),
+            np.asarray(ref.astype(jnp.float32)))
+
+
+def _bf16_ulps(got, ref):
+    """Largest |got - ref| in units of one bf16 ulp of ``ref`` (8
+    significant bits: an ulp is 2**(e - 8) for |ref| in [2**(e-1), 2**e))."""
+    _, e = np.frexp(np.maximum(np.abs(ref), 2.0**-100))
+    return float(np.max(np.abs(got - ref) / np.ldexp(1.0, e - 8)))
+
+
+# Ragged row counts: 37 and 517 are not multiples of the kernel's
+# 512-row block, so the JAX side pads and slices.
+@pytest.mark.parametrize("n", [37, 517])
+@pytest.mark.parametrize("dt_in,dt_out",
+                         [("fp32", "fp32"), ("bf16", "bf16"), ("bf16", "fp32")])
+def test_plain_matches_pallas_interpret(n, dt_in, dt_out):
+    got, ref = _both(*_inputs((n, 128), seed=n), dt_in, dt_out)
+    if dt_out == "fp32":
+        # fp32 statistics on both sides; only the summation order differs
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+    else:
+        # one rounding to bf16 from fp32 values a few fp32 ulps apart
+        assert _bf16_ulps(got, ref) <= 1.0
+
+
+@pytest.mark.parametrize("eps", [1e-3, 1e-5])
+def test_custom_eps_and_leading_dims(eps):
+    # 3-D input: the op normalises the last axis of any leading shape
+    got, ref = _both(*_inputs((2, 5, 64), seed=7), "fp32", "fp32", eps=eps)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+
+
+def test_default_eps_is_flax_not_torch():
+    # one entry of 2**-7 in a row of zeros: every sum is exact and the
+    # variance (63 * 2**-26, about 9.4e-7) is close to eps, so flax's
+    # 1e-6 and torch's 1e-5 give outputs a factor of ~2 apart
+    x = np.zeros((1, 64), np.float32)
+    x[0, 0] = 2.0**-7
+    g, b = np.ones(64, np.float32), np.zeros(64, np.float32)
+    got = layer_norm(torch.from_numpy(x), torch.from_numpy(g),
+                     torch.from_numpy(b)).numpy()
+    ref = np.asarray(jax_layer_norm(jnp.asarray(x), jnp.asarray(g),
+                                    jnp.asarray(b), impl="xla"))
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=0)
+    torch_eps = _plain_layer_norm(torch.from_numpy(x), torch.from_numpy(g),
+                                  torch.from_numpy(b), 1e-5,
+                                  torch.float32).numpy()
+    assert abs(torch_eps[0, 0] - got[0, 0]) > 1.0
+
+
+def test_cpu_tensor_takes_plain_path_and_launches_nothing():
+    x, g, b = _inputs((9, 32), seed=3)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    _cuda.launches.clear()
+    y = layer_norm(xt, torch.from_numpy(g), torch.from_numpy(b),
+                   out_dtype=torch.float32)
+    assert y.dtype == torch.float32 and y.shape == (9, 32)
+    assert torch.equal(y, _plain_layer_norm(
+        xt, torch.from_numpy(g), torch.from_numpy(b), 1e-6, torch.float32))
+    assert not _cuda.launches
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    # no silent plain path behind the kernel's entry
+    x, g, b = _inputs((4, 32), seed=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        layer_norm_cuda(torch.from_numpy(x), torch.from_numpy(g),
+                        torch.from_numpy(b), 1e-6, torch.float32)
