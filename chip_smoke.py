@@ -8,14 +8,17 @@ Run from the repository root on a machine with one CUDA card:
 Phases, each fatal on failure:
 
 1. device: the card's name and power limit, as nvidia-smi prints them;
-2. build: every CUDA kernel of the serving path, compiled with nvcc for
-   sm_90a from ``distributedtensorflow_tpu_torch/csrc`` into
-   ``build/torch_kernels/``;
+2. build: every CUDA kernel of the serving and training paths (five
+   libraries), compiled with nvcc for sm_90a from
+   ``distributedtensorflow_tpu_torch/csrc`` into ``build/torch_kernels/``,
+   one nvcc per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the same
-   inputs at the serving path's shapes, with its time, the plain
-   version's, one PyTorch library call's, and its bound (the least time
-   the card could take: bytes over 3.35 TB/s or operations over the peak
-   rate of their type);
+   inputs at its path's shapes, with its time, the plain version's, one
+   PyTorch library call's, and its bound (the least time the card could
+   take: bytes over 3.35 TB/s or operations over the peak rate of their
+   type): the LayerNorm forward and decode attention at the serving
+   shapes, the LayerNorm backward and the flash-attention forward, dq
+   and dk/dv kernels at the training step's;
 4. serving: the paged continuous-batching ``Engine`` at full
    GPT-2-small width (bf16, seeded random weights) answers six requests;
 5. dense generate: ``generate`` at full width, batch 4;
@@ -23,18 +26,32 @@ Phases, each fatal on failure:
    time, device-busy time, the kernels that take it);
 7. consistency (fp32, full width): the engine's greedy tokens equal
    ``generate``'s, and the model's logits on the card agree with the
-   plain path on the CPU.
+   plain path on the CPU;
+8. train: ``train_torch``'s step on full-width GPT-2-small (bf16, block
+   remat, seq 2048, batch 8, chunked head, synthetic batches): one
+   warm-up step and four timed ones, losses finite and falling, step
+   time, tokens/s and MFU, and the kernels' launches per step;
+9. profile_train: torch.profiler over two training steps;
+10. consistency_train (fp32, full width, 2 layers, B=1, S=1024, flash
+    kernels forced): loss and every gradient on the card agree with the
+    plain path on the CPU.
 
-Kernel launch counts are set to 0 just before phases 4 and 5 and read
-just after; a kernel of the path that did not launch fails the run.  The
-line before the last is one JSON object with a row per kernel; the last
-line is ``{"ok": true, "device": {...}}``.
+Kernel launch counts are set to 0 just before phases 4, 5 and 8 and read
+just after; a kernel of the path that did not launch, or a training step
+that launched a kernel another number of times than its forward,
+recomputation and backward need, fails the run.  The line before the
+last is one JSON object with a row per kernel; the last line is
+``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset (for
+iterating on one part); the default runs all.
 """
 
 from __future__ import annotations
 
+import argparse
+import collections
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -201,6 +218,352 @@ def check_decode_attention(torch, F, attn):
     return rows
 
 
+def check_layernorm_bwd(torch, ln):
+    """K1b at the training step's rows: 8 x 2048 tokens of width 768,
+    bf16 x with bf16 dy (the blocks' LayerNorms) and fp32 dy (ln_f)."""
+    rows = []
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    n, d = 8 * 2048, 768
+    gamma = 1.0 + 0.1 * torch.randn(d, device="cuda", generator=g)
+    beta = 0.1 * torch.randn(d, device="cuda", generator=g)
+    for dy_dtype in (torch.bfloat16, torch.float32):
+        x = (2.0 * torch.randn(n, d, device="cuda", generator=g)
+             + 0.5).to(torch.bfloat16)
+        dy = torch.randn(n, d, device="cuda", generator=g).to(dy_dtype)
+        dx, dg, db = ln.layer_norm_bwd_cuda(x, gamma, dy, 1e-6)
+        rdx, rdg, rdb = ln._plain_layer_norm_bwd(x, gamma, dy, 1e-6)
+        again = ln.layer_norm_bwd_cuda(x, gamma, dy, 1e-6)
+        torch.cuda.synchronize()
+        # dx = rstd * (a - mean(a) - xhat * mean(a * xhat)) cancels: a
+        # few fp32 ulps of another summation order can turn into many
+        # bf16 ulps of a small entry, so the bound is one bf16 ulp of the
+        # largest entry (2**-7 of max|dx|, at most 2**-8 away from it)
+        dx_rel = _rel_err(dx, rdx)
+        sum_err = max(((dg - rdg).abs().max() / rdg.abs().max()).item(),
+                      ((db - rdb).abs().max() / rdb.abs().max()).item())
+        deterministic = all(torch.equal(a, b) for a, b in
+                            zip((dx, dg, db), again))
+        ok = dx_rel <= 2.0**-7 and sum_err <= 1e-4 and deterministic
+        _, mean, rstd = torch.ops.aten.native_layer_norm(
+            x, [d], gamma.to(x.dtype), beta.to(x.dtype), 1e-6)
+        dy_lib = dy.to(x.dtype)
+
+        def library(dy_lib=dy_lib, x=x, mean=mean, rstd=rstd):
+            return torch.ops.aten.native_layer_norm_backward(
+                dy_lib, x, [d], mean, rstd, gamma.to(x.dtype),
+                beta.to(x.dtype), [True, True, True])
+
+        nbytes = n * d * (2 * x.element_size() + dy.element_size()) \
+            + 3 * d * 4
+        bms, by = bound_ms(nbytes, 20 * n * d, torch.float32)
+        row = {
+            "kernel": "layernorm_bwd", "n": n, "d": d, "x": "bfloat16",
+            "dy": str(dy_dtype)[6:],
+            "max_abs_err": (dx.float() - rdx.float()).abs().max().item(),
+            "dx_rel_err": dx_rel, "dgamma_dbeta_rel_err": sum_err,
+            "deterministic": deterministic,
+            "tolerance": "dx 2**-7 of max|dx| (one bf16 ulp of the largest "
+                         "entry); dgamma, dbeta 1e-4 of their max; "
+                         "bit-identical on a rerun",
+            "ms": time_ms(torch, ln.layer_norm_bwd_cuda,
+                          [(x, gamma, dy, 1e-6)]),
+            "plain_ms": time_ms(torch, ln._plain_layer_norm_bwd,
+                                [(x, gamma, dy, 1e-6)]),
+            "library_ms": time_ms(torch, library, [()]),
+            "bound_ms": bms, "bound_by": by,
+        }
+        emit(row)
+        if not ok:
+            raise AssertionError(f"layernorm backward kernel disagrees: {row}")
+        rows.append(row)
+    return rows
+
+
+def _keep(torch, s, causal, window, mask, seg):
+    """(B or 1, 1, S, S) bool: the (query, key) pairs the masks leave."""
+    q = torch.arange(s, device="cuda")[:, None]
+    k = torch.arange(s, device="cuda")[None, :]
+    keep = torch.ones((s, s), dtype=torch.bool, device="cuda")
+    if causal:
+        keep &= k <= q
+    if window is not None:
+        keep &= k > q - window
+    keep = keep[None, None]
+    if mask is not None:
+        keep = keep & mask[:, None, None, :]
+    if seg is not None:
+        keep = keep & (seg[:, None, :, None] == seg[:, None, None, :])
+    return keep
+
+
+def _rel_err(got, ref):
+    return ((got.float() - ref.float()).abs().max()
+            / ref.float().abs().max().clamp_min(1e-30)).item()
+
+
+def check_flash(torch, F, fa):
+    """K2 and K3 (dq, dk/dv) at the training step's attention: B=8, H=12,
+    S=2048, D=64, causal, bf16; GQA, window and padding cases; fp32 once;
+    and a ragged case (S not a multiple of the 64-row tiles, with GQA,
+    window, padding and packed segments at once) and a D=32 case."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    # name, dtype, (B, H, Hkv, S, D), window, padding, segment ids
+    cases = [("causal", bf16, (8, 12, 12, 2048, 64), None, False, False),
+             ("gqa", bf16, (8, 12, 4, 2048, 64), None, False, False),
+             ("window", bf16, (8, 12, 12, 2048, 64), 512, False, False),
+             ("padding", bf16, (8, 12, 12, 2048, 64), None, True, False),
+             ("causal_fp32", fp32, (8, 12, 12, 2048, 64), None, False, False),
+             ("ragged_all_masks", bf16, (2, 12, 4, 1000, 64), 300, True,
+              True),
+             ("d32_fp32", fp32, (2, 4, 2, 256, 32), None, True, False)]
+    rows = {"flash_fwd": [], "flash_bwd_dq": [], "flash_bwd_dkv": []}
+    for name, dtype, (b, h, h_kv, s, d), window, padded, segmented in cases:
+        def rnd(*shape):
+            return torch.randn(*shape, device="cuda", generator=g).to(dtype)
+
+        q, do = rnd(b, s, h, d), rnd(b, s, h, d)
+        k, v = rnd(b, s, h_kv, d), rnd(b, s, h_kv, d)
+        mask = seg = None
+        if padded:
+            lens = torch.randint(s // 2, s + 1, (b,), device="cuda",
+                                 generator=g)
+            mask = torch.arange(s, device="cuda")[None, :] < lens[:, None]
+        if segmented:
+            seg = torch.cumsum(torch.rand((b, s), device="cuda", generator=g)
+                               < 0.01, dim=1).to(torch.int32)
+        kw = dict(mask=mask, segment_ids=seg, causal=True, window=window)
+        o, lse = fa.flash_forward_cuda(q, k, v, *kw.values())
+        ro, rlse = fa._plain_flash_forward(q, k, v, *kw.values())
+        delta = (do.float() * ro.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        bargs = (q, k, v, do, rlse, delta, *kw.values())
+        dq = fa.flash_bwd_dq_cuda(*bargs)
+        dk, dv = fa.flash_bwd_dkv_cuda(*bargs)
+        rdq = fa._plain_flash_bwd_dq(*bargs)
+        rdk, rdv = fa._plain_flash_bwd_dkv(*bargs)
+        dq2 = fa.flash_bwd_dq_cuda(*bargs)
+        dk2, dv2 = fa.flash_bwd_dkv_cuda(*bargs)
+        torch.cuda.synchronize()
+        deterministic = all(torch.equal(a, c) for a, c in
+                            ((dq, dq2), (dk, dk2), (dv, dv2)))
+        o_tol, g_tol = (2e-2, 1e-2) if dtype == bf16 else (2e-5, 1e-4)
+        errs = {"o": (o.float() - ro.float()).abs().max().item(),
+                "lse": (lse - rlse).abs().max().item(),
+                "dq": _rel_err(dq, rdq), "dk": _rel_err(dk, rdk),
+                "dv": _rel_err(dv, rdv)}
+        oks = {"flash_fwd": errs["o"] <= o_tol and errs["lse"] <= 1e-3,
+               "flash_bwd_dq": errs["dq"] <= g_tol and deterministic,
+               "flash_bwd_dkv": max(errs["dk"], errs["dv"]) <= g_tol
+               and deterministic}
+        keep = _keep(torch, s, True, window, mask, seg)
+        # (query, key) pairs over all heads: the work these inputs need
+        pairs = float(keep.expand(b, 1, s, s).sum()) * h
+        el = q.element_size()
+        qbytes, kvbytes, rows_bytes = b * s * h * d * el, \
+            b * s * h_kv * d * el, b * h * s * 4
+        lib_mask = None if window is None and mask is None and seg is None \
+            else keep
+        gqa = h != h_kv
+        qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+
+        def sdpa(qt=qt, kt=kt, vt=vt, lib_mask=lib_mask, gqa=gqa):
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=lib_mask, is_causal=lib_mask is None,
+                enable_gqa=gqa)
+
+        qr, kr, vr = (x.detach().clone().requires_grad_(True)
+                      for x in (qt, kt, vt))
+        out_lib = F.scaled_dot_product_attention(
+            qr, kr, vr, attn_mask=lib_mask, is_causal=lib_mask is None,
+            enable_gqa=gqa)
+
+        def sdpa_bwd(out_lib=out_lib, qr=qr, kr=kr, vr=vr, dot=dot):
+            return torch.autograd.grad(out_lib, (qr, kr, vr), dot,
+                                       retain_graph=True)
+
+        iters = dict(iters=10, reps=3)
+        fwd_args = [(q, k, v, *kw.values())]
+        lib_bwd_ms = time_ms(torch, sdpa_bwd, [()], graph=False, **iters)
+        common = {"case": name, "b": b, "h": h, "h_kv": h_kv, "s": s, "d": d,
+                  "dtype": str(dtype)[6:], "window": window,
+                  "padding": padded, "segments": segmented,
+                  "deterministic": deterministic}
+        specs = [
+            ("flash_fwd", fa.flash_forward_cuda, fa._plain_flash_forward,
+             fwd_args, 4 * d * pairs,
+             2 * qbytes + 2 * kvbytes + rows_bytes,
+             time_ms(torch, sdpa, [()], **iters),
+             {"o_max_abs_err": errs["o"], "lse_max_abs_err": errs["lse"],
+              "tolerance": f"o atol {o_tol}, lse atol 1e-3"},
+             errs["o"]),
+            ("flash_bwd_dq", fa.flash_bwd_dq_cuda, fa._plain_flash_bwd_dq,
+             [bargs], 6 * d * pairs,
+             3 * qbytes + 2 * kvbytes + 2 * rows_bytes, lib_bwd_ms,
+             {"dq_rel_err": errs["dq"],
+              "tolerance": f"{g_tol} of max|dq|; bit-identical on a rerun"},
+             (dq.float() - rdq.float()).abs().max().item()),
+            ("flash_bwd_dkv", fa.flash_bwd_dkv_cuda, fa._plain_flash_bwd_dkv,
+             [bargs], 8 * d * pairs,
+             2 * qbytes + 4 * kvbytes + 2 * rows_bytes, lib_bwd_ms,
+             {"dk_rel_err": errs["dk"], "dv_rel_err": errs["dv"],
+              "tolerance": f"{g_tol} of max|dk|, max|dv|; bit-identical "
+                           "on a rerun"},
+             max((dk.float() - rdk.float()).abs().max().item(),
+                 (dv.float() - rdv.float()).abs().max().item())),
+        ]
+        for kname, kern, plain, args, flops, nbytes, lib_ms, extra, err \
+                in specs:
+            bms, by = bound_ms(nbytes, flops, dtype)
+            row = {"kernel": kname, **common, "max_abs_err": err, **extra,
+                   "flops": flops, "ms": time_ms(torch, kern, args, **iters),
+                   "plain_ms": time_ms(torch, plain, args, **iters),
+                   "library_ms": lib_ms,
+                   "library": "F.scaled_dot_product_attention "
+                              + ("forward" if kname == "flash_fwd" else
+                                 "backward (dq, dk, dv together; eager)"),
+                   "bound_ms": bms, "bound_by": by}
+            emit(row)
+            if not oks[kname]:
+                raise AssertionError(f"{kname} kernel disagrees: {row}")
+            rows[kname].append(row)
+        del out_lib, qr, kr, vr
+        torch.cuda.empty_cache()
+    return rows
+
+
+#: Kernel launches of one gpt_small training step with block remat: the
+#: LayerNorm forward 25 times in the forward and 24 again when the 12
+#: blocks are recomputed, its backward 25 times; the flash forward once a
+#: layer and again in the recomputation; its dq and dk/dv kernels once a
+#: layer.
+TRAIN_LAUNCHES_PER_STEP = {"layernorm_fwd": 49, "layernorm_bwd": 25,
+                           "flash_fwd": 24, "flash_bwd_dq": 12,
+                           "flash_bwd_dkv": 12}
+
+
+def _train_args(train_torch, *extra):
+    return train_torch.parse_args(
+        ["--workload", "gpt_lm", "--batch-size", "8", "--seq-len", "2048",
+         "--xent-impl", "chunked", "--remat", "on", "--seed", str(SEED),
+         "--device", "cuda", *extra])
+
+
+def _param_count(model):
+    return sum(p.numel() for p in model.parameters())
+
+
+def run_train(torch, cuda, train_torch):
+    """Full-width GPT-2-small steps through ``train_torch.build``."""
+    wl, state, step, batches = train_torch.build(_train_args(train_torch))
+    cfg = wl.cfg
+    if cfg.dtype != torch.bfloat16 or not cfg.remat:
+        raise AssertionError(f"unexpected training config {cfg}")
+    state, m = step(state, next(batches))  # warm-up
+    losses = [float(m["loss"])]
+    torch.cuda.synchronize()
+    cuda.launches.clear()
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(4):
+        batch = next(batches)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    launches = dict(cuda.launches)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training losses not finite and falling: "
+                             f"{losses}")
+    per_step = {k: launches.get(k, 0) / 4 for k in TRAIN_LAUNCHES_PER_STEP}
+    if per_step != TRAIN_LAUNCHES_PER_STEP or launches.get(
+            "decode_attention"):
+        raise AssertionError(f"launches per training step {per_step} (all: "
+                             f"{launches}), expected "
+                             f"{TRAIN_LAUNCHES_PER_STEP}")
+    tokens = wl.global_batch_size * wl.seq_len
+    step_s = statistics.median(times)
+    n_params = _param_count(state.model)
+    flops_per_token = 6 * n_params + 6 * cfg.num_layers * wl.seq_len \
+        * cfg.hidden_size
+    tps = tokens / step_s
+    emit({"phase": "train", "workload": wl.name, "batch": wl.global_batch_size,
+          "seq": wl.seq_len, "layers": cfg.num_layers,
+          "hidden": cfg.hidden_size, "params": n_params, "remat": cfg.remat,
+          "attn_impl": cfg.attn_impl, "xent_impl": cfg.xent_impl,
+          "losses": losses, "step_ms": [1e3 * t for t in times],
+          "step_ms_median": 1e3 * step_s, "tokens_per_sec": tps,
+          "mfu": flops_per_token * tps / PEAK_FLOPS["bfloat16"],
+          "mfu_flops_per_token": flops_per_token,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "launches": launches, "launches_per_step": per_step})
+    return state, step, batches, launches
+
+
+def run_profile_train(torch, state, step, batches):
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = [next(batches) for _ in range(2)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for bt in batch:
+            state, m = step(state, bt)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
+    emit({"phase": "profile_train", "steps": 2, "wall_ms": 1e3 * wall,
+          "device_busy_ms": busy,
+          "device_idle_share": 1.0 - busy / (1e3 * wall),
+          "top_kernels": [{"name": e.key[:80], "calls": e.count,
+                           "ms": e.self_device_time_total / 1e3}
+                          for e in top]})
+
+
+def run_consistency_train(torch, mods, cuda, device="cuda"):
+    """fp32 loss and gradients of 2 full-width layers at S=1024, B=1, the
+    flash kernels forced, on the card against the CPU's plain path."""
+    cfg = dataclasses.replace(mods.gpt_small(), num_layers=2,
+                              dtype=torch.float32, attn_impl="pallas",
+                              xent_impl="chunked")
+    state = mods.init_params(cfg, torch.Generator().manual_seed(SEED + 7))
+    ids = np.random.default_rng(SEED + 7).integers(0, cfg.vocab_size,
+                                                   (1, 1024))
+    out = {}
+    cuda.launches.clear()
+    for dev in (device, "cpu"):
+        model = mods.GPTLM(cfg, device=dev)
+        model.load_state_dict(state)
+        loss, _ = mods.lm_loss(model)(
+            {"input_ids": torch.as_tensor(ids, device=dev)})
+        names, params = zip(*model.named_parameters())
+        grads = torch.autograd.grad(loss, params)
+        out[dev] = (float(loss.detach()),
+                    {n: gr.cpu() for n, gr in zip(names, grads)})
+    launches = dict(cuda.launches)
+    (card_loss, card_g), (cpu_loss, cpu_g) = out[device], out["cpu"]
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    worst = max(((card_g[n] - cpu_g[n]).abs().max()
+                 / cpu_g[n].abs().max().clamp_min(1e-30)).item()
+                for n in cpu_g)
+    ok = loss_rel <= 1e-5 and worst <= 1e-3 and all(
+        launches.get(k) for k in TRAIN_LAUNCHES_PER_STEP)
+    emit({"phase": "consistency_train", "dtype": "float32", "layers": 2,
+          "batch": 1, "seq": 1024, "attn_impl": "pallas",
+          "card_loss": card_loss, "cpu_loss": cpu_loss,
+          "loss_rel_err": loss_rel, "worst_grad_rel_err": worst,
+          "tolerance": "loss 1e-5 relative; every gradient leaf 1e-3 of "
+                       "its max-abs",
+          "launches": launches})
+    if not ok:
+        raise AssertionError("card training step differs from the CPU's")
+
+
 def sync(torch, dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -356,16 +719,26 @@ def run_consistency(torch, mods, Engine, cfg, state, device="cuda"):
         raise AssertionError(f"card logits differ from the CPU's by {err}")
 
 
-def main() -> int:
+PHASES = ("kernels", "serving", "train")
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description="drive the port on one GPU")
+    p.add_argument("--phases", default=",".join(PHASES),
+                   help="comma-separated subset of " + ", ".join(PHASES)
+                        + " (device and build always run)")
+    phases = set(p.parse_args(argv).phases.split(","))
     import torch
     import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    import train_torch
     from distributedtensorflow_tpu_torch import models as mods
     from distributedtensorflow_tpu_torch.ops import _cuda
     from distributedtensorflow_tpu_torch.ops import attention as attn
+    from distributedtensorflow_tpu_torch.ops import flash_attention as fa
     from distributedtensorflow_tpu_torch.ops import layernorm as ln
     from distributedtensorflow_tpu_torch.serve import Engine
 
@@ -387,41 +760,65 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.time() - t0,
           "built": sorted(reports)})
 
-    ln_rows = check_layernorm(torch, F, ln)
-    at_rows = check_decode_attention(torch, F, attn)
+    rows = {}
+    if "kernels" in phases:
+        rows["layernorm_fwd"] = check_layernorm(torch, F, ln)
+        rows["decode_attention"] = check_decode_attention(torch, F, attn)
+        rows["layernorm_bwd"] = check_layernorm_bwd(torch, ln)
+        rows.update(check_flash(torch, F, fa))
 
-    cfg = mods.gpt_small()
-    state = mods.init_params(cfg, torch.Generator().manual_seed(SEED))
-    model = mods.GPTLM(cfg)
-    model.load_state_dict(state)
-    serve_launches = run_serving(torch, _cuda, Engine, model, cfg.vocab_size)
-    gen_launches = run_generate(torch, _cuda, mods.generate, model,
-                                cfg.vocab_size)
-    run_profile(torch, Engine, mods.generate, model, cfg.vocab_size)
-    del model
-    torch.cuda.empty_cache()
-    run_consistency(torch, mods, Engine, cfg, state)
+    launches = collections.Counter()
+    if "serving" in phases:
+        cfg = mods.gpt_small()
+        state = mods.init_params(cfg, torch.Generator().manual_seed(SEED))
+        model = mods.GPTLM(cfg)
+        model.load_state_dict(state)
+        launches.update(run_serving(torch, _cuda, Engine, model,
+                                    cfg.vocab_size))
+        launches.update(run_generate(torch, _cuda, mods.generate, model,
+                                     cfg.vocab_size))
+        run_profile(torch, Engine, mods.generate, model, cfg.vocab_size)
+        del model
+        torch.cuda.empty_cache()
+        run_consistency(torch, mods, Engine, cfg, state)
 
-    def summary(name, row, route_src, replaces):
+    if "train" in phases:
+        tstate, tstep, batches, train_launches = run_train(
+            torch, _cuda, train_torch)
+        launches.update(train_launches)
+        run_profile_train(torch, tstate, tstep, batches)
+        del tstate, tstep, batches
+        torch.cuda.empty_cache()
+        run_consistency_train(torch, mods, _cuda)
+
+    if phases != set(PHASES):
+        print(f"chip_smoke: ran only {sorted(phases)}", file=sys.stderr)
+        return 2
+
+    sources = {
+        "layernorm_fwd": ("layernorm_fwd.cu", "ops/layernorm.py:48"),
+        "decode_attention": ("decode_attention.cu", "ops/attention.py:279"),
+        "layernorm_bwd": ("layernorm_bwd.cu", "ops/layernorm.py:59"),
+        "flash_fwd": ("flash_fwd.cu", "ops/flash_attention.py:333"),
+        "flash_bwd_dq": ("flash_bwd.cu", "ops/flash_attention.py:671"),
+        "flash_bwd_dkv": ("flash_bwd.cu", "ops/flash_attention.py:724"),
+    }
+
+    def summary(name):
+        src, replaces = sources[name]
+        row = rows[name][0]
         return {
-            "name": name, "route": "cuda", "source": route_src,
-            "replaces": replaces,
-            "launches": serve_launches.get(name, 0)
-            + gen_launches.get(name, 0),
+            "name": name, "route": "cuda",
+            "source": f"distributedtensorflow_tpu_torch/csrc/{src}",
+            "replaces": f"distributedtensorflow_tpu/{replaces}",
+            "launches": launches.get(name, 0),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         }
 
     print(smi, flush=True)
-    emit({"kernels": [
-        summary("layernorm_fwd", ln_rows[0],
-                "distributedtensorflow_tpu_torch/csrc/layernorm_fwd.cu",
-                "distributedtensorflow_tpu/ops/layernorm.py:48"),
-        summary("decode_attention", at_rows[0],
-                "distributedtensorflow_tpu_torch/csrc/decode_attention.cu",
-                "distributedtensorflow_tpu/ops/attention.py:279"),
-    ]})
+    emit({"kernels": [summary(name) for name in sources]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})

@@ -1,7 +1,8 @@
-"""Parameters for the port's ``GPTLM``: from a JAX tree, or seeded random.
+"""Parameters for the port's ``GPTLM``: from and to a JAX tree, or seeded.
 
-Both functions return a ``state_dict`` of fp32 CPU tensors for
-``GPTLM.load_state_dict``.  The JAX tree is the nested dict of arrays
+``params_from_flax`` and ``init_params`` return a ``state_dict`` of fp32
+CPU tensors for ``GPTLM.load_state_dict``; ``params_to_flax`` maps such a
+dict (or one of gradients, by parameter name) back to the JAX tree.  The JAX tree is the nested dict of arrays
 that ``distributedtensorflow_tpu.models.GPTLM.init`` returns under
 ``"params"`` (numpy arrays, or anything ``np.asarray`` takes); nothing
 of JAX is imported here.  Flax Dense kernels are (in, out) and become
@@ -82,6 +83,31 @@ def params_from_flax(tree, cfg: GPTConfig) -> dict[str, torch.Tensor]:
     if extra:
         raise ValueError(f"unexpected parameters in the tree: {extra}")
     return state
+
+
+def params_to_flax(state, cfg: GPTConfig) -> dict:
+    """The JAX ``GPTLM`` parameter tree (nested dicts of fp32 numpy
+    arrays) for the port's ``state`` (parameter name -> tensor): the
+    inverse of :func:`params_from_flax`, so gradients compare leaf by
+    leaf.  Raises when a name is missing, left over or misshapen."""
+    shapes = _shapes(cfg)
+    extra = sorted(set(state) - set(shapes))
+    if extra:
+        raise ValueError(f"unexpected parameters in the state: {extra}")
+    tree: dict = {}
+    for name, shape in shapes.items():
+        if name not in state:
+            raise ValueError(f"the state has no {name}")
+        arr = state[name].detach().to("cpu", torch.float32).numpy()
+        if tuple(arr.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(arr.shape)}, expected "
+                             f"{shape}")
+        path, is_kernel = _flax_path(name)
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.array(arr.T if is_kernel else arr)
+    return tree
 
 
 def init_params(cfg: GPTConfig, generator: torch.Generator

@@ -1,29 +1,36 @@
-"""GPT decoder LM, decode mode: the serving half of the model.
+"""GPT decoder LM: the serving (decode) and training forwards.
 
-Twin of ``distributedtensorflow_tpu/models/gpt.py`` in decode mode
-(``GPTLM(decode=True)``): pre-LN blocks, a fused qkv projection with the
-GQA column split, rotary embeddings, tanh-approximated GELU, bf16
-compute with fp32 LayerNorm statistics and an fp32 tied head.
+Twin of ``distributedtensorflow_tpu/models/gpt.py``: pre-LN blocks, a
+fused qkv projection with the GQA column split, rotary embeddings,
+tanh-approximated GELU, bf16 compute with fp32 LayerNorm statistics and
+an fp32 tied head.
 
-The KV cache is a plain dict that the caller owns, named like the flax
-``cache`` collection: ``cache["h{i}"]["attn"]`` holds ``cached_key`` and
-``cached_value`` (B, Hkv, max_seq, D) and ``cache_index`` (an int).  The
-model writes it in place.  The training forward (no cache) needs the
-flash-attention kernels and is not ported yet.
+With a ``cache`` the model runs in decode mode (``GPTLM(decode=True)``
+in JAX).  The KV cache is a plain dict that the caller owns, named like
+the flax ``cache`` collection: ``cache["h{i}"]["attn"]`` holds
+``cached_key`` and ``cached_value`` (B, Hkv, max_seq, D) and
+``cache_index`` (an int), written in place.  Without one it runs the
+training forward: causal attention through ``dot_product_attention``
+(the flash kernels K2/K3 on the card), block remat through
+``torch.utils.checkpoint``, dropout from explicit seeds.  The losses
+(:func:`lm_loss`, :func:`lm_eval`) take the hidden states
+(``return_hidden=True``) to the chunked cross-entropy head.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from ..ops.attention import cached_decode_attention
-from ..ops.xent import tied_head_logits
-from .layers import FusedLayerNorm, dense
+from ..ops.attention import cached_decode_attention, dot_product_attention
+from ..ops.xent import chunked_softmax_xent, tied_head_logits
+from .layers import FusedLayerNorm, dense, dropout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,9 +40,23 @@ class GPTConfig:
     num_layers: int = 12
     num_heads: int = 12
     intermediate_size: int = 3072
+    #: Blockwise FFN (``ops/blockwise.py`` in JAX) is not ported; only 0.
+    ffn_chunk_size: int = 0
     max_seq: int = 2048
+    dropout_rate: float = 0.0
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.bfloat16
+    #: Recompute each block in the backward (``torch.utils.checkpoint``).
+    remat: bool = True
+    #: Recompute only the attention op of each block in the backward.
+    remat_attn: bool = False
+    #: "auto" (the flash kernels on the card past the seq gate), "pallas"
+    #: (the flash kernels, or their plain twins on the CPU) or "xla"
+    #: (whole score tensors, the plain path).
+    attn_impl: str = "auto"
+    #: LM-head loss: "auto", "chunked", "chunked_bf16" or "fused"; see
+    #: :func:`_pick_xent`.
+    xent_impl: str = "auto"
     #: Sliding window: token i attends keys in ``(i - attn_window, i]``.
     attn_window: int | None = None
     #: Grouped-query attention: K/V heads (None = num_heads).
@@ -75,7 +96,8 @@ def gpt_medium() -> GPTConfig:
 def gpt_tiny() -> GPTConfig:
     """Test-size config (2 layers, 128 hidden, short context)."""
     return GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
-                     num_heads=4, intermediate_size=256, max_seq=256)
+                     num_heads=4, intermediate_size=256, max_seq=256,
+                     remat=False)
 
 
 def rope_tables(positions: torch.Tensor, d: int, theta: float, dtype):
@@ -116,9 +138,10 @@ class CausalSelfAttention(nn.Module):
         self.proj = dense(self.q_width, cfg.hidden_size, dtype=cfg.dtype,
                           quant=cfg.quant, device=device)
 
-    def forward(self, x, positions, rope_tabs, cache: dict):
-        """One cached step over x (B, S, E); ``cache`` is this layer's
-        ``{"cached_key", "cached_value", "cache_index"}``, updated."""
+    def forward(self, x, positions, rope_tabs, cache: dict | None):
+        """Attention over x (B, S, E): one cached step when ``cache`` is
+        this layer's ``{"cached_key", "cached_value", "cache_index"}``
+        (updated), causal self-attention over the sequence when None."""
         cfg = self.cfg
         b, s, _ = x.shape
         qkv = self.qkv(x)
@@ -129,16 +152,22 @@ class CausalSelfAttention(nn.Module):
             b, s, cfg.kv_heads, cfg.head_dim)
         q = rope(q, positions, cfg.rope_theta, rope_tabs)
         k = rope(k, positions, cfg.rope_theta, rope_tabs)
-        out, cache["cached_key"], cache["cached_value"], \
-            cache["cache_index"] = cached_decode_attention(
-                q, k, v, cache["cached_key"], cache["cached_value"],
-                cache["cache_index"], window=cfg.attn_window)
+        if cache is None:
+            out = dot_product_attention(q, k, v, causal=True,
+                                        window=cfg.attn_window,
+                                        implementation=cfg.attn_impl)
+        else:
+            out, cache["cached_key"], cache["cached_value"], \
+                cache["cache_index"] = cached_decode_attention(
+                    q, k, v, cache["cached_key"], cache["cached_value"],
+                    cache["cache_index"], window=cfg.attn_window)
         return self.proj(out.reshape(b, s, self.q_width))
 
 
 class GPTBlock(nn.Module):
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
+        self.cfg = cfg
         self.ln1 = FusedLayerNorm(cfg.hidden_size, device=device)
         self.attn = CausalSelfAttention(cfg, device=device)
         self.ln2 = FusedLayerNorm(cfg.hidden_size, device=device)
@@ -147,22 +176,37 @@ class GPTBlock(nn.Module):
         self.fc_out = dense(cfg.intermediate_size, cfg.hidden_size,
                             dtype=cfg.dtype, quant=cfg.quant, device=device)
 
-    def forward(self, x, positions, rope_tabs, cache: dict):
-        x = x + self.attn(self.ln1(x), positions, rope_tabs, cache["attn"])
+    def forward(self, x, positions, rope_tabs, cache: dict | None,
+                dropout_seed: int | None = None):
+        h = self.ln1(x)
+        if cache is not None:
+            a = self.attn(h, positions, rope_tabs, cache["attn"])
+        elif self.cfg.remat_attn and torch.is_grad_enabled():
+            a = checkpoint(self.attn, h, positions, rope_tabs, None,
+                           use_reentrant=False)
+        else:
+            a = self.attn(h, positions, rope_tabs, None)
+        x = x + a
         h = self.ln2(x)
-        return x + self.fc_out(F.gelu(self.fc_in(h), approximate="tanh"))
+        m = self.fc_out(F.gelu(self.fc_in(h), approximate="tanh"))
+        return x + dropout(m, self.cfg.dropout_rate, dropout_seed)
 
 
 class GPTLM(nn.Module):
-    """Decoder-only LM over token ids, fp32 logits, decode mode.
+    """Decoder-only LM over token ids, fp32 logits.
 
     ``forward(input_ids, positions=..., cache=...)`` runs the tokens
     through the KV cache (:meth:`init_cache` makes one) and returns
-    (B, S, V) logits.  Parameters live on ``device`` (``cuda`` unless
-    the caller passes ``"cpu"``)."""
+    (B, S, V) logits; without a cache it runs the training forward.
+    Parameters live on ``device`` (``cuda`` unless the caller passes
+    ``"cpu"``)."""
 
     def __init__(self, cfg: GPTConfig, *, device=None):
         super().__init__()
+        if cfg.ffn_chunk_size:
+            raise NotImplementedError(
+                f"ffn_chunk_size={cfg.ffn_chunk_size}: the blockwise FFN "
+                "(ops/blockwise.py) is not ported yet (ROADMAP.md)")
         device = resolve_device(device)
         self.cfg = cfg
         self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
@@ -192,12 +236,14 @@ class GPTLM(nn.Module):
             for i in range(cfg.num_layers)
         }
 
-    def forward(self, input_ids, *, positions=None, cache=None):
-        if cache is None:
-            raise NotImplementedError(
-                "GPTLM runs in decode mode only (pass a cache from "
-                "init_cache); the training forward needs the flash-attention "
-                "kernels K2/K3, queued in ROADMAP.md")
+    def forward(self, input_ids, *, positions=None, cache=None,
+                deterministic: bool = True, generator=None,
+                return_hidden: bool = False):
+        """Logits (B, S, V) fp32, or the final fp32 hidden states (B, S, E)
+        with ``return_hidden``.  ``deterministic=False`` applies dropout,
+        drawing one seed per block from ``generator`` (a CPU
+        ``torch.Generator``) before the block runs, so block remat
+        recomputes the same mask."""
         cfg = self.cfg
         # gather, then cast: the same values as casting the whole table
         x = self.wte.weight[input_ids].to(cfg.dtype)
@@ -205,7 +251,79 @@ class GPTLM(nn.Module):
             positions = torch.arange(
                 input_ids.shape[1], device=x.device).expand(input_ids.shape)
         tabs = rope_tables(positions, cfg.head_dim, cfg.rope_theta, cfg.dtype)
+        remat = cache is None and cfg.remat and torch.is_grad_enabled()
         for i, block in enumerate(self.h):
-            x = block(x, positions, tabs, cache[f"h{i}"])
+            if cache is not None:
+                x = block(x, positions, tabs, cache[f"h{i}"])
+                continue
+            seed = None
+            if not deterministic and cfg.dropout_rate:
+                seed = int(torch.randint(2**62, (), generator=generator))
+            if remat:
+                x = checkpoint(block, x, positions, tabs, None, seed,
+                               use_reentrant=False)
+            else:
+                x = block(x, positions, tabs, None, seed)
         x = self.ln_f(x)
+        if return_hidden:
+            return x
         return tied_head_logits(x, self.wte.weight, cfg.dtype)
+
+
+def _pick_xent(cfg: GPTConfig):
+    """The LM-head loss for ``cfg.xent_impl``: "chunked" (fp32 logits
+    tiles), "chunked_bf16" (bf16 tiles) or "fused".  "auto" is "chunked"
+    on every device until the fused head's kernels K4f/K4b are ported
+    (the JAX package picks "fused" on the TPU); "fused" raises until
+    then."""
+    impl = cfg.xent_impl
+    if impl == "auto":
+        impl = "chunked"
+    if impl == "fused":
+        raise NotImplementedError(
+            "xent_impl='fused': the fused LM-head kernels K4f/K4b "
+            "(ops/fused_xent.py) are not ported yet (ROADMAP.md)")
+    if impl == "chunked":
+        return chunked_softmax_xent
+    if impl == "chunked_bf16":
+        return functools.partial(chunked_softmax_xent,
+                                 logits_dtype=torch.bfloat16)
+    raise ValueError(f"xent_impl={cfg.xent_impl!r}: expected 'auto', "
+                     "'chunked', 'chunked_bf16', or 'fused'")
+
+
+def _next_token_loss(model: GPTLM, xent, batch, **kw):
+    ids = batch["input_ids"]
+    hidden = model(ids, return_hidden=True, **kw)
+    mask = batch.get("mask")
+    return xent(hidden[:, :-1], model.wte.weight, ids[:, 1:],
+                mask[:, 1:] if mask is not None else None,
+                compute_dtype=model.cfg.dtype)
+
+
+def lm_loss(model: GPTLM):
+    """Next-token cross-entropy through the chunked head (JAX
+    ``lm_loss``): ``loss_fn(batch, generator=None) -> (loss,
+    {"perplexity": ...})``; ``batch["input_ids"]`` (B, S), an optional
+    ``batch["mask"]`` (B, S); the final position predicts nothing."""
+    xent = _pick_xent(model.cfg)
+
+    def loss_fn(batch, generator=None):
+        loss = _next_token_loss(model, xent, batch, deterministic=False,
+                                generator=generator)
+        return loss, {"perplexity": torch.exp(loss.detach())}
+
+    return loss_fn
+
+
+def lm_eval(model: GPTLM):
+    """Eval metric_fn (JAX ``lm_eval``): ``metric_fn(batch) -> {"loss",
+    "perplexity"}``, deterministic, without autograd."""
+    xent = _pick_xent(model.cfg)
+
+    def metric_fn(batch):
+        with torch.no_grad():
+            loss = _next_token_loss(model, xent, batch)
+        return {"loss": loss, "perplexity": torch.exp(loss)}
+
+    return metric_fn

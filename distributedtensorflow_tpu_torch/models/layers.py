@@ -1,8 +1,9 @@
 """Shared layers of the port's models.
 
 Twin of ``distributedtensorflow_tpu/models/layers.py``: the LayerNorm
-module and the dense-layer picker.  Parameters are kept in fp32 as
-flax keeps them (``param_dtype``); each call casts to the compute dtype.
+module, the dense-layer picker and dropout.  Parameters are kept in fp32
+as flax keeps them (``param_dtype``); each call casts to the compute
+dtype.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ from ..ops.layernorm import layer_norm
 
 class FusedLayerNorm(nn.Module):
     """``nn.LayerNorm(dtype=float32)`` plus an output cast, through
-    :func:`ops.layernorm.layer_norm` (the CUDA kernel on the card).
+    :func:`ops.layernorm.layer_norm` (the CUDA kernels K1f and, under
+    autograd, K1b on the card).
     Parameters ``scale``/``bias`` (D,) in fp32; ``out_dtype=None`` keeps
     the input dtype, ``torch.float32`` feeds an fp32 head."""
 
@@ -61,3 +63,16 @@ def dense(in_features: int, features: int, *, dtype, quant: str | None = None,
             f"quant={quant!r}: quantised dense layers are not ported yet "
             "(ROADMAP.md)")
     return Dense(in_features, features, dtype=dtype, device=device)
+
+
+def dropout(x: torch.Tensor, rate: float, seed: int | None) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability
+    ``1 - rate`` and scale the kept ones by ``1 / (1 - rate)``.  The bits
+    come from a generator on ``x``'s device seeded with ``seed``, so a
+    recomputation (block remat) draws the same mask; ``seed=None`` or
+    ``rate=0`` is the identity."""
+    if seed is None or not rate:
+        return x
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    keep = torch.rand(x.shape, generator=g, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))

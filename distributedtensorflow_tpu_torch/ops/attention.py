@@ -1,7 +1,13 @@
-"""Attention ops of the serving path.
+"""Attention ops.
 
 Twin of ``distributedtensorflow_tpu/ops/attention.py``:
 
+- :func:`dot_product_attention` (``:29-64``): the dispatch point of the
+  training path.  ``"auto"`` takes the flash kernels (K2/K3,
+  ``ops/flash_attention.py``) for CUDA tensors under the gate of
+  ``flash_attention.supported``, ``"pallas"`` forces them (the plain
+  twins on the CPU), ``"xla"`` is the caller's choice of
+  :func:`xla_attention` (``:409``), the plain path.
 - :func:`cached_decode_attention` (``:67-158``): one KV-cache step
   against the dense (B, Hkv, max_seq, D) cache.  A single new token goes
   through :func:`decode_attention`, whose CUDA route is the hand-written
@@ -25,6 +31,7 @@ import ctypes
 import torch
 
 from . import _cuda
+from . import flash_attention as _flash
 
 #: Finite mask value: a fully masked row averages V instead of giving NaN.
 NEG_INF = -1e9
@@ -36,6 +43,58 @@ _WARPS = 8
 _SIGNATURES = {"dtf_decode_attention": [ctypes.c_void_p] * 4
                + [ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_int] * 2
                + [ctypes.c_void_p]}
+
+
+def dot_product_attention(q, k, v, *, mask=None, segment_ids=None,
+                          causal=False, window=None, implementation="auto"):
+    """Multi-head scaled dot-product attention of q (B, S, H, D) against
+    k, v (B, S, Hkv, D).  ``mask`` broadcasts to (B, H, Sq, Sk), True =
+    keep; ``segment_ids`` (B, S) restricts attention to packed segments;
+    ``window`` (needs ``causal``) keeps keys in ``(i - window, i]``."""
+    if implementation not in ("auto", "xla", "pallas"):
+        raise ValueError(f"implementation={implementation!r}: expected "
+                         "'auto', 'xla' or 'pallas'")
+    if implementation == "pallas" or (implementation == "auto" and
+                                      _flash.supported(
+                                          q, k, v, mask=mask,
+                                          segment_ids=segment_ids)):
+        return _flash.flash_attention(q, k, v, mask=mask,
+                                      segment_ids=segment_ids, causal=causal,
+                                      window=window)
+    if segment_ids is not None:
+        seg = (segment_ids[:, :, None] == segment_ids[:, None, :])[:, None]
+        mask = seg if mask is None else torch.logical_and(mask, seg)
+    return xla_attention(q, k, v, mask=mask, causal=causal, window=window)
+
+
+def xla_attention(q, k, v, *, mask=None, causal=False, window=None):
+    """BSHD attention by whole score tensors, with GQA through grouped
+    products (K/V never widened to H heads).  As in JAX, the q.k product
+    is rounded to the input dtype before the fp32 scale and softmax, the
+    weights are rounded to it before the product with V, and every
+    product sums in fp32 (see the module docstring)."""
+    dtype = q.dtype
+    b, sq, hq, depth = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b, sq, hkv, g, depth).float()
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()).reshape(
+        b, hq, sq, sk).to(dtype).float() * (1.0 / depth ** 0.5)
+    if window is not None and not causal:
+        raise ValueError("window (sliding-window attention) requires causal")
+    if causal:
+        keep = torch.ones((sq, sk), dtype=torch.bool,
+                          device=q.device).tril(sk - sq)
+        if window is not None:
+            qp = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+            keep &= torch.arange(sk, device=q.device)[None, :] > qp - window
+        scores = torch.where(keep, scores, NEG_INF)
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
+    weights = torch.softmax(scores, dim=-1)
+    wg = weights.to(dtype).float().reshape(b, hkv, g, sq, sk)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", wg, v.float())
+    return out.reshape(b, sq, hq, depth).to(dtype)
 
 
 def cached_decode_attention(

@@ -1,0 +1,398 @@
+"""Flash attention, BSHD, differentiable: the kernels K2 and K3.
+
+Twin of ``distributedtensorflow_tpu/ops/flash_attention.py``.
+:func:`flash_attention` is a :class:`torch.autograd.Function` whose
+forward saves ``(q, k, v, o, lse)`` and whose backward computes
+``delta = rowsum(dO * O)`` in fp32 outside the kernels (as JAX does with
+XLA, ``:801-804``) and hands ``lse`` and ``delta`` to
+:func:`flash_backward`, the launcher that ring attention can reuse
+(``_flash_backward_pallas_core``, ``:818``).
+
+A CUDA tensor goes to the hand-written kernels: ``csrc/flash_fwd.cu``
+(the port of ``_fwd_kernel``/``_fwd_kernel_1k``, ``:333``/``:396``) and
+``csrc/flash_bwd.cu`` (the split pair ``_bwd_dq_kernel``/
+``_bwd_dkv_kernel``, ``:671``/``:724``).  A CPU tensor goes to the plain
+twins :func:`_plain_flash_forward`, :func:`_plain_flash_bwd_dq` and
+:func:`_plain_flash_bwd_dkv`, which the kernels are checked against on
+the card.  The twins round where the kernels round: p to V's dtype before
+P.V, p to dO's dtype before the dv product, ds to q's dtype before the
+dq and dk products; in fp32 those roundings vanish.
+
+Masking (``_masked_scores``, ``:225``): scale 1/sqrt(D); keys after the
+query (causal) or at or below ``q - window`` are left out; keys that the
+padding mask drops or of another packed segment get ``NEG_INF = -1e9``.
+A row that only such keys reach is finite: it averages V over its causal
+band, whatever the tiling (on the TPU the value depends on which blocks
+the kernel skipped; on both it is finite, never NaN).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _cuda
+
+NEG_INF = -1e9
+
+#: Auto-dispatch threshold, copied from the JAX package, where it was
+#: measured on a TPU (``flash_attention.py:117``).  It awaits an H100
+#: measurement of this port's kernels against the plain path.
+MIN_SEQ_FOR_PALLAS = 1024
+#: Head dims the kernels are built for (templates in ``csrc/``).
+HEAD_DIMS = (32, 64)
+
+_FWD_SIGNATURES = {"dtf_flash_fwd": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                   + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]}
+_BWD_SIGNATURES = {
+    "dtf_flash_bwd_dq": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+    + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+    "dtf_flash_bwd_dkv": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+    + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+}
+
+
+def _gqa_ok(qshape, kshape) -> bool:
+    """Same (B, S, D) and q heads an integer multiple of kv heads."""
+    return (qshape[0] == kshape[0] and qshape[1] == kshape[1]
+            and qshape[3] == kshape[3] and kshape[2] > 0
+            and qshape[2] % kshape[2] == 0)
+
+
+def _is_padding_mask(mask, qshape) -> bool:
+    """(B, S) or its broadcast form (B, 1, 1, S)."""
+    b, s = qshape[0], qshape[1]
+    return tuple(mask.shape) in ((b, s), (b, 1, 1, s))
+
+
+def _is_segment_ids(segment_ids, qshape) -> bool:
+    return (tuple(segment_ids.shape) == (qshape[0], qshape[1])
+            and not segment_ids.dtype.is_floating_point
+            and segment_ids.dtype != torch.bool)
+
+
+def supported(q, k, v, *, mask=None, segment_ids=None) -> bool:
+    """True when ``implementation="auto"`` should take the kernels: a
+    CUDA tensor, seq >= :data:`MIN_SEQ_FOR_PALLAS` in multiples of 8, the
+    shape rules of the JAX gate (``:129-142``), and a head dim the
+    kernels are built for."""
+    if q.dim() != 4 or k.shape != v.shape or not _gqa_ok(q.shape, k.shape):
+        return False
+    if q.device.type != "cuda":
+        return False
+    seq = q.shape[1]
+    if seq < MIN_SEQ_FOR_PALLAS or seq % 8:
+        return False
+    if q.dtype not in (torch.bfloat16, torch.float32) \
+            or q.shape[3] not in HEAD_DIMS:
+        return False
+    if segment_ids is not None and not _is_segment_ids(segment_ids, q.shape):
+        return False
+    return mask is None or _is_padding_mask(mask, q.shape)
+
+
+def flash_attention(q, k, v, *, mask=None, segment_ids=None, causal=False,
+                    window=None):
+    """Flash attention of q (B, S, H, D) against k, v (B, S, Hkv, D).
+
+    ``mask`` is a key padding mask (B, S) or (B, 1, 1, S), True = attend;
+    ``segment_ids`` an int (B, S) tensor of packed sequences; ``window``
+    (needs ``causal``) keeps keys in ``(i - window, i]``.  Raises for
+    shapes the kernels cannot take, as the JAX entry does."""
+    if q.dim() != 4 or k.shape != v.shape or not _gqa_ok(q.shape, k.shape):
+        raise ValueError(
+            f"flash_attention needs BSHD q/k/v with matching (B, S, D) and "
+            f"q heads a multiple of kv heads (GQA), got {tuple(q.shape)} "
+            f"{tuple(k.shape)} {tuple(v.shape)}")
+    if q.shape[1] % 8:
+        raise ValueError(f"sequence length {q.shape[1]} is not a multiple "
+                         "of 8")
+    if mask is not None and not _is_padding_mask(mask, q.shape):
+        raise ValueError(f"mask shape {tuple(mask.shape)} unsupported: need "
+                         "(B, S) or (B, 1, 1, S) padding mask")
+    if segment_ids is not None and not _is_segment_ids(segment_ids, q.shape):
+        raise ValueError(
+            f"segment_ids shape/dtype unsupported: need int (B, S), got "
+            f"{tuple(segment_ids.shape)} {segment_ids.dtype}")
+    if window is not None:
+        if not causal:
+            raise ValueError("window (sliding-window attention) requires "
+                             "causal=True")
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+        if window >= q.shape[1]:
+            window = None
+    if mask is not None:
+        mask = mask.reshape(q.shape[0], q.shape[1]).to(torch.bool)
+    return FlashAttentionFn.apply(q, k, v, mask, segment_ids, bool(causal),
+                                  window)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Twin of the custom VJP ``_flash`` (``:1090-1140``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, segment_ids, causal, window):
+        o, lse = flash_forward(q, k, v, mask=mask, segment_ids=segment_ids,
+                               causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, o, lse, mask, segment_ids)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, mask, segment_ids = ctx.saved_tensors
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        dq, dk, dv = flash_backward(
+            q, k, v, do, lse, delta, mask=mask, segment_ids=segment_ids,
+            causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_forward(q, k, v, *, mask=None, segment_ids=None, causal=False,
+                  window=None):
+    """``(o, lse)``: o (B, S, H, D) in q's dtype, lse (B, H, S) fp32.  The
+    kernel for CUDA tensors, :func:`_plain_flash_forward` for CPU ones."""
+    if q.device.type == "cpu":
+        return _plain_flash_forward(q, k, v, mask, segment_ids, causal,
+                                    window)
+    return flash_forward_cuda(q, k, v, mask, segment_ids, causal, window)
+
+
+def flash_backward(q, k, v, do, lse, delta, *, mask=None, segment_ids=None,
+                   causal=False, window=None):
+    """``(dq, dk, dv)`` from the forward's ``lse`` and ``delta =
+    rowsum(dO * O)``, both (B, H, S) fp32, passed in: the K3 launcher
+    (the kernels for CUDA tensors, the plain twins for CPU ones)."""
+    args = (q, k, v, do, lse, delta, mask, segment_ids, causal, window)
+    if q.device.type == "cpu":
+        return (_plain_flash_bwd_dq(*args),) + _plain_flash_bwd_dkv(*args)
+    return (flash_bwd_dq_cuda(*args),) + flash_bwd_dkv_cuda(*args)
+
+
+# --------------------------------------------------------------- plain twins
+
+
+def _repeat_kv(x, group):
+    return x if group == 1 else x.repeat_interleave(group, dim=2)
+
+
+def _scores(q, k, mask, segment_ids, causal, window):
+    """The (B, H, S, S) fp32 masked, scaled scores of the kernels."""
+    b, s, h, d = q.shape
+    kf = _repeat_kv(k.float(), h // k.shape[2])
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * (1.0 / d ** 0.5)
+    pos = torch.arange(s, device=q.device)
+    out = torch.zeros((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        out |= pos[None, :] > pos[:, None]
+    if window is not None:
+        out |= pos[None, :] <= pos[:, None] - window
+    drop = torch.zeros((b, 1, 1, s), dtype=torch.bool, device=q.device)
+    if mask is not None:
+        drop = drop | ~mask.reshape(b, 1, 1, s).to(torch.bool)
+    if segment_ids is not None:
+        drop = drop | (segment_ids[:, None, :, None]
+                       != segment_ids[:, None, None, :])
+    sc = torch.where(drop, NEG_INF, sc)
+    return torch.where(out, float("-inf"), sc)
+
+
+def _plain_flash_forward(q, k, v, mask=None, segment_ids=None, causal=False,
+                         window=None):
+    """The forward in one pass over the whole row (``_fwd_kernel_1k``):
+    fp32 softmax, p rounded to V's dtype before P.V, the unrounded sum
+    of p as the divisor; lse = max + log(sum)."""
+    h = q.shape[2]
+    sc = _scores(q, k, mask, segment_ids, causal, window)
+    m = sc.amax(-1, keepdim=True)
+    p = torch.exp(sc - m)
+    l = p.sum(-1, keepdim=True)
+    vf = _repeat_kv(v, h // v.shape[2]).float()
+    o = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), vf) / l
+    return o.transpose(1, 2).to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def _plain_grads(q, k, v, do, lse, delta, mask, segment_ids, causal, window):
+    """p and ds (rounded to q's dtype) of the backward, (B, H, S, S)."""
+    h = q.shape[2]
+    sc = _scores(q, k, mask, segment_ids, causal, window)
+    p = torch.exp(sc - lse[..., None])
+    vf = _repeat_kv(v.float(), h // v.shape[2])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vf)
+    scale = 1.0 / q.shape[3] ** 0.5
+    ds = (p * (dp - delta[..., None])) * scale
+    return p, ds.to(q.dtype).float()
+
+
+def _plain_flash_bwd_dq(q, k, v, do, lse, delta, mask=None, segment_ids=None,
+                        causal=False, window=None):
+    """dq = ds k, ds rounded to q's dtype, fp32 sums (``_bwd_dq_kernel``)."""
+    _, ds = _plain_grads(q, k, v, do, lse, delta, mask, segment_ids, causal,
+                         window)
+    kf = _repeat_kv(k.float(), q.shape[2] // k.shape[2])
+    return torch.einsum("bhqk,bkhd->bqhd", ds, kf).to(q.dtype)
+
+
+def _plain_flash_bwd_dkv(q, k, v, do, lse, delta, mask=None,
+                         segment_ids=None, causal=False, window=None):
+    """(dk, dv) = (ds^T q, p^T dO), p rounded to dO's dtype, the query
+    heads of a GQA group summed in fp32 before one rounding
+    (``_bwd_dkv_kernel``)."""
+    p, ds = _plain_grads(q, k, v, do, lse, delta, mask, segment_ids, causal,
+                         window)
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dk = dk.reshape(b, s, hkv, h // hkv, d).sum(3)
+    dv = dv.reshape(b, s, hkv, h // hkv, d).sum(3)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ------------------------------------------------------------------- kernels
+
+
+def _kernel_operand(t, dtype, device):
+    """``t`` as the kernels read it: on ``device``, of ``dtype``, head dim
+    contiguous, rows 16-byte aligned (a copy only where it is not)."""
+    if t.device != device or t.dtype != dtype:
+        raise ValueError(f"flash kernels need all operands {dtype} on "
+                         f"{device}, got {t.dtype} on {t.device}")
+    vec = 16 // t.element_size()
+    if t.stride(3) != 1 or any(st % vec for st in t.stride()[:3]) \
+            or t.data_ptr() % 16:
+        t = t.contiguous()
+    return t
+
+
+def _kernel_masks(q, mask, segment_ids):
+    b, s = q.shape[0], q.shape[1]
+    m = None if mask is None else \
+        mask.reshape(b, s).to(device=q.device, dtype=torch.bool).contiguous()
+    seg = None if segment_ids is None else \
+        segment_ids.to(device=q.device, dtype=torch.int32).contiguous()
+    return m, seg
+
+
+def _check_kernel_shapes(q, k, v, what):
+    if q.device.type != "cuda":
+        raise ValueError(f"{what} kernel needs CUDA tensors, got {q.device}")
+    if q.dim() != 4 or k.shape != v.shape or not _gqa_ok(q.shape, k.shape):
+        raise ValueError(f"{what} kernel needs BSHD q/k/v with GQA heads, "
+                         f"got {tuple(q.shape)} {tuple(k.shape)}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what} kernel takes fp32/bf16, got {q.dtype}")
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"{what} kernel is built for head dims {HEAD_DIMS}, "
+                         f"got {q.shape[3]}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _window_arg(window):
+    return 0 if window is None else int(window)
+
+
+def flash_forward_cuda(q, k, v, mask=None, segment_ids=None, causal=False,
+                       window=None):
+    """Launch ``csrc/flash_fwd.cu`` on the current stream; returns
+    ``(o, lse)``.
+
+    The port of ``_fwd_kernel``/``_fwd_kernel_1k``
+    (``distributedtensorflow_tpu/ops/flash_attention.py:333``/``:396``).
+    Bound on the H100 by operations: ``4 * B * H * S^2 * D`` flops (half
+    under the causal mask) over 989 TFLOP/s in bf16."""
+    _check_kernel_shapes(q, k, v, "flash forward")
+    q, k, v = (_kernel_operand(t, q.dtype, q.device) for t in (q, k, v))
+    m, seg = _kernel_masks(q, mask, segment_ids)
+    b, s, h, d = q.shape
+    o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
+                                      *v.stride()[:3])
+    lib = _cuda.load("flash_fwd", _FWD_SIGNATURES)
+    err = lib.dtf_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), _ptr(m), _ptr(seg), ctypes.addressof(strides), b, h,
+        k.shape[2], s, d, int(causal), _window_arg(window), 1.0 / d ** 0.5,
+        q.dtype == torch.bfloat16, q.device.index or 0,
+        _cuda.stream_handle(q.device))
+    _cuda.launches["flash_fwd"] += 1
+    _cuda.check(lib, err, "flash_fwd")
+    return o, lse
+
+
+def _bwd_operands(q, k, v, do, lse, delta, mask, segment_ids, what):
+    _check_kernel_shapes(q, k, v, what)
+    if do.shape != q.shape:
+        raise ValueError(f"{what}: dO {tuple(do.shape)} is not shaped like "
+                         f"q {tuple(q.shape)}")
+    b, s, h, _ = q.shape
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (b, h, s) or t.dtype != torch.float32 \
+                or t.device != q.device:
+            raise ValueError(f"{what}: {name} must be fp32 (B, H, S) = "
+                             f"{(b, h, s)} on {q.device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    q, k, v, do = (_kernel_operand(t, q.dtype, q.device)
+                   for t in (q, k, v, do))
+    m, seg = _kernel_masks(q, mask, segment_ids)
+    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
+                                       *v.stride()[:3], *do.stride()[:3])
+    return q, k, v, do, lse.contiguous(), delta.contiguous(), m, seg, strides
+
+
+def flash_bwd_dq_cuda(q, k, v, do, lse, delta, mask=None, segment_ids=None,
+                      causal=False, window=None):
+    """Launch the dq kernel of ``csrc/flash_bwd.cu``; returns dq.
+
+    The port of ``_bwd_dq_kernel``
+    (``distributedtensorflow_tpu/ops/flash_attention.py:671``).  Bound by
+    operations: three products (s, dp, dq) of ``2 * B * H * S^2 * D``
+    flops, half under the causal mask."""
+    q, k, v, do, lse, delta, m, seg, strides = _bwd_operands(
+        q, k, v, do, lse, delta, mask, segment_ids, "flash dq")
+    b, s, h, d = q.shape
+    dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    lib = _cuda.load("flash_bwd", _BWD_SIGNATURES)
+    err = lib.dtf_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), _ptr(m), _ptr(seg),
+        ctypes.addressof(strides), b, h, k.shape[2], s, d, int(causal),
+        _window_arg(window), 1.0 / d ** 0.5, q.dtype == torch.bfloat16,
+        q.device.index or 0, _cuda.stream_handle(q.device))
+    _cuda.launches["flash_bwd_dq"] += 1
+    _cuda.check(lib, err, "flash_bwd_dq")
+    return dq
+
+
+def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, mask=None, segment_ids=None,
+                       causal=False, window=None):
+    """Launch the dk/dv kernel of ``csrc/flash_bwd.cu``; returns
+    ``(dk, dv)`` shaped like k and v.
+
+    The port of ``_bwd_dkv_kernel``
+    (``distributedtensorflow_tpu/ops/flash_attention.py:724``).  Bound by
+    operations: four products (s, dp, dv, dk) of ``2 * B * H * S^2 * D``
+    flops, half under the causal mask."""
+    q, k, v, do, lse, delta, m, seg, strides = _bwd_operands(
+        q, k, v, do, lse, delta, mask, segment_ids, "flash dk/dv")
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    dk = torch.empty((b, s, hkv, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, s, hkv, d), dtype=v.dtype, device=q.device)
+    lib = _cuda.load("flash_bwd", _BWD_SIGNATURES)
+    err = lib.dtf_flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        _ptr(m), _ptr(seg), ctypes.addressof(strides), b, h, hkv, s, d,
+        int(causal), _window_arg(window), 1.0 / d ** 0.5,
+        q.dtype == torch.bfloat16, q.device.index or 0,
+        _cuda.stream_handle(q.device))
+    _cuda.launches["flash_bwd_dkv"] += 1
+    _cuda.check(lib, err, "flash_bwd_dkv")
+    return dk, dv

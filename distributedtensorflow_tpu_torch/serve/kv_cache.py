@@ -22,6 +22,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 
 class OutOfBlocksError(RuntimeError):
     """Raised on ``free``/table misuse; ``alloc`` returns None instead."""
@@ -88,13 +90,14 @@ class PagedKVCache:
 
     def __init__(self, *, num_layers: int, kv_heads: int, head_dim: int,
                  max_slots: int, num_blocks: int, block_size: int,
-                 max_context: int, dtype=torch.float32, device="cpu"):
+                 max_context: int, dtype=torch.float32, device=None):
         if block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
         if max_context % block_size:
             raise ValueError(
                 f"max_context={max_context} must be a multiple of "
                 f"block_size={block_size}")
+        device = resolve_device(device)
         self.block_size = block_size
         self.max_context = max_context
         self.blocks_per_slot = max_context // block_size

@@ -1,0 +1,11 @@
+"""Training step of the port: state, optimizer, step engine."""
+
+from .engine import (  # noqa: F401
+    accumulate_gradients,
+    make_eval_step,
+    make_train_step,
+    split_microbatches,
+    step_generator,
+)
+from .optimizers import adamw  # noqa: F401
+from .state import TrainState  # noqa: F401

@@ -1,0 +1,237 @@
+"""The port's flash attention (K2/K3) and attention dispatch against JAX.
+
+The JAX side runs its Pallas kernels in interpret mode on the CPU, as
+``tests/test_flash_attention.py`` does; the port's side is the plain
+twins that its CUDA kernels are checked against on the card
+(``chip_smoke.py``).  Inputs come from numpy with a fixed seed.
+
+Tolerance: fp32 forward at atol 2e-5 and gradients at atol 5e-5, the
+JAX package's own flash-vs-XLA tolerances: both sides compute in fp32,
+only the summation order differs (online softmax over blocks in JAX, one
+pass here).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from distributedtensorflow_tpu.ops.attention import (
+    dot_product_attention as jax_dpa,
+)
+from distributedtensorflow_tpu.ops.flash_attention import (
+    flash_attention as jax_flash,
+)
+from distributedtensorflow_tpu_torch.ops import _cuda
+from distributedtensorflow_tpu_torch.ops import attention as tattn
+from distributedtensorflow_tpu_torch.ops import flash_attention as fa
+
+B, S, H, D = 2, 64, 4, 32
+
+CASES = {
+    "causal": dict(causal=True),
+    "causal_window": dict(causal=True, window=24),
+    "gqa_half": dict(causal=True, hkv=2),
+    "gqa_quarter": dict(causal=True, hkv=1),
+    "padding": dict(causal=True, padding=True),
+    "segments": dict(causal=True, segments=True),
+    "noncausal_padding": dict(causal=False, padding=True),
+}
+#: (block_q, block_k, backward_impl) of the JAX kernels: one k block
+#: (``_fwd_kernel_1k``) or several (``_fwd_kernel``); the fused backward
+#: or the split dq/dkv pair.
+VARIANTS = {
+    "one_block_fused": (S, S, "pallas"),
+    "blocks_split": (16, 32, "pallas_split"),
+    "blocks_fused": (32, 16, "pallas"),
+}
+
+
+def _inputs(case, seed=0, dtype=np.float32):
+    spec = CASES[case]
+    rng = np.random.default_rng(seed)
+    hkv = spec.get("hkv", H)
+    q = rng.standard_normal((B, S, H, D)).astype(dtype)
+    k = rng.standard_normal((B, S, hkv, D)).astype(dtype)
+    v = rng.standard_normal((B, S, hkv, D)).astype(dtype)
+    do = rng.standard_normal((B, S, H, D)).astype(dtype)
+    mask = seg = None
+    if spec.get("padding"):
+        lens = np.array([S, 37])
+        mask = np.arange(S)[None, :] < lens[:, None]
+    if spec.get("segments"):
+        seg = np.cumsum(rng.random((B, S)) < 0.08, axis=1).astype(np.int32)
+    kw = dict(causal=spec["causal"], window=spec.get("window"))
+    return (q, k, v, do), mask, seg, kw
+
+
+def _jax_run(arrs, mask, seg, kw, *, block_q, block_k, impl):
+    q, k, v, do = (jnp.asarray(a) for a in arrs)
+
+    def f(q, k, v):
+        return jax_flash(q, k, v, mask=None if mask is None else
+                         jnp.asarray(mask),
+                         segment_ids=None if seg is None else jnp.asarray(seg),
+                         interpret=True, backward_impl=impl, block_q=block_q,
+                         block_k=block_k, **kw)
+
+    o, vjp = jax.vjp(jax.jit(f), q, k, v)
+    return [np.asarray(t, np.float32) for t in (o, *vjp(do))]
+
+
+def _port_run(arrs, mask, seg, kw):
+    q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in arrs[:3])
+    o = fa.flash_attention(
+        q, k, v, mask=None if mask is None else torch.from_numpy(mask),
+        segment_ids=None if seg is None else torch.from_numpy(seg), **kw)
+    o.backward(torch.from_numpy(arrs[3]))
+    return [t.detach().float().numpy() for t in (o, q.grad, k.grad, v.grad)]
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_forward_and_grads_match_jax(case, variant):
+    block_q, block_k, impl = VARIANTS[variant]
+    arrs, mask, seg, kw = _inputs(case)
+    ref = _jax_run(arrs, mask, seg, kw, block_q=block_q, block_k=block_k,
+                   impl=impl)
+    got = _port_run(arrs, mask, seg, kw)
+    for name, a, r, tol in zip(("o", "dq", "dk", "dv"), got, ref,
+                               (2e-5, 5e-5, 5e-5, 5e-5)):
+        np.testing.assert_allclose(a, r, rtol=0, atol=tol, err_msg=name)
+
+
+def test_bf16_rounding_points_match_pallas():
+    """At bf16 with one k block, JAX's forward is the one-pass softmax of
+    the plain twin: p rounded to V's dtype before P.V; its backward
+    rounds p to dO's dtype and ds to q's dtype, as the twins do.  Both
+    sides then round the same fp32 values: outputs agree to one bf16 ulp
+    of their largest entry."""
+    arrs, mask, seg, kw = _inputs("gqa_half", seed=3)
+    ref = _jax_run([a.astype(jnp.bfloat16) for a in arrs], mask, seg, kw,
+                   block_q=S, block_k=S, impl="pallas")
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16) for a in arrs)
+    o, lse = fa.flash_forward(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    grads = fa.flash_backward(q, k, v, do, lse, delta, **kw)
+    for name, a, r in zip(("o", "dq", "dk", "dv"), (o, *grads), ref):
+        assert a.dtype == torch.bfloat16, name
+        err = np.abs(a.float().numpy() - r).max()
+        assert err <= 2.0**-7 * np.abs(r).max(), (name, err)
+
+
+def test_fully_masked_rows_are_finite_band_averages():
+    """A row that only padding-masked keys reach gets NEG_INF scores, so
+    it averages V over its causal band: finite, never NaN, and the same
+    whatever the tiling (JAX's value depends on its blocks, so rows like
+    this are pinned against the definition, not against JAX)."""
+    arrs, _, _, kw = _inputs("causal", seed=5)
+    mask = np.ones((B, S), bool)
+    mask[1] = False
+    q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in arrs[:3])
+    o = fa.flash_attention(q, k, v, mask=torch.from_numpy(mask), **kw)
+    o.backward(torch.from_numpy(arrs[3]))
+    assert all(torch.isfinite(t).all() for t in (o, q.grad, k.grad, v.grad))
+    band_mean = np.cumsum(arrs[2][1], axis=0) / np.arange(1, S + 1)[:, None,
+                                                                     None]
+    np.testing.assert_allclose(o[1].detach().numpy(), band_mean, rtol=0,
+                               atol=1e-5)
+    # rows that attend at least one key still match JAX
+    ref = _jax_run(arrs, mask, None, kw, block_q=32, block_k=32,
+                   impl="pallas_split")
+    np.testing.assert_allclose(o[0].detach().numpy(), ref[0][0], rtol=0,
+                               atol=2e-5)
+
+
+def test_backward_takes_external_lse_and_delta():
+    """``flash_backward`` with the forward's lse and delta = rowsum(dO * O)
+    passed in (the ring-attention entry) gives autograd's gradients."""
+    arrs, mask, seg, kw = _inputs("segments", seed=7)
+    got = _port_run(arrs, mask, seg, kw)
+    q, k, v, do = (torch.from_numpy(a) for a in arrs)
+    segt = torch.from_numpy(seg)
+    o, lse = fa.flash_forward(q, k, v, segment_ids=segt, **kw)
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    delta = (do * o).sum(-1).transpose(1, 2)
+    grads = fa.flash_backward(q, k, v, do, lse, delta, segment_ids=segt,
+                              **kw)
+    for a, r in zip(grads, got[1:]):
+        np.testing.assert_array_equal(a.numpy(), r)
+
+
+@pytest.mark.parametrize("case", ["causal", "causal_window", "gqa_quarter",
+                                  "segments", "noncausal_padding"])
+def test_xla_path_matches_jax(case):
+    """``dot_product_attention(implementation="xla")`` against the JAX
+    XLA path (``xla_attention`` behind the same dispatch), fp32."""
+    arrs, mask, seg, kw = _inputs(case, seed=9)
+    jmask = None if mask is None else jnp.asarray(mask)[:, None, None, :]
+    ref = np.asarray(jax_dpa(*(jnp.asarray(a) for a in arrs[:3]), mask=jmask,
+                             segment_ids=None if seg is None else
+                             jnp.asarray(seg), implementation="xla", **kw))
+    tmask = None if mask is None else torch.from_numpy(mask)[:, None, None, :]
+    got = tattn.dot_product_attention(
+        *(torch.from_numpy(a) for a in arrs[:3]), mask=tmask,
+        segment_ids=None if seg is None else torch.from_numpy(seg),
+        implementation="xla", **kw)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=2e-6)
+
+
+def test_xla_path_bf16_rounds_where_jax_rounds():
+    """bf16: scores rounded to bf16 before the fp32 softmax, weights
+    rounded before the product with V, as the JAX XLA path does."""
+    arrs, _, _, kw = _inputs("gqa_half", seed=10)
+    ref = np.asarray(jax_dpa(*(jnp.asarray(a).astype(jnp.bfloat16)
+                               for a in arrs[:3]), implementation="xla",
+                             **kw).astype(jnp.float32))
+    got = tattn.dot_product_attention(
+        *(torch.from_numpy(a).to(torch.bfloat16) for a in arrs[:3]),
+        implementation="xla", **kw)
+    assert got.dtype == torch.bfloat16
+    assert np.abs(got.float().numpy() - ref).max() <= 2.0**-7 * \
+        np.abs(ref).max()
+
+
+def test_dispatch():
+    """On the CPU "auto" takes the XLA path (the kernel gate needs a CUDA
+    tensor), "pallas" the flash twins; a bad name raises."""
+    arrs, _, _, kw = _inputs("causal", seed=11)
+    q, k, v = (torch.from_numpy(a) for a in arrs[:3])
+    qs = torch.zeros(1, 1024, H, D)
+    assert not fa.supported(qs, qs, qs)  # CPU tensor
+    _cuda.launches.clear()
+    auto = tattn.dot_product_attention(q, k, v, **kw)
+    assert torch.equal(auto, tattn.xla_attention(q, k, v, **kw))
+    pallas = tattn.dot_product_attention(q, k, v, implementation="pallas",
+                                         **kw)
+    assert torch.equal(pallas, fa.flash_forward(q, k, v, **kw)[0])
+    assert not _cuda.launches
+    with pytest.raises(ValueError, match="implementation"):
+        tattn.dot_product_attention(q, k, v, implementation="flash")
+
+
+def test_flash_validation():
+    q = torch.zeros(1, 64, 4, 32)
+    with pytest.raises(ValueError, match="mask shape"):
+        fa.flash_attention(q, q, q, mask=torch.ones(1, 64, 64, dtype=bool))
+    with pytest.raises(ValueError, match="requires causal"):
+        fa.flash_attention(q, q, q, window=8)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fa.flash_attention(q[:, :60], q[:, :60], q[:, :60])
+    with pytest.raises(ValueError, match="GQA"):
+        fa.flash_attention(q, q[:, :, :3], q[:, :, :3])
+    with pytest.raises(ValueError, match="segment_ids"):
+        fa.flash_attention(q, q, q, segment_ids=torch.zeros(1, 64))
+
+
+@pytest.mark.parametrize("launcher", ["flash_forward_cuda",
+                                      "flash_bwd_dq_cuda",
+                                      "flash_bwd_dkv_cuda"])
+def test_kernel_wrappers_refuse_cpu_tensors(launcher):
+    q = torch.zeros(1, 64, 4, 32)
+    rows = torch.zeros(1, 4, 64)
+    args = (q, q, q) if launcher == "flash_forward_cuda" else \
+        (q, q, q, q, rows, rows)
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(fa, launcher)(*args)

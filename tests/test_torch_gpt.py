@@ -203,9 +203,18 @@ def test_generate_validation(mha):
 
 
 def test_training_forward_and_quant_are_not_ported(mha):
-    _, _, model, _ = mha
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(torch.as_tensor(_ids(1, 4)))
+    """The training forward is ported now (no cache: the JAX model's
+    full forward, fp32 logits); quantised dense layers and the fused
+    loss head (K4f/K4b) are not, and raise."""
+    jcfg, params, model, _ = mha
+    ids = _ids(2, 8, seed=6)
+    ref = JaxGPTLM(jcfg).apply({"params": params}, jnp.asarray(ids))
+    got = model(torch.as_tensor(ids))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
+                               rtol=1e-4, atol=1e-4)
     cfg = dataclasses.replace(tm.gpt_tiny(), quant="int8")
     with pytest.raises(NotImplementedError, match="quant"):
         tm.GPTLM(cfg, device="cpu")
+    cfg = dataclasses.replace(tm.gpt_tiny(), xent_impl="fused")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tm.lm_loss(tm.GPTLM(cfg, device="cpu"))

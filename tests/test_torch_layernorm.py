@@ -6,6 +6,7 @@ its CUDA kernel is checked against on the card (``chip_smoke.py``).
 Inputs come from numpy with a fixed seed and feed both packages.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,8 +15,11 @@ import torch
 from distributedtensorflow_tpu.ops.layernorm import layer_norm as jax_layer_norm
 from distributedtensorflow_tpu_torch.ops import _cuda
 from distributedtensorflow_tpu_torch.ops.layernorm import (
+    LayerNormFn,
     _plain_layer_norm,
+    _plain_layer_norm_bwd,
     layer_norm,
+    layer_norm_bwd_cuda,
     layer_norm_cuda,
 )
 
@@ -109,3 +113,88 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         layer_norm_cuda(torch.from_numpy(x), torch.from_numpy(g),
                         torch.from_numpy(b), 1e-6, torch.float32)
+
+
+# ---------------------------------------------------------------- backward
+
+
+def _grads_both(n, dt_in, dt_out, seed):
+    """(port dx, dscale, dbias), (JAX ...): the port through autograd on
+    ``layer_norm`` (the plain twin of K1b on the CPU), JAX through
+    ``jax.vjp`` of its interpret-mode Pallas kernel."""
+    (j_in, t_in), (j_out, t_out) = DTYPES[dt_in], DTYPES[dt_out]
+    x, g, b = _inputs((n, 128), seed=seed)
+    dy = np.random.default_rng(seed + 1).standard_normal(
+        (n, 128)).astype(np.float32)
+
+    def f(x, g, b):
+        return jax_layer_norm(x, g, b, out_dtype=j_out, impl="pallas",
+                              interpret=True)
+
+    _, vjp = jax.vjp(f, jnp.asarray(x).astype(j_in), jnp.asarray(g),
+                     jnp.asarray(b))
+    ref = [np.asarray(t.astype(jnp.float32))
+           for t in vjp(jnp.asarray(dy).astype(j_out))]
+    xt = torch.from_numpy(x).to(t_in).requires_grad_(True)
+    gt = torch.from_numpy(g).requires_grad_(True)
+    bt = torch.from_numpy(b).requires_grad_(True)
+    y = layer_norm(xt, gt, bt, out_dtype=t_out)
+    assert y.grad_fn is not None and "LayerNormFn" in type(y.grad_fn).__name__
+    y.backward(torch.from_numpy(dy).to(t_out))
+    assert xt.grad.dtype == t_in and gt.grad.dtype == torch.float32
+    return [t.grad.float().numpy() for t in (xt, gt, bt)], ref
+
+
+@pytest.mark.parametrize("n", [37, 517])
+@pytest.mark.parametrize("dt_in,dt_out",
+                         [("fp32", "fp32"), ("bf16", "bf16"), ("bf16", "fp32")])
+def test_backward_matches_pallas_interpret(n, dt_in, dt_out):
+    """K1b's plain twin against ``jax.vjp`` of the Pallas LayerNorm: dx,
+    dscale, dbias.  dscale/dbias are fp32 sums over the rows on both
+    sides (only the order differs): 1e-5 of their largest entry.  dx in
+    fp32 at atol 1e-5; in bf16 the same fp32 value is rounded once on
+    each side, so the two agree to one bf16 ulp of the largest entry."""
+    (dx, dg, db), (rdx, rdg, rdb) = _grads_both(n, dt_in, dt_out, seed=n)
+    for got, ref in ((dg, rdg), (db, rdb)):
+        np.testing.assert_allclose(got, ref, rtol=0,
+                                   atol=1e-5 * np.abs(ref).max())
+    if dt_in == "fp32":
+        np.testing.assert_allclose(dx, rdx, rtol=0, atol=1e-5)
+    else:
+        assert np.abs(dx - rdx).max() <= 2.0**-7 * np.abs(rdx).max()
+
+
+def test_backward_twin_matches_torch_autograd():
+    """The explicit backward formulas equal autograd through the plain
+    forward (fp32, leading dims, non-default eps)."""
+    x, g, b = _inputs((3, 7, 64), seed=11)
+    dy = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (3, 7, 64)).astype(np.float32))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (x, g, b)]
+    y = _plain_layer_norm(*leaves, 1e-5, torch.float32)
+    want = torch.autograd.grad(y, leaves, dy)
+    got = _plain_layer_norm_bwd(leaves[0].detach().reshape(-1, 64),
+                                leaves[1].detach(), dy.reshape(-1, 64), 1e-5)
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a.reshape(w.shape), w, rtol=0, atol=2e-5)
+
+
+def test_no_grad_path_runs_the_forward_only():
+    """The serving path (no autograd) calls the forward directly, as
+    before the backward existed; LayerNormFn only when grads are
+    recorded."""
+    x, g, b = (torch.from_numpy(a) for a in _inputs((5, 32), seed=13))
+    with torch.no_grad():
+        y = layer_norm(x, g.requires_grad_(True), b)
+    assert y.grad_fn is None
+    assert torch.equal(y, _plain_layer_norm(x, g, b, 1e-6, torch.float32))
+    y = layer_norm(x, g, b)
+    assert type(y.grad_fn).__name__ == "LayerNormFnBackward"
+    assert torch.equal(y, LayerNormFn.apply(x, g, b, 1e-6, torch.float32))
+
+
+def test_backward_kernel_wrapper_refuses_cpu_tensors():
+    x, g, _ = _inputs((4, 32), seed=14)
+    with pytest.raises(ValueError, match="CUDA"):
+        layer_norm_bwd_cuda(torch.from_numpy(x), torch.from_numpy(g),
+                            torch.from_numpy(x), 1e-6)

@@ -81,7 +81,7 @@ def _kv(num_blocks=8, block_size=4, max_context=16, max_slots=2):
     return PagedKVCache(
         num_layers=1, kv_heads=2, head_dim=4, max_slots=max_slots,
         num_blocks=num_blocks, block_size=block_size,
-        max_context=max_context,
+        max_context=max_context, device="cpu",
     )
 
 
@@ -216,7 +216,7 @@ def test_gather_cache_rebuilds_the_dense_prefill_cache(served):
     cfg = model.cfg
     kv = PagedKVCache(num_layers=cfg.num_layers, kv_heads=cfg.kv_heads,
                       head_dim=cfg.head_dim, max_slots=1, num_blocks=16,
-                      block_size=4, max_context=64)
+                      block_size=4, max_context=64, device="cpu")
     kv.admit(0, 12)
     table = kv.block_tables[0]
     prefill = make_prefill_fn(cfg, chunk=4, block_size=4)
@@ -317,7 +317,7 @@ def _imports(path):
 
 def test_port_imports_no_jax():
     files = sorted((ROOT / "distributedtensorflow_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "train_torch.py"]
     assert len(files) > 10
     found = {str(f.relative_to(ROOT)): sorted(set(_imports(f)) & _BANNED)
              for f in files}
@@ -340,3 +340,14 @@ def test_device_rule(monkeypatch):
         resolve_device("cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tm.GPTLM(tm.gpt_tiny())
+
+
+def test_paged_kv_cache_defaults_to_the_card(monkeypatch):
+    """PagedKVCache resolves its device like every entry point: cuda
+    unless the caller asks for the CPU."""
+    kv = _kv()
+    assert kv.k_pool.device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PagedKVCache(num_layers=1, kv_heads=2, head_dim=4, max_slots=1,
+                     num_blocks=4, block_size=4, max_context=8)
