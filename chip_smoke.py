@@ -8,7 +8,7 @@ Run from the repository root on a machine with one CUDA card:
 Phases, each fatal on failure:
 
 1. device: the card's name and power limit, as nvidia-smi prints them;
-2. build: every CUDA kernel of the serving and training paths (five
+2. build: every CUDA kernel of the serving and training paths (seven
    libraries), compiled with nvcc for sm_90a from
    ``distributedtensorflow_tpu_torch/csrc`` into ``build/torch_kernels/``,
    one nvcc per source, all started together;
@@ -19,30 +19,40 @@ Phases, each fatal on failure:
    type): the LayerNorm forward and decode attention at the serving
    shapes, the LayerNorm backward and the flash-attention forward, dq
    and dk/dv kernels at the training step's;
-4. serving: the paged continuous-batching ``Engine`` at full
+4. xent: the fused LM head's kernels (forward, dx, dw) at gpt_lm's head
+   (16376 tokens, D 768, V 50257, bf16), at D 1024, in fp32 and at a
+   ragged token count, the same way;
+5. serving: the paged continuous-batching ``Engine`` at full
    GPT-2-small width (bf16, seeded random weights) answers six requests;
-5. dense generate: ``generate`` at full width, batch 4;
-6. profile: torch.profiler over a serving and a generate window (wall
+6. dense generate: ``generate`` at full width, batch 4;
+7. profile: torch.profiler over a serving and a generate window (wall
    time, device-busy time, the kernels that take it);
-7. consistency (fp32, full width): the engine's greedy tokens equal
+8. consistency (fp32, full width): the engine's greedy tokens equal
    ``generate``'s, and the model's logits on the card agree with the
    plain path on the CPU;
-8. train: ``train_torch``'s step on full-width GPT-2-small (bf16, block
-   remat, seq 2048, batch 8, chunked head, synthetic batches): one
-   warm-up step and four timed ones, losses finite and falling, step
-   time, tokens/s and MFU, and the kernels' launches per step;
-9. profile_train: torch.profiler over two training steps;
-10. consistency_train (fp32, full width, 2 layers, B=1, S=1024, flash
-    kernels forced): loss and every gradient on the card agree with the
-    plain path on the CPU.
+9. train: ``train_torch``'s step on full-width GPT-2-small at the
+   gpt_lm preset defaults (bf16, block remat, the fused head) at seq
+   2048, batch 8, synthetic batches: one warm-up step and four timed
+   ones, losses finite and falling, step time, tokens/s and MFU, and the
+   kernels' launches per step; profile_train: torch.profiler over two
+   steps; then the same four steps and profile with the chunked head,
+   for the record;
+10. train_medium: gpt_medium_lm at full width (24 layers, hidden 1024),
+    batch 8, seq 2048, one warm-up and three steps; train_long:
+    lm_long_context at its defaults (seq 8192, attention-only remat,
+    flash forced, fused head), batch 2, one warm-up and two steps;
+    losses finite and falling, the head and flash kernels launched;
+11. consistency_train (fp32, full width, 2 layers, B=1, S=1024, flash
+    kernels forced), with the chunked and with the fused head: loss and
+    every gradient on the card agree with the plain path on the CPU.
 
-Kernel launch counts are set to 0 just before phases 4, 5 and 8 and read
-just after; a kernel of the path that did not launch, or a training step
-that launched a kernel another number of times than its forward,
-recomputation and backward need, fails the run.  The line before the
-last is one JSON object with a row per kernel; the last line is
-``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset (for
-iterating on one part); the default runs all.
+Kernel launch counts are set to 0 just before phases 5, 6, 9 and 10 (each
+path) and read just after; a kernel of the path that did not launch, or
+a gpt_lm training step that launched a kernel another number of times
+than its forward, recomputation and backward need, fails the run.  The
+line before the last is one JSON object with a row per kernel; the last
+line is ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset
+(for iterating on one part); the default runs all.
 """
 
 from __future__ import annotations
@@ -432,40 +442,173 @@ def check_flash(torch, F, fa):
     return rows
 
 
+def _library_logits(torch, x, w, grad):
+    """One PyTorch call for the head's logits: operands in their dtype
+    with an fp32 result (``mm(out_dtype=)``, which has no derivative), or,
+    where the backward is timed too, ``mm`` in the operands' dtype,
+    widened.  Timed as a yardstick only; the port never calls it."""
+    if grad or x.dtype == torch.float32:
+        return torch.mm(x, w.t()).float()
+    return torch.mm(x, w.t(), out_dtype=torch.float32)
+
+
+def check_fused_xent(torch, F, fx):
+    """K4f, K4b dx and K4b dw against their plain twins: gpt_lm's head
+    (N 16376 = 8 x 2047 tokens, D 768, V 50257, bf16) with a partial mask
+    and 1% of the targets at -100; D 1024 (gpt_medium_lm); fp32 operands;
+    a ragged N.  Forward values to atol 1e-4 (the same rounded operands,
+    another summation order); dx and dw to 5e-4 of their max in bf16 (a
+    rounding of dlog to bf16 may flip where p differs in its last fp32
+    bit) and 1e-4 in fp32; dx and dw bit-identical on a rerun.  For bf16
+    the row also reads an unrounded control, the plain products of dlog
+    kept in fp32, against the plain twin: it shows how far the limit
+    lies below a kernel that skipped dlog's rounding."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    cases = [("gpt_lm", bf16, 16376, 768), ("d1024", bf16, 16376, 1024),
+             ("fp32", fp32, 4096, 768), ("ragged_n", bf16, 1000, 768)]
+    v = 50257
+    rows = {"fused_xent_fwd": [], "fused_xent_dx": [], "fused_xent_dw": []}
+    for name, dtype, n, d in cases:
+        x = torch.randn(n, d, device="cuda", generator=g).to(dtype)
+        w = (0.05 * torch.randn(v, d, device="cuda", generator=g)).to(dtype)
+        t = torch.randint(0, v, (n,), device="cuda", generator=g,
+                          dtype=torch.int32)
+        t = torch.where(torch.rand(n, device="cuda", generator=g) < 0.01,
+                        -100, t).to(torch.int32)
+        w_row = (torch.rand(n, device="cuda", generator=g) > 0.1).float() \
+            * ((t >= 0) & (t < v)).float()
+        c = w_row / w_row.sum().clamp_min(1.0)
+        lse, tgt = fx.xent_fwd_cuda(x, w, t)
+        rlse, rtgt = fx.xent_fwd_plain(x, w, t)
+        bargs = (x, w, t, rlse, c)
+        dx, dw = fx.xent_dx_cuda(*bargs), fx.xent_dw_cuda(*bargs)
+        rdx, rdw = fx.xent_dx_plain(*bargs), fx.xent_dw_plain(*bargs)
+        dx2, dw2 = fx.xent_dx_cuda(*bargs), fx.xent_dw_cuda(*bargs)
+        torch.cuda.synchronize()
+        deterministic = torch.equal(dx, dx2) and torch.equal(dw, dw2)
+        g_tol = 5e-4 if dtype == bf16 else 1e-4
+        errs = {"lse": (lse - rlse).abs().max().item(),
+                "tgt": (tgt - rtgt).abs().max().item(),
+                "dx": _rel_err(dx, rdx), "dw": _rel_err(dw, rdw)}
+        if dtype == bf16:
+            dlog = torch.exp(x.float() @ w.float().T - rlse[:, None])
+            dlog[torch.arange(n, device="cuda")[(t >= 0) & (t < v)],
+                 t[(t >= 0) & (t < v)].long()] -= 1.0
+            dlog *= c[:, None]
+            errs["dx_unrounded_control"] = _rel_err(dlog @ w.float(), rdx)
+            errs["dw_unrounded_control"] = _rel_err(dlog.T @ x.float(), rdw)
+            del dlog
+        oks = {"fused_xent_fwd": max(errs["lse"], errs["tgt"]) <= 1e-4,
+               "fused_xent_dx": errs["dx"] <= g_tol and deterministic,
+               "fused_xent_dw": errs["dw"] <= g_tol and deterministic}
+
+        t_lib = t.long()
+        xl = x.detach().clone().requires_grad_(True)
+        wl = w.detach().clone().requires_grad_(True)
+
+        def lib_fwd(xl=xl, wl=wl, t_lib=t_lib, w_row=w_row, grad=False):
+            logits = _library_logits(torch, xl, wl, grad)
+            nll = F.cross_entropy(logits, t_lib, ignore_index=-100,
+                                  reduction="none")
+            return (nll * w_row).sum() / w_row.sum().clamp_min(1.0)
+
+        def lib_fwd_bwd(xl=xl, wl=wl):
+            return torch.autograd.grad(lib_fwd(grad=True), (xl, wl))
+
+        emit({"phase": "fused_xent_check", "case": name, **errs,
+              "deterministic": deterministic, "ok": oks})
+        it = dict(iters=5, reps=3)
+        plain_it = dict(iters=2, reps=3)
+        lib_ms = time_ms(torch, lib_fwd, [()], graph=False, **plain_it)
+        lib_bwd_ms = time_ms(torch, lib_fwd_bwd, [()], graph=False,
+                             **plain_it)
+        el = x.element_size()
+        flops = 2.0 * n * v * d
+        xb, wb, rb = n * d * el, v * d * el, 4 * n
+        common = {"case": name, "n": n, "d": d, "v": v,
+                  "dtype": str(dtype)[6:], "deterministic": deterministic,
+                  "library": ("mm(out_dtype=fp32)" if dtype == bf16 else "mm")
+                  + " + F.cross_entropy"}
+        specs = [
+            ("fused_xent_fwd", fx.xent_fwd_cuda, fx.xent_fwd_plain,
+             (x, w, t), flops, xb + wb + rb + 2 * rb, lib_ms,
+             {"lse_max_abs_err": errs["lse"],
+              "tgt_max_abs_err": errs["tgt"],
+              "tolerance": "lse, tgt atol 1e-4"},
+             max(errs["lse"], errs["tgt"])),
+            ("fused_xent_dx", fx.xent_dx_cuda, fx.xent_dx_plain, bargs,
+             2 * flops, xb + wb + 3 * rb + 4 * n * d, lib_bwd_ms,
+             {"dx_rel_err": errs["dx"],
+              "dx_unrounded_control": errs.get("dx_unrounded_control"),
+              "tolerance": f"{g_tol} of max|dx|; bit-identical on a rerun"},
+             (dx - rdx).abs().max().item()),
+            ("fused_xent_dw", fx.xent_dw_cuda, fx.xent_dw_plain, bargs,
+             2 * flops, xb + wb + 3 * rb + 4 * v * d, lib_bwd_ms,
+             {"dw_rel_err": errs["dw"],
+              "dw_unrounded_control": errs.get("dw_unrounded_control"),
+              "tolerance": f"{g_tol} of max|dw|; bit-identical on a rerun"},
+             (dw - rdw).abs().max().item()),
+        ]
+        for kname, kern, plain, args, kflops, nbytes, lms, extra, err \
+                in specs:
+            bms, by = bound_ms(nbytes, kflops, dtype)
+            row = {"kernel": kname, **common, "max_abs_err": err, **extra,
+                   "flops": kflops, "ms": time_ms(torch, kern, [args], **it),
+                   "plain_ms": time_ms(torch, plain, [args], **plain_it),
+                   "library_ms": lms, "bound_ms": bms, "bound_by": by}
+            if kname != "fused_xent_fwd":
+                row["library"] = ("mm, widened + F.cross_entropy, forward "
+                                  "and backward (eager)")
+            emit(row)
+            if not oks[kname]:
+                raise AssertionError(f"{kname} kernel disagrees: {row}")
+            rows[kname].append(row)
+        del xl, wl, x, w, dx, dw, rdx, rdw, dx2, dw2
+        torch.cuda.empty_cache()
+    return rows
+
+
 #: Kernel launches of one gpt_small training step with block remat: the
 #: LayerNorm forward 25 times in the forward and 24 again when the 12
 #: blocks are recomputed, its backward 25 times; the flash forward once a
 #: layer and again in the recomputation; its dq and dk/dv kernels once a
-#: layer.
+#: layer; the fused head's forward once (it lies outside the recomputed
+#: blocks) and its dx and dw kernels once each in the backward.
 TRAIN_LAUNCHES_PER_STEP = {"layernorm_fwd": 49, "layernorm_bwd": 25,
                            "flash_fwd": 24, "flash_bwd_dq": 12,
-                           "flash_bwd_dkv": 12}
+                           "flash_bwd_dkv": 12, "fused_xent_fwd": 1,
+                           "fused_xent_dx": 1, "fused_xent_dw": 1}
+HEAD_KERNELS = ("fused_xent_fwd", "fused_xent_dx", "fused_xent_dw")
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
 def _train_args(train_torch, *extra):
+    """gpt_lm at its preset defaults (xent_impl "auto": the fused head on
+    the card), cut to batch 8 at seq 2048."""
     return train_torch.parse_args(
         ["--workload", "gpt_lm", "--batch-size", "8", "--seq-len", "2048",
-         "--xent-impl", "chunked", "--remat", "on", "--seed", str(SEED),
-         "--device", "cuda", *extra])
+         "--remat", "on", "--seed", str(SEED), "--device", "cuda", *extra])
 
 
 def _param_count(model):
     return sum(p.numel() for p in model.parameters())
 
 
-def run_train(torch, cuda, train_torch):
-    """Full-width GPT-2-small steps through ``train_torch.build``."""
-    wl, state, step, batches = train_torch.build(_train_args(train_torch))
+def train_steps(torch, cuda, train_torch, args, steps, phase):
+    """One warm-up step and ``steps`` timed ones through
+    ``train_torch.build``; launch counts set to 0 after the warm-up and
+    read after the last step.  Losses must be finite and the last below
+    the first."""
+    wl, state, step, batches = train_torch.build(args)
     cfg = wl.cfg
-    if cfg.dtype != torch.bfloat16 or not cfg.remat:
-        raise AssertionError(f"unexpected training config {cfg}")
     state, m = step(state, next(batches))  # warm-up
     losses = [float(m["loss"])]
     torch.cuda.synchronize()
     cuda.launches.clear()
     times = []
     torch.cuda.reset_peak_memory_stats()
-    for _ in range(4):
+    for _ in range(steps):
         batch = next(batches)
         t0 = time.perf_counter()
         state, m = step(state, batch)
@@ -473,34 +616,91 @@ def run_train(torch, cuda, train_torch):
         times.append(time.perf_counter() - t0)
     launches = dict(cuda.launches)
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        raise AssertionError(f"training losses not finite and falling: "
-                             f"{losses}")
-    per_step = {k: launches.get(k, 0) / 4 for k in TRAIN_LAUNCHES_PER_STEP}
-    if per_step != TRAIN_LAUNCHES_PER_STEP or launches.get(
-            "decode_attention"):
-        raise AssertionError(f"launches per training step {per_step} (all: "
-                             f"{launches}), expected "
-                             f"{TRAIN_LAUNCHES_PER_STEP}")
+        raise AssertionError(f"{phase}: training losses not finite and "
+                             f"falling: {losses}")
     tokens = wl.global_batch_size * wl.seq_len
     step_s = statistics.median(times)
     n_params = _param_count(state.model)
     flops_per_token = 6 * n_params + 6 * cfg.num_layers * wl.seq_len \
         * cfg.hidden_size
     tps = tokens / step_s
-    emit({"phase": "train", "workload": wl.name, "batch": wl.global_batch_size,
-          "seq": wl.seq_len, "layers": cfg.num_layers,
-          "hidden": cfg.hidden_size, "params": n_params, "remat": cfg.remat,
-          "attn_impl": cfg.attn_impl, "xent_impl": cfg.xent_impl,
-          "losses": losses, "step_ms": [1e3 * t for t in times],
-          "step_ms_median": 1e3 * step_s, "tokens_per_sec": tps,
-          "mfu": flops_per_token * tps / PEAK_FLOPS["bfloat16"],
-          "mfu_flops_per_token": flops_per_token,
-          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-          "launches": launches, "launches_per_step": per_step})
+    row = {"phase": phase, "workload": wl.name,
+           "batch": wl.global_batch_size, "seq": wl.seq_len,
+           "layers": cfg.num_layers, "hidden": cfg.hidden_size,
+           "params": n_params, "remat": cfg.remat,
+           "remat_attn": cfg.remat_attn, "attn_impl": cfg.attn_impl,
+           "xent_impl": cfg.xent_impl, "losses": losses,
+           "step_ms": [1e3 * t for t in times],
+           "step_ms_median": 1e3 * step_s, "tokens_per_sec": tps,
+           "mfu": flops_per_token * tps / PEAK_FLOPS["bfloat16"],
+           "mfu_flops_per_token": flops_per_token,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": launches,
+           "launches_per_step": {k: v / steps for k, v in launches.items()}}
+    return state, step, batches, launches, row
+
+
+def run_train(torch, cuda, train_torch):
+    """Full-width GPT-2-small steps at the preset defaults: the fused head
+    and every kernel of the step launch their derived counts."""
+    state, step, batches, launches, row = train_steps(
+        torch, cuda, train_torch, _train_args(train_torch), 4, "train")
+    emit(row)
+    per_step = {k: launches.get(k, 0) / 4 for k in TRAIN_LAUNCHES_PER_STEP}
+    if per_step != TRAIN_LAUNCHES_PER_STEP or launches.get(
+            "decode_attention"):
+        raise AssertionError(f"launches per training step {per_step} (all: "
+                             f"{launches}), expected "
+                             f"{TRAIN_LAUNCHES_PER_STEP}")
     return state, step, batches, launches
 
 
-def run_profile_train(torch, state, step, batches):
+def run_train_chunked(torch, cuda, train_torch):
+    """The same steps with ``--xent-impl chunked``, timed beside the fused
+    head for the record (not asserted beyond finite, falling losses)."""
+    state, step, batches, launches, row = train_steps(
+        torch, cuda, train_torch,
+        _train_args(train_torch, "--xent-impl", "chunked"), 4,
+        "train_chunked")
+    emit(row)
+    return state, step, batches
+
+
+def run_train_medium(torch, cuda, train_torch):
+    """gpt_medium_lm at full width (24 layers, hidden 1024) and its preset
+    defaults, batch 8 at seq 2048 (cut from 64), 1 + 3 steps."""
+    args = train_torch.parse_args(
+        ["--workload", "gpt_medium_lm", "--batch-size", "8", "--seed",
+         str(SEED), "--device", "cuda"])
+    _, _, _, launches, row = train_steps(torch, cuda, train_torch, args, 3,
+                                         "train_medium")
+    emit(row)
+    missing = [k for k in HEAD_KERNELS + FLASH_KERNELS if not launches.get(k)]
+    if missing or row["hidden"] != 1024 or row["layers"] != 24:
+        raise AssertionError(f"train_medium: {missing} did not launch or "
+                             f"the config is cut: {row}")
+    return launches
+
+
+def run_train_long(torch, cuda, train_torch):
+    """lm_long_context at full width (gpt_small) and its preset defaults
+    (seq 8192, attention-only remat, flash forced, fused head), batch 2
+    (cut from 64), 1 + 2 steps."""
+    args = train_torch.parse_args(
+        ["--workload", "lm_long_context", "--batch-size", "2", "--seed",
+         str(SEED), "--device", "cuda"])
+    _, _, _, launches, row = train_steps(torch, cuda, train_torch, args, 2,
+                                         "train_long")
+    emit(row)
+    missing = [k for k in HEAD_KERNELS + FLASH_KERNELS if not launches.get(k)]
+    if missing or row["seq"] != 8192 or not row["remat_attn"] \
+            or row["attn_impl"] != "pallas":
+        raise AssertionError(f"train_long: {missing} did not launch or the "
+                             f"preset defaults did not apply: {row}")
+    return launches
+
+
+def run_profile_train(torch, state, step, batches, phase="profile_train"):
     from torch.profiler import ProfilerActivity, profile
 
     batch = [next(batches) for _ in range(2)]
@@ -517,7 +717,7 @@ def run_profile_train(torch, state, step, batches):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
-    emit({"phase": "profile_train", "steps": 2, "wall_ms": 1e3 * wall,
+    emit({"phase": phase, "steps": 2, "wall_ms": 1e3 * wall,
           "device_busy_ms": busy,
           "device_idle_share": 1.0 - busy / (1e3 * wall),
           "top_kernels": [{"name": e.key[:80], "calls": e.count,
@@ -525,12 +725,13 @@ def run_profile_train(torch, state, step, batches):
                           for e in top]})
 
 
-def run_consistency_train(torch, mods, cuda, device="cuda"):
+def run_consistency_train(torch, mods, cuda, xent, device="cuda"):
     """fp32 loss and gradients of 2 full-width layers at S=1024, B=1, the
-    flash kernels forced, on the card against the CPU's plain path."""
+    flash kernels forced and the head ``xent`` ("chunked" or "fused"), on
+    the card against the CPU's plain path."""
     cfg = dataclasses.replace(mods.gpt_small(), num_layers=2,
                               dtype=torch.float32, attn_impl="pallas",
-                              xent_impl="chunked")
+                              xent_impl=xent)
     state = mods.init_params(cfg, torch.Generator().manual_seed(SEED + 7))
     ids = np.random.default_rng(SEED + 7).integers(0, cfg.vocab_size,
                                                    (1, 1024))
@@ -551,17 +752,20 @@ def run_consistency_train(torch, mods, cuda, device="cuda"):
     worst = max(((card_g[n] - cpu_g[n]).abs().max()
                  / cpu_g[n].abs().max().clamp_min(1e-30)).item()
                 for n in cpu_g)
+    expected = [k for k in TRAIN_LAUNCHES_PER_STEP
+                if xent == "fused" or k not in HEAD_KERNELS]
     ok = loss_rel <= 1e-5 and worst <= 1e-3 and all(
-        launches.get(k) for k in TRAIN_LAUNCHES_PER_STEP)
+        launches.get(k) for k in expected)
     emit({"phase": "consistency_train", "dtype": "float32", "layers": 2,
-          "batch": 1, "seq": 1024, "attn_impl": "pallas",
+          "batch": 1, "seq": 1024, "attn_impl": "pallas", "xent_impl": xent,
           "card_loss": card_loss, "cpu_loss": cpu_loss,
           "loss_rel_err": loss_rel, "worst_grad_rel_err": worst,
           "tolerance": "loss 1e-5 relative; every gradient leaf 1e-3 of "
                        "its max-abs",
           "launches": launches})
     if not ok:
-        raise AssertionError("card training step differs from the CPU's")
+        raise AssertionError(f"card training step ({xent} head) differs "
+                             "from the CPU's or skipped a kernel")
 
 
 def sync(torch, dev) -> None:
@@ -719,7 +923,7 @@ def run_consistency(torch, mods, Engine, cfg, state, device="cuda"):
         raise AssertionError(f"card logits differ from the CPU's by {err}")
 
 
-PHASES = ("kernels", "serving", "train")
+PHASES = ("kernels", "xent", "serving", "train")
 
 
 def main(argv=None) -> int:
@@ -739,6 +943,7 @@ def main(argv=None) -> int:
     from distributedtensorflow_tpu_torch.ops import _cuda
     from distributedtensorflow_tpu_torch.ops import attention as attn
     from distributedtensorflow_tpu_torch.ops import flash_attention as fa
+    from distributedtensorflow_tpu_torch.ops import fused_xent as fx
     from distributedtensorflow_tpu_torch.ops import layernorm as ln
     from distributedtensorflow_tpu_torch.serve import Engine
 
@@ -766,6 +971,8 @@ def main(argv=None) -> int:
         rows["decode_attention"] = check_decode_attention(torch, F, attn)
         rows["layernorm_bwd"] = check_layernorm_bwd(torch, ln)
         rows.update(check_flash(torch, F, fa))
+    if "xent" in phases:
+        rows.update(check_fused_xent(torch, F, fx))
 
     launches = collections.Counter()
     if "serving" in phases:
@@ -789,7 +996,17 @@ def main(argv=None) -> int:
         run_profile_train(torch, tstate, tstep, batches)
         del tstate, tstep, batches
         torch.cuda.empty_cache()
-        run_consistency_train(torch, mods, _cuda)
+        tstate, tstep, batches = run_train_chunked(torch, _cuda, train_torch)
+        run_profile_train(torch, tstate, tstep, batches,
+                          "profile_train_chunked")
+        del tstate, tstep, batches
+        torch.cuda.empty_cache()
+        launches.update(run_train_medium(torch, _cuda, train_torch))
+        torch.cuda.empty_cache()
+        launches.update(run_train_long(torch, _cuda, train_torch))
+        torch.cuda.empty_cache()
+        for xent in ("chunked", "fused"):
+            run_consistency_train(torch, mods, _cuda, xent)
 
     if phases != set(PHASES):
         print(f"chip_smoke: ran only {sorted(phases)}", file=sys.stderr)
@@ -802,6 +1019,9 @@ def main(argv=None) -> int:
         "flash_fwd": ("flash_fwd.cu", "ops/flash_attention.py:333"),
         "flash_bwd_dq": ("flash_bwd.cu", "ops/flash_attention.py:671"),
         "flash_bwd_dkv": ("flash_bwd.cu", "ops/flash_attention.py:724"),
+        "fused_xent_fwd": ("fused_xent_fwd.cu", "ops/fused_xent.py:136"),
+        "fused_xent_dx": ("fused_xent_bwd.cu", "ops/fused_xent.py:180"),
+        "fused_xent_dw": ("fused_xent_bwd.cu", "ops/fused_xent.py:214"),
     }
 
     def summary(name):

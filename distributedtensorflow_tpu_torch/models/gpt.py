@@ -12,9 +12,11 @@ the flax ``cache`` collection: ``cache["h{i}"]["attn"]`` holds
 ``cache_index`` (an int), written in place.  Without one it runs the
 training forward: causal attention through ``dot_product_attention``
 (the flash kernels K2/K3 on the card), block remat through
-``torch.utils.checkpoint``, dropout from explicit seeds.  The losses
-(:func:`lm_loss`, :func:`lm_eval`) take the hidden states
-(``return_hidden=True``) to the chunked cross-entropy head.
+``torch.utils.checkpoint``, dropout from explicit seeds, and the
+blockwise FFN (``ffn_chunk_size``).  The losses (:func:`lm_loss`,
+:func:`lm_eval`) take the hidden states (``return_hidden=True``) to the
+cross-entropy head that :func:`_pick_xent` picks: the fused head (K4f/
+K4b) on the card, the chunked head on the CPU.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..ops.attention import cached_decode_attention, dot_product_attention
+from ..ops.blockwise import blockwise_map
+from ..ops.fused_xent import fused_softmax_xent
 from ..ops.xent import chunked_softmax_xent, tied_head_logits
 from .layers import FusedLayerNorm, dense, dropout
 
@@ -40,7 +44,8 @@ class GPTConfig:
     num_layers: int = 12
     num_heads: int = 12
     intermediate_size: int = 3072
-    #: Blockwise FFN (``ops/blockwise.py`` in JAX) is not ported; only 0.
+    #: Blockwise FFN: > 0 runs the MLP over sequence chunks of this many
+    #: tokens, each recomputed in the backward (``ops/blockwise.py``).
     ffn_chunk_size: int = 0
     max_seq: int = 2048
     dropout_rate: float = 0.0
@@ -188,8 +193,19 @@ class GPTBlock(nn.Module):
             a = self.attn(h, positions, rope_tabs, None)
         x = x + a
         h = self.ln2(x)
-        m = self.fc_out(F.gelu(self.fc_in(h), approximate="tanh"))
+        chunk = self.cfg.ffn_chunk_size
+        if chunk > 0 and cache is None:
+            if h.shape[1] % chunk:
+                raise ValueError(
+                    f"ffn_chunk_size={chunk} does not divide sequence "
+                    f"length {h.shape[1]}; pick a divisor or pad")
+            m = blockwise_map(self._mlp, h, chunk)
+        else:
+            m = self._mlp(h)
         return x + dropout(m, self.cfg.dropout_rate, dropout_seed)
+
+    def _mlp(self, h):
+        return self.fc_out(F.gelu(self.fc_in(h), approximate="tanh"))
 
 
 class GPTLM(nn.Module):
@@ -203,10 +219,6 @@ class GPTLM(nn.Module):
 
     def __init__(self, cfg: GPTConfig, *, device=None):
         super().__init__()
-        if cfg.ffn_chunk_size:
-            raise NotImplementedError(
-                f"ffn_chunk_size={cfg.ffn_chunk_size}: the blockwise FFN "
-                "(ops/blockwise.py) is not ported yet (ROADMAP.md)")
         device = resolve_device(device)
         self.cfg = cfg
         self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
@@ -270,19 +282,17 @@ class GPTLM(nn.Module):
         return tied_head_logits(x, self.wte.weight, cfg.dtype)
 
 
-def _pick_xent(cfg: GPTConfig):
-    """The LM-head loss for ``cfg.xent_impl``: "chunked" (fp32 logits
-    tiles), "chunked_bf16" (bf16 tiles) or "fused".  "auto" is "chunked"
-    on every device until the fused head's kernels K4f/K4b are ported
-    (the JAX package picks "fused" on the TPU); "fused" raises until
-    then."""
+def _pick_xent(cfg: GPTConfig, device):
+    """The LM-head loss for ``cfg.xent_impl`` on ``device``: "chunked"
+    (fp32 logits tiles), "chunked_bf16" (bf16 tiles) or "fused" (the
+    kernels K4f/K4b on the card, their plain twins on the CPU).  "auto"
+    is "fused" on ``cuda`` and "chunked" elsewhere, as the JAX package
+    picks the fused head on its accelerator (``gpt.py:512-515``)."""
     impl = cfg.xent_impl
     if impl == "auto":
-        impl = "chunked"
+        impl = "fused" if torch.device(device).type == "cuda" else "chunked"
     if impl == "fused":
-        raise NotImplementedError(
-            "xent_impl='fused': the fused LM-head kernels K4f/K4b "
-            "(ops/fused_xent.py) are not ported yet (ROADMAP.md)")
+        return fused_softmax_xent
     if impl == "chunked":
         return chunked_softmax_xent
     if impl == "chunked_bf16":
@@ -302,11 +312,12 @@ def _next_token_loss(model: GPTLM, xent, batch, **kw):
 
 
 def lm_loss(model: GPTLM):
-    """Next-token cross-entropy through the chunked head (JAX
-    ``lm_loss``): ``loss_fn(batch, generator=None) -> (loss,
-    {"perplexity": ...})``; ``batch["input_ids"]`` (B, S), an optional
-    ``batch["mask"]`` (B, S); the final position predicts nothing."""
-    xent = _pick_xent(model.cfg)
+    """Next-token cross-entropy through the head :func:`_pick_xent` picks
+    for the model's device (JAX ``lm_loss``): ``loss_fn(batch,
+    generator=None) -> (loss, {"perplexity": ...})``;
+    ``batch["input_ids"]`` (B, S), an optional ``batch["mask"]`` (B, S);
+    the final position predicts nothing."""
+    xent = _pick_xent(model.cfg, model.device)
 
     def loss_fn(batch, generator=None):
         loss = _next_token_loss(model, xent, batch, deterministic=False,
@@ -319,7 +330,7 @@ def lm_loss(model: GPTLM):
 def lm_eval(model: GPTLM):
     """Eval metric_fn (JAX ``lm_eval``): ``metric_fn(batch) -> {"loss",
     "perplexity"}``, deterministic, without autograd."""
-    xent = _pick_xent(model.cfg)
+    xent = _pick_xent(model.cfg, model.device)
 
     def metric_fn(batch):
         with torch.no_grad():

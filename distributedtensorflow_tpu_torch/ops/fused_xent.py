@@ -1,0 +1,248 @@
+"""Fused linear + softmax cross-entropy: the LM head, kernels K4f and K4b.
+
+Twin of ``distributedtensorflow_tpu/ops/fused_xent.py``.
+:func:`fused_softmax_xent` has the JAX entry's signature and reduction
+(``:572-609``): the mean masked next-token NLL of the tied head, where
+the (N, V) logits never reach memory.  It runs through
+:class:`FusedXentFn`, whose forward launches K4f (per-token logsumexp
+and target logit) and whose backward launches K4b dx and K4b dw, the
+twins of ``_fused_fwd``/``_fused_bwd`` (``:393-437``).
+
+A CUDA tensor goes to the hand-written kernels ``csrc/fused_xent_fwd.cu``
+(the port of ``_fwd_kernel``, ``:136``) and ``csrc/fused_xent_bwd.cu``
+(``_bwd_dx_kernel``, ``:180``, and ``_bwd_dw_kernel``, ``:214``); a CPU
+tensor to the plain twins :func:`xent_fwd_plain`, :func:`xent_dx_plain`
+and :func:`xent_dw_plain`, which the kernels are checked against on the
+card.  Semantics pinned from the JAX module:
+
+- logits from operands rounded to ``compute_dtype``, fp32 products and
+  sums (``:398-399``);
+- a target outside [0, V) matches no row (tgt 0) and weighs 0
+  (``:599-604``); the loss is ``sum((lse - tgt) * w_row) /
+  max(sum(w_row), 1)`` (``:406-407``);
+- the backward takes ``c = g * w_row / w_sum`` (``:423``), recomputes
+  ``p = exp(logit - lse)`` and rounds ``dlog = c * (p - onehot)`` to the
+  operand dtype before each product (``:204-207``, ``:230-233``); dx is
+  cast to the hidden's dtype, dw to the table's (``:432-433``), and the
+  mask gets a zero cotangent.
+
+The TPU-only machinery is left out: the ``DTFT_XENT_*`` tile overrides,
+the forward's VMEM token super-chunking (``_max_fwd_token_blocks``) and
+the Mosaic tile choice by width are VMEM budgets, not semantics.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _cuda
+
+#: Hidden sizes the backward kernels are built for (templates in
+#: ``csrc/fused_xent_bwd.cu``); the forward takes any multiple of 64.
+HIDDEN_SIZES = (128, 768, 1024)
+
+_FWD_SIGNATURES = {"dtf_xent_fwd": [ctypes.c_void_p] * 5
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p]}
+_BWD_SIGNATURES = {
+    name: [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    for name in ("dtf_xent_bwd_dx", "dtf_xent_bwd_dw")
+}
+
+
+def fused_softmax_xent(hidden: torch.Tensor, wte: torch.Tensor,
+                       targets: torch.Tensor, mask=None, *,
+                       compute_dtype=None) -> torch.Tensor:
+    """Mean masked next-token NLL of ``hidden`` (B, S, D) or (N, D)
+    against the tied table ``wte`` (V, D); ``targets`` and ``mask`` (1 =
+    count) shaped like the tokens.  The same reduction and out-of-range
+    target semantics as ``ops.xent.chunked_softmax_xent``."""
+    v, d = wte.shape
+    x2 = hidden.reshape(-1, d)
+    n = x2.shape[0]
+    t = targets.reshape(n).to(torch.int32)
+    w_row = (torch.ones(n, dtype=torch.float32, device=hidden.device)
+             if mask is None else mask.reshape(n).to(torch.float32))
+    w_row = w_row * ((t >= 0) & (t < v)).to(torch.float32)
+    op_dtype = compute_dtype or torch.promote_types(hidden.dtype, wte.dtype)
+    return FusedXentFn.apply(x2, wte, t, w_row, op_dtype)
+
+
+class FusedXentFn(torch.autograd.Function):
+    """Twin of the custom VJP ``_fused`` (``:386-440``)."""
+
+    @staticmethod
+    def forward(ctx, x2, wte, t, w_row, compute_dtype):
+        xc, wc = x2.to(compute_dtype), wte.to(compute_dtype)
+        lse, tgt = xent_fwd(xc, wc, t)
+        w_sum = w_row.sum().clamp_min(1.0)
+        ctx.save_for_backward(xc, wc, t, w_row, lse, w_sum)
+        ctx.dtypes = (x2.dtype, wte.dtype)
+        return ((lse - tgt) * w_row).sum() / w_sum
+
+    @staticmethod
+    def backward(ctx, g):
+        xc, wc, t, w_row, lse, w_sum = ctx.saved_tensors
+        c = (g * w_row / w_sum).to(torch.float32)
+        dx = xent_dx(xc, wc, t, lse, c).to(ctx.dtypes[0])
+        dw = xent_dw(xc, wc, t, lse, c).to(ctx.dtypes[1])
+        return dx, dw, None, torch.zeros_like(w_row), None
+
+
+def xent_fwd(x, w, t):
+    """``(lse, tgt)``, both (N,) fp32: K4f for CUDA tensors, the plain
+    twin for CPU ones."""
+    if x.device.type == "cpu":
+        return xent_fwd_plain(x, w, t)
+    return xent_fwd_cuda(x, w, t)
+
+
+def xent_dx(x, w, t, lse, c):
+    """dx (N, D) fp32: K4b dx for CUDA tensors, the plain twin for CPU
+    ones."""
+    if x.device.type == "cpu":
+        return xent_dx_plain(x, w, t, lse, c)
+    return xent_dx_cuda(x, w, t, lse, c)
+
+
+def xent_dw(x, w, t, lse, c):
+    """dw (V, D) fp32: K4b dw for CUDA tensors, the plain twin for CPU
+    ones."""
+    if x.device.type == "cpu":
+        return xent_dw_plain(x, w, t, lse, c)
+    return xent_dw_cuda(x, w, t, lse, c)
+
+
+# --------------------------------------------------------------- plain twins
+
+
+def _logits(x, w):
+    """(N, V) fp32 logits of the rounded operands, fp32 products."""
+    return x.float() @ w.float().T
+
+
+def xent_fwd_plain(x, w, t):
+    """Per-token ``lse`` and target logit (0 for a target outside
+    [0, V)), (N,) fp32 each (``_fwd_kernel``)."""
+    v = w.shape[0]
+    logits = _logits(x, w)
+    t = t.long()
+    valid = (t >= 0) & (t < v)
+    tgt = logits.gather(1, t.clamp(0, v - 1)[:, None])[:, 0]
+    return torch.logsumexp(logits, dim=-1), torch.where(valid, tgt, 0.0)
+
+
+def _dlog(x, w, t, lse, c):
+    """``c * (exp(logit - lse) - onehot)`` rounded to the operand dtype,
+    widened back to fp32."""
+    logits = _logits(x, w)
+    onehot = torch.arange(w.shape[0], device=x.device)[None, :] \
+        == t.long()[:, None]
+    p = torch.exp(logits - lse[:, None])
+    return (c[:, None] * (p - onehot.float())).to(w.dtype).float()
+
+
+def xent_dx_plain(x, w, t, lse, c):
+    """dx = dlog . w, fp32 (``_bwd_dx_kernel``)."""
+    return _dlog(x, w, t, lse, c) @ w.float()
+
+
+def xent_dw_plain(x, w, t, lse, c):
+    """dw = dlog^T . x, fp32 (``_bwd_dw_kernel``)."""
+    return _dlog(x, w, t, lse, c).T @ x.float()
+
+
+# ------------------------------------------------------------------- kernels
+
+
+def _operands(x, w, t, what, rows=()):
+    """Check what the kernels take; returns the operands contiguous and
+    16-byte aligned (a copy only where they are not)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} kernel needs CUDA tensors, got {x.device}")
+    if x.dtype not in (torch.bfloat16, torch.float32) or w.dtype != x.dtype:
+        raise TypeError(f"{what} kernel takes x and w both bf16 or both fp32, "
+                        f"got {x.dtype} and {w.dtype}")
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[1] \
+            or x.shape[0] < 1 or w.shape[0] < 1:
+        raise ValueError(f"{what} kernel needs x (N, D) and w (V, D), got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    n, d = x.shape
+    if d % 64 or (what != "fused_xent_fwd" and d not in HIDDEN_SIZES):
+        raise ValueError(f"{what} kernel is built for hidden sizes "
+                         f"{HIDDEN_SIZES}, got {d}")
+    if t.shape != (n,) or t.dtype != torch.int32:
+        raise ValueError(f"{what}: targets must be int32 (N,) = ({n},), got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    for name, r in rows:
+        if r.shape != (n,) or r.dtype != torch.float32:
+            raise ValueError(f"{what}: {name} must be fp32 (N,) = ({n},), "
+                             f"got {r.dtype} {tuple(r.shape)}")
+    out = []
+    for a in (x, w, t, *(r for _, r in rows)):
+        if a.device != x.device:
+            raise ValueError(f"{what}: operands on {x.device} and {a.device}")
+        a = a.contiguous()
+        out.append(a.clone() if a.data_ptr() % 16 else a)
+    return out
+
+
+def xent_fwd_cuda(x, w, t):
+    """Launch ``csrc/fused_xent_fwd.cu`` on the current stream; returns
+    ``(lse, tgt)``.
+
+    The port of ``_fwd_kernel``
+    (``distributedtensorflow_tpu/ops/fused_xent.py:136``).  Bound on the
+    H100 by operations: ``2 N V D`` flops over 989 TFLOP/s in bf16."""
+    x, w, t = _operands(x, w, t, "fused_xent_fwd")
+    n, d = x.shape
+    lse = torch.empty(n, dtype=torch.float32, device=x.device)
+    tgt = torch.empty(n, dtype=torch.float32, device=x.device)
+    lib = _cuda.load("fused_xent_fwd", _FWD_SIGNATURES)
+    err = lib.dtf_xent_fwd(
+        x.data_ptr(), w.data_ptr(), t.data_ptr(), lse.data_ptr(),
+        tgt.data_ptr(), n, w.shape[0], d, x.dtype == torch.bfloat16,
+        x.device.index or 0, _cuda.stream_handle(x.device))
+    _cuda.launches["fused_xent_fwd"] += 1
+    _cuda.check(lib, err, "fused_xent_fwd")
+    return lse, tgt
+
+
+def _bwd_cuda(x, w, t, lse, c, which):
+    name = f"fused_xent_{which}"
+    x, w, t, lse, c = _operands(x, w, t, name, (("lse", lse), ("c", c)))
+    rows = x.shape[0] if which == "dx" else w.shape[0]
+    out = torch.empty((rows, x.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    lib = _cuda.load("fused_xent_bwd", _BWD_SIGNATURES)
+    err = getattr(lib, f"dtf_xent_bwd_{which}")(
+        x.data_ptr(), w.data_ptr(), t.data_ptr(), lse.data_ptr(),
+        c.data_ptr(), out.data_ptr(), x.shape[0], w.shape[0], x.shape[1],
+        x.dtype == torch.bfloat16, x.device.index or 0,
+        _cuda.stream_handle(x.device))
+    _cuda.launches[name] += 1
+    _cuda.check(lib, err, name)
+    return out
+
+
+def xent_dx_cuda(x, w, t, lse, c):
+    """Launch the dx kernel of ``csrc/fused_xent_bwd.cu``; returns dx
+    (N, D) fp32.
+
+    The port of ``_bwd_dx_kernel``
+    (``distributedtensorflow_tpu/ops/fused_xent.py:180``).  Bound by
+    operations: two products (the logits and dlog . w) of ``2 N V D``
+    flops."""
+    return _bwd_cuda(x, w, t, lse, c, "dx")
+
+
+def xent_dw_cuda(x, w, t, lse, c):
+    """Launch the dw kernel of ``csrc/fused_xent_bwd.cu``; returns dw
+    (V, D) fp32.
+
+    The port of ``_bwd_dw_kernel``
+    (``distributedtensorflow_tpu/ops/fused_xent.py:214``).  Bound by
+    operations: two products (the logits and dlog^T . x) of ``2 N V D``
+    flops."""
+    return _bwd_cuda(x, w, t, lse, c, "dw")

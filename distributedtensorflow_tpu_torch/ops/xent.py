@@ -2,8 +2,8 @@
 
 Twin of ``distributedtensorflow_tpu/ops/xent.py``: ``tied_head_logits``
 (``:82-99``) for serving and ``chunked_softmax_xent`` (``:102-181``) for
-training.  The fused head (the kernels K4f/K4b, ``ops/fused_xent.py``) is
-not ported yet.
+training.  The fused head, the kernels K4f/K4b, lives in
+``ops/fused_xent.py``.
 """
 
 from __future__ import annotations

@@ -7,5 +7,10 @@ from .engine import (  # noqa: F401
     split_microbatches,
     step_generator,
 )
-from .optimizers import adamw  # noqa: F401
+from .optimizers import (  # noqa: F401
+    adamw,
+    build_optimizer,
+    build_schedule,
+    exclude_bias_and_norm_mask,
+)
 from .state import TrainState  # noqa: F401

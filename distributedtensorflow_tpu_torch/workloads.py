@@ -1,10 +1,12 @@
 """Training presets of the port: the GPT language-model family.
 
-Twin of ``distributedtensorflow_tpu/workloads.py`` for ``gpt_lm`` and
-``gpt_medium_lm`` (``:403-510``), with the same defaults: GPT-2-small
-(or -medium) at seq 2048, global batch 64, AdamW at 3e-4 with weight
-decay 0.1, synthetic next-token batches; ``test_size`` gives ``gpt_tiny``
-at seq 64, batch 8.  :func:`synthetic_lm` is a copy of the JAX package's
+Twin of ``distributedtensorflow_tpu/workloads.py`` for ``gpt_lm``,
+``gpt_medium_lm`` and ``lm_long_context`` (``:403-510``), with the same
+defaults: GPT-2-small (or -medium) at seq 2048, global batch 64, AdamW at
+3e-4 with weight decay 0.1, synthetic next-token batches;
+``lm_long_context`` is GPT-2-small at seq 8192 with attention-only remat
+and the flash kernels forced; ``test_size`` gives ``gpt_tiny`` at seq 64,
+batch 8.  :func:`synthetic_lm` is a copy of the JAX package's
 numpy source with the same seeds, so both packages see identical
 batches.  The other presets, the meshes and the pipeline/sequence-
 parallel variants are not ported yet.
@@ -28,6 +30,10 @@ from .models.gpt import (
     lm_loss,
 )
 from .train.optimizers import adamw
+
+
+#: The presets the port has.
+WORKLOADS = ("gpt_lm", "gpt_medium_lm", "lm_long_context")
 
 
 def synthetic_lm(ctx: InputContext, *, vocab_size: int, seq_len: int,
@@ -87,15 +93,22 @@ def get_workload(name: str, *, test_size: bool = False,
                  kv_heads: int | None = None,
                  attn_window: int | None = None) -> Workload:
     """Build a ported preset by name; ``test_size`` shrinks the model."""
-    if name not in ("gpt_lm", "gpt_medium_lm"):
+    if name not in WORKLOADS:
         raise ValueError(f"workload {name!r} is not ported; the port has "
-                         "'gpt_lm' and 'gpt_medium_lm'")
+                         f"{', '.join(WORKLOADS)}")
     if test_size:
         cfg = gpt_tiny()
     elif name == "gpt_medium_lm":
         cfg = gpt_medium()
     else:
         cfg = gpt_small()
+    if name == "lm_long_context" and not test_size:
+        # the long-context preset: 8k tokens, the flash kernels (their
+        # backward keeps no (S, S) tensor), attention-only remat; any
+        # knob still overrides
+        seq_len = seq_len or 8192
+        remat = "attn" if remat is None else remat
+        attn_impl = attn_impl or "pallas"
     seq = seq_len or (64 if test_size else 2048)
     cfg = _apply_gpt_overrides(cfg, seq=seq, remat=remat, attn_impl=attn_impl,
                                xent_impl=xent_impl, kv_heads=kv_heads,

@@ -8,6 +8,7 @@ XLA path (the presets' ``"auto"``).  The JAX package is only called.
 """
 
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +28,7 @@ from distributedtensorflow_tpu.models import lm_loss as jax_lm_loss
 from distributedtensorflow_tpu.ops.xent import (
     chunked_softmax_xent as jax_chunked_xent,
 )
+from distributedtensorflow_tpu.train import optimizers as jax_optimizers
 from distributedtensorflow_tpu.train.engine import _step_body
 from distributedtensorflow_tpu.train.state import TrainState as JaxTrainState
 from distributedtensorflow_tpu_torch import models as tm
@@ -199,20 +201,25 @@ def test_dropout_is_seeded_and_remat_consistent():
 
 
 def test_head_and_config_choices():
+    """Every head builds on the CPU ("auto" is the chunked head there,
+    "fused" its plain twins); an unknown head raises; the blockwise FFN
+    runs and refuses a chunk that does not divide the sequence."""
     cfg = tm.gpt_tiny()
     model = tm.GPTLM(cfg, device="cpu")
     assert tm.lm_loss(model) is not None  # "auto" is the chunked head
-    for impl in ("chunked", "chunked_bf16"):
-        tm.lm_loss(tm.GPTLM(dataclasses.replace(cfg, xent_impl=impl),
-                            device="cpu"))
-    with pytest.raises(NotImplementedError, match="K4f/K4b"):
-        tm.lm_loss(tm.GPTLM(dataclasses.replace(cfg, xent_impl="fused"),
-                            device="cpu"))
+    ids = torch.as_tensor(np.random.default_rng(0).integers(0, 512, (2, 16)))
+    for impl in ("chunked", "chunked_bf16", "fused"):
+        m = tm.GPTLM(dataclasses.replace(cfg, xent_impl=impl), device="cpu")
+        assert torch.isfinite(tm.lm_eval(m)({"input_ids": ids})["loss"])
     with pytest.raises(ValueError, match="xent_impl"):
         tm.lm_eval(tm.GPTLM(dataclasses.replace(cfg, xent_impl="dense"),
                             device="cpu"))
-    with pytest.raises(NotImplementedError, match="blockwise"):
-        tm.GPTLM(dataclasses.replace(cfg, ffn_chunk_size=16), device="cpu")
+    chunked = tm.GPTLM(dataclasses.replace(cfg, ffn_chunk_size=8),
+                       device="cpu")
+    assert torch.isfinite(tm.lm_eval(chunked)({"input_ids": ids})["loss"])
+    with pytest.raises(ValueError, match="does not divide"):
+        tm.lm_eval(tm.GPTLM(dataclasses.replace(cfg, ffn_chunk_size=6),
+                            device="cpu"))({"input_ids": ids})
 
 
 # ------------------------------------------------------- optimizer and step
@@ -237,8 +244,30 @@ def test_adamw_matches_optax():
         opt.step()
         np.testing.assert_allclose(tp.detach().numpy(), np.asarray(jp),
                                    rtol=0, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="mask"):
-        tt.adamw([tp], mask=lambda p: p)
+    # with the bias/norm decay mask: named parameters, and the 1-D ones
+    # left undecayed, as optax.adamw(mask=...) does
+    jparams = {"dense": {"kernel": jnp.asarray(p0),
+                         "bias": jnp.asarray(p0[0])}}
+    tx = optax.adamw(3e-4, weight_decay=0.1,
+                     mask=jax_optimizers.exclude_bias_and_norm_mask)
+    js = tx.init(jparams)
+    named = [("dense.kernel", torch.nn.Parameter(torch.from_numpy(p0.copy()))),
+             ("dense.bias", torch.nn.Parameter(torch.from_numpy(p0[0].copy())))]
+    opt = tt.adamw(named, 3e-4, weight_decay=0.1,
+                   mask=tt.exclude_bias_and_norm_mask)
+    for g in grads:
+        jg = {"dense": {"kernel": jnp.asarray(g), "bias": jnp.asarray(g[0])}}
+        upd, js = tx.update(jg, js, jparams)
+        jparams = optax.apply_updates(jparams, upd)
+        named[0][1].grad = torch.from_numpy(g)
+        named[1][1].grad = torch.from_numpy(g[0].copy())
+        opt.step()
+    for (_, p), ref in zip(named, (jparams["dense"]["kernel"],
+                                   jparams["dense"]["bias"])):
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(ref),
+                                   rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="named parameters"):
+        tt.adamw([tp], mask=tt.exclude_bias_and_norm_mask)
 
 
 def test_synthetic_lm_matches_jax():
@@ -262,6 +291,10 @@ WORKLOAD_CASES = {
         test_size=True, seq_len=512, remat="attn", attn_impl="pallas",
         xent_impl="chunked", kv_heads=2, attn_window=64,
         global_batch_size=4)),
+    "lm_long_context": ("lm_long_context", {}),
+    "lm_long_context_overrides": ("lm_long_context", dict(
+        seq_len=4096, remat="on", attn_impl="auto", xent_impl="fused")),
+    "lm_long_context_test_size": ("lm_long_context", dict(test_size=True)),
 }
 
 
@@ -357,3 +390,198 @@ def test_train_torch_runs_in_process(capsys):
         assert set(r) == {"step", "loss", "perplexity", "step_ms",
                           "tokens_per_sec"}
     assert len(capsys.readouterr().out.strip().splitlines()) == 3
+
+
+# ------------------------------------------------- blockwise FFN, optimizers
+
+
+def test_ffn_chunk_size_matches_jax():
+    """gpt_tiny at fp32 with the blockwise FFN (chunks of 16 of 64 tokens,
+    each recomputed in the backward) against JAX's: the loss and every
+    gradient leaf to 1e-4 of its max-abs; a chunk that does not divide
+    the sequence raises in both."""
+    jcfg = dataclasses.replace(jax_gpt_tiny(), dtype=jnp.float32,
+                               ffn_chunk_size=16)
+    tcfg = dataclasses.replace(tm.gpt_tiny(), dtype=torch.float32,
+                               ffn_chunk_size=16)
+    params = _jax_params(jcfg)
+    ids = np.random.default_rng(8).integers(0, 512, (2, 64))
+    loss_fn = jax_lm_loss(JaxGPTLM(jcfg))
+    jloss, jgrads = jax.value_and_grad(lambda p: loss_fn(
+        p, {}, {"input_ids": jnp.asarray(ids)}, jax.random.PRNGKey(0))[0])(
+            params)
+    model = tm.GPTLM(tcfg, device="cpu")
+    model.load_state_dict(tm.params_from_flax(params, tcfg))
+    loss, _ = tm.lm_loss(model)({"input_ids": torch.as_tensor(ids)})
+    names, leaves = zip(*model.named_parameters())
+    grads = torch.autograd.grad(loss, leaves)
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
+    _assert_trees_close(tm.params_to_flax(dict(zip(names, grads)), tcfg),
+                        jax.tree.map(np.asarray, jgrads), rel=1e-4)
+    bad = dataclasses.replace(jcfg, ffn_chunk_size=24)
+    with pytest.raises(ValueError, match="does not divide"):
+        JaxGPTLM(bad).apply({"params": params}, jnp.asarray(ids),
+                            return_hidden=True)
+    model = tm.GPTLM(dataclasses.replace(tcfg, ffn_chunk_size=24),
+                     device="cpu")
+    with pytest.raises(ValueError, match="does not divide"):
+        model(torch.as_tensor(ids), return_hidden=True)
+
+
+def test_blockwise_map_matches_the_whole_sequence():
+    from distributedtensorflow_tpu_torch.ops.blockwise import blockwise_map
+
+    x = torch.randn(2, 12, 5, requires_grad=True)
+    lin = torch.nn.Linear(5, 7)
+
+    def fn(h):
+        return torch.tanh(lin(h))
+
+    got = blockwise_map(fn, x, 4)
+    torch.testing.assert_close(got, fn(x))
+    g1 = torch.autograd.grad(got.sum(), (x, lin.weight))
+    g2 = torch.autograd.grad(fn(x).sum(), (x, lin.weight))
+    for a, b in zip(g1, g2):
+        torch.testing.assert_close(a, b)
+    with pytest.raises(ValueError, match="not divisible"):
+        blockwise_map(fn, x, 5)
+    with pytest.raises(ValueError, match="positive"):
+        blockwise_map(fn, x, 0)
+
+
+SCHEDULE_CASES = [("constant", 0), ("constant", 2), ("cosine", 0),
+                  ("cosine", 2), ("linear", 0), ("linear", 2)]
+
+
+@pytest.mark.parametrize("name,warmup", SCHEDULE_CASES)
+def test_build_schedule_matches_optax(name, warmup):
+    """The learning rate at optax's counts 0..7 (past the end too)."""
+    j = jax_optimizers.build_schedule(name, 0.1, warmup_steps=warmup,
+                                      total_steps=5)
+    t = tt.build_schedule(name, 0.1, warmup_steps=warmup, total_steps=5)
+    for count in range(8):
+        want = float(j(count)) if callable(j) else j
+        got = t(count) if callable(t) else t
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-9)
+
+
+def test_build_schedule_validation():
+    for name, kw, match in (("cosine", {}, "total_steps"),
+                            ("linear", dict(warmup_steps=5, total_steps=5),
+                             "warmup_steps"),
+                            ("step", {}, "schedule must be")):
+        with pytest.raises(ValueError, match=match):
+            tt.build_schedule(name, 0.1, **kw)
+
+
+#: optimizer, schedule, warmup, weight decay, clipnorm, decay mask
+OPT_CASES = {
+    "sgd": ("sgd", "constant", 0, 0.0, 0.0, False),
+    "momentum_cosine": ("momentum", "cosine", 1, 0.0, 0.0, False),
+    "adam_linear_clip": ("adam", "linear", 1, 0.0, 1.0, False),
+    "adamw_cosine_clip_mask": ("adamw", "cosine", 0, 0.1, 0.5, True),
+    "adamw_linear": ("adamw", "linear", 2, 0.1, 0.0, False),
+    "adagrad_warmup": ("adagrad", "constant", 2, 0.0, 0.0, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(OPT_CASES))
+def test_build_optimizer_matches_optax(case):
+    """``build_optimizer`` against the JAX package's optax chain over
+    three updates from the same gradients, on a tree with a matrix, a
+    bias, a norm scale and an embedding: every parameter to 1e-6 (a few
+    fp32 ulps; the two order the same arithmetic differently)."""
+    name, sched, warmup, wd, clip, masked = OPT_CASES[case]
+    rng = np.random.default_rng(9)
+    shapes = {("dense", "kernel"): (5, 7), ("dense", "bias"): (7,),
+              ("ln", "scale"): (7,), ("emb", "embedding"): (3, 7)}
+    p0 = {k: rng.standard_normal(s).astype(np.float32)
+          for k, s in shapes.items()}
+    grads = [{k: rng.standard_normal(s).astype(np.float32)
+              for k, s in shapes.items()} for _ in range(3)]
+
+    def tree(flat):
+        out = {}
+        for (a, b), v in flat.items():
+            out.setdefault(a, {})[b] = jnp.asarray(v)
+        return out
+
+    jlr = jax_optimizers.build_schedule(sched, 0.05, warmup_steps=warmup,
+                                        total_steps=4)
+    tx = jax_optimizers.build_optimizer(
+        name, jlr, weight_decay=wd, global_clipnorm=clip,
+        decay_mask=(jax_optimizers.exclude_bias_and_norm_mask
+                    if masked else None))
+    jp = tree(p0)
+    js = tx.init(jp)
+    named = [(".".join(k), torch.nn.Parameter(torch.from_numpy(v.copy())))
+             for k, v in p0.items()]
+    tlr = tt.build_schedule(sched, 0.05, warmup_steps=warmup, total_steps=4)
+    opt = tt.build_optimizer(
+        name, tlr, weight_decay=wd, global_clipnorm=clip,
+        decay_mask=tt.exclude_bias_and_norm_mask if masked else None)(named)
+    for g in grads:
+        upd, js = tx.update(tree(g), js, jp)
+        jp = optax.apply_updates(jp, upd)
+        for (key, _), (_, p) in zip(p0.items(), named):
+            p.grad = torch.from_numpy(g[key])
+        opt.step()
+        for (key, _), (_, p) in zip(p0.items(), named):
+            np.testing.assert_allclose(p.detach().numpy(),
+                                       np.asarray(jp[key[0]][key[1]]),
+                                       rtol=0, atol=1e-6, err_msg=str(key))
+
+
+def test_build_optimizer_validation_and_queued_optimizers():
+    with pytest.raises(ValueError, match="no decoupled weight decay"):
+        tt.build_optimizer("adam", 0.1, weight_decay=0.1)
+    with pytest.raises(ValueError, match="global_clipnorm"):
+        tt.build_optimizer("sgd", 0.1, global_clipnorm=-1.0)
+    with pytest.raises(ValueError, match="decay_mask"):
+        tt.build_optimizer("sgd", 0.1,
+                           decay_mask=tt.exclude_bias_and_norm_mask)
+    for name in ("lamb", "lars", "adafactor", "lion"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tt.build_optimizer(name, 0.1)
+    with pytest.raises(ValueError, match="optimizer must be one of"):
+        tt.build_optimizer("rmsprop", 0.1)
+    model = tm.GPTLM(tm.gpt_tiny(), device="cpu")
+    mask = tt.exclude_bias_and_norm_mask(model.named_parameters())
+    assert mask["wte.weight"] and mask["h.0.attn.qkv.weight"]
+    assert not mask["h.0.ln1.scale"] and not mask["ln_f.bias"]
+
+
+def test_train_torch_logdir_passes_the_metrics_schema(tmp_path, capsys):
+    """``--logdir`` writes ``metrics.jsonl`` rows with train.py's keys
+    (with an eval row and an optimizer override), and
+    ``tools/check_metrics_schema`` finds no error in them; the override
+    flags refuse what train.py refuses."""
+    from tools import check_metrics_schema
+
+    logdir = tmp_path / "run"
+    train_torch.main(["--workload", "gpt_lm", "--test-size", "--device",
+                      "cpu", "--steps", "2", "--log-every", "1",
+                      "--eval-every", "2", "--logdir", str(logdir),
+                      "--optimizer", "adamw", "--lr", "1e-3", "--schedule",
+                      "cosine", "--warmup-steps", "1", "--weight-decay",
+                      "0.1", "--decay-mask", "bias-norm", "--clipnorm",
+                      "1.0"])
+    path = logdir / "metrics.jsonl"
+    errors, _ = check_metrics_schema.check_file(str(path))
+    assert errors == []
+    rows = [json.loads(x) for x in path.read_text().splitlines()]
+    assert [set(r) for r in rows] == [
+        {"step", "loss", "perplexity", "steps_per_sec", "examples_per_sec",
+         "examples_per_sec_per_chip"}] * 2 + [
+        {"step", "eval_loss", "eval_perplexity"}]
+    assert [r["step"] for r in rows] == [1, 2, 2]
+    capsys.readouterr()
+    for argv, match in ((["--lr", "0.1"], "--lr requires --optimizer"),
+                        (["--optimizer", "sgd"], "--optimizer requires --lr"),
+                        (["--optimizer", "sgd", "--lr", "0.1",
+                          "--weight-decay", "0.1"], "no decoupled"),
+                        (["--optimizer", "lion", "--lr", "0.1"], "ROADMAP"),
+                        (["--schedule", "cosine"], "require --optimizer")):
+        with pytest.raises(SystemExit, match=match):
+            train_torch.main(["--test-size", "--device", "cpu", "--steps",
+                              "1", *argv])
