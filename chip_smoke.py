@@ -8,7 +8,7 @@ Run from the repository root on a machine with one CUDA card:
 Phases, each fatal on failure:
 
 1. device: the card's name and power limit, as nvidia-smi prints them;
-2. build: every CUDA kernel of the serving and training paths (seven
+2. build: every CUDA kernel of the serving and training paths (eight
    libraries), compiled with nvcc for sm_90a from
    ``distributedtensorflow_tpu_torch/csrc`` into ``build/torch_kernels/``,
    one nvcc per source, all started together;
@@ -17,8 +17,10 @@ Phases, each fatal on failure:
    PyTorch library call's, and its bound (the least time the card could
    take: bytes over 3.35 TB/s or operations over the peak rate of their
    type): the LayerNorm forward and decode attention at the serving
-   shapes, the LayerNorm backward and the flash-attention forward, dq
-   and dk/dv kernels at the training step's;
+   shapes, the LayerNorm backward and the flash-attention forward, the
+   split backward's dq and dk/dv kernels and the single-sweep backward
+   K3f at the training step's, and the flash kernels again at
+   lm_long_context's S 8192;
 4. xent: the fused LM head's kernels (forward, dx, dw) at gpt_lm's head
    (16376 tokens, D 768, V 50257, bf16), at D 1024, in fp32 and at a
    ragged token count, the same way;
@@ -34,22 +36,35 @@ Phases, each fatal on failure:
    gpt_lm preset defaults (bf16, block remat, the fused head) at seq
    2048, batch 8, synthetic batches: one warm-up step and four timed
    ones, losses finite and falling, step time, tokens/s and MFU, and the
-   kernels' launches per step; profile_train: torch.profiler over two
-   steps; then the same four steps and profile with the chunked head,
-   for the record;
+   kernels' launches per step (the backward is K3f); profile_train:
+   torch.profiler over two steps; then the same four steps and profile
+   with the chunked head, for the record; train_split: the same steps
+   with ``BACKWARD_IMPL = "pallas_split"`` (the split pair, K3f not
+   launched), timed beside K3f's;
 10. train_medium: gpt_medium_lm at full width (24 layers, hidden 1024),
     batch 8, seq 2048, one warm-up and three steps; train_long:
     lm_long_context at its defaults (seq 8192, attention-only remat,
-    flash forced, fused head), batch 2, one warm-up and two steps;
-    losses finite and falling, the head and flash kernels launched;
-11. consistency_train (fp32, full width, 2 layers, B=1, S=1024, flash
-    kernels forced), with the chunked and with the fused head: loss and
-    every gradient on the card agree with the plain path on the CPU.
+    flash forced, fused head), batch 2, one warm-up and two steps, then
+    again with the split pair; losses finite and falling, the head and
+    flash kernels launched;
+11. train_moe: gpt_moe at its defaults (GPT-2-small, eight experts with
+    top-2 routing on every second block), batch 8, seq 2048, one warm-up
+    and three steps, the same launches per step as gpt_lm; losses finite
+    and the LM part falling (the routers' load-balancing term, reported
+    beside it, grows over the first steps); its MFU counts two of the
+    eight experts per token; profile_train_moe;
+12. consistency_train (fp32, full width, 2 layers, B=1, S=1024, flash
+    kernels forced): with the chunked head, the fused head, the fused
+    head with the split pair, and gpt_moe's layers (1 dense, 1 MoE) with
+    the fused head: loss and every gradient on the card agree with the
+    plain path on the CPU, and the MoE block routes every token to the
+    same experts on both.
 
-Kernel launch counts are set to 0 just before phases 5, 6, 9 and 10 (each
+Kernel launch counts are set to 0 just before phases 5, 6 and 9-11 (each
 path) and read just after; a kernel of the path that did not launch, or
-a gpt_lm training step that launched a kernel another number of times
-than its forward, recomputation and backward need, fails the run.  The
+a gpt_lm or gpt_moe training step that launched a kernel another number
+of times than its forward, recomputation and backward need, fails the
+run.  The
 line before the last is one JSON object with a row per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset
 (for iterating on one part); the default runs all.
@@ -59,6 +74,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -312,10 +328,13 @@ def _rel_err(got, ref):
 
 
 def check_flash(torch, F, fa):
-    """K2 and K3 (dq, dk/dv) at the training step's attention: B=8, H=12,
-    S=2048, D=64, causal, bf16; GQA, window and padding cases; fp32 once;
-    and a ragged case (S not a multiple of the 64-row tiles, with GQA,
-    window, padding and packed segments at once) and a D=32 case."""
+    """K2, K3 (dq, dk/dv) and K3f at the training step's attention: B=8,
+    H=12, S=2048, D=64, causal, bf16; GQA, window and padding cases; fp32
+    once; a ragged case (S not a multiple of the 64-row tiles, with GQA,
+    window, padding and packed segments at once); a D=32 case; and the
+    first case again at lm_long_context's S=8192 (B=2).  K3f is held
+    against its plain twin and reported beside the split pair's
+    outputs."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 6)
     bf16, fp32 = torch.bfloat16, torch.float32
     # name, dtype, (B, H, Hkv, S, D), window, padding, segment ids
@@ -326,8 +345,10 @@ def check_flash(torch, F, fa):
              ("causal_fp32", fp32, (8, 12, 12, 2048, 64), None, False, False),
              ("ragged_all_masks", bf16, (2, 12, 4, 1000, 64), 300, True,
               True),
-             ("d32_fp32", fp32, (2, 4, 2, 256, 32), None, True, False)]
-    rows = {"flash_fwd": [], "flash_bwd_dq": [], "flash_bwd_dkv": []}
+             ("d32_fp32", fp32, (2, 4, 2, 256, 32), None, True, False),
+             ("long_context", bf16, (2, 12, 12, 8192, 64), None, False,
+              False)]
+    rows = {k: [] for k in FLASH_ROWS}
     for name, dtype, (b, h, h_kv, s, d), window, padded, segmented in cases:
         def rnd(*shape):
             return torch.randn(*shape, device="cuda", generator=g).to(dtype)
@@ -350,30 +371,45 @@ def check_flash(torch, F, fa):
         bargs = (q, k, v, do, rlse, delta, *kw.values())
         dq = fa.flash_bwd_dq_cuda(*bargs)
         dk, dv = fa.flash_bwd_dkv_cuda(*bargs)
-        rdq = fa._plain_flash_bwd_dq(*bargs)
-        rdk, rdv = fa._plain_flash_bwd_dkv(*bargs)
+        fused = fa.flash_bwd_fused_cuda(*bargs)
         dq2 = fa.flash_bwd_dq_cuda(*bargs)
         dk2, dv2 = fa.flash_bwd_dkv_cuda(*bargs)
+        fused2 = fa.flash_bwd_fused_cuda(*bargs)
         torch.cuda.synchronize()
+        rdq = fa._plain_flash_bwd_dq(*bargs)
+        rdk, rdv = fa._plain_flash_bwd_dkv(*bargs)
+        rfused = fa._plain_flash_bwd_fused(*bargs)
         deterministic = all(torch.equal(a, c) for a, c in
                             ((dq, dq2), (dk, dk2), (dv, dv2)))
+        fused_deterministic = all(torch.equal(a, c)
+                                  for a, c in zip(fused, fused2))
+        twins_agree = all(torch.equal(a, c) for a, c in
+                          zip(rfused, (rdq, rdk, rdv)))
         o_tol, g_tol = (2e-2, 1e-2) if dtype == bf16 else (2e-5, 1e-4)
         errs = {"o": (o.float() - ro.float()).abs().max().item(),
                 "lse": (lse - rlse).abs().max().item(),
                 "dq": _rel_err(dq, rdq), "dk": _rel_err(dk, rdk),
                 "dv": _rel_err(dv, rdv)}
+        fused_errs = {f"{n}_rel_err": _rel_err(a, r)
+                      for n, a, r in zip(("dq", "dk", "dv"), fused, rfused)}
+        vs_split = {f"{n}_vs_split_rel_err": _rel_err(a, r)
+                    for n, a, r in zip(("dq", "dk", "dv"), fused,
+                                       (dq, dk, dv))}
         oks = {"flash_fwd": errs["o"] <= o_tol and errs["lse"] <= 1e-3,
                "flash_bwd_dq": errs["dq"] <= g_tol and deterministic,
                "flash_bwd_dkv": max(errs["dk"], errs["dv"]) <= g_tol
-               and deterministic}
+               and deterministic,
+               "flash_bwd_fused": max(fused_errs.values()) <= g_tol
+               and fused_deterministic and twins_agree}
         keep = _keep(torch, s, True, window, mask, seg)
         # (query, key) pairs over all heads: the work these inputs need
         pairs = float(keep.expand(b, 1, s, s).sum()) * h
+        del keep
         el = q.element_size()
         qbytes, kvbytes, rows_bytes = b * s * h * d * el, \
             b * s * h_kv * d * el, b * h * s * 4
         lib_mask = None if window is None and mask is None and seg is None \
-            else keep
+            else _keep(torch, s, True, window, mask, seg)
         gqa = h != h_kv
         qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
 
@@ -392,13 +428,16 @@ def check_flash(torch, F, fa):
             return torch.autograd.grad(out_lib, (qr, kr, vr), dot,
                                        retain_graph=True)
 
-        iters = dict(iters=10, reps=3)
+        long = s > 4096
+        iters = dict(iters=3, reps=3) if long else dict(iters=10, reps=3)
+        # at S 8192 one plain call holds ~30 GB of (B, H, S, S) tiles:
+        # timed eagerly, once per rep
+        plain_iters = dict(iters=1, reps=3, graph=False) if long else iters
         fwd_args = [(q, k, v, *kw.values())]
         lib_bwd_ms = time_ms(torch, sdpa_bwd, [()], graph=False, **iters)
         common = {"case": name, "b": b, "h": h, "h_kv": h_kv, "s": s, "d": d,
                   "dtype": str(dtype)[6:], "window": window,
-                  "padding": padded, "segments": segmented,
-                  "deterministic": deterministic}
+                  "padding": padded, "segments": segmented}
         specs = [
             ("flash_fwd", fa.flash_forward_cuda, fa._plain_flash_forward,
              fwd_args, 4 * d * pairs,
@@ -410,24 +449,36 @@ def check_flash(torch, F, fa):
             ("flash_bwd_dq", fa.flash_bwd_dq_cuda, fa._plain_flash_bwd_dq,
              [bargs], 6 * d * pairs,
              3 * qbytes + 2 * kvbytes + 2 * rows_bytes, lib_bwd_ms,
-             {"dq_rel_err": errs["dq"],
+             {"dq_rel_err": errs["dq"], "deterministic": deterministic,
               "tolerance": f"{g_tol} of max|dq|; bit-identical on a rerun"},
              (dq.float() - rdq.float()).abs().max().item()),
             ("flash_bwd_dkv", fa.flash_bwd_dkv_cuda, fa._plain_flash_bwd_dkv,
              [bargs], 8 * d * pairs,
              2 * qbytes + 4 * kvbytes + 2 * rows_bytes, lib_bwd_ms,
              {"dk_rel_err": errs["dk"], "dv_rel_err": errs["dv"],
+              "deterministic": deterministic,
               "tolerance": f"{g_tol} of max|dk|, max|dv|; bit-identical "
                            "on a rerun"},
              max((dk.float() - rdk.float()).abs().max().item(),
                  (dv.float() - rdv.float()).abs().max().item())),
+            ("flash_bwd_fused", fa.flash_bwd_fused_cuda,
+             fa._plain_flash_bwd_fused, [bargs], 10 * d * pairs,
+             3 * qbytes + 4 * kvbytes + 2 * rows_bytes, lib_bwd_ms,
+             {**fused_errs, **vs_split, "deterministic": fused_deterministic,
+              "plain_equals_split_twins": twins_agree,
+              "tolerance": f"{g_tol} of max|dq|, max|dk|, max|dv| against "
+                           "the plain twin; bit-identical on a rerun; the "
+                           "twin equals the split twins bit for bit"},
+             max((a.float() - r.float()).abs().max().item()
+                 for a, r in zip(fused, rfused))),
         ]
+        del rdq, rdk, rdv, rfused
         for kname, kern, plain, args, flops, nbytes, lib_ms, extra, err \
                 in specs:
             bms, by = bound_ms(nbytes, flops, dtype)
             row = {"kernel": kname, **common, "max_abs_err": err, **extra,
                    "flops": flops, "ms": time_ms(torch, kern, args, **iters),
-                   "plain_ms": time_ms(torch, plain, args, **iters),
+                   "plain_ms": time_ms(torch, plain, args, **plain_iters),
                    "library_ms": lib_ms,
                    "library": "F.scaled_dot_product_attention "
                               + ("forward" if kname == "flash_fwd" else
@@ -437,7 +488,7 @@ def check_flash(torch, F, fa):
             if not oks[kname]:
                 raise AssertionError(f"{kname} kernel disagrees: {row}")
             rows[kname].append(row)
-        del out_lib, qr, kr, vr
+        del out_lib, qr, kr, vr, lib_mask
         torch.cuda.empty_cache()
     return rows
 
@@ -569,18 +620,25 @@ def check_fused_xent(torch, F, fx):
     return rows
 
 
-#: Kernel launches of one gpt_small training step with block remat: the
-#: LayerNorm forward 25 times in the forward and 24 again when the 12
-#: blocks are recomputed, its backward 25 times; the flash forward once a
-#: layer and again in the recomputation; its dq and dk/dv kernels once a
-#: layer; the fused head's forward once (it lies outside the recomputed
-#: blocks) and its dx and dw kernels once each in the backward.
+#: Kernel launches of one gpt_small (or gpt_moe_small) training step with
+#: block remat: the LayerNorm forward 25 times in the forward and 24 again
+#: when the 12 blocks are recomputed, its backward 25 times; the flash
+#: forward once a layer and again in the recomputation; the single-sweep
+#: backward K3f once a layer (S 2048 x D 64 x 4 bytes fits the 2 MiB
+#: threshold, so the split pair does not run); the fused head's forward
+#: once (it lies outside the recomputed blocks) and its dx and dw kernels
+#: once each in the backward.
 TRAIN_LAUNCHES_PER_STEP = {"layernorm_fwd": 49, "layernorm_bwd": 25,
-                           "flash_fwd": 24, "flash_bwd_dq": 12,
-                           "flash_bwd_dkv": 12, "fused_xent_fwd": 1,
-                           "fused_xent_dx": 1, "fused_xent_dw": 1}
+                           "flash_fwd": 24, "flash_bwd_fused": 12,
+                           "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                           "fused_xent_fwd": 1, "fused_xent_dx": 1,
+                           "fused_xent_dw": 1}
+#: lm_long_context's step: attention-only remat recomputes the attention
+#: (the flash forward twice a layer) but no LayerNorm.
+LONG_LAUNCHES_PER_STEP = {**TRAIN_LAUNCHES_PER_STEP, "layernorm_fwd": 25}
 HEAD_KERNELS = ("fused_xent_fwd", "fused_xent_dx", "fused_xent_dw")
-FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+FLASH_ROWS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+              "flash_bwd_fused")
 
 
 def _train_args(train_torch, *extra):
@@ -595,14 +653,35 @@ def _param_count(model):
     return sum(p.numel() for p in model.parameters())
 
 
+def _flops_per_token(model, cfg, seq) -> tuple[float, str]:
+    """MFU's flops per token, 6 N + 6 L S E (PERF.md section 2), and how
+    N was counted.  In an MoE model a token runs only the experts it is
+    routed to, so of the experts' parameters N counts the router's
+    assignments per token over the number of experts (2 of 8 at top-2):
+    6 (N - N_experts 6/8)."""
+    n = _param_count(model)
+    n_experts = sum(p.numel() for name, p in model.named_parameters()
+                    if ".experts_" in name)
+    how = "N all parameters, the tied table once"
+    if n_experts:
+        from distributedtensorflow_tpu_torch.parallel import moe
+        active = moe._ASSIGNMENTS[cfg.router] / cfg.n_experts
+        n -= n_experts * (1.0 - active)
+        how = (f"N all parameters less the experts a token skips: "
+               f"{n_experts} expert parameters x {1.0 - active}")
+    return 6 * n + 6 * cfg.num_layers * seq * cfg.hidden_size, how
+
+
 def train_steps(torch, cuda, train_torch, args, steps, phase):
     """One warm-up step and ``steps`` timed ones through
     ``train_torch.build``; launch counts set to 0 after the warm-up and
-    read after the last step.  Losses must be finite and the last below
-    the first."""
+    read after the last step.  Losses must be finite and the language
+    model's loss (log perplexity: the whole loss but for gpt_moe's router
+    term) must end below where it began."""
     wl, state, step, batches = train_torch.build(args)
     cfg = wl.cfg
     state, m = step(state, next(batches))  # warm-up
+    metrics = [m]
     losses = [float(m["loss"])]
     torch.cuda.synchronize()
     cuda.launches.clear()
@@ -614,15 +693,18 @@ def train_steps(torch, cuda, train_torch, args, steps, phase):
         state, m = step(state, batch)
         losses.append(float(m["loss"]))
         times.append(time.perf_counter() - t0)
+        metrics.append(m)
     launches = dict(cuda.launches)
-    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        raise AssertionError(f"{phase}: training losses not finite and "
-                             f"falling: {losses}")
+    lm_losses = [math.log(float(m["perplexity"])) for m in metrics]
+    if not all(math.isfinite(x) for x in losses) \
+            or not lm_losses[-1] < lm_losses[0]:
+        raise AssertionError(f"{phase}: training losses not finite or the "
+                             f"LM loss not falling: {losses}, LM "
+                             f"{lm_losses}")
     tokens = wl.global_batch_size * wl.seq_len
     step_s = statistics.median(times)
     n_params = _param_count(state.model)
-    flops_per_token = 6 * n_params + 6 * cfg.num_layers * wl.seq_len \
-        * cfg.hidden_size
+    flops_per_token, mfu_n = _flops_per_token(state.model, cfg, wl.seq_len)
     tps = tokens / step_s
     row = {"phase": phase, "workload": wl.name,
            "batch": wl.global_batch_size, "seq": wl.seq_len,
@@ -630,29 +712,72 @@ def train_steps(torch, cuda, train_torch, args, steps, phase):
            "params": n_params, "remat": cfg.remat,
            "remat_attn": cfg.remat_attn, "attn_impl": cfg.attn_impl,
            "xent_impl": cfg.xent_impl, "losses": losses,
+           "lm_losses": lm_losses,
+           "aux_losses": [float(m["aux_loss"]) for m in metrics
+                          if "aux_loss" in m],
            "step_ms": [1e3 * t for t in times],
            "step_ms_median": 1e3 * step_s, "tokens_per_sec": tps,
            "mfu": flops_per_token * tps / PEAK_FLOPS["bfloat16"],
-           "mfu_flops_per_token": flops_per_token,
+           "mfu_flops_per_token": flops_per_token, "mfu_n": mfu_n,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
            "launches": launches,
            "launches_per_step": {k: v / steps for k, v in launches.items()}}
     return state, step, batches, launches, row
 
 
+def _check_launches(phase, launches, steps, expected):
+    """Each kernel of ``expected`` launched its count per step (0 = not
+    at all), and decode attention did not run."""
+    per_step = {k: launches.get(k, 0) / steps for k in expected}
+    if per_step != expected or launches.get("decode_attention"):
+        raise AssertionError(f"{phase}: launches per training step "
+                             f"{per_step} (all: {launches}), expected "
+                             f"{expected}")
+
+
+def _split(per_step):
+    """``per_step`` with the split pair in K3f's place."""
+    return {**per_step, "flash_bwd_fused": 0,
+            "flash_bwd_dq": per_step["flash_bwd_fused"],
+            "flash_bwd_dkv": per_step["flash_bwd_fused"]}
+
+
+@contextlib.contextmanager
+def _backward(fa, impl):
+    """``fa.BACKWARD_IMPL = impl`` inside the block, the default after."""
+    fa.BACKWARD_IMPL = impl
+    try:
+        yield
+    finally:
+        fa.BACKWARD_IMPL = "pallas"
+
+
 def run_train(torch, cuda, train_torch):
-    """Full-width GPT-2-small steps at the preset defaults: the fused head
-    and every kernel of the step launch their derived counts."""
+    """Full-width GPT-2-small steps at the preset defaults: the fused head,
+    the single-sweep backward K3f and every other kernel of the step
+    launch their derived counts."""
     state, step, batches, launches, row = train_steps(
         torch, cuda, train_torch, _train_args(train_torch), 4, "train")
+    row["backward_impl"] = "pallas"
     emit(row)
-    per_step = {k: launches.get(k, 0) / 4 for k in TRAIN_LAUNCHES_PER_STEP}
-    if per_step != TRAIN_LAUNCHES_PER_STEP or launches.get(
-            "decode_attention"):
-        raise AssertionError(f"launches per training step {per_step} (all: "
-                             f"{launches}), expected "
-                             f"{TRAIN_LAUNCHES_PER_STEP}")
-    return state, step, batches, launches
+    _check_launches("train", launches, 4, TRAIN_LAUNCHES_PER_STEP)
+    return state, step, batches, launches, row
+
+
+def run_train_split(torch, cuda, train_torch, fa, fused_row):
+    """The same gpt_lm steps with ``BACKWARD_IMPL = "pallas_split"``: the
+    split pair keeps a path (dq and dk/dv once a layer, K3f never), and
+    its step time stands beside K3f's."""
+    with _backward(fa, "pallas_split"):
+        _, _, _, launches, row = train_steps(
+            torch, cuda, train_torch, _train_args(train_torch), 4,
+            "train_split")
+    row["backward_impl"] = "pallas_split"
+    row["k3f_step_ms_median"] = fused_row["step_ms_median"]
+    emit(row)
+    _check_launches("train_split", launches, 4,
+                    _split(TRAIN_LAUNCHES_PER_STEP))
+    return launches
 
 
 def run_train_chunked(torch, cuda, train_torch):
@@ -675,29 +800,64 @@ def run_train_medium(torch, cuda, train_torch):
     _, _, _, launches, row = train_steps(torch, cuda, train_torch, args, 3,
                                          "train_medium")
     emit(row)
-    missing = [k for k in HEAD_KERNELS + FLASH_KERNELS if not launches.get(k)]
-    if missing or row["hidden"] != 1024 or row["layers"] != 24:
-        raise AssertionError(f"train_medium: {missing} did not launch or "
-                             f"the config is cut: {row}")
+    missing = [k for k in HEAD_KERNELS + ("flash_fwd", "flash_bwd_fused")
+               if not launches.get(k)]
+    if missing or row["hidden"] != 1024 or row["layers"] != 24 \
+            or launches.get("flash_bwd_dq") or launches.get("flash_bwd_dkv"):
+        raise AssertionError(f"train_medium: {missing} did not launch, the "
+                             f"split pair did, or the config is cut: {row}")
     return launches
 
 
-def run_train_long(torch, cuda, train_torch):
+def run_train_long(torch, cuda, train_torch, fa, fused_row=None):
     """lm_long_context at full width (gpt_small) and its preset defaults
     (seq 8192, attention-only remat, flash forced, fused head), batch 2
-    (cut from 64), 1 + 2 steps."""
+    (cut from 64), 1 + 2 steps.  S 8192 x D 64 x 4 bytes is exactly the
+    2 MiB threshold, so the backward is K3f; with ``fused_row`` (that
+    run's row) the same steps run again under ``"pallas_split"`` and
+    stand beside it."""
+    impl = "pallas" if fused_row is None else "pallas_split"
     args = train_torch.parse_args(
         ["--workload", "lm_long_context", "--batch-size", "2", "--seed",
          str(SEED), "--device", "cuda"])
-    _, _, _, launches, row = train_steps(torch, cuda, train_torch, args, 2,
-                                         "train_long")
+    with _backward(fa, impl):
+        _, _, _, launches, row = train_steps(
+            torch, cuda, train_torch, args, 2,
+            "train_long" if fused_row is None else "train_long_split")
+    row["backward_impl"] = impl
+    if fused_row is not None:
+        row["k3f_step_ms_median"] = fused_row["step_ms_median"]
     emit(row)
-    missing = [k for k in HEAD_KERNELS + FLASH_KERNELS if not launches.get(k)]
-    if missing or row["seq"] != 8192 or not row["remat_attn"] \
+    if row["seq"] != 8192 or not row["remat_attn"] \
             or row["attn_impl"] != "pallas":
-        raise AssertionError(f"train_long: {missing} did not launch or the "
-                             f"preset defaults did not apply: {row}")
-    return launches
+        raise AssertionError(f"{row['phase']}: the preset defaults did not "
+                             f"apply: {row}")
+    _check_launches(row["phase"], launches, 2,
+                    LONG_LAUNCHES_PER_STEP if fused_row is None
+                    else _split(LONG_LAUNCHES_PER_STEP))
+    return launches, row
+
+
+def run_train_moe(torch, cuda, train_torch):
+    """gpt_moe at full width and its preset defaults (GPT-2-small, eight
+    experts on every second block, top-2 routing, capacity factor 1.25,
+    block remat, fused head), batch 8 (cut from 64) at seq 2048, 1 + 3
+    steps: the same launches per step as gpt_lm's (the MoE blocks run the
+    same LayerNorm and attention kernels; the experts are batched
+    products)."""
+    args = train_torch.parse_args(
+        ["--workload", "gpt_moe", "--batch-size", "8", "--seed", str(SEED),
+         "--device", "cuda"])
+    state, step, batches, launches, row = train_steps(
+        torch, cuda, train_torch, args, 3, "train_moe")
+    cfg = state.model.cfg
+    row.update(n_experts=cfg.n_experts, moe_every_k=cfg.moe_every_k,
+               router=cfg.router, capacity_factor=cfg.capacity_factor)
+    emit(row)
+    if row["seq"] != 2048 or row["hidden"] != 768 or cfg.n_experts != 8:
+        raise AssertionError(f"train_moe: the preset is cut: {row}")
+    _check_launches("train_moe", launches, 3, TRAIN_LAUNCHES_PER_STEP)
+    return state, step, batches, launches
 
 
 def run_profile_train(torch, state, step, batches, phase="profile_train"):
@@ -725,47 +885,99 @@ def run_profile_train(torch, state, step, batches, phase="profile_train"):
                           for e in top]})
 
 
-def run_consistency_train(torch, mods, cuda, xent, device="cuda"):
+def _routes(torch, moe, x, router, cfg):
+    """Top-2 expert choices (T, 2), slots and kept flags of the MoE block
+    input ``x`` (B, S, d), as ``local_moe`` routes it, on the CPU; and
+    the fp32 router probabilities."""
+    x = x.detach().cpu().reshape(-1, x.shape[-1]).float()
+    logits = x @ router.detach().cpu().float()
+    cap = moe.capacity_for(x.shape[0], cfg.n_experts, cfg.capacity_factor,
+                           cfg.router)
+    expert, slot, keep, _, _ = moe.ROUTERS[cfg.router](logits, cap)
+    return (expert, slot, keep), torch.softmax(logits, -1)
+
+
+def run_consistency_train(torch, mods, cuda, fa, xent, backward_impl="pallas",
+                          moe=False, device="cuda"):
     """fp32 loss and gradients of 2 full-width layers at S=1024, B=1, the
-    flash kernels forced and the head ``xent`` ("chunked" or "fused"), on
-    the card against the CPU's plain path."""
-    cfg = dataclasses.replace(mods.gpt_small(), num_layers=2,
-                              dtype=torch.float32, attn_impl="pallas",
-                              xent_impl=xent)
+    flash kernels forced, the head ``xent`` ("chunked" or "fused") and
+    the flash backward ``backward_impl`` (S 1024 takes K3f under
+    "pallas"), on the card against the CPU's plain path.  ``moe`` runs
+    gpt_moe's layers instead (1 dense block, 1 MoE block of 8 experts):
+    the card's and the CPU's MoE inputs must route every token to the same
+    experts and slots; the smallest top-1/top-2 and top-2/top-3 router
+    probability margins are reported beside it."""
+    from distributedtensorflow_tpu_torch.parallel import moe as moe_lib
+
+    base = mods.gpt_moe_small() if moe else mods.gpt_small()
+    cfg = dataclasses.replace(base, num_layers=2, dtype=torch.float32,
+                              attn_impl="pallas", xent_impl=xent)
     state = mods.init_params(cfg, torch.Generator().manual_seed(SEED + 7))
     ids = np.random.default_rng(SEED + 7).integers(0, cfg.vocab_size,
                                                    (1, 1024))
-    out = {}
+    out, routes = {}, {}
     cuda.launches.clear()
-    for dev in (device, "cpu"):
-        model = mods.GPTLM(cfg, device=dev)
-        model.load_state_dict(state)
-        loss, _ = mods.lm_loss(model)(
-            {"input_ids": torch.as_tensor(ids, device=dev)})
-        names, params = zip(*model.named_parameters())
-        grads = torch.autograd.grad(loss, params)
-        out[dev] = (float(loss.detach()),
-                    {n: gr.cpu() for n, gr in zip(names, grads)})
+    with _backward(fa, backward_impl):
+        for dev in (device, "cpu"):
+            model = (mods.GPTMoELM if moe else mods.GPTLM)(cfg, device=dev)
+            model.load_state_dict(state)
+            hook = None
+            if moe:
+                def record(mod, inp, res, dev=dev):
+                    # the first call (block remat calls it again)
+                    if dev not in routes:
+                        routes[dev] = _routes(torch, moe_lib, inp[0],
+                                              mod.router, cfg)
+
+                hook = model.h[1].moe_mlp.register_forward_hook(record)
+            loss_fn = (mods.moe_lm_loss if moe else mods.lm_loss)(model)
+            loss, _ = loss_fn({"input_ids": torch.as_tensor(ids, device=dev)})
+            names, params = zip(*model.named_parameters())
+            grads = torch.autograd.grad(loss, params)
+            out[dev] = (float(loss.detach()),
+                        {n: gr.cpu() for n, gr in zip(names, grads)})
+            if hook is not None:
+                hook.remove()
     launches = dict(cuda.launches)
     (card_loss, card_g), (cpu_loss, cpu_g) = out[device], out["cpu"]
     loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
     worst = max(((card_g[n] - cpu_g[n]).abs().max()
                  / cpu_g[n].abs().max().clamp_min(1e-30)).item()
                 for n in cpu_g)
-    expected = [k for k in TRAIN_LAUNCHES_PER_STEP
-                if xent == "fused" or k not in HEAD_KERNELS]
-    ok = loss_rel <= 1e-5 and worst <= 1e-3 and all(
-        launches.get(k) for k in expected)
-    emit({"phase": "consistency_train", "dtype": "float32", "layers": 2,
-          "batch": 1, "seq": 1024, "attn_impl": "pallas", "xent_impl": xent,
-          "card_loss": card_loss, "cpu_loss": cpu_loss,
-          "loss_rel_err": loss_rel, "worst_grad_rel_err": worst,
-          "tolerance": "loss 1e-5 relative; every gradient leaf 1e-3 of "
-                       "its max-abs",
-          "launches": launches})
+    per_step = _split(TRAIN_LAUNCHES_PER_STEP) \
+        if backward_impl == "pallas_split" else TRAIN_LAUNCHES_PER_STEP
+    expected = [k for k, n in per_step.items()
+                if n and (xent == "fused" or k not in HEAD_KERNELS)]
+    absent = [k for k, n in per_step.items() if not n]
+    ok = loss_rel <= 1e-5 and worst <= 1e-3 \
+        and all(launches.get(k) for k in expected) \
+        and not any(launches.get(k) for k in absent)
+    row = {"phase": "consistency_train", "model": cfg.__class__.__name__,
+           "dtype": "float32", "layers": 2, "batch": 1, "seq": 1024,
+           "attn_impl": "pallas", "xent_impl": xent,
+           "backward_impl": backward_impl, "card_loss": card_loss,
+           "cpu_loss": cpu_loss, "loss_rel_err": loss_rel,
+           "worst_grad_rel_err": worst,
+           "tolerance": "loss 1e-5 relative; every gradient leaf 1e-3 of "
+                        "its max-abs", "launches": launches}
+    if moe:
+        (ce, cs, ck), _ = routes[device]
+        (pe, ps, pk), probs = routes["cpu"]
+        same = torch.equal(ce, pe) and torch.equal(cs, ps) \
+            and torch.equal(ck, pk)
+        top = probs.topk(3, dim=-1).values
+        row.update(same_expert_assignments=same,
+                   differing_tokens=int((ce != pe).any(-1).sum()),
+                   kept_assignments=int(pk.sum()),
+                   min_top1_top2_margin=(top[:, 0] - top[:, 1]).min().item(),
+                   min_top2_top3_margin=(top[:, 1] - top[:, 2]).min().item())
+        ok = ok and same
+    emit(row)
     if not ok:
-        raise AssertionError(f"card training step ({xent} head) differs "
-                             "from the CPU's or skipped a kernel")
+        raise AssertionError(
+            f"card training step ({row['model']}, {xent} head, "
+            f"{backward_impl}) differs from the CPU's or launched other "
+            "kernels than its path")
 
 
 def sync(torch, dev) -> None:
@@ -990,7 +1202,7 @@ def main(argv=None) -> int:
         run_consistency(torch, mods, Engine, cfg, state)
 
     if "train" in phases:
-        tstate, tstep, batches, train_launches = run_train(
+        tstate, tstep, batches, train_launches, train_row = run_train(
             torch, _cuda, train_torch)
         launches.update(train_launches)
         run_profile_train(torch, tstate, tstep, batches)
@@ -1001,12 +1213,29 @@ def main(argv=None) -> int:
                           "profile_train_chunked")
         del tstate, tstep, batches
         torch.cuda.empty_cache()
+        launches.update(run_train_split(torch, _cuda, train_torch, fa,
+                                        train_row))
+        torch.cuda.empty_cache()
         launches.update(run_train_medium(torch, _cuda, train_torch))
         torch.cuda.empty_cache()
-        launches.update(run_train_long(torch, _cuda, train_torch))
+        long_launches, long_row = run_train_long(torch, _cuda, train_torch,
+                                                 fa)
+        launches.update(long_launches)
         torch.cuda.empty_cache()
-        for xent in ("chunked", "fused"):
-            run_consistency_train(torch, mods, _cuda, xent)
+        launches.update(run_train_long(torch, _cuda, train_torch, fa,
+                                       long_row)[0])
+        torch.cuda.empty_cache()
+        tstate, tstep, batches, moe_launches = run_train_moe(
+            torch, _cuda, train_torch)
+        launches.update(moe_launches)
+        run_profile_train(torch, tstate, tstep, batches, "profile_train_moe")
+        del tstate, tstep, batches
+        torch.cuda.empty_cache()
+        for xent, impl, moe in (("chunked", "pallas", False),
+                                ("fused", "pallas", False),
+                                ("fused", "pallas_split", False),
+                                ("fused", "pallas", True)):
+            run_consistency_train(torch, mods, _cuda, fa, xent, impl, moe)
 
     if phases != set(PHASES):
         print(f"chip_smoke: ran only {sorted(phases)}", file=sys.stderr)
@@ -1019,6 +1248,8 @@ def main(argv=None) -> int:
         "flash_fwd": ("flash_fwd.cu", "ops/flash_attention.py:333"),
         "flash_bwd_dq": ("flash_bwd.cu", "ops/flash_attention.py:671"),
         "flash_bwd_dkv": ("flash_bwd.cu", "ops/flash_attention.py:724"),
+        "flash_bwd_fused": ("flash_bwd_fused.cu",
+                            "ops/flash_attention.py:586"),
         "fused_xent_fwd": ("fused_xent_fwd.cu", "ops/fused_xent.py:136"),
         "fused_xent_dx": ("fused_xent_bwd.cu", "ops/fused_xent.py:180"),
         "fused_xent_dw": ("fused_xent_bwd.cu", "ops/fused_xent.py:214"),

@@ -2,9 +2,10 @@
 //
 // Replaces the TPU kernels `_bwd_dq_kernel` and `_bwd_dkv_kernel`
 // (distributedtensorflow_tpu/ops/flash_attention.py:671 and :724,
-// launched by `_flash_backward_pallas_bhsd` at :945 and :984) and the
-// fused single-sweep `_bwd_fused_kernel` (:586) that the TPU takes when
-// its dq scratch fits VMEM.  Same function: from q, k, v, dO, the
+// launched by `_flash_backward_pallas_bhsd` at :945 and :984), which the
+// TPU takes when its dq scratch does not fit VMEM or the caller forces
+// the split pair; the single sweep `_bwd_fused_kernel` (:586) is
+// flash_bwd_fused.cu.  Same function: from q, k, v, dO, the
 // forward's LSE and delta = rowsum(dO * O) (both (B, H, S) fp32, passed
 // in, so ring attention can drive the same kernels with global rows),
 //   p  = exp(s - lse),  dv = sum_q p^T dO,  dp = dO v^T,
@@ -26,9 +27,7 @@
 // one block per (query tile, head, batch) and loops over the key tiles
 // of the band; the dk/dv kernel runs one block per (key tile, kv head,
 // batch) and loops over the query tiles of the band of every query head
-// of its group, so the GQA sum needs no atomics either.  The fused
-// single sweep exists on the TPU because of its VMEM (:576-583); on the
-// GPU it would need atomics for dq, which this design avoids.  Tiles and
+// of its group, so the GQA sum needs no atomics either.  Tiles and
 // thread patches as in flash_fwd.cu; the ds and p tiles go through
 // shared memory to the products that contract over their other axis.
 

@@ -1,4 +1,5 @@
-// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu).
+// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu,
+// flash_bwd_fused.cu).
 //
 // Tiles are kBQ query rows by kBK key rows; a block of kThreads threads
 // computes one (kBQ, kBK) score tile at a time, each thread a 4 x 8

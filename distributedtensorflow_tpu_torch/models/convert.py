@@ -1,13 +1,17 @@
-"""Parameters for the port's ``GPTLM``: from and to a JAX tree, or seeded.
+"""Parameters for the port's ``GPTLM`` and ``GPTMoELM``: from and to a
+JAX tree, or seeded.
 
 ``params_from_flax`` and ``init_params`` return a ``state_dict`` of fp32
-CPU tensors for ``GPTLM.load_state_dict``; ``params_to_flax`` maps such a
-dict (or one of gradients, by parameter name) back to the JAX tree.  The JAX tree is the nested dict of arrays
-that ``distributedtensorflow_tpu.models.GPTLM.init`` returns under
-``"params"`` (numpy arrays, or anything ``np.asarray`` takes); nothing
-of JAX is imported here.  Flax Dense kernels are (in, out) and become
-(out, in) ``nn.Linear`` weights; embedding and LayerNorm parameters
-keep their shapes.
+CPU tensors for the model's ``load_state_dict``; ``params_to_flax`` maps
+such a dict (or one of gradients, by parameter name) back to the JAX
+tree.  The JAX tree is the nested dict of arrays that the JAX model's
+``init`` returns under ``"params"`` (numpy arrays, or anything
+``np.asarray`` takes); nothing of JAX is imported here.  Flax Dense
+kernels are (in, out) and become (out, in) ``nn.Linear`` weights;
+embedding, LayerNorm and the MoE blocks' ``moe_mlp/router``,
+``experts_in`` and ``experts_out`` parameters keep their shapes.  The
+config says which tree: a ``GPTMoEConfig`` has MoE blocks where
+``is_moe_layer`` says so, GPT blocks elsewhere.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import numpy as np
 import torch
 
 from .gpt import GPTConfig
+from .gpt_moe import GPTMoEConfig
 
 
 def _shapes(cfg: GPTConfig) -> dict[str, tuple[int, ...]]:
@@ -26,16 +31,22 @@ def _shapes(cfg: GPTConfig) -> dict[str, tuple[int, ...]]:
     tensor shape otherwise."""
     e, f = cfg.hidden_size, cfg.intermediate_size
     q, kv = cfg.num_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim
-    dense = {"attn/qkv": (q + 2 * kv, e), "attn/proj": (e, q),
-             "fc_in": (f, e), "fc_out": (e, f)}
+    attn = {"attn.qkv.weight": (q + 2 * kv, e), "attn.proj.weight": (e, q)}
+    mlp = {"fc_in.weight": (f, e), "fc_out.weight": (e, f)}
+    moe = isinstance(cfg, GPTMoEConfig)
+    if moe:
+        n = cfg.n_experts
+        moe_mlp = {"moe_mlp.router": (e, n), "moe_mlp.experts_in": (n, e, f),
+                   "moe_mlp.experts_out": (n, f, e)}
     shapes = {"wte.weight": (cfg.vocab_size, e),
               "ln_f.scale": (e,), "ln_f.bias": (e,)}
     for i in range(cfg.num_layers):
         for ln in ("ln1", "ln2"):
             shapes[f"h.{i}.{ln}.scale"] = (e,)
             shapes[f"h.{i}.{ln}.bias"] = (e,)
-        for name, shape in dense.items():
-            shapes[f"h.{i}.{name.replace('/', '.')}.weight"] = shape
+        ffn = moe_mlp if moe and cfg.is_moe_layer(i) else mlp
+        for name, shape in {**attn, **ffn}.items():
+            shapes[f"h.{i}.{name}"] = shape
     return shapes
 
 
@@ -52,7 +63,7 @@ def _flax_path(name: str) -> tuple[tuple[str, ...], bool]:
 
 
 def params_from_flax(tree, cfg: GPTConfig) -> dict[str, torch.Tensor]:
-    """The port's state for the JAX ``GPTLM`` parameter ``tree``.  Raises
+    """The port's state for the JAX model's parameter ``tree``.  Raises
     when a leaf is missing, left over or of the wrong shape."""
     state = {}
     used = set()
@@ -86,7 +97,7 @@ def params_from_flax(tree, cfg: GPTConfig) -> dict[str, torch.Tensor]:
 
 
 def params_to_flax(state, cfg: GPTConfig) -> dict:
-    """The JAX ``GPTLM`` parameter tree (nested dicts of fp32 numpy
+    """The JAX model's parameter tree (nested dicts of fp32 numpy
     arrays) for the port's ``state`` (parameter name -> tensor): the
     inverse of :func:`params_from_flax`, so gradients compare leaf by
     leaf.  Raises when a name is missing, left over or misshapen."""
@@ -113,8 +124,10 @@ def params_to_flax(state, cfg: GPTConfig) -> dict:
 def init_params(cfg: GPTConfig, generator: torch.Generator
                 ) -> dict[str, torch.Tensor]:
     """Seeded random state on the CPU: normal embeddings and dense
-    weights at std 1/sqrt(fan_in) (flax's default scales, untruncated),
-    LayerNorm scale 1 and bias 0."""
+    weights at std 1/sqrt(fan_in) (flax's default scales, untruncated;
+    flax counts a stacked (E, in, out) expert kernel's fan-in as E x
+    in), routers at std 0.02 as flax's ``normal(0.02)``, LayerNorm scale
+    1 and bias 0."""
     state = {}
     for name, shape in _shapes(cfg).items():
         if name.endswith(".scale"):
@@ -122,6 +135,8 @@ def init_params(cfg: GPTConfig, generator: torch.Generator
         elif name.endswith(".bias"):
             state[name] = torch.zeros(shape)
         else:
-            std = 1.0 / math.sqrt(shape[1])
+            std = 0.02 if name.endswith(".router") else \
+                1.0 / math.sqrt(shape[0] * shape[1] if len(shape) == 3
+                                else shape[1])
             state[name] = torch.randn(shape, generator=generator) * std
     return state

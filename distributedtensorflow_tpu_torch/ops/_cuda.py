@@ -28,7 +28,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 KERNELS = ("layernorm_fwd", "decode_attention", "layernorm_bwd", "flash_fwd",
-           "flash_bwd", "fused_xent_fwd", "fused_xent_bwd")
+           "flash_bwd", "flash_bwd_fused", "fused_xent_fwd", "fused_xent_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

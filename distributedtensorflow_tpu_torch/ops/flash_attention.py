@@ -1,4 +1,4 @@
-"""Flash attention, BSHD, differentiable: the kernels K2 and K3.
+"""Flash attention, BSHD, differentiable: the kernels K2, K3 and K3f.
 
 Twin of ``distributedtensorflow_tpu/ops/flash_attention.py``.
 :func:`flash_attention` is a :class:`torch.autograd.Function` whose
@@ -9,14 +9,20 @@ XLA, ``:801-804``) and hands ``lse`` and ``delta`` to
 (``_flash_backward_pallas_core``, ``:818``).
 
 A CUDA tensor goes to the hand-written kernels: ``csrc/flash_fwd.cu``
-(the port of ``_fwd_kernel``/``_fwd_kernel_1k``, ``:333``/``:396``) and
-``csrc/flash_bwd.cu`` (the split pair ``_bwd_dq_kernel``/
-``_bwd_dkv_kernel``, ``:671``/``:724``).  A CPU tensor goes to the plain
-twins :func:`_plain_flash_forward`, :func:`_plain_flash_bwd_dq` and
-:func:`_plain_flash_bwd_dkv`, which the kernels are checked against on
-the card.  The twins round where the kernels round: p to V's dtype before
-P.V, p to dO's dtype before the dv product, ds to q's dtype before the
-dq and dk products; in fp32 those roundings vanish.
+(the port of ``_fwd_kernel``/``_fwd_kernel_1k``, ``:333``/``:396``),
+``csrc/flash_bwd_fused.cu`` (the single-sweep ``_bwd_fused_kernel``,
+``:586``) and ``csrc/flash_bwd.cu`` (the split pair ``_bwd_dq_kernel``/
+``_bwd_dkv_kernel``, ``:671``/``:724``).  :func:`flash_backward` picks
+between the two backwards as ``_flash_backward_pallas_bhsd`` does
+(``:859``): the single sweep while ``S * D * 4`` fits
+:data:`FUSED_BWD_DQ_SCRATCH_BYTES`, the split pair beyond it or under
+``backward_impl="pallas_split"``.  A CPU tensor goes to the plain twins
+:func:`_plain_flash_forward`, :func:`_plain_flash_bwd_fused`,
+:func:`_plain_flash_bwd_dq` and :func:`_plain_flash_bwd_dkv`, which the
+kernels are checked against on the card.  The twins round where the
+kernels round: p to V's dtype before P.V, p to dO's dtype before the dv
+product, ds once to q's dtype before the dq and dk products; in fp32
+those roundings vanish.
 
 Masking (``_masked_scores``, ``:225``): scale 1/sqrt(D); keys after the
 query (causal) or at or below ``q - window`` are left out; keys that the
@@ -42,9 +48,28 @@ NEG_INF = -1e9
 MIN_SEQ_FOR_PALLAS = 1024
 #: Head dims the kernels are built for (templates in ``csrc/``).
 HEAD_DIMS = (32, 64)
+#: The backward that :func:`flash_attention` takes when its caller names
+#: none: "pallas" (the single sweep K3f while ``S * D * 4`` fits
+#: :data:`FUSED_BWD_DQ_SCRATCH_BYTES`, else the split pair K3) or
+#: "pallas_split" (always the split pair), as ``BACKWARD_IMPL`` (``:574``)
+#: in the JAX package.  Read when the backward runs.  JAX's third value,
+#: "xla", is this port's ``dot_product_attention(implementation="xla")``.
+BACKWARD_IMPL = "pallas"
+BACKWARD_IMPLS = ("pallas", "pallas_split")
+#: Dispatch threshold of the single-sweep backward, copied from the JAX
+#: package (``:583``): there it is the TPU's VMEM budget for the (S, D)
+#: fp32 dq scratch.  The kernel here keeps that sum in device memory, so
+#: the H100's own threshold waits for the two backwards' measured times.
+FUSED_BWD_DQ_SCRATCH_BYTES = 2 * 2**20
+#: Query and key rows of a kernel tile (``kBQ``/``kBK`` in
+#: ``csrc/flash_common.cuh``).
+_TILE = 64
 
 _FWD_SIGNATURES = {"dtf_flash_fwd": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                    + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]}
+_FUSED_SIGNATURES = {
+    "dtf_flash_bwd_fused": [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
+    + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]}
 _BWD_SIGNATURES = {
     "dtf_flash_bwd_dq": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
     + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p],
@@ -93,13 +118,14 @@ def supported(q, k, v, *, mask=None, segment_ids=None) -> bool:
 
 
 def flash_attention(q, k, v, *, mask=None, segment_ids=None, causal=False,
-                    window=None):
+                    window=None, backward_impl=None):
     """Flash attention of q (B, S, H, D) against k, v (B, S, Hkv, D).
 
     ``mask`` is a key padding mask (B, S) or (B, 1, 1, S), True = attend;
     ``segment_ids`` an int (B, S) tensor of packed sequences; ``window``
-    (needs ``causal``) keeps keys in ``(i - window, i]``.  Raises for
-    shapes the kernels cannot take, as the JAX entry does."""
+    (needs ``causal``) keeps keys in ``(i - window, i]``;
+    ``backward_impl`` picks the backward (None = :data:`BACKWARD_IMPL`).
+    Raises for shapes the kernels cannot take, as the JAX entry does."""
     if q.dim() != 4 or k.shape != v.shape or not _gqa_ok(q.shape, k.shape):
         raise ValueError(
             f"flash_attention needs BSHD q/k/v with matching (B, S, D) and "
@@ -123,21 +149,25 @@ def flash_attention(q, k, v, *, mask=None, segment_ids=None, causal=False,
             raise ValueError(f"window must be >= 1, got {window}")
         if window >= q.shape[1]:
             window = None
+    if backward_impl is not None:
+        _check_backward_impl(backward_impl)
     if mask is not None:
         mask = mask.reshape(q.shape[0], q.shape[1]).to(torch.bool)
     return FlashAttentionFn.apply(q, k, v, mask, segment_ids, bool(causal),
-                                  window)
+                                  window, backward_impl)
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """Twin of the custom VJP ``_flash`` (``:1090-1140``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask, segment_ids, causal, window):
+    def forward(ctx, q, k, v, mask, segment_ids, causal, window,
+                backward_impl):
         o, lse = flash_forward(q, k, v, mask=mask, segment_ids=segment_ids,
                                causal=causal, window=window)
         ctx.save_for_backward(q, k, v, o, lse, mask, segment_ids)
         ctx.causal, ctx.window = causal, window
+        ctx.backward_impl = backward_impl
         return o
 
     @staticmethod
@@ -146,8 +176,9 @@ class FlashAttentionFn(torch.autograd.Function):
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
         dq, dk, dv = flash_backward(
             q, k, v, do, lse, delta, mask=mask, segment_ids=segment_ids,
-            causal=ctx.causal, window=ctx.window)
-        return dq, dk, dv, None, None, None, None
+            causal=ctx.causal, window=ctx.window,
+            backward_impl=ctx.backward_impl)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_forward(q, k, v, *, mask=None, segment_ids=None, causal=False,
@@ -160,14 +191,37 @@ def flash_forward(q, k, v, *, mask=None, segment_ids=None, causal=False,
     return flash_forward_cuda(q, k, v, mask, segment_ids, causal, window)
 
 
+def _check_backward_impl(impl):
+    if impl not in BACKWARD_IMPLS:
+        raise ValueError(
+            f"backward_impl={impl!r}: expected one of {BACKWARD_IMPLS} (the "
+            "XLA path is dot_product_attention(implementation=\"xla\"))")
+
+
+def uses_fused_backward(seq: int, depth: int, backward_impl=None) -> bool:
+    """Whether :func:`flash_backward` takes the single sweep (K3f) for
+    this sequence length and head dim: under "pallas" while the (S, D)
+    fp32 dq sum fits :data:`FUSED_BWD_DQ_SCRATCH_BYTES`, as JAX decides
+    (``:859``); never under "pallas_split"."""
+    impl = backward_impl or BACKWARD_IMPL
+    _check_backward_impl(impl)
+    return impl == "pallas" and seq * depth * 4 <= FUSED_BWD_DQ_SCRATCH_BYTES
+
+
 def flash_backward(q, k, v, do, lse, delta, *, mask=None, segment_ids=None,
-                   causal=False, window=None):
+                   causal=False, window=None, backward_impl=None):
     """``(dq, dk, dv)`` from the forward's ``lse`` and ``delta =
-    rowsum(dO * O)``, both (B, H, S) fp32, passed in: the K3 launcher
-    (the kernels for CUDA tensors, the plain twins for CPU ones)."""
+    rowsum(dO * O)``, both (B, H, S) fp32, passed in: the K3f/K3 launcher
+    (the kernels for CUDA tensors, the plain twins for CPU ones), the
+    single sweep or the split pair as :func:`uses_fused_backward` says."""
     args = (q, k, v, do, lse, delta, mask, segment_ids, causal, window)
+    fused = uses_fused_backward(q.shape[1], q.shape[3], backward_impl)
     if q.device.type == "cpu":
+        if fused:
+            return _plain_flash_bwd_fused(*args)
         return (_plain_flash_bwd_dq(*args),) + _plain_flash_bwd_dkv(*args)
+    if fused:
+        return flash_bwd_fused_cuda(*args)
     return (flash_bwd_dq_cuda(*args),) + flash_bwd_dkv_cuda(*args)
 
 
@@ -226,13 +280,27 @@ def _plain_grads(q, k, v, do, lse, delta, mask, segment_ids, causal, window):
     return p, ds.to(q.dtype).float()
 
 
+def _dq_from(ds, q, k):
+    kf = _repeat_kv(k.float(), q.shape[2] // k.shape[2])
+    return torch.einsum("bhqk,bkhd->bqhd", ds, kf).to(q.dtype)
+
+
+def _dkv_from(p, ds, q, k, v, do):
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dk = dk.reshape(b, s, hkv, h // hkv, d).sum(3)
+    dv = dv.reshape(b, s, hkv, h // hkv, d).sum(3)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _plain_flash_bwd_dq(q, k, v, do, lse, delta, mask=None, segment_ids=None,
                         causal=False, window=None):
     """dq = ds k, ds rounded to q's dtype, fp32 sums (``_bwd_dq_kernel``)."""
     _, ds = _plain_grads(q, k, v, do, lse, delta, mask, segment_ids, causal,
                          window)
-    kf = _repeat_kv(k.float(), q.shape[2] // k.shape[2])
-    return torch.einsum("bhqk,bkhd->bqhd", ds, kf).to(q.dtype)
+    return _dq_from(ds, q, k)
 
 
 def _plain_flash_bwd_dkv(q, k, v, do, lse, delta, mask=None,
@@ -242,13 +310,17 @@ def _plain_flash_bwd_dkv(q, k, v, do, lse, delta, mask=None,
     (``_bwd_dkv_kernel``)."""
     p, ds = _plain_grads(q, k, v, do, lse, delta, mask, segment_ids, causal,
                          window)
-    b, s, h, d = q.shape
-    hkv = k.shape[2]
-    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
-    dk = dk.reshape(b, s, hkv, h // hkv, d).sum(3)
-    dv = dv.reshape(b, s, hkv, h // hkv, d).sum(3)
-    return dk.to(k.dtype), dv.to(v.dtype)
+    return _dkv_from(p, ds, q, k, v, do)
+
+
+def _plain_flash_bwd_fused(q, k, v, do, lse, delta, mask=None,
+                           segment_ids=None, causal=False, window=None):
+    """(dq, dk, dv) from one p and one ds (``_bwd_fused_kernel``): the
+    split twins' values at the same rounding points, ds rounded once to
+    q's dtype for both the dq and the dk product (``:645``)."""
+    p, ds = _plain_grads(q, k, v, do, lse, delta, mask, segment_ids, causal,
+                         window)
+    return (_dq_from(ds, q, k),) + _dkv_from(p, ds, q, k, v, do)
 
 
 # ------------------------------------------------------------------- kernels
@@ -344,6 +416,39 @@ def _bwd_operands(q, k, v, do, lse, delta, mask, segment_ids, what):
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                        *v.stride()[:3], *do.stride()[:3])
     return q, k, v, do, lse.contiguous(), delta.contiguous(), m, seg, strides
+
+
+def flash_bwd_fused_cuda(q, k, v, do, lse, delta, mask=None,
+                         segment_ids=None, causal=False, window=None):
+    """Launch ``csrc/flash_bwd_fused.cu``; returns ``(dq, dk, dv)``, dq
+    shaped like q, dk and dv like k and v.
+
+    The port of ``_bwd_fused_kernel``
+    (``distributedtensorflow_tpu/ops/flash_attention.py:586``).  Bound by
+    operations: five products (s, dp, dv, dk, dq) of ``2 * B * H * S^2 *
+    D`` flops, half under the causal mask.  Scratch: an fp32 (B, H, S, D)
+    sum of dq and one int counter per (B, H, query tile), plus a ticket."""
+    q, k, v, do, lse, delta, m, seg, strides = _bwd_operands(
+        q, k, v, do, lse, delta, mask, segment_ids, "flash fused backward")
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, s, hkv, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, s, hkv, d), dtype=v.dtype, device=q.device)
+    dq_acc = torch.empty((b, h, s, d), dtype=torch.float32, device=q.device)
+    counters = torch.empty(1 + b * h * -(-s // _TILE), dtype=torch.int32,
+                           device=q.device)
+    lib = _cuda.load("flash_bwd_fused", _FUSED_SIGNATURES)
+    err = lib.dtf_flash_bwd_fused(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), dq_acc.data_ptr(), counters.data_ptr(), _ptr(m),
+        _ptr(seg), ctypes.addressof(strides), b, h, hkv, s, d, int(causal),
+        _window_arg(window), 1.0 / d ** 0.5, q.dtype == torch.bfloat16,
+        q.device.index or 0, _cuda.stream_handle(q.device))
+    _cuda.launches["flash_bwd_fused"] += 1
+    _cuda.check(lib, err, "flash_bwd_fused")
+    return dq, dk, dv
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, mask=None, segment_ids=None,

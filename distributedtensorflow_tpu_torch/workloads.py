@@ -1,15 +1,17 @@
 """Training presets of the port: the GPT language-model family.
 
 Twin of ``distributedtensorflow_tpu/workloads.py`` for ``gpt_lm``,
-``gpt_medium_lm`` and ``lm_long_context`` (``:403-510``), with the same
-defaults: GPT-2-small (or -medium) at seq 2048, global batch 64, AdamW at
-3e-4 with weight decay 0.1, synthetic next-token batches;
-``lm_long_context`` is GPT-2-small at seq 8192 with attention-only remat
-and the flash kernels forced; ``test_size`` gives ``gpt_tiny`` at seq 64,
-batch 8.  :func:`synthetic_lm` is a copy of the JAX package's
-numpy source with the same seeds, so both packages see identical
-batches.  The other presets, the meshes and the pipeline/sequence-
-parallel variants are not ported yet.
+``gpt_medium_lm``, ``lm_long_context`` (``:403-510``) and ``gpt_moe``
+(``:566-612``), with the same defaults: GPT-2-small (or -medium, or
+GPT-2-small with eight experts on every second block) at seq 2048,
+global batch 64, AdamW at 3e-4 with weight decay 0.1, synthetic
+next-token batches; ``lm_long_context`` is GPT-2-small at seq 8192 with
+attention-only remat and the flash kernels forced; ``test_size`` gives
+``gpt_tiny`` (``gpt_moe_tiny``) at seq 64, batch 8.
+:func:`synthetic_lm` is a copy of the JAX package's numpy source with
+the same seeds, so both packages see identical batches.  The other
+presets, the meshes and the pipeline/sequence/expert-parallel variants
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Callable, Iterator
 import numpy as np
 
 from .data import InputContext
+from .models.convert import init_params
 from .models.gpt import (
     GPTConfig,
     GPTLM,
@@ -29,11 +32,18 @@ from .models.gpt import (
     lm_eval,
     lm_loss,
 )
+from .models.gpt_moe import (
+    GPTMoELM,
+    gpt_moe_small,
+    gpt_moe_tiny,
+    moe_lm_eval,
+    moe_lm_loss,
+)
 from .train.optimizers import adamw
 
 
 #: The presets the port has.
-WORKLOADS = ("gpt_lm", "gpt_medium_lm", "lm_long_context")
+WORKLOADS = ("gpt_lm", "gpt_medium_lm", "lm_long_context", "gpt_moe")
 
 
 def synthetic_lm(ctx: InputContext, *, vocab_size: int, seq_len: int,
@@ -65,6 +75,10 @@ class Workload:
     #: ``(ctx, seed) -> iterator of numpy batches``
     input_fn: Callable[[InputContext, int], Iterator[dict]]
     accum_steps: int = 1
+    #: ``(cfg, device=...) -> model``
+    model_cls: Callable = GPTLM
+    #: ``(cfg, generator) -> state_dict`` of seeded weights
+    init_params: Callable = init_params
 
 
 def _apply_gpt_overrides(cfg: GPTConfig, *, seq, remat, attn_impl, xent_impl,
@@ -96,7 +110,10 @@ def get_workload(name: str, *, test_size: bool = False,
     if name not in WORKLOADS:
         raise ValueError(f"workload {name!r} is not ported; the port has "
                          f"{', '.join(WORKLOADS)}")
-    if test_size:
+    moe = name == "gpt_moe"
+    if moe:
+        cfg = gpt_moe_tiny() if test_size else gpt_moe_small()
+    elif test_size:
         cfg = gpt_tiny()
     elif name == "gpt_medium_lm":
         cfg = gpt_medium()
@@ -116,8 +133,10 @@ def get_workload(name: str, *, test_size: bool = False,
     return Workload(
         name=name, cfg=cfg, seq_len=seq,
         global_batch_size=global_batch_size or (8 if test_size else 64),
-        loss_fn=lm_loss, eval_fn=lm_eval,
+        loss_fn=moe_lm_loss if moe else lm_loss,
+        eval_fn=moe_lm_eval if moe else lm_eval,
         make_optimizer=lambda params: adamw(params, 3e-4, weight_decay=0.1),
         input_fn=lambda ctx, seed: synthetic_lm(
             ctx, vocab_size=cfg.vocab_size, seq_len=seq, seed=seed),
+        model_cls=GPTMoELM if moe else GPTLM,
     )

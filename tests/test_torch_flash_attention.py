@@ -1,4 +1,5 @@
-"""The port's flash attention (K2/K3) and attention dispatch against JAX.
+"""The port's flash attention (K2, K3, K3f) and attention dispatch against
+JAX.
 
 The JAX side runs its Pallas kernels in interpret mode on the CPU, as
 ``tests/test_flash_attention.py`` does; the port's side is the plain
@@ -80,11 +81,12 @@ def _jax_run(arrs, mask, seg, kw, *, block_q, block_k, impl):
     return [np.asarray(t, np.float32) for t in (o, *vjp(do))]
 
 
-def _port_run(arrs, mask, seg, kw):
+def _port_run(arrs, mask, seg, kw, impl=None):
     q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in arrs[:3])
     o = fa.flash_attention(
         q, k, v, mask=None if mask is None else torch.from_numpy(mask),
-        segment_ids=None if seg is None else torch.from_numpy(seg), **kw)
+        segment_ids=None if seg is None else torch.from_numpy(seg),
+        backward_impl=impl, **kw)
     o.backward(torch.from_numpy(arrs[3]))
     return [t.detach().float().numpy() for t in (o, q.grad, k.grad, v.grad)]
 
@@ -92,14 +94,97 @@ def _port_run(arrs, mask, seg, kw):
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_forward_and_grads_match_jax(case, variant):
+    """Both sides take the variant's backward: the single sweep (K3f's
+    twin) or the split pair (K3's twins)."""
     block_q, block_k, impl = VARIANTS[variant]
     arrs, mask, seg, kw = _inputs(case)
     ref = _jax_run(arrs, mask, seg, kw, block_q=block_q, block_k=block_k,
                    impl=impl)
-    got = _port_run(arrs, mask, seg, kw)
+    got = _port_run(arrs, mask, seg, kw, impl)
     for name, a, r, tol in zip(("o", "dq", "dk", "dv"), got, ref,
                                (2e-5, 5e-5, 5e-5, 5e-5)):
         np.testing.assert_allclose(a, r, rtol=0, atol=tol, err_msg=name)
+
+
+def _twin_args(case, seed, dtype=torch.float32):
+    """The backward's inputs: q, k, v, dO and the forward's lse and delta
+    = rowsum(dO * O), with the case's masks."""
+    arrs, mask, seg, kw = _inputs(case, seed=seed)
+    q, k, v, do = (torch.from_numpy(a).to(dtype) for a in arrs)
+    tmask = None if mask is None else torch.from_numpy(mask)
+    tseg = None if seg is None else torch.from_numpy(seg)
+    o, lse = fa.flash_forward(q, k, v, mask=tmask, segment_ids=tseg, **kw)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    return (arrs, mask, seg, kw), (q, k, v, do, lse, delta, tmask, tseg,
+                                   kw["causal"], kw["window"])
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_fused_twin_matches_jax_fused_kernel(case):
+    """``_plain_flash_bwd_fused``, fed the forward's lse and delta, against
+    JAX's single-sweep kernel (``backward_impl="pallas"``, several q and
+    k blocks, interpret mode): dq, dk, dv at atol 5e-5 in fp32."""
+    (arrs, mask, seg, kw), args = _twin_args(case, seed=12)
+    _, *ref = _jax_run(arrs, mask, seg, kw, block_q=32, block_k=16,
+                       impl="pallas")
+    got = fa._plain_flash_bwd_fused(*args)
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        np.testing.assert_allclose(a.numpy(), r, rtol=0, atol=5e-5,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_fused_twin_bf16_equals_split_twins(case):
+    """In bf16 the single-sweep twin rounds where the split twins round
+    (p to dO's dtype, ds once to q's dtype): the same bits."""
+    _, args = _twin_args(case, seed=13, dtype=torch.bfloat16)
+    fused = fa._plain_flash_bwd_fused(*args)
+    split = (fa._plain_flash_bwd_dq(*args),) + fa._plain_flash_bwd_dkv(*args)
+    for name, a, b in zip(("dq", "dk", "dv"), fused, split):
+        assert a.dtype == torch.bfloat16, name
+        assert torch.equal(a, b), name
+
+
+def test_fused_backward_threshold_is_jaxs():
+    """K3f while ``S * D * 4 <= 2 MiB`` (seq 8192 at D 64 exactly fits,
+    as on the TPU), the split pair beyond it or under "pallas_split"; a
+    value the port does not have raises."""
+    assert fa.FUSED_BWD_DQ_SCRATCH_BYTES == 2 * 2**20
+    assert fa.BACKWARD_IMPL == "pallas"
+    for seq, depth, fused in ((2048, 64, True), (8192, 64, True),
+                              (8200, 64, False), (16384, 32, True),
+                              (16392, 32, False)):
+        assert fa.uses_fused_backward(seq, depth) is fused, (seq, depth)
+        assert fa.uses_fused_backward(seq, depth, "pallas") is fused
+        assert not fa.uses_fused_backward(seq, depth, "pallas_split")
+    with pytest.raises(ValueError, match="implementation"):
+        fa.uses_fused_backward(2048, 64, "xla")
+    q = torch.zeros(1, 64, 4, 32)
+    with pytest.raises(ValueError, match="backward_impl"):
+        fa.flash_attention(q, q, q, backward_impl="xla")
+
+
+@pytest.mark.parametrize("impl,module_default,want", [
+    (None, "pallas", "fused"), ("pallas", "pallas_split", "fused"),
+    ("pallas_split", "pallas", "split"), (None, "pallas_split", "split")])
+def test_backward_dispatch_on_the_cpu(monkeypatch, impl, module_default,
+                                      want):
+    """``flash_attention``'s backward reaches the twin of the kernel that
+    ``backward_impl`` (or, when it is None, ``BACKWARD_IMPL`` as it reads
+    when the backward runs) picks, and nothing else."""
+    calls = []
+    for name in ("_plain_flash_bwd_fused", "_plain_flash_bwd_dq",
+                 "_plain_flash_bwd_dkv"):
+        real = getattr(fa, name)
+        monkeypatch.setattr(fa, name, lambda *a, real=real, name=name: (
+            calls.append(name), real(*a))[1])
+    arrs, _, _, kw = _inputs("causal", seed=14)
+    q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in arrs[:3])
+    o = fa.flash_attention(q, k, v, backward_impl=impl, **kw)
+    monkeypatch.setattr(fa, "BACKWARD_IMPL", module_default)
+    o.backward(torch.from_numpy(arrs[3]))
+    assert calls == (["_plain_flash_bwd_fused"] if want == "fused" else
+                     ["_plain_flash_bwd_dq", "_plain_flash_bwd_dkv"])
 
 
 def test_bf16_rounding_points_match_pallas():
@@ -227,7 +312,8 @@ def test_flash_validation():
 
 @pytest.mark.parametrize("launcher", ["flash_forward_cuda",
                                       "flash_bwd_dq_cuda",
-                                      "flash_bwd_dkv_cuda"])
+                                      "flash_bwd_dkv_cuda",
+                                      "flash_bwd_fused_cuda"])
 def test_kernel_wrappers_refuse_cpu_tensors(launcher):
     q = torch.zeros(1, 64, 4, 32)
     rows = torch.zeros(1, 4, 64)

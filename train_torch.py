@@ -2,7 +2,8 @@
 """train_torch.py - train a GPT language-model preset with the PyTorch port.
 
 The twin of ``train.py`` for the path the port has: the ``gpt_lm``,
-``gpt_medium_lm`` and ``lm_long_context`` presets on one device, synthetic
+``gpt_medium_lm``, ``lm_long_context`` and ``gpt_moe`` presets on one
+device, synthetic
 next-token batches, the preset's AdamW or the optimizer that
 ``--optimizer/--lr/--schedule/--warmup-steps/--weight-decay/--clipnorm/
 --decay-mask`` build (the same flags, defaults and checks as
@@ -12,6 +13,7 @@ unless ``--xent-impl`` says otherwise.  Runs on the CUDA card unless
 
     python train_torch.py --workload gpt_lm --steps 20
     python train_torch.py --workload gpt_lm --test-size --device cpu --steps 3
+    python train_torch.py --workload gpt_moe --test-size --device cpu --steps 3
 
 Prints one JSON line per log step: ``step``, ``loss``, ``perplexity``,
 ``step_ms`` (mean wall time of the steps since the last line, each
@@ -35,7 +37,6 @@ import torch
 
 from distributedtensorflow_tpu_torch.data import InputContext
 from distributedtensorflow_tpu_torch.device import resolve_device
-from distributedtensorflow_tpu_torch.models import GPTLM, init_params
 from distributedtensorflow_tpu_torch.train import (
     TrainState,
     make_eval_step,
@@ -96,7 +97,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--kv-heads", type=int, default=None)
     p.add_argument("--attn-window", type=int, default=None)
     p.add_argument("--test-size", action="store_true",
-                   help="shrink the model (gpt_tiny at seq 64)")
+                   help="shrink the model (gpt_tiny or gpt_moe_tiny at seq "
+                        "64)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=20)
     p.add_argument("--eval-every", type=int, default=0)
@@ -157,9 +159,9 @@ def build(args: argparse.Namespace):
         xent_impl=args.xent_impl, kv_heads=args.kv_heads,
         attn_window=args.attn_window)
     wl = apply_optimizer_flags(wl, args)
-    model = GPTLM(wl.cfg, device=device)
+    model = wl.model_cls(wl.cfg, device=device)
     model.load_state_dict(
-        init_params(wl.cfg, torch.Generator().manual_seed(args.seed)))
+        wl.init_params(wl.cfg, torch.Generator().manual_seed(args.seed)))
     state = TrainState(0, model,
                        wl.make_optimizer(list(model.named_parameters())))
     step = make_train_step(wl.loss_fn(model), accum_steps=args.accum_steps,
