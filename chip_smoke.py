@@ -20,7 +20,10 @@ Phases, each fatal on failure:
    shapes, the LayerNorm backward and the flash-attention forward, the
    split backward's dq and dk/dv kernels and the single-sweep backward
    K3f at the training step's, and the flash kernels again at
-   lm_long_context's S 8192;
+   lm_long_context's S 8192 (in bf16 the forward and K3f run on the
+   tensor cores, each row says which version ran); then, for the record,
+   the flash kernels' forward plus backward against the plain attention
+   at S 256, 512 and 1024;
 4. xent: the fused LM head's kernels (forward, dx, dw) at gpt_lm's head
    (16376 tokens, D 768, V 50257, bf16), at D 1024, in fp32 and at a
    ragged token count, the same way;
@@ -58,7 +61,9 @@ Phases, each fatal on failure:
     head with the split pair, and gpt_moe's layers (1 dense, 1 MoE) with
     the fused head: loss and every gradient on the card agree with the
     plain path on the CPU, and the MoE block routes every token to the
-    same experts on both.
+    same experts on both; consistency_bf16 (bf16, full width, 2 layers,
+    B=2, S=2048): the loss through the flash kernels agrees with the loss
+    through the plain attention, both on the card.
 
 Kernel launch counts are set to 0 just before phases 5, 6 and 9-11 (each
 path) and read just after; a kernel of the path that did not launch, or
@@ -331,25 +336,35 @@ def check_flash(torch, F, fa):
     """K2, K3 (dq, dk/dv) and K3f at the training step's attention: B=8,
     H=12, S=2048, D=64, causal, bf16; GQA, window and padding cases; fp32
     once; a ragged case (S not a multiple of the 64-row tiles, with GQA,
-    window, padding and packed segments at once); a D=32 case; and the
-    first case again at lm_long_context's S=8192 (B=2).  K3f is held
-    against its plain twin and reported beside the split pair's
-    outputs."""
+    window, padding and packed segments at once); D=32 in fp32 and in
+    bf16 (with GQA and padding); a case without the causal mask; and the
+    first case again at lm_long_context's S=8192 (B=2).  Each row names
+    the version that ran (``variant``: "mma", bf16 on the tensor cores, or
+    "fma", fp32 products on the CUDA cores), as the port names it.  K3f
+    is held against its plain twin, run five times for bit-identical
+    outputs, and reported beside the split pair's outputs."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 6)
     bf16, fp32 = torch.bfloat16, torch.float32
-    # name, dtype, (B, H, Hkv, S, D), window, padding, segment ids
-    cases = [("causal", bf16, (8, 12, 12, 2048, 64), None, False, False),
-             ("gqa", bf16, (8, 12, 4, 2048, 64), None, False, False),
-             ("window", bf16, (8, 12, 12, 2048, 64), 512, False, False),
-             ("padding", bf16, (8, 12, 12, 2048, 64), None, True, False),
-             ("causal_fp32", fp32, (8, 12, 12, 2048, 64), None, False, False),
-             ("ragged_all_masks", bf16, (2, 12, 4, 1000, 64), 300, True,
+    # name, dtype, (B, H, Hkv, S, D), window, padding, segment ids, causal
+    cases = [("causal", bf16, (8, 12, 12, 2048, 64), None, False, False,
               True),
-             ("d32_fp32", fp32, (2, 4, 2, 256, 32), None, True, False),
+             ("gqa", bf16, (8, 12, 4, 2048, 64), None, False, False, True),
+             ("window", bf16, (8, 12, 12, 2048, 64), 512, False, False, True),
+             ("padding", bf16, (8, 12, 12, 2048, 64), None, True, False,
+              True),
+             ("causal_fp32", fp32, (8, 12, 12, 2048, 64), None, False, False,
+              True),
+             ("ragged_all_masks", bf16, (2, 12, 4, 1000, 64), 300, True,
+              True, True),
+             ("d32_fp32", fp32, (2, 4, 2, 256, 32), None, True, False, True),
+             ("d32_bf16", bf16, (2, 8, 2, 1024, 32), None, True, False, True),
+             ("noncausal", bf16, (2, 12, 12, 1024, 64), None, True, False,
+              False),
              ("long_context", bf16, (2, 12, 12, 8192, 64), None, False,
-              False)]
+              False, True)]
     rows = {k: [] for k in FLASH_ROWS}
-    for name, dtype, (b, h, h_kv, s, d), window, padded, segmented in cases:
+    for name, dtype, (b, h, h_kv, s, d), window, padded, segmented, causal \
+            in cases:
         def rnd(*shape):
             return torch.randn(*shape, device="cuda", generator=g).to(dtype)
 
@@ -363,7 +378,7 @@ def check_flash(torch, F, fa):
         if segmented:
             seg = torch.cumsum(torch.rand((b, s), device="cuda", generator=g)
                                < 0.01, dim=1).to(torch.int32)
-        kw = dict(mask=mask, segment_ids=seg, causal=True, window=window)
+        kw = dict(mask=mask, segment_ids=seg, causal=causal, window=window)
         o, lse = fa.flash_forward_cuda(q, k, v, *kw.values())
         ro, rlse = fa._plain_flash_forward(q, k, v, *kw.values())
         delta = (do.float() * ro.float()).sum(-1).transpose(1, 2) \
@@ -374,15 +389,16 @@ def check_flash(torch, F, fa):
         fused = fa.flash_bwd_fused_cuda(*bargs)
         dq2 = fa.flash_bwd_dq_cuda(*bargs)
         dk2, dv2 = fa.flash_bwd_dkv_cuda(*bargs)
-        fused2 = fa.flash_bwd_fused_cuda(*bargs)
+        fused_again = [fa.flash_bwd_fused_cuda(*bargs) for _ in range(4)]
         torch.cuda.synchronize()
         rdq = fa._plain_flash_bwd_dq(*bargs)
         rdk, rdv = fa._plain_flash_bwd_dkv(*bargs)
         rfused = fa._plain_flash_bwd_fused(*bargs)
         deterministic = all(torch.equal(a, c) for a, c in
                             ((dq, dq2), (dk, dk2), (dv, dv2)))
-        fused_deterministic = all(torch.equal(a, c)
-                                  for a, c in zip(fused, fused2))
+        fused_deterministic = all(torch.equal(a, c) for again in fused_again
+                                  for a, c in zip(fused, again))
+        del fused_again
         twins_agree = all(torch.equal(a, c) for a, c in
                           zip(rfused, (rdq, rdk, rdv)))
         o_tol, g_tol = (2e-2, 1e-2) if dtype == bf16 else (2e-5, 1e-4)
@@ -401,7 +417,7 @@ def check_flash(torch, F, fa):
                and deterministic,
                "flash_bwd_fused": max(fused_errs.values()) <= g_tol
                and fused_deterministic and twins_agree}
-        keep = _keep(torch, s, True, window, mask, seg)
+        keep = _keep(torch, s, causal, window, mask, seg)
         # (query, key) pairs over all heads: the work these inputs need
         pairs = float(keep.expand(b, 1, s, s).sum()) * h
         del keep
@@ -409,20 +425,20 @@ def check_flash(torch, F, fa):
         qbytes, kvbytes, rows_bytes = b * s * h * d * el, \
             b * s * h_kv * d * el, b * h * s * 4
         lib_mask = None if window is None and mask is None and seg is None \
-            else _keep(torch, s, True, window, mask, seg)
+            else _keep(torch, s, causal, window, mask, seg)
         gqa = h != h_kv
         qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
 
         def sdpa(qt=qt, kt=kt, vt=vt, lib_mask=lib_mask, gqa=gqa):
             return F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=lib_mask, is_causal=lib_mask is None,
-                enable_gqa=gqa)
+                qt, kt, vt, attn_mask=lib_mask,
+                is_causal=causal and lib_mask is None, enable_gqa=gqa)
 
         qr, kr, vr = (x.detach().clone().requires_grad_(True)
                       for x in (qt, kt, vt))
         out_lib = F.scaled_dot_product_attention(
-            qr, kr, vr, attn_mask=lib_mask, is_causal=lib_mask is None,
-            enable_gqa=gqa)
+            qr, kr, vr, attn_mask=lib_mask,
+            is_causal=causal and lib_mask is None, enable_gqa=gqa)
 
         def sdpa_bwd(out_lib=out_lib, qr=qr, kr=kr, vr=vr, dot=dot):
             return torch.autograd.grad(out_lib, (qr, kr, vr), dot,
@@ -432,12 +448,14 @@ def check_flash(torch, F, fa):
         iters = dict(iters=3, reps=3) if long else dict(iters=10, reps=3)
         # at S 8192 one plain call holds ~30 GB of (B, H, S, S) tiles:
         # timed eagerly, once per rep
-        plain_iters = dict(iters=1, reps=3, graph=False) if long else iters
+        plain_iters = dict(iters=1, reps=3, graph=False) if long \
+            else dict(iters=4, reps=3)
         fwd_args = [(q, k, v, *kw.values())]
         lib_bwd_ms = time_ms(torch, sdpa_bwd, [()], graph=False, **iters)
         common = {"case": name, "b": b, "h": h, "h_kv": h_kv, "s": s, "d": d,
-                  "dtype": str(dtype)[6:], "window": window,
-                  "padding": padded, "segments": segmented}
+                  "dtype": str(dtype)[6:], "causal": causal,
+                  "window": window, "padding": padded,
+                  "segments": segmented}
         specs = [
             ("flash_fwd", fa.flash_forward_cuda, fa._plain_flash_forward,
              fwd_args, 4 * d * pairs,
@@ -467,8 +485,8 @@ def check_flash(torch, F, fa):
              {**fused_errs, **vs_split, "deterministic": fused_deterministic,
               "plain_equals_split_twins": twins_agree,
               "tolerance": f"{g_tol} of max|dq|, max|dk|, max|dv| against "
-                           "the plain twin; bit-identical on a rerun; the "
-                           "twin equals the split twins bit for bit"},
+                           "the plain twin; bit-identical on four reruns; "
+                           "the twin equals the split twins bit for bit"},
              max((a.float() - r.float()).abs().max().item()
                  for a, r in zip(fused, rfused))),
         ]
@@ -476,7 +494,9 @@ def check_flash(torch, F, fa):
         for kname, kern, plain, args, flops, nbytes, lib_ms, extra, err \
                 in specs:
             bms, by = bound_ms(nbytes, flops, dtype)
-            row = {"kernel": kname, **common, "max_abs_err": err, **extra,
+            row = {"kernel": kname, **common,
+                   "variant": fa.kernel_variant(dtype, kname),
+                   "max_abs_err": err, **extra,
                    "flops": flops, "ms": time_ms(torch, kern, args, **iters),
                    "plain_ms": time_ms(torch, plain, args, **plain_iters),
                    "library_ms": lib_ms,
@@ -491,6 +511,37 @@ def check_flash(torch, F, fa):
         del out_lib, qr, kr, vr, lib_mask
         torch.cuda.empty_cache()
     return rows
+
+
+def run_short_seq(torch, fa, attn):
+    """For the record (nothing is decided on it): forward plus backward of
+    the flash kernels (``flash_attention``: K2, K3f and the delta pass)
+    against the plain path ``xla_attention`` below and at the dispatch
+    threshold ``MIN_SEQ_FOR_PALLAS``, at the training step's 16384 tokens
+    (H 12, D 64, bf16, causal).  Eager calls: the host's launch overhead
+    is in both times."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    for s in (256, 512, 1024):
+        b = 16384 // s
+        q, k, v, do = (torch.randn(b, s, 12, 64, device="cuda", generator=g)
+                       .to(torch.bfloat16) for _ in range(4))
+        for x in (q, k, v):
+            x.requires_grad_(True)
+
+        def flash(q=q, k=k, v=v, do=do):
+            return torch.autograd.grad(
+                fa.flash_attention(q, k, v, causal=True), (q, k, v), do)
+
+        def plain(q=q, k=k, v=v, do=do):
+            return torch.autograd.grad(
+                attn.xla_attention(q, k, v, causal=True), (q, k, v), do)
+
+        it = dict(iters=10, reps=3, graph=False)
+        emit({"phase": "short_seq", "b": b, "h": 12, "s": s, "d": 64,
+              "dtype": "bfloat16", "causal": True,
+              "min_seq_for_pallas": fa.MIN_SEQ_FOR_PALLAS,
+              "flash_fwd_bwd_ms": time_ms(torch, flash, [()], **it),
+              "xla_attention_fwd_bwd_ms": time_ms(torch, plain, [()], **it)})
 
 
 def _library_logits(torch, x, w, grad):
@@ -980,6 +1031,53 @@ def run_consistency_train(torch, mods, cuda, fa, xent, backward_impl="pallas",
             "kernels than its path")
 
 
+def run_consistency_bf16(torch, mods, cuda, device="cuda", seq=2048):
+    """bf16 loss and gradients of 2 full-width layers at S=2048, B=2, on
+    the card: the same weights and batch once through the flash kernels
+    (``attn_impl="pallas"``: K2 and K3f on the tensor cores) and once
+    through the plain attention (``attn_impl="xla"``).  The losses agree
+    within 1e-2 relative; the gradient leaves' worst distance is
+    reported (the two paths round at different points in bf16)."""
+    base = dataclasses.replace(mods.gpt_small(), num_layers=2,
+                               dtype=torch.bfloat16)
+    state = mods.init_params(base, torch.Generator().manual_seed(SEED + 10))
+    ids = torch.as_tensor(np.random.default_rng(SEED + 10).integers(
+        0, base.vocab_size, (2, seq)), device=device)
+    out, launches = {}, {}
+    for impl in ("pallas", "xla"):
+        cfg = dataclasses.replace(base, attn_impl=impl)
+        model = mods.GPTLM(cfg, device=device)
+        model.load_state_dict(state)
+        cuda.launches.clear()
+        loss, _ = mods.lm_loss(model)({"input_ids": ids})
+        names, params = zip(*model.named_parameters())
+        grads = torch.autograd.grad(loss, params)
+        sync(torch, torch.device(device))
+        launches[impl] = dict(cuda.launches)
+        out[impl] = (float(loss.detach()),
+                     {n: gr.float() for n, gr in zip(names, grads)})
+    (k_loss, k_g), (x_loss, x_g) = out["pallas"], out["xla"]
+    loss_rel = abs(k_loss - x_loss) / abs(x_loss)
+    worst = max(_rel_err(k_g[n], x_g[n]) for n in x_g)
+    flash = ("flash_fwd", "flash_bwd_fused")
+    ok = math.isfinite(k_loss) and loss_rel <= 1e-2 \
+        and (device == "cpu"
+             or all(launches["pallas"].get(k) for k in flash)) \
+        and not any(launches["xla"].get(k) for k in flash) \
+        and all(bool(torch.isfinite(gr).all()) for gr in k_g.values())
+    row = {"phase": "consistency_bf16", "dtype": "bfloat16", "layers": 2,
+           "batch": 2, "seq": seq, "kernels_loss": k_loss,
+           "xla_loss": x_loss, "loss_rel_err": loss_rel,
+           "worst_grad_rel_err": worst,
+           "tolerance": "loss 1e-2 relative; gradients finite (their "
+                        "distance is reported)",
+           "launches": launches}
+    emit(row)
+    if not ok:
+        raise AssertionError(f"bf16 step through the flash kernels differs "
+                             f"from the plain attention's: {row}")
+
+
 def sync(torch, dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -1183,6 +1281,7 @@ def main(argv=None) -> int:
         rows["decode_attention"] = check_decode_attention(torch, F, attn)
         rows["layernorm_bwd"] = check_layernorm_bwd(torch, ln)
         rows.update(check_flash(torch, F, fa))
+        run_short_seq(torch, fa, attn)
     if "xent" in phases:
         rows.update(check_fused_xent(torch, F, fx))
 
@@ -1236,6 +1335,7 @@ def main(argv=None) -> int:
                                 ("fused", "pallas_split", False),
                                 ("fused", "pallas", True)):
             run_consistency_train(torch, mods, _cuda, fa, xent, impl, moe)
+        run_consistency_bf16(torch, mods, _cuda)
 
     if phases != set(PHASES):
         print(f"chip_smoke: ran only {sorted(phases)}", file=sys.stderr)

@@ -19,37 +19,75 @@
 // before one rounding, as flash_bwd.cu does.
 //
 // What bounds it on the H100: operations, five products of
-// 2 * B * H * S^2 * D flops (half under the causal mask).  This first
-// version computes in fp32 on the CUDA cores, as flash_bwd.cu does;
-// tensor-core tiles are later work.
+// 2 * B * H * S^2 * D flops (half under the causal mask).
 //
-// Design.  A block owns one key tile of one kv head of one batch row.  It
-// keeps dk and dv of its 64 keys in registers, sweeps the query tiles of
-// the band (`_band_run`, :278) for every query head of its GQA group, and
-// computes s, p, dp and ds once per pair.  From them it forms dv += p^T dO
-// and dk += ds^T q in registers, and the query tile's dq partial ds k.
+// Design.  A block of four warps owns one key tile of one kv head of one
+// batch row.  It keeps dk and dv of its 64 keys in registers, sweeps the
+// query tiles of the band (`_band_run`, :278) for every query head of its
+// GQA group, and computes s, p, dp and ds once per pair.  From them it
+// forms dv += p^T dO and dk += ds^T q in registers, and the query tile's
+// dq partial ds k.
 //
 // The dq partials are what the TPU carries across its sequential grid in
 // VMEM scratch (`dq_all_scr`).  Here blocks run in no order, so the
 // partials of each (batch, head, query tile) are summed in an fp32
 // accumulator in device memory in ascending key-tile order, the order of
-// `dq_all_scr[row] + dot(ds, k)` (:651).  A turn counter per (batch, head,
-// query tile) enforces it: the block of the band's n-th key tile adds its
-// partial once the counter reads n, then sets it to n + 1.  The band's
-// first key tile stores its partial instead of adding it (0 + x is x, so
-// the accumulator needs no clearing), and its last rounds the sum to dq's
-// type and writes the output row.  No atomic touches a value, so dq, dk
-// and dv repeat bit for bit.
+// `dq_all_scr[row] + dot(ds, k)` (:651), under a turn counter per (batch,
+// head, query tile).  The band's first key tile stores its partial instead
+// of adding it (0 + x is x, so the accumulator needs no clearing), and its
+// last rounds the sum to dq's type and writes the output row.  No atomic
+// touches a value, so dq, dk and dv repeat bit for bit.
+//
+// bf16 (flash_bwd_fused_mma_kernel): all five products run on the tensor
+// cores (mma.sync.m16n8k16, bf16 in, fp32 sums).  K and V are copied once
+// into shared memory as bf16; each warp keeps its 16 keys of both as A
+// fragments in registers for the whole sweep.  The Q and dO tiles are two
+// buffers deep: cp.async brings the next query tile while this one is
+// multiplied.  The scores are computed transposed (keys as rows): S^T =
+// K.Q^T and dP^T = V.dO^T come out in the accumulator layout, and p and ds
+// are formed on those fragments with the row's LSE and delta (the masks
+// are skipped where a tile pair needs none, and only the causal one is
+// applied on the diagonal).  Rounded to bf16, P^T and
+// dS^T are the A fragments of dv += P^T.dO and dk += dS^T.Q straight from
+// registers, with dO and Q read by ldmatrix.trans.  dS^T is also written
+// to shared memory once (the same bf16 values: ds is rounded once), and
+// after a barrier each warp forms 16 query rows of the dq partial dS.K,
+// with dS read back transposed by ldmatrix.trans.  bf16 operands are
+// needed exactly where the TPU kernel rounds.  About 56 KB of shared
+// memory at D 64 and at most 255 registers a thread: two blocks share an
+// SM, so one block's products fill the time the other waits for its turn.
+//
+// The turn in bf16: each warp adds its own 16 rows of the partial, so the
+// counter counts warps.  A warp of the band's n-th key tile waits until
+// the counter reads 4 n (all four warps of every earlier key tile have
+// added), fetches the sum so far with one batch of 16-byte loads that
+// bypass L1 (started before the dq product, consumed after it), stores the
+// new sum, and, after __syncwarp, lane 0 adds 1 with release semantics.
+// The sum of a (batch, head, query tile) lies in the scratch in the
+// accumulator's fragment order, 64 rows a tile, so a warp's load or store
+// covers whole 128-byte lines; only the band's last key tile leaves that
+// order, when it writes dq.  The next tile's copies are started before the
+// wait, and no block barrier stands between the add and the release.
+//
+// fp32 (flash_bwd_fused_kernel): FMAs on the CUDA cores (the tensor cores
+// have no full-precision fp32 product), fp32 tiles in shared memory (171
+// KB, one block per SM); the block of the n-th key tile adds once the
+// counter reads n, then sets it to n + 1, and the sum lies in the scratch
+// row by row.
 //
 // Deadlock.  Blocks take their work from a ticket counter, key tile after
 // key tile: every (batch, kv head) of key tile 0, then of key tile 1, and
-// so on, whatever order the hardware starts the blocks in.  A block waits
-// only on work with a smaller ticket, which a block already running holds,
-// so every wait ends.  This order also starts the key tiles with the most
-// causal work first, and a block's predecessor in the band has started
-// before it, so it runs about one tile ahead instead of keeping the block
-// waiting.  The counters are cleared on the launch's stream just before
-// the kernel (a CUDA graph captures both).
+// so on, whatever order the hardware starts the blocks in.  A ticket is
+// taken by a block that is already resident, and a block waits only on
+// work with a smaller ticket, so by induction over the tickets every wait
+// ends: the smallest unfinished ticket waits on nothing, and it is
+// running.  That holds for one or two resident blocks per SM alike, since
+// a resident block never needs another block's SM.  This order also
+// starts the key tiles with the most causal work first, and a block's
+// predecessor in the band has started before it, so it runs about one
+// tile ahead instead of keeping the block waiting.  The counters are
+// cleared on the launch's stream just before the kernel (a CUDA graph
+// captures both).
 
 #include "flash_common.cuh"
 
@@ -306,6 +344,258 @@ cudaError_t launch(const FusedArgs& a, int n_counters, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+__device__ __forceinline__ void add_release(int* p, int v) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], %1;" : : "l"(p), "r"(v) : "memory");
+}
+
+template <int D>
+constexpr int fused_mma_smem_bytes() {
+  return ((kBK + 4 * kBQ) * tile_ld<D>() + kBK * (kBQ + 8)) * static_cast<int>(sizeof(bf16_t));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2) flash_bwd_fused_mma_kernel(const FusedArgs a) {
+  using namespace mma;
+  constexpr int LD = tile_ld<D>(), KS = D / 16, NT = D / 8;
+  constexpr int LDS = kBQ + 8;  // row of the ds^T tile, padded like the others
+  static_assert(LD <= LDS, "V is staged in the ds^T tile's room");
+  extern __shared__ float4 smem4[];
+  bf16_t* Ks = reinterpret_cast<bf16_t*>(smem4);  // [kBK][LD]
+  bf16_t* Qs = Ks + kBK * LD;                      // [2][kBQ][LD]
+  bf16_t* Gs = Qs + 2 * kBQ * LD;                  // [2][kBQ][LD] dO
+  bf16_t* St = Gs + 2 * kBQ * LD;                  // [kBK][LDS] ds^T, rounded; V at first
+  __shared__ float qlse[2][kBQ];
+  __shared__ float qdl[2][kBQ];
+  __shared__ int qsg[2][kBQ];
+  __shared__ int ticket;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  if (tid == 0) ticket = atomicAdd(a.counters, 1);
+  __syncthreads();
+  const int chains = a.b * a.hkv;
+  const int kj = ticket / chains;
+  const int b = ticket % chains / a.hkv, hk = ticket % chains % a.hkv;
+  const int group = a.h / a.hkv;
+  const int nq = (a.s + kBQ - 1) / kBQ;
+  const int k0 = kj * kBK;
+  const bf16_t* kb = static_cast<const bf16_t*>(a.k) + b * a.ks.b + hk * a.ks.h;
+  const bf16_t* vb = static_cast<const bf16_t*>(a.v) + b * a.vs.b + hk * a.vs.h;
+  const bool key_masks = a.mask != nullptr || a.seg != nullptr;
+
+  int qi_lo, qi_hi;
+  query_band(k0, a.s, a.causal, a.window, &qi_lo, &qi_hi);
+  const int nqb = qi_hi - qi_lo + 1;
+  const int n_it = group * nqb;  // (query head of the group, query tile) pairs
+  // start the copies of pair `it` into buffer it % 2
+  auto prefetch = [&](int it) {
+    const int buf = it & 1, h = hk * group + it / nqb, q0 = (qi_lo + it % nqb) * kBQ;
+    const bf16_t* qb = static_cast<const bf16_t*>(a.q) + b * a.qs.b + h * a.qs.h;
+    const bf16_t* gb = static_cast<const bf16_t*>(a.g) + b * a.gs.b + h * a.gs.h;
+    load_tile_async<D, kBQ>(qb, a.qs.s, q0, a.s, Qs + buf * kBQ * LD);
+    load_tile_async<D, kBQ>(gb, a.gs.s, q0, a.s, Gs + buf * kBQ * LD);
+    if (tid < kBQ) {
+      const int qp = q0 + tid;
+      const bool in = qp < a.s;
+      const long long row = (static_cast<long long>(b) * a.h + h) * a.s + (in ? qp : 0);
+      cp_async4(&qlse[buf][tid], a.lse + row, in);
+      cp_async4(&qdl[buf][tid], a.delta + row, in);
+      qsg[buf][tid] = segment(a.seg, b, a.s, qp);
+    }
+    cp_async_commit();
+  };
+  load_tile_async<D, kBK>(kb, a.ks.s, k0, a.s, Ks);
+  load_tile_async<D, kBK>(vb, a.vs.s, k0, a.s, St);
+  prefetch(0);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // this warp's 16 keys: K and V as A fragments, dk and dv as accumulators
+  const int krow = k0 + warp * 16;
+  uint32_t kf[KS][4], vf[KS][4];
+  load_a<KS>(kf, Ks + warp * 16 * LD, LD);
+  load_a<KS>(vf, St + warp * 16 * LD, LD);
+  int kst[2], ksg[2];
+  float dk[NT][4], dv[NT][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    kst[r] = key_state(a.mask, b, a.s, krow + g + 8 * r);
+    ksg[r] = segment(a.seg, b, a.s, krow + g + 8 * r);
+  }
+#pragma unroll
+  for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[ni][e] = dv[ni][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int buf = it & 1, h = hk * group + it / nqb, qi = qi_lo + it % nqb, q0 = qi * kBQ;
+    // pair `it` has landed, and every warp is done with pair it - 1 (at
+    // first: with V's fragments), whose buffers are written next
+    cp_async_wait<0>();
+    __syncthreads();
+    if (it + 1 < n_it) prefetch(it + 1);
+    const bf16_t* Qb = Qs + buf * kBQ * LD;
+    const bf16_t* Gb = Gs + buf * kBQ * LD;
+
+    // s^T and dp^T: rows are this warp's 16 keys, columns the 64 queries
+    float st[8][4], dpt[8][4];
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[ni][e] = dpt[ni][e] = 0.f;
+    mma_a_bt<8, KS>(st, kf, Qb, LD);
+    mma_a_bt<8, KS>(dpt, vf, Gb, LD);
+    // A plain pair keeps the raw products in st (a pair on the causal
+    // diagonal with -inf for the keys after their query): its p = exp(s -
+    // lse) is one FMA (scale log2(e) folded in) and one ex2 per element.  A
+    // masked pair holds the scaled, masked scores, and NEG_INF cancels
+    // exactly against an LSE of NEG_INF.
+    const PairKind kind = pair_kind(q0, k0, a.s, a.causal, a.window, key_masks);
+    const bool plain = kind != kMasked;
+    if (kind == kMasked)
+      mask_fragments<true>(st, a.scale, krow, kst, ksg, q0, nullptr, a.seg ? qsg[buf] : nullptr,
+                           a.s, a.causal, a.window);
+    else if (kind == kDiagonal)
+      causal_fragments<true>(st, krow, q0);
+    // p into st
+    if (plain) {
+      const float c2 = a.scale * kLog2e;
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni) {
+        const float2 lse = *reinterpret_cast<const float2*>(&qlse[buf][ni * 8 + 2 * t]);
+        const float lx = lse.x * kLog2e, ly = lse.y * kLog2e;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          st[ni][e] = fast_exp2(fmaf(st[ni][e], c2, -((e & 1) ? ly : lx)));
+      }
+    } else {
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni) {
+        const float2 lse = *reinterpret_cast<const float2*>(&qlse[buf][ni * 8 + 2 * t]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[ni][e] = __expf(st[ni][e] - ((e & 1) ? lse.y : lse.x));
+      }
+    }
+    // ds into dpt
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni) {
+      const float2 dl = *reinterpret_cast<const float2*>(&qdl[buf][ni * 8 + 2 * t]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dpt[ni][e] = (st[ni][e] * (dpt[ni][e] - ((e & 1) ? dl.y : dl.x))) * a.scale;
+    }
+    // rounded to bf16 they are A fragments (k = the queries); ds^T also
+    // goes to shared memory, the same bits, for the dq partial
+    uint32_t pf[4][4], sf[4][4];
+    pack_a<8>(pf, st);
+    pack_a<8>(sf, dpt);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      bf16_t* row = St + (warp * 16 + g) * LDS + j * 16 + 2 * t;
+      *reinterpret_cast<uint32_t*>(row) = sf[j][0];
+      *reinterpret_cast<uint32_t*>(row + 8 * LDS) = sf[j][1];
+      *reinterpret_cast<uint32_t*>(row + 8) = sf[j][2];
+      *reinterpret_cast<uint32_t*>(row + 8 * LDS + 8) = sf[j][3];
+    }
+    mma_a_b<NT, 4>(dv, pf, Gb, LD);
+    mma_a_b<NT, 4>(dk, sf, Qb, LD);
+    __syncthreads();  // ds^T is whole
+
+    // This warp's 16 queries of the tile's dq sum.  Once every earlier key
+    // tile of the band has added (the turn), fetch the sum so far in one
+    // batch of loads, which are in flight while the partial ds k is
+    // multiplied.  The sum lies in the scratch in fragment order (lane l
+    // holds 16 bytes of every 512): whole lines per warp and load.
+    int kj_lo, kj_hi;
+    key_band(q0, a.s, a.causal, a.window, &kj_lo, &kj_hi);
+    int* turn = a.counters + 1 + (static_cast<long long>(b) * a.h + h) * nq + qi;
+    float* cell = a.dq_acc + ((static_cast<long long>(b) * a.h + h) * nq + qi) * (kBQ * D) +
+                  warp * 16 * D + lane * 4;
+    float4 sum[NT];
+    if (kj != kj_lo) {
+      if (lane == 0) {
+        while (load_acquire(turn) < 4 * (kj - kj_lo)) __nanosleep(32);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni)
+        sum[ni] = __ldcg(reinterpret_cast<const float4*>(cell + ni * 128));
+    } else {
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni) sum[ni] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+
+    // the dq partial ds k
+    float dqp[NT][4];
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dqp[ni][e] = 0.f;
+    {
+      uint32_t af[4][4];
+      load_a_trans<4>(af, St + warp * 16, LDS);
+      mma_a_b<NT, 4>(dqp, af, Ks, LD);
+    }
+
+    // add in ascending key-tile order (the band's first key tile adds to
+    // 0); its last rounds the sum and writes the output rows
+    if (kj != kj_hi) {
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni)
+        __stcg(reinterpret_cast<float4*>(cell + ni * 128),
+               make_float4(sum[ni].x + dqp[ni][0], sum[ni].y + dqp[ni][1],
+                           sum[ni].z + dqp[ni][2], sum[ni].w + dqp[ni][3]));
+    } else {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qp = q0 + warp * 16 + g + 8 * r;
+        if (qp >= a.s) continue;
+        bf16_t* out = static_cast<bf16_t*>(a.dq) +
+                      (static_cast<long long>(b) * a.s + qp) * a.h * D +
+                      static_cast<long long>(h) * D + 2 * t;
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni)
+          *reinterpret_cast<uint32_t*>(out + ni * 8) =
+              r == 0 ? pack_bf16(sum[ni].x + dqp[ni][0], sum[ni].y + dqp[ni][1])
+                     : pack_bf16(sum[ni].z + dqp[ni][2], sum[ni].w + dqp[ni][3]);
+      }
+    }
+    // the warp's stores, then one release (CUTLASS's semaphore pattern at
+    // warp scope: the barrier orders them before lane 0's red.release.gpu)
+    __syncwarp();
+    if (lane == 0 && kj != kj_hi) add_release(turn, 1);
+  }
+
+  bf16_t* dkb = static_cast<bf16_t*>(a.dk);
+  bf16_t* dvb = static_cast<bf16_t*>(a.dv);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kp = krow + g + 8 * r;
+    if (kp >= a.s) continue;
+    const long long off =
+        (static_cast<long long>(b) * a.s + kp) * a.hkv * D + static_cast<long long>(hk) * D;
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni) {
+      *reinterpret_cast<uint32_t*>(dkb + off + ni * 8 + 2 * t) =
+          pack_bf16(dk[ni][2 * r], dk[ni][2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(dvb + off + ni * 8 + 2 * t) =
+          pack_bf16(dv[ni][2 * r], dv[ni][2 * r + 1]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_mma(const FusedArgs& a, int n_counters, cudaStream_t stream) {
+  const int smem = fused_mma_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_fused_mma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaMemsetAsync(a.counters, 0, static_cast<size_t>(n_counters) * sizeof(int), stream);
+  if (err != cudaSuccess) return err;
+  const int blocks = (a.s + kBK - 1) / kBK * a.b * a.hkv;
+  flash_bwd_fused_mma_kernel<D><<<blocks, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" const char* dtf_error_string(int err) {
@@ -317,9 +607,10 @@ extern "C" const char* dtf_error_string(int err) {
 // g) and a contiguous head dim; lse and delta (B, H, S) fp32 contiguous;
 // mask (B, S) bytes and seg (B, S) int32, each may be null; window <= 0
 // means none; D is 32 or 64.  Outputs are contiguous: dq (B, S, H, D), dk
-// and dv (B, S, Hkv, D).  Scratch: dq_acc, B * H * S * D floats, and
-// counters, 1 + B * H * ceil(S / 64) ints, both of any content.  Returns
-// the CUDA error of the launch (0 on success).
+// and dv (B, S, Hkv, D).  Scratch: dq_acc, B * H * ceil(S / 64) * 64 * D
+// floats, and counters, 1 + B * H * ceil(S / 64) ints, both of any
+// content.  bf16 runs on the tensor cores, fp32 on the CUDA cores.
+// Returns the CUDA error of the launch (0 on success).
 extern "C" int dtf_flash_bwd_fused(const void* q, const void* k, const void* v, const void* g,
                                    const void* lse, const void* delta, void* dq, void* dk,
                                    void* dv, void* dq_acc, void* counters, const void* mask,
@@ -336,9 +627,8 @@ extern "C" int dtf_flash_bwd_fused(const void* q, const void* k, const void* v, 
                     {st[9], st[10], st[11]}, b, h, hkv, s, causal, window, scale};
   const int n_counters = 1 + b * h * ((s + kBQ - 1) / kBQ);
   cudaStream_t sm = static_cast<cudaStream_t>(stream);
-  using bf = __nv_bfloat16;
-  if (d == 64) err = bf16 ? launch<bf, 64>(a, n_counters, sm) : launch<float, 64>(a, n_counters, sm);
-  else if (d == 32) err = bf16 ? launch<bf, 32>(a, n_counters, sm) : launch<float, 32>(a, n_counters, sm);
+  if (d == 64) err = bf16 ? launch_mma<64>(a, n_counters, sm) : launch<float, 64>(a, n_counters, sm);
+  else if (d == 32) err = bf16 ? launch_mma<32>(a, n_counters, sm) : launch<float, 32>(a, n_counters, sm);
   else err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }

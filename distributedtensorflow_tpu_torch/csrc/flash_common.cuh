@@ -1,14 +1,28 @@
 // Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu,
 // flash_bwd_fused.cu).
 //
-// Tiles are kBQ query rows by kBK key rows; a block of kThreads threads
-// computes one (kBQ, kBK) score tile at a time, each thread a 4 x 8
-// patch of it: rows 4*rg .. 4*rg+3 (rg = thread / 8) and the eight
-// columns col_of(cg, 0..7) (cg = thread % 8).  The columns of a thread
-// are interleaved in groups of four, so that the eight threads sharing
-// rows read one 128-byte line of shared memory in one float4 load.
-// Operands are widened to fp32 when they are staged into shared memory;
-// every product and sum is fp32.
+// Tiles are kBQ query rows by kBK key rows, and a block of kThreads
+// threads (four warps) computes one (kBQ, kBK) score tile at a time.
+// There are two sets of pieces:
+//
+// - fp32 on the CUDA cores (every kernel in fp32, and the split backward
+//   flash_bwd.cu in bf16 too): operands are widened to fp32 when they are
+//   staged into shared memory (load_tile) and every product is an FMA
+//   loop.  A thread holds a 4 x 8 patch of the score tile: rows
+//   4*rg .. 4*rg+3 (rg = thread / 8) and the eight columns
+//   col_of(cg, 0..7) (cg = thread % 8), interleaved in groups of four so
+//   that the eight threads sharing rows read one 128-byte line of shared
+//   memory in one float4 load.
+//
+// - bf16 on the tensor cores (flash_fwd.cu and flash_bwd_fused.cu in
+//   bf16; the bottom of this file): tiles stay bf16 in shared memory,
+//   copied there by cp.async (load_tile_async) into rows padded by 16
+//   bytes, and every product is mma.sync.m16n8k16 with fp32 sums
+//   (mma_common.cuh).  A warp owns 16 rows of the score tile in the
+//   accumulator layout (lane l: rows g and g + 8, columns 8 ni + 2t and
+//   2t + 1, g = l / 4, t = l % 4); the masks are applied on those
+//   fragments (mask_fragments), or not at all where a tile pair lies
+//   wholly inside the band and no key mask is given (pair_kind).
 //
 // Masking follows `_masked_scores` (distributedtensorflow_tpu/ops/
 // flash_attention.py:225): a key beyond the sequence, after the query
@@ -22,6 +36,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "mma_common.cuh"
 
 namespace flash {
 
@@ -141,6 +157,101 @@ __device__ __forceinline__ void query_band(int k0, int s, int causal, int window
   *lo = causal ? k0 / kBQ : 0;
   *hi = (s + kBQ - 1) / kBQ - 1;
   if (window > 0) *hi = min(*hi, (k0 + kBK - 1 + window - 1) / kBQ);
+}
+
+// ---------------------------------------------------------------------
+// bf16 on the tensor cores
+
+using bf16_t = __nv_bfloat16;
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x by the special-function unit (ex2.approx: 2 ulp); 2^-inf is 0.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Elements of a bf16 tile's row in shared memory: D and 16 bytes of
+// padding, so that the 8 rows of one ldmatrix phase lie on distinct banks
+// and every row starts 16-byte aligned.
+template <int D>
+__host__ __device__ constexpr int tile_ld() { return D + 8; }
+
+// Start copying rows [row0, row0 + ROWS) of one (batch, head) of a bf16
+// BSHD operand into shared memory (sm[r * tile_ld<D>() + c]) by cp.async,
+// rows at or past `s` as zeros.  The caller commits and waits.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile_async(const bf16_t* base, long long row_stride, int row0,
+                                                int s, bf16_t* sm) {
+  constexpr int kParts = D / 8;
+  for (int c = threadIdx.x; c < ROWS * kParts; c += kThreads) {
+    const int r = c / kParts, part = c % kParts;
+    const bool valid = row0 + r < s;
+    const bf16_t* src = valid ? base + static_cast<long long>(row0 + r) * row_stride + part * 8 : base;
+    mma::cp_async16(sm + r * tile_ld<D>() + part * 8, src, valid);
+  }
+}
+
+// What the tile pair (queries from q0, keys from k0) needs of the masks.
+// kPlain: nothing (no key mask or segment ids, both tiles inside the
+// sequence, no key after a query of the tile and none at or below a
+// query's window): its scores are the scaled products.  kDiagonal: the
+// same but for keys after their query under the causal mask
+// (causal_fragments).  kMasked: everything (mask_fragments).
+enum PairKind { kPlain, kDiagonal, kMasked };
+
+__device__ __forceinline__ PairKind pair_kind(int q0, int k0, int s, int causal, int window,
+                                              bool key_masks) {
+  if (key_masks || q0 + kBQ > s || k0 + kBK > s || (window > 0 && k0 <= q0 + kBQ - 1 - window))
+    return kMasked;
+  return causal && k0 + kBK - 1 > q0 ? kDiagonal : kPlain;
+}
+
+// The causal mask alone on a warp's (16, 64) accumulator fragments of raw
+// products, rows and columns as in mask_fragments: a key after its query
+// becomes -inf, which weighs 0 through a plain pair's arithmetic.
+template <bool kKeyRows>
+__device__ __forceinline__ void causal_fragments(float (&sc)[8][4], int row0, int col0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int rpos = row0 + g + 8 * (e >> 1), cpos = col0 + ni * 8 + 2 * t + (e & 1);
+      if (kKeyRows ? rpos > cpos : cpos > rpos) sc[ni][e] = -INFINITY;
+    }
+}
+
+// The masked, scaled scores of a warp's (16, 64) accumulator fragments,
+// in place (`sc` holds the raw products).  kKeyRows = false: rows are
+// queries (the forward), transposed otherwise (the backward's S^T).  The
+// rows g and g + 8 of this lane lie at positions row0 + g and row0 + g + 8
+// and carry their key state (kKeyRows only) and segment in registers;
+// column c lies at col0 + c and reads its key state (queries as rows
+// only) and segment from shared memory (`col_seg` may be null: all 0).
+template <bool kKeyRows>
+__device__ __forceinline__ void mask_fragments(float (&sc)[8][4], float scale, int row0,
+                                               const int (&row_state)[2], const int (&row_seg)[2],
+                                               int col0, const int* col_state, const int* col_seg,
+                                               int s, int causal, int window) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1, c = ni * 8 + 2 * t + (e & 1);
+      const int rpos = row0 + g + 8 * r, cpos = col0 + c;
+      const int cseg = col_seg ? col_seg[c] : 0;
+      if constexpr (kKeyRows)
+        sc[ni][e] = cpos < s ? masked_score(sc[ni][e], scale, cpos, rpos, row_state[r], cseg,
+                                            row_seg[r], causal, window)
+                             : -INFINITY;
+      else
+        sc[ni][e] = masked_score(sc[ni][e], scale, rpos, cpos, col_state[c], row_seg[r], cseg,
+                                 causal, window);
+    }
 }
 
 }  // namespace flash

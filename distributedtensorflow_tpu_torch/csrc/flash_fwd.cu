@@ -14,20 +14,39 @@
 // What bounds it on the H100: operations.  4 * B * H * S^2 * D flops
 // (half of it under the causal mask) against a few bytes per element of
 // q, k, v and o: at GPT-2-small's B=8, H=12, S=2048, D=64 bf16 that is
-// 51.5 GFLOP (causal) over 989 TFLOP/s, about 0.05 ms.  This first
-// version computes in fp32 on the CUDA cores (67 TFLOP/s at most), so it
-// cannot come near that floor; tensor-core tiles (mma/wgmma) are later
-// work.
+// 51.5 GFLOP (causal) over 989 TFLOP/s, about 0.05 ms.
 //
-// Design: one block of 128 threads per (query tile of 64, head, batch),
-// heaviest causal tiles first.  The query tile is staged once, transposed,
-// in shared memory; every key tile of the band (whole tiles outside the
-// causal/window band are skipped, as `_band_run` does) is staged
-// transposed (K) and row-major (V).  Each thread holds a 4 x 8 patch of
-// the score tile, its rows' m and l, and a 4 x D/8 patch of the output;
-// row maxima and sums are shuffles among the 8 threads of a row group.
-// The rounded p tile goes through shared memory to the P.V product.  K
-// and V are read from their kv head directly: no broadcast copy.
+// Both kernels: one block of 128 threads per (query tile of 64, head,
+// batch), heaviest causal tiles first; every key tile of the band is
+// visited in ascending order (whole tiles outside the causal/window band
+// are skipped, as `_band_run` does).  K and V are read from their kv head
+// directly: no broadcast copy.
+//
+// bf16 (flash_fwd_mma_kernel): both products run on the tensor cores
+// (mma.sync.m16n8k16, bf16 in, fp32 sums).  Each of the four warps owns 16
+// query rows against the whole key tile.  Q is copied to shared memory
+// once and kept as A fragments in registers for the whole sweep.  K and V
+// tiles stay bf16 in shared memory (rows padded by 16 bytes: ldmatrix
+// without bank conflicts), two buffers deep: cp.async brings key tile
+// j + 1 while tile j is multiplied, one barrier per tile.  S = Q.K^T comes
+// out in the accumulator layout; the masks (skipped where a tile pair
+// needs none, the causal one alone on the diagonal), the running max and
+// sum and the rescale of the output accumulator work on those fragments,
+// a row's max and sum being shuffles among the four lanes that share it.
+// P never touches shared memory: two neighbouring accumulator tiles,
+// rounded to bf16, are one A fragment of P.V, and V comes by
+// ldmatrix.trans.  bf16 operands are needed exactly where the TPU kernel
+// rounds, so only the order of fp32 sums differs from the plain version
+// (and exp, where a tile pair needs no key mask, is one FMA that folds
+// scale log2(e) in and one ex2 per element).  46 KB of shared memory at
+// D 64 and 128 registers a thread: four blocks share an SM.
+//
+// fp32 (flash_fwd_kernel): FMAs on the CUDA cores, since the tensor cores
+// have no full-precision fp32 product.  The query tile is staged once,
+// transposed, in shared memory; every key tile is staged transposed (K)
+// and row-major (V).  Each thread holds a 4 x 8 patch of the score tile,
+// its rows' m and l, and a 4 x D/8 patch of the output; the rounded p
+// tile goes through shared memory to the P.V product.
 
 #include "flash_common.cuh"
 
@@ -197,6 +216,166 @@ cudaError_t launch(const FwdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <int D>
+constexpr int fwd_mma_smem_bytes() {
+  return (kBQ + 4 * kBK) * tile_ld<D>() * static_cast<int>(sizeof(bf16_t));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 4) flash_fwd_mma_kernel(const FwdArgs a) {
+  using namespace mma;
+  constexpr int LD = tile_ld<D>(), KS = D / 16, NT = D / 8;
+  extern __shared__ float4 smem4[];
+  bf16_t* Qs = reinterpret_cast<bf16_t*>(smem4);  // [kBQ][LD]
+  bf16_t* Ks = Qs + kBQ * LD;                      // [2][kBK][LD]
+  bf16_t* Vs = Ks + 2 * kBK * LD;                  // [2][kBK][LD]
+  __shared__ int kstate[2][kBK];
+  __shared__ int kseg[2][kBK];
+
+  const int nq = (a.s + kBQ - 1) / kBQ;
+  const int qi = nq - 1 - static_cast<int>(blockIdx.x);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (a.h / a.hkv);
+  const int q0 = qi * kBQ;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const bf16_t* qb = static_cast<const bf16_t*>(a.q) + b * a.qs.b + h * a.qs.h;
+  const bf16_t* kb = static_cast<const bf16_t*>(a.k) + b * a.ks.b + hk * a.ks.h;
+  const bf16_t* vb = static_cast<const bf16_t*>(a.v) + b * a.vs.b + hk * a.vs.h;
+  const bool key_masks = a.mask != nullptr || a.seg != nullptr;
+
+  int kj_lo, kj_hi;
+  key_band(q0, a.s, a.causal, a.window, &kj_lo, &kj_hi);
+  // start the copy of key tile kj into buffer (kj - kj_lo) % 2
+  auto prefetch = [&](int kj) {
+    const int buf = (kj - kj_lo) & 1, k0 = kj * kBK;
+    load_tile_async<D, kBK>(kb, a.ks.s, k0, a.s, Ks + buf * kBK * LD);
+    load_tile_async<D, kBK>(vb, a.vs.s, k0, a.s, Vs + buf * kBK * LD);
+    if (tid < kBK) {
+      kstate[buf][tid] = key_state(a.mask, b, a.s, k0 + tid);
+      kseg[buf][tid] = segment(a.seg, b, a.s, k0 + tid);
+    }
+    cp_async_commit();
+  };
+  load_tile_async<D, kBQ>(qb, a.qs.s, q0, a.s, Qs);
+  prefetch(kj_lo);
+
+  // this lane's rows g and g + 8 of the warp's 16 queries
+  const int qrow = q0 + warp * 16;
+  const int no_state[2] = {1, 1};
+  int qseg[2];
+  float m[2], l[2], o[NT][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    qseg[r] = segment(a.seg, b, a.s, qrow + g + 8 * r);
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+  }
+#pragma unroll
+  for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[ni][e] = 0.f;
+
+  uint32_t qf[KS][4];
+  for (int kj = kj_lo; kj <= kj_hi; ++kj) {
+    const int buf = (kj - kj_lo) & 1, k0 = kj * kBK;
+    // tile kj has landed, and every warp is done with tile kj - 1, whose
+    // buffer the next copy overwrites
+    cp_async_wait<0>();
+    __syncthreads();
+    if (kj == kj_lo) load_a<KS>(qf, Qs + warp * 16 * LD, LD);
+    if (kj < kj_hi) prefetch(kj + 1);
+
+    float sc[8][4];
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[ni][e] = 0.f;
+    mma_a_bt<8, KS>(sc, qf, Ks + buf * kBK * LD, LD);
+    // A plain pair keeps the raw products in sc (a pair on the causal
+    // diagonal with -inf for the keys after their query): its p is one FMA
+    // (scale log2(e) folded in) and one ex2 per element.  A masked pair
+    // holds the scaled, masked scores, and NEG_INF cancels exactly against
+    // a maximum of NEG_INF.
+    const PairKind kind = pair_kind(q0, k0, a.s, a.causal, a.window, key_masks);
+    const bool plain = kind != kMasked;
+    if (kind == kMasked)
+      mask_fragments<false>(sc, a.scale, qrow, no_state, qseg, k0, kstate[buf], kseg[buf], a.s,
+                            a.causal, a.window);
+    else if (kind == kDiagonal)
+      causal_fragments<false>(sc, qrow, k0);
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float rmax = -INFINITY;
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni) rmax = fmaxf(rmax, fmaxf(sc[ni][2 * r], sc[ni][2 * r + 1]));
+      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 1));
+      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 2));
+      const float m_new = fmaxf(m[r], plain ? rmax * a.scale : rmax);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;  // no key reached yet
+      const float alpha = __expf(m[r] - m_use);
+      float rsum = 0.f;
+      if (plain) {
+        const float c2 = a.scale * kLog2e, m2 = m_use * kLog2e;
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+          for (int e = 2 * r; e < 2 * r + 2; ++e) {
+            sc[ni][e] = fast_exp2(fmaf(sc[ni][e], c2, -m2));
+            rsum += sc[ni][e];
+          }
+      } else {
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+          for (int e = 2 * r; e < 2 * r + 2; ++e) {
+            sc[ni][e] = __expf(sc[ni][e] - m_use);
+            rsum += sc[ni][e];
+          }
+      }
+      rsum += __shfl_xor_sync(0xffffffffu, rsum, 1);
+      rsum += __shfl_xor_sync(0xffffffffu, rsum, 2);
+      l[r] = l[r] * alpha + rsum;
+      m[r] = m_new;
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni) {
+        o[ni][2 * r] *= alpha;
+        o[ni][2 * r + 1] *= alpha;
+      }
+    }
+
+    // p, rounded to bf16, is the A operand of P.V straight from registers
+    uint32_t pf[4][4];
+    pack_a<8>(pf, sc);
+    mma_a_b<NT, 4>(o, pf, Vs + buf * kBK * LD, LD);
+  }
+
+  bf16_t* ob = static_cast<bf16_t*>(a.o);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = qrow + g + 8 * r;
+    if (qp >= a.s) continue;
+    bf16_t* orow =
+        ob + (static_cast<long long>(b) * a.s + qp) * a.h * D + static_cast<long long>(h) * D;
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+      *reinterpret_cast<uint32_t*>(orow + ni * 8 + 2 * t) =
+          pack_bf16(o[ni][2 * r] / l[r], o[ni][2 * r + 1] / l[r]);
+    if (t == 0) a.lse[(static_cast<long long>(b) * a.h + h) * a.s + qp] = m[r] + logf(l[r]);
+  }
+}
+
+template <int D>
+cudaError_t launch_mma(const FwdArgs& a, cudaStream_t stream) {
+  const int smem = fwd_mma_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_mma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.s + kBQ - 1) / kBQ, a.h, a.b);
+  flash_fwd_mma_kernel<D><<<grid, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" const char* dtf_error_string(int err) {
@@ -207,8 +386,9 @@ extern "C" const char* dtf_error_string(int err) {
 // its (batch, seq, head) strides in `strides` (9 values, in elements) and
 // a contiguous head dim; o (B, S, H, D) contiguous in q's type; lse
 // (B, H, S) fp32; mask (B, S) bytes and seg (B, S) int32, each may be
-// null.  window <= 0 means none.  D is 32 or 64.  Returns the CUDA error
-// of the launch (0 on success).
+// null.  window <= 0 means none.  D is 32 or 64.  bf16 runs on the tensor
+// cores, fp32 on the CUDA cores.  Returns the CUDA error of the launch (0
+// on success).
 extern "C" int dtf_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                              const void* mask, const void* seg, const long long* strides,
                              int b, int h, int hkv, int s, int d, int causal, int window,
@@ -222,9 +402,8 @@ extern "C" int dtf_flash_fwd(const void* q, const void* k, const void* v, void* 
             {strides[6], strides[7], strides[8]},
             b, h, hkv, s, causal, window, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  using bf = __nv_bfloat16;
-  if (d == 64) err = bf16 ? launch<bf, 64>(a, st) : launch<float, 64>(a, st);
-  else if (d == 32) err = bf16 ? launch<bf, 32>(a, st) : launch<float, 32>(a, st);
+  if (d == 64) err = bf16 ? launch_mma<64>(a, st) : launch<float, 64>(a, st);
+  else if (d == 32) err = bf16 ? launch_mma<32>(a, st) : launch<float, 32>(a, st);
   else err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }

@@ -18,9 +18,10 @@
 // positions are summed with FMAs on the CUDA cores, so the epilogues are
 // shared.
 //
-// bf16 fragments come from shared memory by ldmatrix.  Shared-memory
-// rows are padded by 16 bytes, which puts the 8 rows that one ldmatrix
-// phase (or one fp32 fragment load) touches on distinct banks.
+// bf16 fragments come from shared memory by ldmatrix (mma_common.cuh).
+// Shared-memory rows are padded by 16 bytes, which puts the 8 rows that
+// one ldmatrix phase (or one fp32 fragment load) touches on distinct
+// banks.
 
 #pragma once
 
@@ -28,7 +29,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_common.cuh"
+
 namespace xent {
+
+using namespace mma;  // cp.async, ldmatrix and mma.sync (shared with the flash kernels)
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -48,23 +53,6 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory, asynchronously; zeros where
-// !valid (src is then not read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-// Wait until at most N committed groups of this thread are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Start copying rows [row0, row0 + R) and columns [col0, col0 + C) of
 // the row-major (nrows, ld) matrix g into shared memory (row stride
 // sld), rows at or past nrows as zeros.  16-byte pieces: ld and col0 are
@@ -80,26 +68,6 @@ __device__ __forceinline__ void load_rows(const T* g, int ld, int row0, int nrow
     const T* src = valid ? g + static_cast<long long>(row0 + r) * ld + col0 + c : g;
     cp_async16(s + r * sld + c, src, valid);
   }
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // acc[MT][NT] += A . B over K columns, A (16 MT rows, K) row-major in

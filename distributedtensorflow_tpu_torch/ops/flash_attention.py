@@ -12,7 +12,11 @@ A CUDA tensor goes to the hand-written kernels: ``csrc/flash_fwd.cu``
 (the port of ``_fwd_kernel``/``_fwd_kernel_1k``, ``:333``/``:396``),
 ``csrc/flash_bwd_fused.cu`` (the single-sweep ``_bwd_fused_kernel``,
 ``:586``) and ``csrc/flash_bwd.cu`` (the split pair ``_bwd_dq_kernel``/
-``_bwd_dkv_kernel``, ``:671``/``:724``).  :func:`flash_backward` picks
+``_bwd_dkv_kernel``, ``:671``/``:724``).  In bf16 the forward and the
+single sweep run every product on the tensor cores (``mma.sync`` on bf16
+tiles that ``cp.async`` brings to shared memory); in fp32, and the split
+pair in both types, the products are FMAs on the CUDA cores
+(:func:`kernel_variant`).  :func:`flash_backward` picks
 between the two backwards as ``_flash_backward_pallas_bhsd`` does
 (``:859``): the single sweep while ``S * D * 4`` fits
 :data:`FUSED_BWD_DQ_SCRATCH_BYTES`, the split pair beyond it or under
@@ -64,6 +68,10 @@ FUSED_BWD_DQ_SCRATCH_BYTES = 2 * 2**20
 #: Query and key rows of a kernel tile (``kBQ``/``kBK`` in
 #: ``csrc/flash_common.cuh``).
 _TILE = 64
+#: The kernels' launch-count keys, and those of them with a tensor-core
+#: version for bf16.
+_KERNELS = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")
+_MMA_KERNELS = ("flash_fwd", "flash_bwd_fused")
 
 _FWD_SIGNATURES = {"dtf_flash_fwd": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                    + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]}
@@ -76,6 +84,21 @@ _BWD_SIGNATURES = {
     "dtf_flash_bwd_dkv": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
     + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p],
 }
+
+
+def kernel_variant(dtype, kernel="flash_fwd") -> str:
+    """Which version of ``kernel`` (a launch-count key) runs for operands
+    of ``dtype``: "mma" (bf16 tiles, every product on the tensor cores:
+    the forward and the single-sweep backward in bf16) or "fma" (fp32
+    products on the CUDA cores: every kernel in fp32, since the tensor
+    cores have no full-precision fp32 product, and the split pair in
+    bf16 too).  Another dtype raises, as the kernels do."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"flash kernels take fp32/bf16, got {dtype}")
+    if kernel not in _KERNELS:
+        raise ValueError(f"unknown flash kernel {kernel!r}")
+    return "mma" if dtype == torch.bfloat16 and kernel in _MMA_KERNELS \
+        else "fma"
 
 
 def _gqa_ok(qshape, kshape) -> bool:
@@ -377,7 +400,10 @@ def flash_forward_cuda(q, k, v, mask=None, segment_ids=None, causal=False,
     The port of ``_fwd_kernel``/``_fwd_kernel_1k``
     (``distributedtensorflow_tpu/ops/flash_attention.py:333``/``:396``).
     Bound on the H100 by operations: ``4 * B * H * S^2 * D`` flops (half
-    under the causal mask) over 989 TFLOP/s in bf16."""
+    under the causal mask) over 989 TFLOP/s in bf16.  bf16: Q.K^T and P.V
+    on the tensor cores, Q as register fragments, K and V tiles
+    double-buffered by ``cp.async``, P from registers; fp32: FMAs on the
+    CUDA cores (:func:`kernel_variant`)."""
     _check_kernel_shapes(q, k, v, "flash forward")
     q, k, v = (_kernel_operand(t, q.dtype, q.device) for t in (q, k, v))
     m, seg = _kernel_masks(q, mask, segment_ids)
@@ -426,8 +452,12 @@ def flash_bwd_fused_cuda(q, k, v, do, lse, delta, mask=None,
     The port of ``_bwd_fused_kernel``
     (``distributedtensorflow_tpu/ops/flash_attention.py:586``).  Bound by
     operations: five products (s, dp, dv, dk, dq) of ``2 * B * H * S^2 *
-    D`` flops, half under the causal mask.  Scratch: an fp32 (B, H, S, D)
-    sum of dq and one int counter per (B, H, query tile), plus a ticket."""
+    D`` flops, half under the causal mask.  Scratch: an fp32 sum of dq,
+    (B, H, S rounded up to whole tiles, D), and one int counter per (B, H,
+    query tile), plus a ticket.
+    bf16: all five products on the tensor cores, two blocks per SM; fp32:
+    FMAs on the CUDA cores (:func:`kernel_variant`).  Bit-identical on a
+    rerun in both."""
     q, k, v, do, lse, delta, m, seg, strides = _bwd_operands(
         q, k, v, do, lse, delta, mask, segment_ids, "flash fused backward")
     b, s, h, d = q.shape
@@ -435,8 +465,10 @@ def flash_bwd_fused_cuda(q, k, v, do, lse, delta, mask=None,
     dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, s, hkv, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, s, hkv, d), dtype=v.dtype, device=q.device)
-    dq_acc = torch.empty((b, h, s, d), dtype=torch.float32, device=q.device)
-    counters = torch.empty(1 + b * h * -(-s // _TILE), dtype=torch.int32,
+    tiles = -(-s // _TILE)
+    dq_acc = torch.empty((b, h, tiles * _TILE, d), dtype=torch.float32,
+                         device=q.device)
+    counters = torch.empty(1 + b * h * tiles, dtype=torch.int32,
                            device=q.device)
     lib = _cuda.load("flash_bwd_fused", _FUSED_SIGNATURES)
     err = lib.dtf_flash_bwd_fused(

@@ -49,20 +49,20 @@ VARIANTS = {
 }
 
 
-def _inputs(case, seed=0, dtype=np.float32):
+def _inputs(case, seed=0, dtype=np.float32, seq=S):
     spec = CASES[case]
     rng = np.random.default_rng(seed)
     hkv = spec.get("hkv", H)
-    q = rng.standard_normal((B, S, H, D)).astype(dtype)
-    k = rng.standard_normal((B, S, hkv, D)).astype(dtype)
-    v = rng.standard_normal((B, S, hkv, D)).astype(dtype)
-    do = rng.standard_normal((B, S, H, D)).astype(dtype)
+    q = rng.standard_normal((B, seq, H, D)).astype(dtype)
+    k = rng.standard_normal((B, seq, hkv, D)).astype(dtype)
+    v = rng.standard_normal((B, seq, hkv, D)).astype(dtype)
+    do = rng.standard_normal((B, seq, H, D)).astype(dtype)
     mask = seg = None
     if spec.get("padding"):
-        lens = np.array([S, 37])
-        mask = np.arange(S)[None, :] < lens[:, None]
+        lens = np.array([seq, 37 * seq // S])
+        mask = np.arange(seq)[None, :] < lens[:, None]
     if spec.get("segments"):
-        seg = np.cumsum(rng.random((B, S)) < 0.08, axis=1).astype(np.int32)
+        seg = np.cumsum(rng.random((B, seq)) < 0.08, axis=1).astype(np.int32)
     kw = dict(causal=spec["causal"], window=spec.get("window"))
     return (q, k, v, do), mask, seg, kw
 
@@ -106,10 +106,10 @@ def test_forward_and_grads_match_jax(case, variant):
         np.testing.assert_allclose(a, r, rtol=0, atol=tol, err_msg=name)
 
 
-def _twin_args(case, seed, dtype=torch.float32):
+def _twin_args(case, seed, dtype=torch.float32, seq=S):
     """The backward's inputs: q, k, v, dO and the forward's lse and delta
     = rowsum(dO * O), with the case's masks."""
-    arrs, mask, seg, kw = _inputs(case, seed=seed)
+    arrs, mask, seg, kw = _inputs(case, seed=seed, seq=seq)
     q, k, v, do = (torch.from_numpy(a).to(dtype) for a in arrs)
     tmask = None if mask is None else torch.from_numpy(mask)
     tseg = None if seg is None else torch.from_numpy(seg)
@@ -143,6 +143,152 @@ def test_fused_twin_bf16_equals_split_twins(case):
     for name, a, b in zip(("dq", "dk", "dv"), fused, split):
         assert a.dtype == torch.bfloat16, name
         assert torch.equal(a, b), name
+
+
+# The tensor-core kernels (csrc/flash_fwd.cu and csrc/flash_bwd_fused.cu in
+# bf16) in PyTorch, tile by tile: the order of their sums and their rounding
+# points.  The CUDA kernels run only on the card; this pins what they follow.
+
+#: Three key tiles of the kernels' size.
+TILED_SEQ = 3 * fa._TILE
+
+
+def _tiled_forward(q, k, v, mask, seg, causal, window, tile=fa._TILE):
+    """K2: key tiles of ``tile`` rows in ascending order, the running max
+    and sum in fp32, p rounded to V's dtype tile by tile before P.V, l
+    summing the unrounded p, the output rescaled by exp(m_old - m_new);
+    o = acc / l once, lse = m + log(l)."""
+    b, s, h, d = q.shape
+    sc = fa._scores(q, k, mask, seg, causal, window)
+    vf = fa._repeat_kv(v, h // v.shape[2]).float()
+    m = torch.full((b, h, s, 1), float("-inf"))
+    l = torch.zeros((b, h, s, 1))
+    acc = torch.zeros((b, h, s, d))
+    for k0 in range(0, s, tile):
+        st = sc[..., k0:k0 + tile]
+        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
+        # no key reached yet: the kernel subtracts 0 and gets p = 0
+        m_use = torch.where(torch.isinf(m_new), torch.zeros_like(m_new), m_new)
+        alpha = torch.exp(m - m_use)
+        p = torch.exp(st - m_use)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum(
+            "bhqk,bkhd->bhqd", p.to(v.dtype).float(), vf[:, k0:k0 + tile])
+        m = m_new
+    return (acc / l).transpose(1, 2).to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def _tiled_bwd_fused(q, k, v, do, lse, delta, mask, seg, causal, window,
+                     tile=fa._TILE):
+    """K3f: p rounded to dO's dtype for dv, ds rounded once to q's dtype
+    for dk and dq; a key tile's dk and dv sum the query tiles in ascending
+    order for each query head of its GQA group in turn, in fp32, and round
+    once; dq sums the key tiles' partials in ascending order in fp32 and
+    rounds once."""
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    group = h // hkv
+    p, ds = fa._plain_grads(q, k, v, do, lse, delta, mask, seg, causal,
+                            window)
+    pr = p.to(do.dtype).float()
+    kf = fa._repeat_kv(k.float(), group)
+    dq = torch.zeros((b, s, h, d))
+    for k0 in range(0, s, tile):
+        dq = dq + torch.einsum("bhqk,bkhd->bqhd", ds[..., k0:k0 + tile],
+                               kf[:, k0:k0 + tile])
+    dk = torch.zeros((b, s, hkv, d))
+    dv = torch.zeros((b, s, hkv, d))
+    for hg in range(group):
+        heads = slice(hg, None, group)  # head hk * group + hg of each kv head
+        for q0 in range(0, s, tile):
+            rows = slice(q0, q0 + tile)
+            dv = dv + torch.einsum("bhqk,bqhd->bkhd", pr[:, heads, rows],
+                                   do[:, rows, heads].float())
+            dk = dk + torch.einsum("bhqk,bqhd->bkhd", ds[:, heads, rows],
+                                   q[:, rows, heads].float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _tiled_run(case, seed, dtype):
+    _, args = _twin_args(case, seed=seed, dtype=dtype, seq=TILED_SEQ)
+    q, k, v, do, lse, delta, *masks = args
+    o, tlse = _tiled_forward(q, k, v, *masks)
+    tdelta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    grads = _tiled_bwd_fused(q, k, v, do, tlse, tdelta, *masks)
+    return args, (o, tlse, *grads)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_tiled_kernels_match_plain_twins(case, dtype):
+    """The tile-by-tile order of the tensor-core kernels against the plain
+    twins (one pass over the whole row), at the tolerances the card's
+    check holds the kernels to in bf16 (o atol 2e-2, lse atol 1e-3,
+    gradients 1e-2 of their max) and 1e-5 in fp32, where only the order of
+    the fp32 sums differs."""
+    args, (o, lse, dq, dk, dv) = _tiled_run(case, 15, dtype)
+    q, k, v, do, rlse, rdelta, *masks = args
+    ro = fa.flash_forward(q, k, v, mask=masks[0], segment_ids=masks[1],
+                          causal=masks[2], window=masks[3])[0]
+    rdq, rdk, rdv = fa._plain_flash_bwd_fused(*args)
+    bf16 = dtype == torch.bfloat16
+    assert o.dtype == dq.dtype == dk.dtype == dv.dtype == dtype
+    assert (o.float() - ro.float()).abs().max() <= (2e-2 if bf16 else 1e-5)
+    assert (lse - rlse).abs().max() <= (1e-3 if bf16 else 1e-5)
+    for name, a, r in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
+        err = (a.float() - r.float()).abs().max()
+        tol = 1e-2 * r.float().abs().max() if bf16 else 1e-5
+        assert err <= tol, (name, err)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_tiled_kernels_match_jax(case):
+    """The same tile-by-tile order against the JAX kernels in interpret
+    mode with blocks of the kernels' tile size (the online forward, the
+    single-sweep backward), fp32, at this file's tolerances."""
+    arrs, mask, seg, kw = _inputs(case, seed=15, seq=TILED_SEQ)
+    ref = _jax_run(arrs, mask, seg, kw, block_q=fa._TILE, block_k=fa._TILE,
+                   impl="pallas")
+    _, (o, _, dq, dk, dv) = _tiled_run(case, 15, torch.float32)
+    for name, a, r, tol in zip(("o", "dq", "dk", "dv"), (o, dq, dk, dv), ref,
+                               (2e-5, 5e-5, 5e-5, 5e-5)):
+        np.testing.assert_allclose(a.numpy(), r, rtol=0, atol=tol,
+                                   err_msg=name)
+
+
+def test_tiled_dq_is_rounded_once():
+    """In bf16 the dq partials of the key tiles stay fp32 until the last
+    one: rounding each partial would differ from the kernel's sum."""
+    args, (_, _, dq, _, _) = _tiled_run("causal", 16, torch.bfloat16)
+    q, k, v, do, lse, delta, *masks = args
+    _, ds = fa._plain_grads(*args)
+    kf = k.float()
+    each = sum(torch.einsum("bhqk,bkhd->bqhd", ds[..., k0:k0 + fa._TILE],
+                            kf[:, k0:k0 + fa._TILE]).to(torch.bfloat16).float()
+               for k0 in range(0, TILED_SEQ, fa._TILE))
+    assert not torch.equal(dq.float(), each.to(torch.bfloat16).float())
+    once = fa._plain_flash_bwd_dq(*args)
+    assert (dq.float() - once.float()).abs().max() \
+        <= 2.0**-7 * once.float().abs().max()
+
+
+def test_kernel_variant_by_dtype():
+    """bf16 takes the tensor-core version of the forward and the single
+    sweep ("mma"), fp32 the CUDA-core one ("fma"), as does the split pair
+    in both; anything else raises."""
+    for kernel in ("flash_fwd", "flash_bwd_fused"):
+        assert fa.kernel_variant(torch.bfloat16, kernel) == "mma"
+        assert fa.kernel_variant(torch.float32, kernel) == "fma"
+    assert fa.kernel_variant(torch.bfloat16) == "mma"
+    for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert fa.kernel_variant(torch.bfloat16, kernel) == "fma"
+        assert fa.kernel_variant(torch.float32, kernel) == "fma"
+    for dtype in (torch.float16, torch.float64, torch.int32):
+        with pytest.raises(TypeError, match="fp32/bf16"):
+            fa.kernel_variant(dtype)
+    with pytest.raises(ValueError, match="unknown flash kernel"):
+        fa.kernel_variant(torch.bfloat16, "decode_attention")
 
 
 def test_fused_backward_threshold_is_jaxs():
