@@ -29,7 +29,11 @@ Phases, each fatal on failure:
    ragged token count, the same way;
 5. serving: the paged continuous-batching ``Engine`` at full
    GPT-2-small width (bf16, seeded random weights) answers six requests;
-6. dense generate: ``generate`` at full width, batch 4;
+6. dense generate: ``generate`` at full width, batch 4 (K5 launched
+   once a layer and one-token step); generate_gqa: gpt_small with one kv
+   head, batch 2, a 6000-token prompt in a cache of 8192, 16 greedy
+   tokens under ``DECODE_IMPL`` "auto" (K5) and "xla" (einsum path):
+   the same tokens, the next logits within 1e-2;
 7. profile: torch.profiler over a serving and a generate window (wall
    time, device-busy time, the kernels that take it);
 8. consistency (fp32, full width): the engine's greedy tokens equal
@@ -65,8 +69,8 @@ Phases, each fatal on failure:
     B=2, S=2048): the loss through the flash kernels agrees with the loss
     through the plain attention, both on the card.
 
-Kernel launch counts are set to 0 just before phases 5, 6 and 9-11 (each
-path) and read just after; a kernel of the path that did not launch, or
+Kernel launch counts are set to 0 just before phases 5, 6 (each
+generate run) and 9-11 (each path) and read just after; a kernel of the path that did not launch, or
 a gpt_lm or gpt_moe training step that launched a kernel another number
 of times than its forward, recomputation and backward need, fails the
 run.  The
@@ -197,15 +201,26 @@ def check_layernorm(torch, F, ln):
 
 
 def check_decode_attention(torch, F, attn):
+    """K5 against its plain twin: the serving shapes (gpt_small's generate:
+    B 4, H 12, S 2048, D 64) with GQA, a window, a partial band and fp32;
+    the groups and bands the first version refused: 12 query heads over 1
+    kv head, 16 over 2 at 8192 positions, and 65536 positions at B 1.
+    Each case runs three times for bit-identical outputs and names the
+    plan (splits of the band) it ran."""
     rows = []
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    b, h, s, d = 4, 12, 2048, 64
-    cases = [("mha", torch.bfloat16, 12, 0, s),
-             ("gqa", torch.bfloat16, 4, 0, s),
-             ("window", torch.bfloat16, 12, s - 512, s),
-             ("partial", torch.bfloat16, 4, 0, 1000),
-             ("mha_fp32", torch.float32, 12, 0, s)]
-    for name, dtype, h_kv, lo, hi in cases:
+    bf16, fp32 = torch.bfloat16, torch.float32
+    d = 64
+    # name, dtype, (B, H, Hkv, S), band
+    cases = [("mha", bf16, (4, 12, 12, 2048), (0, 2048)),
+             ("gqa", bf16, (4, 12, 4, 2048), (0, 2048)),
+             ("window", bf16, (4, 12, 12, 2048), (2048 - 512, 2048)),
+             ("partial", bf16, (4, 12, 4, 2048), (0, 1000)),
+             ("mha_fp32", fp32, (4, 12, 12, 2048), (0, 2048)),
+             ("gqa12", bf16, (4, 12, 1, 2048), (0, 2048)),
+             ("gqa8_long", bf16, (4, 16, 2, 8192), (0, 8192)),
+             ("long_mha", bf16, (1, 12, 12, 65536), (0, 65536))]
+    for name, dtype, (b, h, h_kv, s), (lo, hi) in cases:
         q = torch.randn(b, 1, h, d, device="cuda", generator=g).to(dtype)
         kv_bytes = 2 * b * h_kv * s * d * q.element_size()
         copies = max(1, -(-3 * L2_BYTES // kv_bytes))
@@ -215,10 +230,18 @@ def check_decode_attention(torch, F, attn):
             v = torch.randn(b, h_kv, s, d, device="cuda", generator=g).to(dtype)
             sets.append((q, k, v, lo, hi))
         got = attn.decode_attention_cuda(*sets[0])
+        again = [attn.decode_attention_cuda(*sets[0]) for _ in range(2)]
         ref = attn._plain_decode_attention(*sets[0])
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max().item()
-        tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+        # relative to the case's largest output: over n positions an output
+        # value is about sqrt(e / n) here, so a fixed atol would pass a
+        # dropped or misweighted split (or zeros) at 65536 positions; 2**-6
+        # of the largest output (two to four bf16 ulps of it) fails them at
+        # every length
+        rel = _rel_err(got, ref)
+        deterministic = all(torch.equal(got, x) for x in again)
+        tol = 2.0**-6 if dtype == bf16 else 1e-5
         mask = torch.zeros(1, 1, 1, s, dtype=torch.bool, device="cuda")
         mask[..., lo:hi] = True
 
@@ -227,14 +250,21 @@ def check_decode_attention(torch, F, attn):
                 q.transpose(1, 2), k, v, attn_mask=mask, enable_gqa=gqa)
 
         n = hi - lo
+        splits, chunk = attn.decode_plan(
+            b, h, h_kv, d, lo, hi,
+            torch.cuda.get_device_properties(0).multi_processor_count)
         nbytes = 2 * b * h * d * q.element_size() \
             + 2 * b * h_kv * n * d * q.element_size()
         bms, by = bound_ms(nbytes, 4 * b * h * n * d + 5 * b * h * n, dtype)
         row = {
             "kernel": "decode_attention", "case": name, "b": b, "h": h,
             "h_kv": h_kv, "s": s, "d": d, "lo": lo, "hi": hi,
-            "dtype": str(dtype)[6:], "max_abs_err": err,
-            "tolerance": f"atol {tol}",
+            "dtype": str(dtype)[6:], "splits": splits, "chunk": chunk,
+            "blocks": b * h_kv * splits, "max_abs_err": err,
+            "rel_err": rel, "max_abs_ref": ref.float().abs().max().item(),
+            "deterministic": deterministic,
+            "tolerance": f"max|got - ref| / max|ref| <= {tol}; "
+                         "bit-identical on two reruns",
             "ms": time_ms(torch, attn.decode_attention_cuda, sets),
             "eager_ms": time_ms(torch, attn.decode_attention_cuda, sets,
                                 graph=False),
@@ -243,9 +273,11 @@ def check_decode_attention(torch, F, attn):
             "bound_ms": bms, "bound_by": by,
         }
         emit(row)
-        if not err <= tol:
+        if not (rel <= tol and deterministic):
             raise AssertionError(f"decode attention kernel disagrees: {row}")
         rows.append(row)
+        del sets, got, again, ref
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -401,6 +433,9 @@ def check_flash(torch, F, fa):
         del fused_again
         twins_agree = all(torch.equal(a, c) for a, c in
                           zip(rfused, (rdq, rdk, rdv)))
+        # in bf16 the pair's dk/dv kernel and K3f run one dk/dv sweep
+        # (flash_common.cuh): the same bits, by construction
+        same_dkv = torch.equal(dk, fused[1]) and torch.equal(dv, fused[2])
         o_tol, g_tol = (2e-2, 1e-2) if dtype == bf16 else (2e-5, 1e-4)
         errs = {"o": (o.float() - ro.float()).abs().max().item(),
                 "lse": (lse - rlse).abs().max().item(),
@@ -414,7 +449,7 @@ def check_flash(torch, F, fa):
         oks = {"flash_fwd": errs["o"] <= o_tol and errs["lse"] <= 1e-3,
                "flash_bwd_dq": errs["dq"] <= g_tol and deterministic,
                "flash_bwd_dkv": max(errs["dk"], errs["dv"]) <= g_tol
-               and deterministic,
+               and deterministic and (same_dkv or dtype != bf16),
                "flash_bwd_fused": max(fused_errs.values()) <= g_tol
                and fused_deterministic and twins_agree}
         keep = _keep(torch, s, causal, window, mask, seg)
@@ -474,9 +509,10 @@ def check_flash(torch, F, fa):
              [bargs], 8 * d * pairs,
              2 * qbytes + 4 * kvbytes + 2 * rows_bytes, lib_bwd_ms,
              {"dk_rel_err": errs["dk"], "dv_rel_err": errs["dv"],
-              "deterministic": deterministic,
+              "deterministic": deterministic, "equals_k3f_dkv": same_dkv,
               "tolerance": f"{g_tol} of max|dk|, max|dv|; bit-identical "
-                           "on a rerun"},
+                           "on a rerun" + ("; equal to K3f's dk, dv in bf16"
+                                           if dtype == bf16 else "")},
              max((dk.float() - rdk.float()).abs().max().item(),
                  (dv.float() - rdv.float()).abs().max().item())),
             ("flash_bwd_fused", fa.flash_bwd_fused_cuda,
@@ -542,6 +578,79 @@ def run_short_seq(torch, fa, attn):
               "min_seq_for_pallas": fa.MIN_SEQ_FOR_PALLAS,
               "flash_fwd_bwd_ms": time_ms(torch, flash, [()], **it),
               "xla_attention_fwd_bwd_ms": time_ms(torch, plain, [()], **it)})
+
+
+def run_backward_lengths(torch, F, fa):
+    """The split pair (dq plus dk/dv) beside the single sweep K3f and
+    SDPA's eager backward at gpt_lm's attention (B 8, S 2048),
+    lm_long_context's (B 2, S 8192) and B 1 at S 16384, where S * D * 4
+    passes K3f's 2 MiB threshold and JAX takes the pair (H 12, D 64,
+    causal, bf16): the numbers the threshold decision waits for.  The
+    plain twins' (B, H, S, S) tiles do not fit the card at S 16384, so the
+    pair is held against K3f here (1e-2 of max, as both are held against
+    the twins at the shorter lengths) and run twice for bit-identical
+    outputs."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    rows = []
+    for b, s in ((8, 2048), (2, 8192), (1, 16384)):
+        h, d = 12, 64
+        q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=g)
+                       .to(torch.bfloat16) for _ in range(4))
+        o, lse = fa.flash_forward_cuda(q, k, v, None, None, True, None)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        bargs = (q, k, v, do, lse, delta, None, None, True, None)
+
+        def pair(*a):
+            return (fa.flash_bwd_dq_cuda(*a),) + fa.flash_bwd_dkv_cuda(*a)
+
+        split = pair(*bargs)
+        split2 = pair(*bargs)
+        fused = fa.flash_bwd_fused_cuda(*bargs)
+        torch.cuda.synchronize()
+        errs = {f"{n}_vs_k3f_rel_err": _rel_err(a, r)
+                for n, a, r in zip(("dq", "dk", "dv"), split, fused)}
+        deterministic = all(torch.equal(a, c) for a, c in zip(split, split2))
+        del split, split2, fused
+        qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+        qr, kr, vr = (x.detach().clone().requires_grad_(True)
+                      for x in (qt, kt, vt))
+        out_lib = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+
+        def sdpa_bwd(out_lib=out_lib, qr=qr, kr=kr, vr=vr, dot=dot):
+            return torch.autograd.grad(out_lib, (qr, kr, vr), dot,
+                                       retain_graph=True)
+
+        it = dict(iters=3, reps=3) if s > 4096 else dict(iters=10, reps=3)
+        pairs = b * h * s * (s + 1) / 2
+        el = q.element_size()
+        qbytes, rows_bytes = b * s * h * d * el, b * h * s * 4
+        pair_bms, _ = bound_ms(11 * qbytes + 4 * rows_bytes,
+                               14 * d * pairs, torch.bfloat16)
+        fused_bms, _ = bound_ms(7 * qbytes + 2 * rows_bytes, 10 * d * pairs,
+                                torch.bfloat16)
+        row = {"phase": "flash_bwd_lengths", "b": b, "h": h, "s": s, "d": d,
+               "dtype": "bfloat16", "causal": True,
+               "variant": fa.kernel_variant(torch.bfloat16, "flash_bwd_dq"),
+               "uses_fused_backward": fa.uses_fused_backward(s, d),
+               **errs, "deterministic": deterministic,
+               "tolerance": "1e-2 of max|dq|, max|dk|, max|dv| of K3f's; "
+                            "bit-identical on a rerun",
+               "dq_ms": time_ms(torch, fa.flash_bwd_dq_cuda, [bargs], **it),
+               "dkv_ms": time_ms(torch, fa.flash_bwd_dkv_cuda, [bargs], **it),
+               "k3f_ms": time_ms(torch, fa.flash_bwd_fused_cuda, [bargs],
+                                 **it),
+               "sdpa_bwd_eager_ms": time_ms(torch, sdpa_bwd, [()],
+                                            graph=False, **it),
+               "pair_bound_ms": pair_bms, "k3f_bound_ms": fused_bms}
+        row["pair_ms"] = row["dq_ms"] + row["dkv_ms"]
+        emit(row)
+        if not (max(errs.values()) <= 1e-2 and deterministic):
+            raise AssertionError(f"the split pair disagrees with K3f: {row}")
+        rows.append(row)
+        del out_lib, qr, kr, vr, q, k, v, do, o, lse, delta, bargs
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _library_logits(torch, x, w, grad):
@@ -1148,13 +1257,101 @@ def run_generate(torch, cuda, generate, model, vocab):
     if out.shape != (4, 48) or not torch.equal(out[:, :16], prompt) \
             or int(out.min()) < 0 or int(out.max()) >= vocab:
         raise AssertionError(f"generate returned {tuple(out.shape)} {out}")
-    for k in ("layernorm_fwd", "decode_attention"):
-        if not launches.get(k):
-            raise AssertionError(f"generate ran no {k} kernel: {launches}")
+    if not launches.get("layernorm_fwd"):
+        raise AssertionError(f"generate ran no layernorm kernel: {launches}")
+    # one K5 call a layer for each one-token forward: the first prompt
+    # token's prefill and 46 decode steps (the last step's unused forward
+    # is skipped)
+    if launches.get("decode_attention") != model.cfg.num_layers * 47:
+        raise AssertionError(f"generate launched decode attention "
+                             f"{launches.get('decode_attention')} times, "
+                             f"expected {model.cfg.num_layers * 47}")
     emit({"phase": "generate", "batch": 4, "prompt": 16, "new_tokens": 32,
           "wall_s": wall, "ms_per_token_step": 1e3 * wall / 47,
           "tokens_per_s": 4 * 32 / wall, "launches": launches})
     return launches
+
+
+def _last_logits(torch, mods, model, tokens):
+    """fp32 logits (B, V) of the last position of ``tokens`` (B, T): the
+    first T - 1 through prefill chunks of 1024 (the grouped einsum path,
+    whatever ``DECODE_IMPL`` says), the last as a one-token step (the path
+    ``DECODE_IMPL`` names)."""
+    b, t = tokens.shape
+    dev = tokens.device
+    cache = model.init_cache(b)
+    for i in range(0, t - 1, 1024):
+        chunk = tokens[:, i:min(i + 1024, t - 1)]
+        pos = torch.arange(i, i + chunk.shape[1], device=dev).expand(b, -1)
+        _, cache = mods.prefill(model, chunk, pos, cache=cache)
+    logits, _ = mods.decode_step(
+        model, tokens[:, -1:], torch.full((b, 1), t - 1, device=dev), cache)
+    return logits[:, -1].float()
+
+
+def run_generate_gqa(torch, cuda, mods, attn):
+    """Dense ``generate`` on full-width gpt_small with one kv head (12
+    query heads a group, which the first K5 refused), B 2, a 6000-token
+    prompt in a cache of 8192 (past the first K5's shared-memory band),
+    then 16 greedy tokens: once under ``DECODE_IMPL = "auto"`` (K5, one
+    launch per layer and one-token step) and once under ``"xla"`` (the
+    grouped einsum path, no K5).  The greedy tokens must be equal, and the
+    next step's logits after the whole sequence agree within 1e-2 relative
+    in the L2 norm (bf16: the two paths' attention outputs differ by a
+    bf16 rounding here and there, which twelve bf16 layers carry to the
+    logits; the largest single difference is reported beside it)."""
+    cfg = dataclasses.replace(mods.gpt_small(), num_kv_heads=1, max_seq=8192)
+    state = mods.init_params(cfg, torch.Generator().manual_seed(SEED + 12))
+    model = mods.GPTLM(cfg)
+    model.load_state_dict(state)
+    prompt = torch.as_tensor(np.random.default_rng(SEED + 12).integers(
+        0, cfg.vocab_size, (2, 6000)), device=model.device)
+    new_tokens = 16
+    steps = prompt.shape[1] + new_tokens - 1  # one-token forwards
+    out, launches, walls, logits = {}, {}, {}, {}
+    prev = attn.DECODE_IMPL
+    try:
+        for impl in ("auto", "xla"):
+            attn.DECODE_IMPL = impl
+            sync(torch, model.device)
+            cuda.launches.clear()
+            t0 = time.time()
+            out[impl] = mods.generate(model, prompt,
+                                      max_new_tokens=new_tokens)
+            sync(torch, model.device)
+            walls[impl] = time.time() - t0
+            launches[impl] = dict(cuda.launches)
+            logits[impl] = _last_logits(torch, mods, model, out[impl])
+    finally:
+        attn.DECODE_IMPL = prev
+    same = torch.equal(out["auto"], out["xla"])
+    diff = logits["auto"] - logits["xla"]
+    err = (diff.norm() / logits["xla"].norm()).item()
+    want = {"auto": cfg.num_layers * steps, "xla": 0}
+    got = {k: launches[k].get("decode_attention", 0) for k in want}
+    top2 = logits["xla"].topk(2, dim=-1).values
+    row = {"phase": "generate_gqa", "batch": 2, "prompt": 6000,
+           "new_tokens": new_tokens, "max_seq": cfg.max_seq,
+           "num_heads": cfg.num_heads, "kv_heads": cfg.kv_heads,
+           "dtype": str(cfg.dtype)[6:], "same_greedy_tokens": same,
+           "tokens_auto": out["auto"][:, 6000:].tolist(),
+           "tokens_xla": out["xla"][:, 6000:].tolist(),
+           "next_logits_rel_err": err,
+           "next_logits_max_abs_err": diff.abs().max().item(),
+           "next_logits_max_abs": logits["xla"].abs().max().item(),
+           "next_top1_top2_margin": (top2[:, 0] - top2[:, 1]).min().item(),
+           "tolerance": "greedy tokens equal; next-step logits within 1e-2 "
+                        "relative (L2 norm of the difference over the "
+                        "einsum path's)",
+           "decode_attention_launches": got, "expected_launches": want,
+           "wall_s": walls,
+           "ms_per_token_step": {k: 1e3 * w / steps for k, w in walls.items()},
+           "launches": launches}
+    emit(row)
+    if not (same and err <= 1e-2 and got == want):
+        raise AssertionError(f"generate through K5 at 12 query heads a "
+                             f"group differs from the einsum path: {row}")
+    return launches["auto"]
 
 
 def run_profile(torch, Engine, generate, model, vocab):
@@ -1281,6 +1478,7 @@ def main(argv=None) -> int:
         rows["decode_attention"] = check_decode_attention(torch, F, attn)
         rows["layernorm_bwd"] = check_layernorm_bwd(torch, ln)
         rows.update(check_flash(torch, F, fa))
+        run_backward_lengths(torch, F, fa)
         run_short_seq(torch, fa, attn)
     if "xent" in phases:
         rows.update(check_fused_xent(torch, F, fx))
@@ -1297,6 +1495,8 @@ def main(argv=None) -> int:
                                      cfg.vocab_size))
         run_profile(torch, Engine, mods.generate, model, cfg.vocab_size)
         del model
+        torch.cuda.empty_cache()
+        launches.update(run_generate_gqa(torch, _cuda, mods, attn))
         torch.cuda.empty_cache()
         run_consistency(torch, mods, Engine, cfg, state)
 

@@ -12,24 +12,50 @@
 //   ds = p * (dp - delta) * scale,  dq = ds k,  dk = ds^T q,
 // with s the masked, scaled scores of the forward (flash_common.cuh).
 // Rounding points of the TPU kernels: p is rounded to dO's type before
-// the dv product (:637) and ds to q's type before the dq and dk products
-// (:645); sums are fp32.  Under GQA, dk and dv of a kv head sum the
-// query heads of its group in fp32 before one rounding (the JAX path
-// rounds each head's share, then sums).
+// the dv product (:760), ds to q's type before the dk product (:770) and
+// to k's type before the dq product (:712; the port's operands share one
+// type); sums are fp32.  Under GQA, dk and dv of a kv head sum the query
+// heads of its group in fp32 before one rounding (the JAX path rounds
+// each head's share, then sums).
 //
-// What bounds it on the H100: operations.  Five products of
-// 2 * B * H * S^2 * D flops (half under the causal mask) in the fused
-// form; this split form recomputes s and dp in both kernels, seven
-// products in all.  This first version computes in fp32 on the CUDA
-// cores; tensor-core tiles are later work.
+// What bounds it on the H100: operations.  The split form recomputes s
+// and dp in both kernels: dq takes three products (s, dp, dq) and dk/dv
+// four (s, dp, dv, dk) of 2 * B * H * S^2 * D flops each, half under the
+// causal mask, where the single sweep needs five in all.
 //
 // Design: the split pair, deterministic, no atomics.  The dq kernel runs
-// one block per (query tile, head, batch) and loops over the key tiles
-// of the band; the dk/dv kernel runs one block per (key tile, kv head,
-// batch) and loops over the query tiles of the band of every query head
-// of its group, so the GQA sum needs no atomics either.  Tiles and
-// thread patches as in flash_fwd.cu; the ds and p tiles go through
-// shared memory to the products that contract over their other axis.
+// one block per (query tile, head, batch), heaviest causal tiles first,
+// and loops over the key tiles of the band; the dk/dv kernel runs one
+// block per (key tile, kv head, batch) and loops over the query tiles of
+// the band of every query head of its group, so the GQA sum needs no
+// atomics either.
+//
+// bf16 (flash_bwd_dq_mma_kernel, flash_bwd_dkv_mma_kernel): every product
+// runs on the tensor cores (mma.sync.m16n8k16, bf16 in, fp32 sums), from
+// the tile code of the forward and of K3f (mma_common.cuh and the bf16
+// half of flash_common.cuh).  Both keep their own tile in registers as A
+// fragments for the whole sweep and stream the other side's tiles two
+// buffers deep by cp.async; the tile they keep is staged through the
+// second buffer before its first use, so a block needs 36 KB of shared
+// memory at D 64.
+// - dq: each of the four warps owns 16 query rows; Q and dO are its A
+//   fragments.  S = Q.K^T and dP = dO.V^T have the queries as rows, the
+//   forward's layout, so the masks are the forward's (mask_fragments with
+//   key columns, the causal one alone on the diagonal).  p and ds are
+//   formed on the accumulator fragments with the row's LSE and delta kept
+//   in registers; ds rounded to bf16 is the A fragment of dq += dS.K, with
+//   K read by ldmatrix.trans.  dq never leaves registers until the end.
+// - dk/dv: K3f's kernel without its dq partial, turn and ticket: the same
+//   dk/dv sweep (flash_common.cuh, dkv_pair), so its dk and dv equal
+//   K3f's bit for bit.  Each warp owns 16 keys, K and V are its A
+//   fragments, and the scores are computed transposed (S^T = K.Q^T, dP^T =
+//   V.dO^T, keys as rows); P^T and dS^T rounded to bf16 are the A
+//   fragments of dv += P^T.dO and dk += dS^T.Q straight from registers,
+//   with dO and Q read by ldmatrix.trans.
+// fp32 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel): FMAs on the CUDA cores
+// (the tensor cores have no full-precision fp32 product); tiles and thread
+// patches as in flash_fwd.cu, the ds and p tiles going through shared
+// memory to the products that contract over their other axis.
 
 #include "flash_common.cuh"
 
@@ -315,26 +341,230 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const BwdArgs a
   }
 }
 
-template <typename T, int D>
-cudaError_t launch_dq(const BwdArgs& a, cudaStream_t stream) {
-  const int smem = dq_smem_floats<D>() * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// ---------------------------------------------------------------------
+// bf16 on the tensor cores
+
+template <int D>
+constexpr int bwd_mma_smem_bytes() {
+  return 4 * kBQ * tile_ld<D>() * static_cast<int>(sizeof(bf16_t));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 3) flash_bwd_dq_mma_kernel(const BwdArgs a) {
+  using namespace mma;
+  constexpr int LD = tile_ld<D>(), KS = D / 16, NT = D / 8;
+  static_assert(kBQ == kBK, "Q and dO are staged in the key tiles' second buffers");
+  extern __shared__ float4 smem4[];
+  bf16_t* Ks = reinterpret_cast<bf16_t*>(smem4);  // [2][kBK][LD]; Q at first in buffer 1
+  bf16_t* Vs = Ks + 2 * kBK * LD;                  // [2][kBK][LD]; dO at first in buffer 1
+  __shared__ int kstate[2][kBK];
+  __shared__ int kseg[2][kBK];
+
+  const int nq = (a.s + kBQ - 1) / kBQ;
+  const int qi = nq - 1 - static_cast<int>(blockIdx.x);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (a.h / a.hkv);
+  const int q0 = qi * kBQ;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const bf16_t* qb = static_cast<const bf16_t*>(a.q) + b * a.qs.b + h * a.qs.h;
+  const bf16_t* gb = static_cast<const bf16_t*>(a.g) + b * a.gs.b + h * a.gs.h;
+  const bf16_t* kb = static_cast<const bf16_t*>(a.k) + b * a.ks.b + hk * a.ks.h;
+  const bf16_t* vb = static_cast<const bf16_t*>(a.v) + b * a.vs.b + hk * a.vs.h;
+  const bool key_masks = a.mask != nullptr || a.seg != nullptr;
+
+  int kj_lo, kj_hi;
+  key_band(q0, a.s, a.causal, a.window, &kj_lo, &kj_hi);
+  // start the copy of key tile kj into buffer (kj - kj_lo) % 2
+  auto prefetch = [&](int kj) {
+    const int buf = (kj - kj_lo) & 1, k0 = kj * kBK;
+    load_tile_async<D, kBK>(kb, a.ks.s, k0, a.s, Ks + buf * kBK * LD);
+    load_tile_async<D, kBK>(vb, a.vs.s, k0, a.s, Vs + buf * kBK * LD);
+    if (tid < kBK) {
+      kstate[buf][tid] = key_state(a.mask, b, a.s, k0 + tid);
+      kseg[buf][tid] = segment(a.seg, b, a.s, k0 + tid);
+    }
+    cp_async_commit();
+  };
+  load_tile_async<D, kBQ>(qb, a.qs.s, q0, a.s, Ks + kBK * LD);
+  load_tile_async<D, kBQ>(gb, a.gs.s, q0, a.s, Vs + kBK * LD);
+  prefetch(kj_lo);
+
+  // this lane's rows g and g + 8 of the warp's 16 queries: LSE and delta
+  // in registers, scaled by log2(e) for the plain pairs' exp2
+  const int qrow = q0 + warp * 16;
+  const int no_state[2] = {1, 1};
+  const long long row_base = (static_cast<long long>(b) * a.h + h) * a.s;
+  int qseg[2];
+  float lse[2], lse2[2], dl[2], dq[NT][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = qrow + g + 8 * r;
+    const bool in = qp < a.s;
+    qseg[r] = segment(a.seg, b, a.s, qp);
+    lse[r] = in ? a.lse[row_base + qp] : 0.f;
+    lse2[r] = lse[r] * kLog2e;
+    dl[r] = in ? a.delta[row_base + qp] : 0.f;
+  }
+#pragma unroll
+  for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[ni][e] = 0.f;
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[KS][4], gf[KS][4];
+  load_a<KS>(qf, Ks + kBK * LD + warp * 16 * LD, LD);
+  load_a<KS>(gf, Vs + kBK * LD + warp * 16 * LD, LD);
+
+  for (int kj = kj_lo; kj <= kj_hi; ++kj) {
+    const int buf = (kj - kj_lo) & 1, k0 = kj * kBK;
+    // tile kj has landed, and every warp is done with tile kj - 1 (at
+    // first: with Q's and dO's fragments), whose buffer the next copy
+    // overwrites
+    cp_async_wait<0>();
+    __syncthreads();
+    if (kj < kj_hi) prefetch(kj + 1);
+    const bf16_t* Kb = Ks + buf * kBK * LD;
+    const bf16_t* Vb = Vs + buf * kBK * LD;
+
+    // s and dp: rows are this warp's 16 queries, columns the 64 keys
+    float sc[8][4], dp[8][4];
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[ni][e] = dp[ni][e] = 0.f;
+    mma_a_bt<8, KS>(sc, qf, Kb, LD);
+    mma_a_bt<8, KS>(dp, gf, Vb, LD);
+    // the forward's masks (a plain pair keeps the raw products, the
+    // diagonal one with -inf for the keys after their query)
+    const PairKind kind = pair_kind(q0, k0, a.s, a.causal, a.window, key_masks);
+    if (kind == kMasked)
+      mask_fragments<false>(sc, a.scale, qrow, no_state, qseg, k0, kstate[buf], kseg[buf], a.s,
+                            a.causal, a.window);
+    else if (kind == kDiagonal)
+      causal_fragments<false>(sc, qrow, k0);
+    // p into sc
+    if (kind != kMasked) {
+      const float c2 = a.scale * kLog2e;
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[ni][e] = fast_exp2(fmaf(sc[ni][e], c2, -lse2[e >> 1]));
+    } else {
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[ni][e] = __expf(sc[ni][e] - lse[e >> 1]);
+    }
+    // ds into dp, rounded to bf16: the A fragments of dq += dS.K
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[ni][e] = (sc[ni][e] * (dp[ni][e] - dl[e >> 1])) * a.scale;
+    uint32_t sf[4][4];
+    pack_a<8>(sf, dp);
+    mma_a_b<NT, 4>(dq, sf, Kb, LD);
+  }
+
+  bf16_t* dqb = static_cast<bf16_t*>(a.dq);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = qrow + g + 8 * r;
+    if (qp >= a.s) continue;
+    bf16_t* row = dqb + (static_cast<long long>(b) * a.s + qp) * a.h * D +
+                  static_cast<long long>(h) * D + 2 * t;
+#pragma unroll
+    for (int ni = 0; ni < NT; ++ni)
+      *reinterpret_cast<uint32_t*>(row + ni * 8) = pack_bf16(dq[ni][2 * r], dq[ni][2 * r + 1]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2) flash_bwd_dkv_mma_kernel(const BwdArgs a) {
+  using namespace mma;
+  constexpr int LD = tile_ld<D>(), KS = D / 16, NT = D / 8;
+  static_assert(kBQ == kBK, "K and V are staged in the query tiles' second buffers");
+  extern __shared__ float4 smem4[];
+  bf16_t* Qs = reinterpret_cast<bf16_t*>(smem4);  // [2][kBQ][LD]; K at first in buffer 1
+  bf16_t* Gs = Qs + 2 * kBQ * LD;                  // [2][kBQ][LD] dO; V at first in buffer 1
+  __shared__ float qlse[2][kBQ];
+  __shared__ float qdl[2][kBQ];
+  __shared__ int qsg[2][kBQ];
+
+  const int warp = threadIdx.x >> 5;
+  const int kj = blockIdx.x;  // low key tiles have the most causal work
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int group = a.h / a.hkv;
+  const int k0 = kj * kBK;
+  const bf16_t* kb = static_cast<const bf16_t*>(a.k) + b * a.ks.b + hk * a.ks.h;
+  const bf16_t* vb = static_cast<const bf16_t*>(a.v) + b * a.vs.b + hk * a.vs.h;
+  const bool key_masks = a.mask != nullptr || a.seg != nullptr;
+
+  int qi_lo, qi_hi;
+  query_band(k0, a.s, a.causal, a.window, &qi_lo, &qi_hi);
+  const int nqb = qi_hi - qi_lo + 1;
+  const int n_it = group * nqb;  // (query head of the group, query tile) pairs
+  // start the copies of pair `it` into buffer it % 2
+  auto prefetch = [&](int it) {
+    const int buf = it & 1;
+    dkv_prefetch<D>(a, b, hk * group + it / nqb, (qi_lo + it % nqb) * kBQ, Qs + buf * kBQ * LD,
+                    Gs + buf * kBQ * LD, qlse[buf], qdl[buf], qsg[buf]);
+  };
+  load_tile_async<D, kBK>(kb, a.ks.s, k0, a.s, Qs + kBQ * LD);
+  load_tile_async<D, kBK>(vb, a.vs.s, k0, a.s, Gs + kBQ * LD);
+  prefetch(0);
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // this warp's 16 keys: K and V as A fragments, dk and dv as accumulators
+  const int krow = k0 + warp * 16;
+  uint32_t kf[KS][4], vf[KS][4];
+  int kst[2], ksg[2];
+  float dk[NT][4], dv[NT][4];
+  dkv_keys<D>(a, b, krow, Qs + kBQ * LD + warp * 16 * LD, Gs + kBQ * LD + warp * 16 * LD, kf, vf,
+              kst, ksg, dk, dv);
+
+  for (int it = 0; it < n_it; ++it) {
+    const int buf = it & 1, q0 = (qi_lo + it % nqb) * kBQ;
+    // pair `it` has landed, and every warp is done with pair it - 1 (at
+    // first: with K's and V's fragments), whose buffers are written next
+    cp_async_wait<0>();
+    __syncthreads();
+    if (it + 1 < n_it) prefetch(it + 1);
+    uint32_t sf[4][4];  // dS^T, which only K3f's dq partial reads
+    dkv_pair<D>(a, krow, k0, q0, key_masks, kf, vf, kst, ksg, Qs + buf * kBQ * LD,
+                Gs + buf * kBQ * LD, qlse[buf], qdl[buf], qsg[buf], dk, dv, sf);
+  }
+  dkv_store<D>(a, b, hk, krow, dk, dv);
+}
+
+// ---------------------------------------------------------------------
+// launchers
+
+template <typename K>
+cudaError_t launch_kernel(K kernel, int smem, dim3 grid, const BwdArgs& a, cudaStream_t stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.s + kBQ - 1) / kBQ, a.h, a.b);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(a);
+  kernel<<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_dkv(const BwdArgs& a, cudaStream_t stream) {
-  const int smem = dkv_smem_floats<D>() * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
+template <int D>
+cudaError_t launch_dq(const BwdArgs& a, bool bf16, cudaStream_t stream) {
+  const dim3 grid((a.s + kBQ - 1) / kBQ, a.h, a.b);
+  if (bf16)
+    return launch_kernel(flash_bwd_dq_mma_kernel<D>, bwd_mma_smem_bytes<D>(), grid, a, stream);
+  return launch_kernel(flash_bwd_dq_kernel<float, D>,
+                       dq_smem_floats<D>() * static_cast<int>(sizeof(float)), grid, a, stream);
+}
+
+template <int D>
+cudaError_t launch_dkv(const BwdArgs& a, bool bf16, cudaStream_t stream) {
   const dim3 grid((a.s + kBK - 1) / kBK, a.hkv, a.b);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
+  if (bf16)
+    return launch_kernel(flash_bwd_dkv_mma_kernel<D>, bwd_mma_smem_bytes<D>(), grid, a, stream);
+  return launch_kernel(flash_bwd_dkv_kernel<float, D>,
+                       dkv_smem_floats<D>() * static_cast<int>(sizeof(float)), grid, a, stream);
 }
 
 BwdArgs make_args(const void* q, const void* k, const void* v, const void* g, const void* lse,
@@ -360,7 +590,8 @@ extern "C" const char* dtf_error_string(int err) {
 // delta (B, H, S) fp32 contiguous; mask (B, S) bytes and seg (B, S)
 // int32, each may be null; window <= 0 means none; D is 32 or 64.
 // Outputs are contiguous: dq (B, S, H, D), dk and dv (B, S, Hkv, D).
-// Each returns the CUDA error of its launch (0 on success).
+// bf16 runs on the tensor cores, fp32 on the CUDA cores.  Each returns
+// the CUDA error of its launch (0 on success).
 extern "C" int dtf_flash_bwd_dq(const void* q, const void* k, const void* v, const void* g,
                                 const void* lse, const void* delta, void* dq,
                                 const void* mask, const void* seg, const long long* strides,
@@ -372,9 +603,8 @@ extern "C" int dtf_flash_bwd_dq(const void* q, const void* k, const void* v, con
   const BwdArgs a = make_args(q, k, v, g, lse, delta, dq, nullptr, nullptr, mask, seg, strides,
                               b, h, hkv, s, causal, window, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  using bf = __nv_bfloat16;
-  if (d == 64) err = bf16 ? launch_dq<bf, 64>(a, st) : launch_dq<float, 64>(a, st);
-  else if (d == 32) err = bf16 ? launch_dq<bf, 32>(a, st) : launch_dq<float, 32>(a, st);
+  if (d == 64) err = launch_dq<64>(a, bf16, st);
+  else if (d == 32) err = launch_dq<32>(a, bf16, st);
   else err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }
@@ -390,9 +620,8 @@ extern "C" int dtf_flash_bwd_dkv(const void* q, const void* k, const void* v, co
   const BwdArgs a = make_args(q, k, v, g, lse, delta, nullptr, dk, dv, mask, seg, strides, b, h,
                               hkv, s, causal, window, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  using bf = __nv_bfloat16;
-  if (d == 64) err = bf16 ? launch_dkv<bf, 64>(a, st) : launch_dkv<float, 64>(a, st);
-  else if (d == 32) err = bf16 ? launch_dkv<bf, 32>(a, st) : launch_dkv<float, 32>(a, st);
+  if (d == 64) err = launch_dkv<64>(a, bf16, st);
+  else if (d == 32) err = launch_dkv<32>(a, bf16, st);
   else err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }

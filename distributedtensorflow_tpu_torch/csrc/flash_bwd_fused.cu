@@ -53,7 +53,10 @@
 // to shared memory once (the same bf16 values: ds is rounded once), and
 // after a barrier each warp forms 16 query rows of the dq partial dS.K,
 // with dS read back transposed by ldmatrix.trans.  bf16 operands are
-// needed exactly where the TPU kernel rounds.  About 56 KB of shared
+// needed exactly where the TPU kernel rounds.  The dk/dv half of this
+// (dkv_prefetch, dkv_keys, dkv_pair, dkv_store in flash_common.cuh) is
+// also the split pair's dk/dv kernel, so both give the same dk and dv
+// bits.  About 56 KB of shared
 // memory at D 64 and at most 255 registers a thread: two blocks share an
 // SM, so one block's products fill the time the other waits for its turn.
 //
@@ -388,20 +391,9 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_fused_mma_kernel(const 
   const int n_it = group * nqb;  // (query head of the group, query tile) pairs
   // start the copies of pair `it` into buffer it % 2
   auto prefetch = [&](int it) {
-    const int buf = it & 1, h = hk * group + it / nqb, q0 = (qi_lo + it % nqb) * kBQ;
-    const bf16_t* qb = static_cast<const bf16_t*>(a.q) + b * a.qs.b + h * a.qs.h;
-    const bf16_t* gb = static_cast<const bf16_t*>(a.g) + b * a.gs.b + h * a.gs.h;
-    load_tile_async<D, kBQ>(qb, a.qs.s, q0, a.s, Qs + buf * kBQ * LD);
-    load_tile_async<D, kBQ>(gb, a.gs.s, q0, a.s, Gs + buf * kBQ * LD);
-    if (tid < kBQ) {
-      const int qp = q0 + tid;
-      const bool in = qp < a.s;
-      const long long row = (static_cast<long long>(b) * a.h + h) * a.s + (in ? qp : 0);
-      cp_async4(&qlse[buf][tid], a.lse + row, in);
-      cp_async4(&qdl[buf][tid], a.delta + row, in);
-      qsg[buf][tid] = segment(a.seg, b, a.s, qp);
-    }
-    cp_async_commit();
+    const int buf = it & 1;
+    dkv_prefetch<D>(a, b, hk * group + it / nqb, (qi_lo + it % nqb) * kBQ, Qs + buf * kBQ * LD,
+                    Gs + buf * kBQ * LD, qlse[buf], qdl[buf], qsg[buf]);
   };
   load_tile_async<D, kBK>(kb, a.ks.s, k0, a.s, Ks);
   load_tile_async<D, kBK>(vb, a.vs.s, k0, a.s, St);
@@ -412,19 +404,9 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_fused_mma_kernel(const 
   // this warp's 16 keys: K and V as A fragments, dk and dv as accumulators
   const int krow = k0 + warp * 16;
   uint32_t kf[KS][4], vf[KS][4];
-  load_a<KS>(kf, Ks + warp * 16 * LD, LD);
-  load_a<KS>(vf, St + warp * 16 * LD, LD);
   int kst[2], ksg[2];
   float dk[NT][4], dv[NT][4];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    kst[r] = key_state(a.mask, b, a.s, krow + g + 8 * r);
-    ksg[r] = segment(a.seg, b, a.s, krow + g + 8 * r);
-  }
-#pragma unroll
-  for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[ni][e] = dv[ni][e] = 0.f;
+  dkv_keys<D>(a, b, krow, Ks + warp * 16 * LD, St + warp * 16 * LD, kf, vf, kst, ksg, dk, dv);
 
   for (int it = 0; it < n_it; ++it) {
     const int buf = it & 1, h = hk * group + it / nqb, qi = qi_lo + it % nqb, q0 = qi * kBQ;
@@ -433,61 +415,12 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_fused_mma_kernel(const 
     cp_async_wait<0>();
     __syncthreads();
     if (it + 1 < n_it) prefetch(it + 1);
-    const bf16_t* Qb = Qs + buf * kBQ * LD;
-    const bf16_t* Gb = Gs + buf * kBQ * LD;
 
-    // s^T and dp^T: rows are this warp's 16 keys, columns the 64 queries
-    float st[8][4], dpt[8][4];
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[ni][e] = dpt[ni][e] = 0.f;
-    mma_a_bt<8, KS>(st, kf, Qb, LD);
-    mma_a_bt<8, KS>(dpt, vf, Gb, LD);
-    // A plain pair keeps the raw products in st (a pair on the causal
-    // diagonal with -inf for the keys after their query): its p = exp(s -
-    // lse) is one FMA (scale log2(e) folded in) and one ex2 per element.  A
-    // masked pair holds the scaled, masked scores, and NEG_INF cancels
-    // exactly against an LSE of NEG_INF.
-    const PairKind kind = pair_kind(q0, k0, a.s, a.causal, a.window, key_masks);
-    const bool plain = kind != kMasked;
-    if (kind == kMasked)
-      mask_fragments<true>(st, a.scale, krow, kst, ksg, q0, nullptr, a.seg ? qsg[buf] : nullptr,
-                           a.s, a.causal, a.window);
-    else if (kind == kDiagonal)
-      causal_fragments<true>(st, krow, q0);
-    // p into st
-    if (plain) {
-      const float c2 = a.scale * kLog2e;
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        const float2 lse = *reinterpret_cast<const float2*>(&qlse[buf][ni * 8 + 2 * t]);
-        const float lx = lse.x * kLog2e, ly = lse.y * kLog2e;
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          st[ni][e] = fast_exp2(fmaf(st[ni][e], c2, -((e & 1) ? ly : lx)));
-      }
-    } else {
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        const float2 lse = *reinterpret_cast<const float2*>(&qlse[buf][ni * 8 + 2 * t]);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[ni][e] = __expf(st[ni][e] - ((e & 1) ? lse.y : lse.x));
-      }
-    }
-    // ds into dpt
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni) {
-      const float2 dl = *reinterpret_cast<const float2*>(&qdl[buf][ni * 8 + 2 * t]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        dpt[ni][e] = (st[ni][e] * (dpt[ni][e] - ((e & 1) ? dl.y : dl.x))) * a.scale;
-    }
-    // rounded to bf16 they are A fragments (k = the queries); ds^T also
-    // goes to shared memory, the same bits, for the dq partial
-    uint32_t pf[4][4], sf[4][4];
-    pack_a<8>(pf, st);
-    pack_a<8>(sf, dpt);
+    // dv and dk of the pair (flash_common.cuh), then dS^T to shared memory,
+    // the same bits, for the dq partial
+    uint32_t sf[4][4];
+    dkv_pair<D>(a, krow, k0, q0, key_masks, kf, vf, kst, ksg, Qs + buf * kBQ * LD,
+                Gs + buf * kBQ * LD, qlse[buf], qdl[buf], qsg[buf], dk, dv, sf);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       bf16_t* row = St + (warp * 16 + g) * LDS + j * 16 + 2 * t;
@@ -496,8 +429,6 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_fused_mma_kernel(const 
       *reinterpret_cast<uint32_t*>(row + 8) = sf[j][2];
       *reinterpret_cast<uint32_t*>(row + 8 * LDS + 8) = sf[j][3];
     }
-    mma_a_b<NT, 4>(dv, pf, Gb, LD);
-    mma_a_b<NT, 4>(dk, sf, Qb, LD);
     __syncthreads();  // ds^T is whole
 
     // This warp's 16 queries of the tile's dq sum.  Once every earlier key
@@ -565,22 +496,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_bwd_fused_mma_kernel(const 
     if (lane == 0 && kj != kj_hi) add_release(turn, 1);
   }
 
-  bf16_t* dkb = static_cast<bf16_t*>(a.dk);
-  bf16_t* dvb = static_cast<bf16_t*>(a.dv);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int kp = krow + g + 8 * r;
-    if (kp >= a.s) continue;
-    const long long off =
-        (static_cast<long long>(b) * a.s + kp) * a.hkv * D + static_cast<long long>(hk) * D;
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni) {
-      *reinterpret_cast<uint32_t*>(dkb + off + ni * 8 + 2 * t) =
-          pack_bf16(dk[ni][2 * r], dk[ni][2 * r + 1]);
-      *reinterpret_cast<uint32_t*>(dvb + off + ni * 8 + 2 * t) =
-          pack_bf16(dv[ni][2 * r], dv[ni][2 * r + 1]);
-    }
-  }
+  dkv_store<D>(a, b, hk, krow, dk, dv);
 }
 
 template <int D>

@@ -5,8 +5,7 @@
 // threads (four warps) computes one (kBQ, kBK) score tile at a time.
 // There are two sets of pieces:
 //
-// - fp32 on the CUDA cores (every kernel in fp32, and the split backward
-//   flash_bwd.cu in bf16 too): operands are widened to fp32 when they are
+// - fp32 on the CUDA cores (every kernel in fp32): operands are widened to fp32 when they are
 //   staged into shared memory (load_tile) and every product is an FMA
 //   loop.  A thread holds a 4 x 8 patch of the score tile: rows
 //   4*rg .. 4*rg+3 (rg = thread / 8) and the eight columns
@@ -14,15 +13,17 @@
 //   that the eight threads sharing rows read one 128-byte line of shared
 //   memory in one float4 load.
 //
-// - bf16 on the tensor cores (flash_fwd.cu and flash_bwd_fused.cu in
-//   bf16; the bottom of this file): tiles stay bf16 in shared memory,
+// - bf16 on the tensor cores (every kernel in bf16; the bottom of this
+//   file): tiles stay bf16 in shared memory,
 //   copied there by cp.async (load_tile_async) into rows padded by 16
 //   bytes, and every product is mma.sync.m16n8k16 with fp32 sums
 //   (mma_common.cuh).  A warp owns 16 rows of the score tile in the
 //   accumulator layout (lane l: rows g and g + 8, columns 8 ni + 2t and
 //   2t + 1, g = l / 4, t = l % 4); the masks are applied on those
 //   fragments (mask_fragments), or not at all where a tile pair lies
-//   wholly inside the band and no key mask is given (pair_kind).
+//   wholly inside the band and no key mask is given (pair_kind).  The
+//   dk/dv sweep of the backward (dkv_prefetch, dkv_keys, dkv_pair,
+//   dkv_store) is one code for both backward files.
 //
 // Masking follows `_masked_scores` (distributedtensorflow_tpu/ops/
 // flash_attention.py:225): a key beyond the sequence, after the query
@@ -252,6 +253,149 @@ __device__ __forceinline__ void mask_fragments(float (&sc)[8][4], float scale, i
         sc[ni][e] = masked_score(sc[ni][e], scale, rpos, cpos, col_state[c], row_seg[r], cseg,
                                  causal, window);
     }
+}
+
+// ---------------------------------------------------------------------
+// The dk/dv sweep in bf16, one code for the single sweep K3f
+// (flash_bwd_fused.cu) and the split pair's dk/dv kernel (flash_bwd.cu), so
+// that their dk and dv are the same products in the same order.  A warp
+// owns 16 keys of the key tile at k0 (positions krow .. krow + 15): K and
+// V are its A fragments, dk and dv its accumulators, and the query tiles
+// with the LSE, delta and segment of their rows come two buffers deep.
+// `A` is the kernel's argument struct (q, g, lse, delta, mask, seg, qs,
+// gs, h, hkv, s, causal, window, scale).
+
+// Start the copies of query tile q0 of head h (batch b) into one buffer:
+// the Q and dO tiles and the LSE, delta and segment of the rows.  Commits.
+template <int D, typename A>
+__device__ __forceinline__ void dkv_prefetch(const A& a, int b, int h, int q0, bf16_t* Qs,
+                                             bf16_t* Gs, float* lse, float* dl, int* sg) {
+  const bf16_t* qb = static_cast<const bf16_t*>(a.q) + b * a.qs.b + h * a.qs.h;
+  const bf16_t* gb = static_cast<const bf16_t*>(a.g) + b * a.gs.b + h * a.gs.h;
+  load_tile_async<D, kBQ>(qb, a.qs.s, q0, a.s, Qs);
+  load_tile_async<D, kBQ>(gb, a.gs.s, q0, a.s, Gs);
+  const int tid = threadIdx.x;
+  if (tid < kBQ) {
+    const int qp = q0 + tid;
+    const bool in = qp < a.s;
+    const long long row = (static_cast<long long>(b) * a.h + h) * a.s + (in ? qp : 0);
+    mma::cp_async4(&lse[tid], a.lse + row, in);
+    mma::cp_async4(&dl[tid], a.delta + row, in);
+    sg[tid] = segment(a.seg, b, a.s, qp);
+  }
+  mma::cp_async_commit();
+}
+
+// The warp's keys: its K and V rows (Kw, Vw in shared memory) as A
+// fragments, the key state and segment of the lane's rows, dk = dv = 0.
+template <int D, typename A>
+__device__ __forceinline__ void dkv_keys(const A& a, int b, int krow, const bf16_t* Kw,
+                                         const bf16_t* Vw, uint32_t (&kf)[D / 16][4],
+                                         uint32_t (&vf)[D / 16][4], int (&kst)[2], int (&ksg)[2],
+                                         float (&dk)[D / 8][4], float (&dv)[D / 8][4]) {
+  const int g = (threadIdx.x & 31) >> 2;
+  mma::load_a<D / 16>(kf, Kw, tile_ld<D>());
+  mma::load_a<D / 16>(vf, Vw, tile_ld<D>());
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    kst[r] = key_state(a.mask, b, a.s, krow + g + 8 * r);
+    ksg[r] = segment(a.seg, b, a.s, krow + g + 8 * r);
+  }
+#pragma unroll
+  for (int ni = 0; ni < D / 8; ++ni)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[ni][e] = dv[ni][e] = 0.f;
+}
+
+// One (query tile at q0, key tile at k0) pair for the warp's keys.  S^T =
+// K.Q^T and dP^T = V.dO^T have the keys as rows, and the masks are applied
+// transposed.  A plain pair keeps the raw products (a pair on the causal
+// diagonal with -inf for the keys after their query): its p = exp(s -
+// lse) is one FMA (scale log2(e) folded in) and one ex2 per element.  A
+// masked pair holds the scaled, masked scores, and NEG_INF cancels exactly
+// against an LSE of NEG_INF.  Then ds = p (dp - delta) scale; rounded to
+// bf16, P^T and dS^T are the A fragments (k = the queries) of dv += P^T.dO
+// and dk += dS^T.Q, with dO and Q read by ldmatrix.trans.  dS^T's
+// fragments are left in `sf` for a caller that forms the dq partial too.
+template <int D, typename A>
+__device__ __forceinline__ void dkv_pair(const A& a, int krow, int k0, int q0, bool key_masks,
+                                         const uint32_t (&kf)[D / 16][4],
+                                         const uint32_t (&vf)[D / 16][4], const int (&kst)[2],
+                                         const int (&ksg)[2], const bf16_t* Qb, const bf16_t* Gb,
+                                         const float* qlse, const float* qdl, const int* qsg,
+                                         float (&dk)[D / 8][4], float (&dv)[D / 8][4],
+                                         uint32_t (&sf)[4][4]) {
+  constexpr int LD = tile_ld<D>(), KS = D / 16, NT = D / 8;
+  const int t = threadIdx.x & 3;
+  float st[8][4], dpt[8][4];
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) st[ni][e] = dpt[ni][e] = 0.f;
+  mma::mma_a_bt<8, KS>(st, kf, Qb, LD);
+  mma::mma_a_bt<8, KS>(dpt, vf, Gb, LD);
+  const PairKind kind = pair_kind(q0, k0, a.s, a.causal, a.window, key_masks);
+  if (kind == kMasked)
+    mask_fragments<true>(st, a.scale, krow, kst, ksg, q0, nullptr, a.seg ? qsg : nullptr, a.s,
+                         a.causal, a.window);
+  else if (kind == kDiagonal)
+    causal_fragments<true>(st, krow, q0);
+  // p into st
+  if (kind != kMasked) {
+    const float c2 = a.scale * kLog2e;
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni) {
+      const float2 lse = *reinterpret_cast<const float2*>(&qlse[ni * 8 + 2 * t]);
+      const float lx = lse.x * kLog2e, ly = lse.y * kLog2e;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[ni][e] = fast_exp2(fmaf(st[ni][e], c2, -((e & 1) ? ly : lx)));
+    }
+  } else {
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni) {
+      const float2 lse = *reinterpret_cast<const float2*>(&qlse[ni * 8 + 2 * t]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[ni][e] = __expf(st[ni][e] - ((e & 1) ? lse.y : lse.x));
+    }
+  }
+  // ds into dpt
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni) {
+    const float2 dl = *reinterpret_cast<const float2*>(&qdl[ni * 8 + 2 * t]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      dpt[ni][e] = (st[ni][e] * (dpt[ni][e] - ((e & 1) ? dl.y : dl.x))) * a.scale;
+  }
+  uint32_t pf[4][4];
+  mma::pack_a<8>(pf, st);
+  mma::pack_a<8>(sf, dpt);
+  mma::mma_a_b<NT, 4>(dv, pf, Gb, LD);
+  mma::mma_a_b<NT, 4>(dk, sf, Qb, LD);
+}
+
+// dk and dv of the warp's keys, rounded to bf16, into their contiguous
+// (B, S, Hkv, D) rows.
+template <int D, typename A>
+__device__ __forceinline__ void dkv_store(const A& a, int b, int hk, int krow,
+                                          const float (&dk)[D / 8][4],
+                                          const float (&dv)[D / 8][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  bf16_t* dkb = static_cast<bf16_t*>(a.dk);
+  bf16_t* dvb = static_cast<bf16_t*>(a.dv);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kp = krow + g + 8 * r;
+    if (kp >= a.s) continue;
+    const long long off =
+        (static_cast<long long>(b) * a.s + kp) * a.hkv * D + static_cast<long long>(hk) * D;
+#pragma unroll
+    for (int ni = 0; ni < D / 8; ++ni) {
+      *reinterpret_cast<uint32_t*>(dkb + off + ni * 8 + 2 * t) =
+          mma::pack_bf16(dk[ni][2 * r], dk[ni][2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(dvb + off + ni * 8 + 2 * t) =
+          mma::pack_bf16(dv[ni][2 * r], dv[ni][2 * r + 1]);
+    }
+  }
 }
 
 }  // namespace flash

@@ -9,11 +9,13 @@ Twin of ``distributedtensorflow_tpu/ops/attention.py``:
   twins on the CPU), ``"xla"`` is the caller's choice of
   :func:`xla_attention` (``:409``), the plain path.
 - :func:`cached_decode_attention` (``:67-158``): one KV-cache step
-  against the dense (B, Hkv, max_seq, D) cache.  A single new token goes
-  through :func:`decode_attention`, whose CUDA route is the hand-written
-  kernel ``csrc/decode_attention.cu`` (the port of the TPU kernel
-  ``_decode_attn_kernel``, ``:279``); prefill chunks take the grouped
-  matmul path.
+  against the dense (B, Hkv, max_seq, D) cache.  Under
+  :data:`DECODE_IMPL` ``"auto"`` a single new token goes through
+  :func:`decode_attention`, whose CUDA route is the hand-written kernel
+  ``csrc/decode_attention.cu`` (the port of the TPU kernel
+  ``_decode_attn_kernel``, ``:279``), for any GQA group and any band;
+  ``"xla"`` sends it, as prefill chunks always go, to the grouped matmul
+  path.
 - :func:`paged_decode_attention` (``:161-219``): the serving engine's
   decode step against the paged pool, a gather plus matmuls.  The JAX
   package has no kernel for it, so it stays plain PyTorch here.
@@ -27,6 +29,8 @@ matmul would round its result to bf16 instead.
 from __future__ import annotations
 
 import ctypes
+import functools
+import os
 
 import torch
 
@@ -36,12 +40,36 @@ from . import flash_attention as _flash
 #: Finite mask value: a fully masked row averages V instead of giving NaN.
 NEG_INF = -1e9
 
+DECODE_IMPLS = ("auto", "xla")
+
+
+def decode_impl_from_env(environ) -> str:
+    """The seed of :data:`DECODE_IMPL`: ``DTF_DECODE_IMPL`` in
+    ``environ``, "auto" when unset (the JAX package's rule,
+    ``ops/attention.py:26``)."""
+    return environ.get("DTF_DECODE_IMPL", "auto")
+
+
+#: Decode-step path of :func:`cached_decode_attention`: "auto" (a
+#: one-token step takes :func:`decode_attention`, the kernel K5 on the
+#: card) or "xla" (every step takes the grouped einsum path).  Seeded from
+#: the environment; a mutable module global, read at every call, as in
+#: the JAX package (callers and tests swap it).  Another value raises when
+#: a step runs.
+DECODE_IMPL = decode_impl_from_env(os.environ)
+
 #: Dynamic shared memory one block may use on the H100 (227 KB).
 SMEM_LIMIT = 232448
-_MAX_GROUP = 8  # query heads per kv head the kernel keeps in registers
-_WARPS = 8
-_SIGNATURES = {"dtf_decode_attention": [ctypes.c_void_p] * 4
-               + [ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_int] * 2
+#: Streaming multiprocessors of an H100 SXM; :func:`decode_plan` splits
+#: the band into as many blocks as :data:`_BLOCKS_PER_SM` a SM take in
+#: one wave (the wrapper passes the card's own count).
+H100_SMS = 132
+_BLOCKS_PER_SM = 2
+_WARPS = 8       # warps of a kernel block (csrc/decode_attention.cu)
+_PASS = 8        # query heads one pass of the w.V product keeps in registers
+_ROW_UNIT = 32   # a split's rows are a multiple of this (but the last)
+_SIGNATURES = {"dtf_decode_attention": [ctypes.c_void_p] * 8
+               + [ctypes.c_int] * 9 + [ctypes.c_float] + [ctypes.c_int] * 2
                + [ctypes.c_void_p]}
 
 
@@ -113,7 +141,12 @@ def cached_decode_attention(
 
     The caller owns the cache; unlike the JAX twin, which returns new
     arrays, the K/V write goes into ``cached_k``/``cached_v`` in place and
-    the same tensors are returned."""
+    the same tensors are returned.  :data:`DECODE_IMPL` picks the path of
+    a one-token step."""
+    impl = DECODE_IMPL
+    if impl not in DECODE_IMPLS:
+        raise ValueError(f"DECODE_IMPL={impl!r}: expected one of "
+                         f"{DECODE_IMPLS}")
     b, s_new, h, d = q.shape
     max_seq = cached_k.shape[2]
     ix = int(cache_index)
@@ -122,7 +155,7 @@ def cached_decode_attention(
             f"cache of {max_seq} positions cannot take {s_new} more at {ix}")
     cached_k[:, :, ix:ix + s_new] = k_new.transpose(1, 2)
     cached_v[:, :, ix:ix + s_new] = v_new.transpose(1, 2)
-    if s_new == 1:
+    if s_new == 1 and impl == "auto":
         lo = 0 if window is None else max(ix - window + 1, 0)
         out = decode_attention(q, cached_k, cached_v, lo, ix + 1)
         return out, cached_k, cached_v, ix + 1
@@ -203,11 +236,48 @@ def _plain_decode_attention(q, cached_k, cached_v, lo: int, hi: int):
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
-def decode_smem_bytes(h: int, h_kv: int, d: int, lo: int, hi: int) -> int:
-    """Dynamic shared memory of one kernel block: the group's fp32 scores
-    plus the per-warp partial outputs."""
+def decode_smem_bytes(h: int, h_kv: int, d: int, chunk: int) -> int:
+    """Dynamic shared memory of one kernel block for a split of ``chunk``
+    rows: the larger of the two launches' needs.  The scores launch holds
+    the group's queries and scores, ``g * (D + chunk)`` floats; the output
+    launch the group's weights, the per-warp partial outputs of one pass
+    of at most :data:`_PASS` heads, the group's global max and sum and a
+    flag, ``g * chunk + 8 * min(g, 8) * D + 2 * g + 1`` floats."""
     g = h // h_kv
-    return (g * (hi - lo) + _WARPS * g * d) * 4
+    scores = g * (d + chunk)
+    output = g * chunk + _WARPS * min(g, _PASS) * d + 2 * g + 1
+    return 4 * max(scores, output)
+
+
+def decode_plan(b: int, h: int, h_kv: int, d: int, lo: int, hi: int,
+                sms: int = H100_SMS) -> tuple[int, int]:
+    """``(splits, chunk)``: how the kernel cuts the band ``[lo, hi)``.
+    Split ``i`` takes the rows ``[lo + i * chunk, min(hi, lo + (i + 1) *
+    chunk))``, so the splits cover the band exactly and none is empty.
+    As many splits as keep ``B * Hkv * splits`` blocks within two a SM of
+    ``sms`` (one wave: the output launch fits two blocks a SM), in chunks
+    of whole :data:`_ROW_UNIT` rows (a short band takes one split), and
+    more where a chunk's shared memory (:func:`decode_smem_bytes`) would
+    pass :data:`SMEM_LIMIT`."""
+    n = hi - lo
+    if n <= 0:
+        raise ValueError(f"empty band [{lo}, {hi})")
+    want = max(1, sms * _BLOCKS_PER_SM // (b * h_kv))
+    chunk = -(-n // want)
+    chunk = -(-chunk // _ROW_UNIT) * _ROW_UNIT
+    fixed = decode_smem_bytes(h, h_kv, d, 0)
+    cap = (SMEM_LIMIT - fixed) // (4 * (h // h_kv))
+    if cap < 1:
+        raise ValueError(f"a group of {h // h_kv} query heads at D={d} "
+                         f"needs {fixed} bytes of shared memory before any "
+                         f"row; a block has {SMEM_LIMIT}")
+    chunk = min(chunk, cap, n)
+    return -(-n // chunk), chunk
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def decode_attention_cuda(q, cached_k, cached_v, lo: int, hi: int):
@@ -216,7 +286,11 @@ def decode_attention_cuda(q, cached_k, cached_v, lo: int, hi: int):
     The port of ``_decode_attn_kernel``
     (``distributedtensorflow_tpu/ops/attention.py:279``).  Bound on the
     H100 by the K/V read: ``2 * B * Hkv * (hi - lo) * D * itemsize``
-    bytes over 3.35 TB/s."""
+    bytes over 3.35 TB/s.  The band is split over blocks
+    (:func:`decode_plan`); a scratch buffer from PyTorch's allocator holds
+    the scores, each split's max and sum, its partial output and a
+    counter per (batch, kv head).  Counts one launch per call (the
+    kernel's two launches)."""
     if q.device.type != "cuda":
         raise ValueError(f"decode attention kernel needs CUDA, got {q.device}")
     b, one, h, d = q.shape
@@ -234,30 +308,35 @@ def decode_attention_cuda(q, cached_k, cached_v, lo: int, hi: int):
             f"decode attention kernel takes all-fp32 or all-bf16, got q "
             f"{q.dtype}, K {cached_k.dtype}, V {cached_v.dtype}")
     vec = 16 // q.element_size()
-    if h % h_kv or h // h_kv > _MAX_GROUP or d % vec or 32 % (d // vec):
+    if h % h_kv or d % vec or 32 % (d // vec):
         raise ValueError(
-            f"decode attention kernel needs H % Hkv == 0, H / Hkv <= "
-            f"{_MAX_GROUP} and D / {vec} dividing 32; got H={h} Hkv={h_kv} "
-            f"D={d}")
+            f"decode attention kernel needs H % Hkv == 0 and D / {vec} "
+            f"dividing 32; got H={h} Hkv={h_kv} D={d}")
     if not 0 <= lo < hi <= s:
         raise ValueError(f"attended band [{lo}, {hi}) is not inside [0, {s})")
-    smem = decode_smem_bytes(h, h_kv, d, lo, hi)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"decode attention scores of {hi - lo} positions need {smem} "
-            f"bytes of shared memory; a block has {SMEM_LIMIT}")
     for t in (q, cached_k, cached_v):
         if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(
                 "decode attention kernel needs contiguous, 16-byte aligned "
                 "tensors on one device")
+    splits, chunk = decode_plan(b, h, h_kv, d, lo, hi,
+                                _sm_count(q.device.index or 0))
+    rows = b * h * splits
+    # one fp32 buffer: stats (rows x 2), partials (rows x D), scores
+    # (B, H, hi - lo), counters (B, Hkv)
+    scratch = torch.empty(rows * (2 + d) + b * h * (hi - lo) + b * h_kv,
+                          dtype=torch.float32, device=q.device)
+    stats, partial = scratch[:2 * rows], scratch[2 * rows:(2 + d) * rows]
+    scores = scratch[(2 + d) * rows:-b * h_kv]
+    done = scratch[-b * h_kv:]
     out = torch.empty_like(q)
     lib = _cuda.load("decode_attention", _SIGNATURES)
     err = lib.dtf_decode_attention(
         q.data_ptr(), cached_k.data_ptr(), cached_v.data_ptr(),
-        out.data_ptr(), b, h, h_kv, s, d, lo, hi, 1.0 / d ** 0.5,
-        q.dtype == torch.bfloat16, q.device.index or 0,
-        _cuda.stream_handle(q.device))
+        out.data_ptr(), scores.data_ptr(), stats.data_ptr(),
+        partial.data_ptr(), done.data_ptr(), b, h, h_kv, s, d, lo, hi, chunk,
+        splits, 1.0 / d ** 0.5, q.dtype == torch.bfloat16,
+        q.device.index or 0, _cuda.stream_handle(q.device))
     _cuda.launches["decode_attention"] += 1
     _cuda.check(lib, err, "decode_attention")
     return out

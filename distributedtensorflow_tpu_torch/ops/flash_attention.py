@@ -12,11 +12,10 @@ A CUDA tensor goes to the hand-written kernels: ``csrc/flash_fwd.cu``
 (the port of ``_fwd_kernel``/``_fwd_kernel_1k``, ``:333``/``:396``),
 ``csrc/flash_bwd_fused.cu`` (the single-sweep ``_bwd_fused_kernel``,
 ``:586``) and ``csrc/flash_bwd.cu`` (the split pair ``_bwd_dq_kernel``/
-``_bwd_dkv_kernel``, ``:671``/``:724``).  In bf16 the forward and the
-single sweep run every product on the tensor cores (``mma.sync`` on bf16
-tiles that ``cp.async`` brings to shared memory); in fp32, and the split
-pair in both types, the products are FMAs on the CUDA cores
-(:func:`kernel_variant`).  :func:`flash_backward` picks
+``_bwd_dkv_kernel``, ``:671``/``:724``).  In bf16 every kernel runs
+every product on the tensor cores (``mma.sync`` on bf16 tiles that
+``cp.async`` brings to shared memory); in fp32 the products are FMAs on
+the CUDA cores (:func:`kernel_variant`).  :func:`flash_backward` picks
 between the two backwards as ``_flash_backward_pallas_bhsd`` does
 (``:859``): the single sweep while ``S * D * 4`` fits
 :data:`FUSED_BWD_DQ_SCRATCH_BYTES`, the split pair beyond it or under
@@ -39,6 +38,7 @@ the kernel skipped; on both it is finite, never NaN).
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -46,10 +46,20 @@ from . import _cuda
 
 NEG_INF = -1e9
 
-#: Auto-dispatch threshold, copied from the JAX package, where it was
-#: measured on a TPU (``flash_attention.py:117``).  It awaits an H100
-#: measurement of this port's kernels against the plain path.
-MIN_SEQ_FOR_PALLAS = 1024
+
+def min_seq_from_env(environ) -> int:
+    """The seed of :data:`MIN_SEQ_FOR_PALLAS`: ``DTF_MIN_SEQ_FOR_PALLAS``
+    in ``environ`` as an int, 1024 when unset (the JAX package's rule,
+    ``flash_attention.py:117``)."""
+    return int(environ.get("DTF_MIN_SEQ_FOR_PALLAS", "1024"))
+
+
+#: Auto-dispatch threshold, seeded from the environment as in the JAX
+#: package, whose default 1024 was measured on a TPU
+#: (``flash_attention.py:117``); the H100's own gate awaits a measurement
+#: of this port's kernels against the plain path.  A mutable module
+#: global, read at every call.
+MIN_SEQ_FOR_PALLAS = min_seq_from_env(os.environ)
 #: Head dims the kernels are built for (templates in ``csrc/``).
 HEAD_DIMS = (32, 64)
 #: The backward that :func:`flash_attention` takes when its caller names
@@ -68,10 +78,8 @@ FUSED_BWD_DQ_SCRATCH_BYTES = 2 * 2**20
 #: Query and key rows of a kernel tile (``kBQ``/``kBK`` in
 #: ``csrc/flash_common.cuh``).
 _TILE = 64
-#: The kernels' launch-count keys, and those of them with a tensor-core
-#: version for bf16.
+#: The kernels' launch-count keys.
 _KERNELS = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")
-_MMA_KERNELS = ("flash_fwd", "flash_bwd_fused")
 
 _FWD_SIGNATURES = {"dtf_flash_fwd": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                    + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]}
@@ -89,16 +97,14 @@ _BWD_SIGNATURES = {
 def kernel_variant(dtype, kernel="flash_fwd") -> str:
     """Which version of ``kernel`` (a launch-count key) runs for operands
     of ``dtype``: "mma" (bf16 tiles, every product on the tensor cores:
-    the forward and the single-sweep backward in bf16) or "fma" (fp32
-    products on the CUDA cores: every kernel in fp32, since the tensor
-    cores have no full-precision fp32 product, and the split pair in
-    bf16 too).  Another dtype raises, as the kernels do."""
+    every kernel in bf16) or "fma" (fp32 products on the CUDA cores:
+    every kernel in fp32, since the tensor cores have no full-precision
+    fp32 product).  Another dtype raises, as the kernels do."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"flash kernels take fp32/bf16, got {dtype}")
     if kernel not in _KERNELS:
         raise ValueError(f"unknown flash kernel {kernel!r}")
-    return "mma" if dtype == torch.bfloat16 and kernel in _MMA_KERNELS \
-        else "fma"
+    return "mma" if dtype == torch.bfloat16 else "fma"
 
 
 def _gqa_ok(qshape, kshape) -> bool:
@@ -490,7 +496,9 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, mask=None, segment_ids=None,
     The port of ``_bwd_dq_kernel``
     (``distributedtensorflow_tpu/ops/flash_attention.py:671``).  Bound by
     operations: three products (s, dp, dq) of ``2 * B * H * S^2 * D``
-    flops, half under the causal mask."""
+    flops, half under the causal mask.  bf16: the three products on the
+    tensor cores, Q and dO as register fragments, K and V tiles
+    double-buffered by ``cp.async``; fp32: FMAs on the CUDA cores."""
     q, k, v, do, lse, delta, m, seg, strides = _bwd_operands(
         q, k, v, do, lse, delta, mask, segment_ids, "flash dq")
     b, s, h, d = q.shape
@@ -515,7 +523,10 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, mask=None, segment_ids=None,
     The port of ``_bwd_dkv_kernel``
     (``distributedtensorflow_tpu/ops/flash_attention.py:724``).  Bound by
     operations: four products (s, dp, dv, dk) of ``2 * B * H * S^2 * D``
-    flops, half under the causal mask."""
+    flops, half under the causal mask.  bf16: the four products on the
+    tensor cores, K and V as register fragments, Q and dO tiles
+    double-buffered by ``cp.async``, scores transposed; fp32: FMAs on the
+    CUDA cores."""
     q, k, v, do, lse, delta, m, seg, strides = _bwd_operands(
         q, k, v, do, lse, delta, mask, segment_ids, "flash dk/dv")
     b, s, h, d = q.shape

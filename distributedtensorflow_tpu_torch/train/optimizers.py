@@ -12,7 +12,10 @@ AdamW (adam without decay), adagrad is written out (:class:`Adagrad`)
 because torch's starts its accumulator and places eps elsewhere.  A
 step pre-hook adds optax's chain head to each: the learning rate of
 optax's count (the first update uses ``lr(0)``) and
-``clip_by_global_norm``.  lamb, lars, adafactor and lion are queued in
+``clip_by_global_norm``.  The count lives in the optimizer's parameter
+groups (``"count"``), so ``state_dict()`` saves it and
+``load_state_dict()`` restores it: a resumed optimizer goes on with the
+schedule where the saved one stopped.  lamb, lars, adafactor and lion are queued in
 ROADMAP.md and raise.
 
 Parameters are passed as an iterable of tensors or of ``(name,
@@ -22,7 +25,6 @@ the names.
 
 from __future__ import annotations
 
-import itertools
 import math
 from typing import Callable
 
@@ -186,13 +188,15 @@ def _clip_by_global_norm(grads: list[torch.Tensor], clipnorm: float) -> None:
 def _optax_prelude(lr, clipnorm: float):
     """A step pre-hook that gives a torch optimizer optax's chain head:
     the learning rate of optax's count (the first update uses ``lr(0)``)
-    and, for ``clipnorm > 0``, clipping by the global norm."""
-    counts = itertools.count()
+    and, for ``clipnorm > 0``, clipping by the global norm.  The count
+    of updates so far is ``"count"`` in every parameter group, state that
+    ``state_dict()`` carries."""
 
     def hook(opt, args, kwargs):
-        count = next(counts)
+        count = opt.param_groups[0].get("count", 0)
         for group in opt.param_groups:
             group["lr"] = lr(count) if callable(lr) else lr
+            group["count"] = count + 1
         if clipnorm:
             _clip_by_global_norm([p.grad for group in opt.param_groups
                                   for p in group["params"]

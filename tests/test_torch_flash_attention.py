@@ -12,6 +12,8 @@ only the summation order differs (online softmax over blocks in JAX, one
 pass here).
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -274,21 +276,33 @@ def test_tiled_dq_is_rounded_once():
 
 
 def test_kernel_variant_by_dtype():
-    """bf16 takes the tensor-core version of the forward and the single
-    sweep ("mma"), fp32 the CUDA-core one ("fma"), as does the split pair
-    in both; anything else raises."""
-    for kernel in ("flash_fwd", "flash_bwd_fused"):
+    """bf16 takes the tensor-core version of every flash kernel ("mma":
+    the forward, the single sweep and, since the split pair went to the
+    tensor cores, dq and dk/dv too), fp32 the CUDA-core one ("fma");
+    anything else raises."""
+    for kernel in ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq",
+                   "flash_bwd_dkv"):
         assert fa.kernel_variant(torch.bfloat16, kernel) == "mma"
         assert fa.kernel_variant(torch.float32, kernel) == "fma"
+        for dtype in (torch.float16, torch.float64, torch.int32):
+            with pytest.raises(TypeError, match="fp32/bf16"):
+                fa.kernel_variant(dtype, kernel)
     assert fa.kernel_variant(torch.bfloat16) == "mma"
-    for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
-        assert fa.kernel_variant(torch.bfloat16, kernel) == "fma"
-        assert fa.kernel_variant(torch.float32, kernel) == "fma"
-    for dtype in (torch.float16, torch.float64, torch.int32):
-        with pytest.raises(TypeError, match="fp32/bf16"):
-            fa.kernel_variant(dtype)
     with pytest.raises(ValueError, match="unknown flash kernel"):
         fa.kernel_variant(torch.bfloat16, "decode_attention")
+
+
+def test_min_seq_for_pallas_seed():
+    """``MIN_SEQ_FOR_PALLAS`` is seeded from ``DTF_MIN_SEQ_FOR_PALLAS``
+    (1024 when unset), read as the JAX package reads it."""
+    from distributedtensorflow_tpu.ops import flash_attention as jfa
+
+    assert fa.min_seq_from_env({}) == 1024
+    assert fa.min_seq_from_env({"DTF_MIN_SEQ_FOR_PALLAS": "512"}) == 512
+    assert fa.min_seq_from_env(os.environ) == fa.MIN_SEQ_FOR_PALLAS \
+        == jfa.MIN_SEQ_FOR_PALLAS
+    with pytest.raises(ValueError):
+        fa.min_seq_from_env({"DTF_MIN_SEQ_FOR_PALLAS": "long"})
 
 
 def test_fused_backward_threshold_is_jaxs():

@@ -8,6 +8,7 @@ XLA path (the presets' ``"auto"``).  The JAX package is only called.
 """
 
 import dataclasses
+import io
 import json
 
 import jax
@@ -530,6 +531,59 @@ def test_build_optimizer_matches_optax(case):
             np.testing.assert_allclose(p.detach().numpy(),
                                        np.asarray(jp[key[0]][key[1]]),
                                        rtol=0, atol=1e-6, err_msg=str(key))
+
+
+@pytest.mark.parametrize("name", ["sgd", "momentum", "adamw", "adagrad"])
+def test_restored_optimizer_continues_the_schedule(name):
+    """Warm-up plus cosine over three updates, then the optimizer's
+    ``state_dict`` loaded into a fresh optimizer over a copy of the
+    parameters: its next learning rate and update equal those of the run
+    that was not interrupted (the schedule's count travels in the state,
+    so warm-up does not restart)."""
+    rng = np.random.default_rng(11)
+    p0 = {"w": rng.standard_normal((4, 3)).astype(np.float32),
+          "b": rng.standard_normal(3).astype(np.float32)}
+    grads = [{k: rng.standard_normal(v.shape).astype(np.float32)
+              for k, v in p0.items()} for _ in range(4)]
+    lr = tt.build_schedule("cosine", 0.1, warmup_steps=2, total_steps=6)
+    make = tt.build_optimizer(name, lr, global_clipnorm=1.0,
+                              weight_decay=0.01 if name == "adamw" else 0.0)
+
+    def params():
+        return [(k, torch.nn.Parameter(torch.from_numpy(v.copy())))
+                for k, v in p0.items()]
+
+    def step(opt, named, g):
+        for k, p in named:
+            p.grad = torch.from_numpy(g[k].copy())  # clipping is in place
+        opt.step()
+
+    whole = params()
+    opt = make(whole)
+    for g in grads[:3]:
+        step(opt, whole, g)
+    buf = io.BytesIO()  # as a checkpoint file holds it
+    torch.save(opt.state_dict(), buf)
+    buf.seek(0)
+    saved = torch.load(buf)
+    resumed = [(k, torch.nn.Parameter(p.detach().clone())) for k, p in whole]
+    opt2 = make(resumed)
+    opt2.load_state_dict(saved)
+    step(opt, whole, grads[3])
+    step(opt2, resumed, grads[3])
+    assert opt2.param_groups[0]["lr"] == opt.param_groups[0]["lr"] == lr(3)
+    assert opt.param_groups[0]["count"] == opt2.param_groups[0]["count"] == 4
+    for (_, a), (_, b) in zip(whole, resumed):
+        assert torch.equal(a, b)
+    # a fresh optimizer without the state starts warm-up again
+    opt3 = make([(k, torch.nn.Parameter(p.detach().clone()))
+                 for k, p in whole])
+    opt3.zero_grad()
+    for group in opt3.param_groups:
+        for p in group["params"]:
+            p.grad = torch.zeros_like(p)
+    opt3.step()
+    assert opt3.param_groups[0]["lr"] == lr(0) != lr(3)
 
 
 def test_build_optimizer_validation_and_queued_optimizers():
