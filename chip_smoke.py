@@ -11,7 +11,8 @@ Phases, each fatal on failure:
 2. build: every CUDA kernel of the serving and training paths (eight
    libraries), compiled with nvcc for sm_90a from
    ``distributedtensorflow_tpu_torch/csrc`` into ``build/torch_kernels/``,
-   one nvcc per source, all started together;
+   one nvcc per source, all started together; the SASS of the bf16 K4b
+   kernels must hold wgmma (HGMMA) and TMA loads (UTMALDG);
 3. kernels: each kernel against its plain PyTorch version on the same
    inputs at its path's shapes, with its time, the plain version's, one
    PyTorch library call's, and its bound (the least time the card could
@@ -25,8 +26,9 @@ Phases, each fatal on failure:
    the flash kernels' forward plus backward against the plain attention
    at S 256, 512 and 1024;
 4. xent: the fused LM head's kernels (forward, dx, dw) at gpt_lm's head
-   (16376 tokens, D 768, V 50257, bf16), at D 1024, in fp32 and at a
-   ragged token count, the same way;
+   (16376 tokens, D 768, V 50257, bf16), at D 128 and 1024, in fp32 and
+   at a ragged token count, the same way (in bf16 dx and dw run on
+   wgmma, TMA and a cluster split over D; each row names its plan);
 5. serving: the paged continuous-batching ``Engine`` at full
    GPT-2-small width (bf16, seeded random weights) answers six requests;
 6. dense generate: ``generate`` at full width, batch 4 (K5 launched
@@ -152,6 +154,41 @@ def bf16_ulp_err(torch, got, ref):
     _, exp = torch.frexp(ref.float().abs().clamp_min(2.0**-100))
     ulp = torch.ldexp(torch.ones_like(ref, dtype=torch.float32), exp - 8)
     return ((got.float() - ref.float()).abs() / ulp).max().item()
+
+
+def check_sass(cuda) -> None:
+    """Read the SASS of ``fused_xent_bwd`` with ``cuobjdump -sass`` where
+    the toolkit has it: each bf16 K4b kernel (``xent_bwd_wgmma_kernel``,
+    six instantiations: three widths, dx and dw) must hold warpgroup
+    products (``HGMMA``) and TMA loads (``UTMALDG``)."""
+    import os
+    import shutil
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = shutil.which("cuobjdump")
+    if tool is None:
+        path = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+        tool = path if os.path.exists(path) else None
+    if tool is None:
+        emit({"phase": "sass", "skipped": "no cuobjdump in the toolkit"})
+        return
+    text = subprocess.run([tool, "-sass", str(cuda.lib_path("fused_xent_bwd"))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    funcs = {}
+    for block in text.split("Function : ")[1:]:
+        name, _, body = block.partition("\n")
+        funcs[name.strip()] = body
+    wgmma = {name: {"HGMMA": "HGMMA" in body, "UTMALDG": "UTMALDG" in body}
+             for name, body in funcs.items()
+             if "xent_bwd_wgmma_kernel" in name}
+    ok = len(wgmma) == 6 and all(all(v.values()) for v in wgmma.values())
+    emit({"phase": "sass", "library": "fused_xent_bwd", "kernels": wgmma,
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"the bf16 K4b kernels lack HGMMA or UTMALDG: "
+                             f"{wgmma}")
 
 
 def check_layernorm(torch, F, ln):
@@ -666,18 +703,25 @@ def _library_logits(torch, x, w, grad):
 def check_fused_xent(torch, F, fx):
     """K4f, K4b dx and K4b dw against their plain twins: gpt_lm's head
     (N 16376 = 8 x 2047 tokens, D 768, V 50257, bf16) with a partial mask
-    and 1% of the targets at -100; D 1024 (gpt_medium_lm); fp32 operands;
-    a ragged N.  Forward values to atol 1e-4 (the same rounded operands,
-    another summation order); dx and dw to 5e-4 of their max in bf16 (a
-    rounding of dlog to bf16 may flip where p differs in its last fp32
-    bit) and 1e-4 in fp32; dx and dw bit-identical on a rerun.  For bf16
-    the row also reads an unrounded control, the plain products of dlog
-    kept in fp32, against the plain twin: it shows how far the limit
+    and 1% of the targets at -100; D 128 (gpt_tiny) and D 1024
+    (gpt_medium_lm), so every width of ``HIDDEN_SIZES`` runs; fp32
+    operands; a ragged N.  Forward values to atol 1e-4 (the same rounded
+    operands, another summation order); dx and dw to 5e-4 of their max in
+    bf16 (a rounding of dlog to bf16 may flip where p differs in its last
+    fp32 bit) and 1e-4 in fp32; dx and dw bit-identical on a rerun.  Each
+    K4b row names its plan (``xent_bwd_plan``: cluster size, owned and
+    streamed rows, ring stages) and ``variant`` ("wgmma_cluster" in bf16,
+    "fma" in fp32).  The library yardsticks: for K4f one forward call;
+    for K4b the backward alone (``torch.autograd.grad`` on a retained
+    forward graph) and, as in earlier runs, forward plus backward.  For
+    bf16 the row also reads an unrounded control, the plain products of
+    dlog kept in fp32, against the plain twin: it shows how far the limit
     lies below a kernel that skipped dlog's rounding."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 8)
     bf16, fp32 = torch.bfloat16, torch.float32
-    cases = [("gpt_lm", bf16, 16376, 768), ("d1024", bf16, 16376, 1024),
-             ("fp32", fp32, 4096, 768), ("ragged_n", bf16, 1000, 768)]
+    cases = [("gpt_lm", bf16, 16376, 768), ("d128", bf16, 16376, 128),
+             ("d1024", bf16, 16376, 1024), ("fp32", fp32, 4096, 768),
+             ("ragged_n", bf16, 1000, 768)]
     v = 50257
     rows = {"fused_xent_fwd": [], "fused_xent_dx": [], "fused_xent_dw": []}
     for name, dtype, n, d in cases:
@@ -727,13 +771,20 @@ def check_fused_xent(torch, F, fx):
         def lib_fwd_bwd(xl=xl, wl=wl):
             return torch.autograd.grad(lib_fwd(grad=True), (xl, wl))
 
+        lib_loss = lib_fwd(grad=True)
+
+        def lib_bwd(xl=xl, wl=wl, lib_loss=lib_loss):
+            return torch.autograd.grad(lib_loss, (xl, wl), retain_graph=True)
+
         emit({"phase": "fused_xent_check", "case": name, **errs,
               "deterministic": deterministic, "ok": oks})
         it = dict(iters=5, reps=3)
         plain_it = dict(iters=2, reps=3)
         lib_ms = time_ms(torch, lib_fwd, [()], graph=False, **plain_it)
-        lib_bwd_ms = time_ms(torch, lib_fwd_bwd, [()], graph=False,
-                             **plain_it)
+        lib_fwd_bwd_ms = time_ms(torch, lib_fwd_bwd, [()], graph=False,
+                                 **plain_it)
+        lib_bwd_ms = time_ms(torch, lib_bwd, [()], graph=False, **plain_it)
+        del lib_loss, lib_bwd
         el = x.element_size()
         flops = 2.0 * n * v * d
         xb, wb, rb = n * d * el, v * d * el, 4 * n
@@ -769,8 +820,16 @@ def check_fused_xent(torch, F, fx):
                    "plain_ms": time_ms(torch, plain, [args], **plain_it),
                    "library_ms": lms, "bound_ms": bms, "bound_by": by}
             if kname != "fused_xent_fwd":
-                row["library"] = ("mm, widened + F.cross_entropy, forward "
-                                  "and backward (eager)")
+                rows_own = n if kname == "fused_xent_dx" else v
+                plan = fx.xent_bwd_plan(rows_own, n + v - rows_own, d, dtype)
+                row.update(
+                    variant=plan.variant, plan={
+                        "k": plan.k, "m": plan.m, "s": plan.s,
+                        "stages": plan.stages, "smem": plan.smem,
+                        "grid": plan.grid},
+                    library=("mm, widened + F.cross_entropy: backward "
+                             "alone (eager, retained graph)"),
+                    library_fwd_bwd_ms=lib_fwd_bwd_ms)
             emit(row)
             if not oks[kname]:
                 raise AssertionError(f"{kname} kernel disagrees: {row}")
@@ -1471,6 +1530,7 @@ def main(argv=None) -> int:
         print(f"--- nvcc {name}\n{text.strip()}", flush=True)
     emit({"phase": "build", "seconds": time.time() - t0,
           "built": sorted(reports)})
+    check_sass(_cuda)
 
     rows = {}
     if "kernels" in phases:

@@ -1,4 +1,5 @@
-// Shared pieces of the fused LM-head kernels (fused_xent_fwd.cu, fused_xent_bwd.cu).
+// Shared pieces of the fused LM-head kernels (fused_xent_fwd.cu, and the
+// fp32 kernel of fused_xent_bwd.cu).
 //
 // Every kernel of the head computes tiles of logits = x . w^T, x (N, D)
 // the tokens' hidden states and w (V, D) the tied table, both in the
@@ -73,12 +74,13 @@ __device__ __forceinline__ void load_rows(const T* g, int ld, int row0, int nrow
 // acc[MT][NT] += A . B over K columns, A (16 MT rows, K) row-major in
 // shared memory (stride lda), B given as "nt": (8 NT rows, K) row-major,
 // B(k, n) = B[n * ldb + k]; or "nn": (K, 8 NT) row-major, B(k, n) =
-// B[k * ldb + n].  NT is even.
+// B[k * ldb + n] (fp32 only: K4b's CUDA-core kernel).  NT is even.
 template <typename T, int MT, int NT, int K, bool NN>
 struct WarpMma;
 
 template <int MT, int NT, int K, bool NN>
 struct WarpMma<__nv_bfloat16, MT, NT, K, NN> {
+  static_assert(!NN, "bf16 products take B as nt");
   static __device__ __forceinline__ void run(const __nv_bfloat16* A, int lda,
                                              const __nv_bfloat16* B, int ldb,
                                              float (&acc)[MT][NT][4]) {
@@ -94,15 +96,9 @@ struct WarpMma<__nv_bfloat16, MT, NT, K, NN> {
 #pragma unroll
       for (int ni = 0; ni < NT; ni += 2) {
         uint32_t r[4];
-        if (NN) {
-          // rows kk .. kk+15 of two n-tiles of the (K, n) tile, transposed
-          // into col-major B fragments
-          ldmatrix_x4_trans(r, B + (kk + (lane & 15)) * ldb + ni * 8 + (lane >> 4) * 8);
-        } else {
-          // rows n of two n-tiles at columns kk and kk + 8
-          ldmatrix_x4(r, B + (ni * 8 + (lane & 7) + ((lane >> 4) << 3)) * ldb + kk +
-                             ((lane >> 3) & 1) * 8);
-        }
+        // rows n of two n-tiles at columns kk and kk + 8
+        ldmatrix_x4(r, B + (ni * 8 + (lane & 7) + ((lane >> 4) << 3)) * ldb + kk +
+                           ((lane >> 3) & 1) * 8);
         b[ni][0] = r[0];
         b[ni][1] = r[1];
         b[ni + 1][0] = r[2];

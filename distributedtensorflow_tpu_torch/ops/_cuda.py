@@ -34,6 +34,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+#: Dynamic shared memory one block may use on the H100 (227 KB).
+SMEM_LIMIT = 232448
+
 #: kernel name -> launches since the caller last reset it.
 launches: collections.Counter = collections.Counter()
 

@@ -35,6 +35,7 @@ import os
 import torch
 
 from . import _cuda
+from ._cuda import SMEM_LIMIT
 from . import flash_attention as _flash
 
 #: Finite mask value: a fully masked row averages V instead of giving NaN.
@@ -58,8 +59,6 @@ def decode_impl_from_env(environ) -> str:
 #: a step runs.
 DECODE_IMPL = decode_impl_from_env(os.environ)
 
-#: Dynamic shared memory one block may use on the H100 (227 KB).
-SMEM_LIMIT = 232448
 #: Streaming multiprocessors of an H100 SXM; :func:`decode_plan` splits
 #: the band into as many blocks as :data:`_BLOCKS_PER_SM` a SM take in
 #: one wave (the wrapper passes the card's own count).

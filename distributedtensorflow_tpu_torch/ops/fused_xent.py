@@ -34,10 +34,12 @@ the Mosaic tile choice by width are VMEM budgets, not semantics.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import _cuda
+from ._cuda import SMEM_LIMIT
 
 #: Hidden sizes the backward kernels are built for (templates in
 #: ``csrc/fused_xent_bwd.cu``); the forward takes any multiple of 64.
@@ -46,7 +48,7 @@ HIDDEN_SIZES = (128, 768, 1024)
 _FWD_SIGNATURES = {"dtf_xent_fwd": [ctypes.c_void_p] * 5
                    + [ctypes.c_int] * 5 + [ctypes.c_void_p]}
 _BWD_SIGNATURES = {
-    name: [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    name: [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     for name in ("dtf_xent_bwd_dx", "dtf_xent_bwd_dw")
 }
 
@@ -156,6 +158,70 @@ def xent_dw_plain(x, w, t, lse, c):
 # ------------------------------------------------------------------- kernels
 
 
+class XentBwdPlan(NamedTuple):
+    """How ``csrc/fused_xent_bwd.cu`` cuts one K4b launch."""
+
+    variant: str   # "wgmma_cluster" (bf16) or "fma" (fp32, CUDA cores)
+    k: int         # blocks of a cluster, each owning D / k output columns
+    m: int         # owned rows of a cluster
+    s: int         # streamed rows of a tile
+    stages: int    # ring depth of the streamed tiles
+    threads: int   # threads of a block
+    smem: int      # dynamic shared memory of a block, bytes
+    clusters: int  # clusters (groups of m owned rows)
+    grid: int      # blocks: clusters * k
+
+
+_M, _S, _THREADS = 128, 64, 256      # bf16 kernel (kM, kS, kWgThreads)
+_FMA_M, _FMA_S, _FMA_SC = 32, 128, 16  # fp32 kernel (kOwn, kStream, kSC)
+
+
+def xent_bwd_plan(n_own: int, n_str: int, d: int,
+                  dtype=torch.bfloat16) -> XentBwdPlan:
+    """The launch plan of K4b for ``n_own`` owned rows (tokens for dx,
+    vocab rows for dw) streaming ``n_str`` rows at hidden size ``d``.
+
+    bf16: a cluster of ``k`` blocks owns 128 rows; block ``r`` holds the
+    output columns ``[r d/k, (r+1) d/k)``, ``d/k`` the widest of 256 and
+    128 that divides ``d`` (the gradient product runs in n128 pieces),
+    as a 128 x d/k fp32 tile over 256 threads.  Its shared memory
+    (``Layout`` in the source) is the owned slice, a ring of 64-row
+    streamed slices (as many stages as fit, at most 4), when ``k > 1``
+    the fp32 partial logits the cluster's blocks send to this one (``k``
+    sources x ``ceil(8 / k)`` fragment chunks x 256 threads x 16 bytes),
+    the bf16 dlog tile, per warpgroup two tiles' per-token (lse, c,
+    t), the barriers (a full and an empty one a stage, the owned
+    slice's, two a warpgroup for the exchange) and 1 KB to align the
+    base.
+    fp32: the CUDA-core kernel, 32 owned rows a block, no cluster."""
+    if n_own < 1 or n_str < 1:
+        raise ValueError(f"empty operand: {n_own} owned, {n_str} streamed rows")
+    if d not in HIDDEN_SIZES:
+        raise ValueError(f"K4b is built for hidden sizes {HIDDEN_SIZES}, "
+                         f"got {d}")
+    if dtype == torch.float32:
+        pad = 4
+        stage = max(2 * (_FMA_M + _FMA_S) * (64 + pad),
+                    2 * _FMA_SC * (d + pad))
+        smem = 4 * (stage + _FMA_M * (_FMA_S + pad))
+        clusters = -(-n_own // _FMA_M)
+        return XentBwdPlan("fma", 1, _FMA_M, _FMA_S, 2, 256, smem,
+                           clusters, clusters)
+    if dtype != torch.bfloat16:
+        raise TypeError(f"K4b takes bf16 or fp32, got {dtype}")
+    dk = next(w for w in (256, 128) if d % w == 0)
+    k = d // dk
+    recv = k * -(-8 // k) * _THREADS * 16 if k > 1 else 0
+    fixed = 1024 + _M * dk * 2 + recv + _M * _S * 2 + 2 * 2 * 3 * _S * 4 + 40
+    stage = _S * dk * 2 + 16  # and its full and empty barriers
+    stages = min(4, (SMEM_LIMIT - fixed) // stage)
+    if stages < 2:
+        raise ValueError(f"D={d}: no two-stage ring fits {SMEM_LIMIT} bytes")
+    clusters = -(-n_own // _M)
+    return XentBwdPlan("wgmma_cluster", k, _M, _S, stages, _THREADS,
+                       fixed + stages * stage, clusters, clusters * k)
+
+
 def _operands(x, w, t, what, rows=()):
     """Check what the kernels take; returns the operands contiguous and
     16-byte aligned (a copy only where they are not)."""
@@ -212,15 +278,16 @@ def xent_fwd_cuda(x, w, t):
 def _bwd_cuda(x, w, t, lse, c, which):
     name = f"fused_xent_{which}"
     x, w, t, lse, c = _operands(x, w, t, name, (("lse", lse), ("c", c)))
-    rows = x.shape[0] if which == "dx" else w.shape[0]
-    out = torch.empty((rows, x.shape[1]), dtype=torch.float32,
-                      device=x.device)
+    (n, d), v = x.shape, w.shape[0]
+    rows, streamed = (n, v) if which == "dx" else (v, n)
+    plan = xent_bwd_plan(rows, streamed, d, x.dtype)
+    out = torch.empty((rows, d), dtype=torch.float32, device=x.device)
     lib = _cuda.load("fused_xent_bwd", _BWD_SIGNATURES)
     err = getattr(lib, f"dtf_xent_bwd_{which}")(
         x.data_ptr(), w.data_ptr(), t.data_ptr(), lse.data_ptr(),
-        c.data_ptr(), out.data_ptr(), x.shape[0], w.shape[0], x.shape[1],
-        x.dtype == torch.bfloat16, x.device.index or 0,
-        _cuda.stream_handle(x.device))
+        c.data_ptr(), out.data_ptr(), n, v, d, x.dtype == torch.bfloat16,
+        plan.k, plan.m, plan.s, plan.stages, plan.smem,
+        x.device.index or 0, _cuda.stream_handle(x.device))
     _cuda.launches[name] += 1
     _cuda.check(lib, err, name)
     return out

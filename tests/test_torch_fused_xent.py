@@ -22,6 +22,7 @@ from distributedtensorflow_tpu.models import lm_loss as jax_lm_loss
 from distributedtensorflow_tpu.ops import fused_xent as jfx
 from distributedtensorflow_tpu_torch import models as tm
 from distributedtensorflow_tpu_torch.models.gpt import _pick_xent
+from distributedtensorflow_tpu_torch.ops import _cuda
 from distributedtensorflow_tpu_torch.ops import fused_xent as fx
 from distributedtensorflow_tpu_torch.ops.xent import chunked_softmax_xent
 
@@ -252,3 +253,74 @@ def test_pick_xent_auto_follows_the_device():
     assert _pick_xent(fused, torch.device("cpu")) is fx.fused_softmax_xent
     chunked = dataclasses.replace(cfg, xent_impl="chunked")
     assert _pick_xent(chunked, torch.device("cuda")) is chunked_softmax_xent
+
+
+# ------------------------------------------------------- K4b's launch plan
+
+GPT_LM_HEAD = {"dx": (16376, 50257), "dw": (50257, 16376)}
+
+
+@pytest.mark.parametrize("which", ["dx", "dw"])
+@pytest.mark.parametrize("d", fx.HIDDEN_SIZES)
+def test_bwd_plan_fits_the_block(d, which):
+    """At gpt_lm's head, each width's bf16 plan fits a block's shared
+    memory, keeps at most 128 fp32 outputs a thread, splits D into
+    slices of a multiple of 64 columns, at most 256, and rings at least
+    two stages."""
+    n_own, n_str = GPT_LM_HEAD[which]
+    plan = fx.xent_bwd_plan(n_own, n_str, d)
+    dk = d // plan.k
+    assert plan.variant == "wgmma_cluster"
+    assert plan.k * dk == d and dk % 64 == 0 and dk <= 256
+    assert plan.smem <= fx.SMEM_LIMIT == 232448
+    assert plan.m * dk / plan.threads <= 128
+    assert plan.m % 64 == 0 and plan.s % 16 == 0 and plan.stages >= 2
+
+
+@pytest.mark.parametrize("n_own", [1000, 16376, 50257])
+@pytest.mark.parametrize("d", fx.HIDDEN_SIZES)
+def test_bwd_plan_grid_covers_every_row_once(n_own, d):
+    """The grid is whole clusters, and the (cluster, rank) of each block
+    maps (owned rows, output columns) so that every (row, column) of a
+    ragged N or V is covered by exactly one block."""
+    plan = fx.xent_bwd_plan(n_own, 64, d)
+    assert plan.grid == plan.clusters * plan.k
+    dk = d // plan.k
+    cover = np.zeros((n_own, d), np.int32)
+    for block in range(plan.grid):
+        cluster, rank = divmod(block, plan.k)
+        cover[cluster * plan.m:(cluster + 1) * plan.m,
+              rank * dk:(rank + 1) * dk] += 1
+    assert (cover == 1).all()
+    assert (plan.clusters - 1) * plan.m < n_own <= plan.clusters * plan.m
+
+
+@pytest.mark.parametrize("d", fx.HIDDEN_SIZES)
+def test_bwd_plan_is_one_the_kernel_is_built_for(d):
+    """The C entry launches only the (D, K, stages) it instantiates and
+    the M, S of its constants: the plan names one of them (bf16), and the
+    fp32 plan is the CUDA-core kernel's."""
+    src = (_cuda.CSRC / "fused_xent_bwd.cu").read_text()
+    plan = fx.xent_bwd_plan(16376, 50257, d)
+    assert f"constexpr int kM = {plan.m};" in src
+    assert f"constexpr int kS = {plan.s};" in src
+    assert f"constexpr int kWgThreads = {plan.threads};" in src
+    assert (f"d == {d} && kc == {plan.k} && stages == {plan.stages}"
+            in src)
+    fma = fx.xent_bwd_plan(16376, 50257, d, torch.float32)
+    assert (fma.variant, fma.k, fma.m, fma.s) == ("fma", 1, 32, 128)
+    assert fma.smem <= fx.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("which", ["dx", "dw"])
+@pytest.mark.parametrize("d", [512, 768])
+def test_bwd_wrappers_refuse_bad_width_and_cpu(which, d):
+    """A width outside HIDDEN_SIZES has no plan, and the wrappers raise
+    on CPU tensors at any width, before any build or launch."""
+    if d not in fx.HIDDEN_SIZES:
+        with pytest.raises(ValueError, match="hidden sizes"):
+            fx.xent_bwd_plan(64, 64, d)
+    x, w = torch.zeros(8, d), torch.zeros(16, d)
+    t, r = torch.zeros(8, dtype=torch.int32), torch.zeros(8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        getattr(fx, f"xent_{which}_cuda")(x, w, t, r, r)
