@@ -1,28 +1,22 @@
-// Shared pieces of the fused LM-head kernels (fused_xent_fwd.cu, and the
-// fp32 kernel of fused_xent_bwd.cu).
+// Shared pieces of the fused LM-head kernels' fp32 paths (the CUDA-core
+// kernels of fused_xent_fwd.cu and fused_xent_bwd.cu; in bf16 both files
+// run wgmma and TMA, sm90_common.cuh).
 //
 // Every kernel of the head computes tiles of logits = x . w^T, x (N, D)
-// the tokens' hidden states and w (V, D) the tied table, both in the
-// operand type T (bf16 or fp32), with fp32 products and sums.  A block
-// owns OWN rows of one operand (tokens in the forward and dx, vocab rows
-// in dw) and streams the other in tiles of kStream rows.  The logits of
-// one (OWN, kStream) tile are the product of the two row sets over D,
-// taken in chunks of kKC columns staged in shared memory by cp.async,
-// two buffers deep: the copy of chunk c + 1 is in flight while chunk c
-// is multiplied.
+// the tokens' hidden states and w (V, D) the tied table, with fp32
+// products and sums.  A block owns OWN rows of one operand (tokens in the
+// forward and dx, vocab rows in dw) and streams the other in tiles of
+// kStream rows.  The logits of one (OWN, kStream) tile are the product of
+// the two row sets over D, taken in chunks of kKC columns staged in shared
+// memory by cp.async, two buffers deep: the copy of chunk c + 1 is in
+// flight while chunk c is multiplied.
 //
-// Warp tiles follow the fragments of mma.sync.m16n8k16: a warp holds
-// m-tiles of 16 rows by n-tiles of 8 columns, and lane l holds, in
-// acc[0..3], rows g and g + 8 (g = l / 4) by columns 2t and 2t + 1
-// (t = l % 4) of each.  With T = bf16 the products run on the tensor
-// cores (mma.sync, bf16 in, fp32 out); with T = fp32 the same fragment
-// positions are summed with FMAs on the CUDA cores, so the epilogues are
-// shared.
-//
-// bf16 fragments come from shared memory by ldmatrix (mma_common.cuh).
+// Warp tiles follow the fragments of mma.sync.m16n8k16 (mma_common.cuh):
+// a warp holds m-tiles of 16 rows by n-tiles of 8 columns, and lane l
+// holds, in acc[0..3], rows g and g + 8 (g = l / 4) by columns 2t and
+// 2t + 1 (t = l % 4) of each, summed with FMAs on the CUDA cores.
 // Shared-memory rows are padded by 16 bytes, which puts the 8 rows that
-// one ldmatrix phase (or one fp32 fragment load) touches on distinct
-// banks.
+// one fragment load touches on distinct banks.
 
 #pragma once
 
@@ -34,7 +28,7 @@
 
 namespace xent {
 
-using namespace mma;  // cp.async, ldmatrix and mma.sync (shared with the flash kernels)
+using namespace mma;  // cp.async (shared with the flash kernels)
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -44,15 +38,6 @@ constexpr float kInit = -1e30f;  // running max before the first valid logit
 
 template <typename T>
 __host__ __device__ constexpr int pad() { return 16 / static_cast<int>(sizeof(T)); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // Start copying rows [row0, row0 + R) and columns [col0, col0 + C) of
 // the row-major (nrows, ld) matrix g into shared memory (row stride
@@ -77,40 +62,6 @@ __device__ __forceinline__ void load_rows(const T* g, int ld, int row0, int nrow
 // B[k * ldb + n] (fp32 only: K4b's CUDA-core kernel).  NT is even.
 template <typename T, int MT, int NT, int K, bool NN>
 struct WarpMma;
-
-template <int MT, int NT, int K, bool NN>
-struct WarpMma<__nv_bfloat16, MT, NT, K, NN> {
-  static_assert(!NN, "bf16 products take B as nt");
-  static __device__ __forceinline__ void run(const __nv_bfloat16* A, int lda,
-                                             const __nv_bfloat16* B, int ldb,
-                                             float (&acc)[MT][NT][4]) {
-    const int lane = threadIdx.x & 31;
-#pragma unroll
-    for (int kk = 0; kk < K; kk += 16) {
-      uint32_t a[MT][4], b[NT][2];
-      // A: lanes 0-15 address rows 0-15 at column kk, lanes 16-31 the
-      // same rows at kk + 8; the four 8x8 matrices are a0..a3
-#pragma unroll
-      for (int mi = 0; mi < MT; ++mi)
-        ldmatrix_x4(a[mi], A + (mi * 16 + (lane & 15)) * lda + kk + (lane >> 4) * 8);
-#pragma unroll
-      for (int ni = 0; ni < NT; ni += 2) {
-        uint32_t r[4];
-        // rows n of two n-tiles at columns kk and kk + 8
-        ldmatrix_x4(r, B + (ni * 8 + (lane & 7) + ((lane >> 4) << 3)) * ldb + kk +
-                           ((lane >> 3) & 1) * 8);
-        b[ni][0] = r[0];
-        b[ni][1] = r[1];
-        b[ni + 1][0] = r[2];
-        b[ni + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < NT; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
-    }
-  }
-};
 
 template <int MT, int NT, int K, bool NN>
 struct WarpMma<float, MT, NT, K, NN> {

@@ -42,11 +42,12 @@ from . import _cuda
 from ._cuda import SMEM_LIMIT
 
 #: Hidden sizes the backward kernels are built for (templates in
-#: ``csrc/fused_xent_bwd.cu``); the forward takes any multiple of 64.
+#: ``csrc/fused_xent_bwd.cu``); the forward takes any multiple of 64
+#: (:func:`xent_fwd_plan`).
 HIDDEN_SIZES = (128, 768, 1024)
 
 _FWD_SIGNATURES = {"dtf_xent_fwd": [ctypes.c_void_p] * 5
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p]}
+                   + [ctypes.c_int] * 11 + [ctypes.c_void_p]}
 _BWD_SIGNATURES = {
     name: [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     for name in ("dtf_xent_bwd_dx", "dtf_xent_bwd_dw")
@@ -158,6 +159,57 @@ def xent_dw_plain(x, w, t, lse, c):
 # ------------------------------------------------------------------- kernels
 
 
+class XentFwdPlan(NamedTuple):
+    """How ``csrc/fused_xent_fwd.cu`` cuts one K4f launch."""
+
+    variant: str   # "wgmma" (bf16) or "fma" (fp32, CUDA cores)
+    m: int         # tokens of a block
+    tile: int      # vocab rows of a tile
+    stages: int    # ring depth of the staged chunks
+    cluster: int   # blocks of a cluster (1: no block shares a w chunk)
+    threads: int   # threads of a block
+    smem: int      # dynamic shared memory of a block, bytes
+    grid: int      # blocks
+
+
+_FWD_M, _FWD_TILE, _FWD_THREADS = 128, 256, 384  # bf16 (kM, kTile, kThreadsWg)
+_FWD_STAGES = 4                                   # bf16 (kStages)
+_FWD_FMA_M, _FWD_FMA_TILE = 64, 128               # fp32 (kOwn, kStream)
+
+
+def xent_fwd_plan(n: int, v: int, d: int,
+                  dtype=torch.bfloat16) -> XentFwdPlan:
+    """The launch plan of K4f for ``n`` tokens against a vocabulary of
+    ``v`` rows at hidden size ``d`` (any multiple of 64).
+
+    bf16: a block of two consumer warpgroups and a producer warpgroup
+    owns 128 tokens and sweeps the vocabulary in tiles of 256 rows,
+    contracting over ``d`` in chunks of 64 columns that a ring of TMA
+    stages brings in; a stage is the x chunk and the w chunk (128 + 256
+    rows of 128 bytes) with its full and empty barriers, four stages after
+    1 KB to align the base; the grid is ``ceil(n / 128)`` blocks, no
+    cluster (two blocks sharing each w chunk by TMA multicast measured
+    slower on the H100).
+    fp32: the CUDA-core kernel, 64 tokens a block, tiles of 128 rows
+    staged two chunks deep with 16 bytes of padding a row."""
+    if n < 1 or v < 1:
+        raise ValueError(f"empty operand: {n} tokens, {v} vocab rows")
+    if d < 64 or d % 64:
+        raise ValueError(f"K4f takes hidden sizes that are multiples of 64, "
+                         f"got {d}")
+    if dtype == torch.float32:
+        smem = 4 * 2 * (_FWD_FMA_M + _FWD_FMA_TILE) * (64 + 4)
+        blocks = -(-n // _FWD_FMA_M)
+        return XentFwdPlan("fma", _FWD_FMA_M, _FWD_FMA_TILE, 2, 1, 256,
+                           smem, blocks)
+    if dtype != torch.bfloat16:
+        raise TypeError(f"K4f takes bf16 or fp32, got {dtype}")
+    stage = (_FWD_M + _FWD_TILE) * 128 + 16  # and its full and empty barriers
+    return XentFwdPlan("wgmma", _FWD_M, _FWD_TILE, _FWD_STAGES, 1,
+                       _FWD_THREADS, 1024 + _FWD_STAGES * stage,
+                       -(-n // _FWD_M))
+
+
 class XentBwdPlan(NamedTuple):
     """How ``csrc/fused_xent_bwd.cu`` cuts one K4b launch."""
 
@@ -255,20 +307,22 @@ def _operands(x, w, t, what, rows=()):
 
 
 def xent_fwd_cuda(x, w, t):
-    """Launch ``csrc/fused_xent_fwd.cu`` on the current stream; returns
-    ``(lse, tgt)``.
+    """Launch ``csrc/fused_xent_fwd.cu`` on the current stream with the
+    plan of :func:`xent_fwd_plan`; returns ``(lse, tgt)``.
 
     The port of ``_fwd_kernel``
     (``distributedtensorflow_tpu/ops/fused_xent.py:136``).  Bound on the
     H100 by operations: ``2 N V D`` flops over 989 TFLOP/s in bf16."""
     x, w, t = _operands(x, w, t, "fused_xent_fwd")
-    n, d = x.shape
+    (n, d), v = x.shape, w.shape[0]
+    plan = xent_fwd_plan(n, v, d, x.dtype)
     lse = torch.empty(n, dtype=torch.float32, device=x.device)
     tgt = torch.empty(n, dtype=torch.float32, device=x.device)
     lib = _cuda.load("fused_xent_fwd", _FWD_SIGNATURES)
     err = lib.dtf_xent_fwd(
         x.data_ptr(), w.data_ptr(), t.data_ptr(), lse.data_ptr(),
-        tgt.data_ptr(), n, w.shape[0], d, x.dtype == torch.bfloat16,
+        tgt.data_ptr(), n, v, d, x.dtype == torch.bfloat16, plan.m,
+        plan.tile, plan.stages, plan.cluster, plan.threads, plan.smem,
         x.device.index or 0, _cuda.stream_handle(x.device))
     _cuda.launches["fused_xent_fwd"] += 1
     _cuda.check(lib, err, "fused_xent_fwd")

@@ -18,6 +18,7 @@ recomputes the statistics: on the card through ``csrc/layernorm_bwd.cu``
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -31,10 +32,11 @@ _SIGNATURES = {"dtf_layernorm_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
 #: Widest row the backward kernel holds in registers (x and dy, 4 chunks
 #: of 8 elements a lane each).
 MAX_D_BWD = 1024
-#: Blocks of the backward kernel, each writing one dgamma/dbeta partial
-#: row (``kMaxBlocks`` in ``csrc/layernorm_bwd.cu``).
-_BWD_MAX_BLOCKS = 256
-_BWD_ROWS_PER_BLOCK = 8  # one warp a row
+#: Blocks of the backward kernel's main pass that one SM holds (16 warps
+#: each, at most 64 registers a thread: ``kBlocksPerSm`` in
+#: ``csrc/layernorm_bwd.cu``).
+BWD_BLOCKS_PER_SM = 2
+_BWD_ROWS_PER_BLOCK = 16  # one warp a row
 _BWD_SIGNATURES = {"dtf_layernorm_bwd": [ctypes.c_void_p] * 7
                    + [ctypes.c_int] * 3 + [ctypes.c_float]
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p]}
@@ -163,6 +165,26 @@ def layer_norm_cuda(x, scale, bias, eps, out_dtype):
     return y
 
 
+def bwd_blocks(n: int, sms: int) -> int:
+    """Blocks of K1b's main pass for ``n`` rows on a card of ``sms`` SMs:
+    one wave of ``BWD_BLOCKS_PER_SM`` blocks an SM, fewer where the rows
+    (16 a block at a time) run out.  Each block writes one row of the
+    ``(blocks, 2, D)`` dgamma/dbeta partials."""
+    return max(1, min(-(-n // _BWD_ROWS_PER_BLOCK), sms * BWD_BLOCKS_PER_SM))
+
+
+def bwd_workspace(n: int, d: int, sms: int, device) -> torch.Tensor:
+    """The (blocks, 2, D) fp32 dgamma/dbeta partials of K1b's main pass,
+    one row a block of :func:`bwd_blocks`."""
+    return torch.empty((bwd_blocks(n, sms), 2, d), dtype=torch.float32,
+                       device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def layer_norm_bwd_cuda(x, scale, dy, eps):
     """Launch ``csrc/layernorm_bwd.cu`` on ``x``'s current stream:
     ``x`` (N, D) and ``dy`` (N, D) bf16/fp32, ``scale`` (D,) fp32; returns
@@ -198,9 +220,8 @@ def layer_norm_bwd_cuda(x, scale, dy, eps):
     dbias = torch.empty(d, dtype=torch.float32, device=x.device)
     if n == 0:
         return dx, dscale.zero_(), dbias.zero_()
-    blocks = min(-(-n // _BWD_ROWS_PER_BLOCK), _BWD_MAX_BLOCKS)
-    partial = torch.empty((blocks, 2, d), dtype=torch.float32,
-                          device=x.device)
+    partial = bwd_workspace(n, d, _sm_count(x.device.index or 0), x.device)
+    blocks = partial.shape[0]
     lib = _cuda.load("layernorm_bwd", _BWD_SIGNATURES)
     err = lib.dtf_layernorm_bwd(
         x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),

@@ -324,3 +324,98 @@ def test_bwd_wrappers_refuse_bad_width_and_cpu(which, d):
     t, r = torch.zeros(8, dtype=torch.int32), torch.zeros(8)
     with pytest.raises(ValueError, match="CUDA tensors"):
         getattr(fx, f"xent_{which}_cuda")(x, w, t, r, r)
+
+
+# ------------------------------------------------------- K4f's launch plan
+
+GPT_LM_VOCAB = 50257
+
+
+@pytest.mark.parametrize("d", [64, 128, 192, 768, 1024, 2048])
+def test_fwd_plan_fits_the_block(d):
+    """At every width from 64 to 2048, the bf16 plan is the wgmma kernel's
+    (a ring of at least two stages of 128 + 256 rows of 64 bf16 columns
+    in the shared memory of one block, two consumer warpgroups and a
+    producer warpgroup), and the fp32 plan the CUDA-core kernel's; both fit
+    ``SMEM_LIMIT``."""
+    plan = fx.xent_fwd_plan(16376, GPT_LM_VOCAB, d)
+    assert plan.variant == "wgmma"
+    assert plan.smem <= fx.SMEM_LIMIT == 232448
+    assert plan.stages >= 2
+    assert plan.smem >= plan.stages * (plan.m + plan.tile) * 64 * 2
+    assert plan.threads == 3 * 128 and plan.m == 2 * 64
+    fma = fx.xent_fwd_plan(4096, GPT_LM_VOCAB, d, torch.float32)
+    assert (fma.variant, fma.cluster) == ("fma", 1)
+    assert fma.smem <= fx.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [1, 127, 1000, 16376, 16384, 16385])
+def test_fwd_plan_grid_covers_every_token_once(n, dtype):
+    """The grid is whole clusters of blocks of ``m`` tokens; every token
+    of a ragged N falls in exactly one block, and no block lies wholly
+    past N but those that complete the last cluster."""
+    plan = fx.xent_fwd_plan(n, GPT_LM_VOCAB, 768, dtype)
+    assert plan.grid % plan.cluster == 0
+    cover = np.zeros(plan.grid * plan.m, np.int32)
+    for block in range(plan.grid):
+        cover[block * plan.m:(block + 1) * plan.m] += 1
+    assert (cover[:n] == 1).all()
+    assert (plan.grid - plan.cluster) * plan.m < n <= plan.grid * plan.m
+
+
+@pytest.mark.parametrize("v", [1, 256, 257, GPT_LM_VOCAB])
+def test_fwd_plan_tiles_cover_the_vocabulary(v):
+    """The sweep's vocab tiles cover [0, V) once, the last one ragged
+    where V is not a multiple of the tile (gpt_lm's 50257 leaves 81 rows
+    in its 197th tile): the kernel masks the rest to -inf before the
+    max."""
+    plan = fx.xent_fwd_plan(16376, v, 768)
+    tiles = -(-v // plan.tile)
+    cover = np.zeros(tiles * plan.tile, np.int32)
+    for i in range(tiles):
+        cover[i * plan.tile:(i + 1) * plan.tile] += 1
+    assert (cover[:v] == 1).all() and (tiles - 1) * plan.tile < v
+    if v == GPT_LM_VOCAB:
+        assert (tiles, v - (tiles - 1) * plan.tile) == (197, 81)
+
+
+@pytest.mark.parametrize("d,dtype,error", [
+    (96, torch.bfloat16, ValueError), (100, torch.bfloat16, ValueError),
+    (32, torch.float32, ValueError), (0, torch.bfloat16, ValueError),
+    (768, torch.float16, TypeError), (768, torch.float64, TypeError)])
+def test_fwd_plan_refuses_what_it_was_not_built_for(d, dtype, error):
+    """A width that is not a positive multiple of 64, or a dtype other
+    than bf16 and fp32, has no plan."""
+    with pytest.raises(error):
+        fx.xent_fwd_plan(64, 300, d, dtype)
+
+
+def test_fwd_plan_is_one_the_kernel_is_built_for():
+    """The C entry launches only the (M, tile, stages, threads) of its
+    constants and no cluster: the bf16 plan names them, and the fp32 plan
+    is the CUDA-core kernel's."""
+    src = (_cuda.CSRC / "fused_xent_fwd.cu").read_text()
+    plan = fx.xent_fwd_plan(16376, GPT_LM_VOCAB, 768)
+    assert f"constexpr int kM = {plan.m};" in src
+    assert f"constexpr int kTile = {plan.tile};" in src
+    assert f"constexpr int kStages = {plan.stages};" in src
+    assert f"constexpr int kThreadsWg = {plan.threads};" in src
+    assert plan.cluster == 1 and "cluster != 1" in src
+    assert plan.smem == 1024 + plan.stages * ((plan.m + plan.tile) * 128
+                                              + 16)
+    fma = fx.xent_fwd_plan(4096, GPT_LM_VOCAB, 768, torch.float32)
+    assert f"constexpr int kOwn = {fma.m};" in src
+
+
+@pytest.mark.parametrize("d", [96, 768])
+def test_fwd_wrapper_refuses_bad_width_and_cpu(d):
+    """The K4f wrapper raises on CPU tensors at any width, and on a width
+    that is not a multiple of 64, before any build or launch."""
+    x, w = torch.zeros(8, d), torch.zeros(16, d)
+    t = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fx.xent_fwd_cuda(x, w, t)
+    if d % 64:
+        with pytest.raises(ValueError, match="multiples of 64"):
+            fx.xent_fwd_plan(8, 16, d)

@@ -198,3 +198,35 @@ def test_backward_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         layer_norm_bwd_cuda(torch.from_numpy(x), torch.from_numpy(g),
                             torch.from_numpy(x), 1e-6)
+
+
+# ------------------------------------------------------- K1b's grid
+
+
+@pytest.mark.parametrize("n,sms,blocks", [
+    (16384, 132, 264), (16384, 114, 228), (4 * 1024, 132, 256),
+    (2047, 132, 128), (17, 132, 2), (16, 132, 1), (1, 132, 1), (0, 132, 1)])
+def test_bwd_blocks_is_pure_in_rows_and_sms(n, sms, blocks):
+    """K1b's main pass runs one wave of BWD_BLOCKS_PER_SM blocks an SM
+    (the training step's 16384 rows on 132 SMs: 264 blocks), fewer where
+    the rows run out at 16 a block; the same inputs give the same grid."""
+    from distributedtensorflow_tpu_torch.ops import layernorm as ln
+
+    assert ln.bwd_blocks(n, sms) == blocks == ln.bwd_blocks(n, sms)
+    assert blocks <= sms * ln.BWD_BLOCKS_PER_SM
+
+
+@pytest.mark.parametrize("n,d,sms", [(16384, 768, 132), (1000, 1024, 132),
+                                     (37, 128, 4)])
+def test_bwd_workspace_matches_the_grid(n, d, sms):
+    """The partial workspace holds one (2, D) fp32 row per block of the
+    grid, and the kernel's launch bounds promise the blocks an SM that
+    the grid counts on."""
+    from distributedtensorflow_tpu_torch.ops import layernorm as ln
+
+    ws = ln.bwd_workspace(n, d, sms, "cpu")
+    assert ws.shape == (ln.bwd_blocks(n, sms), 2, d)
+    assert ws.dtype == torch.float32
+    src = (_cuda.CSRC / "layernorm_bwd.cu").read_text()
+    assert f"constexpr int kBlocksPerSm = {ln.BWD_BLOCKS_PER_SM};" in src
+    assert "__launch_bounds__(kWarps * 32, kBlocksPerSm)" in src
