@@ -17,9 +17,10 @@ Phases, each fatal on failure:
    on the same inputs at its path's shapes, with its time, the plain
    version's, one PyTorch library call's, and its bound (the least time
    the card could take: bytes over 3.35 TB/s or operations over the peak
-   rate of their type): the LayerNorm forward at the serving shapes and a
-   training step's rows, the LayerNorm backward at the training step's
-   (its two launches timed apart); decode attention at the serving
+   rate of their type): the LayerNorm forward at the serving shapes, a
+   GPT training step's rows and a BERT microbatch's (32768 x 768, fp32
+   in and out), the LayerNorm backward at the GPT step's and the BERT
+   microbatch's (fp32 x and dy; its two launches timed apart); decode attention at the serving
    shapes, the flash-attention forward, the
    split backward's dq and dk/dv kernels and the single-sweep backward
    K3f at the training step's, and the flash kernels again at
@@ -74,11 +75,31 @@ Phases, each fatal on failure:
     B=2, S=2048): the loss through the flash kernels agrees with the loss
     through the plain attention, both on the card.
 
+13. baseline: the BASELINE.json presets through ``train_torch.build`` at
+    full width and their defaults but the batch: mnist_lenet (batch 128,
+    fp32) and cifar_resnet20 (256, bf16), 1+5 steps; imagenet_resnet50
+    (224x224, bf16, 256 of the preset's global 1024), 1+3;
+    bert_mlm and bert_mlm_packed (BERT-base, seq 512, 256 in four
+    microbatches), 1+2; widedeep (the full tables, 4096), 1+5.  Each
+    prints its step ms, examples/s (and tokens/s for BERT), its flops per
+    step counted by ``FlopCounterMode`` over the warm-up step, MFU and
+    peak memory; its losses must be finite, the warm-up batch's loss must
+    fall over the steps, every BatchNorm buffer must move, and each BERT
+    step launches K1f and K1b 104 times (26 LayerNorms a microbatch) and
+    no other kernel.  profile_imagenet_resnet50 and profile_bert_mlm:
+    torch.profiler over two steps.  baseline_gate512: bert_mlm_packed
+    again with ``MIN_SEQ_FOR_PALLAS`` at 512 (K2 and K3f 48 times a step,
+    non-causal with segment ids), its warm-up loss within 1e-2 of the
+    default run's.  consistency_baseline (fp32): ImageNetResNet at stage
+    sizes (1, 1, 1, 1), 64x64, and BERT-base cut to 2 layers (K1f and K1b
+    on the card): loss, gradients and running statistics on the card
+    against the CPU's.
+
 Kernel launch counts are set to 0 just before phases 5, 6 (each
-generate run) and 9-11 (each path) and read just after; a kernel of the path that did not launch, or
-a gpt_lm or gpt_moe training step that launched a kernel another number
-of times than its forward, recomputation and backward need, fails the
-run.  The
+generate run), 9-11 and 13 (each path) and read just after; a kernel of
+the path that did not launch, or a gpt_lm, gpt_moe or BERT training step
+that launched a kernel another number of times than its forward,
+recomputation and backward need, fails the run.  The
 line before the last is one JSON object with a row per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset
 (for iterating on one part); the default runs all.
@@ -233,57 +254,63 @@ def check_layernorm(torch, F, ln):
     d = 768
     gamma = 1.0 + 0.1 * torch.randn(d, device="cuda", generator=g)
     beta = 0.1 * torch.randn(d, device="cuda", generator=g)
-    for n in (4, 16, 64, 16384):  # decode steps; a training step's rows
-        for out_dtype in (torch.bfloat16, torch.float32):
-            x = (2.0 * torch.randn(n, d, device="cuda", generator=g)
-                 + 0.5).to(torch.bfloat16)
-            got = ln.layer_norm_cuda(x, gamma, beta, 1e-6, out_dtype)
-            ref = ln._plain_layer_norm(x, gamma, beta, 1e-6, out_dtype)
-            torch.cuda.synchronize()
-            err = (got.float() - ref.float()).abs().max().item()
-            if out_dtype == torch.bfloat16 and n <= 64:
-                ulps = bf16_ulp_err(torch, got, ref)
-                ok, tol = ulps <= 1.0, "1 bf16 ulp of the plain value"
-            elif out_dtype == torch.bfloat16:
-                # over 12.6M outputs some y = xhat * g + b cancels to near
-                # 0, where a few fp32 ulps of another summation order are
-                # many bf16 ulps of y: hold each output to one rounding of
-                # a value within 1e-5 of the plain fp32 output instead
-                ulps = bf16_ulp_err(torch, got, ref)
-                ref32 = ln._plain_layer_norm(x, gamma, beta, 1e-6,
-                                             torch.float32)
-                _, e = torch.frexp(ref32.abs().clamp_min(2.0**-100))
-                ulp = torch.ldexp(torch.ones_like(ref32), e - 8)
-                ok = bool(((got.float() - ref32).abs() <= 1e-5 + ulp).all())
-                tol = ("one bf16 rounding of a value within 1e-5 of the "
-                       "plain fp32 output")
-                del ref32, e, ulp
-            else:
-                ok = torch.allclose(got, ref, rtol=1e-5, atol=1e-5)
-                ulps, tol = None, "atol 1e-5 + rtol 1e-5"
-            g_lib, b_lib = gamma.to(x.dtype), beta.to(x.dtype)
-            nbytes = n * d * (x.element_size() + got.element_size()) + 2 * d * 4
-            bms, by = bound_ms(nbytes, 8 * n * d, torch.float32)
-            row = {
-                "kernel": "layernorm_fwd", "n": n, "d": d,
-                "in": "bfloat16", "out": str(out_dtype)[6:],
-                "max_abs_err": err, "max_bf16_ulps": ulps, "tolerance": tol,
-                "ms": time_ms(torch, ln.layer_norm_cuda,
-                              [(x, gamma, beta, 1e-6, out_dtype)]),
-                "eager_ms": time_ms(torch, ln.layer_norm_cuda,
-                                    [(x, gamma, beta, 1e-6, out_dtype)],
-                                    graph=False),
-                "plain_ms": time_ms(torch, ln._plain_layer_norm,
-                                    [(x, gamma, beta, 1e-6, out_dtype)]),
-                "library_ms": time_ms(
-                    torch, lambda a: F.layer_norm(a, (d,), g_lib, b_lib, 1e-6),
-                    [(x,)]),
-                "bound_ms": bms, "bound_by": by,
-            }
-            emit(row)
-            if not ok:
-                raise AssertionError(f"layernorm kernel disagrees: {row}")
-            rows.append(row)
+    # decode steps; a GPT training step's rows; a BERT microbatch's rows
+    # (64 x 512, fp32 in and out: its LayerNorms sum fp32 residuals); the
+    # gathered MLM head's (64 x 103 positions, bf16 in, fp32 out)
+    cases = [(n, torch.bfloat16, out) for n in (4, 16, 64, 16384)
+             for out in (torch.bfloat16, torch.float32)]
+    for n, x_dtype, out_dtype in cases + [
+            (32768, torch.float32, torch.float32),
+            (6592, torch.bfloat16, torch.float32)]:
+        x = (2.0 * torch.randn(n, d, device="cuda", generator=g)
+             + 0.5).to(x_dtype)
+        got = ln.layer_norm_cuda(x, gamma, beta, 1e-6, out_dtype)
+        ref = ln._plain_layer_norm(x, gamma, beta, 1e-6, out_dtype)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        if out_dtype == torch.bfloat16 and n <= 64:
+            ulps = bf16_ulp_err(torch, got, ref)
+            ok, tol = ulps <= 1.0, "1 bf16 ulp of the plain value"
+        elif out_dtype == torch.bfloat16:
+            # over 12.6M outputs some y = xhat * g + b cancels to near
+            # 0, where a few fp32 ulps of another summation order are
+            # many bf16 ulps of y: hold each output to one rounding of
+            # a value within 1e-5 of the plain fp32 output instead
+            ulps = bf16_ulp_err(torch, got, ref)
+            ref32 = ln._plain_layer_norm(x, gamma, beta, 1e-6,
+                                         torch.float32)
+            _, e = torch.frexp(ref32.abs().clamp_min(2.0**-100))
+            ulp = torch.ldexp(torch.ones_like(ref32), e - 8)
+            ok = bool(((got.float() - ref32).abs() <= 1e-5 + ulp).all())
+            tol = ("one bf16 rounding of a value within 1e-5 of the "
+                   "plain fp32 output")
+            del ref32, e, ulp
+        else:
+            ok = torch.allclose(got, ref, rtol=1e-5, atol=1e-5)
+            ulps, tol = None, "atol 1e-5 + rtol 1e-5"
+        g_lib, b_lib = gamma.to(x.dtype), beta.to(x.dtype)
+        nbytes = n * d * (x.element_size() + got.element_size()) + 2 * d * 4
+        bms, by = bound_ms(nbytes, 8 * n * d, torch.float32)
+        row = {
+            "kernel": "layernorm_fwd", "n": n, "d": d,
+            "in": str(x_dtype)[6:], "out": str(out_dtype)[6:],
+            "max_abs_err": err, "max_bf16_ulps": ulps, "tolerance": tol,
+            "ms": time_ms(torch, ln.layer_norm_cuda,
+                          [(x, gamma, beta, 1e-6, out_dtype)]),
+            "eager_ms": time_ms(torch, ln.layer_norm_cuda,
+                                [(x, gamma, beta, 1e-6, out_dtype)],
+                                graph=False),
+            "plain_ms": time_ms(torch, ln._plain_layer_norm,
+                                [(x, gamma, beta, 1e-6, out_dtype)]),
+            "library_ms": time_ms(
+                torch, lambda a: F.layer_norm(a, (d,), g_lib, b_lib, 1e-6),
+                [(x,)]),
+            "bound_ms": bms, "bound_by": by,
+        }
+        emit(row)
+        if not ok:
+            raise AssertionError(f"layernorm kernel disagrees: {row}")
+        rows.append(row)
     return rows
 
 
@@ -370,7 +397,9 @@ def check_decode_attention(torch, F, attn):
 
 def check_layernorm_bwd(torch, ln):
     """K1b at the training step's rows: 8 x 2048 tokens of width 768,
-    bf16 x with bf16 dy (the blocks' LayerNorms) and fp32 dy (ln_f).
+    bf16 x with bf16 dy (the blocks' LayerNorms) and fp32 dy (ln_f); at
+    a BERT microbatch's, 64 x 512, fp32 x and dy; and at the gathered MLM
+    head's, 64 x 103, bf16 x and fp32 dy.
     Each row gives the main pass's grid (``blocks``) and its two
     launches' device times apart (``main_ms``, ``reduce_ms``: the
     profiler's kernel times per call), beside the graph-replay time of
@@ -378,16 +407,23 @@ def check_layernorm_bwd(torch, ln):
     that moves the same bytes (``stream_yardstick_ms``, timed only)."""
     rows = []
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
-    n, d = 8 * 2048, 768
+    d = 768
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    # a tree from before bwd_blocks ran min(n / 8, 256) blocks
-    blocks = ln.bwd_blocks(n, sms) if hasattr(ln, "bwd_blocks") \
-        else min(-(-n // 8), 256)
     gamma = 1.0 + 0.1 * torch.randn(d, device="cuda", generator=g)
     beta = 0.1 * torch.randn(d, device="cuda", generator=g)
-    for dy_dtype in (torch.bfloat16, torch.float32):
+    bf16, fp32 = torch.bfloat16, torch.float32
+    # (rows, x, dy): gpt_lm's blocks and ln_f; a BERT microbatch (64 x
+    # 512, fp32 residuals and fp32 cotangents); BERT's gathered MLM head
+    # (64 x 103 positions)
+    for n, x_dtype, dy_dtype in ((8 * 2048, bf16, bf16),
+                                 (8 * 2048, bf16, fp32),
+                                 (64 * 512, fp32, fp32),
+                                 (64 * 103, bf16, fp32)):
+        # a tree from before bwd_blocks ran min(n / 8, 256) blocks
+        blocks = ln.bwd_blocks(n, sms) if hasattr(ln, "bwd_blocks") \
+            else min(-(-n // 8), 256)
         x = (2.0 * torch.randn(n, d, device="cuda", generator=g)
-             + 0.5).to(torch.bfloat16)
+             + 0.5).to(x_dtype)
         dy = torch.randn(n, d, device="cuda", generator=g).to(dy_dtype)
         dx, dg, db = ln.layer_norm_bwd_cuda(x, gamma, dy, 1e-6)
         rdx, rdg, rdb = ln._plain_layer_norm_bwd(x, gamma, dy, 1e-6)
@@ -396,13 +432,15 @@ def check_layernorm_bwd(torch, ln):
         # dx = rstd * (a - mean(a) - xhat * mean(a * xhat)) cancels: a
         # few fp32 ulps of another summation order can turn into many
         # bf16 ulps of a small entry, so the bound is one bf16 ulp of the
-        # largest entry (2**-7 of max|dx|, at most 2**-8 away from it)
+        # largest entry (2**-7 of max|dx|, at most 2**-8 away from it);
+        # an fp32 dx is held to 1e-5 of max|dx|
+        dx_tol = 2.0**-7 if x_dtype == bf16 else 1e-5
         dx_rel = _rel_err(dx, rdx)
         sum_err = max(((dg - rdg).abs().max() / rdg.abs().max()).item(),
                       ((db - rdb).abs().max() / rdb.abs().max()).item())
         deterministic = all(torch.equal(a, b) for a, b in
                             zip((dx, dg, db), again))
-        ok = dx_rel <= 2.0**-7 and sum_err <= 1e-4 and deterministic
+        ok = dx_rel <= dx_tol and sum_err <= 1e-4 and deterministic
         _, mean, rstd = torch.ops.aten.native_layer_norm(
             x, [d], gamma.to(x.dtype), beta.to(x.dtype), 1e-6)
         dy_lib = dy.to(x.dtype)
@@ -421,13 +459,13 @@ def check_layernorm_bwd(torch, ln):
         # the byte rate one elementwise PyTorch call reaches for the same
         # two reads and one write (bf16 x + bf16 dy into a bf16 tensor)
         stream_ms = None
-        if dy_dtype == torch.bfloat16:
+        if dy_dtype == bf16:
             out = torch.empty_like(x)
             stream_ms = time_ms(torch, lambda a, b: torch.add(a, b, out=out),
                                 [(x, dy)])
             del out
         row = {
-            "kernel": "layernorm_bwd", "n": n, "d": d, "x": "bfloat16",
+            "kernel": "layernorm_bwd", "n": n, "d": d, "x": str(x_dtype)[6:],
             "dy": str(dy_dtype)[6:], "blocks": blocks,
             "main_ms": sum(split.values()) - reduce_ms,
             "reduce_ms": reduce_ms,
@@ -436,8 +474,10 @@ def check_layernorm_bwd(torch, ln):
             "max_abs_err": (dx.float() - rdx.float()).abs().max().item(),
             "dx_rel_err": dx_rel, "dgamma_dbeta_rel_err": sum_err,
             "deterministic": deterministic,
-            "tolerance": "dx 2**-7 of max|dx| (one bf16 ulp of the largest "
-                         "entry); dgamma, dbeta 1e-4 of their max; "
+            "tolerance": ("dx 2**-7 of max|dx| (one bf16 ulp of the "
+                          "largest entry)" if x_dtype == bf16 else
+                          "dx 1e-5 of max|dx|")
+                         + "; dgamma, dbeta 1e-4 of their max; "
                          "bit-identical on a rerun",
             "ms": time_ms(torch, ln.layer_norm_bwd_cuda,
                           [(x, gamma, dy, 1e-6)]),
@@ -480,8 +520,10 @@ def check_flash(torch, F, fa):
     H=12, S=2048, D=64, causal, bf16; GQA, window and padding cases; fp32
     once; a ragged case (S not a multiple of the 64-row tiles, with GQA,
     window, padding and packed segments at once); D=32 in fp32 and in
-    bf16 (with GQA and padding); a case without the causal mask; and the
-    first case again at lm_long_context's S=8192 (B=2).  Each row names
+    bf16 (with GQA and padding); a case without the causal mask; BERT's
+    packed microbatch (B=64, S=512, non-causal, segment ids: the
+    ``baseline_gate512`` run's shapes); and the first case again at
+    lm_long_context's S=8192 (B=2).  Each row names
     the version that ran (``variant``: "mma", bf16 on the tensor cores, or
     "fma", fp32 products on the CUDA cores), as the port names it.  K3f
     is held against its plain twin, run five times for bit-identical
@@ -502,6 +544,9 @@ def check_flash(torch, F, fa):
              ("d32_fp32", fp32, (2, 4, 2, 256, 32), None, True, False, True),
              ("d32_bf16", bf16, (2, 8, 2, 1024, 32), None, True, False, True),
              ("noncausal", bf16, (2, 12, 12, 1024, 64), None, True, False,
+              False),
+             # bert_mlm_packed's microbatch with the gate at 512
+             ("bert_packed", bf16, (64, 12, 12, 512, 64), None, False, True,
               False),
              ("long_context", bf16, (2, 12, 12, 8192, 64), None, False,
               False, True)]
@@ -1437,7 +1482,8 @@ def _last_logits(torch, mods, model, tokens):
 
 
 def run_generate_gqa(torch, cuda, mods, attn):
-    """Dense ``generate`` on full-width gpt_small with one kv head (12
+    """Dense ``generate`` on gpt_small at full width, cut to 4 layers,
+    with one kv head (12
     query heads a group, which the first K5 refused), B 2, a 6000-token
     prompt in a cache of 8192 (past the first K5's shared-memory band),
     then 16 greedy tokens: once under ``DECODE_IMPL = "auto"`` (K5, one
@@ -1445,9 +1491,12 @@ def run_generate_gqa(torch, cuda, mods, attn):
     grouped einsum path, no K5).  The greedy tokens must be equal, and the
     next step's logits after the whole sequence agree within 1e-2 relative
     in the L2 norm (bf16: the two paths' attention outputs differ by a
-    bf16 rounding here and there, which twelve bf16 layers carry to the
+    bf16 rounding here and there, which the bf16 layers carry to the
     logits; the largest single difference is reported beside it)."""
-    cfg = dataclasses.replace(mods.gpt_small(), num_kv_heads=1, max_seq=8192)
+    # 6015 one-token forwards a run, each bound by the host's launches,
+    # which grow with the depth: cut to keep the script's time
+    cfg = dataclasses.replace(mods.gpt_small(), num_layers=4, num_kv_heads=1,
+                              max_seq=8192)
     state = mods.init_params(cfg, torch.Generator().manual_seed(SEED + 12))
     model = mods.GPTLM(cfg)
     model.load_state_dict(state)
@@ -1479,7 +1528,8 @@ def run_generate_gqa(torch, cuda, mods, attn):
     top2 = logits["xla"].topk(2, dim=-1).values
     row = {"phase": "generate_gqa", "batch": 2, "prompt": 6000,
            "new_tokens": new_tokens, "max_seq": cfg.max_seq,
-           "num_heads": cfg.num_heads, "kv_heads": cfg.kv_heads,
+           "layers": cfg.num_layers, "num_heads": cfg.num_heads,
+           "kv_heads": cfg.kv_heads,
            "dtype": str(cfg.dtype)[6:], "same_greedy_tokens": same,
            "tokens_auto": out["auto"][:, 6000:].tolist(),
            "tokens_xla": out["xla"][:, 6000:].tolist(),
@@ -1576,7 +1626,278 @@ def run_consistency(torch, mods, Engine, cfg, state, device="cuda"):
         raise AssertionError(f"card logits differ from the CPU's by {err}")
 
 
-PHASES = ("layernorm", "kernels", "xent", "serving", "train")
+#: The BASELINE.json presets at full width and their defaults: (preset,
+#: batch, timed steps after one warm-up).  imagenet_resnet50's 1024 is a
+#: global batch over many devices; one card takes 256.
+BASELINE_RUNS = (("mnist_lenet", 128, 5), ("cifar_resnet20", 256, 5),
+                 ("imagenet_resnet50", 256, 3), ("bert_mlm", 256, 2),
+                 ("bert_mlm_packed", 256, 2), ("widedeep", 4096, 5))
+#: Kernel launches of one BERT-base step (4 microbatches of 64 x 512):
+#: 26 LayerNorms a microbatch (the embeddings', two a layer and the MLM
+#: head's), each once forward and once backward; at seq 512 the attention
+#: is below the flash gate (1024) and takes the plain path.
+BERT_LAUNCHES_PER_STEP = {"layernorm_fwd": 104, "layernorm_bwd": 104,
+                          "flash_fwd": 0, "flash_bwd_fused": 0,
+                          "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                          "fused_xent_fwd": 0, "fused_xent_dx": 0,
+                          "fused_xent_dw": 0}
+#: The same step with the gate at 512: K2 and K3f once a layer and
+#: microbatch (S 512 x D 64 x 4 bytes is under K3f's 2 MiB threshold).
+BERT_GATE512_LAUNCHES_PER_STEP = {**BERT_LAUNCHES_PER_STEP,
+                                  "flash_fwd": 48, "flash_bwd_fused": 48}
+NO_LAUNCHES = {k: 0 for k in BERT_LAUNCHES_PER_STEP}
+
+
+@contextlib.contextmanager
+def _min_seq(fa, seq):
+    """``fa.MIN_SEQ_FOR_PALLAS = seq`` inside the block, as before after."""
+    old = fa.MIN_SEQ_FOR_PALLAS
+    fa.MIN_SEQ_FOR_PALLAS = seq
+    try:
+        yield
+    finally:
+        fa.MIN_SEQ_FOR_PALLAS = old
+
+
+def baseline_steps(torch, cuda, train_torch, name, batch, steps, phase,
+                   device="cuda"):
+    """``name`` through ``train_torch.build`` at full width and its preset
+    defaults but the batch: one warm-up step, whose flops
+    ``FlopCounterMode`` counts (the products and convolutions, forward
+    and backward), then ``steps`` timed ones (each ends when its loss
+    reaches the host), launch counts set to 0 after the warm-up.  Losses
+    must be finite, every BatchNorm buffer must have moved, and the loss
+    must fall: the warm-up batch's loss, recomputed after the timed steps
+    with the same microbatches and dropout masks, must be below the one
+    the warm-up step took.  (Across batches the loss of a few steps moves
+    by the batches' spread at these presets' rates: imagenet_resnet50
+    warms up from lr 0, widedeep's adagrad at 0.01 touches a row of its
+    100k-row tables once in 25 batches; that comparison is printed.)"""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from distributedtensorflow_tpu_torch.train import (
+        split_microbatches,
+        step_generator,
+    )
+
+    args = train_torch.parse_args(
+        ["--workload", name, "--batch-size", str(batch), "--seed", str(SEED),
+         "--device", device])
+    wl, state, step, batches = train_torch.build(args)
+    model = state.model
+    on_card = model.device.type == "cuda"
+    buffers = {k: b.clone() for k, b in model.named_buffers()}
+    first = next(batches)
+    with FlopCounterMode(display=False) as counter:
+        state, m = step(state, first)
+    flops = counter.get_total_flops()
+    losses = [float(m["loss"])]
+    sync(torch, model.device)
+    cuda.launches.clear()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(steps):
+        b = next(batches)
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    launches = dict(cuda.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+    moved = all(not torch.equal(buffers[k], b)
+                for k, b in model.named_buffers())
+    loss_fn = wl.loss_fn(model)
+    with torch.no_grad():
+        again = sum(float(loss_fn(mb, step_generator(SEED, 0, i))[0])
+                    for i, mb in enumerate(
+                        split_microbatches(first, wl.accum_steps))) \
+            / wl.accum_steps
+    step_s = statistics.median(times)
+    cfg = wl.cfg
+    row = {"phase": phase, "workload": name, "batch": batch,
+           "accum_steps": wl.accum_steps, "seq": wl.seq_len,
+           "dtype": str(cfg.dtype).removeprefix("torch."),
+           "params": _param_count(model), "bn_buffers": len(buffers),
+           "losses": losses, "warmup_batch_loss_after": again,
+           "last_below_first": losses[-1] < losses[0],
+           "metrics": {k: float(v) for k, v in m.items()},
+           "step_ms": [1e3 * t for t in times],
+           "step_ms_median": 1e3 * step_s,
+           "examples_per_sec": batch / step_s,
+           "tokens_per_sec": batch * wl.seq_len / step_s
+           if wl.seq_len else None,
+           "flops_per_step": flops,
+           "flops_counted_by": "torch.utils.flop_counter.FlopCounterMode "
+                               "over the warm-up step",
+           "mfu": flops / step_s / PEAK_FLOPS["bfloat16"],
+           "peak_mem_gib": peak, "launches": launches,
+           "launches_per_step": {k: v / steps for k, v in launches.items()}}
+    if not all(math.isfinite(x) for x in losses + [again]) \
+            or not again < losses[0] or (buffers and not moved):
+        raise AssertionError(f"{phase}: losses not finite or not falling, "
+                             f"or the BatchNorm buffers did not move: {row}")
+    return state, step, batches, launches, row
+
+
+def run_baseline(torch, cuda, train_torch, fa, device="cuda"):
+    """Every BASELINE preset at full width (``BASELINE_RUNS``); a
+    torch.profiler window over two steps of imagenet_resnet50 and of
+    bert_mlm; then bert_mlm_packed again with ``MIN_SEQ_FOR_PALLAS`` at
+    512, which sends its attention (non-causal, segment ids, D 64) to K2
+    and K3f: its warm-up loss within 1e-2 of the default run's (the same
+    weights, batch and dropout masks; bf16), both step times printed.
+    Returns the launches of the runs."""
+    launches = collections.Counter()
+    rows = {}
+    for name, batch, steps in BASELINE_RUNS:
+        state, step, batches, got, row = baseline_steps(
+            torch, cuda, train_torch, name, batch, steps, "baseline", device)
+        emit(row)
+        if device == "cuda":
+            _check_launches(f"baseline {name}", got, steps,
+                            BERT_LAUNCHES_PER_STEP if name.startswith("bert")
+                            else NO_LAUNCHES)
+        launches.update(got)
+        rows[name] = row
+        if name in ("imagenet_resnet50", "bert_mlm") and device == "cuda":
+            run_profile_train(torch, state, step, batches,
+                              f"profile_{name}")
+        del state, step, batches
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    name, batch, steps = next(r for r in BASELINE_RUNS
+                              if r[0] == "bert_mlm_packed")
+    with _min_seq(fa, 512):
+        _, _, _, got, row = baseline_steps(
+            torch, cuda, train_torch, name, batch, steps,
+            "baseline_gate512", device)
+    ref = rows["bert_mlm_packed"]
+    rel = abs(row["losses"][0] - ref["losses"][0]) / abs(ref["losses"][0])
+    # FlopCounterMode does not see the custom K2/K3f ops, so this run's
+    # count lacks the attention's products: its MFU takes the default
+    # run's count of the same work
+    flops = ref["flops_per_step"]
+    row.update(min_seq_for_pallas=512, default_losses=ref["losses"],
+               warmup_loss_rel_err=rel,
+               default_step_ms_median=ref["step_ms_median"],
+               flops_counted_without_flash=row["flops_per_step"],
+               flops_per_step=flops,
+               flops_counted_by="the default run's FlopCounterMode count "
+                                "(the same work; the custom K2/K3f ops "
+                                "are invisible to the counter)",
+               mfu=flops / (row["step_ms_median"] / 1e3)
+               / PEAK_FLOPS["bfloat16"],
+               tolerance="warm-up loss 1e-2 relative of the default run's "
+                         "(a coarse record: K2 and K3f are held against "
+                         "their plain twins at these shapes in "
+                         "check_flash, case bert_packed)")
+    emit(row)
+    if device == "cuda":
+        _check_launches("baseline_gate512", got, steps,
+                        BERT_GATE512_LAUNCHES_PER_STEP)
+    if rel > 1e-2:
+        raise AssertionError(f"bert_mlm_packed through the flash kernels "
+                             f"differs from the plain attention: {row}")
+    launches.update(got)
+    return launches
+
+
+def run_consistency_baseline(torch, mods, train, cuda, family,
+                             device="cuda"):
+    """fp32 loss, gradients and BatchNorm running statistics of one step's
+    forward and backward on the card against the port's CPU path from the
+    same weights and batch: ``family`` "resnet" is ImageNetResNet at
+    stage sizes (1, 1, 1, 1), 64x64, batch 8, the preset's loss with its
+    L2 term (every BatchNorm scale at 1, so no residual branch starts at
+    0; cuDNN's TF32 off); "bert" is BERT-base cut to 2 layers, batch 2 at
+    seq 512, dropout 0, the gathered head, with K1f and K1b on the card.
+    (Scales drawn in [0.9, 1.1] instead leave this ResNet's fp32
+    gradients on the CPU 6.5e-2 of a leaf's max from an fp64 evaluation,
+    against 7.6e-6 at 1.)  The attention's key biases get no gradient (a
+    key bias shifts a query's scores by one constant): their values are
+    rounding, held below 1e-6 of the largest gradient."""
+    rng = np.random.default_rng(SEED + 11)
+    if family == "resnet":
+        cfg = mods.ImageNetResNetConfig(stage_sizes=(1, 1, 1, 1),
+                                        dtype=torch.float32)
+        state = mods.init_params(cfg, torch.Generator().manual_seed(SEED))
+        for k, v in state.items():
+            if k.endswith(".scale"):
+                state[k] = torch.ones_like(v)
+        batch = {"image": rng.standard_normal((8, 64, 64, 3)).astype(
+                     np.float32),
+                 "label": rng.integers(0, 1000, 8)}
+
+        def loss_of(model):
+            return train.classification_loss(model, weight_decay=1e-4)
+    else:
+        cfg = dataclasses.replace(mods.bert_base(), num_layers=2,
+                                  dtype=torch.float32, dropout_rate=0.0)
+        state = mods.init_params(cfg, torch.Generator().manual_seed(SEED))
+        ids = rng.integers(4, cfg.vocab_size, (2, 512))
+        masked = rng.random((2, 512)) < 0.15
+        batch = {"input_ids": np.where(masked, 3, ids),
+                 "labels": np.where(masked, ids, -100),
+                 "attention_mask": np.ones((2, 512), np.int64)}
+
+        def loss_of(model):
+            return mods.mlm_loss(model,
+                                 max_predictions=mods.max_predictions_for(512))
+    out = {}
+    cuda.launches.clear()
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for dev in (device, "cpu"):
+            model = mods.convert.MODELS[type(cfg)](cfg, device=dev)
+            model.load_state_dict(state)
+            loss, _ = loss_of(model)({k: torch.as_tensor(v, device=dev)
+                                      for k, v in batch.items()})
+            names, params = zip(*model.named_parameters())
+            grads = torch.autograd.grad(loss, params)
+            out[dev] = (float(loss.detach()),
+                        {n: gr.cpu() for n, gr in zip(names, grads)},
+                        {n: b.cpu() for n, b in model.named_buffers()})
+    launches = dict(cuda.launches)
+    (card_loss, card_g, card_b), (cpu_loss, cpu_g, cpu_b) = \
+        out[device], out["cpu"]
+
+    def worst(got, ref):
+        return max(((got[n] - ref[n]).abs().max()
+                    / ref[n].abs().max().clamp_min(1e-30)).item()
+                   for n in ref) if ref else 0.0
+
+    zero = [n for n in cpu_g if n.endswith(".key.bias")]
+    top = max(g.abs().max().item() for g in cpu_g.values())
+    zero_err = max([max(card_g[n].abs().max().item(),
+                        cpu_g[n].abs().max().item()) / top for n in zero],
+                   default=0.0)
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    grad_err = worst(card_g, {n: g for n, g in cpu_g.items()
+                              if n not in zero})
+    stats_err = worst(card_b, cpu_b)
+    ln_ok = family == "resnet" or device == "cpu" or (
+        launches.get("layernorm_fwd") == 6 and
+        launches.get("layernorm_bwd") == 6)
+    ok = loss_rel <= 1e-5 and grad_err <= 1e-3 and stats_err <= 1e-5 \
+        and zero_err <= 1e-6 and ln_ok
+    row = {"phase": "consistency_baseline",
+           "model": mods.convert.MODELS[type(cfg)].__name__,
+           "dtype": "float32", "card_loss": card_loss, "cpu_loss": cpu_loss,
+           "loss_rel_err": loss_rel, "worst_grad_rel_err": grad_err,
+           "worst_running_stat_rel_err": stats_err,
+           "key_bias_grad_over_largest": zero_err,
+           "tolerance": "loss 1e-5 relative; every gradient leaf 1e-3 of "
+                        "its max-abs (key biases below 1e-6 of the largest "
+                        "gradient); running statistics 1e-5 of their "
+                        "max-abs; BERT: K1f and K1b 6 launches each",
+           "launches": launches}
+    emit(row)
+    if not ok:
+        raise AssertionError(f"card step of {row['model']} differs from the "
+                             f"CPU's: {row}")
+
+
+PHASES = ("layernorm", "kernels", "xent", "serving", "train", "baseline")
 
 
 def main(argv=None) -> int:
@@ -1598,6 +1919,7 @@ def main(argv=None) -> int:
     from distributedtensorflow_tpu_torch.ops import flash_attention as fa
     from distributedtensorflow_tpu_torch.ops import fused_xent as fx
     from distributedtensorflow_tpu_torch.ops import layernorm as ln
+    from distributedtensorflow_tpu_torch import train as train_lib
     from distributedtensorflow_tpu_torch.serve import Engine
 
     smi = subprocess.run(
@@ -1619,18 +1941,27 @@ def main(argv=None) -> int:
           "built": sorted(reports)})
     check_sass(_cuda)
 
+    seconds, lap = {"build": time.time() - t0}, [time.time()]
+
+    def done(phase):
+        seconds[phase] = time.time() - lap[0]
+        lap[0] = time.time()
+
     rows = {}
     if "layernorm" in phases:
         rows["layernorm_fwd"] = check_layernorm(torch, F, ln)
         rows["layernorm_bwd"] = check_layernorm_bwd(torch, ln)
+    done("layernorm")
     if "kernels" in phases:
         rows["decode_attention"] = check_decode_attention(torch, F, attn)
         rows.update(check_flash(torch, F, fa))
         run_backward_lengths(torch, F, fa)
         run_short_seq(torch, fa, attn)
+    done("kernels")
     if "xent" in phases:
         rows.update(check_fused_xent(torch, F, fx))
 
+    done("xent")
     launches = collections.Counter()
     if "serving" in phases:
         cfg = mods.gpt_small()
@@ -1648,6 +1979,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         run_consistency(torch, mods, Engine, cfg, state)
 
+    done("serving")
     if "train" in phases:
         tstate, tstep, batches, train_launches, train_row = run_train(
             torch, _cuda, train_torch)
@@ -1685,6 +2017,14 @@ def main(argv=None) -> int:
             run_consistency_train(torch, mods, _cuda, fa, xent, impl, moe)
         run_consistency_bf16(torch, mods, _cuda)
 
+    done("train")
+    if "baseline" in phases:
+        launches.update(run_baseline(torch, _cuda, train_torch, fa))
+        for family in ("resnet", "bert"):
+            run_consistency_baseline(torch, mods, train_lib, _cuda, family)
+
+    done("baseline")
+    emit({"phase": "seconds", **seconds})
     if phases != set(PHASES):
         print(f"chip_smoke: ran only {sorted(phases)}", file=sys.stderr)
         return 2

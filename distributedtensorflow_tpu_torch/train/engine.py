@@ -10,7 +10,11 @@ one device, and data parallelism across devices is not ported yet.
 Loss-function contract: ``loss_fn(batch, generator) -> (loss, metrics)``
 with ``batch`` a dict of (B, ...) tensors, ``generator`` a CPU
 ``torch.Generator`` for dropout, ``loss`` a scalar tensor and
-``metrics`` a dict of scalar tensors.
+``metrics`` a dict of scalar tensors.  JAX's contract also returns the
+new model state (``batch_stats``); here BatchNorm's running statistics
+are module buffers that each training forward updates in place, so the
+microbatches, run one after another, update them once each in order, as
+the JAX scan threads ``model_state`` through them.
 """
 
 from __future__ import annotations

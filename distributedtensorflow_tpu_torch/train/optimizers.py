@@ -1,7 +1,9 @@
 """Optimizers and learning-rate schedules of the port.
 
 Twin of ``distributedtensorflow_tpu/train/optimizers.py``: the presets'
-AdamW (:func:`adamw`, a ``torch.optim.AdamW``) and the factory behind
+optimizers (:func:`adamw`, a ``torch.optim.AdamW``; :func:`sgd` and
+:func:`adagrad`, ``optax.sgd`` and ``optax.adagrad``, with
+:func:`warmup_cosine_decay_schedule`) and the factory behind
 ``train_torch.py --optimizer/--lr/--schedule`` (:func:`build_schedule`,
 :func:`build_optimizer`, :func:`exclude_bias_and_norm_mask`), with the
 JAX module's names, choices and validation (``:14-167``).
@@ -132,6 +134,19 @@ def join_schedules(schedules: list[Schedule],
     return schedule
 
 
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
+                                 warmup_steps: int, decay_steps: int,
+                                 end_value: float = 0.0) -> Schedule:
+    """``optax.warmup_cosine_decay_schedule``: linear from ``init_value``
+    to ``peak_value`` over ``warmup_steps``, then a cosine to
+    ``end_value`` at ``decay_steps`` (counted from 0, warmup included)."""
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    return join_schedules(
+        [linear_schedule(init_value, peak_value, warmup_steps),
+         cosine_decay_schedule(peak_value, decay_steps - warmup_steps, alpha)],
+        [warmup_steps])
+
+
 def build_schedule(name: str, lr: float, *, warmup_steps: int = 0,
                    total_steps: int = 0) -> Schedule | float:
     """LR schedule: constant | cosine | linear (each with optional linear
@@ -225,6 +240,29 @@ class Adagrad(torch.optim.Optimizer):
                 p.add_(u, alpha=-group["lr"])
 
 
+def sgd(params, learning_rate: float | Schedule, *,
+        momentum: float | None = None, nesterov: bool = False,
+        global_clipnorm: float = 0.0) -> torch.optim.Optimizer:
+    """``optax.sgd``: ``torch.optim.SGD`` (optax's trace is torch's
+    momentum buffer, ``g + momentum * buf``) behind optax's chain head
+    (:func:`_optax_prelude`: the learning rate of optax's count when
+    ``learning_rate`` is a schedule, clipping for ``global_clipnorm``)."""
+    lr0 = learning_rate(0) if callable(learning_rate) else learning_rate
+    opt = torch.optim.SGD(_split_named(params)[1], lr=lr0,
+                          momentum=momentum or 0.0, nesterov=nesterov)
+    opt.register_step_pre_hook(_optax_prelude(learning_rate, global_clipnorm))
+    return opt
+
+
+def adagrad(params, learning_rate: float | Schedule, *,
+            global_clipnorm: float = 0.0) -> torch.optim.Optimizer:
+    """``optax.adagrad`` (:class:`Adagrad`) behind optax's chain head."""
+    lr0 = learning_rate(0) if callable(learning_rate) else learning_rate
+    opt = Adagrad(_split_named(params)[1], lr0)
+    opt.register_step_pre_hook(_optax_prelude(learning_rate, global_clipnorm))
+    return opt
+
+
 def build_optimizer(name: str, lr: float | Schedule, *,
                     weight_decay: float = 0.0, momentum: float = 0.9,
                     global_clipnorm: float = 0.0, decay_mask=None,
@@ -254,17 +292,14 @@ def build_optimizer(name: str, lr: float | Schedule, *,
 
     def make(params) -> torch.optim.Optimizer:
         params = list(params)
-        lr0 = lr(0) if callable(lr) else lr
-        if name in ("adam", "adamw"):
-            opt = adamw(params, lr0, weight_decay=weight_decay,
-                        mask=decay_mask)
-        elif name == "adagrad":
-            opt = Adagrad(_split_named(params)[1], lr0)
-        else:
+        if name == "adagrad":
+            return adagrad(params, lr, global_clipnorm=global_clipnorm)
+        if name in ("sgd", "momentum"):
             nesterov = name == "momentum"
-            opt = torch.optim.SGD(_split_named(params)[1], lr=lr0,
-                                  momentum=momentum if nesterov else 0.0,
-                                  nesterov=nesterov)
+            return sgd(params, lr, momentum=momentum if nesterov else None,
+                       nesterov=nesterov, global_clipnorm=global_clipnorm)
+        opt = adamw(params, lr(0) if callable(lr) else lr,
+                    weight_decay=weight_decay, mask=decay_mask)
         opt.register_step_pre_hook(_optax_prelude(lr, global_clipnorm))
         return opt
 

@@ -5,6 +5,8 @@ Twin of ``distributedtensorflow_tpu/train/state.py`` (``TrainState``,
 returns a new one; here the parameters and the optimizer's moments live
 in the model and the optimizer and are updated in place, which keeps one
 copy of each on the card.  ``apply_gradients`` returns the same state.
+JAX's ``model_state`` (BatchNorm's ``batch_stats``) is the model's
+buffers here.
 """
 
 from __future__ import annotations

@@ -313,7 +313,7 @@ def test_get_workload_matches_jax(case):
     assert pw.global_batch_size == jw.global_batch_size
     assert pw.seq_len == jw.init_batch["input_ids"].shape[1]
     with pytest.raises(ValueError, match="not ported"):
-        tw.get_workload("bert_mlm")
+        tw.get_workload("imagenet_vit")
 
 
 #: (dtype, accum_steps, relative tolerance of the losses).  fp32 isolates
@@ -389,7 +389,7 @@ def test_train_torch_runs_in_process(capsys):
     for r in records:
         assert np.isfinite(r["loss"]) and r["step_ms"] > 0
         assert set(r) == {"step", "loss", "perplexity", "step_ms",
-                          "tokens_per_sec"}
+                          "examples_per_sec", "tokens_per_sec"}
     assert len(capsys.readouterr().out.strip().splitlines()) == 3
 
 

@@ -1,27 +1,32 @@
 #!/usr/bin/env python3
-"""train_torch.py - train a GPT language-model preset with the PyTorch port.
+"""train_torch.py - train a preset with the PyTorch port.
 
-The twin of ``train.py`` for the path the port has: the ``gpt_lm``,
-``gpt_medium_lm``, ``lm_long_context`` and ``gpt_moe`` presets on one
-device, synthetic
-next-token batches, the preset's AdamW or the optimizer that
-``--optimizer/--lr/--schedule/--warmup-steps/--weight-decay/--clipnorm/
---decay-mask`` build (the same flags, defaults and checks as
-``train.py``).  On the card the head is the fused one (kernels K4f/K4b)
-unless ``--xent-impl`` says otherwise.  Runs on the CUDA card unless
-``--device cpu`` is given:
+The twin of ``train.py`` for the presets the port has, on one device:
+the GPT language models ``gpt_lm``, ``gpt_medium_lm``,
+``lm_long_context`` and ``gpt_moe``, and the BASELINE.json workloads
+``mnist_lenet``, ``cifar_resnet20``, ``imagenet_resnet50``, ``bert_mlm``,
+``bert_mlm_packed`` and ``widedeep``.  Synthetic batches, the preset's
+optimizer or the one that ``--optimizer/--lr/--schedule/--warmup-steps/
+--weight-decay/--clipnorm/--decay-mask`` build (the same flags, defaults
+and checks as ``train.py``), the preset's gradient accumulation unless
+``--accum-steps`` says otherwise.  On the card the GPT head is the fused
+one (kernels K4f/K4b) unless ``--xent-impl`` says otherwise.  Runs on the
+CUDA card unless ``--device cpu`` is given:
 
     python train_torch.py --workload gpt_lm --steps 20
     python train_torch.py --workload gpt_lm --test-size --device cpu --steps 3
-    python train_torch.py --workload gpt_moe --test-size --device cpu --steps 3
+    python train_torch.py --workload imagenet_resnet50 --steps 20
+    python train_torch.py --workload bert_mlm --test-size --device cpu \
+        --steps 3 --batch-size 8
 
-Prints one JSON line per log step: ``step``, ``loss``, ``perplexity``,
-``step_ms`` (mean wall time of the steps since the last line, each
-ending when its loss reaches the host) and ``tokens_per_sec``.  With
-``--logdir`` it also appends ``metrics.jsonl`` rows with the keys
-``train.py``'s trainer writes for these presets (``loss``,
-``perplexity``, ``steps_per_sec``, ``examples_per_sec``,
-``examples_per_sec_per_chip``; ``eval_loss``, ``eval_perplexity`` with
+Prints one JSON line per log step: ``step``, ``loss``, ``perplexity``
+(the language models), ``step_ms`` (mean wall time of the steps since
+the last line, each ending when its loss reaches the host),
+``examples_per_sec`` and, where the preset has a sequence length (GPT,
+BERT), ``tokens_per_sec``.  With ``--logdir`` it also appends
+``metrics.jsonl`` rows with the keys ``train.py``'s trainer writes
+(``loss``, the preset's metrics, ``steps_per_sec``,
+``examples_per_sec``, ``examples_per_sec_per_chip``; ``eval_*`` with
 ``--eval-every``), which ``tools/check_metrics_schema.py`` accepts.
 """
 
@@ -64,7 +69,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--batch-size", type=int, default=None,
                    help="global batch size (default: workload preset)")
-    p.add_argument("--accum-steps", type=int, default=1)
+    p.add_argument("--accum-steps", type=int, default=None,
+                   help="microbatches a step (default: workload preset)")
     p.add_argument("--seq-len", type=int, default=None)
     p.add_argument("--optimizer", default=None, choices=OPTIMIZERS,
                    help="override the preset's optimizer (requires --lr)")
@@ -97,8 +103,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--kv-heads", type=int, default=None)
     p.add_argument("--attn-window", type=int, default=None)
     p.add_argument("--test-size", action="store_true",
-                   help="shrink the model (gpt_tiny or gpt_moe_tiny at seq "
-                        "64)")
+                   help="shrink the model (the JAX test sizes: gpt_tiny or "
+                        "gpt_moe_tiny at seq 64, bert_tiny at seq 128, "
+                        "ResNet-50 at 64x64, widedeep_test_config)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=20)
     p.add_argument("--eval-every", type=int, default=0)
@@ -143,8 +150,14 @@ def apply_optimizer_flags(wl, args):
 
 
 def _device_batches(source, device):
-    return ({k: torch.as_tensor(v, dtype=torch.long, device=device)
-             for k, v in b.items()} for b in source)
+    """Numpy batches as device tensors: integer leaves (ids, labels,
+    segments) as ``torch.long``, float leaves (NHWC images, dense
+    features) in their own dtype."""
+    for b in source:
+        yield {k: torch.as_tensor(v, device=device,
+                                  dtype=torch.long if v.dtype.kind in "iu"
+                                  else None)
+               for k, v in b.items()}
 
 
 def build(args: argparse.Namespace):
@@ -164,7 +177,8 @@ def build(args: argparse.Namespace):
         wl.init_params(wl.cfg, torch.Generator().manual_seed(args.seed)))
     state = TrainState(0, model,
                        wl.make_optimizer(list(model.named_parameters())))
-    step = make_train_step(wl.loss_fn(model), accum_steps=args.accum_steps,
+    accum = wl.accum_steps if args.accum_steps is None else args.accum_steps
+    step = make_train_step(wl.loss_fn(model), accum_steps=accum,
                            seed=args.seed)
     ctx = InputContext(global_batch_size=wl.global_batch_size)
     batches = _device_batches(wl.input_fn(ctx, args.seed), device)
@@ -189,7 +203,6 @@ def main(argv=None) -> list[dict]:
     """Train; returns the printed records."""
     args = parse_args(argv)
     wl, state, step, batches = build(args)
-    tokens = wl.global_batch_size * wl.seq_len
     records, times = [], []
     meter = ThroughputMeter(wl.global_batch_size)
     with MetricWriter(args.logdir) as writer:
@@ -203,10 +216,14 @@ def main(argv=None) -> list[dict]:
             meter.update()
             if (i + 1) % args.log_every == 0 or i + 1 == args.steps:
                 step_s = sum(times) / len(times)
-                rec = {"step": state.step, "loss": loss,
-                       "perplexity": float(metrics["perplexity"]),
-                       "step_ms": 1e3 * step_s,
-                       "tokens_per_sec": tokens / step_s}
+                rec = {"step": state.step, "loss": loss}
+                if "perplexity" in metrics:
+                    rec["perplexity"] = float(metrics["perplexity"])
+                rec["step_ms"] = 1e3 * step_s
+                rec["examples_per_sec"] = wl.global_batch_size / step_s
+                if wl.seq_len:
+                    rec["tokens_per_sec"] = (wl.global_batch_size
+                                             * wl.seq_len / step_s)
                 print(json.dumps(rec), flush=True)
                 records.append(rec)
                 writer.write(state.step, {
