@@ -94,12 +94,26 @@ Phases, each fatal on failure:
     sizes (1, 1, 1, 1), 64x64, and BERT-base cut to 2 layers (K1f and K1b
     on the card): loss, gradients and running statistics on the card
     against the CPU's.
+14. dp: data parallelism.  dp_world1: gpt_lm as phase 9 runs it, through
+    ``--mesh data=1`` over NCCL (bootstrap, mesh, the packed all-reduce
+    of the gradients): the five losses equal phase 9's bit for bit, the
+    step time beside phase 9's, the packed all-reduce of 124M fp32
+    gradients timed and profiled on its own.  dp_gloo2: two ranks on the
+    one card over gloo, two processes of this script (``--dp-worker``)
+    with torchrun's variables, train gpt_lm (K1f, K1b, K2, K3f, K4f, K4b
+    in fp32), bert_mlm_packed (four microbatches, the flash gate at 512),
+    cifar_resnet20 (BatchNorm over the global batch) and gpt_moe (global
+    routing), fp32, 2 layers, dropout 0, 3 steps, against the one-process
+    step on the same global batch: losses within 1e-5 relative, BatchNorm
+    buffers within 1e-5 of their max-abs and equal on both ranks, each
+    kernel's launches per step and rank as derived; cifar_resnet20 again
+    in its preset's bf16, within 1e-2.
 
 Kernel launch counts are set to 0 just before phases 5, 6 (each
-generate run), 9-11 and 13 (each path) and read just after; a kernel of
-the path that did not launch, or a gpt_lm, gpt_moe or BERT training step
-that launched a kernel another number of times than its forward,
-recomputation and backward need, fails the run.  The
+generate run), 9-11, 13 and 14 (each path; in each rank's process) and
+read just after; a kernel of the path that did not launch, or a gpt_lm,
+gpt_moe or BERT training step that launched a kernel another number of
+times than its forward, recomputation and backward need, fails the run.  The
 line before the last is one JSON object with a row per kernel; the last
 line is ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset
 (for iterating on one part); the default runs all.
@@ -1897,7 +1911,276 @@ def run_consistency_baseline(torch, mods, train, cuda, family,
                              f"CPU's: {row}")
 
 
-PHASES = ("layernorm", "kernels", "xent", "serving", "train", "baseline")
+#: The two-rank check on the one card: (preset, global batch, dtype),
+#: cut to DP_LAYERS layers (ResNet-20 whole), DP_STEPS steps.
+#: bert_mlm_packed runs its four microbatches with the flash gate at 512;
+#: cifar_resnet20 also in its preset's bf16 (the card's global BatchNorm
+#: on bf16 activations).
+DP_RUNS = (("gpt_lm", 8, "float32"), ("bert_mlm_packed", 32, "float32"),
+           ("cifar_resnet20", 256, "float32"),
+           ("cifar_resnet20", 256, "bfloat16"), ("gpt_moe", 8, "float32"))
+DP_LAYERS = 2
+DP_STEPS = 3
+#: Relative tolerance against one process, by dtype: in bf16 each rank
+#: rounds the activations and gradients of its own rows.
+DP_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def _dp_launches(name):
+    """Launches per step and rank of a DP_RUNS preset at DP_LAYERS
+    layers.  GPT (block remat): LayerNorm forward twice a LayerNorm and
+    once for ln_f, backward once each, the flash forward twice a layer,
+    K3f once, the head once each; BERT (4 microbatches, no remat): 2L + 2
+    LayerNorms a microbatch once each way, K2 and K3f once a layer."""
+    n = DP_LAYERS
+    if name in ("gpt_lm", "gpt_moe"):
+        return {**NO_LAUNCHES, "layernorm_fwd": 4 * n + 1,
+                "layernorm_bwd": 2 * n + 1, "flash_fwd": 2 * n,
+                "flash_bwd_fused": n, "fused_xent_fwd": 1,
+                "fused_xent_dx": 1, "fused_xent_dw": 1}
+    if name == "bert_mlm_packed":
+        return {**NO_LAUNCHES, "layernorm_fwd": 4 * (2 * n + 2),
+                "layernorm_bwd": 4 * (2 * n + 2), "flash_fwd": 4 * n,
+                "flash_bwd_fused": 4 * n}
+    return NO_LAUNCHES
+
+
+@contextlib.contextmanager
+def _dp_preset(train_torch, fa, name):
+    """``train_torch.build`` of ``name`` cut to DP_LAYERS layers at
+    dropout 0 (a rank draws the masks of its own rows, one process those
+    of all rows: they cannot match), with the flash gate at 512 for
+    bert_mlm_packed, inside the block."""
+    make = train_torch.get_workload
+
+    def cut(*args, **kw):
+        wl = make(*args, **kw)
+        if hasattr(wl.cfg, "num_layers"):
+            wl = dataclasses.replace(wl, cfg=dataclasses.replace(
+                wl.cfg, num_layers=DP_LAYERS, dropout_rate=0.0))
+        return wl
+
+    train_torch.get_workload = cut
+    try:
+        with _min_seq(fa, 512 if name == "bert_mlm_packed"
+                      else fa.MIN_SEQ_FOR_PALLAS):
+            yield
+    finally:
+        train_torch.get_workload = make
+
+
+def _dp_args(train_torch, name, batch, dtype, *extra):
+    return train_torch.parse_args(
+        ["--workload", name, "--batch-size", str(batch), "--dtype", dtype,
+         "--seed", str(SEED), "--device", "cuda", *extra])
+
+
+def _dp_steps(torch, state, step, batches, cudnn=True):
+    """DP_STEPS steps: the losses, the metrics and the buffers after.
+    cuDNN's TF32 off: fp32 convolutions in TF32 round by the algorithm
+    cuDNN picks for the batch, which differs between a rank's half batch
+    and the whole one.  ``cudnn=False``: PyTorch's own convolution and
+    batch-norm kernels instead of cuDNN's."""
+    metrics = []
+    with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
+        for _ in range(DP_STEPS):
+            state, m = step(state, next(batches))
+            metrics.append({k: float(v) for k, v in m.items()})
+    return {"losses": [m["loss"] for m in metrics], "metrics": metrics,
+            "buffers": {k: v.detach().cpu()
+                        for k, v in state.model.named_buffers()}}
+
+
+def dp_worker(out_dir) -> int:
+    """One rank of the two-rank check (``--dp-worker``): the cluster from
+    torchrun's variables, the gloo group, every DP_RUNS preset through
+    ``train_torch.build`` with ``--mesh data=2``; its results and kernel
+    launches saved as ``<out_dir>/rank<r>.pt``."""
+    import torch
+
+    import train_torch
+    from distributedtensorflow_tpu_torch.ops import _cuda
+    from distributedtensorflow_tpu_torch.ops import flash_attention as fa
+    from distributedtensorflow_tpu_torch.parallel import bootstrap
+
+    results = {}
+    for name, batch, dtype in DP_RUNS:
+        with _dp_preset(train_torch, fa, name):
+            _, state, step, batches = train_torch.build(_dp_args(
+                train_torch, name, batch, dtype, "--mesh", "data=2",
+                "--dist-backend", "gloo"))
+            _cuda.launches.clear()
+            results[name, dtype] = _dp_steps(torch, state, step, batches)
+        torch.cuda.synchronize()
+        results[name, dtype]["launches"] = dict(_cuda.launches)
+        del state, step, batches
+        torch.cuda.empty_cache()
+    torch.save(results, f"{out_dir}/rank{bootstrap.process_index()}.pt")
+    bootstrap.shutdown()
+    return 0
+
+
+def _dp_reference(torch, train_torch, fa, name, batch, dtype, cudnn=True):
+    """The one-process step of ``name`` on the two ranks' global batch
+    (both ranks' input pipelines, rank-major)."""
+    from distributedtensorflow_tpu_torch.data import (
+        InputContext,
+        device_put_batch,
+    )
+
+    with _dp_preset(train_torch, fa, name):
+        wl, state, step, _ = train_torch.build(_dp_args(train_torch, name,
+                                                        batch, dtype))
+        srcs = [wl.input_fn(InputContext(2, r, batch), SEED)
+                for r in range(2)]
+
+        def global_batches():
+            while True:
+                parts = [next(src) for src in srcs]
+                yield device_put_batch(
+                    {k: np.concatenate([q[k] for q in parts])
+                     for k in parts[0]}, state.model.device)
+
+        return _dp_steps(torch, state, step, global_batches(), cudnn)
+
+
+def _dp_errors(torch, got, ref):
+    """The largest relative loss difference and the largest buffer
+    difference over the buffer's max-abs, ``got`` against ``ref``."""
+    loss = max(abs(a - b) / abs(b)
+               for a, b in zip(got["losses"], ref["losses"]))
+    buf = max([float((got["buffers"][k] - v).abs().max()
+                     / v.abs().max().clamp_min(1e-30))
+               for k, v in ref["buffers"].items()], default=0.0)
+    return loss, buf
+
+
+def run_dp(torch, cuda, train_torch, fa, train_row):
+    """The data-parallel step.  world1: gpt_lm as the train phase runs it,
+    through ``--mesh data=1`` over NCCL (bootstrap, mesh, the packed
+    all-reduce): its losses equal the train phase's bit for bit; its step
+    time stands beside the plain step's, and the packed all-reduce of its
+    gradients is timed and profiled on its own.  gloo2: two ranks on the
+    one card (NCCL refuses two ranks on one device), each a process of
+    its own (``--dp-worker``: two ranks as threads of one process would
+    share the card's one autograd thread, and BatchNorm's collective in
+    the backward would wait there for its peer forever), against the
+    one-process step on the same global batch."""
+    from distributedtensorflow_tpu_torch.parallel import bootstrap
+    from distributedtensorflow_tpu_torch.parallel import collectives
+    from distributedtensorflow_tpu_torch.parallel.mesh import (
+        MeshSpec,
+        build_mesh,
+    )
+
+    if train_row is None:  # the train phase did not run: its steps here
+        train_row = train_steps(torch, cuda, train_torch,
+                                _train_args(train_torch), 4, "dp_plain")[-1]
+        torch.cuda.empty_cache()
+    state, _, _, launches, row = train_steps(
+        torch, cuda, train_torch, _train_args(
+            train_torch, "--mesh", "data=1", "--dist-backend", "nccl"),
+        4, "dp_world1")
+    grads = [torch.randn_like(p) for p in state.model.parameters()]
+    mesh = build_mesh(MeshSpec(data=1))
+    opts = collectives.Options(collectives.DEFAULT_BYTES_PER_PACK)
+
+    def reduce():
+        collectives.packed_all_reduce(grads, mesh, options=opts)
+
+    by_kernel = device_ms_by_kernel(torch, reduce, (), iters=5)
+    row.update({
+        "backend": torch.distributed.get_backend(), "world": 1,
+        "plain_losses": train_row["losses"],
+        "plain_step_ms_median": train_row["step_ms_median"],
+        "wrapper_ms": row["step_ms_median"] - train_row["step_ms_median"],
+        "allreduce_bytes": 4 * sum(g.numel() for g in grads),
+        "allreduce_packs": len(collectives.pack_by_size(
+            grads, opts.bytes_per_pack)),
+        "allreduce_ms": time_ms(torch, reduce, [()], iters=5, reps=3,
+                                graph=False),
+        "allreduce_device_ms": sum(by_kernel.values()),
+        "allreduce_kernels": {k[:60]: v for k, v in by_kernel.items()}})
+    emit(row)
+    del state, grads
+    bootstrap.shutdown()
+    torch.cuda.empty_cache()
+    _check_launches("dp_world1", launches, 4, TRAIN_LAUNCHES_PER_STEP)
+    if row["losses"] != train_row["losses"]:
+        raise AssertionError(f"dp_world1: losses {row['losses']} differ "
+                             f"from the plain step's {train_row['losses']}")
+
+    out_dir = "build/dp_check"
+    import os
+    os.makedirs(out_dir, exist_ok=True)
+    env = {**os.environ, "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(bootstrap.free_port()), "WORLD_SIZE": "2",
+           "LOCAL_RANK": "0"}  # both ranks on the one card
+    t0 = time.time()
+    procs = [subprocess.Popen([sys.executable, __file__, "--dp-worker",
+                               out_dir], env={**env, "RANK": str(r)})
+             for r in range(2)]
+    try:
+        refs = {(name, dtype): _dp_reference(torch, train_torch, fa, name,
+                                             batch, dtype)
+                for name, batch, dtype in DP_RUNS}
+        # the fp32 ResNet steps on PyTorch's kernels in place of cuDNN's:
+        # how far two exact fp32 runs of one step drift apart
+        key = ("cifar_resnet20", "float32")
+        noise = {key: _dp_errors(torch, _dp_reference(
+            torch, train_torch, fa, "cifar_resnet20", 256, "float32", cudnn=False),
+            refs[key])}
+        torch.cuda.empty_cache()
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if rcs != [0, 0]:
+        raise AssertionError(f"dp_gloo2: the ranks exited with {rcs}")
+    ranks = [torch.load(f"{out_dir}/rank{r}.pt") for r in range(2)]
+    failures, total = [], collections.Counter(launches)
+    for name, _, dtype in DP_RUNS:
+        ref, got = refs[name, dtype], [rk[name, dtype] for rk in ranks]
+        errs = [_dp_errors(torch, g, ref) for g in got]
+        loss_err = max(e[0] for e in errs)
+        buf_err = max(e[1] for e in errs)
+        same = all(torch.equal(got[0]["buffers"][k], got[1]["buffers"][k])
+                   for k in ref["buffers"])
+        expected = _dp_launches(name)
+        per_step = [{k: g["launches"].get(k, 0) / DP_STEPS
+                     for k in expected} for g in got]
+        ok = (loss_err <= DP_RTOL[dtype] and buf_err <= DP_RTOL[dtype]
+              and same
+              and per_step == [expected, expected]
+              and not any(g["launches"].get("decode_attention")
+                          for g in got))
+        for g in got:
+            total.update(g["launches"])
+        emit({"phase": "dp_gloo2", "workload": name, "world": 2,
+              "backend": "gloo", "dtype": dtype, "layers": DP_LAYERS,
+              "losses": got[0]["losses"], "ref_losses": ref["losses"],
+              "loss_rel_err": loss_err, "buffers": len(ref["buffers"]),
+              "buffer_err": buf_err, "buffers_equal_across_ranks": same,
+              "ref_noise_loss_buffer": noise.get((name, dtype)),
+              "launches_per_step": per_step[0], "ok": ok,
+              "tolerance": f"losses {DP_RTOL[dtype]} relative to the "
+                           "one-process step on the same global batch; "
+                           f"BatchNorm buffers {DP_RTOL[dtype]} of each "
+                           "one's max-abs; launches per step and rank as "
+                           "derived"})
+        if not ok:
+            failures.append((name, dtype))
+    emit({"phase": "dp_gloo2_seconds", "seconds": time.time() - t0})
+    if failures:
+        raise AssertionError(f"dp_gloo2: {failures} differ from the "
+                             "one-process step")
+    return total
+
+
+PHASES = ("layernorm", "kernels", "xent", "serving", "train", "baseline",
+          "dp")
 
 
 def main(argv=None) -> int:
@@ -1905,7 +2188,11 @@ def main(argv=None) -> int:
     p.add_argument("--phases", default=",".join(PHASES),
                    help="comma-separated subset of " + ", ".join(PHASES)
                         + " (device and build always run)")
-    phases = set(p.parse_args(argv).phases.split(","))
+    p.add_argument("--dp-worker", default=None, help=argparse.SUPPRESS)
+    args = p.parse_args(argv)
+    if args.dp_worker:
+        return dp_worker(args.dp_worker)
+    phases = set(args.phases.split(","))
     import torch
     import torch.nn.functional as F
 
@@ -2024,6 +2311,10 @@ def main(argv=None) -> int:
             run_consistency_baseline(torch, mods, train_lib, _cuda, family)
 
     done("baseline")
+    if "dp" in phases:
+        launches.update(run_dp(torch, _cuda, train_torch, fa,
+                               train_row if "train" in phases else None))
+    done("dp")
     emit({"phase": "seconds", **seconds})
     if phases != set(PHASES):
         print(f"chip_smoke: ran only {sorted(phases)}", file=sys.stderr)

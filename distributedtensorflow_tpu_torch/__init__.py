@@ -10,9 +10,10 @@ Ported so far:
 - the serving path of GPT-2-small: the decode-mode model (``models``),
   dense-cache ``generate``, and the paged continuous-batching
   ``serve.Engine``;
-- the single-device training step of the ``gpt_lm`` preset
-  (``workloads``, ``train``, ``data``; the ``train_torch.py`` CLI) with
-  the chunked cross-entropy head.
+- the training step of the GPT presets and the BASELINE.json workloads
+  (``workloads``, ``train``, ``data``; the ``train_torch.py`` CLI), on one
+  device or data-parallel over ranks (``parallel``: the mesh, the cluster
+  bootstrap, the collectives).
 
 The hand-written Hopper kernels live in ``csrc/``: the LayerNorm forward
 and backward (``ops.layernorm``), single-token decode attention

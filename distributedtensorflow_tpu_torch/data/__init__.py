@@ -3,6 +3,8 @@
 
 from .input_pipeline import (  # noqa: F401
     InputContext,
+    current_input_context,
+    device_put_batch,
     pack_sequences,
     synthetic_classification,
 )

@@ -2,10 +2,12 @@
 
 Twin of ``distributedtensorflow_tpu/data/input_pipeline.py``:
 ``InputContext`` (``:54-69``), the per-host split that the synthetic
-sources read; ``synthetic_classification`` (``:321-342``) and
+sources read, and :func:`current_input_context` (``:72``), which fills it
+from the rank; :func:`device_put_batch` (``:87``), which puts a host batch
+on the device; ``synthetic_classification`` (``:321-342``) and
 ``pack_sequences`` (``:361-425``), copies with the same seeds and the same
 numpy draws, so both packages see identical batches.  The port runs one
-input pipeline per process.
+input pipeline per process, and one process per device.
 """
 
 from __future__ import annotations
@@ -14,6 +16,10 @@ import dataclasses
 from typing import Iterator, Sequence
 
 import numpy as np
+import torch
+
+from ..parallel import collectives
+from ..parallel.mesh import replica_count, replica_index
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,6 +37,47 @@ class InputContext:
                 f"global batch {self.global_batch_size} not divisible by "
                 f"{self.num_input_pipelines} hosts")
         return self.global_batch_size // self.num_input_pipelines
+
+
+def current_input_context(global_batch_size: int,
+                          mesh=None) -> InputContext:
+    """One input pipeline per replica of ``mesh`` (none: one in all),
+    this rank's the ``input_pipeline_id``-th."""
+    return InputContext(
+        num_input_pipelines=1 if mesh is None else replica_count(mesh),
+        input_pipeline_id=0 if mesh is None else replica_index(mesh),
+        global_batch_size=global_batch_size)
+
+
+def device_put_batch(batch: dict, device, mesh=None, *,
+                     accum_steps: int = 1) -> dict:
+    """A host batch (numpy leaves) on ``device``: integer leaves (ids,
+    labels, segments) as ``torch.long``, float leaves in their own dtype.
+
+    ``batch`` is this rank's pipeline's rows.  JAX lays the global batch
+    out rank-major (``make_array_from_process_local_data``) and splits it
+    into ``accum_steps`` microbatches of consecutive global rows, so with
+    ``accum_steps`` > 1 and more than one replica the rows this rank must
+    train on (the ``r``-th 1/N of each microbatch: global rows ``i B/accum
+    + r B/(accum N) + j``) lie in every rank's pipeline.  The ranks then
+    gather the global batch and each keeps its rows, in microbatch order,
+    so that :func:`..train.engine.split_microbatches` cuts it into its
+    share of each JAX microbatch."""
+    out = {k: torch.as_tensor(v, device=device,
+                              dtype=torch.long if v.dtype.kind in "iu"
+                              else None)
+           for k, v in batch.items()}
+    n = 1 if mesh is None else replica_count(mesh)
+    if accum_steps == 1 or n == 1:
+        return out
+    r = replica_index(mesh)
+    local = {}
+    for k, x in out.items():
+        full = collectives.all_gather(x, mesh)  # (N b, ...), rank-major
+        per = full.shape[0] // (accum_steps * n)
+        local[k] = full.view(accum_steps, n, per, *x.shape[1:])[:, r] \
+            .reshape(accum_steps * per, *x.shape[1:])
+    return local
 
 
 def synthetic_classification(

@@ -32,6 +32,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops.attention import dot_product_attention
+from ..parallel.collectives import all_reduce, share_of_mean
 from .layers import Dense, FusedLayerNorm, dense, dropout
 
 
@@ -216,13 +217,16 @@ def gathered_positions(valid, p: int):
 
 
 def _mlm_metrics(model: BertForMLM, max_predictions, batch, generator,
-                 deterministic):
+                 deterministic, group=None):
     """The loss and metrics shared by :func:`mlm_loss` and
     :func:`mlm_eval` (JAX ``_mlm_metrics``, ``:208-270``): cross-entropy
     over the masked positions (``labels`` >= 0; -100 elsewhere), weighted
     and divided by their count (at least 1), and the masked accuracy;
     with ``max_predictions`` the gathered head and ``mlm_clipped_rows``,
-    the share of rows that had more masked positions than it keeps."""
+    the share of rows that had more masked positions than it keeps.  Over
+    a data-parallel ``group`` the count divides by every rank's masked
+    positions (JAX's weight sum over the global microbatch), so the loss
+    and metrics are this rank's shares of the global values."""
     labels = batch["labels"]
     valid = labels >= 0
     kw = dict(attention_mask=batch.get("attention_mask"),
@@ -235,6 +239,9 @@ def _mlm_metrics(model: BertForMLM, max_predictions, batch, generator,
         p = min(max_predictions, labels.shape[1])
         w, pos = gathered_positions(valid, p)
         extra["mlm_clipped_rows"] = (valid.sum(1) > p).float().mean()
+        if group is not None:
+            extra["mlm_clipped_rows"] *= share_of_mean(labels.shape[0],
+                                                       group)
         logits = model(batch["input_ids"], masked_positions=pos, **kw)
         safe = torch.gather(safe, 1, pos)
         w = w.float()
@@ -244,19 +251,24 @@ def _mlm_metrics(model: BertForMLM, max_predictions, batch, generator,
     logits = logits.float()
     per_tok = F.cross_entropy(logits.flatten(0, 1), safe.flatten(),
                               reduction="none").view(safe.shape)
-    denom = w.sum().clamp_min(1.0)
+    denom = w.sum() if group is None else all_reduce(w.sum().detach(), group)
+    denom = denom.clamp_min(1.0)
     loss = (per_tok * w).sum() / denom
     acc = ((logits.argmax(-1) == safe) * w).sum() / denom
     return loss, {"mlm_accuracy": acc.detach(), **extra}
 
 
-def mlm_loss(model: BertForMLM, *, max_predictions: int | None = None):
+def mlm_loss(model: BertForMLM, *, max_predictions: int | None = None,
+             group=None):
     """``loss_fn(batch, generator=None) -> (loss, metrics)`` for masked-LM
     batches ``{input_ids, labels}`` plus ``attention_mask`` or the packed
-    ``segment_ids``/``position_ids``; dropout on (JAX ``mlm_loss``)."""
+    ``segment_ids``/``position_ids``; dropout on (JAX ``mlm_loss``).
+    ``group``: a data-parallel group (or mesh); the loss and metrics are
+    then this rank's shares of the global microbatch's."""
 
     def loss_fn(batch, generator=None):
-        return _mlm_metrics(model, max_predictions, batch, generator, False)
+        return _mlm_metrics(model, max_predictions, batch, generator, False,
+                            group)
 
     return loss_fn
 

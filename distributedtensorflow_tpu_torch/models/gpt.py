@@ -34,6 +34,7 @@ from ..ops.attention import cached_decode_attention, dot_product_attention
 from ..ops.blockwise import blockwise_map
 from ..ops.fused_xent import fused_softmax_xent
 from ..ops.xent import chunked_softmax_xent, tied_head_logits
+from ..parallel.collectives import share_of_mean
 from .layers import FusedLayerNorm, dense, dropout
 
 
@@ -302,26 +303,46 @@ def _pick_xent(cfg: GPTConfig, device):
                      "'chunked', 'chunked_bf16', or 'fused'")
 
 
-def _next_token_loss(model: GPTLM, xent, batch, **kw):
+def _next_token_loss(model: GPTLM, xent, batch, group=None, **kw):
+    """The mean next-token loss of the rows in ``batch``; with a
+    data-parallel ``group``, this rank's share of the mean over every
+    rank's rows (the heads divide by the count of weighted targets, so
+    the share scales by this rank's count over the global one)."""
     ids = batch["input_ids"]
     hidden = model(ids, return_hidden=True, **kw)
     mask = batch.get("mask")
-    return xent(hidden[:, :-1], model.wte.weight, ids[:, 1:],
-                mask[:, 1:] if mask is not None else None,
+    targets = ids[:, 1:]
+    mask = mask[:, 1:] if mask is not None else None
+    loss = xent(hidden[:, :-1], model.wte.weight, targets, mask,
                 compute_dtype=model.cfg.dtype)
+    if group is None:
+        return loss
+    return loss * share_of_mean(_target_count(targets, mask,
+                                              model.cfg.vocab_size), group)
 
 
-def lm_loss(model: GPTLM):
+def _target_count(targets, mask, vocab_size: int):
+    """The heads' weight sum: targets in [0, V), times ``mask``."""
+    w = (targets >= 0) & (targets < vocab_size)
+    return (w if mask is None else w * mask).sum()
+
+
+def lm_loss(model: GPTLM, group=None):
     """Next-token cross-entropy through the head :func:`_pick_xent` picks
     for the model's device (JAX ``lm_loss``): ``loss_fn(batch,
     generator=None) -> (loss, {"perplexity": ...})``;
     ``batch["input_ids"]`` (B, S), an optional ``batch["mask"]`` (B, S);
-    the final position predicts nothing."""
+    the final position predicts nothing.  Over a data-parallel ``group``
+    (a mesh or a process group) the loss is this rank's share of the
+    global mean and the metric its share of the log-perplexity,
+    ``log_perplexity`` (``train.engine.accumulate_gradients_dp``)."""
     xent = _pick_xent(model.cfg, model.device)
 
     def loss_fn(batch, generator=None):
-        loss = _next_token_loss(model, xent, batch, deterministic=False,
-                                generator=generator)
+        loss = _next_token_loss(model, xent, batch, group,
+                                deterministic=False, generator=generator)
+        if group is not None:
+            return loss, {"log_perplexity": loss.detach()}
         return loss, {"perplexity": torch.exp(loss.detach())}
 
     return loss_fn

@@ -19,12 +19,14 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..ops.xent import tied_head_logits
+from ..parallel.collectives import share_of_mean
 from ..parallel.moe import local_moe
 from .gpt import (
     CausalSelfAttention,
     GPTBlock,
     GPTConfig,
     _pick_xent,
+    _target_count,
     rope_tables,
 )
 from .layers import FusedLayerNorm
@@ -69,11 +71,13 @@ def _expert_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
 class MoEMLP(nn.Module):
     """Routed expert MLP over all experts on this device.  Parameters in
     fp32 with the flax shapes: ``router`` (d, E), ``experts_in`` (E, d,
-    F), ``experts_out`` (E, F, d)."""
+    F), ``experts_out`` (E, F, d).  With a data-parallel ``group`` it
+    routes the global batch (:func:`..parallel.moe.local_moe`)."""
 
-    def __init__(self, cfg: GPTMoEConfig, device=None):
+    def __init__(self, cfg: GPTMoEConfig, device=None, group=None):
         super().__init__()
         self.cfg = cfg
+        self.group = group
         e, f, n = cfg.hidden_size, cfg.intermediate_size, cfg.n_experts
         kw = dict(dtype=torch.float32, device=device)
         self.router = nn.Parameter(torch.zeros(e, n, **kw))
@@ -91,20 +95,20 @@ class MoEMLP(nn.Module):
             _expert_mlp, capacity_factor=cfg.capacity_factor,
             router=cfg.router,
             token_mask=None if token_mask is None
-            else token_mask.reshape(b * s))
+            else token_mask.reshape(b * s), group=self.group)
         return out.reshape(b, s, d), aux
 
 
 class MoEGPTBlock(nn.Module):
     """Pre-LN decoder block with a routed-expert MLP; returns (x, aux)."""
 
-    def __init__(self, cfg: GPTMoEConfig, device=None):
+    def __init__(self, cfg: GPTMoEConfig, device=None, group=None):
         super().__init__()
         self.cfg = cfg
         self.ln1 = FusedLayerNorm(cfg.hidden_size, device=device)
         self.attn = CausalSelfAttention(cfg, device=device)
         self.ln2 = FusedLayerNorm(cfg.hidden_size, device=device)
-        self.moe_mlp = MoEMLP(cfg, device=device)
+        self.moe_mlp = MoEMLP(cfg, device=device, group=group)
 
     def forward(self, x, positions, rope_tabs):
         h = self.ln1(x)
@@ -126,9 +130,11 @@ class GPTMoELM(nn.Module):
     loss summed over the MoE blocks.  Block remat covers both kinds of
     block; dropout (dense blocks only, as in JAX) draws one seed per
     block from ``generator``.  Parameters live on ``device`` (``cuda``
-    unless the caller passes ``"cpu"``)."""
+    unless the caller passes ``"cpu"``).  ``group``: the data-parallel
+    group (or mesh) whose global batch the routers route; aux is then
+    this rank's share."""
 
-    def __init__(self, cfg: GPTMoEConfig, *, device=None):
+    def __init__(self, cfg: GPTMoEConfig, *, device=None, group=None):
         super().__init__()
         if cfg.router == "expert_choice":
             raise ValueError(
@@ -141,7 +147,8 @@ class GPTMoELM(nn.Module):
         self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
                                 device=device, dtype=torch.float32)
         self.h = nn.ModuleList(
-            [MoEGPTBlock(cfg, device=device) if cfg.is_moe_layer(i)
+            [MoEGPTBlock(cfg, device=device, group=group)
+             if cfg.is_moe_layer(i)
              else GPTBlock(cfg, device=device)
              for i in range(cfg.num_layers)])
         self.ln_f = FusedLayerNorm(cfg.hidden_size, out_dtype=torch.float32,
@@ -181,25 +188,35 @@ class GPTMoELM(nn.Module):
         return tied_head_logits(x, self.wte.weight, cfg.dtype), aux_total
 
 
-def _lm_terms(model: GPTMoELM, xent, batch, **kw):
+def _lm_terms(model: GPTMoELM, xent, batch, group=None, **kw):
     ids = batch["input_ids"]
     hidden, aux = model(ids, return_hidden=True, **kw)
     lm = xent(hidden[:, :-1], model.wte.weight, ids[:, 1:], None,
               compute_dtype=model.cfg.dtype)
+    if group is not None:
+        lm = lm * share_of_mean(
+            _target_count(ids[:, 1:], None, model.cfg.vocab_size), group)
     return lm, aux
 
 
-def moe_lm_loss(model: GPTMoELM):
+def moe_lm_loss(model: GPTMoELM, group=None):
     """Next-token cross-entropy plus the weighted router aux loss, through
     the head :func:`..models.gpt._pick_xent` picks for the model's device:
     ``loss_fn(batch, generator=None) -> (lm + aux_loss_weight * aux,
-    {"perplexity": exp(lm), "aux_loss": aux})``."""
+    {"perplexity": exp(lm), "aux_loss": aux})``.  Over a data-parallel
+    ``group`` (the model built with the same group, so that its routers
+    route the global batch) every term is this rank's share and the
+    perplexity is reported as ``log_perplexity``, as :func:`..gpt.lm_loss`
+    does."""
     xent = _pick_xent(model.cfg, model.device)
     aux_w = model.cfg.aux_loss_weight
 
     def loss_fn(batch, generator=None):
-        lm, aux = _lm_terms(model, xent, batch, deterministic=False,
+        lm, aux = _lm_terms(model, xent, batch, group, deterministic=False,
                             generator=generator)
+        if group is not None:
+            return lm + aux_w * aux, {"log_perplexity": lm.detach(),
+                                      "aux_loss": aux.detach()}
         return lm + aux_w * aux, {"perplexity": torch.exp(lm.detach()),
                                   "aux_loss": aux.detach()}
 

@@ -17,6 +17,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.layernorm import layer_norm
+from ..parallel.collectives import (
+    all_gather,
+    all_reduce,
+    group_size,
+    resolve_group,
+    share_of_mean,
+)
 
 
 class FusedLayerNorm(nn.Module):
@@ -128,19 +135,27 @@ class Conv(nn.Module):
         return F.conv2d(x, self.weight.to(dt), bias, self.strides, pad)
 
 
-def _plain_batch_norm(x, scale, bias, mean, var, train, momentum, eps):
+def _plain_batch_norm(x, scale, bias, mean, var, train, momentum, eps,
+                      group=None):
     """flax ``nn.BatchNorm`` over dim 1 of ``x``: with ``train`` the
     batch's fp32 statistics, the variance ``E[x^2] - E[x]^2`` clamped at
     0 (``use_fast_variance``), and the running ``mean``/``var`` updated
     in place to ``momentum * running + (1 - momentum) * batch`` with the
     biased variance; without, the running statistics.  Normalised in
-    fp32, one rounding to ``x.dtype``."""
+    fp32, one rounding to ``x.dtype``.  With a data-parallel ``group``
+    the batch is the global one: each rank's ``E[x]`` and ``E[x^2]``,
+    weighted by its share of the rows, are summed over the ranks by a
+    differentiable all-reduce, whose backward sums the two statistics'
+    gradients over the ranks."""
     xf = x.float()
     shape = (1, -1) + (1,) * (x.dim() - 2)
     if train:
         axes = [0] + list(range(2, x.dim()))
-        mu = xf.mean(axes)
-        var_b = torch.clamp((xf * xf).mean(axes) - mu * mu, min=0.0)
+        mu, ex2 = xf.mean(axes), (xf * xf).mean(axes)
+        if group is not None:
+            share = share_of_mean(x.numel() // x.shape[1], group)
+            mu, ex2 = all_reduce(torch.stack([mu, ex2]) * share, group)
+        var_b = torch.clamp(ex2 - mu * mu, min=0.0)
         with torch.no_grad():
             mean.copy_(momentum * mean + (1 - momentum) * mu)
             var.copy_(momentum * var + (1 - momentum) * var_b)
@@ -168,6 +183,68 @@ def batch_norm_cuda(x, scale, bias, mean, var, train, momentum, eps):
     return y
 
 
+def _dense_layout(t):
+    """``t`` contiguous in its own memory format (the batch-norm kernels
+    take NCHW or channels-last)."""
+    if t.dim() == 4 and t.is_contiguous(memory_format=torch.channels_last):
+        return t
+    return t.contiguous()
+
+
+class _SyncBatchNormCuda(torch.autograd.Function):
+    """The training forward and backward of :func:`batch_norm_cuda` over a
+    data-parallel group's global batch, on PyTorch's batch-norm kernels
+    (those of ``SyncBatchNorm``): per-rank mean and inverse deviation,
+    gathered with the counts and merged (Welford); in the backward the
+    two per-channel gradient sums all-reduced.  Returns ``(y, mean,
+    invstd)``, the last two without gradient."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps, group):
+        x = _dense_layout(x)
+        c = x.shape[1]
+        mean, invstd = torch.batch_norm_stats(x, eps)
+        count = torch.full((1,), x.numel() // c, dtype=mean.dtype,
+                           device=x.device)
+        table = all_gather(torch.cat([mean, invstd, count]), group,
+                           tiled=False)
+        counts = table[:, 2 * c]
+        mean, invstd = torch.batch_norm_gather_stats_with_counts(
+            x, table[:, :c], table[:, c:2 * c], None, None, 0.0, eps, counts)
+        ctx.save_for_backward(x, scale, mean, invstd,
+                              counts.to(torch.int32))
+        ctx.group = group
+        ctx.mark_non_differentiable(mean, invstd)
+        return torch.batch_norm_elemt(x, scale, bias, mean, invstd, eps), \
+            mean, invstd
+
+    @staticmethod
+    def backward(ctx, g, _mean, _invstd):
+        x, scale, mean, invstd, counts = ctx.saved_tensors
+        g = _dense_layout(g)
+        sum_dy, sum_dy_xmu, dscale, dbias = torch.batch_norm_backward_reduce(
+            g, x, mean, invstd, scale, True, True, True)
+        sums = all_reduce(torch.cat([sum_dy, sum_dy_xmu]), ctx.group)
+        sum_dy, sum_dy_xmu = sums.chunk(2)
+        dx = torch.batch_norm_backward_elemt(g, x, mean, invstd, scale,
+                                             sum_dy, sum_dy_xmu, counts)
+        return dx, dscale, dbias, None, None
+
+
+def sync_batch_norm_cuda(x, scale, bias, mean, var, momentum, eps, group):
+    """:func:`batch_norm_cuda`'s training forward over the global batch of
+    a data-parallel ``group`` (:class:`_SyncBatchNormCuda`), in fp32 with
+    one rounding to ``x.dtype`` (the kernels' statistics merge takes its
+    counts in the input's dtype), the running buffers updated with the
+    biased variance as there."""
+    y, mu, invstd = _SyncBatchNormCuda.apply(x.float(), scale, bias, eps,
+                                             resolve_group(group))
+    with torch.no_grad():
+        mean.copy_(momentum * mean + (1 - momentum) * mu)
+        var.copy_(momentum * var + (1 - momentum) * (invstd ** -2 - eps))
+    return y.to(x.dtype)
+
+
 #: flax ``nn.BatchNorm``'s settings in the ResNets (``resnet.py:33-36``).
 BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
@@ -180,12 +257,17 @@ class BatchNorm(nn.Module):
     ``batch_stats``), updated once a training forward.  ``forward(x,
     train)``: :func:`_plain_batch_norm` on the CPU, :func:`batch_norm_cuda`
     on the card.  ``zero_scale`` marks the scale that flax starts at 0
-    (``scale_init=zeros``), for ``init_params``."""
+    (``scale_init=zeros``), for ``init_params``.  ``group``: a
+    data-parallel group (or mesh) of more than one rank makes a training
+    forward take the global batch's statistics (flax's BatchNorm sees the
+    global array): :func:`_plain_batch_norm` over the group on the CPU,
+    :func:`sync_batch_norm_cuda` on the card."""
 
     def __init__(self, features: int, *, zero_scale: bool = False,
-                 device=None):
+                 device=None, group=None):
         super().__init__()
         self.zero_scale = zero_scale
+        self.group = group
         self.scale = nn.Parameter(torch.ones(features, dtype=torch.float32,
                                              device=device))
         self.bias = nn.Parameter(torch.zeros(features, dtype=torch.float32,
@@ -196,9 +278,16 @@ class BatchNorm(nn.Module):
             features, dtype=torch.float32, device=device))
 
     def forward(self, x, train: bool):
-        fn = _plain_batch_norm if x.device.type == "cpu" else batch_norm_cuda
-        return fn(x, self.scale, self.bias, self.mean, self.var, train,
-                  BN_MOMENTUM, BN_EPS)
+        args = (x, self.scale, self.bias, self.mean, self.var, train,
+                BN_MOMENTUM, BN_EPS)
+        cpu = x.device.type == "cpu"
+        if train and self.group is not None and group_size(self.group) > 1:
+            if cpu:
+                return _plain_batch_norm(*args, group=self.group)
+            return sync_batch_norm_cuda(x, self.scale, self.bias, self.mean,
+                                        self.var, BN_MOMENTUM, BN_EPS,
+                                        self.group)
+        return (_plain_batch_norm if cpu else batch_norm_cuda)(*args)
 
 
 def dropout(x: torch.Tensor, rate: float, seed: int | None) -> torch.Tensor:

@@ -8,7 +8,9 @@ moves the channels to dim 1 once at its entry, a view that on the card is
 the ``channels_last`` memory format cuDNN runs fastest (the models'
 weights are made ``channels_last`` there too).  The convolutions go to
 cuDNN and BatchNorm to :class:`layers.BatchNorm` (see there for flax's
-semantics), as XLA runs both on the TPU.
+semantics), as XLA runs both on the TPU.  A model built with a
+data-parallel ``group`` hands it to every BatchNorm, whose statistics are
+then the global batch's.
 
 flax's ``"SAME"`` pads a stride-2 3x3 conv on an even input (0, 1)
 (:func:`layers.same_padding`); the ResNet-50 stem pads (3, 3), its
@@ -56,19 +58,20 @@ class ResidualBlock(nn.Module):
     where the block changes the shape."""
 
     def __init__(self, in_features: int, filters: int, strides: int, dtype,
-                 device=None):
+                 device=None, group=None):
         super().__init__()
         kw = dict(use_bias=False, dtype=dtype, device=device)
+        bn = dict(device=device, group=group)
         self.Conv_0 = Conv(in_features, filters, (3, 3), strides=strides,
                            **kw)
-        self.BatchNorm_0 = BatchNorm(filters, device=device)
+        self.BatchNorm_0 = BatchNorm(filters, **bn)
         self.Conv_1 = Conv(filters, filters, (3, 3), **kw)
-        self.BatchNorm_1 = BatchNorm(filters, zero_scale=True, device=device)
+        self.BatchNorm_1 = BatchNorm(filters, zero_scale=True, **bn)
         self.shortcut = strides != 1 or in_features != filters
         if self.shortcut:
             self.Conv_2 = Conv(in_features, filters, (1, 1), strides=strides,
                                **kw)
-            self.BatchNorm_2 = BatchNorm(filters, device=device)
+            self.BatchNorm_2 = BatchNorm(filters, **bn)
 
     def forward(self, x, train: bool):
         y = F.relu(self.BatchNorm_0(self.Conv_0(x), train))
@@ -82,21 +85,22 @@ class BottleneckBlock(nn.Module):
     """1x1 -> 3x3 -> 1x1 (x4) bottleneck, v1.5: the stride on the 3x3."""
 
     def __init__(self, in_features: int, filters: int, strides: int, dtype,
-                 device=None):
+                 device=None, group=None):
         super().__init__()
         kw = dict(use_bias=False, dtype=dtype, device=device)
+        bn = dict(device=device, group=group)
         out = filters * 4
         self.Conv_0 = Conv(in_features, filters, (1, 1), **kw)
-        self.BatchNorm_0 = BatchNorm(filters, device=device)
+        self.BatchNorm_0 = BatchNorm(filters, **bn)
         self.Conv_1 = Conv(filters, filters, (3, 3), strides=strides, **kw)
-        self.BatchNorm_1 = BatchNorm(filters, device=device)
+        self.BatchNorm_1 = BatchNorm(filters, **bn)
         self.Conv_2 = Conv(filters, out, (1, 1), **kw)
-        self.BatchNorm_2 = BatchNorm(out, zero_scale=True, device=device)
+        self.BatchNorm_2 = BatchNorm(out, zero_scale=True, **bn)
         self.shortcut = strides != 1 or in_features != out
         if self.shortcut:
             self.Conv_3 = Conv(in_features, out, (1, 1), strides=strides,
                                **kw)
-            self.BatchNorm_3 = BatchNorm(out, device=device)
+            self.BatchNorm_3 = BatchNorm(out, **bn)
 
     def forward(self, x, train: bool):
         y = F.relu(self.BatchNorm_0(self.Conv_0(x), train))
@@ -112,13 +116,14 @@ class _ResNet(nn.Module):
     space and the fp32 ``Dense_0`` head shared by both nets."""
 
     def _add_blocks(self, kind, block_cls, in_features, widths, dtype,
-                    device):
+                    device, group):
         """``widths``: (filters, strides) of each block in order."""
         self.block_names = []
         for i, (filters, strides) in enumerate(widths):
             name = f"{kind}_{i}"
             self.add_module(name, block_cls(in_features, filters, strides,
-                                            dtype, device=device))
+                                            dtype, device=device,
+                                            group=group))
             self.block_names.append(name)
             in_features = filters * (4 if block_cls is BottleneckBlock else 1)
         self.Dense_0 = Dense(in_features, self.cfg.num_classes,
@@ -140,21 +145,22 @@ class _ResNet(nn.Module):
 class CifarResNet(_ResNet):
     """``forward(x, train=True)``: x (B, 32, 32, 3) NHWC -> fp32 logits.
     ``train=False`` normalises with the running statistics and leaves
-    them as they are."""
+    them as they are.  ``group``: the data-parallel group (or mesh) whose
+    global batch BatchNorm normalises over."""
 
     def __init__(self, cfg: CifarResNetConfig = CifarResNetConfig(), *,
-                 device=None):
+                 device=None, group=None):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
         self.Conv_0 = Conv(3, 16, (3, 3), use_bias=False, dtype=cfg.dtype,
                            device=device)
-        self.BatchNorm_0 = BatchNorm(16, device=device)
+        self.BatchNorm_0 = BatchNorm(16, device=device, group=group)
         widths = [(f, 2 if stage > 0 and block == 0 else 1)
                   for stage, f in enumerate((16, 32, 64))
                   for block in range(cfg.n)]
         self._add_blocks("ResidualBlock", ResidualBlock, 16, widths,
-                         cfg.dtype, device)
+                         cfg.dtype, device, group)
 
     def forward(self, x, train: bool = True):
         x = x.to(self.cfg.dtype).permute(0, 3, 1, 2)
@@ -164,10 +170,10 @@ class CifarResNet(_ResNet):
 
 class ImageNetResNet(_ResNet):
     """``forward(x, train=True)``: x (B, 224, 224, 3) NHWC -> fp32
-    logits."""
+    logits; ``group`` as :class:`CifarResNet`'s."""
 
     def __init__(self, cfg: ImageNetResNetConfig = ImageNetResNetConfig(),
-                 *, device=None):
+                 *, device=None, group=None):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
@@ -177,12 +183,12 @@ class ImageNetResNet(_ResNet):
         else:
             self.Conv_0 = Conv(3, 64, (7, 7), strides=2,
                                padding=((3, 3), (3, 3)), **kw)
-        self.BatchNorm_0 = BatchNorm(64, device=device)
+        self.BatchNorm_0 = BatchNorm(64, device=device, group=group)
         widths = [(64 * 2**stage, 2 if stage > 0 and block == 0 else 1)
                   for stage, size in enumerate(cfg.stage_sizes)
                   for block in range(size)]
         self._add_blocks("BottleneckBlock", BottleneckBlock, 64, widths,
-                         cfg.dtype, device)
+                         cfg.dtype, device, group)
 
     def forward(self, x, train: bool = True):
         x = x.to(self.cfg.dtype)

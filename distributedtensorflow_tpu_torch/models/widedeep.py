@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from ..parallel.collectives import share_of_mean
 from .layers import Dense
 
 
@@ -93,12 +94,16 @@ def _forward_metrics(model: WideDeep, batch):
     return loss, accuracy
 
 
-def widedeep_loss(model: WideDeep):
+def widedeep_loss(model: WideDeep, group=None):
     """``loss_fn(batch, generator=None) -> (loss, {"accuracy"})`` for
-    batches ``{categorical, dense, label}``."""
+    batches ``{categorical, dense, label}``; over a data-parallel
+    ``group`` (or mesh) this rank's shares of the global means."""
 
     def loss_fn(batch, generator=None):
         loss, accuracy = _forward_metrics(model, batch)
+        if group is not None:
+            share = share_of_mean(batch["label"].shape[0], group)
+            loss, accuracy = loss * share, accuracy * share
         return loss, {"accuracy": accuracy}
 
     return loss_fn

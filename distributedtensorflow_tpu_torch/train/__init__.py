@@ -2,6 +2,7 @@
 
 from .engine import (  # noqa: F401
     accumulate_gradients,
+    accumulate_gradients_dp,
     make_eval_step,
     make_train_step,
     split_microbatches,

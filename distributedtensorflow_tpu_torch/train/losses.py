@@ -13,23 +13,32 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel.collectives import group_rank, share_of_mean
+
 
 def classification_loss(model, *, weight_decay: float = 0.0,
-                        inputs_key: str = "image", labels_key: str = "label"):
+                        inputs_key: str = "image", labels_key: str = "label",
+                        group=None):
     """``loss_fn(batch, generator=None) -> (loss, {"accuracy"})``: the
     mean cross-entropy of the fp32 logits, plus ``0.5 * weight_decay *
     sum(p ** 2)`` over the parameters of rank > 1 (conv and dense
-    kernels, never BatchNorm scales or biases) when ``weight_decay``."""
+    kernels, never BatchNorm scales or biases) when ``weight_decay``.
+    Over a data-parallel ``group`` (or mesh) the cross-entropy and the
+    accuracy are this rank's shares of the global means and the L2 term,
+    over the replicated parameters, enters once: on rank 0's share."""
 
     def loss_fn(batch, generator=None):
         logits = model(batch[inputs_key], train=True).float()
         labels = batch[labels_key]
         loss = F.cross_entropy(logits, labels)
-        if weight_decay:
+        accuracy = (logits.argmax(-1) == labels).float().mean()
+        if group is not None:
+            share = share_of_mean(labels.shape[0], group)
+            loss, accuracy = loss * share, accuracy * share
+        if weight_decay and (group is None or group_rank(group) == 0):
             l2 = sum(p.square().sum() for p in model.parameters()
                      if p.dim() > 1)
             loss = loss + 0.5 * weight_decay * l2
-        accuracy = (logits.argmax(-1) == labels).float().mean()
         return loss, {"accuracy": accuracy}
 
     return loss_fn

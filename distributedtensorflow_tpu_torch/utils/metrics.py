@@ -4,8 +4,9 @@ Twin of ``distributedtensorflow_tpu/utils/metrics.py`` (``:30-171``) with
 its jsonl sink only, the sink the JAX writer keeps when TensorFlow is
 absent: ``metrics.jsonl`` in the log directory, one strict-JSON object
 per ``write`` (``{"step": ..., **scalars}``), non-finite floats as the
-sentinel strings ``tools/check_metrics_schema.py`` reads.  The port runs
-one process, which is the chief.
+sentinel strings ``tools/check_metrics_schema.py`` reads.  Of the
+ranks of a data-parallel run only the chief (process 0) writes, as
+``train.py``'s trainer does.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import os
 import time
 from typing import Any, Mapping
 
-import torch
+from ..parallel import bootstrap
 
 
 def json_sanitize(value: Any) -> Any:
@@ -34,13 +35,17 @@ def json_sanitize(value: Any) -> Any:
 
 class MetricWriter:
     """Appends scalar rows to ``<logdir>/metrics.jsonl`` (nothing without
-    a logdir).  A context manager; ``close`` is idempotent and writes
-    after it are dropped."""
+    a logdir, and nothing on a process other than the chief: ``chief``
+    None asks :func:`..parallel.bootstrap.is_chief`).  A context manager;
+    ``close`` is idempotent and writes after it are dropped."""
 
-    def __init__(self, logdir: str | None = None):
+    def __init__(self, logdir: str | None = None, *,
+                 chief: bool | None = None):
         self._jsonl = None
         self._closed = False
-        if logdir is not None:
+        if chief is None:
+            chief = bootstrap.is_chief()
+        if logdir is not None and chief:
             os.makedirs(logdir, exist_ok=True)
             self._jsonl = open(os.path.join(logdir, "metrics.jsonl"), "a")
 
@@ -70,11 +75,13 @@ class MetricWriter:
 
 
 class ThroughputMeter:
-    """steps/s, examples/s and examples/s per CUDA device (one on a
-    machine without) since ``start``."""
+    """steps/s, examples/s of the global batch, and examples/s per chip
+    (over ``n_chips``, by default the processes of the run, each driving
+    one device) since ``start``."""
 
-    def __init__(self, global_batch_size: int):
+    def __init__(self, global_batch_size: int, n_chips: int | None = None):
         self.global_batch_size = global_batch_size
+        self.n_chips = n_chips or bootstrap.process_count()
         self._t0: float | None = None
         self._steps = 0
 
@@ -92,7 +99,6 @@ class ThroughputMeter:
             return {}
         steps_per_sec = self._steps / (time.perf_counter() - self._t0)
         ex_per_sec = steps_per_sec * self.global_batch_size
-        n_dev = max(1, torch.cuda.device_count())
         return {"steps_per_sec": steps_per_sec,
                 "examples_per_sec": ex_per_sec,
-                "examples_per_sec_per_chip": ex_per_sec / n_dev}
+                "examples_per_sec_per_chip": ex_per_sec / self.n_chips}

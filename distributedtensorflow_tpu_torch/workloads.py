@@ -23,9 +23,11 @@ defaults:
   ``widedeep_test_config`` at test size).
 
 The synthetic sources are copies of the JAX package's numpy sources
-with the same seeds, so both packages see identical batches.  The other
-presets (``imagenet_vit``, ``bert_moe``, ``t5_seq2seq``), the meshes and
-the pipeline/sequence/expert-parallel variants are not ported yet.
+with the same seeds, so both packages see identical batches; over a
+data-parallel mesh each rank's source is seeded by ``seed +
+input_pipeline_id``, as each JAX host's is.  The other presets
+(``imagenet_vit``, ``bert_moe``, ``t5_seq2seq``) and the
+pipeline/sequence/expert-parallel variants are not ported yet.
 """
 
 from __future__ import annotations
@@ -168,8 +170,10 @@ class Workload:
     #: tokens a row (the LM and MLM presets), else None
     seq_len: int | None
     global_batch_size: int
-    #: model -> ``loss_fn(batch, generator) -> (loss, metrics)``
-    loss_fn: Callable[[torch.nn.Module], Callable]
+    #: ``(model, group=None) -> loss_fn(batch, generator) -> (loss,
+    #: metrics)``; with a data-parallel group (or mesh) the loss and
+    #: metrics are this rank's shares (``train.engine``)
+    loss_fn: Callable[..., Callable]
     #: model -> ``metric_fn(batch) -> metrics``
     eval_fn: Callable[[torch.nn.Module], Callable]
     #: parameters -> optimizer
@@ -181,6 +185,9 @@ class Workload:
     model_cls: Callable = GPTLM
     #: ``(cfg, generator) -> state_dict`` of seeded weights
     init_params: Callable = init_params
+    #: the model's forward reduces over the batch (BatchNorm statistics,
+    #: MoE routing): over a mesh it is built with ``group=`` the mesh
+    model_takes_group: bool = False
 
 
 def _image_input(shape, classes):
@@ -206,23 +213,27 @@ def _baseline(name: str, *, test_size: bool, global_batch_size: int | None,
         return Workload(
             name=name, cfg=cfg, seq_len=None,
             global_batch_size=global_batch_size or 256,
-            loss_fn=lambda m: classification_loss(m, weight_decay=1e-4),
+            loss_fn=lambda m, group=None: classification_loss(
+                m, weight_decay=1e-4, group=group),
             eval_fn=classification_eval,
             make_optimizer=lambda params: sgd(params, 0.1, momentum=0.9,
                                               nesterov=True),
-            input_fn=_image_input((32, 32, 3), 10), model_cls=CifarResNet)
+            input_fn=_image_input((32, 32, 3), 10), model_cls=CifarResNet,
+            model_takes_group=True)
     if name == "imagenet_resnet50":
         size = (64, 64, 3) if test_size else (224, 224, 3)
         return Workload(
             name=name, cfg=ImageNetResNetConfig(), seq_len=None,
             global_batch_size=global_batch_size or 1024,
-            loss_fn=lambda m: classification_loss(m, weight_decay=1e-4),
+            loss_fn=lambda m, group=None: classification_loss(
+                m, weight_decay=1e-4, group=group),
             eval_fn=lambda m: classification_eval(m, top5=True),
             make_optimizer=lambda params: sgd(
                 params, warmup_cosine_decay_schedule(0.0, 0.8, 1563,
                                                      112_590),
                 momentum=0.9, nesterov=True),
-            input_fn=_image_input(size, 1000), model_cls=ImageNetResNet)
+            input_fn=_image_input(size, 1000), model_cls=ImageNetResNet,
+            model_takes_group=True)
     if name in ("bert_mlm", "bert_mlm_packed"):
         cfg = bert_tiny() if test_size else bert_base()
         seq = seq_len or (128 if test_size else 512)
@@ -234,7 +245,8 @@ def _baseline(name: str, *, test_size: bool, global_batch_size: int | None,
         return Workload(
             name=name, cfg=cfg, seq_len=seq,
             global_batch_size=global_batch_size or 256,
-            loss_fn=lambda m: mlm_loss(m, max_predictions=p),
+            loss_fn=lambda m, group=None: mlm_loss(m, max_predictions=p,
+                                                   group=group),
             eval_fn=lambda m: mlm_eval(m, max_predictions=p),
             make_optimizer=lambda params: adamw(params, 1e-4,
                                                 weight_decay=0.01),
@@ -315,4 +327,5 @@ def get_workload(name: str, *, test_size: bool = False,
         input_fn=lambda ctx, seed: synthetic_lm(
             ctx, vocab_size=cfg.vocab_size, seq_len=seq, seed=seed),
         model_cls=GPTMoELM if moe else GPTLM,
+        model_takes_group=moe,
     )

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """train_torch.py - train a preset with the PyTorch port.
 
-The twin of ``train.py`` for the presets the port has, on one device:
-the GPT language models ``gpt_lm``, ``gpt_medium_lm``,
+The twin of ``train.py`` for the presets the port has, on one device or
+data-parallel over ranks (``--mesh data=N``, one process per device): the
+GPT language models ``gpt_lm``, ``gpt_medium_lm``,
 ``lm_long_context`` and ``gpt_moe``, and the BASELINE.json workloads
 ``mnist_lenet``, ``cifar_resnet20``, ``imagenet_resnet50``, ``bert_mlm``,
 ``bert_mlm_packed`` and ``widedeep``.  Synthetic batches, the preset's
@@ -18,6 +19,21 @@ CUDA card unless ``--device cpu`` is given:
     python train_torch.py --workload imagenet_resnet50 --steps 20
     python train_torch.py --workload bert_mlm --test-size --device cpu \
         --steps 3 --batch-size 8
+    ./run_distributed_torch.sh -n 2 -- --workload gpt_lm --test-size \
+        --device cpu --dist-backend gloo --steps 3
+
+Data parallelism: the cluster comes from the environment (torchrun's
+``RANK``/``WORLD_SIZE``/``MASTER_ADDR``/``MASTER_PORT``, ``TF_CONFIG``,
+Slurm, MPI, Kubernetes, GCE or SageMaker; ``parallel.bootstrap``), the
+process group's backend from ``--dist-backend`` (NCCL, the default, on
+the cards; gloo only where asked for, as on the CPU), and each process
+drives ``cuda:<local rank>``.  ``--mesh data=N`` (or a multi-process
+cluster without ``--mesh``, which takes ``data=-1``) trains the global
+batch ``--batch-size`` as JAX's step over a mesh would: each rank reads
+its own input pipeline (seed + rank), holds its share of every
+microbatch, and the ranks sum their gradients once a step.  Only the
+chief prints and writes ``metrics.jsonl``.  ``--eval-every`` runs on one
+process only.
 
 Prints one JSON line per log step: ``step``, ``loss``, ``perplexity``
 (the language models), ``step_ms`` (mean wall time of the steps since
@@ -40,8 +56,19 @@ import time
 
 import torch
 
-from distributedtensorflow_tpu_torch.data import InputContext
+from distributedtensorflow_tpu_torch.data import (
+    InputContext,
+    current_input_context,
+    device_put_batch,
+)
 from distributedtensorflow_tpu_torch.device import resolve_device
+from distributedtensorflow_tpu_torch.parallel import bootstrap
+from distributedtensorflow_tpu_torch.parallel.mesh import (
+    MeshSpec,
+    build_mesh,
+    parse_mesh,
+    replica_count,
+)
 from distributedtensorflow_tpu_torch.train import (
     TrainState,
     make_eval_step,
@@ -106,12 +133,24 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="shrink the model (the JAX test sizes: gpt_tiny or "
                         "gpt_moe_tiny at seq 64, bert_tiny at seq 128, "
                         "ResNet-50 at 64x64, widedeep_test_config)")
+    p.add_argument("--dtype", choices=("float32", "bfloat16"), default=None,
+                   help="compute dtype in place of the preset's (fp32 for "
+                        "parity checks: in bf16 each rank rounds its own "
+                        "rows' gradients)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=20)
     p.add_argument("--eval-every", type=int, default=0)
     p.add_argument("--logdir", default=None,
                    help="append metrics.jsonl rows here")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--mesh", default=None,
+                   help="mesh axes, e.g. 'data=2' or 'data=-1' (every "
+                        "process of the cluster); only the data axis is "
+                        "ported")
+    p.add_argument("--dist-backend", choices=bootstrap.BACKENDS,
+                   default="nccl",
+                   help="process-group backend over a mesh: nccl on the "
+                        "cards, gloo where asked for (the CPU)")
     return p.parse_args(argv)
 
 
@@ -149,22 +188,40 @@ def apply_optimizer_flags(wl, args):
     return dataclasses.replace(wl, make_optimizer=make)
 
 
-def _device_batches(source, device):
-    """Numpy batches as device tensors: integer leaves (ids, labels,
-    segments) as ``torch.long``, float leaves (NHWC images, dense
-    features) in their own dtype."""
+def _device_batches(source, device, mesh=None, accum_steps=1):
+    """Numpy batches as device tensors (:func:`device_put_batch`)."""
     for b in source:
-        yield {k: torch.as_tensor(v, device=device,
-                                  dtype=torch.long if v.dtype.kind in "iu"
-                                  else None)
-               for k, v in b.items()}
+        yield device_put_batch(b, device, mesh, accum_steps=accum_steps)
+
+
+def bootstrap_mesh(args):
+    """``(mesh, device)``: without ``--mesh`` and outside a multi-process
+    cluster, no mesh and ``--device``; else the process group started
+    with ``--dist-backend`` over the resolved cluster, the mesh of
+    ``--mesh`` (default ``data=-1``) and this process's device
+    (``cuda:<local rank>``)."""
+    device = resolve_device(args.device)
+    cluster = bootstrap.resolve_cluster()
+    spec = parse_mesh(args.mesh)
+    if spec is None and not cluster.is_multiprocess:
+        return None, device
+    if device.type == "cpu" and args.dist_backend == "nccl":
+        raise SystemExit("--device cpu over a mesh needs --dist-backend "
+                         "gloo (NCCL runs on CUDA devices only)")
+    device = bootstrap.local_device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    bootstrap.initialize(cluster, backend=args.dist_backend)
+    return build_mesh(spec or MeshSpec(data=-1)), device
 
 
 def build(args: argparse.Namespace):
     """``(workload, state, step_fn, batches)`` for ``args``: the model
     from seeded random weights on the device, the optimizer, the train
-    step and an iterator of device batches."""
-    device = resolve_device(args.device)
+    step and an iterator of device batches; over a mesh (see
+    :func:`bootstrap_mesh`) this rank's state, step and share of each
+    batch."""
+    mesh, device = bootstrap_mesh(args)
     wl = get_workload(
         args.workload, test_size=args.test_size,
         global_batch_size=args.batch_size, seq_len=args.seq_len,
@@ -172,16 +229,25 @@ def build(args: argparse.Namespace):
         xent_impl=args.xent_impl, kv_heads=args.kv_heads,
         attn_window=args.attn_window)
     wl = apply_optimizer_flags(wl, args)
-    model = wl.model_cls(wl.cfg, device=device)
+    if args.dtype:
+        wl = dataclasses.replace(wl, cfg=dataclasses.replace(
+            wl.cfg, dtype=getattr(torch, args.dtype)))
+    accum = wl.accum_steps if args.accum_steps is None else args.accum_steps
+    replicas = 1 if mesh is None else replica_count(mesh)
+    if wl.global_batch_size % (replicas * accum):
+        raise SystemExit(f"global batch {wl.global_batch_size} not divisible "
+                         f"by {replicas} replicas x {accum} microbatches")
+    group = {"group": mesh} if mesh is not None else {}
+    model = wl.model_cls(wl.cfg, device=device,
+                         **(group if wl.model_takes_group else {}))
     model.load_state_dict(
         wl.init_params(wl.cfg, torch.Generator().manual_seed(args.seed)))
-    state = TrainState(0, model,
-                       wl.make_optimizer(list(model.named_parameters())))
-    accum = wl.accum_steps if args.accum_steps is None else args.accum_steps
-    step = make_train_step(wl.loss_fn(model), accum_steps=accum,
-                           seed=args.seed)
-    ctx = InputContext(global_batch_size=wl.global_batch_size)
-    batches = _device_batches(wl.input_fn(ctx, args.seed), device)
+    state = TrainState.create(model, wl.make_optimizer, mesh)
+    step = make_train_step(wl.loss_fn(model, **group), accum_steps=accum,
+                           seed=args.seed, mesh=mesh)
+    ctx = current_input_context(wl.global_batch_size, mesh)
+    batches = _device_batches(wl.input_fn(ctx, args.seed), device, mesh,
+                              accum)
     return wl, state, step, batches
 
 
@@ -200,9 +266,23 @@ def evaluate(wl, state, args) -> dict[str, float]:
 
 
 def main(argv=None) -> list[dict]:
-    """Train; returns the printed records."""
+    """Train; returns the records (the chief prints them).  A process
+    group this call started is shut down at its end."""
     args = parse_args(argv)
+    started = not torch.distributed.is_initialized()
+    try:
+        return _train(args)
+    finally:
+        if started:
+            bootstrap.shutdown()
+
+
+def _train(args) -> list[dict]:
     wl, state, step, batches = build(args)
+    chief = bootstrap.is_chief()
+    if args.eval_every and bootstrap.process_count() > 1:
+        raise SystemExit("--eval-every over more than one process is not "
+                         "ported")
     records, times = [], []
     meter = ThroughputMeter(wl.global_batch_size)
     with MetricWriter(args.logdir) as writer:
@@ -224,7 +304,8 @@ def main(argv=None) -> list[dict]:
                 if wl.seq_len:
                     rec["tokens_per_sec"] = (wl.global_batch_size
                                              * wl.seq_len / step_s)
-                print(json.dumps(rec), flush=True)
+                if chief:
+                    print(json.dumps(rec), flush=True)
                 records.append(rec)
                 writer.write(state.step, {
                     **{k: float(v) for k, v in metrics.items()},
