@@ -108,10 +108,28 @@ Phases, each fatal on failure:
     buffers within 1e-5 of their max-abs and equal on both ranks, each
     kernel's launches per step and rank as derived; cifar_resnet20 again
     in its preset's bf16, within 1e-2.
+15. ckpt: checkpoint and resume on gpt_lm as phase 9 builds it.
+    (a) six steps uninterrupted, twice (bit-identical), against three
+    steps, an async save, a fresh build whose weights come from another
+    seed, ``restore``, ``skip_batches`` and three more: losses and the
+    state's ``tree_fingerprint`` bit for bit, the resumed steps launching
+    phase 9's kernels their derived counts; the steps around the save
+    equal the uninterrupted run's.  (b) ``train_torch.main`` in a child
+    (full width, 2 layers, 8 steps, ``--checkpoint-dir``) gets SIGTERM
+    after its third step line, saves at the next step boundary and exits
+    0; relaunched, it logs the restore and the fast-forward and ends on
+    the last loss of an uninterrupted child.  (c) a flipped byte in the
+    newest step is rejected and the step before restored; a directory
+    without its commit marker is no step.  (d) the checkpoint's bytes,
+    the blocking ms of async and sync saves, the background commit, the
+    restore, the fast-forward, a step overlapping a commit beside one
+    that does not.  ckpt_determinism: two steps of every preset under
+    ``--deterministic`` in a fresh process; an op without a deterministic
+    CUDA version is recorded by preset.
 
 Kernel launch counts are set to 0 just before phases 5, 6 (each
-generate run), 9-11, 13 and 14 (each path; in each rank's process) and
-read just after; a kernel of the path that did not launch, or a gpt_lm,
+generate run), 9-11, 13, 14 (each path; in each rank's process) and
+15's resumed steps, and read just after; a kernel of the path that did not launch, or a gpt_lm,
 gpt_moe or BERT training step that launched a kernel another number of
 times than its forward, recomputation and backward need, fails the run.  The
 line before the last is one JSON object with a row per kernel; the last
@@ -1398,6 +1416,11 @@ def sync(torch, dev) -> None:
         torch.cuda.synchronize(dev)
 
 
+def empty_cache(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
 def run_serving(torch, cuda, Engine, model, vocab):
     rng = np.random.default_rng(SEED)
     eng = Engine(model, max_slots=4, block_size=16, prefill_chunk=16,
@@ -1946,27 +1969,35 @@ def _dp_launches(name):
 
 
 @contextlib.contextmanager
+def _cut_config(train_torch, **fields):
+    """``train_torch.build`` of every preset whose config has ``fields``
+    with them replaced (the rest as it is), inside the block."""
+    make = train_torch.get_workload
+
+    def cut(*args, **kw):
+        wl = make(*args, **kw)
+        if all(hasattr(wl.cfg, f) for f in fields):
+            wl = dataclasses.replace(wl, cfg=dataclasses.replace(wl.cfg,
+                                                                 **fields))
+        return wl
+
+    train_torch.get_workload = cut
+    try:
+        yield
+    finally:
+        train_torch.get_workload = make
+
+
+@contextlib.contextmanager
 def _dp_preset(train_torch, fa, name):
     """``train_torch.build`` of ``name`` cut to DP_LAYERS layers at
     dropout 0 (a rank draws the masks of its own rows, one process those
     of all rows: they cannot match), with the flash gate at 512 for
     bert_mlm_packed, inside the block."""
-    make = train_torch.get_workload
-
-    def cut(*args, **kw):
-        wl = make(*args, **kw)
-        if hasattr(wl.cfg, "num_layers"):
-            wl = dataclasses.replace(wl, cfg=dataclasses.replace(
-                wl.cfg, num_layers=DP_LAYERS, dropout_rate=0.0))
-        return wl
-
-    train_torch.get_workload = cut
-    try:
-        with _min_seq(fa, 512 if name == "bert_mlm_packed"
-                      else fa.MIN_SEQ_FOR_PALLAS):
-            yield
-    finally:
-        train_torch.get_workload = make
+    with _cut_config(train_torch, num_layers=DP_LAYERS, dropout_rate=0.0), \
+            _min_seq(fa, 512 if name == "bert_mlm_packed"
+                     else fa.MIN_SEQ_FOR_PALLAS):
+        yield
 
 
 def _dp_args(train_torch, name, batch, dtype, *extra):
@@ -2179,8 +2210,417 @@ def run_dp(torch, cuda, train_torch, fa, train_row):
     return total
 
 
+#: The ckpt phase: steps before the save and after the restore; the
+#: SIGTERM child's depth and length.
+CKPT_STEPS = 3
+CKPT_OVERLAP_STEPS = 8
+CKPT_CHILD_LAYERS = 2
+CKPT_CHILD_STEPS = 8
+#: Batches of the determinism survey's presets (2 layers where the model
+#: has layers): enough rows for every kernel of the full-width path.
+DET_RUNS = (("gpt_lm", 2), ("gpt_medium_lm", 2), ("lm_long_context", 1),
+            ("gpt_moe", 2), ("mnist_lenet", 128), ("cifar_resnet20", 256),
+            ("imagenet_resnet50", 32), ("bert_mlm", 16),
+            ("bert_mlm_packed", 16), ("widedeep", 4096))
+
+
+def ckpt_worker(argv_json) -> int:
+    """The ckpt phase's child (``--ckpt-worker``): ``train_torch.main`` of
+    the given arguments with gpt_lm cut to CKPT_CHILD_LAYERS layers, its
+    log lines on stderr as ``train_torch.py`` prints them."""
+    import logging
+
+    import train_torch
+
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(name)s: "
+                               "%(message)s")
+    with _cut_config(train_torch, num_layers=CKPT_CHILD_LAYERS):
+        train_torch.main(json.loads(argv_json))
+    return 0
+
+
+def det_worker(out_path) -> int:
+    """The determinism survey (``--det-worker``): two steps of every
+    preset through ``train_torch.main --deterministic`` (a fresh process:
+    cuBLAS reads its workspace setting when it starts).  An op without a
+    deterministic CUDA version raises; its message is recorded for the
+    preset and the survey goes on.  Any other failure fails the run."""
+    import train_torch
+
+    results = {}
+    for name, batch in DET_RUNS:
+        argv = ["--workload", name, "--batch-size", str(batch), "--steps",
+                "2", "--log-every", "1", "--seed", str(SEED),
+                "--deterministic", "--device", "cuda"]
+        try:
+            with _cut_config(train_torch, num_layers=2):
+                recs = train_torch.main(argv)
+            results[name] = {"ok": True, "losses": [r["loss"] for r in recs]}
+        except RuntimeError as e:
+            if "deterministic" not in str(e):
+                raise
+            results[name] = {"ok": False, "error": str(e)[:400]}
+    with open(out_path, "w") as f:
+        json.dump(results, f)
+    return 0
+
+
+def _fingerprint(state):
+    from distributedtensorflow_tpu_torch.utils import tree_fingerprint
+
+    return tree_fingerprint({"model": state.model.state_dict(),
+                             "optimizer": state.optimizer.state_dict(),
+                             "step": state.step})
+
+
+def _timed_step(torch, step, state, batch):
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    loss = float(m["loss"])
+    return state, loss, 1e3 * (time.perf_counter() - t0)
+
+
+def _ckpt_args(train_torch, device):
+    """The train phase's gpt_lm arguments; on the CPU (a rehearsal) at
+    test size."""
+    if device == "cuda":
+        return _train_args(train_torch)
+    return train_torch.parse_args(["--workload", "gpt_lm", "--test-size",
+                                   "--seed", str(SEED), "--device", device])
+
+
+def _ckpt_run_u(torch, train_torch, device):
+    """U: gpt_lm as the train phase builds it, 2 x CKPT_STEPS steps
+    uninterrupted: the losses, the fingerprint after, the step times."""
+    _, state, step, batches = train_torch.build(_ckpt_args(train_torch,
+                                                           device))
+    losses, ms = [], []
+    for _ in range(2 * CKPT_STEPS):
+        state, loss, t = _timed_step(torch, step, state, next(batches))
+        losses.append(loss)
+        ms.append(t)
+    fp = _fingerprint(state)
+    return losses, fp, ms
+
+
+def _child(argv, err):
+    """A ckpt worker of ``argv``, its stdout piped, its stderr to the
+    file ``err``."""
+    return subprocess.Popen(
+        [sys.executable, __file__, "--ckpt-worker", json.dumps(argv)],
+        stdout=subprocess.PIPE, stderr=err, text=True)
+
+
+def _child_steps(out):
+    return [json.loads(line) for line in out.splitlines()
+            if line.startswith("{")]
+
+
+def _read(path) -> str:
+    with open(path) as f:
+        return f.read()
+
+
+def run_ckpt_sigterm(ckdir, device="cuda"):
+    """(b) A child trains gpt_lm (full width, CKPT_CHILD_LAYERS layers) to
+    step CKPT_CHILD_STEPS with a checkpoint directory; after its third
+    step line it gets SIGTERM, saves at the next step boundary and exits
+    0.  The same command relaunched restores, fast-forwards and ends at
+    the last step, with the last loss of an uninterrupted child."""
+    import os
+    import signal
+
+    from distributedtensorflow_tpu_torch.checkpoint import CheckpointManager
+
+    def argv(d):
+        size = ["--batch-size", "8", "--seq-len", "2048"] \
+            if device == "cuda" else ["--test-size"]
+        return ["--workload", "gpt_lm", *size, "--steps",
+                str(CKPT_CHILD_STEPS), "--log-every", "1", "--seed",
+                str(SEED), "--device", device, "--checkpoint-dir", d]
+
+    cut = os.path.join(ckdir, "sigterm")
+    logs = [os.path.join(ckdir, f"child{i}.log") for i in range(3)]
+    procs = []
+    t0 = time.time()
+    with contextlib.ExitStack() as stack:
+        files = [stack.enter_context(open(path, "w")) for path in logs]
+        try:
+            child = _child(argv(cut), files[0])
+            procs.append(child)
+            seen = []
+            for line in child.stdout:
+                if line.startswith("{"):
+                    seen.append(json.loads(line))
+                if len(seen) == 3:
+                    child.send_signal(signal.SIGTERM)
+                    break
+            rest, _ = child.communicate(timeout=300)
+            first = seen + _child_steps(rest)
+            saved = CheckpointManager(cut).all_steps()
+            again = _child(argv(cut), files[1])
+            whole = _child(argv(os.path.join(ckdir, "whole")), files[2])
+            procs += [again, whole]
+            out2, _ = again.communicate(timeout=300)
+            out3, _ = whole.communicate(timeout=300)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    err, err2, err3 = (_read(path) for path in logs)
+    rc_first = child.returncode
+    second, ref = _child_steps(out2), _child_steps(out3)
+    stop = first[-1]["step"] if first else None
+    ok = (rc_first == 0 and again.returncode == 0 and whole.returncode == 0
+          and stop is not None and 3 <= stop < CKPT_CHILD_STEPS
+          and saved and saved[-1] == stop
+          and "preemption save complete" in err
+          and f"restored checkpoint step {stop}" in err2
+          and f"fast-forwarding input {stop} batches" in err2
+          and [r["step"] for r in second]
+          == list(range(stop + 1, CKPT_CHILD_STEPS + 1))
+          and second[-1]["loss"] == ref[-1]["loss"])
+    row = {"phase": "ckpt_sigterm", "layers": CKPT_CHILD_LAYERS,
+           "steps": CKPT_CHILD_STEPS, "rc": [rc_first, again.returncode,
+                                            whole.returncode],
+           "stopped_at": stop, "saved_steps": saved,
+           "resumed_steps": [r["step"] for r in second],
+           "last_loss": second[-1]["loss"] if second else None,
+           "uninterrupted_last_loss": ref[-1]["loss"] if ref else None,
+           "seconds": time.time() - t0, "ok": bool(ok)}
+    emit(row)
+    if not ok:
+        raise AssertionError(
+            f"ckpt_sigterm: {row}\n--- first stderr\n{err[-3000:]}\n--- "
+            f"relaunch stderr\n{err2[-3000:]}\n--- uninterrupted stderr\n"
+            f"{err3[-2000:]}")
+
+
+def run_ckpt(torch, cuda, train_torch, smi, device="cuda"):
+    """The checkpoint plane on gpt_lm at full width.  (a) U, the
+    uninterrupted run, twice; R: CKPT_STEPS steps, an async save, a fresh
+    build whose weights come from another seed, ``restore_latest``,
+    ``skip_batches`` and CKPT_STEPS more steps: R's losses and final
+    fingerprint equal U's bit for bit, and the resumed steps launch the
+    train phase's kernels their derived counts.  (b) SIGTERM and restart
+    (:func:`run_ckpt_sigterm`).  (c) A flipped byte in the newest step is
+    rejected and the step before restored; a directory without its commit
+    marker is not a step.  (d) The checkpoint's bytes, the blocking ms of
+    an async and a sync save, the background commit, the restore, the
+    fast-forward, and a step that overlaps a commit beside one that does
+    not (then CKPT_OVERLAP_STEPS of each).  Then the determinism survey (:func:`det_worker`).  ``device``
+    "cpu" rehearses it at test size (no survey, no memory profile)."""
+    import os
+    import shutil
+    import tempfile
+
+    from distributedtensorflow_tpu_torch.checkpoint import CheckpointManager
+    from distributedtensorflow_tpu_torch.data import (
+        InputContext,
+        device_put_batch,
+        skip_batches,
+    )
+    from distributedtensorflow_tpu_torch.checkpoint import manager as cm
+    from distributedtensorflow_tpu_torch.utils import (
+        save_device_memory_profile,
+    )
+    from distributedtensorflow_tpu_torch.utils.determinism import flatten
+
+    ckdir = tempfile.mkdtemp(prefix="dtf_ckpt_")
+    try:
+        # (a) U twice
+        dev = torch.device(device)
+        args = _ckpt_args(train_torch, device)
+        u1, fp1, u_ms = _ckpt_run_u(torch, train_torch, device)
+        u2, fp2, _ = _ckpt_run_u(torch, train_torch, device)
+        empty_cache(torch, dev)
+        emit({"phase": "ckpt_u", "losses": u1, "rerun_losses": u2,
+              "rerun_bit_identical": u1 == u2 and fp1 == fp2,
+              "fingerprint": fp1, "step_ms": u_ms})
+        if u1 != u2 or fp1 != fp2:
+            raise AssertionError(f"ckpt: the uninterrupted run does not "
+                                 f"repeat on the card: {u1} vs {u2}")
+
+        # R: steps 1-3, an async save of step 3, step 4 during its commit
+        wl, state, step, batches = train_torch.build(args)
+        for _ in range(CKPT_STEPS):
+            state, _, _ = _timed_step(torch, step, state, next(batches))
+        saved_fp = _fingerprint(state)
+        mgr = CheckpointManager(os.path.join(ckdir, "a"))
+        t0 = time.perf_counter()
+        mgr.save(state.step, state)  # the first: allocates its host buffers
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        state, overlap_loss, overlap_ms = _timed_step(torch, step, state,
+                                                      next(batches))
+        t1 = time.perf_counter()
+        mgr.wait()
+        first_commit_s = time.perf_counter() - t0 - first_ms / 1e3
+        wait_after_step_s = time.perf_counter() - t1
+        state, alone_loss, alone_ms = _timed_step(torch, step, state,
+                                                  next(batches))
+        # step 5, async again (the buffers reused), its commit alone
+        t0 = time.perf_counter()
+        mgr.save(state.step, state)
+        async_ms = 1e3 * (time.perf_counter() - t0)
+        t1 = time.perf_counter()
+        mgr.wait()
+        commit_s = time.perf_counter() - t1
+        payload = os.path.join(ckdir, "a", str(CKPT_STEPS), cm.PAYLOAD)
+        nbytes = os.path.getsize(payload)
+        tensor_bytes = sum(
+            t.numel() * t.element_size() for t in flatten(
+                cm.as_tree(state)).values() if isinstance(t, torch.Tensor))
+        # sync saves of the same state, timed whole: the first allocates
+        # its host buffers, the second reuses them (throwaway labels)
+        sync_mgr = CheckpointManager(os.path.join(ckdir, "s"), max_to_keep=1,
+                                     async_save=False)
+        sync_ms = []
+        for label in (1, 2):
+            t0 = time.perf_counter()
+            sync_mgr.save(label, state)
+            sync_ms.append(1e3 * (time.perf_counter() - t0))
+        del sync_mgr
+        shutil.rmtree(os.path.join(ckdir, "s"))
+        # CKPT_OVERLAP_STEPS steps alone, then as many while an async
+        # save of the state commits (a throwaway directory)
+        apart_ms, beside_ms = [], []
+        for times in (apart_ms, beside_ms):
+            if times is beside_ms:
+                omgr = CheckpointManager(os.path.join(ckdir, "o"))
+                omgr.save(state.step, state)
+            for _ in range(CKPT_OVERLAP_STEPS):
+                state, _, t = _timed_step(torch, step, state, next(batches))
+                times.append(t)
+        t1 = time.perf_counter()
+        omgr.wait()
+        beside_left_s = time.perf_counter() - t1
+        del omgr
+        shutil.rmtree(os.path.join(ckdir, "o"))
+        del state, step, batches
+        empty_cache(torch, dev)
+
+        # R resumed: a fresh build, weights from another seed, restore
+        _, fresh, step, _ = train_torch.build(args)
+        fresh.model.load_state_dict(wl.init_params(
+            wl.cfg, torch.Generator().manual_seed(SEED + 1)))
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        restored = mgr.restore(CKPT_STEPS, fresh)
+        sync(torch, dev)
+        restore_s = time.perf_counter() - t0
+        restored_ok = restored.step == CKPT_STEPS and \
+            _fingerprint(fresh) == saved_fp
+        t0 = time.perf_counter()
+        source = skip_batches(wl.input_fn(InputContext(
+            global_batch_size=wl.global_batch_size), SEED), CKPT_STEPS)
+        skip_ms = 1e3 * (time.perf_counter() - t0)
+        sync(torch, dev)
+        cuda.launches.clear()
+        r_losses = []
+        for _ in range(CKPT_STEPS):
+            fresh, loss, _ = _timed_step(torch, step, fresh, device_put_batch(
+                next(source), fresh.model.device))
+            r_losses.append(loss)
+        sync(torch, dev)
+        launches = dict(cuda.launches)
+        r_fp = _fingerprint(fresh)
+        del fresh, step
+        empty_cache(torch, dev)
+        exact = r_losses == u1[CKPT_STEPS:] and r_fp == fp1
+        emit({"phase": "ckpt_resume", "losses": r_losses,
+              "u_losses": u1[CKPT_STEPS:], "restored_equal_saved": restored_ok,
+              "bit_identical": exact, "overlap_step_loss": overlap_loss,
+              "u_loss_4": u1[CKPT_STEPS], "launches": launches,
+              "launches_per_step": {k: v / CKPT_STEPS
+                                    for k, v in launches.items()}})
+        if not restored_ok or not exact or overlap_loss != u1[CKPT_STEPS] \
+                or alone_loss != u1[CKPT_STEPS + 1]:
+            raise AssertionError(
+                f"ckpt: the resumed run differs from the uninterrupted one: "
+                f"restored {restored_ok}, losses {r_losses} vs "
+                f"{u1[CKPT_STEPS:]}, steps around the save {overlap_loss}, "
+                f"{alone_loss} vs {u1[CKPT_STEPS:CKPT_STEPS + 2]}")
+        _check_launches("ckpt_resume", launches, CKPT_STEPS,
+                        TRAIN_LAUNCHES_PER_STEP)
+
+        # (c) a flipped byte in the newest step (5); a step without marker
+        newest = os.path.join(ckdir, "a", str(CKPT_STEPS + 2), cm.PAYLOAD)
+        with open(newest, "r+b") as f:
+            f.seek(os.path.getsize(newest) // 2)
+            b = f.read(1)
+            f.seek(-1, os.SEEK_CUR)
+            f.write(bytes([b[0] ^ 0xFF]))
+        os.makedirs(os.path.join(ckdir, "a", "99"))
+        shutil.copy(payload, os.path.join(ckdir, "a", "99"))
+        _, target, _, _ = train_torch.build(args)
+        t0 = time.perf_counter()
+        got = mgr.restore_latest(target)
+        fallback_s = time.perf_counter() - t0
+        report = mgr.last_restore_report
+        corrupt_ok = (got is not None and target.step == CKPT_STEPS
+                      and _fingerprint(target) == saved_fp
+                      and [r["step"] for r in report["rejected"]]
+                      == [CKPT_STEPS + 2]
+                      and mgr.all_steps() == [CKPT_STEPS, CKPT_STEPS + 2])
+        emit({"phase": "ckpt_corrupt", "last_restore_report": report,
+              "all_steps": mgr.all_steps(), "restored_step": target.step,
+              "seconds_with_fallback": fallback_s, "ok": corrupt_ok})
+        del target
+        empty_cache(torch, dev)
+        if not corrupt_ok:
+            raise AssertionError(f"ckpt_corrupt: {report}")
+        shutil.rmtree(os.path.join(ckdir, "a"))
+
+        memory_profile = os.path.join(ckdir, "memory.pickle")
+        if device == "cuda":
+            save_device_memory_profile(memory_profile)
+        emit({"phase": "ckpt_numbers", "device": smi,
+              "checkpoint_bytes": nbytes, "tensor_bytes": tensor_bytes,
+              "async_save_blocking_ms_first": first_ms,
+              "async_save_blocking_ms": async_ms,
+              "sync_save_blocking_ms_first_then_reused": sync_ms,
+              "background_commit_s_first_overlapping_a_step": first_commit_s,
+              "background_commit_s": commit_s,
+              "wait_after_overlapped_step_s": wait_after_step_s,
+              "restore_s": restore_s, "skip_batches_ms": skip_ms,
+              "step_ms_overlapping_commit": overlap_ms,
+              "step_ms_alone": alone_ms, "u_step_ms": u_ms,
+              "steps_ms_apart": apart_ms, "steps_ms_beside_commit": beside_ms,
+              "commit_s_left_after_those_steps": beside_left_s,
+              "median_ms_apart_beside": [statistics.median(apart_ms),
+                                         statistics.median(beside_ms)],
+              "memory_profile_bytes": os.path.getsize(memory_profile)
+              if device == "cuda" else None})
+
+        # (b) SIGTERM and restart
+        run_ckpt_sigterm(ckdir, device)
+
+        # determinism survey
+        if device != "cuda":
+            return launches
+        out = os.path.join(ckdir, "det.json")
+        t0 = time.time()
+        proc = subprocess.run([sys.executable, __file__, "--det-worker",
+                               out], capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode:
+            raise AssertionError(
+                f"ckpt_determinism: the survey exited {proc.returncode}:\n"
+                f"{proc.stderr[-4000:]}")
+        with open(out) as f:
+            survey = json.load(f)
+        emit({"phase": "ckpt_determinism", "seconds": time.time() - t0,
+              "raises": sorted(k for k, v in survey.items() if not v["ok"]),
+              "presets": survey})
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    return launches
+
+
 PHASES = ("layernorm", "kernels", "xent", "serving", "train", "baseline",
-          "dp")
+          "dp", "ckpt")
 
 
 def main(argv=None) -> int:
@@ -2189,9 +2629,15 @@ def main(argv=None) -> int:
                    help="comma-separated subset of " + ", ".join(PHASES)
                         + " (device and build always run)")
     p.add_argument("--dp-worker", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--ckpt-worker", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--det-worker", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.dp_worker:
         return dp_worker(args.dp_worker)
+    if args.ckpt_worker:
+        return ckpt_worker(args.ckpt_worker)
+    if args.det_worker:
+        return det_worker(args.det_worker)
     phases = set(args.phases.split(","))
     import torch
     import torch.nn.functional as F
@@ -2315,6 +2761,9 @@ def main(argv=None) -> int:
         launches.update(run_dp(torch, _cuda, train_torch, fa,
                                train_row if "train" in phases else None))
     done("dp")
+    if "ckpt" in phases:
+        launches.update(run_ckpt(torch, _cuda, train_torch, smi))
+    done("ckpt")
     emit({"phase": "seconds", **seconds})
     if phases != set(PHASES):
         print(f"chip_smoke: ran only {sorted(phases)}", file=sys.stderr)

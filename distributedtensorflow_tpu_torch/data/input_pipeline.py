@@ -6,13 +6,15 @@ sources read, and :func:`current_input_context` (``:72``), which fills it
 from the rank; :func:`device_put_batch` (``:87``), which puts a host batch
 on the device; ``synthetic_classification`` (``:321-342``) and
 ``pack_sequences`` (``:361-425``), copies with the same seeds and the same
-numpy draws, so both packages see identical batches.  The port runs one
+numpy draws, so both packages see identical batches; and
+:func:`skip_batches` (``:429-454``), a resumed run's fast-forward.  The port runs one
 input pipeline per process, and one process per device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Iterator, Sequence
 
 import numpy as np
@@ -20,6 +22,8 @@ import torch
 
 from ..parallel import collectives
 from ..parallel.mesh import replica_count, replica_index
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,3 +154,23 @@ def pack_sequences(examples, seq_len: int, *, pad_value: int = 0,
         n_seg += 1
     if used:
         yield row
+
+
+def skip_batches(it: Iterator, n: int) -> Iterator:
+    """Fast-forward an input iterator past ``n`` already-consumed batches
+    and return it.
+
+    The inputs are deterministic functions of ``(seed, step)``, so a run
+    restored to step N drains N batches of its host stream, before they
+    are put on the device, and goes on with the batches the uninterrupted
+    run would have drawn; otherwise it would train on the first N batches
+    again and diverge.  A stream that ends first is logged, and the
+    iterator returned as it is."""
+    for i in range(n):
+        try:
+            next(it)
+        except StopIteration:
+            logger.warning("input exhausted after skipping %d/%d batches "
+                           "on resume", i, n)
+            break
+    return it

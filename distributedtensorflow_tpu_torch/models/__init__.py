@@ -12,7 +12,13 @@ from .bert import (  # noqa: F401
     mlm_eval,
     mlm_loss,
 )
-from .convert import init_params, params_from_flax, params_to_flax  # noqa: F401
+from .convert import (  # noqa: F401
+    init_params,
+    opt_state_from_optax,
+    opt_state_to_optax,
+    params_from_flax,
+    params_to_flax,
+)
 from .generate import decode_step, generate, prefill  # noqa: F401
 from .gpt import (  # noqa: F401
     GPTConfig,

@@ -25,6 +25,18 @@ Dense kernels (in, out) are (out, in), the ``DenseGeneral`` kernels of
 BERT's attention ((E, H, D) and (H, D, E)) and biases ((H, D)) flattened
 to that matrix; embedding tables are ``embedding`` in flax and
 ``weight`` here.
+
+Optimizer state: ``opt_state_from_optax`` gives the ``state_dict`` of a
+port optimizer (``train.optimizers``) for the optax state of its JAX twin
+(``build_optimizer``'s chains: sgd, nesterov momentum, adam, adamw with
+or without its decay mask, adagrad, each behind ``clip_by_global_norm``
+or not), and ``opt_state_to_optax`` the optax state for a port
+optimizer, so a run can move from one package to the other mid-way.
+The optax ``count`` is the parameter groups' ``"count"`` (and AdamW's
+``step``); ``mu``/``nu``, the momentum ``trace`` and adagrad's
+``sum_of_squares`` are AdamW's ``exp_avg``/``exp_avg_sq``, SGD's
+``momentum_buffer`` and :class:`~..train.optimizers.Adagrad`'s ``sos``,
+each a tree of the parameters mapped as the parameters are.
 """
 
 from __future__ import annotations
@@ -149,9 +161,12 @@ def _to_flax(arr, mod, attr):
     return arr
 
 
-def _baseline_from_flax(variables, cfg) -> dict[str, torch.Tensor]:
+def _baseline_from_flax(variables, cfg, params_only=False
+                        ) -> dict[str, torch.Tensor]:
     state, used = {}, set()
     for name, (path, mod, attr) in _baseline_leaves(cfg).items():
+        if params_only and path[0] != "params":
+            continue
         leaf = variables
         for key in path:
             if not isinstance(leaf, Mapping) or key not in leaf:
@@ -296,3 +311,122 @@ def init_params(cfg, generator: torch.Generator
                                 else shape[1])
             state[name] = torch.randn(shape, generator=generator) * std
     return state
+
+
+# ------------------------------------------------------------- optimizers
+
+#: optax moment field -> the port optimizer's state slot.
+_MOMENTS = {"mu": "exp_avg", "nu": "exp_avg_sq", "trace": "momentum_buffer",
+            "sum_of_squares": "sos"}
+
+
+def _params_from(tree, cfg) -> dict[str, torch.Tensor]:
+    """A tree shaped like the JAX parameters (the ``params`` collection)
+    by port parameter name."""
+    if type(cfg) in MODELS:
+        return _baseline_from_flax({"params": tree}, cfg, params_only=True)
+    return params_from_flax(tree, cfg)
+
+
+def _params_to(named, cfg) -> dict:
+    if type(cfg) in MODELS:
+        return _baseline_to_flax(named, cfg)["params"]
+    return params_to_flax(named, cfg)
+
+
+def _optax_parts(state, out: dict) -> dict:
+    """``count`` and the moment trees of an optax state (nested chain
+    tuples of NamedTuples, ``MaskedState`` included), by field name."""
+    fields = getattr(state, "_fields", None)
+    if fields is not None:
+        for field in fields:
+            val = getattr(state, field)
+            if field == "count":
+                out.setdefault("count", int(np.asarray(val)))
+            elif field in _MOMENTS:
+                out[field] = val
+            else:
+                _optax_parts(val, out)
+    elif isinstance(state, (tuple, list)):
+        for val in state:
+            _optax_parts(val, out)
+    return out
+
+
+def _slots(optimizer) -> tuple[str, ...]:
+    """The optax moment fields the port optimizer keeps per parameter."""
+    from ..train.optimizers import Adagrad
+
+    if isinstance(optimizer, torch.optim.AdamW):
+        return ("mu", "nu")
+    if isinstance(optimizer, Adagrad):
+        return ("sum_of_squares",)
+    if isinstance(optimizer, torch.optim.SGD):
+        momentum = optimizer.param_groups[0]["momentum"]
+        return ("trace",) if momentum else ()
+    raise TypeError(f"no optax twin for {type(optimizer).__name__}")
+
+
+def opt_state_from_optax(opt_state, cfg, optimizer, model) -> dict:
+    """The ``state_dict`` of ``optimizer`` (a port optimizer over
+    ``model``'s parameters) for ``opt_state``, the optax state of its JAX
+    twin over the JAX model's parameters; ``optimizer.load_state_dict``
+    takes it.  The count becomes every parameter group's ``"count"``
+    (optax keeps none for a constant-rate sgd, whose count then stays as
+    it is: no update reads it).  Raises when the optax state lacks a
+    moment the optimizer keeps."""
+    parts = _optax_parts(opt_state, {})
+    fields = _slots(optimizer)
+    missing = [f for f in fields if f not in parts]
+    if missing:
+        raise ValueError(f"the optax state has no {missing} for "
+                         f"{type(optimizer).__name__}")
+    trees = {f: _params_from(parts[f], cfg) for f in fields}
+    count = parts.get("count")
+    names = {id(p): n for n, p in model.named_parameters()}
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    sd = optimizer.state_dict()
+    sd["state"] = {}
+    for i, p in enumerate(params):
+        entry = {_MOMENTS[f]: trees[f][names[id(p)]] for f in fields}
+        if isinstance(optimizer, torch.optim.AdamW):
+            entry["step"] = torch.tensor(float(count or 0))
+        if entry:
+            sd["state"][i] = entry
+    if count is not None:
+        for group in sd["param_groups"]:
+            group["count"] = count
+    return sd
+
+
+def opt_state_to_optax(optimizer, cfg, model, like):
+    """The optax state of ``optimizer``'s JAX twin, in the structure of
+    ``like`` (that twin's ``init``; NamedTuples are rebuilt with
+    ``_replace``, so nothing of optax is imported): the inverse of
+    :func:`opt_state_from_optax`.  A moment the optimizer has not made yet
+    (no update so far) is optax's initial value: 0, or 0.1 for adagrad's
+    sum of squares."""
+    count = optimizer.param_groups[0].get("count", 0)
+    named = dict(model.named_parameters())
+
+    def moments(field):
+        slot = _MOMENTS[field]
+        return _params_to({
+            n: optimizer.state[p][slot] if slot in optimizer.state.get(p, {})
+            else torch.full_like(p, 0.1 if field == "sum_of_squares" else 0.0)
+            for n, p in named.items()}, cfg)
+
+    def rebuild(state):
+        fields = getattr(state, "_fields", None)
+        if fields is not None:
+            if not fields:
+                return state
+            return state._replace(**{
+                f: np.asarray(count, np.asarray(getattr(state, f)).dtype)
+                if f == "count" else moments(f) if f in _MOMENTS
+                else rebuild(getattr(state, f)) for f in fields})
+        if isinstance(state, tuple):
+            return tuple(rebuild(v) for v in state)
+        return state
+
+    return rebuild(like)

@@ -141,7 +141,7 @@ def top1_route(logits: torch.Tensor, capacity: int,
     if token_mask is not None:
         onehot = onehot * token_mask.float()[:, None]
     gate = (probs * onehot).sum(-1)
-    return _route(probs, [onehot], [gate], capacity, token_mask)
+    return _route(probs, [onehot], [gate], capacity, token_mask, group)
 
 
 def top2_route(logits: torch.Tensor, capacity: int,

@@ -309,34 +309,50 @@ def test_gpt_moe_routes_the_global_batch(world):
     assert max(diffs) > 10 * RTOL
 
 
-def test_global_routing_positions_and_drops():
+@pytest.mark.parametrize("router", ["top1", "top2"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_global_routing_positions_and_drops(router, masked):
     """Two ranks' halves of a token set routed over the group get the
-    global router's keep flags and aux loss; each half routed alone
-    drops other assignments."""
+    global router's kept rows, outputs and summed aux loss (1e-6), with
+    and without a token mask; each half routed alone drops other
+    assignments."""
     g = torch.Generator().manual_seed(3)
     tokens = torch.randn(64, 16, generator=g)
     kernel = torch.randn(16, 4, generator=g)
     params = {"w": torch.randn(4, 16, 16, generator=g)}
+    mask = (torch.rand(64, generator=g) > 0.25).float() if masked else None
 
     def expert(p, x):
         return torch.bmm(x, p["w"])
 
-    ref, ref_aux = tmoe.local_moe(tokens, kernel, params, expert,
-                                  capacity_factor=0.5, router="top2")
+    def route(toks, tmask, group=None):
+        """The kept rows (expert, slot) and the MoE output and aux."""
+        cap = tmoe.capacity_for(toks.shape[0] * (2 if group else 1), 4, 0.5,
+                                router)
+        logits = toks.float() @ kernel.float()
+        e, s, keep, _, _ = tmoe.ROUTERS[router](logits, cap, tmask, group)
+        rows = {(int(a), int(b)) for a, b, k in zip(e.flatten(), s.flatten(),
+                                                     keep.flatten()) if k}
+        out, aux = tmoe.local_moe(toks, kernel, params, expert,
+                                  capacity_factor=0.5, router=router,
+                                  token_mask=tmask, group=group)
+        return rows, out, aux
+
+    ref_rows, ref, ref_aux = route(tokens, mask)
 
     def body(rank, group):
         mine = tokens.chunk(2)[rank]
-        out, aux = tmoe.local_moe(mine, kernel, params, expert,
-                                  capacity_factor=0.5, router="top2",
-                                  group=group)
-        alone, _ = tmoe.local_moe(mine, kernel, params, expert,
-                                  capacity_factor=0.5, router="top2")
-        return out, aux, alone
+        mmask = None if mask is None else mask.chunk(2)[rank]
+        rows, out, aux = route(mine, mmask, group)
+        _, alone, _ = route(mine, mmask)
+        return len(rows), out, aux, alone
 
     outs = run_ranks(body, 2)
-    torch.testing.assert_close(torch.cat([o[0] for o in outs]), ref)
-    torch.testing.assert_close(outs[0][1] + outs[1][1], ref_aux)
-    assert not torch.allclose(torch.cat([o[2] for o in outs]), ref)
+    assert outs[0][0] + outs[1][0] == len(ref_rows)
+    torch.testing.assert_close(torch.cat([o[1] for o in outs]), ref)
+    torch.testing.assert_close(outs[0][2] + outs[1][2], ref_aux, rtol=0,
+                               atol=1e-6)
+    assert not torch.allclose(torch.cat([o[3] for o in outs]), ref)
 
 
 @pytest.mark.parametrize("name,accum", [("gpt_lm", 2),

@@ -292,7 +292,8 @@ def test_engine_thread_serves_and_stops(served):
 
 # ----------------------------------------------------- import and device rules
 
-_BANNED = {"jax", "flax", "optax", "orbax", "distributedtensorflow_tpu"}
+_BANNED = {"jax", "flax", "optax", "orbax", "safetensors",
+           "distributedtensorflow_tpu"}
 
 
 def _imports(path):
@@ -319,6 +320,11 @@ def test_port_imports_no_jax():
     files = sorted((ROOT / "distributedtensorflow_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "train_torch.py"]
     assert len(files) > 10
+    port = ROOT / "distributedtensorflow_tpu_torch"
+    for sub in ("checkpoint/integrity.py", "checkpoint/manager.py",
+                "checkpoint/preemption.py", "utils/determinism.py",
+                "utils/watchdog.py", "utils/profiler.py"):
+        assert port / sub in files
     found = {str(f.relative_to(ROOT)): sorted(set(_imports(f)) & _BANNED)
              for f in files}
     assert not {f: m for f, m in found.items() if m}

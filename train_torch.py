@@ -44,6 +44,22 @@ BERT), ``tokens_per_sec``.  With ``--logdir`` it also appends
 (``loss``, the preset's metrics, ``steps_per_sec``,
 ``examples_per_sec``, ``examples_per_sec_per_chip``; ``eval_*`` with
 ``--eval-every``), which ``tools/check_metrics_schema.py`` accepts.
+
+Checkpoints (``train.py``'s flags): with ``--checkpoint-dir`` the run
+restores the newest verified checkpoint there (logging ``restored
+checkpoint step N``), fast-forwards its input past the N batches the
+saved run consumed (``fast-forwarding input N batches``) and trains on to
+``--steps`` in all, so the same command reruns a cut run to its end.  It
+saves every ``--checkpoint-every`` steps (asynchronously) and at the end,
+and on SIGTERM saves at the next step boundary and exits with status 0.
+``--watchdog-timeout`` dumps every thread's stack when no step ends for
+that many seconds; ``--deterministic`` pins the CUDA arithmetic
+(``utils.enable_determinism``)::
+
+    python train_torch.py --workload gpt_lm --test-size --device cpu \
+        --steps 4 --checkpoint-dir /tmp/ck --checkpoint-every 2
+    python train_torch.py --workload gpt_lm --test-size --device cpu \
+        --steps 8 --checkpoint-dir /tmp/ck --checkpoint-every 2
 """
 
 from __future__ import annotations
@@ -51,15 +67,21 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import logging
 import sys
 import time
 
 import torch
 
+from distributedtensorflow_tpu_torch.checkpoint import (
+    CheckpointManager,
+    PreemptionHandler,
+)
 from distributedtensorflow_tpu_torch.data import (
     InputContext,
     current_input_context,
     device_put_batch,
+    skip_batches,
 )
 from distributedtensorflow_tpu_torch.device import resolve_device
 from distributedtensorflow_tpu_torch.parallel import bootstrap
@@ -81,8 +103,15 @@ from distributedtensorflow_tpu_torch.train.optimizers import (
     build_schedule,
     exclude_bias_and_norm_mask,
 )
-from distributedtensorflow_tpu_torch.utils import MetricWriter, ThroughputMeter
+from distributedtensorflow_tpu_torch.utils import (
+    MetricWriter,
+    ThroughputMeter,
+    Watchdog,
+    enable_determinism,
+)
 from distributedtensorflow_tpu_torch.workloads import WORKLOADS, get_workload
+
+logger = logging.getLogger("train_torch")
 
 _REMAT = {"on": True, "off": False, "attn": "attn", None: None}
 #: Eval batches per evaluation (``TrainerConfig.eval_steps`` for the
@@ -142,6 +171,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--eval-every", type=int, default=0)
     p.add_argument("--logdir", default=None,
                    help="append metrics.jsonl rows here")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="save here, and resume from the newest verified "
+                        "checkpoint here")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="save every N steps (0: at the end and on "
+                        "preemption only)")
+    p.add_argument("--watchdog-timeout", type=float, default=0.0,
+                   help="dump all stacks if no step completes for N seconds")
+    p.add_argument("--deterministic", action="store_true",
+                   help="deterministic CUDA algorithms, cuBLAS workspace "
+                        "and cuDNN, TF32 off: a rerun repeats bit for bit")
     p.add_argument("--device", default="cuda")
     p.add_argument("--mesh", default=None,
                    help="mesh axes, e.g. 'data=2' or 'data=-1' (every "
@@ -215,12 +255,14 @@ def bootstrap_mesh(args):
     return build_mesh(spec or MeshSpec(data=-1)), device
 
 
-def build(args: argparse.Namespace):
+def build(args: argparse.Namespace, checkpointer=None):
     """``(workload, state, step_fn, batches)`` for ``args``: the model
     from seeded random weights on the device, the optimizer, the train
     step and an iterator of device batches; over a mesh (see
     :func:`bootstrap_mesh`) this rank's state, step and share of each
-    batch."""
+    batch.  With a ``checkpointer`` (a ``CheckpointManager``) the state
+    is its newest verified checkpoint, if it has one, and the batches
+    start after the ones the saved run consumed."""
     mesh, device = bootstrap_mesh(args)
     wl = get_workload(
         args.workload, test_size=args.test_size,
@@ -243,11 +285,16 @@ def build(args: argparse.Namespace):
     model.load_state_dict(
         wl.init_params(wl.cfg, torch.Generator().manual_seed(args.seed)))
     state = TrainState.create(model, wl.make_optimizer, mesh)
+    if checkpointer is not None:
+        checkpointer.restore_latest(state)
     step = make_train_step(wl.loss_fn(model, **group), accum_steps=accum,
                            seed=args.seed, mesh=mesh)
     ctx = current_input_context(wl.global_batch_size, mesh)
-    batches = _device_batches(wl.input_fn(ctx, args.seed), device, mesh,
-                              accum)
+    source = wl.input_fn(ctx, args.seed)
+    if state.step:
+        logger.info("fast-forwarding input %d batches", state.step)
+        source = skip_batches(source, state.step)
+    batches = _device_batches(source, device, mesh, accum)
     return wl, state, step, batches
 
 
@@ -278,46 +325,77 @@ def main(argv=None) -> list[dict]:
 
 
 def _train(args) -> list[dict]:
-    wl, state, step, batches = build(args)
+    if args.deterministic:
+        enable_determinism()  # before the first cuBLAS call
+    checkpointer = CheckpointManager(args.checkpoint_dir) \
+        if args.checkpoint_dir else None
+    wl, state, step, batches = build(args, checkpointer)
     chief = bootstrap.is_chief()
     if args.eval_every and bootstrap.process_count() > 1:
         raise SystemExit("--eval-every over more than one process is not "
                          "ported")
+    # SIGTERM (a preemption notice) -> a save at the next step boundary on
+    # every rank, then a clean stop; the rerun resumes from that step
+    preemption = PreemptionHandler(checkpointer) if checkpointer else None
+    watchdog = Watchdog(args.watchdog_timeout) if args.watchdog_timeout \
+        else None
     records, times = [], []
     meter = ThroughputMeter(wl.global_batch_size)
-    with MetricWriter(args.logdir) as writer:
-        meter.start()
-        for i in range(args.steps):
-            batch = next(batches)
-            t0 = time.perf_counter()
-            state, metrics = step(state, batch)
-            loss = float(metrics["loss"])  # waits for the step to finish
-            times.append(time.perf_counter() - t0)
-            meter.update()
-            if (i + 1) % args.log_every == 0 or i + 1 == args.steps:
-                step_s = sum(times) / len(times)
-                rec = {"step": state.step, "loss": loss}
-                if "perplexity" in metrics:
-                    rec["perplexity"] = float(metrics["perplexity"])
-                rec["step_ms"] = 1e3 * step_s
-                rec["examples_per_sec"] = wl.global_batch_size / step_s
-                if wl.seq_len:
-                    rec["tokens_per_sec"] = (wl.global_batch_size
-                                             * wl.seq_len / step_s)
-                if chief:
-                    print(json.dumps(rec), flush=True)
-                records.append(rec)
-                writer.write(state.step, {
-                    **{k: float(v) for k, v in metrics.items()},
-                    **meter.rates()})
-                times = []
-                meter.start()
-            if args.eval_every and (i + 1) % args.eval_every == 0:
-                writer.write(state.step, {
-                    f"eval_{k}": v
-                    for k, v in evaluate(wl, state, args).items()})
+    try:
+        with MetricWriter(args.logdir) as writer:
+            meter.start()
+            while state.step < args.steps:
+                batch = next(batches)
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                loss = float(metrics["loss"])  # waits for the step to end
+                times.append(time.perf_counter() - t0)
+                meter.update()
+                if watchdog is not None:
+                    watchdog.ping()
+                if state.step % args.log_every == 0 \
+                        or state.step == args.steps:
+                    step_s = sum(times) / len(times)
+                    rec = {"step": state.step, "loss": loss}
+                    if "perplexity" in metrics:
+                        rec["perplexity"] = float(metrics["perplexity"])
+                    rec["step_ms"] = 1e3 * step_s
+                    rec["examples_per_sec"] = wl.global_batch_size / step_s
+                    if wl.seq_len:
+                        rec["tokens_per_sec"] = (wl.global_batch_size
+                                                 * wl.seq_len / step_s)
+                    if chief:
+                        print(json.dumps(rec), flush=True)
+                    records.append(rec)
+                    writer.write(state.step, {
+                        **{k: float(v) for k, v in metrics.items()},
+                        **meter.rates()})
+                    times = []
+                    meter.start()
+                if args.eval_every and state.step % args.eval_every == 0:
+                    writer.write(state.step, {
+                        f"eval_{k}": v
+                        for k, v in evaluate(wl, state, args).items()})
+                if checkpointer is not None and args.checkpoint_every \
+                        and state.step % args.checkpoint_every == 0:
+                    checkpointer.save(state.step, state)
+                if preemption is not None \
+                        and preemption.should_save(state.step):
+                    preemption.save_and_exit(state.step, state)
+                    return records
+        if checkpointer is not None:
+            checkpointer.save(state.step, state, force=True)
+            checkpointer.wait()
+    finally:
+        if watchdog is not None:
+            watchdog.stop()
+        if preemption is not None:
+            preemption.uninstall()
     return records
 
 
 if __name__ == "__main__":
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(name)s: "
+                               "%(message)s")
     main(sys.argv[1:])
