@@ -127,9 +127,36 @@ Phases, each fatal on failure:
     ``--deterministic`` in a fresh process; an op without a deterministic
     CUDA version is recorded by preset.
 
+16. trainer: the Trainer's fit loop and its telemetry.  gpt_lm at full
+    width (batch 8, seq 2048, remat, the fused head, K3f) through
+    ``train_torch.main`` for 12 steps with a log every 2, an eval and a
+    checkpoint every 6, the flight recorder, goodput, the status server
+    on port 0 and a ``--profile-dir`` window over steps 4-5: its losses
+    equal, bit for bit, those of the per-step-sync loop it replaced (run
+    in the phase); the window's own torch.profiler trace holds K1f 49,
+    K1b 25, K2 24, K3f 12, K4f, dx and dw 1 a step, and the wrappers'
+    counts over the run those of 12 steps and 20 eval forwards; a
+    Callback GETs /healthz /statusz /varz /memz /flightz /goodputz at
+    step 8 (each 200); ``tools/check_metrics_schema.py`` (a subprocess)
+    passes the logdir's metrics.jsonl, flight.jsonl, goodput.json,
+    captures.jsonl and metrics.prom; the records carry t_step, t_data,
+    t_dispatch, t_host, the f_* shares, hbm_in_use_gib, hbm_peak_gib,
+    mfu and checkpoint_saves_total.  Printed: the fit loop's t_step
+    against the per-step-sync loop's step in turns, the shares, goodput
+    and its buckets, the capture's, a status probe's and a flight
+    event's cost, mfu beside the closed form.  trainer_gate: mnist_lenet
+    with ``--eval-every 50 --target-metric accuracy --target-value 0.97``
+    stops before step 2000.  trainer_ranks: two ``--trainer-worker``
+    processes over gloo on the one card (gpt_lm, 2 layers, fp32, dropout
+    0, 4 steps, an eval at the last): eval_loss within 1e-6 relative of
+    one process on the same weights and global eval batches, the records
+    carry the ranks' t_step min/median/max, rank 1 writes
+    flight.1.jsonl.
+
 Kernel launch counts are set to 0 just before phases 5, 6 (each
-generate run), 9-11, 13, 14 (each path; in each rank's process) and
-15's resumed steps, and read just after; a kernel of the path that did not launch, or a gpt_lm,
+generate run), 9-11, 13, 14 (each path; in each rank's process),
+15's resumed steps and 16's run through ``train_torch.main``, and read
+just after; a kernel of the path that did not launch, or a gpt_lm,
 gpt_moe or BERT training step that launched a kernel another number of
 times than its forward, recomputation and backward need, fails the run.  The
 line before the last is one JSON object with a row per kernel; the last
@@ -1040,21 +1067,11 @@ def _param_count(model):
 
 def _flops_per_token(model, cfg, seq) -> tuple[float, str]:
     """MFU's flops per token, 6 N + 6 L S E (PERF.md section 2), and how
-    N was counted.  In an MoE model a token runs only the experts it is
-    routed to, so of the experts' parameters N counts the router's
-    assignments per token over the number of experts (2 of 8 at top-2):
-    6 (N - N_experts 6/8)."""
-    n = _param_count(model)
-    n_experts = sum(p.numel() for name, p in model.named_parameters()
-                    if ".experts_" in name)
-    how = "N all parameters, the tied table once"
-    if n_experts:
-        from distributedtensorflow_tpu_torch.parallel import moe
-        active = moe._ASSIGNMENTS[cfg.router] / cfg.n_experts
-        n -= n_experts * (1.0 - active)
-        how = (f"N all parameters less the experts a token skips: "
-               f"{n_experts} expert parameters x {1.0 - active}")
-    return 6 * n + 6 * cfg.num_layers * seq * cfg.hidden_size, how
+    N was counted (``train_torch.flops_per_token``, which the Trainer's
+    ``mfu`` field uses too)."""
+    import train_torch
+
+    return train_torch.flops_per_token(model, cfg, seq)
 
 
 def train_steps(torch, cuda, train_torch, args, steps, phase):
@@ -2619,8 +2636,492 @@ def run_ckpt(torch, cuda, train_torch, smi, device="cuda"):
     return launches
 
 
+#: The trainer phase: gpt_lm through train_torch.main (steps, log and
+#: eval period, the capture window), the A/B of the fit loop against the
+#: per-step-sync loop (rounds, steps a round, log period), the accuracy
+#: gate's run, and the two ranks' run.
+TRAINER_STEPS, TRAINER_LOG, TRAINER_EVAL = 12, 2, 6
+TRAINER_PROFILE = (3, 2)
+TRAINER_PROBE_STEP = 8
+AB_ROUNDS, AB_STEPS, AB_LOG = 2, 20, 10
+GATE_ARGS = ("--eval-every", "50", "--target-metric", "accuracy",
+             "--target-value", "0.97", "--steps", "2000", "--log-every",
+             "50")
+RANKS_STEPS = 4
+STATUS_PATHS = ("/healthz", "/statusz", "/varz", "/memz", "/flightz",
+                "/goodputz")
+#: A kernel's symbol in a torch.profiler trace -> its wrapper's launch
+#: key (K1b's main pass only: its final sum is a second launch a call;
+#: K4b's template argument OWN_TOKENS tells dx, true, from dw).
+TRACE_KERNELS = (("ln_bwd_reduce", None), ("ln_fwd", "layernorm_fwd"),
+                 ("ln_bwd", "layernorm_bwd"),
+                 ("flash_bwd_fused", "flash_bwd_fused"),
+                 ("flash_bwd_dq", "flash_bwd_dq"),
+                 ("flash_bwd_dkv", "flash_bwd_dkv"),
+                 ("flash_fwd", "flash_fwd"),
+                 ("xent_fwd", "fused_xent_fwd"))
+
+
+def _trace_launches(path) -> dict:
+    """A capture's Chrome trace: the port's kernels by launch key
+    (``found``), the count of all device kernels (``kernels``, 0 when the
+    profiler saw no device) and of the host's kernel-launch calls
+    (``launch_calls``), the work kernels' (not the profiler's spin
+    kernels) summed and spanned ms (``busy_ms``,
+    ``span_ms``) and the host's synchronizing CUDA calls by name
+    (``syncs``: a step that read a value back would show one), and the
+    places among the window's launches of those whose device record is
+    missing (``lost_records_at``)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    found = collections.Counter()
+    for e in kernels:
+        name = e["name"]
+        if "xent_bwd" in name:
+            found["fused_xent_dx" if "true" in name else
+                  "fused_xent_dw" if "false" in name else
+                  "fused_xent_bwd?"] += 1
+            continue
+        for sym, key in TRACE_KERNELS:
+            if sym in name:
+                if key is not None:
+                    found[key] += 1
+                break
+    api = [e["name"] for e in events
+           if e.get("cat") in ("cuda_runtime", "cuda_driver")]
+    syncs = collections.Counter(
+        n for n in api if "Synchronize" in n or "Memcpy" in n)
+    work = [e for e in kernels if "spin_kernel" not in e["name"]]
+    span = (max(e["ts"] + e["dur"] for e in work)
+            - min(e["ts"] for e in work)) / 1e3 if work else 0.0
+    # launches whose device record is missing, by their place among the
+    # window's launches (the first WARMUP_LAUNCHES are the profiler's spin
+    # kernels)
+    recorded = {(e.get("args") or {}).get("correlation") for e in kernels}
+    launches = sorted((e for e in events
+                       if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                       and "LaunchKernel" in e["name"]),
+                      key=lambda e: e["ts"])
+    lost = [i for i, e in enumerate(launches)
+            if (e.get("args") or {}).get("correlation") not in recorded]
+    return {"found": found, "kernels": len(kernels),
+            "launch_calls": len(launches), "lost_records_at": lost,
+            "busy_ms": sum(e["dur"] for e in work) / 1e3,
+            "span_ms": span, "syncs": dict(syncs)}
+
+
+def _trainer_argv(device):
+    """gpt_lm as the train phase runs it; on the CPU at test size."""
+    size = ["--batch-size", "8", "--seq-len", "2048", "--remat", "on"] \
+        if device == "cuda" else ["--test-size"]
+    return ["--workload", "gpt_lm", *size, "--seed", str(SEED), "--device",
+            device]
+
+
+@contextlib.contextmanager
+def _extra_callbacks(train_torch, *callbacks):
+    """``train_torch``'s Trainer with ``callbacks`` added, inside the
+    block."""
+    make = train_torch.Trainer
+
+    def trainer(*args, callbacks=None, **kw):
+        return make(*args, callbacks=[*(callbacks or []), *extra], **kw)
+
+    extra = list(callbacks)
+    train_torch.Trainer = trainer
+    try:
+        yield
+    finally:
+        train_torch.Trainer = make
+
+
+def _status_probe(train_lib, at_step):
+    """A Callback that GETs STATUS_PATHS from the trainer's status server
+    at ``at_step``: ``probe.answers`` path -> (status, bytes),
+    ``probe.ms`` the six requests' wall ms."""
+    import urllib.request
+
+    class Probe(train_lib.Callback):
+        answers, ms = {}, None
+
+        def on_step_end(self, trainer, step, state, metrics):
+            if step != at_step:
+                return
+            t0 = time.perf_counter()
+            for path in STATUS_PATHS:
+                url = f"http://127.0.0.1:{trainer.status_server.port}{path}"
+                with urllib.request.urlopen(url, timeout=30) as r:
+                    self.answers[path] = (r.status, len(r.read()))
+            self.ms = 1e3 * (time.perf_counter() - t0)
+
+    return Probe()
+
+
+def _per_step_loop(torch, train_torch, argv, steps):
+    """train_torch's loop before the Trainer: build, then one step after
+    another, each loss read back to the host when its step ends; the
+    losses by step, each step's wall ms (its batch fetch included) and
+    the run's (state, step, batches)."""
+    _, state, step, batches = train_torch.build(train_torch.parse_args(argv))
+    losses, ms = {}, []
+    while state.step < steps:
+        t0 = time.perf_counter()
+        state, m = step(state, next(batches))
+        losses[state.step] = float(m["loss"])
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return losses, ms, (state, step, batches)
+
+
+def _ab_rounds(torch, train_lib, run, gbs):
+    """The fit loop against the per-step-sync loop on one state, in turns
+    (sync, fit, fit, sync a round): the sync loop's step ms (each step's
+    loss read back), the fit's t_step of each log window (AB_LOG steps),
+    and the losses' order kept."""
+    state, step, batches = run
+
+    class Windows(train_lib.Callback):
+        def __init__(self):
+            self.t_step = []
+
+        def on_log(self, trainer, s, record):
+            self.t_step.append(1e3 * record["t_step"])
+
+    sync_ms, fit_ms = [], []
+
+    def sync_round():
+        nonlocal state
+        for _ in range(AB_STEPS):
+            t0 = time.perf_counter()
+            state, m = step(state, next(batches))
+            float(m["loss"])
+            sync_ms.append(1e3 * (time.perf_counter() - t0))
+
+    def fit_round():
+        nonlocal state
+        cb = Windows()
+        cfg = train_lib.TrainerConfig(total_steps=state.step + AB_STEPS,
+                                      log_every=AB_LOG,
+                                      global_batch_size=gbs)
+        # the fit closes the iterator it is given: a round's own
+        round_batches = (next(batches) for _ in range(AB_STEPS))
+        with train_lib.Trainer(step, cfg, callbacks=[cb]) as trainer:
+            state = trainer.fit(state, round_batches)  # ends on a fetch
+        fit_ms.extend(cb.t_step)
+
+    for _ in range(AB_ROUNDS):
+        sync_round()
+        fit_round()
+        fit_round()
+        sync_round()
+    return sync_ms, fit_ms
+
+
+def _flight_cost_us(obs, n=20000):
+    """Host microseconds of one ``step`` flight event (the one a step
+    records)."""
+    rec = obs.FlightRecorder(2048)
+    t0 = time.perf_counter()
+    for i in range(n):
+        rec.record("step", step=i, k=1)
+    return 1e6 * (time.perf_counter() - t0) / n
+
+
+def trainer_worker(argv_json) -> int:
+    """One rank of the trainer phase's eval over ranks (``--trainer-worker``):
+    ``train_torch.main`` of the given arguments with gpt_lm cut as the dp
+    phase cuts it (DP_LAYERS layers, dropout 0)."""
+    import train_torch
+    from distributedtensorflow_tpu_torch.ops import flash_attention as fa
+
+    with _dp_preset(train_torch, fa, "gpt_lm"):
+        train_torch.main(json.loads(argv_json))
+    return 0
+
+
+def _rows_of(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def run_trainer_ranks(torch, train_torch, fa, tmp, device="cuda"):
+    """Eval over ranks: two ``--trainer-worker`` processes over gloo on the
+    one card (both LOCAL_RANK 0), gpt_lm at DP_LAYERS layers, fp32,
+    dropout 0, RANKS_STEPS steps, an eval at the last, a shared logdir
+    and checkpoint directory; then one process restores the final step
+    and evaluates the same global eval batches (both ranks' streams,
+    rank-major).  eval_loss within 1e-6 relative of the one process's;
+    the records carry host_aggregate's t_step spread; rank 1 wrote
+    flight.1.jsonl."""
+    import os
+
+    from distributedtensorflow_tpu_torch import train as train_lib
+    from distributedtensorflow_tpu_torch.checkpoint import CheckpointManager
+    from distributedtensorflow_tpu_torch.data import (
+        InputContext,
+        device_put_batch,
+    )
+    from distributedtensorflow_tpu_torch.parallel import bootstrap
+
+    logdir, ckdir = os.path.join(tmp, "ranks"), os.path.join(tmp, "ranks_ck")
+    size = ["--batch-size", "8", "--seq-len", "2048"] if device == "cuda" \
+        else ["--test-size"]
+    argv = ["--workload", "gpt_lm", *size, "--dtype", "float32", "--seed",
+            str(SEED), "--device", device, "--mesh", "data=2",
+            "--dist-backend", "gloo", "--steps", str(RANKS_STEPS),
+            "--log-every", "2", "--eval-every", str(RANKS_STEPS),
+            "--logdir", logdir, "--flight-recorder", "--checkpoint-dir",
+            ckdir]
+    env = {**os.environ, "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(bootstrap.free_port()), "WORLD_SIZE": "2",
+           "LOCAL_RANK": "0"}
+    t0 = time.time()
+    procs = [subprocess.Popen([sys.executable, __file__, "--trainer-worker",
+                               json.dumps(argv)], env={**env, "RANK": str(r)},
+                              stdout=subprocess.DEVNULL)
+             for r in range(2)]
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if rcs != [0, 0]:
+        raise AssertionError(f"trainer_ranks: the ranks exited with {rcs}")
+    rows = _rows_of(os.path.join(logdir, "metrics.jsonl"))
+    got = [r for r in rows if "eval_loss" in r][-1]
+    with _dp_preset(train_torch, fa, "gpt_lm"):
+        args = train_torch.parse_args(argv[:argv.index("--mesh")])
+        wl, state, _, _ = train_torch.build(args)
+    assert CheckpointManager(ckdir).restore_latest(state).step == RANKS_STEPS
+    srcs = [wl.input_fn(InputContext(2, r, 8), SEED + 999) for r in range(2)]
+
+    def global_batches():
+        for _ in range(train_torch.EVAL_STEPS):
+            parts = [next(src) for src in srcs]
+            yield device_put_batch({k: np.concatenate([q[k] for q in parts])
+                                    for k in parts[0]}, state.model.device)
+
+    ref = train_lib.weighted_evaluate(
+        train_lib.make_eval_step(wl.eval_fn(state.model)), state,
+        global_batches())
+    err = abs(got["eval_loss"] - ref["loss"]) / abs(ref["loss"])
+    spread = [k for k in ("t_step_host_min", "t_step_host_median",
+                          "t_step_host_max") if all(k in r for r in rows
+                                                    if "loss" in r)]
+    flight1 = os.path.exists(os.path.join(logdir, "flight.1.jsonl"))
+    row = {"phase": "trainer_ranks", "world": 2, "backend": "gloo",
+           "layers": DP_LAYERS, "dtype": "float32",
+           "eval_loss": got["eval_loss"], "one_process_eval_loss":
+           ref["loss"], "eval_loss_rel_err": err,
+           "eval_perplexity": got.get("eval_perplexity"),
+           "t_step_spread": {k: rows[-2].get(k) for k in spread},
+           "flight_1_jsonl": flight1, "seconds": time.time() - t0,
+           "tolerance": "eval_loss 1e-6 relative to one process on the "
+                        "same weights and global eval batches"}
+    emit(row)
+    if err > 1e-6 or len(spread) != 3 or not flight1:
+        raise AssertionError(f"trainer_ranks: {row}")
+
+
+def run_trainer(torch, cuda, train_torch, fa, device="cuda"):
+    """The Trainer's fit loop and its telemetry (PR 12): (1) gpt_lm at
+    full width through ``train_torch.main`` with every telemetry flag
+    (logdir, flight recorder, goodput, status server on port 0, a capture
+    window at steps 4-5, checkpoints every 6, eval every 6): its losses
+    equal the per-step-sync loop's bit for bit, the capture's own trace
+    holds the path's kernels at their counts a step, the status server
+    answers during the fit, the logdir passes the schema tool (a
+    subprocess), the records carry the breakdown, memory, mfu and the
+    checkpoint counters; its numbers (the fit loop against the
+    per-step-sync loop in turns, the f_* shares, goodput, what a capture,
+    a probe and the flight recorder cost, mfu beside the closed form).
+    (2) mnist_lenet stops at its accuracy gate.  (3) two ranks' eval
+    matches one process's (:func:`run_trainer_ranks`).  On the CPU (a
+    rehearsal) the test sizes run and the kernel checks are left out."""
+    import os
+    import shutil
+    import tempfile
+
+    from distributedtensorflow_tpu_torch import obs
+    from distributedtensorflow_tpu_torch import train as train_lib
+
+    cuda_dev = device == "cuda"
+    tmp = tempfile.mkdtemp(prefix="trainer_")
+    launches = collections.Counter()
+    try:
+        logdir = os.path.join(tmp, "gpt")
+        prof = os.path.join(logdir, "profile")
+        start, n_prof = TRAINER_PROFILE
+        argv = _trainer_argv(device)
+        flags = ["--steps", str(TRAINER_STEPS), "--log-every",
+                 str(TRAINER_LOG), "--eval-every", str(TRAINER_EVAL),
+                 "--logdir", logdir, "--flight-recorder", "--goodput",
+                 "--status-port", "0", "--profile-dir", prof,
+                 "--profile-start", str(start), "--profile-steps",
+                 str(n_prof), "--checkpoint-dir", os.path.join(tmp, "ck"),
+                 "--checkpoint-every", str(TRAINER_EVAL)]
+        probe = _status_probe(train_lib, TRAINER_PROBE_STEP)
+        cuda.launches.clear()
+        t0 = time.time()
+        with _extra_callbacks(train_torch, probe):
+            records = train_torch.main(argv + flags)
+        main_s = time.time() - t0
+        if cuda_dev:
+            torch.cuda.synchronize()
+        main_launches = dict(cuda.launches)
+        launches.update(main_launches)
+        ref, sync_ms, run = _per_step_loop(torch, train_torch, argv,
+                                           TRAINER_STEPS)
+        want = sorted({s for s in ref if s % TRAINER_LOG == 0}
+                      | {TRAINER_STEPS})
+        losses = [r["loss"] for r in records]
+        failures = []
+        if [r["step"] for r in records] != want \
+                or losses != [ref[s] for s in want]:
+            failures.append(f"losses {losses} differ from the per-step "
+                            f"loop's {[ref.get(s) for s in want]}")
+        # the capture's own trace: the window's steps, the path's kernels
+        trace = _trace_launches(os.path.join(prof, "trace.json"))
+        trace_found, n_kernels = trace["found"], trace["kernels"]
+        per_step = {k: trace_found.get(k, 0) / n_prof
+                    for k in TRAIN_LAUNCHES_PER_STEP}
+        from distributedtensorflow_tpu_torch.utils import profiler
+        lost_work = [i for i in trace["lost_records_at"]
+                     if i >= profiler.WARMUP_LAUNCHES]
+        if cuda_dev and (per_step != TRAIN_LAUNCHES_PER_STEP
+                         or n_kernels == 0 or lost_work
+                         or "fused_xent_bwd?" in trace_found):
+            failures.append(f"capture trace: launches per step {per_step} "
+                            f"({n_kernels} device kernels in all; the "
+                            f"records of launches {lost_work} after the "
+                            f"warm-up lost), expected "
+                            f"{TRAIN_LAUNCHES_PER_STEP}")
+        # the wrappers' counts over the run: the steps, and the evals'
+        # forwards (K1f 25, K2 12, K4f 1 a batch)
+        evals = (TRAINER_STEPS // TRAINER_EVAL) * train_torch.EVAL_STEPS
+        eval_fwd = {"layernorm_fwd": 25, "flash_fwd": 12,
+                    "fused_xent_fwd": 1}
+        expected = {k: TRAINER_STEPS * v + evals * eval_fwd.get(k, 0)
+                    for k, v in TRAIN_LAUNCHES_PER_STEP.items()}
+        got_run = {k: main_launches.get(k, 0) for k in expected}
+        if cuda_dev and got_run != expected:
+            failures.append(f"launches in the run {got_run}, expected "
+                            f"{expected}")
+        if sorted(probe.answers) != sorted(STATUS_PATHS) or any(
+                status != 200 for status, _ in probe.answers.values()):
+            failures.append(f"status server answers {probe.answers}")
+        files = ["metrics.jsonl", "flight.jsonl", "goodput.json",
+                 "captures.jsonl", "metrics.prom"]
+        schema = subprocess.run(
+            [sys.executable, "tools/check_metrics_schema.py",
+             *[os.path.join(logdir, f) for f in files]],
+            capture_output=True, text=True, timeout=120)
+        if schema.returncode:
+            failures.append(f"schema: {schema.stdout[-2000:]}"
+                            f"{schema.stderr[-2000:]}")
+        rows = _rows_of(os.path.join(logdir, "metrics.jsonl"))
+        train_rows = [r for r in rows if "loss" in r]
+        need = ["t_step", "t_data", "t_dispatch", "t_host", "f_data",
+                "f_dispatch", "f_host"]
+        if cuda_dev:
+            need += ["hbm_in_use_gib", "hbm_peak_gib", "mfu"]
+        missing = [k for k in need if any(k not in r for r in train_rows)]
+        if missing or "checkpoint_saves_total" not in train_rows[-1]:
+            failures.append(f"records miss {missing} or the checkpoint "
+                            "counter")
+        # the numbers
+        steady = train_rows[1:]
+        med = lambda k: statistics.median(r[k] for r in steady)
+        with open(os.path.join(logdir, "goodput.json")) as f:
+            good = json.load(f)["merged"]
+        cap = _rows_of(os.path.join(logdir, "captures.jsonl"))[0]
+        wl_args = train_torch.parse_args(argv)
+        state = run[0]
+        per_token, _ = train_torch.flops_per_token(
+            state.model, state.model.cfg, wl_args.seq_len or 64)
+        t_step = med("t_step")
+        tokens = 8 * (wl_args.seq_len or 64)
+        flight_us = _flight_cost_us(obs)
+        sync_ab, fit_ab = _ab_rounds(torch, train_lib, run,
+                                     int(wl_args.batch_size or 8))
+        row = {"phase": "trainer", "workload": "gpt_lm",
+               "steps": TRAINER_STEPS, "losses": losses,
+               "per_step_loop_losses": [ref[s] for s in want],
+               "per_step_loop_ms": sync_ms, "main_seconds": main_s,
+               "t_step_ms": [1e3 * r["t_step"] for r in train_rows],
+               "t_step_ms_median_after_first": 1e3 * t_step,
+               "f_data": med("f_data"), "f_dispatch": med("f_dispatch"),
+               "f_host": med("f_host"),
+               "t_dispatch_ms": 1e3 * med("t_dispatch"),
+               "t_host_ms": 1e3 * med("t_host"),
+               "mfu": steady[-1].get("mfu"),
+               "mfu_closed_form_at_t_step":
+                   per_token * tokens / steady[-1]["t_step"]
+                   / PEAK_FLOPS["bfloat16"],
+               "hbm_in_use_gib": train_rows[-1].get("hbm_in_use_gib"),
+               "hbm_peak_gib": train_rows[-1].get("hbm_peak_gib"),
+               "goodput_fraction": good["goodput_fraction"],
+               "goodput_buckets": good["buckets"],
+               "goodput_wall_s": good["wall_s"],
+               "capture": {k: cap[k] for k in ("step_begin", "step_end",
+                                               "wall_s", "overhead_s")},
+               "capture_cost_ms_per_step":
+                   1e3 * cap["wall_s"] / n_prof - 1e3 * t_step,
+               "capture_trace_kernels": n_kernels,
+               "capture_launch_calls": trace["launch_calls"],
+               "capture_lost_records_at": trace["lost_records_at"],
+               "capture_device_busy_ms": trace["busy_ms"],
+               "capture_kernel_span_ms": trace["span_ms"],
+               "capture_host_syncs": trace["syncs"],
+               "t_dispatch_ms_windows": [1e3 * r["t_dispatch"]
+                                         for r in train_rows],
+               "t_host_ms_windows": [1e3 * r["t_host"] for r in train_rows],
+               "t_data_ms_windows": [1e3 * r["t_data"] for r in train_rows],
+               "capture_launches_per_step": per_step,
+               "run_launches": got_run,
+               "status_probe_ms": probe.ms,
+               "status_answers": probe.answers,
+               "flight_record_us": flight_us,
+               "ab_sync_ms": sync_ab, "ab_fit_t_step_ms": fit_ab,
+               "ab_sync_median": statistics.median(sync_ab),
+               "ab_fit_median": statistics.median(fit_ab),
+               "ab_sync_mean": statistics.mean(sync_ab),
+               "ab_fit_mean": statistics.mean(fit_ab)}
+        emit(row)
+        del run, state
+        if cuda_dev:
+            torch.cuda.empty_cache()
+        # (2) the accuracy gate
+        gate_dir = os.path.join(tmp, "gate")
+        cuda.launches.clear()
+        t0 = time.time()
+        gate = train_torch.main(
+            ["--workload", "mnist_lenet", "--seed", str(SEED), "--device",
+             device, "--logdir", gate_dir, *GATE_ARGS])
+        evals = [r for r in _rows_of(os.path.join(gate_dir, "metrics.jsonl"))
+                 if "eval_accuracy" in r]
+        stop = evals[-1]
+        emit({"phase": "trainer_gate", "workload": "mnist_lenet",
+              "stopped_at": stop["step"], "eval_accuracy":
+              stop["eval_accuracy"], "evals": [(r["step"], r["eval_accuracy"])
+                                               for r in evals],
+              "last_loss": gate[-1]["loss"], "seconds": time.time() - t0})
+        if not (stop["eval_accuracy"] >= 0.97 and stop["step"] < 2000):
+            failures.append(f"the accuracy gate did not stop the run: "
+                            f"{stop}")
+        if failures:
+            raise AssertionError("trainer: " + "; ".join(failures))
+        # (3) eval over ranks
+        run_trainer_ranks(torch, train_torch, fa, tmp, device)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 PHASES = ("layernorm", "kernels", "xent", "serving", "train", "baseline",
-          "dp", "ckpt")
+          "dp", "ckpt", "trainer")
 
 
 def main(argv=None) -> int:
@@ -2631,6 +3132,7 @@ def main(argv=None) -> int:
     p.add_argument("--dp-worker", default=None, help=argparse.SUPPRESS)
     p.add_argument("--ckpt-worker", default=None, help=argparse.SUPPRESS)
     p.add_argument("--det-worker", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--trainer-worker", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.dp_worker:
         return dp_worker(args.dp_worker)
@@ -2638,6 +3140,8 @@ def main(argv=None) -> int:
         return ckpt_worker(args.ckpt_worker)
     if args.det_worker:
         return det_worker(args.det_worker)
+    if args.trainer_worker:
+        return trainer_worker(args.trainer_worker)
     phases = set(args.phases.split(","))
     import torch
     import torch.nn.functional as F
@@ -2764,6 +3268,9 @@ def main(argv=None) -> int:
     if "ckpt" in phases:
         launches.update(run_ckpt(torch, _cuda, train_torch, smi))
     done("ckpt")
+    if "trainer" in phases:
+        launches.update(run_trainer(torch, _cuda, train_torch, fa))
+    done("trainer")
     emit({"phase": "seconds", **seconds})
     if phases != set(PHASES):
         print(f"chip_smoke: ran only {sorted(phases)}", file=sys.stderr)

@@ -13,7 +13,11 @@ Ported so far:
 - the training step of the GPT presets and the BASELINE.json workloads
   (``workloads``, ``train``, ``data``; the ``train_torch.py`` CLI), on one
   device or data-parallel over ranks (``parallel``: the mesh, the cluster
-  bootstrap, the collectives).
+  bootstrap, the collectives);
+- checkpoint and resume (``checkpoint``);
+- ``train.py``'s fit loop, ``train.Trainer``, and the telemetry it
+  carries (``obs``: registry, spans, anomaly detector, flight recorder,
+  goodput, memory, MFU, reactive profiling, status server).
 
 The hand-written Hopper kernels live in ``csrc/``: the LayerNorm forward
 and backward (``ops.layernorm``), single-token decode attention

@@ -33,8 +33,15 @@ without it:
   manifest itself.  A forced save ends with the chief's commit and a
   barrier, so no rank reads a step that is not there yet.
 
-JAX's registry counters, trace spans and flight-recorder events are left
-out until the port has ``obs`` (ROADMAP.md).
+Telemetry (``obs``), as in JAX: the counters ``checkpoint_saves_total``,
+``checkpoint_restores_total`` and ``checkpoint_verify_failures_total``,
+the gauge ``checkpoint_last_save_blocking_s`` (the blocking part of a
+save: the copy to the host, and for a forced save the commit), the spans
+``checkpoint_save``, ``checkpoint_restore`` and ``checkpoint_wait`` (which
+the goodput ledger books), the flight events ``checkpoint_begin``,
+``checkpoint_end`` and ``checkpoint_corrupt``, and the goodput ledger's
+lost-work anchor (``note_checkpoint``) and resume point
+(``note_restore``).
 """
 
 from __future__ import annotations
@@ -49,11 +56,26 @@ from collections.abc import Mapping
 
 import torch
 
+from .. import obs
 from ..parallel import collectives
 from . import integrity
 from .integrity import CheckpointCorruptError
 
 logger = logging.getLogger(__name__)
+
+# Registry metrics: checkpoint IO health.  The save gauge records the
+# BLOCKING part only: with async_save the write continues in the
+# background and the train loop is already running again.
+_M_SAVES = obs.counter("checkpoint_saves_total", "checkpoint saves accepted")
+_M_RESTORES = obs.counter("checkpoint_restores_total", "checkpoint restores")
+_M_SAVE_S = obs.gauge(
+    "checkpoint_last_save_blocking_s", "blocking seconds of the last save call"
+)
+_M_VERIFY_FAILURES = obs.counter(
+    "checkpoint_verify_failures_total",
+    "checkpoints rejected at restore (truncated, corrupt, or checksum "
+    "mismatch) before falling back to an older verified step",
+)
 
 #: File of a step's state and its commit marker (Orbax's name).
 PAYLOAD = "state.pt"
@@ -157,6 +179,15 @@ class CheckpointManager:
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
 
+    @property
+    def best_metric(self) -> str | None:
+        """The keep-best retention metric (None: keep the latest)."""
+        return self._best_metric
+
+    @property
+    def best_mode(self) -> str:
+        return self._best_mode
+
     def _is_chief(self) -> bool:
         return collectives.group_rank(self._mesh) == 0
 
@@ -184,22 +215,31 @@ class CheckpointManager:
                 f"best_metric={self._best_metric!r} retention needs "
                 f"metrics[{self._best_metric!r}] passed to save()")
         self._saved.add(step)
-        if self._is_chief():
-            self.wait()
-            host = self._to_host(as_tree(state))
-            metrics = {k: float(v) for k, v in metrics.items()} \
-                if metrics else None
-            if self._async:
-                self._thread = threading.Thread(
-                    target=self._write_in_background,
-                    args=(step, host, metrics),
-                    name=f"checkpoint-writer-{step}")
-                self._thread.start()
-            else:
-                self._write(step, host, metrics)
-        if force and collectives.group_size(self._mesh) > 1:
-            self.wait()
-            group_max(0, self._mesh)  # a barrier after the commit
+        obs.record_event("checkpoint_begin", step=step)
+        with obs.span("checkpoint_save") as sp:
+            if self._is_chief():
+                self.wait()
+                host = self._to_host(as_tree(state))
+                metrics = {k: float(v) for k, v in metrics.items()} \
+                    if metrics else None
+                if self._async:
+                    self._thread = threading.Thread(
+                        target=self._write_in_background,
+                        args=(step, host, metrics),
+                        name=f"checkpoint-writer-{step}")
+                    self._thread.start()
+                else:
+                    self._write(step, host, metrics)
+            if force and collectives.group_size(self._mesh) > 1:
+                self.wait()
+                group_max(0, self._mesh)  # a barrier after the commit
+        obs.record_event("checkpoint_end", step=step, saved=True,
+                         blocking_s=round(sp.dur_s, 4))
+        _M_SAVES.inc()
+        _M_SAVE_S.set(sp.dur_s)
+        # the goodput lost-work anchor: a resume is measured against the
+        # newest save at or before its restored step
+        obs.goodput.note_checkpoint(step)
         logger.info("checkpoint saved at step %d", step)
         return True
 
@@ -335,6 +375,9 @@ class CheckpointManager:
             except CheckpointCorruptError as e:
                 reason = str(e)[:300]
                 rejected.append({"step": step, "reason": reason})
+                _M_VERIFY_FAILURES.inc()
+                obs.record_event("checkpoint_corrupt", step=step,
+                                 reason=reason)
                 logger.error("checkpoint step %d failed verification (%s); "
                              "falling back to the next-newest checkpoint",
                              step, reason)
@@ -355,6 +398,14 @@ class CheckpointManager:
         raises, the payload mismatches the manifest or its geometry is not
         the target's, before anything of the target changes.  A step
         without a manifest restores unverified."""
+        with obs.span("checkpoint_restore"):
+            self._load_verified(step, target)
+        _M_RESTORES.inc()
+        obs.goodput.note_restore(step)
+        logger.info("restored checkpoint step %d", step)
+        return target
+
+    def _load_verified(self, step: int, target) -> None:
         path = os.path.join(self._step_dir(step), PAYLOAD)
         try:
             tree = torch.load(path, map_location="cpu", weights_only=True)
@@ -376,8 +427,6 @@ class CheckpointManager:
         target.model.load_state_dict(saved)
         target.optimizer.load_state_dict(tree["opt_state"])
         target.step = int(tree["step"])
-        logger.info("restored checkpoint step %d", step)
-        return target
 
     def restore(self, step: int, target):
         """Restore ``step`` into ``target``, verified against its manifest;
@@ -393,6 +442,9 @@ class CheckpointManager:
         except CheckpointCorruptError as e:
             if isinstance(e.__cause__, FileNotFoundError):
                 raise e.__cause__
+            _M_VERIFY_FAILURES.inc()
+            obs.record_event("checkpoint_corrupt", step=step,
+                             reason=str(e)[:300])
             raise
 
     def latest_step(self) -> int | None:
@@ -425,7 +477,8 @@ class CheckpointManager:
     def wait(self) -> None:
         """Wait for the save in flight; raise its failure, if it failed."""
         if self._thread is not None:
-            self._thread.join()
+            with obs.span("checkpoint_wait"):
+                self._thread.join()
             self._thread = None
         if self._error is not None:
             error, self._error = self._error, None

@@ -20,6 +20,7 @@ from typing import Iterator, Sequence
 import numpy as np
 import torch
 
+from .. import obs
 from ..parallel import collectives
 from ..parallel.mesh import replica_count, replica_index
 
@@ -53,10 +54,22 @@ def current_input_context(global_batch_size: int,
         global_batch_size=global_batch_size)
 
 
+def _leaf_to_device(v, device) -> torch.Tensor:
+    dtype = torch.long if v.dtype.kind in "iu" else None
+    if torch.device(device).type != "cuda":
+        return torch.as_tensor(v, device=device, dtype=dtype)
+    return torch.as_tensor(v, dtype=dtype).pin_memory().to(
+        device, non_blocking=True)
+
+
 def device_put_batch(batch: dict, device, mesh=None, *,
                      accum_steps: int = 1) -> dict:
     """A host batch (numpy leaves) on ``device``: integer leaves (ids,
     labels, segments) as ``torch.long``, float leaves in their own dtype.
+    On a CUDA device each leaf is staged in pinned host memory and copied
+    without blocking the host: a copy from pageable memory waits for the
+    device to finish the work queued before it, which would make every
+    step's batch a sync (the Trainer's host runs ahead of the card).
 
     ``batch`` is this rank's pipeline's rows.  JAX lays the global batch
     out rank-major (``make_array_from_process_local_data``) and splits it
@@ -67,10 +80,7 @@ def device_put_batch(batch: dict, device, mesh=None, *,
     gather the global batch and each keeps its rows, in microbatch order,
     so that :func:`..train.engine.split_microbatches` cuts it into its
     share of each JAX microbatch."""
-    out = {k: torch.as_tensor(v, device=device,
-                              dtype=torch.long if v.dtype.kind in "iu"
-                              else None)
-           for k, v in batch.items()}
+    out = {k: _leaf_to_device(v, device) for k, v in batch.items()}
     n = 1 if mesh is None else replica_count(mesh)
     if accum_steps == 1 or n == 1:
         return out
@@ -165,12 +175,14 @@ def skip_batches(it: Iterator, n: int) -> Iterator:
     are put on the device, and goes on with the batches the uninterrupted
     run would have drawn; otherwise it would train on the first N batches
     again and diverge.  A stream that ends first is logged, and the
-    iterator returned as it is."""
-    for i in range(n):
-        try:
-            next(it)
-        except StopIteration:
-            logger.warning("input exhausted after skipping %d/%d batches "
-                           "on resume", i, n)
-            break
+    iterator returned as it is.  The drain is the ``input_fastforward``
+    span, which the goodput ledger books as restore time."""
+    with obs.span("input_fastforward"):
+        for i in range(n):
+            try:
+                next(it)
+            except StopIteration:
+                logger.warning("input exhausted after skipping %d/%d "
+                               "batches on resume", i, n)
+                break
     return it

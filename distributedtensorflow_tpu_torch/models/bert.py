@@ -273,14 +273,17 @@ def mlm_loss(model: BertForMLM, *, max_predictions: int | None = None,
     return loss_fn
 
 
-def mlm_eval(model: BertForMLM, *, max_predictions: int | None = None):
+def mlm_eval(model: BertForMLM, *, max_predictions: int | None = None,
+             group=None):
     """``metric_fn(batch) -> {"loss", "mlm_accuracy", ...}``,
-    deterministic, without autograd (JAX ``mlm_eval``)."""
+    deterministic, without autograd (JAX ``mlm_eval``); over a
+    data-parallel ``group`` this rank's shares of the global eval
+    batch's."""
 
     def metric_fn(batch):
         with torch.no_grad():
             loss, metrics = _mlm_metrics(model, max_predictions, batch, None,
-                                         True)
+                                         True, group)
         return {"loss": loss, **metrics}
 
     return metric_fn

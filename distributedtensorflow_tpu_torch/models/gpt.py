@@ -348,14 +348,19 @@ def lm_loss(model: GPTLM, group=None):
     return loss_fn
 
 
-def lm_eval(model: GPTLM):
+def lm_eval(model: GPTLM, group=None):
     """Eval metric_fn (JAX ``lm_eval``): ``metric_fn(batch) -> {"loss",
-    "perplexity"}``, deterministic, without autograd."""
+    "perplexity"}``, deterministic, without autograd.  Over a
+    data-parallel ``group`` the loss is this rank's share of the global
+    mean and the perplexity its share of the log, ``log_perplexity``, as
+    in :func:`lm_loss` (``train.engine.make_eval_step`` sums them)."""
     xent = _pick_xent(model.cfg, model.device)
 
     def metric_fn(batch):
         with torch.no_grad():
-            loss = _next_token_loss(model, xent, batch)
+            loss = _next_token_loss(model, xent, batch, group)
+        if group is not None:
+            return {"loss": loss, "log_perplexity": loss}
         return {"loss": loss, "perplexity": torch.exp(loss)}
 
     return metric_fn

@@ -223,14 +223,19 @@ def moe_lm_loss(model: GPTMoELM, group=None):
     return loss_fn
 
 
-def moe_lm_eval(model: GPTMoELM):
+def moe_lm_eval(model: GPTMoELM, group=None):
     """Eval metric_fn: deterministic, without autograd; the router aux
-    loss is reported but not folded into the eval loss."""
+    loss is reported but not folded into the eval loss.  Over a
+    data-parallel ``group`` every term is this rank's share and the
+    perplexity is reported as ``log_perplexity``, as in
+    :func:`moe_lm_loss`."""
     xent = _pick_xent(model.cfg, model.device)
 
     def metric_fn(batch):
         with torch.no_grad():
-            lm, aux = _lm_terms(model, xent, batch)
+            lm, aux = _lm_terms(model, xent, batch, group)
+        if group is not None:
+            return {"loss": lm, "log_perplexity": lm, "aux_loss": aux}
         return {"loss": lm, "perplexity": torch.exp(lm), "aux_loss": aux}
 
     return metric_fn

@@ -109,13 +109,17 @@ def widedeep_loss(model: WideDeep, group=None):
     return loss_fn
 
 
-def widedeep_eval(model: WideDeep):
+def widedeep_eval(model: WideDeep, group=None):
     """``metric_fn(batch) -> {"accuracy", "log_loss"}`` without
-    autograd."""
+    autograd; over a data-parallel ``group`` this rank's shares of the
+    global means."""
 
     def metric_fn(batch):
         with torch.no_grad():
             loss, accuracy = _forward_metrics(model, batch)
+        if group is not None:
+            share = share_of_mean(batch["label"].shape[0], group)
+            loss, accuracy = loss * share, accuracy * share
         return {"accuracy": accuracy, "log_loss": loss}
 
     return metric_fn

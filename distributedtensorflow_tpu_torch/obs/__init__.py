@@ -1,0 +1,73 @@
+"""Telemetry of the port: metrics registry, span tracing, cross-rank
+aggregation, anomaly detection, the flight recorder, the goodput ledger,
+memory and MFU accounting, reactive profiling and the status server.
+
+Twin of ``distributedtensorflow_tpu/obs/`` for what the Trainer's fit loop
+reaches (ROADMAP.md keeps the rest: fleet, SLOs, alerts, the history
+store, usage and training dynamics):
+
+- ``counter/gauge/histogram`` — process-local registry metrics, exported
+  into ``metrics.jsonl`` rows and a Prometheus text snapshot
+  (``metrics.prom``);
+- ``span("name")`` — wall-time tree tracing into ``trace.jsonl`` plus the
+  per-step breakdown fields (``t_data``/``t_step``/``f_data``/...);
+- ``host_aggregate`` — per-rank gauge all-gather -> min/median/max/
+  straggler;
+- ``AnomalyDetector`` — NaN/Inf loss, loss z-spike, step-time regression;
+- ``FlightRecorder`` — bounded ring of structured events, dumped to
+  ``flight.jsonl`` on watchdog timeout / crash / anomaly / preemption;
+- ``StatusServer`` — stdlib HTTP thread serving ``/healthz``,
+  ``/statusz``, ``/varz``, ``/threadz``, ``/memz``, ``/flightz``,
+  ``/goodputz``, ``/profilez``;
+- ``memory`` — per-device allocator memory, host RSS and the live-block
+  census, feeding the registry, the per-step record, and ``/memz``;
+- ``GoodputLedger`` — wall-time accounting into exclusive buckets,
+  persisted to ``goodput.json`` and merged across restarts;
+- ``CaptureEngine`` — anomaly-/straggler-triggered, on-demand and static
+  ``torch.profiler`` windows with a budget and a ``captures.jsonl``
+  manifest;
+- ``mfu_record_fields`` — MFU against the card's published peak, for the
+  NVIDIA kinds it knows.
+
+Every singleton here (the default registry, recorder, ledger, tracer and
+capture engine) is the port's own, distinct from the JAX package's.
+"""
+
+from . import capture, flight_recorder, goodput, memory  # noqa: F401
+from .aggregate import (  # noqa: F401
+    host_aggregate,
+    spread_ratio,
+    straggler_summary,
+)
+from .anomaly import Anomaly, AnomalyDetector  # noqa: F401
+from .capture import CaptureEngine  # noqa: F401
+from .flight_recorder import (  # noqa: F401
+    FlightRecorder,
+    default_recorder,
+    install_recorder,
+    record_event,
+)
+from .goodput import GoodputLedger  # noqa: F401
+from .mfu import mfu_record_fields, peak_flops  # noqa: F401
+from .registry import (  # noqa: F401
+    Counter,
+    Gauge,
+    Histogram,
+    Registry,
+    counter,
+    default_registry,
+    gauge,
+    histogram,
+    set_default_registry,
+)
+from .server import StatusServer  # noqa: F401
+from .tracing import (  # noqa: F401
+    Span,
+    TraceRecorder,
+    active_recorder,
+    current_context,
+    new_trace_id,
+    record_remote_span,
+    remote_span,
+    span,
+)

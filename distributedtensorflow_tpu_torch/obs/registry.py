@@ -1,0 +1,472 @@
+"""Process-local metrics registry: counters, gauges, histograms with labels.
+
+Twin of ``distributedtensorflow_tpu/obs/registry.py`` (``:93-464``),
+framework-free and copied whole: :meth:`Registry.scalars` and the
+Prometheus text are byte for byte what the JAX package writes, so
+``tools/check_metrics_schema.py`` and ``tools/run_report.py`` read the
+port's ``metrics.jsonl`` and ``metrics.prom`` as they read the JAX
+package's.  The port's registry is its own object: a process that imports
+both packages has two.
+
+The reference stack's only metric surface is ``tf.summary`` scalars written
+by whoever holds the writer object.  This registry inverts that: any module
+increments a named metric without plumbing a writer — the exporters pull.
+Two export surfaces:
+
+- :meth:`Registry.scalars` — a flat ``{name: float}`` dict merged into the
+  per-step ``metrics.jsonl`` record by the Trainer (histograms export
+  ``_count`` / ``_sum`` / ``_avg``);
+- :meth:`Registry.to_prometheus` / :meth:`Registry.write_prometheus` — a
+  Prometheus text-format snapshot file (``metrics.prom``) for scrape-style
+  consumption, written atomically (tmp + rename).
+
+Thread-safe: metric objects hold one lock each; the hot path (unlabeled
+``inc``/``set``/``observe``) is a dict update under that lock.  Metric
+handles are cached — call :func:`counter` once and keep the object when
+incrementing from a hot loop.
+
+Label cardinality is guarded: each metric family admits at most
+``max_label_sets`` unique label-sets (default
+:data:`DEFAULT_MAX_LABEL_SETS`); past the cap, NEW label-sets are
+dropped — counted in ``registry_dropped_series_total{metric=...}`` with
+a one-time warning — so a buggy label (a per-request id, say) can no
+longer grow ``/varz``, fleet scrapes, and the history store without
+bound.  Existing series keep updating.
+"""
+
+from __future__ import annotations
+
+import bisect
+import logging
+import math
+import os
+import re
+import threading
+import time
+from typing import Iterable, Mapping
+
+logger = logging.getLogger(__name__)
+
+__all__ = [
+    "DEFAULT_MAX_LABEL_SETS",
+    "Counter",
+    "Gauge",
+    "Histogram",
+    "Registry",
+    "counter",
+    "gauge",
+    "histogram",
+    "default_registry",
+    "set_default_registry",
+]
+
+#: Wall-time-seconds oriented default buckets (spans from ms to minutes).
+DEFAULT_BUCKETS = (
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+    1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
+)
+
+#: Unique label-sets a metric family admits before new ones are dropped.
+DEFAULT_MAX_LABEL_SETS = 1024
+
+#: Where the guard's drops are counted (exempt from its own guard —
+#: its cardinality is bounded by the number of metric NAMES, which is
+#: code-controlled, and an attached drop hook would recurse).
+_DROP_COUNTER = "registry_dropped_series_total"
+
+_NAME_RE = re.compile(r"[^a-zA-Z0-9_:]")
+
+
+def _prom_name(name: str) -> str:
+    return _NAME_RE.sub("_", name)
+
+
+def _label_key(labels: Mapping[str, str]) -> tuple:
+    return tuple(sorted((k, str(v)) for k, v in labels.items()))
+
+
+def _label_suffix(key: tuple) -> str:
+    if not key:
+        return ""
+    return "{" + ",".join(f'{k}="{v}"' for k, v in key) + "}"
+
+
+def _flat_suffix(key: tuple) -> str:
+    """Label suffix safe for jsonl field names / TB tags (no braces)."""
+    if not key:
+        return ""
+    return "." + ".".join(f"{k}_{_NAME_RE.sub('_', v)}" for k, v in key)
+
+
+class _Metric:
+    kind = "untyped"
+
+    def __init__(self, name: str, help: str = ""):
+        self.name = name
+        self.help = help
+        self._lock = threading.Lock()
+        self._values: dict[tuple, float] = {}
+        self.max_label_sets = DEFAULT_MAX_LABEL_SETS
+        self.dropped_series = 0
+        self._warned_cardinality = False
+        self._on_drop = None  # Registry hook: counts the family's drops
+
+    def _items(self) -> list[tuple[tuple, float]]:
+        with self._lock:
+            return list(self._values.items())
+
+    def _admit(self, store: dict, key: tuple) -> bool:
+        """Cardinality guard, called under ``self._lock``: an existing
+        label-set always updates; a new one is admitted only under the
+        cap.  Refusals are tallied here and reported by :meth:`_note_drop`
+        OUTSIDE the lock (the drop counter takes its own lock)."""
+        if key in store or len(store) < self.max_label_sets:
+            return True
+        self.dropped_series += 1
+        return False
+
+    def _note_drop(self) -> None:
+        if not self._warned_cardinality:
+            self._warned_cardinality = True
+            logger.warning(
+                "metric %s: label cardinality cap (%d unique label-sets) "
+                "reached — new series are being DROPPED; a label is "
+                "probably carrying unbounded values (request ids?)",
+                self.name, self.max_label_sets,
+            )
+        if self._on_drop is not None:
+            self._on_drop(self.name)
+
+
+class Counter(_Metric):
+    """Monotonically increasing count (events, batches, anomalies)."""
+
+    kind = "counter"
+
+    def inc(self, n: float = 1.0, **labels) -> None:
+        if n < 0:
+            raise ValueError(f"counter {self.name}: inc({n}) is negative")
+        key = _label_key(labels)
+        with self._lock:
+            ok = self._admit(self._values, key)
+            if ok:
+                self._values[key] = self._values.get(key, 0.0) + n
+        if not ok:
+            self._note_drop()
+
+    def value(self, **labels) -> float:
+        with self._lock:
+            return self._values.get(_label_key(labels), 0.0)
+
+
+class Gauge(_Metric):
+    """Point-in-time value (queue depth, HBM bytes, last step time)."""
+
+    kind = "gauge"
+
+    def set(self, value: float, **labels) -> None:
+        key = _label_key(labels)
+        with self._lock:
+            ok = self._admit(self._values, key)
+            if ok:
+                self._values[key] = float(value)
+        if not ok:
+            self._note_drop()
+
+    def add(self, n: float, **labels) -> None:
+        key = _label_key(labels)
+        with self._lock:
+            ok = self._admit(self._values, key)
+            if ok:
+                self._values[key] = self._values.get(key, 0.0) + n
+        if not ok:
+            self._note_drop()
+
+    def value(self, **labels) -> float:
+        with self._lock:
+            return self._values.get(_label_key(labels), 0.0)
+
+
+class Histogram(_Metric):
+    """Cumulative-bucket histogram (latencies, wait times)."""
+
+    kind = "histogram"
+
+    def __init__(self, name: str, help: str = "",
+                 buckets: Iterable[float] = DEFAULT_BUCKETS):
+        super().__init__(name, help)
+        self.buckets = tuple(sorted(buckets))
+        # per label key: [bucket_counts..., +inf count], sum, count
+        self._hist: dict[tuple, tuple[list[int], float, int]] = {}
+
+    def observe(self, value: float, **labels) -> None:
+        value = float(value)
+        key = _label_key(labels)
+        with self._lock:
+            ok = self._admit(self._hist, key)
+            if ok:
+                counts, total, n = self._hist.get(
+                    key, ([0] * (len(self.buckets) + 1), 0.0, 0)
+                )
+                counts[bisect.bisect_left(self.buckets, value)] += 1
+                self._hist[key] = (counts, total + value, n + 1)
+        if not ok:
+            self._note_drop()
+
+    def stats(self, **labels) -> dict[str, float]:
+        with self._lock:
+            counts, total, n = self._hist.get(
+                _label_key(labels), ([0] * (len(self.buckets) + 1), 0.0, 0)
+            )
+        return {
+            "count": float(n),
+            "sum": total,
+            "avg": total / n if n else 0.0,
+        }
+
+    def quantile(self, q: float, **labels) -> float:
+        """Estimated ``q``-quantile from the cumulative buckets — linear
+        interpolation inside the containing bucket (the PromQL
+        ``histogram_quantile`` estimate, computed registry-side so the
+        ``metrics.prom`` snapshot can carry summary lines without a query
+        engine).  Observations past the last finite bound clamp to it
+        (PromQL's +Inf-bucket behavior); no observations → NaN."""
+        if not 0.0 <= q <= 1.0:
+            raise ValueError(f"quantile {q} outside [0, 1]")
+        with self._lock:
+            counts, _total, n = self._hist.get(
+                _label_key(labels), ([0] * (len(self.buckets) + 1), 0.0, 0)
+            )
+            counts = list(counts)
+        if n == 0:
+            return float("nan")
+        target = q * n
+        cum = 0
+        for i, c in enumerate(counts):
+            prev = cum
+            cum += c
+            if cum >= target and c > 0:
+                if i >= len(self.buckets):  # +Inf bucket: clamp
+                    return self.buckets[-1]
+                lo = self.buckets[i - 1] if i > 0 else 0.0
+                hi = self.buckets[i]
+                return lo + (hi - lo) * (target - prev) / c
+        return self.buckets[-1]
+
+    def count_under(self, bound: float, **labels) -> float:
+        """Estimated observations ``<= bound`` from the cumulative buckets
+        (linear interpolation inside the containing bucket — the inverse of
+        :meth:`quantile`).  The SLO monitor's good-event counter: "requests
+        under the latency objective".  Observations in the +Inf bucket are
+        past every finite bound and count only when ``bound`` is +Inf —
+        a threshold above the last bucket edge is therefore conservative
+        (tail observations read as bad)."""
+        with self._lock:
+            counts, _total, n = self._hist.get(
+                _label_key(labels), ([0] * (len(self.buckets) + 1), 0.0, 0)
+            )
+            counts = list(counts)
+        if n == 0:
+            return 0.0
+        if math.isinf(bound) and bound > 0:
+            return float(n)
+        cum = 0.0
+        for i, c in enumerate(counts[:-1]):
+            hi = self.buckets[i]
+            lo = self.buckets[i - 1] if i > 0 else 0.0
+            if bound >= hi:
+                cum += c
+            elif bound > lo and hi > lo:
+                cum += c * (bound - lo) / (hi - lo)
+                break
+            else:
+                break
+        return cum
+
+    def total_count(self, **labels) -> float:
+        """Total observations (all buckets incl. +Inf) — the SLO
+        monitor's event denominator."""
+        with self._lock:
+            _counts, _total, n = self._hist.get(
+                _label_key(labels), ([0] * (len(self.buckets) + 1), 0.0, 0)
+            )
+        return float(n)
+
+    def _hist_items(self):
+        with self._lock:
+            return [
+                (key, list(counts), total, n)
+                for key, (counts, total, n) in self._hist.items()
+            ]
+
+
+class Registry:
+    """Name → metric map; the exporters read it, any module writes it."""
+
+    def __init__(self, max_label_sets: int = DEFAULT_MAX_LABEL_SETS):
+        self._lock = threading.Lock()
+        self._metrics: dict[str, _Metric] = {}
+        self.max_label_sets = max(int(max_label_sets), 1)
+
+    def _count_drop(self, metric_name: str) -> None:
+        self.counter(
+            _DROP_COUNTER,
+            "series dropped by the per-metric label-cardinality cap",
+        ).inc(metric=metric_name)
+
+    def _get_or_create(self, cls, name: str, help: str, **kwargs):
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is None:
+                m = cls(name, help, **kwargs)
+                m.max_label_sets = self.max_label_sets
+                if name != _DROP_COUNTER:
+                    m._on_drop = self._count_drop
+                self._metrics[name] = m
+            elif not isinstance(m, cls):
+                raise TypeError(
+                    f"metric {name!r} already registered as {m.kind}, "
+                    f"requested {cls.kind}"
+                )
+            return m
+
+    def counter(self, name: str, help: str = "") -> Counter:
+        return self._get_or_create(Counter, name, help)
+
+    def gauge(self, name: str, help: str = "") -> Gauge:
+        return self._get_or_create(Gauge, name, help)
+
+    def histogram(self, name: str, help: str = "",
+                  buckets: Iterable[float] = DEFAULT_BUCKETS) -> Histogram:
+        return self._get_or_create(Histogram, name, help, buckets=buckets)
+
+    def get(self, name: str) -> _Metric | None:
+        """Read-only lookup: the metric registered under ``name``, or None
+        — never creates.  Observers (the SLO monitor) must use this
+        instead of the get-or-create accessors, which would squat the
+        name with the observer's kind and crash the real producer's later
+        registration with a kind mismatch."""
+        with self._lock:
+            return self._metrics.get(name)
+
+    def metrics(self) -> list[_Metric]:
+        with self._lock:
+            return list(self._metrics.values())
+
+    def scalars(self) -> dict[str, float]:
+        """Flat numeric snapshot for the ``metrics.jsonl`` exporter.
+
+        Counters/gauges export under their name (labels flattened into a
+        ``.label_value`` suffix — brace-free so the fields survive jsonl
+        tooling and TensorBoard tags); histograms export ``_count`` /
+        ``_sum`` / ``_avg`` (bucket vectors stay Prometheus-only so jsonl
+        rows don't balloon).
+        """
+        out: dict[str, float] = {}
+        for m in self.metrics():
+            if isinstance(m, Histogram):
+                for key, counts, total, n in m._hist_items():
+                    suffix = _flat_suffix(key)
+                    out[f"{m.name}_count{suffix}"] = float(n)
+                    out[f"{m.name}_sum{suffix}"] = total
+                    out[f"{m.name}_avg{suffix}"] = total / n if n else 0.0
+            else:
+                for key, v in m._items():
+                    out[f"{m.name}{_flat_suffix(key)}"] = v
+        return out
+
+    def to_prometheus(self) -> str:
+        """Prometheus text exposition format (counters get ``_total``-as-is
+        names; histograms emit cumulative ``_bucket{le=...}`` series)."""
+        lines: list[str] = []
+        for m in self.metrics():
+            name = _prom_name(m.name)
+            if m.help:
+                lines.append(f"# HELP {name} {m.help}")
+            lines.append(f"# TYPE {name} {m.kind}")
+            if isinstance(m, Histogram):
+                hist_items = m._hist_items()
+                for key, counts, total, n in hist_items:
+                    labels = dict(key)
+                    cum = 0
+                    for bound, c in zip(m.buckets, counts):
+                        cum += c
+                        lk = _label_key({**labels, "le": repr(bound)})
+                        lines.append(f"{name}_bucket{_label_suffix(lk)} {cum}")
+                    lk = _label_key({**labels, "le": "+Inf"})
+                    lines.append(f"{name}_bucket{_label_suffix(lk)} {n}")
+                    s = _label_suffix(key)
+                    lines.append(f"{name}_sum{s} {_fmt_float(total)}")
+                    lines.append(f"{name}_count{s} {n}")
+                # Summary-style quantile estimates (p50/p95/p99) so a
+                # scrape-less reader of metrics.prom gets tail latency
+                # without running histogram_quantile.  A SIBLING gauge
+                # family, not extra samples under the histogram TYPE:
+                # quantile-labeled samples inside a histogram family are
+                # invalid exposition format and strict parsers
+                # (promtool, expfmt) reject the whole page.
+                lines.append(f"# TYPE {name}_quantile gauge")
+                for key, _counts, _total, _n in hist_items:
+                    labels = dict(key)
+                    for q in (0.5, 0.95, 0.99):
+                        lk = _label_key({**labels, "quantile": repr(q)})
+                        lines.append(
+                            f"{name}_quantile{_label_suffix(lk)} "
+                            f"{_fmt_float(m.quantile(q, **labels))}"
+                        )
+            else:
+                for key, v in m._items():
+                    lines.append(f"{name}{_label_suffix(key)} {_fmt_float(v)}")
+        return "\n".join(lines) + ("\n" if lines else "")
+
+    def write_prometheus(self, path: str) -> None:
+        """Atomic snapshot write (tmp + rename) so a scraper never reads a
+        half-written file."""
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "w") as f:
+            f.write(f"# snapshot_unix_time {time.time():.3f}\n")
+            f.write(self.to_prometheus())
+        os.replace(tmp, path)
+
+
+def _fmt_float(v: float) -> str:
+    if math.isinf(v):
+        return "+Inf" if v > 0 else "-Inf"
+    return repr(v)
+
+
+_default = Registry()
+_default_lock = threading.Lock()
+
+
+def default_registry() -> Registry:
+    return _default
+
+
+def set_default_registry(reg: Registry) -> Registry:
+    """Swap the process-default registry (tests); returns the previous one.
+
+    Scope caveat: instrumented modules resolve their metric handles ONCE —
+    some at import time (checkpoint manager, preemption), some at
+    construction (engine steps, Trainer, watchdog).  Handles already
+    bound keep writing to the registry they were created in; swap before
+    importing/constructing what you want isolated, or pass an explicit
+    ``Registry`` of your own for fully hermetic accounting.
+    """
+    global _default
+    with _default_lock:
+        prev, _default = _default, reg
+    return prev
+
+
+def counter(name: str, help: str = "") -> Counter:
+    return _default.counter(name, help)
+
+
+def gauge(name: str, help: str = "") -> Gauge:
+    return _default.gauge(name, help)
+
+
+def histogram(name: str, help: str = "",
+              buckets: Iterable[float] = DEFAULT_BUCKETS) -> Histogram:
+    return _default.histogram(name, help, buckets=buckets)

@@ -1,0 +1,466 @@
+"""Live introspection HTTP server: point ``curl`` at a wedged run.
+
+Twin of ``distributedtensorflow_tpu/obs/server.py``, framework-free and
+copied whole.  ``/memz`` reads the CUDA caching allocator's host-side
+counters for the devices the process named (``obs.memory``), never the
+handler thread's own current device.
+
+Post-hoc streams answer "what happened"; this answers "what is happening"
+— a stdlib ``http.server`` background thread per host (the */statusz*
+family every production serving stack grows), read-only, no third-party
+deps, safe to leave on for a whole training job:
+
+- ``/healthz`` — liveness JSON (last step, watchdog ping age); HTTP 503
+  once the watchdog has fired, so a pod-level prober can flag the wedged
+  host without parsing anything;
+- ``/statusz`` — human-readable run summary (step, loss, breakdown
+  fractions, straggler info, checkpoint state);
+- ``/varz``   — the metrics registry's live Prometheus snapshot (the
+  file-based ``metrics.prom`` without waiting for a log boundary);
+- ``/threadz`` — all-thread stack dump (the watchdog's post-mortem, on
+  demand while the process is still alive — THE mid-hang artifact);
+- ``/memz``   — per-device memory, host RSS, live-block census JSON;
+- ``/flightz`` — the flight recorder's current ring as a JSON array;
+- ``/goodputz`` — the goodput ledger (wall-time buckets, merged across
+  restarts) when one is installed (``--goodput``);
+- ``/profilez`` — GET: the reactive-profiler (``obs.capture``) state
+  (budget, armed/active window, completed captures); **POST**
+  ``/profilez?steps=N``: arm an on-demand capture of the next N steps —
+  the one write endpoint, so a live run can be profiled without
+  restarting (the capture opens at the next fit-loop step boundary; a
+  hard-stuck loop never reaches one).
+
+Every GET handler is read-only and must not touch the device (no
+collectives, no blocking fetches) — it has to answer precisely when the
+main thread is wedged inside one.  The POST only flips the engine's
+armed flag (no device work on the handler thread).  ``port=0`` binds an
+ephemeral port (tests, multiple hosts per box); the bound port is
+``server.port``.
+
+Exposure: the default bind is loopback — ``/threadz`` stack traces and
+``/flightz`` exception messages leak paths and config, and there is no
+authentication.  Pass ``host="0.0.0.0"`` explicitly (train_torch.py's
+``--status-host``) only on a trusted cluster network where remote
+``curl`` of a wedged host is the point.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import logging
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Callable
+
+logger = logging.getLogger(__name__)
+
+__all__ = ["StatusServer"]
+
+_ENDPOINTS = {
+    "/healthz": "liveness: last step, watchdog ping age (503 after timeout)",
+    "/statusz": "human-readable run summary",
+    "/varz": "Prometheus metrics snapshot (live)",
+    "/threadz": "stack dump of every thread",
+    "/memz": "device memory + host RSS + live-block census",
+    "/flightz": "flight-recorder ring (JSON array)",
+    "/goodputz": "goodput ledger: wall-time buckets across restarts",
+    "/profilez": "reactive profiler: GET state; POST ?steps=N arms a capture",
+}
+
+
+def _render_status(value: Any, indent: str = "") -> list[str]:
+    """dict → aligned ``key: value`` lines (nested dicts indent)."""
+    lines: list[str] = []
+    if not isinstance(value, dict):
+        return [f"{indent}{value}"]
+    width = max((len(str(k)) for k in value), default=0)
+    for k, v in value.items():
+        if isinstance(v, dict):
+            lines.append(f"{indent}{k}:")
+            lines.extend(_render_status(v, indent + "  "))
+        elif isinstance(v, float):
+            lines.append(f"{indent}{str(k):<{width}}  {v:.6g}")
+        else:
+            lines.append(f"{indent}{str(k):<{width}}  {v}")
+    return lines
+
+
+class _Handler(BaseHTTPRequestHandler):
+    # Set per-server via the factory in StatusServer.__init__.
+    server_ref: "StatusServer"
+
+    protocol_version = "HTTP/1.1"
+
+    def log_message(self, fmt, *args):  # request logs stay out of stderr
+        logger.debug("statusz: " + fmt, *args)
+
+    def _reply(self, body: str, *, status: int = 200,
+               content_type: str = "text/plain; charset=utf-8") -> None:
+        data = body.encode("utf-8")
+        self.send_response(status)
+        self.send_header("Content-Type", content_type)
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
+
+    def _reply_json(self, payload: Any, *, status: int = 200) -> None:
+        from ..utils.metrics import json_sanitize  # noqa: PLC0415
+
+        self._reply(
+            json.dumps(json_sanitize(payload), indent=2, allow_nan=False)
+            + "\n",
+            status=status, content_type="application/json",
+        )
+
+    def _reply_routed(self, result) -> None:
+        """Render an extra-route handler's ``(status, payload)`` result:
+        dict/list payloads as JSON, strings as plain text, and any other
+        iterable (a generator of str/bytes chunks) as a chunked-transfer
+        stream — the serving frontend's token streaming rides this."""
+        status, payload = result
+        if isinstance(payload, str):
+            self._reply(payload, status=status)
+        elif hasattr(payload, "__next__"):
+            # an ITERATOR (generator) streams; concrete containers
+            # (dict/list/tuple/set) keep rendering as JSON bodies
+            self._reply_chunked(payload, status=status)
+        else:
+            self._reply_json(payload, status=status)
+
+    def _reply_chunked(self, chunks, *, status: int = 200,
+                       content_type: str = "application/x-ndjson") -> None:
+        """Stream an iterable of str/bytes as HTTP/1.1 chunked transfer.
+
+        Headers go out before the first chunk, so the producer must
+        already have validated the request (the status is committed).  A
+        client that disconnects mid-stream closes the producer (its
+        ``GeneratorExit`` runs) and drops the connection; a producer
+        exception after headers cannot be turned into an error status
+        any more, so the stream is terminated and the connection closed
+        — the outer handler's 500 path never runs after bytes went out."""
+        self.send_response(status)
+        self.send_header("Content-Type", content_type)
+        self.send_header("Transfer-Encoding", "chunked")
+        self.end_headers()
+        try:
+            for chunk in chunks:
+                data = (chunk.encode("utf-8") if isinstance(chunk, str)
+                        else bytes(chunk))
+                if not data:
+                    continue
+                self.wfile.write(
+                    f"{len(data):X}\r\n".encode("ascii") + data + b"\r\n"
+                )
+                self.wfile.flush()
+            self.wfile.write(b"0\r\n\r\n")
+        except OSError:
+            self.close_connection = True  # client went away mid-stream
+        except Exception:
+            logger.exception("streaming route producer failed mid-stream")
+            self.close_connection = True
+        finally:
+            close = getattr(chunks, "close", None)
+            if close is not None:
+                close()
+
+    def do_GET(self) -> None:  # noqa: N802 — http.server contract
+        srv = self.server_ref
+        path, _, query = self.path.partition("?")
+        try:
+            route = srv.route("GET", path)
+            if route is not None:
+                self._reply_routed(route(query))
+            elif path in ("/", "/helpz"):
+                extra = {p: "application endpoint"
+                         for (m, p) in srv.routes if m == "GET"}
+                self._reply(
+                    "distributedtensorflow_tpu_torch introspection server\n\n"
+                    + "\n".join(f"  {p:<10} {d}"
+                                for p, d in {**_ENDPOINTS, **extra}.items())
+                    + "\n"
+                )
+            elif path == "/healthz":
+                from urllib.parse import parse_qs  # noqa: PLC0415
+
+                health = srv.health()
+                if "deep" in parse_qs(query, keep_blank_values=True):
+                    health = srv.deep_health(shallow=health)
+                self._reply_json(
+                    health, status=200 if health.get("ok", True) else 503
+                )
+            elif path == "/statusz":
+                self._reply("\n".join(_render_status(srv.status())) + "\n")
+            elif path == "/varz":
+                self._reply(
+                    srv.registry.to_prometheus(),
+                    content_type="text/plain; version=0.0.4; charset=utf-8",
+                )
+            elif path == "/threadz":
+                from ..utils.watchdog import dump_all_stacks  # noqa: PLC0415
+
+                buf = io.StringIO()
+                dump_all_stacks(file=buf)
+                self._reply(buf.getvalue())
+            elif path == "/memz":
+                from . import memory  # noqa: PLC0415
+
+                self._reply_json(memory.memz())
+            elif path == "/flightz":
+                flight = srv.flight
+                self._reply_json(flight.events() if flight is not None else [])
+            elif path == "/goodputz":
+                ledger = srv.goodput
+                self._reply_json(
+                    ledger.report() if ledger is not None else {}
+                )
+            elif path == "/profilez":
+                engine = srv.capture
+                if engine is None:
+                    self._reply_json(
+                        {"error": "no capture engine installed"}, status=503
+                    )
+                else:
+                    self._reply_json(engine.state())
+            else:
+                self._reply(f"unknown endpoint {path}\n", status=404)
+        except Exception as e:  # a handler bug must not kill the server
+            logger.exception("statusz handler failed for %s", path)
+            try:
+                self._reply(f"internal error: {e!r}\n", status=500)
+            except OSError:
+                pass  # client went away mid-reply
+
+    def do_POST(self) -> None:  # noqa: N802 — http.server contract
+        srv = self.server_ref
+        path, _, query = self.path.partition("?")
+        try:
+            # Read the body so HTTP/1.1 keep-alive stays in sync; built-in
+            # endpoints take parameters from the query string only, extra
+            # routes get the bytes.  An over-limit body is refused whole
+            # with 413 — truncating it would hand routes half a payload
+            # and leave the tail on the socket to be parsed as the next
+            # request.  Moderately-over bodies are drained (so the
+            # client's send completes and reads the 413 cleanly); absurd
+            # claims just drop the connection.
+            length = int(self.headers.get("Content-Length") or 0)
+            if length > (1 << 20):
+                if length <= (8 << 20):
+                    remaining = length
+                    while remaining > 0:
+                        chunk = self.rfile.read(min(remaining, 1 << 16))
+                        if not chunk:
+                            break
+                        remaining -= len(chunk)
+                else:
+                    self.close_connection = True
+                self._reply(f"body too large ({length} bytes > 1 MiB)\n",
+                            status=413)
+                return
+            body = self.rfile.read(length) if length > 0 else b""
+            route = srv.route("POST", path)
+            if route is not None:
+                self._reply_routed(route(query, body))
+                return
+            if path != "/profilez":
+                self._reply(f"POST not supported on {path}\n", status=404)
+                return
+            engine = srv.capture
+            if engine is None:
+                self._reply_json(
+                    {"error": "no capture engine installed"}, status=503
+                )
+                return
+            from urllib.parse import parse_qs  # noqa: PLC0415
+
+            params = parse_qs(query)
+            steps = None
+            if "steps" in params:
+                try:
+                    steps = int(params["steps"][0])
+                except ValueError:
+                    self._reply_json(
+                        {"error": f"bad steps={params['steps'][0]!r}"},
+                        status=400,
+                    )
+                    return
+                if steps < 1:
+                    self._reply_json(
+                        {"error": f"steps must be >= 1, got {steps}"},
+                        status=400,
+                    )
+                    return
+            # Manual captures skip the cooldown (a human asked) but still
+            # count against the per-run budget.
+            accepted, why = engine.request(
+                "manual", steps=steps, reason=f"POST /profilez from "
+                f"{self.client_address[0]}", cooldown=False,
+            )
+            self._reply_json(
+                {"accepted": accepted, "reason": why,
+                 "state": engine.state()},
+                status=200 if accepted else 409,
+            )
+        except Exception as e:  # a handler bug must not kill the server
+            logger.exception("statusz POST handler failed for %s", path)
+            try:
+                self._reply(f"internal error: {e!r}\n", status=500)
+            except OSError:
+                pass  # client went away mid-reply
+
+
+class StatusServer:
+    """Background-thread HTTP server exposing the introspection endpoints.
+
+    All sources are optional: ``registry`` defaults to the process
+    registry, ``flight`` to the process-default flight recorder at serve
+    time, ``status_fn``/``health_fn`` to minimal uptime payloads.  The
+    supplied callables run on handler threads — they must be thread-safe
+    and must never block on the device.
+    """
+
+    def __init__(
+        self,
+        port: int = 0,
+        *,
+        host: str = "127.0.0.1",
+        registry=None,
+        flight=None,
+        capture=None,
+        status_fn: Callable[[], dict] | None = None,
+        health_fn: Callable[[], dict] | None = None,
+        deep_health_fn: Callable[[], dict] | None = None,
+        routes: dict | None = None,
+    ):
+        from . import registry as reglib  # noqa: PLC0415
+
+        self._registry = registry or reglib.default_registry()
+        self._flight = flight
+        self._capture = capture
+        self._status_fn = status_fn
+        self._health_fn = health_fn
+        #: ``GET /healthz?deep=1`` verdict source: ``fn() -> dict`` with an
+        #: ``ok`` bool plus whatever component detail it wants to expose
+        #: (see :func:`obs.alerts.compose_deep_health`).  Assignable after
+        #: construction — entry points compose it once every subsystem
+        #: (alerts, SLO monitor, engine) exists.
+        self.deep_health_fn = deep_health_fn
+        #: Extra application endpoints: ``{("GET"|"POST", path): handler}``
+        #: where a GET handler is ``fn(query) -> (status, payload)`` and a
+        #: POST handler ``fn(query, body_bytes) -> (status, payload)``
+        #: (payload: dict/list → JSON, str → text/plain).  Handlers run on
+        #: HTTP threads — same thread-safety contract as status_fn; unlike
+        #: the built-ins they MAY block (the serving frontend's POST
+        #: /generatez waits for generation), each request has its own
+        #: thread.  Built-in endpoints win on collision.
+        self.routes = dict(routes or {})
+        self._t0 = time.time()
+        handler = type("_BoundHandler", (_Handler,), {"server_ref": self})
+        self._httpd = ThreadingHTTPServer((host, port), handler)
+        self._httpd.daemon_threads = True
+        self.port: int = self._httpd.server_address[1]
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, name="dtf-statusz", daemon=True
+        )
+        self._started = False
+
+    # -- sources (read by the handler) ---------------------------------------
+
+    def route(self, method: str, path: str) -> Callable | None:
+        """Extra-route lookup; built-in endpoints always win on collision
+        (an application route can never shadow /healthz & co, nor the
+        index pages)."""
+        if path in _ENDPOINTS or path in ("/", "/helpz"):
+            return None
+        return self.routes.get((method, path))
+
+    @property
+    def registry(self):
+        return self._registry
+
+    @property
+    def flight(self):
+        if self._flight is not None:
+            return self._flight
+        from . import flight_recorder  # noqa: PLC0415
+
+        return flight_recorder.default_recorder()
+
+    @property
+    def goodput(self):
+        from . import goodput as goodput_mod  # noqa: PLC0415
+
+        return goodput_mod.default_ledger()
+
+    @property
+    def capture(self):
+        if self._capture is not None:
+            return self._capture
+        from . import capture as capture_mod  # noqa: PLC0415
+
+        return capture_mod.default_engine()
+
+    def status(self) -> dict:
+        base = {"uptime_s": round(time.time() - self._t0, 1)}
+        if self._status_fn is not None:
+            base.update(self._status_fn())
+        return base
+
+    def health(self) -> dict:
+        base: dict = {"ok": True,
+                      "uptime_s": round(time.time() - self._t0, 1)}
+        if self._health_fn is not None:
+            base.update(self._health_fn())
+        return base
+
+    def deep_health(self, shallow: dict | None = None) -> dict:
+        """The composed ``?deep=1`` verdict: the shallow health payload
+        plus ``deep_health_fn``'s component breakdown, ``ok`` ANDed
+        across both — so a router polling one endpoint sees liveness and
+        the named failing component together.  Without a
+        ``deep_health_fn`` the shallow verdict stands (``deep: false``
+        marks the downgrade)."""
+        base = dict(shallow if shallow is not None else self.health())
+        if self.deep_health_fn is None:
+            base["deep"] = False
+            return base
+        try:
+            verdict = dict(self.deep_health_fn())
+        except Exception as e:  # a probe bug reads as unhealthy, loudly
+            logger.exception("deep health verdict failed")
+            verdict = {"ok": False, "failing": ["deep_health_fn"],
+                       "error": repr(e)}
+        ok = bool(base.get("ok", True)) and bool(verdict.pop("ok", True))
+        base.update(verdict)
+        base["ok"] = ok
+        base["deep"] = True
+        return base
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def start(self) -> "StatusServer":
+        if not self._started:
+            self._started = True
+            self._thread.start()
+            logger.info("introspection server listening on port %d "
+                        "(/healthz /statusz /varz /threadz /memz /flightz "
+                        "/profilez)",
+                        self.port)
+        return self
+
+    def stop(self) -> None:
+        """Idempotent shutdown; joins the serve thread."""
+        if self._started:
+            self._started = False
+            self._httpd.shutdown()
+            self._thread.join(timeout=5)
+        self._httpd.server_close()
+
+    close = stop
+
+    def __enter__(self) -> "StatusServer":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()

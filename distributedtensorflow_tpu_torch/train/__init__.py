@@ -1,4 +1,5 @@
-"""Training step of the port: state, optimizer, step engine, losses."""
+"""Training of the port: state, optimizer, step engine, losses and the
+Trainer's fit loop."""
 
 from .engine import (  # noqa: F401
     accumulate_gradients,
@@ -19,3 +20,10 @@ from .optimizers import (  # noqa: F401
     warmup_cosine_decay_schedule,
 )
 from .state import TrainState  # noqa: F401
+from .trainer import (  # noqa: F401
+    Callback,
+    Trainer,
+    TrainerConfig,
+    device_memory_stats,
+    weighted_evaluate,
+)

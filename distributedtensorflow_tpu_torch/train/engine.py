@@ -9,6 +9,14 @@ batch; here each rank of a data-parallel mesh runs the step eagerly on
 its share of the batch, and the step is built so that the sum over the
 ranks is JAX's step on the global batch (:func:`accumulate_gradients_dp`).
 
+Both steps come wrapped in the engine's first-dispatch instrument
+(``engine.py:136-170``): every call counts into
+``engine_dispatches_total{kind}``, and the first one, which on the card
+pays the kernels' first load, cuBLAS's start-up and the step itself, is
+the ``compile_<kind>`` span (the goodput ledger's ``compile`` bucket),
+the ``engine_first_dispatch_s{kind}`` gauge and the ``compile_begin`` /
+``compile`` flight events.
+
 Loss-function contract: ``loss_fn(batch, generator) -> (loss, metrics)``
 with ``batch`` a dict of (B, ...) tensors, ``generator`` a CPU
 ``torch.Generator`` for dropout, ``loss`` a scalar tensor and
@@ -21,9 +29,12 @@ the JAX scan threads ``model_state`` through them.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
+from .. import obs
 from ..parallel import collectives
 from ..parallel.mesh import replica_index
 from .state import TrainState
@@ -135,6 +146,46 @@ def accumulate_gradients_dp(loss_fn, model: torch.nn.Module, batch: dict,
                     accum_steps)
 
 
+class _InstrumentedStep:
+    """Thin telemetry shim over a step function: counts dispatches into
+    the registry and records the first one (its wall time, flight markers
+    and ``compile_<label>`` span) without touching the later dispatches
+    beyond one counter increment."""
+
+    __slots__ = ("_fn", "_label", "_first", "_dispatches", "_first_gauge")
+
+    def __init__(self, fn, label: str):
+        self._fn = fn
+        self._label = label
+        self._first = True
+        self._dispatches = obs.counter(
+            "engine_dispatches_total",
+            "train/eval step dispatches by executable kind",
+        )
+        self._first_gauge = obs.gauge(
+            "engine_first_dispatch_s",
+            "wall seconds of the first dispatch (kernel loads + run)",
+        )
+
+    def __call__(self, *args):
+        if self._first:
+            self._first = False
+            # the begin marker lands BEFORE the call that may wedge: a ring
+            # ending in compile_begin names a hang in the first dispatch
+            obs.record_event("compile_begin", label=self._label)
+            with obs.span(f"compile_{self._label}"):
+                t0 = time.perf_counter()
+                out = self._fn(*args)
+                dur = time.perf_counter() - t0
+                self._first_gauge.set(dur, kind=self._label)
+            obs.record_event("compile", label=self._label,
+                             seconds=round(dur, 3))
+            self._dispatches.inc(kind=self._label)
+            return out
+        self._dispatches.inc(kind=self._label)
+        return self._fn(*args)
+
+
 def make_train_step(loss_fn, *, accum_steps: int = 1, seed: int = 0,
                     mesh=None):
     """``step(state, batch) -> (state, metrics)``: gradients of
@@ -155,14 +206,28 @@ def make_train_step(loss_fn, *, accum_steps: int = 1, seed: int = 0,
                 step=state.step, accum_steps=accum_steps)
         return state.apply_gradients(grads), metrics
 
-    return step
+    return _InstrumentedStep(step, "train_step")
 
 
-def make_eval_step(metric_fn):
+def make_eval_step(metric_fn, mesh=None):
     """``eval_step(state, batch) -> metrics`` for a ``metric_fn(batch)``
-    over the state's model (``lm_eval`` runs without autograd)."""
+    over the state's model (the eval functions run without autograd).
+
+    With a ``mesh``, ``metric_fn`` was built for it (the workloads'
+    ``eval_fn(model, group=mesh)``): ``batch`` is this rank's share of the
+    global eval batch and ``metric_fn`` returns this rank's shares of the
+    global means, numerators over its rows and denominators over every
+    rank's, as the train step's losses are.  One all-reduce a batch sums
+    the shares, and ``log_<name>`` becomes ``<name> = exp(sum)``, so the
+    metrics are those of JAX's eval step on the global batch."""
 
     def eval_step(state: TrainState, batch: dict):
-        return metric_fn(batch)
+        metrics = metric_fn(batch)
+        if mesh is None:
+            return metrics
+        keys = list(metrics)
+        table = collectives.all_reduce(
+            torch.stack([metrics[k].float() for k in keys]), mesh)
+        return _finalize(dict(zip(keys, table)))
 
-    return eval_step
+    return _InstrumentedStep(eval_step, "eval_step")

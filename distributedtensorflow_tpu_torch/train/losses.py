@@ -45,10 +45,13 @@ def classification_loss(model, *, weight_decay: float = 0.0,
 
 
 def classification_eval(model, *, inputs_key: str = "image",
-                        labels_key: str = "label", top5: bool = False):
+                        labels_key: str = "label", top5: bool = False,
+                        group=None):
     """``metric_fn(batch) -> {"loss", "accuracy"[, "top5_accuracy"]}``:
     the running statistics, no update, no autograd.  ``top5`` adds the
-    share of rows whose label is among the five largest logits."""
+    share of rows whose label is among the five largest logits.  Over a
+    data-parallel ``group`` (or mesh) each metric is this rank's share of
+    the global mean (``train.engine.make_eval_step`` sums them)."""
 
     def metric_fn(batch):
         with torch.no_grad():
@@ -60,6 +63,9 @@ def classification_eval(model, *, inputs_key: str = "image",
             top = logits.topk(min(5, logits.shape[-1]), dim=-1).indices
             metrics["top5_accuracy"] = (
                 (top == labels[:, None]).any(-1).float().mean())
+        if group is not None:
+            share = share_of_mean(labels.shape[0], group)
+            metrics = {k: v * share for k, v in metrics.items()}
         return metrics
 
     return metric_fn

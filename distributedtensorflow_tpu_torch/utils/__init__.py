@@ -7,6 +7,8 @@ from .profiler import (  # noqa: F401
     annotate,
     named_scope,
     save_device_memory_profile,
+    start_trace,
+    stop_trace,
     trace,
 )
 from .watchdog import Watchdog, dump_all_stacks  # noqa: F401

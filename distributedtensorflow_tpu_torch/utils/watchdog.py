@@ -2,9 +2,13 @@
 
 Twin of ``distributedtensorflow_tpu/utils/watchdog.py`` (``:41-170``).
 One wedged rank stalls every collective of the job, and the most useful
-record of such a hang is where every thread was when it stalled.  JAX's
-registry gauge, counter and flight-recorder dump are left out until the
-port has ``obs`` (ROADMAP.md).
+record of such a hang is where every thread was when it stalled.  The
+watchdog exports ``watchdog_ping_age_seconds`` (gauge, refreshed every
+poll: the ``/healthz`` liveness signal) and ``watchdog_timeouts_total``
+(counter) into the ``obs`` registry, and on timeout appends a
+``watchdog_timeout`` event (with the stack dump) to the flight recorder
+and dumps its ring to ``flight.jsonl``.  The Trainer pings on dispatch:
+the host returns from a step before the card ends it.
 
 Usage::
 
@@ -54,15 +58,28 @@ class Watchdog:
 
     def __init__(self, timeout: float = 300.0, *,
                  on_timeout: Callable[[], None] | None = None,
-                 fatal: bool = False, poll_interval: float | None = None):
+                 fatal: bool = False, poll_interval: float | None = None,
+                 flight_recorder=None):
         self.timeout = timeout
         self._on_timeout = on_timeout
         self._fatal = fatal
+        #: Explicit flight recorder; None falls back to the process default
+        #: at fire time (``obs.flight_recorder.install_recorder``).
+        self._flight = flight_recorder
         self._last = time.monotonic()
         self._fired = False
         self._stop = threading.Event()
         self._poll = poll_interval if poll_interval is not None \
             else min(timeout / 4, 5.0)
+        # imported here: obs imports utils, and utils imports this module
+        from ..obs import registry  # noqa: PLC0415
+
+        self._ping_age_gauge = registry.gauge(
+            "watchdog_ping_age_seconds",
+            "seconds since the last progress ping (refreshed every poll)")
+        self._timeouts_counter = registry.counter(
+            "watchdog_timeouts_total", "watchdog stall firings")
+        self._ping_age_gauge.set(0.0)
         self._thread = threading.Thread(target=self._run, name="dtf-watchdog",
                                         daemon=True)
         self._thread.start()
@@ -71,6 +88,7 @@ class Watchdog:
         """Record progress; resets the timeout clock."""
         self._last = time.monotonic()
         self._fired = False
+        self._ping_age_gauge.set(0.0)
 
     def ping_age(self) -> float:
         """Seconds since the last ping."""
@@ -83,12 +101,14 @@ class Watchdog:
     def _run(self) -> None:
         while not self._stop.wait(self._poll):
             idle = time.monotonic() - self._last
+            self._ping_age_gauge.set(idle)
             if self._fired or idle < self.timeout:
                 continue
             self._fired = True
+            self._timeouts_counter.inc()
             logger.error("watchdog: no progress for %.0fs (timeout %.0fs); "
                          "dumping all thread stacks", idle, self.timeout)
-            dump_all_stacks()
+            self._record_flight(idle, dump_all_stacks())
             if self._on_timeout is not None:
                 try:
                     self._on_timeout()
@@ -97,6 +117,20 @@ class Watchdog:
             if self._fatal:
                 faulthandler.dump_traceback()
                 os.abort()
+
+    def _record_flight(self, idle: float, stacks: str) -> None:
+        """Append the stall to the flight ring and persist it."""
+        from ..obs import flight_recorder  # noqa: PLC0415
+
+        flight = self._flight or flight_recorder.default_recorder()
+        if flight is None:
+            return
+        try:
+            flight.record("watchdog_timeout", idle_s=round(idle, 3),
+                          timeout_s=self.timeout, stacks=stacks)
+            flight.dump(reason="watchdog_timeout")
+        except Exception:
+            logger.exception("watchdog flight-recorder dump failed")
 
     def stop(self) -> None:
         self._stop.set()

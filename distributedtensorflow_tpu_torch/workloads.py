@@ -174,8 +174,10 @@ class Workload:
     #: metrics)``; with a data-parallel group (or mesh) the loss and
     #: metrics are this rank's shares (``train.engine``)
     loss_fn: Callable[..., Callable]
-    #: model -> ``metric_fn(batch) -> metrics``
-    eval_fn: Callable[[torch.nn.Module], Callable]
+    #: ``(model, group=None) -> metric_fn(batch) -> metrics``; with a
+    #: data-parallel group (or mesh) the metrics are this rank's shares
+    #: (``train.engine.make_eval_step``)
+    eval_fn: Callable[..., Callable]
     #: parameters -> optimizer
     make_optimizer: Callable
     #: ``(ctx, seed) -> iterator of numpy batches``
@@ -227,7 +229,8 @@ def _baseline(name: str, *, test_size: bool, global_batch_size: int | None,
             global_batch_size=global_batch_size or 1024,
             loss_fn=lambda m, group=None: classification_loss(
                 m, weight_decay=1e-4, group=group),
-            eval_fn=lambda m: classification_eval(m, top5=True),
+            eval_fn=lambda m, group=None: classification_eval(
+                m, top5=True, group=group),
             make_optimizer=lambda params: sgd(
                 params, warmup_cosine_decay_schedule(0.0, 0.8, 1563,
                                                      112_590),
@@ -247,7 +250,8 @@ def _baseline(name: str, *, test_size: bool, global_batch_size: int | None,
             global_batch_size=global_batch_size or 256,
             loss_fn=lambda m, group=None: mlm_loss(m, max_predictions=p,
                                                    group=group),
-            eval_fn=lambda m: mlm_eval(m, max_predictions=p),
+            eval_fn=lambda m, group=None: mlm_eval(m, max_predictions=p,
+                                                   group=group),
             make_optimizer=lambda params: adamw(params, 1e-4,
                                                 weight_decay=0.01),
             input_fn=lambda ctx, seed: source(

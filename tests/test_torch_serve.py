@@ -293,7 +293,7 @@ def test_engine_thread_serves_and_stops(served):
 # ----------------------------------------------------- import and device rules
 
 _BANNED = {"jax", "flax", "optax", "orbax", "safetensors",
-           "distributedtensorflow_tpu"}
+           "distributedtensorflow_tpu", "bench", "bench_probe"}
 
 
 def _imports(path):
@@ -323,7 +323,11 @@ def test_port_imports_no_jax():
     port = ROOT / "distributedtensorflow_tpu_torch"
     for sub in ("checkpoint/integrity.py", "checkpoint/manager.py",
                 "checkpoint/preemption.py", "utils/determinism.py",
-                "utils/watchdog.py", "utils/profiler.py"):
+                "utils/watchdog.py", "utils/profiler.py",
+                "train/trainer.py", "obs/__init__.py", "obs/registry.py",
+                "obs/tracing.py", "obs/anomaly.py", "obs/flight_recorder.py",
+                "obs/goodput.py", "obs/aggregate.py", "obs/mfu.py",
+                "obs/memory.py", "obs/capture.py", "obs/server.py"):
         assert port / sub in files
     found = {str(f.relative_to(ROOT)): sorted(set(_imports(f)) & _BANNED)
              for f in files}

@@ -606,8 +606,8 @@ def test_build_optimizer_validation_and_queued_optimizers():
 
 
 def test_train_torch_logdir_passes_the_metrics_schema(tmp_path, capsys):
-    """``--logdir`` writes ``metrics.jsonl`` rows with train.py's keys
-    (with an eval row and an optimizer override), and
+    """``--logdir`` writes ``metrics.jsonl`` rows with the keys of
+    train.py's Trainer (with an eval row and an optimizer override), and
     ``tools/check_metrics_schema`` finds no error in them; the override
     flags refuse what train.py refuses."""
     from tools import check_metrics_schema
@@ -624,10 +624,14 @@ def test_train_torch_logdir_passes_the_metrics_schema(tmp_path, capsys):
     errors, _ = check_metrics_schema.check_file(str(path))
     assert errors == []
     rows = [json.loads(x) for x in path.read_text().splitlines()]
-    assert [set(r) for r in rows] == [
-        {"step", "loss", "perplexity", "steps_per_sec", "examples_per_sec",
-         "examples_per_sec_per_chip"}] * 2 + [
-        {"step", "eval_loss", "eval_perplexity"}]
+    train_keys = {
+        "step", "loss", "perplexity", "steps_per_sec", "examples_per_sec",
+        "examples_per_sec_per_chip", "t_step", "t_data", "t_dispatch",
+        "t_host", "f_data", "f_dispatch", "f_host", "host_rss_gib",
+        "live_arrays", "live_arrays_gib", "params_bytes_per_device",
+        "opt_state_bytes_per_device", "engine_dispatches_total.kind_train_step"}
+    assert [train_keys <= set(r) for r in rows[:2]] == [True, True]
+    assert set(rows[2]) == {"step", "eval_loss", "eval_perplexity"}
     assert [r["step"] for r in rows] == [1, 2, 2]
     capsys.readouterr()
     for argv, match in ((["--lr", "0.1"], "--lr requires --optimizer"),

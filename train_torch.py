@@ -32,18 +32,33 @@ cluster without ``--mesh``, which takes ``data=-1``) trains the global
 batch ``--batch-size`` as JAX's step over a mesh would: each rank reads
 its own input pipeline (seed + rank), holds its share of every
 microbatch, and the ranks sum their gradients once a step.  Only the
-chief prints and writes ``metrics.jsonl``.  ``--eval-every`` runs on one
-process only.
+chief prints and writes ``metrics.jsonl``.  ``--eval-every`` evaluates
+over the ranks as well: each reads its share of the global eval batch
+and the metrics are the global batch's.
 
-Prints one JSON line per log step: ``step``, ``loss``, ``perplexity``
-(the language models), ``step_ms`` (mean wall time of the steps since
-the last line, each ending when its loss reaches the host),
+The loop is ``train.Trainer.fit``, as ``train.py``'s: the host runs ahead
+of the card and reads the step's metrics back at log steps only (a log
+step is a multiple of ``--log-every``, or the last step).  Prints one JSON
+line per log step: ``step``, ``loss``, ``perplexity`` (the language
+models), ``step_ms`` (wall time a step since the last line),
 ``examples_per_sec`` and, where the preset has a sequence length (GPT,
 BERT), ``tokens_per_sec``.  With ``--logdir`` it also appends
-``metrics.jsonl`` rows with the keys ``train.py``'s trainer writes
-(``loss``, the preset's metrics, ``steps_per_sec``,
-``examples_per_sec``, ``examples_per_sec_per_chip``; ``eval_*`` with
-``--eval-every``), which ``tools/check_metrics_schema.py`` accepts.
+``metrics.jsonl`` rows with the Trainer's keys (the loss and the preset's
+metrics, the rates, the span breakdown ``t_step``/``t_data``/
+``t_dispatch``/``t_host`` with their ``f_*`` shares, device and host
+memory, the registry's counters; ``eval_*`` with ``--eval-every``), the
+span trees (``trace.jsonl``) and a Prometheus snapshot
+(``metrics.prom``), which ``tools/check_metrics_schema.py`` accepts.
+Telemetry (``train.py``'s flags): ``--flight-recorder``
+(``flight.jsonl``), ``--goodput`` (``goodput.json``), ``--status-port``
+(``/healthz /statusz /varz /threadz /memz /flightz /goodputz
+/profilez``), ``--profile-dir`` and ``--auto-profile`` (``torch.profiler``
+windows), ``--target-metric`` (the accuracy gate), ``--flops-per-step``
+or ``--estimate-flops`` (the ``mfu`` field)::
+
+    python train_torch.py --workload mnist_lenet --test-size --device cpu \
+        --steps 60 --eval-every 20 --target-metric accuracy \
+        --target-value 0.5 --logdir /tmp/r --flight-recorder --goodput
 
 Checkpoints (``train.py``'s flags): with ``--checkpoint-dir`` the run
 restores the newest verified checkpoint there (logging ``restored
@@ -52,9 +67,9 @@ saved run consumed (``fast-forwarding input N batches``) and trains on to
 ``--steps`` in all, so the same command reruns a cut run to its end.  It
 saves every ``--checkpoint-every`` steps (asynchronously) and at the end,
 and on SIGTERM saves at the next step boundary and exits with status 0.
-``--watchdog-timeout`` dumps every thread's stack when no step ends for
-that many seconds; ``--deterministic`` pins the CUDA arithmetic
-(``utils.enable_determinism``)::
+``--watchdog-timeout`` dumps every thread's stack when no step is
+dispatched for that many seconds; ``--deterministic`` pins the CUDA
+arithmetic (``utils.enable_determinism``)::
 
     python train_torch.py --workload gpt_lm --test-size --device cpu \
         --steps 4 --checkpoint-dir /tmp/ck --checkpoint-every 2
@@ -68,17 +83,17 @@ import argparse
 import dataclasses
 import json
 import logging
+import os
 import sys
-import time
 
 import torch
 
+from distributedtensorflow_tpu_torch import obs
 from distributedtensorflow_tpu_torch.checkpoint import (
     CheckpointManager,
     PreemptionHandler,
 )
 from distributedtensorflow_tpu_torch.data import (
-    InputContext,
     current_input_context,
     device_put_batch,
     skip_batches,
@@ -92,6 +107,9 @@ from distributedtensorflow_tpu_torch.parallel.mesh import (
     replica_count,
 )
 from distributedtensorflow_tpu_torch.train import (
+    Callback,
+    Trainer,
+    TrainerConfig,
     TrainState,
     make_eval_step,
     make_train_step,
@@ -103,12 +121,7 @@ from distributedtensorflow_tpu_torch.train.optimizers import (
     build_schedule,
     exclude_bias_and_norm_mask,
 )
-from distributedtensorflow_tpu_torch.utils import (
-    MetricWriter,
-    ThroughputMeter,
-    Watchdog,
-    enable_determinism,
-)
+from distributedtensorflow_tpu_torch.utils import enable_determinism
 from distributedtensorflow_tpu_torch.workloads import WORKLOADS, get_workload
 
 logger = logging.getLogger("train_torch")
@@ -169,8 +182,79 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=20)
     p.add_argument("--eval-every", type=int, default=0)
+    p.add_argument("--target-metric", default=None,
+                   help="stop when this eval metric reaches --target-value "
+                        "(the reference's accuracy-parity gate)")
+    p.add_argument("--target-value", type=float, default=None)
+    p.add_argument("--target-mode", choices=("max", "min"), default="max",
+                   help="'max': stop when metric >= value; 'min': <= (losses)")
     p.add_argument("--logdir", default=None,
-                   help="append metrics.jsonl rows here")
+                   help="write metrics.jsonl, trace.jsonl, metrics.prom "
+                        "(and flight.jsonl, goodput.json, captures/) here")
+    p.add_argument("--profile-dir", default=None,
+                   help="capture a torch.profiler trace of a few steps here")
+    p.add_argument("--profile-start", type=int, default=10,
+                   help="steps into this run before the trace window opens")
+    p.add_argument("--profile-steps", type=int, default=5,
+                   help="number of steps to trace (also the window length "
+                        "of --auto-profile and POST /profilez captures)")
+    p.add_argument("--auto-profile", action="store_true",
+                   help="reactive profiling: capture a torch.profiler "
+                        "window of the next --profile-steps steps the "
+                        "moment the anomaly detector flags a step-time "
+                        "regression (or, over ranks, the t_step spread "
+                        "blows up); captures land in <logdir>/captures/"
+                        "<id>/ with a manifest row in <logdir>/"
+                        "captures.jsonl")
+    p.add_argument("--max-captures", type=int, default=8,
+                   help="per-run budget of reactive/on-demand profiler "
+                        "captures (--auto-profile, POST /profilez); the "
+                        "static --profile-dir window is exempt")
+    p.add_argument("--capture-cooldown", type=float, default=120.0,
+                   help="seconds between triggered captures (POST "
+                        "/profilez skips it)")
+    p.add_argument("--status-port", type=int, default=None, metavar="PORT",
+                   help="start the live introspection HTTP server on this "
+                        "port (0 = ephemeral; a fixed port is offset by "
+                        "the rank): /healthz /statusz /varz /threadz /memz "
+                        "/flightz /goodputz /profilez")
+    p.add_argument("--status-host", default="127.0.0.1", metavar="ADDR",
+                   help="bind address for --status-port; the loopback "
+                        "default keeps /threadz stacks private — set "
+                        "0.0.0.0 only on a trusted cluster network")
+    p.add_argument("--flight-recorder", action="store_true",
+                   help="record a bounded ring of structured events (step/"
+                        "checkpoint/anomaly/preemption/compile markers), "
+                        "dumped to <logdir>/flight.jsonl on watchdog "
+                        "timeout, crash, anomaly, preemption, and exit")
+    p.add_argument("--goodput", action="store_true",
+                   help="account every wall-second of the run into exclusive"
+                        " goodput buckets (init/compile/train_step/data_wait/"
+                        "checkpoint/eval/lost_work/...), persisted to "
+                        "<logdir>/goodput.json and MERGED across restarts; "
+                        "surfaces goodput_fraction in the registry and "
+                        "/goodputz on --status-port")
+    p.add_argument("--flops-per-step", type=float, default=0.0,
+                   help="this device's model FLOPs per optimizer step "
+                        "(analytic 6 N D-style, a multiply-add as 2); "
+                        "enables the mfu fields in metrics.jsonl on a card "
+                        "of a known kind")
+    p.add_argument("--estimate-flops", choices=("auto", "on", "off"),
+                   default="auto",
+                   help="estimate --flops-per-step: the GPT presets by the "
+                        "closed form 6 N + 6 L S E a token (PERF.md section "
+                        "2; auto and on), the other presets by "
+                        "torch.utils.flop_counter's count of the first "
+                        "step (on only: the counter sees PyTorch's "
+                        "operators, not the hand-written CUDA kernels, so "
+                        "on the card it leaves out the flash-attention and "
+                        "LayerNorm work)")
+    p.add_argument("--no-trace", action="store_true",
+                   help="disable span tracing (trace.jsonl + the per-step "
+                        "t_data/t_dispatch/t_host breakdown fields)")
+    p.add_argument("--no-anomaly-detection", action="store_true",
+                   help="disable the streaming anomaly detector (NaN loss, "
+                        "loss spikes, step-time regression)")
     p.add_argument("--checkpoint-dir", default=None,
                    help="save here, and resume from the newest verified "
                         "checkpoint here")
@@ -178,7 +262,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="save every N steps (0: at the end and on "
                         "preemption only)")
     p.add_argument("--watchdog-timeout", type=float, default=0.0,
-                   help="dump all stacks if no step completes for N seconds")
+                   help="dump all stacks if no step is dispatched for N "
+                        "seconds")
     p.add_argument("--deterministic", action="store_true",
                    help="deterministic CUDA algorithms, cuBLAS workspace "
                         "and cuDNN, TF32 off: a rerun repeats bit for bit")
@@ -298,30 +383,110 @@ def build(args: argparse.Namespace, checkpointer=None):
     return wl, state, step, batches
 
 
-def evaluate(wl, state, args) -> dict[str, float]:
-    """Mean of the eval metrics over :data:`EVAL_STEPS` batches of the
-    eval stream (seed + 999, as ``train.py`` draws it)."""
-    eval_step = make_eval_step(wl.eval_fn(state.model))
-    ctx = InputContext(global_batch_size=wl.global_batch_size)
-    source = _device_batches(wl.input_fn(ctx, args.seed + 999),
-                             state.model.device)
-    sums: dict[str, float] = {}
-    for _ in range(EVAL_STEPS):
-        for k, v in eval_step(state, next(source)).items():
-            sums[k] = sums.get(k, 0.0) + float(v)
-    return {k: v / EVAL_STEPS for k, v in sums.items()}
+def flops_per_token(model, cfg, seq) -> tuple[float, str]:
+    """A GPT preset's model flops per token, 6 N + 6 L S E (PERF.md
+    section 2; a multiply-add as 2), and how N was counted.  In an MoE
+    model a token runs only the experts it is routed to, so of the
+    experts' parameters N counts the router's assignments per token over
+    the number of experts (2 of 8 at top-2)."""
+    n = sum(p.numel() for p in model.parameters())
+    n_experts = sum(p.numel() for name, p in model.named_parameters()
+                    if ".experts_" in name)
+    how = "N all parameters, the tied table once"
+    if n_experts:
+        from distributedtensorflow_tpu_torch.parallel import moe
+        active = moe._ASSIGNMENTS[cfg.router] / cfg.n_experts
+        n -= n_experts * (1.0 - active)
+        how = (f"N all parameters less the experts a token skips: "
+               f"{n_experts} expert parameters x {1.0 - active}")
+    return 6 * n + 6 * cfg.num_layers * seq * cfg.hidden_size, how
+
+
+def _counting_first_step(step, config: TrainerConfig):
+    """``step`` whose first call runs under ``torch.utils.flop_counter``
+    and sets ``config.flops_per_step`` to what it counted."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    first = [True]
+
+    def counted(state, batch):
+        if not first[0]:
+            return step(state, batch)
+        first[0] = False
+        with FlopCounterMode(display=False) as counter:
+            out = step(state, batch)
+        config.flops_per_step = float(counter.get_total_flops())
+        logger.info("mfu: flop counter counts %.4g FLOPs in the first step",
+                    config.flops_per_step)
+        return out
+
+    return counted
+
+
+class _PrintRecords(Callback):
+    """train_torch's one JSON line a log step (printed by the chief), from
+    the Trainer's record, gathered into ``records``."""
+
+    def __init__(self, wl, chief: bool):
+        self.wl, self.chief, self.records = wl, chief, []
+
+    def on_log(self, trainer, step, record):
+        step_s = record["t_step"]
+        rec = {"step": step, "loss": record["loss"]}
+        if "perplexity" in record:
+            rec["perplexity"] = record["perplexity"]
+        rec["step_ms"] = 1e3 * step_s
+        rec["examples_per_sec"] = self.wl.global_batch_size / step_s
+        if self.wl.seq_len:
+            rec["tokens_per_sec"] = (self.wl.global_batch_size
+                                     * self.wl.seq_len / step_s)
+        if self.chief:
+            print(json.dumps(rec), flush=True)
+        self.records.append(rec)
+
+
+def check_flags(args) -> None:
+    """train.py's setup checks of the telemetry flags."""
+    if args.target_metric:  # the gate must be able to fire
+        if args.target_value is None:
+            raise SystemExit("--target-metric requires --target-value")
+        if not args.eval_every:
+            raise SystemExit("--target-metric requires --eval-every > 0")
 
 
 def main(argv=None) -> list[dict]:
-    """Train; returns the records (the chief prints them).  A process
-    group this call started is shut down at its end."""
+    """Train; returns the log records (the chief prints them).  A process
+    group this call started is shut down at its end, and the goodput
+    ledger it installed uninstalled."""
     args = parse_args(argv)
+    check_flags(args)
+    # the goodput ledger FIRST, so that setup books as `init`; it reloads
+    # a prior <logdir>/goodput.json, so a restarted run keeps one ledger
+    ledger = None
+    if args.goodput:
+        ledger = obs.GoodputLedger(
+            os.path.join(args.logdir, "goodput.json") if args.logdir
+            else None).install()
     started = not torch.distributed.is_initialized()
     try:
-        return _train(args)
+        records = _train(args)
+    except SystemExit:
+        raise
+    except BaseException:
+        if ledger is not None:
+            # the crash path: stamp the last heartbeat, leave the
+            # generation open (a restart merges it as died mid-flight)
+            ledger.heartbeat()
+        raise
     finally:
         if started:
             bootstrap.shutdown()
+        if ledger is not None and obs.goodput.default_ledger() is ledger:
+            obs.goodput.install_ledger(None)
+    if ledger is not None:
+        # a preemption closed the generation as "preempted" already
+        ledger.close(ended="clean")
+    return records
 
 
 def _train(args) -> list[dict]:
@@ -330,68 +495,52 @@ def _train(args) -> list[dict]:
     checkpointer = CheckpointManager(args.checkpoint_dir) \
         if args.checkpoint_dir else None
     wl, state, step, batches = build(args, checkpointer)
-    chief = bootstrap.is_chief()
-    if args.eval_every and bootstrap.process_count() > 1:
-        raise SystemExit("--eval-every over more than one process is not "
-                         "ported")
+    mesh, _ = bootstrap_mesh(args)  # the mesh build() made
+    group = {"group": mesh} if mesh is not None else {}
+    eval_step = make_eval_step(wl.eval_fn(state.model, **group), mesh)
+    eval_ctx = current_input_context(wl.global_batch_size, mesh)
+    # the eval stream (seed + 999, as train.py draws it): each rank reads
+    # its share of every global eval batch
+    eval_iter_fn = (lambda: _device_batches(
+        wl.input_fn(eval_ctx, args.seed + 999), state.model.device)) \
+        if args.eval_every else None
     # SIGTERM (a preemption notice) -> a save at the next step boundary on
     # every rank, then a clean stop; the rerun resumes from that step
     preemption = PreemptionHandler(checkpointer) if checkpointer else None
-    watchdog = Watchdog(args.watchdog_timeout) if args.watchdog_timeout \
-        else None
-    records, times = [], []
-    meter = ThroughputMeter(wl.global_batch_size)
+    config = TrainerConfig(
+        total_steps=args.steps, log_every=args.log_every,
+        eval_every=args.eval_every, eval_steps=EVAL_STEPS,
+        checkpoint_every=args.checkpoint_every,
+        global_batch_size=wl.global_batch_size, logdir=args.logdir,
+        profile_dir=args.profile_dir, profile_start=args.profile_start,
+        profile_steps=args.profile_steps, auto_profile=args.auto_profile,
+        max_captures=args.max_captures,
+        capture_cooldown_s=args.capture_cooldown,
+        watchdog_timeout=args.watchdog_timeout,
+        target_metric=args.target_metric, target_value=args.target_value,
+        target_mode=args.target_mode, trace=not args.no_trace,
+        flops_per_step=args.flops_per_step,
+        anomaly_detection=not args.no_anomaly_detection,
+        status_port=args.status_port, status_host=args.status_host,
+        flight_recorder=args.flight_recorder)
+    if not config.flops_per_step and args.estimate_flops != "off":
+        if wl.name.startswith(("gpt", "lm_")):
+            per_token, _ = flops_per_token(state.model, wl.cfg, wl.seq_len)
+            replicas = 1 if mesh is None else replica_count(mesh)
+            config.flops_per_step = (per_token * wl.global_batch_size
+                                     * wl.seq_len / replicas)
+        elif args.estimate_flops == "on":
+            step = _counting_first_step(step, config)
+    printer = _PrintRecords(wl, bootstrap.is_chief())
     try:
-        with MetricWriter(args.logdir) as writer:
-            meter.start()
-            while state.step < args.steps:
-                batch = next(batches)
-                t0 = time.perf_counter()
-                state, metrics = step(state, batch)
-                loss = float(metrics["loss"])  # waits for the step to end
-                times.append(time.perf_counter() - t0)
-                meter.update()
-                if watchdog is not None:
-                    watchdog.ping()
-                if state.step % args.log_every == 0 \
-                        or state.step == args.steps:
-                    step_s = sum(times) / len(times)
-                    rec = {"step": state.step, "loss": loss}
-                    if "perplexity" in metrics:
-                        rec["perplexity"] = float(metrics["perplexity"])
-                    rec["step_ms"] = 1e3 * step_s
-                    rec["examples_per_sec"] = wl.global_batch_size / step_s
-                    if wl.seq_len:
-                        rec["tokens_per_sec"] = (wl.global_batch_size
-                                                 * wl.seq_len / step_s)
-                    if chief:
-                        print(json.dumps(rec), flush=True)
-                    records.append(rec)
-                    writer.write(state.step, {
-                        **{k: float(v) for k, v in metrics.items()},
-                        **meter.rates()})
-                    times = []
-                    meter.start()
-                if args.eval_every and state.step % args.eval_every == 0:
-                    writer.write(state.step, {
-                        f"eval_{k}": v
-                        for k, v in evaluate(wl, state, args).items()})
-                if checkpointer is not None and args.checkpoint_every \
-                        and state.step % args.checkpoint_every == 0:
-                    checkpointer.save(state.step, state)
-                if preemption is not None \
-                        and preemption.should_save(state.step):
-                    preemption.save_and_exit(state.step, state)
-                    return records
-        if checkpointer is not None:
-            checkpointer.save(state.step, state, force=True)
-            checkpointer.wait()
+        with Trainer(step, config, eval_step=eval_step,
+                     checkpointer=checkpointer, preemption=preemption,
+                     callbacks=[printer]) as trainer:
+            trainer.fit(state, batches, eval_iter_fn=eval_iter_fn)
     finally:
-        if watchdog is not None:
-            watchdog.stop()
         if preemption is not None:
             preemption.uninstall()
-    return records
+    return printer.records
 
 
 if __name__ == "__main__":
