@@ -8,10 +8,11 @@ Run from the repository root on a machine with one CUDA card:
 Phases, each fatal on failure:
 
 1. device: the card's name and power limit, as nvidia-smi prints them;
-2. build: every CUDA kernel of the serving and training paths (eight
-   libraries), compiled with nvcc for sm_90a from
-   ``distributedtensorflow_tpu_torch/csrc`` into ``build/torch_kernels/``,
-   one nvcc per source, all started together; the SASS of the bf16 K4f
+2. build: every CUDA kernel of the serving and training paths (nine
+   libraries, the dropout kernel among them), compiled with nvcc for
+   sm_90a from ``distributedtensorflow_tpu_torch/csrc`` into
+   ``build/torch_kernels/``, one nvcc per source, all started together;
+   the SASS of the bf16 K4f
    and K4b kernels must hold wgmma (HGMMA) and TMA loads (UTMALDG);
 3. layernorm and kernels: each kernel against its plain PyTorch version
    on the same inputs at its path's shapes, with its time, the plain
@@ -153,10 +154,34 @@ Phases, each fatal on failure:
     carry the ranks' t_step min/median/max, rank 1 writes
     flight.1.jsonl.
 
+17. multistep: ``--steps-per-call`` (k optimizer steps as one replayed
+    CUDA graph) and the Prefetcher.  The dropout kernel against its plain
+    version at a BERT-base microbatch (64 x 512 x 768, bf16 and fp32, bit
+    for bit), timed beside ``torch.rand`` + ``where``.  (a) gpt_lm as phase
+    16 runs it, 16 steps through ``train_torch.main`` at k = 1 and k = 4
+    (logs every 4, a profiler window over steps 13-16): losses and the
+    final state's fingerprint bit for bit, the wrappers' counts those of
+    16 steps, the window of the k = 4 run (one replay) holding K1f 196,
+    K1b 100, K2 96, K3f 48, K4f/dx/dw 4 and the k = 1 window the same;
+    t_step, t_dispatch, t_data and the f_* shares of the steady windows
+    (steps 5-12) and each window's device busy time, wall and idle share.
+    (h) the k = 1 run again with ``--prefetch-depth 0`` (the batch copied
+    in the loop's thread).  (e) dp_world1 (``--mesh data=1`` over NCCL) at
+    k = 4 equals (a)'s k = 4.  (f) 8 steps at k = 4 saved and resumed to 16
+    equal (a)'s k = 4; a checkpoint restored into the state of a
+    k = 4 function whose graph was captured (new optimizer tensors: the
+    graph is captured again) repeats the steps bit for bit.  (g) 18 steps
+    at k = 4 (a tail graph of 2) equal 18 at k = 1.  (b)-(d)
+    bert_mlm_packed (2 layers, dropout 0.1, k = 2), cifar_resnet20 (k =
+    4, BatchNorm statistics) and gpt_moe (4 layers, k = 2) equal their
+    k = 1 runs bit for bit.  (i) ``--mesh data=1 --dist-backend gloo`` on
+    the card refuses k > 1, naming NCCL.
+
 Kernel launch counts are set to 0 just before phases 5, 6 (each
 generate run), 9-11, 13, 14 (each path; in each rank's process),
-15's resumed steps and 16's run through ``train_torch.main``, and read
-just after; a kernel of the path that did not launch, or a gpt_lm,
+15's resumed steps, 16's run through ``train_torch.main`` and 17's
+runs, and read just after (a replayed graph counts what its capture
+counted); a kernel of the path that did not launch, or a gpt_lm,
 gpt_moe or BERT training step that launched a kernel another number of
 times than its forward, recomputation and backward need, fails the run.  The
 line before the last is one JSON object with a row per kernel; the last
@@ -170,6 +195,7 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -1730,8 +1756,8 @@ def baseline_steps(torch, cuda, train_torch, name, batch, steps, phase,
     from torch.utils.flop_counter import FlopCounterMode
 
     from distributedtensorflow_tpu_torch.train import (
+        dropout_keys,
         split_microbatches,
-        step_generator,
     )
 
     args = train_torch.parse_args(
@@ -1763,7 +1789,8 @@ def baseline_steps(torch, cuda, train_torch, name, batch, steps, phase,
                 for k, b in model.named_buffers())
     loss_fn = wl.loss_fn(model)
     with torch.no_grad():
-        again = sum(float(loss_fn(mb, step_generator(SEED, 0, i))[0])
+        keys = dropout_keys(SEED, 0, wl.accum_steps, 0, model.device)
+        again = sum(float(loss_fn(mb, keys[i])[0])
                     for i, mb in enumerate(
                         split_microbatches(first, wl.accum_steps))) \
             / wl.accum_steps
@@ -3120,8 +3147,386 @@ def run_trainer(torch, cuda, train_torch, fa, device="cuda"):
     return launches
 
 
+MS_K, MS_STEPS, MS_LOG, MS_TAIL_STEPS = 4, 16, 4, 18
+#: The profiled call: steps 13-16, one k-step replay (and the same four
+#: single steps at k = 1).
+MS_PROFILE = (12, 4)
+#: The timing runs: 32 steps logged every 16, so the second window
+#: (steps 17-32) holds eight calls and one read-back; in turns k = 1,
+#: k = 4, k = 4, k = 1, and k = 1 without the Prefetcher.
+MS_TIME_STEPS, MS_TIME_LOG = 32, 16
+MS_TIME_RUNS = ((1, "2"), (MS_K, "2"), (MS_K, "2"), (1, "2"), (1, "0"))
+#: Launches of one k-step replay: MS_K times a gpt_lm step's.
+MULTI_LAUNCHES_PER_CALL = {k: MS_K * v
+                           for k, v in TRAIN_LAUNCHES_PER_STEP.items()}
+#: name, global batch, k, layers (None: the preset's), calls of k steps.
+MS_PAIRS = (("bert_mlm_packed", 32, 2, 2, 3), ("cifar_resnet20", 256, 4,
+                                                None, 3),
+            ("gpt_moe", 8, 2, 4, 3))
+#: A BERT-base microbatch's activations (64 x 512 x 768) at the preset's
+#: dropout rate, where the bert presets run the dropout kernel.
+DROPOUT_SHAPE, DROPOUT_RATE = (64, 512, 768), 0.1
+
+
+def check_dropout(torch, dmod, device="cuda"):
+    """The dropout kernel against its plain version at a BERT-base
+    microbatch's shape: bit for bit in bf16 and fp32, the kept share
+    within 4 sigma of 1 - rate, another site another mask; times of the
+    kernel, the plain version and ``torch.rand`` + ``where``."""
+    g = torch.Generator(device=device).manual_seed(SEED)
+    shape = DROPOUT_SHAPE if device == "cuda" else (4, 16, 32)
+    xs = [torch.randn(shape, generator=g, device=device)
+          .to(torch.bfloat16) for _ in range(3)]
+    seed_v, site, rate = 1234567, 3, DROPOUT_RATE
+    seed = torch.full((1,), seed_v, dtype=torch.int64, device=device)
+    kernel = dmod.dropout_cuda if device == "cuda" else \
+        (lambda x, s, i, r: dmod._plain_dropout(x, int(s), i, r))
+    rows, failures = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        x = xs[0].to(dtype)
+        got = kernel(x, seed, site, rate)
+        ref = dmod._plain_dropout(x, seed_v, site, rate)
+        other = kernel(x, seed, site + 1, rate)
+        kept = float((got != 0).float().mean())
+        sigma = math.sqrt(rate * (1 - rate) / x.numel())
+        err = float((got.float() - ref.float()).abs().max())
+        if not torch.equal(got, ref) or abs(kept - (1 - rate)) > 4 * sigma \
+                or torch.equal(got, other):
+            failures.append(f"{dtype}: equal {torch.equal(got, ref)}, "
+                            f"kept {kept}, another site equal "
+                            f"{torch.equal(got, other)}")
+        nbytes = 2 * x.numel() * x.element_size() + 8
+        b_ms, b_by = bound_ms(nbytes, 0, dtype)
+        row = {"phase": "dropout", "name": "dropout",
+               "dtype": str(dtype).removeprefix("torch."),
+               "shape": list(shape), "rate": rate, "max_abs_err": err,
+               "bitwise_equal": torch.equal(got, ref), "kept": kept,
+               "bound_ms": b_ms, "bound_by": b_by}
+        if device == "cuda":
+            sets = [(xi.to(dtype),) for xi in xs]
+            row["ms"] = time_ms(torch, lambda a: kernel(a, seed, site, rate),
+                                sets)
+            row["plain_ms"] = time_ms(
+                torch, lambda a: dmod._plain_dropout(a, seed_v, site, rate),
+                sets[:1], iters=4, reps=3)
+            row["library_ms"] = time_ms(
+                torch, lambda a: torch.where(
+                    torch.rand(a.shape, device=a.device) >= rate,
+                    a / (1.0 - rate), 0.0), sets, iters=20)
+        emit(row)
+        rows.append(row)
+    if failures:
+        raise AssertionError("dropout: " + "; ".join(failures))
+    return rows
+
+
+def _ms_main(train_torch, train_lib, argv):
+    """``train_torch.main(argv)``: its records and the fingerprint of the
+    state the fit ended on."""
+    class End(train_lib.Callback):
+        fingerprint = None
+
+        def on_fit_end(self, trainer, state):
+            End.fingerprint = _fingerprint(state)
+
+    with _extra_callbacks(train_torch, End()):
+        records = train_torch.main(argv)
+    return records, End.fingerprint
+
+
+def _ms_windows(rows, key, first=1, last=3):
+    """``key`` of the log windows ``first``..``last - 1`` (the steady
+    windows: not the first, with the kernels' load and the capture, nor
+    the profiled last), in ms for times, their median."""
+    vals = [r[key] * (1e3 if key.startswith("t_") else 1.0)
+            for r in rows[first:last]]
+    return statistics.median(vals) if vals else None
+
+
+def _ms_pair(torch, train_torch, name, batch, k, layers, calls, device):
+    """``name`` built twice from one seed, stepped ``calls * k`` steps
+    one a call and k a call: each run's losses by step, fingerprint and
+    launches of the k-step run's calls after the first."""
+    from distributedtensorflow_tpu_torch.ops import _cuda
+
+    out = {}
+    for kk in (1, k):
+        fields = {} if layers is None else {"num_layers": layers}
+        with _cut_config(train_torch, **fields):
+            args = train_torch.parse_args(
+                ["--workload", name, "--batch-size", str(batch), "--seed",
+                 str(SEED), "--device", device, "--steps-per-call", str(kk)]
+                + (["--test-size"] if device == "cpu" else []))
+            wl, state, step, batches = train_torch.build(args)
+        losses = []
+        for i in range(calls * k // kk):
+            if i == k // kk:
+                _cuda.launches.clear()
+            state, m = step(state, next(batches))
+            losses += [float(v) for v in m["loss"].reshape(-1)]
+        out[kk] = {"losses": losses, "fingerprint": _fingerprint(state),
+                   "launches": dict(_cuda.launches),
+                   "dropout": getattr(wl.cfg, "dropout_rate", None)}
+        del state, step, batches
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _ms_restore_in_place(torch, train_torch, argv, ckdir, device):
+    """A k-step function that restores a checkpoint into its own state
+    after its graph was captured (the optimizer's moments are new
+    tensors): 16 steps, a restore of step 8, the last 8 steps again, the
+    same fingerprint both times."""
+    from distributedtensorflow_tpu_torch.checkpoint import CheckpointManager
+    from distributedtensorflow_tpu_torch.data import (
+        current_input_context,
+        skip_batches,
+    )
+
+    args = train_torch.parse_args(argv + ["--steps-per-call", str(MS_K)])
+    wl, state, step, batches = train_torch.build(args)
+    mgr = CheckpointManager(ckdir)
+    for _ in range(2):
+        state, _ = step(state, next(batches))
+    mgr.save(state.step, state, force=True)
+    mgr.wait()
+    saved = state.step
+    for _ in range(2):
+        state, m = step(state, next(batches))
+    first = (_fingerprint(state), [float(v) for v in m["loss"]])
+    mgr.restore(saved, state)
+    ctx = current_input_context(wl.global_batch_size)
+    again = train_torch.device_iter(
+        args, skip_batches(wl.input_fn(ctx, args.seed), saved),
+        state.model.device, bundle=MS_K)
+    for _ in range(2):
+        state, m = step(state, next(again))
+    second = (_fingerprint(state), [float(v) for v in m["loss"]])
+    graphs = len(step._fn._graphs)
+    mgr.close()
+    return first, second, graphs
+
+
+def _ms_gloo_refuses(torch, train_torch, device):
+    """steps_per_call > 1 over a gloo group on CUDA tensors raises and
+    names NCCL (gpt_lm at test size, a mesh of one over gloo)."""
+    from distributedtensorflow_tpu_torch.parallel import bootstrap
+
+    args = train_torch.parse_args(
+        ["--workload", "gpt_lm", "--test-size", "--device", device,
+         "--mesh", "data=1", "--dist-backend", "gloo", "--steps-per-call",
+         "2", "--seed", str(SEED)])
+    try:
+        _, state, step, batches = train_torch.build(args)
+        try:
+            step(state, next(batches))
+        except RuntimeError as e:
+            return str(e)
+        return None
+    finally:
+        bootstrap.shutdown()
+
+
+def run_multistep(torch, cuda, train_torch, device="cuda"):
+    """steps_per_call (PR 13): k optimizer steps as one replayed CUDA
+    graph, and the Prefetcher.  (a) gpt_lm at full width through
+    ``train_torch.main`` (``Trainer.fit``), 16 steps at k = 1 and at k =
+    4 from one seed: losses and the state's fingerprint bit for bit, the
+    wrappers' counts those of 16 steps, a torch.profiler window over one
+    k = 4 replay holding 4 steps' kernels (K1f 196, K1b 100, K2 96, K3f
+    48, K4f/dx/dw 4), its device busy time, wall and idle share beside the
+    k = 1 window's; t_step, t_dispatch, f_dispatch, f_data of both.  (b)
+    bert_mlm_packed (2 layers, dropout 0.1), (c) cifar_resnet20 (BatchNorm
+    statistics) at k = 4 and (d) gpt_moe (4 layers) at k = 2 equal their
+    k = 1 runs bit for bit.  (e) dp_world1 over NCCL at k = 4 equals (a)'s
+    k = 4.  (f) a k = 4 run saved at step 8 and resumed to 16 equals the
+    uninterrupted one, and so does a restore into a state whose graph was
+    captured (captured again).  (g) 18 steps at k = 4 (a tail graph of 2)
+    equal 18 at k = 1.  (h) gpt_lm at k = 1 without the Prefetcher
+    (t_data and t_step beside (a)'s).  (i) a gloo group on CUDA tensors
+    refuses k > 1.  On the CPU (a rehearsal) test sizes run, without the
+    profiler's and the launches' checks."""
+    import os
+    import shutil
+    import tempfile
+
+    from distributedtensorflow_tpu_torch import train as train_lib
+    from distributedtensorflow_tpu_torch.ops import dropout as dmod
+
+    cuda_dev = device == "cuda"
+    tmp = tempfile.mkdtemp(prefix="multistep_")
+    failures, launches = [], collections.Counter()
+    rows = check_dropout(torch, dmod, device)
+    try:
+        argv = _trainer_argv(device)
+        start, n_prof = MS_PROFILE
+
+        def run(k, tag, *extra, steps=MS_STEPS, profile=True, log=MS_LOG):
+            logdir = os.path.join(tmp, tag)
+            flags = ["--steps", str(steps), "--log-every", str(log),
+                     "--steps-per-call", str(k), "--logdir", logdir, *extra]
+            if profile:
+                flags += ["--profile-dir", os.path.join(logdir, "profile"),
+                          "--profile-start", str(start), "--profile-steps",
+                          str(n_prof)]
+            cuda.launches.clear()
+            t0 = time.time()
+            records, fp = _ms_main(train_torch, train_lib, argv + flags)
+            gc.collect()  # the run's Trainer (a reference cycle) and graphs
+            if cuda_dev:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+            got = dict(cuda.launches)
+            train_rows = [r for r in _rows_of(os.path.join(
+                logdir, "metrics.jsonl")) if "loss" in r]
+            out = {"records": records, "fingerprint": fp, "launches": got,
+                   "rows": train_rows, "seconds": time.time() - t0,
+                   "logdir": logdir}
+            if profile:
+                out["trace"] = _trace_launches(
+                    os.path.join(logdir, "profile", "trace.json"))
+                out["capture"] = _rows_of(os.path.join(
+                    logdir, "captures.jsonl"))[0]
+            return out
+
+        def same(a, b):
+            return ([r["loss"] for r in a["records"]]
+                    == [r["loss"] for r in b["records"]]
+                    and [r["step"] for r in a["records"]]
+                    == [r["step"] for r in b["records"]]
+                    and a["fingerprint"] == b["fingerprint"])
+
+        # (a): bits, launches, the profiled replay
+        one = run(1, "k1")
+        four = run(MS_K, "k4")
+        if not same(one, four):
+            failures.append(f"(a) k={MS_K} losses "
+                            f"{[r['loss'] for r in four['records']]} or "
+                            f"fingerprint differ from k=1's "
+                            f"{[r['loss'] for r in one['records']]}")
+        want = {k: MS_STEPS * v for k, v in TRAIN_LAUNCHES_PER_STEP.items()}
+        for tag, r in (("k1", one), ("k4", four)):
+            got = {k: r["launches"].get(k, 0) for k in want}
+            if cuda_dev and got != want:
+                failures.append(f"(a) {tag}: launches {got}, expected "
+                                f"{want}")
+        prof = {}
+        for tag, r, per_call in (("k1", one, MULTI_LAUNCHES_PER_CALL),
+                                 ("k4", four, MULTI_LAUNCHES_PER_CALL)):
+            tr = r["trace"]
+            found = {k: tr["found"].get(k, 0) for k in per_call}
+            wall_ms = 1e3 * r["capture"]["wall_s"]
+            prof[tag] = {"found": found, "device_busy_ms": tr["busy_ms"],
+                         "kernel_span_ms": tr["span_ms"],
+                         "window_wall_ms": wall_ms,
+                         "idle_share_of_window": 1.0 - tr["busy_ms"]
+                         / wall_ms,
+                         "idle_share_of_span": 1.0 - tr["busy_ms"]
+                         / tr["span_ms"] if tr["span_ms"] else None,
+                         "kernels": tr["kernels"],
+                         "launch_calls": tr["launch_calls"],
+                         "host_syncs": tr["syncs"]}
+            if cuda_dev and found != per_call:
+                failures.append(f"(a) {tag} profile window: {found}, "
+                                f"expected {per_call}")
+        # (a) and (h): the steady window of each timing run, in turns
+        timing = []
+        for i, (k, depth) in enumerate(MS_TIME_RUNS):
+            r = run(k, f"time{i}", "--prefetch-depth", depth,
+                    steps=MS_TIME_STEPS, log=MS_TIME_LOG, profile=False)
+            if k == MS_K and depth == "2" and \
+                    r["fingerprint"] != timing[0]["fingerprint"]:
+                failures.append(f"(a) {MS_TIME_STEPS} steps at k={k} "
+                                "differ from k=1's")
+            if depth == "0" and r["fingerprint"] != timing[0]["fingerprint"]:
+                failures.append("(h) the run without the Prefetcher differs")
+            w = r["rows"][-1]
+            timing.append({
+                "k": k, "prefetch_depth": int(depth),
+                "fingerprint": r["fingerprint"],
+                "t_step_ms_windows": [1e3 * x["t_step"] for x in r["rows"]],
+                **{f"{key}_ms": 1e3 * w[key] for key in
+                   ("t_step", "t_dispatch", "t_data", "t_host")},
+                **{key: w[key] for key in ("f_dispatch", "f_data",
+                                           "f_host")},
+                "mfu": w.get("mfu"), "seconds": r["seconds"]})
+        for t in timing:
+            del t["fingerprint"]
+        launches.update(four["launches"])
+        emit({"phase": "multistep", "workload": "gpt_lm", "k": MS_K,
+              "steps": MS_STEPS, "losses_k1": [r["loss"] for r in
+                                               one["records"]],
+              "losses_k4": [r["loss"] for r in four["records"]],
+              "bit_equal": same(one, four), "timing": timing,
+              "profile": prof, "launches_k4": four["launches"]})
+        # (e) dp_world1 over NCCL at k = 4
+        if cuda_dev:
+            world1 = run(MS_K, "world1", "--mesh", "data=1",
+                         "--dist-backend", "nccl", profile=False)
+            if not same(world1, four):
+                failures.append("(e) dp_world1 at k=4 differs from (a)'s")
+            emit({"phase": "multistep_world1", "bit_equal": same(world1,
+                                                                   four),
+                  "t_step_ms": _ms_windows(world1["rows"], "t_step"),
+                  "f_dispatch": _ms_windows(world1["rows"], "f_dispatch")})
+        # (f) resume at step 8 of a k = 4 run
+        ck = os.path.join(tmp, "ck")
+        cut = run(MS_K, "resume_a", "--checkpoint-dir", ck,
+                  "--checkpoint-every", "8", steps=8, profile=False)
+        resumed = run(MS_K, "resume_b", "--checkpoint-dir", ck,
+                      "--checkpoint-every", "8", profile=False)
+        both = [r["loss"] for r in cut["records"] + resumed["records"]]
+        resume_ok = (both == [r["loss"] for r in four["records"]]
+                     and resumed["fingerprint"] == four["fingerprint"])
+        first, second, graphs = _ms_restore_in_place(
+            torch, train_torch, argv, os.path.join(tmp, "ck2"), device)
+        in_place_ok = first == second and first[0] == four["fingerprint"]
+        if not resume_ok or not in_place_ok:
+            failures.append(f"(f) resume {both} / fingerprint equal "
+                            f"{resumed['fingerprint'] == four['fingerprint']}"
+                            f", in place {first[1]} vs {second[1]}")
+        emit({"phase": "multistep_resume", "losses": both,
+              "bit_equal": resume_ok, "in_place_bit_equal": in_place_ok,
+              "graphs_after_restore": graphs})
+        # (g) the tail: a graph of 2 after the graphs of 4
+        tail_k = run(MS_K, "tail4", steps=MS_TAIL_STEPS, profile=False)
+        tail_1 = run(1, "tail1", steps=MS_TAIL_STEPS, profile=False)
+        if not same(tail_k, tail_1):
+            failures.append("(g) 18 steps at k=4 differ from 18 at k=1")
+        emit({"phase": "multistep_tail", "steps": MS_TAIL_STEPS,
+              "bit_equal": same(tail_k, tail_1),
+              "losses": [r["loss"] for r in tail_k["records"]]})
+        # (b)-(d): the other presets' bits
+        for name, batch, k, layers, calls in MS_PAIRS:
+            pair = _ms_pair(torch, train_torch, name, batch, k, layers,
+                            calls, device)
+            ok = (pair[1]["losses"] == pair[k]["losses"]
+                  and pair[1]["fingerprint"] == pair[k]["fingerprint"])
+            launches.update(pair[k]["launches"])
+            emit({"phase": f"multistep_{name}", "k": k, "layers": layers,
+                  "batch": batch, "dropout_rate": pair[k]["dropout"],
+                  "bit_equal": ok, "losses_k1": pair[1]["losses"],
+                  "losses_k": pair[k]["losses"],
+                  "launches_after_first_call": pair[k]["launches"]})
+            if not ok:
+                failures.append(f"{name}: k={k} differs from k=1")
+        # (i) gloo refuses
+        if cuda_dev:
+            refused = _ms_gloo_refuses(torch, train_torch, device)
+            emit({"phase": "multistep_gloo", "refused": refused})
+            if not refused or "NCCL" not in refused:
+                failures.append(f"(i) gloo on CUDA did not refuse: "
+                                f"{refused}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if failures:
+        raise AssertionError("multistep: " + "; ".join(failures))
+    return launches, rows
+
+
 PHASES = ("layernorm", "kernels", "xent", "serving", "train", "baseline",
-          "dp", "ckpt", "trainer")
+          "dp", "ckpt", "trainer", "multistep")
 
 
 def main(argv=None) -> int:
@@ -3271,6 +3676,11 @@ def main(argv=None) -> int:
     if "trainer" in phases:
         launches.update(run_trainer(torch, _cuda, train_torch, fa))
     done("trainer")
+    if "multistep" in phases:
+        ms_launches, rows["dropout"] = run_multistep(torch, _cuda,
+                                                     train_torch)
+        launches.update(ms_launches)
+    done("multistep")
     emit({"phase": "seconds", **seconds})
     if phases != set(PHASES):
         print(f"chip_smoke: ran only {sorted(phases)}", file=sys.stderr)
@@ -3288,6 +3698,9 @@ def main(argv=None) -> int:
         "fused_xent_fwd": ("fused_xent_fwd.cu", "ops/fused_xent.py:136"),
         "fused_xent_dx": ("fused_xent_bwd.cu", "ops/fused_xent.py:180"),
         "fused_xent_dw": ("fused_xent_bwd.cu", "ops/fused_xent.py:214"),
+        # not a TPU kernel: flax's nn.Dropout in the reference (the rate
+        # of the BERT presets)
+        "dropout": ("dropout.cu", "models/bert.py:94"),
     }
 
     def summary(name):

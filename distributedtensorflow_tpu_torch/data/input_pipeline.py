@@ -6,16 +6,25 @@ sources read, and :func:`current_input_context` (``:72``), which fills it
 from the rank; :func:`device_put_batch` (``:87``), which puts a host batch
 on the device; ``synthetic_classification`` (``:321-342``) and
 ``pack_sequences`` (``:361-425``), copies with the same seeds and the same
-numpy draws, so both packages see identical batches; and
-:func:`skip_batches` (``:429-454``), a resumed run's fast-forward.  The port runs one
+numpy draws, so both packages see identical batches;
+:func:`skip_batches` (``:429-454``), a resumed run's fast-forward; and
+:func:`device_put_bundle` (``:104-124``) and :class:`Prefetcher`
+(``:127-320``), which stack k batches for a multi-step call and put the
+batches on the device from a thread of their own.  The port runs one
 input pipeline per process, and one process per device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import itertools
 import logging
-from typing import Iterator, Sequence
+import queue
+import threading
+import time
+import weakref
+from typing import Iterable, Iterator, Sequence
 
 import numpy as np
 import torch
@@ -79,19 +88,224 @@ def device_put_batch(batch: dict, device, mesh=None, *,
     + r B/(accum N) + j``) lie in every rank's pipeline.  The ranks then
     gather the global batch and each keeps its rows, in microbatch order,
     so that :func:`..train.engine.split_microbatches` cuts it into its
-    share of each JAX microbatch."""
+    share of each JAX microbatch (:func:`exchange_rows`)."""
     out = {k: _leaf_to_device(v, device) for k, v in batch.items()}
-    n = 1 if mesh is None else replica_count(mesh)
-    if accum_steps == 1 or n == 1:
-        return out
-    r = replica_index(mesh)
+    return exchange_rows(out, mesh, accum_steps)
+
+
+def _needs_exchange(mesh, accum_steps: int) -> bool:
+    return accum_steps > 1 and mesh is not None and replica_count(mesh) > 1
+
+
+def exchange_rows(batch: dict, mesh=None, accum_steps: int = 1, *,
+                  lead: int = 0) -> dict:
+    """This rank's rows of every microbatch of the global batch (see
+    :func:`device_put_batch`) from the ranks' pipelines' rows, one gather
+    a leaf; the batch itself for one replica or one microbatch.  ``lead``
+    leading dims (a bundle's step dim) are carried through."""
+    if not _needs_exchange(mesh, accum_steps):
+        return batch
+    n, r = replica_count(mesh), replica_index(mesh)
     local = {}
-    for k, x in out.items():
-        full = collectives.all_gather(x, mesh)  # (N b, ...), rank-major
-        per = full.shape[0] // (accum_steps * n)
-        local[k] = full.view(accum_steps, n, per, *x.shape[1:])[:, r] \
-            .reshape(accum_steps * per, *x.shape[1:])
+    for k, x in batch.items():
+        head, rest = x.shape[:lead], x.shape[lead + 1:]
+        # the global batch, rank-major, viewed (..., accum, N, per, ...):
+        # row (i, r, j) is row j of rank r's share of microbatch i
+        full = collectives.all_gather(x.contiguous(), mesh, gather_axis=lead)
+        per = full.shape[lead] // (accum_steps * n)
+        view = full.reshape(*head, accum_steps, n, per, *rest)
+        local[k] = view[(slice(None),) * (lead + 1) + (r,)].reshape(
+            *head, accum_steps * per, *rest)
     return local
+
+
+def device_put_bundle(batches: Sequence[dict], device, mesh=None, *,
+                      accum_steps: int = 1) -> dict:
+    """Stack ``k`` host batches into one (k, B, ...) tensor per leaf on
+    ``device``, the input of ``train.engine.make_multi_train_step``.  The
+    stack happens on the host (numpy) before the copy, one copy a leaf;
+    with ``accum_steps`` > 1 over replicas each step's rows are then
+    exchanged as :func:`device_put_batch` exchanges them."""
+    stacked = {k: np.stack([np.asarray(b[k]) for b in batches])
+               for k in batches[0]}
+    out = {k: _leaf_to_device(v, device) for k, v in stacked.items()}
+    return exchange_rows(out, mesh, accum_steps, lead=1)
+
+
+def _host_bundles(it: Iterator, bundle: int) -> Iterator:
+    """``it`` itself, or lists of ``bundle`` consecutive batches; a
+    trailing short group at its true length."""
+    if bundle <= 1:
+        yield from it
+        return
+    while True:
+        group = list(itertools.islice(it, bundle))
+        if group:
+            yield group
+        if len(group) < bundle:
+            return
+
+
+class Prefetcher:
+    """Host-to-device prefetch on a thread of its own (twin of the
+    reference's ``Prefetcher``, ``:127-320``): the thread reads the
+    source, puts each batch on ``device`` and keeps ``buffer_size`` of
+    them ready; the training loop pops them.  ``bundle`` > 1 stacks that
+    many consecutive host batches into one (bundle, B, ...) tensor a leaf
+    (:func:`device_put_bundle`), the input of ``steps_per_call``
+    training; a trailing short group is yielded at its true length.
+
+    On a CUDA device the thread copies on a CUDA stream of its own, from
+    pinned staging buffers, without blocking; each batch carries an event
+    that the consumer's stream waits on before the step reads it, and
+    ``record_stream`` keeps the allocator from handing the batch's memory
+    to another tensor while a step queued on the consumer's stream still
+    reads it.  With ``accum_steps`` > 1 over replicas the ranks' row
+    exchange (collectives on the training group) runs on the consumer's
+    thread, in step order with the step's own collectives, never from
+    the worker.
+
+    An exception in the source or the copy is raised on the consumer's
+    thread.  ``note_consumed(n)`` of a source that has it is called as
+    batches reach the consumer (n: the batches of the bundle).  The
+    registry gets ``data_batches_total``, ``data_wait_seconds`` and
+    ``data_device_put_seconds``.  :meth:`close` stops the thread and
+    releases the buffered batches and the source; a Prefetcher that is
+    dropped without it stops its thread too.  ``adaptive``/``controller``
+    (the adaptive depth of ``data/adaptive.py``) are not ported and raise.
+    """
+
+    _DONE = object()
+
+    def __init__(self, it: Iterable, device, mesh=None, buffer_size: int = 2,
+                 *, bundle: int = 1, accum_steps: int = 1,
+                 adaptive: bool = False, controller=None):
+        if adaptive or controller is not None:
+            raise NotImplementedError(
+                "adaptive prefetch depth is not ported (it waits for "
+                "data/adaptive.py, ROADMAP.md item 11)")
+        self._device = torch.device(device)
+        if self._device.type == "cuda" and self._device.index is None:
+            # the worker thread must name the consumer's card
+            self._device = torch.device("cuda", torch.cuda.current_device())
+        self._mesh, self._accum = mesh, accum_steps
+        self._bundle = bundle
+        self._depth = max(1, int(buffer_size))
+        self._q: queue.Queue = queue.Queue()
+        self._cond = threading.Condition()
+        self._stop = threading.Event()
+        self._err: list = []
+        self._m_batches = obs.counter(
+            "data_batches_total", "batches handed to the consumer")
+        self._m_wait = obs.histogram(
+            "data_wait_seconds", "consumer blocking time per batch fetch")
+        self._src = it
+        self._note_consumed = getattr(it, "note_consumed", None)
+        # the worker holds no reference to self, so a dropped Prefetcher
+        # is collected and its finalizer stops the thread
+        self._thread = threading.Thread(
+            target=_prefetch_worker, daemon=True, name="prefetcher",
+            args=(iter(it), self._device, bundle, self._depth,
+                  self._q, self._cond, self._stop, self._err,
+                  obs.histogram("data_device_put_seconds",
+                                "host->device placement time per batch")))
+        self._finalizer = weakref.finalize(self, _stop_worker, self._stop,
+                                           self._cond)
+        self._thread.start()
+
+    def close(self) -> None:
+        """Stop the worker, drop the buffered device batches and close the
+        source (a generator gets its ``GeneratorExit``)."""
+        _stop_worker(self._stop, self._cond)
+        while True:
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                break
+        self._thread.join(timeout=5)
+        close = getattr(self._src, "close", None)
+        if callable(close) and not self._thread.is_alive():
+            try:
+                close()
+            except Exception:  # source cleanup only
+                logger.warning("input source close() failed", exc_info=True)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        t0 = time.perf_counter()
+        item = self._q.get()
+        self._m_wait.observe(time.perf_counter() - t0)
+        with self._cond:
+            self._cond.notify_all()  # a slot is free
+        if item is self._DONE:
+            if self._err:
+                raise self._err[0]
+            raise StopIteration
+        out, count, event = item
+        if event is not None:
+            stream = torch.cuda.current_stream(self._device)
+            stream.wait_event(event)
+            for x in out.values():
+                x.record_stream(stream)
+        self._m_batches.inc()
+        if self._note_consumed is not None:
+            self._note_consumed(count)
+        return exchange_rows(out, self._mesh, self._accum,
+                             lead=1 if self._bundle > 1 else 0)
+
+
+def _stop_worker(stop: threading.Event, cond: threading.Condition) -> None:
+    stop.set()
+    with cond:
+        cond.notify_all()
+
+
+def _prefetch_worker(it, device, bundle, depth, q, cond, stop, err, m_put):
+    """The Prefetcher's thread: batches (or bundles) onto ``device`` and
+    into ``q`` while fewer than ``depth`` wait there; then the end mark."""
+
+    def admit(item) -> bool:
+        with cond:
+            while not stop.is_set() and q.qsize() >= depth:
+                cond.wait(0.1)
+            if stop.is_set():
+                return False
+            q.put(item)
+            return True
+
+    cuda = device.type == "cuda"
+    stream = None
+    try:
+        if cuda:
+            torch.cuda.set_device(device)
+            stream = torch.cuda.Stream(device)
+        for batch in _host_bundles(it, bundle):
+            if stop.is_set():
+                return
+            t0 = time.perf_counter()
+            with torch.cuda.stream(stream) if cuda \
+                    else contextlib.nullcontext():
+                out = (device_put_bundle(batch, device) if bundle > 1
+                       else device_put_batch(batch, device))
+                event = None
+                if cuda:
+                    event = torch.cuda.Event()
+                    event.record(stream)
+            m_put.observe(time.perf_counter() - t0)
+            if not admit((out, len(batch) if bundle > 1 else 1, event)):
+                return
+    except BaseException as e:  # raised on the consumer's thread
+        err.append(e)
+    finally:
+        admit(Prefetcher._DONE)
 
 
 def synthetic_classification(

@@ -9,7 +9,7 @@ through ``ops.attention.dot_product_attention`` with a padding mask or
 packed segment ids (the plain path below the flash gate's sequence
 length, the flash kernels K2/K3f above it).  Dropout sits on the
 embedding output, the attention output and the MLP output, one seed a
-site drawn from the step's generator.
+site drawn from the step's ``DropoutKey`` (``layers.draw_seed``).
 
 The MLM head is its own fp32 ``Dense(V)`` (``mlm_out``), not tied to the
 embedding, whatever the JAX docstring says (``:180,184``).  The gathered
@@ -33,7 +33,7 @@ from torch import nn
 from ..device import resolve_device
 from ..ops.attention import dot_product_attention
 from ..parallel.collectives import all_reduce, share_of_mean
-from .layers import Dense, FusedLayerNorm, dense, dropout
+from .layers import Dense, FusedLayerNorm, dense, draw_seed, dropout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,11 +69,6 @@ def _embed(table: nn.Embedding, ids, dtype):
     """flax ``nn.Embed(dtype=...)``: gather, then cast (the same values as
     casting the whole table)."""
     return table.weight[ids].to(dtype)
-
-
-def _seed(generator):
-    """One dropout seed from the step's generator."""
-    return int(torch.randint(2**62, (), generator=generator))
 
 
 class SelfAttention(nn.Module):
@@ -152,12 +147,12 @@ class BertEncoder(nn.Module):
              + _embed(self.pos_embed, position_ids, cfg.dtype))
         train = not deterministic and cfg.dropout_rate > 0
         x = dropout(self.ln_embed(x), cfg.dropout_rate,
-                    _seed(generator) if train else None)
+                    draw_seed(generator) if train else None)
         mask = None
         if attention_mask is not None:
             mask = attention_mask[:, None, None, :].bool()
         for i in range(cfg.num_layers):
-            seeds = (_seed(generator), _seed(generator)) if train \
+            seeds = (draw_seed(generator), draw_seed(generator)) if train \
                 else (None, None)
             x = getattr(self, f"layer_{i}")(x, mask, segment_ids, seeds)
         return x

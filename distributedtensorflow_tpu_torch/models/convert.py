@@ -33,7 +33,8 @@ or without its decay mask, adagrad, each behind ``clip_by_global_norm``
 or not), and ``opt_state_to_optax`` the optax state for a port
 optimizer, so a run can move from one package to the other mid-way.
 The optax ``count`` is the parameter groups' ``"count"`` (and AdamW's
-``step``); ``mu``/``nu``, the momentum ``trace`` and adagrad's
+``step``, which ``load_state_dict`` moves to the card for a capturable
+AdamW); ``mu``/``nu``, the momentum ``trace`` and adagrad's
 ``sum_of_squares`` are AdamW's ``exp_avg``/``exp_avg_sq``, SGD's
 ``momentum_buffer`` and :class:`~..train.optimizers.Adagrad`'s ``sos``,
 each a tree of the parameters mapped as the parameters are.
@@ -355,13 +356,13 @@ def _optax_parts(state, out: dict) -> dict:
 
 def _slots(optimizer) -> tuple[str, ...]:
     """The optax moment fields the port optimizer keeps per parameter."""
-    from ..train.optimizers import Adagrad
+    from ..train.optimizers import SGD, Adagrad
 
     if isinstance(optimizer, torch.optim.AdamW):
         return ("mu", "nu")
     if isinstance(optimizer, Adagrad):
         return ("sum_of_squares",)
-    if isinstance(optimizer, torch.optim.SGD):
+    if isinstance(optimizer, (SGD, torch.optim.SGD)):
         momentum = optimizer.param_groups[0]["momentum"]
         return ("trace",) if momentum else ()
     raise TypeError(f"no optax twin for {type(optimizer).__name__}")

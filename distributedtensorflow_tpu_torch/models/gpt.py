@@ -35,7 +35,7 @@ from ..ops.blockwise import blockwise_map
 from ..ops.fused_xent import fused_softmax_xent
 from ..ops.xent import chunked_softmax_xent, tied_head_logits
 from ..parallel.collectives import share_of_mean
-from .layers import FusedLayerNorm, dense, dropout
+from .layers import FusedLayerNorm, dense, draw_seed, dropout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,7 +189,7 @@ class GPTBlock(nn.Module):
             a = self.attn(h, positions, rope_tabs, cache["attn"])
         elif self.cfg.remat_attn and torch.is_grad_enabled():
             a = checkpoint(self.attn, h, positions, rope_tabs, None,
-                           use_reentrant=False)
+                           use_reentrant=False, preserve_rng_state=False)
         else:
             a = self.attn(h, positions, rope_tabs, None)
         x = x + a
@@ -254,9 +254,10 @@ class GPTLM(nn.Module):
                 return_hidden: bool = False):
         """Logits (B, S, V) fp32, or the final fp32 hidden states (B, S, E)
         with ``return_hidden``.  ``deterministic=False`` applies dropout,
-        drawing one seed per block from ``generator`` (a CPU
-        ``torch.Generator``) before the block runs, so block remat
-        recomputes the same mask."""
+        drawing one seed per block from ``generator`` (the step's
+        ``DropoutKey``, or a CPU ``torch.Generator``) before the block
+        runs, so block remat recomputes the same mask (the forward draws
+        no other random numbers, so remat keeps no RNG state)."""
         cfg = self.cfg
         # gather, then cast: the same values as casting the whole table
         x = self.wte.weight[input_ids].to(cfg.dtype)
@@ -271,10 +272,10 @@ class GPTLM(nn.Module):
                 continue
             seed = None
             if not deterministic and cfg.dropout_rate:
-                seed = int(torch.randint(2**62, (), generator=generator))
+                seed = draw_seed(generator)
             if remat:
                 x = checkpoint(block, x, positions, tabs, None, seed,
-                               use_reentrant=False)
+                               use_reentrant=False, preserve_rng_state=False)
             else:
                 x = block(x, positions, tabs, None, seed)
         x = self.ln_f(x)

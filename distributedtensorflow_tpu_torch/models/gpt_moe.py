@@ -29,7 +29,7 @@ from .gpt import (
     _target_count,
     rope_tables,
 )
-from .layers import FusedLayerNorm
+from .layers import FusedLayerNorm, draw_seed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,7 +114,7 @@ class MoEGPTBlock(nn.Module):
         h = self.ln1(x)
         if self.cfg.remat_attn and torch.is_grad_enabled():
             a = checkpoint(self.attn, h, positions, rope_tabs, None,
-                           use_reentrant=False)
+                           use_reentrant=False, preserve_rng_state=False)
         else:
             a = self.attn(h, positions, rope_tabs, None)
         x = x + a
@@ -173,9 +173,10 @@ class GPTMoELM(nn.Module):
             if not moe:
                 seed = None
                 if not deterministic and cfg.dropout_rate:
-                    seed = int(torch.randint(2**62, (), generator=generator))
+                    seed = draw_seed(generator)
                 args += (None, seed)
-            out = checkpoint(block, *args, use_reentrant=False) if remat \
+            out = checkpoint(block, *args, use_reentrant=False,
+                             preserve_rng_state=False) if remat \
                 else block(*args)
             if moe:
                 x, aux = out

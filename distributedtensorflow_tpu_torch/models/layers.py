@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.dropout import dropout as _dropout
 from ..ops.layernorm import layer_norm
 from ..parallel.collectives import (
     all_gather,
@@ -290,14 +291,41 @@ class BatchNorm(nn.Module):
         return (_plain_batch_norm if cpu else batch_norm_cuda)(*args)
 
 
-def dropout(x: torch.Tensor, rate: float, seed: int | None) -> torch.Tensor:
+class DropoutKey:
+    """A microbatch's dropout key: one base seed (a Python int, or an
+    int64 tensor of one element on the model's device, which a CUDA graph
+    reads where the host writes each replay's seeds) and a count of the
+    sites that drew from it.  Each :func:`draw_seed` takes the next site,
+    so the forward's dropout calls draw distinct masks from one seed."""
+
+    def __init__(self, seed):
+        self.seed = seed
+        self.sites = 0
+
+    def draw(self) -> tuple:
+        site = self.sites
+        self.sites += 1
+        return self.seed, site
+
+
+def draw_seed(generator):
+    """The next dropout site's seed: ``(seed, site)`` from a
+    :class:`DropoutKey` (what the train step passes), or a fresh int from
+    a CPU ``torch.Generator``."""
+    if isinstance(generator, DropoutKey):
+        return generator.draw()
+    return int(torch.randint(2**62, (), generator=generator))
+
+
+def dropout(x: torch.Tensor, rate: float, seed) -> torch.Tensor:
     """flax ``nn.Dropout``: keep each element with probability
-    ``1 - rate`` and scale the kept ones by ``1 / (1 - rate)``.  The bits
-    come from a generator on ``x``'s device seeded with ``seed``, so a
-    recomputation (block remat) draws the same mask; ``seed=None`` or
-    ``rate=0`` is the identity."""
+    ``1 - rate`` and scale the kept ones by ``1 / (1 - rate)``.  The mask
+    is a function of ``seed`` (an int, or a ``(seed, site)`` pair from
+    :func:`draw_seed`) and the element index (:mod:`..ops.dropout`: the
+    kernel ``csrc/dropout.cu`` on the card), so a recomputation (block
+    remat) draws the same mask; ``seed=None`` or ``rate=0`` is the
+    identity."""
     if seed is None or not rate:
         return x
-    g = torch.Generator(device=x.device).manual_seed(seed)
-    keep = torch.rand(x.shape, generator=g, device=x.device) >= rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+    seed, site = seed if isinstance(seed, tuple) else (seed, 0)
+    return _dropout(x, rate, seed, site)

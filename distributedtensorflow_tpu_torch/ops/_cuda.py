@@ -11,7 +11,12 @@ failed build raises: there is no plain-path fallback.
 
 ``launches`` counts kernel launches by name.  Each wrapper adds one
 where it launches its kernel, and nowhere else, so a run can show that
-its path went through the kernels.
+its path went through the kernels.  A CUDA graph replays launches
+without calling the wrappers: ``train.engine.make_multi_train_step``
+takes out what its capture counted and adds it back on every replay
+(:func:`captured_launches`).  Every launcher takes the current PyTorch
+stream (:func:`stream_handle`), which under a capture is the capturing
+stream.
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 KERNELS = ("layernorm_fwd", "decode_attention", "layernorm_bwd", "flash_fwd",
-           "flash_bwd", "flash_bwd_fused", "fused_xent_fwd", "fused_xent_bwd")
+           "flash_bwd", "flash_bwd_fused", "fused_xent_fwd", "fused_xent_bwd",
+           "dropout")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -133,3 +139,26 @@ def stream_handle(device) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+class captured_launches:
+    """Context manager: the launches counted inside it (a CUDA-graph
+    capture, which runs nothing) are taken out of ``launches`` and kept
+    in ``self.counts``, which :meth:`replayed` adds back once a replay."""
+
+    def __enter__(self):
+        self._before = collections.Counter(launches)
+        self.counts = collections.Counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.counts = collections.Counter(launches)
+        self.counts.subtract(self._before)
+        self.counts = +self.counts
+        launches.subtract(self.counts)
+        for name in [n for n, c in launches.items() if c == 0]:
+            if name not in self._before:
+                del launches[name]
+
+    def replayed(self) -> None:
+        launches.update(self.counts)

@@ -76,7 +76,11 @@ def _global_view(masks, frac_tokens, token_mask, group):
     ``share`` this rank's weight in a global mean over real tokens (its
     count over the global count).  One gather of per-rank counts."""
     t = masks[0].shape[0]
-    count = masks[0].new_tensor([float(t)]) if token_mask is None \
+    # a fill, not a copy from the host: the routing reads nothing on the
+    # host and puts nothing on the card but through kernels, so a CUDA
+    # graph captures it (capacities come from static token counts)
+    count = torch.full((1,), float(t), dtype=masks[0].dtype,
+                       device=masks[0].device) if token_mask is None \
         else token_mask.float().sum().reshape(1)
     local = torch.cat([torch.stack([m.sum(0) for m in masks]).flatten(),
                        frac_tokens, count])

@@ -4,10 +4,13 @@ Trainer's fit loop."""
 from .engine import (  # noqa: F401
     accumulate_gradients,
     accumulate_gradients_dp,
+    dropout_keys,
     make_eval_step,
+    make_multi_train_step,
     make_train_step,
     split_microbatches,
     step_generator,
+    step_seed,
 )
 from .losses import classification_eval, classification_loss  # noqa: F401
 from .optimizers import (  # noqa: F401

@@ -17,26 +17,36 @@ the ``compile_<kind>`` span (the goodput ledger's ``compile`` bucket),
 the ``engine_first_dispatch_s{kind}`` gauge and the ``compile_begin`` /
 ``compile`` flight events.
 
+:func:`make_multi_train_step` is the twin of ``make_multi_train_step``
+(``:288-345``): k optimizer steps in one call, a loop on the CPU and one
+replayed CUDA graph of the k steps on the card (:class:`_GraphedSteps`).
+
 Loss-function contract: ``loss_fn(batch, generator) -> (loss, metrics)``
-with ``batch`` a dict of (B, ...) tensors, ``generator`` a CPU
-``torch.Generator`` for dropout, ``loss`` a scalar tensor and
-``metrics`` a dict of scalar tensors.  JAX's contract also returns the
-new model state (``batch_stats``); here BatchNorm's running statistics
-are module buffers that each training forward updates in place, so the
-microbatches, run one after another, update them once each in order, as
-the JAX scan threads ``model_state`` through them.
+with ``batch`` a dict of (B, ...) tensors, ``generator`` the
+microbatch's :class:`~..models.layers.DropoutKey` (its seed, from
+:func:`step_seed`, in device memory on the card), ``loss`` a scalar
+tensor and ``metrics`` a dict of scalar tensors.  JAX's contract also
+returns the new model state (``batch_stats``); here BatchNorm's running
+statistics are module buffers that each training forward updates in
+place, so the microbatches, run one after another, update them once each
+in order, as the JAX scan threads ``model_state`` through them.
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import time
 
 import numpy as np
 import torch
 
 from .. import obs
+from ..models.layers import DropoutKey
+from ..ops import _cuda
 from ..parallel import collectives
 from ..parallel.mesh import replica_index
+from .optimizers import schedule_rates
 from .state import TrainState
 
 
@@ -53,6 +63,32 @@ def step_generator(seed: int, step: int, micro: int = 0,
     return torch.Generator().manual_seed(int(state) >> 1)
 
 
+def step_seed(seed: int, step: int, micro: int = 0, rank: int = 0) -> int:
+    """The dropout seed of microbatch ``micro`` of step ``step`` on replica
+    ``rank``: one draw from :func:`step_generator`.  Every dropout site of
+    the microbatch's forward draws its mask from this seed and its own
+    site index (:class:`~..models.layers.DropoutKey`)."""
+    return int(torch.randint(2**62, (), generator=step_generator(
+        seed, step, micro, rank)))
+
+
+def dropout_keys(seed: int, step: int, accum_steps: int, rank: int = 0,
+                 device=None) -> list[DropoutKey]:
+    """One :class:`DropoutKey` per microbatch of step ``step``; on a CUDA
+    ``device`` the seeds go to the card in one copy from pinned memory
+    (no host sync)."""
+    seeds = [step_seed(seed, step, i, rank) for i in range(accum_steps)]
+    if device is None or torch.device(device).type != "cuda":
+        return [DropoutKey(s) for s in seeds]
+    table = torch.tensor(seeds, dtype=torch.int64).pin_memory().to(
+        device, non_blocking=True)
+    return [DropoutKey(table[i:i + 1]) for i in range(accum_steps)]
+
+
+def _device_of(model: torch.nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
 def split_microbatches(batch: dict, accum_steps: int) -> list[dict]:
     """Each leaf (B, ...) cut into ``accum_steps`` (B // accum_steps, ...)
     microbatches."""
@@ -64,15 +100,14 @@ def split_microbatches(batch: dict, accum_steps: int) -> list[dict]:
             for i in range(accum_steps)]
 
 
-def _microbatch_grads(loss_fn, model, batch, seed, step, accum_steps,
-                      rank=0):
+def _microbatch_grads(loss_fn, model, batch, keys, accum_steps):
     """``(names, grads, metrics)``: the parameters' names, their gradients
     summed over the microbatches, and each microbatch's metrics with its
-    loss."""
+    loss; microbatch ``i`` draws its dropout from ``keys[i]``."""
     names, params = zip(*model.named_parameters())
     grads, metrics = None, []
     for i, mb in enumerate(split_microbatches(batch, accum_steps)):
-        loss, m = loss_fn(mb, step_generator(seed, step, i, rank))
+        loss, m = loss_fn(mb, keys[i])
         gs = torch.autograd.grad(loss, params, allow_unused=True,
                                  materialize_grads=True)
         grads = list(gs) if grads is None else \
@@ -96,11 +131,15 @@ def _average(names, grads, metrics, accum_steps):
 
 
 def accumulate_gradients(loss_fn, model: torch.nn.Module, batch: dict, *,
-                         seed: int, step: int, accum_steps: int = 1):
+                         seed: int, step: int, accum_steps: int = 1,
+                         keys=None):
     """``(grads, metrics)``: gradients by parameter name and the metrics
     (with ``loss``), each summed over the microbatches and then divided
-    by their count, as the JAX scan does."""
-    return _average(*_microbatch_grads(loss_fn, model, batch, seed, step,
+    by their count, as the JAX scan does.  ``keys``: the microbatches'
+    dropout keys (default :func:`dropout_keys` of ``seed`` and ``step``)."""
+    if keys is None:
+        keys = dropout_keys(seed, step, accum_steps, 0, _device_of(model))
+    return _average(*_microbatch_grads(loss_fn, model, batch, keys,
                                        accum_steps), accum_steps)
 
 
@@ -115,7 +154,7 @@ def _finalize(metrics: dict) -> dict:
 
 def accumulate_gradients_dp(loss_fn, model: torch.nn.Module, batch: dict,
                             mesh, *, seed: int, step: int,
-                            accum_steps: int = 1):
+                            accum_steps: int = 1, keys=None):
     """:func:`accumulate_gradients` for one rank of a data-parallel mesh:
     the global ``(grads, metrics)`` of JAX's step on the global batch.
 
@@ -133,8 +172,11 @@ def accumulate_gradients_dp(loss_fn, model: torch.nn.Module, batch: dict,
     Then both are averaged over the microbatches.  For a world of one the
     shares are the losses themselves and this is
     :func:`accumulate_gradients` bit for bit."""
+    if keys is None:
+        keys = dropout_keys(seed, step, accum_steps, replica_index(mesh),
+                            _device_of(model))
     names, grads, shares = _microbatch_grads(
-        loss_fn, model, batch, seed, step, accum_steps, replica_index(mesh))
+        loss_fn, model, batch, keys, accum_steps)
     keys = list(shares[0])
     table = torch.stack([torch.stack([s[k].float() for k in keys])
                          for s in shares])  # (accum, metrics)
@@ -186,6 +228,21 @@ class _InstrumentedStep:
         return self._fn(*args)
 
 
+def _train_one(loss_fn, state: TrainState, batch: dict, keys, *,
+               accum_steps: int, seed: int, mesh):
+    """One optimizer step of ``state`` on ``batch``: the body of the
+    single step and of every step of a multi-step call."""
+    if mesh is None:
+        grads, metrics = accumulate_gradients(
+            loss_fn, state.model, batch, seed=seed, step=state.step,
+            accum_steps=accum_steps, keys=keys)
+    else:
+        grads, metrics = accumulate_gradients_dp(
+            loss_fn, state.model, batch, mesh, seed=seed, step=state.step,
+            accum_steps=accum_steps, keys=keys)
+    return state.apply_gradients(grads), metrics
+
+
 def make_train_step(loss_fn, *, accum_steps: int = 1, seed: int = 0,
                     mesh=None):
     """``step(state, batch) -> (state, metrics)``: gradients of
@@ -196,17 +253,211 @@ def make_train_step(loss_fn, *, accum_steps: int = 1, seed: int = 0,
     global gradients."""
 
     def step(state: TrainState, batch: dict):
-        if mesh is None:
-            grads, metrics = accumulate_gradients(
-                loss_fn, state.model, batch, seed=seed, step=state.step,
-                accum_steps=accum_steps)
-        else:
-            grads, metrics = accumulate_gradients_dp(
-                loss_fn, state.model, batch, mesh, seed=seed,
-                step=state.step, accum_steps=accum_steps)
-        return state.apply_gradients(grads), metrics
+        return _train_one(loss_fn, state, batch, None,
+                          accum_steps=accum_steps, seed=seed, mesh=mesh)
 
     return _InstrumentedStep(step, "train_step")
+
+
+def _stack_metrics(metrics: list[dict]) -> dict:
+    return {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
+
+
+class _GraphedSteps:
+    """``k`` optimizer steps a call, ``call(state, bundle) -> (state,
+    metrics)`` with ``bundle`` leaves (k', B, ...) for k' <= k and the
+    metrics stacked (k',).
+
+    A CPU state runs k' single steps in a loop.  A CUDA state runs its
+    first call's k' steps eagerly (real steps: the kernels load, cuBLAS
+    and NCCL start, the optimizer makes its moments, the allocator
+    fills), under ``torch.cuda.set_sync_debug_mode("error")``, so a step
+    that reads the card on the host fails there, by name; then it
+    captures a CUDA graph of k' steps (a capture runs nothing).  Every
+    later call replays the graph of its k' steps, captured at its first
+    use if the first call did not (a short tail's graph shares the first
+    one's memory pool).  Before a replay the host copies the bundle into
+    the graph's static (k, B, ...) inputs, the k' steps' dropout seeds
+    (:func:`step_seed`, drawn on the host as the single step draws them)
+    and learning rates (the optimizer's :class:`~.optimizers.RateTable`)
+    into theirs; after it, ``state.step`` and the schedule count advance
+    by k' on the host and the call returns a fresh copy of the graph's
+    metrics table (the next replay overwrites the table, and the Trainer
+    reads metrics only at log steps).  A graph is captured again when
+    the state's tensors are no longer the ones it captured (a restore
+    that replaced the optimizer's moments).  A capture that fails
+    raises: there is no eager fallback on the card.
+
+    The graph captures the launches the eager steps make, so its steps
+    compute the single step's bits.  ``ops._cuda.launches`` counts what
+    the capture counted once a replay (``captured_launches``).  The
+    data-parallel step's packed all-reduce is captured under NCCL; gloo
+    moves CUDA tensors through the host, which a graph cannot hold, so a
+    gloo group over CUDA tensors raises."""
+
+    def __init__(self, loss_fn, steps_per_call, accum_steps, seed, mesh):
+        self.k = steps_per_call
+        self.loss_fn, self.accum, self.seed, self.mesh = (
+            loss_fn, accum_steps, seed, mesh)
+        self.rank = 0 if mesh is None else replica_index(mesh)
+        self._warm = False
+        self._graphs: dict[int, tuple] = {}
+        self._pool = None
+        self._inputs: dict[str, torch.Tensor] | None = None
+        self._seeds: torch.Tensor | None = None
+        self._captured_on = None
+
+    def _one(self, state, batch, keys=None):
+        return _train_one(self.loss_fn, state, batch, keys,
+                          accum_steps=self.accum, seed=self.seed,
+                          mesh=self.mesh)
+
+    def _loop(self, state, bundle, k):
+        metrics = []
+        for i in range(k):
+            state, m = self._one(state, {n: x[i] for n, x in bundle.items()})
+            metrics.append(m)
+        return state, _stack_metrics(metrics)
+
+    def __call__(self, state: TrainState, bundle: dict):
+        k = next(iter(bundle.values())).shape[0]
+        if not 0 < k <= self.k:
+            raise ValueError(f"a bundle of {k} steps for steps_per_call="
+                             f"{self.k}")
+        device = _device_of(state.model)
+        if device.type != "cuda":
+            return self._loop(state, bundle, k)
+        group = collectives.resolve_group(self.mesh)
+        if group is not None and group.name() != "nccl":
+            raise RuntimeError(
+                f"steps_per_call > 1 on CUDA tensors needs an NCCL process "
+                f"group, got {group.name()}: a CUDA graph cannot capture "
+                f"collectives that move tensors through the host")
+        if not self._warm:
+            previous = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = self._loop(state, bundle, k)
+            finally:
+                torch.cuda.set_sync_debug_mode(previous)
+            self._warm = True
+            self._capture(state, bundle, k, device)
+            return out
+        if self._captured_on != self._addresses(state):
+            self._graphs.clear()
+            self._pool = None
+        if k not in self._graphs:
+            self._capture(state, bundle, k, device)
+        graph, table, keys, counts = self._graphs[k]
+        self._fill(state, bundle, k, device)
+        graph.replay()
+        counts.replayed()
+        state.advance(k)
+        table = table.clone()
+        return state, {name: table[:, j] for j, name in enumerate(keys)}
+
+    def _addresses(self, state) -> tuple:
+        """Where the state's tensors live: a graph reads and writes these
+        addresses, so a state that moved is captured again."""
+        opt = state.optimizer
+        tensors = [*state.model.parameters(), *state.model.buffers()]
+        tensors += [v for st in opt.state.values() for v in st.values()
+                    if torch.is_tensor(v)]
+        rates = getattr(opt, "rates", None)
+        if rates is not None:
+            tensors.append(rates.table)
+        return tuple(t.data_ptr() for t in tensors)
+
+    def _fill(self, state, bundle, k, device):
+        """The replay's inputs into the graph's static buffers, each one
+        copy that does not block the host."""
+        for name, x in bundle.items():
+            want = self._inputs[name]
+            if x.shape[1:] != want.shape[1:] or x.dtype != want.dtype:
+                raise ValueError(
+                    f"bundle leaf {name!r} is {tuple(x.shape[1:])} "
+                    f"{x.dtype} a step, the captured steps take "
+                    f"{tuple(want.shape[1:])} {want.dtype}")
+            if x.device.type == "cpu":
+                x = x.pin_memory()
+            want[:k].copy_(x, non_blocking=True)
+        seeds = [[step_seed(self.seed, state.step + i, a, self.rank)
+                  for a in range(self.accum)] for i in range(k)]
+        host = torch.tensor(seeds, dtype=torch.int64).pin_memory()
+        self._seeds[:k].copy_(host, non_blocking=True)
+        opt = state.optimizer
+        rates = schedule_rates(opt, k)
+        if rates is not None and getattr(opt, "rates", None) is not None:
+            opt.rates.fill(rates)
+
+    def _capture(self, state, bundle, k, device):
+        opt = state.optimizer
+        table = getattr(opt, "rates", None)
+        if self._inputs is None:
+            # every graph of this call reads these buffers; made once, at
+            # the full k, before the first capture
+            self._inputs = {n: torch.empty((self.k, *x.shape[1:]),
+                                           dtype=x.dtype, device=device)
+                            for n, x in bundle.items()}
+            self._seeds = torch.zeros((self.k, self.accum), dtype=torch.int64,
+                                      device=device)
+            if table is not None:
+                table.reserve(self.k)
+        step0 = state.step
+        counts0 = [g.get("count") for g in opt.param_groups]
+        graph = torch.cuda.CUDAGraph()
+        metrics = []
+        # no garbage collection inside the capture: an unreachable graph
+        # (an earlier run's, held by a reference cycle) freed there would
+        # release its memory pool with CUDA calls that end the capture
+        gc.collect()
+        gc_was_enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with _cuda.captured_launches() as counts, \
+                    torch.cuda.graph(graph, pool=self._pool,
+                                     # the Prefetcher's thread copies on
+                                     capture_error_mode="thread_local"), \
+                    (table.capturing() if table is not None
+                     else contextlib.nullcontext()):
+                for i in range(k):
+                    keys = [DropoutKey(self._seeds[i, a:a + 1])
+                            for a in range(self.accum)]
+                    state, m = self._one(
+                        state, {n: x[i] for n, x in self._inputs.items()},
+                        keys)
+                    metrics.append(m)
+                names = list(metrics[0])
+                out = torch.stack([torch.stack([m[n].float() for n in names])
+                                   for m in metrics])
+        finally:
+            if gc_was_enabled:
+                gc.enable()
+            # the capture ran nothing: the host's record of the steps goes
+            # back to where it was
+            state.step = step0
+            for group, count in zip(opt.param_groups, counts0):
+                if count is not None:
+                    group["count"] = count
+        self._pool = graph.pool()
+        self._graphs[k] = (graph, out, names, counts)
+        self._captured_on = self._addresses(state)
+
+
+def make_multi_train_step(loss_fn, *, steps_per_call: int,
+                          accum_steps: int = 1, seed: int = 0, mesh=None):
+    """``steps_per_call`` optimizer steps in one call (:class:`_GraphedSteps`):
+    the bundle's leaves are (k, B, ...), one batch a step, and the
+    metrics come back stacked (k,).  The steps follow the single step's
+    trajectory exactly: the same dropout seeds (step, microbatch, rank)
+    and learning rates.  ``steps_per_call <= 1`` is :func:`make_train_step`
+    (the reference's ``:302-307``)."""
+    if steps_per_call <= 1:
+        return make_train_step(loss_fn, accum_steps=accum_steps, seed=seed,
+                               mesh=mesh)
+    return _InstrumentedStep(
+        _GraphedSteps(loss_fn, steps_per_call, accum_steps, seed, mesh),
+        "multi_train_step")
 
 
 def make_eval_step(metric_fn, mesh=None):

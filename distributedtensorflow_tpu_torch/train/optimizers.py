@@ -8,17 +8,28 @@ optimizers (:func:`adamw`, a ``torch.optim.AdamW``; :func:`sgd` and
 :func:`build_optimizer`, :func:`exclude_bias_and_norm_mask`), with the
 JAX module's names, choices and validation (``:14-167``).
 
-Each optimizer matches its optax twin update for update: sgd and
-nesterov momentum are ``torch.optim.SGD``, adam and adamw the one
-AdamW (adam without decay), adagrad is written out (:class:`Adagrad`)
-because torch's starts its accumulator and places eps elsewhere.  A
-step pre-hook adds optax's chain head to each: the learning rate of
-optax's count (the first update uses ``lr(0)``) and
-``clip_by_global_norm``.  The count lives in the optimizer's parameter
-groups (``"count"``), so ``state_dict()`` saves it and
-``load_state_dict()`` restores it: a resumed optimizer goes on with the
-schedule where the saved one stopped.  lamb, lars, adafactor and lion are queued in
-ROADMAP.md and raise.
+Each optimizer matches its optax twin update for update: adam and adamw
+are the one AdamW (adam without decay); sgd and nesterov momentum
+(:class:`SGD`) and adagrad (:class:`Adagrad`) are written out, because
+torch's SGD reads a tensor learning rate on the host and torch's Adagrad
+starts its accumulator and places eps elsewhere.  A step pre-hook adds
+optax's chain head to each: the learning rate of optax's count (the first
+update uses ``lr(0)``) and ``clip_by_global_norm``.  The count lives in
+the optimizer's parameter groups (``"count"``), so ``state_dict()`` saves
+it and ``load_state_dict()`` restores it: a resumed optimizer goes on with
+the schedule where the saved one stopped.  lamb, lars, adafactor and lion
+are queued in ROADMAP.md and raise.
+
+On the card every update can be captured in a CUDA graph
+(``train.engine.make_multi_train_step``): a schedule's learning rate is
+a slot of a device table (:class:`RateTable`, the optimizer's ``rates``)
+that the update reads, which the pre-hook fills with ``lr(count)`` before
+an eager update and the host fills with the next k rates before a
+replay (a constant rate stays a Python float: the graph holds it as it
+is); AdamW is ``capturable`` (its step counts on the device), and
+clipping chooses on the device.  Outside an update the groups' ``"lr"``
+is the Python float of the last update, as on the CPU, where the rates
+stay floats.  An eager update and a replayed one run the same code.
 
 Parameters are passed as an iterable of tensors or of ``(name,
 tensor)`` pairs (``model.named_parameters()``); a weight-decay mask needs
@@ -27,6 +38,7 @@ the names.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable
 
@@ -76,7 +88,9 @@ def adamw(params, learning_rate: float = 3e-4, *, b1: float = 0.9,
     the Adam term does not read them).  optax's defaults: ``weight_decay
     1e-4``, decay on every parameter (``mask=None``); ``mask`` (see
     :func:`exclude_bias_and_norm_mask`) puts the parameters it leaves out
-    in a group without decay."""
+    in a group without decay.  On the card it is ``capturable`` (the
+    step counts and bias corrections on the device) and reads its
+    learning rate from a :class:`RateTable`."""
     names, tensors = _split_named(params)
     groups = [{"params": tensors}]
     if mask is not None:
@@ -84,8 +98,67 @@ def adamw(params, learning_rate: float = 3e-4, *, b1: float = 0.9,
         groups = [{"params": [p for p, f in zip(tensors, flags) if f]},
                   {"params": [p for p, f in zip(tensors, flags) if not f],
                    "weight_decay": 0.0}]
-    return torch.optim.AdamW(groups, lr=learning_rate, betas=(b1, b2),
-                             eps=eps, weight_decay=weight_decay)
+    cuda = bool(tensors) and tensors[0].is_cuda
+    opt = torch.optim.AdamW(groups, lr=learning_rate, betas=(b1, b2),
+                            eps=eps, weight_decay=weight_decay,
+                            capturable=cuda)
+    # an eager step of a capturable optimizer warns once; the port runs
+    # the same update eagerly and under capture on purpose
+    opt._warned_capturable_if_run_uncaptured = True
+    return opt
+
+
+class RateTable:
+    """The learning rates of an optimizer on the card, in device memory
+    where its update reads them (fp32 slots).  An eager update takes slot
+    0, filled by a kernel with the host's rate; inside :meth:`capturing`
+    the i-th update of the capture reads slot i, which the caller fills
+    (:meth:`fill`) before each replay."""
+
+    def __init__(self, device, size: int = 1):
+        self.table = torch.zeros(size, dtype=torch.float32, device=device)
+        self._next: int | None = None
+
+    def reserve(self, size: int) -> None:
+        """At least ``size`` slots; only before a capture reads them."""
+        if self.table.numel() < size:
+            self.table = torch.zeros(size, dtype=torch.float32,
+                                     device=self.table.device)
+
+    def slot(self, rate: float) -> torch.Tensor:
+        if self._next is None:
+            out = self.table[0]
+            out.fill_(rate)
+            return out
+        out = self.table[self._next]
+        self._next += 1
+        return out
+
+    @contextlib.contextmanager
+    def capturing(self):
+        """The updates inside take slots 0, 1, ... in turn and write none
+        of them."""
+        self._next = 0
+        try:
+            yield
+        finally:
+            self._next = None
+
+    def fill(self, rates) -> None:
+        """Slots 0..len(rates)-1 from host floats, one copy from pinned
+        memory without a host sync (a fresh pinned block per call, so a
+        copy still queued is never overwritten)."""
+        host = torch.tensor(list(rates), dtype=torch.float32).pin_memory()
+        self.table[:len(rates)].copy_(host, non_blocking=True)
+
+
+def _descend(p: torch.Tensor, update: torch.Tensor, lr) -> None:
+    """``p -= lr * update`` for a float ``lr`` or a one-element tensor on
+    ``p``'s device (read there, never on the host)."""
+    if torch.is_tensor(lr):
+        p.addcmul_(update, lr, value=-1.0)
+    else:
+        p.add_(update, alpha=-lr)
 
 
 # ------------------------------------------------------------------ schedules
@@ -200,24 +273,100 @@ def _clip_by_global_norm(grads: list[torch.Tensor], clipnorm: float) -> None:
         g.copy_(torch.where(norm < clipnorm, g, g / norm * clipnorm))
 
 
-def _optax_prelude(lr, clipnorm: float):
-    """A step pre-hook that gives a torch optimizer optax's chain head:
-    the learning rate of optax's count (the first update uses ``lr(0)``)
-    and, for ``clipnorm > 0``, clipping by the global norm.  The count
-    of updates so far is ``"count"`` in every parameter group, state that
-    ``state_dict()`` carries."""
+def learning_rate(lr, count: int) -> float:
+    """The rate of update ``count`` (from 0) of a schedule or constant."""
+    return lr(count) if callable(lr) else lr
 
-    def hook(opt, args, kwargs):
+
+def _optax_prelude(opt, lr, clipnorm: float):
+    """Give a torch optimizer optax's chain head, as a step pre-hook and a
+    post-hook: the learning rate of optax's count (the first update uses
+    ``lr(0)``) and, for ``clipnorm > 0``, clipping by the global norm.
+    The count of updates so far is ``"count"`` in every parameter group,
+    state that ``state_dict()`` carries.  On the card a schedule's update
+    reads its rate from ``opt.rates`` (a :class:`RateTable`), and each
+    group's ``"lr"`` is the host float again afterwards; a constant rate
+    stays a float, which a CUDA graph may hold as it is."""
+    params = [p for group in opt.param_groups for p in group["params"]]
+    opt.rates = RateTable(params[0].device) \
+        if callable(lr) and params and params[0].is_cuda else None
+
+    def pre(opt, args, kwargs):
         count = opt.param_groups[0].get("count", 0)
+        rate = learning_rate(lr, count)
+        value = rate if opt.rates is None else opt.rates.slot(rate)
         for group in opt.param_groups:
-            group["lr"] = lr(count) if callable(lr) else lr
+            group["lr"] = value
             group["count"] = count + 1
         if clipnorm:
             _clip_by_global_norm([p.grad for group in opt.param_groups
                                   for p in group["params"]
                                   if p.grad is not None], clipnorm)
 
-    return hook
+    def post(opt, args, kwargs):
+        rate = learning_rate(lr, opt.param_groups[0]["count"] - 1)
+        for group in opt.param_groups:
+            group["lr"] = rate
+
+    opt.register_step_pre_hook(pre)
+    opt.register_step_post_hook(post)
+    opt.schedule = lr
+    return opt
+
+
+def schedule_rates(opt, k: int) -> list[float] | None:
+    """The learning rates of ``opt``'s next ``k`` updates (optax's counts
+    ``count .. count + k - 1``), or None for an optimizer without optax's
+    chain head (its rate is a constant of its groups)."""
+    lr = getattr(opt, "schedule", None)
+    if lr is None:
+        return None
+    count = opt.param_groups[0].get("count", 0)
+    return [learning_rate(lr, count + i) for i in range(k)]
+
+
+def advance_schedule(opt, k: int) -> None:
+    """What ``k`` pre- and post-hooks would leave: the count ``k`` further
+    and each group's ``"lr"`` the rate of the last of those updates (a
+    replayed graph ran the updates without the hooks)."""
+    lr = getattr(opt, "schedule", None)
+    if lr is None:
+        return
+    count = opt.param_groups[0].get("count", 0) + k
+    for group in opt.param_groups:
+        group["count"] = count
+        group["lr"] = learning_rate(lr, count - 1)
+
+
+class SGD(torch.optim.Optimizer):
+    """``optax.sgd``: optax's trace is ``g + momentum * trace`` (torch's
+    momentum buffer, the first one ``g``), nesterov adds ``momentum *
+    trace`` to ``g`` once more, and the parameters move by ``-lr`` times
+    that.  Written out because torch's SGD reads a tensor learning rate
+    on the host; the state keeps torch's ``momentum_buffer``."""
+
+    def __init__(self, params, lr, momentum: float = 0.0,
+                 nesterov: bool = False):
+        super().__init__(params, {"lr": lr, "momentum": momentum,
+                                  "nesterov": nesterov})
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            mu = group["momentum"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                if mu:
+                    st = self.state[p]
+                    buf = st.get("momentum_buffer")
+                    if buf is None:
+                        buf = st["momentum_buffer"] = g.clone()
+                    else:
+                        buf.mul_(mu).add_(g)
+                    g = g.add(buf, alpha=mu) if group["nesterov"] else buf
+                _descend(p, g, group["lr"])
 
 
 class Adagrad(torch.optim.Optimizer):
@@ -234,33 +383,31 @@ class Adagrad(torch.optim.Optimizer):
                 if p.grad is None:
                     continue
                 g, st = p.grad, self.state[p]
-                sos = g * g + st.get("sos", torch.full_like(p, 0.1))
-                st["sos"] = sos
+                if "sos" not in st:
+                    st["sos"] = torch.full_like(p, 0.1)
+                sos = st["sos"].addcmul_(g, g)
                 u = torch.where(sos > 0, torch.rsqrt(sos + 1e-7), 0.0) * g
-                p.add_(u, alpha=-group["lr"])
+                _descend(p, u, group["lr"])
 
 
 def sgd(params, learning_rate: float | Schedule, *,
         momentum: float | None = None, nesterov: bool = False,
         global_clipnorm: float = 0.0) -> torch.optim.Optimizer:
-    """``optax.sgd``: ``torch.optim.SGD`` (optax's trace is torch's
-    momentum buffer, ``g + momentum * buf``) behind optax's chain head
+    """``optax.sgd`` (:class:`SGD`) behind optax's chain head
     (:func:`_optax_prelude`: the learning rate of optax's count when
     ``learning_rate`` is a schedule, clipping for ``global_clipnorm``)."""
     lr0 = learning_rate(0) if callable(learning_rate) else learning_rate
-    opt = torch.optim.SGD(_split_named(params)[1], lr=lr0,
-                          momentum=momentum or 0.0, nesterov=nesterov)
-    opt.register_step_pre_hook(_optax_prelude(learning_rate, global_clipnorm))
-    return opt
+    opt = SGD(_split_named(params)[1], lr=lr0, momentum=momentum or 0.0,
+              nesterov=nesterov)
+    return _optax_prelude(opt, learning_rate, global_clipnorm)
 
 
 def adagrad(params, learning_rate: float | Schedule, *,
             global_clipnorm: float = 0.0) -> torch.optim.Optimizer:
     """``optax.adagrad`` (:class:`Adagrad`) behind optax's chain head."""
     lr0 = learning_rate(0) if callable(learning_rate) else learning_rate
-    opt = Adagrad(_split_named(params)[1], lr0)
-    opt.register_step_pre_hook(_optax_prelude(learning_rate, global_clipnorm))
-    return opt
+    return _optax_prelude(Adagrad(_split_named(params)[1], lr0),
+                          learning_rate, global_clipnorm)
 
 
 def build_optimizer(name: str, lr: float | Schedule, *,
@@ -300,7 +447,6 @@ def build_optimizer(name: str, lr: float | Schedule, *,
                        nesterov=nesterov, global_clipnorm=global_clipnorm)
         opt = adamw(params, lr(0) if callable(lr) else lr,
                     weight_decay=weight_decay, mask=decay_mask)
-        opt.register_step_pre_hook(_optax_prelude(lr, global_clipnorm))
-        return opt
+        return _optax_prelude(opt, lr, global_clipnorm)
 
     return make

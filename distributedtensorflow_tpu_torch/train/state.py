@@ -4,7 +4,10 @@ Twin of ``distributedtensorflow_tpu/train/state.py`` (``TrainState``,
 ``:29-50``).  JAX's state is an immutable pytree and ``apply_gradients``
 returns a new one; here the parameters and the optimizer's moments live
 in the model and the optimizer and are updated in place, which keeps one
-copy of each on the card.  ``apply_gradients`` returns the same state.
+copy of each on the card.  ``apply_gradients`` returns the same state;
+it is the one update of both the single step and every step of a
+multi-step call (a replayed CUDA graph of k updates is recorded on the
+host by :meth:`advance`).
 JAX's ``model_state`` (BatchNorm's ``batch_stats``) is the model's
 buffers here.  JAX's state is one global array per leaf; a data-parallel
 mesh here holds one replica a rank, made equal when the state is built
@@ -48,4 +51,14 @@ class TrainState:
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
         self.step += 1
+        return self
+
+    def advance(self, k: int) -> "TrainState":
+        """``step`` and the optimizer's schedule count ``k`` further: the
+        host's record of ``k`` updates that a replayed CUDA graph applied
+        without running :meth:`apply_gradients`'s Python."""
+        from .optimizers import advance_schedule
+
+        advance_schedule(self.optimizer, k)
+        self.step += k
         return self

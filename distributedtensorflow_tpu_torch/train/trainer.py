@@ -2,7 +2,8 @@
 carries.
 
 Twin of ``distributedtensorflow_tpu/train/trainer.py``: ``TrainerConfig``
-(``:32-173``), ``Callback`` (``:175``), ``Trainer`` (``:208-1030``),
+(``:32-173``), ``Callback`` (``:175``), ``Trainer`` (``:208-1030``; its
+bundled fit loop ``_fit_loop``, ``:555-680``),
 ``device_memory_stats`` (``:1032``) and ``weighted_evaluate``
 (``:1056``).  The loop is plain host Python, the same on one device or
 one rank of a data-parallel mesh: periodic logging, eval, checkpoints and
@@ -14,16 +15,18 @@ and the status server.
 What differs from JAX:
 
 - The step is the port's own, ``step(state, batch) -> (state,
-  metrics)``: dropout's bits come from ``train.engine.step_generator``,
-  so :meth:`Trainer.fit` takes no key.
+  metrics)``: dropout's bits come from ``train.engine.step_seed``, so
+  :meth:`Trainer.fit` takes no key.
 - The host runs ahead of the card, as JAX's dispatch does: ``metrics``
   stay device tensors until a log boundary reads them (the
   ``host_block`` span), so ``t_dispatch`` is the launch and ``t_host``
   the wait for the device.  The watchdog pings on dispatch.
-- ``steps_per_call`` > 1 and ``input_prebundled`` raise: bundling k steps
-  into one dispatch waits for a CUDA-graph capture of k steps (ROADMAP
-  item 4).  The input plane's record fields (``input_record_fields``)
-  wait for ``data/adaptive.py`` (item 11).
+- ``steps_per_call`` > 1 takes a multi-step function
+  (``train.engine.make_multi_train_step``: on the card one replayed CUDA
+  graph of k steps) and k stacked batches a call (``input_prebundled``:
+  the iterator yields them, as ``data.Prefetcher(bundle=k)`` does).  The
+  input plane's record fields (``input_record_fields``) wait for
+  ``data/adaptive.py`` (ROADMAP item 11).
 - The last step (``total_steps``) is a log boundary too, so a run whose
   length is not a multiple of ``log_every`` reports its last loss.
 - ``Callback.on_log`` is the port's addition: it hands each log record
@@ -43,6 +46,9 @@ import os
 import time
 from typing import Any, Callable, Iterable
 
+import numpy as np
+import torch
+
 from .. import obs
 from ..parallel import bootstrap
 from ..utils.metrics import MetricWriter, ThroughputMeter
@@ -58,9 +64,11 @@ class TrainerConfig:
     eval_every: int = 0  # 0 = no eval
     eval_steps: int = 10
     checkpoint_every: int = 0  # 0 = no checkpointing
-    #: Optimizer steps bundled into one dispatch: 1 only (not ported).
+    #: Optimizer steps a call of the train step (a multi-step function
+    #: for k > 1); hooks fire when a call crosses their period.
     steps_per_call: int = 1
-    #: The input yields (steps_per_call, B, ...) bundles: not ported.
+    #: The input yields (steps_per_call, B, ...) bundles (a short tail is
+    #: trained, not dropped).
     input_prebundled: bool = False
     global_batch_size: int = 0
     logdir: str | None = None
@@ -124,11 +132,9 @@ class TrainerConfig:
     dynamics_every: int = 0
 
     def __post_init__(self):
-        if self.steps_per_call != 1 or self.input_prebundled:
-            raise NotImplementedError(
-                "steps_per_call > 1 / input_prebundled is not ported: "
-                "bundling steps into one dispatch waits for a CUDA-graph "
-                "capture of k steps (ROADMAP.md item 4)")
+        if self.steps_per_call < 1:
+            raise ValueError(
+                f"steps_per_call must be >= 1, got {self.steps_per_call}")
         if self.dynamics_every < 0:
             raise ValueError(
                 f"dynamics_every must be >= 0, got {self.dynamics_every}")
@@ -456,9 +462,15 @@ class Trainer:
     def _fit_loop(self, state, it, eval_iter_fn, watchdog=None):
         cfg = self.config
         start_step = int(state.step)
+        # steps_per_call > 1: self.train_step takes k stacked batches a
+        # call (engine.make_multi_train_step) and every hook below fires
+        # on a BOUNDARY CROSSING of its period, which at k = 1 is the
+        # classic step % every == 0.  The last call is cut to the steps
+        # left, so total_steps is exact; a hook reacts up to k steps late.
+        k = max(1, cfg.steps_per_call)
 
-        def every(step, period):
-            return period and step % period == 0
+        def crosses(lo, hi, every):  # does (lo, hi] hold a multiple?
+            return bool(every) and hi // every > lo // every
 
         # the profile window is relative to THIS run's first step, so a
         # resumed run past profile_start still gets its trace
@@ -471,24 +483,30 @@ class Trainer:
         try:
             step_i = start_step
             while step_i < cfg.total_steps:
+                k_eff = min(k, cfg.total_steps - step_i)
                 # the capture opens BEFORE the batch fetch so the profile
                 # holds input-pipeline time too
                 if self.capture is not None:
-                    self.capture.maybe_start(step_i, 1)
+                    self.capture.maybe_start(step_i, k_eff)
                 if self.tracer is not None:
-                    self.tracer.begin_step(step_i + 1, 1)
+                    self.tracer.begin_step(step_i + k_eff, k_eff)
                 # data_wait is a plain-class span: StopIteration from
                 # next(it) ends the fit and must escape unchanged
                 with obs.span("data_wait"):
-                    batch = next(it)
+                    batch, k_eff = self._next_batch(it, k, k_eff)
+                step = step_i + k_eff
+                if self.tracer is not None:
+                    # a short prebundled tail shrank the call
+                    self.tracer.adjust_step(step, k_eff)
                 with obs.span("train_step"):
                     state, metrics = self.train_step(state, batch)
-                step = step_i + 1
-                self.meter.update(1)
+                if k > 1:  # stacked (k_eff,) metrics: report the last
+                    metrics = {name: v[-1] for name, v in metrics.items()}
+                self.meter.update(k_eff)
                 self._last_step = step
                 if self.flight is not None:
                     # dispatch returned; the card may still be computing
-                    self.flight.record("step", step=step, k=1)
+                    self.flight.record("step", step=step, k=k_eff)
                 for cb in self.callbacks:
                     cb.on_step_end(self, step, state, metrics)
                 if watchdog is not None:
@@ -498,18 +516,18 @@ class Trainer:
                     # before the trace closes
                     self.capture.maybe_stop(
                         step, fetch=lambda m=metrics: {
-                            k: float(v) for k, v in m.items()})
-                if cfg.log_every and (every(step, cfg.log_every)
+                            name: float(v) for name, v in m.items()})
+                if cfg.log_every and (crosses(step_i, step, cfg.log_every)
                                       or step == cfg.total_steps):
                     self._log(step, metrics, state)
                 if (self.eval_step is not None and eval_iter_fn is not None
-                        and every(step, cfg.eval_every)):
+                        and crosses(step_i, step, cfg.eval_every)):
                     with obs.span("eval"):
                         eval_metrics = self.evaluate(state, eval_iter_fn())
                     self._last_eval_metrics = eval_metrics
                     if self.flight is not None:
                         self.flight.record("eval", step=step)
-                    self.writer.write(step, {f"eval_{k}": v for k, v
+                    self.writer.write(step, {f"eval_{name}": v for name, v
                                              in eval_metrics.items()})
                     logger.info("eval @ %d: %s", step, _fmt(eval_metrics))
                     for cb in self.callbacks:
@@ -519,10 +537,13 @@ class Trainer:
                     if cfg.target_metric and self._target_reached(
                             eval_metrics, step):
                         return state
-                if self.checkpointer is not None and every(
-                        step, cfg.checkpoint_every):
+                if self.checkpointer is not None and crosses(
+                        step_i, step, cfg.checkpoint_every):
+                    # a call that crosses the period saves at the step it
+                    # reached, which the manager's interval would skip
                     self.checkpointer.save(step, state,
-                                           metrics=self._ckpt_metrics())
+                                           metrics=self._ckpt_metrics(),
+                                           force=k > 1)
                     self._ckpt_count += 1
                     self._last_ckpt_step = step
                     for cb in self.callbacks:
@@ -558,6 +579,31 @@ class Trainer:
                 "profile_start step %d — lower --profile-start",
                 cfg.total_steps, profile_at)
         return state
+
+    def _next_batch(self, it, k: int, k_eff: int):
+        """``(batch, k_eff)``: one batch at k = 1; else a bundle of
+        ``k_eff`` steps, the iterator's own (``input_prebundled``: a
+        longer one is cut, a shorter tail is TRAINED, shrinking the call)
+        or ``k_eff`` batches stacked here.  An explicit loop, not a
+        generator expression: an exhausted iterator must surface as
+        StopIteration, not PEP 479's RuntimeError."""
+        if k == 1:
+            return next(it), 1
+        if self.config.input_prebundled:
+            bundle = next(it)
+            have = next(iter(bundle.values())).shape[0]
+            if have == 0:
+                raise StopIteration
+            if have > k_eff:
+                bundle = {name: x[:k_eff] for name, x in bundle.items()}
+            return bundle, min(have, k_eff)
+        batches = []
+        for _ in range(k_eff):
+            batches.append(next(it))
+        return {name: (np.stack([b[name] for b in batches])
+                       if isinstance(batches[0][name], np.ndarray)
+                       else torch.stack([b[name] for b in batches]))
+                for name in batches[0]}, k_eff
 
     def _log(self, step: int, metrics: dict, state) -> None:
         """The log boundary: fetch the step's metrics (the one wait for

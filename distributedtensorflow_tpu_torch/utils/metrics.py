@@ -1,10 +1,13 @@
 """Metric writing and throughput counters of the port.
 
-Twin of ``distributedtensorflow_tpu/utils/metrics.py`` (``:30-171``) with
-its jsonl sink only, the sink the JAX writer keeps when TensorFlow is
-absent: ``metrics.jsonl`` in the log directory, one strict-JSON object
-per ``write`` (``{"step": ..., **scalars}``), non-finite floats as the
-sentinel strings ``tools/check_metrics_schema.py`` reads.  Of the
+Twin of ``distributedtensorflow_tpu/utils/metrics.py`` (``:30-171``):
+``metrics.jsonl`` in the log directory, one strict-JSON object per
+``write`` (``{"step": ..., **scalars}``), non-finite floats as the
+sentinel strings ``tools/check_metrics_schema.py`` reads, and beside it
+TensorBoard event files of the numeric scalars through
+``torch.utils.tensorboard.SummaryWriter`` (JAX's writer takes
+``tf.summary``); when that import fails the writer keeps the jsonl sink
+alone, as the JAX writer does without TensorFlow (``:58-65``).  Of the
 ranks of a data-parallel run only the chief (process 0) writes, as
 ``train.py``'s trainer does.
 """
@@ -33,28 +36,54 @@ def json_sanitize(value: Any) -> Any:
     return value
 
 
+def _tensorboard_writer(logdir: str):
+    """A ``SummaryWriter`` on ``logdir``, or None when TensorBoard is
+    missing or broken (the jsonl sink then stands alone)."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+        return SummaryWriter(log_dir=logdir)
+    except Exception:
+        return None
+
+
 class MetricWriter:
-    """Appends scalar rows to ``<logdir>/metrics.jsonl`` (nothing without
-    a logdir, and nothing on a process other than the chief: ``chief``
-    None asks :func:`..parallel.bootstrap.is_chief`).  A context manager;
-    ``close`` is idempotent and writes after it are dropped."""
+    """Appends scalar rows to ``<logdir>/metrics.jsonl`` and, with
+    ``use_tensorboard`` and TensorBoard importable, their numeric fields
+    to TensorBoard event files in ``logdir`` (nothing without a logdir,
+    and nothing on a process other than the chief: ``chief`` None asks
+    :func:`..parallel.bootstrap.is_chief`).  A context manager; ``close``
+    is idempotent and writes after it are dropped."""
 
     def __init__(self, logdir: str | None = None, *,
-                 chief: bool | None = None):
+                 use_tensorboard: bool = True, chief: bool | None = None):
         self._jsonl = None
+        self._tb = None
         self._closed = False
         if chief is None:
             chief = bootstrap.is_chief()
         if logdir is not None and chief:
             os.makedirs(logdir, exist_ok=True)
+            if use_tensorboard:
+                self._tb = _tensorboard_writer(logdir)
             self._jsonl = open(os.path.join(logdir, "metrics.jsonl"), "a")
 
+    @property
+    def tensorboard(self) -> bool:
+        """Whether the TensorBoard sink is on."""
+        return self._tb is not None
+
     def write(self, step: int, scalars: Mapping[str, Any]) -> None:
-        """One row: strings pass through, everything else as a float."""
+        """One row: strings pass through (to the jsonl row only),
+        everything else as a float."""
         if self._closed or self._jsonl is None:
             return
         scalars = {k: (v if isinstance(v, str) else float(v))
                    for k, v in scalars.items() if v is not None}
+        if self._tb is not None:
+            for k, v in scalars.items():
+                if not isinstance(v, str):
+                    self._tb.add_scalar(k, v, step)
+            self._tb.flush()
         self._jsonl.write(json.dumps(json_sanitize({"step": step, **scalars}),
                                      allow_nan=False) + "\n")
         self._jsonl.flush()
@@ -63,6 +92,9 @@ class MetricWriter:
         if self._closed:
             return
         self._closed = True
+        if self._tb is not None:
+            self._tb.close()
+            self._tb = None
         if self._jsonl is not None:
             self._jsonl.close()
             self._jsonl = None

@@ -381,9 +381,15 @@ def test_accuracy_gate_stops_the_fit(lenet):
 
 
 def test_steps_per_call_is_not_ported():
-    for kw in ({"steps_per_call": 3}, {"input_prebundled": True}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tt.TrainerConfig(total_steps=6, **kw)
+    """Multi-step calls are ported now (``tests/test_torch_multistep.py``):
+    the config takes ``steps_per_call`` > 1 and ``input_prebundled`` and
+    refuses a count below 1."""
+    for kw in ({"steps_per_call": 3}, {"input_prebundled": True},
+               {"steps_per_call": 3, "input_prebundled": True}):
+        cfg = tt.TrainerConfig(total_steps=6, **kw)
+        assert cfg.steps_per_call == kw.get("steps_per_call", 1)
+    with pytest.raises(ValueError, match="steps_per_call"):
+        tt.TrainerConfig(total_steps=6, steps_per_call=0)
 
 
 def test_status_server_answers_during_a_fit(lenet, tmp_path):

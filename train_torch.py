@@ -60,6 +60,17 @@ or ``--estimate-flops`` (the ``mfu`` field)::
         --steps 60 --eval-every 20 --target-metric accuracy \
         --target-value 0.5 --logdir /tmp/r --flight-recorder --goodput
 
+Host time (``train.py``'s flags): ``--steps-per-call k`` runs k optimizer
+steps a call (``train.make_multi_train_step``: on the card the first call
+runs its k steps eagerly and every later call replays one CUDA graph of k
+steps; on the CPU a loop), fed (k, B, ...) bundles, with every hook firing
+when a call crosses its period; ``--prefetch-depth`` (default 2) puts the
+train and eval batches on the device from a thread of its own
+(``data.Prefetcher``; 0: in the loop's thread)::
+
+    python train_torch.py --workload gpt_lm --test-size --device cpu \
+        --steps 10 --steps-per-call 3 --log-every 3 --logdir /tmp/k3
+
 Checkpoints (``train.py``'s flags): with ``--checkpoint-dir`` the run
 restores the newest verified checkpoint there (logging ``restored
 checkpoint step N``), fast-forwards its input past the N batches the
@@ -94,8 +105,10 @@ from distributedtensorflow_tpu_torch.checkpoint import (
     PreemptionHandler,
 )
 from distributedtensorflow_tpu_torch.data import (
+    Prefetcher,
     current_input_context,
     device_put_batch,
+    device_put_bundle,
     skip_batches,
 )
 from distributedtensorflow_tpu_torch.device import resolve_device
@@ -112,7 +125,7 @@ from distributedtensorflow_tpu_torch.train import (
     TrainerConfig,
     TrainState,
     make_eval_step,
-    make_train_step,
+    make_multi_train_step,
 )
 from distributedtensorflow_tpu_torch.train.optimizers import (
     OPTIMIZERS,
@@ -267,6 +280,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--deterministic", action="store_true",
                    help="deterministic CUDA algorithms, cuBLAS workspace "
                         "and cuDNN, TF32 off: a rerun repeats bit for bit")
+    p.add_argument("--steps-per-call", type=int, default=1,
+                   help="optimizer steps a call of the train step (on the "
+                        "card one replayed CUDA graph of k steps; hooks "
+                        "fire when a call crosses their period)")
+    p.add_argument("--prefetch-depth", type=int, default=2,
+                   help="batches (k-step bundles) the input thread keeps "
+                        "on the device ahead of the step (the Prefetcher's "
+                        "buffer_size); 0 copies each batch in the training "
+                        "loop's own thread")
     p.add_argument("--device", default="cuda")
     p.add_argument("--mesh", default=None,
                    help="mesh axes, e.g. 'data=2' or 'data=-1' (every "
@@ -313,10 +335,31 @@ def apply_optimizer_flags(wl, args):
     return dataclasses.replace(wl, make_optimizer=make)
 
 
-def _device_batches(source, device, mesh=None, accum_steps=1):
-    """Numpy batches as device tensors (:func:`device_put_batch`)."""
-    for b in source:
-        yield device_put_batch(b, device, mesh, accum_steps=accum_steps)
+def _device_batches(source, device, mesh=None, accum_steps=1, bundle=1):
+    """Numpy batches as device tensors in the caller's thread
+    (:func:`device_put_batch`), or ``bundle`` of them stacked a time
+    (:func:`device_put_bundle`; a short tail at its length)."""
+    if bundle <= 1:
+        for b in source:
+            yield device_put_batch(b, device, mesh, accum_steps=accum_steps)
+        return
+    while True:
+        group = [b for _, b in zip(range(bundle), source)]
+        if group:
+            yield device_put_bundle(group, device, mesh,
+                                    accum_steps=accum_steps)
+        if len(group) < bundle:
+            return
+
+
+def device_iter(args, source, device, mesh=None, accum_steps=1, bundle=1):
+    """The device batches of ``source``: through a :class:`Prefetcher` of
+    ``--prefetch-depth`` (its own thread and, on the card, its own CUDA
+    stream), or in the caller's thread for depth 0."""
+    if args.prefetch_depth > 0:
+        return Prefetcher(source, device, mesh, args.prefetch_depth,
+                          bundle=bundle, accum_steps=accum_steps)
+    return _device_batches(source, device, mesh, accum_steps, bundle)
 
 
 def bootstrap_mesh(args):
@@ -343,7 +386,9 @@ def bootstrap_mesh(args):
 def build(args: argparse.Namespace, checkpointer=None):
     """``(workload, state, step_fn, batches)`` for ``args``: the model
     from seeded random weights on the device, the optimizer, the train
-    step and an iterator of device batches; over a mesh (see
+    step (``--steps-per-call`` k > 1: k steps a call, and the batches
+    come as (k, B, ...) bundles) and an iterator of device batches
+    (:func:`device_iter`); over a mesh (see
     :func:`bootstrap_mesh`) this rank's state, step and share of each
     batch.  With a ``checkpointer`` (a ``CheckpointManager``) the state
     is its newest verified checkpoint, if it has one, and the batches
@@ -372,14 +417,16 @@ def build(args: argparse.Namespace, checkpointer=None):
     state = TrainState.create(model, wl.make_optimizer, mesh)
     if checkpointer is not None:
         checkpointer.restore_latest(state)
-    step = make_train_step(wl.loss_fn(model, **group), accum_steps=accum,
-                           seed=args.seed, mesh=mesh)
+    step = make_multi_train_step(
+        wl.loss_fn(model, **group), steps_per_call=args.steps_per_call,
+        accum_steps=accum, seed=args.seed, mesh=mesh)
     ctx = current_input_context(wl.global_batch_size, mesh)
     source = wl.input_fn(ctx, args.seed)
     if state.step:
         logger.info("fast-forwarding input %d batches", state.step)
         source = skip_batches(source, state.step)
-    batches = _device_batches(source, device, mesh, accum)
+    batches = device_iter(args, source, device, mesh, accum,
+                          bundle=args.steps_per_call)
     return wl, state, step, batches
 
 
@@ -404,7 +451,9 @@ def flops_per_token(model, cfg, seq) -> tuple[float, str]:
 
 def _counting_first_step(step, config: TrainerConfig):
     """``step`` whose first call runs under ``torch.utils.flop_counter``
-    and sets ``config.flops_per_step`` to what it counted."""
+    and sets ``config.flops_per_step`` to what it counted over the steps
+    of that call (k of a multi-step call: the count is divided by them,
+    so it stays per optimizer step)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     first = [True]
@@ -413,9 +462,11 @@ def _counting_first_step(step, config: TrainerConfig):
         if not first[0]:
             return step(state, batch)
         first[0] = False
+        steps = next(iter(batch.values())).shape[0] \
+            if config.steps_per_call > 1 else 1
         with FlopCounterMode(display=False) as counter:
             out = step(state, batch)
-        config.flops_per_step = float(counter.get_total_flops())
+        config.flops_per_step = float(counter.get_total_flops()) / steps
         logger.info("mfu: flop counter counts %.4g FLOPs in the first step",
                     config.flops_per_step)
         return out
@@ -446,7 +497,13 @@ class _PrintRecords(Callback):
 
 
 def check_flags(args) -> None:
-    """train.py's setup checks of the telemetry flags."""
+    """train.py's setup checks of the telemetry and input flags."""
+    if args.steps_per_call < 1:
+        raise SystemExit(f"--steps-per-call must be >= 1, got "
+                         f"{args.steps_per_call}")
+    if args.prefetch_depth < 0:
+        raise SystemExit(f"--prefetch-depth must be >= 0, got "
+                         f"{args.prefetch_depth}")
     if args.target_metric:  # the gate must be able to fire
         if args.target_value is None:
             raise SystemExit("--target-metric requires --target-value")
@@ -501,8 +558,8 @@ def _train(args) -> list[dict]:
     eval_ctx = current_input_context(wl.global_batch_size, mesh)
     # the eval stream (seed + 999, as train.py draws it): each rank reads
     # its share of every global eval batch
-    eval_iter_fn = (lambda: _device_batches(
-        wl.input_fn(eval_ctx, args.seed + 999), state.model.device)) \
+    eval_iter_fn = (lambda: device_iter(
+        args, wl.input_fn(eval_ctx, args.seed + 999), state.model.device)) \
         if args.eval_every else None
     # SIGTERM (a preemption notice) -> a save at the next step boundary on
     # every rank, then a clean stop; the rerun resumes from that step
@@ -511,6 +568,8 @@ def _train(args) -> list[dict]:
         total_steps=args.steps, log_every=args.log_every,
         eval_every=args.eval_every, eval_steps=EVAL_STEPS,
         checkpoint_every=args.checkpoint_every,
+        steps_per_call=args.steps_per_call,
+        input_prebundled=args.steps_per_call > 1,
         global_batch_size=wl.global_batch_size, logdir=args.logdir,
         profile_dir=args.profile_dir, profile_start=args.profile_start,
         profile_steps=args.profile_steps, auto_profile=args.auto_profile,
