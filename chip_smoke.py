@@ -177,16 +177,36 @@ Phases, each fatal on failure:
     k = 1 runs bit for bit.  (i) ``--mesh data=1 --dist-backend gloo`` on
     the card refuses k > 1, naming NCCL.
 
-Kernel launch counts are set to 0 just before phases 5, 6 (each
-generate run), 9-11, 13, 14 (each path; in each rank's process),
-15's resumed steps, 16's run through ``train_torch.main`` and 17's
-runs, and read just after (a replayed graph counts what its capture
-counted); a kernel of the path that did not launch, or a gpt_lm,
-gpt_moe or BERT training step that launched a kernel another number of
-times than its forward, recomputation and backward need, fails the run.  The
-line before the last is one JSON object with a row per kernel; the last
-line is ``{"ok": true, "device": {...}}``.  ``--phases`` runs a subset
-(for iterating on one part); the default runs all.
+18. presets2: the ViT and the seq2seq encoder-decoder.  imagenet_vit
+    (ViT-S/16, 224x224, bf16) at the largest of 1024, 512, 256 images the
+    card holds, and t5_seq2seq (seq2seq_small, S 256, B 64) through
+    ``train_torch.build``, 1+3 steps each, rows as phase 13's (step ms,
+    examples and tokens/s, flops, MFU, peak memory, the warm-up batch's
+    loss falling), a profile of two steps, one eval step each (seq2seq's
+    accuracy through
+    ``chunked_argmax``); the ViT launches K1f and K1b 25 times a step,
+    the seq2seq step no kernel.  Greedy ``seq2seq_generate`` from the
+    trained seq2seq (B 64 of the 256-token inputs, 32 new tokens): K5 six
+    times a one-token step (192 in all), ms a token against the plain
+    decode path; in fp32 its tokens equal the plain path's, in bf16 the
+    plain path fed its tokens picks each but at near ties (1e-2).  K1f
+    and K1b at the ViT's rows (B x 196 by 384: bf16, and ln_f's bf16 to
+    fp32 with fp32 dy) and K5 at the seq2seq decode (B 64, H 8, a cache
+    of 512) against their plain twins; consistency_baseline's fp32 step
+    for ViT-S/16 (2 layers) and seq2seq_small (2 + 2 layers) against the
+    CPU; both presets at k = 4 equal k = 1 bit for bit (2 layers).
+
+Kernel launch counts are set to 0 just before phases 5, 6 (each generate
+run), 9-11, 13, 14 (each path; in each rank's process), 15's resumed
+steps, 16's run through ``train_torch.main``, 17's runs and 18's
+training steps and decoding, and read just after (a replayed graph
+counts what its capture counted); a kernel of the path that did not
+launch, or a gpt_lm, gpt_moe or BERT training step that launched a
+kernel another number of times than its forward, recomputation and
+backward need, fails the run.  The line before the last is one JSON
+object with a row per kernel; the last line is ``{"ok": true, "device":
+{...}}``.  ``--phases`` runs a subset (for iterating on one part); the
+default runs all.
 """
 
 from __future__ import annotations
@@ -333,20 +353,24 @@ def check_sass(cuda) -> None:
                                  f"or UTMALDG (or are not {count}): {found}")
 
 
-def check_layernorm(torch, F, ln):
+def check_layernorm(torch, F, ln, d=768, cases=None, path=None):
+    """K1f against its plain twin at width ``d`` over ``cases`` of (rows,
+    x dtype, out dtype); by default GPT's and BERT's (D 768).  ``path``
+    names the preset whose shapes the rows are."""
     rows = []
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    d = 768
     gamma = 1.0 + 0.1 * torch.randn(d, device="cuda", generator=g)
     beta = 0.1 * torch.randn(d, device="cuda", generator=g)
-    # decode steps; a GPT training step's rows; a BERT microbatch's rows
-    # (64 x 512, fp32 in and out: its LayerNorms sum fp32 residuals); the
-    # gathered MLM head's (64 x 103 positions, bf16 in, fp32 out)
-    cases = [(n, torch.bfloat16, out) for n in (4, 16, 64, 16384)
-             for out in (torch.bfloat16, torch.float32)]
-    for n, x_dtype, out_dtype in cases + [
+    if cases is None:
+        # decode steps; a GPT training step's rows; a BERT microbatch's
+        # rows (64 x 512, fp32 in and out: its LayerNorms sum fp32
+        # residuals); the gathered MLM head's (64 x 103 positions, bf16
+        # in, fp32 out)
+        cases = [(n, torch.bfloat16, out) for n in (4, 16, 64, 16384)
+                 for out in (torch.bfloat16, torch.float32)] + [
             (32768, torch.float32, torch.float32),
-            (6592, torch.bfloat16, torch.float32)]:
+            (6592, torch.bfloat16, torch.float32)]
+    for n, x_dtype, out_dtype in cases:
         x = (2.0 * torch.randn(n, d, device="cuda", generator=g)
              + 0.5).to(x_dtype)
         got = ln.layer_norm_cuda(x, gamma, beta, 1e-6, out_dtype)
@@ -377,7 +401,7 @@ def check_layernorm(torch, F, ln):
         nbytes = n * d * (x.element_size() + got.element_size()) + 2 * d * 4
         bms, by = bound_ms(nbytes, 8 * n * d, torch.float32)
         row = {
-            "kernel": "layernorm_fwd", "n": n, "d": d,
+            "kernel": "layernorm_fwd", "path": path, "n": n, "d": d,
             "in": str(x_dtype)[6:], "out": str(out_dtype)[6:],
             "max_abs_err": err, "max_bf16_ulps": ulps, "tolerance": tol,
             "ms": time_ms(torch, ln.layer_norm_cuda,
@@ -399,26 +423,27 @@ def check_layernorm(torch, F, ln):
     return rows
 
 
-def check_decode_attention(torch, F, attn):
+def check_decode_attention(torch, F, attn, cases=None, path=None):
     """K5 against its plain twin: the serving shapes (gpt_small's generate:
     B 4, H 12, S 2048, D 64) with GQA, a window, a partial band and fp32;
     the groups and bands the first version refused: 12 query heads over 1
     kv head, 16 over 2 at 8192 positions, and 65536 positions at B 1.
     Each case runs three times for bit-identical outputs and names the
-    plan (splits of the band) it ran."""
+    plan (splits of the band) it ran.  ``cases`` (name, dtype, (B, H,
+    Hkv, S), band) replace those; ``path`` names their preset."""
     rows = []
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     bf16, fp32 = torch.bfloat16, torch.float32
     d = 64
-    # name, dtype, (B, H, Hkv, S), band
-    cases = [("mha", bf16, (4, 12, 12, 2048), (0, 2048)),
-             ("gqa", bf16, (4, 12, 4, 2048), (0, 2048)),
-             ("window", bf16, (4, 12, 12, 2048), (2048 - 512, 2048)),
-             ("partial", bf16, (4, 12, 4, 2048), (0, 1000)),
-             ("mha_fp32", fp32, (4, 12, 12, 2048), (0, 2048)),
-             ("gqa12", bf16, (4, 12, 1, 2048), (0, 2048)),
-             ("gqa8_long", bf16, (4, 16, 2, 8192), (0, 8192)),
-             ("long_mha", bf16, (1, 12, 12, 65536), (0, 65536))]
+    cases = cases or [("mha", bf16, (4, 12, 12, 2048), (0, 2048)),
+                      ("gqa", bf16, (4, 12, 4, 2048), (0, 2048)),
+                      ("window", bf16, (4, 12, 12, 2048),
+                       (2048 - 512, 2048)),
+                      ("partial", bf16, (4, 12, 4, 2048), (0, 1000)),
+                      ("mha_fp32", fp32, (4, 12, 12, 2048), (0, 2048)),
+                      ("gqa12", bf16, (4, 12, 1, 2048), (0, 2048)),
+                      ("gqa8_long", bf16, (4, 16, 2, 8192), (0, 8192)),
+                      ("long_mha", bf16, (1, 12, 12, 65536), (0, 65536))]
     for name, dtype, (b, h, h_kv, s), (lo, hi) in cases:
         q = torch.randn(b, 1, h, d, device="cuda", generator=g).to(dtype)
         kv_bytes = 2 * b * h_kv * s * d * q.element_size()
@@ -456,7 +481,8 @@ def check_decode_attention(torch, F, attn):
             + 2 * b * h_kv * n * d * q.element_size()
         bms, by = bound_ms(nbytes, 4 * b * h * n * d + 5 * b * h * n, dtype)
         row = {
-            "kernel": "decode_attention", "case": name, "b": b, "h": h,
+            "kernel": "decode_attention", "path": path, "case": name,
+            "b": b, "h": h,
             "h_kv": h_kv, "s": s, "d": d, "lo": lo, "hi": hi,
             "dtype": str(dtype)[6:], "splits": splits, "chunk": chunk,
             "blocks": b * h_kv * splits, "max_abs_err": err,
@@ -480,7 +506,7 @@ def check_decode_attention(torch, F, attn):
     return rows
 
 
-def check_layernorm_bwd(torch, ln):
+def check_layernorm_bwd(torch, ln, d=768, cases=None, path=None):
     """K1b at the training step's rows: 8 x 2048 tokens of width 768,
     bf16 x with bf16 dy (the blocks' LayerNorms) and fp32 dy (ln_f); at
     a BERT microbatch's, 64 x 512, fp32 x and dy; and at the gathered MLM
@@ -489,10 +515,11 @@ def check_layernorm_bwd(torch, ln):
     launches' device times apart (``main_ms``, ``reduce_ms``: the
     profiler's kernel times per call), beside the graph-replay time of
     the pair (``ms``) and, with bf16 dy, the time of one ``torch.add``
-    that moves the same bytes (``stream_yardstick_ms``, timed only)."""
+    that moves the same bytes (``stream_yardstick_ms``, timed only).
+    ``cases`` of (rows, x dtype, dy dtype) at width ``d`` replace those;
+    ``path`` names their preset."""
     rows = []
     g = torch.Generator(device="cuda").manual_seed(SEED + 5)
-    d = 768
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     gamma = 1.0 + 0.1 * torch.randn(d, device="cuda", generator=g)
     beta = 0.1 * torch.randn(d, device="cuda", generator=g)
@@ -500,10 +527,9 @@ def check_layernorm_bwd(torch, ln):
     # (rows, x, dy): gpt_lm's blocks and ln_f; a BERT microbatch (64 x
     # 512, fp32 residuals and fp32 cotangents); BERT's gathered MLM head
     # (64 x 103 positions)
-    for n, x_dtype, dy_dtype in ((8 * 2048, bf16, bf16),
-                                 (8 * 2048, bf16, fp32),
-                                 (64 * 512, fp32, fp32),
-                                 (64 * 103, bf16, fp32)):
+    cases = cases or ((8 * 2048, bf16, bf16), (8 * 2048, bf16, fp32),
+                      (64 * 512, fp32, fp32), (64 * 103, bf16, fp32))
+    for n, x_dtype, dy_dtype in cases:
         # a tree from before bwd_blocks ran min(n / 8, 256) blocks
         blocks = ln.bwd_blocks(n, sms) if hasattr(ln, "bwd_blocks") \
             else min(-(-n // 8), 256)
@@ -550,7 +576,8 @@ def check_layernorm_bwd(torch, ln):
                                 [(x, dy)])
             del out
         row = {
-            "kernel": "layernorm_bwd", "n": n, "d": d, "x": str(x_dtype)[6:],
+            "kernel": "layernorm_bwd", "path": path, "n": n, "d": d,
+            "x": str(x_dtype)[6:],
             "dy": str(dy_dtype)[6:], "blocks": blocks,
             "main_ms": sum(split.values()) - reduce_ms,
             "reduce_ms": reduce_ms,
@@ -1892,12 +1919,15 @@ def run_consistency_baseline(torch, mods, train, cuda, family,
     stage sizes (1, 1, 1, 1), 64x64, batch 8, the preset's loss with its
     L2 term (every BatchNorm scale at 1, so no residual branch starts at
     0; cuDNN's TF32 off); "bert" is BERT-base cut to 2 layers, batch 2 at
-    seq 512, dropout 0, the gathered head, with K1f and K1b on the card.
-    (Scales drawn in [0.9, 1.1] instead leave this ResNet's fp32
-    gradients on the CPU 6.5e-2 of a leaf's max from an fp64 evaluation,
-    against 7.6e-6 at 1.)  The attention's key biases get no gradient (a
-    key bias shifts a query's scores by one constant): their values are
-    rounding, held below 1e-6 of the largest gradient."""
+    seq 512, dropout 0, the gathered head, with K1f and K1b on the card;
+    "vit" is ViT-S/16 cut to 2 layers, batch 8 at 224x224, with K1f and
+    K1b on the card; "seq2seq" is seq2seq_small cut to 2 + 2 layers,
+    batch 2 at seq 256 with a pad tail.  (Scales drawn in [0.9, 1.1]
+    instead leave this ResNet's fp32 gradients on the CPU 6.5e-2 of a
+    leaf's max from an fp64 evaluation, against 7.6e-6 at 1.)  The
+    attention's key biases get no gradient (a key bias shifts a query's
+    scores by one constant): their values are rounding, held below 1e-6
+    of the largest gradient."""
     rng = np.random.default_rng(SEED + 11)
     if family == "resnet":
         cfg = mods.ImageNetResNetConfig(stage_sizes=(1, 1, 1, 1),
@@ -1912,7 +1942,7 @@ def run_consistency_baseline(torch, mods, train, cuda, family,
 
         def loss_of(model):
             return train.classification_loss(model, weight_decay=1e-4)
-    else:
+    elif family == "bert":
         cfg = dataclasses.replace(mods.bert_base(), num_layers=2,
                                   dtype=torch.float32, dropout_rate=0.0)
         state = mods.init_params(cfg, torch.Generator().manual_seed(SEED))
@@ -1925,6 +1955,26 @@ def run_consistency_baseline(torch, mods, train, cuda, family,
         def loss_of(model):
             return mods.mlm_loss(model,
                                  max_predictions=mods.max_predictions_for(512))
+    elif family == "vit":
+        cfg = dataclasses.replace(mods.vit_s16(), num_layers=2,
+                                  dtype=torch.float32)
+        state = mods.init_params(cfg, torch.Generator().manual_seed(SEED))
+        batch = {"image": rng.standard_normal((8, 224, 224, 3)).astype(
+                     np.float32),
+                 "label": rng.integers(0, 1000, 8)}
+
+        def loss_of(model):
+            return train.classification_loss(model)
+    else:  # seq2seq: seq2seq_small cut to 2 + 2 layers, a pad tail
+        cfg = dataclasses.replace(mods.seq2seq_small(), enc_layers=2,
+                                  dec_layers=2, dtype=torch.float32)
+        state = mods.init_params(cfg, torch.Generator().manual_seed(SEED))
+        ids = rng.integers(2, cfg.vocab_size, (2, 256))
+        ids[1, 160:] = cfg.pad_id
+        batch = {"encoder_ids": ids, "targets": ids.copy()}
+
+        def loss_of(model):
+            return mods.seq2seq_loss(model)
     out = {}
     cuda.launches.clear()
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
@@ -1956,9 +2006,12 @@ def run_consistency_baseline(torch, mods, train, cuda, family,
     grad_err = worst(card_g, {n: g for n, g in cpu_g.items()
                               if n not in zero})
     stats_err = worst(card_b, cpu_b)
-    ln_ok = family == "resnet" or device == "cpu" or (
-        launches.get("layernorm_fwd") == 6 and
-        launches.get("layernorm_bwd") == 6)
+    # LayerNorms of the forward: BERT's embedding LN and two a layer,
+    # the ViT's two a block and ln_f; each once backward
+    lns = {"bert": 6, "vit": 5}.get(family, 0)
+    ln_ok = device == "cpu" or (
+        launches.get("layernorm_fwd", 0) == lns and
+        launches.get("layernorm_bwd", 0) == lns)
     ok = loss_rel <= 1e-5 and grad_err <= 1e-3 and stats_err <= 1e-5 \
         and zero_err <= 1e-6 and ln_ok
     row = {"phase": "consistency_baseline",
@@ -1970,7 +2023,8 @@ def run_consistency_baseline(torch, mods, train, cuda, family,
            "tolerance": "loss 1e-5 relative; every gradient leaf 1e-3 of "
                         "its max-abs (key biases below 1e-6 of the largest "
                         "gradient); running statistics 1e-5 of their "
-                        "max-abs; BERT: K1f and K1b 6 launches each",
+                        "max-abs; K1f and K1b 6 launches each for BERT, 5 "
+                        "for the ViT, none for the others",
            "launches": launches}
     emit(row)
     if not ok:
@@ -2265,7 +2319,8 @@ CKPT_CHILD_STEPS = 8
 DET_RUNS = (("gpt_lm", 2), ("gpt_medium_lm", 2), ("lm_long_context", 1),
             ("gpt_moe", 2), ("mnist_lenet", 128), ("cifar_resnet20", 256),
             ("imagenet_resnet50", 32), ("bert_mlm", 16),
-            ("bert_mlm_packed", 16), ("widedeep", 4096))
+            ("bert_mlm_packed", 16), ("widedeep", 4096),
+            ("imagenet_vit", 16), ("t5_seq2seq", 8))
 
 
 def ckpt_worker(argv_json) -> int:
@@ -3243,6 +3298,16 @@ def _ms_windows(rows, key, first=1, last=3):
     return statistics.median(vals) if vals else None
 
 
+def _layer_fields(name, layers):
+    """The config fields that cut ``name`` to ``layers`` layers (each of
+    the seq2seq model's two stacks); none for ``layers`` None."""
+    if layers is None:
+        return {}
+    if name == "t5_seq2seq":
+        return {"enc_layers": layers, "dec_layers": layers}
+    return {"num_layers": layers}
+
+
 def _ms_pair(torch, train_torch, name, batch, k, layers, calls, device):
     """``name`` built twice from one seed, stepped ``calls * k`` steps
     one a call and k a call: each run's losses by step, fingerprint and
@@ -3251,8 +3316,7 @@ def _ms_pair(torch, train_torch, name, batch, k, layers, calls, device):
 
     out = {}
     for kk in (1, k):
-        fields = {} if layers is None else {"num_layers": layers}
-        with _cut_config(train_torch, **fields):
+        with _cut_config(train_torch, **_layer_fields(name, layers)):
             args = train_torch.parse_args(
                 ["--workload", name, "--batch-size", str(batch), "--seed",
                  str(SEED), "--device", device, "--steps-per-call", str(kk)]
@@ -3524,9 +3588,239 @@ def run_multistep(torch, cuda, train_torch, device="cuda"):
         raise AssertionError("multistep: " + "; ".join(failures))
     return launches, rows
 
+#: The presets2 phase.  imagenet_vit (ViT-S/16 at 224x224) at the
+#: largest of these batches that the card holds (the preset's global
+#: batch is 1024), t5_seq2seq (seq2seq_small, S 256) at its 64; each one
+#: warm-up step and PRESETS2_STEPS timed ones.
+PRESETS2_RUNS = (("imagenet_vit", (1024, 512, 256)), ("t5_seq2seq", (64,)))
+PRESETS2_STEPS = 3
+#: 25 LayerNorms a ViT-S step (ln1 and ln2 of 12 blocks, ln_f), each
+#: once forward and once backward (no remat); at 196 patches the
+#: attention is under the flash gate and the head is a Dense.
+VIT_LAUNCHES_PER_STEP = {**NO_LAUNCHES, "layernorm_fwd": 25,
+                         "layernorm_bwd": 25}
+#: Greedy decoding from the trained t5_seq2seq: rows of the 256-token
+#: encoder input, new tokens.  Every one-token step runs K5 once a decoder
+#: layer: the priming step and all but the last token's (whose hidden
+#: state nothing reads).
+GEN_BATCH, GEN_NEW_TOKENS = 64, 32
+#: bf16: where the plain decode path, fed the kernel run's tokens, would
+#: pick another token, its logit may top the kernel run's by this much (a
+#: near tie) and no more.
+GEN_TIE = 1e-2
+#: K5 at seq2seq_small's decode (B 64, H 8 = Hkv, D 64, a cache of 512):
+#: the band of the last of 32 new tokens, the full cache, and fp32.
+S2S_DECODE_CASES = (("s2s_tok32", "bfloat16", (64, 8, 8, 512), (0, 32)),
+                    ("s2s_full", "bfloat16", (64, 8, 8, 512), (0, 512)),
+                    ("s2s_fp32", "float32", (64, 8, 8, 512), (0, 32)))
+#: The multistep pairs: (name, global batch, k, layers, calls of k).
+PRESETS2_PAIRS = (("imagenet_vit", 64, 4, 2, 2), ("t5_seq2seq", 16, 4, 2, 2))
+
+
+@contextlib.contextmanager
+def _decode_impl(attn, impl):
+    """``attn.DECODE_IMPL = impl`` inside the block, as before after."""
+    old = attn.DECODE_IMPL
+    attn.DECODE_IMPL = impl
+    try:
+        yield
+    finally:
+        attn.DECODE_IMPL = old
+
+
+def _preset_steps(torch, cuda, train_torch, name, batches, device):
+    """:func:`baseline_steps` of ``name`` at the first of ``batches`` that
+    the card holds; the batches that ran out of memory, with their
+    errors."""
+    cut = []
+    for batch in batches:
+        try:
+            return cut, baseline_steps(torch, cuda, train_torch, name, batch,
+                                       PRESETS2_STEPS, "presets2", device)
+        except torch.cuda.OutOfMemoryError as e:
+            cut.append({"batch": batch, "error": str(e)[:300]})
+        gc.collect()
+        empty_cache(torch, torch.device(device))
+    raise AssertionError(f"presets2: {name} fits at none of {batches}: {cut}")
+
+
+def _eval_row(torch, train_torch, name, model, batch):
+    """The preset's eval step on one of its batches: finite metrics, the
+    accuracies in [0, 1] (seq2seq's through ``chunked_argmax``)."""
+    from distributedtensorflow_tpu_torch.train import make_eval_step
+
+    wl = train_torch.get_workload(name)
+    metrics = {k: float(v) for k, v in make_eval_step(wl.eval_fn(model))(
+        None, batch).items()}
+    ok = all(math.isfinite(v) for v in metrics.values()) and all(
+        0.0 <= v <= 1.0 for k, v in metrics.items() if "accuracy" in k)
+    if not ok:
+        raise AssertionError(f"presets2: {name}'s eval {metrics}")
+    return metrics
+
+
+def _plain_choices(torch, mods, attn, model, enc_ids, tokens):
+    """The plain decode path (``DECODE_IMPL`` "xla") fed ``tokens``, the
+    kernel run's: at each step the gap between the plain path's largest
+    logit and its logit of the kernel run's token (0 where they agree),
+    (B, N)."""
+    from distributedtensorflow_tpu_torch.ops.xent import tied_head_logits
+
+    cfg = model.cfg
+    b, n = tokens.shape
+    gaps = []
+    with torch.no_grad(), _decode_impl(attn, "xla"):
+        enc_out, pad, pos = model.encode(enc_ids)
+        cache = model.init_cache(b)
+        tok = torch.full((b, 1), cfg.bos_id, dtype=torch.long,
+                         device=enc_ids.device)
+        for t in range(n):
+            hidden = model.decode(tok, enc_out, pad, pos,
+                                  positions=torch.full_like(tok, t),
+                                  cache=cache)
+            logits = tied_head_logits(hidden[:, -1], model.shared.weight,
+                                      cfg.dtype)
+            chosen = tokens[:, t:t + 1]
+            gaps.append(logits.max(-1, keepdim=True).values
+                        - logits.gather(1, chosen))
+            tok = chosen
+    return torch.cat(gaps, dim=1)
+
+
+def run_seq2seq_generate(torch, cuda, mods, attn, model, enc_ids,
+                         device="cuda"):
+    """Greedy ``seq2seq_generate`` from the trained t5_seq2seq (bf16):
+    timed under ``DECODE_IMPL`` "auto" (K5, launch counts set to 0 just
+    before and read just after: ``dec_layers`` a one-token step, the
+    priming step and all but the last token's) and "xla" (the plain
+    path).  The plain path fed the kernel run's tokens picks each of them
+    but at near ties (its logit of the kernel's token within GEN_TIE of
+    its largest).  The same weights in fp32: the kernel run's tokens equal
+    the plain path's, token for token."""
+    cfg = model.cfg
+    n = GEN_NEW_TOKENS
+
+    def generate(m, impl):
+        with _decode_impl(attn, impl):
+            out = mods.seq2seq_generate(m, enc_ids, max_new_tokens=n)
+        sync(torch, m.device)
+        return out
+
+    generate(model, "auto")  # warm-up
+    cuda.launches.clear()
+    t0 = time.perf_counter()
+    tokens = generate(model, "auto")
+    kernel_s = time.perf_counter() - t0
+    launches = dict(cuda.launches)
+    t0 = time.perf_counter()
+    plain = generate(model, "xla")
+    plain_s = time.perf_counter() - t0
+    gaps = _plain_choices(torch, mods, attn, model, enc_ids, tokens)
+    m32 = mods.Seq2SeqLM(dataclasses.replace(cfg, dtype=torch.float32),
+                         device=model.device)
+    m32.load_state_dict(model.state_dict())
+    t32, p32 = generate(m32, "auto"), generate(m32, "xla")
+    del m32
+    expected = cfg.dec_layers * n if device == "cuda" else 0
+    row = {"phase": "presets2_generate", "workload": "t5_seq2seq",
+           "batch": tokens.shape[0], "encoder_len": enc_ids.shape[1],
+           "new_tokens": n, "dec_layers": cfg.dec_layers,
+           "ms_per_token": 1e3 * kernel_s / n,
+           "plain_ms_per_token": 1e3 * plain_s / n,
+           "bf16_tokens_equal_plain_run": bool(torch.equal(tokens, plain)),
+           "bf16_near_ties": int((gaps > 0).sum()),
+           "bf16_worst_gap": float(gaps.max()),
+           "fp32_tokens_equal": bool(torch.equal(t32, p32)),
+           "k5_launches": launches.get("decode_attention", 0),
+           "k5_launches_expected": expected,
+           "tolerance": f"fp32 tokens equal; bf16: the plain path fed the "
+                        f"kernel run's tokens picks each, or its logit of "
+                        f"it is within {GEN_TIE} of its largest",
+           "first_row": tokens[0, :12].tolist()}
+    emit(row)
+    if not (row["fp32_tokens_equal"] and row["bf16_worst_gap"] <= GEN_TIE
+            and row["k5_launches"] == expected):
+        raise AssertionError(f"presets2: seq2seq_generate {row}")
+    return launches
+
+
+def run_presets2(torch, cuda, train_torch, mods, attn, ln, F, train_lib,
+                 device="cuda"):
+    """imagenet_vit and t5_seq2seq at full width through
+    ``train_torch.build`` (:func:`baseline_steps`: step ms, examples and
+    tokens/s, ``FlopCounterMode`` flops and MFU, peak memory, the
+    warm-up batch's loss falling; ViT at the largest batch of
+    PRESETS2_RUNS the card holds, each cut listed), their launches per
+    step (ViT: K1f and K1b 25 each; seq2seq: no kernel), a torch.profiler
+    window over two more steps, one eval step each; greedy
+    ``seq2seq_generate`` from the trained seq2seq
+    (:func:`run_seq2seq_generate`); K1f and K1b at the ViT's rows (D 384:
+    the blocks' bf16, ln_f's bf16 to fp32 with fp32 dy) and K5 at the
+    seq2seq decode against their plain twins; the fp32 card-against-CPU
+    step of both (:func:`run_consistency_baseline`); and both at k 4
+    against k 1 bit for bit (PRESETS2_PAIRS).  Returns the launches of
+    the training and decoding runs and the kernel rows."""
+    launches = collections.Counter()
+    rows = {}
+    dev = torch.device(device)
+    for name, batches in PRESETS2_RUNS:
+        cut, (state, step, it, got, row) = _preset_steps(
+            torch, cuda, train_torch, name, batches, device)
+        row["batch_cut"] = cut
+        row["eval"] = _eval_row(torch, train_torch, name, state.model,
+                                next(it))
+        emit(row)
+        if device == "cuda":
+            _check_launches(f"presets2 {name}", got, PRESETS2_STEPS,
+                            VIT_LAUNCHES_PER_STEP if name == "imagenet_vit"
+                            else NO_LAUNCHES)
+        launches.update(got)
+        if device == "cuda":
+            run_profile_train(torch, state, step, it, f"profile_{name}")
+        if name == "imagenet_vit":
+            vit_rows = row["batch"] * state.model.cfg.num_patches
+        else:  # decode from the trained seq2seq
+            enc_ids = next(it)["encoder_ids"][:GEN_BATCH]
+            launches.update(run_seq2seq_generate(
+                torch, cuda, mods, attn, state.model, enc_ids, device))
+            del enc_ids
+        del state, step, it
+        empty_cache(torch, dev)
+    if device == "cuda":
+        bf16, fp32 = torch.bfloat16, torch.float32
+        rows["layernorm_fwd"] = check_layernorm(
+            torch, F, ln, d=384, path="imagenet_vit",
+            cases=[(vit_rows, bf16, bf16), (vit_rows, bf16, fp32)])
+        rows["layernorm_bwd"] = check_layernorm_bwd(
+            torch, ln, d=384, path="imagenet_vit",
+            cases=[(vit_rows, bf16, bf16), (vit_rows, bf16, fp32)])
+        rows["decode_attention"] = check_decode_attention(
+            torch, F, attn, path="t5_seq2seq",
+            cases=[(name, getattr(torch, dt), shape, band)
+                   for name, dt, shape, band in S2S_DECODE_CASES])
+        empty_cache(torch, dev)
+    for family in ("vit", "seq2seq"):
+        run_consistency_baseline(torch, mods, train_lib, cuda, family,
+                                 device)
+    failures = []
+    for name, batch, k, layers, calls in PRESETS2_PAIRS:
+        pair = _ms_pair(torch, train_torch, name, batch, k, layers, calls,
+                        device)
+        ok = (pair[1]["losses"] == pair[k]["losses"]
+              and pair[1]["fingerprint"] == pair[k]["fingerprint"])
+        emit({"phase": f"presets2_multistep_{name}", "k": k,
+              "layers": layers, "batch": batch, "bit_equal": ok,
+              "losses_k1": pair[1]["losses"], "losses_k": pair[k]["losses"],
+              "launches_after_first_call": pair[k]["launches"]})
+        if not ok:
+            failures.append(f"{name}: k={k} differs from k=1")
+    if failures:
+        raise AssertionError("presets2: " + "; ".join(failures))
+    return launches, rows
+
 
 PHASES = ("layernorm", "kernels", "xent", "serving", "train", "baseline",
-          "dp", "ckpt", "trainer", "multistep")
+          "dp", "ckpt", "trainer", "multistep", "presets2")
 
 
 def main(argv=None) -> int:
@@ -3681,6 +3975,13 @@ def main(argv=None) -> int:
                                                      train_torch)
         launches.update(ms_launches)
     done("multistep")
+    if "presets2" in phases:
+        p2_launches, p2_rows = run_presets2(torch, _cuda, train_torch, mods,
+                                            attn, ln, F, train_lib)
+        launches.update(p2_launches)
+        for name, extra in p2_rows.items():
+            rows.setdefault(name, []).extend(extra)
+    done("presets2")
     emit({"phase": "seconds", **seconds})
     if phases != set(PHASES):
         print(f"chip_smoke: ran only {sorted(phases)}", file=sys.stderr)

@@ -1,6 +1,7 @@
 """Models of the port: the GPT decoder LM (training and decode mode),
-generation, the GPT-MoE LM, and the BASELINE.json models (LeNet-5,
-ResNet-20/50, BERT MLM, Wide&Deep)."""
+generation, the GPT-MoE LM, the BASELINE.json models (LeNet-5,
+ResNet-20/50, BERT MLM, Wide&Deep), the ViT and the seq2seq
+encoder-decoder (training, teacher-forced eval and cached decoding)."""
 
 from .bert import (  # noqa: F401
     BertConfig,
@@ -46,6 +47,17 @@ from .resnet import (  # noqa: F401
     ResNet20,
     ResNet50,
 )
+from .seq2seq import (  # noqa: F401
+    Seq2SeqConfig,
+    Seq2SeqLM,
+    seq2seq_eval,
+    seq2seq_generate,
+    seq2seq_loss,
+    seq2seq_small,
+    seq2seq_tiny,
+    shift_right,
+)
+from .vit import ViT, ViTConfig, vit_s16, vit_tiny  # noqa: F401
 from .widedeep import (  # noqa: F401
     WideDeep,
     WideDeepConfig,

@@ -15,16 +15,18 @@ config says which tree: a ``GPTMoEConfig`` has MoE blocks where
 ``is_moe_layer`` says so, GPT blocks elsewhere.
 
 The BASELINE models (``LeNet5``, ``CifarResNet``, ``ImageNetResNet``,
-``BertForMLM``, ``WideDeep``; their configs select them) name their
-submodules as the flax tree does, so a parameter's path is its name.
+``BertForMLM``, ``WideDeep``) and the ``ViT`` and ``Seq2SeqLM`` (their
+configs select them) name their submodules as the flax tree does, so a
+parameter's path is its name.
 For them the JAX tree is the whole flax variables dict, ``{"params":
 ...}`` plus ``"batch_stats"`` (BatchNorm's running ``mean`` and ``var``,
 the port's buffers) for the ResNets, and the state holds the buffers too.
 Conv kernels are (kh, kw, in, out) in flax and (out, in, kh, kw) here;
 Dense kernels (in, out) are (out, in), the ``DenseGeneral`` kernels of
-BERT's attention ((E, H, D) and (H, D, E)) and biases ((H, D)) flattened
-to that matrix; embedding tables are ``embedding`` in flax and
-``weight`` here.
+BERT's and seq2seq's attention ((E, H, D), (E, Hkv, D) and (H, D, E))
+and biases ((H, D)) flattened to that matrix; embedding tables are
+``embedding`` in flax and ``weight`` here; the ViT's ``pos_embed`` and
+the RMSNorm ``scale`` keep their shapes.
 
 Optimizer state: ``opt_state_from_optax`` gives the ``state_dict`` of a
 port optimizer (``train.optimizers``) for the optax state of its JAX twin
@@ -52,7 +54,7 @@ from torch import nn
 from .bert import BertConfig, BertForMLM
 from .gpt import GPTConfig
 from .gpt_moe import GPTMoEConfig
-from .layers import BatchNorm, Conv, Dense, FusedLayerNorm
+from .layers import BatchNorm, Conv, Dense, FusedLayerNorm, RMSNorm
 from .lenet import LeNet5, LeNetConfig
 from .resnet import (
     CifarResNet,
@@ -60,12 +62,20 @@ from .resnet import (
     ImageNetResNet,
     ImageNetResNetConfig,
 )
+from .seq2seq import Seq2SeqConfig, Seq2SeqLM
+from .vit import ViT, ViTConfig
 from .widedeep import WideDeep, WideDeepConfig
 
-#: The BASELINE models by their config's class.
+#: The models whose submodules carry the flax names, by their config's
+#: class.
 MODELS = {LeNetConfig: LeNet5, CifarResNetConfig: CifarResNet,
           ImageNetResNetConfig: ImageNetResNet, BertConfig: BertForMLM,
-          WideDeepConfig: WideDeep}
+          WideDeepConfig: WideDeep, ViTConfig: ViT,
+          Seq2SeqConfig: Seq2SeqLM}
+#: Modules that hold parameters of their own: the flax layers' twins and
+#: the ViT (its ``pos_embed``).
+_LEAF_MODULES = (BatchNorm, Conv, Dense, FusedLayerNorm, RMSNorm,
+                 nn.Embedding, ViT)
 
 
 def _shapes(cfg: GPTConfig) -> dict[str, tuple[int, ...]]:
@@ -114,15 +124,15 @@ def _leaves(tree, prefix=()):
 
 def _baseline_leaves(cfg):
     """Port state name -> (flax path, owning module, attribute) for a
-    BASELINE model, read from the model built on the meta device."""
+    model of :data:`MODELS`, read from the model built on the meta
+    device."""
     model = MODELS[type(cfg)](cfg, device="meta")
     out = {}
     for mod_name, mod in model.named_modules():
         prefix = tuple(mod_name.split(".")) if mod_name else ()
         tensors = list(mod.named_parameters(recurse=False)) \
             + list(mod.named_buffers(recurse=False))
-        if tensors and not isinstance(
-                mod, (BatchNorm, Conv, Dense, FusedLayerNorm, nn.Embedding)):
+        if tensors and not isinstance(mod, _LEAF_MODULES):
             raise TypeError(f"{mod_name}: no flax twin for {type(mod)}")
         for attr, _ in tensors:
             leaf = attr
@@ -217,6 +227,8 @@ def _baseline_init(cfg, generator) -> dict[str, torch.Tensor]:
         shape = tuple(getattr(mod, attr).shape)
         if isinstance(mod, nn.Embedding):
             t = torch.randn(shape, generator=generator) / math.sqrt(shape[1])
+        elif attr == "pos_embed":
+            t = torch.randn(shape, generator=generator) * 0.02
         elif attr == "weight":
             t = torch.randn(shape, generator=generator) \
                 / math.sqrt(math.prod(shape[1:]))
@@ -231,7 +243,8 @@ def _baseline_init(cfg, generator) -> dict[str, torch.Tensor]:
 
 def params_from_flax(tree, cfg) -> dict[str, torch.Tensor]:
     """The port's state for the JAX model's ``tree``: the parameter tree
-    for a GPT config, the whole variables dict for a BASELINE model's.
+    for a GPT config, the whole variables dict for a model of
+    :data:`MODELS`.
     Raises when a leaf is missing, left over or of the wrong shape."""
     if type(cfg) in MODELS:
         return _baseline_from_flax(tree, cfg)
@@ -263,8 +276,9 @@ def params_to_flax(state, cfg) -> dict:
     """The JAX model's parameter tree (nested dicts of fp32 numpy
     arrays) for the port's ``state`` (parameter name -> tensor): the
     inverse of :func:`params_from_flax`, so gradients compare leaf by
-    leaf.  For a BASELINE model the variables dict; a state without the
-    running statistics (gradients) gives one without ``batch_stats``.
+    leaf.  For a model of :data:`MODELS` the variables dict; a state
+    without the running statistics (gradients) gives one without
+    ``batch_stats``.
     Raises when a name is missing, left over or misshapen."""
     if type(cfg) in MODELS:
         return _baseline_to_flax(state, cfg)
@@ -294,10 +308,12 @@ def init_params(cfg, generator: torch.Generator
     weights at std 1/sqrt(fan_in) (flax's default scales, untruncated;
     flax counts a stacked (E, in, out) expert kernel's fan-in as E x
     in), routers at std 0.02 as flax's ``normal(0.02)``, LayerNorm scale
-    1 and bias 0.  The BASELINE models: conv weights at std
-    1/sqrt(in x kh x kw), embedding tables at 1/sqrt(width) (flax's
-    ``Embed`` default), biases 0, BatchNorm scale 1 (0 where flax starts
-    it at 0), running mean 0 and variance 1."""
+    1 and bias 0.  The BASELINE models, the ViT and the seq2seq LM: conv
+    weights at std 1/sqrt(in x kh x kw), embedding tables at
+    1/sqrt(width) (flax's ``Embed`` default), the ViT's ``pos_embed`` at
+    0.02 (its ``normal(0.02)``), biases 0, BatchNorm, LayerNorm and
+    RMSNorm scales 1 (0 where flax starts one at 0), running mean 0 and
+    variance 1."""
     if type(cfg) in MODELS:
         return _baseline_init(cfg, generator)
     state = {}

@@ -4,7 +4,8 @@ Twin of ``distributedtensorflow_tpu/models/layers.py``: the LayerNorm
 module, the dense-layer picker and dropout; and the flax layers that the
 JAX models take from ``flax.linen`` directly: ``nn.Dense`` and
 ``nn.DenseGeneral`` (:class:`Dense`), ``nn.Conv`` with its ``"SAME"``
-padding (:class:`Conv`) and ``nn.BatchNorm`` (:class:`BatchNorm`).
+padding (:class:`Conv`), ``nn.BatchNorm`` (:class:`BatchNorm`) and
+``nn.RMSNorm`` (:class:`RMSNorm`).
 Parameters are kept in fp32 as flax keeps them (``param_dtype``); each
 call casts to the compute dtype.  Convolutions take NCHW tensors (on the
 card in the ``channels_last`` memory format, which is NHWC in memory).
@@ -47,6 +48,25 @@ class FusedLayerNorm(nn.Module):
     def forward(self, x):
         return layer_norm(x, self.scale, self.bias, eps=self.eps,
                           out_dtype=self.out_dtype or x.dtype)
+
+
+class RMSNorm(nn.Module):
+    """flax ``nn.RMSNorm(dtype=float32)``: ``x * (rsqrt(mean(x^2) + eps)
+    * scale)`` over the last axis, the mean of squares and the product in
+    fp32, one fp32 ``scale`` (D,) of ones, fp32 out.  Plain PyTorch
+    arithmetic, as XLA computes flax's (the JAX package has no kernel
+    for it)."""
+
+    def __init__(self, features: int, *, eps: float = 1e-6, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(
+            torch.ones(features, dtype=torch.float32, device=device))
+
+    def forward(self, x):
+        x = x.float()
+        var = (x * x).mean(-1, keepdim=True)
+        return x * (torch.rsqrt(var + self.eps) * self.scale)
 
 
 class Dense(nn.Linear):

@@ -1,9 +1,9 @@
 """The tied LM head and its chunked cross-entropy loss.
 
-Twin of ``distributedtensorflow_tpu/ops/xent.py``: ``tied_head_logits``
-(``:82-99``) for serving and ``chunked_softmax_xent`` (``:102-181``) for
-training.  The fused head, the kernels K4f/K4b, lives in
-``ops/fused_xent.py``.
+Twin of ``distributedtensorflow_tpu/ops/xent.py``: ``chunked_argmax``
+(``:44-80``) for teacher-forced eval, ``tied_head_logits`` (``:82-99``)
+for serving and ``chunked_softmax_xent`` (``:102-181``) for training.
+The fused head, the kernels K4f/K4b, lives in ``ops/fused_xent.py``.
 """
 
 from __future__ import annotations
@@ -27,6 +27,25 @@ def tied_head_logits(x: torch.Tensor, wte: torch.Tensor,
     table per call, which a later performance change can remove."""
     dt = compute_dtype or torch.promote_types(x.dtype, wte.dtype)
     return x.to(dt).float() @ wte.to(dt).float().T
+
+
+def chunked_argmax(hidden: torch.Tensor, wte: torch.Tensor, *,
+                   chunk_tokens: int = DEFAULT_CHUNK_TOKENS,
+                   compute_dtype=None) -> torch.Tensor:
+    """Greedy ids (B, S) int32 of ``hidden`` (B, S, D) under the tied
+    table ``wte`` (V, D), without the full (B, S, V) logits: chunks of
+    ``chunk_tokens`` rows, each one (C, V) fp32 tile of
+    :func:`tied_head_logits`'s recipe, reduced to its argmax (ties to the
+    first index, as ``jnp.argmax``).  The last chunk is the short tail,
+    which JAX pads to the chunk for ``lax.scan``'s fixed shapes."""
+    b, s, d = hidden.shape
+    n = b * s
+    dt = compute_dtype or torch.promote_types(hidden.dtype, wte.dtype)
+    x = hidden.reshape(n, d).to(dt).float()
+    wte_f = wte.to(dt).float()
+    c = min(chunk_tokens, n)
+    ids = [(x[lo:lo + c] @ wte_f.T).argmax(-1) for lo in range(0, n, c)]
+    return torch.cat(ids).to(torch.int32).reshape(b, s)
 
 
 def _chunk_nll(x_c, t_c, w_c, wte_f, logits_dtype):

@@ -25,10 +25,14 @@ def classification_loss(model, *, weight_decay: float = 0.0,
     kernels, never BatchNorm scales or biases) when ``weight_decay``.
     Over a data-parallel ``group`` (or mesh) the cross-entropy and the
     accuracy are this rank's shares of the global means and the L2 term,
-    over the replicated parameters, enters once: on rank 0's share."""
+    over the replicated parameters, enters once: on rank 0's share.  A
+    model with dropout (a config's ``dropout_rate``: the ViT) gets
+    ``generator``, as JAX threads its ``dropout`` rng to it."""
+    drops = bool(getattr(getattr(model, "cfg", None), "dropout_rate", 0.0))
 
     def loss_fn(batch, generator=None):
-        logits = model(batch[inputs_key], train=True).float()
+        kw = {"generator": generator} if drops else {}
+        logits = model(batch[inputs_key], train=True, **kw).float()
         labels = batch[labels_key]
         loss = F.cross_entropy(logits, labels)
         accuracy = (logits.argmax(-1) == labels).float().mean()

@@ -1,5 +1,5 @@
-"""Training presets of the port: the GPT language-model family and the
-five BASELINE.json workloads.
+"""Training presets of the port: the GPT language-model family, the
+five BASELINE.json workloads, the ViT and the seq2seq encoder-decoder.
 
 Twin of ``distributedtensorflow_tpu/workloads.py`` with the same
 defaults:
@@ -21,13 +21,21 @@ defaults:
   gathered head; ``bert_tiny`` at seq 128 at test size), its packed
   variant, and Wide&Deep (batch 4096, adagrad 0.01;
   ``widedeep_test_config`` at test size).
+- ``imagenet_vit`` (``:303-326``): ViT-S/16 at 224x224, global batch
+  1024, AdamW with weight decay 0.05 on a warm-up cosine schedule (peak
+  3e-3, 1563 warm-up steps of 93750), top-5 in eval; ``vit_tiny`` at
+  test size.
+- ``t5_seq2seq`` (``:613-653``): ``seq2seq_small`` (hidden 512, 6+6
+  layers, vocab 32128) at seq 256, global batch 64, AdamW at 3e-4 with
+  weight decay 0.1, synthetic copy-task batches; ``seq2seq_tiny`` at seq
+  32, batch 8 at test size.  ``seq_len`` grows ``max_seq`` where it
+  passes it and ``kv_heads`` sets the K/V heads, as in JAX.
 
 The synthetic sources are copies of the JAX package's numpy sources
 with the same seeds, so both packages see identical batches; over a
 data-parallel mesh each rank's source is seeded by ``seed +
-input_pipeline_id``, as each JAX host's is.  The other presets
-(``imagenet_vit``, ``bert_moe``, ``t5_seq2seq``) and the
-pipeline/sequence/expert-parallel variants are not ported yet.
+input_pipeline_id``, as each JAX host's is.  The ``bert_moe`` preset
+and the pipeline/sequence/expert-parallel variants are not ported yet.
 """
 
 from __future__ import annotations
@@ -71,6 +79,14 @@ from .models.resnet import (
     ImageNetResNet,
     ImageNetResNetConfig,
 )
+from .models.seq2seq import (
+    Seq2SeqLM,
+    seq2seq_eval,
+    seq2seq_loss,
+    seq2seq_small,
+    seq2seq_tiny,
+)
+from .models.vit import ViT, vit_s16, vit_tiny
 from .models.widedeep import (
     WideDeep,
     WideDeepConfig,
@@ -79,12 +95,19 @@ from .models.widedeep import (
     widedeep_test_config,
 )
 from .train.losses import classification_eval, classification_loss
-from .train.optimizers import adagrad, adamw, sgd, warmup_cosine_decay_schedule
+from .train.optimizers import (
+    adagrad,
+    adamw,
+    build_optimizer,
+    sgd,
+    warmup_cosine_decay_schedule,
+)
 
-#: The presets the port has.
+#: The presets the port has, in the JAX package's order.
 WORKLOADS = ("mnist_lenet", "cifar_resnet20", "imagenet_resnet50",
-             "bert_mlm", "bert_mlm_packed", "widedeep",
-             "gpt_lm", "gpt_medium_lm", "lm_long_context", "gpt_moe")
+             "imagenet_vit", "bert_mlm", "bert_mlm_packed", "widedeep",
+             "gpt_lm", "gpt_medium_lm", "lm_long_context", "gpt_moe",
+             "t5_seq2seq")
 
 
 def synthetic_lm(ctx: InputContext, *, vocab_size: int, seq_len: int,
@@ -147,6 +170,21 @@ def synthetic_packed_mlm(ctx: InputContext, *, vocab_size: int,
         }
 
 
+def synthetic_seq2seq(ctx: InputContext, *, vocab_size: int, seq_len: int,
+                      pad_id: int, seed: int = 0) -> Iterator[dict]:
+    """Synthetic copy-task batches for the encoder-decoder preset: the
+    targets are the encoder stream itself with a random-length pad tail
+    (learnable only through cross-attention); ids avoid ``pad_id``."""
+    rng = np.random.default_rng(seed + ctx.input_pipeline_id)
+    n = ctx.per_host_batch_size
+    while True:
+        ids = rng.integers(2, vocab_size, size=(n, seq_len))
+        lengths = rng.integers(seq_len // 2, seq_len + 1, size=(n, 1))
+        keep = np.arange(seq_len) < lengths
+        ids = np.where(keep, ids, pad_id).astype(np.int32)
+        yield {"encoder_ids": ids, "targets": ids.copy()}
+
+
 def synthetic_recsys(ctx: InputContext, cfg: WideDeepConfig, seed: int = 0):
     """Synthetic Wide&Deep batches: uniform ids per vocab, normal dense
     features, a label from the first id's parity and the first dense
@@ -167,7 +205,7 @@ class Workload:
     name: str
     #: the model's config: ``model_cls(cfg, device=...)`` builds it
     cfg: Any
-    #: tokens a row (the LM and MLM presets), else None
+    #: tokens a row (the LM, MLM and seq2seq presets), else None
     seq_len: int | None
     global_batch_size: int
     #: ``(model, group=None) -> loss_fn(batch, generator) -> (loss,
@@ -267,6 +305,43 @@ def _baseline(name: str, *, test_size: bool, global_batch_size: int | None,
         model_cls=WideDeep)
 
 
+def _vit(*, test_size: bool, global_batch_size: int | None) -> Workload:
+    """``imagenet_vit`` (``workloads.py:303-326``)."""
+    cfg = vit_tiny() if test_size else vit_s16()
+    return Workload(
+        name="imagenet_vit", cfg=cfg, seq_len=None,
+        global_batch_size=global_batch_size or 1024,
+        loss_fn=classification_loss,
+        eval_fn=lambda m, group=None: classification_eval(
+            m, top5=not test_size, group=group),
+        make_optimizer=build_optimizer(
+            "adamw", warmup_cosine_decay_schedule(0.0, 3e-3, 1563, 93_750),
+            weight_decay=0.05),
+        input_fn=_image_input((cfg.image_size, cfg.image_size, 3),
+                              cfg.num_classes),
+        model_cls=ViT)
+
+
+def _seq2seq(*, test_size: bool, global_batch_size: int | None,
+             seq_len: int | None, kv_heads: int | None) -> Workload:
+    """``t5_seq2seq`` (``workloads.py:613-653``)."""
+    cfg = seq2seq_tiny() if test_size else seq2seq_small()
+    seq = seq_len or (32 if test_size else 256)
+    if seq > cfg.max_seq:  # grow the declared envelope with overrides
+        cfg = dataclasses.replace(cfg, max_seq=seq)
+    if kv_heads is not None:
+        cfg = dataclasses.replace(cfg, num_kv_heads=kv_heads)
+    return Workload(
+        name="t5_seq2seq", cfg=cfg, seq_len=seq,
+        global_batch_size=global_batch_size or (8 if test_size else 64),
+        loss_fn=seq2seq_loss, eval_fn=seq2seq_eval,
+        make_optimizer=lambda params: adamw(params, 3e-4, weight_decay=0.1),
+        input_fn=lambda ctx, seed: synthetic_seq2seq(
+            ctx, vocab_size=cfg.vocab_size, seq_len=seq, pad_id=cfg.pad_id,
+            seed=seed),
+        model_cls=Seq2SeqLM)
+
+
 def _apply_gpt_overrides(cfg: GPTConfig, *, seq, remat, attn_impl, xent_impl,
                          kv_heads, attn_window) -> GPTConfig:
     """The CLI knobs (``_apply_gpt_overrides``, ``workloads.py:181``):
@@ -294,10 +369,17 @@ def get_workload(name: str, *, test_size: bool = False,
                  attn_window: int | None = None) -> Workload:
     """Build a ported preset by name; ``test_size`` shrinks the model.
     The GPT knobs (``remat`` ... ``attn_window``) apply to the GPT family
-    only, as in JAX."""
+    only, as in JAX, but for ``kv_heads``, which ``t5_seq2seq`` takes
+    too."""
     if name not in WORKLOADS:
         raise ValueError(f"workload {name!r} is not ported; the port has "
                          f"{', '.join(WORKLOADS)}")
+    if name == "imagenet_vit":
+        return _vit(test_size=test_size, global_batch_size=global_batch_size)
+    if name == "t5_seq2seq":
+        return _seq2seq(test_size=test_size,
+                        global_batch_size=global_batch_size,
+                        seq_len=seq_len, kv_heads=kv_heads)
     if not name.startswith(("gpt", "lm_")):
         return _baseline(name, test_size=test_size,
                          global_batch_size=global_batch_size,

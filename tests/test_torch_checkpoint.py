@@ -593,26 +593,55 @@ def test_jax_checkpoint_resumes_in_the_port(tmp_path):
                                    err_msg="/".join(path))
 
 
-#: optimizer, schedule, warmup, weight decay, clipnorm, decay mask
+#: The models of the converter cases: GPT's parameter tree, and the ViT's
+#: and seq2seq's flax-named ones (GQA: (E, Hkv, D) key/value kernels).
+CONVERT_MODELS = {
+    "gpt_tiny": (tm.gpt_tiny, tm.GPTLM),
+    "vit_tiny": (tm.vit_tiny, tm.ViT),
+    "seq2seq_tiny_gqa": (lambda: dataclasses.replace(tm.seq2seq_tiny(),
+                                                     num_kv_heads=2),
+                         tm.Seq2SeqLM),
+}
+#: optimizer, schedule, warmup, weight decay, clipnorm, decay mask, model;
+#: the last two are the imagenet_vit and t5_seq2seq presets' optimizers
 CONVERT_CASES = {
-    "sgd": ("sgd", "constant", 0, 0.0, 0.0, False),
-    "momentum_cosine": ("momentum", "cosine", 1, 0.0, 0.0, False),
-    "adam_linear_clip": ("adam", "linear", 1, 0.0, 1.0, False),
-    "adamw_cosine_clip_mask": ("adamw", "cosine", 0, 0.1, 0.5, True),
-    "adagrad_warmup": ("adagrad", "constant", 2, 0.0, 0.0, False),
+    "sgd": ("sgd", "constant", 0, 0.0, 0.0, False, "gpt_tiny"),
+    "momentum_cosine": ("momentum", "cosine", 1, 0.0, 0.0, False,
+                        "gpt_tiny"),
+    "adam_linear_clip": ("adam", "linear", 1, 0.0, 1.0, False, "gpt_tiny"),
+    "adamw_cosine_clip_mask": ("adamw", "cosine", 0, 0.1, 0.5, True,
+                               "gpt_tiny"),
+    "adagrad_warmup": ("adagrad", "constant", 2, 0.0, 0.0, False,
+                       "gpt_tiny"),
+    "adamw_warmup_cosine_vit": ("adamw", "cosine", 2, 0.05, 0.0, False,
+                                "vit_tiny"),
+    "adamw_seq2seq_gqa_mask": ("adamw", "constant", 0, 0.1, 0.0, True,
+                               "seq2seq_tiny_gqa"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(CONVERT_CASES))
 def test_opt_state_converters_match_optax(case):
-    """Each ported optimizer on gpt_tiny's parameters: two optax updates,
-    the state carried into the port, one more update on each side
-    (parameters within 1e-6), and JAX -> port -> JAX exact."""
-    name, sched, warmup, wd, clip, masked = CONVERT_CASES[case]
-    cfg = tm.gpt_tiny()
-    model = tm.GPTLM(cfg, device="cpu")
+    """Each ported optimizer on a model's parameters (gpt_tiny's, and the
+    presets' optimizers on vit_tiny's and seq2seq_tiny's): two optax
+    updates, the state carried into the port, one more update on each
+    side (parameters within 1e-6), and JAX -> port -> JAX exact."""
+    name, sched, warmup, wd, clip, masked, which = CONVERT_CASES[case]
+    make_cfg, model_cls = CONVERT_MODELS[which]
+    cfg = make_cfg()
+    flax_named = type(cfg) in tm.convert.MODELS
+
+    def to_flax(state):
+        tree = tm.params_to_flax(state, cfg)
+        return tree["params"] if flax_named else tree
+
+    def from_flax(tree):
+        return tm.params_from_flax({"params": tree} if flax_named else tree,
+                                   cfg)
+
+    model = model_cls(cfg, device="cpu")
     model.load_state_dict(tm.init_params(cfg, torch.Generator().manual_seed(0)))
-    jp = tm.params_to_flax(model.state_dict(), cfg)
+    jp = to_flax(model.state_dict())
     rng = np.random.default_rng(2)
     grads = [jax.tree.map(lambda a: rng.standard_normal(a.shape).astype(
         np.float32), jp) for _ in range(3)]
@@ -626,7 +655,7 @@ def test_opt_state_converters_match_optax(case):
     for g in grads[:2]:
         upd, js = tx.update(g, js, jp)
         jp = optax.apply_updates(jp, upd)
-    model.load_state_dict(tm.params_from_flax(jp, cfg))
+    model.load_state_dict(from_flax(jp))
     opt = tt.build_optimizer(
         name, tt.build_schedule(sched, 0.05, warmup_steps=warmup,
                                 total_steps=5),
@@ -643,11 +672,11 @@ def test_opt_state_converters_match_optax(case):
 
     upd, js = tx.update(grads[2], js, jp)
     jp = optax.apply_updates(jp, upd)
-    grads_port = tm.params_from_flax(grads[2], cfg)
+    grads_port = from_flax(grads[2])
     for n, p in model.named_parameters():
         p.grad = grads_port[n].clone()
     opt.step()
-    got = dict(_flat(tm.params_to_flax(model.state_dict(), cfg)))
+    got = dict(_flat(to_flax(model.state_dict())))
     for path, ref in _flat(jp):
         np.testing.assert_allclose(got[path], ref, rtol=0, atol=1e-6,
                                    err_msg="/".join(path))

@@ -35,7 +35,10 @@ from distributedtensorflow_tpu.models import gpt_moe as jax_gpt_moe
 from distributedtensorflow_tpu.models import GPTLM as JaxGPTLM
 from distributedtensorflow_tpu.models import gpt_tiny as jax_gpt_tiny
 from distributedtensorflow_tpu.models import lm_loss as jax_lm_loss
+from distributedtensorflow_tpu.models import seq2seq as jax_s2s
+from distributedtensorflow_tpu.models import vit as jax_vit
 from distributedtensorflow_tpu.train import engine as jax_engine
+from distributedtensorflow_tpu.train import losses as jax_losses
 from distributedtensorflow_tpu.train.state import TrainState as JaxTrainState
 from distributedtensorflow_tpu_torch import models as tm
 from distributedtensorflow_tpu_torch import train as tt
@@ -50,6 +53,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL = 1e-5
 GRAD_TOL = 1e-4
 STEPS = 3
+PAD_ID = 1  # seq2seq_tiny's pad id
 
 
 def _flat(tree, prefix=()):
@@ -154,8 +158,37 @@ def _moe_case():
                 {"params": params}, tcfg, pw, 8, tm.moe_lm_loss), jw
 
 
+def _seq2seq_case():
+    """t5_seq2seq at test size (seq 32, global batch 8): the copy task's
+    pad tails give each rank's share another count of targets."""
+    jw = jax_workloads.get_workload("t5_seq2seq", test_size=True)
+    pw = tw.get_workload("t5_seq2seq", test_size=True)
+    jmodel = jax_s2s.Seq2SeqLM(dataclasses.replace(jw.model.cfg,
+                                                   dtype=jnp.float32))
+    tcfg = dataclasses.replace(pw.cfg, dtype=torch.float32)
+    z = jnp.zeros((2, pw.seq_len), jnp.int32)
+    variables = jax.device_get(jax.jit(jmodel.init)(jax.random.PRNGKey(4),
+                                                    z, z))
+    return Case(jax_s2s.seq2seq_loss(jmodel), dict(variables), tcfg, pw, 8,
+                tm.seq2seq_loss), jw
+
+
+def _vit_case():
+    jw = jax_workloads.get_workload("imagenet_vit", test_size=True,
+                                    global_batch_size=8)
+    pw = tw.get_workload("imagenet_vit", test_size=True, global_batch_size=8)
+    jmodel = jax_vit.ViT(dataclasses.replace(jw.model.cfg,
+                                             dtype=jnp.float32))
+    tcfg = dataclasses.replace(pw.cfg, dtype=torch.float32)
+    variables = jax.device_get(jax.jit(jmodel.init)(
+        jax.random.PRNGKey(5), jnp.zeros((2, 32, 32, 3))))
+    return Case(jax_losses.classification_loss(jmodel), dict(variables),
+                tcfg, pw, 8, pw.loss_fn), jw
+
+
 CASES = {"gpt_lm": _gpt_case, "bert_mlm_packed": _bert_case,
-         "cifar_resnet20": _resnet_case, "gpt_moe": _moe_case}
+         "cifar_resnet20": _resnet_case, "gpt_moe": _moe_case,
+         "t5_seq2seq": _seq2seq_case, "imagenet_vit": _vit_case}
 
 
 @functools.lru_cache(maxsize=None)
@@ -309,6 +342,52 @@ def test_gpt_moe_routes_the_global_batch(world):
     assert max(diffs) > 10 * RTOL
 
 
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("accum", [1, 2])
+def test_t5_seq2seq_matches_jax_global_batch(world, accum):
+    """t5_seq2seq at test size (fp32, AdamW): three steps' losses and
+    perplexities, the first step's gradients.  The pad-masked mean
+    divides by the global microbatch's non-pad targets, which differ
+    between the ranks' shares."""
+    batches, _ = _check_against_jax("t5_seq2seq", world, accum)
+    targets = np.concatenate([b[0]["targets"] for b in batches])
+    counts = {int((share != PAD_ID).sum())
+              for share in np.split(targets[:8 // accum], world)}
+    assert len(counts) > 1
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_imagenet_vit_matches_jax_global_batch(world):
+    """imagenet_vit at test size (fp32, global batch 8, AdamW on its
+    warm-up cosine): losses and accuracy, the first step's gradients."""
+    _check_against_jax("imagenet_vit", world, 1)
+
+
+def test_seq2seq_eval_shares_sum_to_the_global_batch():
+    """Two thread ranks' ``seq2seq_eval`` through ``make_eval_step``: the
+    loss, accuracy and perplexity of the global eval batch (1e-6
+    relative; fp32), each rank holding half the rows."""
+    case, _ = _case("t5_seq2seq")
+    batch = next(case.pw.input_fn(InputContext(global_batch_size=8), 7))
+    sd = _state_dict(case)
+
+    def metrics(rank, group):
+        model = tm.Seq2SeqLM(case.tcfg, device="cpu")
+        model.load_state_dict(sd)
+        mesh = None if group is None else build_mesh(MeshSpec(data=2), group)
+        step = tt.make_eval_step(tm.seq2seq_eval(model, group=mesh), mesh)
+        rows = {k: np.split(v, 2)[rank] if mesh is not None else v
+                for k, v in batch.items()}
+        return {k: float(v) for k, v in step(
+            None, device_put_batch(rows, "cpu")).items()}
+
+    ref = metrics(0, None)
+    for got in run_ranks(metrics, 2):
+        assert got.keys() == ref.keys()
+        for k in ref:
+            np.testing.assert_allclose(got[k], ref[k], rtol=1e-6, err_msg=k)
+
+
 @pytest.mark.parametrize("router", ["top1", "top2"])
 @pytest.mark.parametrize("masked", [False, True])
 def test_global_routing_positions_and_drops(router, masked):
@@ -358,7 +437,9 @@ def test_global_routing_positions_and_drops(router, masked):
 @pytest.mark.parametrize("name,accum", [("gpt_lm", 2),
                                         ("bert_mlm_packed", 4),
                                         ("cifar_resnet20", 1),
-                                        ("gpt_moe", 1)])
+                                        ("gpt_moe", 1),
+                                        ("t5_seq2seq", 2),
+                                        ("imagenet_vit", 1)])
 def test_world_of_one_is_the_single_device_step_bit_for_bit(name, accum):
     """A mesh of one rank (its own gloo group) gives the plain step's
     metrics, parameters and buffers bit for bit.  One intra-op thread:

@@ -7,7 +7,8 @@ bundled fit loop and ``train_torch.py --steps-per-call``.
   mesh, from one init and on the same bundles, for gpt_lm at test size
   (fp32, AdamW with warm-up, cosine decay and clipping; one and two
   microbatches), mnist_lenet (the JAX engine test's LeNet-5 and momentum
-  SGD) and cifar_resnet20 (BatchNorm statistics).  Two calls: the stacked
+  SGD), cifar_resnet20 (BatchNorm statistics), and imagenet_vit and
+  t5_seq2seq (their models in fp32).  Two calls: the stacked
   losses within 1e-5 relative (the tolerance of
   ``tests/test_torch_train.py::test_train_steps_match_jax``), the
   parameters after six updates within 1e-3 of a leaf's max-abs and the
@@ -48,9 +49,12 @@ from distributedtensorflow_tpu.data.input_pipeline import (
 from distributedtensorflow_tpu.models import GPTLM as JaxGPTLM
 from distributedtensorflow_tpu.models import gpt_tiny as jax_gpt_tiny
 from distributedtensorflow_tpu.models import lm_loss as jax_lm_loss
+from distributedtensorflow_tpu.models import seq2seq as jax_s2s
+from distributedtensorflow_tpu.models import vit as jax_vit
 from distributedtensorflow_tpu.parallel import MeshSpec as JaxMeshSpec
 from distributedtensorflow_tpu.parallel import build_mesh as jax_build_mesh
 from distributedtensorflow_tpu.train import create_sharded_state
+from distributedtensorflow_tpu.train import losses as jax_losses
 from distributedtensorflow_tpu.train import (
     make_multi_train_step as jax_multi_step,
 )
@@ -142,10 +146,36 @@ def _baseline_case(name):
                 source=pw.input_fn, accum=1, cfg=pw.cfg)
 
 
+def _fp32_preset_case(name):
+    """imagenet_vit or t5_seq2seq at test size (global batch 8), both
+    packages' models in fp32 (the presets compute in bf16)."""
+    jw = jax_workloads.get_workload(name, test_size=True, global_batch_size=8)
+    pw = tw.get_workload(name, test_size=True, global_batch_size=8)
+    jcfg = dataclasses.replace(jw.model.cfg, dtype=jnp.float32)
+    if name == "imagenet_vit":
+        jmodel = jax_vit.ViT(jcfg)
+        jloss = jax_losses.classification_loss(jmodel)
+        init_args = (jnp.zeros((2, 32, 32, 3)),)
+    else:
+        jmodel = jax_s2s.Seq2SeqLM(jcfg)
+        jloss = jax_s2s.seq2seq_loss(jmodel)
+        init_args = (jnp.zeros((2, pw.seq_len), jnp.int32),) * 2
+    variables = jax.device_get(jax.jit(jmodel.init)(jax.random.PRNGKey(6),
+                                                    *init_args))
+    cfg = dataclasses.replace(pw.cfg, dtype=torch.float32)
+    model = pw.model_cls(cfg, device="cpu")
+    model.load_state_dict(tm.params_from_flax(variables, cfg))
+    return dict(variables=variables, jloss=jloss, jtx=jw.make_optimizer(),
+                model=model, loss=pw.loss_fn(model), make=pw.make_optimizer,
+                source=pw.input_fn, accum=1, cfg=cfg)
+
+
 MULTI_CASES = {"gpt_lm_accum1": lambda: _gpt_case(1),
                "gpt_lm_accum2": lambda: _gpt_case(2),
                "mnist_lenet": lambda: _baseline_case("mnist_lenet"),
-               "cifar_resnet20": lambda: _baseline_case("cifar_resnet20")}
+               "cifar_resnet20": lambda: _baseline_case("cifar_resnet20"),
+               "imagenet_vit": lambda: _fp32_preset_case("imagenet_vit"),
+               "t5_seq2seq": lambda: _fp32_preset_case("t5_seq2seq")}
 
 
 @pytest.mark.parametrize("case", sorted(MULTI_CASES))

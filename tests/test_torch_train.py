@@ -313,7 +313,7 @@ def test_get_workload_matches_jax(case):
     assert pw.global_batch_size == jw.global_batch_size
     assert pw.seq_len == jw.init_batch["input_ids"].shape[1]
     with pytest.raises(ValueError, match="not ported"):
-        tw.get_workload("imagenet_vit")
+        tw.get_workload("bert_moe")
 
 
 #: (dtype, accum_steps, relative tolerance of the losses).  fp32 isolates

@@ -4,9 +4,11 @@
 The twin of ``train.py`` for the presets the port has, on one device or
 data-parallel over ranks (``--mesh data=N``, one process per device): the
 GPT language models ``gpt_lm``, ``gpt_medium_lm``,
-``lm_long_context`` and ``gpt_moe``, and the BASELINE.json workloads
+``lm_long_context`` and ``gpt_moe``, the BASELINE.json workloads
 ``mnist_lenet``, ``cifar_resnet20``, ``imagenet_resnet50``, ``bert_mlm``,
-``bert_mlm_packed`` and ``widedeep``.  Synthetic batches, the preset's
+``bert_mlm_packed`` and ``widedeep``, the ViT-S/16 classifier
+``imagenet_vit`` and the encoder-decoder ``t5_seq2seq`` (``--seq-len``
+and ``--kv-heads`` as in ``train.py``).  Synthetic batches, the preset's
 optimizer or the one that ``--optimizer/--lr/--schedule/--warmup-steps/
 --weight-decay/--clipnorm/--decay-mask`` build (the same flags, defaults
 and checks as ``train.py``), the preset's gradient accumulation unless
@@ -19,6 +21,8 @@ CUDA card unless ``--device cpu`` is given:
     python train_torch.py --workload imagenet_resnet50 --steps 20
     python train_torch.py --workload bert_mlm --test-size --device cpu \
         --steps 3 --batch-size 8
+    python train_torch.py --workload t5_seq2seq --test-size --device cpu \
+        --steps 3 --kv-heads 2
     ./run_distributed_torch.sh -n 2 -- --workload gpt_lm --test-size \
         --device cpu --dist-backend gloo --steps 3
 
@@ -42,7 +46,7 @@ step is a multiple of ``--log-every``, or the last step).  Prints one JSON
 line per log step: ``step``, ``loss``, ``perplexity`` (the language
 models), ``step_ms`` (wall time a step since the last line),
 ``examples_per_sec`` and, where the preset has a sequence length (GPT,
-BERT), ``tokens_per_sec``.  With ``--logdir`` it also appends
+BERT, seq2seq), ``tokens_per_sec``.  With ``--logdir`` it also appends
 ``metrics.jsonl`` rows with the Trainer's keys (the loss and the preset's
 metrics, the rates, the span breakdown ``t_step``/``t_data``/
 ``t_dispatch``/``t_host`` with their ``f_*`` shares, device and host
@@ -182,12 +186,15 @@ def parse_args(argv=None) -> argparse.Namespace:
                    default=None,
                    help="head loss: auto = fused on the card (kernels "
                         "K4f/K4b), chunked on the CPU")
-    p.add_argument("--kv-heads", type=int, default=None)
+    p.add_argument("--kv-heads", type=int, default=None,
+                   help="K/V heads (grouped-query attention) of the GPT "
+                        "presets and t5_seq2seq")
     p.add_argument("--attn-window", type=int, default=None)
     p.add_argument("--test-size", action="store_true",
                    help="shrink the model (the JAX test sizes: gpt_tiny or "
                         "gpt_moe_tiny at seq 64, bert_tiny at seq 128, "
-                        "ResNet-50 at 64x64, widedeep_test_config)")
+                        "ResNet-50 at 64x64, widedeep_test_config, "
+                        "vit_tiny, seq2seq_tiny at seq 32)")
     p.add_argument("--dtype", choices=("float32", "bfloat16"), default=None,
                    help="compute dtype in place of the preset's (fp32 for "
                         "parity checks: in bf16 each rank rounds its own "
