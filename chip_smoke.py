@@ -35,7 +35,8 @@ Phases, each fatal on failure:
    and TMA, dx and dw with a cluster split over D; each row names its
    plan);
 5. serving: the paged continuous-batching ``Engine`` at full
-   GPT-2-small width (bf16, seeded random weights) answers six requests;
+   GPT-2-small width (bf16, seeded random weights) answers six requests
+   (phase 19, serve_cli, drives it through ``serve_torch.py``);
 6. dense generate: ``generate`` at full width, batch 4 (K5 launched
    once a layer and one-token step); generate_gqa: gpt_small with one kv
    head, batch 2, a 6000-token prompt in a cache of 8192, 16 greedy
@@ -196,14 +197,37 @@ Phases, each fatal on failure:
     for ViT-S/16 (2 layers) and seq2seq_small (2 + 2 layers) against the
     CPU; both presets at k = 4 equal k = 1 bit for bit (2 layers).
 
+19. serve_cli (run right after phase 8): ``serve_torch.main``, the
+    port's ``serve.py``, on a thread with port 0, serving GPT-2-small at
+    full width (seeded random weights, ``--max-context`` 2048) over HTTP
+    to localhost.  First verify_window: the speculative verify pass's
+    logits against one-token steps on the same pool (bf16, a window of
+    5, within 1e-4; JAX's batched form beside it for the record).  Then
+    16 greedy requests of 5-600 prompt tokens and 64 new tokens (8 share
+    a 256-token header, 4 periodic, one streamed, two tenants) in four
+    modes, (a) the defaults, (b) ``--prefix-cache --prefill-budget 64``
+    with ``--kv-blocks`` at half of full provisioning, (c)
+    ``--fused-sampling``, (d) ``--fused-sampling --speculate 4``, each in
+    fp32 and in bf16: every request ok, every block free at the end,
+    cached + prefilled tokens equal the prompt's, K1f launched 25 times a
+    prefill chunk and a decode step, prefix hits in (b), accepted <=
+    drafted and >= 1 token a step in (d), a seeded sampled request
+    repeating in (c); fp32 tokens equal in all modes and equal dense
+    ``generate``'s; in bf16 a token leaves (a)'s only where (a)'s own
+    logits of the two lie within 1e-2 (each case reported).  TTFT p50/p99,
+    TPOT p50, tokens/s, prefix hit rate, acceptance, tokens a step, and
+    the idle share of a profiled window in (a) and (d).  Last, a
+    checkpoint ``train_torch`` wrote (gpt_lm, one step) served through
+    ``--checkpoint`` gives the in-memory model's tokens.
+
 Kernel launch counts are set to 0 just before phases 5, 6 (each generate
 run), 9-11, 13, 14 (each path; in each rank's process), 15's resumed
-steps, 16's run through ``train_torch.main``, 17's runs and 18's
-training steps and decoding, and read just after (a replayed graph
-counts what its capture counted); a kernel of the path that did not
-launch, or a gpt_lm, gpt_moe or BERT training step that launched a
-kernel another number of times than its forward, recomputation and
-backward need, fails the run.  The line before the last is one JSON
+steps, 16's run through ``train_torch.main``, 17's runs, 18's training
+steps and decoding, and each server run of 19, and read just after (a
+replayed graph counts what its capture counted); a kernel of the path
+that did not launch, or a gpt_lm, gpt_moe or BERT training step that
+launched a kernel another number of times than its forward,
+recomputation and backward need, fails the run.  The line before the last is one JSON
 object with a row per kernel; the last line is ``{"ok": true, "device":
 {...}}``.  ``--phases`` runs a subset (for iterating on one part); the
 default runs all.
@@ -1731,6 +1755,569 @@ def run_consistency(torch, mods, Engine, cfg, state, device="cuda"):
           "card_vs_cpu_logits_max_abs_err": err, "tolerance": "atol 1e-3"})
     if not ok:
         raise AssertionError(f"card logits differ from the CPU's by {err}")
+
+
+#: The serve_cli phase: ``serve_torch.main`` at full width over HTTP.
+#: Each mode adds its flags to the engine's defaults (4 slots, blocks of
+#: 16, prefill chunk 16); (b)'s pool is half of full provisioning.
+SERVE_CLI_MODES = (
+    ("a_defaults", ()),
+    ("b_prefix_budget_half_pool", ("--prefix-cache", "--prefill-budget",
+                                   "64", "--kv-blocks", "half")),
+    ("c_fused", ("--fused-sampling",)),
+    ("d_speculate", ("--fused-sampling", "--speculate", "4")),
+)
+SERVE_CLI_CONTEXT = 2048
+SERVE_CLI_NEW_TOKENS = 64
+#: Prompt lengths are divided by this (1 on the card; a CPU rehearsal
+#: cuts it together with the config).
+SERVE_CLI_SCALE = 1
+SERVE_CLI_TIE = 1e-2
+SERVE_CLI_TENANTS = ("tenant_a", "tenant_b")
+SERVE_CLI_STREAMED = 5  # the index of the one streamed request
+
+
+def _serve_cli_mix(vocab, scale=1):
+    """16 prompts, 5 to 600 tokens: 8 share a 256-token header (16
+    blocks of 16), 4 are periodic (the n-gram drafter fires on them), 4
+    are random; interleaved so that header requests keep arriving."""
+    rng = np.random.default_rng(SEED + 15)
+
+    def ints(n):
+        return rng.integers(0, vocab, max(n // scale, 1)).tolist()
+
+    header = ints(256)
+    shared = [header + ints(n) for n in (5, 40, 100, 200, 300, 344, 17, 64)]
+    periodic = []
+    for n, period in ((48, 7), (96, 11), (160, 13), (300, 9)):
+        pattern = ints(period * scale)
+        periodic.append((pattern * (n // len(pattern) + 1))[:max(
+            n // scale, 2 * len(pattern))])
+    other = [ints(n) for n in (5, 33, 128, 450)]
+    return [shared[0], periodic[0], other[0], shared[1], periodic[1],
+            shared[2], other[1], shared[3], periodic[2], shared[4],
+            other[2], shared[5], periodic[3], shared[6], other[3],
+            shared[7]]
+
+
+def _http(port, path, payload=None, timeout=900):
+    """``(status, body text)`` of a GET (no payload) or a JSON POST to
+    this process's server on ``port``."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _generate(port, payload) -> dict:
+    """One ``POST /generatez``: the blocking reply, or a streamed reply's
+    token lines joined under its trailer's stats."""
+    status, body = _http(port, "/generatez", payload)
+    if status != 200:
+        raise AssertionError(f"POST /generatez {status}: {body[:300]}")
+    if not payload.get("stream"):
+        return json.loads(body)
+    lines = [json.loads(line) for line in body.splitlines()]
+    out = dict(lines[-1])
+    if not out.get("done") or out.get("status") != "ok":
+        raise AssertionError(f"stream ended with {out}")
+    out["tokens"] = [t for line in lines[:-1] for t in line["tokens"]]
+    out["stream_lines"] = len(lines) - 1
+    return out
+
+
+class _CliServer:
+    """``serve_torch.main(argv, stop=...)`` on a thread; the port from its
+    startup line on stdout."""
+
+    def __init__(self, serve_torch, argv):
+        import io
+        import threading
+
+        self.stop = threading.Event()
+        self.rc = None
+        self.error = None
+        buf = io.StringIO()
+
+        def run():
+            try:
+                self.rc = serve_torch.main(argv, stop=self.stop)
+            except BaseException as e:  # noqa: BLE001 - reported below
+                self.error = e
+
+        self.thread = threading.Thread(target=run, name="serve_cli")
+        t0 = time.time()
+        deadline = t0 + 300
+        with contextlib.redirect_stdout(buf):
+            self.thread.start()
+            while '"serving": true' not in buf.getvalue():
+                if self.error is not None or not self.thread.is_alive() \
+                        or time.time() > deadline:
+                    raise AssertionError(
+                        f"serve_torch did not start: {self.error!r} "
+                        f"{buf.getvalue()[:300]}")
+                time.sleep(0.05)
+        self.startup = json.loads(buf.getvalue().strip().splitlines()[0])
+        self.port = self.startup["port"]
+        self.start_s = time.time() - t0
+
+    def close(self) -> int:
+        self.stop.set()
+        self.thread.join(timeout=300)
+        if self.error is not None or self.thread.is_alive():
+            raise AssertionError(f"serve_torch failed: {self.error!r}")
+        return self.rc
+
+
+def _serve_mix(port, prompts, new_tokens):
+    """Every prompt POSTed at once from its own thread (one streamed, two
+    tenants); returns the replies in prompt order and the wall seconds."""
+    import threading
+
+    replies = [None] * len(prompts)
+    errors = []
+
+    def client(i, prompt):
+        try:
+            replies[i] = _generate(port, {
+                "prompt": prompt, "max_new_tokens": new_tokens,
+                "tenant": SERVE_CLI_TENANTS[i % 2],
+                "stream": i == SERVE_CLI_STREAMED})
+        except Exception as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i, p))
+               for i, p in enumerate(prompts)]
+    t0 = time.time()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.time() - t0
+    if errors:
+        raise errors[0]
+    return replies, wall
+
+
+def _profiled_window(torch, port, prompts, new_tokens):
+    """torch.profiler over four requests of the mix served at once: wall,
+    device-busy time and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        _serve_mix(port, prompts[:4], new_tokens)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    busy = sum(e.self_device_time_total
+               for e in device_events(torch, prof)) / 1e3
+    return {"wall_ms": 1e3 * wall, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / (1e3 * wall)}
+
+
+def _serve_cli_mode(torch, cuda, serve_torch, argv, prompts, new_tokens,
+                    logdir, device, ln_per_step, sampled=False,
+                    profile=False):
+    """One server run: the mix, then (``sampled``) one seeded sampled
+    request twice, (``profile``) a profiled window; every check that
+    needs only this run, K1f's ``ln_per_step`` launches a prefill chunk
+    and a decode step among them.  Launch counts are set to 0 just before
+    the server starts and read after it stopped."""
+    dev = torch.device(device)
+    sync(torch, dev)
+    cuda.launches.clear()
+    srv = _CliServer(serve_torch, argv)
+    extra = {}
+    try:
+        replies, wall = _serve_mix(srv.port, prompts, new_tokens)
+        if sampled:
+            kw = {"prompt": prompts[2], "max_new_tokens": new_tokens,
+                  "temperature": 0.8, "top_k": 40, "seed": 7}
+            runs = [_generate(srv.port, kw)["tokens"] for _ in range(2)]
+            extra["sampled_repeat"] = runs[0] == runs[1]
+            extra["sampled_tokens"] = runs[0][:16]
+        if profile and dev.type == "cuda":
+            extra["profile"] = _profiled_window(torch, srv.port, prompts,
+                                                new_tokens // 2)
+        state = json.loads(_http(srv.port, "/generatez")[1])
+    finally:
+        rc = srv.close()
+    sync(torch, dev)
+    launches = dict(cuda.launches)
+    extra["server_start_s"] = srv.start_s
+    rows = [json.loads(line) for line in open(f"{logdir}/requests.jsonl")]
+    kv = state["kv"]
+    problems = []
+    if rc != 0:
+        problems.append(f"serve_torch exited {rc}")
+    if any(r["status"] != "ok" for r in rows):
+        problems.append("a request did not end ok")
+    if any(r["cached_prefix_tokens"] + r["prefill_tokens"]
+           != r["prompt_tokens"] for r in rows):
+        problems.append("cached + prefilled tokens != prompt tokens")
+    if kv["blocks_used"] or kv["blocks_free"] + kv["blocks_cached"] \
+            != kv["blocks_total"]:
+        problems.append(f"blocks not free at the end: {kv}")
+    if any(len(r["tokens"]) != new_tokens for r in replies):
+        problems.append("a reply has another number of tokens")
+    if sampled and not extra["sampled_repeat"]:
+        problems.append("a seeded sampled request did not repeat")
+    steps = state["prefill_chunks"] + state["decode_steps"]
+    if dev.type == "cuda" \
+            and launches.get("layernorm_fwd") != ln_per_step * steps:
+        problems.append(f"K1f launched {launches.get('layernorm_fwd')} "
+                        f"times for {state['prefill_chunks']} prefill chunks "
+                        f"and {state['decode_steps']} decode steps, "
+                        f"expected {ln_per_step} each")
+    return replies, wall, state, launches, extra, problems
+
+
+def _first_divergence(torch, model, context, prompt, ref, got):
+    """Where ``got`` first leaves ``ref`` (the default mode's tokens): the
+    position, both tokens and, from the default path's own logits there
+    (an Engine at its defaults serving the request alone, its host
+    sampler's input recorded), the gap between the two tokens' logits
+    and the top-2 margin."""
+    from distributedtensorflow_tpu_torch.serve import Engine
+
+    j = next(i for i, (a, b) in enumerate(zip(ref, got)) if a != b)
+    eng = Engine(model, max_context=context)
+    rows = []
+    sample = eng._sample
+
+    def record(req, logits):
+        rows.append(np.asarray(logits, np.float32))
+        return sample(req, logits)
+
+    eng._sample = record
+    req = eng.submit(prompt, max_new_tokens=j + 1)
+    while not req._done.is_set():
+        eng.step()
+    eng.stop()
+    last = rows[j]
+    top2 = np.sort(last)[-2:]
+    return {"position": j, "default_token": ref[j], "mode_token": got[j],
+            "default_path_reproduced": req.tokens == ref[:j + 1],
+            "logit_gap": float(last[ref[j]] - last[got[j]]),
+            "top2_margin": float(top2[1] - top2[0])}
+
+
+def _batched_verify(torch, attn, q, k_pool, v_pool, tables, lens):
+    """JAX's form of the verify attention (``ops/attention.py:222`` of the
+    JAX package): the T queries of a window in one einsum, for the
+    record beside the port's per-position form."""
+    b, t, h, d = q.shape
+    k, v = attn._paged_kv(k_pool, v_pool, tables)
+    h_kv, cap = k.shape[1], k.shape[2]
+    g = h // h_kv
+    ends = lens[:, None] + torch.arange(t, device=q.device)[None, :]
+    valid = torch.arange(cap, device=q.device)[None, None, :] \
+        < ends[:, :, None]
+    scores = torch.einsum("bthgd,bhkd->bhgtk",
+                          q.reshape(b, t, h_kv, g, d).float(), k)
+    scores = torch.where(valid[:, None, :, :],
+                         scores.reshape(b, h, t, cap) / (d ** 0.5),
+                         attn.NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(q.dtype).reshape(b, h_kv, g, t, cap)
+    out = torch.einsum("bhgtk,bhkd->bthgd", w.float(), v)
+    return out.reshape(b, t, h, d).to(q.dtype)
+
+
+def check_verify_window(torch, mods, attn, config="gpt_small", device="cuda",
+                        window=5, slots=4):
+    """The verify pass's logits against one-token steps on the same pool
+    (bf16, seeded random weights, 4 slots prefilled to 32-304 tokens, a
+    window of 5 random tokens): the port's per-position form within 1e-4
+    of the steps (fp32 rounding of the head), JAX's batched form beside
+    it for the record."""
+    from distributedtensorflow_tpu_torch.ops.xent import tied_head_logits
+    from distributedtensorflow_tpu_torch.serve import model as serve_model
+    from distributedtensorflow_tpu_torch.serve.kv_cache import PagedKVCache
+
+    dev = torch.device(device)
+    cfg = getattr(mods, config)()
+    model = mods.GPTLM(cfg, device=dev)
+    model.load_state_dict(mods.init_params(
+        cfg, torch.Generator().manual_seed(SEED)))
+    bs, context = 16, 1024
+    rng = np.random.default_rng(SEED + 16)
+    kv = PagedKVCache(num_layers=cfg.num_layers, kv_heads=cfg.kv_heads,
+                      head_dim=cfg.head_dim, max_slots=slots,
+                      num_blocks=slots * context // bs, block_size=bs,
+                      max_context=context, dtype=cfg.dtype, device=dev)
+    prefill = serve_model.make_prefill_fn(cfg, chunk=bs, block_size=bs)
+    for s in range(slots):
+        n = bs * int(rng.integers(2, 20))
+        kv.admit(s, n + 2 * window)
+        cache = model.init_cache(1, context)
+        ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, n)),
+                              device=dev)
+        for start in range(0, n, bs):
+            prefill(model, kv.k_pool, kv.v_pool, cache,
+                    ids[:, start:start + bs], start, kv.block_tables[s],
+                    bs - 1)
+        kv.note_written(s, n)
+    tables = torch.as_tensor(kv.block_tables.astype(np.int64), device=dev)
+    seq = torch.as_tensor(kv.seq_lens.astype(np.int64), device=dev)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (slots, window)),
+                             device=dev)
+    pools = (kv.k_pool.clone(), kv.v_pool.clone())
+
+    def logits(tok, pos, attend):
+        kv.k_pool.copy_(pools[0])
+        kv.v_pool.copy_(pools[1])
+        rows = tables.gather(1, pos // bs) * bs + pos % bs
+        xf = serve_model._paged_forward(cfg, model, kv.k_pool, kv.v_pool, tok,
+                                        pos, rows.reshape(-1), attend)
+        return tied_head_logits(xf, model.wte.weight, cfg.dtype)
+
+    with torch.no_grad():
+        steps = []
+        for t in range(window):
+            kv.k_pool.copy_(pools[0])
+            kv.v_pool.copy_(pools[1])
+            for u in range(t + 1):  # the steps before t write their K/V
+                pos = (seq + u)[:, None]
+                rows = tables.gather(1, pos // bs) * bs + pos % bs
+
+                def one(q, kl, vl, u=u):
+                    return attn.paged_verify_attention(q, kl, vl, tables,
+                                                       seq + 1 + u)
+
+                xf = serve_model._paged_forward(
+                    cfg, model, kv.k_pool, kv.v_pool, tokens[:, u:u + 1],
+                    pos, rows.reshape(-1), one)
+            steps.append(tied_head_logits(xf, model.wte.weight, cfg.dtype))
+        steps = torch.cat(steps, dim=1)
+        pos = seq[:, None] + torch.arange(window, device=dev)[None, :]
+        port = logits(tokens, pos, lambda q, kl, vl: attn.paged_verify_attention(
+            q, kl, vl, tables, seq + 1))
+        batched = logits(tokens, pos, lambda q, kl, vl: _batched_verify(
+            torch, attn, q, kl, vl, tables, seq + 1))
+    err = (port - steps).abs().max().item()
+    row = {"phase": "verify_window", "config": config, "dtype": "bfloat16",
+           "slots": slots, "window": window,
+           "max_abs_logit_diff": err,
+           "batched_form_max_abs_logit_diff": (
+               batched - steps).abs().max().item(),
+           "tolerance": "1e-4 against one-token steps on the same pool"}
+    emit(row)
+    del model, kv, pools
+    empty_cache(torch, dev)
+    if not err <= 1e-4:
+        raise AssertionError(f"the verify pass leaves the one-token steps: "
+                             f"{row}")
+
+
+def run_serve_cli(torch, cuda, serve_torch, train_torch, mods, attn,
+                  config="gpt_small", device="cuda", smi=""):
+    """``serve_torch.main`` (the port's ``serve.py``) on port 0 at full
+    width (seeded random weights, ``--max-context`` 2048), serving the
+    16-request mix of :func:`_serve_cli_mix` over HTTP in modes (a)-(d)
+    of SERVE_CLI_MODES, each in fp32 and in bf16.  fp32: every mode's
+    greedy tokens equal (a)'s and dense ``generate``'s.  bf16: a token of
+    (b)-(d) may leave (a)'s only where (a)'s two candidates lie within
+    1e-2 of each other (each case reported).  Every mode: requests ok,
+    every block free at the end, cached + prefilled == prompt tokens,
+    K1f launched 25 times a prefill chunk and a decode step; (b)
+    prefix_hits > 0; (d) accepted <= drafted and tokens a step >= 1; (c)
+    seeded sampled requests repeat.  Then a ``--checkpoint`` run of a
+    checkpoint ``train_torch`` wrote for gpt_lm serves the in-memory
+    model's tokens.  Returns the launches of the mode runs."""
+    import os
+    import shutil
+    import tempfile
+
+    dev = torch.device(device)
+    cfg = getattr(mods, config)()
+    context = min(SERVE_CLI_CONTEXT, cfg.max_seq)
+    new_tokens = SERVE_CLI_NEW_TOKENS
+    prompts = _serve_cli_mix(cfg.vocab_size, SERVE_CLI_SCALE)
+    half = str(4 * context // 16 // 2)
+    check_verify_window(torch, mods, attn, config, device)
+    tmp = tempfile.mkdtemp(prefix="serve_cli_")
+    launches = collections.Counter()
+    tokens = {}
+    try:
+        for dtype in ("float32", "bfloat16"):
+            for mode, flags in SERVE_CLI_MODES:
+                logdir = os.path.join(tmp, f"{mode}_{dtype}")
+                flags = [half if f == "half" else f for f in flags]
+                argv = ["--config", config, "--device", device, "--port",
+                        "0", "--dtype", dtype, "--max-context", str(context),
+                        "--seed", str(SEED), "--logdir", logdir, *flags]
+                replies, wall, state, got, extra, problems = \
+                    _serve_cli_mode(
+                        torch, cuda, serve_torch, argv, prompts, new_tokens,
+                        logdir, device, 2 * cfg.num_layers + 1,
+                        sampled=mode == "c_fused",
+                        profile=dtype == "bfloat16"
+                        and mode in ("a_defaults", "d_speculate"))
+                launches.update(got)
+                tokens[dtype, mode] = [r["tokens"] for r in replies]
+                c = state["counters"]
+                if mode.startswith("b") and not state["kv"]["prefix_hits"]:
+                    problems.append("no prefix hit")
+                if mode.startswith("d") and not (
+                        0 <= c["spec_accepted"] <= c["spec_drafted"]
+                        and c["spec_drafted"] > 0
+                        and state["tokens_per_step"] >= 1.0):
+                    problems.append(f"speculation counts {c}")
+                ttft = [r["ttft_s"] for r in replies]
+                tpot = [r["tpot_s"] for r in replies]
+                row = {
+                    "phase": "serve_cli", "mode": mode, "dtype": dtype,
+                    "config": config, "flags": flags, "card": smi,
+                    "requests": len(replies),
+                    "prompt_tokens": sum(len(p) for p in prompts),
+                    "new_tokens": sum(len(r["tokens"]) for r in replies),
+                    "wall_s": wall,
+                    "tokens_per_s": sum(len(r["tokens"])
+                                        for r in replies) / wall,
+                    "ttft_p50_s": float(np.percentile(ttft, 50)),
+                    "ttft_p99_s": float(np.percentile(ttft, 99)),
+                    "tpot_p50_s": float(np.percentile(tpot, 50)),
+                    "prefix_hit_rate": state["kv"]["prefix_hit_rate"],
+                    "prefix_hits": state["kv"]["prefix_hits"],
+                    "spec_acceptance_rate": state["spec_acceptance_rate"],
+                    "spec_drafted": c["spec_drafted"],
+                    "spec_accepted": c["spec_accepted"],
+                    "tokens_per_step": state["tokens_per_step"],
+                    "decode_steps": state["decode_steps"],
+                    "prefill_chunks": state["prefill_chunks"],
+                    "streamed_lines": replies[SERVE_CLI_STREAMED][
+                        "stream_lines"],
+                    "launches": got, **extra, "problems": problems}
+                emit(row)
+                if problems:
+                    raise AssertionError(f"serve_cli {mode} {dtype}: "
+                                         f"{problems}")
+                gc.collect()
+                empty_cache(torch, dev)
+        _serve_cli_compare(torch, mods, cfg, context, prompts, new_tokens,
+                           tokens, dev)
+        run_serve_cli_checkpoint(torch, serve_torch, train_torch, mods,
+                                 config, prompts[:2], new_tokens, context,
+                                 tmp, device)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def _serve_cli_compare(torch, mods, cfg, context, prompts, new_tokens,
+                       tokens, dev):
+    """fp32: every mode's tokens equal (a)'s and dense ``generate``'s.
+    bf16: (b)-(d) leave (a)'s tokens only at near ties."""
+    state = mods.init_params(cfg, torch.Generator().manual_seed(SEED))
+    model = mods.GPTLM(dataclasses.replace(
+        cfg, dtype=torch.float32, max_seq=context), device=dev)
+    model.load_state_dict(state)
+    longest = max(len(p) for p in prompts)
+    padded = np.zeros((len(prompts), longest), np.int64)
+    for i, p in enumerate(prompts):
+        padded[i, :len(p)] = p
+    lens = [len(p) for p in prompts]
+    out = mods.generate(model, padded, max_new_tokens=new_tokens,
+                        prompt_lens=lens).cpu().numpy()
+    dense = [out[i, n:n + new_tokens].tolist() for i, n in enumerate(lens)]
+    del model
+    empty_cache(torch, dev)
+    fp32 = {m: tokens["float32", m] for m, _ in SERVE_CLI_MODES}
+    same = {m: t == dense for m, t in fp32.items()}
+    model = mods.GPTLM(dataclasses.replace(
+        cfg, dtype=torch.bfloat16, max_seq=context), device=dev)
+    model.load_state_dict(state)
+    ref = tokens["bfloat16", "a_defaults"]
+    ties, far = [], []
+    for mode, _ in SERVE_CLI_MODES[1:]:
+        for i, got in enumerate(tokens["bfloat16", mode]):
+            if got != ref[i]:
+                case = {"mode": mode, "request": i, **_first_divergence(
+                    torch, model, context, prompts[i], ref[i], got)}
+                (ties if case["default_path_reproduced"]
+                 and abs(case["logit_gap"]) <= SERVE_CLI_TIE
+                 else far).append(case)
+    del model
+    empty_cache(torch, dev)
+    row = {"phase": "serve_cli_tokens", "fp32_modes_equal_dense": same,
+           "bf16_differing_requests": len(ties) + len(far),
+           "bf16_near_ties": ties, "bf16_beyond_tie": far,
+           "tolerance": "fp32: tokens equal; bf16: a differing token only "
+                        f"where the two candidates' logits lie within "
+                        f"{SERVE_CLI_TIE} in the default path's own "
+                        "logits"}
+    emit(row)
+    if not all(same.values()) or far:
+        bad = {m: [i for i, (a, b) in enumerate(zip(t, dense)) if a != b]
+               for m, t in fp32.items()}
+        raise AssertionError(f"serve_cli tokens differ: fp32 requests {bad}; "
+                             f"bf16 beyond the tie tolerance {far}")
+
+
+def run_serve_cli_checkpoint(torch, serve_torch, train_torch, mods, config,
+                             prompts, new_tokens, context, tmp, device):
+    """``train_torch.main`` trains gpt_lm one step at batch 8 and saves;
+    ``serve_torch --checkpoint`` serves it; its greedy tokens equal an
+    in-memory Engine's on the model restored from the same checkpoint
+    (one request at a time on both)."""
+    import os
+
+    from distributedtensorflow_tpu_torch.checkpoint import CheckpointManager
+    from distributedtensorflow_tpu_torch.serve import Engine
+    from distributedtensorflow_tpu_torch.train import TrainState
+    from distributedtensorflow_tpu_torch.workloads import get_workload
+
+    workload, test_size = serve_torch.CONFIGS[config][1]
+    ckdir = os.path.join(tmp, "ckpt")
+    t0 = time.time()
+    train_torch.main(["--workload", workload, "--steps", "1", "--batch-size",
+                      "8", "--log-every", "1", "--checkpoint-dir", ckdir,
+                      "--device", device,
+                      *(("--test-size",) if test_size else ())])
+    train_s = time.time() - t0
+    wl = get_workload(workload, test_size=test_size)
+    state = TrainState.create(wl.model_cls(wl.cfg, device=device),
+                              wl.make_optimizer)
+    if CheckpointManager(ckdir).restore_latest(state) is None:
+        raise AssertionError(f"no checkpoint in {ckdir}")
+    model = mods.GPTLM(getattr(mods, config)(), device=device)
+    model.load_state_dict(state.model.state_dict())
+    del state
+    eng = Engine(model, max_context=context)
+    memory = []
+    for p in prompts:
+        req = eng.submit(p, max_new_tokens=new_tokens)
+        while not req._done.is_set():
+            eng.step()
+        memory.append(req.tokens)
+    eng.stop()
+    del eng, model
+    gc.collect()
+    srv = _CliServer(serve_torch, [
+        "--config", config, "--device", device, "--port", "0",
+        "--max-context", str(context), "--checkpoint", ckdir])
+    try:
+        served = [_generate(srv.port, {"prompt": p,
+                                       "max_new_tokens": new_tokens})
+                  ["tokens"] for p in prompts]
+    finally:
+        rc = srv.close()
+    row = {"phase": "serve_cli_checkpoint", "workload": workload,
+           "train_and_save_s": train_s, "requests": len(prompts),
+           "equal_to_in_memory": served == memory, "rc": rc}
+    emit(row)
+    if served != memory or rc != 0:
+        raise AssertionError(f"--checkpoint served {served} against the "
+                             f"in-memory model's {memory}")
 
 
 #: The BASELINE.json presets at full width and their defaults: (preset,
@@ -3819,8 +4406,8 @@ def run_presets2(torch, cuda, train_torch, mods, attn, ln, F, train_lib,
     return launches, rows
 
 
-PHASES = ("layernorm", "kernels", "xent", "serving", "train", "baseline",
-          "dp", "ckpt", "trainer", "multistep", "presets2")
+PHASES = ("layernorm", "kernels", "xent", "serving", "serve_cli", "train",
+          "baseline", "dp", "ckpt", "trainer", "multistep", "presets2")
 
 
 def main(argv=None) -> int:
@@ -3916,6 +4503,13 @@ def main(argv=None) -> int:
         run_consistency(torch, mods, Engine, cfg, state)
 
     done("serving")
+    if "serve_cli" in phases:
+        import serve_torch
+
+        launches.update(run_serve_cli(torch, _cuda, serve_torch, train_torch,
+                                      mods, attn, smi=smi))
+        torch.cuda.empty_cache()
+    done("serve_cli")
     if "train" in phases:
         tstate, tstep, batches, train_launches, train_row = run_train(
             torch, _cuda, train_torch)

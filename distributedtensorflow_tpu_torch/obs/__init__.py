@@ -3,8 +3,8 @@ aggregation, anomaly detection, the flight recorder, the goodput ledger,
 memory and MFU accounting, reactive profiling and the status server.
 
 Twin of ``distributedtensorflow_tpu/obs/`` for what the Trainer's fit loop
-reaches (ROADMAP.md keeps the rest: fleet, SLOs, alerts, the history
-store, usage and training dynamics):
+and the serving engine reach (ROADMAP.md keeps the rest: fleet, SLOs,
+alerts, the history store and training dynamics):
 
 - ``counter/gauge/histogram`` — process-local registry metrics, exported
   into ``metrics.jsonl`` rows and a Prometheus text snapshot
@@ -27,7 +27,9 @@ store, usage and training dynamics):
   ``torch.profiler`` windows with a budget and a ``captures.jsonl``
   manifest;
 - ``mfu_record_fields`` — MFU against the card's published peak, for the
-  NVIDIA kinds it knows.
+  NVIDIA kinds it knows;
+- ``usage.UsageMeter`` — the serving engine's per-tenant ledger
+  (``usage.jsonl``, ``GET /usagez``).
 
 Every singleton here (the default registry, recorder, ledger, tracer and
 capture engine) is the port's own, distinct from the JAX package's.

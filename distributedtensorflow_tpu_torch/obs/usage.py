@@ -1,0 +1,404 @@
+"""Per-tenant usage metering for the serving plane.
+
+Twin of ``distributedtensorflow_tpu/obs/usage.py``, framework-free and
+copied but for two points: the device kind comes from
+``torch.cuda.get_device_name`` (the engine passes its model's), and
+``attach_history`` is left out until the port has ``obs/tsdb.py``.
+
+:class:`UsageMeter` rolls every request's footprint up per **tenant**, a
+validated identity threaded through the request path (``POST
+/generatez`` body field -> :class:`serve.engine.GenRequest` ->
+requests.jsonl rows -> step-log admissions -> this ledger), as
+integrals charged on the engine loop thread with the same timestamps and
+slot census the step log records:
+
+- **queue-seconds**: submit -> admission (or rejection/expiry);
+- **decode-slot-seconds**: ``step_s`` per scheduler iteration for every
+  slot the request holds at the iteration boundary;
+- **KV-block-seconds**: the request's *billed* block count x ``step_s``,
+  a block mapped by ``r`` page tables charged ``1/r`` to each
+  (:meth:`serve.kv_cache.PagedKVCache.billed_blocks`);
+- **token counts**: prefill tokens owed to compute, generated tokens,
+  speculation-accepted tokens;
+- **estimated compute**: token-FLOPs (:func:`estimate_token_flops`, 2
+  FLOPs per matmul parameter per token) and the implied device-seconds
+  at :func:`obs.mfu.peak_flops` (0 for a kind without a known peak).
+
+Conservation by construction: the meter is fed from
+:meth:`serve.engine.Engine.step` with the same ``step_s`` and
+post-eviction census as the ``steps.jsonl`` record, so the tenants'
+slot-seconds sum to the step log's occupancy integral and their
+block-seconds to its ``kv_blocks_billed x step_s`` integral
+(``tools/check_metrics_schema.py`` checks both within 2%).
+
+Outputs: ``<logdir>/usage.jsonl`` (cumulative per-tenant ``tenants``
+rows, the last ``final: true``, and one ``request`` row per terminal
+request); the tenant-labelled ``serve_tenant_*`` registry families; and
+``GET /usagez`` (text / ``?json`` / ``?tenant=``) via
+:meth:`UsageMeter.install`.
+
+Threads: the accrual hooks run on the engine loop thread; a rejected
+request's closeout and ``/usagez`` come from HTTP threads.  One lock
+covers all mutation and is never held while calling back into the
+engine.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import threading
+import time
+
+from ..utils.metrics import json_sanitize
+from . import mfu
+from . import registry as obs_registry
+
+__all__ = [
+    "DEFAULT_TENANT",
+    "TENANT_RE",
+    "UsageMeter",
+    "estimate_token_flops",
+    "validate_tenant",
+]
+
+#: Tenant identities are identifier-style so they flatten losslessly into
+#: registry label suffixes (``serve_tenant_tokens_total.tenant_alpha``)
+#: and stay greppable in every stream.
+TENANT_RE = re.compile(r"^[A-Za-z_][A-Za-z0-9_]{0,63}$")
+DEFAULT_TENANT = "default"
+
+#: Cumulative per-tenant integral/count fields (the ``tenants`` rollup
+#: row schema; ``est_compute_s`` is derived at render time).
+TENANT_FIELDS = (
+    "queue_s", "slot_s", "block_s",
+    "prefill_tokens", "new_tokens", "spec_accepted",
+    "requests_ok", "requests_rejected", "requests_error",
+    "est_flops",
+)
+
+
+def validate_tenant(tenant) -> str:
+    """Normalize + validate a tenant identity: ``None``/empty defaults to
+    :data:`DEFAULT_TENANT`; anything else must match :data:`TENANT_RE`
+    (raises ``ValueError`` - the serving frontend maps it to 400)."""
+    if tenant is None or tenant == "":
+        return DEFAULT_TENANT
+    tenant = str(tenant)
+    if not TENANT_RE.match(tenant):
+        raise ValueError(
+            f"tenant must match {TENANT_RE.pattern} "
+            f"(identifier-style, <= 64 chars), got {tenant!r}"
+        )
+    return tenant
+
+
+def estimate_token_flops(cfg) -> float:
+    """Estimated forward FLOPs per processed token for a GPT config —
+    the ``obs.mfu`` convention (2 FLOPs per MAC) applied to the matmul
+    parameters: qkv/proj + MLP per layer, plus the LM head.  Embedding
+    lookups and attention-score FLOPs (sequence-length dependent) are
+    deliberately excluded - this is a per-token *cost index* for tenant
+    billing, not an MFU numerator."""
+    h = int(cfg.hidden_size)
+    layers = int(cfg.num_layers)
+    head_dim = h // int(cfg.num_heads)
+    kv_heads = int(getattr(cfg, "kv_heads", cfg.num_heads))
+    ffn = int(getattr(cfg, "intermediate_size", 4 * h))
+    # q + k + v + out projections (GQA shrinks the k/v columns) + MLP
+    attn_params = h * h + 2 * h * (kv_heads * head_dim) + h * h
+    mlp_params = 2 * h * ffn
+    head_params = h * int(cfg.vocab_size)
+    return 2.0 * (layers * (attn_params + mlp_params) + head_params)
+
+
+def _zero_acc() -> dict:
+    return {f: 0 if f.startswith(("requests_", "prefill", "new", "spec"))
+            else 0.0 for f in TENANT_FIELDS}
+
+
+class UsageMeter:
+    """Per-tenant resource-integral ledger for one serving engine.
+
+    Constructed by :class:`serve.engine.Engine` (``engine.usage``); the
+    engine drives the accrual hooks from its loop thread:
+    :meth:`on_admit` closes queue time, :meth:`on_step` charges
+    slot/block integrals with the step record's own ``dt`` and census,
+    :meth:`on_tokens` counts committed tokens, :meth:`on_finish` writes
+    the per-request closeout (also called from HTTP threads for
+    submit-time rejections).  :meth:`close` flushes the final rollup."""
+
+    def __init__(self, *, registry=None, logdir: str | None = None,
+                 token_flops: float = 0.0, device_kind: str | None = None,
+                 max_slots: int = 0, kv_blocks_total: int = 0,
+                 flush_every: int = 50):
+        self.token_flops = float(token_flops)
+        self.max_slots = int(max_slots)
+        self.kv_blocks_total = int(kv_blocks_total)
+        self.flush_every = max(int(flush_every), 1)
+        if device_kind is None:
+            import torch  # noqa: PLC0415
+
+            device_kind = (torch.cuda.get_device_name(0)
+                           if torch.cuda.is_available() else "")
+        self.device_kind = device_kind
+        self.peak_flops = mfu.peak_flops(device_kind)
+
+        reg = registry or obs_registry.default_registry()
+        self._m_tokens = reg.counter(
+            "serve_tenant_tokens_total",
+            "generated tokens by tenant")
+        self._m_token_rate = reg.gauge(
+            "serve_tenant_tokens_per_s",
+            "per-tenant token rate over the last rollup interval "
+            "(the token-rate quota alert target)")
+        self._m_requests = reg.counter(
+            "serve_tenant_requests_total",
+            "terminal requests by tenant and status")
+        self._m_queue_s = reg.counter(
+            "serve_tenant_queue_seconds_total",
+            "queue-seconds (submit -> admission/rejection) by tenant")
+        self._m_slot_s = reg.counter(
+            "serve_tenant_slot_seconds_total",
+            "decode-slot-seconds by tenant (sums to the engine's "
+            "occupancy integral)")
+        self._m_block_s = reg.counter(
+            "serve_tenant_kv_block_seconds_total",
+            "KV-block-seconds by tenant (shared blocks billed at "
+            "1/refcount; sums to the pool occupancy integral)")
+        self._m_flops = reg.counter(
+            "serve_tenant_est_flops_total",
+            "estimated compute (token-FLOPs) by tenant")
+
+        self._lock = threading.Lock()
+        self._tenants: dict[str, dict] = {}
+        #: live per-request integrals keyed by request id (admit -> finish)
+        self._live: dict[str, dict] = {}
+        self._steps_total = 0
+        self._on_step_calls = 0
+        self._t_last_flush = time.time()
+        self._tokens_at_flush: dict[str, int] = {}
+        self._closed = False
+        self._log = None
+        if logdir:
+            os.makedirs(logdir, exist_ok=True)
+            self._log = open(os.path.join(logdir, "usage.jsonl"), "a")
+
+    # -- internals (call with self._lock held) --------------------------------
+
+    def _tenant(self, name: str) -> dict:
+        acc = self._tenants.get(name)
+        if acc is None:
+            acc = self._tenants[name] = _zero_acc()
+        return acc
+
+    def _write_row(self, row: dict) -> None:
+        if self._log is None:
+            return
+        self._log.write(json.dumps(json_sanitize(row)) + "\n")
+        self._log.flush()
+
+    def _tenants_row(self, now: float, final: bool = False) -> dict:
+        tenants = {}
+        for name, acc in sorted(self._tenants.items()):
+            out = {}
+            for f in TENANT_FIELDS:
+                v = acc[f]
+                out[f] = round(v, 6) if isinstance(v, float) else v
+            out["est_compute_s"] = round(
+                acc["est_flops"] / self.peak_flops, 6
+            ) if self.peak_flops else 0.0
+            tenants[name] = out
+        row = {
+            "t": now,
+            "kind": "tenants",
+            "steps_total": self._steps_total,
+            "max_slots": self.max_slots,
+            "kv_blocks_total": self.kv_blocks_total,
+            "tenants": tenants,
+        }
+        if final:
+            row["final"] = True
+        return row
+
+    def _flush(self, now: float, final: bool = False) -> None:
+        dt = max(now - self._t_last_flush, 1e-9)
+        for name, acc in self._tenants.items():
+            prev = self._tokens_at_flush.get(name, 0)
+            self._m_token_rate.set(
+                max(acc["new_tokens"] - prev, 0) / dt, tenant=name)
+            self._tokens_at_flush[name] = acc["new_tokens"]
+        self._t_last_flush = now
+        self._write_row(self._tenants_row(now, final=final))
+
+    # -- accrual hooks (engine loop thread; on_finish also HTTP threads) ------
+
+    def on_admit(self, req) -> None:
+        """Close the request's queue-seconds (submit -> admission) and
+        count its prefill-owed prompt tokens."""
+        q = max(req.t_admit - req.t_submit, 0.0)
+        flops = req.prefill_tokens * self.token_flops
+        with self._lock:
+            acc = self._tenant(req.tenant)
+            acc["queue_s"] += q
+            acc["prefill_tokens"] += req.prefill_tokens
+            acc["est_flops"] += flops
+            self._live[req.id] = {"slot_s": 0.0, "block_s": 0.0}
+        self._m_queue_s.inc(q, tenant=req.tenant)
+        if flops:
+            self._m_flops.inc(flops, tenant=req.tenant)
+
+    def on_step(self, now: float, dt: float, held, step_id: int) -> None:
+        """Charge one scheduler iteration: ``dt`` slot-seconds and
+        ``billed x dt`` block-seconds to every (request, billed_blocks)
+        pair in ``held`` - the engine's post-eviction slot census taken
+        at the same instant as the iteration's step-log record, so the
+        per-tenant integrals tile the steps.jsonl occupancy integrals
+        exactly (conservation by construction)."""
+        dt = max(dt, 0.0)
+        per_tenant: dict[str, tuple[float, float]] = {}
+        with self._lock:
+            self._steps_total = int(step_id)
+            for req, billed in held:
+                b = max(float(billed), 0.0) * dt
+                acc = self._tenant(req.tenant)
+                acc["slot_s"] += dt
+                acc["block_s"] += b
+                live = self._live.get(req.id)
+                if live is not None:
+                    live["slot_s"] += dt
+                    live["block_s"] += b
+                s, bb = per_tenant.get(req.tenant, (0.0, 0.0))
+                per_tenant[req.tenant] = (s + dt, bb + b)
+            self._on_step_calls += 1
+            do_flush = self._on_step_calls % self.flush_every == 0
+            if do_flush:
+                self._flush(now)
+        for tenant, (s, b) in per_tenant.items():
+            self._m_slot_s.inc(s, tenant=tenant)
+            self._m_block_s.inc(b, tenant=tenant)
+
+    def on_tokens(self, req, n: int) -> None:
+        """Count ``n`` freshly committed (generated) tokens."""
+        if n <= 0:
+            return
+        flops = n * self.token_flops
+        with self._lock:
+            acc = self._tenant(req.tenant)
+            acc["new_tokens"] += n
+            acc["est_flops"] += flops
+        self._m_tokens.inc(n, tenant=req.tenant)
+        if flops:
+            self._m_flops.inc(flops, tenant=req.tenant)
+
+    def on_finish(self, req) -> None:
+        """Terminal-state closeout: count the request under its status,
+        charge queue time for never-admitted requests (rejected at
+        submit, expired in queue), and write the per-request usage row
+        (token identities checkable against its requests.jsonl row)."""
+        admitted = req.t_admit > 0.0
+        q = 0.0
+        if not admitted:
+            q = max(req.t_done - req.t_submit, 0.0)
+        with self._lock:
+            acc = self._tenant(req.tenant)
+            acc[f"requests_{req.status}"] += 1
+            acc["spec_accepted"] += req.accepted
+            if not admitted:
+                acc["queue_s"] += q
+            live = self._live.pop(req.id, {"slot_s": 0.0, "block_s": 0.0})
+            row = {
+                "t": time.time(),
+                "kind": "request",
+                "id": req.id,
+                "tenant": req.tenant,
+                "status": req.status,
+                "prompt_tokens": len(req.prompt),
+                "new_tokens": len(req.tokens),
+                "queue_s": round(
+                    q if not admitted
+                    else max(req.t_admit - req.t_submit, 0.0), 6),
+                "slot_s": round(live["slot_s"], 6),
+                "block_s": round(live["block_s"], 6),
+                "est_flops": (req.prefill_tokens + len(req.tokens))
+                * self.token_flops,
+            }
+            self._write_row(row)
+        self._m_requests.inc(tenant=req.tenant, status=req.status)
+        if not admitted and q:
+            self._m_queue_s.inc(q, tenant=req.tenant)
+
+    def close(self) -> None:
+        """Final rollup flush (stamped ``final: true``) + file close.
+        Idempotent; called from :meth:`serve.engine.Engine.stop`."""
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+            self._flush(time.time(), final=True)
+            if self._log is not None:
+                self._log.close()
+                self._log = None
+
+    # -- snapshots / endpoint -------------------------------------------------
+
+    def snapshot(self) -> dict:
+        """JSON-safe cumulative state (the ``GET /usagez`` body and the
+        live twin of the last ``tenants`` rollup row)."""
+        with self._lock:
+            row = self._tenants_row(time.time())
+        row["device_kind"] = self.device_kind
+        row["token_flops"] = self.token_flops
+        row["peak_flops"] = self.peak_flops
+        return row
+
+    def render_text(self, snap: dict | None = None) -> str:
+        snap = snap or self.snapshot()
+        tenants = snap["tenants"]
+        lines = [
+            "per-tenant usage ledger "
+            f"(steps={snap['steps_total']}, slots={snap['max_slots']}, "
+            f"kv_blocks={snap['kv_blocks_total']})",
+        ]
+        if not tenants:
+            lines.append("  (no requests metered yet)")
+            return "\n".join(lines) + "\n"
+        total_block_s = sum(t["block_s"] for t in tenants.values()) or 1.0
+        hdr = (f"  {'tenant':<20} {'ok':>5} {'rej':>5} {'err':>5} "
+               f"{'tokens':>9} {'queue_s':>9} {'slot_s':>9} "
+               f"{'block_s':>10} {'share':>6} {'est_gflops':>11}")
+        lines.append(hdr)
+        for name, t in tenants.items():
+            lines.append(
+                f"  {name:<20} {t['requests_ok']:>5} "
+                f"{t['requests_rejected']:>5} {t['requests_error']:>5} "
+                f"{t['new_tokens']:>9} {t['queue_s']:>9.3f} "
+                f"{t['slot_s']:>9.3f} {t['block_s']:>10.3f} "
+                f"{t['block_s'] / total_block_s:>6.1%} "
+                f"{t['est_flops'] / 1e9:>11.2f}"
+            )
+        return "\n".join(lines) + "\n"
+
+    def _usagez(self, query: str):
+        from urllib.parse import parse_qs  # noqa: PLC0415
+
+        params = parse_qs(query or "", keep_blank_values=True)
+        snap = self.snapshot()
+        tenant = params.get("tenant", [None])[0]
+        if tenant:
+            t = snap["tenants"].get(tenant)
+            if t is None:
+                return 404, {"error": f"unknown tenant {tenant!r}",
+                             "tenants": sorted(snap["tenants"])}
+            snap = {**snap, "tenants": {tenant: t}}
+        if "json" in params:
+            return 200, snap
+        return 200, self.render_text(snap)
+
+    def install(self, server) -> "UsageMeter":
+        """Register ``GET /usagez`` on a :class:`obs.server.StatusServer`
+        (text default; ``?json`` for the snapshot dict; ``?tenant=`` to
+        filter, 404 on an unknown tenant)."""
+        server.routes[("GET", "/usagez")] = self._usagez
+        return self

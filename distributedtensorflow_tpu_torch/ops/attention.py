@@ -17,8 +17,10 @@ Twin of ``distributedtensorflow_tpu/ops/attention.py``:
   ``"xla"`` sends it, as prefill chunks always go, to the grouped matmul
   path.
 - :func:`paged_decode_attention` (``:161-219``): the serving engine's
-  decode step against the paged pool, a gather plus matmuls.  The JAX
-  package has no kernel for it, so it stays plain PyTorch here.
+  decode step against the paged pool, a gather plus matmuls, and
+  :func:`paged_verify_attention` (``:222-277``), its generalisation to a
+  window of T query positions for speculative verification.  The JAX
+  package has no kernel for either, so they stay plain PyTorch here.
 
 Products of bf16 operands are taken in fp32 (``.float()`` on both
 operands: the products are exact and the sums fp32), which is what the
@@ -177,6 +179,35 @@ def cached_decode_attention(
         ix + s_new
 
 
+def _paged_kv(k_pool, v_pool, block_tables):
+    """Each slot's blocks gathered through its page-table row: fp32
+    ``(B, Hkv, max_blocks * block_size, D)`` K and V."""
+    b = block_tables.shape[0]
+    _, block_size, h_kv, d = k_pool.shape
+    cap = block_tables.shape[1] * block_size
+    k = k_pool[block_tables].reshape(b, cap, h_kv, d).transpose(1, 2)
+    v = v_pool[block_tables].reshape(b, cap, h_kv, d).transpose(1, 2)
+    return k.float(), v.float()
+
+
+def _paged_attend(q, k, v, lens):
+    """One query a slot, ``q`` (B, H, D), against gathered fp32 K/V,
+    positions ``>= lens`` masked: the fp32-softmax scaled dot product of
+    the dense decode path, GQA grouped."""
+    b, h, d = q.shape
+    h_kv, cap = k.shape[1], k.shape[2]
+    valid = torch.arange(cap, device=q.device)[None, :] < lens[:, None]
+    g = h // h_kv
+    qg = q.reshape(b, h_kv, g, d).float()
+    scores = torch.einsum(
+        "bhgd,bhkd->bhgk", qg, k).reshape(b, h, cap) / (d ** 0.5)
+    scores = torch.where(valid[:, None, :], scores, NEG_INF)
+    weights = torch.softmax(scores, dim=-1)
+    wg = weights.to(q.dtype).reshape(b, h_kv, g, cap)
+    out = torch.einsum("bhgk,bhkd->bhgd", wg.float(), v)
+    return out.reshape(b, h, d).to(q.dtype)
+
+
 def paged_decode_attention(
     q: torch.Tensor,             # (B, H, D) one new query per serving slot
     k_pool: torch.Tensor,        # (num_blocks, block_size, Hkv, D)
@@ -189,21 +220,33 @@ def paged_decode_attention(
     positions ``>= seq_lens`` and runs the fp32-softmax scaled dot
     product of the dense decode path (GQA grouped, the pool never
     broadcast to H)."""
-    b, h, d = q.shape
-    _, block_size, h_kv, _ = k_pool.shape
-    cap = block_tables.shape[1] * block_size
-    k = k_pool[block_tables].reshape(b, cap, h_kv, d).transpose(1, 2)
-    v = v_pool[block_tables].reshape(b, cap, h_kv, d).transpose(1, 2)
-    valid = torch.arange(cap, device=q.device)[None, :] < seq_lens[:, None]
-    g = h // h_kv
-    qg = q.reshape(b, h_kv, g, d).float()
-    scores = torch.einsum(
-        "bhgd,bhkd->bhgk", qg, k.float()).reshape(b, h, cap) / (d ** 0.5)
-    scores = torch.where(valid[:, None, :], scores, NEG_INF)
-    weights = torch.softmax(scores, dim=-1)
-    wg = weights.to(q.dtype).reshape(b, h_kv, g, cap)
-    out = torch.einsum("bhgk,bhkd->bhgd", wg.float(), v.float())
-    return out.reshape(b, h, d).to(q.dtype)
+    k, v = _paged_kv(k_pool, v_pool, block_tables)
+    return _paged_attend(q, k, v, seq_lens)
+
+
+def paged_verify_attention(
+    q: torch.Tensor,             # (B, T, H, D) draft-window queries a slot
+    k_pool: torch.Tensor,        # (num_blocks, block_size, Hkv, D)
+    v_pool: torch.Tensor,        # (num_blocks, block_size, Hkv, D)
+    block_tables: torch.Tensor,  # (B, max_blocks) int physical block ids
+    attend_lens: torch.Tensor,   # (B,) int valid tokens for query 0
+) -> torch.Tensor:
+    """Multi-token attention against the paged pool (speculative
+    verification; twin of ``ops/attention.py:222`` of the JAX package,
+    which is a gather and einsums there too).  Query ``t`` of a slot sees
+    ``attend_lens + t`` positions, causal inside the draft window.
+    Returns ``(B, T, H, D)``.
+
+    One gather, then each window position through the one-token form of
+    :func:`paged_decode_attention`, so a verified position's output is
+    the sequential decode step's.  JAX contracts the T queries in one
+    einsum; on the card that batched fp32 product rounds differently from
+    the one-token product, and the difference carried through gpt_small
+    flips bf16 greedy near ties (``chip_smoke.py``'s ``verify_window``
+    row measures both forms)."""
+    k, v = _paged_kv(k_pool, v_pool, block_tables)
+    return torch.stack([_paged_attend(q[:, t], k, v, attend_lens + t)
+                        for t in range(q.shape[1])], dim=1)
 
 
 def decode_attention(q, cached_k, cached_v, lo: int, hi: int) -> torch.Tensor:

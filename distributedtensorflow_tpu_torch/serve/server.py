@@ -1,0 +1,329 @@
+"""HTTP serving front: ``/generatez`` on the status-server pattern.
+
+Twin of ``distributedtensorflow_tpu/serve/server.py``, framework-free:
+a blocking-JSON (or chunked-streaming) front over
+:class:`serve.engine.Engine`, riding the port's ``obs.server.StatusServer``
+(a stdlib ``http.server`` thread, one handler thread a request), so a
+serving process also answers ``/healthz``, ``/statusz``, ``/varz``,
+``/threadz`` and ``/memz``.
+
+- ``POST /generatez``: body ``{"prompt": [int, ...], "max_new_tokens":
+  int, "temperature"?: float, "top_k"?: int, "eos_token_id"?: int,
+  "seed"?: int, "timeout_s"?: float, "trace_id"?: str, "tenant"?: str,
+  "stream"?: bool}``.  Blocks until the request ends; replies 200
+  ``{"id", "tokens", "trace_id", "tenant", "finish_reason",
+  "prompt_tokens", "new_tokens", "ttft_s", "tpot_s", "e2e_s",
+  "drafted", "accepted"}``.  A malformed body or parameter is 400, a
+  full queue 429, a dead or stopped engine and a draining server 503,
+  an engine failure 500, a timeout 504 (the client's timeout is also the
+  request's deadline in the engine, which abandons it if still queued).
+  With ``"stream": true`` the reply is chunked ``application/x-ndjson``:
+  one ``{"tokens": [...]}`` line per engine iteration, then a trailer
+  ``{"done": true, "status": ..., ...}`` with the blocking reply's stats
+  (or the error); submit-time failures keep their real status codes.
+- ``GET /generatez``: the engine's ``state()``.
+- ``GET /stepz?n=``: the newest ``n`` (default 32) step-log records with
+  ``ring_size`` and ``steps_total``.
+- ``/healthz`` turns 503 once the engine's loop has died or stopped.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import math
+import queue as queue_mod
+import threading
+import time
+
+from ..obs.server import StatusServer
+from .engine import Engine, GenRequest, QueueFullError
+
+logger = logging.getLogger(__name__)
+
+__all__ = ["ServeServer"]
+
+#: Cap on how long one POST handler thread blocks awaiting generation.
+DEFAULT_TIMEOUT_S = 300.0
+
+
+def _as_int(v) -> int:
+    """Strict JSON-int: 4.9 (or true) must 400, not truncate to 4."""
+    if isinstance(v, bool) or not isinstance(v, int):
+        raise ValueError(f"not an integer: {v!r}")
+    return v
+
+
+def _as_float(v) -> float:
+    if isinstance(v, bool) or not isinstance(v, (int, float)):
+        raise ValueError(f"not a number: {v!r}")
+    return float(v)
+
+
+class ServeServer:
+    """Background-thread HTTP server wrapping an :class:`Engine`.
+
+    ``port=0`` binds an ephemeral port (``server.port`` tells).  The
+    engine is NOT owned: callers start/stop it (so tests can drive the
+    scheduler synchronously under a live frontend)."""
+
+    def __init__(self, engine: Engine, port: int = 0, *,
+                 host: str = "127.0.0.1", registry=None,
+                 default_timeout_s: float = DEFAULT_TIMEOUT_S):
+        self.engine = engine
+        self._default_timeout_s = default_timeout_s
+        self._draining = False
+        self._srv = StatusServer(
+            port, host=host, registry=registry,
+            status_fn=lambda: {"serving": engine.state()},
+            health_fn=self._health,
+            routes={
+                ("GET", "/generatez"): self._get_state,
+                ("POST", "/generatez"): self._post_generate,
+                ("GET", "/stepz"): self._stepz,
+            },
+        )
+
+    @property
+    def port(self) -> int:
+        return self._srv.port
+
+    @property
+    def status_server(self):
+        """The underlying :class:`obs.server.StatusServer` - exposed so
+        fleet components (``SLOMonitor.install``, extra routes) can
+        register endpoints next to ``/generatez``."""
+        return self._srv
+
+    def _health(self) -> dict:
+        st = self.engine.state()
+        return {
+            # a dead scheduler loop must flip /healthz to 503 - the
+            # process otherwise looks routable while serving nothing
+            "ok": self.engine.healthy,
+            "queue_depth": st["queue_depth"],
+            "active_slots": st["active_slots"],
+            "decode_steps": st["decode_steps"],
+        }
+
+    # -- handlers (HTTP threads) ---------------------------------------------
+
+    def _get_state(self, query: str):
+        return 200, self.engine.state()
+
+    def _stepz(self, query: str):
+        """``GET /stepz`` - live tail of the engine step log: the newest
+        ``n`` (default 32) per-iteration records from the bounded ring
+        (phase mix, occupancy, token/draft deltas, admissions/evictions,
+        prefill chunks + budget stalls, host-vs-device wall split) —
+        the same records ``steps.jsonl`` persists."""
+        from urllib.parse import parse_qs
+
+        params = parse_qs(query or "", keep_blank_values=True)
+        n = params.get("n", ["32"])[0]
+        try:
+            n = int(n)
+            if n < 1:
+                raise ValueError(n)
+        except ValueError:
+            return 400, {"error": f"bad 'n': {params.get('n')!r} "
+                                  "(a positive integer)"}
+        recs = self.engine.step_records(n)
+        return 200, {
+            "ring_size": self.engine.step_ring_size,
+            "steps_total": self.engine.steps_total,
+            "n": len(recs),
+            "steps": recs,
+        }
+
+    def begin_drain(self) -> None:
+        """Refuse NEW submits with 503 immediately (bounded SIGTERM
+        drain): in-flight requests keep running and their responses still
+        go out over the live server; the caller owns the wait-then-stop
+        sequencing (serve.py ``--drain-timeout``)."""
+        self._draining = True
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    def _post_generate(self, query: str, body: bytes):
+        if self._draining:
+            return 503, {"error": "server draining (shutting down); "
+                                  "resubmit elsewhere"}
+        try:
+            payload = json.loads(body or b"{}")
+        except json.JSONDecodeError as e:
+            return 400, {"error": f"invalid JSON body: {e}"}
+        if not isinstance(payload, dict):
+            return 400, {"error": "body must be a JSON object"}
+        prompt = payload.get("prompt")
+        if not isinstance(prompt, list) or not prompt or not all(
+            isinstance(t, int) and not isinstance(t, bool) for t in prompt
+        ):
+            return 400, {"error": "'prompt' must be a non-empty list of "
+                                  "token ids"}
+        kwargs = {}
+        for name, cast in (("max_new_tokens", _as_int),
+                           ("temperature", _as_float),
+                           ("top_k", _as_int), ("eos_token_id", _as_int),
+                           ("seed", _as_int)):
+            if payload.get(name) is not None:
+                try:
+                    kwargs[name] = cast(payload[name])
+                except (TypeError, ValueError):
+                    return 400, {"error": f"bad {name!r}: "
+                                          f"{payload[name]!r}"}
+        if "max_new_tokens" not in kwargs:
+            return 400, {"error": "'max_new_tokens' is required"}
+        trace_id = payload.get("trace_id")
+        if trace_id is not None:
+            # Distributed tracing: the caller's trace id rides the
+            # request so the engine's queue/prefill/decode spans stitch
+            # against upstream spans (timeline.py --fleet).
+            if not isinstance(trace_id, str) or not 1 <= len(trace_id) <= 64:
+                return 400, {"error": f"bad 'trace_id': {trace_id!r} "
+                                      "(a 1..64-char string)"}
+            kwargs["trace_id"] = trace_id
+        tenant = payload.get("tenant")
+        if tenant is not None:
+            # Usage-metering identity: the engine validates the grammar
+            # (identifier-style) and maps violations to ValueError -> 400
+            # below; only the type is checked here.
+            if not isinstance(tenant, str):
+                return 400, {"error": f"bad 'tenant': {tenant!r} "
+                                      "(a string)"}
+            kwargs["tenant"] = tenant
+        timeout = payload.get("timeout_s")
+        if timeout is None:
+            timeout = self._default_timeout_s
+        try:
+            timeout = float(timeout)
+        except (TypeError, ValueError):
+            return 400, {"error": f"bad 'timeout_s': {timeout!r}"}
+        if not math.isfinite(timeout) or timeout < 0:
+            # json.loads accepts the Infinity literal; Event.wait would
+            # raise OverflowError AFTER the request had been submitted.
+            return 400, {"error": f"'timeout_s' must be a finite number "
+                                  f">= 0, got {timeout}"}
+        timeout = min(timeout, threading.TIMEOUT_MAX)
+        stream = payload.get("stream", False)
+        if not isinstance(stream, bool):
+            return 400, {"error": f"bad 'stream': {stream!r} (a boolean)"}
+        try:
+            # The client's timeout IS the request deadline, propagated
+            # into the engine: a request still queued past it is
+            # abandoned server-side instead of decoded for a client that
+            # already gave up.
+            req = self.engine.submit(
+                prompt, deadline_s=timeout if timeout > 0 else None,
+                stream=stream, **kwargs,
+            )
+        except QueueFullError as e:
+            return 429, {"error": str(e)}
+        except ValueError as e:
+            return 400, {"error": str(e)}
+        except RuntimeError as e:  # dead scheduler loop
+            return 503, {"error": str(e)}
+        if stream:
+            # Chunked transfer: the StatusServer streams this generator
+            # (obs.server._reply_chunked); submit-time errors above kept
+            # their real statuses - from here on failures ride the
+            # trailer line, since headers are already committed.
+            return 200, self._stream_response(req, timeout)
+        if not req.wait(timeout):
+            return 504, {"error": f"generation exceeded timeout_s="
+                                  f"{timeout}", "id": req.id}
+        if req.deadline_exceeded:
+            # The engine abandoned it at admission (overload): same
+            # contract as the handler-side timer, observed server-side.
+            return 504, {"error": req.error or "deadline exceeded",
+                         "id": req.id}
+        if req.status != "ok":
+            return 500, {"error": req.error or f"request {req.status}",
+                         "id": req.id}
+        return 200, self._ok_stats(req)
+
+    @staticmethod
+    def _ok_stats(req: GenRequest) -> dict:
+        """The completed-request stat block: the blocking 200 body, and
+        (minus ``tokens``, already streamed) the streaming trailer."""
+        return {
+            "id": req.id,
+            "tokens": req.tokens,
+            "trace_id": req.trace_id,
+            "tenant": req.tenant,
+            "finish_reason": req.finish_reason,
+            "prompt_tokens": len(req.prompt),
+            "new_tokens": len(req.tokens),
+            "ttft_s": round(req.ttft_s, 6),
+            "tpot_s": round(req.tpot_s, 6),
+            "e2e_s": round(req.e2e_s, 6),
+            "drafted": req.drafted,
+            "accepted": req.accepted,
+        }
+
+    def _stream_response(self, req: GenRequest, timeout: float):
+        """Generator of ndjson lines for one streaming request: token
+        lines as iterations commit, then one trailer with the stats.
+        The engine always terminates requests (crash/stop included), so
+        the ``done`` event is guaranteed; the timeout guards the stream
+        the same way ``req.wait(timeout)`` guards the blocking path —
+        on expiry the trailer reports it and the request keeps running
+        server-side (the engine-side deadline already abandons requests
+        still QUEUED past it)."""
+        deadline = time.monotonic() + timeout
+
+        def gen():
+            while True:
+                remaining = deadline - time.monotonic()
+                try:
+                    kind, payload = req._events.get(
+                        timeout=max(remaining, 0.0))
+                except queue_mod.Empty:
+                    yield json.dumps({
+                        "done": True, "status": "timeout", "id": req.id,
+                        "error": f"generation exceeded timeout_s={timeout}",
+                    }) + "\n"
+                    return
+                if kind != "tokens":
+                    break
+                yield json.dumps({"tokens": payload}) + "\n"
+            if req.status == "ok":
+                trailer = {"done": True, "status": "ok", **self._ok_stats(req)}
+                del trailer["tokens"]  # already streamed line by line
+            elif req.deadline_exceeded:
+                # engine-side deadline abandonment is the SAME condition
+                # the generator's own expiry reports (and the blocking
+                # path maps to 504): one status class, not a race
+                trailer = {
+                    "done": True, "status": "timeout", "id": req.id,
+                    "error": req.error or "deadline exceeded",
+                }
+            else:
+                trailer = {
+                    "done": True, "status": req.status, "id": req.id,
+                    "error": req.error or f"request {req.status}",
+                }
+            yield json.dumps(trailer) + "\n"
+
+        return gen()
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def start(self) -> "ServeServer":
+        self._srv.start()
+        logger.info("serving frontend on port %d (POST /generatez)",
+                    self.port)
+        return self
+
+    def stop(self) -> None:
+        self._srv.stop()
+
+    close = stop
+
+    def __enter__(self) -> "ServeServer":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()

@@ -318,8 +318,10 @@ def _imports(path):
 
 def test_port_imports_no_jax():
     files = sorted((ROOT / "distributedtensorflow_tpu_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "train_torch.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "train_torch.py",
+              ROOT / "serve_torch.py"]
     assert len(files) > 10
+    assert ROOT / "serve_torch.py" in files
     port = ROOT / "distributedtensorflow_tpu_torch"
     for sub in ("checkpoint/integrity.py", "checkpoint/manager.py",
                 "checkpoint/preemption.py", "utils/determinism.py",
@@ -327,7 +329,8 @@ def test_port_imports_no_jax():
                 "train/trainer.py", "obs/__init__.py", "obs/registry.py",
                 "obs/tracing.py", "obs/anomaly.py", "obs/flight_recorder.py",
                 "obs/goodput.py", "obs/aggregate.py", "obs/mfu.py",
-                "obs/memory.py", "obs/capture.py", "obs/server.py"):
+                "obs/memory.py", "obs/capture.py", "obs/server.py",
+                "obs/usage.py", "serve/draft.py", "serve/server.py"):
         assert port / sub in files
     found = {str(f.relative_to(ROOT)): sorted(set(_imports(f)) & _BANNED)
              for f in files}
