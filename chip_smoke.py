@@ -220,10 +220,38 @@ Phases, each fatal on failure:
     checkpoint ``train_torch`` wrote (gpt_lm, one step) served through
     ``--checkpoint`` gives the in-memory model's tokens.
 
+20. bert_moe: the bert_moe preset (BERT-base, eight experts with
+    expert-choice routing on blocks 1, 3, ..., 11, bf16, seq 512, 256 in
+    four microbatches) through ``train_torch.build``, 1+2 steps, a row as
+    phase 13's with the flops predicted beside the counted ones; K1f and
+    K1b 104 times a step, the dropout kernel 200 times; each MoE block's
+    routing at the first step (each expert's kept count, the shares of
+    tokens chosen by 0, 1 and >= 2 experts); a profile of two steps; the
+    router on the card against the CPU over the first block's logits of
+    one microbatch (32768 tokens, 8 experts): the same token sets but at
+    boundary ties (counted); bf16 against fp32 first-step losses at
+    --test-size (1e-2); 2 layers at k = 2 equal k = 1 bit for bit.
+21. optim: lamb on bert_mlm, lars on imagenet_resnet50 (256), adafactor
+    on t5_seq2seq and lion on gpt_lm, each 1+3 steps through
+    ``--optimizer`` beside the preset's own optimizer (step ms each), a
+    profiled step's device time and its optimizer update's span, and the
+    card's first update against the CPU's from the same parameters and
+    gradients (1e-4 of the largest update); then gpt_lm with lion on a
+    warm-up cosine schedule at k = 4 against k = 1, bit for bit.
+22. records: imagenet_resnet50-shaped record shards (224x224x3 fp32,
+    ~0.9 GB, written by the port's ``write_record_shards`` into a
+    temporary directory that the phase removes), 1+4 steps at 256
+    through ``train_torch.main --data-dir`` beside synthetic batches
+    (images/s, t_data, f_data); the step's first batch equals the
+    records' first, a resume from step 2 fast-forwards to their third;
+    one ``--config`` JSON run of mnist_lenet.  (The build phase compiles
+    the record library from ``native/src`` with g++.)
+
 Kernel launch counts are set to 0 just before phases 5, 6 (each generate
 run), 9-11, 13, 14 (each path; in each rank's process), 15's resumed
 steps, 16's run through ``train_torch.main``, 17's runs, 18's training
-steps and decoding, and each server run of 19, and read just after (a
+steps and decoding, each server run of 19, 20's steps and each of 21's
+optimizer runs, and read just after (a
 replayed graph counts what its capture counted); a kernel of the path
 that did not launch, or a gpt_lm, gpt_moe or BERT training step that
 launched a kernel another number of times than its forward,
@@ -242,6 +270,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -2354,7 +2383,7 @@ def _min_seq(fa, seq):
 
 
 def baseline_steps(torch, cuda, train_torch, name, batch, steps, phase,
-                   device="cuda"):
+                   device="cuda", extra=(), on_build=None):
     """``name`` through ``train_torch.build`` at full width and its preset
     defaults but the batch: one warm-up step, whose flops
     ``FlopCounterMode`` counts (the products and convolutions, forward
@@ -2366,7 +2395,9 @@ def baseline_steps(torch, cuda, train_torch, name, batch, steps, phase,
     the warm-up step took.  (Across batches the loss of a few steps moves
     by the batches' spread at these presets' rates: imagenet_resnet50
     warms up from lr 0, widedeep's adagrad at 0.01 touches a row of its
-    100k-row tables once in 25 batches; that comparison is printed.)"""
+    100k-row tables once in 25 batches; that comparison is printed.)
+    ``extra``: more ``train_torch`` flags; ``on_build(state)``, called
+    before the warm-up step, may return a function called after it."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from distributedtensorflow_tpu_torch.train import (
@@ -2376,15 +2407,18 @@ def baseline_steps(torch, cuda, train_torch, name, batch, steps, phase,
 
     args = train_torch.parse_args(
         ["--workload", name, "--batch-size", str(batch), "--seed", str(SEED),
-         "--device", device])
+         "--device", device, *extra])
     wl, state, step, batches = train_torch.build(args)
     model = state.model
     on_card = model.device.type == "cuda"
     buffers = {k: b.clone() for k, b in model.named_buffers()}
     first = next(batches)
+    after = on_build(state) if on_build else None
     with FlopCounterMode(display=False) as counter:
         state, m = step(state, first)
     flops = counter.get_total_flops()
+    if after:
+        after()
     losses = [float(m["loss"])]
     sync(torch, model.device)
     cuda.launches.clear()
@@ -3895,10 +3929,12 @@ def _layer_fields(name, layers):
     return {"num_layers": layers}
 
 
-def _ms_pair(torch, train_torch, name, batch, k, layers, calls, device):
-    """``name`` built twice from one seed, stepped ``calls * k`` steps
-    one a call and k a call: each run's losses by step, fingerprint and
-    launches of the k-step run's calls after the first."""
+def _ms_pair(torch, train_torch, name, batch, k, layers, calls, device,
+             extra=()):
+    """``name`` built twice from one seed (``extra``: more flags), stepped
+    ``calls * k`` steps one a call and k a call: each run's losses by
+    step, fingerprint and launches of the k-step run's calls after the
+    first."""
     from distributedtensorflow_tpu_torch.ops import _cuda
 
     out = {}
@@ -3906,8 +3942,8 @@ def _ms_pair(torch, train_torch, name, batch, k, layers, calls, device):
         with _cut_config(train_torch, **_layer_fields(name, layers)):
             args = train_torch.parse_args(
                 ["--workload", name, "--batch-size", str(batch), "--seed",
-                 str(SEED), "--device", device, "--steps-per-call", str(kk)]
-                + (["--test-size"] if device == "cpu" else []))
+                 str(SEED), "--device", device, "--steps-per-call", str(kk),
+                 *extra] + (["--test-size"] if device == "cpu" else []))
             wl, state, step, batches = train_torch.build(args)
         losses = []
         for i in range(calls * k // kk):
@@ -4406,8 +4442,487 @@ def run_presets2(torch, cuda, train_torch, mods, attn, ln, F, train_lib,
     return launches, rows
 
 
+# ---------------------------------------------------------------- bert_moe
+
+#: bert_moe at the preset's shape: BERT-base with 8 experts on blocks 1,
+#: 3, ..., 11, seq 512, global batch 256 in four microbatches; 1 + 2 steps.
+BERT_MOE_BATCH, BERT_MOE_STEPS = 256, 2
+#: One bert_moe step's launches: BERT-base's 26 LayerNorms a microbatch
+#: (the MoE blocks keep both of theirs) and the dropout kernel at its 25
+#: sites, each forward and backward; the attention is below the flash gate.
+BERT_MOE_LAUNCHES_PER_STEP = {**BERT_LAUNCHES_PER_STEP, "dropout": 200}
+#: A step's flops as predicted before the first run: bert_mlm's 7.80e13
+#: (FlopCounterMode, the baseline phase) plus 0.25x of the six routed
+#: MLPs (each expert runs cf x T / E = 1.25 T / 8 tokens, so the experts
+#: do 1.25x a dense MLP's work).
+BERT_MOE_FLOPS_PREDICTED = 8.4e13
+#: Router probabilities within this many fp32 ulps of an expert's boundary
+#: (its capacity-th largest) are ties of the card's and the CPU's router,
+#: whose softmaxes may round a last bit apart.
+EC_TIE_ULPS = 4
+#: The fp32 against bf16 first-step check at --test-size.
+BERT_MOE_TEST_BATCH, BERT_MOE_DTYPE_TOL = 16, 1e-2
+#: k steps a call against one (name, batch, k, layers, calls): the
+#: routing captured in the CUDA graph, dropout on.
+BERT_MOE_PAIR = ("bert_moe", 32, 2, 2, 3)
+
+
+def _moe_inputs(model):
+    """Pre-hooks that keep each routed MLP's first call: its input
+    (B, S, d), token mask and router weights then (the first microbatch
+    of the first step).  Returns ``(seen, remove)``."""
+    from distributedtensorflow_tpu_torch.models.gpt_moe import MoEMLP
+
+    seen, handles = {}, []
+    for name, mod in model.named_modules():
+        if not isinstance(mod, MoEMLP):
+            continue
+
+        def hook(m, args, name=name):
+            if name not in seen:
+                mask = args[1] if len(args) > 1 else None
+                seen[name] = (args[0].detach().clone(),
+                              None if mask is None else mask.detach().clone(),
+                              m.router.detach().clone(), m.cfg)
+        handles.append(mod.register_forward_pre_hook(hook))
+
+    def remove():
+        for h in handles:
+            h.remove()
+
+    return seen, remove
+
+
+def _ec_route(torch, moe, x, mask, router, cfg):
+    """The expert-choice routing of one routed MLP's input, as
+    ``local_moe`` routes it: ``(logits, capacity, token mask, stats)``
+    with each expert's kept count and the shares of real tokens chosen by
+    0, 1 and >= 2 experts."""
+    t = x.shape[0] * x.shape[1]
+    logits = x.reshape(t, -1).float() @ router.float()
+    cap = moe.capacity_for(t, cfg.n_experts, cfg.capacity_factor, cfg.router)
+    tmask = None if mask is None else mask.reshape(t)
+    token, _, keep, _ = moe.expert_choice_route(logits, cap, tmask)
+    chosen = torch.bincount(token[keep], minlength=t)
+    real = torch.ones(t, dtype=torch.bool, device=x.device) \
+        if tmask is None else tmask.bool()
+    chosen = chosen[real].float()
+    stats = {"tokens": t, "capacity": min(cap, t),
+             "kept_per_expert": keep.sum(1).tolist(),
+             "share_chosen_by_0": float((chosen == 0).float().mean()),
+             "share_chosen_by_1": float((chosen == 1).float().mean()),
+             "share_chosen_by_2_or_more": float((chosen >= 2).float().mean())}
+    return logits, cap, tmask, stats
+
+
+def check_ec_router(torch, moe, logits, cap, tmask):
+    """The expert-choice router on the card against its run on the CPU
+    over the same logits: each expert's kept token set must be the
+    CPU's, but for tokens whose CPU probability ties the expert's
+    boundary within ``EC_TIE_ULPS`` ulps (counted); timed on the card."""
+    dev = moe.expert_choice_route(logits, cap, tmask)
+    cpu_mask = None if tmask is None else tmask.cpu()
+    ref = moe.expert_choice_route(logits.cpu(), cap, cpu_mask)
+    probs = torch.softmax(logits.cpu().float(), -1)
+    ties = mismatches = 0
+    for e in range(logits.shape[1]):
+        got = set(dev[0][e][dev[2][e]].tolist())
+        want = set(ref[0][e][ref[2][e]].tolist())
+        if got == want:
+            continue
+        boundary = ref[1][e][min(cap, logits.shape[0]) - 1]
+        ulp = float(torch.finfo(torch.float32).eps * boundary.abs())
+        for tok in got ^ want:
+            if abs(float(probs[tok, e] - boundary)) <= EC_TIE_ULPS * ulp:
+                ties += 1
+            else:
+                mismatches += 1
+    ms = time_ms(torch, lambda: moe.expert_choice_route(logits, cap, tmask),
+                 [()], iters=20, graph=False) if logits.is_cuda else None
+    row = {"phase": "bert_moe_router", "tokens": logits.shape[0],
+           "experts": logits.shape[1], "capacity": min(cap, logits.shape[0]),
+           "ties_at_boundary": ties, "mismatches": mismatches,
+           "tie_ulps": EC_TIE_ULPS, "ms_eager": ms}
+    emit(row)
+    if mismatches:
+        raise AssertionError(f"bert_moe: the card's expert-choice selection "
+                             f"differs from the CPU's: {row}")
+
+
+def _first_loss(train_torch, name, dtype, device, extra=()):
+    args = train_torch.parse_args(
+        ["--workload", name, "--test-size", "--batch-size",
+         str(BERT_MOE_TEST_BATCH), "--seed", str(SEED), "--device", device,
+         "--dtype", dtype, *extra])
+    _, state, step, batches = train_torch.build(args)
+    _, m = step(state, next(batches))
+    return float(m["loss"])
+
+
+def run_bert_moe(torch, cuda, train_torch, device="cuda"):
+    """The bert_moe preset at full width through ``train_torch.build``
+    (:func:`baseline_steps`: step ms, examples and tokens/s,
+    ``FlopCounterMode`` flops beside the prediction, MFU, peak memory,
+    the warm-up batch's loss falling), its launches a step
+    (``BERT_MOE_LAUNCHES_PER_STEP``), the routing of every MoE block's
+    first microbatch at the first step, a profile of two more steps, the
+    router on the card against the CPU over the first block's logits
+    (T 32768, E 8), the first step's loss in bf16 against fp32 at
+    --test-size (1e-2), and ``BERT_MOE_PAIR``: k = 2 steps a call (one
+    replayed CUDA graph) against k = 1, bit for bit.  Returns the
+    launches."""
+    from distributedtensorflow_tpu_torch.parallel import moe
+
+    hooks = {}
+
+    def on_build(state):
+        hooks["seen"], remove = _moe_inputs(state.model)
+        return remove
+
+    state, step, batches, got, row = baseline_steps(
+        torch, cuda, train_torch, "bert_moe", BERT_MOE_BATCH, BERT_MOE_STEPS,
+        "bert_moe", device, on_build=on_build)
+    routing, first = [], None
+    for name, inputs in hooks.pop("seen").items():
+        logits, cap, tmask, stats = _ec_route(torch, moe, *inputs)
+        routing.append({"block": name, **stats})
+        if first is None:
+            first = (logits, cap, tmask)
+        else:
+            del logits
+    row.update(flops_predicted=BERT_MOE_FLOPS_PREDICTED,
+               routing_first_step=routing,
+               n_experts=state.model.cfg.n_experts,
+               router=state.model.cfg.router)
+    emit(row)
+    if device == "cuda":
+        _check_launches("bert_moe", got, BERT_MOE_STEPS,
+                        BERT_MOE_LAUNCHES_PER_STEP)
+        run_profile_train(torch, state, step, batches, "profile_bert_moe")
+    del state, step, batches
+    empty_cache(torch, torch.device(device))
+    check_ec_router(torch, moe, *first)
+    del first
+    losses = {dt: _first_loss(train_torch, "bert_moe", dt, device)
+              for dt in ("float32", "bfloat16")}
+    rel = abs(losses["bfloat16"] - losses["float32"]) / abs(
+        losses["float32"])
+    emit({"phase": "bert_moe_dtype", "batch": BERT_MOE_TEST_BATCH,
+          "first_loss": losses, "rel_err": rel, "tol": BERT_MOE_DTYPE_TOL})
+    if not all(math.isfinite(v) for v in losses.values()) \
+            or rel > BERT_MOE_DTYPE_TOL:
+        raise AssertionError(f"bert_moe: bf16 first loss {losses} not within "
+                             f"{BERT_MOE_DTYPE_TOL} of fp32")
+    name, batch, k, layers, calls = BERT_MOE_PAIR
+    pair = _ms_pair(torch, train_torch, name, batch, k, layers, calls, device)
+    ok = (pair[1]["losses"] == pair[k]["losses"]
+          and pair[1]["fingerprint"] == pair[k]["fingerprint"])
+    emit({"phase": "bert_moe_multistep", "k": k, "layers": layers,
+          "batch": batch, "bit_equal": ok, "losses_k1": pair[1]["losses"],
+          "losses_k": pair[k]["losses"],
+          "launches_after_first_call": pair[k]["launches"]})
+    if not ok:
+        raise AssertionError(f"bert_moe: k={k} differs from k=1")
+    return got
+
+
+# ------------------------------------------------------------------- optim
+
+#: (optimizer, the preset of its recipe, global batch, its flags).
+OPTIM_RUNS = (
+    ("lamb", "bert_mlm", 256, ("--lr", "2e-3", "--weight-decay", "0.01")),
+    ("lars", "imagenet_resnet50", 256,
+     ("--lr", "2.0", "--weight-decay", "1e-4")),
+    ("adafactor", "t5_seq2seq", 64, ("--lr", "1e-2")),
+    ("lion", "gpt_lm", 8, ("--lr", "3e-5", "--weight-decay", "0.1")),
+)
+OPTIM_STEPS = 3
+#: The card's first update against the CPU's from the same parameters and
+#: gradients: max |difference| over max |update|.
+OPTIM_TOL = 1e-4
+#: gpt_lm with lion at k steps a call against k = 1, bit for bit.
+OPTIM_PAIR_K = 4
+OPTIM_PAIR_FLAGS = ("--optimizer", "lion", "--lr", "3e-5", "--weight-decay",
+                    "0.1", "--schedule", "cosine", "--warmup-steps", "2")
+
+
+def _capture_first_update(record):
+    """``on_build`` for :func:`baseline_steps`: the parameters before the
+    first update, its gradients (before clipping) and the parameters
+    after it, all copied to the host."""
+
+    def on_build(state):
+        named = dict(state.model.named_parameters())
+        record["before"] = {n: p.detach().cpu().clone()
+                            for n, p in named.items()}
+        apply = state.apply_gradients
+
+        def capture(grads):
+            record["grads"] = {n: g.detach().cpu().clone()
+                               for n, g in grads.items()}
+            state.apply_gradients = apply
+            return apply(grads)
+
+        state.apply_gradients = capture
+
+        def after():
+            record["after"] = {n: p.detach().cpu().clone()
+                               for n, p in named.items()}
+        return after
+
+    return on_build
+
+
+def _cpu_update_err(torch, train_torch, name, batch, flags, record):
+    """Max |card update - CPU update| over max |CPU update| (and the
+    three parameters with the largest differences): the CPU's optimizer
+    built by ``train_torch`` for the same flags, on copies of the card's
+    parameters and gradients."""
+    args = train_torch.parse_args(["--workload", name, "--batch-size",
+                                   str(batch), "--device", "cpu", *flags])
+    wl = train_torch.apply_optimizer_flags(
+        train_torch.get_workload(name, test_size=args.test_size,
+                                 global_batch_size=batch), args)
+    params = [(n, torch.nn.Parameter(p.clone()))
+              for n, p in record["before"].items()]
+    opt = wl.make_optimizer(params)
+    for n, p in params:
+        p.grad = record["grads"][n].clone()
+    opt.step()
+    err = top = 0.0
+    worst = []
+    for n, p in params:
+        want = p.detach() - record["before"][n]
+        got = record["after"][n] - record["before"][n]
+        diff = (got - want).abs()
+        err = max(err, float(diff.max()))
+        top = max(top, float(want.abs().max()))
+        i = int(diff.argmax())
+        worst.append({"param": n, "abs_err": float(diff.max()),
+                      "max_update": float(want.abs().max()),
+                      "at": {"before": float(record["before"][n].flatten()[i]),
+                             "grad": float(record["grads"][n].flatten()[i]),
+                             "card": float(got.flatten()[i]),
+                             "cpu": float(want.flatten()[i])}})
+    worst = sorted(worst, key=lambda w: -w["abs_err"])[:3]
+    return err / top, worst
+
+
+def _optimizer_profile(torch, state, step, batches):
+    """Device busy ms of one profiled step and the device span of its
+    optimizer update (the profiler's ``Optimizer.step#...`` annotation),
+    and the host ms of an eager update on its own."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = next(batches)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, m = step(state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in device_events(torch, prof))
+    span = sum(e.device_time_total for e in prof.key_averages()
+               if e.key.startswith("Optimizer.step#")
+               and e.device_type == torch.autograd.DeviceType.CUDA)
+    for p in state.model.parameters():
+        p.grad = torch.full_like(p, 1e-3)
+    state.optimizer.step()  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state.optimizer.step()
+    torch.cuda.synchronize()
+    host = time.perf_counter() - t0
+    state.optimizer.zero_grad(set_to_none=True)
+    return {"profiled_step_busy_ms": busy / 1e3,
+            "optimizer_span_ms": span / 1e3,
+            "optimizer_share": span / busy if busy else None,
+            "optimizer_eager_ms": 1e3 * host}
+
+
+def run_optim(torch, cuda, train_torch, device="cuda"):
+    """Each of lamb, lars, adafactor and lion at full width on its
+    recipe's preset (``OPTIM_RUNS``), 1 + 3 steps through
+    ``train_torch.build`` with ``--optimizer`` beside the preset's own
+    optimizer: step ms each, the optimizer's share of a profiled step,
+    and the card's first update against the CPU's from the same
+    parameters and gradients (``OPTIM_TOL``); then gpt_lm with lion on a
+    warm-up cosine schedule at k = 4 steps a call against k = 1, bit for
+    bit.  Returns the launches of the optimizer runs."""
+    launches = collections.Counter()
+    failures = []
+    for opt, name, batch, lr_flags in OPTIM_RUNS:
+        flags = ("--optimizer", opt, *lr_flags)
+        row = {"phase": f"optim_{opt}", "workload": name, "batch": batch,
+               "optimizer": opt, "flags": list(flags)}
+        for tag, extra in (("default", ()), (opt, flags)):
+            record = {}
+            state, step, batches, got, run = baseline_steps(
+                torch, cuda, train_torch, name, batch, OPTIM_STEPS,
+                f"optim_{opt}_{tag}", device, extra=extra,
+                on_build=_capture_first_update(record) if tag == opt
+                else None)
+            row[f"{tag}_step_ms_median"] = run["step_ms_median"]
+            row[f"{tag}_step_ms"] = run["step_ms"]
+            row[f"{tag}_losses"] = run["losses"]
+            row[f"{tag}_optimizer"] = type(state.optimizer).__name__
+            if tag == opt:
+                launches.update(got)
+                row["peak_mem_gib"] = run["peak_mem_gib"]
+                if device == "cuda":
+                    row.update(_optimizer_profile(torch, state, step,
+                                                  batches))
+            del state, step, batches
+            empty_cache(torch, torch.device(device))
+        row["first_update_rel_err"], row["first_update_worst"] = \
+            _cpu_update_err(torch, train_torch, name, batch, flags, record)
+        row["tol"] = OPTIM_TOL
+        del record
+        emit(row)
+        if row["first_update_rel_err"] > OPTIM_TOL:
+            failures.append(f"{opt}: first update {row}")
+    pair = _ms_pair(torch, train_torch, "gpt_lm", 8, OPTIM_PAIR_K, None, 2,
+                    device, extra=OPTIM_PAIR_FLAGS)
+    ok = (pair[1]["losses"] == pair[OPTIM_PAIR_K]["losses"]
+          and pair[1]["fingerprint"] == pair[OPTIM_PAIR_K]["fingerprint"])
+    emit({"phase": "optim_lion_multistep", "k": OPTIM_PAIR_K,
+          "flags": list(OPTIM_PAIR_FLAGS), "bit_equal": ok,
+          "losses_k1": pair[1]["losses"],
+          "losses_k": pair[OPTIM_PAIR_K]["losses"],
+          "launches_after_first_call": pair[OPTIM_PAIR_K]["launches"]})
+    if not ok:
+        failures.append(f"lion at k={OPTIM_PAIR_K} differs from k=1")
+    if failures:
+        raise AssertionError("optim: " + "; ".join(failures))
+    return launches
+
+
+# ----------------------------------------------------------------- records
+
+#: imagenet_resnet50-shaped records: 224x224x3 fp32 images and labels,
+#: six batches of 256 (~0.9 GB) in one shard (one reader thread, so the
+#: order repeats); 1 + 4 steps.
+RECORDS_BATCH, RECORDS_STEPS, RECORDS_BATCHES = 256, 4, 6
+RECORDS_SHUFFLE, RECORDS_IMAGE = 512, (224, 224, 3)
+
+
+def _write_image_records(d, n):
+    from distributedtensorflow_tpu_torch.data import write_record_shards
+
+    rng = np.random.default_rng(SEED)
+
+    def examples():
+        for _ in range(n):
+            yield {"image": rng.standard_normal(RECORDS_IMAGE,
+                                                dtype=np.float32),
+                   "label": np.int32(rng.integers(1000))}
+
+    return write_record_shards(examples(), os.path.join(d, "train-{:03d}.rec"),
+                               num_shards=1)
+
+
+def _fit_rows(train_torch, argv, logdir):
+    """``train_torch.main`` logging every step into ``logdir``: its
+    metrics rows."""
+    train_torch.main([*argv, "--log-every", "1", "--logdir", logdir])
+    return [r for r in _rows_of(os.path.join(logdir, "metrics.jsonl"))
+            if "t_step" in r]
+
+
+def _same_batch(torch, got, want) -> bool:
+    return all(torch.equal(got[k].cpu(), torch.as_tensor(want[k]).to(
+        got[k].dtype)) for k in want)
+
+
+def run_records(torch, train_torch, device="cuda"):
+    """imagenet_resnet50 from record files: shards written by the port's
+    ``write_record_shards`` into a temporary directory (removed at the
+    end); 1 + 4 steps at batch 256 with ``--data-dir`` beside the same
+    run on synthetic batches (images/s of steps 2-5, the Trainer's
+    t_data and f_data); the first batch the step sees equals the
+    records' first; a run resumed from the checkpoint of step 2
+    fast-forwards to the records' third batch; and one ``--config`` JSON
+    run of mnist_lenet."""
+    import shutil
+    import tempfile
+
+    from distributedtensorflow_tpu_torch.checkpoint import CheckpointManager
+    from distributedtensorflow_tpu_torch.data import (
+        InputContext,
+        repeated_record_dataset,
+    )
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_records_")
+    try:
+        t0 = time.time()
+        data = os.path.join(tmp, "data")
+        os.makedirs(data)
+        files = _write_image_records(data, RECORDS_BATCH * RECORDS_BATCHES)
+        write_s = time.time() - t0
+        nbytes = sum(os.path.getsize(f) for f in files)
+        base = ["--workload", "imagenet_resnet50", "--batch-size",
+                str(RECORDS_BATCH), "--seed", str(SEED), "--device", device]
+        rec = ["--data-dir", data, "--shuffle-buffer", str(RECORDS_SHUFFLE)]
+        steps = ["--steps", str(1 + RECORDS_STEPS)]
+        runs = {}
+        for tag, extra in (("synthetic", ()), ("records", rec)):
+            rows = _fit_rows(train_torch, [*base, *steps, *extra],
+                             os.path.join(tmp, tag))
+            steady = rows[1:]
+            t_step = statistics.median(r["t_step"] for r in steady)
+            runs[tag] = {"images_per_sec": RECORDS_BATCH / t_step,
+                         "t_step_ms": [1e3 * r["t_step"] for r in steady],
+                         "t_data_ms": [1e3 * r.get("t_data", 0.0)
+                                       for r in steady],
+                         "f_data": [r.get("f_data") for r in steady],
+                         "losses": [r["loss"] for r in rows]}
+            empty_cache(torch, torch.device(device))
+        want = repeated_record_dataset(
+            files, InputContext(1, 0, RECORDS_BATCH),
+            batch_size=RECORDS_BATCH, shuffle_buffer=RECORDS_SHUFFLE,
+            seed=SEED)
+        want = [next(want) for _ in range(3)]
+        args = train_torch.parse_args([*base, *rec, *steps])
+        _, _, _, batches = train_torch.build(args)
+        first_ok = _same_batch(torch, next(batches), want[0])
+        batches.close()
+        ck = os.path.join(tmp, "ck")
+        train_torch.main([*base, *rec, "--steps", "2", "--checkpoint-dir",
+                          ck])
+        _, state, _, batches = train_torch.build(args, CheckpointManager(ck))
+        resumed_at = state.step
+        resume_ok = resumed_at == 2 and _same_batch(torch, next(batches),
+                                                    want[2])
+        batches.close()
+        del state, batches
+        empty_cache(torch, torch.device(device))
+        cfg = os.path.join(tmp, "mnist.json")
+        with open(cfg, "w") as f:
+            json.dump({"workload": "mnist_lenet", "steps": 20,
+                       "log_every": 10, "seed": SEED, "device": device}, f)
+        config_records = train_torch.main(["--config", cfg])
+        config_ok = [r["step"] for r in config_records] == [10, 20] \
+            and all(math.isfinite(r["loss"]) for r in config_records)
+        row = {"phase": "records", "workload": "imagenet_resnet50",
+               "batch": RECORDS_BATCH, "files": len(files),
+               "record_bytes": nbytes, "write_s": write_s,
+               "shuffle_buffer": RECORDS_SHUFFLE, **{
+                   f"{tag}_{k}": v for tag, r in runs.items()
+                   for k, v in r.items()},
+               "first_batch_equal": first_ok, "resumed_at": resumed_at,
+               "resume_batch_equal": resume_ok,
+               "config_run": config_records, "config_ok": config_ok}
+        emit(row)
+        if not (first_ok and resume_ok and config_ok) or not all(
+                math.isfinite(x) for x in runs["records"]["losses"]):
+            raise AssertionError(f"records: {row}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 PHASES = ("layernorm", "kernels", "xent", "serving", "serve_cli", "train",
-          "baseline", "dp", "ckpt", "trainer", "multistep", "presets2")
+          "baseline", "dp", "ckpt", "trainer", "multistep", "presets2",
+          "bert_moe", "optim", "records")
 
 
 def main(argv=None) -> int:
@@ -4460,8 +4975,11 @@ def main(argv=None) -> int:
     reports = _cuda.build()
     for name, text in reports.items():
         print(f"--- nvcc {name}\n{text.strip()}", flush=True)
+    from distributedtensorflow_tpu_torch import native
+
+    record_lib = native.build_native_library()  # g++, native/src
     emit({"phase": "build", "seconds": time.time() - t0,
-          "built": sorted(reports)})
+          "built": sorted(reports), "record_library": str(record_lib)})
     check_sass(_cuda)
 
     seconds, lap = {"build": time.time() - t0}, [time.time()]
@@ -4576,6 +5094,15 @@ def main(argv=None) -> int:
         for name, extra in p2_rows.items():
             rows.setdefault(name, []).extend(extra)
     done("presets2")
+    if "bert_moe" in phases:
+        launches.update(run_bert_moe(torch, _cuda, train_torch))
+    done("bert_moe")
+    if "optim" in phases:
+        launches.update(run_optim(torch, _cuda, train_torch))
+    done("optim")
+    if "records" in phases:
+        run_records(torch, train_torch)
+    done("records")
     emit({"phase": "seconds", **seconds})
     if phases != set(PHASES):
         print(f"chip_smoke: ran only {sorted(phases)}", file=sys.stderr)

@@ -1,6 +1,7 @@
 """Models of the port: the GPT decoder LM (training and decode mode),
 generation, the GPT-MoE LM, the BASELINE.json models (LeNet-5,
-ResNet-20/50, BERT MLM, Wide&Deep), the ViT and the seq2seq
+ResNet-20/50, BERT MLM, Wide&Deep), the BERT-MoE encoder, the ViT and the
+seq2seq
 encoder-decoder (training, teacher-forced eval and cached decoding)."""
 
 from .bert import (  # noqa: F401
@@ -13,7 +14,15 @@ from .bert import (  # noqa: F401
     mlm_eval,
     mlm_loss,
 )
+from .bert_moe import (  # noqa: F401
+    BertMoEConfig,
+    BertMoEForMLM,
+    bert_moe_base,
+    bert_moe_tiny,
+    moe_mlm_loss,
+)
 from .convert import (  # noqa: F401
+    flax_views,
     init_params,
     opt_state_from_optax,
     opt_state_to_optax,

@@ -121,9 +121,14 @@ class TransformerBlock(nn.Module):
 
 
 class BertEncoder(nn.Module):
-    """Embeddings, their LayerNorm and the blocks (``layer_{i}``)."""
+    """Embeddings, their LayerNorm and the blocks (``layer_{i}``).
 
-    def __init__(self, cfg: BertConfig, device=None):
+    ``block_fn(i)`` (JAX ``:119-131``) builds block ``i`` in place of a
+    :class:`TransformerBlock`, so a variant swaps blocks without its own
+    embedding stack (the MoE encoder, ``models/bert_moe.py``).  A block
+    returns ``x`` or ``(x, aux)``; the aux losses are summed."""
+
+    def __init__(self, cfg: BertConfig, device=None, block_fn=None):
         super().__init__()
         self.cfg = cfg
         e = cfg.hidden_size
@@ -132,11 +137,13 @@ class BertEncoder(nn.Module):
         self.ln_embed = FusedLayerNorm(e, out_dtype=torch.float32,
                                        device=device)
         for i in range(cfg.num_layers):
-            self.add_module(f"layer_{i}", TransformerBlock(cfg, device=device))
+            self.add_module(f"layer_{i}", TransformerBlock(cfg, device=device)
+                            if block_fn is None else block_fn(i))
 
     def forward(self, input_ids, attention_mask=None, segment_ids=None,
                 position_ids=None, generator=None, deterministic=True):
-        """fp32 hidden states (B, S, E).  ``segment_ids`` and
+        """``(x, aux)``: fp32 hidden states (B, S, E) and the blocks' aux
+        losses summed (0 for dense blocks).  ``segment_ids`` and
         ``position_ids`` (B, S) are a packed batch's: attention stays in a
         segment and positions restart per example."""
         cfg = self.cfg
@@ -151,11 +158,39 @@ class BertEncoder(nn.Module):
         mask = None
         if attention_mask is not None:
             mask = attention_mask[:, None, None, :].bool()
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(cfg.num_layers):
             seeds = (draw_seed(generator), draw_seed(generator)) if train \
                 else (None, None)
             x = getattr(self, f"layer_{i}")(x, mask, segment_ids, seeds)
-        return x
+            if isinstance(x, tuple):
+                x, aux = x
+                aux_total = aux_total + aux
+        return x, aux_total
+
+
+def add_mlm_head(module: nn.Module, cfg: BertConfig, device=None) -> None:
+    """The MLM head's submodules (``mlm_transform``, ``mlm_ln``,
+    ``mlm_out``) on ``module``: the one definition that
+    :class:`BertForMLM` and the MoE encoder share (JAX ``mlm_head``,
+    ``:170``)."""
+    e = cfg.hidden_size
+    module.mlm_transform = Dense(e, e, dtype=cfg.dtype, use_bias=True,
+                                 device=device)
+    module.mlm_ln = FusedLayerNorm(e, out_dtype=torch.float32, device=device)
+    module.mlm_out = Dense(e, cfg.vocab_size, dtype=torch.float32,
+                           use_bias=True, device=device)
+
+
+def mlm_head(module: nn.Module, x, masked_positions=None):
+    """fp32 logits of ``module``'s MLM head (see :func:`add_mlm_head`) at
+    every position of ``x`` (B, S, E), or (B, P, V) at
+    ``masked_positions`` (B, P)."""
+    if masked_positions is not None:
+        x = torch.gather(x, 1, masked_positions[..., None].expand(
+            -1, -1, x.shape[-1]))
+    x = F.gelu(module.mlm_transform(x), approximate="tanh")
+    return module.mlm_out(module.mlm_ln(x))
 
 
 class BertForMLM(nn.Module):
@@ -167,14 +202,8 @@ class BertForMLM(nn.Module):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
-        e = cfg.hidden_size
         self.encoder = BertEncoder(cfg, device=device)
-        self.mlm_transform = Dense(e, e, dtype=cfg.dtype, use_bias=True,
-                                   device=device)
-        self.mlm_ln = FusedLayerNorm(e, out_dtype=torch.float32,
-                                     device=device)
-        self.mlm_out = Dense(e, cfg.vocab_size, dtype=torch.float32,
-                             use_bias=True, device=device)
+        add_mlm_head(self, cfg, device)
 
     @property
     def device(self) -> torch.device:
@@ -185,13 +214,9 @@ class BertForMLM(nn.Module):
                 deterministic=True, generator=None):
         """fp32 logits (B, S, V), or (B, P, V) at ``masked_positions``
         (B, P): the head then runs on P positions instead of S."""
-        x = self.encoder(input_ids, attention_mask, segment_ids,
-                         position_ids, generator, deterministic)
-        if masked_positions is not None:
-            x = torch.gather(x, 1, masked_positions[..., None].expand(
-                -1, -1, x.shape[-1]))
-        x = F.gelu(self.mlm_transform(x), approximate="tanh")
-        return self.mlm_out(self.mlm_ln(x))
+        x, _ = self.encoder(input_ids, attention_mask, segment_ids,
+                            position_ids, generator, deterministic)
+        return mlm_head(self, x, masked_positions)
 
 
 def max_predictions_for(seq_len: int) -> int:
@@ -218,7 +243,9 @@ def _mlm_metrics(model: BertForMLM, max_predictions, batch, generator,
     over the masked positions (``labels`` >= 0; -100 elsewhere), weighted
     and divided by their count (at least 1), and the masked accuracy;
     with ``max_predictions`` the gathered head and ``mlm_clipped_rows``,
-    the share of rows that had more masked positions than it keeps.  Over
+    the share of rows that had more masked positions than it keeps; a
+    model that returns ``(logits, aux)`` (the MoE encoder) adds
+    ``moe_aux_loss``.  Over
     a data-parallel ``group`` the count divides by every rank's masked
     positions (JAX's weight sum over the global microbatch), so the loss
     and metrics are this rank's shares of the global values."""
@@ -243,6 +270,8 @@ def _mlm_metrics(model: BertForMLM, max_predictions, batch, generator,
     else:
         logits = model(batch["input_ids"], **kw)
         w = valid.float()
+    if isinstance(logits, tuple):  # the MoE encoder: (logits, router aux)
+        logits, extra["moe_aux_loss"] = logits
     logits = logits.float()
     per_tok = F.cross_entropy(logits.flatten(0, 1), safe.flatten(),
                               reduction="none").view(safe.shape)

@@ -15,9 +15,11 @@ config says which tree: a ``GPTMoEConfig`` has MoE blocks where
 ``is_moe_layer`` says so, GPT blocks elsewhere.
 
 The BASELINE models (``LeNet5``, ``CifarResNet``, ``ImageNetResNet``,
-``BertForMLM``, ``WideDeep``) and the ``ViT`` and ``Seq2SeqLM`` (their
-configs select them) name their submodules as the flax tree does, so a
-parameter's path is its name.
+``BertForMLM``, ``WideDeep``), the ``BertMoEForMLM`` and the ``ViT`` and
+``Seq2SeqLM`` (their configs select them) name their submodules as the
+flax tree does, so a parameter's path is its name (a MoE block's
+``moe_mlp/router``, ``experts_in`` and ``experts_out`` keep their
+shapes).
 For them the JAX tree is the whole flax variables dict, ``{"params":
 ...}`` plus ``"batch_stats"`` (BatchNorm's running ``mean`` and ``var``,
 the port's buffers) for the ResNets, and the state holds the buffers too.
@@ -32,14 +34,18 @@ Optimizer state: ``opt_state_from_optax`` gives the ``state_dict`` of a
 port optimizer (``train.optimizers``) for the optax state of its JAX twin
 (``build_optimizer``'s chains: sgd, nesterov momentum, adam, adamw with
 or without its decay mask, adagrad, each behind ``clip_by_global_norm``
-or not), and ``opt_state_to_optax`` the optax state for a port
-optimizer, so a run can move from one package to the other mid-way.
+or not, and lamb, lars, adafactor and lion), and ``opt_state_to_optax``
+the optax state for a port optimizer, so a run can move from one package
+to the other mid-way.
 The optax ``count`` is the parameter groups' ``"count"`` (and AdamW's
 ``step``, which ``load_state_dict`` moves to the card for a capturable
 AdamW); ``mu``/``nu``, the momentum ``trace`` and adagrad's
-``sum_of_squares`` are AdamW's ``exp_avg``/``exp_avg_sq``, SGD's
-``momentum_buffer`` and :class:`~..train.optimizers.Adagrad`'s ``sos``,
-each a tree of the parameters mapped as the parameters are.
+``sum_of_squares`` are AdamW's (and LAMB's) ``exp_avg``/``exp_avg_sq``,
+SGD's (and LARS's) ``momentum_buffer``, :class:`~..train.optimizers.
+Adagrad`'s ``sos`` and Lion's ``exp_avg``, each a tree of the parameters
+mapped as the parameters are; adafactor's factored ``v_row``, ``v_col``
+and ``v`` are kept in the flax layout (:func:`flax_views`) and move leaf
+for leaf.
 """
 
 from __future__ import annotations
@@ -52,8 +58,9 @@ import torch
 from torch import nn
 
 from .bert import BertConfig, BertForMLM
+from .bert_moe import BertMoEConfig, BertMoEForMLM
 from .gpt import GPTConfig
-from .gpt_moe import GPTMoEConfig
+from .gpt_moe import GPTMoEConfig, MoEMLP
 from .layers import BatchNorm, Conv, Dense, FusedLayerNorm, RMSNorm
 from .lenet import LeNet5, LeNetConfig
 from .resnet import (
@@ -71,11 +78,11 @@ from .widedeep import WideDeep, WideDeepConfig
 MODELS = {LeNetConfig: LeNet5, CifarResNetConfig: CifarResNet,
           ImageNetResNetConfig: ImageNetResNet, BertConfig: BertForMLM,
           WideDeepConfig: WideDeep, ViTConfig: ViT,
-          Seq2SeqConfig: Seq2SeqLM}
-#: Modules that hold parameters of their own: the flax layers' twins and
-#: the ViT (its ``pos_embed``).
+          Seq2SeqConfig: Seq2SeqLM, BertMoEConfig: BertMoEForMLM}
+#: Modules that hold parameters of their own: the flax layers' twins, the
+#: routed MLP and the ViT (its ``pos_embed``).
 _LEAF_MODULES = (BatchNorm, Conv, Dense, FusedLayerNorm, RMSNorm,
-                 nn.Embedding, ViT)
+                 nn.Embedding, MoEMLP, ViT)
 
 
 def _shapes(cfg: GPTConfig) -> dict[str, tuple[int, ...]]:
@@ -227,8 +234,11 @@ def _baseline_init(cfg, generator) -> dict[str, torch.Tensor]:
         shape = tuple(getattr(mod, attr).shape)
         if isinstance(mod, nn.Embedding):
             t = torch.randn(shape, generator=generator) / math.sqrt(shape[1])
-        elif attr == "pos_embed":
+        elif attr in ("pos_embed", "router"):
             t = torch.randn(shape, generator=generator) * 0.02
+        elif attr.startswith("experts_"):  # fan-in E x in, as flax's
+            t = torch.randn(shape, generator=generator) \
+                / math.sqrt(shape[0] * shape[1])
         elif attr == "weight":
             t = torch.randn(shape, generator=generator) \
                 / math.sqrt(math.prod(shape[1:]))
@@ -313,7 +323,7 @@ def init_params(cfg, generator: torch.Generator
     1/sqrt(width) (flax's ``Embed`` default), the ViT's ``pos_embed`` at
     0.02 (its ``normal(0.02)``), biases 0, BatchNorm, LayerNorm and
     RMSNorm scales 1 (0 where flax starts one at 0), running mean 0 and
-    variance 1."""
+    variance 1; the BERT-MoE's routers and experts as GPT-MoE's."""
     if type(cfg) in MODELS:
         return _baseline_init(cfg, generator)
     state = {}
@@ -330,11 +340,49 @@ def init_params(cfg, generator: torch.Generator
     return state
 
 
+def _param_leaves(cfg) -> dict[str, tuple]:
+    """Port parameter name -> ``(path in the flax params tree, perm,
+    flax shape)``: the flax leaf is the port tensor permuted by ``perm``
+    and reshaped to that shape."""
+    out = {}
+    if type(cfg) in MODELS:
+        for name, (path, mod, attr) in _baseline_leaves(cfg).items():
+            if path[0] != "params":
+                continue
+            shape = tuple(getattr(mod, attr).shape)
+            perm = tuple(range(len(shape)))
+            if isinstance(mod, Conv) and attr == "weight":
+                perm = (2, 3, 1, 0)
+                shape = tuple(shape[i] for i in perm)
+            elif isinstance(mod, Dense) and attr == "weight":
+                perm, shape = (1, 0), tuple(mod.kernel_shape)
+            elif isinstance(mod, Dense) and attr == "bias":
+                shape = tuple(mod.bias_shape)
+            out[name] = (path[1:], perm, shape)
+        return out
+    for name, shape in _shapes(cfg).items():
+        path, is_kernel = _flax_path(name)
+        out[name] = (path, (1, 0), shape[::-1]) if is_kernel \
+            else (path, tuple(range(len(shape))), shape)
+    return out
+
+
+def flax_views(cfg) -> dict[str, tuple[tuple[int, ...], tuple[int, ...]]]:
+    """Port parameter name -> ``(perm, shape)``: the parameter's flax
+    layout is ``p.permute(perm).reshape(shape)``.  Adafactor
+    (``train.optimizers``) factors its second moments over the flax
+    layout's two largest dims, as optax does, and keeps them in it."""
+    return {n: (perm, shape)
+            for n, (_, perm, shape) in _param_leaves(cfg).items()}
+
+
 # ------------------------------------------------------------- optimizers
 
 #: optax moment field -> the port optimizer's state slot.
 _MOMENTS = {"mu": "exp_avg", "nu": "exp_avg_sq", "trace": "momentum_buffer",
             "sum_of_squares": "sos"}
+#: adafactor's factored moments: the same names in both, flax layouts.
+_FACTORED = ("v_row", "v_col", "v")
 
 
 def _params_from(tree, cfg) -> dict[str, torch.Tensor]:
@@ -360,7 +408,7 @@ def _optax_parts(state, out: dict) -> dict:
             val = getattr(state, field)
             if field == "count":
                 out.setdefault("count", int(np.asarray(val)))
-            elif field in _MOMENTS:
+            elif field in _MOMENTS or field in _FACTORED:
                 out[field] = val
             else:
                 _optax_parts(val, out)
@@ -372,12 +420,25 @@ def _optax_parts(state, out: dict) -> dict:
 
 def _slots(optimizer) -> tuple[str, ...]:
     """The optax moment fields the port optimizer keeps per parameter."""
-    from ..train.optimizers import SGD, Adagrad
+    from ..train.optimizers import (
+        SGD,
+        Adafactor,
+        Adagrad,
+        Lamb,
+        Lars,
+        Lion,
+    )
 
-    if isinstance(optimizer, torch.optim.AdamW):
+    if isinstance(optimizer, (torch.optim.AdamW, Lamb)):
         return ("mu", "nu")
     if isinstance(optimizer, Adagrad):
         return ("sum_of_squares",)
+    if isinstance(optimizer, Lion):
+        return ("mu",)
+    if isinstance(optimizer, Adafactor):
+        return _FACTORED
+    if isinstance(optimizer, Lars):
+        return ("trace",)
     if isinstance(optimizer, (SGD, torch.optim.SGD)):
         momentum = optimizer.param_groups[0]["momentum"]
         return ("trace",) if momentum else ()
@@ -398,15 +459,16 @@ def opt_state_from_optax(opt_state, cfg, optimizer, model) -> dict:
     if missing:
         raise ValueError(f"the optax state has no {missing} for "
                          f"{type(optimizer).__name__}")
-    trees = {f: _params_from(parts[f], cfg) for f in fields}
+    trees = {f: _factored_from(parts[f], cfg) if f in _FACTORED
+             else _params_from(parts[f], cfg) for f in fields}
     count = parts.get("count")
     names = {id(p): n for n, p in model.named_parameters()}
     params = [p for g in optimizer.param_groups for p in g["params"]]
     sd = optimizer.state_dict()
     sd["state"] = {}
     for i, p in enumerate(params):
-        entry = {_MOMENTS[f]: trees[f][names[id(p)]] for f in fields}
-        if isinstance(optimizer, torch.optim.AdamW):
+        entry = {_MOMENTS.get(f, f): trees[f][names[id(p)]] for f in fields}
+        if _counts_on_device(optimizer):
             entry["step"] = torch.tensor(float(count or 0))
         if entry:
             sd["state"][i] = entry
@@ -414,6 +476,35 @@ def opt_state_from_optax(opt_state, cfg, optimizer, model) -> dict:
         for group in sd["param_groups"]:
             group["count"] = count
     return sd
+
+
+def _counts_on_device(optimizer) -> bool:
+    """The optimizers that keep optax's count per parameter (``"step"``)."""
+    from ..train.optimizers import Adafactor, Lamb
+
+    return isinstance(optimizer, (torch.optim.AdamW, Lamb, Adafactor))
+
+
+def _factored_from(tree, cfg) -> dict[str, torch.Tensor]:
+    """An adafactor moment tree (flax layout, any leaf shapes) by port
+    parameter name, leaf for leaf."""
+    out = {}
+    for name, (path, _, _) in _param_leaves(cfg).items():
+        leaf = tree
+        for key in path:
+            leaf = leaf[key]
+        out[name] = torch.tensor(np.array(leaf, dtype=np.float32))
+    return out
+
+
+def _factored_to(state, cfg) -> dict:
+    tree: dict = {}
+    for name, (path, _, _) in _param_leaves(cfg).items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = state[name].detach().to("cpu", torch.float32).numpy()
+    return tree
 
 
 def opt_state_to_optax(optimizer, cfg, model, like):
@@ -426,7 +517,13 @@ def opt_state_to_optax(optimizer, cfg, model, like):
     count = optimizer.param_groups[0].get("count", 0)
     named = dict(model.named_parameters())
 
-    def moments(field):
+    def moments(field, like_tree):
+        if field in _FACTORED:
+            # before the first update, optax's zeros from ``like``
+            have = _factored_from(like_tree, cfg)
+            return _factored_to({
+                n: optimizer.state.get(p, {}).get(field, have[n])
+                for n, p in named.items()}, cfg)
         slot = _MOMENTS[field]
         return _params_to({
             n: optimizer.state[p][slot] if slot in optimizer.state.get(p, {})
@@ -440,7 +537,9 @@ def opt_state_to_optax(optimizer, cfg, model, like):
                 return state
             return state._replace(**{
                 f: np.asarray(count, np.asarray(getattr(state, f)).dtype)
-                if f == "count" else moments(f) if f in _MOMENTS
+                if f == "count"
+                else moments(f, getattr(state, f))
+                if f in _MOMENTS or f in _FACTORED
                 else rebuild(getattr(state, f)) for f in fields})
         if isinstance(state, tuple):
             return tuple(rebuild(v) for v in state)

@@ -2,10 +2,11 @@
 
 Twin of the local half of ``distributedtensorflow_tpu/parallel/moe.py``:
 ``_capacity_slots`` (``:28``), ``_masked_fracs`` (``:36``), ``top1_route``
-(``:49``, Switch), ``top2_route`` (``:81``, GShard) and ``local_moe``
+(``:49``, Switch), ``top2_route`` (``:81``, GShard),
+``expert_choice_route`` (``:126``, Zhou et al. 2022) and ``local_moe``
 (``:349``), the path JAX takes when the mesh has no ``expert`` axis.
-Expert parallelism (``expert_parallel_moe``, ``make_moe_fn``) and the
-``expert_choice`` router are not ported yet.
+Expert parallelism (``expert_parallel_moe``, ``make_moe_fn``) is not
+ported yet.
 
 JAX writes dispatch and combine as one-hot (T, E, C) fp32 tensors and
 einsums; at T 16384 tokens, C 5120 slots that is 2.7 GB a tensor.  The
@@ -28,6 +29,17 @@ on its rank plus the assignments queued ahead of it on the other ranks
 (:func:`_global_view`).  Each rank then runs the experts on its own kept
 tokens only, in an (E, C, d) buffer with the global capacity C, and
 returns its share of the aux loss.
+
+Expert choice inverts the assignment: each expert takes its top-
+``capacity`` tokens, so a token is chosen by 0 to E experts.  Its router
+(:func:`expert_choice_route`) returns the expert-major (E, C) token
+indices and gates; :func:`local_moe` gathers each expert's chosen tokens
+into its rows of the (E, C, d) buffer and adds each expert's weighted
+outputs into its tokens' rows, expert after expert: a row takes at most
+one term an expert, so forward and backward add in a fixed order.  Over
+a data-parallel group each expert's top-k is over every rank's tokens,
+as in JAX's global jit: the ranks gather the (T, E) fp32 probabilities,
+each takes the same global selection and runs its own chosen tokens.
 """
 
 from __future__ import annotations
@@ -169,10 +181,44 @@ def top2_route(logits: torch.Tensor, capacity: int,
                   token_mask, group)
 
 
-ROUTERS = {"top1": top1_route, "top2": top2_route}
+def expert_choice_route(logits: torch.Tensor, capacity: int,
+                        token_mask: torch.Tensor | None = None, group=None):
+    """Expert-choice routing: each expert selects its top-``capacity``
+    tokens by router probability (``capacity`` at most the token count),
+    so every expert is full and ``aux`` is exactly 0.  Pads rank below
+    every real token (``probs * w - (1 - w)``) and a pad that still lands
+    in a top-k is not kept (``gate > 0``).  Among equal scores the lower
+    token index comes first, as ``lax.top_k`` takes it (a stable sort;
+    ``torch.topk`` promises no order).
+
+    Returns ``(token, gate, keep, aux)``: the (E, C) global token index,
+    fp32 gate (differentiable) and kept flag of each expert's slots.
+    Over a data-parallel ``group`` the selection is over every rank's
+    tokens (global index = rank-major position); its gates then carry no
+    gradient, and :func:`local_moe` takes each kept token's gate from its
+    own rank's probabilities.  Not causal: a token's selection reads every
+    other token's score."""
+    probs = torch.softmax(logits.float(), dim=-1)  # (T, E)
+    mask = None if token_mask is None else token_mask.float()
+    if group is not None and group_size(group) > 1:
+        probs = all_gather(probs.detach(), group)
+        if mask is not None:
+            mask = all_gather(mask, group)
+    capacity = min(capacity, probs.shape[0])
+    if mask is not None:
+        w = mask[:, None]
+        probs = probs * w - (1.0 - w)
+    order = torch.sort(probs.t(), dim=1, descending=True, stable=True)
+    gate = order.values[:, :capacity]
+    return (order.indices[:, :capacity], gate, gate > 0,
+            torch.zeros((), dtype=torch.float32, device=logits.device))
+
+
+ROUTERS = {"top1": top1_route, "top2": top2_route,
+           "expert_choice": expert_choice_route}
 #: Assignments per token, for capacity scaling (GShard: top-2 needs 2x
-#: slots).
-_ASSIGNMENTS = {"top1": 1, "top2": 2}
+#: slots; expert choice's capacity is the EC paper's k = cf * T / E).
+_ASSIGNMENTS = {"top1": 1, "top2": 2, "expert_choice": 1}
 
 
 def capacity_for(tokens: int, n_experts: int, capacity_factor: float,
@@ -205,6 +251,9 @@ def local_moe(tokens: torch.Tensor, router_kernel: torch.Tensor,
     capacity = capacity_for(t * (1 if group is None else group_size(group)),
                             e, capacity_factor, router)
     logits = tokens.float() @ router_kernel.float()
+    if router == "expert_choice":
+        return _expert_choice_moe(tokens, logits, expert_params, expert_fn,
+                                  capacity, token_mask, group)
     expert, slot, keep, gate, aux = ROUTERS[router](logits, capacity,
                                                     token_mask, group)
     # kept assignments land in their (expert, slot) row; dropped ones in a
@@ -222,4 +271,57 @@ def local_moe(tokens: torch.Tensor, router_kernel: torch.Tensor,
         0, torch.where(keep, rows, 0).reshape(-1)).view(*rows.shape, d)
     weight = torch.where(keep, gate, torch.zeros_like(gate))
     combined = (picked.float() * weight[..., None]).sum(1)
+    return combined.to(tokens.dtype), aux
+
+
+class _Dispatch(torch.autograd.Function):
+    """``send[e, c] = tokens[rows[e, c]]`` where ``mine``, else 0: the
+    (E, C, d) expert buffer.  The backward adds each expert's rows into
+    one fp32 (T, d) gradient, expert after expert, in which a row takes
+    at most one nonzero term an expert, so the sum's order is fixed (the
+    backward of one gather over all experts would add a token's terms
+    with atomics in any order)."""
+
+    @staticmethod
+    def forward(ctx, tokens, rows, mine):
+        ctx.save_for_backward(rows, mine)
+        ctx.shape = tokens.shape
+        send = tokens.index_select(0, rows.reshape(-1)).view(
+            *rows.shape, tokens.shape[1])
+        return torch.where(mine[..., None], send, 0)
+
+    @staticmethod
+    def backward(ctx, grad):
+        rows, mine = ctx.saved_tensors
+        out = grad.new_zeros(ctx.shape, dtype=torch.float32)
+        for i in range(rows.shape[0]):
+            out.index_add_(0, rows[i],
+                           torch.where(mine[i, :, None], grad[i], 0).float())
+        return out.to(grad.dtype), None, None
+
+
+def _expert_choice_moe(tokens, logits, expert_params, expert_fn, capacity,
+                       token_mask, group):
+    """:func:`local_moe` for expert choice (module docstring).  Each
+    expert's slots hold its kept tokens of this rank (``mine``); any
+    other slot reads and adds zeros to a row of its own, so a row takes at
+    most one nonzero term an expert and the adds, expert after expert,
+    are order-deterministic."""
+    t, d = tokens.shape
+    token, _, keep, aux = expert_choice_route(logits, capacity, token_mask,
+                                              group)
+    e, c = token.shape
+    # this rank's tokens are rows [offset, offset + t) of the global order
+    offset = 0 if group is None else group_rank(group) * t
+    mine = keep & (token >= offset) & (token < offset + t)
+    spare = torch.arange(c, device=tokens.device).remainder(t).expand(e, c)
+    rows = torch.where(mine, token - offset, spare)
+    out = expert_fn(expert_params, _Dispatch.apply(tokens, rows, mine))
+    # the gate of a kept token is its own router probability (a real
+    # token's: pads are never kept), from this rank's differentiable probs
+    probs = torch.softmax(logits.float(), dim=-1)
+    gate = torch.where(mine, probs.t().gather(1, rows), 0.0)
+    combined = torch.zeros(t, d, dtype=torch.float32, device=tokens.device)
+    for i in range(e):
+        combined.index_add_(0, rows[i], out[i].float() * gate[i, :, None])
     return combined.to(tokens.dtype), aux

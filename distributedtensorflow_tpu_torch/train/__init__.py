@@ -14,11 +14,15 @@ from .engine import (  # noqa: F401
 )
 from .losses import classification_eval, classification_loss  # noqa: F401
 from .optimizers import (  # noqa: F401
+    adafactor,
     adagrad,
     adamw,
     build_optimizer,
     build_schedule,
     exclude_bias_and_norm_mask,
+    lamb,
+    lars,
+    lion,
     sgd,
     warmup_cosine_decay_schedule,
 )

@@ -12,13 +12,15 @@ Each optimizer matches its optax twin update for update: adam and adamw
 are the one AdamW (adam without decay); sgd and nesterov momentum
 (:class:`SGD`) and adagrad (:class:`Adagrad`) are written out, because
 torch's SGD reads a tensor learning rate on the host and torch's Adagrad
-starts its accumulator and places eps elsewhere.  A step pre-hook adds
-optax's chain head to each: the learning rate of optax's count (the first
-update uses ``lr(0)``) and ``clip_by_global_norm``.  The count lives in
-the optimizer's parameter groups (``"count"``), so ``state_dict()`` saves
-it and ``load_state_dict()`` restores it: a resumed optimizer goes on with
-the schedule where the saved one stopped.  lamb, lars, adafactor and lion
-are queued in ROADMAP.md and raise.
+starts its accumulator and places eps elsewhere; :class:`Lamb`,
+:class:`Lars`, :class:`Adafactor` and :class:`Lion` are optax's chains
+(``:149-167`` of the JAX module) written out, their trust ratios, block
+rms and factored moments per parameter on the device.  A step pre-hook
+adds optax's chain head to each: the learning rate of optax's count (the
+first update uses ``lr(0)``) and ``clip_by_global_norm``.  The count lives
+in the optimizer's parameter groups (``"count"``), so ``state_dict()``
+saves it and ``load_state_dict()`` restores it: a resumed optimizer goes
+on with the schedule where the saved one stopped.
 
 On the card every update can be captured in a CUDA graph
 (``train.engine.make_multi_train_step``): a schedule's learning rate is
@@ -27,7 +29,10 @@ that the update reads, which the pre-hook fills with ``lr(count)`` before
 an eager update and the host fills with the next k rates before a
 replay (a constant rate stays a Python float: the graph holds it as it
 is); AdamW is ``capturable`` (its step counts on the device), and
-clipping chooses on the device.  Outside an update the groups' ``"lr"``
+clipping chooses on the device; LAMB and Adafactor count their updates on
+the device too (``"step"``, read by the bias corrections and the decay
+rate), and every ``where(norm == 0, ...)`` guard is a device select.
+Outside an update the groups' ``"lr"``
 is the Python float of the last update, as on the CPU, where the rates
 stay floats.  An eager update and a replayed one run the same code.
 
@@ -49,8 +54,6 @@ OPTIMIZERS = ("sgd", "momentum", "adam", "adamw", "lamb", "lars",
 SCHEDULES = ("constant", "cosine", "linear")
 #: Optimizers whose optax builder takes decoupled weight decay.
 _DECAY_CAPABLE = ("adamw", "lamb", "lars", "lion")
-#: Optimizers of the JAX package that the port does not have yet.
-_NOT_PORTED = ("lamb", "lars", "adafactor", "lion")
 
 Schedule = Callable[[int], float]
 
@@ -76,6 +79,19 @@ def _resolve_mask(mask, names, tensors) -> list[bool]:
     return [bool(flags[n]) for n in names]
 
 
+def _decay_groups(params, weight_decay: float, mask) -> list[dict]:
+    """One parameter group, or with a decay ``mask`` two: the masked-out
+    parameters in a group of their own without decay."""
+    names, tensors = _split_named(params)
+    if mask is None:
+        return [{"params": tensors, "weight_decay": weight_decay}]
+    flags = _resolve_mask(mask, names, tensors)
+    return [{"params": [p for p, f in zip(tensors, flags) if f],
+             "weight_decay": weight_decay},
+            {"params": [p for p, f in zip(tensors, flags) if not f],
+             "weight_decay": 0.0}]
+
+
 def adamw(params, learning_rate: float = 3e-4, *, b1: float = 0.9,
           b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 1e-4,
           mask=None) -> torch.optim.Optimizer:
@@ -91,14 +107,8 @@ def adamw(params, learning_rate: float = 3e-4, *, b1: float = 0.9,
     in a group without decay.  On the card it is ``capturable`` (the
     step counts and bias corrections on the device) and reads its
     learning rate from a :class:`RateTable`."""
-    names, tensors = _split_named(params)
-    groups = [{"params": tensors}]
-    if mask is not None:
-        flags = _resolve_mask(mask, names, tensors)
-        groups = [{"params": [p for p, f in zip(tensors, flags) if f]},
-                  {"params": [p for p, f in zip(tensors, flags) if not f],
-                   "weight_decay": 0.0}]
-    cuda = bool(tensors) and tensors[0].is_cuda
+    groups = _decay_groups(params, weight_decay, mask)
+    cuda = _on_cuda(groups)
     opt = torch.optim.AdamW(groups, lr=learning_rate, betas=(b1, b2),
                             eps=eps, weight_decay=weight_decay,
                             capturable=cuda)
@@ -150,6 +160,11 @@ class RateTable:
         copy still queued is never overwritten)."""
         host = torch.tensor(list(rates), dtype=torch.float32).pin_memory()
         self.table[:len(rates)].copy_(host, non_blocking=True)
+
+
+def _on_cuda(groups) -> bool:
+    tensors = [p for g in groups for p in g["params"]]
+    return bool(tensors) and tensors[0].is_cuda
 
 
 def _descend(p: torch.Tensor, update: torch.Tensor, lr) -> None:
@@ -390,6 +405,241 @@ class Adagrad(torch.optim.Optimizer):
                 _descend(p, u, group["lr"])
 
 
+def _count(opt, p: torch.Tensor, group) -> torch.Tensor:
+    """The parameter's update count after this update (optax's
+    ``safe_increment`` of its count), a 0-d fp32 tensor that lives on the
+    device when the optimizer is ``capturable``, so a CUDA graph advances
+    it."""
+    st = opt.state[p]
+    if "step" not in st:
+        st["step"] = torch.zeros((), dtype=torch.float32,
+                                 device=p.device if group["capturable"]
+                                 else "cpu")
+    return st["step"].add_(1)
+
+
+def _power(base: float, count: torch.Tensor) -> torch.Tensor:
+    """``base ** count`` as optax's fp32 power of the fp32 ``base``,
+    rounded once: taken in fp64, since the card's fp32 power is an ulp
+    or two off, which ``1 - b2 ** t`` magnifies a thousandfold."""
+    base32 = float(torch.tensor(base, dtype=torch.float32))
+    return torch.pow(base32, count.double()).float()
+
+
+def _trust_ratio(param: torch.Tensor, update: torch.Tensor,
+                 coefficient: float = 1.0) -> torch.Tensor:
+    """``optax.scale_by_trust_ratio``'s factor: ``coefficient * |param| /
+    |update|``, or 1 where either norm is 0, chosen on the device.  The
+    norms accumulate in fp64: the CPU's fp32 ``vector_norm`` of a
+    23M-element table (BERT's MLM head) is 1.3e-3 off."""
+    p_norm = torch.linalg.vector_norm(param, dtype=torch.float64).float()
+    u_norm = torch.linalg.vector_norm(update, dtype=torch.float64).float()
+    ratio = coefficient * p_norm / u_norm
+    return torch.where((p_norm == 0) | (u_norm == 0),
+                       torch.ones_like(ratio), ratio)
+
+
+class Lamb(torch.optim.Optimizer):
+    """``optax.lamb``: ``scale_by_adam`` (eps 1e-6 outside the root), then
+    ``add_decayed_weights`` (``weight_decay`` of the parameter's group),
+    ``scale_by_trust_ratio`` per parameter and the learning rate.  The
+    moments are AdamW's ``exp_avg``/``exp_avg_sq``; the bias corrections
+    read the update count ``"step"``."""
+
+    def __init__(self, params, lr, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-6, weight_decay: float = 0.0,
+                 capturable: bool = False):
+        super().__init__(params, {"lr": lr, "b1": b1, "b2": b2, "eps": eps,
+                                  "weight_decay": weight_decay,
+                                  "capturable": capturable})
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2, wd = group["b1"], group["b2"], group["weight_decay"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g, st = p.grad, self.state[p]
+                count = _count(self, p, group)
+                if "exp_avg" not in st:
+                    st["exp_avg"] = torch.zeros_like(p)
+                    st["exp_avg_sq"] = torch.zeros_like(p)
+                mu = st["exp_avg"].mul_(b1).add_(g, alpha=1 - b1)
+                nu = st["exp_avg_sq"].mul_(b2).add_(g.square(),
+                                                    alpha=1 - b2)
+                u = (mu / (1 - _power(b1, count))) \
+                    / ((nu / (1 - _power(b2, count))).sqrt() + group["eps"])
+                if wd:
+                    u = u + wd * p
+                _descend(p, u * _trust_ratio(p, u), group["lr"])
+
+
+class Lars(torch.optim.Optimizer):
+    """``optax.lars``: ``add_decayed_weights``, the trust ratio with
+    ``trust_coefficient`` 0.001, the learning rate, then the momentum
+    ``trace`` (torch's ``momentum_buffer``): the trace comes after the
+    learning rate, so a schedule's rate sits inside the buffer and the
+    parameters move by the trace itself."""
+
+    def __init__(self, params, lr, weight_decay: float = 0.0,
+                 momentum: float = 0.9, trust_coefficient: float = 0.001,
+                 capturable: bool = False):
+        super().__init__(params, {"lr": lr, "weight_decay": weight_decay,
+                                  "momentum": momentum,
+                                  "trust_coefficient": trust_coefficient,
+                                  "capturable": capturable})
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            wd = group["weight_decay"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                u, st = p.grad, self.state[p]
+                if wd:
+                    u = u + wd * p
+                u = u * _trust_ratio(p, u, group["trust_coefficient"])
+                if "momentum_buffer" not in st:
+                    st["momentum_buffer"] = torch.zeros_like(p)
+                buf = st["momentum_buffer"].mul_(group["momentum"])
+                p.add_(buf.sub_(u * group["lr"]))
+
+
+def _factored_dims(shape, min_dim_size_to_factor: int = 128):
+    """optax's ``_factored_dims``: the two largest dims ``(d1, d0)`` (d0
+    the largest; of equal sizes the later one) when the second largest has
+    at least ``min_dim_size_to_factor`` entries, else None."""
+    if len(shape) < 2:
+        return None
+    order = sorted(range(len(shape)), key=lambda i: shape[i])
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return order[-2], order[-1]
+
+
+def _inverse(perm) -> list[int]:
+    out = [0] * len(perm)
+    for i, j in enumerate(perm):
+        out[j] = i
+    return out
+
+
+class Adafactor(torch.optim.Optimizer):
+    """``optax.adafactor`` at its defaults: ``scale_by_factored_rms``
+    (decay ``1 - t^-0.8`` at update t, eps 1e-30; a parameter whose two
+    largest dims have >= 128 entries keeps row and column means
+    ``v_row``/``v_col``, any other a full ``v``), ``clip_by_block_rms(1)``,
+    the learning rate, and ``scale_by_param_block_rms`` (the parameter's
+    rms, at least 1e-3).
+
+    optax factors over the flax layout's dims, so ``views`` (name ->
+    ``(perm, shape)``, ``models.convert.flax_views``) gives each named
+    parameter's flax layout, ``p.permute(perm).reshape(shape)``: the
+    moments live in it (the optax state's own shapes, with its (1,)
+    placeholders) and the update is computed there.  A parameter without
+    a view is its own layout."""
+
+    def __init__(self, params, lr, views=None, decay_rate: float = 0.8,
+                 eps: float = 1e-30, min_dim_size_to_factor: int = 128,
+                 clipping_threshold: float = 1.0, min_scale: float = 1e-3,
+                 capturable: bool = False):
+        names, tensors = _split_named(params)
+        super().__init__(tensors, {"lr": lr, "capturable": capturable})
+        self.hyper = {"decay_rate": decay_rate, "eps": eps,
+                      "clipping_threshold": clipping_threshold,
+                      "min_scale": min_scale}
+        views = views or {}
+        self._views = {}
+        for i, p in enumerate(tensors):
+            perm, shape = views.get(names[i] if names else None,
+                                    (tuple(range(p.dim())), tuple(p.shape)))
+            self._views[p] = (tuple(perm), tuple(shape), _factored_dims(
+                shape, min_dim_size_to_factor))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        h = self.hyper
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                perm, shape, dims = self._views[p]
+                st = self.state[p]
+                count = _count(self, p, group)
+                if "v" not in st:
+                    _adafactor_init(p, st, shape, dims)
+                g = p.grad.permute(perm).reshape(shape)
+                decay = 1 - torch.pow(count, -h["decay_rate"])
+                sq = g.square() + h["eps"]
+                if dims is not None:
+                    d1, d0 = dims
+                    v_row = st["v_row"].mul_(decay).add_(
+                        sq.mean(d0) * (1 - decay))
+                    v_col = st["v_col"].mul_(decay).add_(
+                        sq.mean(d1) * (1 - decay))
+                    row = v_row.mean(d1 - 1 if d1 > d0 else d1, keepdim=True)
+                    u = g * torch.pow(v_row / row, -0.5).unsqueeze(d0) \
+                        * torch.pow(v_col, -0.5).unsqueeze(d1)
+                else:
+                    v = st["v"].mul_(decay).add_(sq * (1 - decay))
+                    u = g * torch.pow(v, -0.5)
+                u = u / torch.clamp(u.square().mean().sqrt()
+                                    / h["clipping_threshold"], min=1.0)
+                rms = p.square().mean().sqrt()
+                scale = torch.where(rms <= h["min_scale"],
+                                    torch.full_like(rms, h["min_scale"]),
+                                    rms)
+                u = u.reshape([p.shape[i] for i in perm]).permute(
+                    _inverse(perm))
+                _descend(p, u * scale, group["lr"])
+
+
+def _adafactor_init(p, st, shape, dims) -> None:
+    """optax's initial factored state: zeros, and (1,) placeholders for
+    the moments a parameter does not keep."""
+    def zeros(size):
+        return torch.zeros(size, dtype=p.dtype, device=p.device)
+
+    if dims is None:
+        st["v_row"], st["v_col"], st["v"] = zeros(1), zeros(1), zeros(shape)
+        return
+    d1, d0 = dims
+    st["v_row"] = zeros([n for i, n in enumerate(shape) if i != d0])
+    st["v_col"] = zeros([n for i, n in enumerate(shape) if i != d1])
+    st["v"] = zeros(1)
+
+
+class Lion(torch.optim.Optimizer):
+    """``optax.lion``: the update is the sign of ``(1 - b1) g + b1 mu``,
+    then ``mu`` (``exp_avg``) moves to ``(1 - b2) g + b2 mu``; decoupled
+    decay (the group's ``weight_decay``) and the learning rate follow."""
+
+    def __init__(self, params, lr, b1: float = 0.9, b2: float = 0.99,
+                 weight_decay: float = 0.0, capturable: bool = False):
+        super().__init__(params, {"lr": lr, "b1": b1, "b2": b2,
+                                  "weight_decay": weight_decay,
+                                  "capturable": capturable})
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2, wd = group["b1"], group["b2"], group["weight_decay"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g, st = p.grad, self.state[p]
+                if "exp_avg" not in st:
+                    st["exp_avg"] = torch.zeros_like(p)
+                mu = st["exp_avg"]
+                u = torch.sign(g * (1 - b1) + mu * b1)
+                mu.mul_(b2).add_(g, alpha=1 - b2)
+                if wd:
+                    u = u + wd * p
+                _descend(p, u, group["lr"])
+
+
 def sgd(params, learning_rate: float | Schedule, *,
         momentum: float | None = None, nesterov: bool = False,
         global_clipnorm: float = 0.0) -> torch.optim.Optimizer:
@@ -410,16 +660,65 @@ def adagrad(params, learning_rate: float | Schedule, *,
                           learning_rate, global_clipnorm)
 
 
+def _rate0(learning_rate) -> float:
+    return learning_rate(0) if callable(learning_rate) else learning_rate
+
+
+def lamb(params, learning_rate: float | Schedule, *,
+         weight_decay: float = 0.0, mask=None,
+         global_clipnorm: float = 0.0) -> torch.optim.Optimizer:
+    """``optax.lamb`` (:class:`Lamb`) behind optax's chain head; ``mask``
+    scopes the decay as :func:`adamw`'s does."""
+    groups = _decay_groups(params, weight_decay, mask)
+    opt = Lamb(groups, _rate0(learning_rate), capturable=_on_cuda(groups))
+    return _optax_prelude(opt, learning_rate, global_clipnorm)
+
+
+def lars(params, learning_rate: float | Schedule, *,
+         weight_decay: float = 0.0, momentum: float = 0.9,
+         global_clipnorm: float = 0.0) -> torch.optim.Optimizer:
+    """``optax.lars`` (:class:`Lars`) behind optax's chain head."""
+    groups = _decay_groups(params, weight_decay, None)
+    opt = Lars(groups, _rate0(learning_rate), momentum=momentum,
+               capturable=_on_cuda(groups))
+    return _optax_prelude(opt, learning_rate, global_clipnorm)
+
+
+def adafactor(params, learning_rate: float | Schedule, *, views=None,
+              global_clipnorm: float = 0.0) -> torch.optim.Optimizer:
+    """``optax.adafactor`` (:class:`Adafactor`) behind optax's chain
+    head; ``views`` maps parameter names to their flax layouts."""
+    params = list(params)
+    opt = Adafactor(params, _rate0(learning_rate), views=views,
+                    capturable=_on_cuda([{"params":
+                                          _split_named(params)[1]}]))
+    return _optax_prelude(opt, learning_rate, global_clipnorm)
+
+
+def lion(params, learning_rate: float | Schedule, *,
+         weight_decay: float = 0.0, mask=None,
+         global_clipnorm: float = 0.0) -> torch.optim.Optimizer:
+    """``optax.lion`` (:class:`Lion`, b1 0.9, b2 0.99) behind optax's
+    chain head.  Its decay is the caller's ``weight_decay``
+    (``build_optimizer`` passes it, so optax's default of 1e-3 never
+    applies)."""
+    groups = _decay_groups(params, weight_decay, mask)
+    opt = Lion(groups, _rate0(learning_rate), capturable=_on_cuda(groups))
+    return _optax_prelude(opt, learning_rate, global_clipnorm)
+
+
 def build_optimizer(name: str, lr: float | Schedule, *,
                     weight_decay: float = 0.0, momentum: float = 0.9,
                     global_clipnorm: float = 0.0, decay_mask=None,
-                    ) -> Callable[..., torch.optim.Optimizer]:
+                    views=None) -> Callable[..., torch.optim.Optimizer]:
     """The --optimizer CLI surface: ``params -> optimizer`` for ``name``.
 
     Same validation as the JAX builder: ``weight_decay`` is refused for
     optimizers without decoupled decay, ``global_clipnorm`` must be >= 0
     (0 disables it), ``decay_mask`` (:func:`exclude_bias_and_norm_mask`
-    or a name -> bool dict) is for adamw/lamb/lion."""
+    or a name -> bool dict) is for adamw/lamb/lion.  ``views``: the
+    parameters' flax layouts for adafactor (``models.convert.
+    flax_views``)."""
     if weight_decay and name not in _DECAY_CAPABLE:
         raise ValueError(
             f"optimizer {name!r} has no decoupled weight decay "
@@ -430,9 +729,6 @@ def build_optimizer(name: str, lr: float | Schedule, *,
     if decay_mask is not None and name not in ("adamw", "lamb", "lion"):
         raise ValueError(
             f"decay_mask is supported for adamw/lamb/lion, not {name!r}")
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet (queued in ROADMAP.md)")
     if name not in OPTIMIZERS:
         raise ValueError(
             f"optimizer must be one of {OPTIMIZERS}, got {name!r}")
@@ -445,6 +741,16 @@ def build_optimizer(name: str, lr: float | Schedule, *,
             nesterov = name == "momentum"
             return sgd(params, lr, momentum=momentum if nesterov else None,
                        nesterov=nesterov, global_clipnorm=global_clipnorm)
+        if name in ("lamb", "lion"):
+            return (lamb if name == "lamb" else lion)(
+                params, lr, weight_decay=weight_decay, mask=decay_mask,
+                global_clipnorm=global_clipnorm)
+        if name == "lars":
+            return lars(params, lr, weight_decay=weight_decay,
+                        momentum=momentum, global_clipnorm=global_clipnorm)
+        if name == "adafactor":
+            return adafactor(params, lr, views=views,
+                             global_clipnorm=global_clipnorm)
         opt = adamw(params, lr(0) if callable(lr) else lr,
                     weight_decay=weight_decay, mask=decay_mask)
         return _optax_prelude(opt, lr, global_clipnorm)

@@ -21,6 +21,9 @@ defaults:
   gathered head; ``bert_tiny`` at seq 128 at test size), its packed
   variant, and Wide&Deep (batch 4096, adagrad 0.01;
   ``widedeep_test_config`` at test size).
+- ``bert_moe`` (``:511-563``): BERT-base with eight experts on every
+  second block, routed by expert choice, on ``bert_mlm``'s task, batch,
+  accumulation and optimizer; ``bert_moe_tiny`` at seq 128 at test size.
 - ``imagenet_vit`` (``:303-326``): ViT-S/16 at 224x224, global batch
   1024, AdamW with weight decay 0.05 on a warm-up cosine schedule (peak
   3e-3, 1563 warm-up steps of 93750), top-5 in eval; ``vit_tiny`` at
@@ -34,8 +37,8 @@ defaults:
 The synthetic sources are copies of the JAX package's numpy sources
 with the same seeds, so both packages see identical batches; over a
 data-parallel mesh each rank's source is seeded by ``seed +
-input_pipeline_id``, as each JAX host's is.  The ``bert_moe`` preset
-and the pipeline/sequence/expert-parallel variants are not ported yet.
+input_pipeline_id``, as each JAX host's is.  The pipeline/sequence/
+expert-parallel variants are not ported yet.
 """
 
 from __future__ import annotations
@@ -54,6 +57,12 @@ from .models.bert import (
     max_predictions_for,
     mlm_eval,
     mlm_loss,
+)
+from .models.bert_moe import (
+    BertMoEForMLM,
+    bert_moe_base,
+    bert_moe_tiny,
+    moe_mlm_loss,
 )
 from .models.convert import init_params
 from .models.gpt import (
@@ -105,9 +114,9 @@ from .train.optimizers import (
 
 #: The presets the port has, in the JAX package's order.
 WORKLOADS = ("mnist_lenet", "cifar_resnet20", "imagenet_resnet50",
-             "imagenet_vit", "bert_mlm", "bert_mlm_packed", "widedeep",
-             "gpt_lm", "gpt_medium_lm", "lm_long_context", "gpt_moe",
-             "t5_seq2seq")
+             "imagenet_vit", "bert_mlm", "bert_mlm_packed", "bert_moe",
+             "widedeep", "gpt_lm", "gpt_medium_lm", "lm_long_context",
+             "gpt_moe", "t5_seq2seq")
 
 
 def synthetic_lm(ctx: InputContext, *, vocab_size: int, seq_len: int,
@@ -295,6 +304,24 @@ def _baseline(name: str, *, test_size: bool, global_batch_size: int | None,
             input_fn=lambda ctx, seed: source(
                 ctx, vocab_size=cfg.vocab_size, seq_len=seq, seed=seed),
             accum_steps=4, model_cls=BertForMLM)
+    if name == "bert_moe":
+        cfg = bert_moe_tiny() if test_size else bert_moe_base()
+        seq = seq_len or (128 if test_size else 512)
+        if seq > cfg.max_position:
+            cfg = dataclasses.replace(cfg, max_position=seq)
+        p = max_predictions_for(seq)
+        return Workload(
+            name=name, cfg=cfg, seq_len=seq,
+            global_batch_size=global_batch_size or 256,
+            loss_fn=lambda m, group=None: moe_mlm_loss(
+                m, max_predictions=p, group=group),
+            eval_fn=lambda m, group=None: mlm_eval(m, max_predictions=p,
+                                                   group=group),
+            make_optimizer=lambda params: adamw(params, 1e-4,
+                                                weight_decay=0.01),
+            input_fn=lambda ctx, seed: synthetic_mlm(
+                ctx, vocab_size=cfg.vocab_size, seq_len=seq, seed=seed),
+            accum_steps=4, model_cls=BertMoEForMLM, model_takes_group=True)
     cfg = widedeep_test_config() if test_size else WideDeepConfig()
     return Workload(
         name=name, cfg=cfg, seq_len=None,

@@ -149,26 +149,29 @@ def test_local_moe_grads_match_jax(case):
 
 def test_bf16_tokens_keep_their_dtype_and_unknown_routers_raise():
     """bf16 tokens go through the experts in bf16 and come back in bf16
-    (the copies into the slots are exact); the router the port does not
-    have raises."""
-    router, cf, tokens, kernel, params, _ = _case("top2", seed=5)
+    (the copies into the slots are exact), under top-2 and expert choice;
+    a router neither package has raises."""
+    _, cf, tokens, kernel, params, _ = _case("top2", seed=5)
     tb = torch.from_numpy(tokens).to(torch.bfloat16)
     p = {k: torch.from_numpy(v) for k, v in params.items()}
-    out, _ = tmoe.local_moe(tb, torch.from_numpy(kernel), p, _expert_mlp,
-                            capacity_factor=cf, router=router)
-    assert out.dtype == torch.bfloat16
-    ref, _ = tmoe.local_moe(tb.float(), torch.from_numpy(kernel), p,
-                            lambda q, x: _expert_mlp(q, x.bfloat16()).float(),
-                            capacity_factor=cf, router=router)
-    assert torch.equal(out, ref.to(torch.bfloat16))
+    for router in ("top2", "expert_choice"):
+        out, _ = tmoe.local_moe(tb, torch.from_numpy(kernel), p, _expert_mlp,
+                                capacity_factor=cf, router=router)
+        assert out.dtype == torch.bfloat16
+        ref, _ = tmoe.local_moe(
+            tb.float(), torch.from_numpy(kernel), p,
+            lambda q, x: _expert_mlp(q, x.bfloat16()).float(),
+            capacity_factor=cf, router=router)
+        assert torch.equal(out, ref.to(torch.bfloat16))
     with pytest.raises(ValueError, match="unknown router"):
         tmoe.local_moe(tb, torch.from_numpy(kernel), p, _expert_mlp,
-                       router="expert_choice")
+                       router="hash")
 
 
 @pytest.mark.parametrize("tokens,cf,router,want", [
     (16384, 1.25, "top2", 5120), (16384, 1.25, "top1", 2560),
-    (1024, 1.25, "top2", 320), (3, 0.5, "top2", 1)])
+    (1024, 1.25, "top2", 320), (3, 0.5, "top2", 1),
+    (32768, 1.25, "expert_choice", 5120)])
 def test_capacity_is_jaxs(tokens, cf, router, want):
     """``max(1, int(T * cf * assignments / E))`` with E 8, as
     ``local_moe`` sizes it (``parallel/moe.py:367``)."""

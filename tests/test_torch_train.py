@@ -312,8 +312,56 @@ def test_get_workload_matches_jax(case):
         assert getattr(tcfg, field) == getattr(jcfg, field), field
     assert pw.global_batch_size == jw.global_batch_size
     assert pw.seq_len == jw.init_batch["input_ids"].shape[1]
-    with pytest.raises(ValueError, match="not ported"):
-        tw.get_workload("bert_moe")
+    _check_bert_moe_preset(test_size=case.endswith("test_size"))
+
+
+def _check_bert_moe_preset(test_size):
+    """The port's ``bert_moe`` preset field by field against JAX's: the
+    model config, seq, global batch, accumulation, the first input batch,
+    and one update of its optimizer (AdamW 1e-4, decay 0.01) against
+    optax's."""
+    jw = jax_workloads.get_workload("bert_moe", test_size=test_size)
+    pw = tw.get_workload("bert_moe", test_size=test_size)
+    jcfg, tcfg = jw.model.cfg, pw.cfg
+    for field in ("vocab_size", "hidden_size", "num_layers", "num_heads",
+                  "intermediate_size", "max_position", "dropout_rate",
+                  "n_experts", "capacity_factor", "router", "moe_every"):
+        assert getattr(tcfg, field) == getattr(jcfg, field), field
+    assert str(tcfg.dtype).removeprefix("torch.") == jnp.dtype(
+        jcfg.dtype).name
+    assert pw.global_batch_size == jw.global_batch_size == 256
+    assert pw.accum_steps == jw.accum_steps == 4
+    assert pw.seq_len == jw.init_batch["input_ids"].shape[1]
+    assert pw.model_takes_group
+    jb = next(jw.input_fn(JaxInputContext(global_batch_size=2), 5))
+    tb = next(pw.input_fn(InputContext(global_batch_size=2), 5))
+    assert jb.keys() == tb.keys()
+    for k in jb:
+        np.testing.assert_array_equal(jb[k], tb[k])
+    w = np.linspace(-1.0, 1.0, 12, dtype=np.float32).reshape(3, 4)
+    g = np.cos(w * 7.0)
+    tx = jw.make_optimizer()
+    upd, _ = tx.update(jnp.asarray(g), tx.init(jnp.asarray(w)),
+                       jnp.asarray(w))
+    p = torch.nn.Parameter(torch.tensor(w))
+    opt = pw.make_optimizer([("w", p)])
+    p.grad = torch.tensor(g)
+    opt.step()
+    np.testing.assert_allclose(p.detach().numpy(), w + np.asarray(upd),
+                               rtol=0, atol=1e-7)
+
+
+def test_default_workload_is_train_py_s():
+    """``train_torch.py`` without ``--workload`` trains train.py's default
+    preset (read from train.py's source, which is not imported)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(train_torch.__file__).parent / "train.py").read_text()
+    default = re.search(r'add_argument\(\s*"--workload",\s*default="(\w+)"',
+                        src).group(1)
+    assert default == "mnist_lenet"
+    assert train_torch.parse_args([]).workload == default
 
 
 #: (dtype, accum_steps, relative tolerance of the losses).  fp32 isolates
@@ -595,8 +643,15 @@ def test_build_optimizer_validation_and_queued_optimizers():
         tt.build_optimizer("sgd", 0.1,
                            decay_mask=tt.exclude_bias_and_norm_mask)
     for name in ("lamb", "lars", "adafactor", "lion"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tt.build_optimizer(name, 0.1)
+        # each builds and steps (tests/test_torch_optimizers2.py holds them
+        # to optax)
+        p = torch.nn.Parameter(torch.ones(3, 4))
+        opt = tt.build_optimizer(name, 0.1)([("w", p)])
+        p.grad = torch.full_like(p, 0.5)
+        opt.step()
+        assert opt.param_groups[0]["count"] == 1
+        assert torch.isfinite(p).all() and not torch.equal(
+            p, torch.ones(3, 4))
     with pytest.raises(ValueError, match="optimizer must be one of"):
         tt.build_optimizer("rmsprop", 0.1)
     model = tm.GPTLM(tm.gpt_tiny(), device="cpu")
@@ -638,7 +693,8 @@ def test_train_torch_logdir_passes_the_metrics_schema(tmp_path, capsys):
                         (["--optimizer", "sgd"], "--optimizer requires --lr"),
                         (["--optimizer", "sgd", "--lr", "0.1",
                           "--weight-decay", "0.1"], "no decoupled"),
-                        (["--optimizer", "lion", "--lr", "0.1"], "ROADMAP"),
+                        (["--optimizer", "adafactor", "--lr", "0.1",
+                          "--weight-decay", "0.1"], "no decoupled"),
                         (["--schedule", "cosine"], "require --optimizer")):
         with pytest.raises(SystemExit, match=match):
             train_torch.main(["--test-size", "--device", "cpu", "--steps",

@@ -5,8 +5,9 @@ The twin of ``train.py`` for the presets the port has, on one device or
 data-parallel over ranks (``--mesh data=N``, one process per device): the
 GPT language models ``gpt_lm``, ``gpt_medium_lm``,
 ``lm_long_context`` and ``gpt_moe``, the BASELINE.json workloads
-``mnist_lenet``, ``cifar_resnet20``, ``imagenet_resnet50``, ``bert_mlm``,
-``bert_mlm_packed`` and ``widedeep``, the ViT-S/16 classifier
+``mnist_lenet`` (the default), ``cifar_resnet20``, ``imagenet_resnet50``,
+``bert_mlm``, ``bert_mlm_packed`` and ``widedeep``, the BERT-MoE encoder
+``bert_moe`` (expert-choice routing), the ViT-S/16 classifier
 ``imagenet_vit`` and the encoder-decoder ``t5_seq2seq`` (``--seq-len``
 and ``--kv-heads`` as in ``train.py``).  Synthetic batches, the preset's
 optimizer or the one that ``--optimizer/--lr/--schedule/--warmup-steps/
@@ -90,6 +91,22 @@ arithmetic (``utils.enable_determinism``)::
         --steps 4 --checkpoint-dir /tmp/ck --checkpoint-every 2
     python train_torch.py --workload gpt_lm --test-size --device cpu \
         --steps 8 --checkpoint-dir /tmp/ck --checkpoint-every 2
+
+Record files (``train.py``'s flags): ``--data-dir`` trains from the record
+files there (``*.tfrecord``, ``*.rio``, ``*.rec``, written by
+``data.write_record_shards`` of either package) in place of the preset's
+synthetic batches, endlessly, each epoch reshuffled (``--shuffle-buffer``,
+0 = off); over ranks each rank is one input pipeline and ``--autoshard``
+splits the files (FILE), the records (DATA) or nothing (OFF; AUTO = FILE
+when the file count divides evenly).  Eval then runs one unshuffled pass
+over ``--eval-data-dir`` (default ``--data-dir``), the last batch weighted
+by its rows.  ``--config`` takes a JSON file of flag defaults (flags typed
+on the command line win) or a preset name::
+
+    python train_torch.py --workload imagenet_resnet50 --test-size \
+        --device cpu --steps 4 --batch-size 8 --data-dir /data/train \
+        --eval-data-dir /data/val --eval-every 4
+    python train_torch.py --config run.json --device cpu
 """
 
 from __future__ import annotations
@@ -116,6 +133,7 @@ from distributedtensorflow_tpu_torch.data import (
     skip_batches,
 )
 from distributedtensorflow_tpu_torch.device import resolve_device
+from distributedtensorflow_tpu_torch.models import flax_views
 from distributedtensorflow_tpu_torch.parallel import bootstrap
 from distributedtensorflow_tpu_torch.parallel.mesh import (
     MeshSpec,
@@ -149,9 +167,70 @@ _REMAT = {"on": True, "off": False, "attn": "attn", None: None}
 EVAL_STEPS = 10
 
 
+def apply_config_file(p: argparse.ArgumentParser, args: argparse.Namespace,
+                      argv: list[str]) -> argparse.Namespace:
+    """``--config FILE`` (``train.py``'s ``apply_config_file``): the JSON
+    file's keys are flag defaults, a flag typed on the command line wins
+    (even at its default value), values go through the flag's type, and a
+    key that names no flag is an error."""
+    explicit = {action.dest for action in p._actions
+                for opt in action.option_strings
+                if any(a == opt or a.startswith(opt + "=") for a in argv)}
+    by_dest = {a.dest: a for a in p._actions}
+    with open(args.config) as f:
+        cfg = json.load(f)
+    for k, v in cfg.items():
+        key = k.replace("-", "_")
+        action = by_dest.get(key)
+        if action is None:
+            raise SystemExit(f"config file key {k!r} is not a known flag")
+        if key in explicit:
+            continue  # the command line wins
+        if action.type is not None and v is not None:
+            try:
+                v = action.type(v)
+            except (TypeError, ValueError) as e:
+                raise SystemExit(
+                    f"config file key {k!r}: invalid value {v!r} ({e})")
+        elif isinstance(action.const, bool):  # store_true/false flags
+            v = bool(v)
+        setattr(args, key, v)
+    return args
+
+
+def record_files(data_dir) -> list[str]:
+    """The record files under ``data_dir`` (``train.py:83-92``)."""
+    import glob
+
+    files = sorted(f for pat in ("*.tfrecord", "*.rio", "*.rec")
+                   for f in glob.glob(os.path.join(data_dir, pat)))
+    if not files:
+        raise SystemExit(f"{data_dir}: no record files")
+    return files
+
+
+def shardable_batches(it, mesh=None):
+    """A ragged final batch truncated to a multiple of the replicas, and
+    an empty one dropped (``train.py:93-110``); the eval weights each
+    batch by its rows."""
+    shard_div = 1 if mesh is None else replica_count(mesh)
+    for batch in it:
+        n = len(next(iter(batch.values())))
+        keep = n - n % shard_div
+        if keep == 0:
+            continue
+        yield batch if keep == n else {k: v[:keep] for k, v in batch.items()}
+
+
 def parse_args(argv=None) -> argparse.Namespace:
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--workload", default="gpt_lm", choices=WORKLOADS)
+    # allow_abbrev=False: apply_config_file finds the typed flags by their
+    # option strings, which an abbreviation would dodge
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0],
+                                allow_abbrev=False)
+    p.add_argument("--config", default=None,
+                   help="a JSON file of flag defaults (flags on the command "
+                        "line win), or a workload preset name")
+    p.add_argument("--workload", default="mnist_lenet", choices=WORKLOADS)
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--batch-size", type=int, default=None,
                    help="global batch size (default: workload preset)")
@@ -305,7 +384,29 @@ def parse_args(argv=None) -> argparse.Namespace:
                    default="nccl",
                    help="process-group backend over a mesh: nccl on the "
                         "cards, gloo where asked for (the CPU)")
-    return p.parse_args(argv)
+    p.add_argument("--data-dir", default=None, metavar="DIR",
+                   help="train from record files (*.tfrecord/*.rio/*.rec, "
+                        "written by data.write_record_shards) instead of the "
+                        "workload's synthetic input; keys must match the "
+                        "workload's batch keys")
+    p.add_argument("--eval-data-dir", default=None, metavar="DIR",
+                   help="record files for eval; defaults to --data-dir "
+                        "(use a held-out split for honest numbers)")
+    p.add_argument("--autoshard", choices=("AUTO", "FILE", "DATA", "OFF"),
+                   default="AUTO",
+                   help="per-rank input sharding policy for --data-dir")
+    p.add_argument("--shuffle-buffer", type=int, default=4096,
+                   help="record shuffle buffer for --data-dir (0 = off)")
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = p.parse_args(argv)
+    if args.config:
+        if os.path.exists(args.config):
+            args = apply_config_file(p, args, argv)
+        elif args.config in WORKLOADS:  # --config <preset name>
+            args.workload = args.config
+        else:
+            p.error(f"--config {args.config!r}: no such file or preset")
+    return args
 
 
 def apply_optimizer_flags(wl, args):
@@ -336,8 +437,8 @@ def apply_optimizer_flags(wl, args):
         make = build_optimizer(args.optimizer, lr,
                                weight_decay=args.weight_decay,
                                global_clipnorm=args.clipnorm,
-                               decay_mask=mask)
-    except (ValueError, NotImplementedError) as e:
+                               decay_mask=mask, views=flax_views(wl.cfg))
+    except ValueError as e:
         raise SystemExit(str(e)) from None
     return dataclasses.replace(wl, make_optimizer=make)
 
@@ -428,13 +529,40 @@ def build(args: argparse.Namespace, checkpointer=None):
         wl.loss_fn(model, **group), steps_per_call=args.steps_per_call,
         accum_steps=accum, seed=args.seed, mesh=mesh)
     ctx = current_input_context(wl.global_batch_size, mesh)
-    source = wl.input_fn(ctx, args.seed)
+    source = record_source(args, ctx) if args.data_dir \
+        else wl.input_fn(ctx, args.seed)
     if state.step:
         logger.info("fast-forwarding input %d batches", state.step)
         source = skip_batches(source, state.step)
     batches = device_iter(args, source, device, mesh, accum,
                           bundle=args.steps_per_call)
     return wl, state, step, batches
+
+
+def record_source(args, ctx):
+    """Endless batches of this rank's share of the ``--data-dir`` records,
+    each epoch reshuffled with ``seed + epoch`` (``train.py:1272-1283``)."""
+    from distributedtensorflow_tpu_torch.data import repeated_record_dataset
+
+    files = record_files(args.data_dir)
+    logger.info("reading %d record files (%s sharding)", len(files),
+                args.autoshard)
+    return repeated_record_dataset(
+        files, ctx, batch_size=ctx.per_host_batch_size,
+        policy=args.autoshard, shuffle_buffer=args.shuffle_buffer,
+        seed=args.seed,
+        on_epoch=lambda e: logger.info("input epoch %d complete", e))
+
+
+def record_eval_source(args, ctx, mesh=None):
+    """One finite, unshuffled pass over the eval records, its ragged last
+    batch kept (``train.py:1612-1615``)."""
+    from distributedtensorflow_tpu_torch.data import record_dataset
+
+    files = record_files(args.eval_data_dir or args.data_dir)
+    return shardable_batches(record_dataset(
+        files, ctx, batch_size=ctx.per_host_batch_size,
+        policy=args.autoshard, shuffle_buffer=0, drop_remainder=False), mesh)
 
 
 def flops_per_token(model, cfg, seq) -> tuple[float, str]:
@@ -563,17 +691,24 @@ def _train(args) -> list[dict]:
     group = {"group": mesh} if mesh is not None else {}
     eval_step = make_eval_step(wl.eval_fn(state.model, **group), mesh)
     eval_ctx = current_input_context(wl.global_batch_size, mesh)
-    # the eval stream (seed + 999, as train.py draws it): each rank reads
-    # its share of every global eval batch
-    eval_iter_fn = (lambda: device_iter(
-        args, wl.input_fn(eval_ctx, args.seed + 999), state.model.device)) \
+    # the eval stream (seed + 999, as train.py draws it, or one pass over
+    # the eval records): each rank reads its share of every global batch
+    records = bool(args.eval_data_dir or args.data_dir)
+
+    def eval_source():
+        if records:
+            return record_eval_source(args, eval_ctx, mesh)
+        return wl.input_fn(eval_ctx, args.seed + 999)
+
+    eval_iter_fn = (lambda: device_iter(args, eval_source(),
+                                        state.model.device)) \
         if args.eval_every else None
     # SIGTERM (a preemption notice) -> a save at the next step boundary on
     # every rank, then a clean stop; the rerun resumes from that step
     preemption = PreemptionHandler(checkpointer) if checkpointer else None
     config = TrainerConfig(
         total_steps=args.steps, log_every=args.log_every,
-        eval_every=args.eval_every, eval_steps=EVAL_STEPS,
+        eval_every=args.eval_every, eval_steps=0 if records else EVAL_STEPS,
         checkpoint_every=args.checkpoint_every,
         steps_per_call=args.steps_per_call,
         input_prebundled=args.steps_per_call > 1,
