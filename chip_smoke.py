@@ -203,7 +203,7 @@ Phases, each fatal on failure:
     to localhost.  First verify_window: the speculative verify pass's
     logits against one-token steps on the same pool (bf16, a window of
     5, within 1e-4; JAX's batched form beside it for the record).  Then
-    16 greedy requests of 5-600 prompt tokens and 64 new tokens (8 share
+    16 greedy requests of 5-600 prompt tokens and 32 new tokens (8 share
     a 256-token header, 4 periodic, one streamed, two tenants) in four
     modes, (a) the defaults, (b) ``--prefix-cache --prefill-budget 64``
     with ``--kv-blocks`` at half of full provisioning, (c)
@@ -247,11 +247,38 @@ Phases, each fatal on failure:
     one ``--config`` JSON run of mnist_lenet.  (The build phase compiles
     the record library from ``native/src`` with g++.)
 
+23. planes: the operations planes.  gpt_lm at full width (B 8, S 2048,
+    bf16, fused head, K3f) through ``train_torch.main`` for 8 steps with
+    ``--dynamics-every 2``, ``--status-port 0``, ``--fleet``, the example
+    SLO and alert rules and a ``--logdir``, at ``--steps-per-call`` 1 and
+    4: dynamics rows on steps 2, 4, 6, 8, equal at k = 4 and k = 1;
+    ``/dynamicz``, ``/fleetz``, ``/sloz``, ``/alertz``, ``/histz`` and
+    ``/healthz?deep=1`` answer mid-run; the logdirs pass
+    ``tools/check_metrics_schema.py``, ``run_report.py`` and
+    ``doctor.py``.  Step 2's stats against a plain fp64 recomputation
+    from a snapshot of the parameters on the card and the plain gradients
+    of its batch (relative error printed, bound 1e-4); a step off the
+    cadence launches the port's kernels as a step on it and the device's
+    kernels as a step without dynamics (torch.profiler).  The median step
+    ms without dynamics and off and on the cadence at k = 1 and 4, with
+    peak memory.  NaN provenance: a NaN into block 5's MLP weight at a
+    step boundary (the JAX package's chaos drill), the pass names ``h5``
+    by its activation taps and every later module counts the NaN through
+    K1f and K2; its ms, host syncs and launches.  ``serve_torch`` over
+    HTTP on GPT-2-small, the serve_cli mix at mode (a) in bf16, with the
+    planes off and then on (history 0.5 s, the SLO rules, a TTFT rule
+    set to fire, ``--alert-webhook`` at a loopback receiver): tokens/s
+    and TPOT of each run; with the planes on the webhook gets the firing,
+    ``/histz``, ``/sloz``, ``/alertz`` and ``/usagez`` answer,
+    ``history.jsonl`` holds the tenants' pinned usage series and the
+    logs pass the schema checker.
+
 Kernel launch counts are set to 0 just before phases 5, 6 (each generate
 run), 9-11, 13, 14 (each path; in each rank's process), 15's resumed
 steps, 16's run through ``train_torch.main``, 17's runs, 18's training
-steps and decoding, each server run of 19, 20's steps and each of 21's
-optimizer runs, and read just after (a
+steps and decoding, each server run of 19, 20's steps, each of 21's
+optimizer runs, 23's two ``train_torch.main`` runs and its serving runs,
+and read just after (a
 replayed graph counts what its capture counted); a kernel of the path
 that did not launch, or a gpt_lm, gpt_moe or BERT training step that
 launched a kernel another number of times than its forward,
@@ -1797,7 +1824,7 @@ SERVE_CLI_MODES = (
     ("d_speculate", ("--fused-sampling", "--speculate", "4")),
 )
 SERVE_CLI_CONTEXT = 2048
-SERVE_CLI_NEW_TOKENS = 64
+SERVE_CLI_NEW_TOKENS = 32
 #: Prompt lengths are divided by this (1 on the card; a CPU rehearsal
 #: cuts it together with the config).
 SERVE_CLI_SCALE = 1
@@ -3346,7 +3373,7 @@ def run_ckpt(torch, cuda, train_torch, smi, device="cuda"):
 TRAINER_STEPS, TRAINER_LOG, TRAINER_EVAL = 12, 2, 6
 TRAINER_PROFILE = (3, 2)
 TRAINER_PROBE_STEP = 8
-AB_ROUNDS, AB_STEPS, AB_LOG = 2, 20, 10
+AB_ROUNDS, AB_STEPS, AB_LOG = 1, 20, 10
 GATE_ARGS = ("--eval-every", "50", "--target-metric", "accuracy",
              "--target-value", "0.97", "--steps", "2000", "--log-every",
              "50")
@@ -4920,9 +4947,541 @@ def run_records(torch, train_torch, device="cuda"):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+PLANES_STEPS = 8          # optimizer steps of each train_torch.main run
+PLANES_EVERY = 2          # --dynamics-every of those runs
+PLANES_PATHS = ("/dynamicz", "/fleetz", "/sloz", "/alertz", "/histz",
+                "/healthz?deep=1")
+PLANES_PROBE_STEP = 4
+#: The first row against the plain recomputation from the snapshot, and
+#: the k = 1 build's row against the main run's: relative error bound.
+PLANES_TOL = 1e-4
+#: (dynamics_every, steps_per_call, timed calls): the cost of dynamics
+#: on a step, off and on the cadence (at k = 4 every 8 alternates calls
+#: holding a cadence step with calls that hold none).
+PLANES_TIMING = ((0, 1, 12), (2, 1, 12), (0, 4, 6), (8, 4, 6))
+PLANES_POISON_LAYER = 5   # the block whose MLP weight the NaN goes into
+#: serve_torch runs of the mix at mode (a), planes off and on.
+PLANES_SERVE_RUNS = ("off", "on")
+PLANES_SERVE_INTERVAL = "0.5"
+#: A TTFT rule set low on purpose, so that it fires during the mix.
+PLANES_FIRE_RULES = {"alerts": [{
+    "name": "ttft_high", "kind": "threshold", "severity": "warn",
+    "metric": "serve_ttft_seconds_avg", "op": "gt", "bound": 1e-3,
+    "agg": "last", "window_s": 60, "cooldown_s": 600}]}
+
+
+def _rel_errs(got: dict, want: dict) -> dict:
+    """|got - want| / max(|want|, 1e-12) by key of ``want``."""
+    return {k: abs(float(got[k]) - float(v)) / max(abs(float(v)), 1e-12)
+            for k, v in want.items()}
+
+
+def _schema(paths) -> tuple[int, str]:
+    """``tools/check_metrics_schema.py`` on ``paths``, as a subprocess:
+    its exit code and the end of its output."""
+    run = subprocess.run([sys.executable, "tools/check_metrics_schema.py",
+                          *paths], capture_output=True, text=True,
+                         timeout=120)
+    return run.returncode, (run.stdout + run.stderr)[-2000:]
+
+
+def _planes_main(torch, cuda, train_torch, train_lib, logdir, k, device):
+    """gpt_lm through ``train_torch.main`` with the dynamics cadence, the
+    status server, the fleet, the SLO and alert rules; a Callback GETs
+    PLANES_PATHS at PLANES_PROBE_STEP.  Launch counts set to 0 just
+    before, read just after.  ``(records, launches, answers, seconds)``."""
+
+    class Probe(train_lib.Callback):
+        answers = {}
+
+        def on_step_end(self, trainer, step, state, metrics):
+            if step == PLANES_PROBE_STEP:
+                for path in PLANES_PATHS:
+                    self.answers[path] = _http(
+                        trainer.status_server.port, path, timeout=60)[0]
+
+    probe = Probe()
+    argv = _trainer_argv(device) + [
+        "--steps", str(PLANES_STEPS), "--log-every", "2",
+        "--dynamics-every", str(PLANES_EVERY), "--steps-per-call", str(k),
+        "--status-port", "0", "--fleet", "--fleet-interval", "0.5",
+        "--slo-rules", "examples/slo_rules.json", "--slo-interval", "0.5",
+        "--alert-rules", "examples/alert_rules.json", "--alert-interval",
+        "0.5", "--logdir", logdir]
+    sync(torch, torch.device(device))
+    cuda.launches.clear()
+    t0 = time.time()
+    with _extra_callbacks(train_torch, probe):
+        records = train_torch.main(argv)
+    sync(torch, torch.device(device))
+    return records, dict(cuda.launches), dict(probe.answers), \
+        time.time() - t0
+
+
+def _planes_build(train_torch, device, every, k):
+    """``train_torch.build`` of the planes' gpt_lm at ``every`` and k
+    (batches copied in the caller's thread)."""
+    return train_torch.build(train_torch.parse_args(
+        _trainer_argv(device) + ["--dynamics-every", str(every),
+                                 "--steps-per-call", str(k),
+                                 "--prefetch-depth", "0"]))
+
+
+def _plain_stats(torch, modules, old, new, grads):
+    """The dynamics stats of one step recomputed plainly in fp64 from the
+    parameters before (``old``) and after (``new``) and the gradients,
+    keyed as the step keys them."""
+    from distributedtensorflow_tpu_torch.obs import dynamics as dyn
+
+    out, global_sq = {}, 0.0
+    for name, members in dyn._groups(list(old), modules):
+        def sq(ts):
+            return sum(float(t.double().square().sum()) for t in ts)
+
+        gsq = sq(grads[n] for n in members)
+        pnorm = math.sqrt(sq(old[n] for n in members))
+        unorm = math.sqrt(sq(new[n].detach().double() - old[n].double()
+                             for n in members))
+        out[f"dynamics/grad_norm/{name}"] = math.sqrt(gsq)
+        out[f"dynamics/param_norm/{name}"] = pnorm
+        out[f"dynamics/update_ratio/{name}"] = unorm / (pnorm + 1e-12)
+        out[f"dynamics/nonfinite/{name}"] = float(sum(
+            int((~torch.isfinite(grads[n])).sum()) for n in members))
+        global_sq += gsq
+    out["dynamics/global_grad_norm"] = math.sqrt(global_sq)
+    return out
+
+
+def _count_kernels(torch, fn) -> tuple[int, float]:
+    """``fn()`` under torch.profiler: its device kernels and copies, and
+    their summed device ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = device_events(torch, prof)
+    return (sum(e.count for e in events),
+            sum(e.self_device_time_total for e in events) / 1e3)
+
+
+def _planes_recompute(torch, cuda, train_torch, train_lib, mods, device,
+                      main_row):
+    """Two steps of gpt_lm at ``--dynamics-every 2``: the first off the
+    cadence, the second on it.  A snapshot of the parameters on the card
+    after step 1 and the plain gradients of step 2's batch give the plain
+    stats of step 2 (:func:`_plain_stats`), held against the step's own
+    and against the main run's first row.  Each step's launches of the
+    port's kernels; on the card also each step's device kernel count
+    against a step without dynamics (torch.profiler)."""
+    from distributedtensorflow_tpu_torch.obs import dynamics as dyn
+
+    dev = torch.device(device)
+    wl, state, step, batches = _planes_build(train_torch, device, 2, 1)
+    cuda_dev = dev.type == "cuda"
+    launches, kernels = {}, {}
+    b1 = next(batches)
+    sync(torch, dev)
+    cuda.launches.clear()
+    state, _ = step(state, b1)
+    sync(torch, dev)
+    launches["off"] = dict(cuda.launches)
+    old = {n: p.detach().float().clone()
+           for n, p in state.model.named_parameters()}
+    b2 = next(batches)
+    grads, _ = train_lib.accumulate_gradients(
+        wl.loss_fn(state.model), state.model, b2, seed=SEED, step=1,
+        accum_steps=wl.accum_steps)
+    sync(torch, dev)
+    cuda.launches.clear()
+    state, m2 = step(state, b2)
+    sync(torch, dev)
+    launches["on"] = dict(cuda.launches)
+    got = {k: float(v) for k, v in m2.items() if k.startswith("dynamics/")}
+    new = dict(state.model.named_parameters())
+    plain = _plain_stats(torch, mods.flax_modules(wl.cfg), old, new, grads)
+    err_plain = max(_rel_errs(got, plain).values())
+    main = {f"dynamics/{stat}/{mod}": v
+            for mod, stats in main_row["modules"].items()
+            for stat, v in stats.items()
+            if stat in ("grad_norm", "param_norm", "update_ratio")}
+    main["dynamics/global_grad_norm"] = main_row["global_grad_norm"]
+    err_main = max(_rel_errs(got, main).values())
+    del old, grads
+    if cuda_dev:
+        # steps 3 and 4: off the cadence, then on it
+        assert not dyn.on_cadence(state.step, 2) \
+            and dyn.on_cadence(state.step + 1, 2)
+        for key in ("off", "on"):
+            kernels[key] = _count_kernels(
+                torch, lambda: step(state, next(batches)))
+        _, base_state, base_step, base_batches = _planes_build(
+            train_torch, device, 0, 1)
+        base_step(base_state, next(base_batches))
+        kernels["none"] = _count_kernels(
+            torch, lambda: base_step(base_state, next(base_batches)))
+        del base_state, base_step, base_batches
+    row = {"phase": "planes_recompute", "rows": sorted(got),
+           "max_rel_err_vs_plain": err_plain,
+           "max_rel_err_vs_main_run": err_main, "tolerance": PLANES_TOL,
+           "launches_off_cadence": launches["off"],
+           "launches_on_cadence": launches["on"],
+           "device_kernels": {k: v[0] for k, v in kernels.items()},
+           "device_ms": {k: v[1] for k, v in kernels.items()}}
+    emit(row)
+    problems = []
+    if err_plain > PLANES_TOL or err_main > PLANES_TOL:
+        problems.append("the first row is off the plain recomputation")
+    if cuda_dev:
+        for key in ("off", "on"):
+            _check_launches(f"planes_{key}", launches[key], 1,
+                            TRAIN_LAUNCHES_PER_STEP)
+        if kernels["off"][0] != kernels["none"][0]:
+            problems.append(f"an off-cadence step ran {kernels['off'][0]} "
+                            f"device kernels, a step without dynamics "
+                            f"{kernels['none'][0]}")
+    if problems:
+        raise AssertionError(f"planes_recompute: {problems}")
+    del wl, state, step, batches
+    gc.collect()
+    empty_cache(torch, dev)
+    return launches
+
+
+def _planes_timing(torch, train_torch, device):
+    """The median step ms at each PLANES_TIMING configuration, steps on
+    and off the cadence apart (a call of k steps is on it when it holds a
+    cadence step; its ms is divided by k), and the peak memory."""
+    from distributedtensorflow_tpu_torch.obs import dynamics as dyn
+
+    dev = torch.device(device)
+    rows = []
+    for every, k, calls in PLANES_TIMING:
+        _, state, step, batches = _planes_build(train_torch, device, every,
+                                                k)
+        for _ in range(3 if k > 1 else 1):  # the eager call, the captures
+            state, m = step(state, next(batches))
+        sync(torch, dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        ms = {"on": [], "off": []}
+        for _ in range(calls):
+            batch = next(batches)
+            on = any(dyn.on_cadence(state.step + i, every)
+                     for i in range(k))
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            float(m["loss"][-1] if k > 1 else m["loss"])
+            ms["on" if on else "off"].append(
+                1e3 * (time.perf_counter() - t0) / k)
+        rows.append({
+            "dynamics_every": every, "steps_per_call": k,
+            "step_ms_off_cadence": (statistics.median(ms["off"])
+                                    if ms["off"] else None),
+            "step_ms_on_cadence": (statistics.median(ms["on"])
+                                   if ms["on"] else None),
+            "calls": {key: len(v) for key, v in ms.items()},
+            "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                         if dev.type == "cuda" else None)})
+        del state, step, batches
+        gc.collect()
+        empty_cache(torch, dev)
+    base = {r["steps_per_call"]: r["step_ms_off_cadence"] for r in rows
+            if not r["dynamics_every"]}
+    for r in rows:
+        if r["dynamics_every"] and r["step_ms_on_cadence"] is not None:
+            k = r["steps_per_call"]
+            # a cadence call's extra, on its one cadence step
+            r["cadence_extra_ms"] = k * (r["step_ms_on_cadence"]
+                                         - r["step_ms_off_cadence"])
+            r["off_cadence_vs_none_ms"] = (r["step_ms_off_cadence"]
+                                           - base[k])
+    emit({"phase": "planes_cost", "rows": rows})
+    return rows
+
+
+def _planes_provenance(torch, cuda, train_torch, mods, device, logdir):
+    """NaN provenance at full width, as the JAX package's chaos drill
+    runs it (``resilience/chaos.py`` ``nan_loss`` with a module): two
+    steps under a DynamicsMonitor, then a NaN into block
+    PLANES_POISON_LAYER's MLP weight in the live state at the step
+    boundary, then the pass that a non-finite loss at that boundary
+    runs.  It must name the block by its activation taps, and every
+    module after it (each through K1f and K2) must count the NaN.  The
+    pass's wall ms, its host syncs (``torch.cuda.set_sync_debug_mode``
+    warnings) and its launches of the port's kernels."""
+    import warnings
+
+    from distributedtensorflow_tpu_torch import obs
+
+    dev = torch.device(device)
+    wl, state, step, batches = _planes_build(train_torch, device, 1, 1)
+    model = state.model
+    layer = min(PLANES_POISON_LAYER, wl.cfg.num_layers - 1)
+    mon = obs.DynamicsMonitor(1, logdir=logdir,
+                              loss_fn=wl.loss_fn(model),
+                              tap_fn=mods.make_nan_taps(model),
+                              modules=mods.flax_modules(wl.cfg))
+    step = mon.wrap_train_step(step)
+    mon.on_fit_begin(None, state)
+    for _ in range(2):
+        state, m = step(state, next(batches))
+        mon.on_step_end(None, state.step, state, m)
+    with torch.no_grad():
+        model.h[layer].fc_in.weight.fill_(float("nan"))
+    sync(torch, dev)
+    cuda.launches.clear()
+    cuda_dev = dev.type == "cuda"
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if cuda_dev:
+            previous = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            doc = mon.maybe_provenance(state.step, "non_finite_loss")
+            sync(torch, dev)
+            ms = 1e3 * (time.perf_counter() - t0)
+        finally:
+            if cuda_dev:
+                torch.cuda.set_sync_debug_mode(previous)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    launches = dict(cuda.launches)
+    mon.close()
+    want = f"h{layer}"
+    after = [f"h{i}" for i in range(layer, wl.cfg.num_layers)] + ["ln_f"]
+    counts = doc["nonfinite_activation_counts"] if doc else {}
+    row = {"phase": "planes_provenance", "poisoned": f"h.{layer}.fc_in",
+           "module": doc and doc["module"], "method": doc and doc["method"],
+           "first_bad_param_module": doc and doc["first_bad_param_module"],
+           "first_bad_grad_module": doc and doc["first_bad_grad_module"],
+           "nonfinite_activation_counts": counts, "ms": ms,
+           "host_syncs": syncs if cuda_dev else None,
+           "launches": launches}
+    emit(row)
+    if not doc or doc["module"] != want \
+            or doc["method"] != "activation_taps" \
+            or any(not counts.get(m) for m in after) \
+            or any(counts.get(f"h{i}") for i in range(layer)):
+        raise AssertionError(f"planes_provenance: {row}")
+    if cuda_dev and (not launches.get("layernorm_fwd")
+                     or not launches.get("flash_fwd")):
+        raise AssertionError(f"planes_provenance: the tap forward did not "
+                             f"run K1f and K2: {launches}")
+    del wl, state, step, batches, model, mon
+    gc.collect()
+    empty_cache(torch, dev)
+    return launches
+
+
+def _webhook_receiver():
+    """A loopback HTTP server on a thread that keeps every JSON body
+    POSTed to it: ``(server, rows)``."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    rows = []
+
+    class Hook(BaseHTTPRequestHandler):
+        def do_POST(self):  # noqa: N802 - http.server contract
+            n = int(self.headers["Content-Length"])
+            rows.append(json.loads(self.rfile.read(n)))
+            self.send_response(200)
+            self.end_headers()
+
+        def log_message(self, *args):
+            pass
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), Hook)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, rows
+
+
+def _planes_serve(torch, serve_torch, mods, config, device, tmp, smi):
+    """``serve_torch.main`` on ``config`` (bf16, ``--max-context`` 2048)
+    over the serve_cli mix at mode (a), with the planes off
+    (``--history-interval 0``) and on (history every 0.5 s, the SLO
+    rules, an alert rule set to fire and ``--alert-webhook`` at a
+    loopback receiver): tokens/s and TPOT of each run; with the planes on
+    the webhook gets the firing, ``/histz``, ``/sloz``, ``/alertz`` and
+    ``/usagez`` answer, ``history.jsonl`` holds the tenants' pinned
+    usage series and the logs pass the schema checker."""
+    import os
+
+    cfg = getattr(mods, config)()
+    context = min(SERVE_CLI_CONTEXT, cfg.max_seq)
+    prompts = _serve_cli_mix(cfg.vocab_size, SERVE_CLI_SCALE)
+    new_tokens = SERVE_CLI_NEW_TOKENS
+    rules = os.path.join(tmp, "fire.json")
+    with open(rules, "w") as f:
+        json.dump(PLANES_FIRE_RULES, f)
+    receiver, hooked = _webhook_receiver()
+    rows, problems = [], []
+    try:
+        for i, planes in enumerate(PLANES_SERVE_RUNS):
+            logdir = os.path.join(tmp, f"serve_{i}_{planes}")
+            argv = ["--config", config, "--device", device, "--port", "0",
+                    "--dtype", "bfloat16", "--max-context", str(context),
+                    "--seed", str(SEED), "--logdir", logdir]
+            if planes == "on":
+                argv += [
+                    "--history-interval", PLANES_SERVE_INTERVAL,
+                    "--slo-rules", "examples/slo_rules.json",
+                    "--slo-interval", PLANES_SERVE_INTERVAL,
+                    "--alert-rules", rules, "--alert-interval",
+                    PLANES_SERVE_INTERVAL, "--alert-webhook",
+                    f"http://127.0.0.1:{receiver.server_address[1]}/hook"]
+            else:
+                argv += ["--history-interval", "0"]
+            before = len(hooked)
+            srv = _CliServer(serve_torch, argv)
+            answers = {}
+            try:
+                replies, wall = _serve_mix(srv.port, prompts, new_tokens)
+                if planes == "on":
+                    deadline = time.time() + 10
+                    while len(hooked) == before and time.time() < deadline:
+                        time.sleep(0.1)
+                    for path in ("/histz", "/sloz", "/alertz", "/usagez"):
+                        answers[path] = _http(srv.port, path)[0]
+            finally:
+                rc = srv.close()
+            tpot = [r["tpot_s"] for r in replies]
+            ttft = [r["ttft_s"] for r in replies]
+            row = {"phase": "planes_serve", "run": i, "planes": planes,
+                   "config": config, "card": smi, "wall_s": wall,
+                   "tokens_per_s": sum(len(r["tokens"])
+                                       for r in replies) / wall,
+                   "tpot_p50_s": float(np.percentile(tpot, 50)),
+                   "ttft_p50_s": float(np.percentile(ttft, 50)),
+                   "answers": answers,
+                   "webhook_rows": [{k: h[k] for k in ("rule", "phase")}
+                                    for h in hooked[before:]]}
+            if rc != 0:
+                problems.append(f"run {i}: serve_torch exited {rc}")
+            if planes == "on":
+                fired = [h for h in hooked[before:]
+                         if h["rule"] == "ttft_high"
+                         and h["phase"] == "fired"]
+                history = open(os.path.join(logdir, "history.jsonl")).read()
+                pinned = [f"serve_tenant_tokens_total.tenant_{t}"
+                          for t in SERVE_CLI_TENANTS]
+                files = [os.path.join(logdir, f) for f in (
+                    "history.jsonl", "alerts.jsonl", "requests.jsonl",
+                    "metrics.jsonl", "steps.jsonl", "usage.jsonl",
+                    "metrics.prom")]
+                rc_schema, out = _schema(files)
+                row["schema_rc"] = rc_schema
+                if not fired:
+                    problems.append(f"run {i}: no firing reached the "
+                                    f"webhook: {hooked[before:]}")
+                if answers != dict.fromkeys(answers, 200) or len(answers) < 4:
+                    problems.append(f"run {i}: endpoints {answers}")
+                if any(name not in history for name in pinned):
+                    problems.append(f"run {i}: history.jsonl lacks {pinned}")
+                if rc_schema:
+                    problems.append(f"run {i}: schema {out}")
+            rows.append(row)
+            emit(row)
+            gc.collect()
+            empty_cache(torch, torch.device(device))
+    finally:
+        receiver.shutdown()
+        receiver.server_close()
+    if problems:
+        raise AssertionError(f"planes_serve: {problems}")
+    return rows
+
+
+def run_planes(torch, cuda, train_torch, serve_torch, mods, device="cuda",
+               smi="", serve_config="gpt_small"):
+    """The operations planes: (1) gpt_lm at full width through
+    ``train_torch.main`` with ``--dynamics-every 2``, the status server,
+    ``--fleet``, the example SLO and alert rules, 8 steps at k = 1 and
+    k = 4: dynamics rows on steps 2, 4, 6, 8, equal at k = 4 and k = 1,
+    /dynamicz /fleetz /sloz /alertz /histz /healthz?deep=1 answering, the
+    logdirs passing the schema checker, run_report and doctor; the first
+    row against a plain recomputation from a snapshot on the card; a step
+    off the cadence launching what a step without dynamics launches.
+    (2) The step ms with and without dynamics, on and off the cadence, at
+    k = 1 and k = 4.  (3) NaN provenance naming a poisoned block.  (4)
+    serve_torch over HTTP with the planes off and on.  Returns the main
+    path's launches: the two ``train_torch.main`` runs' and the serving
+    runs'."""
+    import os
+    import shutil
+    import tempfile
+
+    from distributedtensorflow_tpu_torch import train as train_lib
+
+    tmp = tempfile.mkdtemp(prefix="planes_")
+    launches = collections.Counter()
+    try:
+        runs, problems = {}, []
+        for k in (1, 4):
+            logdir = os.path.join(tmp, f"train_k{k}")
+            records, got, answers, secs = _planes_main(
+                torch, cuda, train_torch, train_lib, logdir, k, device)
+            launches.update(got)
+            rows = _rows_of(os.path.join(logdir, "dynamics.jsonl"))
+            files = [os.path.join(logdir, f) for f in (
+                "dynamics.jsonl", "history.jsonl", "alerts.jsonl",
+                "fleet.json", "metrics.jsonl", "metrics.prom")]
+            rc_schema, out = _schema(files)
+            tools = {name: subprocess.run(
+                [sys.executable, f"tools/{name}.py", logdir],
+                capture_output=True, text=True, timeout=120).returncode
+                for name in ("run_report", "doctor")}
+            runs[k] = rows
+            emit({"phase": "planes_train", "k": k, "seconds": secs,
+                  "steps": [r["step"] for r in rows],
+                  "losses": [r["loss"] for r in records],
+                  "answers": answers, "schema_rc": rc_schema,
+                  "tools_rc": tools, "launches": got,
+                  "global_grad_norms": [r["global_grad_norm"]
+                                        for r in rows]})
+            if [r["step"] for r in rows] != list(
+                    range(PLANES_EVERY, PLANES_STEPS + 1, PLANES_EVERY)):
+                problems.append(f"k={k}: dynamics rows at "
+                                f"{[r['step'] for r in rows]}")
+            if sorted(answers) != sorted(PLANES_PATHS) or any(
+                    answers[p] != 200 for p in PLANES_PATHS[:-1]) \
+                    or answers["/healthz?deep=1"] not in (200, 503):
+                problems.append(f"k={k}: endpoints {answers}")
+            if rc_schema or any(tools.values()):
+                problems.append(f"k={k}: schema {rc_schema} {out} tools "
+                                f"{tools}")
+            if device == "cuda" and not got.get("layernorm_fwd"):
+                problems.append(f"k={k}: no kernel launched: {got}")
+        strip = [[{k: v for k, v in r.items() if k != "t"} for r in rows]
+                 for rows in (runs[1], runs[4])]
+        equal = strip[0] == strip[1]
+        emit({"phase": "planes_k4_vs_k1", "rows_equal": equal})
+        if not equal:
+            problems.append("dynamics rows at k = 4 differ from k = 1")
+        if problems:
+            raise AssertionError(f"planes_train: {problems}")
+        _planes_recompute(torch, cuda, train_torch, train_lib, mods, device,
+                          runs[1][0])
+        _planes_timing(torch, train_torch, device)
+        _planes_provenance(torch, cuda, train_torch, mods, device,
+                           os.path.join(tmp, "provenance"))
+        sync(torch, torch.device(device))
+        cuda.launches.clear()
+        _planes_serve(torch, serve_torch, mods, serve_config, device, tmp,
+                      smi)
+        sync(torch, torch.device(device))
+        launches.update(cuda.launches)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 PHASES = ("layernorm", "kernels", "xent", "serving", "serve_cli", "train",
           "baseline", "dp", "ckpt", "trainer", "multistep", "presets2",
-          "bert_moe", "optim", "records")
+          "bert_moe", "optim", "records", "planes")
 
 
 def main(argv=None) -> int:
@@ -5103,6 +5662,12 @@ def main(argv=None) -> int:
     if "records" in phases:
         run_records(torch, train_torch)
     done("records")
+    if "planes" in phases:
+        import serve_torch
+
+        launches.update(run_planes(torch, _cuda, train_torch, serve_torch,
+                                   mods, smi=smi))
+    done("planes")
     emit({"phase": "seconds", **seconds})
     if phases != set(PHASES):
         print(f"chip_smoke: ran only {sorted(phases)}", file=sys.stderr)

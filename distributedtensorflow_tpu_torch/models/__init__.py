@@ -2,7 +2,8 @@
 generation, the GPT-MoE LM, the BASELINE.json models (LeNet-5,
 ResNet-20/50, BERT MLM, Wide&Deep), the BERT-MoE encoder, the ViT and the
 seq2seq
-encoder-decoder (training, teacher-forced eval and cached decoding)."""
+encoder-decoder (training, teacher-forced eval and cached decoding), and
+the NaN-provenance tap forward (:func:`make_nan_taps`)."""
 
 from .bert import (  # noqa: F401
     BertConfig,
@@ -22,6 +23,7 @@ from .bert_moe import (  # noqa: F401
     moe_mlm_loss,
 )
 from .convert import (  # noqa: F401
+    flax_modules,
     flax_views,
     init_params,
     opt_state_from_optax,
@@ -38,6 +40,7 @@ from .gpt import (  # noqa: F401
     gpt_tiny,
     lm_eval,
     lm_loss,
+    nan_taps,
 )
 from .gpt_moe import (  # noqa: F401
     GPTMoEConfig,
@@ -74,3 +77,16 @@ from .widedeep import (  # noqa: F401
     widedeep_loss,
     widedeep_test_config,
 )
+
+
+def make_nan_taps(model):
+    """The NaN-provenance tap forward for ``obs.dynamics`` (JAX
+    ``models/__init__.py:61-71``): ``tap_fn(batch) -> {"NNN_module":
+    nonfinite_count}`` with the forward position in the key (``000_wte``,
+    ``001_h0``, ...), or None for a model without activation taps
+    (provenance then falls back to the model-agnostic parameter and
+    gradient censuses).  The GPT LM has taps; the GPT-MoE LM, as in JAX,
+    has none."""
+    if isinstance(model, GPTLM):
+        return nan_taps(model)
+    return None

@@ -367,6 +367,15 @@ def _param_leaves(cfg) -> dict[str, tuple]:
     return out
 
 
+def flax_modules(cfg) -> dict[str, str]:
+    """Port parameter name -> the first component of its path in the flax
+    ``params`` tree (``wte``, ``h0``, ``ln_f``, a BERT's ``bert``, a
+    ResNet's ``conv_init``, ...): the top-level module that
+    ``obs.dynamics`` groups by, so every ``module=`` label is the JAX
+    package's."""
+    return {n: path[0] for n, (path, _, _) in _param_leaves(cfg).items()}
+
+
 def flax_views(cfg) -> dict[str, tuple[tuple[int, ...], tuple[int, ...]]]:
     """Port parameter name -> ``(perm, shape)``: the parameter's flax
     layout is ``p.permute(perm).reshape(shape)``.  Adafactor

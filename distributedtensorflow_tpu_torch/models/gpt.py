@@ -16,7 +16,11 @@ training forward: causal attention through ``dot_product_attention``
 blockwise FFN (``ffn_chunk_size``).  The losses (:func:`lm_loss`,
 :func:`lm_eval`) take the hidden states (``return_hidden=True``) to the
 cross-entropy head that :func:`_pick_xent` picks: the fused head (K4f/
-K4b) on the card, the chunked head on the CPU.
+K4b) on the card, the chunked head on the CPU.  ``forward(...,
+taps=dict)`` records each module's count of non-finite outputs
+(``wte``, each ``h{i}``, ``ln_f``) for the NaN-provenance pass
+(:func:`nan_taps`, ``obs.dynamics``), as flax's ``sow`` into the
+``dynamics`` collection does.
 """
 
 from __future__ import annotations
@@ -35,7 +39,13 @@ from ..ops.blockwise import blockwise_map
 from ..ops.fused_xent import fused_softmax_xent
 from ..ops.xent import chunked_softmax_xent, tied_head_logits
 from ..parallel.collectives import share_of_mean
-from .layers import FusedLayerNorm, dense, draw_seed, dropout
+from .layers import (
+    FusedLayerNorm,
+    dense,
+    draw_seed,
+    dropout,
+    sow_nonfinite,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -251,16 +261,20 @@ class GPTLM(nn.Module):
 
     def forward(self, input_ids, *, positions=None, cache=None,
                 deterministic: bool = True, generator=None,
-                return_hidden: bool = False):
+                return_hidden: bool = False, taps: dict | None = None):
         """Logits (B, S, V) fp32, or the final fp32 hidden states (B, S, E)
         with ``return_hidden``.  ``deterministic=False`` applies dropout,
         drawing one seed per block from ``generator`` (the step's
         ``DropoutKey``, or a CPU ``torch.Generator``) before the block
         runs, so block remat recomputes the same mask (the forward draws
-        no other random numbers, so remat keeps no RNG state)."""
+        no other random numbers, so remat keeps no RNG state).  A
+        ``taps`` dict receives the non-finite count of the output of
+        ``wte``, each block ``h{i}`` and ``ln_f`` (training forward
+        only)."""
         cfg = self.cfg
         # gather, then cast: the same values as casting the whole table
         x = self.wte.weight[input_ids].to(cfg.dtype)
+        sow_nonfinite(taps, "wte", x)
         if positions is None:
             positions = torch.arange(
                 input_ids.shape[1], device=x.device).expand(input_ids.shape)
@@ -278,7 +292,8 @@ class GPTLM(nn.Module):
                                use_reentrant=False, preserve_rng_state=False)
             else:
                 x = block(x, positions, tabs, None, seed)
-        x = self.ln_f(x)
+            sow_nonfinite(taps, f"h{i}", x)
+        x = sow_nonfinite(taps, "ln_f", self.ln_f(x))
         if return_hidden:
             return x
         return tied_head_logits(x, self.wte.weight, cfg.dtype)
@@ -365,3 +380,27 @@ def lm_eval(model: GPTLM, group=None):
         return {"loss": loss, "perplexity": torch.exp(loss)}
 
     return metric_fn
+
+
+def nan_taps(model: GPTLM):
+    """The NaN-provenance tap forward for ``obs.dynamics`` (JAX
+    ``nan_taps``, ``models/gpt.py:444-469``): ``tap_fn(batch) ->
+    {"NNN_module": nonfinite_count}`` whose keys carry the FORWARD
+    position (``000_wte``, ``001_h0``, ..., ``00N_ln_f``), so that sorted
+    order is forward order and the provenance binary search names the
+    first module whose output went non-finite.  The model holds the
+    parameters (JAX's ``tap_fn`` takes them as its first argument).  The
+    deterministic forward, without dropout and without autograd (so
+    without block remat), on the training path's kernels."""
+    order = (["wte"] + [f"h{i}" for i in range(model.cfg.num_layers)]
+             + ["ln_f"])
+
+    def tap_fn(batch):
+        taps: dict = {}
+        with torch.no_grad():
+            model(batch["input_ids"], deterministic=True, return_hidden=True,
+                  taps=taps)
+        return {f"{i:03d}_{name}": taps[name]
+                for i, name in enumerate(order) if name in taps}
+
+    return tap_fn

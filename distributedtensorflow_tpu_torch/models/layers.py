@@ -1,7 +1,8 @@
 """Shared layers of the port's models.
 
 Twin of ``distributedtensorflow_tpu/models/layers.py``: the LayerNorm
-module, the dense-layer picker and dropout; and the flax layers that the
+module, the dense-layer picker, dropout and the NaN-provenance taps
+(``nonfinite_count``, ``sow_nonfinite``); and the flax layers that the
 JAX models take from ``flax.linen`` directly: ``nn.Dense`` and
 ``nn.DenseGeneral`` (:class:`Dense`), ``nn.Conv`` with its ``"SAME"``
 padding (:class:`Conv`), ``nn.BatchNorm`` (:class:`BatchNorm`) and
@@ -26,6 +27,23 @@ from ..parallel.collectives import (
     resolve_group,
     share_of_mean,
 )
+
+
+def nonfinite_count(x: torch.Tensor) -> torch.Tensor:
+    """Count of non-finite elements of ``x`` as an int32 scalar (a bf16
+    Inf counts as it would in fp32)."""
+    return (~torch.isfinite(x)).sum(dtype=torch.int32)
+
+
+def sow_nonfinite(taps: dict | None, name: str, x: torch.Tensor):
+    """NaN-provenance tap: with a ``taps`` dict (the provenance
+    re-forward of ``obs.dynamics``), store ``x``'s non-finite count under
+    ``name``; return ``x`` unchanged.  The training forward passes
+    ``taps=None`` and pays nothing, as flax's ``sow`` into a collection
+    that is not mutable traces nothing."""
+    if taps is not None:
+        taps[name] = nonfinite_count(x)
+    return x
 
 
 class FusedLayerNorm(nn.Module):

@@ -2,9 +2,7 @@
 aggregation, anomaly detection, the flight recorder, the goodput ledger,
 memory and MFU accounting, reactive profiling and the status server.
 
-Twin of ``distributedtensorflow_tpu/obs/`` for what the Trainer's fit loop
-and the serving engine reach (ROADMAP.md keeps the rest: fleet, SLOs,
-alerts, the history store and training dynamics):
+Twin of ``distributedtensorflow_tpu/obs/``, every module of it:
 
 - ``counter/gauge/histogram`` — process-local registry metrics, exported
   into ``metrics.jsonl`` rows and a Prometheus text snapshot
@@ -29,13 +27,44 @@ alerts, the history store and training dynamics):
 - ``mfu_record_fields`` — MFU against the card's published peak, for the
   NVIDIA kinds it knows;
 - ``usage.UsageMeter`` — the serving engine's per-tenant ledger
-  (``usage.jsonl``, ``GET /usagez``).
+  (``usage.jsonl``, ``GET /usagez``);
+- ``FleetAggregator`` — the fleet plane: a chief-side scraper over peer
+  StatusServers' ``/varz`` (through ``net.rpc``) merging samples into
+  one min/median/max/sum view with per-peer up/stale/down liveness and
+  ``spread_ratio`` straggler detection, at ``/fleetz`` and in
+  ``fleet.json``;
+- ``SLOMonitor`` — declarative SLO rules (JSON) as multi-window burn
+  rates (``slo_burn_rate{slo=,window=}``), ``slo_violation`` flight
+  events, ``/sloz``, and a ``slo_burn`` capture on a fast-burn trip;
+- ``AlertManager`` — declarative alert rules over registry scalars,
+  history series and fleet-merged samples (``threshold`` / ``burn`` /
+  ``absence`` / ``anomaly``), fanning out to log/webhook/capture sinks,
+  ``alerts.jsonl``, incident bundles (``incidents/<id>/``), ``/alertz``
+  and the ``/healthz?deep=1`` verdict;
+- ``DynamicsMonitor`` — per-module grad/param/update statistics computed
+  inside the train step on a cadence, flushed into ``dynamics.jsonl``,
+  the ``dynamics_*`` families and ``/dynamicz``, with a NaN-provenance
+  pass naming the first module to go non-finite;
+- ``MetricsHistory`` — fixed-memory downsampling rings over registry
+  samples (plus fleet merges and SLO good/total snapshots), ``/histz``
+  and ``history.jsonl``.
 
 Every singleton here (the default registry, recorder, ledger, tracer and
 capture engine) is the port's own, distinct from the JAX package's.
 """
 
-from . import capture, flight_recorder, goodput, memory  # noqa: F401
+from . import (  # noqa: F401
+    alerts,
+    capture,
+    dynamics,
+    fleet,
+    flight_recorder,
+    goodput,
+    memory,
+    slo,
+    tsdb,
+)
+from .alerts import AlertManager, AlertRule  # noqa: F401
 from .aggregate import (  # noqa: F401
     host_aggregate,
     spread_ratio,
@@ -43,6 +72,8 @@ from .aggregate import (  # noqa: F401
 )
 from .anomaly import Anomaly, AnomalyDetector  # noqa: F401
 from .capture import CaptureEngine  # noqa: F401
+from .dynamics import DynamicsMonitor  # noqa: F401
+from .fleet import FleetAggregator  # noqa: F401
 from .flight_recorder import (  # noqa: F401
     FlightRecorder,
     default_recorder,
@@ -63,6 +94,8 @@ from .registry import (  # noqa: F401
     set_default_registry,
 )
 from .server import StatusServer  # noqa: F401
+from .slo import SLOMonitor, SLORule  # noqa: F401
+from .tsdb import MetricsHistory  # noqa: F401
 from .tracing import (  # noqa: F401
     Span,
     TraceRecorder,

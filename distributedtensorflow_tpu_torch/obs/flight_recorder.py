@@ -39,7 +39,11 @@ restore rejected a truncated or corrupt step and fell back —
 loads, cuBLAS start-up; a ring ending in ``compile_begin`` with no
 matching ``compile`` = wedged in the first dispatch, not a collective),
 ``capture_begin``/``capture_end`` (reactive-profiler windows —
-``obs.capture``), ``goodput``, ``fit_begin``, ``fit_end``.
+``obs.capture``), ``goodput``, ``slo_violation`` (an SLO burn-rate
+threshold trip — ``obs.slo``), ``alert`` (an alert rule fired or
+resolved — ``obs.alerts``), ``nan_provenance`` (the first module to
+produce a non-finite value, named by the NaN-provenance pass —
+``obs.dynamics``), ``fit_begin``, ``fit_end``.
 
 The hot path is one ``time.time()`` + one deque append under a lock; dumps
 rewrite the whole file atomically (tmp + rename) so a reader — or the

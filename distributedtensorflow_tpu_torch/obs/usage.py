@@ -1,9 +1,8 @@
 """Per-tenant usage metering for the serving plane.
 
 Twin of ``distributedtensorflow_tpu/obs/usage.py``, framework-free and
-copied but for two points: the device kind comes from
-``torch.cuda.get_device_name`` (the engine passes its model's), and
-``attach_history`` is left out until the port has ``obs/tsdb.py``.
+copied but for the device kind, which comes from
+``torch.cuda.get_device_name`` (the engine passes its model's).
 
 :class:`UsageMeter` rolls every request's footprint up per **tenant**, a
 validated identity threaded through the request path (``POST
@@ -35,7 +34,8 @@ Outputs: ``<logdir>/usage.jsonl`` (cumulative per-tenant ``tenants``
 rows, the last ``final: true``, and one ``request`` row per terminal
 request); the tenant-labelled ``serve_tenant_*`` registry families; and
 ``GET /usagez`` (text / ``?json`` / ``?tenant=``) via
-:meth:`UsageMeter.install`.
+:meth:`UsageMeter.install`; and :class:`obs.tsdb.MetricsHistory` pins for
+each tenant's flat series via :meth:`UsageMeter.attach_history`.
 
 Threads: the accrual hooks run on the engine loop thread; a rejected
 request's closeout and ``/usagez`` come from HTTP threads.  One lock
@@ -180,6 +180,7 @@ class UsageMeter:
         self._t_last_flush = time.time()
         self._tokens_at_flush: dict[str, int] = {}
         self._closed = False
+        self._history = None
         self._log = None
         if logdir:
             os.makedirs(logdir, exist_ok=True)
@@ -191,7 +192,16 @@ class UsageMeter:
         acc = self._tenants.get(name)
         if acc is None:
             acc = self._tenants[name] = _zero_acc()
+            if self._history is not None:
+                self._pin_tenant(name)
         return acc
+
+    def _pin_tenant(self, name: str) -> None:
+        self._history.pin([
+            f"serve_tenant_tokens_total.tenant_{name}",
+            f"serve_tenant_tokens_per_s.tenant_{name}",
+            f"serve_tenant_kv_block_seconds_total.tenant_{name}",
+        ])
 
     def _write_row(self, row: dict) -> None:
         if self._log is None:
@@ -401,4 +411,14 @@ class UsageMeter:
         (text default; ``?json`` for the snapshot dict; ``?tenant=`` to
         filter, 404 on an unknown tenant)."""
         server.routes[("GET", "/usagez")] = self._usagez
+        return self
+
+    def attach_history(self, history) -> "UsageMeter":
+        """Pin each tenant's flat registry series into a
+        :class:`obs.tsdb.MetricsHistory` so tenant cardinality cannot be
+        crowded out of the sampling rings (existing and future tenants)."""
+        with self._lock:
+            self._history = history
+            for name in self._tenants:
+                self._pin_tenant(name)
         return self

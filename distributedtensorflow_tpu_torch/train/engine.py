@@ -21,6 +21,18 @@ the ``engine_first_dispatch_s{kind}`` gauge and the ``compile_begin`` /
 (``:288-345``): k optimizer steps in one call, a loop on the CPU and one
 replayed CUDA graph of the k steps on the card (:class:`_GraphedSteps`).
 
+``dynamics_every`` > 0 adds the training-dynamics stats
+(:class:`~..obs.dynamics.StepStats`, JAX ``cadence_stats``) to the
+metrics of the optimizer steps that complete a multiple of it: the
+gradients' norms and non-finite counts before the update, the parameters
+copied before it and compared after it, all on the device.  JAX gates
+them with ``lax.cond`` inside the compiled step; here the host knows the
+step count, so a step off the cadence runs what a step without dynamics
+runs, and the CUDA graphs of k steps are captured once per cadence
+pattern of their k steps (the graph of a call with no cadence step is
+the graph without dynamics).  A call of k steps that holds a cadence
+step stacks the stats (k,), zeros off the cadence, as JAX's scan does.
+
 Loss-function contract: ``loss_fn(batch, generator) -> (loss, metrics)``
 with ``batch`` a dict of (B, ...) tensors, ``generator`` the
 microbatch's :class:`~..models.layers.DropoutKey` (its seed, from
@@ -43,6 +55,7 @@ import torch
 
 from .. import obs
 from ..models.layers import DropoutKey
+from ..obs import dynamics as dynlib
 from ..ops import _cuda
 from ..parallel import collectives
 from ..parallel.mesh import replica_index
@@ -229,9 +242,13 @@ class _InstrumentedStep:
 
 
 def _train_one(loss_fn, state: TrainState, batch: dict, keys, *,
-               accum_steps: int, seed: int, mesh):
+               accum_steps: int, seed: int, mesh, stats=None):
     """One optimizer step of ``state`` on ``batch``: the body of the
-    single step and of every step of a multi-step call."""
+    single step and of every step of a multi-step call.  With ``stats``
+    (a :class:`~..obs.dynamics.StepStats`: the step is on the dynamics
+    cadence) the metrics carry the ``dynamics/`` keys, computed from the
+    global gradients (after a mesh's gradient sum, so every rank holds
+    the same values)."""
     if mesh is None:
         grads, metrics = accumulate_gradients(
             loss_fn, state.model, batch, seed=seed, step=state.step,
@@ -240,27 +257,79 @@ def _train_one(loss_fn, state: TrainState, batch: dict, keys, *,
         grads, metrics = accumulate_gradients_dp(
             loss_fn, state.model, batch, mesh, seed=seed, step=state.step,
             accum_steps=accum_steps, keys=keys)
-    return state.apply_gradients(grads), metrics
+    if stats is None:
+        return state.apply_gradients(grads), metrics
+    # the optimizer clips the gradients and updates the parameters in
+    # place: read the one and copy the other first
+    dyn, old = stats.before(state.model, grads)
+    state = state.apply_gradients(grads)
+    return state, dict(metrics, **stats.after(state.model, dyn, old))
+
+
+class _Cadence:
+    """A train step's dynamics cadence: which optimizer steps carry the
+    stats (every ``every``-th completed one; 0 = none) and the
+    :class:`~..obs.dynamics.StepStats` that computes them, grouped by
+    ``modules`` (parameter name -> top-level module, default the name's
+    first component), made at the first cadence step."""
+
+    def __init__(self, every: int, modules=None):
+        if every < 0:
+            raise ValueError(f"dynamics_every must be >= 0, got {every}")
+        self.every, self.modules, self._stats = every, modules, None
+
+    def stats(self, state: TrainState):
+        """The stats of the step ``state`` is about to take, or None when
+        it is off the cadence."""
+        if not dynlib.on_cadence(state.step, self.every):
+            return None
+        if self._stats is None:
+            self._stats = dynlib.StepStats(
+                [n for n, _ in state.model.named_parameters()],
+                self.modules)
+        return self._stats
+
+    def mask(self, step: int, k: int) -> tuple[bool, ...]:
+        """Which of the k steps from ``step`` are on the cadence."""
+        return tuple(dynlib.on_cadence(step + i, self.every)
+                     for i in range(k))
 
 
 def make_train_step(loss_fn, *, accum_steps: int = 1, seed: int = 0,
-                    mesh=None):
+                    mesh=None, dynamics_every: int = 0,
+                    dynamics_modules=None):
     """``step(state, batch) -> (state, metrics)``: gradients of
     ``loss_fn`` averaged over ``accum_steps`` microbatches, then one
     update of ``state`` (in place).  With a ``mesh`` the step is one
     rank's of the data-parallel step (:func:`accumulate_gradients_dp`;
     ``loss_fn`` built for the mesh) and every rank applies the same
-    global gradients."""
+    global gradients.  ``dynamics_every`` > 0: the steps that complete a
+    multiple of it add the ``dynamics/`` stats to their metrics, grouped
+    by ``dynamics_modules`` (``models.flax_modules``)."""
+    cadence = _Cadence(dynamics_every, dynamics_modules)
 
     def step(state: TrainState, batch: dict):
         return _train_one(loss_fn, state, batch, None,
-                          accum_steps=accum_steps, seed=seed, mesh=mesh)
+                          accum_steps=accum_steps, seed=seed, mesh=mesh,
+                          stats=cadence.stats(state))
 
     return _InstrumentedStep(step, "train_step")
 
 
+def _metric_names(metrics: list[dict]) -> list[str]:
+    """Every key of the steps' metrics, in the order they first appear
+    (a cadence step has the ``dynamics/`` keys, the others do not)."""
+    return list(dict.fromkeys(k for m in metrics for k in m))
+
+
 def _stack_metrics(metrics: list[dict]) -> dict:
-    return {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
+    """The steps' metrics stacked (k,), a key a step lacks as 0 there."""
+    out = {}
+    for k in _metric_names(metrics):
+        like = next(m[k] for m in metrics if k in m)
+        out[k] = torch.stack([m[k] if k in m else torch.zeros_like(like)
+                              for m in metrics])
+    return out
 
 
 class _GraphedSteps:
@@ -288,6 +357,11 @@ class _GraphedSteps:
     that replaced the optimizer's moments).  A capture that fails
     raises: there is no eager fallback on the card.
 
+    With a dynamics cadence the graphs are keyed by k' and the cadence
+    pattern of the call's k' steps (``_Cadence.mask``): a call whose
+    steps hold a cadence step replays a graph that computes the stats at
+    those steps, every other call the graph without them.
+
     The graph captures the launches the eager steps make, so its steps
     compute the single step's bits.  ``ops._cuda.launches`` counts what
     the capture counted once a replay (``captured_launches``).  The
@@ -295,13 +369,15 @@ class _GraphedSteps:
     moves CUDA tensors through the host, which a graph cannot hold, so a
     gloo group over CUDA tensors raises."""
 
-    def __init__(self, loss_fn, steps_per_call, accum_steps, seed, mesh):
+    def __init__(self, loss_fn, steps_per_call, accum_steps, seed, mesh,
+                 cadence: _Cadence):
         self.k = steps_per_call
         self.loss_fn, self.accum, self.seed, self.mesh = (
             loss_fn, accum_steps, seed, mesh)
+        self.cadence = cadence
         self.rank = 0 if mesh is None else replica_index(mesh)
         self._warm = False
-        self._graphs: dict[int, tuple] = {}
+        self._graphs: dict[tuple, tuple] = {}
         self._pool = None
         self._inputs: dict[str, torch.Tensor] | None = None
         self._seeds: torch.Tensor | None = None
@@ -310,7 +386,7 @@ class _GraphedSteps:
     def _one(self, state, batch, keys=None):
         return _train_one(self.loss_fn, state, batch, keys,
                           accum_steps=self.accum, seed=self.seed,
-                          mesh=self.mesh)
+                          mesh=self.mesh, stats=self.cadence.stats(state))
 
     def _loop(self, state, bundle, k):
         metrics = []
@@ -346,9 +422,10 @@ class _GraphedSteps:
         if self._captured_on != self._addresses(state):
             self._graphs.clear()
             self._pool = None
-        if k not in self._graphs:
+        key = (k, self.cadence.mask(state.step, k))
+        if key not in self._graphs:
             self._capture(state, bundle, k, device)
-        graph, table, keys, counts = self._graphs[k]
+        graph, table, keys, counts = self._graphs[key]
         self._fill(state, bundle, k, device)
         graph.replay()
         counts.replayed()
@@ -404,6 +481,7 @@ class _GraphedSteps:
             if table is not None:
                 table.reserve(self.k)
         step0 = state.step
+        key = (k, self.cadence.mask(step0, k))
         counts0 = [g.get("count") for g in opt.param_groups]
         graph = torch.cuda.CUDAGraph()
         metrics = []
@@ -427,9 +505,9 @@ class _GraphedSteps:
                         state, {n: x[i] for n, x in self._inputs.items()},
                         keys)
                     metrics.append(m)
-                names = list(metrics[0])
-                out = torch.stack([torch.stack([m[n].float() for n in names])
-                                   for m in metrics])
+                names = _metric_names(metrics)
+                stacked = _stack_metrics(metrics)
+                out = torch.stack([stacked[n].float() for n in names], 1)
         finally:
             if gc_was_enabled:
                 gc.enable()
@@ -440,23 +518,27 @@ class _GraphedSteps:
                 if count is not None:
                     group["count"] = count
         self._pool = graph.pool()
-        self._graphs[k] = (graph, out, names, counts)
+        self._graphs[key] = (graph, out, names, counts)
         self._captured_on = self._addresses(state)
 
 
 def make_multi_train_step(loss_fn, *, steps_per_call: int,
-                          accum_steps: int = 1, seed: int = 0, mesh=None):
+                          accum_steps: int = 1, seed: int = 0, mesh=None,
+                          dynamics_every: int = 0, dynamics_modules=None):
     """``steps_per_call`` optimizer steps in one call (:class:`_GraphedSteps`):
     the bundle's leaves are (k, B, ...), one batch a step, and the
     metrics come back stacked (k,).  The steps follow the single step's
     trajectory exactly: the same dropout seeds (step, microbatch, rank)
-    and learning rates.  ``steps_per_call <= 1`` is :func:`make_train_step`
-    (the reference's ``:302-307``)."""
+    and learning rates, and the same ``dynamics/`` stats at the same
+    steps (:func:`make_train_step`).  ``steps_per_call <= 1`` is
+    :func:`make_train_step` (the reference's ``:302-307``)."""
     if steps_per_call <= 1:
         return make_train_step(loss_fn, accum_steps=accum_steps, seed=seed,
-                               mesh=mesh)
+                               mesh=mesh, dynamics_every=dynamics_every,
+                               dynamics_modules=dynamics_modules)
     return _InstrumentedStep(
-        _GraphedSteps(loss_fn, steps_per_call, accum_steps, seed, mesh),
+        _GraphedSteps(loss_fn, steps_per_call, accum_steps, seed, mesh,
+                      _Cadence(dynamics_every, dynamics_modules)),
         "multi_train_step")
 
 

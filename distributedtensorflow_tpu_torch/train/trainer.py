@@ -127,8 +127,10 @@ class TrainerConfig:
     # watchdog timeout, exception, anomaly, preemption and fit exit.
     flight_recorder: bool = False
     flight_capacity: int = 2048
-    # Training-dynamics cadence (obs.dynamics, not ported): stamps
-    # /statusz when set.
+    # Training-dynamics telemetry (obs.dynamics): the cadence is in the
+    # train step (engine dynamics_every) and the DynamicsMonitor callback
+    # books the stats; > 0 stamps the cadence into /statusz so a live run
+    # advertises which steps carry the per-module statistics.
     dynamics_every: int = 0
 
     def __post_init__(self):

@@ -15,12 +15,15 @@ card unless ``--device cpu`` is given::
     curl -s -X POST 127.0.0.1:<port>/generatez \\
         -d '{"prompt": [1, 2, 3], "max_new_tokens": 8}'
 
-The flags are ``serve.py``'s, with its names and defaults, for what the
-port has, plus ``--device`` and ``--dtype`` as ``train_torch.py`` has
-them.  Not ported yet (they need the metrics history, SLO and alert
-modules): ``--history-interval``, ``--history-points``, ``--slo-rules``,
-``--slo-interval``, ``--alert-rules``, ``--alert-interval`` and
-``--alert-webhook``.
+The flags are ``serve.py``'s, with its names and defaults, plus
+``--device`` and ``--dtype`` as ``train_torch.py`` has them.  The
+operations planes run beside the engine as in ``serve.py``: the metrics
+history store (on by default, ``--history-interval``/``--history-points``:
+``GET /histz``, ``history.jsonl``, each tenant's usage series pinned),
+the SLO monitor (``--slo-rules``: ``GET /sloz``) and the alert manager
+(``--alert-rules``: ``GET /alertz``, ``alerts.jsonl``, incident bundles,
+``--alert-webhook``, and ``/healthz?deep=1`` composed from the alerts,
+the engine and the SLOs).
 
 On startup one JSON line goes to stdout, ``{"serving": true, "port": N,
 ...}``, so a launcher can find an ephemeral port.  SIGINT and SIGTERM
@@ -122,6 +125,39 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--step-ring", type=int, default=512,
                    help="engine step-log ring size (GET /stepz, "
                         "<logdir>/steps.jsonl)")
+    p.add_argument("--history-interval", type=float, default=2.0,
+                   help="embedded metrics history store (obs.tsdb): "
+                        "sample the registry (and SLO good/total "
+                        "snapshots) every this many seconds into fixed-"
+                        "memory downsampling rings, served at GET /histz "
+                        "and appended to <logdir>/history.jsonl (offline "
+                        "SLO burn recomputation); 0 = off")
+    p.add_argument("--history-points", type=int, default=360,
+                   help="history ring size per series: on overflow the "
+                        "ring decimates 2:1 and doubles its resolution, "
+                        "so memory stays fixed for any run length")
+    p.add_argument("--slo-rules", default=None, metavar="JSON",
+                   help="SLO rule file (obs.slo schema): evaluate burn "
+                        "rates over the serve_* histograms on a "
+                        "background thread, expose slo_burn_rate{slo=,"
+                        "window=} in /varz and GET /sloz, raise "
+                        "slo_violation flight events on threshold trips")
+    p.add_argument("--alert-rules", default=None, metavar="JSON",
+                   help="alert rule file (obs.alerts schema): evaluate "
+                        "threshold/burn/absence/anomaly rules over the "
+                        "registry / history store / SLO monitor on a "
+                        "background thread; firings append "
+                        "<logdir>/alerts.jsonl, write incident evidence "
+                        "bundles under <logdir>/incidents/, and serve "
+                        "GET /alertz + /healthz?deep=1")
+    p.add_argument("--alert-interval", type=float, default=5.0,
+                   help="seconds between alert rule evaluations")
+    p.add_argument("--alert-webhook", default=None, metavar="URL",
+                   help="POST every alert transition to this http:// URL "
+                        "as JSON (through net.rpc: deadline, retries, "
+                        "circuit breaker)")
+    p.add_argument("--slo-interval", type=float, default=5.0,
+                   help="seconds between SLO burn-rate evaluations")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
     p.add_argument("--dtype", choices=("float32", "bfloat16"), default=None,
@@ -172,10 +208,79 @@ def _drain(server, engine, timeout_s: float) -> bool:
     return False
 
 
+def _load_rules(args) -> tuple[list | None, list | None]:
+    """The ``--slo-rules`` and ``--alert-rules`` files (None without the
+    flag), parsed and checked before anything starts (``serve.py``'s
+    usage errors)."""
+    slo_rules = alert_rules = None
+    if args.slo_rules:
+        try:
+            slo_rules = obs.slo.load_rules(args.slo_rules)
+        except (OSError, ValueError, json.JSONDecodeError) as e:
+            raise SystemExit(f"--slo-rules {args.slo_rules}: {e}")
+    if args.alert_rules:
+        try:
+            alert_rules = obs.alerts.load_rules(args.alert_rules)
+        except (OSError, ValueError, json.JSONDecodeError) as e:
+            raise SystemExit(f"--alert-rules {args.alert_rules}: {e}")
+    return slo_rules, alert_rules
+
+
+def _start_planes(args, engine, server, slo_rules, alert_rules):
+    """``(slo_monitor, history, alert_manager)``, each None unless its
+    flags ask for it, started and served on the frontend's status server
+    as ``serve.py:270-340`` starts them."""
+    slo_monitor = history = alert_manager = None
+    status = server.status_server
+    if slo_rules is not None:
+        slo_monitor = obs.SLOMonitor(
+            slo_rules, interval_s=args.slo_interval).install(status).start()
+        logger.info("slo monitor: %d rule(s) from %s (GET /sloz)",
+                    len(slo_rules), args.slo_rules)
+    if args.history_interval > 0:
+        # the registry (and, with --slo-rules, each rule's good/total
+        # snapshot, so burn rates are recomputable offline from
+        # history.jsonl) next to the SLO monitor
+        history = obs.MetricsHistory(
+            interval_s=args.history_interval,
+            points_per_series=args.history_points, logdir=args.logdir,
+            rules=slo_monitor.rules if slo_monitor is not None else None,
+        ).install(status).start()
+        # each tenant's usage series pinned: tenant cardinality cannot
+        # crowd them out of the rings
+        engine.usage.attach_history(history)
+        logger.info("metrics history: sampling every %.1fs (GET /histz)",
+                    args.history_interval)
+    if alert_rules is not None:
+        sinks = [obs.alerts.log_sink]
+        if args.alert_webhook:
+            sinks.append(obs.alerts.make_webhook_sink(args.alert_webhook))
+        alert_manager = obs.AlertManager(
+            alert_rules, interval_s=args.alert_interval, logdir=args.logdir,
+            history=history, slo_monitor=slo_monitor, sinks=sinks,
+            step_records_fn=engine.step_records)
+        alert_manager.install(status)
+        components = {
+            "alerts": alert_manager.health_component,
+            "engine": obs.alerts.engine_health_component(engine, server),
+        }
+        if slo_monitor is not None:
+            components["slo"] = obs.alerts.slo_health_component(slo_monitor)
+        status.deep_health_fn = obs.alerts.compose_deep_health(components)
+        alert_manager.start()
+        logger.info(
+            "alerts: %d rule(s) from %s evaluated every %.1fs%s (GET "
+            "/alertz)", len(alert_rules), args.alert_rules,
+            args.alert_interval,
+            f" (webhook {args.alert_webhook})" if args.alert_webhook else "")
+    return slo_monitor, history, alert_manager
+
+
 def main(argv=None, stop: threading.Event | None = None) -> int:
     """Serve until SIGINT/SIGTERM (or ``stop`` is set), then drain;
     returns 0 after a clean drain, 1 after a forced one."""
     args = parse_args(argv)
+    slo_rules, alert_rules = _load_rules(args)
     device = resolve_device(args.device)
     cfg = getattr(models, CONFIGS[args.config][0])()
     if args.dtype:
@@ -205,6 +310,8 @@ def main(argv=None, stop: threading.Event | None = None) -> int:
     ).start()
     server = ServeServer(engine, args.port, host=args.host).start()
     engine.usage.install(server.status_server)
+    slo_monitor, history, alert_manager = _start_planes(
+        args, engine, server, slo_rules, alert_rules)
     if stop is None:
         stop = threading.Event()
 
@@ -230,6 +337,12 @@ def main(argv=None, stop: threading.Event | None = None) -> int:
     try:
         while not stop.wait(0.2):
             pass
+        if alert_manager is not None:
+            # before the SLO monitor: stop() runs one final evaluation (so
+            # resolve rows land) and burn rules read the monitor's state
+            alert_manager.stop()
+        if slo_monitor is not None:
+            slo_monitor.stop()
         drained = _drain(server, engine, args.drain_timeout)
         if not drained:
             st = engine.state()
@@ -244,8 +357,16 @@ def main(argv=None, stop: threading.Event | None = None) -> int:
             if flight is not None:
                 flight.dump(reason="drain_timeout")
     finally:
+        if alert_manager is not None:
+            alert_manager.stop()
+        if slo_monitor is not None:
+            slo_monitor.stop()
         server.stop()
         engine.stop(drain=drained)
+        if history is not None:
+            # after the engine's drain: the final tick snapshots the
+            # completed run's counters into history.jsonl
+            history.stop()
         if tracer is not None:
             tracer.uninstall()
             tracer.close()

@@ -5,8 +5,8 @@ signal: it prints the startup line, serves requests over HTTP on an
 ephemeral port and drains to exit 0.  With ``--checkpoint`` it restores
 the checkpoint that ``train_torch.main`` wrote for ``gpt_lm`` at test
 size, and its greedy tokens equal an engine's built in memory on the
-restored state's model.  Its flags are a subset of ``serve.py``'s, with
-the same names and defaults, plus ``--device`` and ``--dtype``.
+restored state's model.  Its flags are ``serve.py``'s, with the same
+names and defaults, plus ``--device`` and ``--dtype``.
 """
 
 import argparse
@@ -166,10 +166,7 @@ def test_flags_are_serve_py_names_and_defaults():
     for flag in set(ours) & set(theirs):
         assert ours[flag] == theirs[flag], flag
     assert ours["--device"] == "cuda"
-    assert set(theirs) - set(ours) == {
-        "--history-interval", "--history-points", "--slo-rules",
-        "--slo-interval", "--alert-rules", "--alert-interval",
-        "--alert-webhook"}
+    assert set(theirs) - set(ours) == set()
 
 
 def test_defaults_to_the_card(monkeypatch):

@@ -133,7 +133,11 @@ from distributedtensorflow_tpu_torch.data import (
     skip_batches,
 )
 from distributedtensorflow_tpu_torch.device import resolve_device
-from distributedtensorflow_tpu_torch.models import flax_views
+from distributedtensorflow_tpu_torch.models import (
+    flax_modules,
+    flax_views,
+    make_nan_taps,
+)
 from distributedtensorflow_tpu_torch.parallel import bootstrap
 from distributedtensorflow_tpu_torch.parallel.mesh import (
     MeshSpec,
@@ -280,6 +284,15 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "rows' gradients)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=20)
+    p.add_argument("--dynamics-every", type=int, default=0,
+                   help="training-dynamics telemetry cadence (obs.dynamics): "
+                        "every N optimizer steps the train step computes "
+                        "per-module grad/param/update statistics on the "
+                        "device (steps off the cadence run nothing extra), "
+                        "flushed at log boundaries into dynamics.jsonl, the "
+                        "dynamics_* metric families, and GET /dynamicz; a "
+                        "non-finite loss or grad triggers the NaN-provenance "
+                        "pass.  0 disables")
     p.add_argument("--eval-every", type=int, default=0)
     p.add_argument("--target-metric", default=None,
                    help="stop when this eval metric reaches --target-value "
@@ -321,6 +334,48 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="bind address for --status-port; the loopback "
                         "default keeps /threadz stacks private — set "
                         "0.0.0.0 only on a trusted cluster network")
+    p.add_argument("--fleet", action="store_true",
+                   help="fleet observability plane (obs.fleet): scrape "
+                        "the /varz of every registered peer StatusServer "
+                        "(this process + every --fleet-peer) on a "
+                        "background thread, merge into a min/median/max/"
+                        "sum view with per-peer up/stale/down liveness + "
+                        "spread_ratio straggler detection, served at GET "
+                        "/fleetz on --status-port and persisted to "
+                        "<logdir>/fleet.json, with a fleet-merged metrics "
+                        "history at GET /histz (<logdir>/history.jsonl); "
+                        "requires --status-port")
+    p.add_argument("--fleet-interval", type=float, default=2.0,
+                   help="seconds between fleet /varz scrape rounds")
+    p.add_argument("--fleet-peer", action="append", default=None,
+                   metavar="NAME=HOST:PORT",
+                   help="extra fleet scrape target (repeatable): another "
+                        "rank's --status-port, a serve_torch.py server")
+    p.add_argument("--slo-rules", default=None, metavar="JSON",
+                   help="SLO rule file (obs.slo schema): evaluate "
+                        "multi-window burn rates over registry histograms"
+                        "/gauges on a background thread, expose "
+                        "slo_burn_rate{slo=,window=} gauges + GET /sloz, "
+                        "raise slo_violation flight events on threshold "
+                        "trips, and (with --auto-profile) arm a slo_burn "
+                        "reactive capture on a fast-burn trip")
+    p.add_argument("--slo-interval", type=float, default=5.0,
+                   help="seconds between SLO burn-rate evaluations")
+    p.add_argument("--alert-rules", default=None, metavar="JSON",
+                   help="alert rule file (obs.alerts schema): evaluate "
+                        "threshold/burn/absence/anomaly rules over the "
+                        "registry (and the SLO monitor / history store / "
+                        "fleet view when present) on a background thread; "
+                        "firings append <logdir>/alerts.jsonl, write "
+                        "incident evidence bundles under "
+                        "<logdir>/incidents/, raise alert flight events, "
+                        "and serve GET /alertz + /healthz?deep=1")
+    p.add_argument("--alert-interval", type=float, default=5.0,
+                   help="seconds between alert rule evaluations")
+    p.add_argument("--alert-webhook", default=None, metavar="URL",
+                   help="POST every alert transition to this http:// URL "
+                        "as JSON (through net.rpc: deadline, retries, "
+                        "circuit breaker)")
     p.add_argument("--flight-recorder", action="store_true",
                    help="record a bounded ring of structured events (step/"
                         "checkpoint/anomaly/preemption/compile markers), "
@@ -527,7 +582,9 @@ def build(args: argparse.Namespace, checkpointer=None):
         checkpointer.restore_latest(state)
     step = make_multi_train_step(
         wl.loss_fn(model, **group), steps_per_call=args.steps_per_call,
-        accum_steps=accum, seed=args.seed, mesh=mesh)
+        accum_steps=accum, seed=args.seed, mesh=mesh,
+        dynamics_every=args.dynamics_every,
+        dynamics_modules=flax_modules(wl.cfg))
     ctx = current_input_context(wl.global_batch_size, mesh)
     source = record_source(args, ctx) if args.data_dir \
         else wl.input_fn(ctx, args.seed)
@@ -646,6 +703,143 @@ def check_flags(args) -> None:
             raise SystemExit("--target-metric requires --eval-every > 0")
 
 
+class _Planes:
+    """The operations planes of a run (``train.py:1485-1610``): the fleet
+    aggregator (``--fleet``), the SLO monitor (``--slo-rules``), the
+    fleet-merged metrics history (``--fleet``) and the alert manager
+    (``--alert-rules``), each on its own thread, served on the Trainer's
+    status server; :meth:`stop` ends them as ``train.py``'s ``finally``
+    does.  Over ranks only the chief writes their files."""
+
+    def __init__(self, args, trainer, dynamics=None):
+        self.args = args
+        self.fleet = self.slo = self.history = self.alerts = None
+        self.dynamics = dynamics
+        try:
+            self._start(trainer)
+        except BaseException:
+            self.stop()  # the planes that did start
+            raise
+
+    def _start(self, trainer) -> None:
+        args, dynamics = self.args, self.dynamics
+        server = trainer.status_server
+        logdir = args.logdir if bootstrap.is_chief() else None
+        if dynamics is not None and server is not None:
+            dynamics.install(server)
+        capture = trainer.capture if args.auto_profile else None
+        if args.fleet:
+            if server is None:
+                raise SystemExit(
+                    "--fleet requires --status-port (the aggregator serves "
+                    "/fleetz on the chief's StatusServer and scrapes its "
+                    "/varz as the chief peer)"
+                )
+            self.fleet = obs.FleetAggregator(
+                interval_s=args.fleet_interval, logdir=logdir)
+            # scrape the chief on the interface it bound (loopback when
+            # it bound the wildcard)
+            chief_host = ("127.0.0.1" if args.status_host in ("0.0.0.0", "")
+                          else args.status_host)
+            self.fleet.add_peer("chief", f"{chief_host}:{server.port}")
+            for spec in args.fleet_peer or []:
+                name, sep, addr = spec.partition("=")
+                if not sep or not name or not addr:
+                    raise SystemExit(
+                        f"--fleet-peer {spec!r}: expected NAME=HOST:PORT")
+                self.fleet.add_peer(name, addr)
+            self.fleet.install(server).start()
+            logger.info("fleet: aggregating %d peer(s) every %.1fs (GET "
+                        "/fleetz on port %d)", len(self.fleet.peers()),
+                        args.fleet_interval, server.port)
+        if args.slo_rules:
+            try:
+                rules = obs.slo.load_rules(args.slo_rules)
+            except (OSError, ValueError, json.JSONDecodeError) as e:
+                raise SystemExit(f"--slo-rules {args.slo_rules}: {e}")
+            self.slo = obs.SLOMonitor(rules, interval_s=args.slo_interval,
+                                      capture_engine=capture)
+            if server is not None:
+                self.slo.install(server)
+            self.slo.start()
+            logger.info("slo monitor: %d rule(s) from %s evaluated every "
+                        "%.1fs", len(rules), args.slo_rules,
+                        args.slo_interval)
+        if self.fleet is not None:
+            # the chief's windowed, fixed-memory history of its registry
+            # and the fleet-merged median/max (and the SLO good/total
+            # snapshots), at GET /histz and in history.jsonl
+            self.history = obs.MetricsHistory(
+                interval_s=args.fleet_interval, logdir=logdir,
+                rules=self.slo.rules if self.slo is not None else None,
+                fleet=self.fleet,
+            ).install(server).start()
+            logger.info("metrics history: fleet-merged sampling every "
+                        "%.1fs (GET /histz)", args.fleet_interval)
+            if dynamics is not None:
+                dynamics.attach_history(self.history)
+        if args.alert_rules:
+            try:
+                alert_rules = obs.alerts.load_rules(args.alert_rules)
+            except (OSError, ValueError, json.JSONDecodeError) as e:
+                raise SystemExit(f"--alert-rules {args.alert_rules}: {e}")
+            sinks = [obs.alerts.log_sink]
+            if args.alert_webhook:
+                sinks.append(obs.alerts.make_webhook_sink(args.alert_webhook))
+            self.alerts = obs.AlertManager(
+                alert_rules, interval_s=args.alert_interval,
+                logdir=logdir, history=self.history, fleet=self.fleet,
+                slo_monitor=self.slo, capture_engine=capture, sinks=sinks)
+            if server is not None:
+                self.alerts.install(server)
+                # /healthz?deep=1: the alerting, SLO and fleet planes on
+                # top of the shallow watchdog verdict
+                components = {"alerts": self.alerts.health_component}
+                if self.slo is not None:
+                    components["slo"] = obs.alerts.slo_health_component(
+                        self.slo)
+                if self.fleet is not None:
+                    components["fleet"] = obs.alerts.fleet_health_component(
+                        self.fleet)
+                server.deep_health_fn = obs.alerts.compose_deep_health(
+                    components)
+            self.alerts.start()
+            logger.info(
+                "alerts: %d rule(s) from %s evaluated every %.1fs%s",
+                len(alert_rules), args.alert_rules, args.alert_interval,
+                f" (webhook {args.alert_webhook})" if args.alert_webhook
+                else "")
+
+    def stop(self) -> None:
+        """One last evaluation and scrape, then the registry snapshot
+        again: the Trainer wrote metrics.prom at its last log step,
+        before these final gauge updates."""
+        if self.alerts is not None:
+            # before the SLO monitor: stop() runs one final evaluation so
+            # resolve rows land, and burn rules read the monitor's state
+            self.alerts.stop()
+        if self.slo is not None:
+            self.slo.stop()
+            try:
+                self.slo.evaluate()
+            except Exception:
+                logger.exception("final slo evaluation failed")
+        if self.history is not None:
+            self.history.stop()
+        if self.fleet is not None:
+            self.fleet.stop()
+        if self.dynamics is not None:
+            self.dynamics.close()
+        if (self.slo is not None or self.fleet is not None
+                or self.alerts is not None) and self.args.logdir \
+                and bootstrap.is_chief():
+            try:
+                obs.default_registry().write_prometheus(
+                    os.path.join(self.args.logdir, "metrics.prom"))
+            except OSError:
+                logger.exception("final metrics.prom export failed")
+
+
 def main(argv=None) -> list[dict]:
     """Train; returns the log records (the chief prints them).  A process
     group this call started is shut down at its end, and the goodput
@@ -723,7 +917,8 @@ def _train(args) -> list[dict]:
         flops_per_step=args.flops_per_step,
         anomaly_detection=not args.no_anomaly_detection,
         status_port=args.status_port, status_host=args.status_host,
-        flight_recorder=args.flight_recorder)
+        flight_recorder=args.flight_recorder,
+        dynamics_every=args.dynamics_every)
     if not config.flops_per_step and args.estimate_flops != "off":
         if wl.name.startswith(("gpt", "lm_")):
             per_token, _ = flops_per_token(state.model, wl.cfg, wl.seq_len)
@@ -733,11 +928,30 @@ def _train(args) -> list[dict]:
         elif args.estimate_flops == "on":
             step = _counting_first_step(step, config)
     printer = _PrintRecords(wl, bootstrap.is_chief())
+    dynamics = None
+    if args.dynamics_every > 0:
+        # every rank holds the same rows (the stats read the summed
+        # gradients); the chief writes them
+        dynamics = obs.DynamicsMonitor(
+            args.dynamics_every,
+            logdir=args.logdir if bootstrap.is_chief() else None,
+            loss_fn=wl.loss_fn(state.model),
+            tap_fn=make_nan_taps(state.model), log_every=args.log_every,
+            steps_per_call=args.steps_per_call,
+            modules=flax_modules(wl.cfg))
+        step = dynamics.wrap_train_step(step)
+        logger.info("dynamics: module telemetry every %d step(s) -> "
+                    "%s/dynamics.jsonl", args.dynamics_every, args.logdir)
     try:
         with Trainer(step, config, eval_step=eval_step,
                      checkpointer=checkpointer, preemption=preemption,
-                     callbacks=[printer]) as trainer:
-            trainer.fit(state, batches, eval_iter_fn=eval_iter_fn)
+                     callbacks=[cb for cb in (printer, dynamics)
+                                if cb is not None]) as trainer:
+            planes = _Planes(args, trainer, dynamics)
+            try:
+                trainer.fit(state, batches, eval_iter_fn=eval_iter_fn)
+            finally:
+                planes.stop()
     finally:
         if preemption is not None:
             preemption.uninstall()
