@@ -203,7 +203,7 @@ Phases, each fatal on failure:
     to localhost.  First verify_window: the speculative verify pass's
     logits against one-token steps on the same pool (bf16, a window of
     5, within 1e-4; JAX's batched form beside it for the record).  Then
-    16 greedy requests of 5-600 prompt tokens and 32 new tokens (8 share
+    16 greedy requests of 5-600 prompt tokens and 64 new tokens (8 share
     a 256-token header, 4 periodic, one streamed, two tenants) in four
     modes, (a) the defaults, (b) ``--prefix-cache --prefill-budget 64``
     with ``--kv-blocks`` at half of full provisioning, (c)
@@ -252,8 +252,12 @@ Phases, each fatal on failure:
     ``--dynamics-every 2``, ``--status-port 0``, ``--fleet``, the example
     SLO and alert rules and a ``--logdir``, at ``--steps-per-call`` 1 and
     4: dynamics rows on steps 2, 4, 6, 8, equal at k = 4 and k = 1;
-    ``/dynamicz``, ``/fleetz``, ``/sloz``, ``/alertz``, ``/histz`` and
-    ``/healthz?deep=1`` answer mid-run; the logdirs pass
+    ``/dynamicz``, ``/fleetz``, ``/sloz``, ``/alertz`` and ``/histz``
+    answer mid-run, and ``/healthz?deep=1`` fails exactly on the SLOs
+    whose gauges the process's registry holds burning from the start (a
+    whole run's trainer phase leaves goodput_fraction 0.12, whose fast
+    burn 2.9 exceeds 2.0: 503 with ``failing: ["slo"]``; alone: 200);
+    the logdirs pass
     ``tools/check_metrics_schema.py``, ``run_report.py`` and
     ``doctor.py``.  Step 2's stats against a plain fp64 recomputation
     from a snapshot of the parameters on the card and the plain gradients
@@ -261,7 +265,8 @@ Phases, each fatal on failure:
     cadence launches the port's kernels as a step on it and the device's
     kernels as a step without dynamics (torch.profiler).  The median step
     ms without dynamics and off and on the cadence at k = 1 and 4, with
-    peak memory.  NaN provenance: a NaN into block 5's MLP weight at a
+    peak memory (one build at each k, its steps with and without dynamics
+    taking turns on one state).  NaN provenance: a NaN into block 5's MLP weight at a
     step boundary (the JAX package's chaos drill), the pass names ``h5``
     by its activation taps and every later module counts the NaN through
     K1f and K2; its ms, host syncs and launches.  ``serve_torch`` over
@@ -1824,7 +1829,7 @@ SERVE_CLI_MODES = (
     ("d_speculate", ("--fused-sampling", "--speculate", "4")),
 )
 SERVE_CLI_CONTEXT = 2048
-SERVE_CLI_NEW_TOKENS = 32
+SERVE_CLI_NEW_TOKENS = 64
 #: Prompt lengths are divided by this (1 on the card; a CPU rehearsal
 #: cuts it together with the config).
 SERVE_CLI_SCALE = 1
@@ -3373,7 +3378,7 @@ def run_ckpt(torch, cuda, train_torch, smi, device="cuda"):
 TRAINER_STEPS, TRAINER_LOG, TRAINER_EVAL = 12, 2, 6
 TRAINER_PROFILE = (3, 2)
 TRAINER_PROBE_STEP = 8
-AB_ROUNDS, AB_STEPS, AB_LOG = 1, 20, 10
+AB_ROUNDS, AB_STEPS, AB_LOG = 2, 20, 10
 GATE_ARGS = ("--eval-every", "50", "--target-metric", "accuracy",
              "--target-value", "0.97", "--steps", "2000", "--log-every",
              "50")
@@ -4952,13 +4957,17 @@ PLANES_EVERY = 2          # --dynamics-every of those runs
 PLANES_PATHS = ("/dynamicz", "/fleetz", "/sloz", "/alertz", "/histz",
                 "/healthz?deep=1")
 PLANES_PROBE_STEP = 4
+PLANES_SLO_RULES = "examples/slo_rules.json"
 #: The first row against the plain recomputation from the snapshot, and
 #: the k = 1 build's row against the main run's: relative error bound.
 PLANES_TOL = 1e-4
-#: (dynamics_every, steps_per_call, timed calls): the cost of dynamics
-#: on a step, off and on the cadence (at k = 4 every 8 alternates calls
+#: (steps_per_call, dynamics_every, timed rounds): the cost of dynamics
+#: on a step.  A round is one call of a step without dynamics and two of
+#: the step with them over the same state, so that each round holds
+#: calls on and off the cadence (at k = 4 every 8 alternates calls
 #: holding a cadence step with calls that hold none).
-PLANES_TIMING = ((0, 1, 12), (2, 1, 12), (0, 4, 6), (8, 4, 6))
+PLANES_TIMING = ((1, 2, 8), (4, 8, 4))
+PLANES_WARM_ROUNDS = 2    # the eager calls and each cadence pattern's capture
 PLANES_POISON_LAYER = 5   # the block whose MLP weight the NaN goes into
 #: serve_torch runs of the mix at mode (a), planes off and on.
 PLANES_SERVE_RUNS = ("off", "on")
@@ -4987,25 +4996,37 @@ def _schema(paths) -> tuple[int, str]:
 
 def _planes_main(torch, cuda, train_torch, train_lib, logdir, k, device):
     """gpt_lm through ``train_torch.main`` with the dynamics cadence, the
-    status server, the fleet, the SLO and alert rules; a Callback GETs
-    PLANES_PATHS at PLANES_PROBE_STEP.  Launch counts set to 0 just
-    before, read just after.  ``(records, launches, answers, seconds)``."""
+    status server, the fleet, the SLO and alert rules; a Callback, at
+    PLANES_PROBE_STEP, waits for the SLO monitor's first evaluation and
+    GETs PLANES_PATHS, keeping ``/healthz?deep=1``'s body.  Launch counts
+    set to 0 just before, read just after.  ``(records, launches,
+    answers, deep health body, seconds)``."""
 
     class Probe(train_lib.Callback):
-        answers = {}
+        answers, deep = {}, None
 
         def on_step_end(self, trainer, step, state, metrics):
-            if step == PLANES_PROBE_STEP:
-                for path in PLANES_PATHS:
-                    self.answers[path] = _http(
-                        trainer.status_server.port, path, timeout=60)[0]
+            if step != PLANES_PROBE_STEP:
+                return
+            port = trainer.status_server.port
+            deadline = time.time() + 30
+            while any(r.get("pending") for r in json.loads(_http(
+                    port, "/sloz?format=json", timeout=60)[1])["rules"]):
+                if time.time() > deadline:
+                    raise AssertionError("planes: the SLO monitor did not "
+                                         "evaluate")
+                time.sleep(0.05)
+            for path in PLANES_PATHS:
+                self.answers[path], body = _http(port, path, timeout=60)
+                if path == "/healthz?deep=1":
+                    self.deep = json.loads(body)
 
     probe = Probe()
     argv = _trainer_argv(device) + [
         "--steps", str(PLANES_STEPS), "--log-every", "2",
         "--dynamics-every", str(PLANES_EVERY), "--steps-per-call", str(k),
         "--status-port", "0", "--fleet", "--fleet-interval", "0.5",
-        "--slo-rules", "examples/slo_rules.json", "--slo-interval", "0.5",
+        "--slo-rules", PLANES_SLO_RULES, "--slo-interval", "0.5",
         "--alert-rules", "examples/alert_rules.json", "--alert-interval",
         "0.5", "--logdir", logdir]
     sync(torch, torch.device(device))
@@ -5014,8 +5035,57 @@ def _planes_main(torch, cuda, train_torch, train_lib, logdir, k, device):
     with _extra_callbacks(train_torch, probe):
         records = train_torch.main(argv)
     sync(torch, torch.device(device))
-    return records, dict(cuda.launches), dict(probe.answers), \
+    return records, dict(cuda.launches), dict(probe.answers), probe.deep, \
         time.time() - t0
+
+
+def _burning_gauge_slos(path) -> list[str]:
+    """The SLO rules at ``path`` that a training run must find fast-burning
+    from the start: the gauge rules whose gauge this process's registry
+    already holds (a whole run's trainer phase leaves its
+    ``goodput_fraction``) with a fast burn over the rule's limit.  A
+    training run observes no serving histogram, and no page alert can
+    fire within its seconds (``training_stalled`` waits 30 s, the TTFT
+    burn has no traffic), so these alone fail ``/healthz?deep=1``."""
+    from distributedtensorflow_tpu_torch.obs import registry
+
+    with open(path) as f:
+        rules = json.load(f)["slos"]
+    reg = registry.default_registry()
+    burning = []
+    for rule in rules:
+        gauge = reg.get(rule["metric"])
+        if rule["kind"] == "histogram_under" or gauge is None:
+            continue
+        value = dict(gauge._items()).get(())
+        if value is None or not math.isfinite(value):
+            continue
+        good = value if rule["kind"] == "gauge_good_fraction" else 1 - value
+        good = min(max(good, 0.0), 1.0)
+        if (1 - good) / (1 - rule["objective"]) > rule["fast_burn"]:
+            burning.append(rule["name"])
+    return burning
+
+
+def _deep_health_problems(code, deep, burning) -> list[str]:
+    """What is wrong with a training run's ``/healthz?deep=1`` answer
+    (``code``, ``deep`` body), given the SLO rules ``burning`` from its
+    start: the alerts, SLO and fleet components, only the SLO one failing
+    and only for ``burning``, 503 exactly when something fails."""
+    if not deep or not deep.get("deep"):
+        return [f"deep health not composed: {code} {deep}"]
+    comps = deep["components"]
+    want = ["slo"] if burning else []
+    problems = []
+    if sorted(comps) != ["alerts", "fleet", "slo"]:
+        problems.append(f"deep health components {sorted(comps)}")
+    elif comps["slo"]["fast_burning"] != burning:
+        problems.append(f"SLO fast burning {comps['slo']['fast_burning']}, "
+                        f"expected {burning}")
+    if deep["failing"] != want or code != (503 if want else 200):
+        problems.append(f"deep health {code} failing {deep['failing']}, "
+                        f"expected {want}: {comps}")
+    return problems
 
 
 def _planes_build(train_torch, device, every, k):
@@ -5025,6 +5095,21 @@ def _planes_build(train_torch, device, every, k):
         _trainer_argv(device) + ["--dynamics-every", str(every),
                                  "--steps-per-call", str(k),
                                  "--prefetch-depth", "0"]))
+
+
+def _planes_run(train_torch, train_lib, mods, device, every, k):
+    """A build at ``every`` and k, with a second step over the same state
+    that computes no dynamics (``none``): the state is updated in place,
+    so the two steps take turns on one trajectory."""
+    import types
+
+    wl, state, step, batches = _planes_build(train_torch, device, every, k)
+    none = train_lib.make_multi_train_step(
+        wl.loss_fn(state.model), steps_per_call=k,
+        accum_steps=wl.accum_steps, seed=SEED, dynamics_every=0,
+        dynamics_modules=mods.flax_modules(wl.cfg))
+    return types.SimpleNamespace(wl=wl, state=state, step=step, none=none,
+                                 batches=batches, every=every, k=k)
 
 
 def _plain_stats(torch, modules, old, new, grads):
@@ -5066,40 +5151,40 @@ def _count_kernels(torch, fn) -> tuple[int, float]:
             sum(e.self_device_time_total for e in events) / 1e3)
 
 
-def _planes_recompute(torch, cuda, train_torch, train_lib, mods, device,
-                      main_row):
-    """Two steps of gpt_lm at ``--dynamics-every 2``: the first off the
-    cadence, the second on it.  A snapshot of the parameters on the card
-    after step 1 and the plain gradients of step 2's batch give the plain
-    stats of step 2 (:func:`_plain_stats`), held against the step's own
-    and against the main run's first row.  Each step's launches of the
-    port's kernels; on the card also each step's device kernel count
-    against a step without dynamics (torch.profiler)."""
+def _planes_recompute(torch, cuda, train_lib, mods, device, run, main_row):
+    """The first two steps of ``run`` (k = 1, ``--dynamics-every 2``):
+    the first off the cadence, the second on it.  A snapshot of the
+    parameters on the card after step 1 and the plain gradients of step
+    2's batch give the plain stats of step 2 (:func:`_plain_stats`), held
+    against the step's own and against the main run's first row.  Each
+    step's launches of the port's kernels; on the card also the device
+    kernel count of a step off and on the cadence (steps 3 and 4) and of
+    ``run.none`` (torch.profiler)."""
     from distributedtensorflow_tpu_torch.obs import dynamics as dyn
 
     dev = torch.device(device)
-    wl, state, step, batches = _planes_build(train_torch, device, 2, 1)
+    wl, step, batches = run.wl, run.step, run.batches
     cuda_dev = dev.type == "cuda"
     launches, kernels = {}, {}
     b1 = next(batches)
     sync(torch, dev)
     cuda.launches.clear()
-    state, _ = step(state, b1)
+    run.state, _ = step(run.state, b1)
     sync(torch, dev)
     launches["off"] = dict(cuda.launches)
     old = {n: p.detach().float().clone()
-           for n, p in state.model.named_parameters()}
+           for n, p in run.state.model.named_parameters()}
     b2 = next(batches)
     grads, _ = train_lib.accumulate_gradients(
-        wl.loss_fn(state.model), state.model, b2, seed=SEED, step=1,
+        wl.loss_fn(run.state.model), run.state.model, b2, seed=SEED, step=1,
         accum_steps=wl.accum_steps)
     sync(torch, dev)
     cuda.launches.clear()
-    state, m2 = step(state, b2)
+    run.state, m2 = step(run.state, b2)
     sync(torch, dev)
     launches["on"] = dict(cuda.launches)
     got = {k: float(v) for k, v in m2.items() if k.startswith("dynamics/")}
-    new = dict(state.model.named_parameters())
+    new = dict(run.state.model.named_parameters())
     plain = _plain_stats(torch, mods.flax_modules(wl.cfg), old, new, grads)
     err_plain = max(_rel_errs(got, plain).values())
     main = {f"dynamics/{stat}/{mod}": v
@@ -5108,20 +5193,18 @@ def _planes_recompute(torch, cuda, train_torch, train_lib, mods, device,
             if stat in ("grad_norm", "param_norm", "update_ratio")}
     main["dynamics/global_grad_norm"] = main_row["global_grad_norm"]
     err_main = max(_rel_errs(got, main).values())
-    del old, grads
+    del old, grads, new
     if cuda_dev:
-        # steps 3 and 4: off the cadence, then on it
-        assert not dyn.on_cadence(state.step, 2) \
-            and dyn.on_cadence(state.step + 1, 2)
+        # steps 3 and 4: off the cadence, then on it; then step 5 (its
+        # first call) and step 6 without dynamics
+        assert not dyn.on_cadence(run.state.step, 2) \
+            and dyn.on_cadence(run.state.step + 1, 2)
         for key in ("off", "on"):
             kernels[key] = _count_kernels(
-                torch, lambda: step(state, next(batches)))
-        _, base_state, base_step, base_batches = _planes_build(
-            train_torch, device, 0, 1)
-        base_step(base_state, next(base_batches))
+                torch, lambda: step(run.state, next(batches)))
+        run.none(run.state, next(batches))
         kernels["none"] = _count_kernels(
-            torch, lambda: base_step(base_state, next(base_batches)))
-        del base_state, base_step, base_batches
+            torch, lambda: run.none(run.state, next(batches)))
     row = {"phase": "planes_recompute", "rows": sorted(got),
            "max_rel_err_vs_plain": err_plain,
            "max_rel_err_vs_main_run": err_main, "tolerance": PLANES_TOL,
@@ -5143,92 +5226,78 @@ def _planes_recompute(torch, cuda, train_torch, train_lib, mods, device,
                             f"{kernels['none'][0]}")
     if problems:
         raise AssertionError(f"planes_recompute: {problems}")
-    del wl, state, step, batches
-    gc.collect()
-    empty_cache(torch, dev)
     return launches
 
 
-def _planes_timing(torch, train_torch, device):
-    """The median step ms at each PLANES_TIMING configuration, steps on
-    and off the cadence apart (a call of k steps is on it when it holds a
-    cadence step; its ms is divided by k), and the peak memory."""
+def _planes_timing(torch, device, run, rounds):
+    """The median step ms of ``run.none`` and of ``run.step`` on and off
+    the cadence (a call of k steps is on it when it holds a cadence step;
+    its ms is divided by k), taking turns in rounds over one state after
+    PLANES_WARM_ROUNDS untimed ones, and the peak memory of each."""
     from distributedtensorflow_tpu_torch.obs import dynamics as dyn
 
     dev = torch.device(device)
-    rows = []
-    for every, k, calls in PLANES_TIMING:
-        _, state, step, batches = _planes_build(train_torch, device, every,
-                                                k)
-        for _ in range(3 if k > 1 else 1):  # the eager call, the captures
-            state, m = step(state, next(batches))
-        sync(torch, dev)
-        if dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats()
-        ms = {"on": [], "off": []}
-        for _ in range(calls):
-            batch = next(batches)
-            on = any(dyn.on_cadence(state.step + i, every)
-                     for i in range(k))
+    cuda_dev = dev.type == "cuda"
+    ms = {"none": [], "off": [], "on": []}
+    peak = dict.fromkeys(ms, 0)
+    for r in range(PLANES_WARM_ROUNDS + rounds):
+        for step in (run.none, run.step, run.step):
+            key = "none" if step is run.none else "on" if any(
+                dyn.on_cadence(run.state.step + i, run.every)
+                for i in range(run.k)) else "off"
+            batch = next(run.batches)
             sync(torch, dev)
+            if cuda_dev:
+                torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            state, m = step(state, batch)
-            float(m["loss"][-1] if k > 1 else m["loss"])
-            ms["on" if on else "off"].append(
-                1e3 * (time.perf_counter() - t0) / k)
-        rows.append({
-            "dynamics_every": every, "steps_per_call": k,
-            "step_ms_off_cadence": (statistics.median(ms["off"])
-                                    if ms["off"] else None),
-            "step_ms_on_cadence": (statistics.median(ms["on"])
-                                   if ms["on"] else None),
-            "calls": {key: len(v) for key, v in ms.items()},
-            "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
-                         if dev.type == "cuda" else None)})
-        del state, step, batches
-        gc.collect()
-        empty_cache(torch, dev)
-    base = {r["steps_per_call"]: r["step_ms_off_cadence"] for r in rows
-            if not r["dynamics_every"]}
-    for r in rows:
-        if r["dynamics_every"] and r["step_ms_on_cadence"] is not None:
-            k = r["steps_per_call"]
-            # a cadence call's extra, on its one cadence step
-            r["cadence_extra_ms"] = k * (r["step_ms_on_cadence"]
-                                         - r["step_ms_off_cadence"])
-            r["off_cadence_vs_none_ms"] = (r["step_ms_off_cadence"]
-                                           - base[k])
-    emit({"phase": "planes_cost", "rows": rows})
-    return rows
+            run.state, m = step(run.state, batch)
+            float(m["loss"][-1] if run.k > 1 else m["loss"])
+            if r >= PLANES_WARM_ROUNDS:
+                ms[key].append(1e3 * (time.perf_counter() - t0) / run.k)
+                if cuda_dev:
+                    peak[key] = max(peak[key],
+                                    torch.cuda.max_memory_allocated())
+    med = {key: statistics.median(v) if v else None for key, v in ms.items()}
+    row = {"dynamics_every": run.every, "steps_per_call": run.k,
+           "step_ms_none": med["none"], "step_ms_off_cadence": med["off"],
+           "step_ms_on_cadence": med["on"],
+           "calls": {key: len(v) for key, v in ms.items()},
+           "peak_gib": ({key: v / 2**30 for key, v in peak.items()}
+                        if cuda_dev else None)}
+    if med["on"] is not None and med["off"] is not None:
+        # a cadence call's extra, on its one cadence step
+        row["cadence_extra_ms"] = run.k * (med["on"] - med["off"])
+        row["off_cadence_vs_none_ms"] = med["off"] - med["none"]
+    return row
 
 
-def _planes_provenance(torch, cuda, train_torch, mods, device, logdir):
+def _planes_provenance(torch, cuda, mods, device, run, logdir):
     """NaN provenance at full width, as the JAX package's chaos drill
     runs it (``resilience/chaos.py`` ``nan_loss`` with a module): two
-    steps under a DynamicsMonitor, then a NaN into block
+    steps of ``run.step`` under a DynamicsMonitor, then a NaN into block
     PLANES_POISON_LAYER's MLP weight in the live state at the step
     boundary, then the pass that a non-finite loss at that boundary
     runs.  It must name the block by its activation taps, and every
     module after it (each through K1f and K2) must count the NaN.  The
     pass's wall ms, its host syncs (``torch.cuda.set_sync_debug_mode``
-    warnings) and its launches of the port's kernels."""
+    warnings) and its launches of the port's kernels.  It poisons the
+    state, so it comes last."""
     import warnings
 
     from distributedtensorflow_tpu_torch import obs
 
     dev = torch.device(device)
-    wl, state, step, batches = _planes_build(train_torch, device, 1, 1)
-    model = state.model
+    wl, model = run.wl, run.state.model
     layer = min(PLANES_POISON_LAYER, wl.cfg.num_layers - 1)
-    mon = obs.DynamicsMonitor(1, logdir=logdir,
+    mon = obs.DynamicsMonitor(run.every, logdir=logdir,
                               loss_fn=wl.loss_fn(model),
                               tap_fn=mods.make_nan_taps(model),
                               modules=mods.flax_modules(wl.cfg))
-    step = mon.wrap_train_step(step)
-    mon.on_fit_begin(None, state)
+    step = mon.wrap_train_step(run.step)
+    mon.on_fit_begin(None, run.state)
     for _ in range(2):
-        state, m = step(state, next(batches))
-        mon.on_step_end(None, state.step, state, m)
+        run.state, m = step(run.state, next(run.batches))
+        mon.on_step_end(None, run.state.step, run.state, m)
     with torch.no_grad():
         model.h[layer].fc_in.weight.fill_(float("nan"))
     sync(torch, dev)
@@ -5241,7 +5310,7 @@ def _planes_provenance(torch, cuda, train_torch, mods, device, logdir):
             torch.cuda.set_sync_debug_mode("warn")
         try:
             t0 = time.perf_counter()
-            doc = mon.maybe_provenance(state.step, "non_finite_loss")
+            doc = mon.maybe_provenance(run.state.step, "non_finite_loss")
             sync(torch, dev)
             ms = 1e3 * (time.perf_counter() - t0)
         finally:
@@ -5270,10 +5339,29 @@ def _planes_provenance(torch, cuda, train_torch, mods, device, logdir):
                      or not launches.get("flash_fwd")):
         raise AssertionError(f"planes_provenance: the tap forward did not "
                              f"run K1f and K2: {launches}")
-    del wl, state, step, batches, model, mon
-    gc.collect()
-    empty_cache(torch, dev)
     return launches
+
+
+def _planes_steps(torch, cuda, train_torch, train_lib, mods, device,
+                  main_row, logdir):
+    """Two builds of gpt_lm, each with a step without dynamics over the
+    same state (:func:`_planes_run`).  At k = 1 and ``--dynamics-every
+    2``: the recomputation and the kernel counts, the timing, then the
+    provenance.  At k = 4 and every 8: the timing."""
+    dev = torch.device(device)
+    rows = []
+    for k, every, rounds in PLANES_TIMING:
+        run = _planes_run(train_torch, train_lib, mods, device, every, k)
+        if k == 1:
+            _planes_recompute(torch, cuda, train_lib, mods, device, run,
+                              main_row)
+        rows.append(_planes_timing(torch, device, run, rounds))
+        if k == 1:
+            _planes_provenance(torch, cuda, mods, device, run, logdir)
+        del run
+        gc.collect()
+        empty_cache(torch, dev)
+    emit({"phase": "planes_cost", "rows": rows})
 
 
 def _webhook_receiver():
@@ -5328,7 +5416,7 @@ def _planes_serve(torch, serve_torch, mods, config, device, tmp, smi):
             if planes == "on":
                 argv += [
                     "--history-interval", PLANES_SERVE_INTERVAL,
-                    "--slo-rules", "examples/slo_rules.json",
+                    "--slo-rules", PLANES_SLO_RULES,
                     "--slo-interval", PLANES_SERVE_INTERVAL,
                     "--alert-rules", rules, "--alert-interval",
                     PLANES_SERVE_INTERVAL, "--alert-webhook",
@@ -5401,12 +5489,14 @@ def run_planes(torch, cuda, train_torch, serve_torch, mods, device="cuda",
     ``train_torch.main`` with ``--dynamics-every 2``, the status server,
     ``--fleet``, the example SLO and alert rules, 8 steps at k = 1 and
     k = 4: dynamics rows on steps 2, 4, 6, 8, equal at k = 4 and k = 1,
-    /dynamicz /fleetz /sloz /alertz /histz /healthz?deep=1 answering, the
-    logdirs passing the schema checker, run_report and doctor; the first
-    row against a plain recomputation from a snapshot on the card; a step
-    off the cadence launching what a step without dynamics launches.
-    (2) The step ms with and without dynamics, on and off the cadence, at
-    k = 1 and k = 4.  (3) NaN provenance naming a poisoned block.  (4)
+    /dynamicz /fleetz /sloz /alertz /histz answering, /healthz?deep=1
+    failing exactly on the SLOs that the registry's gauges burn from the
+    start (:func:`_burning_gauge_slos`), the logdirs passing the schema
+    checker, run_report and doctor; the first row against a plain
+    recomputation from a snapshot on the card; a step off the cadence
+    launching what a step without dynamics launches.  (2) The step ms
+    with and without dynamics, on and off the cadence, at k = 1 and
+    k = 4.  (3) NaN provenance naming a poisoned block.  (4)
     serve_torch over HTTP with the planes off and on.  Returns the main
     path's launches: the two ``train_torch.main`` runs' and the serving
     runs'."""
@@ -5420,9 +5510,10 @@ def run_planes(torch, cuda, train_torch, serve_torch, mods, device="cuda",
     launches = collections.Counter()
     try:
         runs, problems = {}, []
+        burning = _burning_gauge_slos(PLANES_SLO_RULES)
         for k in (1, 4):
             logdir = os.path.join(tmp, f"train_k{k}")
-            records, got, answers, secs = _planes_main(
+            records, got, answers, deep, secs = _planes_main(
                 torch, cuda, train_torch, train_lib, logdir, k, device)
             launches.update(got)
             rows = _rows_of(os.path.join(logdir, "dynamics.jsonl"))
@@ -5438,7 +5529,8 @@ def run_planes(torch, cuda, train_torch, serve_torch, mods, device="cuda",
             emit({"phase": "planes_train", "k": k, "seconds": secs,
                   "steps": [r["step"] for r in rows],
                   "losses": [r["loss"] for r in records],
-                  "answers": answers, "schema_rc": rc_schema,
+                  "answers": answers, "deep_health": deep,
+                  "expected_fast_burning": burning, "schema_rc": rc_schema,
                   "tools_rc": tools, "launches": got,
                   "global_grad_norms": [r["global_grad_norm"]
                                         for r in rows]})
@@ -5447,9 +5539,10 @@ def run_planes(torch, cuda, train_torch, serve_torch, mods, device="cuda",
                 problems.append(f"k={k}: dynamics rows at "
                                 f"{[r['step'] for r in rows]}")
             if sorted(answers) != sorted(PLANES_PATHS) or any(
-                    answers[p] != 200 for p in PLANES_PATHS[:-1]) \
-                    or answers["/healthz?deep=1"] not in (200, 503):
+                    answers[p] != 200 for p in PLANES_PATHS[:-1]):
                 problems.append(f"k={k}: endpoints {answers}")
+            problems += [f"k={k}: {p}" for p in _deep_health_problems(
+                answers.get("/healthz?deep=1"), deep, burning)]
             if rc_schema or any(tools.values()):
                 problems.append(f"k={k}: schema {rc_schema} {out} tools "
                                 f"{tools}")
@@ -5463,11 +5556,8 @@ def run_planes(torch, cuda, train_torch, serve_torch, mods, device="cuda",
             problems.append("dynamics rows at k = 4 differ from k = 1")
         if problems:
             raise AssertionError(f"planes_train: {problems}")
-        _planes_recompute(torch, cuda, train_torch, train_lib, mods, device,
-                          runs[1][0])
-        _planes_timing(torch, train_torch, device)
-        _planes_provenance(torch, cuda, train_torch, mods, device,
-                           os.path.join(tmp, "provenance"))
+        _planes_steps(torch, cuda, train_torch, train_lib, mods, device,
+                      runs[1][0], os.path.join(tmp, "provenance"))
         sync(torch, torch.device(device))
         cuda.launches.clear()
         _planes_serve(torch, serve_torch, mods, serve_config, device, tmp,

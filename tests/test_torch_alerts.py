@@ -282,3 +282,51 @@ def test_deep_health_components_match_jax(busy, age, draining):
     assert "broken" in verdicts[0]["failing"]
     assert verdicts[0]["components"]["engine"]["ok"] is \
         (not (busy and age > 30.0) and not draining)
+
+
+@pytest.mark.parametrize("goodput", [None, 0.1198, 0.9])
+def test_deep_health_of_a_training_run_matches_jax(goodput):
+    """``train.py``'s composition (alerts, SLO, fleet) over the example
+    rules, on a registry that holds no serving traffic and perhaps a
+    ``goodput_fraction`` gauge left by an earlier run in the process (a
+    whole ``chip_smoke.py`` run leaves its trainer phase's 0.1198): both
+    packages give the same verdict, and only the goodput SLO's fast burn,
+    (1 - 0.1198) / 0.3 = 2.93 > 2.0, fails it."""
+    with open(os.path.join(REPO, "examples", "slo_rules.json")) as f:
+        slo_rules = json.load(f)["slos"]
+    alert_path = os.path.join(REPO, "examples", "alert_rules.json")
+
+    class _Fleet:
+        def view(self):
+            return {"peers": {"chief": {"state": "up"}}, "metrics": {}}
+
+    verdicts = []
+    for pkg in ("torch", "jax"):
+        reglib, alertlib, slolib, tsdblib = PACKAGES[pkg]
+        reg = reglib.Registry()
+        reg.counter("data_batches_total").inc(8)
+        if goodput is not None:
+            reg.gauge("goodput_fraction").set(goodput)
+        clock = Clock()
+        mon = slolib.SLOMonitor(slo_rules, registry=reg, time_fn=clock)
+        hist = tsdblib.MetricsHistory(registry=reg, time_fn=clock)
+        mgr = alertlib.AlertManager(
+            alertlib.load_rules(alert_path), registry=reg, history=hist,
+            fleet=_Fleet(), slo_monitor=mon, sinks=[], record_flight=False,
+            time_fn=clock)
+        for _ in range(4):
+            clock.t += 0.5
+            mon.evaluate()
+            hist.tick()
+            mgr.evaluate()
+        verdicts.append(alertlib.compose_deep_health({
+            "alerts": mgr.health_component,
+            "slo": alertlib.slo_health_component(mon),
+            "fleet": alertlib.fleet_health_component(_Fleet()),
+        })())
+    assert verdicts[0] == verdicts[1]
+    burning = ["goodput_fraction"] if goodput is not None \
+        and goodput < 0.4 else []
+    assert verdicts[0]["components"]["slo"]["fast_burning"] == burning
+    assert verdicts[0]["failing"] == (["slo"] if burning else [])
+    assert verdicts[0]["ok"] is not burning
