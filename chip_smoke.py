@@ -125,7 +125,7 @@ Phases, each fatal on failure:
     without its commit marker is no step.  (d) the checkpoint's bytes,
     the blocking ms of async and sync saves, the background commit, the
     restore, the fast-forward, a step overlapping a commit beside one
-    that does not.  ckpt_determinism: two steps of every preset under
+    that does not.  ckpt_determinism: one step of every preset under
     ``--deterministic`` in a fresh process; an op without a deterministic
     CUDA version is recorded by preset.
 
@@ -278,12 +278,40 @@ Phases, each fatal on failure:
     ``history.jsonl`` holds the tenants' pinned usage series and the
     logs pass the schema checker.
 
+24. scaleout: quantised training and the model and batch axes.  (a)
+    gpt_lm's four block GEMMs at 16384 tokens (768->2304, 768->768,
+    768->3072, 3072->768, bf16 operands quantised per channel): the
+    int8 accumulator of ``torch._int_mm`` equals the fp64 product of the
+    same codes, fp8's (``torch._scaled_mm``, unit scales, fp32 out)
+    within 2e-3 of its max-abs, each timed beside bf16 ``F.linear`` and
+    the quantise pass; a ``QuantDense`` at each of those GEMMs on a (8,
+    2048, in) input, at int8, int8_stochastic and fp8: its output equal
+    to the fp64 product of its codes rescaled by ``sx * sw`` (fp8 within
+    2e-3 plus bf16's rounding), its straight-through gradients within
+    4e-3 of the fp64 products; gpt_lm as phase 9 runs it at ``--quant
+    int8`` and ``fp8`` (1+3 steps: median ms, MFU on the bf16 rate, peak
+    GiB, phase 9's launches), the first loss within 2e-2 of ``--quant
+    none``'s (a smoke check: the first loss is near ln V whatever the
+    blocks return), and one ``int8_stochastic`` step.  (b) two ``--scaleout-worker``
+    processes over gloo on the one card, ``--mesh data=1,model=2``:
+    gpt_lm at full width cut to 2 layers (12 heads, E 768, V 50257),
+    dropout 0, one step in fp32 and in bf16, each rank on 6 heads and its
+    25129 or 25128 vocab rows, K1f, K1b, K2, K3f, K4f and K4b launched
+    their derived counts; losses and the put-together gradients against
+    one process on the same batch (fp32 1e-5 and 1e-4 of each max-abs,
+    bf16 2e-2 and 1e-1); ``--mesh data=1,model=1`` over NCCL equals
+    phase 9's losses bit for bit.  (c) the same processes at ``--mesh
+    data=2``, fp32: ``--zero`` within 1e-5 of the plain step with about
+    half its optimizer state (tensors and the allocator's growth over
+    the first step), ``--overlap`` bit-equal to it (bucket count and
+    coverage printed).  No gloo time is a scaling time.
+
 Kernel launch counts are set to 0 just before phases 5, 6 (each generate
 run), 9-11, 13, 14 (each path; in each rank's process), 15's resumed
 steps, 16's run through ``train_torch.main``, 17's runs, 18's training
 steps and decoding, each server run of 19, 20's steps, each of 21's
 optimizer runs, 23's two ``train_torch.main`` runs and its serving runs,
-and read just after (a
+24's steps (in each rank's process), and read just after (a
 replayed graph counts what its capture counted); a kernel of the path
 that did not launch, or a gpt_lm, gpt_moe or BERT training step that
 launched a kernel another number of times than its forward,
@@ -312,7 +340,9 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core rate
-              "float32": 67e12}    # outside the tensor cores
+              "float32": 67e12,    # outside the tensor cores
+              "int8": 1979e12,     # dense tensor-core rates of the
+              "float8_e4m3fn": 1979e12}  # narrow types
 L2_BYTES = 50 * 2**20
 SEED = 0
 
@@ -1674,7 +1704,7 @@ def _last_logits(torch, mods, model, tokens):
 
 
 def run_generate_gqa(torch, cuda, mods, attn):
-    """Dense ``generate`` on gpt_small at full width, cut to 4 layers,
+    """Dense ``generate`` on gpt_small at full width, cut to 2 layers,
     with one kv head (12
     query heads a group, which the first K5 refused), B 2, a 6000-token
     prompt in a cache of 8192 (past the first K5's shared-memory band),
@@ -1686,8 +1716,9 @@ def run_generate_gqa(torch, cuda, mods, attn):
     bf16 rounding here and there, which the bf16 layers carry to the
     logits; the largest single difference is reported beside it)."""
     # 6015 one-token forwards a run, each bound by the host's launches,
-    # which grow with the depth: cut to keep the script's time
-    cfg = dataclasses.replace(mods.gpt_small(), num_layers=4, num_kv_heads=1,
+    # which grow with the depth: cut to 2 layers to keep the script's
+    # time
+    cfg = dataclasses.replace(mods.gpt_small(), num_layers=2, num_kv_heads=1,
                               max_seq=8192)
     state = mods.init_params(cfg, torch.Generator().manual_seed(SEED + 12))
     model = mods.GPTLM(cfg)
@@ -2993,7 +3024,7 @@ def ckpt_worker(argv_json) -> int:
 
 
 def det_worker(out_path) -> int:
-    """The determinism survey (``--det-worker``): two steps of every
+    """The determinism survey (``--det-worker``): one step of every
     preset through ``train_torch.main --deterministic`` (a fresh process:
     cuBLAS reads its workspace setting when it starts).  An op without a
     deterministic CUDA version raises; its message is recorded for the
@@ -3003,7 +3034,7 @@ def det_worker(out_path) -> int:
     results = {}
     for name, batch in DET_RUNS:
         argv = ["--workload", name, "--batch-size", str(batch), "--steps",
-                "2", "--log-every", "1", "--seed", str(SEED),
+                "1", "--log-every", "1", "--seed", str(SEED),
                 "--deterministic", "--device", "cuda"]
         try:
             with _cut_config(train_torch, num_layers=2):
@@ -5569,9 +5600,444 @@ def run_planes(torch, cuda, train_torch, serve_torch, mods, device="cuda",
     return launches
 
 
+#: The scaleout phase: gpt_lm's quantised steps (the train phase's
+#: shape), its block GEMMs at a step's 16384 tokens, and the model=2 and
+#: data=2 (ZeRO, overlap) steps in two processes over gloo on the card.
+QUANT_STEPS = 3
+#: The first (warm-up) loss of a quantised step against the full-width
+#: one's on the same weights and batch, relative: int8 moves each product
+#: by its rounding, up to 1/254 of a channel's absmax an operand.
+QUANT_LOSS_RTOL = 2e-2
+#: gpt_lm's block GEMMs (name, in, out) at QUANT_TOKENS tokens.
+QUANT_GEMMS = (("qkv", 768, 2304), ("proj", 768, 768), ("fc_in", 768, 3072),
+               ("fc_out", 3072, 768))
+QUANT_TOKENS = 16384
+#: fp8's accumulator against the exact (fp64) product of the same fp8
+#: codes, of the product's max-abs: the tensor cores accumulate fp8
+#: products at less than fp32's precision.
+FP8_TOL = 2e-3
+SCALE_STEPS = 1
+#: model=2 against one process (loss relative, each gradient of its
+#: max-abs): fp32 sums the ranks' partial products in another order; in
+#: bf16 each rank rounds its partial products before the sum.
+SCALE_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2e-2, 1e-1)}
+SCALE_DP_RUNS = (("plain", ()), ("zero", ("--zero",)),
+                 ("overlap", ("--overlap",)))
+
+
+def check_quant_gemms(torch, F):
+    """gpt_lm's four block GEMMs at 16384 tokens (bf16 operands, the
+    port's (out, in) weights): the int8 accumulator of
+    ``torch._int_mm`` equals the exact product of the same codes (fp64),
+    the fp8 accumulator of ``torch._scaled_mm`` is within FP8_TOL of it;
+    each timed beside bf16 ``F.linear`` and the quantise pass."""
+    from distributedtensorflow_tpu_torch.ops import quant as tq
+
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for name, k, n in QUANT_GEMMS:
+        x = torch.randn(QUANT_TOKENS, k, device="cuda",
+                        generator=gen).bfloat16()
+        w = (torch.randn(n, k, device="cuda", generator=gen)
+             / math.sqrt(k)).bfloat16()
+        row = {"phase": "quant_gemm", "gemm": name, "m": QUANT_TOKENS,
+               "k": k, "n": n,
+               "bf16_ms": time_ms(torch, F.linear, [(x, w)])}
+        for mode in ("int8", "fp8"):
+            xq, _ = tq.quantize(x, mode=mode)
+            wq, _ = tq.quantize(w, mode=mode)
+            acc = tq.narrow_product(xq, wq)
+            ref = xq.double() @ wq.double().T
+            err = float((acc.double() - ref).abs().max())
+            rel = err / float(ref.abs().max())
+            ok = err == 0.0 if mode == "int8" else rel <= FP8_TOL
+            nbytes = (QUANT_TOKENS * k + n * k) * 1 + QUANT_TOKENS * n * 4
+            bound, by = bound_ms(nbytes, 2.0 * QUANT_TOKENS * n * k,
+                                 xq.dtype)
+            row[mode] = {
+                "max_abs_err": err, "rel_err": rel, "ok": ok,
+                "ms": time_ms(torch, tq.narrow_product, [(xq, wq)]),
+                "quantize_ms": time_ms(
+                    torch, lambda a, b, m=mode: (tq.quantize(a, mode=m),
+                                                 tq.quantize(b, mode=m)),
+                    [(x, w)]),
+                "bound_ms": bound, "bound_by": by,
+                "tolerance": "exact (the int32 accumulator against the "
+                             "fp64 product of the codes)" if mode == "int8"
+                             else f"{FP8_TOL} of the fp64 product's max-abs"}
+            if not ok:
+                emit(row)
+                raise AssertionError(f"quant_gemm {name} {mode}: error "
+                                     f"{err} ({rel} of max)")
+        emit(row)
+        rows.append(row)
+        del x, w
+    torch.cuda.empty_cache()
+    return rows
+
+
+#: The straight-through gradients of a QuantDense (bf16 operands) against
+#: the fp64 products of the same operands, of each gradient's max-abs:
+#: fp32 products rounded to bf16, whose unit roundoff is 2^-8.
+STE_TOL = 4e-3
+
+
+def check_quant_dense(torch):
+    """One ``QuantDense`` a block GEMM of gpt_lm and a mode, on a (8,
+    2048, in) bf16 input as the blocks give it: its forward (``int8_dot``
+    through ``QuantMatmulFn``, the rescale by ``sx * sw``, the (B, S)
+    layout) against the fp64 product of the same codes, rescaled in fp32
+    and rounded to bf16 as the layer does, exactly for int8 and
+    int8_stochastic (its uniforms drawn at the layer's site), within
+    FP8_TOL plus bf16's rounding of the output for fp8; its gradients
+    (the straight-through backward) against the fp64 products ``g w``
+    and ``g^T x`` within STE_TOL."""
+    from distributedtensorflow_tpu_torch.models.layers import QuantDense
+    from distributedtensorflow_tpu_torch.ops import quant as tq
+
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    b = 8
+    for name, k, n in QUANT_GEMMS:
+        x = torch.randn(QUANT_TOKENS, k, device="cuda",
+                        generator=gen).bfloat16()
+        w = (torch.randn(n, k, device="cuda", generator=gen)
+             / math.sqrt(k)).bfloat16()
+        g = torch.randn(QUANT_TOKENS, n, device="cuda",
+                        generator=gen).bfloat16()
+        for mode in ("int8", "int8_stochastic", "fp8"):
+            layer = QuantDense(k, n, dtype=torch.bfloat16, quant=mode,
+                               device="cuda")
+            layer.seed, layer.site = SEED, 3
+            with torch.no_grad():
+                layer.weight.copy_(w)
+            x3 = x.reshape(b, -1, k).clone().requires_grad_()
+            y = layer(x3)
+            y.backward(g.reshape(b, -1, n))
+            kx = kw = None
+            if mode == "int8_stochastic":
+                kx, kw = (SEED, 2 * layer.site), (SEED, 2 * layer.site + 1)
+            xq, sx = tq.quantize(x, mode=mode, key=kx)
+            wq, sw = tq.quantize(w, mode=mode, key=kw)
+            acc = xq.double() @ wq.double().T
+            y2 = y.detach().reshape(QUANT_TOKENS, n)
+            if mode == "fp8":
+                ref = acc * sx.double() * sw.double()[:, 0]
+                err = float((y2.double() - ref).abs().max())
+                rel = err / float(ref.abs().max())
+                tol = FP8_TOL + 2.0 ** -8
+                fwd_ok = rel <= tol
+            else:
+                want = (acc.float() * sx * sw[:, 0]).bfloat16()
+                err = float((y2.float() - want.float()).abs().max())
+                rel = err / float(want.float().abs().max())
+                tol = 0.0
+                fwd_ok = torch.equal(y2, want)
+            grad_err = {}
+            for gname, got, ref in (
+                    ("dx", x3.grad.reshape(QUANT_TOKENS, k),
+                     g.double() @ w.double()),
+                    ("dw", layer.weight.grad, g.double().T @ x.double())):
+                grad_err[gname] = float((got.double() - ref).abs().max()) \
+                    / float(ref.abs().max())
+            ok = fwd_ok and max(grad_err.values()) <= STE_TOL
+            row = {"phase": "quant_dense", "gemm": name, "mode": mode,
+                   "shape": [b, QUANT_TOKENS // b, k], "out": n,
+                   "fwd_max_abs_err": err, "fwd_rel_err": rel,
+                   "grad_rel_err": grad_err,
+                   "ok": ok,
+                   "tolerance": {
+                       "forward": "exact (the fp64 product of the codes, "
+                                  "rescaled in fp32, rounded to bf16)"
+                                  if tol == 0.0 else
+                                  f"{tol} of the fp64 product's max-abs",
+                       "grads": f"{STE_TOL} of the fp64 product's "
+                                "max-abs"}}
+            emit(row)
+            rows.append(row)
+            if not ok:
+                raise AssertionError(f"quant_dense {name} {mode}: forward "
+                                     f"error {err}, gradients {grad_err}")
+            del layer, x3, y
+        del x, w, g
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_quant_train(torch, cuda, train_torch, train_row):
+    """gpt_lm as the train phase runs it at ``--quant int8`` and ``fp8``
+    (1+3 steps: median ms, MFU on the bf16 rate, peak GiB, launches as the
+    train phase's), the first loss within QUANT_LOSS_RTOL of the
+    full-width one's, and one ``int8_stochastic`` step."""
+    launches = collections.Counter()
+    if train_row is None:  # the train phase did not run: none's steps here
+        train_row = train_steps(torch, cuda, train_torch,
+                                _train_args(train_torch), QUANT_STEPS,
+                                "quant_none")[-1]
+        torch.cuda.empty_cache()
+    for mode in ("int8", "fp8"):
+        state, _, _, got, row = train_steps(
+            torch, cuda, train_torch,
+            _train_args(train_torch, "--quant", mode), QUANT_STEPS,
+            f"quant_{mode}")
+        del state
+        torch.cuda.empty_cache()
+        _check_launches(row["phase"], got, QUANT_STEPS,
+                        TRAIN_LAUNCHES_PER_STEP)
+        launches.update(got)
+        rel = abs(row["losses"][0] - train_row["losses"][0]) \
+            / abs(train_row["losses"][0])
+        row.update({"quant": mode, "first_loss_rel_to_none": rel,
+                    "none_step_ms_median": train_row["step_ms_median"],
+                    "none_mfu": train_row["mfu"],
+                    "none_peak_mem_gib": train_row["peak_mem_gib"],
+                    "tolerance": f"first loss {QUANT_LOSS_RTOL} relative "
+                                 "to --quant none's"})
+        emit(row)
+        if rel > QUANT_LOSS_RTOL:
+            raise AssertionError(f"quant_{mode}: first loss "
+                                 f"{row['losses'][0]} vs none's "
+                                 f"{train_row['losses'][0]}")
+    _, state, step, batches = train_torch.build(
+        _train_args(train_torch, "--quant", "int8_stochastic"))
+    cuda.launches.clear()
+    t0 = time.perf_counter()
+    state, m = step(state, next(batches))
+    loss = float(m["loss"])
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches.update(cuda.launches)
+    rel = abs(loss - train_row["losses"][0]) / abs(train_row["losses"][0])
+    emit({"phase": "quant_int8_stochastic", "loss": loss,
+          "first_step_ms": ms, "first_loss_rel_to_none": rel})
+    del state, step, batches
+    torch.cuda.empty_cache()
+    if not math.isfinite(loss) or rel > QUANT_LOSS_RTOL:
+        raise AssertionError(f"quant_int8_stochastic: loss {loss}")
+    return launches
+
+
+def _scale_args(train_torch, dtype, *extra):
+    return _train_args(train_torch, "--dtype", dtype, "--dist-backend",
+                       "gloo", *extra)
+
+
+def _scale_run(torch, cuda, train_torch, dtype, *extra):
+    """SCALE_STEPS steps of gpt_lm (DP_LAYERS layers, dropout 0) through
+    ``train_torch.build``: the losses, the first step's gradients (this
+    rank's shards, by name), the parameters after, the launches, the
+    optimizer state's bytes (its tensors, and the allocator's growth over
+    the first step, which makes the moments) and the split's shape."""
+    before = torch.cuda.memory_allocated()
+    with _cut_config(train_torch, num_layers=DP_LAYERS, dropout_rate=0.0):
+        _, state, step, batches = train_torch.build(
+            _scale_args(train_torch, dtype, *extra))
+    built = torch.cuda.memory_allocated()
+    grads = {}
+    apply = state.apply_gradients
+
+    def record(g):
+        if not grads:
+            grads.update({k: v.detach().cpu() for k, v in g.items()})
+        return apply(g)
+
+    state.apply_gradients = record
+    cuda.launches.clear()
+    losses, first = [], None
+    for _ in range(SCALE_STEPS):
+        state, m = step(state, next(batches))
+        losses.append(float(m["loss"]))
+        if first is None:
+            torch.cuda.synchronize()
+            first = torch.cuda.memory_allocated() - built
+    torch.cuda.synchronize()
+    attn = state.model.h[0].attn
+    out = {"losses": losses, "grads": grads,
+           "params": {n: p.detach().cpu()
+                      for n, p in state.model.named_parameters()},
+           "launches": dict(cuda.launches),
+           "opt_state_bytes": sum(
+               v.numel() * v.element_size()
+               for st in state.optimizer.state.values()
+               for v in st.values() if torch.is_tensor(v)),
+           "alloc_first_step": first, "alloc_build": built - before,
+           "heads": attn.n_heads, "vocab_rows": state.model.wte.weight.shape[0],
+           "buckets": len(state.overlap.buckets) if state.overlap else 0,
+           "coverage": state.overlap.coverage if state.overlap else 0.0}
+    del state, step, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def scaleout_worker(out_dir) -> int:
+    """One rank of the scaleout phase's two (``--scaleout-worker``): the
+    cluster from torchrun's variables, gloo, gpt_lm at DP_LAYERS layers
+    through ``--mesh data=1,model=2`` in fp32 and bf16, then ``--mesh
+    data=2`` plain, ``--zero`` and ``--overlap`` in fp32; saved as
+    ``<out_dir>/rank<r>.pt``."""
+    import torch
+
+    import train_torch
+    from distributedtensorflow_tpu_torch.ops import _cuda
+    from distributedtensorflow_tpu_torch.parallel import bootstrap
+
+    results = {}
+    for dtype in ("float32", "bfloat16"):
+        results["model2", dtype] = _scale_run(
+            torch, _cuda, train_torch, dtype, "--mesh", "data=1,model=2")
+    for name, flags in SCALE_DP_RUNS:
+        results[name] = _scale_run(torch, _cuda, train_torch, "float32",
+                                   "--mesh", "data=2", *flags)
+    torch.save(results, f"{out_dir}/rank{bootstrap.process_index()}.pt")
+    bootstrap.shutdown()
+    return 0
+
+
+def _grad_errs(got: dict, ref: dict) -> float:
+    """The largest difference of a gradient over its max-abs."""
+    return max(float((got[k] - v).abs().max()
+                     / v.abs().max().clamp_min(1e-30)) for k, v in ref.items())
+
+
+def run_scaleout(torch, cuda, train_torch, F, train_row):
+    """(a) check_quant_gemms, check_quant_dense and run_quant_train; (b) model=2: two ranks
+    on the one card over gloo (``--scaleout-worker`` processes), gpt_lm at
+    full width cut to DP_LAYERS layers, in fp32 and bf16, against one
+    process on the same batch (losses and every gradient, the shards put
+    together), each rank on 6 of the 12 heads and its 25129 or 25128 of
+    the 50257 vocab rows, launching the derived kernel counts; model=1
+    over NCCL equals the train phase's losses bit for bit; (c) data=2 in
+    the same processes, plain, ``--zero`` (losses beside the plain
+    step's, each rank's optimizer state about half) and ``--overlap``
+    (losses and parameters bit-equal to the plain step's).  No time of a
+    gloo run is a scaling time: both ranks share one card, and their
+    collectives go through the host."""
+    from distributedtensorflow_tpu_torch.models.gpt import GPTLM, gpt_layout
+    from distributedtensorflow_tpu_torch.parallel import bootstrap, sharding
+
+    t0 = time.time()
+    check_quant_gemms(torch, F)
+    check_quant_dense(torch)
+    launches = run_quant_train(torch, cuda, train_torch, train_row)
+    emit({"phase": "scaleout_quant_seconds", "seconds": time.time() - t0})
+    out_dir = "build/scaleout_check"
+    os.makedirs(out_dir, exist_ok=True)
+    env = {**os.environ, "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(bootstrap.free_port()), "WORLD_SIZE": "2",
+           "LOCAL_RANK": "0"}  # both ranks on the one card
+    procs = [subprocess.Popen([sys.executable, __file__,
+                               "--scaleout-worker", out_dir],
+                              env={**env, "RANK": str(r)})
+             for r in range(2)]
+    try:
+        refs = {dtype: _scale_run(torch, cuda, train_torch, dtype)
+                for dtype in ("float32", "bfloat16")}
+        # model=1 over NCCL: the tensor-parallel build of a world of one
+        state, _, _, nccl_launches, row = train_steps(
+            torch, cuda, train_torch, _train_args(
+                train_torch, "--mesh", "data=1,model=1", "--dist-backend",
+                "nccl"), 4, "scaleout_model1_nccl")
+        del state
+        bootstrap.shutdown()
+        torch.cuda.empty_cache()
+        _check_launches("scaleout_model1_nccl", nccl_launches, 4,
+                        TRAIN_LAUNCHES_PER_STEP)
+        launches.update(nccl_launches)
+        if train_row is not None:
+            row["train_losses"] = train_row["losses"]
+            row["equal_to_train"] = row["losses"] == train_row["losses"]
+        emit(row)
+        if train_row is not None and not row["equal_to_train"]:
+            raise AssertionError("scaleout_model1_nccl: losses differ from "
+                                 "the train phase's")
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if rcs != [0, 0]:
+        raise AssertionError(f"scaleout: the ranks exited with {rcs}")
+    ranks = [torch.load(f"{out_dir}/rank{r}.pt") for r in range(2)]
+    failures = []
+    expected = _dp_launches("gpt_lm")
+    with _cut_config(train_torch, num_layers=DP_LAYERS):
+        cfg = train_torch.get_workload("gpt_lm").cfg
+    rules = sharding.tp_rules(GPTLM(cfg, device="meta"), cfg, gpt_layout())
+    for dtype, (loss_tol, grad_tol) in SCALE_TOL.items():
+        got = [rk["model2", dtype] for rk in ranks]
+        ref = refs[dtype]
+        loss_err = max(abs(a - b) / abs(b) for g in got
+                       for a, b in zip(g["losses"], ref["losses"]))
+        grads = sharding.unshard_states([g["grads"] for g in got], rules)
+        grad_err = _grad_errs(grads, ref["grads"])
+        per_step = [{k: g["launches"].get(k, 0) / SCALE_STEPS
+                     for k in expected} for g in got]
+        ok = (loss_err <= loss_tol and grad_err <= grad_tol
+              and per_step == [expected, expected]
+              and [g["heads"] for g in got] == [cfg.num_heads // 2] * 2
+              and sum(g["vocab_rows"] for g in got) == cfg.vocab_size)
+        for g in got:
+            launches.update(g["launches"])
+        emit({"phase": "scaleout_model2", "dtype": dtype, "world": 2,
+              "backend": "gloo", "mesh": "data=1,model=2",
+              "layers": DP_LAYERS, "losses": got[0]["losses"],
+              "ref_losses": ref["losses"], "loss_rel_err": loss_err,
+              "grad_err": grad_err, "heads_per_rank": got[0]["heads"],
+              "vocab_rows": [g["vocab_rows"] for g in got],
+              "launches_per_step": per_step[0], "ok": ok,
+              "tolerance": f"losses {loss_tol} relative, gradients "
+                           f"{grad_tol} of each one's max-abs, against one "
+                           "process on the same batch"})
+        if not ok:
+            failures.append(("model2", dtype))
+    plain = [rk["plain"] for rk in ranks]
+    for name, _ in SCALE_DP_RUNS[1:]:
+        got = [rk[name] for rk in ranks]
+        loss_err = max(abs(a - b) / abs(b) for g, p in zip(got, plain)
+                       for a, b in zip(g["losses"], p["losses"]))
+        param_err = max(_grad_errs(g["params"], p["params"])
+                        for g, p in zip(got, plain))
+        same = all(torch.equal(g["params"][k], p["params"][k])
+                   for g, p in zip(got, plain) for k in p["params"])
+        ratio = got[0]["opt_state_bytes"] / plain[0]["opt_state_bytes"]
+        alloc_ratio = got[0]["alloc_first_step"] / max(
+            plain[0]["alloc_first_step"], 1)
+        if name == "zero":
+            ok = loss_err <= 1e-5 and param_err <= 1e-5 \
+                and 0.45 <= ratio <= 0.55
+        else:
+            ok = same and loss_err == 0.0 and got[0]["buckets"] > 1
+        for g in got:
+            launches.update(g["launches"])
+        emit({"phase": f"scaleout_data2_{name}", "world": 2,
+              "backend": "gloo", "layers": DP_LAYERS, "dtype": "float32",
+              "losses": got[0]["losses"], "plain_losses": plain[0]["losses"],
+              "loss_rel_err": loss_err, "param_err": param_err,
+              "params_equal_plain": same,
+              "opt_state_bytes": [g["opt_state_bytes"] for g in got],
+              "plain_opt_state_bytes": plain[0]["opt_state_bytes"],
+              "opt_state_ratio": ratio,
+              "alloc_first_step": [g["alloc_first_step"] for g in got],
+              "plain_alloc_first_step": plain[0]["alloc_first_step"],
+              "alloc_first_step_ratio": alloc_ratio,
+              "buckets": got[0]["buckets"], "coverage": got[0]["coverage"],
+              "ok": ok,
+              "tolerance": "losses and parameters 1e-5 of the plain step's "
+                           "(relative; of each one's max-abs), optimizer "
+                           "state 0.45-0.55 of it" if name == "zero" else
+                           "losses and parameters bit-equal to the plain "
+                           "step's"})
+        if not ok:
+            failures.append(name)
+    emit({"phase": "scaleout_seconds", "seconds": time.time() - t0})
+    if failures:
+        raise AssertionError(f"scaleout: {failures} failed")
+    return launches
+
+
 PHASES = ("layernorm", "kernels", "xent", "serving", "serve_cli", "train",
           "baseline", "dp", "ckpt", "trainer", "multistep", "presets2",
-          "bert_moe", "optim", "records", "planes")
+          "bert_moe", "optim", "records", "planes", "scaleout")
 
 
 def main(argv=None) -> int:
@@ -5583,6 +6049,8 @@ def main(argv=None) -> int:
     p.add_argument("--ckpt-worker", default=None, help=argparse.SUPPRESS)
     p.add_argument("--det-worker", default=None, help=argparse.SUPPRESS)
     p.add_argument("--trainer-worker", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--scaleout-worker", default=None,
+                   help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.dp_worker:
         return dp_worker(args.dp_worker)
@@ -5592,6 +6060,8 @@ def main(argv=None) -> int:
         return det_worker(args.det_worker)
     if args.trainer_worker:
         return trainer_worker(args.trainer_worker)
+    if args.scaleout_worker:
+        return scaleout_worker(args.scaleout_worker)
     phases = set(args.phases.split(","))
     import torch
     import torch.nn.functional as F
@@ -5758,6 +6228,11 @@ def main(argv=None) -> int:
         launches.update(run_planes(torch, _cuda, train_torch, serve_torch,
                                    mods, smi=smi))
     done("planes")
+    if "scaleout" in phases:
+        launches.update(run_scaleout(torch, _cuda, train_torch, F,
+                                     train_row if "train" in phases
+                                     else None))
+    done("scaleout")
     emit({"phase": "seconds", **seconds})
     if phases != set(PHASES):
         print(f"chip_smoke: ran only {sorted(phases)}", file=sys.stderr)

@@ -58,6 +58,7 @@ import torch
 
 from .. import obs
 from ..parallel import collectives
+from ..parallel import zero as zero_lib
 from . import integrity
 from .integrity import CheckpointCorruptError
 
@@ -85,14 +86,20 @@ COMMIT_MARKER = "_CHECKPOINT_METADATA"
 def as_tree(state) -> dict:
     """What a checkpoint holds of a ``TrainState``: ``step``, ``params``,
     ``model_state`` (the buffers) and ``opt_state``; the tensors are the
-    state's own (no copy)."""
+    state's own (no copy).  A ZeRO state's optimizer slots are gathered
+    to their ``(degree, chunk)`` views (a collective: every rank of the
+    batch group calls this)."""
     sd = state.model.state_dict()
     names = {n for n, _ in state.model.named_parameters(
         remove_duplicate=False)}
+    opt = state.optimizer.state_dict()
+    zero = getattr(state, "zero", None)
+    if zero is not None:
+        opt = zero.gather_opt_state(opt, state.optimizer)
     return {"step": int(state.step),
             "params": {k: v for k, v in sd.items() if k in names},
             "model_state": {k: v for k, v in sd.items() if k not in names},
-            "opt_state": state.optimizer.state_dict()}
+            "opt_state": opt}
 
 
 def group_max(value: int, mesh=None) -> int:
@@ -217,9 +224,11 @@ class CheckpointManager:
         self._saved.add(step)
         obs.record_event("checkpoint_begin", step=step)
         with obs.span("checkpoint_save") as sp:
+            # a ZeRO state gathers its optimizer rows on every rank
+            tree = as_tree(state) if getattr(state, "zero", None) else None
             if self._is_chief():
                 self.wait()
-                host = self._to_host(as_tree(state))
+                host = self._to_host(tree or as_tree(state))
                 metrics = {k: float(v) for k, v in metrics.items()} \
                     if metrics else None
                 if self._async:
@@ -425,8 +434,26 @@ class CheckpointManager:
             logger.info("checkpoint step %d has no integrity manifest; "
                         "restoring unverified", step)
         target.model.load_state_dict(saved)
-        target.optimizer.load_state_dict(tree["opt_state"])
+        if getattr(target, "zero", None) is not None:
+            target.zero.refresh_rows()  # the update starts from the rows
+        target.optimizer.load_state_dict(
+            zero_lib.localize_opt_state(tree["opt_state"], target))
         target.step = int(tree["step"])
+
+    def item_metadata(self, step: int) -> dict | None:
+        """The shapes of step ``step``'s saved tensors, a nested dict by
+        path, read from its manifest (no tensor I/O; None without one):
+        the probe of ``parallel.zero.saved_opt_layout``."""
+        manifest = integrity.load_manifest(self._directory, step)
+        if manifest is None:
+            return None
+        tree: dict = {}
+        for key, rec in manifest["arrays"].items():
+            node, parts = tree, key.split("/")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = tuple(rec["shape"])
+        return tree
 
     def restore(self, step: int, target):
         """Restore ``step`` into ``target``, verified against its manifest;

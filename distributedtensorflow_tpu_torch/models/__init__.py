@@ -24,6 +24,7 @@ from .bert_moe import (  # noqa: F401
 )
 from .convert import (  # noqa: F401
     flax_modules,
+    flax_paths,
     flax_views,
     init_params,
     opt_state_from_optax,

@@ -18,8 +18,10 @@ of each row, found by a stable sort where JAX takes ``lax.top_k`` of the
 0/1 mask (lowest index first among ties).  Submodules carry the flax
 tree's names, so a parameter's name is its flax path.  The presets pass
 no token types, so the JAX init makes no ``type_embed`` table and
-neither does the port; quantised matmuls (``quant``) are not ported and
-raise.
+neither does the port.  ``quant`` runs the attention and MLP products
+quantised (``layers.QuantDense``); the embeddings, LayerNorms and the
+head stay full width.  :func:`bert_layout` splits the blocks and the
+embedding rows over a ``model`` axis.
 """
 
 from __future__ import annotations
@@ -33,7 +35,17 @@ from torch import nn
 from ..device import resolve_device
 from ..ops.attention import dot_product_attention
 from ..parallel.collectives import all_reduce, share_of_mean
-from .layers import Dense, FusedLayerNorm, dense, draw_seed, dropout
+from ..parallel.sharding import LayoutMap, P
+from .layers import (
+    FusedLayerNorm,
+    bind_quant_seed,
+    dense,
+    draw_seed,
+    dropout,
+    embed_rows,
+    number_quant_sites,
+)
+from .layers import Dense
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,7 +59,7 @@ class BertConfig:
     type_vocab_size: int = 2
     dropout_rate: float = 0.1
     dtype: torch.dtype = torch.bfloat16
-    #: Quantised matmuls are not ported; only None / "none" is accepted.
+    #: Quantised attention and MLP matmuls (``ops.quant``), or None.
     quant: str | None = None
 
     @property
@@ -68,7 +80,7 @@ def bert_tiny() -> BertConfig:
 def _embed(table: nn.Embedding, ids, dtype):
     """flax ``nn.Embed(dtype=...)``: gather, then cast (the same values as
     casting the whole table)."""
-    return table.weight[ids].to(dtype)
+    return embed_rows(table, ids).to(dtype)
 
 
 class SelfAttention(nn.Module):
@@ -80,21 +92,22 @@ class SelfAttention(nn.Module):
         self.cfg = cfg
         e, h, d = cfg.hidden_size, cfg.num_heads, cfg.head_dim
         for name in ("query", "key", "value"):
-            self.add_module(name, Dense(
-                e, e, dtype=cfg.dtype, use_bias=True, kernel_shape=(e, h, d),
-                bias_shape=(h, d), device=device))
-        self.out = Dense(e, e, dtype=cfg.dtype, use_bias=True,
-                         kernel_shape=(h, d, e), device=device)
+            self.add_module(name, dense(
+                e, e, dtype=cfg.dtype, quant=cfg.quant, use_bias=True,
+                kernel_shape=(e, h, d), bias_shape=(h, d), device=device))
+        self.out = dense(e, e, dtype=cfg.dtype, quant=cfg.quant,
+                         use_bias=True, kernel_shape=(h, d, e), device=device)
 
     def forward(self, x, mask, segment_ids, seed):
         cfg = self.cfg
         b, s, _ = x.shape
-        heads = (b, s, cfg.num_heads, cfg.head_dim)
+        # -1 heads: this rank's over a model axis
+        heads = (b, s, -1, cfg.head_dim)
         q, k, v = (getattr(self, n)(x).reshape(heads)
                    for n in ("query", "key", "value"))
         out = dot_product_attention(q, k, v, mask=mask,
                                     segment_ids=segment_ids)
-        out = self.out(out.reshape(b, s, cfg.hidden_size))
+        out = self.out(out.reshape(b, s, -1))
         return dropout(out, cfg.dropout_rate, seed)
 
 
@@ -103,7 +116,6 @@ class TransformerBlock(nn.Module):
         super().__init__()
         self.cfg = cfg
         e, f = cfg.hidden_size, cfg.intermediate_size
-        # the picker raises for a quantised mode before anything is built
         self.mlp_in = dense(e, f, dtype=cfg.dtype, quant=cfg.quant,
                             use_bias=True, device=device)
         self.mlp_out = dense(f, e, dtype=cfg.dtype, quant=cfg.quant,
@@ -139,6 +151,7 @@ class BertEncoder(nn.Module):
         for i in range(cfg.num_layers):
             self.add_module(f"layer_{i}", TransformerBlock(cfg, device=device)
                             if block_fn is None else block_fn(i))
+        number_quant_sites(self)
 
     def forward(self, input_ids, attention_mask=None, segment_ids=None,
                 position_ids=None, generator=None, deterministic=True):
@@ -147,6 +160,7 @@ class BertEncoder(nn.Module):
         ``position_ids`` (B, S) are a packed batch's: attention stays in a
         segment and positions restart per example."""
         cfg = self.cfg
+        bind_quant_seed(self, None if deterministic else generator)
         if position_ids is None:
             position_ids = torch.arange(input_ids.shape[-1],
                                         device=input_ids.device)
@@ -217,6 +231,21 @@ class BertForMLM(nn.Module):
         x, _ = self.encoder(input_ids, attention_mask, segment_ids,
                             position_ids, generator, deterministic)
         return mlm_head(self, x, masked_positions)
+
+
+def bert_layout() -> LayoutMap:
+    """Megatron-style ``model``-axis rules (JAX ``bert_layout``,
+    ``models/bert.py:300-316``): q, k, v and mlp_in column-parallel, the
+    attention output and mlp_out row-parallel, the embeddings split by
+    rows."""
+    return LayoutMap([
+        (r"(query|key|value)/kernel", P(None, "model", None)),
+        (r"attention/out/kernel", P("model", None, None)),
+        (r"mlp_in/kernel", P(None, "model")),
+        (r"mlp_out/kernel", P("model", None)),
+        (r"(tok|pos|type)_embed/embedding", P("model", None)),
+        (r"(query|key|value)/bias", P("model", None)),
+    ])
 
 
 def max_predictions_for(seq_len: int) -> int:

@@ -367,6 +367,11 @@ def _param_leaves(cfg) -> dict[str, tuple]:
     return out
 
 
+def flax_paths(cfg) -> dict[str, tuple[str, ...]]:
+    """Port parameter name -> its path in the flax ``params`` tree."""
+    return {n: path for n, (path, _, _) in _param_leaves(cfg).items()}
+
+
 def flax_modules(cfg) -> dict[str, str]:
     """Port parameter name -> the first component of its path in the flax
     ``params`` tree (``wte``, ``h0``, ``ln_f``, a BERT's ``bert``, a
@@ -555,3 +560,66 @@ def opt_state_to_optax(optimizer, cfg, model, like):
         return state
 
     return rebuild(like)
+
+
+# ------------------------------------------------------------- scale-out
+
+
+def _model_for(cfg, device="cpu"):
+    """A model of ``cfg``'s class (the GPT LMs, or one of :data:`MODELS`)."""
+    from .gpt import GPTLM
+    from .gpt_moe import GPTMoELM
+
+    if type(cfg) in MODELS:
+        return MODELS[type(cfg)](cfg, device=device)
+    return (GPTMoELM if isinstance(cfg, GPTMoEConfig) else GPTLM)(
+        cfg, device=device)
+
+
+def shards_for_rank(tree, cfg, coords: dict, shape: dict, *, layout=None,
+                    opt_state=None, make_optimizer=None) -> dict:
+    """A rank's part of the JAX package's whole state: ``{"params": ...}``
+    with each parameter ``layout`` shards over ``model`` cut to the
+    rank's slice (``parallel.sharding.tp_rules``: the slicing
+    ``bind_tensor_parallel`` applies to a whole model), and with an optax
+    ``opt_state`` (and ``make_optimizer``, the port optimizer's factory)
+    ``"opt_state"``, the port optimizer's ``state_dict`` converted by
+    :func:`opt_state_from_optax`, its slots cut as their parameters, then,
+    over more than one replica (``data`` x ``fsdp``), chunked to ZeRO's
+    ``(degree, chunk)`` view and cut to the rank's row: what a
+    ``TrainState`` built with ``zero=`` loads.  ``tree`` is the JAX
+    parameter tree (a GPT config) or variables dict (a model of
+    :data:`MODELS`); ``coords`` and ``shape`` a mesh's (axis -> index,
+    axis -> size)."""
+    from ..parallel import sharding, zero as zero_lib
+
+    state = params_from_flax(tree, cfg)
+    n, r = shape.get("model", 1), coords.get("model", 0)
+    rules = {}
+    if layout is not None and n > 1:
+        rules = sharding.tp_rules(_model_for(cfg, "meta"), cfg, layout)
+    out = {"params": sharding.shard_state(state, rules, r, n)}
+    if opt_state is None:
+        return out
+    model = _model_for(cfg)
+    model.load_state_dict(state)
+    optimizer = make_optimizer(list(model.named_parameters()))
+    sd = opt_state_from_optax(opt_state, cfg, optimizer, model)
+    names = {id(p): name for name, p in model.named_parameters()}
+    order = [names[id(p)] for g in optimizer.param_groups
+             for p in g["params"]]
+    degree = shape.get("data", 1) * shape.get("fsdp", 1)
+    row = coords.get("data", 0) * shape.get("fsdp", 1) + coords.get("fsdp", 0)
+    for i, entry in sd["state"].items():
+        name = order[int(i)]
+        for k, v in entry.items():
+            if not torch.is_tensor(v) or v.shape != state[name].shape:
+                continue
+            if name in rules:
+                v = sharding.shard_tensor(v, rules[name][0], r, n,
+                                          rules[name][1])
+            if degree > 1:
+                v = zero_lib.chunk_array(v, degree)[row].clone()
+            entry[k] = v
+    out["opt_state"] = sd
+    return out

@@ -36,14 +36,18 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from ..ops.attention import cached_decode_attention, dot_product_attention
 from ..ops.blockwise import blockwise_map
-from ..ops.fused_xent import fused_softmax_xent
+from ..ops.fused_xent import fused_softmax_xent, vocab_parallel_xent
 from ..ops.xent import chunked_softmax_xent, tied_head_logits
 from ..parallel.collectives import share_of_mean
+from ..parallel.sharding import LayoutMap, P
 from .layers import (
     FusedLayerNorm,
+    bind_quant_seed,
     dense,
     draw_seed,
     dropout,
+    embed_rows,
+    number_quant_sites,
     sow_nonfinite,
 )
 
@@ -77,7 +81,8 @@ class GPTConfig:
     attn_window: int | None = None
     #: Grouped-query attention: K/V heads (None = num_heads).
     num_kv_heads: int | None = None
-    #: Quantised matmuls are not ported; only None / "none" is accepted.
+    #: Quantised block matmuls (qkv, proj, fc_in, fc_out): None/"none",
+    #: "int8", "int8_stochastic" or "fp8" (``ops.quant``).
     quant: str | None = None
 
     def __post_init__(self):
@@ -147,12 +152,25 @@ class CausalSelfAttention(nn.Module):
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
         self.cfg = cfg
+        self.n_heads, self.n_kv = cfg.num_heads, cfg.kv_heads
         self.q_width = cfg.num_heads * cfg.head_dim
         self.kv_width = cfg.kv_heads * cfg.head_dim
         self.qkv = dense(cfg.hidden_size, self.q_width + 2 * self.kv_width,
                          dtype=cfg.dtype, quant=cfg.quant, device=device)
+        # the fused [q | k | v] blocks, which tensor parallelism cuts
+        # head-major
+        self.qkv.segments = (self.q_width, self.kv_width, self.kv_width)
         self.proj = dense(self.q_width, cfg.hidden_size, dtype=cfg.dtype,
                           quant=cfg.quant, device=device)
+
+    def tp_bind(self, rank: int, n: int, group) -> None:
+        """This rank's heads over a ``model`` group of ``n`` (the
+        reference's manual-TP ``n_heads``/``n_kv``,
+        ``models/gpt.py:227-233``)."""
+        self.n_heads //= n
+        self.n_kv //= n
+        self.q_width //= n
+        self.kv_width //= n
 
     def forward(self, x, positions, rope_tabs, cache: dict | None):
         """Attention over x (B, S, E): one cached step when ``cache`` is
@@ -161,11 +179,11 @@ class CausalSelfAttention(nn.Module):
         cfg = self.cfg
         b, s, _ = x.shape
         qkv = self.qkv(x)
-        q = qkv[..., :self.q_width].reshape(b, s, cfg.num_heads, cfg.head_dim)
+        q = qkv[..., :self.q_width].reshape(b, s, self.n_heads, cfg.head_dim)
         k = qkv[..., self.q_width:self.q_width + self.kv_width].reshape(
-            b, s, cfg.kv_heads, cfg.head_dim)
+            b, s, self.n_kv, cfg.head_dim)
         v = qkv[..., self.q_width + self.kv_width:].reshape(
-            b, s, cfg.kv_heads, cfg.head_dim)
+            b, s, self.n_kv, cfg.head_dim)
         q = rope(q, positions, cfg.rope_theta, rope_tabs)
         k = rope(k, positions, cfg.rope_theta, rope_tabs)
         if cache is None:
@@ -238,6 +256,7 @@ class GPTLM(nn.Module):
             [GPTBlock(cfg, device=device) for _ in range(cfg.num_layers)])
         self.ln_f = FusedLayerNorm(cfg.hidden_size, out_dtype=torch.float32,
                                    device=device)
+        number_quant_sites(self)
 
     @property
     def device(self) -> torch.device:
@@ -272,8 +291,14 @@ class GPTLM(nn.Module):
         ``wte``, each block ``h{i}`` and ``ln_f`` (training forward
         only)."""
         cfg = self.cfg
+        if cache is not None and getattr(self.wte, "tp", None) is not None:
+            raise NotImplementedError(
+                "decoding a model split over a model axis is not ported "
+                "(serving runs whole models)")
+        if cache is None:
+            bind_quant_seed(self, None if deterministic else generator)
         # gather, then cast: the same values as casting the whole table
-        x = self.wte.weight[input_ids].to(cfg.dtype)
+        x = embed_rows(self.wte, input_ids).to(cfg.dtype)
         sow_nonfinite(taps, "wte", x)
         if positions is None:
             positions = torch.arange(
@@ -296,6 +321,10 @@ class GPTLM(nn.Module):
         x = sow_nonfinite(taps, "ln_f", self.ln_f(x))
         if return_hidden:
             return x
+        if getattr(self.wte, "tp", None) is not None:
+            raise NotImplementedError(
+                "full logits of a vocab-sharded head; the losses take "
+                "return_hidden=True")
         return tied_head_logits(x, self.wte.weight, cfg.dtype)
 
 
@@ -329,8 +358,17 @@ def _next_token_loss(model: GPTLM, xent, batch, group=None, **kw):
     mask = batch.get("mask")
     targets = ids[:, 1:]
     mask = mask[:, 1:] if mask is not None else None
-    loss = xent(hidden[:, :-1], model.wte.weight, targets, mask,
-                compute_dtype=model.cfg.dtype)
+    shard = getattr(model.wte, "tp", None)
+    if shard is not None:
+        # the vocab-sharded head: K4f/K4b on this rank's rows where the
+        # fused head runs, their plain twins over token tiles for the
+        # chunked heads (fp32 tiles, chunked_bf16 too)
+        loss = vocab_parallel_xent(
+            hidden[:, :-1], model.wte.weight, targets, mask, shard=shard,
+            compute_dtype=model.cfg.dtype, kernels=xent is fused_softmax_xent)
+    else:
+        loss = xent(hidden[:, :-1], model.wte.weight, targets, mask,
+                    compute_dtype=model.cfg.dtype)
     if group is None:
         return loss
     return loss * share_of_mean(_target_count(targets, mask,
@@ -380,6 +418,20 @@ def lm_eval(model: GPTLM, group=None):
         return {"loss": loss, "perplexity": torch.exp(loss)}
 
     return metric_fn
+
+
+def gpt_layout() -> LayoutMap:
+    """Megatron-style ``model``-axis rules for :class:`GPTLM` (JAX
+    ``gpt_layout``, ``models/gpt.py:562-576``): qkv and fc_in
+    column-parallel, proj and fc_out row-parallel, the tied embedding
+    split by vocab rows."""
+    return LayoutMap([
+        (r".*wte/embedding", P("model", None)),
+        (r".*attn/qkv/kernel", P(None, "model")),
+        (r".*attn/proj/kernel", P("model", None)),
+        (r".*fc_in/kernel", P(None, "model")),
+        (r".*fc_out/kernel", P("model", None)),
+    ])
 
 
 def nan_taps(model: GPTLM):

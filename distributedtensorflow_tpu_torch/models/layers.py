@@ -1,8 +1,11 @@
 """Shared layers of the port's models.
 
 Twin of ``distributedtensorflow_tpu/models/layers.py``: the LayerNorm
-module, the dense-layer picker, dropout and the NaN-provenance taps
-(``nonfinite_count``, ``sow_nonfinite``); and the flax layers that the
+module, the dense-layer picker with the quantised :class:`QuantDense`,
+dropout and the NaN-provenance taps (``nonfinite_count``,
+``sow_nonfinite``); the tensor-parallel forms of the dense layer
+(:class:`TensorParallel`) and of the embedding lookup
+(:func:`embed_rows`); and the flax layers that the
 JAX models take from ``flax.linen`` directly: ``nn.Dense`` and
 ``nn.DenseGeneral`` (:class:`Dense`), ``nn.Conv`` with its ``"SAME"``
 padding (:class:`Conv`), ``nn.BatchNorm`` (:class:`BatchNorm`) and
@@ -14,16 +17,21 @@ card in the ``channels_last`` memory format, which is NHWC in memory).
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dropout import dropout as _dropout
 from ..ops.layernorm import layer_norm
+from ..ops.quant import quantized_matmul, validate_mode
 from ..parallel.collectives import (
     all_gather,
     all_reduce,
+    copy_to_group,
     group_size,
+    reduce_from_group,
     resolve_group,
     share_of_mean,
 )
@@ -87,6 +95,33 @@ class RMSNorm(nn.Module):
         return x * (torch.rsqrt(var + self.eps) * self.scale)
 
 
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """How a layer runs split over a ``model`` group (set by
+    ``parallel.sharding.bind_tensor_parallel``).  ``mode``: ``"col"``
+    (the output features are this rank's shard: the input goes through
+    ``copy_to_group``), ``"row"`` (the input features are: the partial
+    products are summed by ``reduce_from_group`` before the bias) or
+    ``"rep"`` (the whole weight, used on this rank's heads only: input,
+    weight and bias go through ``copy_to_group``).  ``bias_rows``: a
+    ``"col"`` layer whose bias stays whole uses these rows of it (and
+    sums the bias's gradient over the ranks)."""
+
+    mode: str
+    group: object
+    bias_rows: tuple[int, int] | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class VocabShard:
+    """An embedding table split by rows over a ``model`` group: this
+    rank holds rows ``[offset, offset + rows)`` of ``vocab``."""
+
+    offset: int
+    vocab: int
+    group: object
+
+
 class Dense(nn.Linear):
     """flax ``nn.Dense(dtype=...)``: an fp32 (out, in) weight and an
     optional fp32 bias, all operands cast to the compute dtype for the
@@ -94,7 +129,9 @@ class Dense(nn.Linear):
     ``bias_shape`` are the flax parameters' shapes (``models/convert.py``
     reshapes to them): ``(in, out)`` and ``(out,)`` for ``nn.Dense``;
     an ``nn.DenseGeneral`` over heads keeps (E, H, D) or (H, D, E)
-    kernels, which are the same matrix."""
+    kernels, which are the same matrix.  ``tp`` (a
+    :class:`TensorParallel`, None = whole) splits the layer over a
+    ``model`` group."""
 
     def __init__(self, in_features: int, out_features: int, *, dtype,
                  use_bias: bool = False, kernel_shape=None, bias_shape=None,
@@ -104,23 +141,109 @@ class Dense(nn.Linear):
         self.compute_dtype = dtype
         self.kernel_shape = tuple(kernel_shape or (in_features, out_features))
         self.bias_shape = tuple(bias_shape or (out_features,))
+        self.tp: TensorParallel | None = None
+
+    def product(self, x, w, b):
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), w.to(dt), None if b is None else b.to(dt))
 
     def forward(self, x):
+        w, b, tp = self.weight, self.bias, self.tp
+        if tp is None:
+            return self.product(x, w, b)
+        if tp.mode == "row":
+            y = reduce_from_group(self.product(x, w, None), tp.group)
+            return y if b is None else y + b.to(y.dtype)
+        x = copy_to_group(x, tp.group)
+        if tp.mode == "rep":
+            w = copy_to_group(w, tp.group)
+            b = None if b is None else copy_to_group(b, tp.group)
+        elif tp.bias_rows is not None and b is not None:
+            lo, hi = tp.bias_rows
+            b = copy_to_group(b, tp.group)[lo:hi]
+        return self.product(x, w, b)
+
+
+class QuantDense(Dense):
+    """``QuantDense``/``QuantDenseGeneral`` of the JAX package
+    (``models/layers.py:69-144``): :class:`Dense`'s parameters exactly
+    (so converted weights and checkpoints carry over), its product
+    through ``ops.quant.quantized_matmul`` on the compute-dtype
+    operands (int8 or fp8 forward, straight-through backward), the bias
+    added after in the output's dtype.  ``int8_stochastic`` draws from
+    ``(seed, site)``: ``site`` is the layer's index in its model and
+    ``seed`` the forward's (:func:`bind_quant_seed`; 0, a fixed key,
+    outside training, as JAX's ``PRNGKey(0)``)."""
+
+    def __init__(self, in_features: int, out_features: int, *, dtype,
+                 quant: str, **kw):
+        super().__init__(in_features, out_features, dtype=dtype, **kw)
+        self.quant = validate_mode(quant)
+        self.site = 0
+        self.seed = 0
+
+    def product(self, x, w, b):
         dt = self.compute_dtype
-        bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        key = (self.seed, self.site) if self.quant == "int8_stochastic" \
+            else None
+        y = quantized_matmul(x.to(dt), w.to(dt), mode=self.quant, key=key)
+        return y if b is None else y + b.to(y.dtype)
 
 
 def dense(in_features: int, features: int, *, dtype, quant: str | None = None,
-          use_bias: bool = False, device=None) -> Dense:
-    """The dense-layer picker.  Only full-width layers are ported; the
-    quantised modes (int8, int8_stochastic, fp8) come in a later slice."""
-    if quant and quant != "none":
-        raise NotImplementedError(
-            f"quant={quant!r}: quantised dense layers are not ported yet "
-            "(ROADMAP.md)")
-    return Dense(in_features, features, dtype=dtype, use_bias=use_bias,
-                 device=device)
+          use_bias: bool = False, device=None, **kw) -> Dense:
+    """The dense-layer picker (JAX ``dense``): ``quant`` None or "none"
+    gives a :class:`Dense`, any other mode of ``ops.quant.QUANT_MODES``
+    the checkpoint-compatible :class:`QuantDense`.  One switch for the
+    GPT, BERT and ViT call sites."""
+    if not quant or quant == "none":
+        return Dense(in_features, features, dtype=dtype, use_bias=use_bias,
+                     device=device, **kw)
+    return QuantDense(in_features, features, dtype=dtype, quant=quant,
+                      use_bias=use_bias, device=device, **kw)
+
+
+def number_quant_sites(model: nn.Module) -> None:
+    """Give each :class:`QuantDense` of ``model`` its site, its index in
+    module order (the stochastic rounding's per-layer stream), and keep
+    the ``int8_stochastic`` ones for :func:`bind_quant_seed`."""
+    layers = [m for m in model.modules() if isinstance(m, QuantDense)]
+    for i, m in enumerate(layers):
+        m.site = i
+    model.stochastic_quant = [m for m in layers
+                              if m.quant == "int8_stochastic"]
+
+
+def bind_quant_seed(model: nn.Module, generator) -> None:
+    """Before a forward: the seed every ``int8_stochastic`` layer of
+    ``model`` (:func:`number_quant_sites`) rounds with, one draw from
+    ``generator`` (the step's :class:`DropoutKey`, whose seed on the card
+    is a device tensor a CUDA graph replays; a CPU ``torch.Generator``),
+    or 0 without one.  A model without such layers draws nothing."""
+    layers = getattr(model, "stochastic_quant", ())
+    if not layers:
+        return
+    seed = 0 if generator is None else draw_seed(generator)
+    if isinstance(seed, tuple):  # a DropoutKey's (seed, site): one stream
+        seed = seed[0] + seed[1]
+    for m in layers:
+        m.seed = seed
+
+
+def embed_rows(table: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:
+    """``table.weight[ids]`` (fp32 rows); for a table split by rows over
+    a ``model`` group (``table.tp``, a :class:`VocabShard`) each rank
+    gathers the ids in its rows, zeros elsewhere, and the ranks' rows are
+    summed (``reduce_from_group``: each row comes from exactly one rank,
+    so the sum is the row)."""
+    shard = getattr(table, "tp", None)
+    if shard is None:
+        return table.weight[ids]
+    rows = table.weight.shape[0]
+    local = ids - shard.offset
+    inside = (local >= 0) & (local < rows)
+    x = table.weight[local.clamp(0, rows - 1)] * inside[..., None]
+    return reduce_from_group(x, shard.group)
 
 
 def same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:

@@ -45,11 +45,19 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops.attention import cached_decode_attention, dot_product_attention
-from ..ops.xent import chunked_argmax, chunked_softmax_xent, tied_head_logits
+from ..ops.fused_xent import vocab_parallel_xent
+from ..ops.xent import (
+    chunked_argmax,
+    chunked_softmax_xent,
+    tied_head_logits,
+    vocab_parallel_argmax,
+)
 from ..parallel.collectives import share_of_mean
+from ..parallel.sharding import LayoutMap, P, shard_bounds
 from .generate import _sample
 from .gpt import _target_count, rope, rope_tables
-from .layers import Dense, RMSNorm, draw_seed, dropout
+from .layers import Dense, RMSNorm, TensorParallel, draw_seed, dropout, \
+    embed_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,13 +127,29 @@ class _Attention(nn.Module):
                                         device=device))
         self.out = Dense(h * d, e, dtype=cfg.dtype, kernel_shape=(h, d, e),
                          device=device)
+        #: the K/V heads this rank's query heads read (all of them whole)
+        self.kv_heads = (0, hkv)
+
+    def tp_bind(self, rank: int, n: int, group) -> None:
+        """This rank's query heads over a ``model`` group; K/V kept whole
+        by the layout (GQA with fewer K/V heads than ranks,
+        ``seq2seq_layout``) run on every rank and each takes the K/V heads
+        its query heads read, their gradients summed over the ranks."""
+        if self.key.tp is not None:
+            return
+        cfg = self.cfg
+        group_size = cfg.num_heads // cfg.kv_heads
+        lo, hi = shard_bounds(cfg.num_heads, rank, n)
+        self.kv_heads = (lo // group_size, (hi - 1) // group_size + 1)
+        for m in (self.key, self.value):
+            m.tp = TensorParallel("rep", group)
 
     def forward(self, x, kv, *, q_tabs, kv_tabs, mask, seed=None,
                 cache=None):
         cfg = self.cfg
         b, s, _ = x.shape
-        h, hkv, d = cfg.num_heads, cfg.kv_heads, cfg.head_dim
-        q = rope(self.query(x).reshape(b, s, h, d), None, cfg.rope_theta,
+        d = cfg.head_dim
+        q = rope(self.query(x).reshape(b, s, -1, d), None, cfg.rope_theta,
                  q_tabs)
         cross = cache is not None and not self.causal
         if cross and "cross_key" in cache:
@@ -133,9 +157,10 @@ class _Attention(nn.Module):
         else:
             src = x if kv is None else kv
             sk = src.shape[1]
-            k = rope(self.key(src).reshape(b, sk, hkv, d), None,
+            lo, hi = self.kv_heads
+            k = rope(self.key(src).reshape(b, sk, -1, d)[:, :, lo:hi], None,
                      cfg.rope_theta, kv_tabs)
-            v = self.value(src).reshape(b, sk, hkv, d)
+            v = self.value(src).reshape(b, sk, -1, d)[:, :, lo:hi]
             if cross:
                 cache["cross_key"], cache["cross_value"] = k, v
         if cache is not None and self.causal:
@@ -146,7 +171,7 @@ class _Attention(nn.Module):
         else:
             out = dot_product_attention(q, k, v, mask=mask,
                                         causal=self.causal)
-        return dropout(self.out(out.reshape(b, s, h * d)), cfg.dropout_rate,
+        return dropout(self.out(out.reshape(b, s, -1)), cfg.dropout_rate,
                        seed)
 
 
@@ -255,7 +280,7 @@ class Seq2SeqLM(nn.Module):
     def _embed(self, ids):
         """flax ``nn.Embed(dtype=...)`` then ``.astype(float32)``: the rows
         rounded to the compute dtype, widened back."""
-        return self.shared.weight[ids].to(self.cfg.dtype).float()
+        return embed_rows(self.shared, ids).to(self.cfg.dtype).float()
 
     def _seeds(self, n, deterministic, generator):
         if deterministic or not self.cfg.dropout_rate:
@@ -316,6 +341,24 @@ class Seq2SeqLM(nn.Module):
                            deterministic, generator=generator)
 
 
+def seq2seq_layout(cfg: Seq2SeqConfig | None = None) -> LayoutMap:
+    """Megatron ``model``-axis rules (JAX ``seq2seq_layout``,
+    ``models/seq2seq.py:487-509``): the self-, cross- and MLP kernels of
+    both stacks split as BERT's, the shared table by vocab rows; with GQA
+    the key and value kernels stay whole (replicated)."""
+    rules = [
+        (r"(attention|cross_attention)/out/kernel", P("model", None, None)),
+        (r"mlp_in/kernel", P(None, "model")),
+        (r"mlp_out/kernel", P("model", None)),
+        (r"shared/embedding", P("model", None)),
+    ]
+    if cfg is not None and cfg.kv_heads != cfg.num_heads:
+        rules.insert(0, (r"query/kernel", P(None, "model", None)))
+    else:
+        rules.insert(0, (r"(query|key|value)/kernel", P(None, "model", None)))
+    return LayoutMap(rules)
+
+
 def shift_right(targets, bos_id: int):
     """Teacher-forcing decoder input: [BOS, t0, t1, ...] (drops the last)."""
     return torch.cat([torch.full_like(targets[:, :1], bos_id),
@@ -331,8 +374,14 @@ def _teacher_forced(model: Seq2SeqLM, batch, deterministic, generator):
     hidden = model(batch["encoder_ids"], shift_right(targets, cfg.bos_id),
                    deterministic=deterministic, generator=generator)
     mask = (targets != cfg.pad_id).float()
-    loss = chunked_softmax_xent(hidden, model.shared.weight, targets, mask,
-                                compute_dtype=cfg.dtype)
+    shard = getattr(model.shared, "tp", None)
+    if shard is not None:  # split by vocab rows: plain twins, token tiles
+        loss = vocab_parallel_xent(hidden, model.shared.weight, targets,
+                                   mask, shard=shard, compute_dtype=cfg.dtype,
+                                   kernels=False)
+    else:
+        loss = chunked_softmax_xent(hidden, model.shared.weight, targets,
+                                    mask, compute_dtype=cfg.dtype)
     return hidden, targets, mask, loss
 
 
@@ -374,8 +423,11 @@ def seq2seq_eval(model: Seq2SeqLM, group=None):
         with torch.no_grad():
             hidden, targets, mask, loss = _teacher_forced(model, batch, True,
                                                           None)
+            shard = getattr(model.shared, "tp", None)
             pred = chunked_argmax(hidden, model.shared.weight,
-                                  compute_dtype=cfg.dtype)
+                                  compute_dtype=cfg.dtype) if shard is None \
+                else vocab_parallel_argmax(hidden, model.shared.weight,
+                                           shard, compute_dtype=cfg.dtype)
         n = mask.sum()
         acc = ((pred == targets).float() * mask).sum() / n.clamp_min(1.0)
         if group is None:
@@ -405,6 +457,9 @@ def seq2seq_generate(model: Seq2SeqLM, encoder_ids, *, max_new_tokens: int,
     one-token step (K5 in each decoder layer on the card); the last
     token's step, whose hidden state nothing reads, is not run."""
     cfg = model.cfg
+    if getattr(model.shared, "tp", None) is not None:
+        raise NotImplementedError(
+            "decoding a model split over a model axis is not ported")
     if cfg.max_seq < max_new_tokens + 1:
         raise ValueError(f"cfg.max_seq={cfg.max_seq} < 1+max_new_tokens="
                          f"{max_new_tokens + 1}; raise max_seq")

@@ -15,7 +15,9 @@ tanh-approximated GELU and dropout on the MLP output only; then ``ln_f``
 with fp32 out, a mean over the tokens (no cls token) and an fp32 ``head``
 with a bias.  Submodules carry the flax tree's names (``patch_embed``,
 ``block_{i}``, ``ln_f``, ``head``), so a parameter's name is its flax
-path.  Quantised matmuls (``quant``) are not ported and raise.
+path.  ``quant`` runs the four block products quantised
+(``layers.QuantDense``); :func:`vit_layout` splits the blocks over a
+``model`` axis.
 """
 
 from __future__ import annotations
@@ -28,7 +30,17 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops.attention import dot_product_attention
-from .layers import Conv, Dense, FusedLayerNorm, dense, draw_seed, dropout
+from ..parallel.sharding import LayoutMap, P
+from .layers import (
+    Conv,
+    Dense,
+    FusedLayerNorm,
+    bind_quant_seed,
+    dense,
+    draw_seed,
+    dropout,
+    number_quant_sites,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,7 +54,7 @@ class ViTConfig:
     intermediate_size: int = 1536
     dropout_rate: float = 0.0
     dtype: torch.dtype = torch.bfloat16
-    #: Quantised matmuls are not ported; only None / "none" is accepted.
+    #: Quantised block matmuls (``ops.quant``), or None.
     quant: str | None = None
 
     @property
@@ -73,6 +85,7 @@ class ViTBlock(nn.Module):
         kw = dict(dtype=cfg.dtype, quant=cfg.quant, device=device)
         self.ln1 = FusedLayerNorm(e, device=device)
         self.qkv = dense(e, 3 * e, **kw)
+        self.qkv.segments = (e, e, e)  # tensor parallelism cuts head-major
         self.proj = dense(e, e, **kw)
         self.ln2 = FusedLayerNorm(e, device=device)
         self.fc_in = dense(e, f, **kw)
@@ -82,9 +95,10 @@ class ViTBlock(nn.Module):
         cfg = self.cfg
         b, s, e = x.shape
         h = self.ln1(x)
-        q, k, v = (t.reshape(b, s, cfg.num_heads, cfg.head_dim)
-                   for t in self.qkv(h).split(e, dim=-1))
-        x = x + self.proj(dot_product_attention(q, k, v).reshape(b, s, e))
+        qkv = self.qkv(h)  # this rank's heads over a model axis
+        q, k, v = (t.reshape(b, s, -1, cfg.head_dim)
+                   for t in qkv.split(qkv.shape[-1] // 3, dim=-1))
+        x = x + self.proj(dot_product_attention(q, k, v).reshape(b, s, -1))
         h = self.fc_out(F.gelu(self.fc_in(self.ln2(x)), approximate="tanh"))
         return x + dropout(h, cfg.dropout_rate, seed)
 
@@ -111,6 +125,7 @@ class ViT(nn.Module):
                                    device=device)
         self.head = Dense(e, cfg.num_classes, dtype=torch.float32,
                           use_bias=True, device=device)
+        number_quant_sites(self)
         if device.type == "cuda":
             self.to(memory_format=torch.channels_last)
 
@@ -124,6 +139,7 @@ class ViT(nn.Module):
             raise ValueError(
                 f"expected (B, {cfg.image_size}, {cfg.image_size}, 3) NHWC "
                 f"input, got {tuple(images.shape)}")
+        bind_quant_seed(self, generator if train else None)
         x = self.patch_embed(images.to(cfg.dtype).permute(0, 3, 1, 2))
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1, cfg.hidden_size)
         x = x + self.pos_embed.to(cfg.dtype)
@@ -132,3 +148,15 @@ class ViT(nn.Module):
             x = getattr(self, f"block_{i}")(
                 x, draw_seed(generator) if drop else None)
         return self.head(self.ln_f(x).mean(dim=1))
+
+
+def vit_layout() -> LayoutMap:
+    """Megatron ``model``-axis rules (JAX ``vit_layout``,
+    ``models/vit.py:134-142``): qkv and fc_in column-parallel, proj and
+    fc_out row-parallel."""
+    return LayoutMap([
+        (r".*qkv/kernel", P(None, "model")),
+        (r".*proj/kernel", P("model", None)),
+        (r".*fc_in/kernel", P(None, "model")),
+        (r".*fc_out/kernel", P("model", None)),
+    ])

@@ -22,7 +22,8 @@ from torch import nn
 
 from ..device import resolve_device
 from ..parallel.collectives import share_of_mean
-from .layers import Dense
+from ..parallel.sharding import LayoutMap, P
+from .layers import Dense, embed_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,9 +73,9 @@ class WideDeep(nn.Module):
     def forward(self, categorical, dense):
         cfg = self.cfg
         n = len(cfg.vocab_sizes)
-        embeds = [getattr(self, f"embed_{i}").weight[categorical[:, i]]
+        embeds = [embed_rows(getattr(self, f"embed_{i}"), categorical[:, i])
                   .to(cfg.dtype) for i in range(n)]
-        wide = [getattr(self, f"wide_{i}").weight[categorical[:, i], 0]
+        wide = [embed_rows(getattr(self, f"wide_{i}"), categorical[:, i])[:, 0]
                 for i in range(n)]
         deep = torch.cat(embeds + [dense.to(cfg.dtype)], dim=-1)
         for j in range(len(cfg.mlp_dims)):
@@ -82,6 +83,15 @@ class WideDeep(nn.Module):
         deep_logit = self.deep_out(deep)[:, 0]
         wide_logit = sum(wide) + self.wide_dense(dense.float())[:, 0]
         return deep_logit + wide_logit
+
+
+def widedeep_layout() -> LayoutMap:
+    """The embedding tables split by rows over ``model`` (JAX
+    ``widedeep_layout``, ``models/widedeep.py:83-88``)."""
+    return LayoutMap([
+        (r"embed_\d+/embedding", P("model", None)),
+        (r"wide_\d+/embedding", P("model", None)),
+    ])
 
 
 def _forward_metrics(model: WideDeep, batch):

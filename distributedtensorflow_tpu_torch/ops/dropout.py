@@ -75,11 +75,11 @@ def philox4x32(counter: torch.Tensor, key: tuple[int, int]) -> torch.Tensor:
     return torch.stack(c, -1)
 
 
-def keep_mask(shape, seed: int, site: int, rate: float,
-              device="cpu") -> torch.Tensor:
-    """The bool mask of ``shape`` that seed ``seed`` and ``site`` give:
-    element ``i`` (flat) takes word ``i % 4`` of Philox over the counter
-    ``(i // 4, site)``."""
+def _words(shape, seed, site: int, device) -> torch.Tensor:
+    """Philox words of ``shape``: element ``i`` (flat) takes word
+    ``i % 4`` of Philox over the counter ``(i // 4, site)`` under
+    ``seed`` (an int, or an int64 tensor of one element, read on its
+    device)."""
     n = 1
     for s in shape:
         n *= s
@@ -87,9 +87,29 @@ def keep_mask(shape, seed: int, site: int, rate: float,
     counter = torch.stack([groups & _M32, groups >> 32,
                            torch.full_like(groups, site),
                            torch.zeros_like(groups)], -1)
-    seed &= (1 << 64) - 1
-    words = philox4x32(counter, (seed & _M32, seed >> 32)).reshape(-1)[:n]
-    return ((words >> 8) >= threshold(rate)).reshape(shape)
+    if torch.is_tensor(seed):
+        seed = seed.reshape(())
+        key = (seed & _M32, (seed >> 32) & _M32)
+    else:
+        seed &= (1 << 64) - 1
+        key = (seed & _M32, seed >> 32)
+    return philox4x32(counter, key).reshape(-1)[:n].reshape(shape)
+
+
+def keep_mask(shape, seed: int, site: int, rate: float,
+              device="cpu") -> torch.Tensor:
+    """The bool mask of ``shape`` that seed ``seed`` and ``site`` give:
+    element ``i`` (flat) takes word ``i % 4`` of Philox over the counter
+    ``(i // 4, site)``."""
+    return (_words(shape, seed, site, device) >> 8) >= threshold(rate)
+
+
+def uniform(shape, seed, site: int, device="cpu") -> torch.Tensor:
+    """fp32 uniforms in [0, 1) of ``shape``, 24 bits each, from the words
+    :func:`keep_mask` reads for the same ``seed`` and ``site``.  ``seed``
+    may be an int64 tensor of one element on ``device`` (a CUDA graph's
+    seed slot): the words are then computed on the device from it."""
+    return (_words(shape, seed, site, device) >> 8).float() * 2.0 ** -24
 
 
 def _plain_dropout(x: torch.Tensor, seed: int, site: int,

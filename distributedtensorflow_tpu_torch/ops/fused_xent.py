@@ -26,6 +26,10 @@ card.  Semantics pinned from the JAX module:
   cast to the hidden's dtype, dw to the table's (``:432-433``), and the
   mask gets a zero cotangent.
 
+:func:`vocab_parallel_xent` is the head over a table split by rows
+over a ``model`` group (tensor parallelism): K4f and K4b on this rank's
+rows, the lse and the target logits combined over the ranks.
+
 The TPU-only machinery is left out: the ``DTFT_XENT_*`` tile overrides,
 the forward's VMEM token super-chunking (``_max_fwd_token_blocks``) and
 the Mosaic tile choice by width are VMEM budgets, not semantics.
@@ -40,6 +44,7 @@ import torch
 
 from . import _cuda
 from ._cuda import SMEM_LIMIT
+from .xent import DEFAULT_CHUNK_TOKENS
 
 #: Hidden sizes the backward kernels are built for (templates in
 #: ``csrc/fused_xent_bwd.cu``); the forward takes any multiple of 64
@@ -93,6 +98,71 @@ class FusedXentFn(torch.autograd.Function):
         return dx, dw, None, torch.zeros_like(w_row), None
 
 
+def vocab_parallel_xent(hidden: torch.Tensor, wte: torch.Tensor,
+                        targets: torch.Tensor, mask=None, *, shard,
+                        compute_dtype=None, kernels: bool = True
+                        ) -> torch.Tensor:
+    """:func:`fused_softmax_xent` with the tied table split by rows over
+    a ``model`` group: ``wte`` is this rank's rows ``[shard.offset,
+    shard.offset + rows)`` of ``shard.vocab`` (a
+    ``models.layers.VocabShard``), ``hidden`` the whole (replicated)
+    hidden states.  Each rank runs K4f on its rows with the targets moved
+    by the offset (a target outside the rows matches none: its target
+    logit is 0); the ranks' lse combine through an all-reduce of the max
+    and one of the sums of exponentials, the target logits through a sum.
+    The backward runs K4b dx and dw on the rows with that global lse: dw
+    is this rank's rows' gradient, dx a partial sum the ranks add up.
+    ``kernels=False`` (the chunked heads) takes the plain twins on any
+    device, over tiles of tokens so that the (N, V/ranks) logits never
+    exist whole."""
+    v, d = wte.shape
+    x2 = hidden.reshape(-1, d)
+    n = x2.shape[0]
+    t = targets.reshape(n).to(torch.int32)
+    w_row = (torch.ones(n, dtype=torch.float32, device=hidden.device)
+             if mask is None else mask.reshape(n).to(torch.float32))
+    w_row = w_row * ((t >= 0) & (t < shard.vocab)).to(torch.float32)
+    op_dtype = compute_dtype or torch.promote_types(hidden.dtype, wte.dtype)
+    return VocabParallelXentFn.apply(x2, wte, t - shard.offset, w_row,
+                                     op_dtype, shard.group, kernels)
+
+
+class VocabParallelXentFn(torch.autograd.Function):
+    """The head of :func:`vocab_parallel_xent` (GSPMD's values for the
+    vocab-sharded table of ``gpt_layout``)."""
+
+    @staticmethod
+    def forward(ctx, x2, wte, t_local, w_row, compute_dtype, group,
+                kernels):
+        from ..parallel.collectives import ReduceOp, all_reduce
+
+        xc, wc = x2.to(compute_dtype), wte.to(compute_dtype)
+        fwd = xent_fwd if kernels else _xent_fwd_tiles
+        lse_r, tgt_r = fwd(xc, wc, t_local)
+        m = all_reduce(lse_r, group, ReduceOp.MAX)
+        lse = m + torch.log(all_reduce(torch.exp(lse_r - m), group))
+        tgt = all_reduce(tgt_r, group)
+        w_sum = w_row.sum().clamp_min(1.0)
+        ctx.save_for_backward(xc, wc, t_local, w_row, lse, w_sum)
+        ctx.dtypes = (x2.dtype, wte.dtype)
+        ctx.group, ctx.kernels = group, kernels
+        return ((lse - tgt) * w_row).sum() / w_sum
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..parallel.collectives import all_reduce
+
+        xc, wc, t, w_row, lse, w_sum = ctx.saved_tensors
+        c = (g * w_row / w_sum).to(torch.float32)
+        if ctx.kernels:
+            dx, dw = xent_dx(xc, wc, t, lse, c), xent_dw(xc, wc, t, lse, c)
+        else:
+            dx, dw = _xent_bwd_tiles(xc, wc, t, lse, c)
+        dx = all_reduce(dx, ctx.group)
+        return (dx.to(ctx.dtypes[0]), dw.to(ctx.dtypes[1]), None,
+                torch.zeros_like(w_row), None, None, None)
+
+
 def xent_fwd(x, w, t):
     """``(lse, tgt)``, both (N,) fp32: K4f for CUDA tensors, the plain
     twin for CPU ones."""
@@ -144,6 +214,32 @@ def _dlog(x, w, t, lse, c):
         == t.long()[:, None]
     p = torch.exp(logits - lse[:, None])
     return (c[:, None] * (p - onehot.float())).to(w.dtype).float()
+
+
+def _xent_fwd_tiles(x, w, t):
+    """:func:`xent_fwd_plain` over tiles of
+    ``ops.xent.DEFAULT_CHUNK_TOKENS`` tokens: one (C, V) fp32 logits
+    tile alive at a time, the memory bound of the chunked head."""
+    step = DEFAULT_CHUNK_TOKENS
+    tiles = [xent_fwd_plain(x[lo:lo + step], w, t[lo:lo + step])
+             for lo in range(0, x.shape[0], step)]
+    return (torch.cat([lse for lse, _ in tiles]),
+            torch.cat([tgt for _, tgt in tiles]))
+
+
+def _xent_bwd_tiles(x, w, t, lse, c):
+    """``(dx, dw)`` of :func:`xent_dx_plain` and :func:`xent_dw_plain`
+    over the tiles of :func:`_xent_fwd_tiles`, each tile's dlog made
+    once for both products; dw sums the tiles' products."""
+    step = DEFAULT_CHUNK_TOKENS
+    dx = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    dw = torch.zeros(w.shape, dtype=torch.float32, device=x.device)
+    for lo in range(0, x.shape[0], step):
+        rows = slice(lo, lo + step)
+        dlog = _dlog(x[rows], w, t[rows], lse[rows], c[rows])
+        dx[rows] = dlog @ w.float()
+        dw += dlog.T @ x[rows].float()
+    return dx, dw
 
 
 def xent_dx_plain(x, w, t, lse, c):

@@ -48,6 +48,25 @@ def chunked_argmax(hidden: torch.Tensor, wte: torch.Tensor, *,
     return torch.cat(ids).to(torch.int32).reshape(b, s)
 
 
+def vocab_parallel_argmax(hidden: torch.Tensor, wte: torch.Tensor, shard, *,
+                          compute_dtype=None) -> torch.Tensor:
+    """:func:`chunked_argmax` with the table split by rows over a
+    ``model`` group (``shard``, a ``models.layers.VocabShard``): each
+    rank's best row and its logit, gathered; the largest logit wins, the
+    lowest id among ties (the ranks hold the rows in order)."""
+    from ..parallel.collectives import all_gather
+
+    b, s, d = hidden.shape
+    dt = compute_dtype or torch.promote_types(hidden.dtype, wte.dtype)
+    logits = hidden.reshape(-1, d).to(dt).float() @ wte.to(dt).float().T
+    val = logits.amax(-1)
+    idx = logits.argmax(-1) + shard.offset  # the first of ties
+    vals = all_gather(val[None], shard.group)
+    ids = all_gather(idx[None], shard.group)
+    best = vals.argmax(0)
+    return ids.gather(0, best[None])[0].to(torch.int32).reshape(b, s)
+
+
 def _chunk_nll(x_c, t_c, w_c, wte_f, logits_dtype):
     """Weighted NLL sum of one chunk: (C, V) logits stored in
     ``logits_dtype``, their fp32 logsumexp and the target logit."""

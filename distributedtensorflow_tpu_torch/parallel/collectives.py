@@ -16,10 +16,17 @@ group.
 :func:`all_reduce` (SUM and MEAN) and :func:`all_gather` are
 differentiable: the backward of a sum over ranks is the sum of the
 incoming gradients over ranks (every rank's loss depends on the sum), and
-the backward of a gather is that sum's own slice.  Gloo takes CUDA
-tensors for all-reduce and broadcast only, so a gather of a CUDA tensor
-over gloo goes through the host.  ``all_to_all``, ``permute``, ``shift``
-and the ``gspmd_*`` constraints wait for the parallelism that needs them.
+the backward of a gather is that sum's own slice.  Tensor parallelism
+takes Megatron's pair: :func:`copy_to_group` (the identity, its gradient
+summed over the ranks) and :func:`reduce_from_group` (the sum, its
+gradient whole on each rank), since every rank of a ``model`` group
+computes the whole loss.  :func:`reduce_scatter` is the group's own
+(ZeRO's gradients), with :func:`reduce_scatter_async` and
+:func:`all_reduce_async` for the overlapped gradient sync.  Gloo takes
+CUDA tensors for all-reduce and broadcast only, so a gather or a
+reduce-scatter of a CUDA tensor over gloo goes through the host.
+``all_to_all``, ``permute``, ``shift`` and the ``gspmd_*`` constraints
+wait for the parallelism that needs them.
 """
 
 from __future__ import annotations
@@ -55,10 +62,24 @@ class Options:
     bytes_per_pack: int = 0
 
 
+class _Solo:
+    """A group of this rank alone inside a larger world (a mesh axis of
+    size 1): every collective over it is the identity."""
+
+    def __repr__(self):
+        return "SOLO"
+
+
+#: The group of one rank: :func:`resolve_group` maps it to None.
+SOLO = _Solo()
+
+
 def resolve_group(group=None):
     """The process group behind ``group`` (a group, a mesh or None), or
-    None for a world of one without a group."""
+    None for a world of one without a group (or :data:`SOLO`)."""
     group = getattr(group, "group", group)
+    if group is SOLO:
+        return None
     if group is None and dist.is_available() and dist.is_initialized():
         group = dist.group.WORLD
     return group
@@ -160,16 +181,113 @@ def all_gather(x: torch.Tensor, group=None, *, gather_axis: int = 0,
     return torch.cat(_gather_list(x, group), gather_axis)
 
 
+def reduce_scatter_async(x: torch.Tensor, group=None):
+    """Start the reduce-scatter of ``x`` (N, ...) over the N ranks of
+    ``group``: ``(out, work)`` with ``out`` this rank's row of the sum
+    over the ranks (rank r gets row r) once ``work.wait()`` returned
+    (``work`` is None for a world of one, and for CUDA tensors over
+    gloo, which moves them through the host and has finished).  The
+    group's own reduce-scatter, so each rank sends and receives
+    (N - 1)/N of ``x`` where an all-reduce moves twice that (ZeRO's
+    halved traffic)."""
+    group = resolve_group(group)
+    if group is None:
+        return x[0], None
+    n = group.size()
+    if x.shape[0] != n:
+        raise ValueError(f"reduce-scatter of {tuple(x.shape)} over {n} "
+                         f"ranks: dim 0 must be the rank count")
+    host = x.is_cuda and group.name() == "gloo"
+    src = (x.detach().cpu() if host else x.detach()).contiguous()
+    out = torch.empty_like(src[0])
+    opts = dist.ReduceScatterOptions()
+    opts.reduceOp = dist.ReduceOp.SUM
+    work = group.reduce_scatter([out], [list(src.unbind(0))], opts)
+    if host:
+        work.wait()
+        return out.to(x.device), None
+    return out, work
+
+
 def reduce_scatter(x: torch.Tensor, group=None, *,
                    scatter_axis: int = 0) -> torch.Tensor:
-    """This rank's 1/N slice along ``scatter_axis`` of the sum over ranks
-    (the sum and a slice: ZeRO, which needs the halved traffic, is not
-    ported)."""
+    """This rank's 1/N slice along ``scatter_axis`` of the sum over
+    ranks, through the group's own reduce-scatter
+    (:func:`reduce_scatter_async`); the axis must divide evenly."""
     group = resolve_group(group)
     if group is None:
         return x
-    total = all_reduce(x, group)
-    return total.chunk(group.size(), scatter_axis)[group.rank()]
+    n = group.size()
+    if x.shape[scatter_axis] % n:
+        raise ValueError(f"reduce-scatter axis {scatter_axis} of "
+                         f"{tuple(x.shape)} does not divide over {n} ranks")
+    parts = torch.stack(x.chunk(n, scatter_axis))
+    out, work = reduce_scatter_async(parts, group)
+    if work is not None:
+        work.wait()
+    return out
+
+
+def all_reduce_async(t: torch.Tensor, group=None):
+    """Start the SUM all-reduce of ``t`` (contiguous) in place over
+    ``group``; the group's work handle (None for a world of one), to be
+    waited on before ``t`` is read."""
+    group = resolve_group(group)
+    if group is None:
+        return None
+    opts = dist.AllreduceOptions()
+    opts.reduceOp = dist.ReduceOp.SUM
+    return group.allreduce([t], opts)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Megatron's ``f``: the identity forward, the gradient summed over
+    the group's ranks in the backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_(g.contiguous().clone(), ctx.group,
+                            ReduceOp.SUM), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """Megatron's ``g``: the sum over the group's ranks forward, the
+    identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce_(x.contiguous().clone(), group, ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_group(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` where every rank of a tensor-parallel ``group`` computes the
+    same loss from it: the identity, whose backward sums the ranks'
+    partial gradients (the input of a column-parallel layer)."""
+    group = resolve_group(group)
+    if group is None or not (x.requires_grad and torch.is_grad_enabled()):
+        return x
+    return _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of the ranks' partial ``x`` (a row-parallel layer's
+    output), whose gradient each rank takes whole: every rank of a
+    tensor-parallel group computes the same loss from the sum."""
+    group = resolve_group(group)
+    if group is None:
+        return x
+    if x.requires_grad and torch.is_grad_enabled():
+        return _ReduceFromGroup.apply(x, group)
+    return _all_reduce_(x.detach().contiguous().clone(), group, ReduceOp.SUM)
 
 
 def broadcast(x: torch.Tensor, group=None, *, src: int = 0) -> torch.Tensor:

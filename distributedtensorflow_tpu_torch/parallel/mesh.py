@@ -6,10 +6,12 @@ axes, :class:`MeshSpec` with ``resolve`` (``:62-101``), :func:`build_mesh`
 (``:104``), :func:`data_axes` and :func:`replica_count` (``:251-258``).
 JAX's mesh is an array of devices that one SPMD program spans; here every
 rank is a process with one device, and the mesh is a small object: the
-size of each axis, this rank's coordinate on each, and the process group
-of the batch axes, over which the gradients of replicated parameters are
-summed.  So far only the ``data`` axis is ported: any other axis larger
-than 1 (``fsdp`` included, whose ZeRO sharding is not ported) raises.
+size of each axis, this rank's coordinate on each, and one process group
+per axis kind: ``group`` over the batch axes (``data`` x ``fsdp``), over
+which the gradients of replicated parameters are summed, and
+``model_group`` over ``model``, the tensor-parallel ranks that hold one
+replica's shards.  ``fsdp`` is a batch axis, as in JAX.  ``pipe``,
+``seq`` and ``expert`` larger than 1 raise "not ported".
 """
 
 from __future__ import annotations
@@ -17,7 +19,9 @@ from __future__ import annotations
 import dataclasses
 import math
 
-from .collectives import resolve_group
+import torch.distributed as dist
+
+from .collectives import SOLO, resolve_group
 
 AXIS_DATA = "data"
 AXIS_FSDP = "fsdp"
@@ -34,7 +38,7 @@ CANONICAL_AXES: tuple[str, ...] = (
 BATCH_AXES: tuple[str, ...] = (AXIS_DATA, AXIS_FSDP)
 
 #: The axes the port runs larger than 1.
-PORTED_AXES: tuple[str, ...] = (AXIS_DATA,)
+PORTED_AXES: tuple[str, ...] = (AXIS_DATA, AXIS_FSDP, AXIS_MODEL)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,13 +82,16 @@ class MeshSpec:
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
     """``shape`` (axis -> size, every canonical axis), ``coords`` (axis ->
-    this rank's index on it) and ``group``, the process group of the
-    batch axes (None for a world of one process without a group: every
-    collective over it is the identity, as a size-1 axis is in JAX)."""
+    this rank's index on it), ``group``, the process group of the batch
+    axes, and ``model_group``, that of the ``model`` axis (None for a
+    world of one process without a group, :data:`~.collectives.SOLO`
+    for an axis of size 1 in a larger world: every collective over it is
+    the identity, as a size-1 axis is in JAX)."""
 
     shape: dict
     coords: dict
     group: object = None
+    model_group: object = SOLO
 
     @property
     def axis_names(self) -> tuple[str, ...]:
@@ -103,10 +110,24 @@ def parse_mesh(text: str | None) -> MeshSpec | None:
     return MeshSpec(**kw)
 
 
-def build_mesh(spec: MeshSpec, group=None) -> Mesh:
+def _new_group(ranks: list[int]):
+    """``torch.distributed.new_group`` of ``ranks`` (every rank calls it
+    for every subgroup, in the same order)."""
+    return dist.new_group(ranks)
+
+
+def build_mesh(spec: MeshSpec, group=None, new_group=None) -> Mesh:
     """The mesh of ``spec`` over ``group``'s ranks (default: the default
     process group when ``torch.distributed`` is initialised, else a world
-    of one with no group).  Raises for an axis the port has not ported."""
+    of one with no group).  Raises for an axis the port has not ported.
+
+    With ``model`` > 1 the ranks split into batch groups (the ranks of
+    one ``model`` coordinate) and model groups (the ranks of one replica,
+    consecutive in the mesh-major order), each made by ``new_group(ranks)``
+    (default ``torch.distributed.new_group``; the thread ranks of
+    ``testing.ranks`` pass bare gloo groups), called on every rank for
+    every subgroup in one order; a subgroup that spans the world is
+    ``group`` itself."""
     group = resolve_group(group)
     world = 1 if group is None else group.size()
     rank = 0 if group is None else group.rank()
@@ -114,16 +135,36 @@ def build_mesh(spec: MeshSpec, group=None) -> Mesh:
     big = [a for a, s in sizes.items() if s > 1 and a not in PORTED_AXES]
     if big:
         raise NotImplementedError(
-            f"mesh axes {big} are not ported (sizes {sizes}); the port runs "
-            f"{', '.join(PORTED_AXES)} only")
+            f"mesh axes {big} are not ported (sizes {sizes}): "
+            f"{', '.join(a for a in CANONICAL_AXES if a not in PORTED_AXES)}"
+            " run at size 1 until the pipeline, sequence and expert "
+            "parallelism of ROADMAP.md item 7")
     # mesh-major: the data axis is outermost, so a rank's data coordinate
-    # is its rank over the product of the inner axes (all 1 here)
+    # is its rank over the product of the inner axes
     coords, rest = {}, rank
     for axis in reversed(CANONICAL_AXES):
         coords[axis] = rest % sizes[axis]
         rest //= sizes[axis]
     coords = {a: coords[a] for a in CANONICAL_AXES}
-    return Mesh(shape=sizes, coords=coords, group=group)
+    tp = sizes[AXIS_MODEL]
+    if tp == 1:
+        return Mesh(shape=sizes, coords=coords, group=group)
+    replicas = world // tp
+    new_group = new_group or _new_group
+    subgroups = ([[b * tp + m for b in range(replicas)] for m in range(tp)]
+                 + [[b * tp + m for m in range(tp)]
+                    for b in range(replicas)])
+    made = []
+    for ranks in subgroups:
+        if len(ranks) == 1:
+            made.append(SOLO)
+        elif len(ranks) == world:
+            made.append(group)
+        else:
+            made.append(new_group(ranks))
+    batch = made[rank % tp]
+    model = made[tp + rank // tp]
+    return Mesh(shape=sizes, coords=coords, group=batch, model_group=model)
 
 
 def data_axes(mesh: Mesh) -> tuple[str, ...]:

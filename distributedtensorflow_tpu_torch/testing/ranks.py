@@ -5,7 +5,8 @@ clusters (``distributedtensorflow_tpu/testing/multi_process_runner.py``
 forks processes; threads start in milliseconds and share the test's
 imports).  Every thread gets a bare ``ProcessGroupGloo`` over one shared
 ``HashStore``, so the port's collectives (which call the group's own
-methods) run for real between the threads.  On the CPU each thread's
+methods) run for real between the threads; :func:`run_mesh` adds a
+mesh's subgroups over the same store.  On the CPU each thread's
 backward runs in the thread itself, so a collective inside a backward
 (BatchNorm's statistics) meets its peers; CUDA tensors of two threads on
 one card would share the card's single autograd thread and deadlock
@@ -21,8 +22,29 @@ from typing import Any, Callable
 import torch.distributed as dist
 
 
-def run_ranks(fn: Callable[[int, Any], Any], world: int, *,
-              timeout: float = 60.0) -> list:
+def run_mesh(fn: Callable[[int, Any], Any], spec, world: int, *,
+             timeout: float = 60.0) -> list:
+    """:func:`run_ranks` with ``fn(rank, mesh)``: the mesh of ``spec`` (a
+    ``parallel.mesh.MeshSpec``) over the threads' world, its batch and
+    model subgroups bare gloo groups over the same store (a
+    ``PrefixStore`` a subgroup, as the world's)."""
+    from ..parallel.mesh import build_mesh
+
+    def body(rank, group, store):
+        def new_group(ranks):
+            if rank not in ranks:
+                return None
+            return dist.ProcessGroupGloo(
+                dist.PrefixStore(f"sub{ranks}", store), ranks.index(rank),
+                len(ranks), datetime.timedelta(seconds=timeout))
+
+        return fn(rank, build_mesh(spec, group, new_group))
+
+    return run_ranks(body, world, timeout=timeout, with_store=True)
+
+
+def run_ranks(fn: Callable[..., Any], world: int, *,
+              timeout: float = 60.0, with_store: bool = False) -> list:
     """``[fn(rank, group) for rank in range(world)]``, each call in its own
     thread with its own gloo group of ``world`` ranks.  After every thread
     ended, the exception raised first by any rank is raised (a rank that
@@ -37,7 +59,8 @@ def run_ranks(fn: Callable[[int, Any], Any], world: int, *,
             group = dist.ProcessGroupGloo(
                 dist.PrefixStore("ranks", store), rank, world,
                 datetime.timedelta(seconds=timeout))
-            results[rank] = fn(rank, group)
+            results[rank] = fn(rank, group, store) if with_store \
+                else fn(rank, group)
         except BaseException as e:  # re-raised in the caller's thread
             errors.append(e)  # list.append is atomic under the GIL
 

@@ -26,7 +26,7 @@ from .optimizers import (  # noqa: F401
     sgd,
     warmup_cosine_decay_schedule,
 )
-from .state import TrainState  # noqa: F401
+from .state import TrainState, create_sharded_state  # noqa: F401
 from .trainer import (  # noqa: F401
     Callback,
     Trainer,

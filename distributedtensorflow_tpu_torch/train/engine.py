@@ -167,7 +167,8 @@ def _finalize(metrics: dict) -> dict:
 
 def accumulate_gradients_dp(loss_fn, model: torch.nn.Module, batch: dict,
                             mesh, *, seed: int, step: int,
-                            accum_steps: int = 1, keys=None):
+                            accum_steps: int = 1, keys=None, overlap=None,
+                            zero=None):
     """:func:`accumulate_gradients` for one rank of a data-parallel mesh:
     the global ``(grads, metrics)`` of JAX's step on the global batch.
 
@@ -184,18 +185,32 @@ def accumulate_gradients_dp(loss_fn, model: torch.nn.Module, batch: dict,
     sums the gradients once after its scan.
     Then both are averaged over the microbatches.  For a world of one the
     shares are the losses themselves and this is
-    :func:`accumulate_gradients` bit for bit."""
+    :func:`accumulate_gradients` bit for bit.
+
+    With an ``overlap`` plan (``parallel.overlap.OverlapPlan``) each
+    microbatch's backward syncs the gradients in buckets as they fill,
+    and only the metrics take the all-reduce here; with a ``zero``
+    sharder and no plan the gradients stay this rank's sums (the
+    sharder's update reduce-scatters them).  The synced gradients of a
+    plan with ``zero`` are this rank's rows."""
     if keys is None:
         keys = dropout_keys(seed, step, accum_steps, replica_index(mesh),
                             _device_of(model))
-    names, grads, shares = _microbatch_grads(
-        loss_fn, model, batch, keys, accum_steps)
+    if overlap is not None:
+        names, grads, shares = overlap.grads(
+            loss_fn, split_microbatches(batch, accum_steps), keys)
+    else:
+        names, grads, shares = _microbatch_grads(
+            loss_fn, model, batch, keys, accum_steps)
     keys = list(shares[0])
     table = torch.stack([torch.stack([s[k].float() for k in keys])
                          for s in shares])  # (accum, metrics)
-    *grads, table = collectives.packed_all_reduce(
-        grads + [table], mesh,
-        options=collectives.Options(collectives.DEFAULT_BYTES_PER_PACK))
+    if overlap is not None or zero is not None:
+        table = collectives.all_reduce(table, mesh)
+    else:
+        *grads, table = collectives.packed_all_reduce(
+            grads + [table], mesh,
+            options=collectives.Options(collectives.DEFAULT_BYTES_PER_PACK))
     return _average(names, grads,
                     [_finalize(dict(zip(keys, row))) for row in table],
                     accum_steps)
@@ -241,6 +256,14 @@ class _InstrumentedStep:
         return self._fn(*args)
 
 
+def _apply(state: TrainState, grads: dict) -> TrainState:
+    """The update: the overlapped sync of a ZeRO state has left this
+    rank's summed rows, which go to the sharder as they are."""
+    if state.overlap is not None and state.zero is not None:
+        return state.zero.apply_gradients(state, grads, reduced=True)
+    return state.apply_gradients(grads)
+
+
 def _train_one(loss_fn, state: TrainState, batch: dict, keys, *,
                accum_steps: int, seed: int, mesh, stats=None):
     """One optimizer step of ``state`` on ``batch``: the body of the
@@ -256,13 +279,18 @@ def _train_one(loss_fn, state: TrainState, batch: dict, keys, *,
     else:
         grads, metrics = accumulate_gradients_dp(
             loss_fn, state.model, batch, mesh, seed=seed, step=state.step,
-            accum_steps=accum_steps, keys=keys)
+            accum_steps=accum_steps, keys=keys, overlap=state.overlap,
+            zero=state.zero)
     if stats is None:
-        return state.apply_gradients(grads), metrics
+        return _apply(state, grads), metrics
+    if state.zero is not None:
+        raise NotImplementedError(
+            "dynamics statistics under ZeRO are not ported: each rank "
+            "holds its own gradients' rows only")
     # the optimizer clips the gradients and updates the parameters in
     # place: read the one and copy the other first
     dyn, old = stats.before(state.model, grads)
-    state = state.apply_gradients(grads)
+    state = _apply(state, grads)
     return state, dict(metrics, **stats.after(state.model, dyn, old))
 
 
@@ -303,7 +331,9 @@ def make_train_step(loss_fn, *, accum_steps: int = 1, seed: int = 0,
     update of ``state`` (in place).  With a ``mesh`` the step is one
     rank's of the data-parallel step (:func:`accumulate_gradients_dp`;
     ``loss_fn`` built for the mesh) and every rank applies the same
-    global gradients.  ``dynamics_every`` > 0: the steps that complete a
+    global gradients (a ZeRO state: its rows of them; a state with an
+    ``overlap`` plan syncs them in buckets during the backward).
+    ``dynamics_every`` > 0: the steps that complete a
     multiple of it add the ``dynamics/`` stats to their metrics, grouped
     by ``dynamics_modules`` (``models.flax_modules``)."""
     cadence = _Cadence(dynamics_every, dynamics_modules)
@@ -367,7 +397,8 @@ class _GraphedSteps:
     the capture counted once a replay (``captured_launches``).  The
     data-parallel step's packed all-reduce is captured under NCCL; gloo
     moves CUDA tensors through the host, which a graph cannot hold, so a
-    gloo group over CUDA tensors raises."""
+    gloo group over CUDA tensors raises, and so does a state with a
+    ZeRO sharder or an overlap plan (not ported under a graph)."""
 
     def __init__(self, loss_fn, steps_per_call, accum_steps, seed, mesh,
                  cadence: _Cadence):
@@ -409,6 +440,11 @@ class _GraphedSteps:
                 f"steps_per_call > 1 on CUDA tensors needs an NCCL process "
                 f"group, got {group.name()}: a CUDA graph cannot capture "
                 f"collectives that move tensors through the host")
+        if state.zero is not None or state.overlap is not None:
+            raise NotImplementedError(
+                "steps_per_call > 1 with ZeRO or the bucketed overlap is not "
+                "ported on CUDA: no run has captured their collectives and "
+                "host-side hooks in a CUDA graph (ROADMAP.md)")
         if not self._warm:
             previous = torch.cuda.get_sync_debug_mode()
             torch.cuda.set_sync_debug_mode("error")

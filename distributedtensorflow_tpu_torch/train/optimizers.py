@@ -278,11 +278,17 @@ def exclude_bias_and_norm_mask(named_params) -> dict[str, bool]:
 
 
 @torch.no_grad()
-def _clip_by_global_norm(grads: list[torch.Tensor], clipnorm: float) -> None:
+def _clip_by_global_norm(grads: list[torch.Tensor], clipnorm: float,
+                         group=None) -> None:
     """``optax.clip_by_global_norm`` in place: each gradient becomes
     ``g / norm * clipnorm`` when the global norm reaches ``clipnorm``,
-    chosen on the device (no host sync)."""
-    g_norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+    chosen on the device (no host sync).  ``group``: the ranks that each
+    hold a part of the gradients (ZeRO's rows), whose squares are
+    summed over it."""
+    from ..parallel.collectives import all_reduce
+
+    sq = sum(g.float().square().sum() for g in grads)
+    g_norm = torch.sqrt(all_reduce(sq, group) if group is not None else sq)
     for g in grads:
         norm = g_norm.to(g.dtype)
         g.copy_(torch.where(norm < clipnorm, g, g / norm * clipnorm))
@@ -316,7 +322,8 @@ def _optax_prelude(opt, lr, clipnorm: float):
         if clipnorm:
             _clip_by_global_norm([p.grad for group in opt.param_groups
                                   for p in group["params"]
-                                  if p.grad is not None], clipnorm)
+                                  if p.grad is not None], clipnorm,
+                                 getattr(opt, "norm_group", None))
 
     def post(opt, args, kwargs):
         rate = learning_rate(lr, opt.param_groups[0]["count"] - 1)

@@ -13,6 +13,8 @@ buffers here.  JAX's state is one global array per leaf; a data-parallel
 mesh here holds one replica a rank, made equal when the state is built
 (:meth:`TrainState.create` broadcasts rank 0's parameters and buffers)
 and kept equal by applying the same global gradients on every rank.
+Under ZeRO (``zero``) the optimizer holds this rank's rows of the
+parameters only, and the update is the sharder's.
 """
 
 from __future__ import annotations
@@ -30,22 +32,37 @@ class TrainState:
     step: int
     model: nn.Module
     optimizer: torch.optim.Optimizer
+    #: ZeRO's sharder (``parallel.zero.ZeroSharder``): the optimizer
+    #: holds this rank's rows of the parameters, and the updates go
+    #: through the sharder
+    zero: object = None
+    #: the model's bucketed gradient sync (``parallel.overlap.
+    #: OverlapPlan``), which the data-parallel step runs in the backward
+    overlap: object = None
 
     @classmethod
-    def create(cls, model: nn.Module, make_optimizer, mesh=None
-               ) -> "TrainState":
+    def create(cls, model: nn.Module, make_optimizer, mesh=None,
+               zero=None) -> "TrainState":
         """Step 0 of ``model`` with ``make_optimizer(named_parameters)``;
         over a ``mesh``, rank 0's parameters and buffers first copied to
-        every rank."""
+        every rank of its batch group; with ``zero`` the optimizer is
+        built over this rank's rows (``ZeroSharder.shard_optimizer``)."""
         if mesh is not None:
             with torch.no_grad():
                 for t in [*model.parameters(), *model.buffers()]:
                     t.copy_(collectives.broadcast(t, mesh, src=0))
+        if zero is not None:
+            return cls(0, model, zero.shard_optimizer(model, make_optimizer),
+                       zero)
         return cls(0, model, make_optimizer(list(model.named_parameters())))
 
-    def apply_gradients(self, grads: dict[str, torch.Tensor]) -> "TrainState":
+    def apply_gradients(self, grads: dict[str, torch.Tensor]
+                        ) -> "TrainState":
         """One optimizer update from ``grads`` (parameter name -> tensor),
-        then ``step + 1``."""
+        then ``step + 1``; a ZeRO state's update is the sharder's (the
+        gradients this rank's local sums)."""
+        if self.zero is not None:
+            return self.zero.apply_gradients(self, grads)
         for name, p in self.model.named_parameters():
             p.grad = grads[name]
         self.optimizer.step()
@@ -62,3 +79,26 @@ class TrainState:
         advance_schedule(self.optimizer, k)
         self.step += k
         return self
+
+
+def create_sharded_state(model: nn.Module, make_optimizer, mesh, *, cfg,
+                         rules=None, zero=None):
+    """Step 0 of ``model`` (whole, its weights loaded) laid out on
+    ``mesh`` (JAX ``create_sharded_state``, ``train/state.py:72``): split
+    over ``model`` by the ``rules`` LayoutMap
+    (``parallel.sharding.bind_tensor_parallel``), replicated over the
+    batch axes, its optimizer over this rank's parameters (or, with a
+    ``zero`` sharder bound to the specs, this rank's rows of them).
+    Returns ``(state, specs)``: the parameters' PartitionSpecs by name,
+    from the rules on their flax paths (``cfg`` names the model).
+    JAX's ``fsdp=True`` (parameters sharded over ``fsdp`` and gathered
+    for each use) is not ported: ``fsdp`` is a batch axis here."""
+    from ..models.convert import flax_paths
+    from ..parallel.sharding import P, bind_tensor_parallel
+
+    specs = {name: rules.spec("/".join(path)) if rules is not None else P()
+             for name, path in flax_paths(cfg).items()}
+    bind_tensor_parallel(model, cfg, rules, mesh)
+    if zero is not None:
+        zero.bind(specs)
+    return TrainState.create(model, make_optimizer, mesh, zero=zero), specs

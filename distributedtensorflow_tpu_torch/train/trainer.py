@@ -88,10 +88,10 @@ class TrainerConfig:
     max_captures: int = 8
     capture_cooldown_s: float = 120.0
     capture_spread_factor: float = 3.0
-    # Informational stamps of modes compiled into the step elsewhere (the
-    # JAX package's ZeRO, quantized compute, collective-matmul overlap and
-    # pipeline schedules; the port has none of them yet): set, they stamp
-    # every metric record and /statusz as in JAX.
+    # Informational stamps of modes built into the state and the step
+    # elsewhere (ZeRO, quantized compute and the overlapped gradient sync,
+    # which train_torch.py sets; pipeline schedules, not ported yet): set,
+    # they stamp every metric record and /statusz as in JAX.
     zero_stage: int = 0
     quant: str = "none"
     overlap_buckets: int = 0
@@ -414,6 +414,8 @@ class Trainer:
                                                          state.optimizer)
             if self.config.zero_stage:
                 report["zero_stage"] = self.config.zero_stage
+                if getattr(state, "zero", None) is not None:
+                    report["zero_degree"] = state.zero.degree
             obs.memory.set_train_state_bytes(report)
         except Exception:
             logger.exception("train-state bytes accounting failed")

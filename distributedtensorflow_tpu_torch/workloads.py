@@ -37,8 +37,11 @@ defaults:
 The synthetic sources are copies of the JAX package's numpy sources
 with the same seeds, so both packages see identical batches; over a
 data-parallel mesh each rank's source is seeded by ``seed +
-input_pipeline_id``, as each JAX host's is.  The pipeline/sequence/
-expert-parallel variants are not ported yet.
+input_pipeline_id``, as each JAX host's is.  Each preset carries its
+``model``-axis layout (``layout``: GPT, BERT, ViT, seq2seq and Wide&Deep;
+the MoE presets refuse a model axis in ``for_mesh``), and ``quant``
+switches the transformer presets' block matmuls (:data:`QUANTIZABLE`).
+The pipeline/sequence/expert-parallel variants are not ported yet.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ from .data import InputContext, pack_sequences, synthetic_classification
 from .models.bert import (
     BertForMLM,
     bert_base,
+    bert_layout,
     bert_tiny,
     max_predictions_for,
     mlm_eval,
@@ -68,6 +72,7 @@ from .models.convert import init_params
 from .models.gpt import (
     GPTConfig,
     GPTLM,
+    gpt_layout,
     gpt_medium,
     gpt_small,
     gpt_tiny,
@@ -91,18 +96,21 @@ from .models.resnet import (
 from .models.seq2seq import (
     Seq2SeqLM,
     seq2seq_eval,
+    seq2seq_layout,
     seq2seq_loss,
     seq2seq_small,
     seq2seq_tiny,
 )
-from .models.vit import ViT, vit_s16, vit_tiny
+from .models.vit import ViT, vit_layout, vit_s16, vit_tiny
 from .models.widedeep import (
     WideDeep,
     WideDeepConfig,
     widedeep_eval,
+    widedeep_layout,
     widedeep_loss,
     widedeep_test_config,
 )
+from .parallel.sharding import LayoutMap
 from .train.losses import classification_eval, classification_loss
 from .train.optimizers import (
     adagrad,
@@ -237,6 +245,20 @@ class Workload:
     #: the model's forward reduces over the batch (BatchNorm statistics,
     #: MoE routing): over a mesh it is built with ``group=`` the mesh
     model_takes_group: bool = False
+    #: the ``model``-axis rules (``parallel.sharding.LayoutMap``), None:
+    #: every parameter replicated
+    layout: LayoutMap | None = None
+
+    def for_mesh(self, mesh) -> "Workload":
+        """The workload bound to ``mesh`` (JAX ``Workload.for_mesh``).  The
+        MoE presets refuse a ``model`` axis: their layouts shard experts
+        over the ``expert`` axis (ROADMAP item 7)."""
+        if (self.name in ("gpt_moe", "bert_moe") and mesh is not None
+                and mesh.shape["model"] > 1):
+            raise NotImplementedError(
+                f"{self.name} over a model axis is not ported: its layout "
+                "needs the expert axis")
+        return self
 
 
 def _image_input(shape, classes):
@@ -303,7 +325,7 @@ def _baseline(name: str, *, test_size: bool, global_batch_size: int | None,
                                                 weight_decay=0.01),
             input_fn=lambda ctx, seed: source(
                 ctx, vocab_size=cfg.vocab_size, seq_len=seq, seed=seed),
-            accum_steps=4, model_cls=BertForMLM)
+            accum_steps=4, model_cls=BertForMLM, layout=bert_layout())
     if name == "bert_moe":
         cfg = bert_moe_tiny() if test_size else bert_moe_base()
         seq = seq_len or (128 if test_size else 512)
@@ -329,7 +351,7 @@ def _baseline(name: str, *, test_size: bool, global_batch_size: int | None,
         loss_fn=widedeep_loss, eval_fn=widedeep_eval,
         make_optimizer=lambda params: adagrad(params, 0.01),
         input_fn=lambda ctx, seed: synthetic_recsys(ctx, cfg, seed),
-        model_cls=WideDeep)
+        model_cls=WideDeep, layout=widedeep_layout())
 
 
 def _vit(*, test_size: bool, global_batch_size: int | None) -> Workload:
@@ -346,7 +368,7 @@ def _vit(*, test_size: bool, global_batch_size: int | None) -> Workload:
             weight_decay=0.05),
         input_fn=_image_input((cfg.image_size, cfg.image_size, 3),
                               cfg.num_classes),
-        model_cls=ViT)
+        model_cls=ViT, layout=vit_layout())
 
 
 def _seq2seq(*, test_size: bool, global_batch_size: int | None,
@@ -366,7 +388,7 @@ def _seq2seq(*, test_size: bool, global_batch_size: int | None,
         input_fn=lambda ctx, seed: synthetic_seq2seq(
             ctx, vocab_size=cfg.vocab_size, seq_len=seq, pad_id=cfg.pad_id,
             seed=seed),
-        model_cls=Seq2SeqLM)
+        model_cls=Seq2SeqLM, layout=seq2seq_layout(cfg))
 
 
 def _apply_gpt_overrides(cfg: GPTConfig, *, seq, remat, attn_impl, xent_impl,
@@ -386,6 +408,14 @@ def _apply_gpt_overrides(cfg: GPTConfig, *, seq, remat, attn_impl, xent_impl,
     )
 
 
+#: The presets with a quantised-compute path (JAX ``get_workload``'s
+#: ``quantizable``, ``workloads.py:250-251``): the MoE presets' experts
+#: sit outside the dense picker, the conv and recsys presets have no
+#: dense trunk.
+QUANTIZABLE = ("gpt_lm", "gpt_medium_lm", "lm_long_context", "bert_mlm",
+               "bert_mlm_packed", "imagenet_vit")
+
+
 def get_workload(name: str, *, test_size: bool = False,
                  global_batch_size: int | None = None,
                  seq_len: int | None = None,
@@ -393,14 +423,33 @@ def get_workload(name: str, *, test_size: bool = False,
                  attn_impl: str | None = None,
                  xent_impl: str | None = None,
                  kv_heads: int | None = None,
-                 attn_window: int | None = None) -> Workload:
+                 attn_window: int | None = None,
+                 quant: str | None = None) -> Workload:
     """Build a ported preset by name; ``test_size`` shrinks the model.
     The GPT knobs (``remat`` ... ``attn_window``) apply to the GPT family
     only, as in JAX, but for ``kv_heads``, which ``t5_seq2seq`` takes
-    too."""
+    too.  ``quant`` ("int8", "int8_stochastic", "fp8") runs the block
+    matmuls of the presets of :data:`QUANTIZABLE` quantised, and is
+    refused for the others."""
     if name not in WORKLOADS:
         raise ValueError(f"workload {name!r} is not ported; the port has "
                          f"{', '.join(WORKLOADS)}")
+    if quant and quant != "none" and name not in QUANTIZABLE:
+        raise ValueError(
+            f"workload {name!r} has no quantized-compute path; "
+            f"quant={quant!r} is supported for: {', '.join(QUANTIZABLE)}")
+    wl = _workload(name, test_size=test_size,
+                   global_batch_size=global_batch_size, seq_len=seq_len,
+                   remat=remat, attn_impl=attn_impl, xent_impl=xent_impl,
+                   kv_heads=kv_heads, attn_window=attn_window)
+    cfg = wl.cfg
+    if quant and quant != "none":
+        cfg = dataclasses.replace(cfg, quant=quant)
+    return dataclasses.replace(wl, cfg=cfg)
+
+
+def _workload(name: str, *, test_size, global_batch_size, seq_len, remat,
+              attn_impl, xent_impl, kv_heads, attn_window) -> Workload:
     if name == "imagenet_vit":
         return _vit(test_size=test_size, global_batch_size=global_batch_size)
     if name == "t5_seq2seq":
@@ -441,4 +490,5 @@ def get_workload(name: str, *, test_size: bool = False,
             ctx, vocab_size=cfg.vocab_size, seq_len=seq, seed=seed),
         model_cls=GPTMoELM if moe else GPTLM,
         model_takes_group=moe,
+        layout=None if moe else gpt_layout(),
     )

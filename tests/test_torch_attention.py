@@ -17,6 +17,7 @@ import torch
 from distributedtensorflow_tpu.ops import attention as jattn
 from distributedtensorflow_tpu_torch.ops import _cuda
 from distributedtensorflow_tpu_torch.ops import attention as tattn
+from distributedtensorflow_tpu_torch.testing import two_intra_op_threads  # noqa: F401
 
 DTYPES = {"fp32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}

@@ -30,6 +30,7 @@ from distributedtensorflow_tpu_torch import data as td
 from distributedtensorflow_tpu_torch import models as tm
 from distributedtensorflow_tpu_torch import train as tt
 from distributedtensorflow_tpu_torch import workloads as tw
+from distributedtensorflow_tpu_torch.testing import two_intra_op_threads  # noqa: F401
 
 RTOL = 1e-5
 GRAD_TOL = 1e-4

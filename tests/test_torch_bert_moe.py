@@ -33,6 +33,7 @@ from distributedtensorflow_tpu_torch.models import gpt_moe as tgpt_moe
 from distributedtensorflow_tpu_torch.parallel import moe as tmoe
 from distributedtensorflow_tpu_torch.parallel.mesh import MeshSpec, build_mesh
 from distributedtensorflow_tpu_torch.testing import run_ranks
+from distributedtensorflow_tpu_torch.testing import two_intra_op_threads  # noqa: F401
 
 RTOL = 1e-5
 GRAD_TOL = 1e-4

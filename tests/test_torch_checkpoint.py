@@ -68,6 +68,7 @@ from distributedtensorflow_tpu_torch.utils import (
     trace,
     tree_fingerprint,
 )
+from distributedtensorflow_tpu_torch.testing import two_intra_op_threads  # noqa: F401
 
 
 @pytest.fixture

@@ -48,6 +48,7 @@ from distributedtensorflow_tpu_torch.models.layers import dropout
 from distributedtensorflow_tpu_torch.parallel import moe as tmoe
 from distributedtensorflow_tpu_torch.parallel.mesh import MeshSpec, build_mesh
 from distributedtensorflow_tpu_torch.testing import run_ranks
+from distributedtensorflow_tpu_torch.testing import two_intra_op_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL = 1e-5
@@ -214,10 +215,14 @@ def _rank_batches(case, world, seed=0):
     return out
 
 
-def _jax_run(name, world, accum, rank_batches):
-    """The JAX step on the global batches: losses and metrics per step,
-    the first step's gradients, and the final variables."""
+@functools.lru_cache(maxsize=None)
+def _jax_run(name, world, accum):
+    """The JAX step on the global batches (the ranks' pipelines,
+    :func:`_rank_batches`): losses and metrics per step, the first step's
+    gradients, and the final variables; computed once a module for each
+    (preset, world, accumulation)."""
     case, jw = _case(name)
+    rank_batches = _rank_batches(case, world)
     params = jax.tree.map(jnp.asarray, case.variables["params"])
     mstate = {k: jax.tree.map(jnp.asarray, v)
               for k, v in case.variables.items() if k != "params"}
@@ -279,7 +284,7 @@ def _port_run(name, world, accum, rank_batches, *, route_globally=True):
 def _check_against_jax(name, world, accum):
     case, _ = _case(name)
     batches = _rank_batches(case, world)
-    ref, jgrads, final = _jax_run(name, world, accum, batches)
+    ref, jgrads, final = _jax_run(name, world, accum)
     outs = _port_run(name, world, accum, batches)
     for metrics, _, _ in outs:
         for got, want in zip(metrics, ref):
@@ -335,7 +340,7 @@ def test_gpt_moe_routes_the_global_batch(world):
     match JAX's; routing each rank's tokens on their own drops other
     assignments and misses JAX's losses."""
     batches, _ = _check_against_jax("gpt_moe", world, 1)
-    ref = _jax_run("gpt_moe", world, 1, batches)[0]
+    ref = _jax_run("gpt_moe", world, 1)[0]
     local = _port_run("gpt_moe", world, 1, batches, route_globally=False)
     diffs = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
              for a, b in zip(local[0][0], ref)]

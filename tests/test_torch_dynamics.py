@@ -33,6 +33,7 @@ from distributedtensorflow_tpu_torch import train as tt
 from distributedtensorflow_tpu_torch import workloads as tw
 from distributedtensorflow_tpu_torch.obs import dynamics as dyn
 from tools import check_metrics_schema
+from distributedtensorflow_tpu_torch.testing import two_intra_op_threads  # noqa: F401
 
 #: Relative tolerance of the fp32 norms and ratios against JAX's.
 RTOL = 1e-5

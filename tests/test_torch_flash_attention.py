@@ -29,6 +29,7 @@ from distributedtensorflow_tpu.ops.flash_attention import (
 from distributedtensorflow_tpu_torch.ops import _cuda
 from distributedtensorflow_tpu_torch.ops import attention as tattn
 from distributedtensorflow_tpu_torch.ops import flash_attention as fa
+from distributedtensorflow_tpu_torch.testing import two_intra_op_threads  # noqa: F401
 
 B, S, H, D = 2, 64, 4, 32
 

@@ -25,6 +25,7 @@ from distributedtensorflow_tpu_torch.models.gpt import _pick_xent
 from distributedtensorflow_tpu_torch.ops import _cuda
 from distributedtensorflow_tpu_torch.ops import fused_xent as fx
 from distributedtensorflow_tpu_torch.ops.xent import chunked_softmax_xent
+from distributedtensorflow_tpu_torch.testing import two_intra_op_threads  # noqa: F401
 
 BLOCKS = dict(block_tokens=16, block_vocab=128,
               block_tokens_dx=32, block_vocab_dx=64)

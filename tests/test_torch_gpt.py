@@ -20,6 +20,7 @@ from distributedtensorflow_tpu.models import generate as jax_generate
 from distributedtensorflow_tpu.models import gpt_tiny as jax_gpt_tiny
 from distributedtensorflow_tpu.models import prefill as jax_prefill
 from distributedtensorflow_tpu_torch import models as tm
+from distributedtensorflow_tpu_torch.testing import two_intra_op_threads  # noqa: F401
 
 VARIANTS = {
     "mha": {},
@@ -205,17 +206,20 @@ def test_generate_validation(mha):
 def test_training_forward_and_quant_are_not_ported(mha):
     """The training forward is ported now (no cache: the JAX model's
     full forward, fp32 logits), and so is the fused loss head (K4f/K4b,
-    its plain twins on the CPU); quantised dense layers are not, and
-    raise."""
+    its plain twins on the CPU), and so are the quantised dense layers
+    (``tests/test_torch_quant.py``); an unknown mode raises."""
     jcfg, params, model, _ = mha
     ids = _ids(2, 8, seed=6)
     ref = JaxGPTLM(jcfg).apply({"params": params}, jnp.asarray(ids))
     got = model(torch.as_tensor(ids))
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref),
                                rtol=1e-4, atol=1e-4)
-    cfg = dataclasses.replace(tm.gpt_tiny(), quant="int8")
-    with pytest.raises(NotImplementedError, match="quant"):
+    cfg = dataclasses.replace(tm.gpt_tiny(), quant="int4")
+    with pytest.raises(ValueError, match="quant mode"):
         tm.GPTLM(cfg, device="cpu")
+    cfg = dataclasses.replace(tm.gpt_tiny(), quant="int8")
+    assert type(tm.GPTLM(cfg, device="cpu").h[0].fc_in).__name__ \
+        == "QuantDense"
     cfg = dataclasses.replace(tm.gpt_tiny(), xent_impl="fused")
     fused = tm.GPTLM(cfg, device="cpu")
     loss, _ = tm.lm_loss(fused)({"input_ids": torch.as_tensor(ids)})

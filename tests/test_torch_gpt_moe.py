@@ -32,6 +32,7 @@ from distributedtensorflow_tpu.train.engine import _step_body
 from distributedtensorflow_tpu.train.state import TrainState as JaxTrainState
 from distributedtensorflow_tpu_torch import models as tm
 from distributedtensorflow_tpu_torch import workloads as tw
+from distributedtensorflow_tpu_torch.testing import two_intra_op_threads  # noqa: F401
 
 VARIANTS = {
     "top2": {},

@@ -23,7 +23,12 @@ from distributedtensorflow_tpu.models import lenet as jax_lenet
 from distributedtensorflow_tpu.models import resnet as jax_resnet
 from distributedtensorflow_tpu.models import widedeep as jax_widedeep
 from distributedtensorflow_tpu_torch import models as tm
-from distributedtensorflow_tpu_torch.models.layers import Conv, same_padding
+from distributedtensorflow_tpu_torch.models.layers import (
+    Conv,
+    QuantDense,
+    same_padding,
+)
+from distributedtensorflow_tpu_torch.testing import two_intra_op_threads  # noqa: F401
 
 RTOL = 1e-5
 GRAD_TOL = 1e-4
@@ -317,9 +322,17 @@ def test_gathered_positions_keep_the_first_masked_in_order():
 
 
 def test_bert_refuses_quant():
-    with pytest.raises(NotImplementedError, match="quant"):
-        tm.BertForMLM(dataclasses.replace(tm.bert_tiny(), quant="int8"),
+    """An unknown quant mode raises; the ported modes build the
+    quantised attention and MLP layers (``tests/test_torch_quant.py``
+    holds them to JAX)."""
+    with pytest.raises(ValueError, match="quant mode"):
+        tm.BertForMLM(dataclasses.replace(tm.bert_tiny(), quant="int4"),
                       device="cpu")
+    model = tm.BertForMLM(dataclasses.replace(tm.bert_tiny(), quant="int8"),
+                          device="cpu")
+    assert isinstance(model.encoder.layer_0.mlp_in, QuantDense)
+    assert isinstance(model.encoder.layer_0.attention.query, QuantDense)
+    assert not isinstance(model.mlm_out, QuantDense)
 
 
 # ---------------------------------------------------------------- Wide&Deep

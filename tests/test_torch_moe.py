@@ -22,6 +22,7 @@ from distributedtensorflow_tpu.models.gpt_moe import (
 from distributedtensorflow_tpu.parallel import moe as jmoe
 from distributedtensorflow_tpu_torch.models.gpt_moe import _expert_mlp
 from distributedtensorflow_tpu_torch.parallel import moe as tmoe
+from distributedtensorflow_tpu_torch.testing import two_intra_op_threads  # noqa: F401
 
 T, E, DM, FF = 48, 4, 16, 24
 

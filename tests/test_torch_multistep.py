@@ -76,6 +76,7 @@ from distributedtensorflow_tpu_torch.models.layers import (
 from distributedtensorflow_tpu_torch.ops import dropout as dmod
 from distributedtensorflow_tpu_torch.parallel.mesh import MeshSpec, build_mesh
 from distributedtensorflow_tpu_torch.testing import run_ranks
+from distributedtensorflow_tpu_torch.testing import two_intra_op_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL = 1e-5
@@ -276,12 +277,11 @@ def _gpt_dropout_state(seed=3):
     return tt.TrainState(0, model, make(list(model.named_parameters())))
 
 
-@pytest.mark.parametrize("k", [1, 3])
-def test_multi_step_equals_single_steps(k):
-    """gpt_lm at test size with dropout 0.1, two microbatches, AdamW on
-    a warm-up cosine with clipping: six steps k a call equal six single
-    steps bit for bit (losses, parameters, the optimizer's moments and
-    count); k = 1 is the single step itself."""
+@pytest.fixture(scope="module")
+def single_steps():
+    """Six single steps of :func:`_gpt_dropout_state` on fixed ids (two
+    microbatches, seed 7): ``(ids, the state after, the losses)``, built
+    once for every k of :func:`test_multi_step_equals_single_steps`."""
     ids = torch.as_tensor(np.random.default_rng(0).integers(
         0, 512, (6, 4, 32)))
     ref = _gpt_dropout_state()
@@ -290,6 +290,16 @@ def test_multi_step_equals_single_steps(k):
     for i in range(6):
         ref, m = single(ref, {"input_ids": ids[i]})
         want.append(m["loss"])
+    return ids, ref, want
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_multi_step_equals_single_steps(k, single_steps):
+    """gpt_lm at test size with dropout 0.1, two microbatches, AdamW on
+    a warm-up cosine with clipping: six steps k a call equal six single
+    steps bit for bit (losses, parameters, the optimizer's moments and
+    count); k = 1 is the single step itself."""
+    ids, ref, want = single_steps
     state = _gpt_dropout_state()
     multi = tt.make_multi_train_step(tm.lm_loss(state.model),
                                      steps_per_call=k, accum_steps=2, seed=7)

@@ -27,6 +27,7 @@ from distributedtensorflow_tpu.train import optimizers as jax_opt
 from distributedtensorflow_tpu_torch import models as tm
 from distributedtensorflow_tpu_torch import train as tt
 from distributedtensorflow_tpu_torch.train import optimizers as topt
+from distributedtensorflow_tpu_torch.testing import two_intra_op_threads  # noqa: F401
 
 TOL = 1e-5
 UPDATES = 5

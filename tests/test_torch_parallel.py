@@ -28,7 +28,7 @@ from distributedtensorflow_tpu_torch.data import (
 from distributedtensorflow_tpu_torch.parallel import bootstrap
 from distributedtensorflow_tpu_torch.parallel import collectives as coll
 from distributedtensorflow_tpu_torch.parallel import mesh as tmesh
-from distributedtensorflow_tpu_torch.testing import run_ranks
+from distributedtensorflow_tpu_torch.testing import run_mesh, run_ranks
 from distributedtensorflow_tpu_torch.utils import MetricWriter, ThroughputMeter
 
 # ------------------------------------------------------------------ the mesh
@@ -62,11 +62,17 @@ def test_mesh_axes_match_jax_and_other_axes_refuse():
     assert mesh.group is None and mesh.shape["data"] == 1
     assert tmesh.data_axes(mesh) == ("data", "fsdp")
     assert tmesh.replica_count(mesh) == 1
-    for kw in (dict(fsdp=2), dict(model=2), dict(pipe=2)):
+    for kw in (dict(pipe=2), dict(seq=2), dict(expert=2)):
         def refuse(rank, group, kw=kw):
             with pytest.raises(NotImplementedError, match="not ported"):
                 tmesh.build_mesh(tmesh.MeshSpec(data=1, **kw), group)
         run_ranks(refuse, 2)
+    # fsdp is a batch axis; model splits a replica's parameters
+    fsdp = run_mesh(lambda r, m: m, tmesh.MeshSpec(data=1, fsdp=2), 2)
+    assert [tmesh.replica_index(m) for m in fsdp] == [0, 1]
+    model = run_mesh(lambda r, m: m, tmesh.MeshSpec(data=1, model=2), 2)
+    assert [m.coords["model"] for m in model] == [0, 1]
+    assert {tmesh.replica_count(m) for m in model} == {1}
 
 
 def test_mesh_coordinates_over_ranks():

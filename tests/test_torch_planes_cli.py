@@ -30,6 +30,7 @@ import train_torch
 from distributedtensorflow_tpu_torch.net import breaker
 from distributedtensorflow_tpu_torch.train import Callback
 from tools import check_metrics_schema
+from distributedtensorflow_tpu_torch.testing import two_intra_op_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 TRAIN_FLAGS = ("--dynamics-every", "--fleet", "--fleet-interval",
@@ -121,7 +122,30 @@ class _Probe(Callback):
                 self.answers[path] = e.code
 
 
-def test_train_torch_planes_write_their_logs(tmp_path, monkeypatch):
+@pytest.fixture
+def empty_series():
+    """The default registry's series emptied for the test and put back
+    after it.  Series that earlier tests of this worker process left in
+    the process's registry would take the history store's ``max_series``
+    slots (512; this run alone fills 276) that the run's dynamics gauges
+    need.  The metric objects stay, since modules hold them from their
+    import."""
+    from distributedtensorflow_tpu_torch.obs import registry
+
+    saved = []
+    for metric in registry.default_registry().metrics():
+        store = metric._hist if isinstance(metric, registry.Histogram) \
+            else metric._values
+        saved.append((store, dict(store)))
+        store.clear()
+    yield
+    for store, items in saved:
+        store.clear()
+        store.update(items)
+
+
+def test_train_torch_planes_write_their_logs(tmp_path, monkeypatch,
+                                             empty_series):
     breaker.reset_breakers()
     probe = _Probe(3)
     make = train_torch.Trainer

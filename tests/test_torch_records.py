@@ -26,6 +26,7 @@ from distributedtensorflow_tpu_torch.checkpoint import CheckpointManager
 from distributedtensorflow_tpu_torch.data import InputContext
 from distributedtensorflow_tpu_torch.data import recordio_dataset as trd
 from distributedtensorflow_tpu_torch.data import wire as twire
+from distributedtensorflow_tpu_torch.testing import two_intra_op_threads  # noqa: F401
 
 
 def _examples(n=40, seed=0):

@@ -36,6 +36,7 @@ from distributedtensorflow_tpu_torch import workloads as tw
 from distributedtensorflow_tpu_torch.data import InputContext
 from distributedtensorflow_tpu_torch.models.layers import DropoutKey, RMSNorm
 from distributedtensorflow_tpu_torch.ops import xent as txent
+from distributedtensorflow_tpu_torch.testing import two_intra_op_threads  # noqa: F401
 
 STATE_TOL = 1e-5
 RTOL = 1e-5

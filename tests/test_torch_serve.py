@@ -39,6 +39,7 @@ from distributedtensorflow_tpu_torch.serve.model import (
     make_prefill_fn,
 )
 from distributedtensorflow_tpu_torch.serve.sampling import logits_to_probs
+from distributedtensorflow_tpu_torch.testing import two_intra_op_threads  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 

@@ -34,6 +34,7 @@ from distributedtensorflow_tpu.serve import Engine as JaxEngine
 from distributedtensorflow_tpu_torch import models as tm
 from distributedtensorflow_tpu_torch.obs.registry import Registry
 from distributedtensorflow_tpu_torch.serve import Engine
+from distributedtensorflow_tpu_torch.testing import two_intra_op_threads  # noqa: F401
 
 _BASE = dict(max_slots=3, max_queue=16, block_size=8, prefill_chunk=8,
              max_context=64)

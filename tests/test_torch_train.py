@@ -37,6 +37,7 @@ from distributedtensorflow_tpu_torch import train as tt
 from distributedtensorflow_tpu_torch import workloads as tw
 from distributedtensorflow_tpu_torch.data import InputContext
 from distributedtensorflow_tpu_torch.ops.xent import chunked_softmax_xent
+from distributedtensorflow_tpu_torch.testing import two_intra_op_threads  # noqa: F401
 
 
 def _flat(tree, prefix=()):

@@ -55,6 +55,7 @@ from distributedtensorflow_tpu_torch.checkpoint import (
 from distributedtensorflow_tpu_torch.data import InputContext, device_put_batch
 from distributedtensorflow_tpu_torch.parallel.mesh import MeshSpec, build_mesh
 from distributedtensorflow_tpu_torch.testing import run_ranks
+from distributedtensorflow_tpu_torch.testing import two_intra_op_threads  # noqa: F401
 
 RTOL = 1e-5
 #: Record keys only one package writes: the JAX step runs over 8 virtual

@@ -135,10 +135,16 @@ from distributedtensorflow_tpu_torch.data import (
 from distributedtensorflow_tpu_torch.device import resolve_device
 from distributedtensorflow_tpu_torch.models import (
     flax_modules,
+    flax_paths,
     flax_views,
     make_nan_taps,
 )
 from distributedtensorflow_tpu_torch.parallel import bootstrap
+from distributedtensorflow_tpu_torch.parallel.overlap import OverlapPlan
+from distributedtensorflow_tpu_torch.parallel.zero import (
+    ZERO_SAFE,
+    ZeroSharder,
+)
 from distributedtensorflow_tpu_torch.parallel.mesh import (
     MeshSpec,
     build_mesh,
@@ -150,6 +156,7 @@ from distributedtensorflow_tpu_torch.train import (
     Trainer,
     TrainerConfig,
     TrainState,
+    create_sharded_state,
     make_eval_step,
     make_multi_train_step,
 )
@@ -240,6 +247,33 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="global batch size (default: workload preset)")
     p.add_argument("--accum-steps", type=int, default=None,
                    help="microbatches a step (default: workload preset)")
+    p.add_argument("--zero", action="store_true",
+                   help="cross-replica weight-update sharding (ZeRO stage "
+                        "1, arxiv 2004.13336): reduce-scatter gradients, "
+                        "shard the optimizer state + update 1/N per "
+                        "data-parallel replica, all-gather updated params "
+                        "— per-device optimizer-state bytes shrink by the "
+                        "replica count; exact for elementwise optimizers "
+                        "(sgd/momentum/adam/adamw/adagrad/lion)")
+    p.add_argument("--quant",
+                   choices=("none", "int8", "int8_stochastic", "fp8"),
+                   default="none",
+                   help="quantized compute (ops/quant.py): run the "
+                        "transformer presets' block matmuls as int8 (or "
+                        "fp8) with per-channel absmax scales and a "
+                        "straight-through-estimator backward (QAT-safe); "
+                        "embeddings/layernorms/heads stay high-precision; "
+                        "stamps quant_mode into every metric record")
+    p.add_argument("--overlap", action="store_true",
+                   help="collective-matmul overlap (parallel/overlap.py): "
+                        "issue the backward-pass gradient all-reduce "
+                        "(reduce-scatter under --zero) in per-layer-group "
+                        "buckets as each gradient is produced, so the sync "
+                        "hides under the remaining backward matmuls; "
+                        "numerically identical to the unbucketed step")
+    p.add_argument("--overlap-bucket-mb", type=float, default=4.0,
+                   help="greedy merge threshold (MiB of parameter bytes) "
+                        "for --overlap's per-layer-group gradient buckets")
     p.add_argument("--seq-len", type=int, default=None)
     p.add_argument("--optimizer", default=None, choices=OPTIMIZERS,
                    help="override the preset's optimizer (requires --lr)")
@@ -432,9 +466,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "loop's own thread")
     p.add_argument("--device", default="cuda")
     p.add_argument("--mesh", default=None,
-                   help="mesh axes, e.g. 'data=2' or 'data=-1' (every "
-                        "process of the cluster); only the data axis is "
-                        "ported")
+                   help="mesh axes, e.g. 'data=2', 'data=-1' (every "
+                        "process of the cluster), 'data=2,model=2' (tensor "
+                        "parallelism over model) or 'fsdp=2' (a batch "
+                        "axis); pipe, seq and expert are not ported")
     p.add_argument("--dist-backend", choices=bootstrap.BACKENDS,
                    default="nccl",
                    help="process-group backend over a mesh: nccl on the "
@@ -464,9 +499,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def apply_optimizer_flags(wl, args):
+def apply_optimizer_flags(wl, args, decay_mask=None):
     """--optimizer/--lr/--schedule override the preset's optimizer, with
-    ``train.py``'s checks (``apply_optimizer_flags``, ``:125-195``)."""
+    ``train.py``'s checks (``apply_optimizer_flags``, ``:125-195``).
+    ``decay_mask``: a concrete name -> bool mask in place of the
+    bias-norm rule (ZeRO's rows are all of rank 1, ``train.py:198``)."""
     if not args.optimizer:
         if args.lr is not None:
             raise SystemExit("--lr requires --optimizer (which family to "
@@ -485,6 +522,8 @@ def apply_optimizer_flags(wl, args):
         raise SystemExit("--decay-mask requires --weight-decay > 0")
     mask = (exclude_bias_and_norm_mask if args.decay_mask == "bias-norm"
             else None)
+    if mask is not None and decay_mask is not None:
+        mask = decay_mask
     try:
         lr = build_schedule(args.schedule, args.lr,
                             warmup_steps=args.warmup_steps,
@@ -557,16 +596,20 @@ def build(args: argparse.Namespace, checkpointer=None):
     is its newest verified checkpoint, if it has one, and the batches
     start after the ones the saved run consumed."""
     mesh, device = bootstrap_mesh(args)
-    wl = get_workload(
-        args.workload, test_size=args.test_size,
-        global_batch_size=args.batch_size, seq_len=args.seq_len,
-        remat=_REMAT[args.remat], attn_impl=args.attn_impl,
-        xent_impl=args.xent_impl, kv_heads=args.kv_heads,
-        attn_window=args.attn_window)
+    try:
+        wl = get_workload(
+            args.workload, test_size=args.test_size,
+            global_batch_size=args.batch_size, seq_len=args.seq_len,
+            remat=_REMAT[args.remat], attn_impl=args.attn_impl,
+            xent_impl=args.xent_impl, kv_heads=args.kv_heads,
+            attn_window=args.attn_window, quant=args.quant)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
     wl = apply_optimizer_flags(wl, args)
     if args.dtype:
         wl = dataclasses.replace(wl, cfg=dataclasses.replace(
             wl.cfg, dtype=getattr(torch, args.dtype)))
+    wl = wl.for_mesh(mesh)
     accum = wl.accum_steps if args.accum_steps is None else args.accum_steps
     replicas = 1 if mesh is None else replica_count(mesh)
     if wl.global_batch_size % (replicas * accum):
@@ -577,7 +620,18 @@ def build(args: argparse.Namespace, checkpointer=None):
                          **(group if wl.model_takes_group else {}))
     model.load_state_dict(
         wl.init_params(wl.cfg, torch.Generator().manual_seed(args.seed)))
-    state = TrainState.create(model, wl.make_optimizer, mesh)
+    zero = zero_sharder(args, mesh)
+    if zero is not None and args.decay_mask == "bias-norm":
+        # resolved on the whole parameters: ZeRO's rows are all rank 1
+        wl = apply_optimizer_flags(wl, args, decay_mask=dict(
+            exclude_bias_and_norm_mask(model.named_parameters())))
+    if mesh is not None:
+        state, _ = create_sharded_state(model, wl.make_optimizer, mesh,
+                                        cfg=wl.cfg, rules=wl.layout,
+                                        zero=zero)
+    else:
+        state = TrainState.create(model, wl.make_optimizer)
+    state.overlap = overlap_plan(args, model, mesh, zero, wl.cfg)
     if checkpointer is not None:
         checkpointer.restore_latest(state)
     step = make_multi_train_step(
@@ -594,6 +648,50 @@ def build(args: argparse.Namespace, checkpointer=None):
     batches = device_iter(args, source, device, mesh, accum,
                           bundle=args.steps_per_call)
     return wl, state, step, batches
+
+
+def zero_sharder(args, mesh):
+    """``--zero``'s sharder over the mesh's replicas, or None; warns, as
+    ``train.py:1044-1067`` does, for a single replica (nothing to shard)
+    and for an optimizer whose update is not elementwise."""
+    if not args.zero:
+        return None
+    replicas = 1 if mesh is None else replica_count(mesh)
+    if replicas <= 1:
+        logger.warning("--zero: mesh %s has a single data-parallel replica; "
+                       "nothing to shard the weight update over — running "
+                       "replicated", None if mesh is None else mesh.shape)
+        return None
+    if args.optimizer and args.optimizer not in ZERO_SAFE:
+        logger.warning(
+            "--zero with --optimizer %s: its update is not elementwise "
+            "(per-shard norms/factored stats), so the trajectory will "
+            "deviate from replicated data parallelism; elementwise "
+            "optimizers (%s) are exact", args.optimizer, ", ".join(ZERO_SAFE))
+    zero = ZeroSharder(mesh)
+    logger.info("zero: sharding optimizer state + weight update %d-way over "
+                "axes %s", zero.degree, zero.axes)
+    return zero
+
+
+def overlap_plan(args, model, mesh, zero, cfg):
+    """``--overlap``'s bucketed gradient sync, or None (with a warning
+    for a single replica: there is no gradient collective to overlap)."""
+    if not args.overlap:
+        return None
+    replicas = 1 if mesh is None else replica_count(mesh)
+    if replicas <= 1:
+        logger.warning("--overlap: mesh %s has a single data-parallel "
+                       "replica; there is no gradient collective to "
+                       "overlap — running without bucketing",
+                       None if mesh is None else mesh.shape)
+        return None
+    plan = OverlapPlan.build(model, mesh, zero=zero, paths=flax_paths(cfg),
+                             bucket_bytes=int(args.overlap_bucket_mb * 2**20))
+    logger.info("overlap: %d gradient bucket(s), mode=%s, coverage=%.0f%%",
+                len(plan.buckets), plan.describe()["mode"],
+                100 * plan.coverage)
+    return plan
 
 
 def record_source(args, ctx):
@@ -689,10 +787,26 @@ class _PrintRecords(Callback):
 
 
 def check_flags(args) -> None:
-    """train.py's setup checks of the telemetry and input flags."""
+    """train.py's setup checks of the telemetry, input and scale-out
+    flags, and the port's own refusals of what it has not ported."""
+    spec = parse_mesh(args.mesh)
+    if spec is not None and spec.model > 1:
+        if args.checkpoint_dir:
+            raise SystemExit("--checkpoint-dir over a model axis is not "
+                             "ported (each model rank holds other shards)")
+        if args.clipnorm:
+            raise SystemExit("--clipnorm over a model axis is not ported "
+                             "(the global norm spans the model ranks)")
+    if args.zero and args.dynamics_every:
+        raise SystemExit("--dynamics-every with --zero is not ported (each "
+                         "rank holds its own rows of the gradients)")
     if args.steps_per_call < 1:
         raise SystemExit(f"--steps-per-call must be >= 1, got "
                          f"{args.steps_per_call}")
+    if args.steps_per_call > 1 and (args.zero or args.overlap):
+        raise SystemExit("--steps-per-call > 1 with --zero or --overlap is "
+                         "not ported (their collectives and hooks are "
+                         "untried under the k-step CUDA graph)")
     if args.prefetch_depth < 0:
         raise SystemExit(f"--prefetch-depth must be >= 0, got "
                          f"{args.prefetch_depth}")
@@ -915,16 +1029,25 @@ def _train(args) -> list[dict]:
         target_metric=args.target_metric, target_value=args.target_value,
         target_mode=args.target_mode, trace=not args.no_trace,
         flops_per_step=args.flops_per_step,
+        zero_stage=1 if state.zero is not None else 0, quant=args.quant,
+        overlap_buckets=len(state.overlap.buckets)
+        if state.overlap is not None else 0,
+        overlap_coverage=state.overlap.coverage
+        if state.overlap is not None else 0.0,
         anomaly_detection=not args.no_anomaly_detection,
         status_port=args.status_port, status_host=args.status_host,
         flight_recorder=args.flight_recorder,
         dynamics_every=args.dynamics_every)
     if not config.flops_per_step and args.estimate_flops != "off":
         if wl.name.startswith(("gpt", "lm_")):
-            per_token, _ = flops_per_token(state.model, wl.cfg, wl.seq_len)
-            replicas = 1 if mesh is None else replica_count(mesh)
+            # the whole model's parameters (a model rank holds shards),
+            # its flops shared by every device: replicas x model ranks
+            per_token, _ = flops_per_token(
+                wl.model_cls(wl.cfg, device="meta"), wl.cfg, wl.seq_len)
+            ranks = 1 if mesh is None else \
+                replica_count(mesh) * mesh.shape["model"]
             config.flops_per_step = (per_token * wl.global_batch_size
-                                     * wl.seq_len / replicas)
+                                     * wl.seq_len / ranks)
         elif args.estimate_flops == "on":
             step = _counting_first_step(step, config)
     printer = _PrintRecords(wl, bootstrap.is_chief())
