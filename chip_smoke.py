@@ -327,10 +327,12 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -347,7 +349,14 @@ L2_BYTES = 50 * 2**20
 SEED = 0
 
 
+#: The script's start: each phase or kernel row gets its seconds since
+#: then as ``t_s`` (where the time goes, against the 1200 s limit).
+T_START = time.time()
+
+
 def emit(obj) -> None:
+    if "phase" in obj or "kernel" in obj:
+        obj = {**obj, "t_s": round(time.time() - T_START, 2)}
     print(json.dumps(obj), flush=True)
 
 
@@ -1860,10 +1869,13 @@ SERVE_CLI_MODES = (
     ("d_speculate", ("--fused-sampling", "--speculate", "4")),
 )
 SERVE_CLI_CONTEXT = 2048
-SERVE_CLI_NEW_TOKENS = 64
-#: Prompt lengths are divided by this (1 on the card; a CPU rehearsal
-#: cuts it together with the config).
-SERVE_CLI_SCALE = 1
+#: New tokens a request (64 until the whole script neared its 1200 s
+#: limit: cut to 32, the checks unchanged).
+SERVE_CLI_NEW_TOKENS = 32
+#: Prompt lengths are divided by this: 2 on the card (1 until the whole
+#: script neared its 1200 s limit; the shared header is still 8 blocks of
+#: 16); a CPU rehearsal cuts it further together with the config.
+SERVE_CLI_SCALE = 2
 SERVE_CLI_TIE = 1e-2
 SERVE_CLI_TENANTS = ("tenant_a", "tenant_b")
 SERVE_CLI_STREAMED = 5  # the index of the one streamed request
@@ -3110,7 +3122,8 @@ def run_ckpt_sigterm(ckdir, device="cuda"):
     step CKPT_CHILD_STEPS with a checkpoint directory; after its third
     step line it gets SIGTERM, saves at the next step boundary and exits
     0.  The same command relaunched restores, fast-forwards and ends at
-    the last step, with the last loss of an uninterrupted child."""
+    the last step, with the last loss of an uninterrupted child, which
+    runs beside the first two (they record no time)."""
     import os
     import signal
 
@@ -3131,7 +3144,8 @@ def run_ckpt_sigterm(ckdir, device="cuda"):
         files = [stack.enter_context(open(path, "w")) for path in logs]
         try:
             child = _child(argv(cut), files[0])
-            procs.append(child)
+            whole = _child(argv(os.path.join(ckdir, "whole")), files[2])
+            procs += [child, whole]
             seen = []
             for line in child.stdout:
                 if line.startswith("{"):
@@ -3143,8 +3157,7 @@ def run_ckpt_sigterm(ckdir, device="cuda"):
             first = seen + _child_steps(rest)
             saved = CheckpointManager(cut).all_steps()
             again = _child(argv(cut), files[1])
-            whole = _child(argv(os.path.join(ckdir, "whole")), files[2])
-            procs += [again, whole]
+            procs.append(again)
             out2, _ = again.communicate(timeout=300)
             out3, _ = whole.communicate(timeout=300)
         finally:
@@ -3377,21 +3390,28 @@ def run_ckpt(torch, cuda, train_torch, smi, device="cuda"):
               "memory_profile_bytes": os.path.getsize(memory_profile)
               if device == "cuda" else None})
 
-        # (b) SIGTERM and restart
-        run_ckpt_sigterm(ckdir, device)
-
-        # determinism survey
+        # (b) SIGTERM and restart, beside the determinism survey's process
+        # (neither records a time)
         if device != "cuda":
+            run_ckpt_sigterm(ckdir, device)
             return launches
         out = os.path.join(ckdir, "det.json")
         t0 = time.time()
-        proc = subprocess.run([sys.executable, __file__, "--det-worker",
-                               out], capture_output=True, text=True,
-                              timeout=600)
+        with open(os.path.join(ckdir, "det.log"), "w") as log:
+            proc = subprocess.Popen(
+                [sys.executable, __file__, "--det-worker", out],
+                stdout=log, stderr=subprocess.STDOUT)
+            try:
+                run_ckpt_sigterm(ckdir, device)
+                proc.wait(timeout=600)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
         if proc.returncode:
             raise AssertionError(
                 f"ckpt_determinism: the survey exited {proc.returncode}:\n"
-                f"{proc.stderr[-4000:]}")
+                f"{_read(os.path.join(ckdir, 'det.log'))[-4000:]}")
         with open(out) as f:
             survey = json.load(f)
         emit({"phase": "ckpt_determinism", "seconds": time.time() - t0,
@@ -3890,10 +3910,11 @@ MS_K, MS_STEPS, MS_LOG, MS_TAIL_STEPS = 4, 16, 4, 18
 #: The profiled call: steps 13-16, one k-step replay (and the same four
 #: single steps at k = 1).
 MS_PROFILE = (12, 4)
-#: The timing runs: 32 steps logged every 16, so the second window
-#: (steps 17-32) holds eight calls and one read-back; in turns k = 1,
-#: k = 4, k = 4, k = 1, and k = 1 without the Prefetcher.
-MS_TIME_STEPS, MS_TIME_LOG = 32, 16
+#: The timing runs: 16 steps logged every 8 (32 and 16 until the whole
+#: script neared its 1200 s limit), so the second window (steps 9-16)
+#: holds two calls and one read-back; in turns k = 1, k = 4, k = 4, k =
+#: 1, and k = 1 without the Prefetcher.
+MS_TIME_STEPS, MS_TIME_LOG = 16, 8
 MS_TIME_RUNS = ((1, "2"), (MS_K, "2"), (MS_K, "2"), (1, "2"), (1, "0"))
 #: Launches of one k-step replay: MS_K times a gpt_lm step's.
 MULTI_LAUNCHES_PER_CALL = {k: MS_K * v
@@ -6035,9 +6056,550 @@ def run_scaleout(torch, cuda, train_torch, F, train_row):
     return launches
 
 
+#: The seqexpert phase: the flash kernels with a key-side segment array
+#: at a packed ring chunk (B, S_loc, H, D); lm_long_context split over
+#: seq=2 (ring and Ulysses, fp32 and bf16) and the MoE presets over
+#: expert=2, each in two processes over gloo on the one card, against one
+#: process on the same batch; a world of one over NCCL.
+KVSEG_SHAPE = (4, 1024, 12, 64)
+SEQEX_LAYERS = 2
+SEQ_RUNS = tuple((scheme, dtype) for scheme in ("ring", "ulysses")
+                 for dtype in ("float32", "bfloat16"))
+#: (preset, global batch, capacity factor or None for the preset's): the
+#: MoE runs at expert=2 in fp32; at 8.0, both presets' n_experts, no token
+#: is dropped and the split run also equals the unsplit one.
+EP_RUNS = (("gpt_moe", 8, None), ("gpt_moe", 8, 8.0), ("bert_moe", 16, None),
+           ("bert_moe", 16, 8.0))
+#: The split run against the one-process run that routes the same token
+#: shards (relative loss, each gradient of its max-abs), by dtype; the
+#: aux loss of an unsplit run only roughly (a mean of the shards'
+#: load-balance estimates is not the whole batch's, as JAX's
+#: ``tests/test_moe.py:125-133`` notes).
+SEQEX_TOL = SCALE_TOL
+EP_AUX_RTOL = 0.2
+SEQEX_NOTE = ("two processes on one card over gloo (collectives through "
+              "the host): no time here is a scaling time")
+
+
+def check_flash_kv_segments(torch, fa):
+    """K2, K3f and the K3 pair with ``kv_segment_ids`` at a packed ring
+    chunk (KVSEG_SHAPE), in bf16 and fp32: the queries hold the second
+    half of packed rows of 2 S_loc tokens, the keys either the first half
+    (a past chunk of the ring: not causal, the segments cross the chunk
+    boundary) or the same half passed as a second array (the diagonal
+    chunk, causal; its key segments are the queries' with the first
+    boundary of each row moved 7 tokens later, so that a kernel reading
+    the query array for the keys disagrees).  Each against its plain twin
+    at check_flash's tolerances, and timed beside the same call with one
+    array (the kernels' path without the key-side array), alone on the
+    card."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    b, s, h, d = KVSEG_SHAPE
+    seg = torch.cumsum(torch.rand((b, 2 * s), device="cuda", generator=g)
+                       < 0.004, 1).to(torch.int32)
+    qseg = seg[:, s:].contiguous()
+    dseg = qseg.clone()
+    for r in range(b):
+        later = (dseg[r] != dseg[r, 0]).nonzero()
+        if len(later):
+            cut = int(later[0])
+            dseg[r, cut:cut + 7] = dseg[r, 0]
+    if torch.equal(dseg, qseg):
+        raise AssertionError("kv_segments: the diagonal case's key segments "
+                             "equal the queries'")
+    rows = {k: [] for k in FLASH_ROWS}
+    for dtype in (torch.bfloat16, torch.float32):
+        def rnd():
+            return torch.randn(b, s, h, d, device="cuda",
+                               generator=g).to(dtype)
+
+        q, k, v, do = rnd(), rnd(), rnd(), rnd()
+        for case, causal, kseg in (("past_chunk", False,
+                                    seg[:, :s].contiguous()),
+                                   ("diagonal", True, dseg)):
+            kw = dict(mask=None, segment_ids=qseg, causal=causal,
+                      window=None, kv_segment_ids=kseg)
+            one = dict(kw, kv_segment_ids=None)
+            o, lse = fa.flash_forward_cuda(q, k, v, **kw)
+            ro, rlse = fa._plain_flash_forward(q, k, v, **kw)
+            delta = (do.float() * ro.float()).sum(-1).transpose(1, 2) \
+                .contiguous()
+            bargs = (q, k, v, do, rlse, delta)
+            got = {"flash_bwd_dq": (fa.flash_bwd_dq_cuda(*bargs, **kw),),
+                   "flash_bwd_dkv": fa.flash_bwd_dkv_cuda(*bargs, **kw),
+                   "flash_bwd_fused": fa.flash_bwd_fused_cuda(*bargs, **kw)}
+            torch.cuda.synchronize()
+            ref = {"flash_bwd_dq": (fa._plain_flash_bwd_dq(*bargs, **kw),),
+                   "flash_bwd_dkv": fa._plain_flash_bwd_dkv(*bargs, **kw),
+                   "flash_bwd_fused": fa._plain_flash_bwd_fused(*bargs,
+                                                                **kw)}
+            o_tol, g_tol = (2e-2, 1e-2) if dtype == torch.bfloat16 \
+                else (2e-5, 1e-4)
+            keep = qseg[:, None, :, None] == kseg[:, None, None, :]
+            if causal:
+                keep = keep & torch.ones(s, s, dtype=torch.bool,
+                                         device="cuda").tril()
+            pairs = float(keep.sum()) * h
+            el = q.element_size()
+            qbytes, rows_bytes = b * s * h * d * el, b * h * s * 4
+            specs = [
+                ("flash_fwd", fa.flash_forward_cuda, fa._plain_flash_forward,
+                 (q, k, v), 4 * d * pairs, 4 * qbytes + rows_bytes,
+                 max((o.float() - ro.float()).abs().max().item(),
+                     (lse - rlse).abs().max().item()),
+                 (o.float() - ro.float()).abs().max().item() <= o_tol
+                 and (lse - rlse).abs().max().item() <= 1e-3),
+            ]
+            for name, n_ops, n_io in (("flash_bwd_dq", 6, 5),
+                                      ("flash_bwd_dkv", 8, 6),
+                                      ("flash_bwd_fused", 10, 7)):
+                errs = [_rel_err(a, r) for a, r in zip(got[name], ref[name])]
+                specs.append((name, getattr(fa, f"{name}_cuda"),
+                              getattr(fa, f"_plain_{name}"), bargs,
+                              n_ops * d * pairs,
+                              n_io * qbytes + 2 * rows_bytes,
+                              max((a.float() - r.float()).abs().max().item()
+                                  for a, r in zip(got[name], ref[name])),
+                              max(errs) <= g_tol))
+            del got, ref
+            lib_mask = keep
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            lib_ms = time_ms(torch, lambda: torch.nn.functional
+                             .scaled_dot_product_attention(
+                                 qt, kt, vt, attn_mask=lib_mask), [()],
+                             iters=10, reps=3)
+            for name, kern, plain, args, flops, nbytes, err, ok in specs:
+                bms, by = bound_ms(nbytes, flops, dtype)
+                row = {"kernel": name, "case": f"kv_segments_{case}",
+                       "b": b, "s": s, "h": h, "d": d,
+                       "dtype": str(dtype)[6:], "causal": causal,
+                       "segments": True, "kv_segments": True,
+                       "variant": fa.kernel_variant(dtype, name),
+                       "max_abs_err": err, "ok": ok,
+                       "tolerance": (f"o atol {o_tol}, lse atol 1e-3"
+                                     if name == "flash_fwd" else
+                                     f"{g_tol} of each output's max-abs"),
+                       "flops": flops,
+                       "ms": time_ms(torch, functools.partial(kern, **kw),
+                                     [args], iters=10, reps=3),
+                       "same_array_ms": time_ms(
+                           torch, functools.partial(kern, **one), [args],
+                           iters=10, reps=3),
+                       "plain_ms": time_ms(torch,
+                                           functools.partial(plain, **kw),
+                                           [args], iters=2, reps=3),
+                       "library_ms": lib_ms if name == "flash_fwd" else None,
+                       "library": "F.scaled_dot_product_attention forward "
+                                  "with the segment mask" if name ==
+                       "flash_fwd" else None,
+                       "bound_ms": bms, "bound_by": by}
+                emit(row)
+                if not ok:
+                    raise AssertionError(f"{name} with kv_segment_ids "
+                                         f"disagrees: {row}")
+                rows[name].append(row)
+            del keep, lib_mask
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _shard_routed(local_moe, expert_fn, cfg, n, tokens, router, experts,
+                  token_mask=None):
+    """The expert-parallel region's routing in one process: the tokens in
+    ``n`` shards, each routed alone with its own capacity
+    (``parallel.moe.local_moe``), the aux loss the shards' mean."""
+    outs, auxes = [], []
+    masks = [None] * n if token_mask is None else token_mask.chunk(n)
+    for chunk, mask in zip(tokens.chunk(n), masks):
+        out, aux = local_moe(chunk, router, experts, expert_fn,
+                             capacity_factor=cfg.capacity_factor,
+                             router=cfg.router, token_mask=mask)
+        outs.append(out)
+        auxes.append(aux)
+    import torch
+
+    return torch.cat(outs), sum(auxes) / n
+
+
+def _seqex_argv(kind, *extra):
+    """train_torch's flags of a seqexpert run: ``kind`` ("seq", dtype) or
+    (preset, batch, capacity factor)."""
+    common = ["--seed", str(SEED), "--device", "cuda", *extra]
+    if kind[0] == "seq":
+        return ["--workload", "lm_long_context", "--batch-size", "2",
+                "--dtype", kind[1], *common]
+    return ["--workload", kind[0], "--batch-size", str(kind[1]),
+            "--accum-steps", "1", "--dtype", "float32", *common]
+
+
+def _seqex_step(torch, cuda, train_torch, kind, extra=(), shards=0):
+    """One step of a seqexpert run through ``train_torch.build`` at
+    SEQEX_LAYERS layers, dropout 0: its loss and metrics, the step's
+    gradients (this rank's, by name, on the CPU), the launches and the
+    step's seconds.  ``shards``: route the MoE layers' tokens in that many
+    shards in one process (:func:`_shard_routed`)."""
+    import functools
+
+    from distributedtensorflow_tpu_torch.models.gpt_moe import (
+        MoEMLP,
+        _expert_mlp,
+    )
+    from distributedtensorflow_tpu_torch.parallel.moe import local_moe
+
+    fields = {"num_layers": SEQEX_LAYERS, "dropout_rate": 0.0}
+    if kind[0] != "seq" and kind[2] is not None:
+        fields["capacity_factor"] = kind[2]
+    with _cut_config(train_torch, **fields):
+        _, state, step, batches = train_torch.build(
+            train_torch.parse_args(_seqex_argv(kind, *extra)))
+    if shards:
+        for mod in state.model.modules():
+            if isinstance(mod, MoEMLP):
+                mod.moe_fn = functools.partial(_shard_routed, local_moe,
+                                               _expert_mlp, mod.cfg, shards)
+    grads = {}
+    apply = state.apply_gradients
+
+    def record(g):
+        grads.update({k: v.detach().float().cpu() for k, v in g.items()})
+        return apply(g)
+
+    state.apply_gradients = record
+    batch = next(batches)
+    torch.cuda.synchronize()
+    cuda.launches.clear()
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    out = {"seconds": time.perf_counter() - t0,
+           "metrics": {k: float(v) for k, v in m.items()},
+           "grads": grads, "launches": dict(cuda.launches),
+           "experts": next((p.shape[0] for n, p in
+                            state.model.named_parameters()
+                            if n.endswith("experts_in")), None)}
+    del state, step, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def _seqex_refs(kind):
+    """The one-process references a split run is held against: name ->
+    (kind, shards)."""
+    if kind[0] == "seq":
+        return {"ref": (kind, 0)}
+    refs = {"ref": (kind, 2)}
+    if kind[2] is not None:
+        refs["unsplit"] = (kind, 0)
+    return refs
+
+
+def _ref_path(out_dir, kind, ref):
+    return f"{out_dir}/ref_{'_'.join(map(str, kind))}_{ref}.pt"
+
+
+def _seqex_kinds():
+    return [("seq", dtype) for dtype in ("float32", "bfloat16")] + \
+        list(EP_RUNS)
+
+
+#: Gradients left out of the comparisons, reported apart: a BERT key
+#: bias adds one constant to a query's scores, so its gradient is 0 but
+#: for rounding noise on both sides (``tests/test_torch_sharding.py``
+#: leaves it out too).
+SEQEX_NOISE = ("attention.key.bias",)
+
+
+def _seqex_compare(torch, got, ref, rank, n):
+    """Loss (relative) and gradient (of each one's max-abs) errors of a
+    rank's run against a one-process one; the expert stacks against the
+    rank's 1/n of the reference's; SEQEX_NOISE's apart."""
+    loss = got["metrics"]["loss"]
+    rloss = ref["metrics"]["loss"]
+    errs, noise = {}, {}
+    for k, v in ref["grads"].items():
+        g = got["grads"][k]
+        if g.shape != v.shape:
+            v = v.chunk(n)[rank]
+        err = float((g - v).abs().max() / v.abs().max().clamp_min(1e-30))
+        (noise if k.endswith(SEQEX_NOISE) else errs)[k] = err
+    return {"loss": loss, "ref_loss": rloss,
+            "loss_rel_err": abs(loss - rloss) / abs(rloss),
+            "grad_err": max(errs.values()),
+            "worst_grad": max(errs, key=errs.get),
+            "noise_grad_err": max(noise.values(), default=None)}
+
+
+def seqexpert_worker(out_dir) -> int:
+    """One rank of the seqexpert phase's two (``--seqexpert-worker``):
+    the cluster from torchrun's variables, gloo; lm_long_context through
+    ``--mesh data=1,seq=2`` for each SEQ_RUNS scheme and dtype, then each
+    EP_RUNS preset through ``--mesh data=1,expert=2``; each held against
+    the main process's one-process references (read from ``out_dir`` once
+    they are there); the comparisons and the launches saved as
+    ``<out_dir>/rank<r>.pt``."""
+    import torch
+
+    import train_torch
+    from distributedtensorflow_tpu_torch.ops import _cuda
+    from distributedtensorflow_tpu_torch.parallel import bootstrap
+
+    runs = [(("seq", dtype), ("--mesh", "data=1,seq=2", "--sp-scheme",
+                              scheme, "--dist-backend", "gloo"), scheme)
+            for scheme, dtype in SEQ_RUNS]
+    runs += [(kind, ("--mesh", "data=1,expert=2", "--dist-backend",
+                     "gloo"), None) for kind in EP_RUNS]
+    results = {}
+    for kind, flags, scheme in runs:
+        got = _seqex_step(torch, _cuda, train_torch, kind, flags)
+        rank = bootstrap.process_index()
+        deadline = time.time() + 600
+        while not os.path.exists(f"{out_dir}/refs.done"):
+            if time.time() > deadline:
+                raise TimeoutError("seqexpert: no references")
+            time.sleep(0.5)
+        row = {"launches": got["launches"], "seconds": got["seconds"],
+               "metrics": got["metrics"], "experts": got["experts"]}
+        for ref_name in _seqex_refs(kind):
+            ref = torch.load(_ref_path(out_dir, kind, ref_name))
+            row[ref_name] = _seqex_compare(torch, got, ref, rank, 2)
+            row[ref_name]["ref_metrics"] = ref["metrics"]
+            del ref
+        results[kind + ((scheme,) if scheme else ())] = row
+    torch.save(results, f"{out_dir}/rank{bootstrap.process_index()}.pt")
+    bootstrap.shutdown()
+    return 0
+
+
+def _seq_launches(scheme, rank):
+    """Launches per step of a ``seq`` rank of lm_long_context at
+    SEQEX_LAYERS layers: a causal ring rank r computes r + 1 chunks a
+    layer (its own diagonal one and the r before it: the later ones are
+    skipped), Ulysses one whole-sequence attention; the flash forward
+    twice (attention-only remat recomputes it), K3f once (S_loc D 4 and S
+    D 4 fit the 2 MiB threshold); the LayerNorms and the head as one
+    process's."""
+    n = SEQEX_LAYERS
+    chunks = rank + 1 if scheme == "ring" else 1
+    return {"flash_fwd": 2 * n * chunks, "flash_bwd_fused": n * chunks,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "layernorm_fwd": 2 * n + 1, "layernorm_bwd": 2 * n + 1,
+            "fused_xent_fwd": 1, "fused_xent_dx": 1, "fused_xent_dw": 1}
+
+
+def _seqex_start_workers(out_dir):
+    """The two ``--seqexpert-worker`` processes, both ranks on the one
+    card (``LOCAL_RANK`` 0), and an empty ``out_dir``."""
+    from distributedtensorflow_tpu_torch.parallel import bootstrap
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    env = {**os.environ, "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(bootstrap.free_port()), "WORLD_SIZE": "2",
+           "LOCAL_RANK": "0"}
+    return [subprocess.Popen([sys.executable, __file__,
+                              "--seqexpert-worker", out_dir],
+                             env={**env, "RANK": str(r)})
+            for r in range(2)]
+
+
+def _seqex_write_refs(torch, cuda, train_torch, out_dir):
+    """Every one-process reference of the workers' runs into ``out_dir``,
+    then the ``refs.done`` marker that the workers wait for."""
+    for kind in _seqex_kinds():
+        for ref_name, (rkind, shards) in _seqex_refs(kind).items():
+            ref = _seqex_step(torch, cuda, train_torch, rkind, shards=shards)
+            torch.save(ref, _ref_path(out_dir, kind, ref_name))
+            del ref
+    with open(f"{out_dir}/refs.done", "w") as f:
+        f.write("ok\n")
+
+
+def _ep_launches(name):
+    """Launches per step and rank of an EP_RUNS preset at SEQEX_LAYERS
+    layers: gpt_moe's as gpt_lm's (``_dp_launches``); bert_moe (one
+    microbatch, no remat, seq 512 below the flash gate) 2L + 2 LayerNorms
+    once each way, no flash and no fused head."""
+    if name == "gpt_moe":
+        return _dp_launches("gpt_moe")
+    n = SEQEX_LAYERS
+    return {**NO_LAUNCHES, "layernorm_fwd": 2 * n + 2,
+            "layernorm_bwd": 2 * n + 2}
+
+
+def _seqex_report(ranks) -> tuple:
+    """The rows of the workers' results (``ranks``: each rank's saved
+    dict): ``(launches, failures)``.  A run of SEQ_RUNS or EP_RUNS that a
+    rank did not report is a failure."""
+    launches = collections.Counter()
+    want_keys = {("seq", dtype, scheme) for scheme, dtype in SEQ_RUNS} \
+        | set(EP_RUNS)
+    failures = [("missing", r, sorted(map(str, want_keys - set(rk))))
+                for r, rk in enumerate(ranks) if want_keys - set(rk)]
+    if failures:
+        return launches, failures
+    for scheme, dtype in SEQ_RUNS:
+        loss_tol, grad_tol = SEQEX_TOL[dtype]
+        got = [rk[("seq", dtype, scheme)] for rk in ranks]
+        flash = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq",
+                 "flash_bwd_dkv")
+        want = [_seq_launches(scheme, r) for r in range(2)]
+        per_rank = [{k: g["launches"].get(k, 0) for k in want[0]}
+                    for g in got]
+        ok = (all(g["ref"]["loss_rel_err"] <= loss_tol
+                  and g["ref"]["grad_err"] <= grad_tol for g in got)
+              and per_rank == want)
+        for g in got:
+            launches.update(g["launches"])
+        emit({"phase": "seqexpert_seq", "scheme": scheme, "dtype": dtype,
+              "workload": "lm_long_context", "mesh": "data=1,seq=2",
+              "world": 2, "backend": "gloo", "layers": SEQEX_LAYERS,
+              "loss": [g["ref"]["loss"] for g in got],
+              "ref_loss": got[0]["ref"]["ref_loss"],
+              "loss_rel_err": [g["ref"]["loss_rel_err"] for g in got],
+              "grad_err": [g["ref"]["grad_err"] for g in got],
+              "worst_grad": [g["ref"]["worst_grad"] for g in got],
+              "flash_launches": [{k: p[k] for k in flash} for p in per_rank],
+              "expected_flash_launches": [{k: w[k] for k in flash}
+                                          for w in want],
+              "launches_per_rank": per_rank,
+              "step_s": [g["seconds"] for g in got], "note": SEQEX_NOTE,
+              "ok": ok,
+              "tolerance": f"loss {loss_tol} relative, gradients "
+                           f"{grad_tol} of each one's max-abs, against one "
+                           "process on the same batch; launches as "
+                           "derived from n = 2"})
+        if not ok:
+            failures.append(("seq", scheme, dtype))
+    for kind in EP_RUNS:
+        name, batch, cf = kind
+        got = [rk[kind] for rk in ranks]
+        ok = all(g["ref"]["loss_rel_err"] <= SEQEX_TOL["float32"][0]
+                 and g["ref"]["grad_err"] <= SEQEX_TOL["float32"][1]
+                 for g in got)
+        extra = {}
+        if cf is not None:
+            # no drops: the LM loss (log perplexity for gpt_moe; bert_moe's
+            # loss, whose expert-choice aux is 0, and every gradient)
+            # equals the unsplit run's; top-2's aux only roughly
+            u = [g["unsplit"] for g in got]
+            if name == "gpt_moe":
+                lm = [math.log(g["metrics"]["perplexity"]) for g in got]
+                ulm = math.log(u[0]["ref_metrics"]["perplexity"])
+                aux = [g["metrics"]["aux_loss"] for g in got]
+                uaux = u[0]["ref_metrics"]["aux_loss"]
+                extra = {"lm_loss": lm, "unsplit_lm_loss": ulm,
+                         "aux_loss": aux, "unsplit_aux_loss": uaux}
+                ok = ok and all(abs(a - ulm) <= 1e-5 * abs(ulm) for a in lm) \
+                    and all(abs(a - uaux) <= EP_AUX_RTOL * abs(uaux)
+                            for a in aux)
+            else:
+                extra = {"unsplit_loss_rel_err":
+                         [x["loss_rel_err"] for x in u],
+                         "unsplit_grad_err": [x["grad_err"] for x in u],
+                         "unsplit_worst_grad": [x["worst_grad"] for x in u],
+                         "unsplit_key_bias_grad_err":
+                         [x["noise_grad_err"] for x in u]}
+                ok = ok and all(x["loss_rel_err"] <= 1e-5
+                                and x["grad_err"] <= 1e-4 for x in u)
+        want = _ep_launches(name)
+        ok = ok and all({k: g["launches"].get(k, 0) for k in want}
+                        == want for g in got)
+        for g in got:
+            launches.update(g["launches"])
+        emit({"phase": "seqexpert_expert", "workload": name,
+              "mesh": "data=1,expert=2", "world": 2, "backend": "gloo",
+              "layers": SEQEX_LAYERS, "batch": batch, "dtype": "float32",
+              "capacity_factor": cf,
+              "experts_per_rank": [g["experts"] for g in got],
+              "loss": [g["ref"]["loss"] for g in got],
+              "ref_loss": got[0]["ref"]["ref_loss"],
+              "loss_rel_err": [g["ref"]["loss_rel_err"] for g in got],
+              "grad_err": [g["ref"]["grad_err"] for g in got],
+              "worst_grad": [g["ref"]["worst_grad"] for g in got],
+              "key_bias_grad_err": [g["ref"]["noise_grad_err"]
+                                    for g in got],
+              **extra, "launches_per_rank": [g["launches"] for g in got],
+              "expected_launches": want,
+              "step_s": [g["seconds"] for g in got], "note": SEQEX_NOTE,
+              "ok": ok,
+              "tolerance": "loss 1e-5 relative, gradients 1e-4 of each "
+                           "one's max-abs (a key bias's, rounding noise, "
+                           "apart), against one process routing the same "
+                           "two token shards; launches as derived" + (
+                               "; at capacity factor 8 the LM loss 1e-5 of "
+                               f"the unsplit run's, its aux {EP_AUX_RTOL} "
+                               "relative (expert choice: loss and every "
+                               "gradient)" if cf else "")})
+        if not ok:
+            failures.append(kind)
+    return launches, failures
+
+
+def run_seqexpert(torch, cuda, train_torch, fa, train_row):
+    """(a) check_flash_kv_segments; (b) lm_long_context at full width (768,
+    12 heads, S 8192, batch 2) cut to SEQEX_LAYERS layers over seq=2, ring
+    and Ulysses, fp32 and bf16, two ``--seqexpert-worker`` processes over
+    gloo on the one card, against one process on the same batch (the
+    loss, every gradient), each rank's K2/K3f/K3 launches against the
+    counts derived from n = 2; (c) gpt_moe (8 experts, top-2, seq 2048)
+    and bert_moe (8 experts, expert choice, seq 512) cut to SEQEX_LAYERS
+    layers over expert=2 (4 of 8 experts a rank), against one process
+    that routes the same two token shards, and at capacity factor 8
+    also against the unsplit one; (d) ``--mesh data=1,seq=1,expert=1``
+    over NCCL, the train phase's losses bit for bit (at seq=1,expert=1
+    the step takes the plain path: this checks only that the mesh's seq
+    and expert groups build over NCCL).  (a) runs first, alone on the
+    card, so that its times are not shared; then the workers start and
+    wait for the references, which this process computes while they
+    start."""
+    from distributedtensorflow_tpu_torch.parallel import bootstrap
+
+    t0 = time.time()
+    kv_rows = check_flash_kv_segments(torch, fa)
+    out_dir = "build/seqexpert_check"
+    procs = _seqex_start_workers(out_dir)
+    try:
+        _seqex_write_refs(torch, cuda, train_torch, out_dir)
+        emit({"phase": "seqexpert_refs_seconds", "seconds": time.time() - t0})
+        state, _, _, launches, row = train_steps(
+            torch, cuda, train_torch, _train_args(
+                train_torch, "--mesh", "data=1,seq=1,expert=1",
+                "--dist-backend", "nccl"), 4, "seqexpert_world1_nccl")
+        del state
+        bootstrap.shutdown()
+        torch.cuda.empty_cache()
+        _check_launches("seqexpert_world1_nccl", launches, 4,
+                        TRAIN_LAUNCHES_PER_STEP)
+        if train_row is not None:
+            row["train_losses"] = train_row["losses"]
+            row["equal_to_train"] = row["losses"] == train_row["losses"]
+        emit(row)
+        if train_row is not None and not row["equal_to_train"]:
+            raise AssertionError("seqexpert_world1_nccl: losses differ from "
+                                 "the train phase's")
+        rcs = [p.wait(timeout=900) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if rcs != [0, 0]:
+        raise AssertionError(f"seqexpert: the ranks exited with {rcs}")
+    ranks = [torch.load(f"{out_dir}/rank{r}.pt") for r in range(2)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    worker_launches, failures = _seqex_report(ranks)
+    launches = collections.Counter(launches)
+    launches.update(worker_launches)
+    emit({"phase": "seqexpert_seconds", "seconds": time.time() - t0})
+    if failures:
+        raise AssertionError(f"seqexpert: {failures} failed")
+    return launches, kv_rows
+
+
 PHASES = ("layernorm", "kernels", "xent", "serving", "serve_cli", "train",
           "baseline", "dp", "ckpt", "trainer", "multistep", "presets2",
-          "bert_moe", "optim", "records", "planes", "scaleout")
+          "bert_moe", "optim", "records", "planes", "scaleout",
+          "seqexpert")
 
 
 def main(argv=None) -> int:
@@ -6051,6 +6613,8 @@ def main(argv=None) -> int:
     p.add_argument("--trainer-worker", default=None, help=argparse.SUPPRESS)
     p.add_argument("--scaleout-worker", default=None,
                    help=argparse.SUPPRESS)
+    p.add_argument("--seqexpert-worker", default=None,
+                   help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.dp_worker:
         return dp_worker(args.dp_worker)
@@ -6062,6 +6626,8 @@ def main(argv=None) -> int:
         return trainer_worker(args.trainer_worker)
     if args.scaleout_worker:
         return scaleout_worker(args.scaleout_worker)
+    if args.seqexpert_worker:
+        return seqexpert_worker(args.seqexpert_worker)
     phases = set(args.phases.split(","))
     import torch
     import torch.nn.functional as F
@@ -6233,6 +6799,14 @@ def main(argv=None) -> int:
                                      train_row if "train" in phases
                                      else None))
     done("scaleout")
+    if "seqexpert" in phases:
+        se_launches, kv_rows = run_seqexpert(
+            torch, _cuda, train_torch, fa,
+            train_row if "train" in phases else None)
+        launches.update(se_launches)
+        for name, extra in kv_rows.items():
+            rows.setdefault(name, []).extend(extra)
+    done("seqexpert")
     emit({"phase": "seconds", **seconds})
     if phases != set(PHASES):
         print(f"chip_smoke: ran only {sorted(phases)}", file=sys.stderr)

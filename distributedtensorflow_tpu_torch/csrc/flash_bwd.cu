@@ -74,7 +74,8 @@ struct BwdArgs {
   void* dk;            // (B, S, Hkv, D) contiguous
   void* dv;
   const unsigned char* mask;
-  const int* seg;
+  const int* seg;   // the queries' segments
+  const int* kseg;  // the keys' (seg when no second array)
   Strides qs, ks, vs, gs;
   int b, h, hkv, s, causal, window;
   float scale;
@@ -140,7 +141,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdArgs a)
     load_tile<T, D, kBK>(vb, a.vs.s, k0, a.s, nullptr, Vt);
     for (int r = tid; r < kBK; r += kThreads) {
       kstate[r] = key_state(a.mask, b, a.s, k0 + r);
-      kseg[r] = segment(a.seg, b, a.s, k0 + r);
+      kseg[r] = segment(a.kseg, b, a.s, k0 + r);
     }
     __syncthreads();
 
@@ -238,7 +239,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const BwdArgs a
   for (int i = 0; i < 4; ++i) {
     kpos[i] = k0 + rg * 4 + i;
     kst[i] = key_state(a.mask, b, a.s, kpos[i]);
-    ksg[i] = segment(a.seg, b, a.s, kpos[i]);
+    ksg[i] = segment(a.kseg, b, a.s, kpos[i]);
 #pragma unroll
     for (int c = 0; c < DC; ++c) dk[i][c] = dv[i][c] = 0.f;
   }
@@ -381,7 +382,7 @@ __global__ void __launch_bounds__(kThreads, 3) flash_bwd_dq_mma_kernel(const Bwd
     load_tile_async<D, kBK>(vb, a.vs.s, k0, a.s, Vs + buf * kBK * LD);
     if (tid < kBK) {
       kstate[buf][tid] = key_state(a.mask, b, a.s, k0 + tid);
-      kseg[buf][tid] = segment(a.seg, b, a.s, k0 + tid);
+      kseg[buf][tid] = segment(a.kseg, b, a.s, k0 + tid);
     }
     cp_async_commit();
   };
@@ -569,11 +570,12 @@ cudaError_t launch_dkv(const BwdArgs& a, bool bf16, cudaStream_t stream) {
 
 BwdArgs make_args(const void* q, const void* k, const void* v, const void* g, const void* lse,
                   const void* delta, void* dq, void* dk, void* dv, const void* mask,
-                  const void* seg, const long long* st, int b, int h, int hkv, int s,
-                  int causal, int window, float scale) {
+                  const void* seg, const void* kseg, const long long* st, int b, int h,
+                  int hkv, int s, int causal, int window, float scale) {
   return BwdArgs{q, k, v, g, static_cast<const float*>(lse), static_cast<const float*>(delta),
                  dq, dk, dv, static_cast<const unsigned char*>(mask),
-                 static_cast<const int*>(seg), {st[0], st[1], st[2]}, {st[3], st[4], st[5]},
+                 static_cast<const int*>(seg), static_cast<const int*>(kseg ? kseg : seg),
+                 {st[0], st[1], st[2]}, {st[3], st[4], st[5]},
                  {st[6], st[7], st[8]}, {st[9], st[10], st[11]},
                  b, h, hkv, s, causal, window, scale};
 }
@@ -588,20 +590,22 @@ extern "C" const char* dtf_error_string(int err) {
 // v (B, S, Hkv, D), all bf16 or all fp32, with (batch, seq, head) strides
 // in `strides` (12 values: q, k, v, g) and a contiguous head dim; lse and
 // delta (B, H, S) fp32 contiguous; mask (B, S) bytes and seg (B, S)
-// int32, each may be null; window <= 0 means none; D is 32 or 64.
+// int32, each may be null; kseg (B, S) int32 the keys' segments, null to
+// read seg; window <= 0 means none; D is 32 or 64.
 // Outputs are contiguous: dq (B, S, H, D), dk and dv (B, S, Hkv, D).
 // bf16 runs on the tensor cores, fp32 on the CUDA cores.  Each returns
 // the CUDA error of its launch (0 on success).
 extern "C" int dtf_flash_bwd_dq(const void* q, const void* k, const void* v, const void* g,
                                 const void* lse, const void* delta, void* dq,
-                                const void* mask, const void* seg, const long long* strides,
-                                int b, int h, int hkv, int s, int d, int causal, int window,
-                                float scale, int bf16, int device, void* stream) {
+                                const void* mask, const void* seg, const void* kseg,
+                                const long long* strides, int b, int h, int hkv, int s, int d,
+                                int causal, int window, float scale, int bf16, int device,
+                                void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (hkv <= 0 || h % hkv) return cudaErrorInvalidValue;
-  const BwdArgs a = make_args(q, k, v, g, lse, delta, dq, nullptr, nullptr, mask, seg, strides,
-                              b, h, hkv, s, causal, window, scale);
+  const BwdArgs a = make_args(q, k, v, g, lse, delta, dq, nullptr, nullptr, mask, seg, kseg,
+                              strides, b, h, hkv, s, causal, window, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 64) err = launch_dq<64>(a, bf16, st);
   else if (d == 32) err = launch_dq<32>(a, bf16, st);
@@ -611,14 +615,15 @@ extern "C" int dtf_flash_bwd_dq(const void* q, const void* k, const void* v, con
 
 extern "C" int dtf_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* g,
                                  const void* lse, const void* delta, void* dk, void* dv,
-                                 const void* mask, const void* seg, const long long* strides,
-                                 int b, int h, int hkv, int s, int d, int causal, int window,
-                                 float scale, int bf16, int device, void* stream) {
+                                 const void* mask, const void* seg, const void* kseg,
+                                 const long long* strides, int b, int h, int hkv, int s, int d,
+                                 int causal, int window, float scale, int bf16, int device,
+                                 void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (hkv <= 0 || h % hkv) return cudaErrorInvalidValue;
-  const BwdArgs a = make_args(q, k, v, g, lse, delta, nullptr, dk, dv, mask, seg, strides, b, h,
-                              hkv, s, causal, window, scale);
+  const BwdArgs a = make_args(q, k, v, g, lse, delta, nullptr, dk, dv, mask, seg, kseg, strides,
+                              b, h, hkv, s, causal, window, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d == 64) err = launch_dkv<64>(a, bf16, st);
   else if (d == 32) err = launch_dkv<32>(a, bf16, st);

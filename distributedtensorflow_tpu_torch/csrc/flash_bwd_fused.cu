@@ -111,7 +111,8 @@ struct FusedArgs {
   float* dq_acc;       // (B, H, S, D) fp32 scratch, needs no clearing
   int* counters;       // [0] the ticket, then a turn per (B, H, query tile)
   const unsigned char* mask;
-  const int* seg;
+  const int* seg;   // the queries' segments
+  const int* kseg;  // the keys' (seg when no second array)
   Strides qs, ks, vs, gs;
   int b, h, hkv, s, causal, window;
   float scale;
@@ -173,7 +174,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_fused_kernel(const FusedAr
   for (int i = 0; i < 4; ++i) {
     kpos[i] = k0 + rg * 4 + i;
     kst[i] = key_state(a.mask, b, a.s, kpos[i]);
-    ksg[i] = segment(a.seg, b, a.s, kpos[i]);
+    ksg[i] = segment(a.kseg, b, a.s, kpos[i]);
 #pragma unroll
     for (int c = 0; c < DC; ++c) dk[i][c] = dv[i][c] = 0.f;
   }
@@ -521,7 +522,8 @@ extern "C" const char* dtf_error_string(int err) {
 // q and g = dO (B, S, H, D), k and v (B, S, Hkv, D), all bf16 or all
 // fp32, with (batch, seq, head) strides in `strides` (12 values: q, k, v,
 // g) and a contiguous head dim; lse and delta (B, H, S) fp32 contiguous;
-// mask (B, S) bytes and seg (B, S) int32, each may be null; window <= 0
+// mask (B, S) bytes and seg (B, S) int32, each may be null; kseg (B, S)
+// int32 the keys' segments, null to read seg; window <= 0
 // means none; D is 32 or 64.  Outputs are contiguous: dq (B, S, H, D), dk
 // and dv (B, S, Hkv, D).  Scratch: dq_acc, B * H * ceil(S / 64) * 64 * D
 // floats, and counters, 1 + B * H * ceil(S / 64) ints, both of any
@@ -530,7 +532,8 @@ extern "C" const char* dtf_error_string(int err) {
 extern "C" int dtf_flash_bwd_fused(const void* q, const void* k, const void* v, const void* g,
                                    const void* lse, const void* delta, void* dq, void* dk,
                                    void* dv, void* dq_acc, void* counters, const void* mask,
-                                   const void* seg, const long long* st, int b, int h, int hkv,
+                                   const void* seg, const void* kseg, const long long* st,
+                                   int b, int h, int hkv,
                                    int s, int d, int causal, int window, float scale, int bf16,
                                    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -539,6 +542,7 @@ extern "C" int dtf_flash_bwd_fused(const void* q, const void* k, const void* v, 
   const FusedArgs a{q, k, v, g, static_cast<const float*>(lse), static_cast<const float*>(delta),
                     dq, dk, dv, static_cast<float*>(dq_acc), static_cast<int*>(counters),
                     static_cast<const unsigned char*>(mask), static_cast<const int*>(seg),
+                    static_cast<const int*>(kseg ? kseg : seg),
                     {st[0], st[1], st[2]}, {st[3], st[4], st[5]}, {st[6], st[7], st[8]},
                     {st[9], st[10], st[11]}, b, h, hkv, s, causal, window, scale};
   const int n_counters = 1 + b * h * ((s + kBQ - 1) / kBQ);

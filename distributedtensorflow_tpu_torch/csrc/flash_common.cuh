@@ -262,8 +262,9 @@ __device__ __forceinline__ void mask_fragments(float (&sc)[8][4], float scale, i
 // owns 16 keys of the key tile at k0 (positions krow .. krow + 15): K and
 // V are its A fragments, dk and dv its accumulators, and the query tiles
 // with the LSE, delta and segment of their rows come two buffers deep.
-// `A` is the kernel's argument struct (q, g, lse, delta, mask, seg, qs,
-// gs, h, hkv, s, causal, window, scale).
+// `A` is the kernel's argument struct (q, g, lse, delta, mask, seg, kseg,
+// qs, gs, h, hkv, s, causal, window, scale): the queries read seg, the
+// keys kseg.
 
 // Start the copies of query tile q0 of head h (batch b) into one buffer:
 // the Q and dO tiles and the LSE, delta and segment of the rows.  Commits.
@@ -299,7 +300,7 @@ __device__ __forceinline__ void dkv_keys(const A& a, int b, int krow, const bf16
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     kst[r] = key_state(a.mask, b, a.s, krow + g + 8 * r);
-    ksg[r] = segment(a.seg, b, a.s, krow + g + 8 * r);
+    ksg[r] = segment(a.kseg, b, a.s, krow + g + 8 * r);
   }
 #pragma unroll
   for (int ni = 0; ni < D / 8; ++ni)

@@ -61,7 +61,8 @@ struct FwdArgs {
   void* o;       // (B, S, H, D), q's type, contiguous
   float* lse;    // (B, H, S)
   const unsigned char* mask;  // (B, S) or null
-  const int* seg;             // (B, S) or null
+  const int* seg;             // (B, S) or null: the queries' segments
+  const int* kseg;            // the keys' segments (seg when no second array)
   Strides qs, ks, vs;
   int b, h, hkv, s, causal, window;
   float scale;
@@ -116,7 +117,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FwdArgs a) {
     load_tile<T, D, kBK>(vb, a.vs.s, k0, a.s, Vs, nullptr);
     for (int r = tid; r < kBK; r += kThreads) {
       kstate[r] = key_state(a.mask, b, a.s, k0 + r);
-      kseg[r] = segment(a.seg, b, a.s, k0 + r);
+      kseg[r] = segment(a.kseg, b, a.s, k0 + r);
     }
     __syncthreads();
 
@@ -252,7 +253,7 @@ __global__ void __launch_bounds__(kThreads, 4) flash_fwd_mma_kernel(const FwdArg
     load_tile_async<D, kBK>(vb, a.vs.s, k0, a.s, Vs + buf * kBK * LD);
     if (tid < kBK) {
       kstate[buf][tid] = key_state(a.mask, b, a.s, k0 + tid);
-      kseg[buf][tid] = segment(a.seg, b, a.s, k0 + tid);
+      kseg[buf][tid] = segment(a.kseg, b, a.s, k0 + tid);
     }
     cp_async_commit();
   };
@@ -386,18 +387,21 @@ extern "C" const char* dtf_error_string(int err) {
 // its (batch, seq, head) strides in `strides` (9 values, in elements) and
 // a contiguous head dim; o (B, S, H, D) contiguous in q's type; lse
 // (B, H, S) fp32; mask (B, S) bytes and seg (B, S) int32, each may be
-// null.  window <= 0 means none.  D is 32 or 64.  bf16 runs on the tensor
+// null; kseg (B, S) int32, the keys' segments where they are not the
+// queries' (ring attention's rotated K/V chunk), null to read seg.  window <= 0 means none.  D is 32 or 64.  bf16 runs on the tensor
 // cores, fp32 on the CUDA cores.  Returns the CUDA error of the launch (0
 // on success).
 extern "C" int dtf_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                             const void* mask, const void* seg, const long long* strides,
-                             int b, int h, int hkv, int s, int d, int causal, int window,
-                             float scale, int bf16, int device, void* stream) {
+                             const void* mask, const void* seg, const void* kseg,
+                             const long long* strides, int b, int h, int hkv, int s, int d,
+                             int causal, int window, float scale, int bf16, int device,
+                             void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (hkv <= 0 || h % hkv) return cudaErrorInvalidValue;
   FwdArgs a{q, k, v, o, static_cast<float*>(lse),
             static_cast<const unsigned char*>(mask), static_cast<const int*>(seg),
+            static_cast<const int*>(kseg ? kseg : seg),
             {strides[0], strides[1], strides[2]}, {strides[3], strides[4], strides[5]},
             {strides[6], strides[7], strides[8]},
             b, h, hkv, s, causal, window, scale};

@@ -111,7 +111,8 @@ def exchange_rows(batch: dict, mesh=None, accum_steps: int = 1, *,
         head, rest = x.shape[:lead], x.shape[lead + 1:]
         # the global batch, rank-major, viewed (..., accum, N, per, ...):
         # row (i, r, j) is row j of rank r's share of microbatch i
-        full = collectives.all_gather(x.contiguous(), mesh, gather_axis=lead)
+        full = collectives.all_gather(x.contiguous(), mesh.batch_group,
+                                      gather_axis=lead)
         per = full.shape[lead] // (accum_steps * n)
         view = full.reshape(*head, accum_steps, n, per, *rest)
         local[k] = view[(slice(None),) * (lead + 1) + (r,)].reshape(

@@ -11,8 +11,10 @@ top-k tokens, the balance is exact and the aux loss is 0; ``top1`` and
 ``top2`` are there for ablations, with a live aux loss.  Pads (the
 attention mask's zeros) take no expert slot.
 
-Expert parallelism (``bert_moe_layout``, ``bind_expert_parallel_bert``)
-needs the ``expert`` mesh axis and is not ported yet.
+Over an ``expert`` axis the routed MLPs run the all-to-all region of
+``parallel.moe.make_moe_fn`` (:func:`bind_expert_parallel_bert`), each
+token shard choosing its own top tokens as in JAX; :func:`bert_moe_layout`
+is BERT's ``model``-axis layout after the expert rules.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..parallel.moe import bind_expert_parallel_model, with_moe_layout
 from .bert import (
     BertConfig,
     BertEncoder,
@@ -30,9 +33,10 @@ from .bert import (
     TransformerBlock,
     _mlm_metrics,
     add_mlm_head,
+    bert_layout,
     mlm_head,
 )
-from .gpt_moe import MoEMLP
+from .gpt_moe import MoEMLP, _expert_mlp
 from .layers import FusedLayerNorm, dropout
 
 
@@ -68,14 +72,15 @@ class MoETransformerBlock(nn.Module):
     dtype, and the tokens that the (B, 1, 1, S) attention mask marks as
     real; dropout sits on the routed output, the dense MLP's site."""
 
-    def __init__(self, cfg: BertMoEConfig, device=None, group=None):
+    def __init__(self, cfg: BertMoEConfig, device=None, group=None,
+                 moe_fn=None):
         super().__init__()
         self.cfg = cfg
         e = cfg.hidden_size
         self.attention = SelfAttention(cfg, device=device)
         self.ln_attn = FusedLayerNorm(e, out_dtype=torch.float32,
                                       device=device)
-        self.moe_mlp = MoEMLP(cfg, device=device, group=group)
+        self.moe_mlp = MoEMLP(cfg, device=device, group=group, moe_fn=moe_fn)
         self.ln_mlp = FusedLayerNorm(e, out_dtype=torch.float32,
                                      device=device)
 
@@ -92,17 +97,21 @@ class BertMoEForMLM(nn.Module):
     :class:`..models.bert.BertForMLM`'s arguments and returns ``(logits,
     aux)``, which ``bert.mlm_eval`` and :func:`moe_mlm_loss` read
     (``moe_aux_loss`` in the metrics).  ``group``: the data-parallel
-    group (or mesh) whose global batch the routers route."""
+    group (or mesh) whose global batch the routers route; ``moe_fn``: the
+    expert-parallel region of every routed MLP
+    (:func:`bind_expert_parallel_bert`)."""
 
     def __init__(self, cfg: BertMoEConfig = BertMoEConfig(), *, device=None,
-                 group=None):
+                 group=None, moe_fn=None):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
+        self.moe_fn = moe_fn
 
         def block_fn(i):
             if cfg.is_moe_layer(i):
-                return MoETransformerBlock(cfg, device=device, group=group)
+                return MoETransformerBlock(cfg, device=device, group=group,
+                                           moe_fn=moe_fn)
             return TransformerBlock(cfg, device=device)
 
         self.encoder = BertEncoder(cfg, device=device, block_fn=block_fn)
@@ -135,3 +144,18 @@ def moe_mlm_loss(model: BertMoEForMLM, *, max_predictions: int | None = None,
         return loss + aux_weight * aux, metrics
 
     return loss_fn
+
+
+def bert_moe_layout():
+    """BERT's ``model``-axis rules after the expert-parallel ones (JAX
+    ``bert_moe_layout``)."""
+    return with_moe_layout(bert_layout())
+
+
+def bind_expert_parallel_bert(cfg: BertMoEConfig, mesh, *, device=None,
+                              group=None) -> BertMoEForMLM:
+    """The all-to-all region over ``mesh``'s ``expert`` axis when it is
+    larger than 1, the local experts otherwise: the contract of
+    ``gpt_moe.bind_expert_parallel``."""
+    return bind_expert_parallel_model(cfg, mesh, BertMoEForMLM, _expert_mlp,
+                                      device=device, group=group)

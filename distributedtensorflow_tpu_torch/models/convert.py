@@ -581,7 +581,10 @@ def shards_for_rank(tree, cfg, coords: dict, shape: dict, *, layout=None,
     """A rank's part of the JAX package's whole state: ``{"params": ...}``
     with each parameter ``layout`` shards over ``model`` cut to the
     rank's slice (``parallel.sharding.tp_rules``: the slicing
-    ``bind_tensor_parallel`` applies to a whole model), and with an optax
+    ``bind_tensor_parallel`` applies to a whole model) and each expert
+    stack it shards over ``expert`` cut to the rank's experts
+    (``parallel.sharding.ep_rules``, ``parallel.moe.local_experts``, as
+    ``parallel.sharding.shard_expert_stacks`` cuts them), and with an optax
     ``opt_state`` (and ``make_optimizer``, the port optimizer's factory)
     ``"opt_state"``, the port optimizer's ``state_dict`` converted by
     :func:`opt_state_from_optax`, its slots cut as their parameters, then,
@@ -592,13 +595,26 @@ def shards_for_rank(tree, cfg, coords: dict, shape: dict, *, layout=None,
     :data:`MODELS`); ``coords`` and ``shape`` a mesh's (axis -> index,
     axis -> size)."""
     from ..parallel import sharding, zero as zero_lib
+    from ..parallel.moe import local_experts
 
     state = params_from_flax(tree, cfg)
     n, r = shape.get("model", 1), coords.get("model", 0)
+    ne, re_ = shape.get("expert", 1), coords.get("expert", 0)
     rules = {}
     if layout is not None and n > 1:
         rules = sharding.tp_rules(_model_for(cfg, "meta"), cfg, layout)
-    out = {"params": sharding.shard_state(state, rules, r, n)}
+    experts = set()
+    if layout is not None and ne > 1:
+        experts = set(sharding.ep_rules(cfg, layout))
+
+    def cut(name, v):
+        if name in rules:
+            v = sharding.shard_tensor(v, rules[name][0], r, n, rules[name][1])
+        if name in experts:
+            v = local_experts(v, ne, re_)
+        return v
+
+    out = {"params": {k: cut(k, v) for k, v in state.items()}}
     if opt_state is None:
         return out
     model = _model_for(cfg)
@@ -615,9 +631,7 @@ def shards_for_rank(tree, cfg, coords: dict, shape: dict, *, layout=None,
         for k, v in entry.items():
             if not torch.is_tensor(v) or v.shape != state[name].shape:
                 continue
-            if name in rules:
-                v = sharding.shard_tensor(v, rules[name][0], r, n,
-                                          rules[name][1])
+            v = cut(name, v)
             if degree > 1:
                 v = zero_lib.chunk_array(v, degree)[row].clone()
             entry[k] = v

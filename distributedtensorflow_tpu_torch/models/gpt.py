@@ -11,7 +11,9 @@ the flax ``cache`` collection: ``cache["h{i}"]["attn"]`` holds
 ``cached_key`` and ``cached_value`` (B, Hkv, max_seq, D) and
 ``cache_index`` (an int), written in place.  Without one it runs the
 training forward: causal attention through ``dot_product_attention``
-(the flash kernels K2/K3 on the card), block remat through
+(the flash kernels K2/K3 on the card) or the model's ``attn_fn``
+(``GPTLM(cfg, attn_fn)`` in JAX: ring or Ulysses attention over a
+``seq`` axis, ``parallel.ring_attention``), block remat through
 ``torch.utils.checkpoint``, dropout from explicit seeds, and the
 blockwise FFN (``ffn_chunk_size``).  The losses (:func:`lm_loss`,
 :func:`lm_eval`) take the hidden states (``return_hidden=True``) to the
@@ -21,6 +23,17 @@ taps=dict)`` records each module's count of non-finite outputs
 (``wte``, each ``h{i}``, ``ln_f``) for the NaN-provenance pass
 (:func:`nan_taps`, ``obs.dynamics``), as flax's ``sow`` into the
 ``dynamics`` collection does.
+
+Sequence parallelism: JAX hands the whole (B, S) batch to one program
+and GSPMD decides the layout around the attention region.  Here each
+``seq`` rank keeps its contiguous S/n slice of the sequence through the
+whole block stack, so no activation of the full sequence exists on any
+rank: the loss (:func:`_next_token_loss`) shifts the targets on the full
+sequence, then cuts the rank's slice of tokens, positions (rotary
+positions from ``rank * S/n``), targets and mask (the sequence's last
+position predicts nothing), and the rank's loss is its share of the
+global mean, whose gradients the train step sums over ``seq`` with the
+batch axes (``parallel.mesh``'s ``group``).
 """
 
 from __future__ import annotations
@@ -149,9 +162,14 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 
 
 class CausalSelfAttention(nn.Module):
-    def __init__(self, cfg: GPTConfig, device=None):
+    """``attn_fn`` (None: dense causal attention, flash-capable) replaces
+    the training forward's attention, ``attn_fn(q, k, v)`` on (B, S, H,
+    D) (``parallel.ring_attention.sequence_parallel_attention_fn``)."""
+
+    def __init__(self, cfg: GPTConfig, device=None, attn_fn=None):
         super().__init__()
         self.cfg = cfg
+        self.attn_fn = attn_fn
         self.n_heads, self.n_kv = cfg.num_heads, cfg.kv_heads
         self.q_width = cfg.num_heads * cfg.head_dim
         self.kv_width = cfg.kv_heads * cfg.head_dim
@@ -186,7 +204,10 @@ class CausalSelfAttention(nn.Module):
             b, s, self.n_kv, cfg.head_dim)
         q = rope(q, positions, cfg.rope_theta, rope_tabs)
         k = rope(k, positions, cfg.rope_theta, rope_tabs)
-        if cache is None:
+        if self.attn_fn is not None:
+            self._check_attn_fn(cache)
+            out = self.attn_fn(q, k, v)
+        elif cache is None:
             out = dot_product_attention(q, k, v, causal=True,
                                         window=cfg.attn_window,
                                         implementation=cfg.attn_impl)
@@ -197,13 +218,33 @@ class CausalSelfAttention(nn.Module):
                     cache["cache_index"], window=cfg.attn_window)
         return self.proj(out.reshape(b, s, self.q_width))
 
+    def _check_attn_fn(self, cache) -> None:
+        """The reference's three refusals of a custom ``attn_fn``
+        (``models/gpt.py:263-285``)."""
+        if cache is not None:
+            raise ValueError(
+                "decode uses dense cached attention; a custom attn_fn (e.g. "
+                "sequence-parallel) is not supported in decode mode: shard "
+                "the batch, not the sequence, when serving")
+        if self.n_kv != self.n_heads:
+            raise ValueError(
+                "GQA (kv_heads < num_heads) is not supported with a custom "
+                "attn_fn (ring/Ulysses sequence parallelism assumes equal "
+                "q/kv head counts): use the dense/flash path or set "
+                "kv_heads=num_heads")
+        if self.cfg.attn_window is not None:
+            raise ValueError(
+                "attn_window is not supported with a custom attn_fn "
+                "(sequence-parallel attention masks per K/V chunk): use the "
+                "dense/flash path")
+
 
 class GPTBlock(nn.Module):
-    def __init__(self, cfg: GPTConfig, device=None):
+    def __init__(self, cfg: GPTConfig, device=None, attn_fn=None):
         super().__init__()
         self.cfg = cfg
         self.ln1 = FusedLayerNorm(cfg.hidden_size, device=device)
-        self.attn = CausalSelfAttention(cfg, device=device)
+        self.attn = CausalSelfAttention(cfg, device=device, attn_fn=attn_fn)
         self.ln2 = FusedLayerNorm(cfg.hidden_size, device=device)
         self.fc_in = dense(cfg.hidden_size, cfg.intermediate_size,
                            dtype=cfg.dtype, quant=cfg.quant, device=device)
@@ -244,16 +285,21 @@ class GPTLM(nn.Module):
     through the KV cache (:meth:`init_cache` makes one) and returns
     (B, S, V) logits; without a cache it runs the training forward.
     Parameters live on ``device`` (``cuda`` unless the caller passes
-    ``"cpu"``)."""
+    ``"cpu"``).  ``attn_fn``: every block's training attention (see
+    :class:`CausalSelfAttention`); one with a ``size`` > 1 (a
+    ``parallel.ring_attention.SequenceParallelAttention``) makes the
+    losses take this rank's slice of the sequence."""
 
-    def __init__(self, cfg: GPTConfig, *, device=None):
+    def __init__(self, cfg: GPTConfig, *, device=None, attn_fn=None):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
+        self.attn_fn = attn_fn
         self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
                                 device=device, dtype=torch.float32)
         self.h = nn.ModuleList(
-            [GPTBlock(cfg, device=device) for _ in range(cfg.num_layers)])
+            [GPTBlock(cfg, device=device, attn_fn=attn_fn)
+             for _ in range(cfg.num_layers)])
         self.ln_f = FusedLayerNorm(cfg.hidden_size, out_dtype=torch.float32,
                                    device=device)
         number_quant_sites(self)
@@ -349,30 +395,63 @@ def _pick_xent(cfg: GPTConfig, device):
 
 
 def _next_token_loss(model: GPTLM, xent, batch, group=None, **kw):
-    """The mean next-token loss of the rows in ``batch``; with a
-    data-parallel ``group``, this rank's share of the mean over every
-    rank's rows (the heads divide by the count of weighted targets, so
-    the share scales by this rank's count over the global one)."""
+    """The mean next-token loss of the rows in ``batch`` (:func:`head_loss`;
+    with a data-parallel ``group``, this rank's share); a model split over
+    ``seq`` runs this rank's slice of the sequence
+    (:func:`sequence_slice`)."""
     ids = batch["input_ids"]
-    hidden = model(ids, return_hidden=True, **kw)
     mask = batch.get("mask")
     targets = ids[:, 1:]
     mask = mask[:, 1:] if mask is not None else None
+    sp = getattr(model, "attn_fn", None)
+    if getattr(sp, "size", 1) > 1:
+        ids, kw["positions"], targets, mask = sequence_slice(
+            ids, targets, mask, sp.rank, sp.size)
+        hidden = model(ids, return_hidden=True, **kw)
+    else:
+        hidden = model(ids, return_hidden=True, **kw)[:, :-1]
+    return head_loss(model, xent, hidden, targets, mask, group)
+
+
+def head_loss(model, xent, hidden, targets, mask=None, group=None):
+    """The mean masked NLL of ``hidden`` (B, T, E) against ``targets``
+    through the tied head ``model.wte``; with a data-parallel ``group``,
+    this rank's share of the mean over every rank's targets (the heads
+    divide by the count of weighted targets, so the share scales by this
+    rank's count over the global one)."""
     shard = getattr(model.wte, "tp", None)
     if shard is not None:
         # the vocab-sharded head: K4f/K4b on this rank's rows where the
         # fused head runs, their plain twins over token tiles for the
         # chunked heads (fp32 tiles, chunked_bf16 too)
         loss = vocab_parallel_xent(
-            hidden[:, :-1], model.wte.weight, targets, mask, shard=shard,
+            hidden, model.wte.weight, targets, mask, shard=shard,
             compute_dtype=model.cfg.dtype, kernels=xent is fused_softmax_xent)
     else:
-        loss = xent(hidden[:, :-1], model.wte.weight, targets, mask,
+        loss = xent(hidden, model.wte.weight, targets, mask,
                     compute_dtype=model.cfg.dtype)
     if group is None:
         return loss
     return loss * share_of_mean(_target_count(targets, mask,
                                               model.cfg.vocab_size), group)
+
+
+def sequence_slice(ids, targets, mask, rank: int, n: int):
+    """``(ids, positions, targets, mask)`` of ``seq`` rank ``rank`` of
+    ``n``: its contiguous S/n slice of the (B, S) ``ids`` and their
+    positions, and of the (B, S - 1) next-token ``targets`` and ``mask``
+    (shifted on the whole sequence), padded at the end with a target of
+    -1 (outside the vocabulary: weight 0) and a mask of 0, so that the
+    last rank's last position predicts nothing."""
+    b, s = ids.shape
+    if s % n:
+        raise ValueError(f"sequence length {s} does not split over seq={n}")
+    lo, hi = rank * (s // n), (rank + 1) * (s // n)
+    targets = torch.cat([targets, targets.new_full((b, 1), -1)], 1)[:, lo:hi]
+    if mask is not None:
+        mask = torch.cat([mask, mask.new_zeros((b, 1))], 1)[:, lo:hi]
+    positions = torch.arange(lo, hi, device=ids.device).expand(b, hi - lo)
+    return ids[:, lo:hi], positions, targets, mask
 
 
 def _target_count(targets, mask, vocab_size: int):

@@ -3,9 +3,13 @@
 Twin of ``distributedtensorflow_tpu/models/gpt_moe.py``: every
 ``moe_every_k``-th block replaces its dense MLP with a routed expert MLP
 (top-2 GShard routing by default, :func:`..parallel.moe.local_moe`, the
-path JAX takes when the mesh has no ``expert`` axis), and the routers'
+path JAX takes when the mesh has no ``expert`` axis, or a ``moe_fn``,
+the all-to-all region of :func:`..parallel.moe.make_moe_fn` over an
+``expert`` axis: :func:`bind_expert_parallel`), and the routers'
 load-balancing loss is folded into the LM loss.  The other blocks, the
-attention, the LayerNorms and the rotary tables are ``models/gpt.py``'s.
+attention, the LayerNorms and the rotary tables are ``models/gpt.py``'s,
+split over a ``model`` axis as GPT's are (:func:`gpt_moe_layout`: the
+expert stacks over ``expert``, replicated over ``model``).
 """
 
 from __future__ import annotations
@@ -19,17 +23,21 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..ops.xent import tied_head_logits
-from ..parallel.collectives import share_of_mean
-from ..parallel.moe import local_moe
+from ..parallel.moe import (
+    bind_expert_parallel_model,
+    local_moe,
+    with_moe_layout,
+)
 from .gpt import (
     CausalSelfAttention,
     GPTBlock,
     GPTConfig,
     _pick_xent,
-    _target_count,
+    gpt_layout,
+    head_loss,
     rope_tables,
 )
-from .layers import FusedLayerNorm, draw_seed
+from .layers import FusedLayerNorm, draw_seed, embed_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,15 +77,21 @@ def _expert_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 class MoEMLP(nn.Module):
-    """Routed expert MLP over all experts on this device.  Parameters in
-    fp32 with the flax shapes: ``router`` (d, E), ``experts_in`` (E, d,
-    F), ``experts_out`` (E, F, d).  With a data-parallel ``group`` it
-    routes the global batch (:func:`..parallel.moe.local_moe`)."""
+    """Routed expert MLP.  Parameters in fp32 with the flax shapes:
+    ``router`` (d, E), ``experts_in`` (E, d, F), ``experts_out`` (E, F,
+    d).  ``moe_fn`` None runs every expert on this device, routing the
+    global batch of a data-parallel ``group``
+    (:func:`..parallel.moe.local_moe`); a ``moe_fn`` (the mesh-bound
+    region of :func:`..parallel.moe.make_moe_fn`) runs the experts that
+    this rank holds after ``parallel.sharding.shard_expert_stacks`` cut
+    the stacks."""
 
-    def __init__(self, cfg: GPTMoEConfig, device=None, group=None):
+    def __init__(self, cfg: GPTMoEConfig, device=None, group=None,
+                 moe_fn=None):
         super().__init__()
         self.cfg = cfg
         self.group = group
+        self.moe_fn = moe_fn
         e, f, n = cfg.hidden_size, cfg.intermediate_size, cfg.n_experts
         kw = dict(dtype=torch.float32, device=device)
         self.router = nn.Parameter(torch.zeros(e, n, **kw))
@@ -89,26 +103,30 @@ class MoEMLP(nn.Module):
         token (pads take no expert slot), None = all real."""
         cfg = self.cfg
         b, s, d = x.shape
-        out, aux = local_moe(
-            x.reshape(b * s, d), self.router,
-            {"w_in": self.experts_in, "w_out": self.experts_out},
-            _expert_mlp, capacity_factor=cfg.capacity_factor,
-            router=cfg.router,
-            token_mask=None if token_mask is None
-            else token_mask.reshape(b * s), group=self.group)
+        experts = {"w_in": self.experts_in, "w_out": self.experts_out}
+        tmask = None if token_mask is None else token_mask.reshape(b * s)
+        if self.moe_fn is not None:
+            out, aux = self.moe_fn(x.reshape(b * s, d), self.router, experts,
+                                   tmask)
+        else:
+            out, aux = local_moe(
+                x.reshape(b * s, d), self.router, experts, _expert_mlp,
+                capacity_factor=cfg.capacity_factor, router=cfg.router,
+                token_mask=tmask, group=self.group)
         return out.reshape(b, s, d), aux
 
 
 class MoEGPTBlock(nn.Module):
     """Pre-LN decoder block with a routed-expert MLP; returns (x, aux)."""
 
-    def __init__(self, cfg: GPTMoEConfig, device=None, group=None):
+    def __init__(self, cfg: GPTMoEConfig, device=None, group=None,
+                 moe_fn=None):
         super().__init__()
         self.cfg = cfg
         self.ln1 = FusedLayerNorm(cfg.hidden_size, device=device)
         self.attn = CausalSelfAttention(cfg, device=device)
         self.ln2 = FusedLayerNorm(cfg.hidden_size, device=device)
-        self.moe_mlp = MoEMLP(cfg, device=device, group=group)
+        self.moe_mlp = MoEMLP(cfg, device=device, group=group, moe_fn=moe_fn)
 
     def forward(self, x, positions, rope_tabs):
         h = self.ln1(x)
@@ -132,9 +150,11 @@ class GPTMoELM(nn.Module):
     block from ``generator``.  Parameters live on ``device`` (``cuda``
     unless the caller passes ``"cpu"``).  ``group``: the data-parallel
     group (or mesh) whose global batch the routers route; aux is then
-    this rank's share."""
+    this rank's share.  ``moe_fn``: the expert-parallel region of every
+    MoE block (:func:`bind_expert_parallel`)."""
 
-    def __init__(self, cfg: GPTMoEConfig, *, device=None, group=None):
+    def __init__(self, cfg: GPTMoEConfig, *, device=None, group=None,
+                 moe_fn=None):
         super().__init__()
         if cfg.router == "expert_choice":
             raise ValueError(
@@ -146,8 +166,9 @@ class GPTMoELM(nn.Module):
         self.cfg = cfg
         self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
                                 device=device, dtype=torch.float32)
+        self.moe_fn = moe_fn
         self.h = nn.ModuleList(
-            [MoEGPTBlock(cfg, device=device, group=group)
+            [MoEGPTBlock(cfg, device=device, group=group, moe_fn=moe_fn)
              if cfg.is_moe_layer(i)
              else GPTBlock(cfg, device=device)
              for i in range(cfg.num_layers)])
@@ -161,7 +182,8 @@ class GPTMoELM(nn.Module):
     def forward(self, input_ids, *, deterministic: bool = True,
                 generator=None, return_hidden: bool = False):
         cfg = self.cfg
-        x = self.wte.weight[input_ids].to(cfg.dtype)
+        # gather, then cast (a vocab-sharded table looks up its own rows)
+        x = embed_rows(self.wte, input_ids).to(cfg.dtype)
         positions = torch.arange(input_ids.shape[1],
                                  device=x.device).expand(input_ids.shape)
         tabs = rope_tables(positions, cfg.head_dim, cfg.rope_theta, cfg.dtype)
@@ -186,18 +208,18 @@ class GPTMoELM(nn.Module):
         x = self.ln_f(x)
         if return_hidden:
             return x, aux_total
+        if getattr(self.wte, "tp", None) is not None:
+            raise NotImplementedError(
+                "full logits of a vocab-sharded head; the losses take "
+                "return_hidden=True")
         return tied_head_logits(x, self.wte.weight, cfg.dtype), aux_total
 
 
 def _lm_terms(model: GPTMoELM, xent, batch, group=None, **kw):
     ids = batch["input_ids"]
     hidden, aux = model(ids, return_hidden=True, **kw)
-    lm = xent(hidden[:, :-1], model.wte.weight, ids[:, 1:], None,
-              compute_dtype=model.cfg.dtype)
-    if group is not None:
-        lm = lm * share_of_mean(
-            _target_count(ids[:, 1:], None, model.cfg.vocab_size), group)
-    return lm, aux
+    return head_loss(model, xent, hidden[:, :-1], ids[:, 1:], None,
+                     group), aux
 
 
 def moe_lm_loss(model: GPTMoELM, group=None):
@@ -240,3 +262,19 @@ def moe_lm_eval(model: GPTMoELM, group=None):
         return {"loss": lm, "perplexity": torch.exp(lm), "aux_loss": aux}
 
     return metric_fn
+
+
+def gpt_moe_layout():
+    """GPT's ``model``-axis rules after the expert-parallel ones (JAX
+    ``gpt_moe_layout``): the router stays replicated."""
+    return with_moe_layout(gpt_layout())
+
+
+def bind_expert_parallel(cfg: GPTMoEConfig, mesh, *, device=None,
+                         group=None) -> GPTMoELM:
+    """The model with the all-to-all region over ``mesh``'s ``expert``
+    axis when it is larger than 1, the local experts otherwise (JAX
+    ``bind_expert_parallel``); ``parallel.sharding.shard_expert_stacks``
+    then cuts its expert stacks to this rank's."""
+    return bind_expert_parallel_model(cfg, mesh, GPTMoELM, _expert_mlp,
+                                      device=device, group=group)

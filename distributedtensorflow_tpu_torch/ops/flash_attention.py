@@ -33,6 +33,11 @@ padding mask drops or of another packed segment get ``NEG_INF = -1e9``.
 A row that only such keys reach is finite: it averages V over its causal
 band, whatever the tiling (on the TPU the value depends on which blocks
 the kernel skipped; on both it is finite, never NaN).
+
+``kv_segment_ids`` (``:436-458``): the keys' segments where they are not
+the queries' (ring attention's rotated K/V chunk carries its own), read
+by every kernel and twin in place of ``segment_ids`` on the key side;
+None reads ``segment_ids`` for both, the kernels' path as before.
 """
 
 from __future__ import annotations
@@ -81,15 +86,15 @@ _TILE = 64
 #: The kernels' launch-count keys.
 _KERNELS = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")
 
-_FWD_SIGNATURES = {"dtf_flash_fwd": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+_FWD_SIGNATURES = {"dtf_flash_fwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                    + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]}
 _FUSED_SIGNATURES = {
-    "dtf_flash_bwd_fused": [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7
+    "dtf_flash_bwd_fused": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
     + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]}
 _BWD_SIGNATURES = {
-    "dtf_flash_bwd_dq": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+    "dtf_flash_bwd_dq": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
     + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p],
-    "dtf_flash_bwd_dkv": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+    "dtf_flash_bwd_dkv": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
     + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p],
 }
 
@@ -147,11 +152,12 @@ def supported(q, k, v, *, mask=None, segment_ids=None) -> bool:
 
 
 def flash_attention(q, k, v, *, mask=None, segment_ids=None, causal=False,
-                    window=None, backward_impl=None):
+                    window=None, backward_impl=None, kv_segment_ids=None):
     """Flash attention of q (B, S, H, D) against k, v (B, S, Hkv, D).
 
     ``mask`` is a key padding mask (B, S) or (B, 1, 1, S), True = attend;
-    ``segment_ids`` an int (B, S) tensor of packed sequences; ``window``
+    ``segment_ids`` an int (B, S) tensor of packed sequences and
+    ``kv_segment_ids`` the keys' own, where they differ; ``window``
     (needs ``causal``) keeps keys in ``(i - window, i]``;
     ``backward_impl`` picks the backward (None = :data:`BACKWARD_IMPL`).
     Raises for shapes the kernels cannot take, as the JAX entry does."""
@@ -170,6 +176,7 @@ def flash_attention(q, k, v, *, mask=None, segment_ids=None, causal=False,
         raise ValueError(
             f"segment_ids shape/dtype unsupported: need int (B, S), got "
             f"{tuple(segment_ids.shape)} {segment_ids.dtype}")
+    _check_kv_segments(segment_ids, kv_segment_ids, q.shape)
     if window is not None:
         if not causal:
             raise ValueError("window (sliding-window attention) requires "
@@ -183,7 +190,20 @@ def flash_attention(q, k, v, *, mask=None, segment_ids=None, causal=False,
     if mask is not None:
         mask = mask.reshape(q.shape[0], q.shape[1]).to(torch.bool)
     return FlashAttentionFn.apply(q, k, v, mask, segment_ids, bool(causal),
-                                  window, backward_impl)
+                                  window, backward_impl, kv_segment_ids)
+
+
+def _check_kv_segments(segment_ids, kv_segment_ids, qshape):
+    """A key-side segment array goes with a query-side one, shaped and
+    typed like it."""
+    if kv_segment_ids is None:
+        return
+    if segment_ids is None:
+        raise ValueError("kv_segment_ids needs segment_ids (the queries')")
+    if not _is_segment_ids(kv_segment_ids, qshape):
+        raise ValueError(
+            f"kv_segment_ids shape/dtype unsupported: need int (B, S), got "
+            f"{tuple(kv_segment_ids.shape)} {kv_segment_ids.dtype}")
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -191,33 +211,38 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, mask, segment_ids, causal, window,
-                backward_impl):
+                backward_impl, kv_segment_ids=None):
         o, lse = flash_forward(q, k, v, mask=mask, segment_ids=segment_ids,
-                               causal=causal, window=window)
-        ctx.save_for_backward(q, k, v, o, lse, mask, segment_ids)
+                               causal=causal, window=window,
+                               kv_segment_ids=kv_segment_ids)
+        ctx.save_for_backward(q, k, v, o, lse, mask, segment_ids,
+                              kv_segment_ids)
         ctx.causal, ctx.window = causal, window
         ctx.backward_impl = backward_impl
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse, mask, segment_ids = ctx.saved_tensors
+        q, k, v, o, lse, mask, segment_ids, kv_segment_ids = \
+            ctx.saved_tensors
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
         dq, dk, dv = flash_backward(
             q, k, v, do, lse, delta, mask=mask, segment_ids=segment_ids,
             causal=ctx.causal, window=ctx.window,
-            backward_impl=ctx.backward_impl)
-        return dq, dk, dv, None, None, None, None, None
+            backward_impl=ctx.backward_impl, kv_segment_ids=kv_segment_ids)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_forward(q, k, v, *, mask=None, segment_ids=None, causal=False,
-                  window=None):
+                  window=None, kv_segment_ids=None):
     """``(o, lse)``: o (B, S, H, D) in q's dtype, lse (B, H, S) fp32.  The
-    kernel for CUDA tensors, :func:`_plain_flash_forward` for CPU ones."""
+    kernel for CUDA tensors, :func:`_plain_flash_forward` for CPU ones
+    (``_flash_forward``, ``:484``)."""
     if q.device.type == "cpu":
         return _plain_flash_forward(q, k, v, mask, segment_ids, causal,
-                                    window)
-    return flash_forward_cuda(q, k, v, mask, segment_ids, causal, window)
+                                    window, kv_segment_ids)
+    return flash_forward_cuda(q, k, v, mask, segment_ids, causal, window,
+                              kv_segment_ids)
 
 
 def _check_backward_impl(impl):
@@ -238,12 +263,16 @@ def uses_fused_backward(seq: int, depth: int, backward_impl=None) -> bool:
 
 
 def flash_backward(q, k, v, do, lse, delta, *, mask=None, segment_ids=None,
-                   causal=False, window=None, backward_impl=None):
+                   causal=False, window=None, backward_impl=None,
+                   kv_segment_ids=None):
     """``(dq, dk, dv)`` from the forward's ``lse`` and ``delta =
     rowsum(dO * O)``, both (B, H, S) fp32, passed in: the K3f/K3 launcher
     (the kernels for CUDA tensors, the plain twins for CPU ones), the
-    single sweep or the split pair as :func:`uses_fused_backward` says."""
-    args = (q, k, v, do, lse, delta, mask, segment_ids, causal, window)
+    single sweep or the split pair as :func:`uses_fused_backward` says
+    (``_flash_backward_pallas_core``, ``:819``; ring attention passes its
+    global ``lse``)."""
+    args = (q, k, v, do, lse, delta, mask, segment_ids, causal, window,
+            kv_segment_ids)
     fused = uses_fused_backward(q.shape[1], q.shape[3], backward_impl)
     if q.device.type == "cpu":
         if fused:
@@ -261,8 +290,9 @@ def _repeat_kv(x, group):
     return x if group == 1 else x.repeat_interleave(group, dim=2)
 
 
-def _scores(q, k, mask, segment_ids, causal, window):
-    """The (B, H, S, S) fp32 masked, scaled scores of the kernels."""
+def _scores(q, k, mask, segment_ids, causal, window, kv_segment_ids=None):
+    """The (B, H, S, S) fp32 masked, scaled scores of the kernels; the
+    keys' segments are ``kv_segment_ids`` when given."""
     b, s, h, d = q.shape
     kf = _repeat_kv(k.float(), h // k.shape[2])
     sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * (1.0 / d ** 0.5)
@@ -276,19 +306,20 @@ def _scores(q, k, mask, segment_ids, causal, window):
     if mask is not None:
         drop = drop | ~mask.reshape(b, 1, 1, s).to(torch.bool)
     if segment_ids is not None:
+        kseg = segment_ids if kv_segment_ids is None else kv_segment_ids
         drop = drop | (segment_ids[:, None, :, None]
-                       != segment_ids[:, None, None, :])
+                       != kseg[:, None, None, :])
     sc = torch.where(drop, NEG_INF, sc)
     return torch.where(out, float("-inf"), sc)
 
 
 def _plain_flash_forward(q, k, v, mask=None, segment_ids=None, causal=False,
-                         window=None):
+                         window=None, kv_segment_ids=None):
     """The forward in one pass over the whole row (``_fwd_kernel_1k``):
     fp32 softmax, p rounded to V's dtype before P.V, the unrounded sum
     of p as the divisor; lse = max + log(sum)."""
     h = q.shape[2]
-    sc = _scores(q, k, mask, segment_ids, causal, window)
+    sc = _scores(q, k, mask, segment_ids, causal, window, kv_segment_ids)
     m = sc.amax(-1, keepdim=True)
     p = torch.exp(sc - m)
     l = p.sum(-1, keepdim=True)
@@ -297,10 +328,11 @@ def _plain_flash_forward(q, k, v, mask=None, segment_ids=None, causal=False,
     return o.transpose(1, 2).to(q.dtype), (m + torch.log(l))[..., 0]
 
 
-def _plain_grads(q, k, v, do, lse, delta, mask, segment_ids, causal, window):
+def _plain_grads(q, k, v, do, lse, delta, mask, segment_ids, causal, window,
+                 kv_segment_ids=None):
     """p and ds (rounded to q's dtype) of the backward, (B, H, S, S)."""
     h = q.shape[2]
-    sc = _scores(q, k, mask, segment_ids, causal, window)
+    sc = _scores(q, k, mask, segment_ids, causal, window, kv_segment_ids)
     p = torch.exp(sc - lse[..., None])
     vf = _repeat_kv(v.float(), h // v.shape[2])
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vf)
@@ -325,30 +357,32 @@ def _dkv_from(p, ds, q, k, v, do):
 
 
 def _plain_flash_bwd_dq(q, k, v, do, lse, delta, mask=None, segment_ids=None,
-                        causal=False, window=None):
+                        causal=False, window=None, kv_segment_ids=None):
     """dq = ds k, ds rounded to q's dtype, fp32 sums (``_bwd_dq_kernel``)."""
     _, ds = _plain_grads(q, k, v, do, lse, delta, mask, segment_ids, causal,
-                         window)
+                         window, kv_segment_ids)
     return _dq_from(ds, q, k)
 
 
 def _plain_flash_bwd_dkv(q, k, v, do, lse, delta, mask=None,
-                         segment_ids=None, causal=False, window=None):
+                         segment_ids=None, causal=False, window=None,
+                         kv_segment_ids=None):
     """(dk, dv) = (ds^T q, p^T dO), p rounded to dO's dtype, the query
     heads of a GQA group summed in fp32 before one rounding
     (``_bwd_dkv_kernel``)."""
     p, ds = _plain_grads(q, k, v, do, lse, delta, mask, segment_ids, causal,
-                         window)
+                         window, kv_segment_ids)
     return _dkv_from(p, ds, q, k, v, do)
 
 
 def _plain_flash_bwd_fused(q, k, v, do, lse, delta, mask=None,
-                           segment_ids=None, causal=False, window=None):
+                           segment_ids=None, causal=False, window=None,
+                           kv_segment_ids=None):
     """(dq, dk, dv) from one p and one ds (``_bwd_fused_kernel``): the
     split twins' values at the same rounding points, ds rounded once to
     q's dtype for both the dq and the dk product (``:645``)."""
     p, ds = _plain_grads(q, k, v, do, lse, delta, mask, segment_ids, causal,
-                         window)
+                         window, kv_segment_ids)
     return (_dq_from(ds, q, k),) + _dkv_from(p, ds, q, k, v, do)
 
 
@@ -368,13 +402,19 @@ def _kernel_operand(t, dtype, device):
     return t
 
 
-def _kernel_masks(q, mask, segment_ids):
+def _kernel_masks(q, mask, segment_ids, kv_segment_ids=None):
+    """The mask as bytes and the segment arrays as int32, each (B, S)
+    contiguous on q's device; the key-side array only where one is given
+    (the kernels then read it for the keys)."""
     b, s = q.shape[0], q.shape[1]
     m = None if mask is None else \
         mask.reshape(b, s).to(device=q.device, dtype=torch.bool).contiguous()
-    seg = None if segment_ids is None else \
-        segment_ids.to(device=q.device, dtype=torch.int32).contiguous()
-    return m, seg
+    seg, kseg = (None if t is None else
+                 t.to(device=q.device, dtype=torch.int32).contiguous()
+                 for t in (segment_ids, kv_segment_ids))
+    if kseg is not None and seg is None:
+        raise ValueError("kv_segment_ids needs segment_ids (the queries')")
+    return m, seg, kseg
 
 
 def _check_kernel_shapes(q, k, v, what):
@@ -399,7 +439,7 @@ def _window_arg(window):
 
 
 def flash_forward_cuda(q, k, v, mask=None, segment_ids=None, causal=False,
-                       window=None):
+                       window=None, kv_segment_ids=None):
     """Launch ``csrc/flash_fwd.cu`` on the current stream; returns
     ``(o, lse)``.
 
@@ -412,7 +452,7 @@ def flash_forward_cuda(q, k, v, mask=None, segment_ids=None, causal=False,
     CUDA cores (:func:`kernel_variant`)."""
     _check_kernel_shapes(q, k, v, "flash forward")
     q, k, v = (_kernel_operand(t, q.dtype, q.device) for t in (q, k, v))
-    m, seg = _kernel_masks(q, mask, segment_ids)
+    m, seg, kseg = _kernel_masks(q, mask, segment_ids, kv_segment_ids)
     b, s, h, d = q.shape
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -421,7 +461,8 @@ def flash_forward_cuda(q, k, v, mask=None, segment_ids=None, causal=False,
     lib = _cuda.load("flash_fwd", _FWD_SIGNATURES)
     err = lib.dtf_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), _ptr(m), _ptr(seg), ctypes.addressof(strides), b, h,
+        lse.data_ptr(), _ptr(m), _ptr(seg), _ptr(kseg),
+        ctypes.addressof(strides), b, h,
         k.shape[2], s, d, int(causal), _window_arg(window), 1.0 / d ** 0.5,
         q.dtype == torch.bfloat16, q.device.index or 0,
         _cuda.stream_handle(q.device))
@@ -430,7 +471,8 @@ def flash_forward_cuda(q, k, v, mask=None, segment_ids=None, causal=False,
     return o, lse
 
 
-def _bwd_operands(q, k, v, do, lse, delta, mask, segment_ids, what):
+def _bwd_operands(q, k, v, do, lse, delta, mask, segment_ids, what,
+                  kv_segment_ids=None):
     _check_kernel_shapes(q, k, v, what)
     if do.shape != q.shape:
         raise ValueError(f"{what}: dO {tuple(do.shape)} is not shaped like "
@@ -444,14 +486,16 @@ def _bwd_operands(q, k, v, do, lse, delta, mask, segment_ids, what):
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
     q, k, v, do = (_kernel_operand(t, q.dtype, q.device)
                    for t in (q, k, v, do))
-    m, seg = _kernel_masks(q, mask, segment_ids)
+    m, seg, kseg = _kernel_masks(q, mask, segment_ids, kv_segment_ids)
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                        *v.stride()[:3], *do.stride()[:3])
-    return q, k, v, do, lse.contiguous(), delta.contiguous(), m, seg, strides
+    return (q, k, v, do, lse.contiguous(), delta.contiguous(), m, seg, kseg,
+            strides)
 
 
 def flash_bwd_fused_cuda(q, k, v, do, lse, delta, mask=None,
-                         segment_ids=None, causal=False, window=None):
+                         segment_ids=None, causal=False, window=None,
+                         kv_segment_ids=None):
     """Launch ``csrc/flash_bwd_fused.cu``; returns ``(dq, dk, dv)``, dq
     shaped like q, dk and dv like k and v.
 
@@ -464,8 +508,9 @@ def flash_bwd_fused_cuda(q, k, v, do, lse, delta, mask=None,
     bf16: all five products on the tensor cores, two blocks per SM; fp32:
     FMAs on the CUDA cores (:func:`kernel_variant`).  Bit-identical on a
     rerun in both."""
-    q, k, v, do, lse, delta, m, seg, strides = _bwd_operands(
-        q, k, v, do, lse, delta, mask, segment_ids, "flash fused backward")
+    q, k, v, do, lse, delta, m, seg, kseg, strides = _bwd_operands(
+        q, k, v, do, lse, delta, mask, segment_ids, "flash fused backward",
+        kv_segment_ids)
     b, s, h, d = q.shape
     hkv = k.shape[2]
     dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
@@ -481,7 +526,8 @@ def flash_bwd_fused_cuda(q, k, v, do, lse, delta, mask=None,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), dq_acc.data_ptr(), counters.data_ptr(), _ptr(m),
-        _ptr(seg), ctypes.addressof(strides), b, h, hkv, s, d, int(causal),
+        _ptr(seg), _ptr(kseg), ctypes.addressof(strides), b, h, hkv, s, d,
+        int(causal),
         _window_arg(window), 1.0 / d ** 0.5, q.dtype == torch.bfloat16,
         q.device.index or 0, _cuda.stream_handle(q.device))
     _cuda.launches["flash_bwd_fused"] += 1
@@ -490,7 +536,7 @@ def flash_bwd_fused_cuda(q, k, v, do, lse, delta, mask=None,
 
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, mask=None, segment_ids=None,
-                      causal=False, window=None):
+                      causal=False, window=None, kv_segment_ids=None):
     """Launch the dq kernel of ``csrc/flash_bwd.cu``; returns dq.
 
     The port of ``_bwd_dq_kernel``
@@ -499,15 +545,17 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, mask=None, segment_ids=None,
     flops, half under the causal mask.  bf16: the three products on the
     tensor cores, Q and dO as register fragments, K and V tiles
     double-buffered by ``cp.async``; fp32: FMAs on the CUDA cores."""
-    q, k, v, do, lse, delta, m, seg, strides = _bwd_operands(
-        q, k, v, do, lse, delta, mask, segment_ids, "flash dq")
+    q, k, v, do, lse, delta, m, seg, kseg, strides = _bwd_operands(
+        q, k, v, do, lse, delta, mask, segment_ids, "flash dq",
+        kv_segment_ids)
     b, s, h, d = q.shape
     dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lib = _cuda.load("flash_bwd", _BWD_SIGNATURES)
     err = lib.dtf_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), _ptr(m), _ptr(seg),
-        ctypes.addressof(strides), b, h, k.shape[2], s, d, int(causal),
+        _ptr(kseg), ctypes.addressof(strides), b, h, k.shape[2], s, d,
+        int(causal),
         _window_arg(window), 1.0 / d ** 0.5, q.dtype == torch.bfloat16,
         q.device.index or 0, _cuda.stream_handle(q.device))
     _cuda.launches["flash_bwd_dq"] += 1
@@ -516,7 +564,7 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, mask=None, segment_ids=None,
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, mask=None, segment_ids=None,
-                       causal=False, window=None):
+                       causal=False, window=None, kv_segment_ids=None):
     """Launch the dk/dv kernel of ``csrc/flash_bwd.cu``; returns
     ``(dk, dv)`` shaped like k and v.
 
@@ -527,8 +575,9 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, mask=None, segment_ids=None,
     tensor cores, K and V as register fragments, Q and dO tiles
     double-buffered by ``cp.async``, scores transposed; fp32: FMAs on the
     CUDA cores."""
-    q, k, v, do, lse, delta, m, seg, strides = _bwd_operands(
-        q, k, v, do, lse, delta, mask, segment_ids, "flash dk/dv")
+    q, k, v, do, lse, delta, m, seg, kseg, strides = _bwd_operands(
+        q, k, v, do, lse, delta, mask, segment_ids, "flash dk/dv",
+        kv_segment_ids)
     b, s, h, d = q.shape
     hkv = k.shape[2]
     dk = torch.empty((b, s, hkv, d), dtype=k.dtype, device=q.device)
@@ -537,8 +586,8 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, mask=None, segment_ids=None,
     err = lib.dtf_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        _ptr(m), _ptr(seg), ctypes.addressof(strides), b, h, hkv, s, d,
-        int(causal), _window_arg(window), 1.0 / d ** 0.5,
+        _ptr(m), _ptr(seg), _ptr(kseg), ctypes.addressof(strides), b, h, hkv,
+        s, d, int(causal), _window_arg(window), 1.0 / d ** 0.5,
         q.dtype == torch.bfloat16, q.device.index or 0,
         _cuda.stream_handle(q.device))
     _cuda.launches["flash_bwd_dkv"] += 1

@@ -3,8 +3,10 @@
 Twin of ``distributedtensorflow_tpu/parallel/collectives.py``:
 :class:`ReduceOp`, :class:`Options`, :func:`all_reduce`,
 :func:`tree_all_reduce`, :func:`all_gather`, :func:`reduce_scatter`,
-:func:`broadcast`, :func:`pack_by_size` and :func:`packed_all_reduce`
-(``:99-212,273-388``).  JAX names a mesh axis inside one SPMD program;
+:func:`broadcast`, :func:`pack_by_size`, :func:`packed_all_reduce`
+(``:99-212,273-388``), and the ``lax`` collectives of the ``seq`` and
+``expert`` regions: :func:`all_to_all` (the tiled ``lax.all_to_all``)
+and :func:`ring_shift` (``lax.ppermute`` with ``i -> i + 1``).  JAX names a mesh axis inside one SPMD program;
 here each function takes the process group of the ranks it spans: a
 ``ProcessGroup``, a :class:`~.mesh.Mesh` (its batch group), or None (the
 default group when ``torch.distributed`` is initialised, else a world of
@@ -24,9 +26,16 @@ computes the whole loss.  :func:`reduce_scatter` is the group's own
 (ZeRO's gradients), with :func:`reduce_scatter_async` and
 :func:`all_reduce_async` for the overlapped gradient sync.  Gloo takes
 CUDA tensors for all-reduce and broadcast only, so a gather or a
-reduce-scatter of a CUDA tensor over gloo goes through the host.
-``all_to_all``, ``permute``, ``shift`` and the ``gspmd_*`` constraints
-wait for the parallelism that needs them.
+reduce-scatter of a CUDA tensor over gloo goes through the host, and so
+do :func:`all_to_all` and :func:`ring_shift` (gloo's send and receive
+read the data pointer as host memory).  Both are differentiable: the
+backward of an all-to-all is the inverse all-to-all and that of a shift
+the reverse shift.  :func:`split_to_group` and :func:`gather_from_group`
+are the pair of a region whose ranks all compute the same loss (the
+expert-parallel MoE layer): a rank's slice, whose gradient gathers the
+slices, and the gather, whose gradient is the rank's slice.  The
+``gspmd_*`` constraints have no counterpart: every rank runs its own
+program on its shards.
 """
 
 from __future__ import annotations
@@ -288,6 +297,182 @@ def reduce_from_group(x: torch.Tensor, group=None) -> torch.Tensor:
     if x.requires_grad and torch.is_grad_enabled():
         return _ReduceFromGroup.apply(x, group)
     return _all_reduce_(x.detach().contiguous().clone(), group, ReduceOp.SUM)
+
+
+def _via_host(x: torch.Tensor, group) -> bool:
+    """Whether ``x`` goes through the host for ``group``: a CUDA tensor
+    over gloo, whose point-to-point and all-to-all read host memory."""
+    return x.is_cuda and group.name() == "gloo"
+
+
+def _all_to_all(x: torch.Tensor, group, split_axis: int,
+                concat_axis: int) -> torch.Tensor:
+    """The tiled all-to-all over ``group`` (no autograd): ``x`` cut into
+    N chunks along ``split_axis``, chunk j to rank j, the chunks received
+    concatenated along ``concat_axis`` in rank order."""
+    n = group.size()
+    if x.shape[split_axis] % n:
+        raise ValueError(f"all_to_all split axis {split_axis} of "
+                         f"{tuple(x.shape)} does not divide over {n} ranks")
+    parts = torch.stack(x.chunk(n, split_axis))  # (N, ...) contiguous
+    host = _via_host(parts, group)
+    src = parts.cpu() if host else parts
+    out = torch.empty_like(src)
+    group.alltoall_base(out, src, [], [], dist.AllToAllOptions()).wait()
+    if host:
+        out = out.to(x.device)
+    return torch.cat(out.unbind(0), concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis):
+        ctx.group, ctx.axes = group, (split_axis, concat_axis)
+        return _all_to_all(x.detach(), group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_axis, concat_axis = ctx.axes
+        return _all_to_all(g.contiguous(), ctx.group, concat_axis,
+                           split_axis), None, None, None
+
+
+def all_to_all(x: torch.Tensor, group=None, *, split_axis: int,
+               concat_axis: int) -> torch.Tensor:
+    """``lax.all_to_all(x, axis, split_axis, concat_axis, tiled=True)``
+    over the ranks of ``group``: ``x`` for a world of one.
+    Differentiable (the backward is the inverse all-to-all)."""
+    group = resolve_group(group)
+    if group is None:
+        return x
+    if x.requires_grad and torch.is_grad_enabled():
+        return _AllToAll.apply(x, group, split_axis, concat_axis)
+    return _all_to_all(x, group, split_axis, concat_axis)
+
+
+class Shift:
+    """A ring shift in flight (:func:`start_ring_shift`): ``wait()``
+    returns the tensors received from the previous rank, on the devices
+    they were sent from."""
+
+    def __init__(self, received, works, devices):
+        self._received, self._works, self._devices = received, works, devices
+
+    def wait(self) -> list[torch.Tensor]:
+        for w in self._works:
+            w.wait()
+        return [r.to(d) if r.device != d else r
+                for r, d in zip(self._received, self._devices)]
+
+
+def start_ring_shift(tensors, group, *, reverse: bool = False,
+                     tag: int = 0) -> Shift:
+    """Start sending each of ``tensors`` to the next rank of ``group``
+    (the previous one with ``reverse``) and receiving the previous rank's
+    (no autograd); the caller computes meanwhile and then waits.  Gloo
+    runs each transfer through the group's own send and receive (CUDA
+    tensors through the host); another backend batches them with
+    ``torch.distributed.batch_isend_irecv``, so that NCCL groups the
+    sends and receives of the ring and none waits for its peer's.
+    Gloo's transfers carry the tags ``tag``, ``tag + 1``, ...: two
+    shifts in flight at once take tags that do not overlap."""
+    n, r = group.size(), group.rank()
+    dst, src = ((r - 1) % n, (r + 1) % n) if reverse \
+        else ((r + 1) % n, (r - 1) % n)
+    devices = [t.device for t in tensors]
+    if group.name() == "gloo":
+        sends = [(t.cpu() if t.is_cuda else t).contiguous() for t in tensors]
+        received = [torch.empty_like(t) for t in sends]
+        works = []
+        for i, (s, buf) in enumerate(zip(sends, received)):
+            works.append(group.send([s], dst, tag + i))
+            works.append(group.recv([buf], src, tag + i))
+        return Shift(received, works, devices)
+    sends = [t.contiguous() for t in tensors]
+    received = [torch.empty_like(t) for t in sends]
+    ops = []
+    for s, buf in zip(sends, received):
+        ops.append(dist.P2POp(dist.isend, s, group=group, group_peer=dst))
+        ops.append(dist.P2POp(dist.irecv, buf, group=group, group_peer=src))
+    return Shift(received, dist.batch_isend_irecv(ops), devices)
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return start_ring_shift([x.detach()], group).wait()[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        return start_ring_shift([g], ctx.group, reverse=True).wait()[0], None
+
+
+def ring_shift(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``lax.ppermute(x, axis, [(i, (i + 1) % n)])``: the previous rank's
+    ``x`` on every rank of ``group`` (``x`` for a world of one).
+    Differentiable (the backward shifts the gradient the other way)."""
+    group = resolve_group(group)
+    if group is None:
+        return x
+    if x.requires_grad and torch.is_grad_enabled():
+        return _RingShift.apply(x, group)
+    return start_ring_shift([x], group).wait()[0]
+
+
+class _SplitToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.group, ctx.axis = group, axis
+        return x.chunk(group.size(), axis)[group.rank()].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.cat(_gather_list(g.contiguous(), ctx.group),
+                         ctx.axis), None, None
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.group, ctx.axis = group, axis
+        return torch.cat(_gather_list(x.detach(), group), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.chunk(ctx.group.size(), ctx.axis)[ctx.group.rank()] \
+            .contiguous(), None, None
+
+
+def split_to_group(x: torch.Tensor, group=None, *,
+                   axis: int = 0) -> torch.Tensor:
+    """This rank's 1/N slice of ``x`` along ``axis``, where every rank of
+    ``group`` holds the same ``x`` and computes the same loss from the
+    slices: the backward gathers the slices' gradients, so each rank gets
+    the gradient of the whole ``x``."""
+    group = resolve_group(group)
+    if group is None:
+        return x
+    if x.shape[axis] % group.size():
+        raise ValueError(f"axis {axis} of {tuple(x.shape)} does not split "
+                         f"over {group.size()} ranks")
+    if x.requires_grad and torch.is_grad_enabled():
+        return _SplitToGroup.apply(x, group, axis)
+    return x.chunk(group.size(), axis)[group.rank()]
+
+
+def gather_from_group(x: torch.Tensor, group=None, *,
+                      axis: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``axis`` in rank order, where
+    every rank then computes the same loss from the whole: the gradient
+    of this rank's ``x`` is its slice of the whole's, without a sum over
+    the ranks (:func:`all_gather` sums, for losses that are shares)."""
+    group = resolve_group(group)
+    if group is None:
+        return x
+    if x.requires_grad and torch.is_grad_enabled():
+        return _GatherFromGroup.apply(x, group, axis)
+    return torch.cat(_gather_list(x, group), axis)
 
 
 def broadcast(x: torch.Tensor, group=None, *, src: int = 0) -> torch.Tensor:

@@ -7,11 +7,26 @@ axes, :class:`MeshSpec` with ``resolve`` (``:62-101``), :func:`build_mesh`
 JAX's mesh is an array of devices that one SPMD program spans; here every
 rank is a process with one device, and the mesh is a small object: the
 size of each axis, this rank's coordinate on each, and one process group
-per axis kind: ``group`` over the batch axes (``data`` x ``fsdp``), over
-which the gradients of replicated parameters are summed, and
-``model_group`` over ``model``, the tensor-parallel ranks that hold one
-replica's shards.  ``fsdp`` is a batch axis, as in JAX.  ``pipe``,
-``seq`` and ``expert`` larger than 1 raise "not ported".
+per kind of collective:
+
+- ``group`` over ``data`` x ``fsdp`` x ``seq``: the ranks whose losses
+  are shares of one global mean and over which the gradients of
+  replicated parameters are summed.  JAX's ``BATCH_AXES`` are ``data``
+  and ``fsdp``, and GSPMD sums the gradients of a sequence-sharded
+  program over ``seq`` by itself; here each ``seq`` rank holds its own
+  slice of the sequence through the whole block stack
+  (``models.gpt``), so its loss is a share too.
+- ``batch_group`` over ``data`` x ``fsdp`` alone: the replicas, which
+  exchange rows of a batch (``data.exchange_rows``); ``group`` itself
+  while ``seq`` is 1.
+- ``seq_group`` over ``seq`` (ring and Ulysses attention,
+  ``parallel.ring_attention``), ``expert_group`` over ``expert`` (the
+  all-to-all dispatch of ``parallel.moe``) and ``model_group`` over
+  ``model``, the tensor-parallel ranks that hold one replica's shards.
+
+``fsdp`` is a batch axis, as in JAX; ``expert`` is one only inside the
+MoE region, whose dense layers stay replicated over it.  ``pipe`` larger
+than 1 raises "not ported".
 """
 
 from __future__ import annotations
@@ -38,7 +53,18 @@ CANONICAL_AXES: tuple[str, ...] = (
 BATCH_AXES: tuple[str, ...] = (AXIS_DATA, AXIS_FSDP)
 
 #: The axes the port runs larger than 1.
-PORTED_AXES: tuple[str, ...] = (AXIS_DATA, AXIS_FSDP, AXIS_MODEL)
+PORTED_AXES: tuple[str, ...] = (AXIS_DATA, AXIS_FSDP, AXIS_SEQ, AXIS_EXPERT,
+                                AXIS_MODEL)
+
+#: The axes of each of a :class:`Mesh`'s groups: the ranks of a group
+#: differ on these axes and share their coordinates on all the others.
+GROUP_AXES: dict[str, tuple[str, ...]] = {
+    "group": (AXIS_DATA, AXIS_FSDP, AXIS_SEQ),
+    "batch_group": BATCH_AXES,
+    "seq_group": (AXIS_SEQ,),
+    "expert_group": (AXIS_EXPERT,),
+    "model_group": (AXIS_MODEL,),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,16 +108,19 @@ class MeshSpec:
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
     """``shape`` (axis -> size, every canonical axis), ``coords`` (axis ->
-    this rank's index on it), ``group``, the process group of the batch
-    axes, and ``model_group``, that of the ``model`` axis (None for a
-    world of one process without a group, :data:`~.collectives.SOLO`
-    for an axis of size 1 in a larger world: every collective over it is
-    the identity, as a size-1 axis is in JAX)."""
+    this rank's index on it) and the process groups of
+    :data:`GROUP_AXES` (see the module docstring): None for a world of
+    one process without a group, :data:`~.collectives.SOLO` for a group
+    of one rank in a larger world (every collective over it is the
+    identity, as over a size-1 axis in JAX)."""
 
     shape: dict
     coords: dict
     group: object = None
     model_group: object = SOLO
+    batch_group: object = None
+    seq_group: object = SOLO
+    expert_group: object = SOLO
 
     @property
     def axis_names(self) -> tuple[str, ...]:
@@ -121,13 +150,16 @@ def build_mesh(spec: MeshSpec, group=None, new_group=None) -> Mesh:
     process group when ``torch.distributed`` is initialised, else a world
     of one with no group).  Raises for an axis the port has not ported.
 
-    With ``model`` > 1 the ranks split into batch groups (the ranks of
-    one ``model`` coordinate) and model groups (the ranks of one replica,
-    consecutive in the mesh-major order), each made by ``new_group(ranks)``
-    (default ``torch.distributed.new_group``; the thread ranks of
+    The ranks split into the groups of :data:`GROUP_AXES` (for each kind,
+    the ranks that share their coordinates on the other axes, in rank
+    order), each made by ``new_group(ranks)`` (default
+    ``torch.distributed.new_group``; the thread ranks of
     ``testing.ranks`` pass bare gloo groups), called on every rank for
-    every subgroup in one order; a subgroup that spans the world is
-    ``group`` itself."""
+    every subgroup of more than one rank and less than the world, kind
+    after kind in :data:`GROUP_AXES`'s order, in one order on every rank
+    (two kinds over the same ranks share one group); a subgroup that
+    spans the world is ``group`` itself and one of one rank
+    :data:`~.collectives.SOLO`."""
     group = resolve_group(group)
     world = 1 if group is None else group.size()
     rank = 0 if group is None else group.rank()
@@ -137,34 +169,44 @@ def build_mesh(spec: MeshSpec, group=None, new_group=None) -> Mesh:
         raise NotImplementedError(
             f"mesh axes {big} are not ported (sizes {sizes}): "
             f"{', '.join(a for a in CANONICAL_AXES if a not in PORTED_AXES)}"
-            " run at size 1 until the pipeline, sequence and expert "
-            "parallelism of ROADMAP.md item 7")
+            " runs at size 1 until the pipeline parallelism of ROADMAP.md "
+            "item 7")
     # mesh-major: the data axis is outermost, so a rank's data coordinate
     # is its rank over the product of the inner axes
+    coords = _coords_of(rank, sizes)
+    coords = {a: coords[a] for a in CANONICAL_AXES}
+    if world == 1:
+        return Mesh(shape=sizes, coords=coords, group=group,
+                    batch_group=group)
+    new_group = new_group or _new_group
+    all_coords = [_coords_of(r, sizes) for r in range(world)]
+    groups, made_for = {}, {}
+    for kind, axes in GROUP_AXES.items():
+        # the ranks that share this rank's coordinates off ``axes``, and
+        # every other such set, each made on every rank in one order
+        parts: dict[tuple, list[int]] = {}
+        for r, c in enumerate(all_coords):
+            key = tuple(c[a] for a in CANONICAL_AXES if a not in axes)
+            parts.setdefault(key, []).append(r)
+        for ranks in parts.values():
+            key = tuple(ranks)
+            if key not in made_for:  # kinds that span the same ranks share
+                made_for[key] = (SOLO if len(ranks) == 1 else
+                                 group if len(ranks) == world else
+                                 new_group(ranks))
+            if rank in ranks:
+                groups[kind] = made_for[key]
+    return Mesh(shape=sizes, coords=coords, **groups)
+
+
+def _coords_of(rank: int, sizes: dict) -> dict:
+    """Rank ``rank``'s coordinate on each axis, mesh-major (``data``
+    outermost)."""
     coords, rest = {}, rank
     for axis in reversed(CANONICAL_AXES):
         coords[axis] = rest % sizes[axis]
         rest //= sizes[axis]
-    coords = {a: coords[a] for a in CANONICAL_AXES}
-    tp = sizes[AXIS_MODEL]
-    if tp == 1:
-        return Mesh(shape=sizes, coords=coords, group=group)
-    replicas = world // tp
-    new_group = new_group or _new_group
-    subgroups = ([[b * tp + m for b in range(replicas)] for m in range(tp)]
-                 + [[b * tp + m for m in range(tp)]
-                    for b in range(replicas)])
-    made = []
-    for ranks in subgroups:
-        if len(ranks) == 1:
-            made.append(SOLO)
-        elif len(ranks) == world:
-            made.append(group)
-        else:
-            made.append(new_group(ranks))
-    batch = made[rank % tp]
-    model = made[tp + rank // tp]
-    return Mesh(shape=sizes, coords=coords, group=batch, model_group=model)
+    return coords
 
 
 def data_axes(mesh: Mesh) -> tuple[str, ...]:

@@ -1,12 +1,14 @@
-"""Mixture-of-experts on one device: the routers and ``local_moe``.
+"""Mixture-of-experts: the routers, ``local_moe`` and expert parallelism.
 
-Twin of the local half of ``distributedtensorflow_tpu/parallel/moe.py``:
-``_capacity_slots`` (``:28``), ``_masked_fracs`` (``:36``), ``top1_route``
-(``:49``, Switch), ``top2_route`` (``:81``, GShard),
-``expert_choice_route`` (``:126``, Zhou et al. 2022) and ``local_moe``
-(``:349``), the path JAX takes when the mesh has no ``expert`` axis.
-Expert parallelism (``expert_parallel_moe``, ``make_moe_fn``) is not
-ported yet.
+Twin of ``distributedtensorflow_tpu/parallel/moe.py``: ``_capacity_slots``
+(``:28``), ``_masked_fracs`` (``:36``), ``top1_route`` (``:49``, Switch),
+``top2_route`` (``:81``, GShard), ``expert_choice_route`` (``:126``, Zhou
+et al. 2022), ``local_moe`` (``:349``), the path JAX takes when the mesh
+has no ``expert`` axis, and the expert-parallel half (``:180-330``):
+:func:`expert_parallel_moe`, :func:`make_moe_fn`,
+:func:`init_expert_params`, :func:`with_moe_layout` and
+:func:`bind_expert_parallel_model`; :func:`local_experts` is the one cut
+of an expert stack to a rank's experts.
 
 JAX writes dispatch and combine as one-hot (T, E, C) fp32 tensors and
 einsums; at T 16384 tokens, C 5120 slots that is 2.7 GB a tensor.  The
@@ -40,6 +42,28 @@ one term an expert, so forward and backward add in a fixed order.  Over
 a data-parallel group each expert's top-k is over every rank's tokens,
 as in JAX's global jit: the ranks gather the (T, E) fp32 probabilities,
 each takes the same global selection and runs its own chosen tokens.
+
+Expert parallelism (:func:`make_moe_fn`, JAX's shard_map region): the
+experts' stacks are cut over the ``expert`` axis (rank e holds experts
+``[e E/n, (e + 1) E/n)``) and the tokens are a shard over the batch axes
+*and* ``expert``: every rank of an ``expert`` group holds the same
+tokens (the dense layers around the region stay replicated over
+``expert``), and the region takes the rank's 1/n of them
+(:func:`..collectives.split_to_group`).  Each rank routes its own token
+shard, with the capacity of its local token count and without a gather
+(JAX's region sees only its shard), fills the (E, C, d) send buffer,
+an all-to-all brings every rank's slots of its own experts, (E/n, n C,
+d), the experts run, a second all-to-all sends the outputs back to
+(E, C, d), and the rank combines its tokens.  The outputs of the whole
+token set are put back together on every rank
+(:func:`..collectives.gather_from_group`), every rank computes the same
+loss from them, and the router kernel's gradient is summed over the
+group (:func:`..collectives.copy_to_group`).  The aux loss is the mean
+over ``expert`` of the shards' and, over a data-parallel mesh, each
+rank's share of the mean over the batch axes (``:233,289-290``).  As in
+JAX, routing depends on the mesh: outputs agree across meshes only when
+no token is dropped (``capacity_factor`` = E), and expert choice picks
+each shard's top tokens (``:147-152``).
 """
 
 from __future__ import annotations
@@ -49,7 +73,18 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
-from .collectives import all_gather, group_rank, group_size
+from . import mesh as mesh_lib
+from .collectives import (
+    all_gather,
+    all_to_all,
+    copy_to_group,
+    gather_from_group,
+    group_rank,
+    group_size,
+    reduce_from_group,
+    resolve_group,
+    split_to_group,
+)
 
 
 def _capacity_slots(pos: torch.Tensor, mask: torch.Tensor, capacity: int,
@@ -243,17 +278,29 @@ def local_moe(tokens: torch.Tensor, router_kernel: torch.Tensor,
     global batch this rank's ``tokens`` belong to, one contiguous block
     of it in rank order; the capacity counts every rank's tokens and aux
     is this rank's share."""
-    if router not in ROUTERS:
-        raise ValueError(f"unknown router {router!r}; the port has "
-                         f"{list(ROUTERS)}")
+    _check_router(router)
     t, d = tokens.shape
     e = router_kernel.shape[-1]
     capacity = capacity_for(t * (1 if group is None else group_size(group)),
                             e, capacity_factor, router)
-    logits = tokens.float() @ router_kernel.float()
+    send, combine, aux = _dispatch(tokens, tokens.float()
+                                   @ router_kernel.float(), capacity, router,
+                                   token_mask, group)
+    return combine(expert_fn(expert_params, send)).to(tokens.dtype), aux
+
+
+def _dispatch(tokens, logits, capacity: int, router: str, token_mask,
+              group):
+    """``(send, combine, aux)``: the (E, C, d) expert buffer of the
+    routed ``tokens`` (rows of dropped or unused slots zero), the function
+    that takes the experts' (E, C, d) outputs to the (T, d) fp32
+    gate-weighted sum of each token's kept assignments, and the aux
+    loss."""
+    t, d = tokens.shape
+    e = logits.shape[1]
     if router == "expert_choice":
-        return _expert_choice_moe(tokens, logits, expert_params, expert_fn,
-                                  capacity, token_mask, group)
+        return _expert_choice_dispatch(tokens, logits, capacity, token_mask,
+                                       group)
     expert, slot, keep, gate, aux = ROUTERS[router](logits, capacity,
                                                     token_mask, group)
     # kept assignments land in their (expert, slot) row; dropped ones in a
@@ -262,16 +309,19 @@ def local_moe(tokens: torch.Tensor, router_kernel: torch.Tensor,
     src = tokens.unsqueeze(1).expand(t, rows.shape[1], d)
     send = tokens.new_zeros(e * capacity + 1, d).index_put(
         (rows.reshape(-1),), src.reshape(-1, d))[:-1]
-    out = expert_fn(expert_params, send.view(e, capacity, d))
-    # dropped assignments read row 0 at weight 0.  index_select's backward
-    # adds rows with atomics, and row 0 gets only zeros besides its one
-    # real term, so the sum does not depend on their order (the backward
-    # of advanced indexing would sort and add that repeated row serially)
-    picked = out.reshape(e * capacity, d).index_select(
-        0, torch.where(keep, rows, 0).reshape(-1)).view(*rows.shape, d)
-    weight = torch.where(keep, gate, torch.zeros_like(gate))
-    combined = (picked.float() * weight[..., None]).sum(1)
-    return combined.to(tokens.dtype), aux
+
+    def combine(out):
+        # dropped assignments read row 0 at weight 0.  index_select's
+        # backward adds rows with atomics, and row 0 gets only zeros
+        # besides its one real term, so the sum does not depend on their
+        # order (the backward of advanced indexing would sort and add that
+        # repeated row serially)
+        picked = out.reshape(e * capacity, d).index_select(
+            0, torch.where(keep, rows, 0).reshape(-1)).view(*rows.shape, d)
+        weight = torch.where(keep, gate, torch.zeros_like(gate))
+        return (picked.float() * weight[..., None]).sum(1)
+
+    return send.view(e, capacity, d), combine, aux
 
 
 class _Dispatch(torch.autograd.Function):
@@ -300,9 +350,8 @@ class _Dispatch(torch.autograd.Function):
         return out.to(grad.dtype), None, None
 
 
-def _expert_choice_moe(tokens, logits, expert_params, expert_fn, capacity,
-                       token_mask, group):
-    """:func:`local_moe` for expert choice (module docstring).  Each
+def _expert_choice_dispatch(tokens, logits, capacity, token_mask, group):
+    """:func:`_dispatch` for expert choice (module docstring).  Each
     expert's slots hold its kept tokens of this rank (``mine``); any
     other slot reads and adds zeros to a row of its own, so a row takes at
     most one nonzero term an expert and the adds, expert after expert,
@@ -316,12 +365,151 @@ def _expert_choice_moe(tokens, logits, expert_params, expert_fn, capacity,
     mine = keep & (token >= offset) & (token < offset + t)
     spare = torch.arange(c, device=tokens.device).remainder(t).expand(e, c)
     rows = torch.where(mine, token - offset, spare)
-    out = expert_fn(expert_params, _Dispatch.apply(tokens, rows, mine))
-    # the gate of a kept token is its own router probability (a real
-    # token's: pads are never kept), from this rank's differentiable probs
-    probs = torch.softmax(logits.float(), dim=-1)
-    gate = torch.where(mine, probs.t().gather(1, rows), 0.0)
-    combined = torch.zeros(t, d, dtype=torch.float32, device=tokens.device)
-    for i in range(e):
-        combined.index_add_(0, rows[i], out[i].float() * gate[i, :, None])
-    return combined.to(tokens.dtype), aux
+
+    def combine(out):
+        # the gate of a kept token is its own router probability (a real
+        # token's: pads are never kept), from this rank's differentiable
+        # probs
+        probs = torch.softmax(logits.float(), dim=-1)
+        gate = torch.where(mine, probs.t().gather(1, rows), 0.0)
+        combined = torch.zeros(t, d, dtype=torch.float32,
+                               device=tokens.device)
+        for i in range(e):
+            combined.index_add_(0, rows[i], out[i].float() * gate[i, :, None])
+        return combined
+
+    return _Dispatch.apply(tokens, rows, mine), combine, aux
+
+
+# --------------------------------------------------------- expert parallel
+
+
+def _check_router(router: str) -> None:
+    if router not in ROUTERS:
+        raise ValueError(f"unknown router {router!r}; expected one of "
+                         f"{list(ROUTERS)}")
+
+
+def expert_parallel_moe(tokens: torch.Tensor, router_kernel: torch.Tensor,
+                        expert_params, expert_fn: Callable, group=None, *,
+                        capacity_factor: float = 1.25, router: str = "top1",
+                        token_mask: torch.Tensor | None = None):
+    """The MoE layer on one rank of an ``expert`` ``group`` (JAX's
+    region body, ``:180-235``): ``(out (T, d) in the tokens' dtype,
+    aux)``.  ``tokens`` (T, d) are this rank's token shard, routed here
+    alone with the capacity of its T tokens; ``expert_params`` leaves
+    lead with this rank's E/n experts (E = ``router_kernel``'s columns);
+    the send buffer (E, C, d) goes through an all-to-all to (E/n, n C, d),
+    the experts run on it, and a second all-to-all brings their outputs
+    back.  ``aux`` is the mean over the group of the ranks' aux losses,
+    each rank's gradient of it 1/n of the mean's (every rank computes the
+    same loss from it).  Raises for experts that the group does not
+    divide."""
+    _check_router(router)
+    group = resolve_group(group)
+    n = group_size(group)
+    t, d = tokens.shape
+    e = router_kernel.shape[-1]
+    if e % n:
+        raise ValueError(f"n_experts={e} not divisible by expert axis size "
+                         f"{n}")
+    capacity = capacity_for(t, e, capacity_factor, router)
+    send, combine, aux = _dispatch(tokens, tokens.float()
+                                   @ router_kernel.float(), capacity, router,
+                                   token_mask, None)
+    # (E, C, d) -> (E/n, n C, d): every rank's slots of this rank's experts
+    recv = all_to_all(send, group, split_axis=0, concat_axis=1)
+    out = expert_fn(expert_params, recv)
+    # (E/n, n C, d) -> (E, C, d): the outputs of this rank's slots
+    back = all_to_all(out, group, split_axis=1, concat_axis=0)
+    return combine(back).to(tokens.dtype), reduce_from_group(aux, group) / n
+
+
+def local_experts(stack: torch.Tensor, n: int, rank: int) -> torch.Tensor:
+    """Rank ``rank``'s experts of ``stack`` (leading dim E) over an
+    ``expert`` axis of ``n``: experts ``[rank E/n, (rank + 1) E/n)``, a
+    copy; ``stack`` itself for an axis of 1.  Raises for experts that the
+    axis does not divide.  The model's stacks
+    (``parallel.sharding.shard_expert_stacks``), a JAX checkpoint's
+    (``models.convert.shards_for_rank``) and :func:`init_expert_params`
+    are all cut here."""
+    if n == 1:
+        return stack
+    if stack.shape[0] % n:
+        raise ValueError(f"n_experts={stack.shape[0]} not divisible by "
+                         f"expert axis size {n}")
+    return stack.chunk(n)[rank].clone()
+
+
+def init_expert_params(init_one: Callable[[torch.Generator], dict],
+                       n_experts: int, generator: torch.Generator,
+                       mesh=None) -> dict:
+    """Every expert's parameters from ``init_one(generator)`` stacked on a
+    leading dim, this rank's E/n of them over ``mesh``'s ``expert`` axis
+    (JAX ``init_expert_params``; the experts draw one after another from
+    ``generator``, so every rank draws them all and keeps its own)."""
+    ones = [init_one(generator) for _ in range(n_experts)]
+    stacked = {k: torch.stack([o[k] for o in ones]) for k in ones[0]}
+    if mesh is None:
+        return stacked
+    n, r = mesh.shape[mesh_lib.AXIS_EXPERT], mesh.coords[mesh_lib.AXIS_EXPERT]
+    return {k: local_experts(v, n, r) for k, v in stacked.items()}
+
+
+def make_moe_fn(mesh, expert_fn: Callable, *, capacity_factor: float = 1.25,
+                router: str = "top1") -> Callable:
+    """The expert-parallel region bound to ``mesh`` (JAX ``make_moe_fn``,
+    ``:238-297``): ``fn(tokens (N, d), router_kernel, expert_params,
+    token_mask=None) -> (out (N, d), aux)`` with the tokens every rank of
+    the ``expert`` group holds, the experts this rank's (leaves (E/n,
+    ...)).  The rank routes its 1/n of the tokens
+    (:func:`expert_parallel_moe`), every rank gets the whole output, and
+    over a data-parallel mesh ``aux`` is the rank's share of the mean over
+    the replicas (module docstring)."""
+    _check_router(router)
+    group = mesh.expert_group
+    replicas = mesh_lib.replica_count(mesh)
+
+    def run(tokens, router_kernel, expert_params, token_mask=None):
+        n = group_size(group)
+        if tokens.shape[0] % n:
+            raise ValueError(f"{tokens.shape[0]} tokens do not split over "
+                             f"expert={n}")
+        out, aux = expert_parallel_moe(
+            split_to_group(tokens, group), copy_to_group(router_kernel, group),
+            expert_params, expert_fn, group, capacity_factor=capacity_factor,
+            router=router, token_mask=None if token_mask is None
+            else split_to_group(token_mask, group))
+        return gather_from_group(out, group), aux / replicas
+
+    return run
+
+
+def with_moe_layout(base):
+    """``base``'s rules after the expert-parallel ones (JAX
+    ``with_moe_layout``, ``:308-321``): the expert stacks over
+    ``expert``, the router replicated; the one definition that every MoE
+    model's layout shares."""
+    from .sharding import LayoutMap, P
+
+    rules = LayoutMap([
+        (r".*moe_mlp/experts_in", P("expert", None, None)),
+        (r".*moe_mlp/experts_out", P("expert", None, None)),
+        (r".*moe_mlp/router", P()),
+    ])
+    rules._rules.extend(base._rules)
+    return rules
+
+
+def bind_expert_parallel_model(cfg, mesh, model_ctor, expert_fn, **kw):
+    """``model_ctor(cfg, moe_fn=..., **kw)`` with the all-to-all region
+    (:func:`make_moe_fn`) when ``mesh`` has an ``expert`` axis larger than
+    1, else ``model_ctor(cfg, moe_fn=None, **kw)``, the local experts
+    (JAX ``bind_expert_parallel_model``, ``:324-335``); the one bind that
+    every MoE model family uses."""
+    moe_fn = None
+    if mesh is not None and mesh.shape[mesh_lib.AXIS_EXPERT] > 1:
+        moe_fn = make_moe_fn(mesh, expert_fn,
+                             capacity_factor=cfg.capacity_factor,
+                             router=cfg.router)
+    return model_ctor(cfg, moe_fn=moe_fn, **kw)

@@ -23,6 +23,15 @@ rows (``models.layers.embed_rows``), and the modules that hold heads
 and of v, as the reference's manual tensor parallelism re-keys it
 (``models/gpt_pipeline.py:358-406``).  No DTensor: the ranks of the
 tests are bare gloo groups a thread, which ``DeviceMesh`` does not take.
+
+Expert parallelism (:func:`shard_expert_stacks`): a parameter whose spec
+names ``expert`` on its leading dim (``parallel.moe.with_moe_layout``:
+the MoE blocks' expert stacks) becomes this rank's E/n experts
+(``parallel.moe.local_experts``); the model's MoE layers run the
+all-to-all region that was bound when the model was built
+(``models.gpt_moe.bind_expert_parallel``), and expect the cut stacks:
+such a model runs once ``train.state.create_sharded_state`` has cut
+them.
 """
 
 from __future__ import annotations
@@ -268,11 +277,12 @@ def unshard_tensors(shards: Sequence[torch.Tensor], dim: int,
     return torch.cat(out, dim)
 
 
-def _model_axis(spec) -> int | None:
-    """The dim of ``spec`` that names the ``model`` axis, or None."""
+def _model_axis(spec, axis: str = mesh_lib.AXIS_MODEL) -> int | None:
+    """The dim of ``spec`` that names ``axis`` (default ``model``), or
+    None."""
     for i, part in enumerate(spec):
         names = part if isinstance(part, tuple) else (part,)
-        if mesh_lib.AXIS_MODEL in names:
+        if axis in names:
             return i
     return None
 
@@ -393,4 +403,48 @@ def bind_tensor_parallel(model: nn.Module, cfg, layout: LayoutMap | None,
         hook = getattr(mod, "tp_bind", None)
         if hook is not None:
             hook(rank, n, group)
+    return model
+
+
+# --- expert parallelism -------------------------------------------------------
+
+
+def ep_rules(cfg, layout: LayoutMap) -> list[str]:
+    """Port parameter names whose spec in ``layout`` shards the leading
+    dim over ``expert`` (the expert stacks); raises for an ``expert``
+    axis on another dim."""
+    from ..models.convert import _param_leaves
+
+    names = []
+    for name, (path, _, _) in _param_leaves(cfg).items():
+        dim = _model_axis(layout.spec("/".join(path)), mesh_lib.AXIS_EXPERT)
+        if dim is None:
+            continue
+        if dim != 0:
+            raise NotImplementedError(
+                f"{name}: the layout shards flax dim {dim} over expert; only "
+                "the leading (expert) dim can be cut")
+        names.append(name)
+    return names
+
+
+def shard_expert_stacks(model: nn.Module, cfg, layout: LayoutMap | None,
+                        mesh) -> nn.Module:
+    """Cut ``model``'s expert stacks (whole, their weights loaded) to this
+    rank's E/n experts over the mesh's ``expert`` axis
+    (``parallel.moe.local_experts``), in place; left as it is without a
+    layout or for an ``expert`` axis of 1."""
+    from .moe import local_experts
+
+    n = mesh.shape[mesh_lib.AXIS_EXPERT]
+    if n == 1 or layout is None:
+        return model
+    rank = mesh.coords[mesh_lib.AXIS_EXPERT]
+    params = dict(model.named_parameters())
+    modules = dict(model.named_modules())
+    with torch.no_grad():
+        for name in ep_rules(cfg, layout):
+            mod_name, attr = name.rsplit(".", 1)
+            setattr(modules[mod_name], attr, nn.Parameter(
+                local_experts(params[name], n, rank)))
     return model

@@ -89,16 +89,23 @@ def create_sharded_state(model: nn.Module, make_optimizer, mesh, *, cfg,
     (``parallel.sharding.bind_tensor_parallel``), replicated over the
     batch axes, its optimizer over this rank's parameters (or, with a
     ``zero`` sharder bound to the specs, this rank's rows of them).
+    The expert stacks are cut to this rank's over ``expert``
+    (``parallel.sharding.shard_expert_stacks``).
     Returns ``(state, specs)``: the parameters' PartitionSpecs by name,
     from the rules on their flax paths (``cfg`` names the model).
     JAX's ``fsdp=True`` (parameters sharded over ``fsdp`` and gathered
     for each use) is not ported: ``fsdp`` is a batch axis here."""
     from ..models.convert import flax_paths
-    from ..parallel.sharding import P, bind_tensor_parallel
+    from ..parallel.sharding import (
+        P,
+        bind_tensor_parallel,
+        shard_expert_stacks,
+    )
 
     specs = {name: rules.spec("/".join(path)) if rules is not None else P()
              for name, path in flax_paths(cfg).items()}
     bind_tensor_parallel(model, cfg, rules, mesh)
+    shard_expert_stacks(model, cfg, rules, mesh)
     if zero is not None:
         zero.bind(specs)
     return TrainState.create(model, make_optimizer, mesh, zero=zero), specs

@@ -38,15 +38,20 @@ The synthetic sources are copies of the JAX package's numpy sources
 with the same seeds, so both packages see identical batches; over a
 data-parallel mesh each rank's source is seeded by ``seed +
 input_pipeline_id``, as each JAX host's is.  Each preset carries its
-``model``-axis layout (``layout``: GPT, BERT, ViT, seq2seq and Wide&Deep;
-the MoE presets refuse a model axis in ``for_mesh``), and ``quant``
-switches the transformer presets' block matmuls (:data:`QUANTIZABLE`).
-The pipeline/sequence/expert-parallel variants are not ported yet.
+``model``-axis layout (``layout``: GPT, BERT, ViT, seq2seq and
+Wide&Deep; the MoE presets' add the expert stacks over ``expert``), and
+``quant`` switches the transformer presets' block matmuls
+(:data:`QUANTIZABLE`).  ``for_mesh`` runs the preset's ``finalize``, as
+JAX's does (``workloads.py:441-509,535-564,587-598``): over a ``seq``
+axis the GPT LMs take ring or Ulysses attention (``sp_scheme``,
+:data:`SEQ_PARALLEL`), over an ``expert`` axis the MoE presets the
+all-to-all expert region.  The pipeline variants are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Iterator
 
 import numpy as np
@@ -65,7 +70,9 @@ from .models.bert import (
 from .models.bert_moe import (
     BertMoEForMLM,
     bert_moe_base,
+    bert_moe_layout,
     bert_moe_tiny,
+    bind_expert_parallel_bert,
     moe_mlm_loss,
 )
 from .models.convert import init_params
@@ -81,6 +88,8 @@ from .models.gpt import (
 )
 from .models.gpt_moe import (
     GPTMoELM,
+    bind_expert_parallel,
+    gpt_moe_layout,
     gpt_moe_small,
     gpt_moe_tiny,
     moe_lm_eval,
@@ -110,6 +119,7 @@ from .models.widedeep import (
     widedeep_loss,
     widedeep_test_config,
 )
+from .parallel.ring_attention import SCHEMES, sequence_parallel_attention_fn
 from .parallel.sharding import LayoutMap
 from .train.losses import classification_eval, classification_loss
 from .train.optimizers import (
@@ -125,6 +135,9 @@ WORKLOADS = ("mnist_lenet", "cifar_resnet20", "imagenet_resnet50",
              "imagenet_vit", "bert_mlm", "bert_mlm_packed", "bert_moe",
              "widedeep", "gpt_lm", "gpt_medium_lm", "lm_long_context",
              "gpt_moe", "t5_seq2seq")
+#: The presets that split the sequence over a ``seq`` axis (JAX's
+#: ``finalize`` of the GPT LMs); the others refuse one.
+SEQ_PARALLEL = ("gpt_lm", "gpt_medium_lm", "lm_long_context")
 
 
 def synthetic_lm(ctx: InputContext, *, vocab_size: int, seq_len: int,
@@ -245,20 +258,25 @@ class Workload:
     #: the model's forward reduces over the batch (BatchNorm statistics,
     #: MoE routing): over a mesh it is built with ``group=`` the mesh
     model_takes_group: bool = False
-    #: the ``model``-axis rules (``parallel.sharding.LayoutMap``), None:
-    #: every parameter replicated
+    #: the ``model``- and ``expert``-axis rules
+    #: (``parallel.sharding.LayoutMap``), None: every parameter replicated
     layout: LayoutMap | None = None
+    #: ``(workload, mesh) -> workload``: the preset bound to a mesh (JAX's
+    #: ``finalize``), None: the same for every mesh
+    finalize: Callable | None = None
 
     def for_mesh(self, mesh) -> "Workload":
-        """The workload bound to ``mesh`` (JAX ``Workload.for_mesh``).  The
-        MoE presets refuse a ``model`` axis: their layouts shard experts
-        over the ``expert`` axis (ROADMAP item 7)."""
-        if (self.name in ("gpt_moe", "bert_moe") and mesh is not None
-                and mesh.shape["model"] > 1):
+        """The workload bound to ``mesh`` (JAX ``Workload.for_mesh``): its
+        ``finalize``.  A ``seq`` axis larger than 1 is refused by the
+        presets that do not split the sequence (JAX runs them replicated
+        over it)."""
+        if mesh is None:
+            return self
+        if mesh.shape["seq"] > 1 and self.name not in SEQ_PARALLEL:
             raise NotImplementedError(
-                f"{self.name} over a model axis is not ported: its layout "
-                "needs the expert axis")
-        return self
+                f"{self.name} over a seq axis is not ported: sequence "
+                f"parallelism is ported for {', '.join(SEQ_PARALLEL)}")
+        return self.finalize(self, mesh) if self.finalize else self
 
 
 def _image_input(shape, classes):
@@ -343,7 +361,9 @@ def _baseline(name: str, *, test_size: bool, global_batch_size: int | None,
                                                 weight_decay=0.01),
             input_fn=lambda ctx, seed: synthetic_mlm(
                 ctx, vocab_size=cfg.vocab_size, seq_len=seq, seed=seed),
-            accum_steps=4, model_cls=BertMoEForMLM, model_takes_group=True)
+            accum_steps=4, model_cls=BertMoEForMLM, model_takes_group=True,
+            layout=bert_moe_layout(),
+            finalize=_expert_finalize(bind_expert_parallel_bert))
     cfg = widedeep_test_config() if test_size else WideDeepConfig()
     return Workload(
         name=name, cfg=cfg, seq_len=None,
@@ -391,6 +411,38 @@ def _seq2seq(*, test_size: bool, global_batch_size: int | None,
         model_cls=Seq2SeqLM, layout=seq2seq_layout(cfg))
 
 
+def _expert_finalize(bind):
+    """The MoE presets' ``finalize``: over an ``expert`` axis larger than
+    1 the model is built by ``bind`` (``models.gpt_moe.
+    bind_expert_parallel`` or ``models.bert_moe.
+    bind_expert_parallel_bert``) with the mesh's all-to-all region."""
+
+    def finalize(wl: Workload, mesh) -> Workload:
+        if mesh.shape["expert"] <= 1:
+            return wl
+        return dataclasses.replace(
+            wl, model_cls=functools.partial(bind, mesh=mesh))
+
+    return finalize
+
+
+def _seq_finalize(sp_scheme: str):
+    """The GPT LMs' ``finalize``: over a ``seq`` axis larger than 1 the
+    model's attention is ring or Ulysses attention over it
+    (``parallel.ring_attention``), and its losses take this rank's slice
+    of the sequence (``models.gpt``)."""
+
+    def finalize(wl: Workload, mesh) -> Workload:
+        if mesh.shape["seq"] <= 1:
+            return wl
+        attn = sequence_parallel_attention_fn(mesh, scheme=sp_scheme,
+                                              causal=True)
+        return dataclasses.replace(
+            wl, model_cls=functools.partial(GPTLM, attn_fn=attn))
+
+    return finalize
+
+
 def _apply_gpt_overrides(cfg: GPTConfig, *, seq, remat, attn_impl, xent_impl,
                          kv_heads, attn_window) -> GPTConfig:
     """The CLI knobs (``_apply_gpt_overrides``, ``workloads.py:181``):
@@ -418,6 +470,7 @@ QUANTIZABLE = ("gpt_lm", "gpt_medium_lm", "lm_long_context", "bert_mlm",
 
 def get_workload(name: str, *, test_size: bool = False,
                  global_batch_size: int | None = None,
+                 sp_scheme: str = "ring",
                  seq_len: int | None = None,
                  remat: bool | str | None = None,
                  attn_impl: str | None = None,
@@ -430,7 +483,11 @@ def get_workload(name: str, *, test_size: bool = False,
     only, as in JAX, but for ``kv_heads``, which ``t5_seq2seq`` takes
     too.  ``quant`` ("int8", "int8_stochastic", "fp8") runs the block
     matmuls of the presets of :data:`QUANTIZABLE` quantised, and is
-    refused for the others."""
+    refused for the others.  ``sp_scheme`` ("ring" or "ulysses") is the
+    sequence-parallel attention of the GPT LMs over a ``seq`` axis."""
+    if sp_scheme not in SCHEMES:
+        raise ValueError(f"sp_scheme={sp_scheme!r}: expected one of "
+                         f"{list(SCHEMES)}")
     if name not in WORKLOADS:
         raise ValueError(f"workload {name!r} is not ported; the port has "
                          f"{', '.join(WORKLOADS)}")
@@ -442,6 +499,8 @@ def get_workload(name: str, *, test_size: bool = False,
                    global_batch_size=global_batch_size, seq_len=seq_len,
                    remat=remat, attn_impl=attn_impl, xent_impl=xent_impl,
                    kv_heads=kv_heads, attn_window=attn_window)
+    if name in SEQ_PARALLEL:
+        wl = dataclasses.replace(wl, finalize=_seq_finalize(sp_scheme))
     cfg = wl.cfg
     if quant and quant != "none":
         cfg = dataclasses.replace(cfg, quant=quant)
@@ -490,5 +549,6 @@ def _workload(name: str, *, test_size, global_batch_size, seq_len, remat,
             ctx, vocab_size=cfg.vocab_size, seq_len=seq, seed=seed),
         model_cls=GPTMoELM if moe else GPTLM,
         model_takes_group=moe,
-        layout=None if moe else gpt_layout(),
+        layout=gpt_moe_layout() if moe else gpt_layout(),
+        finalize=_expert_finalize(bind_expert_parallel) if moe else None,
     )

@@ -62,11 +62,23 @@ def test_mesh_axes_match_jax_and_other_axes_refuse():
     assert mesh.group is None and mesh.shape["data"] == 1
     assert tmesh.data_axes(mesh) == ("data", "fsdp")
     assert tmesh.replica_count(mesh) == 1
-    for kw in (dict(pipe=2), dict(seq=2), dict(expert=2)):
-        def refuse(rank, group, kw=kw):
-            with pytest.raises(NotImplementedError, match="not ported"):
-                tmesh.build_mesh(tmesh.MeshSpec(data=1, **kw), group)
-        run_ranks(refuse, 2)
+    def refuse(rank, group):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            tmesh.build_mesh(tmesh.MeshSpec(data=1, pipe=2), group)
+    run_ranks(refuse, 2)
+    # seq and expert build their groups: each rank its coordinate, the
+    # axis's group over both ranks, the gradient group over seq but not
+    # over expert, the batch group over neither
+    for axis in ("seq", "expert"):
+        def groups(rank, mesh, axis=axis):
+            along = getattr(mesh, f"{axis}_group")
+            return (mesh.coords[axis], along.size(), along.rank(),
+                    coll.group_size(mesh),
+                    coll.group_size(mesh.batch_group),
+                    tmesh.replica_count(mesh), tmesh.replica_index(mesh))
+        got = run_mesh(groups, tmesh.MeshSpec(data=1, **{axis: 2}), 2)
+        grad = 2 if axis == "seq" else 1
+        assert got == [(r, 2, r, grad, 1, 1, 0) for r in range(2)], axis
     # fsdp is a batch axis; model splits a replica's parameters
     fsdp = run_mesh(lambda r, m: m, tmesh.MeshSpec(data=1, fsdp=2), 2)
     assert [tmesh.replica_index(m) for m in fsdp] == [0, 1]

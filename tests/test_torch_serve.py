@@ -337,7 +337,8 @@ def test_port_imports_no_jax():
                 "data/recordio_dataset.py", "net/__init__.py",
                 "net/breaker.py", "net/rpc.py", "obs/tsdb.py",
                 "obs/slo.py", "obs/alerts.py", "obs/fleet.py",
-                "obs/dynamics.py"):
+                "obs/dynamics.py", "parallel/ring_attention.py",
+                "parallel/moe.py"):
         assert port / sub in files
     found = {str(f.relative_to(ROOT)): sorted(set(_imports(f)) & _BANNED)
              for f in files}

@@ -14,9 +14,9 @@ four ranks runs gpt_tiny's data-parallel gradient sum over the tensor
 shards against JAX's on the global batch.  fp32 at dropout 0.
 
 The vocab-sharded head's plain twins over token tiles (the chunked
-heads' path) match the untiled twins, and the scale-out combinations the
-port has not ported refuse: train_torch's flags and a MoE preset over a
-model axis.
+heads' path) match the untiled twins, the scale-out combinations the
+port has not ported refuse (train_torch's flags), and the MoE presets
+bind over a model axis (their experts over ``expert``).
 
 Tolerances: the spec tables exactly; losses 1e-5 relative (the vocab
 shards' logsumexp combines over the ranks); gradients 1e-4 of each
@@ -55,6 +55,7 @@ from distributedtensorflow_tpu_torch.testing import run_mesh
 from distributedtensorflow_tpu_torch.train.engine import (
     accumulate_gradients_dp,
 )
+from distributedtensorflow_tpu_torch.train.state import create_sharded_state
 from distributedtensorflow_tpu_torch.ops import fused_xent
 from distributedtensorflow_tpu_torch.models.layers import VocabShard
 from distributedtensorflow_tpu_torch.testing import two_intra_op_threads  # noqa: F401
@@ -328,26 +329,57 @@ def test_vocab_parallel_plain_tiles_match_untiled(dtype, monkeypatch):
     (["--zero", "--dynamics-every", "2"], "--dynamics-every with --zero"),
     (["--zero", "--steps-per-call", "2"], "--steps-per-call > 1 with"),
     (["--overlap", "--steps-per-call", "2"], "--steps-per-call > 1 with"),
+    (["--mesh", "data=1,expert=2", "--checkpoint-dir", "ck"],
+     "--checkpoint-dir over an expert axis"),
+    (["--mesh", "data=1,expert=2", "--clipnorm", "1.0"],
+     "--clipnorm over an expert axis"),
+    (["--mesh", "data=1,seq=2", "--zero"], "--zero and --overlap over"),
+    (["--mesh", "data=1,expert=2", "--overlap"], "--zero and --overlap over"),
+    (["--mesh", "data=1,seq=2", "--steps-per-call", "2"],
+     "--steps-per-call > 1 over"),
+    (["--mesh", "data=1,expert=2", "--dynamics-every", "2"],
+     "--dynamics-every over"),
 ])
 def test_unported_scaleout_flags_refuse(argv, match):
-    """The combinations no run has tried exit "not ported"."""
+    """The combinations no run has tried exit "not ported"; the ``seq``
+    and ``expert`` axes themselves run (``--mesh data=1,seq=2`` and
+    ``data=1,expert=2`` pass the checks)."""
     args = train_torch.parse_args(["--test-size", "--device", "cpu", *argv])
     with pytest.raises(SystemExit, match=match):
         train_torch.check_flags(args)
+    for mesh in ("data=1,seq=2", "data=1,expert=2"):
+        train_torch.check_flags(train_torch.parse_args(
+            ["--test-size", "--device", "cpu", "--mesh", mesh]))
 
 
 @pytest.mark.parametrize("name", ["gpt_moe", "bert_moe"])
 def test_moe_presets_refuse_a_model_axis(name):
-    """The MoE layouts shard experts over ``expert`` (not ported): over
-    ``model=2`` ``for_mesh`` raises; over ``data=2`` it is the preset."""
+    """The MoE presets bind over ``model`` (no longer refused: their
+    layouts shard the expert stacks over ``expert`` and the dense layers
+    over ``model``): over ``model=2`` the dense layers split and every
+    rank holds all experts; over ``expert=2,model=2`` the experts halve,
+    replicated over ``model``, and the all-to-all region is bound; over
+    ``data=2`` the preset is itself."""
     wl = tw.get_workload(name, test_size=True)
+    cfg = dataclasses.replace(wl.cfg, dtype=torch.float32)
+    n = cfg.n_experts
 
     def bind(rank, mesh):
-        try:
-            return wl.for_mesh(mesh) is wl
-        except NotImplementedError as e:
-            return str(e)
+        bound = wl.for_mesh(mesh)
+        model = bound.model_cls(cfg, device="cpu", group=mesh)
+        model.load_state_dict(bound.init_params(
+            cfg, torch.Generator().manual_seed(0)))
+        create_sharded_state(model, bound.make_optimizer, mesh, cfg=cfg,
+                             rules=bound.layout)
+        stacks = {p.shape[0] for k, p in model.named_parameters()
+                  if k.endswith("experts_in")}
+        tp = any(getattr(m, "tp", None) is not None
+                 for m in model.modules())
+        return bound is wl, model.moe_fn is not None, stacks, tp
 
-    assert run_mesh(bind, MeshSpec(data=2), 2) == [True, True]
-    for msg in run_mesh(bind, MeshSpec(data=1, model=2), 2):
-        assert "not ported" in msg and "expert axis" in msg
+    assert run_mesh(bind, MeshSpec(data=2), 2) == [(True, False, {n},
+                                                    False)] * 2
+    assert run_mesh(bind, MeshSpec(data=1, model=2), 2) == \
+        [(True, False, {n}, True)] * 2
+    assert run_mesh(bind, MeshSpec(data=1, expert=2, model=2), 4) == \
+        [(False, True, {n // 2}, True)] * 4

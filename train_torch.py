@@ -275,6 +275,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="greedy merge threshold (MiB of parameter bytes) "
                         "for --overlap's per-layer-group gradient buckets")
     p.add_argument("--seq-len", type=int, default=None)
+    p.add_argument("--sp-scheme", choices=("ring", "ulysses"),
+                   default="ring",
+                   help="sequence-parallel attention of the GPT LMs over a "
+                        "seq mesh axis: ring (K/V chunks round the ring "
+                        "through the flash kernels) or ulysses (all-to-all "
+                        "between the sequence and the heads)")
     p.add_argument("--optimizer", default=None, choices=OPTIMIZERS,
                    help="override the preset's optimizer (requires --lr)")
     p.add_argument("--lr", type=float, default=None,
@@ -468,8 +474,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--mesh", default=None,
                    help="mesh axes, e.g. 'data=2', 'data=-1' (every "
                         "process of the cluster), 'data=2,model=2' (tensor "
-                        "parallelism over model) or 'fsdp=2' (a batch "
-                        "axis); pipe, seq and expert are not ported")
+                        "parallelism over model), 'fsdp=2' (a batch axis), "
+                        "'data=1,seq=2' (the GPT LMs' sequence split over "
+                        "ranks, --sp-scheme) or 'data=1,expert=2' (the MoE "
+                        "presets' experts split over ranks); pipe is not "
+                        "ported")
     p.add_argument("--dist-backend", choices=bootstrap.BACKENDS,
                    default="nccl",
                    help="process-group backend over a mesh: nccl on the "
@@ -599,8 +608,9 @@ def build(args: argparse.Namespace, checkpointer=None):
     try:
         wl = get_workload(
             args.workload, test_size=args.test_size,
-            global_batch_size=args.batch_size, seq_len=args.seq_len,
-            remat=_REMAT[args.remat], attn_impl=args.attn_impl,
+            global_batch_size=args.batch_size, sp_scheme=args.sp_scheme,
+            seq_len=args.seq_len, remat=_REMAT[args.remat],
+            attn_impl=args.attn_impl,
             xent_impl=args.xent_impl, kv_heads=args.kv_heads,
             attn_window=args.attn_window, quant=args.quant)
     except ValueError as e:
@@ -797,6 +807,27 @@ def check_flags(args) -> None:
         if args.clipnorm:
             raise SystemExit("--clipnorm over a model axis is not ported "
                              "(the global norm spans the model ranks)")
+    if spec is not None and spec.expert > 1:
+        if args.checkpoint_dir:
+            raise SystemExit("--checkpoint-dir over an expert axis is not "
+                             "ported (each expert rank holds other experts)")
+        if args.clipnorm:
+            raise SystemExit("--clipnorm over an expert axis is not ported "
+                             "(the global norm spans the expert ranks)")
+    if spec is not None and (spec.seq > 1 or spec.expert > 1):
+        axes = "a seq or expert axis"
+        if args.zero or args.overlap:
+            raise SystemExit(f"--zero and --overlap over {axes} are not "
+                             "ported (no run has tried their collectives "
+                             "over these axes)")
+        if args.steps_per_call > 1:
+            raise SystemExit(f"--steps-per-call > 1 over {axes} is not "
+                             "ported (no CUDA graph has captured their "
+                             "collectives)")
+        if args.dynamics_every:
+            raise SystemExit(f"--dynamics-every over {axes} is not ported "
+                             "(its NaN taps run the whole sequence and the "
+                             "whole expert set on each rank)")
     if args.zero and args.dynamics_every:
         raise SystemExit("--dynamics-every with --zero is not ported (each "
                          "rank holds its own rows of the gradients)")
