@@ -305,13 +305,26 @@ Phases, each fatal on failure:
     half its optimizer state (tensors and the allocator's growth over
     the first step), ``--overlap`` bit-equal to it (bucket count and
     coverage printed).  No gloo time is a scaling time.
+25. seqexpert: K2/K3f/K3 with ``kv_segment_ids`` against their twins,
+    beside the one-array call and SDPA (forward and eager backward) with
+    the segment mask; lm_long_context over ``seq=2`` (ring, Ulysses) and
+    the MoE presets over ``expert=2`` in two gloo processes on the card
+    against one process (``run_seqexpert``).
+26. pipeline: gpt_lm at full width cut to 4 layers over ``--mesh
+    data=1,pipe=2`` in two gloo processes on the card: GPipe, circular
+    GPipe, 1F1B and interleaved in fp32 and bf16 against one process's
+    dense model on the same weights, 1F1B and interleaved against GPipe,
+    the bf16 wire bit for bit, each rank's K2/K3f launches against the
+    derived counts, the loss pass's memory under 1F1B below GPipe's, a
+    bf16 step's ms of each schedule; ``pipe=1`` over NCCL against phase
+    9 bit for bit (``run_pipeline``).
 
 Kernel launch counts are set to 0 just before phases 5, 6 (each generate
 run), 9-11, 13, 14 (each path; in each rank's process), 15's resumed
 steps, 16's run through ``train_torch.main``, 17's runs, 18's training
 steps and decoding, each server run of 19, 20's steps, each of 21's
 optimizer runs, 23's two ``train_torch.main`` runs and its serving runs,
-24's steps (in each rank's process), and read just after (a
+24's, 25's and 26's steps (in each rank's process), and read just after (a
 replayed graph counts what its capture counted); a kernel of the path
 that did not launch, or a gpt_lm, gpt_moe or BERT training step that
 launched a kernel another number of times than its forward,
@@ -6091,8 +6104,9 @@ def check_flash_kv_segments(torch, fa):
     boundary of each row moved 7 tokens later, so that a kernel reading
     the query array for the keys disagrees).  Each against its plain twin
     at check_flash's tolerances, and timed beside the same call with one
-    array (the kernels' path without the key-side array), alone on the
-    card."""
+    array (the kernels' path without the key-side array), its plain twin
+    and SDPA with the segment mask (the forward beside K2, the eager
+    backward beside K3f and the K3 pair), alone on the card."""
     g = torch.Generator(device="cuda").manual_seed(SEED + 19)
     b, s, h, d = KVSEG_SHAPE
     seg = torch.cumsum(torch.rand((b, 2 * s), device="cuda", generator=g)
@@ -6168,6 +6182,18 @@ def check_flash_kv_segments(torch, fa):
                              .scaled_dot_product_attention(
                                  qt, kt, vt, attn_mask=lib_mask), [()],
                              iters=10, reps=3)
+            # the library's backward with the same mask, eager (the
+            # autograd call does not capture in a graph), beside K3f and
+            # the K3 pair
+            qr, kr, vr = (x.detach().clone().requires_grad_(True)
+                          for x in (qt, kt, vt))
+            out_lib = torch.nn.functional.scaled_dot_product_attention(
+                qr, kr, vr, attn_mask=lib_mask)
+            dot = do.transpose(1, 2)
+            lib_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+                out_lib, (qr, kr, vr), dot, retain_graph=True), [()],
+                graph=False, iters=10, reps=3)
+            del out_lib, qr, kr, vr
             for name, kern, plain, args, flops, nbytes, err, ok in specs:
                 bms, by = bound_ms(nbytes, flops, dtype)
                 row = {"kernel": name, "case": f"kv_segments_{case}",
@@ -6188,10 +6214,12 @@ def check_flash_kv_segments(torch, fa):
                        "plain_ms": time_ms(torch,
                                            functools.partial(plain, **kw),
                                            [args], iters=2, reps=3),
-                       "library_ms": lib_ms if name == "flash_fwd" else None,
-                       "library": "F.scaled_dot_product_attention forward "
-                                  "with the segment mask" if name ==
-                       "flash_fwd" else None,
+                       "library_ms": lib_ms if name == "flash_fwd"
+                       else lib_bwd_ms,
+                       "library": "F.scaled_dot_product_attention "
+                                  + ("forward" if name == "flash_fwd" else
+                                     "backward (eager autograd.grad)")
+                                  + " with the segment mask",
                        "bound_ms": bms, "bound_by": by}
                 emit(row)
                 if not ok:
@@ -6329,16 +6357,12 @@ def _seqex_compare(torch, got, ref, rank, n):
             "noise_grad_err": max(noise.values(), default=None)}
 
 
-def seqexpert_worker(out_dir) -> int:
-    """One rank of the seqexpert phase's two (``--seqexpert-worker``):
-    the cluster from torchrun's variables, gloo; lm_long_context through
-    ``--mesh data=1,seq=2`` for each SEQ_RUNS scheme and dtype, then each
-    EP_RUNS preset through ``--mesh data=1,expert=2``; each held against
-    the main process's one-process references (read from ``out_dir`` once
-    they are there); the comparisons and the launches saved as
-    ``<out_dir>/rank<r>.pt``."""
-    import torch
-
+def _seqex_results(torch, out_dir) -> dict:
+    """A split worker's rank of the seqexpert phase: lm_long_context
+    through ``--mesh data=1,seq=2`` for each SEQ_RUNS scheme and dtype,
+    then each EP_RUNS preset through ``--mesh data=1,expert=2``; each held
+    against the main process's one-process references (read from
+    ``out_dir`` once they are there): the comparisons and the launches."""
     import train_torch
     from distributedtensorflow_tpu_torch.ops import _cuda
     from distributedtensorflow_tpu_torch.parallel import bootstrap
@@ -6365,9 +6389,68 @@ def seqexpert_worker(out_dir) -> int:
             row[ref_name]["ref_metrics"] = ref["metrics"]
             del ref
         results[kind + ((scheme,) if scheme else ())] = row
-    torch.save(results, f"{out_dir}/rank{bootstrap.process_index()}.pt")
+    return results
+
+
+#: The phases whose ranks run in the two split workers, in their order,
+#: and each one's directory: its references, marker and result files.
+SPLIT_DIRS = {"seqexpert": "build/seqexpert_check",
+              "pipeline": "build/pipeline_check"}
+
+
+def split_worker(phases) -> int:
+    """One rank of the two split workers (``--split-worker``): the
+    cluster from torchrun's variables, gloo (each run's ``train_torch``
+    flags); each phase of ``phases`` (comma-separated, of SPLIT_DIRS) in
+    turn, its results saved as ``<its dir>/rank<r>.pt`` as it ends:
+    written aside, then renamed, since the main process waits for the
+    file."""
+    import torch
+
+    from distributedtensorflow_tpu_torch.parallel import bootstrap
+
+    run = {"seqexpert": _seqex_results, "pipeline": _pipe_results}
+    for phase in phases.split(","):
+        results = run[phase](torch, SPLIT_DIRS[phase])
+        path = f"{SPLIT_DIRS[phase]}/rank{bootstrap.process_index()}.pt"
+        torch.save(results, path + ".part")
+        os.replace(path + ".part", path)
     bootstrap.shutdown()
     return 0
+
+
+def _start_split_workers(phases):
+    """The two split workers for ``phases`` (a list of SPLIT_DIRS' keys),
+    both ranks on the one card (``LOCAL_RANK`` 0), each phase's
+    directory emptied first."""
+    from distributedtensorflow_tpu_torch.parallel import bootstrap
+
+    for phase in phases:
+        shutil.rmtree(SPLIT_DIRS[phase], ignore_errors=True)
+        os.makedirs(SPLIT_DIRS[phase])
+    env = {**os.environ, "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(bootstrap.free_port()), "WORLD_SIZE": "2",
+           "LOCAL_RANK": "0"}
+    return [subprocess.Popen([sys.executable, __file__, "--split-worker",
+                              ",".join(phases)], env={**env, "RANK": str(r)})
+            for r in range(2)]
+
+
+def _split_results(torch, workers, phase, timeout=900) -> list:
+    """Each rank's results of ``phase``, once both files are there (the
+    directory then removed); fails when a worker exits with an error, or
+    both exit without them, or the time runs out."""
+    paths = [f"{SPLIT_DIRS[phase]}/rank{r}.pt" for r in range(2)]
+    deadline = time.time() + timeout
+    while not all(os.path.exists(p) for p in paths):
+        codes = [p.poll() for p in workers]
+        if any(codes) or None not in codes or time.time() > deadline:
+            raise AssertionError(f"{phase}: the workers exited with {codes} "
+                                 f"before writing {paths}")
+        time.sleep(0.5)
+    ranks = [torch.load(p) for p in paths]
+    shutil.rmtree(SPLIT_DIRS[phase], ignore_errors=True)
+    return ranks
 
 
 def _seq_launches(scheme, rank):
@@ -6384,22 +6467,6 @@ def _seq_launches(scheme, rank):
             "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "layernorm_fwd": 2 * n + 1, "layernorm_bwd": 2 * n + 1,
             "fused_xent_fwd": 1, "fused_xent_dx": 1, "fused_xent_dw": 1}
-
-
-def _seqex_start_workers(out_dir):
-    """The two ``--seqexpert-worker`` processes, both ranks on the one
-    card (``LOCAL_RANK`` 0), and an empty ``out_dir``."""
-    from distributedtensorflow_tpu_torch.parallel import bootstrap
-
-    shutil.rmtree(out_dir, ignore_errors=True)
-    os.makedirs(out_dir)
-    env = {**os.environ, "MASTER_ADDR": "127.0.0.1",
-           "MASTER_PORT": str(bootstrap.free_port()), "WORLD_SIZE": "2",
-           "LOCAL_RANK": "0"}
-    return [subprocess.Popen([sys.executable, __file__,
-                              "--seqexpert-worker", out_dir],
-                             env={**env, "RANK": str(r)})
-            for r in range(2)]
 
 
 def _seqex_write_refs(torch, cuda, train_torch, out_dir):
@@ -6535,71 +6602,418 @@ def _seqex_report(ranks) -> tuple:
     return launches, failures
 
 
-def run_seqexpert(torch, cuda, train_torch, fa, train_row):
-    """(a) check_flash_kv_segments; (b) lm_long_context at full width (768,
-    12 heads, S 8192, batch 2) cut to SEQEX_LAYERS layers over seq=2, ring
-    and Ulysses, fp32 and bf16, two ``--seqexpert-worker`` processes over
-    gloo on the one card, against one process on the same batch (the
-    loss, every gradient), each rank's K2/K3f/K3 launches against the
-    counts derived from n = 2; (c) gpt_moe (8 experts, top-2, seq 2048)
-    and bert_moe (8 experts, expert choice, seq 512) cut to SEQEX_LAYERS
-    layers over expert=2 (4 of 8 experts a rank), against one process
-    that routes the same two token shards, and at capacity factor 8
-    also against the unsplit one; (d) ``--mesh data=1,seq=1,expert=1``
-    over NCCL, the train phase's losses bit for bit (at seq=1,expert=1
-    the step takes the plain path: this checks only that the mesh's seq
-    and expert groups build over NCCL).  (a) runs first, alone on the
-    card, so that its times are not shared; then the workers start and
-    wait for the references, which this process computes while they
-    start."""
+def run_seqexpert(torch, cuda, train_torch, train_row, workers):
+    """lm_long_context at full width (768, 12 heads, S 8192, batch 2) cut
+    to SEQEX_LAYERS layers over seq=2, ring and Ulysses, fp32 and bf16,
+    and gpt_moe (8 experts, top-2, seq 2048) and bert_moe (8 experts,
+    expert choice, seq 512) cut to SEQEX_LAYERS layers over expert=2 (4
+    of 8 experts a rank): the ranks are the split ``workers`` over gloo
+    on the one card, held against one process on the same batch (the
+    loss, every gradient; the MoE presets against one process that routes
+    the same two token shards, and at capacity factor 8 also against the
+    unsplit one), each rank's K2/K3f/K3 launches against the counts
+    derived from n = 2.  Then ``--mesh data=1,seq=1,expert=1`` over NCCL,
+    the train phase's losses bit for bit (at seq=1,expert=1 the step
+    takes the plain path: this checks only that the mesh's seq and expert
+    groups build over NCCL).  The references (:func:`_seqex_write_refs`)
+    come first, while the workers start and run."""
     from distributedtensorflow_tpu_torch.parallel import bootstrap
 
     t0 = time.time()
-    kv_rows = check_flash_kv_segments(torch, fa)
-    out_dir = "build/seqexpert_check"
-    procs = _seqex_start_workers(out_dir)
-    try:
-        _seqex_write_refs(torch, cuda, train_torch, out_dir)
-        emit({"phase": "seqexpert_refs_seconds", "seconds": time.time() - t0})
-        state, _, _, launches, row = train_steps(
-            torch, cuda, train_torch, _train_args(
-                train_torch, "--mesh", "data=1,seq=1,expert=1",
-                "--dist-backend", "nccl"), 4, "seqexpert_world1_nccl")
-        del state
-        bootstrap.shutdown()
-        torch.cuda.empty_cache()
-        _check_launches("seqexpert_world1_nccl", launches, 4,
-                        TRAIN_LAUNCHES_PER_STEP)
-        if train_row is not None:
-            row["train_losses"] = train_row["losses"]
-            row["equal_to_train"] = row["losses"] == train_row["losses"]
-        emit(row)
-        if train_row is not None and not row["equal_to_train"]:
-            raise AssertionError("seqexpert_world1_nccl: losses differ from "
-                                 "the train phase's")
-        rcs = [p.wait(timeout=900) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    if rcs != [0, 0]:
-        raise AssertionError(f"seqexpert: the ranks exited with {rcs}")
-    ranks = [torch.load(f"{out_dir}/rank{r}.pt") for r in range(2)]
-    shutil.rmtree(out_dir, ignore_errors=True)
+    _seqex_write_refs(torch, cuda, train_torch, SPLIT_DIRS["seqexpert"])
+    emit({"phase": "seqexpert_refs_seconds", "seconds": time.time() - t0})
+    state, _, _, launches, row = train_steps(
+        torch, cuda, train_torch, _train_args(
+            train_torch, "--mesh", "data=1,seq=1,expert=1",
+            "--dist-backend", "nccl"), 4, "seqexpert_world1_nccl")
+    del state
+    bootstrap.shutdown()
+    torch.cuda.empty_cache()
+    _check_launches("seqexpert_world1_nccl", launches, 4,
+                    TRAIN_LAUNCHES_PER_STEP)
+    if train_row is not None:
+        row["train_losses"] = train_row["losses"]
+        row["equal_to_train"] = row["losses"] == train_row["losses"]
+    emit(row)
+    if train_row is not None and not row["equal_to_train"]:
+        raise AssertionError("seqexpert_world1_nccl: losses differ from "
+                             "the train phase's")
+    ranks = _split_results(torch, workers, "seqexpert")
     worker_launches, failures = _seqex_report(ranks)
     launches = collections.Counter(launches)
     launches.update(worker_launches)
     emit({"phase": "seqexpert_seconds", "seconds": time.time() - t0})
     if failures:
         raise AssertionError(f"seqexpert: {failures} failed")
-    return launches, kv_rows
+    return launches
+
+
+#: The pipeline phase: gpt_lm at full width (768, 12 heads, vocab 50257,
+#: S 2048, block remat) cut to PIPE_LAYERS layers (``--pp-virtual 2``
+#: then holds one layer a chunk), global batch PIPE_BATCH (8 microbatches
+#: by the preset's rule at pipe=2), ``--mesh data=1,pipe=2`` in two
+#: processes over gloo on the one card, each schedule of PIPE_RUNS in fp32
+#: and bf16 against one process's dense GPTLM on the same weights (the
+#: chunked head both ways), and the bf16 wire of PIPE_WIRE_RUNS against
+#: the fp32 wire bit for bit.
+PIPE_LAYERS = 4
+PIPE_BATCH = 8
+PIPE_MICRO = 8
+PIPE_RUNS = (("gpipe", 1), ("gpipe", 2), ("1f1b", 1), ("interleaved", 2))
+PIPE_WIRE_RUNS = (("gpipe", 1), ("interleaved", 2))
+#: Against the dense model (relative loss, each gradient of its max-abs),
+#: by dtype: the scaleout and seqexpert phases' (SCALE_TOL); a schedule
+#: against GPipe in fp32 as well.
+PIPE_TOL = SCALE_TOL
+PIPE_NOTE = ("two processes on one card over gloo (handoffs through the "
+             "host); no NCCL handoff across cards is exercised: no time "
+             "here is a scaling time")
+
+
+def _pipe_argv(schedule, v, dtype, wire="fp32", mesh=True):
+    """train_torch's flags of a pipeline run (``mesh=False``: the dense
+    reference), the chunked head both ways."""
+    argv = ["--workload", "gpt_lm", "--batch-size", str(PIPE_BATCH),
+            "--seq-len", "2048", "--remat", "on", "--xent-impl", "chunked",
+            "--dtype", dtype, "--seed", str(SEED), "--device", "cuda"]
+    if mesh:
+        argv += ["--mesh", "data=1,pipe=2", "--dist-backend", "gloo",
+                 "--pipeline-schedule", schedule, "--pp-virtual", str(v),
+                 "--pp-handoff-dtype", wire]
+    return argv
+
+
+#: The dense seeded state of a pipeline run's config (every run of a
+#: process draws the same one; each rank keeps its stage's entries)
+_PIPE_INIT: dict = {}
+
+
+@contextlib.contextmanager
+def _pipe_preset(train_torch):
+    """``train_torch.build`` of gpt_lm at PIPE_LAYERS layers, its seeded
+    state drawn once a process (:data:`_PIPE_INIT`), inside the block."""
+    make = train_torch.get_workload
+
+    def cached_init(init):
+        def init_params(cfg, generator):
+            key = (cfg.num_layers, generator.initial_seed())
+            if key not in _PIPE_INIT:
+                _PIPE_INIT[key] = init(cfg, generator)
+            return _PIPE_INIT[key]
+        return init_params
+
+    def cut(*args, **kw):
+        wl = make(*args, **kw)
+        return dataclasses.replace(
+            wl, cfg=dataclasses.replace(wl.cfg, num_layers=PIPE_LAYERS),
+            init_params=cached_init(wl.init_params))
+
+    train_torch.get_workload = cut
+    try:
+        yield
+    finally:
+        train_torch.get_workload = make
+
+
+def _pipe_step(torch, cuda, train_torch, argv, timed=False):
+    """A run through ``train_torch.build`` at PIPE_LAYERS layers: its
+    first step's loss, gradients (this rank's, by name, on the CPU),
+    launches, seconds and peak memory (the allocator's high mark over the
+    step, parameters and AdamW's moments included, beside what was
+    allocated as it began; for a pipelined model also the peak of the
+    loss's pass above its start); with ``timed`` a second step's
+    milliseconds."""
+    gc.collect()  # the last run's state is a reference cycle
+    torch.cuda.empty_cache()
+    with _pipe_preset(train_torch):
+        wl, state, step, batches = train_torch.build(
+            train_torch.parse_args(argv))
+    grads = {}
+    apply = state.apply_gradients
+
+    def record(g):
+        if not grads:
+            grads.update({k: v.detach().float().cpu() for k, v in g.items()})
+        return apply(g)
+
+    state.apply_gradients = record
+    model = state.model
+    passes = []
+    if hasattr(model, "_train"):
+        # the pipelined loss's pass (the schedule and the gradients'
+        # assembly), its peak above its start: the activation memory that
+        # JAX's test compares (the whole step's peak on rank 0 is the
+        # optimizer update's, the same under every schedule)
+        run = model._train
+
+        def measured(ids):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.memory_allocated()
+            out = run(ids)
+            torch.cuda.synchronize()
+            passes.append(torch.cuda.max_memory_allocated() - start)
+            return out
+
+        model._train = measured
+    batch = next(batches)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    cuda.launches.clear()
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(cuda.launches)
+    peak = torch.cuda.max_memory_allocated()
+    if passes:
+        model._train = run
+    step_ms = None
+    if timed:
+        batch = next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0)
+    out = {"seconds": seconds, "step_ms": step_ms,
+           "metrics": {k: float(v) for k, v in m.items()}, "grads": grads,
+           "launches": launches, "peak_mem_gib": peak / 2**30,
+           "start_mem_gib": before / 2**30,
+           "pass_mem_gib": passes[0] / 2**30 if passes else None,
+           "saved_high": getattr(model, "last_stats", {}).get("saved_high"),
+           "bubble": model.bubble_fraction()
+           if hasattr(model, "bubble_fraction") else None}
+    del state, step, batches, model, record, apply, passes
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rel(got, ref) -> float:
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def _pipe_compare(got, ref):
+    """Loss (relative) and gradient (of each one's max-abs) errors of a
+    rank's run against the dense run: the rank's parameters only."""
+    loss, rloss = got["metrics"]["loss"], ref["metrics"]["loss"]
+    errs = {k: _rel(g, ref["grads"][k]) for k, g in got["grads"].items()}
+    return {"loss": loss, "ref_loss": rloss,
+            "loss_rel_err": abs(loss - rloss) / abs(rloss),
+            "grad_err": max(errs.values()),
+            "worst_grad": max(errs, key=errs.get)}
+
+
+def _pipe_kinds():
+    """Every worker run: (schedule, virtual, dtype, wire)."""
+    return [(s, v, dt, "fp32") for dt in ("float32", "bfloat16")
+            for s, v in PIPE_RUNS] + \
+        [(s, v, "bfloat16", "bf16") for s, v in PIPE_WIRE_RUNS]
+
+
+def _pipe_results(torch, out_dir) -> dict:
+    """A split worker's rank of the pipeline phase: every run of
+    :func:`_pipe_kinds` through ``--mesh data=1,pipe=2`` over gloo, each
+    held against the main process's dense reference of its dtype (read
+    from ``out_dir`` once it is there): the comparisons, launches, memory
+    and times."""
+    import train_torch
+    from distributedtensorflow_tpu_torch.ops import _cuda
+
+    results, refs = {}, {}
+    for kind in _pipe_kinds():
+        # each schedule timed once, in bf16 (the preset's dtype) on the
+        # fp32 wire
+        got = _pipe_step(torch, _cuda, train_torch, _pipe_argv(*kind),
+                         timed=kind[2:] == ("bfloat16", "fp32"))
+        dtype = kind[2]
+        if dtype not in refs:
+            deadline = time.time() + 600
+            while not os.path.exists(f"{out_dir}/refs.done"):
+                if time.time() > deadline:
+                    raise TimeoutError("pipeline: no references")
+                time.sleep(0.5)
+            refs[dtype] = torch.load(f"{out_dir}/ref_{dtype}.pt")
+        row = {k: got[k] for k in ("launches", "seconds", "step_ms",
+                                   "metrics", "peak_mem_gib",
+                                   "start_mem_gib", "pass_mem_gib",
+                                   "saved_high", "bubble")}
+        row["ref"] = _pipe_compare(got, refs[dtype])
+        schedule, v, _, wire = kind
+        if wire == "bf16" or schedule != "gpipe":
+            # the bf16 wire against the fp32 wire (bit for bit), another
+            # schedule against GPipe's of the same chunk count
+            base = results[(schedule if wire == "bf16" else "gpipe", v,
+                            dtype, "fp32")]["_grads"]
+            row["vs_base_grad_err"] = max(_rel(got["grads"][k], g)
+                                          for k, g in base.items())
+            row["bitwise_equal_base"] = all(
+                torch.equal(got["grads"][k], g) for k, g in base.items())
+        row["_grads"] = got["grads"]
+        results[kind] = row
+    for row in results.values():
+        row.pop("_grads")
+    return results
+
+
+def _pipe_launches(schedule):
+    """K2 and K3f launches a step on each rank: PIPE_LAYERS / 2 layers a
+    rank x PIPE_MICRO microbatches, K3f once and K2 once a forward: GPipe
+    (and the circular order) runs the forward and the remat recompute,
+    1F1B and interleaved the forward unit, the backward unit's forward
+    from the saved input and its remat recompute."""
+    units = PIPE_LAYERS // 2 * PIPE_MICRO
+    forwards = 2 if schedule == "gpipe" else 3
+    return {"flash_fwd": forwards * units, "flash_bwd_fused": units,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+
+def _pipe_report(ranks) -> tuple:
+    """The rows of the workers' results: ``(launches, failures)``; a run
+    that a rank did not report is a failure."""
+    launches = collections.Counter()
+    want_keys = set(_pipe_kinds())
+    failures = [("missing", r, sorted(map(str, want_keys - set(rk))))
+                for r, rk in enumerate(ranks) if want_keys - set(rk)]
+    if failures:
+        return launches, failures
+    for kind in _pipe_kinds():
+        schedule, v, dtype, wire = kind
+        loss_tol, grad_tol = PIPE_TOL[dtype]
+        got = [rk[kind] for rk in ranks]
+        want = _pipe_launches(schedule)
+        flash = [{k: g["launches"].get(k, 0) for k in want} for g in got]
+        ok = flash == [want, want]
+        if wire == "bf16":
+            ok = ok and all(g["bitwise_equal_base"] for g in got) \
+                and len({g["metrics"]["loss"] for g in got}
+                        | {rk[(schedule, v, dtype, "fp32")]["metrics"]
+                           ["loss"] for rk in ranks}) == 1
+        else:
+            ok = ok and all(g["ref"]["loss_rel_err"] <= loss_tol
+                            and g["ref"]["grad_err"] <= grad_tol
+                            for g in got)
+            if schedule != "gpipe" and dtype == "float32":
+                ok = ok and all(g["vs_base_grad_err"] <= grad_tol
+                                for g in got)
+        for g in got:
+            launches.update(g["launches"])
+        emit({"phase": "pipeline", "schedule": schedule, "pp_virtual": v,
+              "dtype": dtype, "handoff": wire, "workload": "gpt_lm",
+              "mesh": "data=1,pipe=2", "world": 2, "backend": "gloo",
+              "layers": PIPE_LAYERS, "batch": PIPE_BATCH,
+              "microbatches": PIPE_MICRO, "bubble": got[0]["bubble"],
+              "loss": [g["metrics"]["loss"] for g in got],
+              "ref_loss": got[0]["ref"]["ref_loss"],
+              "loss_rel_err": [g["ref"]["loss_rel_err"] for g in got],
+              "grad_err": [g["ref"]["grad_err"] for g in got],
+              "worst_grad": [g["ref"]["worst_grad"] for g in got],
+              "base": (f"{schedule}, fp32 wire" if wire == "bf16" else
+                       "gpipe" if schedule != "gpipe" else None),
+              "vs_base_grad_err": [g.get("vs_base_grad_err") for g in got],
+              "bitwise_equal_base": [g.get("bitwise_equal_base")
+                                     for g in got],
+              "flash_launches": flash, "expected_flash_launches": want,
+              "launches_per_rank": [g["launches"] for g in got],
+              "saved_high": [g["saved_high"] for g in got],
+              "peak_mem_gib": [g["peak_mem_gib"] for g in got],
+              "start_mem_gib": [g["start_mem_gib"] for g in got],
+              "pass_mem_gib": [g["pass_mem_gib"] for g in got],
+              "first_step_s": [g["seconds"] for g in got],
+              "step_ms": [g["step_ms"] for g in got],
+              "step_ms_label": "gloo on one card, no scaling time",
+              "note": PIPE_NOTE, "ok": ok,
+              "tolerance": ("bit for bit against the fp32 wire"
+                            if wire == "bf16" else
+                            f"loss {loss_tol} relative, gradients {grad_tol}"
+                            " of each one's max-abs, against one process's"
+                            " dense GPTLM on the same batch"
+                            + (" and, in fp32, against GPipe's"
+                               if schedule != "gpipe" else ""))
+              + "; K2 and K3f launches as derived"})
+        if not ok:
+            failures.append(kind)
+    def mem(schedule, key):
+        return [rk[(schedule, 1, "float32", "fp32")][key] for rk in ranks]
+
+    gp, fb = mem("gpipe", "pass_mem_gib"), mem("1f1b", "pass_mem_gib")
+    ok = all(b < a for a, b in zip(gp, fb))
+    emit({"phase": "pipeline_memory", "dtype": "float32",
+          "gpipe_pass_gib": gp, "1f1b_pass_gib": fb,
+          "gpipe_step_peak_gib": mem("gpipe", "peak_mem_gib"),
+          "1f1b_step_peak_gib": mem("1f1b", "peak_mem_gib"),
+          "start_gib": mem("gpipe", "start_mem_gib"),
+          "saved_high": {s: mem(s, "saved_high") for s in ("gpipe", "1f1b")},
+          "ok": ok, "claim": "1F1B's pass below GPipe's on each rank (the "
+                             "loss's pass, its peak above its start: the "
+                             "activations; the step's peak on rank 0 is "
+                             "the update's)"})
+    if not ok:
+        failures.append("memory")
+    return launches, failures
+
+
+def _pipe_write_refs(torch, cuda, train_torch, out_dir):
+    """The dense one-process references (fp32 and bf16) into ``out_dir``,
+    then the ``refs.done`` marker the workers wait for."""
+    for dtype in ("float32", "bfloat16"):
+        ref = _pipe_step(torch, cuda, train_torch,
+                         _pipe_argv(None, 1, dtype, mesh=False))
+        torch.save(ref, f"{out_dir}/ref_{dtype}.pt")
+        del ref
+    _PIPE_INIT.clear()
+    with open(f"{out_dir}/refs.done", "w") as f:
+        f.write("ok\n")
+
+
+def run_pipeline(torch, cuda, train_torch, train_row, workers):
+    """gpt_lm at full width cut to PIPE_LAYERS layers over ``--mesh
+    data=1,pipe=2``: the split ``workers`` over gloo on the one card run
+    GPipe, circular GPipe, 1F1B and interleaved in fp32 and bf16 and the
+    bf16 wire, each against one process's dense model from the same seed
+    (:func:`_pipe_write_refs`, first: the workers' runs wait for it),
+    each rank's K2/K3f launches against the derived counts, 1F1B's peak
+    memory below GPipe's.  Then ``--mesh data=1,pipe=1`` over NCCL
+    against the train phase's losses bit for bit (at pipe=1 the step
+    takes the plain path: this checks only that the pipe group
+    builds)."""
+    from distributedtensorflow_tpu_torch.parallel import bootstrap
+
+    t0 = time.time()
+    _pipe_write_refs(torch, cuda, train_torch, SPLIT_DIRS["pipeline"])
+    emit({"phase": "pipeline_refs_seconds", "seconds": time.time() - t0})
+    state, _, _, launches, row = train_steps(
+        torch, cuda, train_torch, _train_args(
+            train_torch, "--mesh", "data=1,pipe=1", "--dist-backend",
+            "nccl"), 2, "pipeline_pipe1_nccl")
+    del state
+    bootstrap.shutdown()
+    torch.cuda.empty_cache()
+    _check_launches("pipeline_pipe1_nccl", launches, 2,
+                    TRAIN_LAUNCHES_PER_STEP)
+    if train_row is not None:
+        row["train_losses"] = train_row["losses"][:3]
+        row["equal_to_train"] = row["losses"] == row["train_losses"]
+    emit(row)
+    if train_row is not None and not row["equal_to_train"]:
+        raise AssertionError("pipeline_pipe1_nccl: losses differ from "
+                             "the train phase's")
+    ranks = _split_results(torch, workers, "pipeline")
+    worker_launches, failures = _pipe_report(ranks)
+    launches = collections.Counter(launches)
+    launches.update(worker_launches)
+    emit({"phase": "pipeline_seconds", "seconds": time.time() - t0})
+    if failures:
+        raise AssertionError(f"pipeline: {failures} failed")
+    return launches
 
 
 PHASES = ("layernorm", "kernels", "xent", "serving", "serve_cli", "train",
           "baseline", "dp", "ckpt", "trainer", "multistep", "presets2",
           "bert_moe", "optim", "records", "planes", "scaleout",
-          "seqexpert")
+          "seqexpert", "pipeline")
 
 
 def main(argv=None) -> int:
@@ -6613,8 +7027,7 @@ def main(argv=None) -> int:
     p.add_argument("--trainer-worker", default=None, help=argparse.SUPPRESS)
     p.add_argument("--scaleout-worker", default=None,
                    help=argparse.SUPPRESS)
-    p.add_argument("--seqexpert-worker", default=None,
-                   help=argparse.SUPPRESS)
+    p.add_argument("--split-worker", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.dp_worker:
         return dp_worker(args.dp_worker)
@@ -6626,8 +7039,8 @@ def main(argv=None) -> int:
         return trainer_worker(args.trainer_worker)
     if args.scaleout_worker:
         return scaleout_worker(args.scaleout_worker)
-    if args.seqexpert_worker:
-        return seqexpert_worker(args.seqexpert_worker)
+    if args.split_worker:
+        return split_worker(args.split_worker)
     phases = set(args.phases.split(","))
     import torch
     import torch.nn.functional as F
@@ -6800,13 +7213,31 @@ def main(argv=None) -> int:
                                      else None))
     done("scaleout")
     if "seqexpert" in phases:
-        se_launches, kv_rows = run_seqexpert(
-            torch, _cuda, train_torch, fa,
-            train_row if "train" in phases else None)
-        launches.update(se_launches)
-        for name, extra in kv_rows.items():
+        # alone on the card, before the split workers start: its times
+        # are not shared
+        for name, extra in check_flash_kv_segments(torch, fa).items():
             rows.setdefault(name, []).extend(extra)
-    done("seqexpert")
+    split = [phase for phase in SPLIT_DIRS if phase in phases]
+    workers = _start_split_workers(split) if split else []
+    try:
+        if "seqexpert" in phases:
+            launches.update(run_seqexpert(
+                torch, _cuda, train_torch,
+                train_row if "train" in phases else None, workers))
+        done("seqexpert")
+        if "pipeline" in phases:
+            launches.update(run_pipeline(
+                torch, _cuda, train_torch,
+                train_row if "train" in phases else None, workers))
+        done("pipeline")
+        rcs = [p.wait(timeout=300) for p in workers]
+        if any(rcs):
+            raise AssertionError(f"the split workers exited with {rcs}")
+    finally:
+        for p in workers:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     emit({"phase": "seconds", **seconds})
     if phases != set(PHASES):
         print(f"chip_smoke: ran only {sorted(phases)}", file=sys.stderr)

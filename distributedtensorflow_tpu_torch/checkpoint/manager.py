@@ -212,7 +212,13 @@ class CheckpointManager:
         if self._thread is not None and not self._thread.is_alive():
             self.wait()  # raises the failure of the last write, if any
         step = int(step)
-        if step in self._saved or step in self.all_steps():
+        done = step in self._saved or step in self.all_steps()
+        if force and collectives.group_size(self._mesh) > 1:
+            # every rank reads the directory before the chief can write
+            # the step there, and all take one answer (a rank that looked
+            # after the chief's write would skip the barrier below)
+            done = bool(group_max(int(done), self._mesh))
+        if done:
             return False
         if not force and step % self._interval:
             return False

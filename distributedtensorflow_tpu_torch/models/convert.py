@@ -576,8 +576,71 @@ def _model_for(cfg, device="cpu"):
         cfg, device=device)
 
 
+def _map_tree(fn, tree):
+    """``fn`` on every leaf of a nested dict."""
+    return {k: _map_tree(fn, v) if isinstance(v, Mapping) else fn(v)
+            for k, v in tree.items()}
+
+
+def pipeline_state(state: dict, cfg, *, stage: int, n_stages: int,
+                   n_virtual: int = 1) -> dict:
+    """Pipe rank ``stage``'s entries of a whole GPT ``state``: its
+    blocks (``models.gpt_pipeline.stage_layers``), the table and
+    ``ln_f``: what its ``PipelinedGPT`` loads."""
+    from .gpt_pipeline import stage_layers
+
+    held = {i for chunk in stage_layers(cfg.num_layers, n_stages, n_virtual,
+                                        stage) for i in chunk}
+    return {k: v for k, v in state.items()
+            if not k.startswith("h.") or int(k.split(".")[1]) in held}
+
+
+def pipeline_params_from_flax(tree, cfg, *, stage: int, n_stages: int,
+                              n_virtual: int = 1) -> dict:
+    """Pipe rank ``stage``'s state from the JAX ``PipelinedGPT``'s
+    parameter tree: ``wte``, ``ln_f`` and ``blocks``, each block leaf
+    stacked ``(n_stages, lps, ...)``, or ``(n_virtual, n_stages, lps,
+    ...)`` for the circular layouts (layer ``(c*n + p)*lps + j`` at
+    ``[c, p, j]``, JAX's ``params_to_dense``)."""
+    lps = cfg.num_layers // (n_stages * n_virtual)
+    dense = {"wte": tree["wte"], "ln_f": tree["ln_f"]}
+    for k in range(cfg.num_layers):
+        c, rest = divmod(k, n_stages * lps)
+        p, j = divmod(rest, lps)
+        index = (c, p, j) if n_virtual > 1 else (p, j)
+        dense[f"h{k}"] = _map_tree(lambda a: np.asarray(a)[index],
+                                   tree["blocks"])
+    return pipeline_state(params_from_flax(dense, cfg), cfg, stage=stage,
+                          n_stages=n_stages, n_virtual=n_virtual)
+
+
+def pipeline_params_to_flax(states, cfg, *, n_virtual: int = 1) -> dict:
+    """The JAX ``PipelinedGPT``'s parameter tree from every pipe rank's
+    state (rank order; parameters or gradients by name): the inverse of
+    :func:`pipeline_params_from_flax`, so gradients compare leaf by
+    leaf."""
+    from .gpt_pipeline import params_to_dense
+
+    n_stages = len(states)
+    lps = cfg.num_layers // (n_stages * n_virtual)
+    dense = params_to_flax(params_to_dense(states, cfg), cfg)
+    lead = (n_virtual, n_stages, lps) if n_virtual > 1 else (n_stages, lps)
+    layers = [dense.pop(f"h{k}") for k in range(cfg.num_layers)]
+
+    def stack(*leaves):
+        return np.stack(leaves).reshape(*lead, *leaves[0].shape)
+
+    def stack_tree(trees):
+        return {k: stack_tree([t[k] for t in trees])
+                if isinstance(trees[0][k], Mapping) else
+                stack(*[t[k] for t in trees]) for k in trees[0]}
+
+    return {**dense, "blocks": stack_tree(layers)}
+
+
 def shards_for_rank(tree, cfg, coords: dict, shape: dict, *, layout=None,
-                    opt_state=None, make_optimizer=None) -> dict:
+                    opt_state=None, make_optimizer=None,
+                    n_virtual: int = 1) -> dict:
     """A rank's part of the JAX package's whole state: ``{"params": ...}``
     with each parameter ``layout`` shards over ``model`` cut to the
     rank's slice (``parallel.sharding.tp_rules``: the slicing
@@ -593,11 +656,22 @@ def shards_for_rank(tree, cfg, coords: dict, shape: dict, *, layout=None,
     ``TrainState`` built with ``zero=`` loads.  ``tree`` is the JAX
     parameter tree (a GPT config) or variables dict (a model of
     :data:`MODELS`); ``coords`` and ``shape`` a mesh's (axis -> index,
-    axis -> size)."""
+    axis -> size).  Over a ``pipe`` axis ``tree`` is the JAX
+    ``PipelinedGPT``'s (``n_virtual`` chunks a stage) and the rank keeps
+    its stage's blocks (:func:`pipeline_params_from_flax`); its optimizer
+    state is not ported."""
     from ..parallel import sharding, zero as zero_lib
     from ..parallel.moe import local_experts
 
-    state = params_from_flax(tree, cfg)
+    if shape.get("pipe", 1) > 1:
+        if opt_state is not None:
+            raise NotImplementedError(
+                "the optimizer state of a pipelined model is not ported")
+        state = pipeline_params_from_flax(
+            tree, cfg, stage=coords.get("pipe", 0), n_stages=shape["pipe"],
+            n_virtual=n_virtual)
+    else:
+        state = params_from_flax(tree, cfg)
     n, r = shape.get("model", 1), coords.get("model", 0)
     ne, re_ = shape.get("expert", 1), coords.get("expert", 0)
     rules = {}

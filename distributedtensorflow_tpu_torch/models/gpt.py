@@ -499,18 +499,22 @@ def lm_eval(model: GPTLM, group=None):
     return metric_fn
 
 
+#: The blocks' ``model``-axis rules: qkv and fc_in column-parallel, proj
+#: and fc_out row-parallel.
+GPT_BLOCK_RULES = (
+    (r".*attn/qkv/kernel", P(None, "model")),
+    (r".*attn/proj/kernel", P("model", None)),
+    (r".*fc_in/kernel", P(None, "model")),
+    (r".*fc_out/kernel", P("model", None)),
+)
+
+
 def gpt_layout() -> LayoutMap:
     """Megatron-style ``model``-axis rules for :class:`GPTLM` (JAX
-    ``gpt_layout``, ``models/gpt.py:562-576``): qkv and fc_in
-    column-parallel, proj and fc_out row-parallel, the tied embedding
-    split by vocab rows."""
-    return LayoutMap([
-        (r".*wte/embedding", P("model", None)),
-        (r".*attn/qkv/kernel", P(None, "model")),
-        (r".*attn/proj/kernel", P("model", None)),
-        (r".*fc_in/kernel", P(None, "model")),
-        (r".*fc_out/kernel", P("model", None)),
-    ])
+    ``gpt_layout``, ``models/gpt.py:562-576``): :data:`GPT_BLOCK_RULES`
+    and the tied embedding split by vocab rows."""
+    return LayoutMap([(r".*wte/embedding", P("model", None)),
+                      *GPT_BLOCK_RULES])
 
 
 def nan_taps(model: GPTLM):

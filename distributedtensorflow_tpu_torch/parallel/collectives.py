@@ -30,7 +30,9 @@ reduce-scatter of a CUDA tensor over gloo goes through the host, and so
 do :func:`all_to_all` and :func:`ring_shift` (gloo's send and receive
 read the data pointer as host memory).  Both are differentiable: the
 backward of an all-to-all is the inverse all-to-all and that of a shift
-the reverse shift.  :func:`split_to_group` and :func:`gather_from_group`
+the reverse shift.  :func:`exchange` is a pipeline's tick: each stage's
+activation to the next stage and its cotangent to the previous one, in
+lock step.  :func:`split_to_group` and :func:`gather_from_group`
 are the pair of a region whose ranks all compute the same loss (the
 expert-parallel MoE layer): a rank's slice, whose gradient gathers the
 slices, and the gather, whose gradient is the rank's slice.  The
@@ -418,6 +420,59 @@ def ring_shift(x: torch.Tensor, group=None) -> torch.Tensor:
     if x.requires_grad and torch.is_grad_enabled():
         return _RingShift.apply(x, group)
     return start_ring_shift([x], group).wait()[0]
+
+
+def exchange(to_next: torch.Tensor | None, to_prev: torch.Tensor | None,
+             group, *, next_wire=None, prev_wire=None):
+    """One tick of a pipeline's handoffs over the stages of ``group``
+    (a ``pipe`` group: the group rank is the stage): ``to_next`` goes to
+    the next stage and ``to_prev`` to the previous one, the ring wrapping
+    from the last stage to the first, and ``(from_prev, from_next)``
+    come back: the previous stage's ``to_next`` and the next stage's
+    ``to_prev`` (None for a direction no rank sends).  Every stage must
+    call it at every tick with the same directions, idle ticks included:
+    the exchange is in lock step and cannot deadlock.  ``next_wire`` and
+    ``prev_wire`` are the twins of ``_wire_ppermute``
+    (``parallel/pipeline.py:54-61``): the dtype of that payload on the
+    wire, cast back to the sent dtype on receipt (None: as it is).  On
+    NCCL the sends and receives are one ``batch_isend_irecv``; on gloo
+    the group's own send and receive, through the host for CUDA
+    tensors.  No autograd.  For a group of one the ring maps the stage to
+    itself."""
+    group = resolve_group(group)
+    sends = ((to_next, next_wire, 1), (to_prev, prev_wire, -1))
+    if group is None or group.size() == 1:
+        return tuple(None if t is None else
+                     t if wire is None else t.to(wire).to(t.dtype)
+                     for t, wire, _ in sends)
+    n, r = group.size(), group.rank()
+    gloo = group.name() == "gloo"
+    ops, works, received = [], [], []
+    for tag, (t, wire, step) in enumerate(sends):
+        if t is None:
+            received.append(None)
+            continue
+        payload = (t if wire is None else t.to(wire)).contiguous()
+        if gloo and payload.is_cuda:
+            payload = payload.cpu()
+        buf = torch.empty_like(payload)
+        dst, src = (r + step) % n, (r - step) % n
+        if gloo:
+            works.append(group.send([payload], dst, tag))
+            works.append(group.recv([buf], src, tag))
+        else:
+            ops.append(dist.P2POp(dist.isend, payload, group=group,
+                                  group_peer=dst))
+            ops.append(dist.P2POp(dist.irecv, buf, group=group,
+                                  group_peer=src))
+        received.append((buf, t))
+    if ops:
+        works = dist.batch_isend_irecv(ops)
+    for w in works:
+        w.wait()
+    return tuple(None if got is None else
+                 got[0].to(device=got[1].device, dtype=got[1].dtype)
+                 for got in received)
 
 
 class _SplitToGroup(torch.autograd.Function):

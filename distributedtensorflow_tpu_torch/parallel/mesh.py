@@ -23,10 +23,18 @@ per kind of collective:
   ``parallel.ring_attention``), ``expert_group`` over ``expert`` (the
   all-to-all dispatch of ``parallel.moe``) and ``model_group`` over
   ``model``, the tensor-parallel ranks that hold one replica's shards.
+- ``pipe_group`` over ``pipe``: the stages of one pipeline, whose group
+  rank is the stage (``parallel.pipeline``'s handoffs go to the group
+  rank after and come from the one before, the last stage's to the
+  first, as JAX's ``perm_fwd`` ring wraps); ``pipe_prev`` and
+  ``pipe_next`` are their global ranks.
 
 ``fsdp`` is a batch axis, as in JAX; ``expert`` is one only inside the
-MoE region, whose dense layers stay replicated over it.  ``pipe`` larger
-than 1 raises "not ported".
+MoE region, whose dense layers stay replicated over it.  ``pipe`` is no
+batch axis: a stage's blocks see every row of its replica, and their
+gradients are summed over ``data`` and ``fsdp`` only
+(``models.gpt_pipeline`` sums the replicated embedding and final
+LayerNorm over ``pipe`` itself).
 """
 
 from __future__ import annotations
@@ -52,10 +60,6 @@ CANONICAL_AXES: tuple[str, ...] = (
 #: Axes over which gradients of replicated parameters are summed.
 BATCH_AXES: tuple[str, ...] = (AXIS_DATA, AXIS_FSDP)
 
-#: The axes the port runs larger than 1.
-PORTED_AXES: tuple[str, ...] = (AXIS_DATA, AXIS_FSDP, AXIS_SEQ, AXIS_EXPERT,
-                                AXIS_MODEL)
-
 #: The axes of each of a :class:`Mesh`'s groups: the ranks of a group
 #: differ on these axes and share their coordinates on all the others.
 GROUP_AXES: dict[str, tuple[str, ...]] = {
@@ -64,6 +68,7 @@ GROUP_AXES: dict[str, tuple[str, ...]] = {
     "seq_group": (AXIS_SEQ,),
     "expert_group": (AXIS_EXPERT,),
     "model_group": (AXIS_MODEL,),
+    "pipe_group": (AXIS_PIPE,),
 }
 
 
@@ -121,6 +126,11 @@ class Mesh:
     batch_group: object = None
     seq_group: object = SOLO
     expert_group: object = SOLO
+    pipe_group: object = SOLO
+    #: the global ranks of the previous and the next stage on ``pipe``
+    #: (this rank's own for a ``pipe`` of 1)
+    pipe_prev: int = 0
+    pipe_next: int = 0
 
     @property
     def axis_names(self) -> tuple[str, ...]:
@@ -148,7 +158,7 @@ def _new_group(ranks: list[int]):
 def build_mesh(spec: MeshSpec, group=None, new_group=None) -> Mesh:
     """The mesh of ``spec`` over ``group``'s ranks (default: the default
     process group when ``torch.distributed`` is initialised, else a world
-    of one with no group).  Raises for an axis the port has not ported.
+    of one with no group).
 
     The ranks split into the groups of :data:`GROUP_AXES` (for each kind,
     the ranks that share their coordinates on the other axes, in rank
@@ -164,13 +174,6 @@ def build_mesh(spec: MeshSpec, group=None, new_group=None) -> Mesh:
     world = 1 if group is None else group.size()
     rank = 0 if group is None else group.rank()
     sizes = dict(zip(CANONICAL_AXES, spec.resolve(world)))
-    big = [a for a, s in sizes.items() if s > 1 and a not in PORTED_AXES]
-    if big:
-        raise NotImplementedError(
-            f"mesh axes {big} are not ported (sizes {sizes}): "
-            f"{', '.join(a for a in CANONICAL_AXES if a not in PORTED_AXES)}"
-            " runs at size 1 until the pipeline parallelism of ROADMAP.md "
-            "item 7")
     # mesh-major: the data axis is outermost, so a rank's data coordinate
     # is its rank over the product of the inner axes
     coords = _coords_of(rank, sizes)
@@ -178,6 +181,11 @@ def build_mesh(spec: MeshSpec, group=None, new_group=None) -> Mesh:
     if world == 1:
         return Mesh(shape=sizes, coords=coords, group=group,
                     batch_group=group)
+    n_pipe = sizes[AXIS_PIPE]
+    neighbours = {
+        key: _rank_of({**coords, AXIS_PIPE: (coords[AXIS_PIPE] + step)
+                       % n_pipe}, sizes)
+        for key, step in (("pipe_prev", -1), ("pipe_next", 1))}
     new_group = new_group or _new_group
     all_coords = [_coords_of(r, sizes) for r in range(world)]
     groups, made_for = {}, {}
@@ -196,7 +204,7 @@ def build_mesh(spec: MeshSpec, group=None, new_group=None) -> Mesh:
                                  new_group(ranks))
             if rank in ranks:
                 groups[kind] = made_for[key]
-    return Mesh(shape=sizes, coords=coords, **groups)
+    return Mesh(shape=sizes, coords=coords, **groups, **neighbours)
 
 
 def _coords_of(rank: int, sizes: dict) -> dict:
@@ -207,6 +215,15 @@ def _coords_of(rank: int, sizes: dict) -> dict:
         coords[axis] = rest % sizes[axis]
         rest //= sizes[axis]
     return coords
+
+
+def _rank_of(coords: dict, sizes: dict) -> int:
+    """The rank at ``coords``, mesh-major (the inverse of
+    :func:`_coords_of`)."""
+    rank = 0
+    for axis in CANONICAL_AXES:
+        rank = rank * sizes[axis] + coords[axis]
+    return rank
 
 
 def data_axes(mesh: Mesh) -> tuple[str, ...]:

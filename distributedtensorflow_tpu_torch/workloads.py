@@ -45,7 +45,11 @@ Wide&Deep; the MoE presets' add the expert stacks over ``expert``), and
 JAX's does (``workloads.py:441-509,535-564,587-598``): over a ``seq``
 axis the GPT LMs take ring or Ulysses attention (``sp_scheme``,
 :data:`SEQ_PARALLEL`), over an ``expert`` axis the MoE presets the
-all-to-all expert region.  The pipeline variants are not ported yet.
+all-to-all expert region; over a ``pipe`` axis the GPT LMs become the
+pipeline-parallel ``models.gpt_pipeline.PipelinedGPT`` (``pp_virtual``
+chunks a stage, ``pp_schedule``, ``pp_handoff``; JAX's
+``workloads.py:441-478``), composing with ``model`` and, for GPipe, with
+``seq``.
 """
 
 from __future__ import annotations
@@ -75,8 +79,9 @@ from .models.bert_moe import (
     bind_expert_parallel_bert,
     moe_mlm_loss,
 )
-from .models.convert import init_params
+from .models.convert import init_params, pipeline_state
 from .models.gpt import (
+    GPT_BLOCK_RULES,
     GPTConfig,
     GPTLM,
     gpt_layout,
@@ -85,6 +90,11 @@ from .models.gpt import (
     gpt_tiny,
     lm_eval,
     lm_loss,
+)
+from .models.gpt_pipeline import (
+    PipelinedGPT,
+    pipelined_lm_eval,
+    pipelined_lm_loss,
 )
 from .models.gpt_moe import (
     GPTMoELM,
@@ -119,6 +129,7 @@ from .models.widedeep import (
     widedeep_loss,
     widedeep_test_config,
 )
+from .parallel.pipeline import SCHEDULES
 from .parallel.ring_attention import SCHEMES, sequence_parallel_attention_fn
 from .parallel.sharding import LayoutMap
 from .train.losses import classification_eval, classification_loss
@@ -135,8 +146,9 @@ WORKLOADS = ("mnist_lenet", "cifar_resnet20", "imagenet_resnet50",
              "imagenet_vit", "bert_mlm", "bert_mlm_packed", "bert_moe",
              "widedeep", "gpt_lm", "gpt_medium_lm", "lm_long_context",
              "gpt_moe", "t5_seq2seq")
-#: The presets that split the sequence over a ``seq`` axis (JAX's
-#: ``finalize`` of the GPT LMs); the others refuse one.
+#: The presets that split the sequence over a ``seq`` axis and their
+#: blocks over a ``pipe`` axis (JAX's ``finalize`` of the GPT LMs); the
+#: others refuse both.
 SEQ_PARALLEL = ("gpt_lm", "gpt_medium_lm", "lm_long_context")
 
 
@@ -272,10 +284,11 @@ class Workload:
         over it)."""
         if mesh is None:
             return self
-        if mesh.shape["seq"] > 1 and self.name not in SEQ_PARALLEL:
-            raise NotImplementedError(
-                f"{self.name} over a seq axis is not ported: sequence "
-                f"parallelism is ported for {', '.join(SEQ_PARALLEL)}")
+        for axis, what in (("seq", "sequence"), ("pipe", "pipeline")):
+            if mesh.shape[axis] > 1 and self.name not in SEQ_PARALLEL:
+                raise NotImplementedError(
+                    f"{self.name} over a {axis} axis is not ported: {what} "
+                    f"parallelism is ported for {', '.join(SEQ_PARALLEL)}")
         return self.finalize(self, mesh) if self.finalize else self
 
 
@@ -443,6 +456,55 @@ def _seq_finalize(sp_scheme: str):
     return finalize
 
 
+def pipeline_microbatches(global_batch_size: int, shape: dict,
+                          schedule: str) -> int:
+    """The pipeline's microbatch count (``workloads.py:455-466``): 4 a
+    stage, halved until it divides the replica's batch; for the
+    interleaved schedule then stepped down to a multiple of the stages
+    that divides it."""
+    n = shape["pipe"]
+    n_micro = 4 * n
+    local_batch = global_batch_size // max(1, shape["data"] * shape["fsdp"])
+    while n_micro > 1 and local_batch % n_micro:
+        n_micro //= 2
+    if schedule == "interleaved":
+        while n_micro > n and (n_micro % n or local_batch % n_micro):
+            n_micro -= 1
+    return n_micro
+
+
+def _lm_finalize(sp_scheme: str, pp_virtual: int, pp_schedule: str,
+                 pp_handoff: str | None):
+    """The GPT LMs' ``finalize``: over a ``pipe`` axis larger than 1 the
+    pipelined model of this rank's stage (its microbatches by
+    :func:`pipeline_microbatches`; ``seq`` inside its stages), else over a
+    ``seq`` axis the dense model with ring or Ulysses attention
+    (:func:`_seq_finalize`).  The pipelined model's layout is the
+    blocks' rules alone: the table stays whole on every rank (JAX's
+    pipeline layout places it over ``pipe``, never over ``model``)."""
+    seq = _seq_finalize(sp_scheme)
+
+    def finalize(wl: Workload, mesh) -> Workload:
+        if mesh.shape["pipe"] <= 1:
+            return seq(wl, mesh)
+        n_micro = pipeline_microbatches(wl.global_batch_size, mesh.shape,
+                                        pp_schedule)
+        stage = dict(stage=mesh.coords["pipe"], n_stages=mesh.shape["pipe"],
+                     n_virtual=pp_virtual)
+        init = wl.init_params
+        return dataclasses.replace(
+            wl, model_cls=functools.partial(
+                PipelinedGPT, mesh=mesh, n_microbatches=n_micro,
+                n_virtual=pp_virtual, schedule=pp_schedule,
+                sp_scheme=sp_scheme, handoff_dtype=pp_handoff),
+            init_params=lambda cfg, generator: pipeline_state(
+                init(cfg, generator), cfg, **stage),
+            loss_fn=pipelined_lm_loss, eval_fn=pipelined_lm_eval,
+            layout=LayoutMap(GPT_BLOCK_RULES))
+
+    return finalize
+
+
 def _apply_gpt_overrides(cfg: GPTConfig, *, seq, remat, attn_impl, xent_impl,
                          kv_heads, attn_window) -> GPTConfig:
     """The CLI knobs (``_apply_gpt_overrides``, ``workloads.py:181``):
@@ -477,17 +539,25 @@ def get_workload(name: str, *, test_size: bool = False,
                  xent_impl: str | None = None,
                  kv_heads: int | None = None,
                  attn_window: int | None = None,
-                 quant: str | None = None) -> Workload:
+                 quant: str | None = None,
+                 pp_virtual: int = 1,
+                 pp_handoff: str | None = None,
+                 pp_schedule: str = "gpipe") -> Workload:
     """Build a ported preset by name; ``test_size`` shrinks the model.
     The GPT knobs (``remat`` ... ``attn_window``) apply to the GPT family
     only, as in JAX, but for ``kv_heads``, which ``t5_seq2seq`` takes
     too.  ``quant`` ("int8", "int8_stochastic", "fp8") runs the block
     matmuls of the presets of :data:`QUANTIZABLE` quantised, and is
     refused for the others.  ``sp_scheme`` ("ring" or "ulysses") is the
-    sequence-parallel attention of the GPT LMs over a ``seq`` axis."""
+    sequence-parallel attention of the GPT LMs over a ``seq`` axis;
+    ``pp_virtual``, ``pp_schedule`` and ``pp_handoff`` (None or
+    "bfloat16") their pipeline over a ``pipe`` axis."""
     if sp_scheme not in SCHEMES:
         raise ValueError(f"sp_scheme={sp_scheme!r}: expected one of "
                          f"{list(SCHEMES)}")
+    if pp_schedule not in SCHEDULES:
+        raise ValueError(f"pp_schedule={pp_schedule!r}: expected one of "
+                         f"{list(SCHEDULES)}")
     if name not in WORKLOADS:
         raise ValueError(f"workload {name!r} is not ported; the port has "
                          f"{', '.join(WORKLOADS)}")
@@ -500,7 +570,8 @@ def get_workload(name: str, *, test_size: bool = False,
                    remat=remat, attn_impl=attn_impl, xent_impl=xent_impl,
                    kv_heads=kv_heads, attn_window=attn_window)
     if name in SEQ_PARALLEL:
-        wl = dataclasses.replace(wl, finalize=_seq_finalize(sp_scheme))
+        wl = dataclasses.replace(wl, finalize=_lm_finalize(
+            sp_scheme, pp_virtual, pp_schedule, pp_handoff))
     cfg = wl.cfg
     if quant and quant != "none":
         cfg = dataclasses.replace(cfg, quant=quant)

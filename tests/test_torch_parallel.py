@@ -62,10 +62,19 @@ def test_mesh_axes_match_jax_and_other_axes_refuse():
     assert mesh.group is None and mesh.shape["data"] == 1
     assert tmesh.data_axes(mesh) == ("data", "fsdp")
     assert tmesh.replica_count(mesh) == 1
-    def refuse(rank, group):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tmesh.build_mesh(tmesh.MeshSpec(data=1, pipe=2), group)
-    run_ranks(refuse, 2)
+    # pipe builds its group: the stage is the group rank, and the ring of
+    # stages wraps (data=2 outermost: ranks 0-1 hold replica 0's stages;
+    # three stages tell the previous stage from the next)
+    def stages(rank, mesh):
+        return (mesh.coords["pipe"], mesh.pipe_group.rank(),
+                mesh.pipe_group.size(), mesh.pipe_prev, mesh.pipe_next,
+                coll.group_size(mesh), tmesh.replica_index(mesh))
+    for data, pipe in ((2, 2), (1, 3)):
+        got = run_mesh(stages, tmesh.MeshSpec(data=data, pipe=pipe),
+                       data * pipe)
+        assert got == [(s, s, pipe, pipe * d + (s - 1) % pipe,
+                        pipe * d + (s + 1) % pipe, data, d)
+                       for d in range(data) for s in range(pipe)]
     # seq and expert build their groups: each rank its coordinate, the
     # axis's group over both ranks, the gradient group over seq but not
     # over expert, the batch group over neither

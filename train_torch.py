@@ -134,6 +134,7 @@ from distributedtensorflow_tpu_torch.data import (
 )
 from distributedtensorflow_tpu_torch.device import resolve_device
 from distributedtensorflow_tpu_torch.models import (
+    GPTLM,
     flax_modules,
     flax_paths,
     flax_views,
@@ -168,11 +169,17 @@ from distributedtensorflow_tpu_torch.train.optimizers import (
     exclude_bias_and_norm_mask,
 )
 from distributedtensorflow_tpu_torch.utils import enable_determinism
-from distributedtensorflow_tpu_torch.workloads import WORKLOADS, get_workload
+from distributedtensorflow_tpu_torch.workloads import (
+    SEQ_PARALLEL,
+    WORKLOADS,
+    get_workload,
+)
 
 logger = logging.getLogger("train_torch")
 
 _REMAT = {"on": True, "off": False, "attn": "attn", None: None}
+#: --pp-handoff-dtype -> the pipeline's wire dtype (``train.py:29``).
+_PP_HANDOFF = {"fp32": None, "bf16": "bfloat16"}
 #: Eval batches per evaluation (``TrainerConfig.eval_steps`` for the
 #: synthetic sources, ``train.py:298``).
 EVAL_STEPS = 10
@@ -275,6 +282,25 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="greedy merge threshold (MiB of parameter bytes) "
                         "for --overlap's per-layer-group gradient buckets")
     p.add_argument("--seq-len", type=int, default=None)
+    p.add_argument("--pp-virtual", type=int, default=1,
+                   help="virtual pipeline chunks per rank (>1 = circular/"
+                        "interleaved schedule, smaller bubble)")
+    p.add_argument("--pipeline-schedule",
+                   choices=("gpipe", "1f1b", "interleaved"),
+                   default="gpipe",
+                   help="pipeline training schedule on meshes with a pipe "
+                        "axis: gpipe (all forwards, then the backwards — "
+                        "O(n_micro) live microbatch activations), 1f1b "
+                        "(forward/backward interleaved — O(stages) live "
+                        "stage inputs), or interleaved (interleaved-1F1B "
+                        "over --pp-virtual>=2 chunks per rank — smaller "
+                        "bubble, O(stages*virtual) live stage inputs)")
+    p.add_argument("--pp-handoff-dtype", choices=("fp32", "bf16"),
+                   default="fp32",
+                   help="dtype of the pipeline handoffs' payload on the "
+                        "wire: bf16 halves the bytes between stages and is "
+                        "bit-exact for bf16 models (requires one); the "
+                        "schedule's buffers stay fp32")
     p.add_argument("--sp-scheme", choices=("ring", "ulysses"),
                    default="ring",
                    help="sequence-parallel attention of the GPT LMs over a "
@@ -476,9 +502,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "process of the cluster), 'data=2,model=2' (tensor "
                         "parallelism over model), 'fsdp=2' (a batch axis), "
                         "'data=1,seq=2' (the GPT LMs' sequence split over "
-                        "ranks, --sp-scheme) or 'data=1,expert=2' (the MoE "
-                        "presets' experts split over ranks); pipe is not "
-                        "ported")
+                        "ranks, --sp-scheme), 'data=1,expert=2' (the MoE "
+                        "presets' experts split over ranks) or "
+                        "'data=1,pipe=2' (the GPT LMs' blocks split into "
+                        "pipeline stages, --pipeline-schedule, "
+                        "--pp-virtual, --pp-handoff-dtype; with model, and "
+                        "with seq under gpipe)")
     p.add_argument("--dist-backend", choices=bootstrap.BACKENDS,
                    default="nccl",
                    help="process-group backend over a mesh: nccl on the "
@@ -612,7 +641,10 @@ def build(args: argparse.Namespace, checkpointer=None):
             seq_len=args.seq_len, remat=_REMAT[args.remat],
             attn_impl=args.attn_impl,
             xent_impl=args.xent_impl, kv_heads=args.kv_heads,
-            attn_window=args.attn_window, quant=args.quant)
+            attn_window=args.attn_window, quant=args.quant,
+            pp_virtual=args.pp_virtual,
+            pp_handoff=_PP_HANDOFF[args.pp_handoff_dtype],
+            pp_schedule=args.pipeline_schedule)
     except ValueError as e:
         raise SystemExit(str(e)) from None
     wl = apply_optimizer_flags(wl, args)
@@ -626,8 +658,16 @@ def build(args: argparse.Namespace, checkpointer=None):
         raise SystemExit(f"global batch {wl.global_batch_size} not divisible "
                          f"by {replicas} replicas x {accum} microbatches")
     group = {"group": mesh} if mesh is not None else {}
-    model = wl.model_cls(wl.cfg, device=device,
-                         **(group if wl.model_takes_group else {}))
+    try:
+        model = wl.model_cls(wl.cfg, device=device,
+                             **(group if wl.model_takes_group else {}))
+    except ValueError as e:  # a pipeline the mesh and flags cannot make
+        raise SystemExit(str(e)) from None
+    if hasattr(model, "bubble_fraction"):
+        logger.info("pipeline: %s over %d stages x %d chunks, %d "
+                    "microbatches, bubble %.3f", model.schedule,
+                    model.n_stages, model.n_virtual, model.n_microbatches,
+                    model.bubble_fraction())
     model.load_state_dict(
         wl.init_params(wl.cfg, torch.Generator().manual_seed(args.seed)))
     zero = zero_sharder(args, mesh)
@@ -828,6 +868,24 @@ def check_flags(args) -> None:
             raise SystemExit(f"--dynamics-every over {axes} is not ported "
                              "(its NaN taps run the whole sequence and the "
                              "whole expert set on each rank)")
+    if spec is not None and spec.pipe > 1:
+        if args.workload not in SEQ_PARALLEL:
+            raise SystemExit(f"--mesh pipe={spec.pipe}: the pipeline is for "
+                             f"the GPT LMs ({', '.join(SEQ_PARALLEL)}), not "
+                             f"{args.workload}")
+        if args.clipnorm:
+            raise SystemExit("--clipnorm over a pipe axis is not ported "
+                             "(the global norm spans the stages, and each "
+                             "stage holds its own copy of wte and ln_f)")
+        for flag, on in (("--steps-per-call > 1", args.steps_per_call > 1),
+                         ("--zero", args.zero), ("--overlap", args.overlap),
+                         ("--dynamics-every", args.dynamics_every),
+                         ("--checkpoint-dir", args.checkpoint_dir),
+                         ("--quant", args.quant != "none")):
+            if on:
+                raise SystemExit(f"{flag} over a pipe axis is not ported (no "
+                                 "run has tried its collectives or hooks "
+                                 "around a pipeline schedule)")
     if args.zero and args.dynamics_every:
         raise SystemExit("--dynamics-every with --zero is not ported (each "
                          "rank holds its own rows of the gradients)")
@@ -1071,12 +1129,15 @@ def _train(args) -> list[dict]:
         dynamics_every=args.dynamics_every)
     if not config.flops_per_step and args.estimate_flops != "off":
         if wl.name.startswith(("gpt", "lm_")):
-            # the whole model's parameters (a model rank holds shards),
-            # its flops shared by every device: replicas x model ranks
+            # the whole model's parameters (a model rank holds shards, a
+            # pipe rank its stage's blocks), its flops shared by every
+            # device: replicas x model ranks x stages
+            whole = GPTLM if mesh is not None and mesh.shape["pipe"] > 1 \
+                else wl.model_cls
             per_token, _ = flops_per_token(
-                wl.model_cls(wl.cfg, device="meta"), wl.cfg, wl.seq_len)
+                whole(wl.cfg, device="meta"), wl.cfg, wl.seq_len)
             ranks = 1 if mesh is None else \
-                replica_count(mesh) * mesh.shape["model"]
+                replica_count(mesh) * mesh.shape["model"] * mesh.shape["pipe"]
             config.flops_per_step = (per_token * wl.global_batch_size
                                      * wl.seq_len / ranks)
         elif args.estimate_flops == "on":
