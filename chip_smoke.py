@@ -171,8 +171,8 @@ Phases, each fatal on failure:
     k = 4 equals (a)'s k = 4.  (f) 8 steps at k = 4 saved and resumed to 16
     equal (a)'s k = 4; a checkpoint restored into the state of a
     k = 4 function whose graph was captured (new optimizer tensors: the
-    graph is captured again) repeats the steps bit for bit.  (g) 18 steps
-    at k = 4 (a tail graph of 2) equal 18 at k = 1.  (b)-(d)
+    graph is captured again) repeats the steps bit for bit.  (g) 10 steps
+    at k = 4 (a tail graph of 2) equal 10 at k = 1.  (b)-(d)
     bert_mlm_packed (2 layers, dropout 0.1, k = 2), cifar_resnet20 (k =
     4, BatchNorm statistics) and gpt_moe (4 layers, k = 2) equal their
     k = 1 runs bit for bit.  (i) ``--mesh data=1 --dist-backend gloo`` on
@@ -203,8 +203,9 @@ Phases, each fatal on failure:
     to localhost.  First verify_window: the speculative verify pass's
     logits against one-token steps on the same pool (bf16, a window of
     5, within 1e-4; JAX's batched form beside it for the record).  Then
-    16 greedy requests of 5-600 prompt tokens and 64 new tokens (8 share
-    a 256-token header, 4 periodic, one streamed, two tenants) in four
+    16 greedy requests of 5-600 prompt tokens at half length and
+    SERVE_CLI_NEW_TOKENS new tokens (8 share a 256-token header, 4
+    periodic, one streamed, two tenants) in four
     modes, (a) the defaults, (b) ``--prefix-cache --prefill-budget 64``
     with ``--kv-blocks`` at half of full provisioning, (c)
     ``--fused-sampling``, (d) ``--fused-sampling --speculate 4``, each in
@@ -318,13 +319,27 @@ Phases, each fatal on failure:
     derived counts, the loss pass's memory under 1F1B below GPipe's, a
     bf16 step's ms of each schedule; ``pipe=1`` over NCCL against phase
     9 bit for bit (``run_pipeline``).
+27. splitckpt: checkpoints, ``--clipnorm`` and LAMB over the split axes.
+    In the same two gloo processes: gpt_lm at full width cut to 2 layers
+    (batch 2, S 1024) over ``data=1,model=2`` and ``data=1,pipe=2``
+    (1F1B), gpt_moe over ``data=1,expert=2``, fp32 and bf16, AdamW with
+    ``--clipnorm 1.0``: 4 steps with an async save of step 2 (the save's
+    blocking ms), a fresh build from another seed, ``restore_latest``
+    (its seconds), ``skip_batches`` and steps 3-4 equal the
+    uninterrupted run bit for bit (losses, fingerprint), K1f, K1b, K2,
+    K3f (and the fused head's K4f/K4b on model and expert) launched in
+    the resumed steps on every rank; the fp32 model=2 and pipe=2
+    checkpoints restored into one process give each rank's pieces bit for
+    bit, and one clipped step there equals the split step 3; one LAMB
+    step over model=2 equals one process's (``run_splitckpt``).
 
 Kernel launch counts are set to 0 just before phases 5, 6 (each generate
 run), 9-11, 13, 14 (each path; in each rank's process), 15's resumed
 steps, 16's run through ``train_torch.main``, 17's runs, 18's training
 steps and decoding, each server run of 19, 20's steps, each of 21's
 optimizer runs, 23's two ``train_torch.main`` runs and its serving runs,
-24's, 25's and 26's steps (in each rank's process), and read just after (a
+24's, 25's and 26's steps and 27's resumed steps (in each rank's
+process), and read just after (a
 replayed graph counts what its capture counted); a kernel of the path
 that did not launch, or a gpt_lm, gpt_moe or BERT training step that
 launched a kernel another number of times than its forward,
@@ -1882,9 +1897,9 @@ SERVE_CLI_MODES = (
     ("d_speculate", ("--fused-sampling", "--speculate", "4")),
 )
 SERVE_CLI_CONTEXT = 2048
-#: New tokens a request (64 until the whole script neared its 1200 s
-#: limit: cut to 32, the checks unchanged).
-SERVE_CLI_NEW_TOKENS = 32
+#: New tokens a request (64, then 32, until the whole script neared its
+#: 1200 s limit: cut to 8, the checks unchanged).
+SERVE_CLI_NEW_TOKENS = 8
 #: Prompt lengths are divided by this: 2 on the card (1 until the whole
 #: script neared its 1200 s limit; the shared header is still 8 blocks of
 #: 16); a CPU rehearsal cuts it further together with the config.
@@ -2235,6 +2250,28 @@ def check_verify_window(torch, mods, attn, config="gpt_small", device="cuda",
                              f"{row}")
 
 
+@contextlib.contextmanager
+def _cached_init(mods):
+    """``models.init_params`` (which ``serve_torch.build_model`` draws the
+    seeded weights with) drawn once a config and seed inside the block:
+    the phase's server runs serve the same weights (the dtype casts them
+    after), so the later runs skip the draw."""
+    real, cache = mods.init_params, {}
+
+    def init_params(cfg, generator):
+        key = (repr(dataclasses.replace(cfg, dtype=None)),
+               generator.initial_seed())
+        if key not in cache:
+            cache[key] = real(cfg, generator)
+        return cache[key]
+
+    mods.init_params = init_params
+    try:
+        yield
+    finally:
+        mods.init_params = real
+
+
 def run_serve_cli(torch, cuda, serve_torch, train_torch, mods, attn,
                   config="gpt_small", device="cuda", smi=""):
     """``serve_torch.main`` (the port's ``serve.py``) on port 0 at full
@@ -2265,66 +2302,69 @@ def run_serve_cli(torch, cuda, serve_torch, train_torch, mods, attn,
     launches = collections.Counter()
     tokens = {}
     try:
-        for dtype in ("float32", "bfloat16"):
-            for mode, flags in SERVE_CLI_MODES:
-                logdir = os.path.join(tmp, f"{mode}_{dtype}")
-                flags = [half if f == "half" else f for f in flags]
-                argv = ["--config", config, "--device", device, "--port",
-                        "0", "--dtype", dtype, "--max-context", str(context),
-                        "--seed", str(SEED), "--logdir", logdir, *flags]
-                replies, wall, state, got, extra, problems = \
-                    _serve_cli_mode(
-                        torch, cuda, serve_torch, argv, prompts, new_tokens,
-                        logdir, device, 2 * cfg.num_layers + 1,
-                        sampled=mode == "c_fused",
-                        profile=dtype == "bfloat16"
-                        and mode in ("a_defaults", "d_speculate"))
-                launches.update(got)
-                tokens[dtype, mode] = [r["tokens"] for r in replies]
-                c = state["counters"]
-                if mode.startswith("b") and not state["kv"]["prefix_hits"]:
-                    problems.append("no prefix hit")
-                if mode.startswith("d") and not (
-                        0 <= c["spec_accepted"] <= c["spec_drafted"]
-                        and c["spec_drafted"] > 0
-                        and state["tokens_per_step"] >= 1.0):
-                    problems.append(f"speculation counts {c}")
-                ttft = [r["ttft_s"] for r in replies]
-                tpot = [r["tpot_s"] for r in replies]
-                row = {
-                    "phase": "serve_cli", "mode": mode, "dtype": dtype,
-                    "config": config, "flags": flags, "card": smi,
-                    "requests": len(replies),
-                    "prompt_tokens": sum(len(p) for p in prompts),
-                    "new_tokens": sum(len(r["tokens"]) for r in replies),
-                    "wall_s": wall,
-                    "tokens_per_s": sum(len(r["tokens"])
-                                        for r in replies) / wall,
-                    "ttft_p50_s": float(np.percentile(ttft, 50)),
-                    "ttft_p99_s": float(np.percentile(ttft, 99)),
-                    "tpot_p50_s": float(np.percentile(tpot, 50)),
-                    "prefix_hit_rate": state["kv"]["prefix_hit_rate"],
-                    "prefix_hits": state["kv"]["prefix_hits"],
-                    "spec_acceptance_rate": state["spec_acceptance_rate"],
-                    "spec_drafted": c["spec_drafted"],
-                    "spec_accepted": c["spec_accepted"],
-                    "tokens_per_step": state["tokens_per_step"],
-                    "decode_steps": state["decode_steps"],
-                    "prefill_chunks": state["prefill_chunks"],
-                    "streamed_lines": replies[SERVE_CLI_STREAMED][
-                        "stream_lines"],
-                    "launches": got, **extra, "problems": problems}
-                emit(row)
-                if problems:
-                    raise AssertionError(f"serve_cli {mode} {dtype}: "
-                                         f"{problems}")
-                gc.collect()
-                empty_cache(torch, dev)
-        _serve_cli_compare(torch, mods, cfg, context, prompts, new_tokens,
-                           tokens, dev)
-        run_serve_cli_checkpoint(torch, serve_torch, train_torch, mods,
-                                 config, prompts[:2], new_tokens, context,
-                                 tmp, device)
+        with _cached_init(mods):
+            for dtype in ("float32", "bfloat16"):
+                for mode, flags in SERVE_CLI_MODES:
+                    logdir = os.path.join(tmp, f"{mode}_{dtype}")
+                    flags = [half if f == "half" else f for f in flags]
+                    argv = ["--config", config, "--device", device,
+                            "--port", "0", "--dtype", dtype, "--max-context",
+                            str(context), "--seed", str(SEED), "--logdir",
+                            logdir, *flags]
+                    replies, wall, state, got, extra, problems = \
+                        _serve_cli_mode(
+                            torch, cuda, serve_torch, argv, prompts,
+                            new_tokens,
+                            logdir, device, 2 * cfg.num_layers + 1,
+                            sampled=mode == "c_fused",
+                            profile=dtype == "bfloat16"
+                            and mode in ("a_defaults", "d_speculate"))
+                    launches.update(got)
+                    tokens[dtype, mode] = [r["tokens"] for r in replies]
+                    c = state["counters"]
+                    if mode.startswith("b") and not state["kv"]["prefix_hits"]:
+                        problems.append("no prefix hit")
+                    if mode.startswith("d") and not (
+                            0 <= c["spec_accepted"] <= c["spec_drafted"]
+                            and c["spec_drafted"] > 0
+                            and state["tokens_per_step"] >= 1.0):
+                        problems.append(f"speculation counts {c}")
+                    ttft = [r["ttft_s"] for r in replies]
+                    tpot = [r["tpot_s"] for r in replies]
+                    row = {
+                        "phase": "serve_cli", "mode": mode, "dtype": dtype,
+                        "config": config, "flags": flags, "card": smi,
+                        "requests": len(replies),
+                        "prompt_tokens": sum(len(p) for p in prompts),
+                        "new_tokens": sum(len(r["tokens"]) for r in replies),
+                        "wall_s": wall,
+                        "tokens_per_s": sum(len(r["tokens"])
+                                            for r in replies) / wall,
+                        "ttft_p50_s": float(np.percentile(ttft, 50)),
+                        "ttft_p99_s": float(np.percentile(ttft, 99)),
+                        "tpot_p50_s": float(np.percentile(tpot, 50)),
+                        "prefix_hit_rate": state["kv"]["prefix_hit_rate"],
+                        "prefix_hits": state["kv"]["prefix_hits"],
+                        "spec_acceptance_rate": state["spec_acceptance_rate"],
+                        "spec_drafted": c["spec_drafted"],
+                        "spec_accepted": c["spec_accepted"],
+                        "tokens_per_step": state["tokens_per_step"],
+                        "decode_steps": state["decode_steps"],
+                        "prefill_chunks": state["prefill_chunks"],
+                        "streamed_lines": replies[SERVE_CLI_STREAMED][
+                            "stream_lines"],
+                        "launches": got, **extra, "problems": problems}
+                    emit(row)
+                    if problems:
+                        raise AssertionError(f"serve_cli {mode} {dtype}: "
+                                             f"{problems}")
+                    gc.collect()
+                    empty_cache(torch, dev)
+            _serve_cli_compare(torch, mods, cfg, context, prompts, new_tokens,
+                               tokens, dev)
+            run_serve_cli_checkpoint(torch, serve_torch, train_torch, mods,
+                                     config, prompts[:2], new_tokens, context,
+                                     tmp, device)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return launches
@@ -3020,7 +3060,9 @@ def run_dp(torch, cuda, train_torch, fa, train_row):
 #: The ckpt phase: steps before the save and after the restore; the
 #: SIGTERM child's depth and length.
 CKPT_STEPS = 3
-CKPT_OVERLAP_STEPS = 8
+#: Steps timed apart from and beside a commit (8 until the whole script
+#: neared its 1200 s limit).
+CKPT_OVERLAP_STEPS = 4
 CKPT_CHILD_LAYERS = 2
 CKPT_CHILD_STEPS = 8
 #: Batches of the determinism survey's presets (2 layers where the model
@@ -3035,11 +3077,25 @@ DET_RUNS = (("gpt_lm", 2), ("gpt_medium_lm", 2), ("lm_long_context", 1),
 def ckpt_worker(argv_json) -> int:
     """The ckpt phase's child (``--ckpt-worker``): ``train_torch.main`` of
     the given arguments with gpt_lm cut to CKPT_CHILD_LAYERS layers, its
-    log lines on stderr as ``train_torch.py`` prints them."""
+    log lines on stderr as ``train_torch.py`` prints them.  With
+    ``CKPT_WORKER_GO`` in the environment the child starts Python, torch
+    and its CUDA context, then waits for that file before the run (a
+    relaunch started early: its run begins when the file appears)."""
     import logging
+
+    import torch
 
     import train_torch
 
+    go = os.environ.get("CKPT_WORKER_GO")
+    if go:
+        if torch.cuda.is_available():
+            torch.zeros(1, device="cuda")
+        deadline = time.time() + 600
+        while not os.path.exists(go):
+            if time.time() > deadline:
+                raise TimeoutError(f"ckpt worker: no {go}")
+            time.sleep(0.1)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: "
                                "%(message)s")
@@ -3112,12 +3168,13 @@ def _ckpt_run_u(torch, train_torch, device):
     return losses, fp, ms
 
 
-def _child(argv, err):
+def _child(argv, err, go=None):
     """A ckpt worker of ``argv``, its stdout piped, its stderr to the
-    file ``err``."""
+    file ``err``; with ``go`` its run waits for that file."""
+    env = {**os.environ, "CKPT_WORKER_GO": go} if go else None
     return subprocess.Popen(
         [sys.executable, __file__, "--ckpt-worker", json.dumps(argv)],
-        stdout=subprocess.PIPE, stderr=err, text=True)
+        stdout=subprocess.PIPE, stderr=err, text=True, env=env)
 
 
 def _child_steps(out):
@@ -3136,7 +3193,10 @@ def run_ckpt_sigterm(ckdir, device="cuda"):
     step line it gets SIGTERM, saves at the next step boundary and exits
     0.  The same command relaunched restores, fast-forwards and ends at
     the last step, with the last loss of an uninterrupted child, which
-    runs beside the first two (they record no time)."""
+    runs beside the first two (they record no time).  The relaunch's
+    process starts beside the first child and begins its run once the
+    first has exited (its Python, torch and CUDA start hidden; until the
+    whole script neared its 1200 s limit it started then)."""
     import os
     import signal
 
@@ -3156,9 +3216,11 @@ def run_ckpt_sigterm(ckdir, device="cuda"):
     with contextlib.ExitStack() as stack:
         files = [stack.enter_context(open(path, "w")) for path in logs]
         try:
+            go = os.path.join(ckdir, "relaunch.go")
             child = _child(argv(cut), files[0])
             whole = _child(argv(os.path.join(ckdir, "whole")), files[2])
-            procs += [child, whole]
+            again = _child(argv(cut), files[1], go=go)
+            procs += [child, whole, again]
             seen = []
             for line in child.stdout:
                 if line.startswith("{"):
@@ -3169,8 +3231,8 @@ def run_ckpt_sigterm(ckdir, device="cuda"):
             rest, _ = child.communicate(timeout=300)
             first = seen + _child_steps(rest)
             saved = CheckpointManager(cut).all_steps()
-            again = _child(argv(cut), files[1])
-            procs.append(again)
+            with open(go, "w") as f:
+                f.write("go\n")
             out2, _ = again.communicate(timeout=300)
             out3, _ = whole.communicate(timeout=300)
         finally:
@@ -3281,15 +3343,14 @@ def run_ckpt(torch, cuda, train_torch, smi, device="cuda"):
         tensor_bytes = sum(
             t.numel() * t.element_size() for t in flatten(
                 cm.as_tree(state)).values() if isinstance(t, torch.Tensor))
-        # sync saves of the same state, timed whole: the first allocates
-        # its host buffers, the second reuses them (throwaway labels)
+        # a sync save of the same state, timed whole (its host buffers
+        # allocated: a second one reusing them measured the same within
+        # 2% and went when the whole script neared its 1200 s limit)
         sync_mgr = CheckpointManager(os.path.join(ckdir, "s"), max_to_keep=1,
                                      async_save=False)
-        sync_ms = []
-        for label in (1, 2):
-            t0 = time.perf_counter()
-            sync_mgr.save(label, state)
-            sync_ms.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        sync_mgr.save(1, state)
+        sync_ms = 1e3 * (time.perf_counter() - t0)
         del sync_mgr
         shutil.rmtree(os.path.join(ckdir, "s"))
         # CKPT_OVERLAP_STEPS steps alone, then as many while an async
@@ -3389,7 +3450,7 @@ def run_ckpt(torch, cuda, train_torch, smi, device="cuda"):
               "checkpoint_bytes": nbytes, "tensor_bytes": tensor_bytes,
               "async_save_blocking_ms_first": first_ms,
               "async_save_blocking_ms": async_ms,
-              "sync_save_blocking_ms_first_then_reused": sync_ms,
+              "sync_save_blocking_ms": sync_ms,
               "background_commit_s_first_overlapping_a_step": first_commit_s,
               "background_commit_s": commit_s,
               "wait_after_overlapped_step_s": wait_after_step_s,
@@ -3919,16 +3980,12 @@ def run_trainer(torch, cuda, train_torch, fa, device="cuda"):
     return launches
 
 
-MS_K, MS_STEPS, MS_LOG, MS_TAIL_STEPS = 4, 16, 4, 18
+#: MS_TAIL_STEPS: 10 at k = 4, two graphs of 4 and a tail of 2 (18 until
+#: the whole script neared its 1200 s limit).
+MS_K, MS_STEPS, MS_LOG, MS_TAIL_STEPS = 4, 16, 4, 10
 #: The profiled call: steps 13-16, one k-step replay (and the same four
 #: single steps at k = 1).
 MS_PROFILE = (12, 4)
-#: The timing runs: 16 steps logged every 8 (32 and 16 until the whole
-#: script neared its 1200 s limit), so the second window (steps 9-16)
-#: holds two calls and one read-back; in turns k = 1, k = 4, k = 4, k =
-#: 1, and k = 1 without the Prefetcher.
-MS_TIME_STEPS, MS_TIME_LOG = 16, 8
-MS_TIME_RUNS = ((1, "2"), (MS_K, "2"), (MS_K, "2"), (1, "2"), (1, "0"))
 #: Launches of one k-step replay: MS_K times a gpt_lm step's.
 MULTI_LAUNCHES_PER_CALL = {k: MS_K * v
                            for k, v in TRAIN_LAUNCHES_PER_STEP.items()}
@@ -4126,8 +4183,8 @@ def run_multistep(torch, cuda, train_torch, device="cuda"):
     k = 1 runs bit for bit.  (e) dp_world1 over NCCL at k = 4 equals (a)'s
     k = 4.  (f) a k = 4 run saved at step 8 and resumed to 16 equals the
     uninterrupted one, and so does a restore into a state whose graph was
-    captured (captured again).  (g) 18 steps at k = 4 (a tail graph of 2)
-    equal 18 at k = 1.  (h) gpt_lm at k = 1 without the Prefetcher
+    captured (captured again).  (g) 10 steps at k = 4 (a tail graph of 2)
+    equal 10 at k = 1.  (h) gpt_lm at k = 1 without the Prefetcher
     (t_data and t_step beside (a)'s).  (i) a gloo group on CUDA tensors
     refuses k > 1.  On the CPU (a rehearsal) test sizes run, without the
     profiler's and the launches' checks."""
@@ -4214,29 +4271,23 @@ def run_multistep(torch, cuda, train_torch, device="cuda"):
             if cuda_dev and found != per_call:
                 failures.append(f"(a) {tag} profile window: {found}, "
                                 f"expected {per_call}")
-        # (a) and (h): the steady window of each timing run, in turns
+        # (a) and (h): the steady windows (steps 5-12, before the profiled
+        # one) of k = 1 and k = 4, and of k = 1 without the Prefetcher
+        # (until the whole script neared its 1200 s limit, five timing runs
+        # of their own, in turns, whose repeats added no check)
+        nopf = run(1, "no_prefetch", "--prefetch-depth", "0", profile=False)
+        if nopf["fingerprint"] != one["fingerprint"]:
+            failures.append("(h) the run without the Prefetcher differs")
         timing = []
-        for i, (k, depth) in enumerate(MS_TIME_RUNS):
-            r = run(k, f"time{i}", "--prefetch-depth", depth,
-                    steps=MS_TIME_STEPS, log=MS_TIME_LOG, profile=False)
-            if k == MS_K and depth == "2" and \
-                    r["fingerprint"] != timing[0]["fingerprint"]:
-                failures.append(f"(a) {MS_TIME_STEPS} steps at k={k} "
-                                "differ from k=1's")
-            if depth == "0" and r["fingerprint"] != timing[0]["fingerprint"]:
-                failures.append("(h) the run without the Prefetcher differs")
-            w = r["rows"][-1]
+        for k, depth, r in ((1, 2, one), (MS_K, 2, four), (1, 0, nopf)):
             timing.append({
-                "k": k, "prefetch_depth": int(depth),
-                "fingerprint": r["fingerprint"],
+                "k": k, "prefetch_depth": depth,
                 "t_step_ms_windows": [1e3 * x["t_step"] for x in r["rows"]],
-                **{f"{key}_ms": 1e3 * w[key] for key in
+                **{f"{key}_ms": _ms_windows(r["rows"], key) for key in
                    ("t_step", "t_dispatch", "t_data", "t_host")},
-                **{key: w[key] for key in ("f_dispatch", "f_data",
-                                           "f_host")},
-                "mfu": w.get("mfu"), "seconds": r["seconds"]})
-        for t in timing:
-            del t["fingerprint"]
+                **{key: _ms_windows(r["rows"], key) for key in
+                   ("f_dispatch", "f_data", "f_host")},
+                "mfu": r["rows"][1].get("mfu"), "seconds": r["seconds"]})
         launches.update(four["launches"])
         emit({"phase": "multistep", "workload": "gpt_lm", "k": MS_K,
               "steps": MS_STEPS, "losses_k1": [r["loss"] for r in
@@ -4277,7 +4328,8 @@ def run_multistep(torch, cuda, train_torch, device="cuda"):
         tail_k = run(MS_K, "tail4", steps=MS_TAIL_STEPS, profile=False)
         tail_1 = run(1, "tail1", steps=MS_TAIL_STEPS, profile=False)
         if not same(tail_k, tail_1):
-            failures.append("(g) 18 steps at k=4 differ from 18 at k=1")
+            failures.append(f"(g) {MS_TAIL_STEPS} steps at k=4 differ from "
+                            f"{MS_TAIL_STEPS} at k=1")
         emit({"phase": "multistep_tail", "steps": MS_TAIL_STEPS,
               "bit_equal": same(tail_k, tail_1),
               "losses": [r["loss"] for r in tail_k["records"]]})
@@ -6395,7 +6447,8 @@ def _seqex_results(torch, out_dir) -> dict:
 #: The phases whose ranks run in the two split workers, in their order,
 #: and each one's directory: its references, marker and result files.
 SPLIT_DIRS = {"seqexpert": "build/seqexpert_check",
-              "pipeline": "build/pipeline_check"}
+              "pipeline": "build/pipeline_check",
+              "splitckpt": "build/splitckpt_check"}
 
 
 def split_worker(phases) -> int:
@@ -6409,7 +6462,8 @@ def split_worker(phases) -> int:
 
     from distributedtensorflow_tpu_torch.parallel import bootstrap
 
-    run = {"seqexpert": _seqex_results, "pipeline": _pipe_results}
+    run = {"seqexpert": _seqex_results, "pipeline": _pipe_results,
+           "splitckpt": _splitck_results}
     for phase in phases.split(","):
         results = run[phase](torch, SPLIT_DIRS[phase])
         path = f"{SPLIT_DIRS[phase]}/rank{bootstrap.process_index()}.pt"
@@ -6436,18 +6490,24 @@ def _start_split_workers(phases):
             for r in range(2)]
 
 
-def _split_results(torch, workers, phase, timeout=900) -> list:
-    """Each rank's results of ``phase``, once both files are there (the
-    directory then removed); fails when a worker exits with an error, or
-    both exit without them, or the time runs out."""
-    paths = [f"{SPLIT_DIRS[phase]}/rank{r}.pt" for r in range(2)]
+def _wait_files(paths, workers, what, timeout=900) -> None:
+    """Wait for every one of ``paths``, which the split ``workers`` write;
+    fails when a worker exits with an error, or both exit without them,
+    or the time runs out."""
     deadline = time.time() + timeout
     while not all(os.path.exists(p) for p in paths):
         codes = [p.poll() for p in workers]
         if any(codes) or None not in codes or time.time() > deadline:
-            raise AssertionError(f"{phase}: the workers exited with {codes} "
+            raise AssertionError(f"{what}: the workers exited with {codes} "
                                  f"before writing {paths}")
         time.sleep(0.5)
+
+
+def _split_results(torch, workers, phase, timeout=900) -> list:
+    """Each rank's results of ``phase``, once both files are there (the
+    directory then removed; :func:`_wait_files`)."""
+    paths = [f"{SPLIT_DIRS[phase]}/rank{r}.pt" for r in range(2)]
+    _wait_files(paths, workers, phase, timeout)
     ranks = [torch.load(p) for p in paths]
     shutil.rmtree(SPLIT_DIRS[phase], ignore_errors=True)
     return ranks
@@ -7010,10 +7070,488 @@ def run_pipeline(torch, cuda, train_torch, train_row, workers):
     return launches
 
 
+#: The splitckpt phase (checkpoints, clipping and LAMB over the split
+#: axes): gpt_lm at full width (gpt_moe for expert) cut to
+#: SPLITCK_LAYERS layers, batch SPLITCK_BATCH at seq SPLITCK_SEQ (the
+#: flash gate's length), dropout 0, LAMB with ``--clipnorm 1.0``.
+SPLITCK_LAYERS, SPLITCK_BATCH, SPLITCK_SEQ = 2, 2, 1024
+#: (name, preset, mesh, pipeline schedule), in the workers' order; each
+#: in SPLITCK_DTYPES.  Over pipe both sides take the chunked head.
+SPLITCK_LAYOUTS = (("model2", "gpt_lm", "data=1,model=2", None),
+                   ("pipe2", "gpt_lm", "data=1,pipe=2", "1f1b"),
+                   ("expert2", "gpt_moe", "data=1,expert=2", None))
+SPLITCK_DTYPES = ("float32", "bfloat16")
+#: The fp32 runs whose step-2 checkpoints the main process restores into
+#: one process and steps once more (each also hands over its split step
+#: 3's parameters; model2 its first step's gradients and parameters).
+SPLITCK_HELD = ("model2", "pipe2")
+SPLITCK_CKPTS = "build/splitckpt_ckpts"
+#: The kernels each run's resumed steps must launch on every rank.
+SPLITCK_KERNELS = {
+    "model2": ("layernorm_fwd", "layernorm_bwd", "flash_fwd",
+               "flash_bwd_fused", *HEAD_KERNELS),
+    "pipe2": ("layernorm_fwd", "layernorm_bwd", "flash_fwd",
+              "flash_bwd_fused"),
+    "expert2": ("layernorm_fwd", "layernorm_bwd", "flash_fwd",
+                "flash_bwd_fused", *HEAD_KERNELS)}
+#: Against one process (SCALE_TOL's fp32 pair): the loss 1e-5 relative,
+#: the gradients 1e-4 of each one's max-abs, parameters 1e-5 of each
+#: one's max-abs (the scaleout phase's measure); after a step from the
+#: same restored state also each parameter's update norm within
+#: SPLITCK_NORM_TOL (a trust ratio scales the whole update).  The first
+#: LAMB step is held on the split run's own gradients: its elementwise
+#: update divides each gradient by its magnitude, so gradients that
+#: round apart near 0 move a zero-initialised bias by up to 7e-4 of its
+#: max-abs (measured on the card).
+SPLITCK_TOL = SCALE_TOL["float32"]
+SPLITCK_NORM_TOL = 1e-3
+SPLITCK_NOTE = ("two processes on one card over gloo (the gathers through "
+                "the host), beside the main process's one-process runs: "
+                "no time here is a scaling time")
+#: The seeded states of a process's builds: (config, seed) -> state.
+_SPLITCK_INIT: dict = {}
+
+
+def _splitck_argv(layout, dtype, mesh=True):
+    """train_torch's flags of a splitckpt run of ``layout`` (a
+    SPLITCK_LAYOUTS row); ``mesh=False``: the one-process twin."""
+    name, preset, axes, schedule = layout
+    argv = ["--workload", preset, "--batch-size", str(SPLITCK_BATCH),
+            "--seq-len", str(SPLITCK_SEQ), "--accum-steps", "1", "--dtype",
+            dtype, "--seed", str(SEED), "--device", "cuda",
+            "--prefetch-depth", "0", "--optimizer", "lamb", "--lr", "1e-3",
+            "--weight-decay", "0.01", "--clipnorm", "1.0"]
+    if schedule:
+        argv += ["--pipeline-schedule", schedule, "--xent-impl", "chunked"]
+    if mesh:
+        argv += ["--mesh", axes, "--dist-backend", "gloo"]
+    return argv
+
+
+def _splitck_build(train_torch, argv, seed=SEED):
+    """``train_torch.build`` at SPLITCK_LAYERS layers, dropout 0, its
+    weights the dense state of ``seed`` (drawn once a process,
+    :data:`_SPLITCK_INIT`; a pipe rank keeps its stage's entries)."""
+    make = train_torch.get_workload
+
+    def init_params(init):
+        def draw(cfg, generator):
+            key = (repr(dataclasses.replace(cfg, dtype=None)), seed)
+            if key not in _SPLITCK_INIT:
+                _SPLITCK_INIT[key] = init(cfg, generator.manual_seed(seed))
+            return _SPLITCK_INIT[key]
+        return draw
+
+    def cut(*args, **kw):
+        wl = make(*args, **kw)
+        return dataclasses.replace(
+            wl, cfg=dataclasses.replace(wl.cfg, num_layers=SPLITCK_LAYERS,
+                                        dropout_rate=0.0),
+            init_params=init_params(wl.init_params))
+
+    train_torch.get_workload = cut
+    try:
+        return train_torch.build(train_torch.parse_args(argv))
+    finally:
+        train_torch.get_workload = make
+
+
+def _hand_over(torch, tree, path, rank) -> None:
+    """``tree`` saved by rank 0 for the main process (written aside, then
+    renamed: the main process waits for the file)."""
+    if rank == 0:
+        torch.save(tree, path + ".part")
+        os.replace(path + ".part", path)
+
+
+def _splitck_run(torch, cuda, train_torch, layout, dtype):
+    """One splitckpt run on this rank: 4 clipped steps uninterrupted, an
+    async save of step 2 among them (its blocking ms: the gather and the
+    copy to the host); a fresh build from another seed,
+    ``restore_latest`` (its seconds), ``skip_batches`` and steps 3-4
+    again.  The losses, the fingerprints, the launches of the resumed
+    steps, each part's seconds.  The held runs hand the main process the
+    whole parameters of the split step 3, and model2's its first step's
+    whole gradients and parameters after."""
+    from distributedtensorflow_tpu_torch.checkpoint import CheckpointManager
+    from distributedtensorflow_tpu_torch.checkpoint.manager import group_max
+    from distributedtensorflow_tpu_torch.data import (
+        current_input_context,
+        device_put_batch,
+        skip_batches,
+    )
+    from distributedtensorflow_tpu_torch.parallel import collectives
+
+    name = layout[0]
+    held = dtype == "float32" and name in SPLITCK_HELD
+    argv = _splitck_argv(layout, dtype)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = {"start": time.perf_counter()}
+    wl, state, step, batches = _splitck_build(train_torch, argv)
+    mesh, place = state.placement.mesh, state.placement
+    rank = collectives.group_rank(mesh.world)
+    t["built"] = time.perf_counter()
+    ck = f"{SPLITCK_CKPTS}/{name}_{dtype}"
+    mgr = CheckpointManager(ck, mesh=mesh.world)
+    grads = {}
+    if held and name == "model2":
+        apply = state.apply_gradients
+
+        def record(g):  # the first step's gradients (this rank's pieces)
+            if not grads:
+                grads.update({k: v.detach().clone() for k, v in g.items()})
+            return apply(g)
+
+        state.apply_gradients = record
+    losses = []
+    for i in range(4):
+        if i == 2:
+            saved_fp = _fingerprint(state)
+            pieces_fp = _pieces_fp(dict(state.model.named_parameters()))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr.save(2, state)  # asynchronous
+            save_ms = 1e3 * (time.perf_counter() - t0)
+        state, m = step(state, next(batches))
+        losses.append(float(m["loss"]))
+        if i == 0 and grads:
+            whole = {k: place.whole_piece(k, g).cpu()
+                     for k, g in grads.items()}
+            _hand_over(torch, {"grads": whole,
+                               "params": place.gather_params(state.model),
+                               "loss": losses[0]},
+                       f"{SPLITCK_CKPTS}/first_step.pt", rank)
+            del whole
+            grads.clear()
+    t["steps"] = time.perf_counter()
+    mgr.wait()
+    commit_s = time.perf_counter() - t["steps"]
+    group_max(0, mesh.world)  # the chief's step 2 is committed
+    u_fp = _fingerprint(state)
+    del state, step, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    t["u_done"] = time.perf_counter()
+    wl, fresh, step, _ = _splitck_build(train_torch, argv, seed=SEED + 1)
+    t["rebuilt"] = time.perf_counter()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = mgr.restore_latest(fresh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    restored_ok = restored is not None and fresh.step == 2 and \
+        _fingerprint(fresh) == saved_fp
+    source = skip_batches(wl.input_fn(current_input_context(
+        wl.global_batch_size, mesh), SEED), 2)
+    cuda.launches.clear()
+    r_losses = []
+    for i in range(2):
+        fresh, m = step(fresh, device_put_batch(next(source),
+                                                fresh.model.device, mesh))
+        r_losses.append(float(m["loss"]))
+        if i == 0 and held:
+            _hand_over(torch, place.gather_params(fresh.model),
+                       f"{ck}_step3.pt", rank)
+    torch.cuda.synchronize()
+    launches = dict(cuda.launches)
+    r_fp = _fingerprint(fresh)
+    t["resumed"] = time.perf_counter()
+    nbytes = os.path.getsize(f"{ck}/2/state.pt")
+    group_max(0, mesh.world)  # both ranks are done with the checkpoint
+    if rank == 0 and not held:
+        shutil.rmtree(ck, ignore_errors=True)  # the main process's are kept
+    del fresh, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "resumed_losses": r_losses,
+            "bit_equal": r_losses == losses[2:] and r_fp == u_fp,
+            "restored_equal_saved": restored_ok, "pieces_fp": pieces_fp,
+            "save_blocking_ms": save_ms, "commit_wait_s": commit_s,
+            "restore_s": restore_s, "checkpoint_bytes": nbytes,
+            "seconds": {"build": t["built"] - t["start"],
+                        "steps_1_4": t["steps"] - t["built"],
+                        "fresh_build": t["rebuilt"] - t["u_done"],
+                        "restore_and_steps_3_4": t["resumed"] - t["rebuilt"],
+                        "run": t["resumed"] - t["start"]},
+            "launches": launches, "coords": dict(mesh.coords)}
+
+
+def _splitck_results(torch, out_dir) -> dict:
+    """A split worker's rank of the splitckpt phase: every run of
+    SPLITCK_LAYOUTS x SPLITCK_DTYPES, the held fp32 ones first, so that
+    the main process works on them while the rest run."""
+    import train_torch
+    from distributedtensorflow_tpu_torch.ops import _cuda
+
+    runs = [(layout, dtype) for dtype in SPLITCK_DTYPES
+            for layout in SPLITCK_LAYOUTS]
+    runs.sort(key=lambda r: not (r[1] == "float32"
+                                 and r[0][0] in SPLITCK_HELD))
+    results = {}
+    for layout, dtype in runs:
+        results[layout[0], dtype] = _splitck_run(torch, _cuda, train_torch,
+                                                 layout, dtype)
+    _SPLITCK_INIT.clear()
+    return results
+
+
+def _splitck_cut(whole: dict, cfg, layout, coords, wl) -> dict:
+    """A rank's pieces of a whole parameter state, cut as
+    ``create_sharded_state`` cuts the model (model: ``tp_rules``; pipe:
+    the stage's entries)."""
+    from distributedtensorflow_tpu_torch import models as mods
+    from distributedtensorflow_tpu_torch.parallel import sharding
+
+    if layout[0] == "pipe2":
+        return mods.convert.pipeline_state(whole, cfg, stage=coords["pipe"],
+                                           n_stages=2)
+    rules = sharding.tp_rules(mods.GPTLM(cfg, device="meta"), cfg,
+                              wl.layout)
+    return sharding.shard_state(whole, rules, coords["model"], 2)
+
+
+def _max_err(got: dict, ref: dict) -> tuple:
+    """The largest difference of a tensor over its max-abs, and its
+    name."""
+    errs = {k: float((got[k].detach().float().cpu() - v.float()).abs().max()
+                     / v.float().abs().max().clamp_min(1e-30))
+            for k, v in ref.items()}
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def _update_norm_err(got: dict, ref: dict, before: dict) -> tuple:
+    """The largest relative difference of a parameter's update norm (a
+    trust ratio scales a whole parameter's update), and its name."""
+    errs = {}
+    for k, v in ref.items():
+        b = before[k].detach().float().cpu()
+        errs[k] = abs(float((got[k].detach().float().cpu() - b).norm()
+                            / (v.float() - b).norm().clamp_min(1e-30))
+                      - 1.0)
+    worst = max(errs, key=errs.get)
+    return errs[worst], worst
+
+
+def _params_of(model) -> dict:
+    return {k: p.detach().clone() for k, p in model.named_parameters()}
+
+
+def _pieces_fp(named: dict) -> str:
+    """The fingerprint of a rank's parameters (name -> tensor)."""
+    from distributedtensorflow_tpu_torch.utils import tree_fingerprint
+
+    return tree_fingerprint(named)
+
+
+def _splitck_first_step(torch, train_torch, workers):
+    """(c): model2's first LAMB step held against one process's from the
+    same seed: the loss and the gradients (SPLITCK_TOL), then the
+    one-process LAMB update of the split run's own whole gradients
+    against the split update (parameters 1e-5 of their max-abs)."""
+    path = f"{SPLITCK_CKPTS}/first_step.pt"
+    _wait_files([path], workers, "splitckpt")
+    split = torch.load(path, map_location="cpu", weights_only=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    layout = SPLITCK_LAYOUTS[0]
+    wl, state, step, batches = _splitck_build(
+        train_torch, _splitck_argv(layout, "float32", mesh=False))
+    before = _params_of(state.model)
+    grads = {}
+    apply = state.apply_gradients
+
+    def record(g):  # before the optimizer clips them in place
+        grads.update({k: v.detach().clone().float().cpu()
+                      for k, v in g.items()})
+        return apply(g)
+
+    state.apply_gradients = record
+    state, m = step(state, next(batches))
+    loss = float(m["loss"])
+    grad_err, worst_grad = _max_err(split["grads"], grads)
+    del state, step, batches
+    gc.collect()
+    wl, state, _, _ = _splitck_build(
+        train_torch, _splitck_argv(layout, "float32", mesh=False))
+    dev = state.model.device
+    state.apply_gradients({k: v.to(dev) for k, v in
+                           split["grads"].items()})
+    param_err, worst_param = _max_err(_params_of(state.model),
+                                      split["params"])
+    out = {"loss": loss, "split_loss": split["loss"],
+           "loss_rel_err": abs(loss - split["loss"]) / abs(loss),
+           "grad_err": grad_err, "worst_grad": worst_grad,
+           "param_err_same_grads": param_err, "worst_param": worst_param}
+    out["ok"] = (out["loss_rel_err"] <= SPLITCK_TOL[0]
+                 and grad_err <= SPLITCK_TOL[1]
+                 and param_err <= SPLITCK_TOL[0])
+    del state, split, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _splitck_one_process(torch, train_torch, layout, workers):
+    """(b) and (d) for a held layout: its fp32 step-2 checkpoint restored
+    into one process on the card (the seconds), each rank's cut of the
+    restored parameters against the rank's own fingerprint, one clipped
+    step against the split step 3 (the loss, each parameter and its
+    update's norm), then an async save of the one-process state (its
+    blocking ms)."""
+    from distributedtensorflow_tpu_torch.checkpoint import CheckpointManager
+
+    name = layout[0]
+    ck = f"{SPLITCK_CKPTS}/{name}_float32"
+    _wait_files([f"{ck}_step3.pt"], workers, "splitckpt")
+    gc.collect()
+    torch.cuda.empty_cache()
+    wl, state, step, batches = _splitck_build(
+        train_torch, _splitck_argv(layout, "float32", mesh=False))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = CheckpointManager(ck).restore_latest(state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if restored is None or state.step != 2:
+        raise AssertionError(f"splitckpt: {ck} did not restore")
+    before = _params_of(state.model)
+    pieces = {r: _pieces_fp(_splitck_cut(
+        before, wl.cfg, layout, {"model": r, "pipe": r}, wl))
+        for r in range(2)}
+    for _ in range(2):  # the split run's first two batches
+        next(batches)
+    state, m = step(state, next(batches))
+    split = torch.load(f"{ck}_step3.pt", map_location="cpu",
+                       weights_only=True)
+    after = _params_of(state.model)
+    norm_err, worst = _update_norm_err(after, split, before)
+    param_err, worst_param = _max_err(after, split)
+    torch.cuda.synchronize()
+    mgr = CheckpointManager(f"{SPLITCK_CKPTS}/one_{name}")
+    t0 = time.perf_counter()
+    mgr.save(int(state.step), state)
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    mgr.wait()
+    out = {"restore_s": restore_s, "save_blocking_ms": save_ms,
+           "loss": float(m["loss"]), "pieces_fp": pieces,
+           "param_err": param_err, "worst_param": worst_param,
+           "update_norm_err": norm_err, "worst_update_norm": worst}
+    del state, step, batches, split, before, after
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_splitckpt(torch, cuda, train_torch, workers):
+    """Checkpoints, clipping and LAMB over the split axes.  In the split
+    ``workers`` over gloo on the one card, each run of SPLITCK_LAYOUTS in
+    fp32 and bf16, LAMB with ``--clipnorm 1.0`` (:func:`_splitck_run`):
+    (a) the resumed steps' losses and the state's fingerprint equal the
+    uninterrupted run's bit for bit, the restored state the saved one's,
+    and the resumed steps launch SPLITCK_KERNELS on every rank.  Here, in
+    one process: (b) the fp32 model=2 and pipe=2 step-2 checkpoints
+    restore, each rank's cut of the restored parameters has that rank's
+    fingerprint, and one clipped step equals the split step 3 (the loss
+    and each parameter 1e-5, each parameter's update norm 1e-3:
+    SPLITCK_TOL, SPLITCK_NORM_TOL); (c) model=2's first LAMB step against one
+    process's (:func:`_splitck_first_step`); (d) the split save's blocking
+    ms and the restore's seconds beside this process's."""
+    t0 = time.time()
+    failures = []
+    try:
+        first = _splitck_first_step(torch, train_torch, workers)
+        one = {layout[0]: _splitck_one_process(torch, train_torch, layout,
+                                               workers)
+               for layout in SPLITCK_LAYOUTS if layout[0] in SPLITCK_HELD}
+        ranks = _split_results(torch, workers, "splitckpt")
+    finally:
+        shutil.rmtree(SPLITCK_CKPTS, ignore_errors=True)
+        _SPLITCK_INIT.clear()
+    launches = collections.Counter()
+    want = {(layout[0], dtype) for layout in SPLITCK_LAYOUTS
+            for dtype in SPLITCK_DTYPES}
+    missing = [sorted(map(str, want - set(rk))) for rk in ranks
+               if want - set(rk)]
+    if missing:
+        raise AssertionError(f"splitckpt: runs missing {missing}")
+    for layout in SPLITCK_LAYOUTS:
+        name = layout[0]
+        for dtype in SPLITCK_DTYPES:
+            got = [rk[name, dtype] for rk in ranks]
+            kernels = [{k: g["launches"].get(k, 0)
+                        for k in SPLITCK_KERNELS[name]} for g in got]
+            ok = all(g["bit_equal"] and g["restored_equal_saved"]
+                     and all(kernels[i].values())
+                     for i, g in enumerate(got))
+            row = {"phase": "splitckpt", "layout": name, "dtype": dtype,
+                   "workload": layout[1], "mesh": layout[2],
+                   "schedule": layout[3], "layers": SPLITCK_LAYERS,
+                   "batch": SPLITCK_BATCH, "seq": SPLITCK_SEQ,
+                   "optimizer": "lamb", "clipnorm": 1.0,
+                   "losses": [g["losses"] for g in got],
+                   "resumed_losses": [g["resumed_losses"] for g in got],
+                   "bit_equal": [g["bit_equal"] for g in got],
+                   "restored_equal_saved": [g["restored_equal_saved"]
+                                            for g in got],
+                   "kernels_resumed_steps": kernels,
+                   "save_blocking_ms": [g["save_blocking_ms"] for g in got],
+                   "commit_wait_s": [g["commit_wait_s"] for g in got],
+                   "restore_s": [g["restore_s"] for g in got],
+                   "checkpoint_bytes": got[0]["checkpoint_bytes"],
+                   "seconds": [g["seconds"] for g in got],
+                   "note": SPLITCK_NOTE, "ok": ok}
+            if dtype == "float32" and name in one:
+                ref = one[name]
+                by = {g["coords"]["model" if name == "model2" else "pipe"]:
+                      g for g in got}
+                same = all(ref["pieces_fp"][r] == by[r]["pieces_fp"]
+                           for r in range(2))
+                split_loss = got[0]["resumed_losses"][0]
+                step_ok = ref["update_norm_err"] <= SPLITCK_NORM_TOL and \
+                    ref["param_err"] <= SPLITCK_TOL[0] and \
+                    abs(ref["loss"] - split_loss) <= \
+                    SPLITCK_TOL[0] * abs(split_loss)
+                row.update({
+                    "one_process_restore_s": ref["restore_s"],
+                    "one_process_save_blocking_ms": ref["save_blocking_ms"],
+                    "one_process_pieces_equal": same,
+                    "one_process_step3_loss": ref["loss"],
+                    "one_process_step3_param_err": ref["param_err"],
+                    "worst_param": ref["worst_param"],
+                    "one_process_step3_update_norm_err":
+                        ref["update_norm_err"],
+                    "worst_update_norm": ref["worst_update_norm"],
+                    "tolerance": f"restored pieces bit for bit; step 3 "
+                                 f"loss {SPLITCK_TOL[0]} relative, each "
+                                 f"parameter {SPLITCK_TOL[0]} of its "
+                                 f"max-abs, its update's norm "
+                                 f"{SPLITCK_NORM_TOL} relative"})
+                row["ok"] = ok = ok and same and step_ok
+            for g in got:
+                launches.update(g["launches"])
+            emit(row)
+            if not ok:
+                failures.append((name, dtype))
+    emit({"phase": "splitckpt_lamb", "mesh": "data=1,model=2",
+          "dtype": "float32", **first,
+          "tolerance": f"loss {SPLITCK_TOL[0]} relative, gradients "
+                       f"{SPLITCK_TOL[1]} of each one's max-abs, the "
+                       f"update of the same gradients {SPLITCK_TOL[0]} of "
+                       f"each parameter's max-abs"})
+    if not first["ok"]:
+        failures.append("lamb")
+    emit({"phase": "splitckpt_seconds", "seconds": time.time() - t0})
+    if failures:
+        raise AssertionError(f"splitckpt: {failures} failed")
+    return launches
+
+
 PHASES = ("layernorm", "kernels", "xent", "serving", "serve_cli", "train",
           "baseline", "dp", "ckpt", "trainer", "multistep", "presets2",
           "bert_moe", "optim", "records", "planes", "scaleout",
-          "seqexpert", "pipeline")
+          "seqexpert", "pipeline", "splitckpt")
 
 
 def main(argv=None) -> int:
@@ -7230,6 +7768,10 @@ def main(argv=None) -> int:
                 torch, _cuda, train_torch,
                 train_row if "train" in phases else None, workers))
         done("pipeline")
+        if "splitckpt" in phases:
+            launches.update(run_splitckpt(torch, _cuda, train_torch,
+                                          workers))
+        done("splitckpt")
         rcs = [p.wait(timeout=300) for p in workers]
         if any(rcs):
             raise AssertionError(f"the split workers exited with {rcs}")

@@ -31,7 +31,13 @@ without it:
   of the mesh's group, or of the default group) alone copies and writes;
   every rank restores from the same files and verifies them against the
   manifest itself.  A forced save ends with the chief's commit and a
-  barrier, so no rank reads a step that is not there yet.
+  barrier, so no rank reads a step that is not there yet.  A state split
+  over ``model``, ``expert`` or ``pipe`` (``parallel.placement``) is put
+  together whole on every rank before the chief's copy, so its step is
+  the one a single process writes for the same state; a restore cuts
+  each rank's pieces from the verified whole and checks them against the
+  rank's own state.  Such a manager spans the whole world (``mesh``: the
+  mesh's ``world``), not the batch group.
 
 Telemetry (``obs``), as in JAX: the counters ``checkpoint_saves_total``,
 ``checkpoint_restores_total`` and ``checkpoint_verify_failures_total``,
@@ -88,7 +94,12 @@ def as_tree(state) -> dict:
     ``model_state`` (the buffers) and ``opt_state``; the tensors are the
     state's own (no copy).  A ZeRO state's optimizer slots are gathered
     to their ``(degree, chunk)`` views (a collective: every rank of the
-    batch group calls this)."""
+    batch group calls this).  A state split over ``model``, ``expert`` or
+    ``pipe`` is put together whole (``parallel.placement``: collectives
+    over those groups), as one process holds it."""
+    placement = getattr(state, "placement", None)
+    if placement is not None:
+        return placement.gather_tree(state)
     sd = state.model.state_dict()
     names = {n for n, _ in state.model.named_parameters(
         remove_duplicate=False)}
@@ -100,6 +111,13 @@ def as_tree(state) -> dict:
             "params": {k: v for k, v in sd.items() if k in names},
             "model_state": {k: v for k, v in sd.items() if k not in names},
             "opt_state": opt}
+
+
+def _collective(state) -> bool:
+    """Whether :func:`as_tree` of ``state`` runs collectives (every rank
+    calls it, not the chief alone)."""
+    return getattr(state, "zero", None) is not None or \
+        getattr(state, "placement", None) is not None
 
 
 def group_max(value: int, mesh=None) -> int:
@@ -186,6 +204,12 @@ class CheckpointManager:
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
 
+    def set_mesh(self, mesh) -> None:
+        """The mesh or process group whose chief writes and whose ranks
+        agree on a forced save (``train_torch`` passes the mesh's
+        ``world``: every rank of a split model takes part in a save)."""
+        self._mesh = mesh
+
     @property
     def best_metric(self) -> str | None:
         """The keep-best retention metric (None: keep the latest)."""
@@ -230,8 +254,9 @@ class CheckpointManager:
         self._saved.add(step)
         obs.record_event("checkpoint_begin", step=step)
         with obs.span("checkpoint_save") as sp:
-            # a ZeRO state gathers its optimizer rows on every rank
-            tree = as_tree(state) if getattr(state, "zero", None) else None
+            # a ZeRO state gathers its optimizer rows, a split state its
+            # pieces, on every rank
+            tree = as_tree(state) if _collective(state) else None
             if self._is_chief():
                 self.wait()
                 host = self._to_host(tree or as_tree(state))
@@ -424,13 +449,17 @@ class CheckpointManager:
         path = os.path.join(self._step_dir(step), PAYLOAD)
         try:
             tree = torch.load(path, map_location="cpu", weights_only=True)
+            whole = tree
+            placement = getattr(target, "placement", None)
+            if placement is not None:  # this rank's pieces of the whole
+                tree = placement.cut_tree(tree, target.optimizer)
             saved = _check_geometry(tree, target)
         except Exception as e:
             raise CheckpointCorruptError(
                 f"restore raised {type(e).__name__}: {str(e)[:200]}") from e
         manifest = integrity.load_manifest(self._directory, step)
         if manifest is not None:
-            problems = integrity.verify_tree(tree, manifest)
+            problems = integrity.verify_tree(whole, manifest)
             if problems:
                 shown = "; ".join(problems[:3])
                 if len(problems) > 3:

@@ -602,6 +602,15 @@ def pipeline_params_from_flax(tree, cfg, *, stage: int, n_stages: int,
     stacked ``(n_stages, lps, ...)``, or ``(n_virtual, n_stages, lps,
     ...)`` for the circular layouts (layer ``(c*n + p)*lps + j`` at
     ``[c, p, j]``, JAX's ``params_to_dense``)."""
+    return pipeline_state(
+        params_from_flax(_pipeline_dense(tree, cfg, n_stages, n_virtual),
+                         cfg),
+        cfg, stage=stage, n_stages=n_stages, n_virtual=n_virtual)
+
+
+def _pipeline_dense(tree, cfg, n_stages: int, n_virtual: int) -> dict:
+    """The dense flax tree (``h<k>`` a layer) of a tree shaped like the
+    JAX ``PipelinedGPT``'s parameters (its stacked ``blocks``)."""
     lps = cfg.num_layers // (n_stages * n_virtual)
     dense = {"wte": tree["wte"], "ln_f": tree["ln_f"]}
     for k in range(cfg.num_layers):
@@ -610,8 +619,27 @@ def pipeline_params_from_flax(tree, cfg, *, stage: int, n_stages: int,
         index = (c, p, j) if n_virtual > 1 else (p, j)
         dense[f"h{k}"] = _map_tree(lambda a: np.asarray(a)[index],
                                    tree["blocks"])
-    return pipeline_state(params_from_flax(dense, cfg), cfg, stage=stage,
-                          n_stages=n_stages, n_virtual=n_virtual)
+    return dense
+
+
+def _map_moments(state, fn):
+    """An optax state with each moment tree (``mu``, ``nu``, ``trace``,
+    ``sum_of_squares``) replaced by ``fn`` of it; NamedTuples rebuilt with
+    ``_replace``.  Raises for adafactor's factored moments, whose shapes
+    follow the stacked leaves."""
+    fields = getattr(state, "_fields", None)
+    if fields is not None:
+        if any(f in _FACTORED for f in fields):
+            raise NotImplementedError(
+                "adafactor's factored moments of a pipelined model are not "
+                "ported (they factor the stacked stage leaves)")
+        return state._replace(**{
+            f: fn(getattr(state, f)) if f in _MOMENTS
+            else _map_moments(getattr(state, f), fn)
+            for f in fields if f != "count"})
+    if isinstance(state, tuple):
+        return tuple(_map_moments(v, fn) for v in state)
+    return state
 
 
 def pipeline_params_to_flax(states, cfg, *, n_virtual: int = 1) -> dict:
@@ -658,20 +686,25 @@ def shards_for_rank(tree, cfg, coords: dict, shape: dict, *, layout=None,
     :data:`MODELS`); ``coords`` and ``shape`` a mesh's (axis -> index,
     axis -> size).  Over a ``pipe`` axis ``tree`` is the JAX
     ``PipelinedGPT``'s (``n_virtual`` chunks a stage) and the rank keeps
-    its stage's blocks (:func:`pipeline_params_from_flax`); its optimizer
-    state is not ported."""
+    its stage's blocks (:func:`pipeline_params_from_flax`); its optax
+    state (moments shaped as that tree) becomes the ``state_dict`` of the
+    optimizer over the stage's parameters."""
     from ..parallel import sharding, zero as zero_lib
     from ..parallel.moe import local_experts
 
-    if shape.get("pipe", 1) > 1:
-        if opt_state is not None:
-            raise NotImplementedError(
-                "the optimizer state of a pipelined model is not ported")
+    pipe = shape.get("pipe", 1) > 1
+    if pipe:
+        def dense_of(t):
+            return _pipeline_dense(t, cfg, shape["pipe"], n_virtual)
+
         state = pipeline_params_from_flax(
             tree, cfg, stage=coords.get("pipe", 0), n_stages=shape["pipe"],
             n_virtual=n_virtual)
+        if opt_state is not None:
+            opt_state = _map_moments(opt_state, dense_of)
+            whole = params_from_flax(dense_of(tree), cfg)
     else:
-        state = params_from_flax(tree, cfg)
+        state = whole = params_from_flax(tree, cfg)
     n, r = shape.get("model", 1), coords.get("model", 0)
     ne, re_ = shape.get("expert", 1), coords.get("expert", 0)
     rules = {}
@@ -692,12 +725,23 @@ def shards_for_rank(tree, cfg, coords: dict, shape: dict, *, layout=None,
     if opt_state is None:
         return out
     model = _model_for(cfg)
-    model.load_state_dict(state)
+    model.load_state_dict(whole)
     optimizer = make_optimizer(list(model.named_parameters()))
     sd = opt_state_from_optax(opt_state, cfg, optimizer, model)
     names = {id(p): name for name, p in model.named_parameters()}
     order = [names[id(p)] for g in optimizer.param_groups
              for p in g["params"]]
+    if pipe:  # the optimizer over the stage's parameters alone
+        index = {name: i for i, name in enumerate(order)}
+        staged = make_optimizer([(k, p) for k, p in model.named_parameters()
+                                 if k in state])
+        order = [names[id(p)] for g in staged.param_groups
+                 for p in g["params"]]
+        groups = [dict(w, params=g["params"]) for w, g in zip(
+            sd["param_groups"], staged.state_dict()["param_groups"])]
+        sd = {"state": {j: sd["state"][index[k]] for j, k in enumerate(order)
+                        if index[k] in sd["state"]},
+              "param_groups": groups}
     degree = shape.get("data", 1) * shape.get("fsdp", 1)
     row = coords.get("data", 0) * shape.get("fsdp", 1) + coords.get("fsdp", 0)
     for i, entry in sd["state"].items():

@@ -131,6 +131,9 @@ class Mesh:
     #: (this rank's own for a ``pipe`` of 1)
     pipe_prev: int = 0
     pipe_next: int = 0
+    #: every rank of the mesh (the group it was built over): the ranks
+    #: that agree on a checkpoint save and a preemption
+    world: object = None
 
     @property
     def axis_names(self) -> tuple[str, ...]:
@@ -180,7 +183,7 @@ def build_mesh(spec: MeshSpec, group=None, new_group=None) -> Mesh:
     coords = {a: coords[a] for a in CANONICAL_AXES}
     if world == 1:
         return Mesh(shape=sizes, coords=coords, group=group,
-                    batch_group=group)
+                    batch_group=group, world=group)
     n_pipe = sizes[AXIS_PIPE]
     neighbours = {
         key: _rank_of({**coords, AXIS_PIPE: (coords[AXIS_PIPE] + step)
@@ -204,7 +207,8 @@ def build_mesh(spec: MeshSpec, group=None, new_group=None) -> Mesh:
                                  new_group(ranks))
             if rank in ranks:
                 groups[kind] = made_for[key]
-    return Mesh(shape=sizes, coords=coords, **groups, **neighbours)
+    return Mesh(shape=sizes, coords=coords, **groups, **neighbours,
+                world=group)
 
 
 def _coords_of(rank: int, sizes: dict) -> dict:

@@ -20,7 +20,7 @@ constraints inside the jitted step; the port calls the collectives.
 Composition as in JAX: over a ``model`` axis the chunks are of this
 rank's tensor-parallel shards.  Exact (up to float reassociation) for
 the elementwise optimizers of :data:`ZERO_SAFE`; clipping by the global
-norm sums its squares over the batch group (``norm_group``).
+norm sums its squares over the batch group (the optimizer's ``split``).
 
 Checkpoints (``checkpoint.CheckpointManager``): a ZeRO state saves each
 optimizer slot gathered to its ``(N, chunk)`` view, JAX's saved layout;
@@ -138,8 +138,14 @@ class ZeroSharder:
         for c in self.chunks:
             self._offsets.append((offset, c.numel()))
             offset += c.numel()
+        from ..train.optimizers import Split
+
         opt = make_optimizer(list(zip(self.names, self.chunks)))
-        opt.norm_group = self.group
+        # each row is a piece of its parameter: the global norm sums the
+        # rows' squares over the batch group
+        opt.split = Split([("zero", self.group,
+                            collectives.group_rank(self.group))],
+                          {id(c): ("zero",) for c in self.chunks}, {})
         return opt
 
     @torch.no_grad()

@@ -38,12 +38,17 @@ stay floats.  An eager update and a replayed one run the same code.
 
 Parameters are passed as an iterable of tensors or of ``(name,
 tensor)`` pairs (``model.named_parameters()``); a weight-decay mask needs
-the names.
+the names.  An optimizer over pieces of parameters (ZeRO's rows, the
+shards of a model split over ``model``, ``expert`` or ``pipe``) carries a
+:class:`Split` (``opt.split``): the clip then takes the norm of the
+logical whole gradients, and LAMB's and LARS's trust ratios the norms of
+whole parameters.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 from typing import Callable
 
@@ -277,18 +282,75 @@ def exclude_bias_and_norm_mask(named_params) -> dict[str, bool]:
             ("bias", "scale") for name, p in named_params}
 
 
-@torch.no_grad()
-def _clip_by_global_norm(grads: list[torch.Tensor], clipnorm: float,
-                         group=None) -> None:
-    """``optax.clip_by_global_norm`` in place: each gradient becomes
-    ``g / norm * clipnorm`` when the global norm reaches ``clipnorm``,
-    chosen on the device (no host sync).  ``group``: the ranks that each
-    hold a part of the gradients (ZeRO's rows), whose squares are
-    summed over it."""
+@dataclasses.dataclass
+class Split:
+    """Where the pieces of an optimizer's parameters live over a mesh
+    (``parallel.placement.Placement.bind`` and ``parallel.zero.
+    ZeroSharder.shard_optimizer`` set it as the optimizer's ``split``):
+    ``groups`` the kinds of group that split some parameter,
+    ``(kind, group, this rank's index in it)``, in one order on every
+    rank; ``norm[id(p)]`` the kinds whose ranks hold disjoint pieces of
+    ``p`` (the global norm sums its squares over them and counts it once
+    over the others); ``stats[id(p)]`` the groups over which a
+    layer-wise statistic of ``p`` (a trust ratio's norms) is summed."""
+
+    groups: list
+    norm: dict
+    stats: dict
+    #: per device, each group's 0/1 vector over the classes (made once,
+    #: outside any CUDA-graph capture: the first update is eager)
+    _keep: dict = dataclasses.field(default_factory=dict)
+
+    def keep(self, device) -> list[torch.Tensor]:
+        if device not in self._keep:
+            n = 1 << len(self.groups)
+            self._keep[device] = [
+                torch.tensor([1.0 if (b >> i) & 1 or rank == 0 else 0.0
+                              for b in range(n)], device=device)
+                for i, (_, _, rank) in enumerate(self.groups)]
+        return self._keep[device]
+
+
+def _split_square_sum(grads, kinds, split: Split) -> torch.Tensor:
+    """The squares of the logical whole gradients, each element once:
+    per class of parameters (the kinds their pieces are split over, a bit
+    each, so every rank holds the same vector) the local sum, then over
+    each group in turn the sum of the classes split over it and rank 0's
+    value of the others (which every rank of the group holds alike)."""
+    order = [k for k, _, _ in split.groups]
+    sums: dict[int, torch.Tensor] = {}
+    for g, ks in zip(grads, kinds):
+        bits = sum(1 << order.index(k) for k in ks)
+        sq = g.float().square().sum()
+        sums[bits] = sq if bits not in sums else sums[bits] + sq
+    device = grads[0].device
+    vec = torch.stack([sums.get(b, torch.zeros((), device=device))
+                       for b in range(1 << len(order))])
+    for (_, group, _), keep in zip(split.groups, split.keep(device)):
+        vec = _all_reduce(vec * keep, group)
+    return vec.sum()
+
+
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over ``group`` (a new tensor)."""
     from ..parallel.collectives import all_reduce
 
-    sq = sum(g.float().square().sum() for g in grads)
-    g_norm = torch.sqrt(all_reduce(sq, group) if group is not None else sq)
+    return all_reduce(t, group)
+
+
+@torch.no_grad()
+def _clip_by_global_norm(grads: list[torch.Tensor], clipnorm: float,
+                         kinds=None, split=None) -> None:
+    """``optax.clip_by_global_norm`` in place: each gradient becomes
+    ``g / norm * clipnorm`` when the global norm reaches ``clipnorm``,
+    chosen on the device (no host sync).  Over parameters held in pieces
+    (``split``, with each gradient's ``kinds``: ZeRO's rows, the shards
+    of a split model) the norm is the logical whole's
+    (:func:`_split_square_sum`), the same on every rank."""
+    if split is not None:
+        g_norm = torch.sqrt(_split_square_sum(grads, kinds, split))
+    else:
+        g_norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
     for g in grads:
         norm = g_norm.to(g.dtype)
         g.copy_(torch.where(norm < clipnorm, g, g / norm * clipnorm))
@@ -320,10 +382,13 @@ def _optax_prelude(opt, lr, clipnorm: float):
             group["lr"] = value
             group["count"] = count + 1
         if clipnorm:
-            _clip_by_global_norm([p.grad for group in opt.param_groups
-                                  for p in group["params"]
-                                  if p.grad is not None], clipnorm,
-                                 getattr(opt, "norm_group", None))
+            params = [p for group in opt.param_groups
+                      for p in group["params"] if p.grad is not None]
+            split = getattr(opt, "split", None)
+            _clip_by_global_norm(
+                [p.grad for p in params], clipnorm,
+                kinds=split and [split.norm[id(p)] for p in params],
+                split=split)
 
     def post(opt, args, kwargs):
         rate = learning_rate(lr, opt.param_groups[0]["count"] - 1)
@@ -434,16 +499,32 @@ def _power(base: float, count: torch.Tensor) -> torch.Tensor:
 
 
 def _trust_ratio(param: torch.Tensor, update: torch.Tensor,
-                 coefficient: float = 1.0) -> torch.Tensor:
+                 coefficient: float = 1.0, groups=()) -> torch.Tensor:
     """``optax.scale_by_trust_ratio``'s factor: ``coefficient * |param| /
     |update|``, or 1 where either norm is 0, chosen on the device.  The
     norms accumulate in fp64: the CPU's fp32 ``vector_norm`` of a
-    23M-element table (BERT's MLM head) is 1.3e-3 off."""
-    p_norm = torch.linalg.vector_norm(param, dtype=torch.float64).float()
-    u_norm = torch.linalg.vector_norm(update, dtype=torch.float64).float()
+    23M-element table (BERT's MLM head) is 1.3e-3 off.  ``groups``: the
+    ranks that hold the other pieces of a split parameter (and of its
+    update), over which the two squared norms are summed: the whole
+    array's norms, as optax's under GSPMD."""
+    p_norm = torch.linalg.vector_norm(param, dtype=torch.float64)
+    u_norm = torch.linalg.vector_norm(update, dtype=torch.float64)
+    if groups:
+        sq = torch.stack([p_norm, u_norm]).square()
+        for group in groups:
+            sq = _all_reduce(sq, group)
+        p_norm, u_norm = sq.sqrt().unbind(0)
+    p_norm, u_norm = p_norm.float(), u_norm.float()
     ratio = coefficient * p_norm / u_norm
     return torch.where((p_norm == 0) | (u_norm == 0),
                        torch.ones_like(ratio), ratio)
+
+
+def _stat_groups(opt, p) -> tuple:
+    """The groups over which ``p``'s layer-wise statistics are summed
+    (none without a ``split``)."""
+    split = getattr(opt, "split", None)
+    return () if split is None else split.stats.get(id(p), ())
 
 
 class Lamb(torch.optim.Optimizer):
@@ -479,7 +560,9 @@ class Lamb(torch.optim.Optimizer):
                     / ((nu / (1 - _power(b2, count))).sqrt() + group["eps"])
                 if wd:
                     u = u + wd * p
-                _descend(p, u * _trust_ratio(p, u), group["lr"])
+                _descend(p, u * _trust_ratio(p, u, 1.0,
+                                             _stat_groups(self, p)),
+                         group["lr"])
 
 
 class Lars(torch.optim.Optimizer):
@@ -507,7 +590,8 @@ class Lars(torch.optim.Optimizer):
                 u, st = p.grad, self.state[p]
                 if wd:
                     u = u + wd * p
-                u = u * _trust_ratio(p, u, group["trust_coefficient"])
+                u = u * _trust_ratio(p, u, group["trust_coefficient"],
+                                     _stat_groups(self, p))
                 if "momentum_buffer" not in st:
                     st["momentum_buffer"] = torch.zeros_like(p)
                 buf = st["momentum_buffer"].mul_(group["momentum"])

@@ -39,6 +39,10 @@ class TrainState:
     #: the model's bucketed gradient sync (``parallel.overlap.
     #: OverlapPlan``), which the data-parallel step runs in the backward
     overlap: object = None
+    #: the pieces of a model split over ``model``, ``expert`` or ``pipe``
+    #: (``parallel.placement.Placement``): the optimizer's norms and the
+    #: checkpoints take the whole parameters through it
+    placement: object = None
 
     @classmethod
     def create(cls, model: nn.Module, make_optimizer, mesh=None,
@@ -91,11 +95,14 @@ def create_sharded_state(model: nn.Module, make_optimizer, mesh, *, cfg,
     ``zero`` sharder bound to the specs, this rank's rows of them).
     The expert stacks are cut to this rank's over ``expert``
     (``parallel.sharding.shard_expert_stacks``).
+    A model split over ``model``, ``expert`` or ``pipe`` gets its
+    ``placement`` (``parallel.placement``), bound to the optimizer.
     Returns ``(state, specs)``: the parameters' PartitionSpecs by name,
     from the rules on their flax paths (``cfg`` names the model).
     JAX's ``fsdp=True`` (parameters sharded over ``fsdp`` and gathered
     for each use) is not ported: ``fsdp`` is a batch axis here."""
     from ..models.convert import flax_paths
+    from ..parallel.placement import Placement
     from ..parallel.sharding import (
         P,
         bind_tensor_parallel,
@@ -104,8 +111,13 @@ def create_sharded_state(model: nn.Module, make_optimizer, mesh, *, cfg,
 
     specs = {name: rules.spec("/".join(path)) if rules is not None else P()
              for name, path in flax_paths(cfg).items()}
+    placement = Placement.of(model, mesh, cfg=cfg, layout=rules)
     bind_tensor_parallel(model, cfg, rules, mesh)
     shard_expert_stacks(model, cfg, rules, mesh)
     if zero is not None:
         zero.bind(specs)
-    return TrainState.create(model, make_optimizer, mesh, zero=zero), specs
+    state = TrainState.create(model, make_optimizer, mesh, zero=zero)
+    if placement.split:
+        placement.bind(state.optimizer, zero)
+        state.placement = placement
+    return state, specs

@@ -89,9 +89,9 @@ class TrainerConfig:
     capture_cooldown_s: float = 120.0
     capture_spread_factor: float = 3.0
     # Informational stamps of modes built into the state and the step
-    # elsewhere (ZeRO, quantized compute and the overlapped gradient sync,
-    # which train_torch.py sets; pipeline schedules, not ported yet): set,
-    # they stamp every metric record and /statusz as in JAX.
+    # elsewhere (ZeRO, quantized compute, the overlapped gradient sync and
+    # the pipeline schedule, which train_torch.py sets): set, they stamp
+    # every metric record and /statusz as in JAX.
     zero_stage: int = 0
     quant: str = "none"
     overlap_buckets: int = 0

@@ -25,6 +25,8 @@ the bf16 wire bit for bit.
 """
 
 import dataclasses
+import json
+import os
 import threading
 
 import jax
@@ -335,9 +337,59 @@ def test_preset_trains_through_main(schedule):
                                    rtol=1e-5)
 
 
+@pytest.mark.parametrize("schedule", ["gpipe", "1f1b"])
+def test_main_stamps_pipeline_fields_and_resumes(schedule, devices,
+                                                 tmp_path):
+    """Every ``metrics.jsonl`` record of a ``--mesh data=1,pipe=2`` run
+    carries train.py's five ``pipeline_*`` fields with JAX's values (its
+    ``PipelinedGPT`` of the same preset on the same mesh), passes the
+    schema tool and feeds ``tools/run_report.py``'s pipeline section; with ``--checkpoint-dir`` and ``--clipnorm`` a run cut at
+    step 2 and relaunched to step 4 logs the uninterrupted run's losses
+    (fp32: within 1e-6 relative, the ranks summing in one order)."""
+    from tools import check_metrics_schema, run_report
+
+    argv = ["--workload", "gpt_lm", "--test-size", "--device", "cpu",
+            "--log-every", "1", "--dtype", "float32", "--optimizer", "lamb",
+            "--lr", "1e-3", "--clipnorm", "0.5", "--mesh", "data=1,pipe=2",
+            "--pipeline-schedule", schedule, "--prefetch-depth", "0"]
+    spec = MeshSpec(data=1, pipe=2)
+    logdir = str(tmp_path / "log")
+    whole = _main_on_ranks(argv + ["--steps", "4", "--logdir", logdir],
+                           spec, 2)
+    jwl = jax_workloads.get_workload("gpt_lm", test_size=True,
+                                     pp_schedule=schedule)
+    jmodel = jwl.for_mesh(jbuild_mesh(JMeshSpec(data=1, pipe=2),
+                                      devices[:2])).model
+    want = {"pipeline_schedule": jmodel.schedule,
+            "pipeline_stages": jmodel.n_stages,
+            "pipeline_microbatches": jmodel.n_microbatches,
+            "pipeline_virtual": jmodel.n_virtual,
+            "pipeline_bubble": jmodel.bubble_fraction()}
+    rows = [json.loads(line) for line in
+            open(os.path.join(logdir, "metrics.jsonl"))]
+    train_rows = [r for r in rows if "loss" in r]
+    # thread ranks share no default group, so each writes as a chief
+    assert sorted({r["step"] for r in train_rows}) == [1, 2, 3, 4]
+    for row in train_rows:
+        assert {k: row[k] for k in want} == pytest.approx(want), row
+    assert check_metrics_schema.main(
+        [os.path.join(logdir, "metrics.jsonl")]) == 0
+    summary = run_report.pipeline_summary(train_rows, [])
+    assert summary["schedule"] == schedule and summary["stages"] == 2
+    ck = str(tmp_path / "ck")
+    cut = _main_on_ranks(argv + ["--steps", "2", "--checkpoint-dir", ck],
+                         spec, 2)
+    rest = _main_on_ranks(argv + ["--steps", "4", "--checkpoint-dir", ck],
+                          spec, 2)
+    for r in range(2):
+        got = [x["loss"] for x in cut[r] + rest[r]]
+        np.testing.assert_allclose(got, [x["loss"] for x in whole[r]],
+                                   rtol=1e-6)
+        assert [x["step"] for x in rest[r]] == [3, 4]
+
+
 NOT_PORTED = [("--steps-per-call", "2"), ("--zero",), ("--overlap",),
-              ("--dynamics-every", "2"), ("--checkpoint-dir", "/nonexistent"),
-              ("--quant", "int8"), ("--clipnorm", "1.0")]
+              ("--dynamics-every", "2"), ("--quant", "int8")]
 
 
 @pytest.mark.parametrize("flag", NOT_PORTED, ids=lambda f: f[0])
@@ -432,28 +484,45 @@ def test_microbatch_rule_matches_jax(devices, data, batch):
 def test_shards_for_rank_over_pipe_and_model(jax_runs, v):
     """``shards_for_rank`` of JAX's pipelined tree at each (pipe, model)
     coordinate is what that rank's ``PipelinedGPT`` holds once its
-    blocks are split over model; a pipelined optimizer state is
-    refused."""
-    params, _, _ = jax_runs["gpipe", v]
+    blocks are split over model; with JAX's optax state after one AdamW
+    update it gives the stage's optimizer state, each moment the rank's
+    cut of JAX's (the pipelined optimizer state, once refused)."""
+    import optax
+
+    params, _, grads = jax_runs["gpipe", v]
     cfg = _tcfg()
     layout = tw.LayoutMap(tm.gpt.GPT_BLOCK_RULES)
     shape = {"pipe": 2, "model": 2}
+    tx = optax.adamw(3e-4, weight_decay=0.1)
+    _, jstate = tx.update(grads, tx.init(params), params)
+    jstate = jax.device_get(jstate)
+    make = tw.get_workload("gpt_lm", test_size=True).make_optimizer
     for p in range(2):
         for r in range(2):
             coords = {"pipe": p, "model": r}
-            got = tm.convert.shards_for_rank(params, cfg, coords, shape,
-                                             layout=layout, n_virtual=v)
+            got = tm.convert.shards_for_rank(
+                params, cfg, coords, shape, layout=layout, n_virtual=v,
+                opt_state=jstate, make_optimizer=make)
             mesh = _mesh(pipe=2, model=2)
             mesh.coords.update(coords)
             model = PipelinedGPT(cfg, mesh, N_MICRO, n_virtual=v,
                                  device="cpu")
             model.load_state_dict(pipeline_params_from_flax(
                 params, cfg, stage=p, n_stages=2, n_virtual=v))
+            rules = sharding.tp_rules(model, cfg, layout)
             sharding.bind_tensor_parallel(model, cfg, layout, mesh)
             want = model.state_dict()
             assert got["params"].keys() == want.keys()
             for k, t in want.items():
                 assert torch.equal(got["params"][k], t), (p, r, k)
-    with pytest.raises(NotImplementedError, match="optimizer state"):
-        tm.convert.shards_for_rank(params, cfg, {"pipe": 0}, {"pipe": 2},
-                                   opt_state={}, n_virtual=v)
+            opt = make(list(model.named_parameters()))
+            opt.load_state_dict(got["opt_state"])
+            for slot, field in (("exp_avg", "mu"), ("exp_avg_sq", "nu")):
+                moments = pipeline_params_from_flax(
+                    getattr(jstate[0], field), cfg, stage=p, n_stages=2,
+                    n_virtual=v)
+                moments = sharding.shard_state(moments, rules, r, 2)
+                for k, t in model.named_parameters():
+                    assert torch.equal(opt.state[t][slot], moments[k]), \
+                        (p, r, k, slot)
+            assert opt.param_groups[0]["count"] == 1

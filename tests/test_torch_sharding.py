@@ -15,8 +15,9 @@ shards against JAX's on the global batch.  fp32 at dropout 0.
 
 The vocab-sharded head's plain twins over token tiles (the chunked
 heads' path) match the untiled twins, the scale-out combinations the
-port has not ported refuse (train_torch's flags), and the MoE presets
-bind over a model axis (their experts over ``expert``).
+port has not ported refuse (train_torch's flags) while checkpoints and
+clipping over the split axes pass them, and the MoE presets bind over a
+model axis (their experts over ``expert``).
 
 Tolerances: the spec tables exactly; losses 1e-5 relative (the vocab
 shards' logsumexp combines over the ranks); gradients 1e-4 of each
@@ -322,17 +323,13 @@ def test_vocab_parallel_plain_tiles_match_untiled(dtype, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mesh", "data=1,model=2", "--checkpoint-dir", "ck"],
-     "--checkpoint-dir over a model axis"),
-    (["--mesh", "data=1,model=2", "--clipnorm", "1.0"],
-     "--clipnorm over a model axis"),
+    (["--mesh", "data=1,model=2", "--optimizer", "adafactor", "--lr", "0.1"],
+     "adafactor over a model or expert axis"),
     (["--zero", "--dynamics-every", "2"], "--dynamics-every with --zero"),
     (["--zero", "--steps-per-call", "2"], "--steps-per-call > 1 with"),
     (["--overlap", "--steps-per-call", "2"], "--steps-per-call > 1 with"),
-    (["--mesh", "data=1,expert=2", "--checkpoint-dir", "ck"],
-     "--checkpoint-dir over an expert axis"),
-    (["--mesh", "data=1,expert=2", "--clipnorm", "1.0"],
-     "--clipnorm over an expert axis"),
+    (["--mesh", "data=1,expert=2", "--optimizer", "adafactor", "--lr",
+      "0.1"], "adafactor over a model or expert axis"),
     (["--mesh", "data=1,seq=2", "--zero"], "--zero and --overlap over"),
     (["--mesh", "data=1,expert=2", "--overlap"], "--zero and --overlap over"),
     (["--mesh", "data=1,seq=2", "--steps-per-call", "2"],
@@ -350,6 +347,20 @@ def test_unported_scaleout_flags_refuse(argv, match):
     for mesh in ("data=1,seq=2", "data=1,expert=2"):
         train_torch.check_flags(train_torch.parse_args(
             ["--test-size", "--device", "cpu", "--mesh", mesh]))
+
+
+@pytest.mark.parametrize("mesh", ["data=1,model=2", "data=1,expert=2",
+                                  "data=1,pipe=2"])
+@pytest.mark.parametrize("flag", [("--checkpoint-dir", "ck"),
+                                  ("--clipnorm", "1.0")], ids=lambda f: f[0])
+def test_checkpoints_and_clipping_pass_over_split_axes(mesh, flag):
+    """``--checkpoint-dir`` and ``--clipnorm`` over ``model``, ``expert``
+    and ``pipe`` (once refused) pass the checks, with the layer-wise
+    optimizers (``parallel.placement``)."""
+    for opt in ([], ["--optimizer", "lamb", "--lr", "1e-3"]):
+        train_torch.check_flags(train_torch.parse_args(
+            ["--workload", "gpt_lm", "--test-size", "--device", "cpu",
+             "--mesh", mesh, *flag, *opt]))
 
 
 @pytest.mark.parametrize("name", ["gpt_moe", "bert_moe"])

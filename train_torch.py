@@ -634,6 +634,10 @@ def build(args: argparse.Namespace, checkpointer=None):
     is its newest verified checkpoint, if it has one, and the batches
     start after the ones the saved run consumed."""
     mesh, device = bootstrap_mesh(args)
+    if checkpointer is not None and mesh is not None:
+        # every rank of the mesh takes part in a save (a split model's
+        # pieces are gathered) and in the preemption's agreement
+        checkpointer.set_mesh(mesh.world)
     try:
         wl = get_workload(
             args.workload, test_size=args.test_size,
@@ -814,6 +818,19 @@ def _counting_first_step(step, config: TrainerConfig):
     return counted
 
 
+def pipeline_fields(model) -> dict:
+    """``train.py``'s ``pipeline_*`` stamps of a pipelined model
+    (``train.py:1425-1433``) for ``TrainerConfig``; none for another
+    model."""
+    if not hasattr(model, "bubble_fraction"):
+        return {}
+    return dict(pipeline_schedule=model.schedule,
+                pipeline_stages=model.n_stages,
+                pipeline_microbatches=model.n_microbatches,
+                pipeline_virtual=model.n_virtual,
+                pipeline_bubble=model.bubble_fraction())
+
+
 class _PrintRecords(Callback):
     """train_torch's one JSON line a log step (printed by the chief), from
     the Trainer's record, gathered into ``records``."""
@@ -840,20 +857,11 @@ def check_flags(args) -> None:
     """train.py's setup checks of the telemetry, input and scale-out
     flags, and the port's own refusals of what it has not ported."""
     spec = parse_mesh(args.mesh)
-    if spec is not None and spec.model > 1:
-        if args.checkpoint_dir:
-            raise SystemExit("--checkpoint-dir over a model axis is not "
-                             "ported (each model rank holds other shards)")
-        if args.clipnorm:
-            raise SystemExit("--clipnorm over a model axis is not ported "
-                             "(the global norm spans the model ranks)")
-    if spec is not None and spec.expert > 1:
-        if args.checkpoint_dir:
-            raise SystemExit("--checkpoint-dir over an expert axis is not "
-                             "ported (each expert rank holds other experts)")
-        if args.clipnorm:
-            raise SystemExit("--clipnorm over an expert axis is not ported "
-                             "(the global norm spans the expert ranks)")
+    if spec is not None and (spec.model > 1 or spec.expert > 1) \
+            and args.optimizer == "adafactor":
+        raise SystemExit("--optimizer adafactor over a model or expert axis "
+                         "is not ported (its factored moments and RMS terms "
+                         "span the whole parameter)")
     if spec is not None and (spec.seq > 1 or spec.expert > 1):
         axes = "a seq or expert axis"
         if args.zero or args.overlap:
@@ -873,14 +881,9 @@ def check_flags(args) -> None:
             raise SystemExit(f"--mesh pipe={spec.pipe}: the pipeline is for "
                              f"the GPT LMs ({', '.join(SEQ_PARALLEL)}), not "
                              f"{args.workload}")
-        if args.clipnorm:
-            raise SystemExit("--clipnorm over a pipe axis is not ported "
-                             "(the global norm spans the stages, and each "
-                             "stage holds its own copy of wte and ln_f)")
         for flag, on in (("--steps-per-call > 1", args.steps_per_call > 1),
                          ("--zero", args.zero), ("--overlap", args.overlap),
                          ("--dynamics-every", args.dynamics_every),
-                         ("--checkpoint-dir", args.checkpoint_dir),
                          ("--quant", args.quant != "none")):
             if on:
                 raise SystemExit(f"{flag} over a pipe axis is not ported (no "
@@ -1102,7 +1105,9 @@ def _train(args) -> list[dict]:
         if args.eval_every else None
     # SIGTERM (a preemption notice) -> a save at the next step boundary on
     # every rank, then a clean stop; the rerun resumes from that step
-    preemption = PreemptionHandler(checkpointer) if checkpointer else None
+    preemption = PreemptionHandler(
+        checkpointer, mesh=mesh.world if mesh is not None else None) \
+        if checkpointer else None
     config = TrainerConfig(
         total_steps=args.steps, log_every=args.log_every,
         eval_every=args.eval_every, eval_steps=0 if records else EVAL_STEPS,
@@ -1126,7 +1131,8 @@ def _train(args) -> list[dict]:
         anomaly_detection=not args.no_anomaly_detection,
         status_port=args.status_port, status_host=args.status_host,
         flight_recorder=args.flight_recorder,
-        dynamics_every=args.dynamics_every)
+        dynamics_every=args.dynamics_every,
+        **pipeline_fields(state.model))
     if not config.flops_per_step and args.estimate_flops != "off":
         if wl.name.startswith(("gpt", "lm_")):
             # the whole model's parameters (a model rank holds shards, a
