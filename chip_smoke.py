@@ -39,7 +39,7 @@ Phases, each fatal on failure:
    (phase 19, serve_cli, drives it through ``serve_torch.py``);
 6. dense generate: ``generate`` at full width, batch 4 (K5 launched
    once a layer and one-token step); generate_gqa: gpt_small with one kv
-   head, batch 2, a 6000-token prompt in a cache of 8192, 16 greedy
+   head, batch 2, a 3000-token prompt in a cache of 8192, 16 greedy
    tokens under ``DECODE_IMPL`` "auto" (K5) and "xla" (einsum path):
    the same tokens, the next logits within 1e-2;
 7. profile: torch.profiler over a serving and a generate window (wall
@@ -332,14 +332,32 @@ Phases, each fatal on failure:
     checkpoints restored into one process give each rank's pieces bit for
     bit, and one clipped step there equals the split step 3; one LAMB
     step over model=2 equals one process's (``run_splitckpt``).
+28. splitzero: in the same two gloo processes, gpt_lm at full width cut
+    to 2 layers (gpt_moe over expert), batch 2: one ``--dynamics-every
+    1`` step over ``data=1,seq=2`` (S 2048), ``data=1,expert=2``,
+    ``data=1,pipe=2`` (1F1B) and ``data=2 --zero``, fp32 and bf16, each
+    rank's ``dynamics/`` values bit-equal to the other's and to one
+    process's statistics of the gathered whole gradients and parameters
+    within 1e-5; ``--quant int8`` and ``fp8`` over pipe=2 in fp32, the
+    loss within 1e-5 of the dense quantised model's in this process
+    (``run_splitzero``).
+29. quad: four gloo processes on the card, started with the split
+    workers (after every phase that times a kernel): ``--zero
+    --overlap`` over ``data=2,seq=2``, ``data=2,expert=2`` (gpt_moe, no
+    token dropped) and ``data=2,pipe=2`` (1F1B), 2 fp32 steps against
+    one process's from the same weights and global batch (losses 1e-5,
+    first-step gradients 1e-4 of each max-abs, update norms 1e-3), each
+    rank's optimizer state half the unsharded, K1f/K1b/K2/K3f launched on
+    every rank (K4f/K4b too over expert), and the bf16 step's ms with and
+    without ``--zero --overlap`` (``run_quad``; no scaling time).
 
 Kernel launch counts are set to 0 just before phases 5, 6 (each generate
 run), 9-11, 13, 14 (each path; in each rank's process), 15's resumed
 steps, 16's run through ``train_torch.main``, 17's runs, 18's training
 steps and decoding, each server run of 19, 20's steps, each of 21's
 optimizer runs, 23's two ``train_torch.main`` runs and its serving runs,
-24's, 25's and 26's steps and 27's resumed steps (in each rank's
-process), and read just after (a
+24's, 25's and 26's steps, 27's resumed steps and 28's and 29's
+steps (in each rank's process), and read just after (a
 replayed graph counts what its capture counted); a kernel of the path
 that did not launch, or a gpt_lm, gpt_moe or BERT training step that
 launched a kernel another number of times than its forward,
@@ -1468,12 +1486,15 @@ def run_train_moe(torch, cuda, train_torch):
 
 
 def run_profile_train(torch, state, step, batches, phase="profile_train"):
+    """torch.profiler over two steps: the wall, the device's busy time and
+    its top kernels.  The card's activity alone is traced (since PR 22):
+    nothing read the host ops' trace, whose cost filled the window's
+    wall."""
     from torch.profiler import ProfilerActivity, profile
 
     batch = [next(batches) for _ in range(2)]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         for bt in batch:
             state, m = step(state, bt)
@@ -1483,6 +1504,8 @@ def run_profile_train(torch, state, step, batches, phase="profile_train"):
     kernels = device_events(torch, prof)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
+    if not busy:
+        raise AssertionError(f"{phase}: no device time traced")
     emit({"phase": phase, "steps": 2, "wall_ms": 1e3 * wall,
           "device_busy_ms": busy,
           "device_idle_share": 1.0 - busy / (1e3 * wall),
@@ -1740,10 +1763,16 @@ def _last_logits(torch, mods, model, tokens):
     return logits[:, -1].float()
 
 
+#: generate_gqa's prompt: 6000 tokens until PR 21; 3000 since PR 22 (the
+#: one-token forwards of both paths, 20 s of the script's limit), still
+#: ~3x past the band the first K5 held in shared memory
+GQA_PROMPT = 3000
+
+
 def run_generate_gqa(torch, cuda, mods, attn):
     """Dense ``generate`` on gpt_small at full width, cut to 2 layers,
     with one kv head (12
-    query heads a group, which the first K5 refused), B 2, a 6000-token
+    query heads a group, which the first K5 refused), B 2, a GQA_PROMPT
     prompt in a cache of 8192 (past the first K5's shared-memory band),
     then 16 greedy tokens: once under ``DECODE_IMPL = "auto"`` (K5, one
     launch per layer and one-token step) and once under ``"xla"`` (the
@@ -1752,7 +1781,7 @@ def run_generate_gqa(torch, cuda, mods, attn):
     in the L2 norm (bf16: the two paths' attention outputs differ by a
     bf16 rounding here and there, which the bf16 layers carry to the
     logits; the largest single difference is reported beside it)."""
-    # 6015 one-token forwards a run, each bound by the host's launches,
+    # GQA_PROMPT + 15 one-token forwards a run, each bound by the host's launches,
     # which grow with the depth: cut to 2 layers to keep the script's
     # time
     cfg = dataclasses.replace(mods.gpt_small(), num_layers=2, num_kv_heads=1,
@@ -1761,7 +1790,7 @@ def run_generate_gqa(torch, cuda, mods, attn):
     model = mods.GPTLM(cfg)
     model.load_state_dict(state)
     prompt = torch.as_tensor(np.random.default_rng(SEED + 12).integers(
-        0, cfg.vocab_size, (2, 6000)), device=model.device)
+        0, cfg.vocab_size, (2, GQA_PROMPT)), device=model.device)
     new_tokens = 16
     steps = prompt.shape[1] + new_tokens - 1  # one-token forwards
     out, launches, walls, logits = {}, {}, {}, {}
@@ -1786,13 +1815,13 @@ def run_generate_gqa(torch, cuda, mods, attn):
     want = {"auto": cfg.num_layers * steps, "xla": 0}
     got = {k: launches[k].get("decode_attention", 0) for k in want}
     top2 = logits["xla"].topk(2, dim=-1).values
-    row = {"phase": "generate_gqa", "batch": 2, "prompt": 6000,
+    row = {"phase": "generate_gqa", "batch": 2, "prompt": GQA_PROMPT,
            "new_tokens": new_tokens, "max_seq": cfg.max_seq,
            "layers": cfg.num_layers, "num_heads": cfg.num_heads,
            "kv_heads": cfg.kv_heads,
            "dtype": str(cfg.dtype)[6:], "same_greedy_tokens": same,
-           "tokens_auto": out["auto"][:, 6000:].tolist(),
-           "tokens_xla": out["xla"][:, 6000:].tolist(),
+           "tokens_auto": out["auto"][:, GQA_PROMPT:].tolist(),
+           "tokens_xla": out["xla"][:, GQA_PROMPT:].tolist(),
            "next_logits_rel_err": err,
            "next_logits_max_abs_err": diff.abs().max().item(),
            "next_logits_max_abs": logits["xla"].abs().max().item(),
@@ -1834,8 +1863,7 @@ def run_profile(torch, Engine, generate, model, vocab):
                                                    max_new_tokens=16))):
         fn()  # warm
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.time()
             fn()
             torch.cuda.synchronize()
@@ -1843,6 +1871,8 @@ def run_profile(torch, Engine, generate, model, vocab):
         kernels = device_events(torch, prof)
         busy = sum(e.self_device_time_total for e in kernels) / 1e3
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+        if not busy:
+            raise AssertionError(f"profile_{name}: no device time traced")
         emit({"phase": f"profile_{name}", "wall_ms": 1e3 * wall,
               "device_busy_ms": busy,
               "device_idle_share": 1.0 - busy / (1e3 * wall),
@@ -3503,7 +3533,7 @@ def run_ckpt(torch, cuda, train_torch, smi, device="cuda"):
 TRAINER_STEPS, TRAINER_LOG, TRAINER_EVAL = 12, 2, 6
 TRAINER_PROFILE = (3, 2)
 TRAINER_PROBE_STEP = 8
-AB_ROUNDS, AB_STEPS, AB_LOG = 2, 20, 10
+AB_ROUNDS, AB_STEPS, AB_LOG = 2, 10, 5
 GATE_ARGS = ("--eval-every", "50", "--target-metric", "accuracy",
              "--target-value", "0.97", "--steps", "2000", "--log-every",
              "50")
@@ -6448,7 +6478,8 @@ def _seqex_results(torch, out_dir) -> dict:
 #: and each one's directory: its references, marker and result files.
 SPLIT_DIRS = {"seqexpert": "build/seqexpert_check",
               "pipeline": "build/pipeline_check",
-              "splitckpt": "build/splitckpt_check"}
+              "splitckpt": "build/splitckpt_check",
+              "splitzero": "build/splitzero_check"}
 
 
 def split_worker(phases) -> int:
@@ -6463,7 +6494,7 @@ def split_worker(phases) -> int:
     from distributedtensorflow_tpu_torch.parallel import bootstrap
 
     run = {"seqexpert": _seqex_results, "pipeline": _pipe_results,
-           "splitckpt": _splitck_results}
+           "splitckpt": _splitck_results, "splitzero": _splitz_results}
     for phase in phases.split(","):
         results = run[phase](torch, SPLIT_DIRS[phase])
         path = f"{SPLIT_DIRS[phase]}/rank{bootstrap.process_index()}.pt"
@@ -6806,11 +6837,11 @@ def _pipe_step(torch, cuda, train_torch, argv, timed=False):
         # optimizer update's, the same under every schedule)
         run = model._train
 
-        def measured(ids):
+        def measured(ids, *args):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             start = torch.cuda.memory_allocated()
-            out = run(ids)
+            out = run(ids, *args)
             torch.cuda.synchronize()
             passes.append(torch.cuda.max_memory_allocated() - start)
             return out
@@ -7128,10 +7159,11 @@ def _splitck_argv(layout, dtype, mesh=True):
     return argv
 
 
-def _splitck_build(train_torch, argv, seed=SEED):
-    """``train_torch.build`` at SPLITCK_LAYERS layers, dropout 0, its
-    weights the dense state of ``seed`` (drawn once a process,
-    :data:`_SPLITCK_INIT`; a pipe rank keeps its stage's entries)."""
+def _splitck_build(train_torch, argv, seed=SEED, **fields):
+    """``train_torch.build`` at SPLITCK_LAYERS layers, dropout 0 (and the
+    config's ``fields``), its weights the dense state of ``seed`` (drawn
+    once a process, :data:`_SPLITCK_INIT`; a pipe rank keeps its stage's
+    entries)."""
     make = train_torch.get_workload
 
     def init_params(init):
@@ -7146,7 +7178,7 @@ def _splitck_build(train_torch, argv, seed=SEED):
         wl = make(*args, **kw)
         return dataclasses.replace(
             wl, cfg=dataclasses.replace(wl.cfg, num_layers=SPLITCK_LAYERS,
-                                        dropout_rate=0.0),
+                                        dropout_rate=0.0, **fields),
             init_params=init_params(wl.init_params))
 
     train_torch.get_workload = cut
@@ -7548,10 +7580,518 @@ def run_splitckpt(torch, cuda, train_torch, workers):
     return launches
 
 
+#: The splitzero phase (PR 22): ZeRO, the bucketed overlap, the dynamics
+#: and quantised stages over the split axes.  gpt_lm at full width (768,
+#: 12 heads, vocab 50257) cut to SPLITZ_LAYERS layers (gpt_moe for
+#: expert), dropout 0, batch SPLITZ_BATCH at SPLITZ_SEQ tokens (twice that
+#: over seq, so that a rank's chunk of 1024 passes the flash gate).
+SPLITZ_LAYERS, SPLITZ_BATCH, SPLITZ_SEQ = SPLITCK_LAYERS, 2, 1024
+_PIPE_1F1B = ("--pipeline-schedule", "1f1b", "--xent-impl", "chunked")
+#: (name, preset, mesh, flags) of the two-rank --dynamics-every 1 runs.
+SPLITZ_DYN = (("seq2", "gpt_lm", "data=1,seq=2", ()),
+              ("expert2", "gpt_moe", "data=1,expert=2", ()),
+              ("pipe2", "gpt_lm", "data=1,pipe=2", _PIPE_1F1B),
+              ("zero2", "gpt_lm", "data=2", ("--zero",)))
+SPLITZ_DTYPES = ("float32", "bfloat16")
+SPLITZ_QUANT = ("int8", "fp8")
+#: A rank's dynamics/ values against one process's StepStats of the same
+#: gathered whole tensors (fp32 sums of one set of values in another
+#: order), both dtypes: relative; non-finite counts exactly.  The
+#: quantised pipeline's fp32 loss against the dense quantised model's in
+#: one process: relative (the two run the same kernels, fp32).
+SPLITZ_STAT_RTOL = 1e-5
+SPLITZ_QUANT_RTOL = SCALE_TOL["float32"][0]
+#: The four-rank group: (name, preset, mesh, flags), gpt_moe at a
+#: capacity factor of its expert count (no token dropped: the one-process
+#: reference routes the same tokens), batch QUAD_BATCH; QUAD_STEPS fp32
+#: steps under --zero --overlap against one process; QUAD_TIMED bf16
+#: steps after one warm-up with and without --zero --overlap.
+QUAD_MESHES = (("seq2", "gpt_lm", "data=2,seq=2", ()),
+               ("expert2", "gpt_moe", "data=2,expert=2", ()),
+               ("pipe2", "gpt_lm", "data=2,pipe=2", _PIPE_1F1B))
+QUAD_BATCH, QUAD_STEPS, QUAD_TIMED = 4, 2, 3
+QUAD_DIR = "build/quad_check"
+QUAD_KERNELS = ("layernorm_fwd", "layernorm_bwd", "flash_fwd",
+                "flash_bwd_fused")
+#: Against one process (PR 18-21's fp32 measures): the losses 1e-5
+#: relative, the first step's gradients 1e-4 of each one's max-abs, each
+#: parameter's update norm over the two steps SPLITCK_NORM_TOL (Adam
+#: divides each entry by its own root, so a near-zero gradient entry
+#: summed in another order moves its update by a sign; the norm of a
+#: whole parameter's update does not feel it); a ZeRO rank's optimizer
+#: state 0.45-0.55 of the unsharded one's.
+QUAD_TOL = SCALE_TOL["float32"]
+SPLITZ_NOTE = ("processes on one card over gloo (collectives through the "
+               "host): no time here is a scaling time")
+
+
+def _splitz_argv(preset, axes, dtype, extra=(), batch=SPLITZ_BATCH,
+                 mesh=True):
+    """train_torch's flags of a splitzero or quad run; ``mesh=False``: the
+    one-process twin."""
+    seq = SPLITZ_SEQ * (2 if "seq=" in axes else 1)
+    argv = ["--workload", preset, "--batch-size", str(batch), "--seq-len",
+            str(seq), "--accum-steps", "1", "--dtype", dtype, "--seed",
+            str(SEED), "--device", "cuda", "--prefetch-depth", "0", *extra]
+    if mesh:
+        argv += ["--mesh", axes, "--dist-backend", "gloo"]
+    return argv
+
+
+def _fields(preset):
+    """The config fields a run of ``preset`` replaces (gpt_moe: the
+    capacity factor of its 8 experts, no token dropped)."""
+    return {"capacity_factor": 8.0} if preset == "gpt_moe" else {}
+
+
+def _splitz_build(train_torch, argv, preset):
+    """:func:`_splitck_build` of ``argv``, and the mesh ``build`` made."""
+    real, made = train_torch.bootstrap_mesh, []
+
+    def keep(args):
+        made.append(real(args))
+        return made[-1]
+
+    train_torch.bootstrap_mesh = keep
+    try:
+        wl, state, step, batches = _splitck_build(train_torch, argv,
+                                                  **_fields(preset))
+    finally:
+        train_torch.bootstrap_mesh = real
+    return wl, state, step, batches, made[0][0]
+
+
+def _whole(torch, state, tensors, rows=False):
+    """The whole tensors (dense names) of this rank's ``tensors``: ZeRO's
+    ``rows`` gathered over the batch group and unchunked first, then the
+    pieces of a split model put together (``Placement.gather``); on the
+    CPU, fp32.  Collective: every rank calls it."""
+    from distributedtensorflow_tpu_torch.parallel import collectives
+    from distributedtensorflow_tpu_torch.parallel import zero as zero_lib
+
+    if rows:
+        z = state.zero
+        tensors = {n: zero_lib.unchunk_array(collectives.all_gather(
+            tensors[n].contiguous(), z.group).reshape(z.degree, -1), p.shape)
+            for n, p in zip(z.names, z.params)}
+    if state.placement is not None:
+        tensors = state.placement.gather(tensors)
+    return {k: v.detach().float().cpu().clone() for k, v in tensors.items()}
+
+
+class _Named:
+    """A model-like holder of named tensors (``named_parameters``)."""
+
+    def __init__(self, tensors):
+        self.tensors = tensors
+
+    def named_parameters(self):
+        return iter(self.tensors.items())
+
+
+def _splitz_dyn_run(torch, cuda, train_torch, layout, dtype):
+    """One --dynamics-every 1 step on this rank: its ``dynamics/`` values,
+    and those of one process's StepStats (no split) on the step's whole
+    gradients and parameters (gathered on every rank, computed on the
+    card), the launches and the seconds."""
+    from distributedtensorflow_tpu_torch.obs import dynamics as dynlib
+
+    name, preset, axes, extra = layout
+    t0 = time.perf_counter()
+    wl, state, step, batches, mesh = _splitz_build(
+        train_torch, _splitz_argv(preset, axes, dtype,
+                                  ("--dynamics-every", "1", *extra)), preset)
+    seen = {}
+    before, after = dynlib.StepStats.before, dynlib.StepStats.after
+
+    def spy_before(self, model, grads):
+        seen["grads"] = {k: v.detach().clone() for k, v in grads.items()}
+        seen["old"] = {k: p.detach().clone()
+                       for k, p in model.named_parameters()}
+        return before(self, model, grads)
+
+    def spy_after(self, model, stats, old):
+        seen["new"] = {k: p.detach().clone()
+                       for k, p in model.named_parameters()}
+        return after(self, model, stats, old)
+
+    batch = next(batches)
+    torch.cuda.synchronize()
+    cuda.launches.clear()
+    dynlib.StepStats.before, dynlib.StepStats.after = spy_before, spy_after
+    try:
+        state, m = step(state, batch)
+    finally:
+        dynlib.StepStats.before, dynlib.StepStats.after = before, after
+    torch.cuda.synchronize()
+    launches = dict(cuda.launches)
+    got = {k: float(v) for k, v in m.items()
+           if k.startswith(dynlib.METRIC_PREFIX)}
+    rows = state.zero is not None
+    whole = {"grads": _whole(torch, state, seen["grads"], rows),
+             "old": _whole(torch, state, seen["old"]),
+             "new": _whole(torch, state, seen["new"])}
+    modules = train_torch.dynamics_modules(wl.cfg, state.model)
+    dev = state.model.device
+    on = {k: {n: t.to(dev) for n, t in v.items()} for k, v in whole.items()}
+    ref = dynlib.StepStats(list(on["old"]), modules)
+    stats, old = ref.before(_Named(on["old"]), on["grads"])
+    stats = ref.after(_Named(on["new"]), stats, old)
+    ref = {k: float(v) for k, v in stats.items()}
+    errs = {k: abs(got[k] - v) / max(abs(v), 1e-30) for k, v in ref.items()
+            if "/nonfinite/" not in k}
+    counts_equal = all(got[k] == v for k, v in ref.items()
+                       if "/nonfinite/" in k)
+    del state, step, batches, seen, whole, on, old, stats
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"dynamics": got, "keys_equal": set(got) == set(ref),
+            "stat_rel_err": max(errs.values()),
+            "worst_stat": max(errs, key=errs.get),
+            "counts_equal": counts_equal, "launches": launches,
+            "loss": float(m["loss"]), "coords": dict(mesh.coords),
+            "seconds": time.perf_counter() - t0}
+
+
+def _splitz_quant_run(torch, cuda, train_torch, mode):
+    """One fp32 step of gpt_lm at ``--quant mode`` over pipe=2 (1F1B):
+    its loss and launches."""
+    _, state, step, batches, _ = _splitz_build(
+        train_torch, _splitz_argv("gpt_lm", "data=1,pipe=2", "float32",
+                                  ("--quant", mode, *_PIPE_1F1B)), "gpt_lm")
+    cuda.launches.clear()
+    state, m = step(state, next(batches))
+    torch.cuda.synchronize()
+    out = {"loss": float(m["loss"]), "launches": dict(cuda.launches),
+           "quant_layers": sum(type(mod).__name__ == "QuantDense"
+                               for mod in state.model.modules())}
+    del state, step, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _splitz_results(torch, out_dir) -> dict:
+    """A split worker's rank of the splitzero phase: every SPLITZ_DYN
+    layout in SPLITZ_DTYPES, then the quantised pipeline's runs."""
+    import train_torch
+    from distributedtensorflow_tpu_torch.ops import _cuda
+
+    results = {}
+    for dtype in SPLITZ_DTYPES:
+        for layout in SPLITZ_DYN:
+            results[layout[0], dtype] = _splitz_dyn_run(
+                torch, _cuda, train_torch, layout, dtype)
+    for mode in SPLITZ_QUANT:
+        results["quant", mode] = _splitz_quant_run(torch, _cuda, train_torch,
+                                                   mode)
+    _SPLITCK_INIT.clear()
+    return results
+
+
+def run_splitzero(torch, cuda, train_torch, workers):
+    """The two-rank checks of PR 22, in the split ``workers`` over gloo on
+    the one card: (a) ``--dynamics-every 1`` over seq=2, expert=2, pipe=2
+    (1F1B) and data=2 with ``--zero``, fp32 and bf16: both ranks'
+    ``dynamics/`` values bit-equal, and equal to one process's StepStats
+    of the same gathered whole gradients and parameters within
+    SPLITZ_STAT_RTOL; (b) ``--quant int8`` and ``fp8`` over pipe=2: the
+    fp32 loss within SPLITZ_QUANT_RTOL of the dense quantised model's in
+    this process (same weights, same batch), which runs while the workers
+    do."""
+    t0 = time.time()
+    dense = {}
+    for mode in SPLITZ_QUANT:
+        _, state, step, batches, _ = _splitz_build(
+            train_torch, _splitz_argv("gpt_lm", "data=1,pipe=2", "float32",
+                                      ("--quant", mode, "--xent-impl",
+                                       "chunked"), mesh=False), "gpt_lm")
+        state, m = step(state, next(batches))
+        dense[mode] = float(m["loss"])
+        del state, step, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    ranks = _split_results(torch, workers, "splitzero")
+    _SPLITCK_INIT.clear()
+    launches, failures = collections.Counter(), []
+    for dtype in SPLITZ_DTYPES:
+        for name, preset, axes, extra in SPLITZ_DYN:
+            got = [rk[name, dtype] for rk in ranks]
+            same = got[0]["dynamics"] == got[1]["dynamics"]
+            ok = same and all(
+                g["keys_equal"] and g["counts_equal"]
+                and g["stat_rel_err"] <= SPLITZ_STAT_RTOL for g in got)
+            for g in got:
+                launches.update(g["launches"])
+            emit({"phase": "splitzero_dynamics", "layout": name,
+                  "dtype": dtype, "workload": preset, "mesh": axes,
+                  "flags": list(extra), "layers": SPLITZ_LAYERS,
+                  "batch": SPLITZ_BATCH, "modules": sorted(
+                      {k.split("/")[-1] for k in got[0]["dynamics"]}),
+                  "global_grad_norm":
+                      got[0]["dynamics"]["dynamics/global_grad_norm"],
+                  "ranks_bit_equal": same,
+                  "stat_rel_err": [g["stat_rel_err"] for g in got],
+                  "worst_stat": got[0]["worst_stat"],
+                  "losses": [g["loss"] for g in got],
+                  "launches": [g["launches"] for g in got],
+                  "seconds": [g["seconds"] for g in got], "ok": ok,
+                  "tolerance": f"ranks bit for bit; one process's stats of "
+                               f"the gathered tensors {SPLITZ_STAT_RTOL} "
+                               "relative, counts exactly",
+                  "note": SPLITZ_NOTE})
+            if not ok:
+                failures.append((name, dtype))
+    for mode in SPLITZ_QUANT:
+        got = [rk["quant", mode] for rk in ranks]
+        errs = [abs(g["loss"] - dense[mode]) / abs(dense[mode]) for g in got]
+        ok = max(errs) <= SPLITZ_QUANT_RTOL and all(
+            g["quant_layers"] > 0 for g in got)
+        for g in got:
+            launches.update(g["launches"])
+        emit({"phase": "splitzero_quant_pipe", "quant": mode,
+              "mesh": "data=1,pipe=2", "schedule": "1f1b", "dtype": "float32",
+              "losses": [g["loss"] for g in got], "dense_loss": dense[mode],
+              "loss_rel_err": errs,
+              "quant_layers": [g["quant_layers"] for g in got],
+              "launches": [g["launches"] for g in got], "ok": ok,
+              "tolerance": f"loss {SPLITZ_QUANT_RTOL} relative to the dense "
+                           "quantised model's in one process"})
+        if not ok:
+            failures.append(("quant", mode))
+    emit({"phase": "splitzero_seconds", "seconds": time.time() - t0})
+    if failures:
+        raise AssertionError(f"splitzero: {failures} failed")
+    return launches
+
+
+def _quad_run(torch, cuda, train_torch, layout, dtype, flags, steps):
+    """``steps`` steps of a quad run on this rank: the losses, each
+    step's seconds, the launches; in fp32 under ZeRO also the first
+    step's whole gradients, the whole parameters after, and the
+    optimizer state's bytes beside the unsharded state's."""
+    name, preset, axes, extra = layout
+    wl, state, step, batches, mesh = _splitz_build(
+        train_torch, _splitz_argv(preset, axes, dtype, (*flags, *extra),
+                                  batch=QUAD_BATCH), preset)
+    keep = dtype == "float32" and state.zero is not None
+    first = {}
+    if keep:
+        apply = state.zero.apply_gradients
+
+        def record(st, grads, **kw):  # this rank's summed rows
+            if not first:
+                first.update({k: v.detach().clone() for k, v in grads.items()})
+            return apply(st, grads, **kw)
+
+        state.zero.apply_gradients = record
+    cuda.launches.clear()
+    losses, secs = [], []
+    for _ in range(steps):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    out = {"losses": losses, "step_s": secs, "launches": dict(cuda.launches),
+           "coords": dict(mesh.coords)}
+    if keep:
+        out["grads"] = _whole(torch, state, first, rows=True)
+        out["params"] = _whole(torch, state, dict(
+            state.model.named_parameters()))
+        out["opt_state_bytes"] = sum(
+            v.numel() * v.element_size()
+            for st in state.optimizer.state.values()
+            for v in st.values() if torch.is_tensor(v) and v.dim())
+        # AdamW's two fp32 moments of this rank's own (unsharded) pieces
+        out["unsharded_bytes"] = 2 * 4 * sum(
+            p.numel() for p in state.model.parameters())
+        out["overlap"] = state.overlap.describe()
+    del state, step, batches, first
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def quad_worker(out_dir) -> int:
+    """One rank of the four-rank group (``--quad-worker``): the cluster
+    from torchrun's variables, gloo, every QUAD_MESHES mesh in fp32 under
+    ``--zero --overlap`` (QUAD_STEPS steps) and in bf16 with and without
+    them (one warm-up and QUAD_TIMED steps); saved as
+    ``<out_dir>/rank<r>.pt`` (aside, then renamed)."""
+    import torch
+
+    import train_torch
+    from distributedtensorflow_tpu_torch.ops import _cuda
+    from distributedtensorflow_tpu_torch.parallel import bootstrap
+
+    both = ("--zero", "--overlap")
+    results = {}
+    for layout in QUAD_MESHES:
+        name = layout[0]
+        results[name, "float32"] = _quad_run(torch, _cuda, train_torch,
+                                             layout, "float32", both,
+                                             QUAD_STEPS)
+        for tag, flags in (("zero_overlap", both), ("plain", ())):
+            results[name, tag] = _quad_run(torch, _cuda, train_torch, layout,
+                                           "bfloat16", flags, 1 + QUAD_TIMED)
+    _SPLITCK_INIT.clear()
+    path = f"{out_dir}/rank{bootstrap.process_index()}.pt"
+    torch.save(results, path + ".part")
+    os.replace(path + ".part", path)
+    bootstrap.shutdown()
+    return 0
+
+
+def _start_quad_workers():
+    """The four-rank group on the one card (``LOCAL_RANK`` 0), its
+    directory emptied first."""
+    from distributedtensorflow_tpu_torch.parallel import bootstrap
+
+    shutil.rmtree(QUAD_DIR, ignore_errors=True)
+    os.makedirs(QUAD_DIR)
+    env = {**os.environ, "MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(bootstrap.free_port()), "WORLD_SIZE": "4",
+           "LOCAL_RANK": "0"}
+    return [subprocess.Popen([sys.executable, __file__, "--quad-worker",
+                              QUAD_DIR], env={**env, "RANK": str(r)})
+            for r in range(4)]
+
+
+def _quad_reference(torch, cuda, train_torch, layout):
+    """One process's QUAD_STEPS fp32 steps of a quad mesh's model on its
+    global batch (the two replicas' pipelines, rank-major), from the same
+    weights; gpt_moe routes its tokens in the four ranks' shards
+    (:func:`_shard_routed`): the losses, the first step's gradients and
+    the parameters after."""
+    import functools
+
+    from distributedtensorflow_tpu_torch.data import (
+        InputContext,
+        device_put_batch,
+    )
+    from distributedtensorflow_tpu_torch.models.gpt_moe import (
+        MoEMLP,
+        _expert_mlp,
+    )
+    from distributedtensorflow_tpu_torch.parallel.moe import local_moe
+
+    name, preset, axes, extra = layout
+    wl, state, step, _, _ = _splitz_build(
+        train_torch, _splitz_argv(preset, axes, "float32",
+                                  ("--xent-impl", "chunked")
+                                  if name == "pipe2" else (),
+                                  batch=QUAD_BATCH, mesh=False), preset)
+    if preset == "gpt_moe":
+        for mod in state.model.modules():
+            if isinstance(mod, MoEMLP):
+                mod.moe_fn = functools.partial(_shard_routed, local_moe,
+                                               _expert_mlp, mod.cfg, 4)
+    grads = {}
+    apply = state.apply_gradients
+
+    def record(g):
+        if not grads:
+            grads.update({k: v.detach().float().cpu() for k, v in g.items()})
+        return apply(g)
+
+    state.apply_gradients = record
+    init = {k: p.detach().float().cpu().clone()
+            for k, p in state.model.named_parameters()}
+    srcs = [wl.input_fn(InputContext(2, r, QUAD_BATCH), SEED)
+            for r in range(2)]
+    losses = []
+    for _ in range(QUAD_STEPS):
+        parts = [next(src) for src in srcs]
+        state, m = step(state, device_put_batch(
+            {k: np.concatenate([q[k] for q in parts]) for k in parts[0]},
+            state.model.device))
+        losses.append(float(m["loss"]))
+    out = {"losses": losses, "grads": grads, "init": init,
+           "params": {k: p.detach().float().cpu()
+                      for k, p in state.model.named_parameters()}}
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_quad(torch, cuda, train_torch, workers):
+    """The four-rank group (``quad_worker``, four gloo processes on the
+    one card, started with the split workers): each QUAD_MESHES mesh
+    under ``--zero --overlap`` in fp32 against one process's steps from
+    the same weights and global batch (:func:`_quad_reference`, here
+    while the ranks run): the losses, the first step's gradients, each
+    parameter's update norm over the steps (QUAD_TOL, SPLITCK_NORM_TOL);
+    each rank's optimizer state about half of the unsharded one's; the
+    launches of QUAD_KERNELS on every rank (and the fused head's over
+    expert); the bf16 step ms with and without ``--zero --overlap``."""
+    t0 = time.time()
+    refs = {layout[0]: _quad_reference(torch, cuda, train_torch, layout)
+            for layout in QUAD_MESHES}
+    _SPLITCK_INIT.clear()
+    paths = [f"{QUAD_DIR}/rank{r}.pt" for r in range(4)]
+    _wait_files(paths, workers, "quad")
+    ranks = [torch.load(p) for p in paths]
+    rcs = [p.wait(timeout=120) for p in workers]
+    shutil.rmtree(QUAD_DIR, ignore_errors=True)
+    if any(rcs):
+        raise AssertionError(f"quad: the ranks exited with {rcs}")
+    launches, failures = collections.Counter(), []
+    for name, preset, axes, extra in QUAD_MESHES:
+        ref = refs[name]
+        got = [rk[name, "float32"] for rk in ranks]
+        loss_err = max(abs(a - b) / abs(b) for g in got
+                       for a, b in zip(g["losses"], ref["losses"]))
+        grad_err = max(_grad_errs(g["grads"], ref["grads"]) for g in got)
+        norm_err = max(_update_norm_err(g["params"], ref["params"],
+                                        ref["init"])[0] for g in got)
+        ratios = [g["opt_state_bytes"] / g["unsharded_bytes"] for g in got]
+        kernels = QUAD_KERNELS + (HEAD_KERNELS if preset == "gpt_moe"
+                                  else ())
+        counts = [{k: g["launches"].get(k, 0) for k in kernels} for g in got]
+        ok = (loss_err <= QUAD_TOL[0] and grad_err <= QUAD_TOL[1]
+              and norm_err <= SPLITCK_NORM_TOL
+              and all(0.45 <= r <= 0.55 for r in ratios)
+              and all(all(c.values()) for c in counts))
+        for g in got:
+            launches.update(g["launches"])
+        timed = {}
+        for tag in ("zero_overlap", "plain"):
+            runs = [rk[name, tag] for rk in ranks]
+            for g in runs:
+                launches.update(g["launches"])
+            timed[tag] = statistics.median(
+                1e3 * s for g in runs for s in g["step_s"][1:])
+        emit({"phase": "quad_zero_overlap", "mesh": axes, "workload": preset,
+              "flags": ["--zero", "--overlap", *extra], "world": 4,
+              "layers": SPLITZ_LAYERS, "batch": QUAD_BATCH,
+              "losses": got[0]["losses"], "ref_losses": ref["losses"],
+              "loss_rel_err": loss_err, "grad_err": grad_err,
+              "update_norm_err": norm_err, "opt_state_ratio": ratios,
+              "opt_state_bytes": [g["opt_state_bytes"] for g in got],
+              "overlap": got[0]["overlap"], "kernel_launches": counts,
+              "bf16_step_ms_median": timed, "ok": ok,
+              "tolerance": f"losses {QUAD_TOL[0]} relative, first-step "
+                           f"gradients {QUAD_TOL[1]} of each one's max-abs, "
+                           f"each parameter's update norm {SPLITCK_NORM_TOL} "
+                           "relative, against one process; optimizer state "
+                           "0.45-0.55 of the unsharded",
+              "note": SPLITZ_NOTE})
+        if not ok:
+            failures.append(name)
+    emit({"phase": "quad_seconds", "seconds": time.time() - t0})
+    if failures:
+        raise AssertionError(f"quad: {failures} failed")
+    return launches
+
+
 PHASES = ("layernorm", "kernels", "xent", "serving", "serve_cli", "train",
           "baseline", "dp", "ckpt", "trainer", "multistep", "presets2",
           "bert_moe", "optim", "records", "planes", "scaleout",
-          "seqexpert", "pipeline", "splitckpt")
+          "seqexpert", "pipeline", "splitckpt", "splitzero", "quad")
 
 
 def main(argv=None) -> int:
@@ -7566,6 +8106,7 @@ def main(argv=None) -> int:
     p.add_argument("--scaleout-worker", default=None,
                    help=argparse.SUPPRESS)
     p.add_argument("--split-worker", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--quad-worker", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.dp_worker:
         return dp_worker(args.dp_worker)
@@ -7579,6 +8120,8 @@ def main(argv=None) -> int:
         return scaleout_worker(args.scaleout_worker)
     if args.split_worker:
         return split_worker(args.split_worker)
+    if args.quad_worker:
+        return quad_worker(args.quad_worker)
     phases = set(args.phases.split(","))
     import torch
     import torch.nn.functional as F
@@ -7755,8 +8298,14 @@ def main(argv=None) -> int:
         # are not shared
         for name, extra in check_flash_kv_segments(torch, fa).items():
             rows.setdefault(name, []).extend(extra)
-    split = [phase for phase in SPLIT_DIRS if phase in phases]
+    split = [phase for phase in SPLIT_DIRS
+             if phase in phases and phase != "splitzero"]
     workers = _start_split_workers(split) if split else []
+    # beside the split workers, after every phase that times a kernel:
+    # the splitzero phase's own pair and the four-rank group
+    zworkers = _start_split_workers(["splitzero"]) \
+        if "splitzero" in phases else []
+    quad = _start_quad_workers() if "quad" in phases else []
     try:
         if "seqexpert" in phases:
             launches.update(run_seqexpert(
@@ -7772,11 +8321,18 @@ def main(argv=None) -> int:
             launches.update(run_splitckpt(torch, _cuda, train_torch,
                                           workers))
         done("splitckpt")
-        rcs = [p.wait(timeout=300) for p in workers]
+        if "splitzero" in phases:
+            launches.update(run_splitzero(torch, _cuda, train_torch,
+                                          zworkers))
+        done("splitzero")
+        if "quad" in phases:
+            launches.update(run_quad(torch, _cuda, train_torch, quad))
+        done("quad")
+        rcs = [p.wait(timeout=300) for p in workers + zworkers]
         if any(rcs):
             raise AssertionError(f"the split workers exited with {rcs}")
     finally:
-        for p in workers:
+        for p in workers + zworkers + quad:
             if p.poll() is None:
                 p.kill()
                 p.wait()

@@ -184,7 +184,7 @@ class Prefetcher:
         if adaptive or controller is not None:
             raise NotImplementedError(
                 "adaptive prefetch depth is not ported (it waits for "
-                "data/adaptive.py, ROADMAP.md item 11)")
+                "data/adaptive.py, ROADMAP.md section 1 item 3)")
         self._device = torch.device(device)
         if self._device.type == "cuda" and self._device.index is None:
             # the worker thread must name the consumer's card

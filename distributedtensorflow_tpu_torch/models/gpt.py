@@ -51,7 +51,7 @@ from ..ops.attention import cached_decode_attention, dot_product_attention
 from ..ops.blockwise import blockwise_map
 from ..ops.fused_xent import fused_softmax_xent, vocab_parallel_xent
 from ..ops.xent import chunked_softmax_xent, tied_head_logits
-from ..parallel.collectives import share_of_mean
+from ..parallel.collectives import all_reduce, share_of_mean
 from ..parallel.sharding import LayoutMap, P
 from .layers import (
     FusedLayerNorm,
@@ -526,16 +526,30 @@ def nan_taps(model: GPTLM):
     first module whose output went non-finite.  The model holds the
     parameters (JAX's ``tap_fn`` takes them as its first argument).  The
     deterministic forward, without dropout and without autograd (so
-    without block remat), on the training path's kernels."""
+    without block remat), on the training path's kernels.  A model split
+    over ``seq`` runs its rank's slice of the sequence, as its loss does
+    (:func:`sequence_slice`), and the counts are summed over the ``seq``
+    group, so every rank holds the whole sequence's (JAX's taps read the
+    global array)."""
     order = (["wte"] + [f"h{i}" for i in range(model.cfg.num_layers)]
              + ["ln_f"])
 
     def tap_fn(batch):
         taps: dict = {}
+        ids, kw = batch["input_ids"], {}
+        sp = getattr(model, "attn_fn", None)
+        split = getattr(sp, "size", 1) > 1
+        if split:
+            ids, kw["positions"], _, _ = sequence_slice(
+                ids, ids[:, 1:], None, sp.rank, sp.size)
         with torch.no_grad():
-            model(batch["input_ids"], deterministic=True, return_hidden=True,
-                  taps=taps)
-        return {f"{i:03d}_{name}": taps[name]
-                for i, name in enumerate(order) if name in taps}
+            model(ids, deterministic=True, return_hidden=True, taps=taps,
+                  **kw)
+        names = [name for name in order if name in taps]
+        counts = [taps[name] for name in names]
+        if split and counts:
+            counts = all_reduce(torch.stack(counts), sp.group).unbind(0)
+        return {f"{order.index(name):03d}_{name}": c
+                for name, c in zip(names, counts)}
 
     return tap_fn

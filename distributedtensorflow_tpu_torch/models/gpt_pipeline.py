@@ -28,6 +28,19 @@ summed over ``pipe`` from the last stage, so every rank reports it; over
 ``data`` x ``fsdp`` (x ``seq``) it is this rank's share, as the dense
 model's (``models.gpt.head_loss``).
 
+Quantised compute (``cfg.quant``): the stages' blocks take it as the
+dense model's do, each layer's sites numbered as the dense layer's
+(:func:`number_stage_sites`); ``int8_stochastic`` rounds with the step's
+``DropoutKey`` seed plus the microbatch index, bound before every unit
+of that microbatch runs (its recomputation in a backward unit draws the
+same bits).  JAX's stages apply their blocks without a ``dropout`` rng,
+so its ``int8_stochastic`` rounds with ``PRNGKey(0)`` in every stage:
+the two agree in distribution, int8 and fp8 value for value.
+
+The bucketed overlap (``parallel.overlap.OverlapPlan``) sets
+``grad_ready``: the schedule hands it each chunk's gradients as soon as
+the chunk's last microbatch has run its backward unit.
+
 Composition: over ``model`` the blocks are split by
 ``parallel.sharding.bind_tensor_parallel`` (the workload's layout leaves
 ``wte`` whole, as JAX's pipeline layout does); every model rank computes
@@ -65,7 +78,13 @@ from ..parallel.pipeline import (
 )
 from ..parallel.ring_attention import sequence_parallel_attention_fn
 from .gpt import GPTBlock, GPTConfig, head_loss, rope_tables, sequence_slice
-from .layers import FusedLayerNorm, embed_rows
+from .layers import (
+    FusedLayerNorm,
+    QuantDense,
+    bind_quant_seed,
+    draw_seed,
+    embed_rows,
+)
 
 
 def stage_layers(num_layers: int, n_stages: int, n_virtual: int,
@@ -157,9 +176,6 @@ class PipelinedGPT(nn.Module):
             raise NotImplementedError(
                 "dropout inside the pipeline needs per-stage rng plumbing; "
                 "set dropout_rate=0 for pipeline parallelism")
-        if cfg.quant and cfg.quant != "none":
-            raise NotImplementedError(
-                "quantized compute inside the pipeline is not ported")
         self.wire = _wire(handoff_dtype, cfg)
         tp = mesh.shape[mesh_lib.AXIS_MODEL]
         if tp > 1 and (cfg.num_heads % tp or cfg.kv_heads % tp
@@ -195,6 +211,9 @@ class PipelinedGPT(nn.Module):
         #: ``saved_high`` of the last training pass: the most stage inputs
         #: this rank held at once
         self.last_stats: dict = {}
+        #: ``ready(params, grads)`` of an overlap plan, or None
+        self.grad_ready = None
+        number_stage_sites(self)
 
     @property
     def device(self) -> torch.device:
@@ -296,12 +315,37 @@ class PipelinedGPT(nn.Module):
 
     # --- training ---------------------------------------------------------
 
-    def _train(self, input_ids):
+    def _quant_seeds(self, generator):
+        """``on_unit(m)`` binding microbatch ``m``'s ``int8_stochastic``
+        seed (the step's seed plus ``m``), or None without such layers."""
+        layers = self.stochastic_quant
+        if not layers:
+            return None
+        seed = 0 if generator is None else draw_seed(generator)
+        if isinstance(seed, tuple):
+            seed = seed[0] + seed[1]
+
+        def on_unit(m):
+            for layer in layers:
+                layer.seed = seed + m
+        return on_unit
+
+    def _chunk_done(self):
+        """The schedule's ``on_chunk_done``: a chunk's banked gradients to
+        the overlap plan's sink, or None without one."""
+        if self.grad_ready is None:
+            return None
+        return lambda c, gs: self.grad_ready(chunk_tensors(self._chunks[c]),
+                                             gs)
+
+    def _train(self, input_ids, generator=None):
         """One pass of the training schedule: ``(loss, grads)``, the loss
         on every pipe rank and the gradients of ``self.parameters()`` in
-        order."""
+        order; ``generator`` (the step's ``DropoutKey``) seeds
+        ``int8_stochastic``."""
         group, last = self.pipe_group, self.stage == self.n_stages - 1
         ids, targets = self._local_ids(input_ids)
+        on_unit, done = self._quant_seeds(generator), self._chunk_done()
         stats: dict = {}
         with torch.enable_grad():
             x0 = self._embed(ids)
@@ -311,7 +355,7 @@ class PipelinedGPT(nn.Module):
         if self.schedule == "gpipe":
             outputs, run = gpipe_forward(self._stage_fn, self._chunks, mb,
                                          group, wire_dtype=self.wire,
-                                         stats=stats)
+                                         stats=stats, on_unit=on_unit)
             loss, g_out = torch.zeros((), device=self.device), None
             if last:
                 hidden = outputs.reshape(x0.shape).detach() \
@@ -323,7 +367,8 @@ class PipelinedGPT(nn.Module):
                 g_out = self._microbatches(g_out)
                 loss = loss.detach()
             del outputs
-            dx0, grads = gpipe_backward(run, g_out, wire_dtype=self.wire)
+            dx0, grads = gpipe_backward(run, g_out, wire_dtype=self.wire,
+                                        on_chunk_done=done, on_unit=on_unit)
         else:
             sched = self._fb_schedule()
             share = share_of_mean(1, self.mesh)
@@ -331,7 +376,8 @@ class PipelinedGPT(nn.Module):
             loss_sum, grads, d_head, dx0 = pipeline_fb_step(
                 self._stage_fn, self._head_fn, self._chunks, head, mb,
                 self._microbatches(ids), sched, group,
-                cotangent_scale=scale, wire_dtype=self.wire, stats=stats)
+                cotangent_scale=scale, wire_dtype=self.wire, stats=stats,
+                on_chunk_done=done, on_unit=on_unit)
             loss = loss_sum * scale
         if self.stage == 0:
             (d_embed,) = torch.autograd.grad(x0, [self.wte.weight],
@@ -365,6 +411,7 @@ class PipelinedGPT(nn.Module):
         circular forward for ``n_virtual > 1``, whatever ``schedule``
         trains with), on the last stage; None elsewhere."""
         ids, _ = self._local_ids(input_ids)
+        bind_quant_seed(self, None)
         with torch.no_grad():
             x0 = self._embed(ids)
             outputs, _ = gpipe_forward(
@@ -396,15 +443,15 @@ class _PipelinedLoss(torch.autograd.Function):
     scales them by the incoming gradient."""
 
     @staticmethod
-    def forward(ctx, model, input_ids, *params):
-        loss, grads = model._train(input_ids)
+    def forward(ctx, model, input_ids, generator, *params):
+        loss, grads = model._train(input_ids, generator)
         ctx.grads = grads
         return loss
 
     @staticmethod
     def backward(ctx, g):
         grads, ctx.grads = ctx.grads, None
-        return (None, None, *[x * g for x in grads])
+        return (None, None, None, *[x * g for x in grads])
 
 
 def pipelined_lm_loss(model: PipelinedGPT, group=None):
@@ -417,7 +464,7 @@ def pipelined_lm_loss(model: PipelinedGPT, group=None):
     from the schedule (:class:`_PipelinedLoss`)."""
 
     def loss_fn(batch, generator=None):
-        loss = _PipelinedLoss.apply(model, batch["input_ids"],
+        loss = _PipelinedLoss.apply(model, batch["input_ids"], generator,
                                     *model.parameters())
         return loss, {"log_perplexity": loss.detach()}
 
@@ -445,6 +492,33 @@ def pipelined_lm_eval(model: PipelinedGPT, group=None):
         return {"loss": loss, "log_perplexity": loss}
 
     return metric_fn
+
+
+def number_stage_sites(model: PipelinedGPT) -> None:
+    """Number a stage's quantisation sites as the dense model's
+    (``layers.number_quant_sites`` over ``GPTLM``: every block holds the
+    same count of sites, in module order), so layer ``i``'s sites are the
+    dense layer ``i``'s wherever it runs; keeps the ``int8_stochastic``
+    ones (``model.stochastic_quant``)."""
+    layers = []
+    for name, block in model.h.items():
+        sites = [m for m in block.modules() if isinstance(m, QuantDense)]
+        for j, m in enumerate(sites):
+            m.site = int(name) * len(sites) + j
+        layers += sites
+    model.stochastic_quant = [m for m in layers
+                              if m.quant == "int8_stochastic"]
+
+
+def pipeline_modules(cfg: GPTConfig) -> dict[str, str]:
+    """Port parameter name -> the first component of its path in JAX's
+    pipelined parameter tree (``blocks``, ``ln_f``, ``wte``): the modules
+    ``obs.dynamics`` groups a pipelined model's statistics by, as JAX's
+    ``cadence_stats`` groups its tree (every stage holds every module)."""
+    from .convert import flax_modules
+
+    return {n: "blocks" if n.startswith("h.") else m
+            for n, m in flax_modules(cfg).items()}
 
 
 def params_to_dense(states, cfg: GPTConfig) -> dict:

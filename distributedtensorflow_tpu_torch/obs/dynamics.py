@@ -25,7 +25,13 @@ diagnostic.  Two halves:
   (``models.flax_modules``), sorted as JAX sorts them (``h0, h1, h10,
   ..., ln_f, wte``), capped at :data:`MAX_MODULES` with the overflow
   folded into ``_other``.  The stats ride the step's metrics dict under
-  ``dynamics/``-prefixed keys.
+  ``dynamics/``-prefixed keys.  Over a mesh that splits the parameters
+  (``model``, ``expert``, ``pipe``, or ZeRO's rows; :func:`stat_split`)
+  every sum is of the whole logical tensors, as JAX's global arrays give
+  it: each class of pieces (the kinds of group it is split over) sums
+  its own, then each group sums the classes split over it and counts the
+  others once (the clip's scheme, ``train.optimizers._split_square_sum``),
+  so every rank holds the same values bit for bit.
 - :class:`DynamicsMonitor` — a Trainer callback + train-step wrapper
   that pops those keys off the metrics dict before the MetricWriter
   sees them, books the on-cadence rows, and flushes them at log
@@ -44,6 +50,16 @@ flight event, an ``incidents/<step>-nan_provenance/`` evidence bundle, a
 ``dynamics_provenance_total{module=}`` count, and the module-global
 :func:`last_provenance` hint.
 
+Over a mesh (``mesh``) the pass is collective: whether it runs is one
+flag all-reduced over the mesh's ranks at each log boundary (the
+cadence rows, bit-equal across ranks, and the global loss), so every
+rank enters it together; the taps are summed over the batch group (and
+over ``seq`` by the tap forward itself), the censuses as the cadence
+stats; only the chief, which alone has a ``logdir``, writes the
+incident.  The AnomalyDetector's verdict does not start it over a mesh
+(one rank's verdict is not a flag every rank holds): the log boundary's
+loss check catches the same non-finite loss on every rank.
+
 Provenance fidelity contract: evidence is only sharp while the poison
 is still localized.  A NaN loss makes every gradient NaN one optimizer
 step later and every parameter NaN the step after that, so the pass
@@ -54,6 +70,7 @@ it probed is reported, not just the winner.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import math
@@ -209,16 +226,76 @@ def _nonfinite(tensors, device) -> torch.Tensor:
     return count.float()
 
 
+@dataclasses.dataclass
+class StatSplit:
+    """Where a step's tensors lie over a mesh (:func:`stat_split`):
+    ``split`` the optimizer's ``train.optimizers.Split`` (its ``groups``,
+    ``(kind, group, rank)`` in one order on every rank, and their
+    ``keep`` vectors), ``grads`` and ``params`` each name's kinds of
+    group that hold disjoint pieces of its gradient (ZeRO's rows add
+    ``zero``) and of its parameter."""
+
+    split: object
+    grads: dict
+    params: dict
+
+    def bits(self, kinds) -> int:
+        order = [k for k, _, _ in self.split.groups]
+        return sum(1 << order.index(k) for k in kinds)
+
+    def table(self, members, tensors: Mapping, kinds: Mapping, stat,
+              device) -> torch.Tensor:
+        """``stat(tensors of a class)`` per class of ``members`` (the
+        kinds their pieces are split over, a bit each): a vector over
+        the classes, the same layout on every rank."""
+        by: dict[int, list] = {}
+        for n in members:
+            by.setdefault(self.bits(kinds[n]), []).append(tensors[n])
+        return torch.stack([stat(by.get(b, []), device)
+                            for b in range(1 << len(self.split.groups))])
+
+    def reduce(self, rows: list[torch.Tensor]) -> torch.Tensor:
+        """The whole sums of ``rows`` (each a :meth:`table`): over each
+        group in turn the classes split over it summed and rank 0's value
+        of the others (which every rank of the group holds alike)."""
+        from ..parallel.collectives import all_reduce
+
+        table = torch.stack(rows)
+        for (_, group, _), keep in zip(self.split.groups,
+                                       self.split.keep(table.device)):
+            table = all_reduce(table * keep, group)
+        return table.sum(-1)
+
+
+def stat_split(state) -> StatSplit | None:
+    """The :class:`StatSplit` of a ``train.TrainState`` whose parameters
+    or rows are held in pieces (its optimizer has a ``split``: a
+    ``parallel.placement.Placement`` or a ZeRO sharder bound it), else
+    None (every rank holds the whole tensors)."""
+    split = getattr(state.optimizer, "split", None)
+    if split is None:
+        return None
+    placement, zero = state.placement, state.zero
+    axes = {n: placement.axes(n) if placement is not None else ()
+            for n, _ in state.model.named_parameters()}
+    rows = ("zero",) if zero is not None else ()
+    return StatSplit(split, {n: a + rows for n, a in axes.items()}, axes)
+
+
 class StepStats:
     """Per-module dynamics stats of one optimizer step, as a flat
     ``{metric_key: fp32 scalar tensor}`` dict (JAX ``cadence_stats``'s
     on-cadence branch): :meth:`before` reads the gradients and copies
     the parameters ahead of the optimizer update, :meth:`after` adds the
     parameter norms and update ratios from the updated parameters.  No
-    host sync."""
+    host sync.  With a ``split`` (:func:`stat_split`) each sum is over
+    the whole logical tensors (collectives over the split groups; under
+    ZeRO the gradients are this rank's rows)."""
 
-    def __init__(self, names, modules: Mapping[str, str] | None = None):
+    def __init__(self, names, modules: Mapping[str, str] | None = None,
+                 split: StatSplit | None = None):
         self.groups = _groups(list(names), modules)
+        self.split = split
 
     def before(self, model, grads: Mapping) -> tuple[dict, dict]:
         """``(stats, old)``: the gradient norms and non-finite counts by
@@ -226,14 +303,25 @@ class StepStats:
         parameter by name (the update runs in place)."""
         params = dict(model.named_parameters())
         device = next(iter(params.values())).device
+        if self.split is not None:
+            sp = self.split
+            rows = [sp.table(members, grads, sp.grads, stat, device)
+                    for _, members in self.groups
+                    for stat in (_sumsq, _nonfinite)]
+            sums = sp.reduce(rows).unbind(0)
+            gsqs, counts = sums[0::2], sums[1::2]
+        else:
+            gsqs, counts = [], []
+            for _, members in self.groups:
+                g = [grads[n] for n in members]
+                gsqs.append(_sumsq(g, device))
+                counts.append(_nonfinite(g, device))
         out = {}
         global_sq = torch.zeros((), dtype=torch.float32, device=device)
-        for name, members in self.groups:
-            g = [grads[n] for n in members]
-            gsq = _sumsq(g, device)
+        for (name, _), gsq, count in zip(self.groups, gsqs, counts):
             global_sq = global_sq + gsq
             out[f"{METRIC_PREFIX}grad_norm/{name}"] = torch.sqrt(gsq)
-            out[f"{METRIC_PREFIX}nonfinite/{name}"] = _nonfinite(g, device)
+            out[f"{METRIC_PREFIX}nonfinite/{name}"] = count
         out[f"{METRIC_PREFIX}global_grad_norm"] = torch.sqrt(global_sq)
         with torch.no_grad():
             old = {n: params[n].detach().float().clone()
@@ -246,16 +334,29 @@ class StepStats:
         ``old``)."""
         params = dict(model.named_parameters())
         device = stats[f"{METRIC_PREFIX}global_grad_norm"].device
+        sp = self.split
         with torch.no_grad():
-            for name, members in self.groups:
+            psqs, usqs = [], []
+            for _, members in self.groups:
                 o = [old[n] for n in members]
-                pnorm = torch.sqrt(_sumsq(o, device))
-                diff = torch._foreach_sub(
-                    [params[n].detach().float() for n in members], o)
-                unorm = torch.sqrt(_sumsq(diff, device))
+                diff = dict(zip(members, torch._foreach_sub(
+                    [params[n].detach().float() for n in members], o)))
+                if sp is None:
+                    psqs.append(_sumsq(o, device))
+                    usqs.append(_sumsq(list(diff.values()), device))
+                else:
+                    psqs.append(sp.table(members, old, sp.params, _sumsq,
+                                         device))
+                    usqs.append(sp.table(members, diff, sp.params, _sumsq,
+                                         device))
+            if sp is not None:
+                sums = sp.reduce(psqs + usqs).unbind(0)
+                psqs, usqs = sums[:len(psqs)], sums[len(psqs):]
+            for (name, _), psq, usq in zip(self.groups, psqs, usqs):
+                pnorm = torch.sqrt(psq)
                 stats[f"{METRIC_PREFIX}param_norm/{name}"] = pnorm
                 stats[f"{METRIC_PREFIX}update_ratio/{name}"] = \
-                    unorm / (pnorm + _EPS)
+                    torch.sqrt(usq) / (pnorm + _EPS)
         return stats
 
 
@@ -308,7 +409,8 @@ class DynamicsMonitor:
     the state's model (the gradient census), ``tap_fn`` the model's
     :func:`~..models.make_nan_taps` and ``modules`` its
     :func:`~..models.flax_modules` (the parameter census's groups: those
-    of :class:`StepStats`).
+    of :class:`StepStats`).  ``mesh``: the run's mesh, over which the
+    provenance pass is agreed and run together (module docstring).
 
     Duck-typed against :class:`~..train.trainer.Callback` (importing the
     trainer here would cycle through ``obs/__init__``).
@@ -326,6 +428,7 @@ class DynamicsMonitor:
         history=None,
         modules: Mapping[str, str] | None = None,
         time_fn=time.time,
+        mesh=None,
     ):
         if every <= 0:
             raise ValueError(f"every must be positive, got {every}")
@@ -335,6 +438,7 @@ class DynamicsMonitor:
         self._loss_fn = loss_fn
         self._tap_fn = tap_fn
         self._modules = modules
+        self._mesh = mesh
         self._history = history
         self._time = time_fn
         self._logdir = logdir
@@ -415,16 +519,18 @@ class DynamicsMonitor:
         if self._crosses(prev, step, self._flush_every):
             self.flush()
             loss = metrics.get("loss")
+            bad = False
             if loss is not None:
                 # The boundary block float()s every metric right after
                 # this callback anyway — peeking the loss here costs the
                 # same sync one call earlier, and catches the poison
                 # while it is still localized to one module.
                 try:
-                    if not math.isfinite(float(loss)):
-                        self.maybe_provenance(step, "non_finite_loss")
+                    bad = not math.isfinite(float(loss))
                 except (TypeError, ValueError):
                     pass
+            if self._agree(step if bad else None) is not None:
+                self.maybe_provenance(step, "non_finite_loss")
 
     def on_log(self, trainer, step, record) -> None: ...
 
@@ -435,6 +541,8 @@ class DynamicsMonitor:
     def on_anomaly(self, trainer, anomaly) -> None:
         """The AnomalyDetector's non-finite-loss verdict: run provenance
         on the stashed still-live state (idempotent per step)."""
+        if self._mesh is not None:
+            return  # no flag every rank holds: the log boundary's check
         if getattr(anomaly, "kind", None) == "non_finite_loss":
             step = getattr(anomaly, "step", None)
             self.maybe_provenance(
@@ -478,9 +586,25 @@ class DynamicsMonitor:
             ):
                 bad_step = s
         self.flushes += 1
+        bad_step = self._agree(bad_step)
         if bad_step is not None:
             self.maybe_provenance(bad_step, "non_finite_grads")
         return len(rows)
+
+    def _agree(self, step: int | None) -> int | None:
+        """Over a mesh, the largest of the ranks' ``step`` (None: none
+        asks for a pass), one all-reduce over every rank of the mesh,
+        which each rank makes at the same log boundary; without one,
+        ``step``."""
+        if self._mesh is None or self._last is None:
+            return step
+        from ..parallel.collectives import ReduceOp, all_reduce
+
+        device = next(self._last[0].model.parameters()).device
+        flag = torch.tensor([-1 if step is None else int(step)],
+                            dtype=torch.int64, device=device)
+        out = int(all_reduce(flag, self._mesh.world, ReduceOp.MAX))
+        return None if out < 0 else out
 
     def _book_row(self, step: int, vals: dict[str, float]) -> dict:
         modules: dict[str, dict] = {}
@@ -593,6 +717,8 @@ class DynamicsMonitor:
         params = dict(model.named_parameters())
         groups = _groups(list(params), self._modules)
         names = [name for name, _ in groups]
+        mesh = self._mesh
+        split = stat_split(state) if mesh is not None else None
         sub_batch = batch
         if self._steps_per_call > 1:
             sub_batch = {k: x[-1] for k, x in batch.items()}
@@ -625,6 +751,10 @@ class DynamicsMonitor:
                         torch.as_tensor(taps[k]).to(torch.int32).sum()
                         for k in keys
                     ])
+                    if mesh is not None:  # every replica's rows
+                        from ..parallel.collectives import all_reduce
+
+                        vec = all_reduce(vec, mesh.batch_group)
                     idx = first_bad_index(torch.cumsum(vec, 0) > 0)
                     if idx is not None:
                         first_act = tap_names[idx]
@@ -643,8 +773,16 @@ class DynamicsMonitor:
         param_counts: dict[str, int] = {}
         try:
             with torch.no_grad():
-                counts_d, prefix_d = census(
-                    [[params[n] for n in members] for _, members in groups])
+                if split is not None:  # the whole tensors' counts
+                    counts_d = split.reduce([
+                        split.table(members, params, split.params,
+                                    _nonfinite, device)
+                        for _, members in groups]).round().to(torch.int32)
+                    prefix_d = torch.cumsum(counts_d, 0) > 0
+                else:
+                    counts_d, prefix_d = census(
+                        [[params[n] for n in members]
+                         for _, members in groups])
             idx = first_bad_index(prefix_d)
             if idx is not None:
                 first_param = names[idx]
@@ -665,8 +803,13 @@ class DynamicsMonitor:
                     loss, list(params.values()), allow_unused=True,
                     materialize_grads=True)
                 by_name = dict(zip(params, grads))
-                _, prefix_g = census(
+                counts_g, prefix_g = census(
                     [[by_name[n] for n in members] for _, members in groups])
+                if mesh is not None:  # a verdict every rank shares
+                    from ..parallel.collectives import all_reduce
+
+                    counts_g = all_reduce(counts_g, mesh.world)
+                    prefix_g = torch.cumsum(counts_g, 0) > 0
                 idx = first_bad_index(prefix_g)
                 if idx is not None:
                     first_grad = names[idx]

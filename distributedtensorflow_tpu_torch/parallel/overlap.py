@@ -22,6 +22,24 @@ adjacent small groups up to ``bucket_bytes``; every parameter lands in
 exactly one bucket, the reference's.  A bucket
 holds one dtype (a flat buffer cannot mix them).
 
+The hooks count only the engine's backward (``torch.autograd.grad`` of
+a microbatch's loss), never a backward that the loss's forward runs
+itself.  The pipelined GPT (``models.gpt_pipeline``) runs every
+microbatch's backward by hand inside its loss's forward and banks the
+parameters' gradients, which the loss's backward then hands out at once;
+so a plan built for such a model (one with a ``grad_ready`` slot) is its
+sink instead: the schedule hands a stage chunk's banked gradients to
+:meth:`OverlapPlan.ready` as soon as the chunk's last microbatch has run
+its backward unit, and its buckets go out while the schedule's later
+ticks run (``describe()["pipe"]`` is ``"schedule"``).  The table and
+``ln_f``, summed over ``pipe`` at the schedule's end, come through the
+hooks.
+
+Over ``seq`` the plain sync is an all-reduce over the mesh's ``group``
+(``data`` x ``fsdp`` x ``seq``), as the unbucketed step's; under ZeRO the
+sharder's (``seq_group`` first, then the reduce-scatter over the batch
+group).  Over ``expert`` and ``pipe`` the ``group`` is the batch group.
+
 Each microbatch's gradients are synced on their own, as JAX's tag fires
 once a microbatch: ``accum_steps`` > 1 moves ``accum_steps`` times the
 bytes.  Sums of two ranks are exact, so at a world of 2 the bucketed
@@ -90,8 +108,9 @@ class OverlapPlan:
     :meth:`build` plans the buckets and registers the hooks;
     :meth:`grads` runs the microbatches' backward passes and returns the
     synced gradients: whole sums over the group, or with ``zero`` (a
-    ``ZeroSharder``) this rank's summed rows.  Outside :meth:`grads` the
-    hooks do nothing."""
+    ``ZeroSharder``) this rank's summed rows.  The hooks count only
+    inside :meth:`grads`'s ``torch.autograd.grad``, :meth:`ready` only
+    while a microbatch runs."""
 
     def __init__(self, model: torch.nn.Module, buckets, group, *,
                  zero=None):
@@ -107,6 +126,11 @@ class OverlapPlan:
         self._bucket_of = {i: b for b, idxs in enumerate(self.buckets)
                            for i in idxs}
         self._active = False
+        self._collecting = False
+        self._index = {id(p): i for i, p in enumerate(self.params)}
+        #: "schedule" when a pipelined model hands its banked gradients to
+        #: :meth:`ready` (see the module docstring), else None
+        self.pipe = None
         self._pending: list[int] = []
         self._grads: list = []
         self._inflight: dict[int, tuple] = {}
@@ -130,28 +154,52 @@ class OverlapPlan:
                    params[names[i]].dtype) for i in order]
         buckets = [[order[j] for j in b]
                    for b in plan_buckets(leaves, bucket_bytes)]
-        return cls(model, buckets, mesh.group, zero=zero)
+        plan = cls(model, buckets, mesh.group, zero=zero)
+        if hasattr(model, "grad_ready"):
+            model.grad_ready = plan.ready
+            plan.pipe = "schedule"
+        return plan
 
     def remove(self) -> None:
         for h in self._handles:
             h.remove()
 
     def describe(self) -> dict:
-        return {"buckets": len(self.buckets), "coverage": self.coverage,
-                "mode": "reduce_scatter" if self.zero is not None
-                else "all_reduce"}
+        out = {"buckets": len(self.buckets), "coverage": self.coverage,
+               "mode": "reduce_scatter" if self.zero is not None
+               else "all_reduce"}
+        if self.pipe is not None:
+            out["pipe"] = self.pipe
+        return out
 
     # --- the backward hooks ---------------------------------------------------
+
+    def _take(self, i: int, grad) -> None:
+        """Parameter ``i``'s gradient of this microbatch: counted once
+        (the pipelined loss's backward hands out again what the schedule
+        gave :meth:`ready`), its bucket launched when it is the last."""
+        if self._grads[i] is not None:
+            return
+        self._grads[i] = grad
+        b = self._bucket_of[i]
+        self._pending[b] -= 1
+        if self._pending[b] == 0:
+            self._launch(b)
 
     def _hook(self, i: int):
         def hook(grad):
             if self._active:
-                self._grads[i] = grad
-                b = self._bucket_of[i]
-                self._pending[b] -= 1
-                if self._pending[b] == 0:
-                    self._launch(b)
+                self._take(i, grad)
         return hook
+
+    def ready(self, params, grads) -> None:
+        """A pipelined model's banked gradients ``grads`` of its tensors
+        ``params``, whole for this microbatch of the engine: each counted
+        as a hook would count it (nothing outside :meth:`grads`)."""
+        if not self._collecting:
+            return
+        for p, g in zip(params, grads):
+            self._take(self._index[id(p)], g)
 
     def _launch(self, b: int) -> None:
         grads = [self._grads[i] for i in self.buckets[b]]
@@ -203,17 +251,18 @@ class OverlapPlan:
             for i, mb in enumerate(batches):
                 self._pending = [len(b) for b in self.buckets]
                 self._grads = [None] * len(self.params)
-                self._active = True
+                self._collecting = True
                 loss, m = loss_fn(mb, keys[i])
+                self._active = True
                 gs = torch.autograd.grad(loss, self.params, allow_unused=True,
                                          materialize_grads=True)
-                self._active = False
+                self._active = self._collecting = False
                 synced = self._finish(gs)
                 total = synced if total is None else \
                     [a + b for a, b in zip(total, synced)]
                 metrics.append({k: v.detach()
                                 for k, v in dict(m, loss=loss).items()})
         finally:
-            self._active = False
+            self._active = self._collecting = False
             self._grads = []
         return self.names, total, metrics

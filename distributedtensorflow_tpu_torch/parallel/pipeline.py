@@ -254,7 +254,7 @@ class GPipeRun:
 def gpipe_forward(stage_fn: Callable, chunks: Sequence,
                   microbatches: torch.Tensor, group, *,
                   wire_dtype=None, grad: bool = True, remat: bool = False,
-                  stats: dict | None = None):
+                  stats: dict | None = None, on_unit=None):
     """The forward ticks of GPipe (one chunk a stage) or of the circular
     schedule (``len(chunks)`` > 1): stage ``k = c*n + p`` of microbatch
     ``m`` runs at tick ``c*M + m + p`` on stage ``p``; rank 0 takes chunk
@@ -268,7 +268,8 @@ def gpipe_forward(stage_fn: Callable, chunks: Sequence,
     :class:`GPipeRun` that :func:`gpipe_backward` takes (each unit's
     input a leaf of its own graph; ``remat`` recomputes the stage in the
     backward, ``torch.utils.checkpoint``), else None.  ``stats``
-    receives ``saved_high``, the most stage inputs held at once."""
+    receives ``saved_high``, the most stage inputs held at once;
+    ``on_unit(m)`` is called before each unit of microbatch ``m`` runs."""
     n, s = group_size(group), group_rank(group)
     v = len(chunks)
     m_total = microbatches.shape[0]
@@ -288,6 +289,8 @@ def gpipe_forward(stage_fn: Callable, chunks: Sequence,
         if 0 <= rel < v * m_total:
             c, m = divmod(rel, m_total)
             x = recv if s > 0 else microbatches[m] if c == 0 else circ[m]
+            if on_unit is not None:
+                on_unit(m)
             if grad:
                 x = x.detach().requires_grad_(True)
                 with torch.enable_grad():
@@ -311,7 +314,7 @@ def gpipe_forward(stage_fn: Callable, chunks: Sequence,
 
 
 def gpipe_backward(run: GPipeRun, g_outputs: torch.Tensor | None, *,
-                   wire_dtype=None):
+                   wire_dtype=None, on_chunk_done=None, on_unit=None):
     """The reverse ticks of :func:`gpipe_forward`'s run: at reverse tick
     ``t`` each stage runs the backward of the unit it ran at forward tick
     ``t``, its cotangent the last stage's ``g_outputs`` (n_micro, mb,
@@ -322,7 +325,10 @@ def gpipe_backward(run: GPipeRun, g_outputs: torch.Tensor | None, *,
     wire, as JAX's autodiff transposes the forward's cast).  Returns
     ``(d_microbatches, grads)``: rank 0's gradients of the microbatches
     (zeros elsewhere) and, for each chunk, the gradients of its tensors
-    summed over the microbatches."""
+    summed over the microbatches.  ``on_chunk_done(c, grads)`` is called
+    as soon as chunk ``c``'s last unit has run its backward (its
+    gradients final while later ticks run), ``on_unit(m)`` before each
+    unit's backward of microbatch ``m``."""
     group, chunks = run.group, run.chunks
     n, s = group_size(group), group_rank(group)
     m_total, v = run.n_micro, run.n_virtual
@@ -330,6 +336,7 @@ def gpipe_backward(run: GPipeRun, g_outputs: torch.Tensor | None, *,
     d_mb = torch.zeros((m_total, *run.act.shape), dtype=run.act.dtype,
                        device=run.act.device)
     grads: list = [None] * v
+    done = [0] * v
     wrap: dict = {}
     recv = None
     for t in reversed(range(ticks)):
@@ -347,9 +354,14 @@ def gpipe_backward(run: GPipeRun, g_outputs: torch.Tensor | None, *,
                 ct = recv
             x, y = run.saved.pop((c, m))
             params = chunk_tensors(chunks[c])
+            if on_unit is not None:
+                on_unit(m)
             dx, *gs = torch.autograd.grad(y, [x, *params], ct,
                                           materialize_grads=True)
             grads[c] = _add(grads[c], gs)
+            done[c] += 1
+            if on_chunk_done is not None and done[c] == m_total:
+                on_chunk_done(c, grads[c])
             if s == 0 and c == 0:
                 d_mb[m] = dx
         _, recv = exchange(None, dx, group, prev_wire=wire_dtype)
@@ -413,7 +425,8 @@ def pipeline_fb_step(stage_fn: Callable, head_fn: Callable, chunks: Sequence,
                      head, microbatches: torch.Tensor, labels,
                      sched: FBSchedule, group, *,
                      cotangent_scale: float = 1.0, wire_dtype=None,
-                     stats: dict | None = None):
+                     stats: dict | None = None, on_chunk_done=None,
+                     on_unit=None):
     """One fused forward and backward pass of the 1F1B or interleaved
     schedule (``parallel/pipeline.py:553``), this stage's column of
     ``sched``.  Per tick the stage runs its forward unit (``stage_fn`` on
@@ -431,12 +444,16 @@ def pipeline_fb_step(stage_fn: Callable, head_fn: Callable, chunks: Sequence,
     stage that ran no head unit) and rank 0's gradients of the
     microbatches, all per stage: the caller sums what is replicated.
     ``stats`` receives ``saved_high``, the most stage inputs held at once
-    (``sched.n_slots`` at most)."""
+    (``sched.n_slots`` at most); ``on_chunk_done(c, grads)`` is called
+    as soon as chunk ``c``'s last backward unit has run, ``on_unit(m)``
+    before each unit (forward or backward) of microbatch ``m``."""
     n, s = sched.n_stages, group_rank(group)
     if group_size(group) != n:
         raise ValueError(f"schedule of {n} stages over a group of "
                          f"{group_size(group)}")
     tabs = {k: v[:, s].tolist() for k, v in sched.tables.items()}
+    last_b = {tabs["b_c"][t]: t for t in range(sched.ticks)
+              if tabs["b_on"][t]}
     act = torch.zeros_like(microbatches[0])
     recv_f = recv_b = act
     acts: list = [None] * sched.n_slots
@@ -454,6 +471,8 @@ def pipeline_fb_step(stage_fn: Callable, head_fn: Callable, chunks: Sequence,
         if tabs["f_on"][t]:
             m = tabs["f_m"][t]
             x = microbatches[m] if tabs["f_inp"][t] else recv_f
+            if on_unit is not None:
+                on_unit(m)
             with torch.no_grad():
                 y = stage_fn(chunks[tabs["f_c"][t]], x)
             acts[tabs["f_slot"][t]] = x
@@ -466,6 +485,8 @@ def pipeline_fb_step(stage_fn: Callable, head_fn: Callable, chunks: Sequence,
             acts[slot] = None
             live -= 1
             params = chunk_tensors(chunks[c])
+            if on_unit is not None:
+                on_unit(m)
             with torch.enable_grad():
                 yb = stage_fn(chunks[c], x)
                 if tabs["b_head"][t]:
@@ -480,6 +501,8 @@ def pipeline_fb_step(stage_fn: Callable, head_fn: Callable, chunks: Sequence,
                     dx, *gs = torch.autograd.grad(yb, [x, *params], recv_b,
                                                   materialize_grads=True)
             grads[c] = _add(grads[c], gs)
+            if on_chunk_done is not None and last_b[c] == t:
+                on_chunk_done(c, grads[c])
             if s == 0 and c == 0:
                 dx0[m] += dx
         recv_f, recv_b = exchange(y, dx, group, next_wire=wire_dtype)

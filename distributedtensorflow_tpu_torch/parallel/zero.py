@@ -17,10 +17,19 @@ each replica keeps the optimizer state of its row only.  A step
 
 JAX writes the reduce-scatter and the all-gather as GSPMD sharding
 constraints inside the jitted step; the port calls the collectives.
-Composition as in JAX: over a ``model`` axis the chunks are of this
-rank's tensor-parallel shards.  Exact (up to float reassociation) for
-the elementwise optimizers of :data:`ZERO_SAFE`; clipping by the global
-norm sums its squares over the batch group (the optimizer's ``split``).
+Composition as in JAX: the degree counts the batch axes only, whatever
+else the mesh splits.  Over a ``model`` or ``expert`` axis the chunks
+are of this rank's pieces (its tensor-parallel shards, its experts and
+the replicated dense layers), over ``pipe`` of its stage's parameters
+(the table and ``ln_f`` arrive summed over ``pipe`` by the pipelined
+loss).  Over ``seq`` a replica's ranks hold shares of one gradient: the
+gradients are first all-reduced over ``seq_group``, then reduce-scattered
+over the batch group, so every ``seq`` rank of a replica updates the
+same row (JAX lets GSPMD sum over ``data`` x ``seq`` in one collective;
+the two sums here add in another order).  Exact (up to float
+reassociation) for the elementwise optimizers of :data:`ZERO_SAFE`;
+clipping by the global norm sums its squares over the batch group (the
+optimizer's ``split``).
 
 Checkpoints (``checkpoint.CheckpointManager``): a ZeRO state saves each
 optimizer slot gathered to its ``(N, chunk)`` view, JAX's saved layout;
@@ -87,7 +96,9 @@ def unchunk_array(x: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
 
 class ZeroSharder:
     """The weight-update sharding of one mesh: ``degree`` replicas over
-    the batch axes, this rank's row ``rank``, the batch group ``group``.
+    the batch axes, this rank's row ``rank``, the batch group ``group``
+    (its size is ``degree``; ``seq_group`` sums a replica's shares
+    first).
     :meth:`shard_optimizer` builds the optimizer over this rank's rows;
     ``TrainState`` hands its updates to :meth:`apply_gradients`."""
 
@@ -103,7 +114,8 @@ class ZeroSharder:
                 f"ZeRO degree {self.degree} (axes {self.axes} of mesh "
                 f"{mesh.shape}): nothing to shard, run without --zero")
         self.rank = mesh_lib.replica_index(mesh)
-        self.group = mesh.group
+        self.group = mesh.batch_group
+        self.seq_group = getattr(mesh, "seq_group", collectives.SOLO)
         self._param_specs = None
         self.names: list[str] = []
         self.params: list[torch.Tensor] = []
@@ -158,9 +170,11 @@ class ZeroSharder:
     def reduce_scatter_grads(self, grads: Sequence[torch.Tensor]):
         """Start the reduce-scatter of ``grads`` (by parameter, in the
         sharder's order): ``(rows, work)``, this rank's summed rows, one
-        flat tensor, valid once ``work`` is waited on."""
+        flat tensor, valid once ``work`` is waited on.  Over ``seq`` the
+        replica's shares are all-reduced first (blocking)."""
         flat = torch.cat([chunk_array(g.float(), self.degree)
                           for g in grads], dim=1)
+        flat = collectives.all_reduce(flat, self.seq_group)
         return collectives.reduce_scatter_async(flat, self.group)
 
     def split_rows(self, rows: torch.Tensor, idxs=None
@@ -175,21 +189,24 @@ class ZeroSharder:
             o += n
         return out
 
+    def reduce_rows(self, grads: dict) -> dict:
+        """This rank's summed rows (by parameter name) of ``grads``, the
+        rank's local sums: the reduce-scatter, waited on."""
+        flat, work = self.reduce_scatter_grads([grads[n] for n in self.names])
+        if work is not None:
+            work.wait()
+        return dict(zip(self.names, self.split_rows(flat)))
+
     @torch.no_grad()
     def apply_gradients(self, state, grads: dict, *, reduced: bool = False):
         """One sharded update: ``grads`` (by parameter name) are this
         rank's local sums, reduce-scattered here, or with ``reduced`` this
-        rank's summed rows already (the overlapped sync's); the
-        optimizer updates the rows, and the rows are all-gathered into
-        the parameters."""
-        if reduced:
-            rows = [grads[n] for n in self.names]
-        else:
-            flat, work = self.reduce_scatter_grads(
-                [grads[n] for n in self.names])
-            if work is not None:
-                work.wait()
-            rows = self.split_rows(flat)
+        rank's summed rows already (:meth:`reduce_rows`, or the
+        overlapped sync's); the optimizer updates the rows, and the rows
+        are all-gathered into the parameters."""
+        if not reduced:
+            grads = self.reduce_rows(grads)
+        rows = [grads[n] for n in self.names]
         for c, g in zip(self.chunks, rows):
             c.grad = g
         state.optimizer.step()

@@ -256,10 +256,12 @@ class _InstrumentedStep:
         return self._fn(*args)
 
 
-def _apply(state: TrainState, grads: dict) -> TrainState:
-    """The update: the overlapped sync of a ZeRO state has left this
-    rank's summed rows, which go to the sharder as they are."""
-    if state.overlap is not None and state.zero is not None:
+def _apply(state: TrainState, grads: dict, rows: bool = False
+           ) -> TrainState:
+    """The update: the overlapped sync of a ZeRO state (or ``rows``, the
+    sharder's own reduce-scatter) has left this rank's summed rows, which
+    go to the sharder as they are."""
+    if state.zero is not None and (rows or state.overlap is not None):
         return state.zero.apply_gradients(state, grads, reduced=True)
     return state.apply_gradients(grads)
 
@@ -270,8 +272,9 @@ def _train_one(loss_fn, state: TrainState, batch: dict, keys, *,
     single step and of every step of a multi-step call.  With ``stats``
     (a :class:`~..obs.dynamics.StepStats`: the step is on the dynamics
     cadence) the metrics carry the ``dynamics/`` keys, computed from the
-    global gradients (after a mesh's gradient sum, so every rank holds
-    the same values)."""
+    global gradients (after a mesh's gradient sum; under ZeRO this rank's
+    summed rows, the reduce-scatter run first), so that every rank holds
+    the same values."""
     if mesh is None:
         grads, metrics = accumulate_gradients(
             loss_fn, state.model, batch, seed=seed, step=state.step,
@@ -283,14 +286,13 @@ def _train_one(loss_fn, state: TrainState, batch: dict, keys, *,
             zero=state.zero)
     if stats is None:
         return _apply(state, grads), metrics
-    if state.zero is not None:
-        raise NotImplementedError(
-            "dynamics statistics under ZeRO are not ported: each rank "
-            "holds its own gradients' rows only")
+    rows = state.zero is not None
+    if rows and state.overlap is None:
+        grads = state.zero.reduce_rows(grads)
     # the optimizer clips the gradients and updates the parameters in
     # place: read the one and copy the other first
     dyn, old = stats.before(state.model, grads)
-    state = _apply(state, grads)
+    state = _apply(state, grads, rows)
     return state, dict(metrics, **stats.after(state.model, dyn, old))
 
 
@@ -314,7 +316,7 @@ class _Cadence:
         if self._stats is None:
             self._stats = dynlib.StepStats(
                 [n for n, _ in state.model.named_parameters()],
-                self.modules)
+                self.modules, dynlib.stat_split(state))
         return self._stats
 
     def mask(self, step: int, k: int) -> tuple[bool, ...]:

@@ -11,12 +11,15 @@ whole update's elements, bit for bit):
 
 - two updates from the same whole gradients (each rank given its cut of
   them) over ``data=1,model=2``, ``data=1,expert=2``, ``data=1,pipe=2``
-  (GPipe and 1F1B) and ``data=2,model=2`` with ZeRO save a ``state.pt``
+  (GPipe and 1F1B) and ``data=2`` with ``model=2``, ``pipe=2`` (1F1B)
+  or ``expert=2`` under ZeRO save a ``state.pt``
   equal, tensor for tensor, to one process's after the same updates
   (ZeRO's slots are their ``(2, chunk)`` views of the whole slot);
 - a ``model=2`` checkpoint restores into one process and into ``pipe=2``,
   a one-process checkpoint into ``model=2``: every rank's parameters and
-  optimizer slots are its cut of the file's;
+  optimizer slots are its cut of the file's; a ZeRO save over
+  ``data=2,pipe=2`` restores into one process through
+  ``restore_latest_zero`` (its slots unchunked from the saved views);
 - over ``model=2`` and ``pipe=2`` two steps, an asynchronous save, a
   fresh build from another seed, ``restore_latest`` and two more steps
   equal four uninterrupted steps bit for bit (losses and parameters; one
@@ -68,7 +71,11 @@ LAYOUTS = {"model2": ("gpt_lm", dict(data=1, model=2), "gpipe", False),
            "pipe2_gpipe": ("gpt_lm", dict(data=1, pipe=2), "gpipe", False),
            "pipe2_1f1b": ("gpt_lm", dict(data=1, pipe=2), "1f1b", False),
            "data2_model2_zero": ("gpt_lm", dict(data=2, model=2), "gpipe",
-                                 True)}
+                                 True),
+           "data2_pipe2_zero": ("gpt_lm", dict(data=2, pipe=2), "1f1b",
+                                True),
+           "data2_expert2_zero": ("gpt_moe", dict(data=2, expert=2),
+                                  "gpipe", True)}
 
 
 @pytest.fixture
@@ -184,6 +191,47 @@ def test_split_save_is_one_process_file(name, tmp_path):
     got = torch.load(str(tmp_path / "split" / "2" / "state.pt"),
                      weights_only=True)
     _assert_same_file(got, ref, chunked=zero)
+
+
+def test_zero_save_over_pipe_restores_into_one_process(tmp_path):
+    """A ZeRO run over ``data=2,pipe=2`` (1F1B) saves each slot as its
+    ``(2, chunk)`` view of the whole slot; one process restores it with
+    ``restore_latest_zero`` (reported as rechunked from degree 2 to 1):
+    the file's parameters, and each slot the saved view unchunked."""
+    from distributedtensorflow_tpu_torch.parallel.zero import (
+        restore_latest_zero,
+    )
+
+    pw, cfg = _workload("gpt_lm", "1f1b")
+    steps = [_grads(pw, cfg, s) for s in (1, 2)]
+
+    def body(rank, mesh):
+        _, state = _build(pw, cfg, mesh, zero=True)
+        for g in steps:
+            state.apply_gradients({k: v / 2 for k, v in
+                                   _cut(g, pw, cfg, mesh).items()})
+        _save(state, str(tmp_path / "zp"), mesh)
+
+    run_mesh(body, MeshSpec(data=2, pipe=2), 4)
+    whole = torch.load(str(tmp_path / "zp" / "2" / "state.pt"),
+                       weights_only=True)
+    _, one = _build(pw, cfg, seed=5)
+    mgr = CheckpointManager(str(tmp_path / "zp"))
+    assert restore_latest_zero(mgr, one) is one
+    assert mgr.last_restore_report["rechunked"] == {"from": 2, "to": 1}
+    params = dict(one.model.named_parameters())
+    dense = list(whole["params"])
+    assert dense == list(params)
+    for k, v in whole["params"].items():
+        assert torch.equal(params[k].detach(), v), k
+    for p, st in one.optimizer.state.items():
+        name = next(k for k, q in params.items() if q is p)
+        saved = whole["opt_state"]["state"][dense.index(name)]
+        for k, v in st.items():
+            ref = saved[k] if v.dim() == 0 else unchunk_array(saved[k],
+                                                              v.shape)
+            assert torch.equal(v, ref), (name, k)
+    assert one.step == 2
 
 
 def _assert_restored(state, whole: dict, pw, cfg, mesh) -> None:

@@ -390,13 +390,23 @@ def test_main_stamps_pipeline_fields_and_resumes(schedule, devices,
 
 NOT_PORTED = [("--steps-per-call", "2"), ("--zero",), ("--overlap",),
               ("--dynamics-every", "2"), ("--quant", "int8")]
+#: the flags of NOT_PORTED that run over pipe since PR 22; the others
+#: still exit "not ported"
+LIFTED = {"--zero", "--overlap", "--dynamics-every", "--quant"}
 
 
 @pytest.mark.parametrize("flag", NOT_PORTED, ids=lambda f: f[0])
 def test_pipe_refuses_what_is_not_ported(flag):
+    """``--steps-per-call`` > 1 over pipe exits "not ported" (no CUDA
+    graph has captured the handoffs); ``--zero``, ``--overlap``,
+    ``--dynamics-every`` and ``--quant``, refused until PR 22, pass the
+    checks."""
     args = train_torch.parse_args(["--workload", "gpt_lm", "--test-size",
                                    "--device", "cpu", "--mesh",
                                    "data=1,pipe=2", *flag])
+    if flag[0] in LIFTED:
+        train_torch.check_flags(args)  # runs
+        return
     with pytest.raises(SystemExit, match="over a pipe axis is not ported"):
         train_torch.check_flags(args)
 

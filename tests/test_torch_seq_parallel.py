@@ -135,13 +135,23 @@ def test_sequence_slice_shifts_before_it_cuts():
 def test_sequence_parallel_flags_and_refusals():
     """``--sp-scheme`` picks the attention; a preset that does not split
     the sequence refuses a ``seq`` axis (JAX would run it replicated);
-    ``--steps-per-call`` > 1, ``--zero`` and ``--overlap`` over a ``seq``
-    or ``expert`` axis exit "not ported"."""
+    ``--steps-per-call`` > 1 over a ``seq`` or ``expert`` axis exits "not
+    ported", while ``--zero``, ``--overlap`` and ``--dynamics-every``
+    (refused until PR 22) pass the checks."""
     args = train_torch.parse_args(["--test-size", "--device", "cpu",
                                    "--workload", "gpt_lm", "--mesh",
                                    "data=1,seq=2", "--sp-scheme", "ulysses"])
     assert args.sp_scheme == "ulysses"
     train_torch.check_flags(args)  # runs
+    for mesh in ("data=2,seq=2", "data=2,expert=2"):
+        base = ["--test-size", "--device", "cpu", "--mesh", mesh]
+        for flags in (["--zero"], ["--overlap"], ["--zero", "--overlap"],
+                      ["--dynamics-every", "1"],
+                      ["--zero", "--dynamics-every", "1"]):
+            train_torch.check_flags(train_torch.parse_args(base + flags))
+        with pytest.raises(SystemExit, match="--steps-per-call > 1 over"):
+            train_torch.check_flags(train_torch.parse_args(
+                base + ["--steps-per-call", "2"]))
     with pytest.raises(ValueError, match="sp_scheme"):
         tw.get_workload("gpt_lm", test_size=True, sp_scheme="tree")
 

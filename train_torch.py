@@ -692,7 +692,7 @@ def build(args: argparse.Namespace, checkpointer=None):
         wl.loss_fn(model, **group), steps_per_call=args.steps_per_call,
         accum_steps=accum, seed=args.seed, mesh=mesh,
         dynamics_every=args.dynamics_every,
-        dynamics_modules=flax_modules(wl.cfg))
+        dynamics_modules=dynamics_modules(wl.cfg, model))
     ctx = current_input_context(wl.global_batch_size, mesh)
     source = record_source(args, ctx) if args.data_dir \
         else wl.input_fn(ctx, args.seed)
@@ -702,6 +702,19 @@ def build(args: argparse.Namespace, checkpointer=None):
     batches = device_iter(args, source, device, mesh, accum,
                           bundle=args.steps_per_call)
     return wl, state, step, batches
+
+
+def dynamics_modules(cfg, model) -> dict[str, str]:
+    """The top-level modules the dynamics group a model's parameters by:
+    the flax tree's (``models.flax_modules``), or for a pipelined model
+    JAX's pipelined tree's (``blocks``, ``ln_f``, ``wte``)."""
+    if hasattr(model, "bubble_fraction"):
+        from distributedtensorflow_tpu_torch.models.gpt_pipeline import (
+            pipeline_modules,
+        )
+
+        return pipeline_modules(cfg)
+    return flax_modules(cfg)
 
 
 def zero_sharder(args, mesh):
@@ -862,43 +875,30 @@ def check_flags(args) -> None:
         raise SystemExit("--optimizer adafactor over a model or expert axis "
                          "is not ported (its factored moments and RMS terms "
                          "span the whole parameter)")
-    if spec is not None and (spec.seq > 1 or spec.expert > 1):
-        axes = "a seq or expert axis"
-        if args.zero or args.overlap:
-            raise SystemExit(f"--zero and --overlap over {axes} are not "
-                             "ported (no run has tried their collectives "
-                             "over these axes)")
-        if args.steps_per_call > 1:
-            raise SystemExit(f"--steps-per-call > 1 over {axes} is not "
-                             "ported (no CUDA graph has captured their "
-                             "collectives)")
-        if args.dynamics_every:
-            raise SystemExit(f"--dynamics-every over {axes} is not ported "
-                             "(its NaN taps run the whole sequence and the "
-                             "whole expert set on each rank)")
+    if spec is not None and (spec.seq > 1 or spec.expert > 1) \
+            and args.steps_per_call > 1:
+        raise SystemExit("--steps-per-call > 1 over a seq or expert axis is "
+                         "not ported (no CUDA graph has captured their "
+                         "collectives; ROADMAP.md: it waits for two "
+                         "NCCL-linked cards)")
     if spec is not None and spec.pipe > 1:
         if args.workload not in SEQ_PARALLEL:
             raise SystemExit(f"--mesh pipe={spec.pipe}: the pipeline is for "
                              f"the GPT LMs ({', '.join(SEQ_PARALLEL)}), not "
                              f"{args.workload}")
-        for flag, on in (("--steps-per-call > 1", args.steps_per_call > 1),
-                         ("--zero", args.zero), ("--overlap", args.overlap),
-                         ("--dynamics-every", args.dynamics_every),
-                         ("--quant", args.quant != "none")):
-            if on:
-                raise SystemExit(f"{flag} over a pipe axis is not ported (no "
-                                 "run has tried its collectives or hooks "
-                                 "around a pipeline schedule)")
-    if args.zero and args.dynamics_every:
-        raise SystemExit("--dynamics-every with --zero is not ported (each "
-                         "rank holds its own rows of the gradients)")
+        if args.steps_per_call > 1:
+            raise SystemExit("--steps-per-call > 1 over a pipe axis is not "
+                             "ported (no CUDA graph has captured the "
+                             "handoffs; ROADMAP.md: it waits for two "
+                             "NCCL-linked cards)")
     if args.steps_per_call < 1:
         raise SystemExit(f"--steps-per-call must be >= 1, got "
                          f"{args.steps_per_call}")
     if args.steps_per_call > 1 and (args.zero or args.overlap):
         raise SystemExit("--steps-per-call > 1 with --zero or --overlap is "
                          "not ported (their collectives and hooks are "
-                         "untried under the k-step CUDA graph)")
+                         "untried under the k-step CUDA graph; ROADMAP.md: "
+                         "it waits for two NCCL-linked cards)")
     if args.prefetch_depth < 0:
         raise SystemExit(f"--prefetch-depth must be >= 0, got "
                          f"{args.prefetch_depth}")
@@ -1156,10 +1156,10 @@ def _train(args) -> list[dict]:
         dynamics = obs.DynamicsMonitor(
             args.dynamics_every,
             logdir=args.logdir if bootstrap.is_chief() else None,
-            loss_fn=wl.loss_fn(state.model),
+            loss_fn=wl.loss_fn(state.model, **group),
             tap_fn=make_nan_taps(state.model), log_every=args.log_every,
             steps_per_call=args.steps_per_call,
-            modules=flax_modules(wl.cfg))
+            modules=dynamics_modules(wl.cfg, state.model), mesh=mesh)
         step = dynamics.wrap_train_step(step)
         logger.info("dynamics: module telemetry every %d step(s) -> "
                     "%s/dynamics.jsonl", args.dynamics_every, args.logdir)
