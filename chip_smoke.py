@@ -247,8 +247,23 @@ Phases, each fatal on failure:
     records' first, a resume from step 2 fast-forwards to their third;
     one ``--config`` JSON run of mnist_lenet.  (The build phase compiles
     the record library from ``native/src`` with g++.)
+23. dataservice: the input plane.  (a) gpt_lm as phase 9 runs it
+    (full width, bf16, B 8 x S 2048) for 12 steps through
+    ``train_torch.main --data-service 2 --adaptive-prefetch --logdir``:
+    a loopback dispatcher and two in-process data workers on the raw
+    wire, read by the streaming client; every record carries the
+    adaptive ``data_prefetch_depth`` and ``data_client_window`` (both >=
+    1) and one fetch histogram a worker, and K1f, K1b, K2, K3f, K4f and
+    K4b launch phase 9's counts a step.  (b) the same at ``--data-service
+    1``: its losses equal, bit for bit, those of a run fed the worker's
+    own stream (seed + 1009) in-process, whose median step ms stands
+    beside the service's.  (c) imagenet_resnet50 at batch 256 through
+    ``--data-service 2 --adaptive-prefetch`` beside the in-process
+    synthetic feed: images/s, the data-wait share (f_data) and the
+    adaptive depths step by step (a 224x224x3 fp32 batch is 154 MB, so
+    the 256 MB budget holds the depth at 1).
 
-23. planes: the operations planes.  gpt_lm at full width (B 8, S 2048,
+24. planes: the operations planes.  gpt_lm at full width (B 8, S 2048,
     bf16, fused head, K3f) through ``train_torch.main`` for 8 steps with
     ``--dynamics-every 2``, ``--status-port 0``, ``--fleet``, the example
     SLO and alert rules and a ``--logdir``, at ``--steps-per-call`` 1 and
@@ -279,7 +294,7 @@ Phases, each fatal on failure:
     ``history.jsonl`` holds the tenants' pinned usage series and the
     logs pass the schema checker.
 
-24. scaleout: quantised training and the model and batch axes.  (a)
+25. scaleout: quantised training and the model and batch axes.  (a)
     gpt_lm's four block GEMMs at 16384 tokens (768->2304, 768->768,
     768->3072, 3072->768, bf16 operands quantised per channel): the
     int8 accumulator of ``torch._int_mm`` equals the fp64 product of the
@@ -306,12 +321,12 @@ Phases, each fatal on failure:
     half its optimizer state (tensors and the allocator's growth over
     the first step), ``--overlap`` bit-equal to it (bucket count and
     coverage printed).  No gloo time is a scaling time.
-25. seqexpert: K2/K3f/K3 with ``kv_segment_ids`` against their twins,
+26. seqexpert: K2/K3f/K3 with ``kv_segment_ids`` against their twins,
     beside the one-array call and SDPA (forward and eager backward) with
     the segment mask; lm_long_context over ``seq=2`` (ring, Ulysses) and
     the MoE presets over ``expert=2`` in two gloo processes on the card
     against one process (``run_seqexpert``).
-26. pipeline: gpt_lm at full width cut to 4 layers over ``--mesh
+27. pipeline: gpt_lm at full width cut to 4 layers over ``--mesh
     data=1,pipe=2`` in two gloo processes on the card: GPipe, circular
     GPipe, 1F1B and interleaved in fp32 and bf16 against one process's
     dense model on the same weights, 1F1B and interleaved against GPipe,
@@ -319,7 +334,7 @@ Phases, each fatal on failure:
     derived counts, the loss pass's memory under 1F1B below GPipe's, a
     bf16 step's ms of each schedule; ``pipe=1`` over NCCL against phase
     9 bit for bit (``run_pipeline``).
-27. splitckpt: checkpoints, ``--clipnorm`` and LAMB over the split axes.
+28. splitckpt: checkpoints, ``--clipnorm`` and LAMB over the split axes.
     In the same two gloo processes: gpt_lm at full width cut to 2 layers
     (batch 2, S 1024) over ``data=1,model=2`` and ``data=1,pipe=2``
     (1F1B), gpt_moe over ``data=1,expert=2``, fp32 and bf16, AdamW with
@@ -332,7 +347,7 @@ Phases, each fatal on failure:
     checkpoints restored into one process give each rank's pieces bit for
     bit, and one clipped step there equals the split step 3; one LAMB
     step over model=2 equals one process's (``run_splitckpt``).
-28. splitzero: in the same two gloo processes, gpt_lm at full width cut
+29. splitzero: in the same two gloo processes, gpt_lm at full width cut
     to 2 layers (gpt_moe over expert), batch 2: one ``--dynamics-every
     1`` step over ``data=1,seq=2`` (S 2048), ``data=1,expert=2``,
     ``data=1,pipe=2`` (1F1B) and ``data=2 --zero``, fp32 and bf16, each
@@ -341,7 +356,7 @@ Phases, each fatal on failure:
     within 1e-5; ``--quant int8`` and ``fp8`` over pipe=2 in fp32, the
     loss within 1e-5 of the dense quantised model's in this process
     (``run_splitzero``).
-29. quad: four gloo processes on the card, started with the split
+30. quad: four gloo processes on the card, started with the split
     workers (after every phase that times a kernel): ``--zero
     --overlap`` over ``data=2,seq=2``, ``data=2,expert=2`` (gpt_moe, no
     token dropped) and ``data=2,pipe=2`` (1F1B), 2 fp32 steps against
@@ -355,8 +370,9 @@ Kernel launch counts are set to 0 just before phases 5, 6 (each generate
 run), 9-11, 13, 14 (each path; in each rank's process), 15's resumed
 steps, 16's run through ``train_torch.main``, 17's runs, 18's training
 steps and decoding, each server run of 19, 20's steps, each of 21's
-optimizer runs, 23's two ``train_torch.main`` runs and its serving runs,
-24's, 25's and 26's steps, 27's resumed steps and 28's and 29's
+optimizer runs, each of 23's ``train_torch.main`` runs, 24's two
+``train_torch.main`` runs and its serving runs, 25's, 26's and 27's
+steps, 28's resumed steps and 29's and 30's
 steps (in each rank's process), and read just after (a
 replayed graph counts what its capture counted); a kernel of the path
 that did not launch, or a gpt_lm, gpt_moe or BERT training step that
@@ -8088,10 +8104,189 @@ def run_quad(torch, cuda, train_torch, workers):
     return launches
 
 
+DS_STEPS = 12            # gpt_lm steps of each (a)/(b) run
+DS_RESNET = (256, 6)     # imagenet_resnet50's batch and steps in (c)
+DS_KERNELS = ("layernorm_fwd", "layernorm_bwd", "flash_fwd",
+              "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv",
+              *HEAD_KERNELS)
+#: the worker of split 0 serves the preset's stream of seed + 1009
+DS_SPLIT0_SEED = 1009
+
+
+@contextlib.contextmanager
+def _shifted_input(train_torch, shift):
+    """``train_torch``'s presets reading their stream of ``seed + shift``
+    (a data worker's split, fed in-process), inside the block."""
+    make = train_torch.get_workload
+
+    def shifted(*args, **kw):
+        wl = make(*args, **kw)
+        fn = wl.input_fn
+        return dataclasses.replace(
+            wl, input_fn=lambda ctx, seed: fn(ctx, seed + shift))
+
+    train_torch.get_workload = shifted
+    try:
+        yield
+    finally:
+        train_torch.get_workload = make
+
+
+def _ds_run(torch, cuda, train_torch, argv, logdir, device):
+    """``train_torch.main(argv)`` logging every step into ``logdir``:
+    its losses, its metrics rows, the launches counted from 0 over it,
+    its seconds."""
+    from distributedtensorflow_tpu_torch import obs
+
+    # the registry is the process's: earlier runs' workers stay in it
+    before = set(obs.default_registry().scalars())
+    cuda.launches.clear()
+    t0 = time.time()
+    records = train_torch.main([*argv, "--log-every", "1", "--logdir",
+                                logdir])
+    sync(torch, torch.device(device))
+    rows = [{k: v for k, v in r.items() if k not in before
+             or not k.startswith("data_service_fetch_seconds")}
+            for r in _rows_of(os.path.join(logdir, "metrics.jsonl"))
+            if "t_step" in r]
+    out = {"losses": [r["loss"] for r in records], "rows": rows,
+           "launches": dict(cuda.launches), "seconds": time.time() - t0}
+    empty_cache(torch, torch.device(device))
+    return out
+
+
+def _ds_steady(rows, batch):
+    """Median step ms of the steps after the first, their examples/s and
+    mean data-wait share."""
+    steady = rows[1:] or rows
+    t_step = statistics.median(r["t_step"] for r in steady)
+    return {"step_ms_median": 1e3 * t_step,
+            "examples_per_sec": batch / t_step,
+            "f_data_mean": statistics.fmean(r.get("f_data", 0.0)
+                                            for r in steady)}
+
+
+def _ds_record_problems(tag, rows, steps, workers,
+                        every=True) -> list[str]:
+    """Every record of a service run (``every``; else its last) has both
+    adaptive depths >= 1 and one fetch histogram a worker of the run."""
+    out = []
+    if len(rows) != steps:
+        out.append(f"{tag}: {len(rows)} records, expected {steps}")
+    for r in rows if every else rows[-1:]:
+        fetch = [k for k in r if k.startswith(
+            "data_service_fetch_seconds_count.worker_")]
+        if not (r.get("data_prefetch_depth", 0) >= 1
+                and r.get("data_client_window", 0) >= 1
+                and len(fetch) == workers):
+            out.append(f"{tag}: step {r.get('step')}: depth "
+                       f"{r.get('data_prefetch_depth')}, window "
+                       f"{r.get('data_client_window')}, fetch fields "
+                       f"{fetch}")
+    return out
+
+
+def run_dataservice(torch, cuda, train_torch, device="cuda"):
+    """Phase 23 (see the module's docstring): the data service and the
+    adaptive depths feeding gpt_lm and ResNet-50 on the card.  On the CPU
+    (a rehearsal) the test sizes run, ``DS_RESNET`` cut small, and the
+    launch checks are left out."""
+    import tempfile
+
+    cuda_dev = device == "cuda"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ds_")
+    t0 = time.time()
+    failures, launches = [], collections.Counter()
+    try:
+        argv = [*_trainer_argv(device), "--steps", str(DS_STEPS),
+                "--adaptive-prefetch"]
+        runs = {}
+        for tag, extra in (("service2", ("--data-service", "2")),
+                           ("service1", ("--data-service", "1"))):
+            runs[tag] = _ds_run(torch, cuda, train_torch, [*argv, *extra],
+                                os.path.join(tmp, tag), device)
+        with _shifted_input(train_torch, DS_SPLIT0_SEED):
+            runs["direct"] = _ds_run(torch, cuda, train_torch, argv,
+                                     os.path.join(tmp, "direct"), device)
+        for tag, workers in (("service2", 2), ("service1", 1)):
+            failures += _ds_record_problems(tag, runs[tag]["rows"],
+                                            DS_STEPS, workers)
+        for run in runs.values():
+            launches.update(run["launches"])
+            if not all(math.isfinite(x) for x in run["losses"]):
+                failures.append(f"losses not finite: {run['losses']}")
+        if cuda_dev:
+            for tag, run in runs.items():
+                want = {k: DS_STEPS * TRAIN_LAUNCHES_PER_STEP[k]
+                        for k in DS_KERNELS}
+                got = {k: run["launches"].get(k, 0) for k in DS_KERNELS}
+                if got != want:
+                    failures.append(f"{tag}: launches {got}, expected "
+                                    f"{want}")
+        bit_equal = runs["service1"]["losses"] == runs["direct"]["losses"]
+        if not bit_equal:
+            failures.append("--data-service 1's losses differ from the "
+                            "in-process feed of its worker's stream")
+        cfg = train_torch.get_workload("gpt_lm",
+                                       test_size=not cuda_dev).cfg
+        gpt = {"phase": "dataservice", "part": "gpt_lm", "steps": DS_STEPS,
+               "batch": 8, "seq": 2048 if cuda_dev else None,
+               "layers": cfg.num_layers, "hidden": cfg.hidden_size,
+               "bit_equal_one_split": bit_equal}
+        for tag, run in runs.items():
+            gpt[tag] = {**_ds_steady(run["rows"], 8),
+                        "seconds": run["seconds"],
+                        "losses": run["losses"],
+                        "launches": run["launches"],
+                        "prefetch_depth": [r.get("data_prefetch_depth")
+                                           for r in run["rows"]],
+                        "client_window": [r.get("data_client_window")
+                                          for r in run["rows"]]}
+        emit(gpt)
+        batch, steps = DS_RESNET
+        base = ["--workload", "imagenet_resnet50", "--batch-size",
+                str(batch), "--seed", str(SEED), "--device", device,
+                "--steps", str(steps), "--adaptive-prefetch",
+                *([] if cuda_dev else ["--test-size"])]
+        resnet = {}
+        for tag, extra in (("service2", ("--data-service", "2")),
+                           ("synthetic", ())):
+            run = _ds_run(torch, cuda, train_torch, [*base, *extra],
+                          os.path.join(tmp, f"resnet_{tag}"), device)
+            launches.update(run["launches"])
+            resnet[tag] = {**_ds_steady(run["rows"], batch),
+                           "seconds": run["seconds"],
+                           "losses": run["losses"],
+                           "prefetch_depth": [r.get("data_prefetch_depth")
+                                              for r in run["rows"]],
+                           "client_window": [r.get("data_client_window")
+                                             for r in run["rows"]]}
+            if not all(math.isfinite(x) for x in run["losses"]):
+                failures.append(f"resnet {tag}: losses {run['losses']}")
+            if extra:
+                # a 154 MB batch takes a worker a while: both have
+                # delivered by the last step
+                failures += _ds_record_problems(f"resnet {tag}", run["rows"],
+                                                steps, 2, every=False)
+        emit({"phase": "dataservice", "part": "imagenet_resnet50",
+              "batch": batch, "steps": steps,
+              "batch_mb": batch * 224 * 224 * 3 * 4 / 1e6,
+              "budget_mb": 256.0, **resnet,
+              "earlier_images_per_sec": {"synthetic_pr9": 3563.0,
+                                         "records_pr16": 1321.3}})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "dataservice_seconds", "seconds": time.time() - t0})
+    if failures:
+        raise AssertionError(f"dataservice: {failures}")
+    return launches
+
+
 PHASES = ("layernorm", "kernels", "xent", "serving", "serve_cli", "train",
           "baseline", "dp", "ckpt", "trainer", "multistep", "presets2",
-          "bert_moe", "optim", "records", "planes", "scaleout",
-          "seqexpert", "pipeline", "splitckpt", "splitzero", "quad")
+          "bert_moe", "optim", "records", "dataservice", "planes",
+          "scaleout", "seqexpert", "pipeline", "splitckpt", "splitzero",
+          "quad")
 
 
 def main(argv=None) -> int:
@@ -8282,6 +8477,9 @@ def main(argv=None) -> int:
     if "records" in phases:
         run_records(torch, train_torch)
     done("records")
+    if "dataservice" in phases:
+        launches.update(run_dataservice(torch, _cuda, train_torch))
+    done("dataservice")
     if "planes" in phases:
         import serve_torch
 

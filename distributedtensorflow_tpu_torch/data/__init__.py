@@ -1,18 +1,10 @@
 """Input of the port: the per-host split, the synthetic sources, the
 resume fast-forward, bundles and the prefetcher
-(``data/input_pipeline.py``); record files with auto-sharding
-(``data/recordio_dataset.py``) and their tensor wire (``data/wire.py``)."""
+(``data/input_pipeline.py``) with its adaptive depth
+(``data/adaptive.py``); record files with auto-sharding
+(``data/recordio_dataset.py``) and their tensor wire (``data/wire.py``);
+the disaggregated data service (``data/service.py``)."""
 
-from .input_pipeline import (  # noqa: F401
-    InputContext,
-    Prefetcher,
-    current_input_context,
-    device_put_batch,
-    device_put_bundle,
-    pack_sequences,
-    skip_batches,
-    synthetic_classification,
-)
 from .recordio_dataset import (  # noqa: F401
     decode_example,
     encode_example,
@@ -20,4 +12,31 @@ from .recordio_dataset import (  # noqa: F401
     repeated_record_dataset,
     write_example,
     write_record_shards,
+)
+from .service import (  # noqa: F401
+    DataServiceClient,
+    DispatcherJournal,
+    DispatchServer,
+    WorkerServer,
+)
+from .wire import (  # noqa: F401
+    WireError,
+    decode_tensors,
+    encode_tensors,
+)
+from .input_pipeline import (  # noqa: F401
+    AdaptiveDepthController,
+    InputContext,
+    Prefetcher,
+    ReplicaBatches,
+    broadcast_to_replica,
+    current_input_context,
+    device_put_batch,
+    device_put_bundle,
+    input_record_fields,
+    pack_sequences,
+    replica_is_split,
+    replica_leader,
+    skip_batches,
+    synthetic_classification,
 )

@@ -10,7 +10,8 @@ numpy draws, so both packages see identical batches;
 :func:`skip_batches` (``:429-454``), a resumed run's fast-forward; and
 :func:`device_put_bundle` (``:104-124``) and :class:`Prefetcher`
 (``:127-320``), which stack k batches for a multi-step call and put the
-batches on the device from a thread of their own.  The port runs one
+batches on the device from a thread of their own, at a fixed depth or
+one that ``data/adaptive.py``'s controller tunes.  The port runs one
 input pipeline per process, and one process per device.
 """
 
@@ -19,6 +20,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import itertools
+import json
 import logging
 import queue
 import threading
@@ -32,6 +34,10 @@ import torch
 from .. import obs
 from ..parallel import collectives
 from ..parallel.mesh import replica_count, replica_index
+from .adaptive import (  # noqa: F401  (input_record_fields re-exported)
+    AdaptiveDepthController,
+    input_record_fields,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -64,11 +70,23 @@ def current_input_context(global_batch_size: int,
 
 
 def _leaf_to_device(v, device) -> torch.Tensor:
+    v = np.asarray(v)
     dtype = torch.long if v.dtype.kind in "iu" else None
-    if torch.device(device).type != "cuda":
-        return torch.as_tensor(v, device=device, dtype=dtype)
-    return torch.as_tensor(v, dtype=dtype).pin_memory().to(
-        device, non_blocking=True)
+    cuda = torch.device(device).type == "cuda"
+    if v.flags.writeable:
+        if not cuda:
+            return torch.as_tensor(v, device=device, dtype=dtype)
+        return torch.as_tensor(v, dtype=dtype).pin_memory().to(
+            device, non_blocking=True)
+    # a wire or record view (np.frombuffer): copied, never aliased (a
+    # tensor over read-only memory is undefined to write); on the card
+    # staged by numpy straight into pinned memory
+    if not cuda:
+        return torch.tensor(v, dtype=dtype, device=device)
+    staged = torch.empty(v.shape, pin_memory=True, dtype=dtype or
+                         torch.from_numpy(np.empty(0, v.dtype)).dtype)
+    staged.numpy()[...] = v
+    return staged.to(device, non_blocking=True)
 
 
 def device_put_batch(batch: dict, device, mesh=None, *,
@@ -91,6 +109,101 @@ def device_put_batch(batch: dict, device, mesh=None, *,
     share of each JAX microbatch (:func:`exchange_rows`)."""
     out = {k: _leaf_to_device(v, device) for k, v in batch.items()}
     return exchange_rows(out, mesh, accum_steps)
+
+
+#: The axes the ranks of one replica differ on, each with its group, in
+#: the order :func:`broadcast_to_replica` crosses them.
+_SPLIT_AXES = (("pipe", "pipe_group"), ("seq", "seq_group"),
+               ("expert", "expert_group"), ("model", "model_group"))
+
+
+def replica_leader(mesh=None) -> bool:
+    """Whether this rank is its replica's first (coordinate 0 on every
+    split axis): the one rank of the replica that reads a streaming input
+    whose order is its own, as the data service's client."""
+    return mesh is None or not any(mesh.coords[a] for a, _ in _SPLIT_AXES)
+
+
+def broadcast_to_replica(batch: dict, mesh=None) -> dict:
+    """The replica leader's ``batch`` on every rank of its replica.  A
+    chain of broadcasts from group rank 0 (coordinate 0), one split axis
+    at a time: over each axis the ranks at coordinate 0 on the axes after
+    it pass it on, so after the last every rank holds the leader's.  Run
+    on every rank of the mesh, on the consumer's thread (the collectives'
+    order is the step's)."""
+    if mesh is None:
+        return batch
+    for i, (axis, name) in enumerate(_SPLIT_AXES):
+        if mesh.shape[axis] == 1 or any(
+                mesh.coords[a] for a, _ in _SPLIT_AXES[i + 1:]):
+            continue
+        group = getattr(mesh, name)
+        batch = {k: collectives.broadcast(v, group) for k, v in batch.items()}
+    return batch
+
+
+def replica_is_split(mesh=None) -> bool:
+    """Whether a replica spans more than one rank (an axis of
+    :data:`_SPLIT_AXES` larger than 1)."""
+    return mesh is not None and any(mesh.shape[a] > 1
+                                    for a, _ in _SPLIT_AXES)
+
+
+def _leaves_spec(batch: dict | None, mesh, device) -> dict:
+    """The replica leader's leaves, key -> (shape, dtype), on every rank
+    of its replica: a JSON header broadcast as bytes, its length first."""
+    header = None
+    if batch is not None:
+        header = torch.tensor(list(json.dumps(
+            {k: [list(v.shape), str(v.dtype).removeprefix("torch.")]
+             for k, v in batch.items()}).encode()),
+            dtype=torch.uint8, device=device)
+    n = torch.tensor([0 if header is None else header.numel()],
+                     dtype=torch.long, device=device)
+    n = int(broadcast_to_replica({"n": n}, mesh)["n"])
+    if header is None:
+        header = torch.empty(n, dtype=torch.uint8, device=device)
+    header = broadcast_to_replica({"h": header}, mesh)["h"]
+    return {k: (tuple(shape), getattr(torch, dtype)) for k, (shape, dtype)
+            in json.loads(bytes(header.cpu().tolist())).items()}
+
+
+class ReplicaBatches:
+    """The replica leader's device batches on every rank of a replica
+    split over ``pipe``, ``seq``, ``expert`` or ``model``: the leader
+    (:func:`replica_leader`) reads ``batches`` and passes each on
+    (:func:`broadcast_to_replica`, on the consumer's thread, before the
+    step reads it); the others read no input (``batches`` None) and
+    receive into empty ``device`` buffers of the leader's leaves, whose
+    keys, shapes and dtypes come once, with the first batch.  Every later
+    batch must have the first one's leaves (a streaming source's are
+    one shape)."""
+
+    def __init__(self, batches, mesh, device):
+        self._batches, self._mesh = batches, mesh
+        self._device = torch.device(device)
+        self._spec = None
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> dict:
+        batch = None if self._batches is None else next(self._batches)
+        if self._spec is None:
+            self._spec = _leaves_spec(batch, self._mesh, self._device)
+        if batch is None:
+            batch = {k: torch.empty(shape, dtype=dtype, device=self._device)
+                     for k, (shape, dtype) in self._spec.items()}
+        elif {k: (tuple(v.shape), v.dtype) for k, v in batch.items()} \
+                != self._spec:
+            raise ValueError("a replica's batches changed their leaves "
+                             "after the first")
+        return broadcast_to_replica(batch, self._mesh)
+
+    def close(self) -> None:
+        close = getattr(self._batches, "close", None)
+        if close is not None:
+            close()
 
 
 def _needs_exchange(mesh, accum_steps: int) -> bool:
@@ -172,19 +285,31 @@ class Prefetcher:
     registry gets ``data_batches_total``, ``data_wait_seconds`` and
     ``data_device_put_seconds``.  :meth:`close` stops the thread and
     releases the buffered batches and the source; a Prefetcher that is
-    dropped without it stops its thread too.  ``adaptive``/``controller``
-    (the adaptive depth of ``data/adaptive.py``) are not ported and raise.
+    dropped without it stops its thread too.
+
+    ``adaptive=True`` hands the depth to an
+    :class:`~.adaptive.AdaptiveDepthController` seeded at ``buffer_size``
+    (or pass your own ``controller``): the thread admits a batch only
+    while fewer than the live depth wait, so the queue deepens while the
+    consumer blocks on data and shallows when its waits are about 0,
+    within ``[1, max_depth]`` and ``bytes_budget`` host bytes (each host
+    batch's bytes are noted before its copy).  The live depth is
+    :attr:`depth`, the gauge ``data_prefetch_depth{component=
+    "prefetcher"}`` and the record field ``data_prefetch_depth``.
     """
 
     _DONE = object()
 
     def __init__(self, it: Iterable, device, mesh=None, buffer_size: int = 2,
                  *, bundle: int = 1, accum_steps: int = 1,
-                 adaptive: bool = False, controller=None):
-        if adaptive or controller is not None:
-            raise NotImplementedError(
-                "adaptive prefetch depth is not ported (it waits for "
-                "data/adaptive.py, ROADMAP.md section 1 item 3)")
+                 adaptive: bool = False, max_depth: int = 16,
+                 bytes_budget: int | None = None,
+                 controller: AdaptiveDepthController | None = None):
+        if controller is None and adaptive:
+            controller = AdaptiveDepthController(
+                initial=buffer_size, min_depth=1, max_depth=max_depth,
+                bytes_budget=bytes_budget, component="prefetcher")
+        self._controller = controller
         self._device = torch.device(device)
         if self._device.type == "cuda" and self._device.index is None:
             # the worker thread must name the consumer's card
@@ -206,7 +331,7 @@ class Prefetcher:
         # is collected and its finalizer stops the thread
         self._thread = threading.Thread(
             target=_prefetch_worker, daemon=True, name="prefetcher",
-            args=(iter(it), self._device, bundle, self._depth,
+            args=(iter(it), self._device, bundle, self._depth, controller,
                   self._q, self._cond, self._stop, self._err,
                   obs.histogram("data_device_put_seconds",
                                 "host->device placement time per batch")))
@@ -224,6 +349,8 @@ class Prefetcher:
             except queue.Empty:
                 break
         self._thread.join(timeout=5)
+        if self._controller is not None:
+            self._controller.unregister()
         close = getattr(self._src, "close", None)
         if callable(close) and not self._thread.is_alive():
             try:
@@ -243,13 +370,16 @@ class Prefetcher:
     def __next__(self):
         t0 = time.perf_counter()
         item = self._q.get()
-        self._m_wait.observe(time.perf_counter() - t0)
+        wait = time.perf_counter() - t0
+        self._m_wait.observe(wait)
         with self._cond:
             self._cond.notify_all()  # a slot is free
         if item is self._DONE:
             if self._err:
                 raise self._err[0]
             raise StopIteration
+        if self._controller is not None:
+            self._controller.observe_wait(wait)
         out, count, event = item
         if event is not None:
             stream = torch.cuda.current_stream(self._device)
@@ -262,6 +392,19 @@ class Prefetcher:
         return exchange_rows(out, self._mesh, self._accum,
                              lead=1 if self._bundle > 1 else 0)
 
+    @property
+    def depth(self) -> int:
+        """The live prefetch depth (fixed unless adaptive)."""
+        return self._controller.depth if self._controller is not None \
+            else self._depth
+
+
+def _host_bytes(batch) -> int:
+    """Host bytes of a numpy batch, or of a list of them (a bundle)."""
+    if isinstance(batch, dict):
+        return sum(int(getattr(v, "nbytes", 0)) for v in batch.values())
+    return sum(_host_bytes(b) for b in batch)
+
 
 def _stop_worker(stop: threading.Event, cond: threading.Condition) -> None:
     stop.set()
@@ -269,13 +412,16 @@ def _stop_worker(stop: threading.Event, cond: threading.Condition) -> None:
         cond.notify_all()
 
 
-def _prefetch_worker(it, device, bundle, depth, q, cond, stop, err, m_put):
+def _prefetch_worker(it, device, bundle, depth, controller, q, cond, stop,
+                     err, m_put):
     """The Prefetcher's thread: batches (or bundles) onto ``device`` and
-    into ``q`` while fewer than ``depth`` wait there; then the end mark."""
+    into ``q`` while fewer than ``depth`` (the ``controller``'s live depth
+    where there is one) wait there; then the end mark."""
 
     def admit(item) -> bool:
         with cond:
-            while not stop.is_set() and q.qsize() >= depth:
+            while not stop.is_set() and q.qsize() >= (
+                    depth if controller is None else controller.depth):
                 cond.wait(0.1)
             if stop.is_set():
                 return False
@@ -291,6 +437,9 @@ def _prefetch_worker(it, device, bundle, depth, q, cond, stop, err, m_put):
         for batch in _host_bundles(it, bundle):
             if stop.is_set():
                 return
+            if controller is not None:
+                # the budget's unit: the host bytes before the copy
+                controller.note_bytes(_host_bytes(batch))
             t0 = time.perf_counter()
             with torch.cuda.stream(stream) if cuda \
                     else contextlib.nullcontext():

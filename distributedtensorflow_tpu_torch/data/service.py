@@ -1,0 +1,1870 @@
+"""Disaggregated input service: dispatcher, data workers, streaming client.
+
+Twin of ``distributedtensorflow_tpu/data/service.py``, framework-free and
+speaking its wire byte for byte, so a client of either package reads from
+the workers of the other.  The tf.data service's shape
+(``DispatchServer``, ``WorkerServer``): the input pipeline runs on a pool
+of CPU workers, apart from the training processes, so a training host
+never stalls on its own input.  The transport is this repository's own
+socket protocol:
+
+- a **dispatcher** tracks the worker pool and owns each epoch's split
+  assignment: ``start_epoch`` snapshots the pool into ``num_shards``
+  splits (``distributed_epoch``: the data is partitioned, every element
+  produced once an epoch) under an epoch **generation** that bumps on
+  every reassignment;
+- **data workers** run the input pipeline and serve batches over
+  persistent TCP connections, one handler loop a connection serving any
+  number of pipelined ``get_next`` requests (a v1 client that closes
+  after one response still works);
+- the **client** opens one fetcher thread a split, each with a
+  persistent connection and a **credit window** of W outstanding
+  ``get_next`` requests, feeding one bounded buffer the consumer pops
+  from.  W is tuned from the consumer's waits
+  (:class:`~.adaptive.AdaptiveDepthController`) unless pinned.
+
+**Elastic resharding** (a worker dies mid-epoch): the client counts every
+batch it received whole, per split; on a dead connection it reports the
+count to the dispatcher (``report_worker_failure``), which evicts the
+worker, bumps the generation and hands the dead worker's splits to the
+survivors with ``skip`` = the batches already delivered.  The survivors
+rebuild ``input_fn(split, num_shards)`` and skip the delivered prefix, so
+every batch arrives **exactly once** while ``input_fn`` is deterministic
+in ``(split, num_shards)``, the contract ``data.skip_batches`` already
+relies on.  A batch counts only once received whole: one torn on the wire
+is fetched again, one buffered never twice.
+
+Wire: every frame is ``uint64 LE length + payload``.  A request is one
+JSON frame; a response one JSON frame and optionally one binary frame
+with the batch, ``wire="raw"`` (the streaming client's default: the
+header-and-raw-bytes format of :mod:`.wire`, optionally CRC32C) or
+``wire="npz"`` (an ``np.savez`` archive); :func:`decode_batch` sniffs
+both.  Decoded raw batches are read-only numpy views of the frame.
+
+**Resilient transport**: every control-plane call goes through
+:mod:`..net.rpc` (deadlines carried in the header, bounded retries with
+backoff and jitter, breakers per endpoint), and the streaming client
+treats a delayed or severed stream as a transport fault first: it
+reconnects to the SAME worker (bounded retries, resuming by a per-stream
+``sid`` and its absolute delivered count) and reports the worker dead
+only when that fails.  The worker compares the new stream's ``skip`` with
+its slot's position: equal adopts the slot in place, short rebuilds the
+deterministic iterator from the requested skip; exactly once either way.
+
+**Durable dispatcher** (:class:`DispatcherJournal`): with
+``journal_path`` every state change (a worker registered, an epoch
+started, a reshard, a client's progress report) is appended to
+``dispatcher.journal`` (one JSON line, fsync'd) and replayed when the
+dispatcher is made again, so a restart mid-epoch keeps the generations,
+split assignments and received counts.
+
+Telemetry (the port's registry, always on: it imports no framework):
+``data_service_fetch_seconds{worker=}`` per worker,
+``data_service_client_wait_seconds`` for the consumer,
+``data_service_workers_dropped_total`` and
+``data_service_resharded_splits_total``, a ``data_reshard`` flight event
+per reassignment, ``data_service_stream_resumes_total`` for same-worker
+reconnections, ``data_service_batches_served_total`` on the workers, and
+the ``rpc_*`` and ``breaker_*`` families of :mod:`..net`.
+"""
+
+from __future__ import annotations
+
+import collections
+import io
+import json
+import logging
+import os
+import queue
+import socket
+import socketserver
+import threading
+import time
+import uuid
+from collections.abc import Callable, Iterator
+
+import numpy as np
+
+from ..net import rpc as netrpc
+from ..obs.flight_recorder import record_event as _record_event
+from ..obs.registry import counter as _counter
+from ..obs.registry import histogram as _histogram
+from ..obs.server import StatusServer
+from ..obs.tracing import remote_span as _remote_span
+from . import wire as wirelib
+from .adaptive import AdaptiveDepthController
+
+logger = logging.getLogger(__name__)
+
+Batch = dict[str, np.ndarray]
+# input_fn(shard_index, num_shards) -> iterator of batches
+WorkerInputFn = Callable[[int, int], Iterator[Batch]]
+
+DEFAULT_HEARTBEAT_INTERVAL_S = 2.0
+DEFAULT_WORKER_TIMEOUT_S = 10.0
+
+WIRE_FORMATS = wirelib.WIRE_FORMATS
+PROTOCOLS = ("streaming", "per_connection")
+
+#: Worker-side iterator caches are pruned to the newest epochs so a
+#: supervisor that rebuilds its client per restart (fresh epoch key each
+#: time) cannot grow worker memory without bound.
+_MAX_CACHED_EPOCHS = 4
+#: Dispatcher-side epoch-assignment state kept, same reason.
+_MAX_TRACKED_EPOCHS = 16
+
+
+# --- framing (net/rpc.py owns the wire) -------------------------------------
+
+_send_msg = netrpc.send_msg
+_recv_msg = netrpc.recv_msg
+
+
+def _rpc(addr: str, request: dict, *, timeout: float = 30.0,
+         trace: dict | None = None, endpoint: str | None = None,
+         policy: netrpc.RetryPolicy | None = None) -> tuple[dict, bytes | None]:
+    """One resilient unary RPC (delegates to :func:`net.rpc.call`):
+    ``timeout`` is the TOTAL deadline including retries; the remaining
+    budget rides the wire header as ``deadline_s``."""
+    if policy is None:
+        policy = netrpc.RetryPolicy(deadline_s=timeout)
+    return netrpc.call(
+        addr, request, endpoint=endpoint or f"data_worker:{addr}",
+        policy=policy, deadline_s=timeout, trace=trace,
+    )
+
+
+def _request_trace(req: dict) -> dict | None:
+    """The trace context a request frame carries, or None."""
+    trace = req.get("trace")
+    if isinstance(trace, dict) and trace.get("trace_id"):
+        return trace
+    return None
+
+
+def encode_batch(batch: Batch, wire: str = "npz", *, crc: bool = False,
+                 trace: dict | None = None) -> bytes:
+    """Serialize a batch for the wire.  ``"npz"`` (the legacy default —
+    the param-server shard protocol still speaks it) or ``"raw"`` (the
+    header+raw-bytes format of :mod:`data.wire`; ``crc`` adds a CRC32C
+    over the payload when the native layer is available; ``trace`` echoes
+    a distributed-tracing context in the raw header)."""
+    if wire == "raw":
+        return wirelib.encode_tensors(batch, crc=crc, trace=trace)
+    if wire != "npz":
+        raise ValueError(f"unknown wire format {wire!r} (known: {WIRE_FORMATS})")
+    buf = io.BytesIO()
+    np.savez(buf, **batch)
+    return buf.getvalue()
+
+
+def decode_batch(data: bytes) -> Batch:
+    """Decode either wire format (sniffed by magic)."""
+    if wirelib.is_raw(data):
+        return wirelib.decode_tensors(data)
+    with np.load(io.BytesIO(data)) as z:
+        return {k: z[k] for k in z.files}
+
+
+# --- dispatcher journal ------------------------------------------------------
+
+
+#: Journal record kinds, in the only orders replay accepts (the schema
+#: checker mirrors this tuple stdlib-side): ``open``/``replay`` are
+#: lifecycle markers; ``epoch_start`` must precede any ``reshard`` /
+#: ``client_progress`` for its epoch; reshard generations are strictly
+#: increasing per epoch.
+JOURNAL_KINDS = (
+    "open", "replay", "worker_register", "worker_deregister",
+    "epoch_start", "reshard", "client_progress",
+)
+
+
+class DispatcherJournal:
+    """Append-only durability log for the dispatcher's control-plane
+    state (``<logdir>/dispatcher.journal``).
+
+    One JSON object per line, each carrying a strictly-increasing ``seq``
+    and a wall ``t``.  Appends are a single ``write`` + flush + fsync —
+    a crash can tear at most the final line, and :meth:`replay`
+    tolerates exactly that (a torn last line is dropped; a torn line
+    anywhere else is corruption and raises).
+
+    The journal is one continuous file across dispatcher restarts: a
+    restarting dispatcher replays it, appends a ``replay`` marker, and
+    keeps appending — so the file itself is the audit trail
+    ``tools/check_metrics_schema.py`` validates (monotonic seq, known
+    kinds, per-epoch generation ordering) and ``tools/run_report.py``
+    summarizes.
+    """
+
+    def __init__(self, path: str, *, next_seq: int | None = None):
+        self.path = path
+        d = os.path.dirname(path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        self._truncate_torn_tail(path)
+        self._f = open(path, "a")
+        self._lock = threading.Lock()
+        # The dispatcher's replay already parsed the file and hands the
+        # continuation seq in; a standalone journal parses once itself.
+        self._seq = self._last_seq() + 1 if next_seq is None else next_seq
+
+    @staticmethod
+    def _truncate_torn_tail(path: str) -> None:
+        """Drop a torn (newline-less) final fragment BEFORE appending:
+        the first post-crash append would otherwise concatenate onto the
+        fragment and turn the one legal tail tear into mid-file
+        corruption that poisons every future replay."""
+        try:
+            with open(path, "rb+") as f:
+                data = f.read()
+                if not data or data.endswith(b"\n"):
+                    return
+                cut = data.rfind(b"\n") + 1  # 0 when no newline at all
+                f.truncate(cut)
+                logger.warning(
+                    "dispatcher journal %s: truncated %d torn tail "
+                    "byte(s) before reopening", path, len(data) - cut,
+                )
+        except FileNotFoundError:
+            return
+        except OSError:  # pragma: no cover - leave the tail to replay()
+            logger.exception("journal tail check failed for %s", path)
+
+    def _last_seq(self) -> int:
+        try:
+            records, _torn = self.replay(self.path)
+        except (OSError, ValueError):
+            return -1
+        return records[-1]["seq"] if records else -1
+
+    def append(self, kind: str, **fields) -> None:
+        if kind not in JOURNAL_KINDS:
+            raise ValueError(f"unknown journal record kind {kind!r}")
+        with self._lock:
+            row = {"seq": self._seq, "t": time.time(), "kind": kind,
+                   **fields}
+            self._seq += 1
+            self._f.write(json.dumps(row) + "\n")
+            self._f.flush()
+            try:
+                os.fsync(self._f.fileno())
+            except OSError:  # pragma: no cover - exotic filesystems
+                pass
+
+    def close(self) -> None:
+        with self._lock:
+            try:
+                self._f.close()
+            except OSError:  # pragma: no cover
+                pass
+
+    @staticmethod
+    def replay(path: str) -> tuple[list[dict], bool]:
+        """Parse ``path`` into ``(records, torn_tail)``: all well-formed
+        records in order, plus whether a torn final line was dropped.
+        Raises ``ValueError`` on corruption anywhere but the tail."""
+        records: list[dict] = []
+        torn = False
+        with open(path) as f:
+            lines = f.read().split("\n")
+        # split() leaves one trailing "" for a well-terminated file.
+        for i, line in enumerate(lines):
+            if not line.strip():
+                continue
+            try:
+                row = json.loads(line)
+            except json.JSONDecodeError:
+                if i == len(lines) - 1:
+                    torn = True  # torn tail: the one legal partial write
+                    break
+                raise ValueError(
+                    f"{path}: corrupt journal line {i + 1}"
+                ) from None
+            if not isinstance(row, dict) or not isinstance(
+                row.get("seq"), int
+            ):
+                raise ValueError(f"{path}: malformed record at line {i + 1}")
+            records.append(row)
+        return records, torn
+
+
+# --- dispatcher -------------------------------------------------------------
+
+
+class DispatchServer:
+    """Tracks the data-worker pool; owns shard assignment per epoch.
+
+    tf.data's ``DispatchServer`` (`server_lib.py:131`).  Without a
+    journal, state is in-memory: workers re-register after a dispatcher
+    restart (the fault-tolerance mode the reference calls
+    non-fault-tolerant dispatch) and epoch assignment state is lost.
+    With ``journal_path``, every mutation is appended to a
+    :class:`DispatcherJournal` and REPLAYED on construction: a restarted
+    dispatcher comes back knowing its workers' shard assignments (so
+    re-registration returns the same shard and no worker retires its
+    epochs), every epoch's generation + split map, and the per-client
+    received counts — elastic re-sharding and exactly-once accounting
+    survive the restart.
+
+    Binds loopback by default (the StatusServer hardening pattern): pass
+    ``host="0.0.0.0"`` only on a trusted cluster network.
+    """
+
+    def __init__(
+        self,
+        port: int = 0,
+        host: str = "127.0.0.1",
+        *,
+        worker_timeout_s: float = DEFAULT_WORKER_TIMEOUT_S,
+        journal_path: str | None = None,
+    ):
+        self._lock = threading.Lock()
+        self._worker_timeout_s = float(worker_timeout_s)
+        # addr -> {"shard": int, "last_seen": float}
+        self._workers: dict[str, dict] = {}
+        # epoch -> {"num_shards", "gen",
+        #           "splits": {int: {"addr", "skip"}},
+        #           "received": {int: count}}   (client progress reports)
+        self._epochs: dict[str, dict] = {}
+        self._journal: DispatcherJournal | None = None
+        if journal_path:
+            replayed, last_seq = self._replay_journal(journal_path)
+            self._journal = DispatcherJournal(journal_path,
+                                              next_seq=last_seq + 1)
+            if replayed:
+                self._journal.append(
+                    "replay",
+                    restored_workers=len(self._workers),
+                    restored_epochs=len(self._epochs),
+                    replayed_records=replayed,
+                )
+            else:
+                self._journal.append("open")
+        outer = self
+
+        class Handler(socketserver.BaseRequestHandler):
+            def handle(self) -> None:
+                try:
+                    req, _ = _recv_msg(self.request)
+                    ctx = _request_trace(req)
+                    if ctx is not None:
+                        # Traced RPC: the dispatcher's span lands in THIS
+                        # process's trace.jsonl under the caller's
+                        # trace_id (rare control-plane calls only — the
+                        # batch hot path never passes through here).
+                        with _remote_span(
+                            f"dispatcher.{req.get('kind')}", context=ctx,
+                            epoch=str(req.get("epoch", "")),
+                        ):
+                            resp = outer._handle(req)
+                    else:
+                        resp = outer._handle(req)
+                    _send_msg(self.request, resp)
+                except (ConnectionError, json.JSONDecodeError, OSError):
+                    pass
+
+        class _Server(socketserver.ThreadingTCPServer):
+            # A journal-replaying dispatcher restarts on its OLD port
+            # (clients hold the address); without reuse the bind races
+            # TIME_WAIT remnants of its predecessor's connections.
+            allow_reuse_address = True
+
+        self._server = _Server((host, port), Handler, bind_and_activate=True)
+        self._server.daemon_threads = True
+        self.host = host
+        self.port = self._server.server_address[1]
+        self._thread = threading.Thread(
+            target=self._server.serve_forever, name="dtf-dispatcher", daemon=True
+        )
+        self._thread.start()
+        logger.info("data-service dispatcher on %s:%d", host, self.port)
+
+    def _replay_journal(self, path: str) -> tuple[int, int]:
+        """Restore workers + epochs from an existing journal; returns
+        ``(records_replayed, last_seq)`` (``(0, -1)`` when the file is
+        absent/empty/unusable) so the journal continues the seq chain
+        without re-parsing the file.  Replayed workers get
+        ``last_seen = now``: a genuinely dead one is re-evicted after the
+        normal timeout, a live one's next heartbeat simply confirms its
+        (unchanged) shard."""
+        if not os.path.exists(path):
+            return 0, -1
+        try:
+            records, torn = DispatcherJournal.replay(path)
+        except (OSError, ValueError) as e:
+            logger.error("dispatcher journal %s unusable (%s); starting "
+                         "with empty state", path, e)
+            return 0, -1
+        if torn:
+            logger.warning("dispatcher journal %s had a torn final line "
+                           "(dropped)", path)
+        now = time.monotonic()
+        for row in records:
+            kind = row.get("kind")
+            if kind == "worker_register":
+                self._workers[row["addr"]] = {
+                    "shard": int(row["shard"]), "last_seen": now,
+                }
+            elif kind == "worker_deregister":
+                self._workers.pop(row.get("addr"), None)
+            elif kind == "epoch_start":
+                self._epochs[str(row["epoch"])] = {
+                    "num_shards": int(row["num_shards"]),
+                    "gen": int(row["gen"]),
+                    "splits": {
+                        int(s): {"addr": v["addr"], "skip": int(v["skip"])}
+                        for s, v in row["splits"].items()
+                    },
+                    "received": {},
+                }
+                while len(self._epochs) > _MAX_TRACKED_EPOCHS:
+                    self._epochs.pop(next(iter(self._epochs)))
+            elif kind == "reshard":
+                self._workers.pop(row.get("dead_worker"), None)
+                ep = self._epochs.get(str(row["epoch"]))
+                if ep is not None:
+                    ep["gen"] = int(row["gen"])
+                    ep["splits"] = {
+                        int(s): {"addr": v["addr"], "skip": int(v["skip"])}
+                        for s, v in row["splits"].items()
+                    }
+            elif kind == "client_progress":
+                ep = self._epochs.get(str(row["epoch"]))
+                if ep is not None:
+                    rec = ep.setdefault("received", {})
+                    for s, n in (row.get("received") or {}).items():
+                        rec[int(s)] = max(rec.get(int(s), 0), int(n))
+        if records:
+            logger.warning(
+                "dispatcher journal %s replayed: %d record(s) -> "
+                "%d worker(s), %d epoch(s)", path, len(records),
+                len(self._workers), len(self._epochs),
+            )
+        return len(records), (records[-1]["seq"] if records else -1)
+
+    def _journal_append(self, kind: str, **fields) -> None:
+        if self._journal is not None:
+            try:
+                self._journal.append(kind, **fields)
+            except OSError:
+                # Durability is best-effort: a full disk must not take
+                # the live control plane down with it.
+                logger.exception("dispatcher journal append failed")
+
+    def _evict_stale(self, now: float) -> None:
+        stale = [
+            a
+            for a, w in self._workers.items()
+            if now - w["last_seen"] >= self._worker_timeout_s
+        ]
+        for a in stale:
+            logger.warning("data worker %s timed out; freeing shard %d",
+                           a, self._workers[a]["shard"])
+            del self._workers[a]
+            self._journal_append("worker_deregister", addr=a,
+                                 reason="timeout")
+
+    @staticmethod
+    def _epoch_view(ep: dict) -> dict:
+        return {
+            "num_shards": ep["num_shards"],
+            "gen": ep["gen"],
+            "splits": {
+                str(s): dict(v) for s, v in sorted(ep["splits"].items())
+            },
+            # Merged per-split progress (max over every client report,
+            # journal-replayed across dispatcher restarts): an elastic
+            # resume — same process after a resize, or another trainer
+            # host joining the SAME epoch — seeds its delivered ledger
+            # from these counts, which is what makes one epoch shareable
+            # across clients exactly-once.
+            "received": {
+                str(s): int(n)
+                for s, n in sorted((ep.get("received") or {}).items())
+            },
+        }
+
+    def _handle(self, req: dict) -> dict:
+        kind = req.get("kind")
+        with self._lock:
+            now = time.monotonic()
+            self._evict_stale(now)
+            if kind == "register_worker":
+                addr = req["addr"]
+                if addr not in self._workers:
+                    # Lowest free shard index: replacement workers take over
+                    # a dead worker's shard rather than growing the index
+                    # space (which would break the exactly-once partition).
+                    used = {w["shard"] for w in self._workers.values()}
+                    shard = next(i for i in range(len(used) + 1) if i not in used)
+                    self._workers[addr] = {"shard": shard, "last_seen": now}
+                    self._journal_append("worker_register", addr=addr,
+                                         shard=shard)
+                else:
+                    self._workers[addr]["last_seen"] = now
+                return {"ok": True, "shard": self._workers[addr]["shard"]}
+            if kind == "deregister_worker":
+                if self._workers.pop(req["addr"], None) is not None:
+                    self._journal_append("worker_deregister",
+                                         addr=req["addr"], reason="planned")
+                return {"ok": True}
+            if kind == "heartbeat":
+                w = self._workers.get(req["addr"])
+                if w is None:  # dispatcher restarted: ask to re-register
+                    return {"ok": False, "reregister": True}
+                w["last_seen"] = now
+                return {"ok": True}
+            if kind == "get_workers":
+                return {
+                    "ok": True,
+                    "workers": {
+                        a: w["shard"] for a, w in self._workers.items()
+                    },
+                }
+            if kind == "start_epoch":
+                epoch = str(req.get("epoch", 0))
+                ep = self._epochs.get(epoch)
+                if ep is None:
+                    if not self._workers:
+                        return {"ok": False, "error": "no data workers"}
+                    ordered = sorted(
+                        self._workers, key=lambda a: self._workers[a]["shard"]
+                    )
+                    ep = {
+                        "num_shards": len(ordered),
+                        "gen": 0,
+                        "splits": {
+                            i: {"addr": a, "skip": 0}
+                            for i, a in enumerate(ordered)
+                        },
+                        "received": {},
+                    }
+                    self._epochs[epoch] = ep
+                    while len(self._epochs) > _MAX_TRACKED_EPOCHS:
+                        self._epochs.pop(next(iter(self._epochs)))
+                    self._journal_append(
+                        "epoch_start", epoch=epoch,
+                        num_shards=ep["num_shards"], gen=0,
+                        splits={str(s): dict(v)
+                                for s, v in ep["splits"].items()},
+                    )
+                return {"ok": True, **self._epoch_view(ep)}
+            if kind == "get_assignments":
+                ep = self._epochs.get(str(req.get("epoch", 0)))
+                if ep is None:
+                    return {"ok": False, "error": "unknown epoch"}
+                return {"ok": True, **self._epoch_view(ep)}
+            if kind == "report_progress":
+                # Exactly-once bookkeeping for a dispatcher restart: the
+                # streaming client periodically reports its cumulative
+                # fully-received counts; they are journaled and become the
+                # reshard skip fallback when a later failure report cannot
+                # supply a count itself.
+                ep = self._epochs.get(str(req.get("epoch", 0)))
+                if ep is None:
+                    return {"ok": False, "error": "unknown epoch"}
+                rec = ep.setdefault("received", {})
+                changed = False
+                for s, n in (req.get("received") or {}).items():
+                    n = int(n)
+                    if n > rec.get(int(s), -1):
+                        rec[int(s)] = n
+                        changed = True
+                if changed:
+                    self._journal_append(
+                        "client_progress", epoch=str(req.get("epoch", 0)),
+                        client=str(req.get("client", "")),
+                        received={str(s): n for s, n in rec.items()},
+                    )
+                return {"ok": True}
+            if kind == "report_worker_failure":
+                return self._reshard_locked(req)
+            return {"ok": False, "error": f"unknown rpc {kind!r}"}
+
+    def _reshard_locked(self, req: dict) -> dict:
+        """Evict a client-reported dead worker and hand its splits (with
+        delivered-batch skip counts) to survivors under a new generation.
+
+        With ``split`` in the request only THAT split moves — the protocol
+        the streaming client uses: each split's own fetcher reports its
+        own cumulative count, so a sibling fetcher mid-decode can never
+        have its count snapshotted one batch short (which would deliver
+        that batch twice).  Without ``split``, all of the dead worker's
+        splits move at once using the supplied count map."""
+        epoch = str(req.get("epoch", 0))
+        addr = req.get("addr")
+        received = req.get("received") or {}
+        ep = self._epochs.get(epoch)
+        if ep is None:
+            return {
+                "ok": False,
+                "error": f"unknown epoch {epoch!r} (dispatcher restarted?)",
+            }
+        self._workers.pop(addr, None)
+        if req.get("split") is not None:
+            orphans = [int(req["split"])]
+            if ep["splits"].get(orphans[0], {}).get("addr") != addr:
+                # already moved (e.g. a full-worker report raced in) —
+                # idempotent success with the current view
+                return {"ok": True, "moved": [], **self._epoch_view(ep)}
+        else:
+            orphans = sorted(
+                s for s, a in ep["splits"].items() if a["addr"] == addr
+            )
+        if orphans:
+            survivors = sorted(
+                self._workers, key=lambda a: self._workers[a]["shard"]
+            )
+            if not survivors:
+                return {
+                    "ok": False,
+                    "error": (
+                        f"no surviving workers to take over splits {orphans}"
+                    ),
+                }
+            ep["gen"] += 1
+            progress = ep.get("received") or {}
+            for i, split in enumerate(orphans):
+                # The client's cumulative delivered count is authoritative;
+                # without one (a whole-worker report, or a client that
+                # itself restarted), the journaled progress report is the
+                # next-best truth; a split never pulled from keeps its
+                # prior skip.
+                skip = received.get(
+                    str(split),
+                    progress.get(split, ep["splits"][split]["skip"]),
+                )
+                ep["splits"][split] = {
+                    "addr": survivors[i % len(survivors)],
+                    "skip": int(skip),
+                }
+            self._journal_append(
+                "reshard", epoch=epoch, gen=ep["gen"],
+                dead_worker=addr,
+                splits={str(s): dict(v) for s, v in ep["splits"].items()},
+            )
+            logger.warning(
+                "data worker %s reported dead; splits %s resharded to "
+                "%d survivor(s) (epoch %s gen %d)",
+                addr, orphans, len(survivors), epoch, ep["gen"],
+            )
+        return {"ok": True, "moved": orphans, **self._epoch_view(ep)}
+
+    def target(self) -> str:
+        host = "127.0.0.1" if self.host in ("0.0.0.0", "") else self.host
+        return f"{host}:{self.port}"
+
+    def stop(self) -> None:
+        self._server.shutdown()
+        self._server.server_close()
+        if self._journal is not None:
+            self._journal.close()
+
+    def kill(self) -> None:
+        """A simulated crash (tests; the reference's chaos
+        ``dispatcher_kill``): the sockets die,
+        the journal file handle is abandoned WITHOUT a clean close —
+        durability must come from the per-record fsync, not a shutdown
+        hook."""
+        self._server.shutdown()
+        self._server.server_close()
+
+
+# --- worker -----------------------------------------------------------------
+
+
+class _IterSlot:
+    """One (epoch, gen, split) iterator: built lazily (skip draining runs
+    under the per-slot lock, not the worker-global one).
+
+    ``sid`` is the OWNING stream's resume token, ``rid`` its monotonic
+    per-split attempt number, and ``pos`` the absolute batch index the
+    next ``next()`` will serve (initial skip + batches served) —
+    together they implement reconnect-with-resume: a new stream (higher
+    ``rid``) whose ``skip`` matches ``pos`` adopts the slot in place, a
+    mismatch (batches died on the severed wire) rebuilds the
+    deterministic iterator from the client's own delivered count, and a
+    STALE stream's leftover pipelined frames (lower ``rid``, buffered on
+    the dead connection) are refused instead of stealing the slot back
+    and rewinding the iterator into duplicates."""
+
+    __slots__ = ("factory", "lock", "num_shards", "it", "sid", "rid",
+                 "pos")
+
+    def __init__(self, factory, num_shards: int, *,
+                 sid: str | None = None, rid: int = 0, pos: int = 0):
+        self.factory = factory
+        self.lock = threading.Lock()
+        self.num_shards = num_shards
+        self.it = None
+        self.sid = sid
+        self.rid = int(rid)
+        self.pos = int(pos)
+
+    def ensure(self) -> Iterator[Batch]:
+        if self.it is None:
+            self.it = self.factory()
+        return self.it
+
+
+class WorkerServer:
+    """Runs the input pipeline; serves batches (tf.data's `server_lib.py:349`).
+
+    ``input_fn(shard_index, num_shards_hint)`` builds the batch iterator.
+    A connection is served in a loop, so a streaming client pipelines any
+    number of ``get_next`` requests over one socket; a v1 client that
+    closes after one response ends the loop via EOF.
+
+    Binds ``host`` (loopback by default — the StatusServer hardening
+    pattern) and advertises ``advertise_host or host`` to the dispatcher;
+    pass ``advertise_host`` when binding ``0.0.0.0``.  ``wire_crc=True``
+    adds a CRC32C to every raw-wire batch (native layer permitting).
+
+    ``status_port`` (None = off; 0 = ephemeral, loopback-default via
+    ``status_host``) embeds an ``obs.StatusServer`` so worker health is a
+    first-class scrape target of the chief's ``FleetAggregator`` instead
+    of being inferable only from client-side fetch histograms — the
+    bound address is ``worker.status_addr``.  A bind failure is logged and
+    the worker serves on without it.
+    """
+
+    def __init__(
+        self,
+        dispatcher: str,
+        input_fn: WorkerInputFn,
+        *,
+        port: int = 0,
+        host: str = "127.0.0.1",
+        advertise_host: str | None = None,
+        pool_size_hint: int | None = None,
+        heartbeat_interval_s: float = DEFAULT_HEARTBEAT_INTERVAL_S,
+        wire_crc: bool = False,
+        max_cached_epochs: int = _MAX_CACHED_EPOCHS,
+        status_port: int | None = None,
+        status_host: str = "127.0.0.1",
+    ):
+        self._dispatcher = dispatcher
+        self._input_fn = input_fn
+        self._heartbeat_interval_s = float(heartbeat_interval_s)
+        self._wire_crc = bool(wire_crc)
+        self._max_cached_epochs = max(1, int(max_cached_epochs))
+        self._lock = threading.Lock()  # guards _iters/_epoch_order/shard_index
+        # (epoch, gen, split) -> _IterSlot
+        self._iters: dict[tuple[str, int, int], _IterSlot] = {}
+        self._epoch_order: list[str] = []
+        # Epochs whose slots were dropped (cache pruning or a dispatcher-
+        # restart shard move).  Requests for them must be REFUSED: the
+        # stream-start `skip` frozen into a client's pipelined requests
+        # predates the drop, so silently rebuilding the iterator would
+        # re-serve batches the client already counted — duplicated data
+        # with exactly-once still claimed.  Insertion-ordered and bounded
+        # (dict-as-ordered-set): a long-lived worker must not grow with
+        # restart count, and a client stale past ~1k retirements is gone.
+        self._retired_epochs: dict[str, None] = {}
+        self._m_served = _counter(
+            "data_service_batches_served_total",
+            "batches this data worker put on the wire",
+        )
+        self._served = 0  # local count (the registry counter may be shared)
+        # Live connections, so kill() can sever in-flight streams (the
+        # listening socket alone leaves established handlers serving).
+        self._conns: set[socket.socket] = set()
+        self._conns_lock = threading.Lock()
+        outer = self
+
+        class Handler(socketserver.BaseRequestHandler):
+            def handle(self) -> None:
+                with outer._conns_lock:
+                    outer._conns.add(self.request)
+                try:
+                    while True:  # persistent connection: loop until EOF
+                        req, _ = _recv_msg(self.request)
+                        try:
+                            header, data = outer._handle(req)
+                        except Exception as e:
+                            # A request that fails (input_fn raised, batch
+                            # not wire-encodable, bad wire value) must be
+                            # ANSWERED, not die with the connection: a
+                            # severed stream reads as worker death, and an
+                            # elastic client would evict this healthy
+                            # worker and cascade the same deterministic
+                            # failure across every takeover.
+                            logger.exception(
+                                "data worker %s: request failed", outer.addr
+                            )
+                            header, data = {
+                                "ok": False,
+                                "error": f"{type(e).__name__}: {e}",
+                            }, None
+                        _send_msg(self.request, header, data)
+                except (ConnectionError, json.JSONDecodeError, OSError):
+                    pass
+                finally:
+                    with outer._conns_lock:
+                        outer._conns.discard(self.request)
+
+        self._server = socketserver.ThreadingTCPServer(
+            (host, port), Handler, bind_and_activate=True
+        )
+        self._server.daemon_threads = True
+        self.port = self._server.server_address[1]
+        if advertise_host is None:
+            advertise_host = socket.gethostname() if host == "0.0.0.0" else host
+        self.addr = f"{advertise_host}:{self.port}"
+        self._pool_size_hint = pool_size_hint
+
+        resp = _rpc(dispatcher, {"kind": "register_worker", "addr": self.addr},
+                    endpoint=f"dispatcher:{dispatcher}")
+        if not resp[0].get("ok"):
+            raise ConnectionError(f"worker registration failed: {resp[0]}")
+        self.shard_index = int(resp[0]["shard"])
+
+        self._stop = threading.Event()
+        self._threads = [
+            threading.Thread(
+                target=self._server.serve_forever,
+                name="dtf-data-worker",
+                daemon=True,
+            ),
+            threading.Thread(
+                target=self._heartbeat_loop,
+                name="dtf-data-worker-hb",
+                daemon=True,
+            ),
+        ]
+        for t in self._threads:
+            t.start()
+
+        #: Embedded introspection server (fleet scrape target); None when
+        #: off or when its bind failed.
+        self.status_server = None
+        self.status_addr: str | None = None
+        if status_port is not None:
+            try:
+                self.status_server = StatusServer(
+                    status_port,
+                    host=status_host,
+                    status_fn=self._status,
+                    health_fn=self._health,
+                ).start()
+                # Advertise a reachable address, not the bind wildcard —
+                # the same advertise_host rule the data port follows
+                # (a remote aggregator scraping "0.0.0.0:P" connects to
+                # itself).
+                adv = (advertise_host
+                       if status_host in ("0.0.0.0", "") else status_host)
+                self.status_addr = f"{adv}:{self.status_server.port}"
+            except Exception:  # a bind failure
+                logger.exception(
+                    "data worker %s: embedded status server unavailable; "
+                    "continuing without it", self.addr,
+                )
+        logger.info(
+            "data worker %s up (shard %d)%s", self.addr, self.shard_index,
+            f" status {self.status_addr}" if self.status_addr else "",
+        )
+
+    def _status(self) -> dict:
+        with self._lock:
+            cached = len(self._iters)
+            retired = len(self._retired_epochs)
+        return {
+            "data_worker": {
+                "addr": self.addr,
+                "shard": self.shard_index,
+                "batches_served": self._served,
+                "cached_iterators": cached,
+                "retired_epochs": retired,
+            }
+        }
+
+    def _health(self) -> dict:
+        return {
+            "ok": not self._stop.is_set(),
+            "addr": self.addr,
+            "shard": self.shard_index,
+        }
+
+    def _heartbeat_loop(self) -> None:
+        ep = f"dispatcher:{self._dispatcher}"
+        # Single-shot per tick: the loop itself IS the retry schedule —
+        # stacking per-call retries on top would stretch a tick past the
+        # heartbeat interval.
+        policy = netrpc.RetryPolicy(deadline_s=5.0, max_attempts=1)
+        while not self._stop.wait(self._heartbeat_interval_s):
+            try:
+                resp, _ = _rpc(
+                    self._dispatcher,
+                    {"kind": "heartbeat", "addr": self.addr},
+                    timeout=5.0, endpoint=ep, policy=policy,
+                )
+                if resp.get("reregister"):
+                    resp, _ = _rpc(
+                        self._dispatcher,
+                        {"kind": "register_worker", "addr": self.addr},
+                        timeout=5.0, endpoint=ep, policy=policy,
+                    )
+                    new_shard = int(resp["shard"])
+                    with self._lock:
+                        if new_shard != self.shard_index:
+                            # Shard moved (dispatcher restart): serving the
+                            # old slice would duplicate/lose data — drop
+                            # cached iterators so new epochs use the new
+                            # shard.
+                            logger.warning(
+                                "data worker %s: shard %d -> %d after "
+                                "dispatcher restart",
+                                self.addr, self.shard_index, new_shard,
+                            )
+                            self.shard_index = new_shard
+                            for old in self._epoch_order:
+                                self._retire_epoch_locked(old)
+                            self._iters.clear()
+                            self._epoch_order.clear()
+            except OSError:
+                logger.warning("data worker %s: dispatcher unreachable", self.addr)
+
+    def _retire_epoch_locked(self, epoch: str) -> None:
+        self._retired_epochs[epoch] = None
+        while len(self._retired_epochs) > 1024:
+            self._retired_epochs.pop(next(iter(self._retired_epochs)))
+
+    def _prune_epochs_locked(self, epoch: str) -> None:
+        if epoch in self._epoch_order:
+            return
+        self._epoch_order.append(epoch)
+        while len(self._epoch_order) > self._max_cached_epochs:
+            old = self._epoch_order.pop(0)
+            self._retire_epoch_locked(old)
+            for key in [k for k in self._iters if k[0] == old]:
+                del self._iters[key]
+
+    def _handle(self, req: dict) -> tuple[dict, bytes | None]:
+        ctx = _request_trace(req)
+        if ctx is None:
+            return self._get_next(req, None)
+        # Traced request (the streaming client injects its context into
+        # the FIRST get_next of each stream only — never per batch): the
+        # worker's span lands in this process's trace.jsonl under the
+        # client's trace_id, and the response batch echoes the context in
+        # its wire header.
+        with _remote_span(
+            "data_worker.get_next", context=ctx,
+            epoch=str(req.get("epoch", "")), split=req.get("split"),
+            worker=self.addr,
+        ) as sp:
+            return self._get_next(req, sp.context)
+
+    def _get_next(self, req: dict,
+                  trace_ctx: dict | None) -> tuple[dict, bytes | None]:
+        if req.get("kind") != "get_next":
+            return {"ok": False, "error": "unknown rpc"}, None
+        epoch = str(req.get("epoch", 0))
+        gen = int(req.get("gen", 0))
+        num_shards = int(req.get("num_shards") or self._pool_size_hint or 1)
+        skip = int(req.get("skip", 0))
+        wire_fmt = str(req.get("wire", "npz"))
+        sid = req.get("sid")
+        split = req.get("split")
+        with self._lock:
+            if epoch in self._retired_epochs:
+                return {
+                    "ok": False,
+                    "error": (
+                        f"epoch {epoch} was retired on this worker (cache "
+                        "pruned past it or the shard moved); its iterators "
+                        "cannot be rebuilt without re-serving delivered "
+                        "batches"
+                    ),
+                }, None
+            if split is None:
+                # v1 client: serve this worker's registered shard.  A
+                # worker evicted by heartbeat timeout that re-registered
+                # may hold a shard index outside the client's num_shards
+                # snapshot; serving it would overlap another worker's
+                # slice.  Refuse instead.
+                if self.shard_index >= num_shards:
+                    return {
+                        "ok": False,
+                        "error": (
+                            f"shard {self.shard_index} >= num_shards "
+                            f"{num_shards}: worker pool changed since the "
+                            "client snapshotted it"
+                        ),
+                    }, None
+                split = self.shard_index
+            split = int(split)
+            rid = int(req.get("rid", 0))
+            key = (epoch, gen, split)
+            entry = self._iters.get(key)
+            if entry is None:
+                entry = _IterSlot(
+                    self._make_iter_factory(split, num_shards, skip),
+                    num_shards, sid=sid, rid=rid, pos=skip,
+                )
+                self._iters[key] = entry
+                self._prune_epochs_locked(epoch)
+            elif entry.num_shards != num_shards:
+                # Cached iterator was built for a different pool snapshot;
+                # its slice doesn't partition cleanly under this client's
+                # num_shards.
+                return {
+                    "ok": False,
+                    "error": (
+                        f"epoch {epoch} gen {gen} split {split} iterator "
+                        f"built with num_shards={entry.num_shards}, "
+                        f"request has {num_shards}"
+                    ),
+                }, None
+            elif sid is not None and sid != entry.sid:
+                rid = int(req.get("rid", 0))
+                if rid <= entry.rid:
+                    # A STALE stream's leftover pipelined frame (its
+                    # connection was severed, but frames it had already
+                    # put on the wire are still being read): honoring it
+                    # would rewind the slot under the live resume stream
+                    # and re-serve counted batches.  Refuse — the answer
+                    # goes to a dead socket anyway.
+                    # ``stale_rid`` lets a LIVE successor stream (a new
+                    # CLIENT whose per-client rid counter restarted — an
+                    # elastic-resize resume, or another host taking the
+                    # slot) escalate past the slot's counter and retry;
+                    # a dead predecessor's buffered frame gets the same
+                    # refusal on a socket nobody reads.
+                    return {
+                        "ok": False,
+                        "error": (
+                            f"stale resume token (attempt {rid} <= "
+                            f"current {entry.rid}) for epoch {epoch} "
+                            f"split {split}"
+                        ),
+                        "stale_rid": entry.rid,
+                    }, None
+                # Reconnect-with-resume: a NEW stream took over a live
+                # slot.  The slot lock is taken INSIDE the worker lock
+                # (serve path takes it alone — consistent order, no
+                # deadlock) so any in-flight next() for the dead stream
+                # lands its pos increment before the comparison.
+                with entry.lock:
+                    entry.rid = rid
+                    if skip == entry.pos:
+                        # Nothing was lost on the severed wire: adopt the
+                        # iterator in place and keep streaming.
+                        entry.sid = sid
+                    else:
+                        # Batches died in flight (served but never
+                        # received): rebuild the deterministic iterator
+                        # from the client's own delivered count.
+                        logger.info(
+                            "data worker %s: stream resume rebuilt "
+                            "epoch %s split %d at %d (slot was at %d)",
+                            self.addr, epoch, split, skip, entry.pos,
+                        )
+                        entry = _IterSlot(
+                            self._make_iter_factory(split, num_shards,
+                                                    skip),
+                            num_shards, sid=sid, rid=rid, pos=skip,
+                        )
+                        self._iters[key] = entry
+        with entry.lock:  # iterators aren't thread-safe; serialize per slot
+            try:
+                batch = next(entry.ensure())
+            except StopIteration:
+                return {"ok": True, "eof": True, "split": split}, None
+            entry.pos += 1
+        self._m_served.inc()
+        self._served += 1
+        return (
+            {"ok": True, "eof": False, "split": split},
+            encode_batch(batch, wire=wire_fmt, crc=self._wire_crc,
+                         trace=trace_ctx),
+        )
+
+    def _make_iter_factory(self, split: int, num_shards: int, skip: int):
+        def factory() -> Iterator[Batch]:
+            it = self._input_fn(split, num_shards)
+            for i in range(skip):
+                # Elastic takeover: fast-forward past batches the dead
+                # worker already delivered (deterministic input_fn).
+                try:
+                    next(it)
+                except StopIteration:
+                    logger.warning(
+                        "split %d exhausted after %d/%d skip batches",
+                        split, i, skip,
+                    )
+                    return iter(())
+            if skip:
+                logger.info(
+                    "data worker %s took over split %d (skipped %d "
+                    "delivered batches)", self.addr, split, skip,
+                )
+            return it
+
+        return factory
+
+    def kill(self) -> None:
+        """Tear down WITHOUT deregistering — a simulated crash (tests /
+        chaos): established streams are severed mid-flight and the
+        dispatcher learns via heartbeat timeout or a client failure
+        report."""
+        self._stop.set()
+        self._close_status_server()  # the fleet aggregator sees it refuse
+        self._server.shutdown()
+        self._server.server_close()
+        with self._conns_lock:
+            for s in list(self._conns):
+                try:
+                    s.shutdown(socket.SHUT_RDWR)
+                except OSError:
+                    pass
+                try:
+                    s.close()
+                except OSError:
+                    pass
+
+    def _close_status_server(self) -> None:
+        if self.status_server is not None:
+            try:
+                self.status_server.stop()
+            except Exception:  # pragma: no cover - teardown best-effort
+                pass
+            self.status_server = None
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._close_status_server()
+        try:  # planned shutdown: free our shard immediately, don't wait
+            _rpc(
+                self._dispatcher,
+                {"kind": "deregister_worker", "addr": self.addr},
+                timeout=5.0, endpoint=f"dispatcher:{self._dispatcher}",
+                policy=netrpc.RetryPolicy(deadline_s=5.0, max_attempts=1),
+            )
+        except OSError:
+            pass
+        self._server.shutdown()
+        self._server.server_close()
+
+
+# --- client -----------------------------------------------------------------
+
+
+class _WorkerRefusal(RuntimeError):
+    """Worker answered but refused the request (pool-snapshot mismatch).
+
+    ``stale_rid`` (when the worker sent one) is the slot's current stream-
+    attempt number: a LIVE successor stream — a post-resize client or
+    another host resuming the slot — escalates past it and retries, which
+    a dead predecessor's leftover pipelined frame can never do (its
+    refusal lands on a closed socket)."""
+
+    def __init__(self, message: str, *, stale_rid: int | None = None):
+        super().__init__(message)
+        self.stale_rid = stale_rid
+
+
+class DataServiceClient:
+    """Streaming batch puller over the live worker pool.
+
+    One epoch = every split of the dispatcher's epoch snapshot drained to
+    EOF.  ``protocol="streaming"`` (default) keeps one persistent
+    connection + fetcher thread per split with a pipelined credit window;
+    ``protocol="per_connection"`` is the v1 blocking round-robin (one TCP
+    connection and one full round-trip per batch) kept as the measurable
+    baseline and for v1 workers.
+
+    Fault policy on mid-epoch worker death:
+
+    - ``elastic=True`` (default, streaming only): report the death to the
+      dispatcher, which re-assigns the dead worker's splits to survivors
+      with delivered-batch skip counts — the epoch completes exactly-once.
+    - ``elastic=False, ignore_errors=True``: drop the dead worker's
+      remaining data (the reference's dynamic-pool semantics).
+    - ``elastic=False, ignore_errors=False``: raise ``ConnectionError``.
+
+    ``window`` is the per-split credit window (outstanding pipelined
+    requests); with ``adaptive_window=True`` it autotunes between 1 and
+    ``max_window`` from consumer blocking time, bounded by
+    ``bytes_budget`` (see :class:`data.AdaptiveDepthController`).
+    """
+
+    _DONE = object()
+    _ERR = object()
+
+    def __init__(
+        self,
+        dispatcher: str,
+        *,
+        epoch: int | str = 0,
+        ignore_errors: bool = False,
+        elastic: bool = True,
+        protocol: str = "streaming",
+        wire: str = "raw",
+        window: int = 2,
+        adaptive_window: bool = True,
+        max_window: int = 8,
+        bytes_budget: int | None = None,
+        buffer_batches: int | None = None,
+        wait_for_workers_s: float = 30.0,
+        get_next_timeout_s: float = 120.0,
+        stream_retries: int = 2,
+        progress_interval_s: float = 2.0,
+    ):
+        if protocol not in PROTOCOLS:
+            raise ValueError(f"unknown protocol {protocol!r} ({PROTOCOLS})")
+        if wire not in WIRE_FORMATS:
+            raise ValueError(f"unknown wire {wire!r} ({WIRE_FORMATS})")
+        self._dispatcher = dispatcher
+        self._dispatcher_ep = f"dispatcher:{dispatcher}"
+        self._epoch = str(epoch)
+        self._ignore_errors = ignore_errors
+        self._protocol = protocol
+        self._elastic = elastic and protocol == "streaming"
+        self._wire = wire
+        self._timeout = get_next_timeout_s
+        self._window = max(1, int(window))
+        #: Bounded SAME-WORKER stream reconnections per fault before the
+        #: failure is reported to the dispatcher (elastic eviction): a
+        #: transient delay/sever is a transport fault, not a dead worker.
+        self._stream_retries = max(0, int(stream_retries))
+        self._stream_policy = netrpc.RetryPolicy(
+            deadline_s=get_next_timeout_s, backoff_base_s=0.05,
+            backoff_max_s=0.5,
+        )
+        self._client_id = uuid.uuid4().hex[:8]
+        self._progress_interval_s = float(progress_interval_s)
+
+        # metric handles resolved once (hot-path discipline)
+        self._m_batches = _counter(
+            "data_batches_total", "batches handed to the consumer"
+        )
+        self._m_wait = _histogram(
+            "data_service_client_wait_seconds",
+            "consumer blocking time per data-service batch",
+        )
+        self._m_fetch = _histogram(
+            "data_service_fetch_seconds",
+            "per-worker wire time per pipelined batch response",
+        )
+        self._m_dropped = _counter(
+            "data_service_workers_dropped_total",
+            "data workers dropped from this client's pool",
+        )
+        self._m_resharded = _counter(
+            "data_service_resharded_splits_total",
+            "splits elastically re-assigned after a worker death",
+        )
+        self._m_resumes = _counter(
+            "data_service_stream_resumes_total",
+            "same-worker stream reconnections (transport fault absorbed "
+            "without evicting the worker)",
+        )
+
+        # Distributed tracing: ONE trace per epoch.  This root span is the
+        # client anchor; the dispatcher's start_epoch span and every
+        # split's fetch-stream span (and through it the workers') parent
+        # under its trace_id, so `timeline.py --fleet` can stitch one
+        # data-service fetch across processes.
+        deadline = time.monotonic() + wait_for_workers_s
+        resp: dict = {}
+        with _remote_span(
+            "data_service.start_epoch", epoch=self._epoch,
+            dispatcher=dispatcher,
+        ) as _ep_span:
+            while time.monotonic() < deadline:
+                try:
+                    resp, _ = _rpc(
+                        dispatcher,
+                        {"kind": "start_epoch", "epoch": self._epoch},
+                        timeout=5.0,
+                        trace=_ep_span.context,
+                        endpoint=self._dispatcher_ep,
+                        # this grace loop IS the retry schedule
+                        policy=netrpc.RetryPolicy(deadline_s=5.0,
+                                                  max_attempts=1),
+                    )
+                except OSError:
+                    # Dispatcher still starting up — that's what the grace
+                    # window is for.
+                    time.sleep(0.2)
+                    continue
+                if resp.get("ok"):
+                    break
+                time.sleep(0.2)
+        self._trace_ctx = getattr(_ep_span, "context", None)
+        if not resp.get("ok"):
+            raise TimeoutError("no data workers registered")
+        self._num_shards = int(resp["num_shards"])
+        self._gen = int(resp["gen"])
+        self._assignments: dict[int, dict] = {
+            int(s): dict(v) for s, v in resp["splits"].items()
+        }
+        # Elastic resume: seed the delivered ledger from the dispatcher's
+        # journaled per-split progress (max-merged over every client that
+        # reported against this epoch), so a rebuilt client — the same
+        # process after a resize, or another trainer host sharing the
+        # epoch — fast-forwards past what the run already trained on
+        # instead of re-pulling it.
+        _progress = {
+            int(s): int(n) for s, n in (resp.get("received") or {}).items()
+        }
+        self._received: dict[int, int] = {
+            s: max(0, _progress.get(s, 0)) for s in self._assignments
+        }
+        # Batches actually handed to the consumer, per split.  `_received`
+        # counts decode completion and drives stream-level resume WITHIN
+        # this client (a buffered batch must not be refetched — it is
+        # still going to be consumed); a batch sitting in the buffer at
+        # close was never trained on, so CROSS-client continuation must
+        # resume at the consumed position (re-fetching the buffered
+        # remainder) or those batches are silently lost.  This is the
+        # ledger progress reports and the drain handoff publish.
+        self._consumed: dict[int, int] = dict(self._received)
+        # Handout order of batches given to the puller but not yet
+        # acknowledged as consumed (note_consumed pops from the left).
+        self._handout: collections.deque[int] = collections.deque()
+        # Monotonic per-split stream-attempt counter: rides each stream's
+        # requests as ``rid`` so the worker can refuse a severed stream's
+        # leftover pipelined frames (stale < current) instead of letting
+        # them steal the slot back from the live resume stream.
+        self._stream_rids: dict[int, int] = {s: 0 for s in self._assignments}
+        self._dead_workers: set[str] = set()
+        self._reshard_lock = threading.Lock()
+        self._err: BaseException | None = None
+        self._closed = False
+        self._finished = False
+
+        if protocol == "per_connection":
+            # v1 path: blocking round-robin, no threads.  _rr indexes the
+            # CURRENT live list (clamped on every shrink), so dropping a
+            # worker can no longer skew rotation order.
+            self._live = [
+                self._assignments[s]["addr"]
+                for s in sorted(self._assignments)
+            ]
+            self._rr = 0
+            return
+
+        self._controller = (
+            AdaptiveDepthController(
+                initial=self._window,
+                min_depth=1,
+                max_depth=max_window,
+                bytes_budget=bytes_budget,
+                component="client",
+            )
+            if adaptive_window
+            else None
+        )
+        n = max(1, len(self._assignments))
+        self._q: queue.Queue = queue.Queue(
+            maxsize=buffer_batches or max(4, 2 * n)
+        )
+        self._pending = n  # fetchers still running
+        self._pending_lock = threading.Lock()
+        self._fetchers = [
+            threading.Thread(
+                target=self._fetch_loop,
+                args=(split,),
+                name=f"dtf-data-fetch-{split}",
+                daemon=True,
+            )
+            for split in sorted(self._assignments)
+        ]
+        for t in self._fetchers:
+            t.start()
+        # Periodic exactly-once progress reports: the dispatcher journals
+        # them, so a dispatcher restart mid-epoch still knows how far each
+        # split got even before any failure report supplies a count.
+        self._progress_stop = threading.Event()
+        self._progress_thread = None
+        if self._progress_interval_s > 0:
+            self._progress_thread = threading.Thread(
+                target=self._progress_loop,
+                name="dtf-data-progress",
+                daemon=True,
+            )
+            self._progress_thread.start()
+
+    def _progress_loop(self) -> None:
+        policy = netrpc.RetryPolicy(deadline_s=2.0, max_attempts=1)
+        while not self._progress_stop.wait(self._progress_interval_s):
+            try:
+                self.flush_progress(timeout=2.0, policy=policy)
+            except (OSError, ConnectionError):
+                # Best-effort durability: a briefly-unreachable (or
+                # breaker-open) dispatcher costs one report, nothing more.
+                pass
+
+    def flush_progress(self, timeout: float = 5.0,
+                       policy: netrpc.RetryPolicy | None = None) -> bool:
+        """Report the CONSUMED-batch ledger to the dispatcher now.
+
+        The journaled counts are what a successor client (elastic resize,
+        another trainer host on the same epoch) seeds from, so a drain
+        calls this synchronously before :meth:`close` — the periodic loop
+        alone could be up to ``progress_interval_s`` stale.  Reports
+        consumed (trained-on) counts, not received: buffered batches die
+        with this client and must be re-fetched by the successor.
+        Returns True when the dispatcher acknowledged."""
+        if self._protocol == "per_connection":
+            return False
+        with self._reshard_lock:
+            consumed = {str(s): n for s, n in self._consumed.items()}
+        resp, _ = _rpc(
+            self._dispatcher,
+            {
+                "kind": "report_progress",
+                "epoch": self._epoch,
+                "client": self._client_id,
+                "received": consumed,
+            },
+            timeout=timeout, endpoint=self._dispatcher_ep,
+            policy=policy or netrpc.RetryPolicy(deadline_s=timeout,
+                                                max_attempts=1),
+        )
+        return bool(resp.get("ok"))
+
+    # -- streaming fetchers ---------------------------------------------------
+
+    def _window_depth(self) -> int:
+        return self._controller.depth if self._controller else self._window
+
+    def _buffer_put(self, item) -> bool:
+        """Bounded put that re-checks close, so a consumer that stops
+        popping can never wedge a fetcher forever."""
+        while not self._closed:
+            try:
+                self._q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _fail(self, err: BaseException) -> None:
+        self._err = err
+        self._buffer_put(self._ERR)
+
+    def _fetch_loop(self, split: int) -> None:
+        resume_attempts = 0
+        rid_retries = 0
+        try:
+            while not self._closed:
+                with self._reshard_lock:
+                    asg = dict(self._assignments[split])
+                    gen = self._gen
+                    # Resume position: the stream always starts at this
+                    # client's ABSOLUTE delivered count (>= the
+                    # assignment's skip once any batch has landed) — the
+                    # worker's sid/pos reconciliation fast-forwards or
+                    # adopts accordingly.
+                    skip = max(int(asg["skip"]), self._received[split])
+                addr = asg["addr"]
+                try:
+                    self._stream_split(split, addr, skip, gen)
+                    return  # EOF: split fully delivered
+                except _WorkerRefusal as e:
+                    if (e.stale_rid is not None
+                            and rid_retries < self._stream_retries):
+                        # The slot's stream-attempt counter outran this
+                        # client's (a fresh client resuming a slot a
+                        # predecessor streamed — elastic resize, shared
+                        # epoch): escalate past it and retry.  Bounded so
+                        # two clients fighting over one slot fail instead
+                        # of livelocking.
+                        rid_retries += 1
+                        with self._reshard_lock:
+                            self._stream_rids[split] = max(
+                                self._stream_rids[split], int(e.stale_rid)
+                            )
+                        logger.info(
+                            "data stream split %d to %s: resume token "
+                            "behind slot (rid -> %d); retry %d/%d",
+                            split, addr, self._stream_rids[split] + 1,
+                            rid_retries, self._stream_retries,
+                        )
+                        continue
+                    # Config-level refusal (pool-snapshot mismatch), not a
+                    # death — re-sharding can't fix it.
+                    if self._ignore_errors:
+                        self._m_dropped.inc()
+                        logger.warning("dropping data worker %s: %s", addr, e)
+                        return
+                    self._fail(RuntimeError(str(e)))
+                    return
+                except (OSError, ConnectionError, wirelib.WireError) as e:
+                    if self._closed:
+                        return
+                    with self._reshard_lock:
+                        progressed = self._received[split] > skip
+                        moved = self._assignments[split]["addr"] != addr
+                    if progressed or moved:
+                        # A fresh fault (or a reshard by a sibling) gets
+                        # the full same-worker retry budget back.
+                        resume_attempts = 0
+                    if not moved and resume_attempts < self._stream_retries:
+                        # Transport fault first: reconnect to the SAME
+                        # worker with backoff+jitter before telling the
+                        # dispatcher to evict it.
+                        delay = netrpc.backoff_s(
+                            self._stream_policy, resume_attempts
+                        )
+                        resume_attempts += 1
+                        self._m_resumes.inc()
+                        logger.info(
+                            "data stream split %d to %s faulted (%s); "
+                            "resume attempt %d/%d in %.2fs",
+                            split, addr, e, resume_attempts,
+                            self._stream_retries, delay,
+                        )
+                        time.sleep(delay)
+                        continue
+                    if not self._handle_stream_failure(split, addr, e):
+                        return
+                    resume_attempts = 0
+        except BaseException as e:  # pragma: no cover - belt and braces
+            self._fail(e)
+        finally:
+            with self._pending_lock:
+                self._pending -= 1
+                last = self._pending == 0
+            if last:
+                self._buffer_put(self._DONE)
+
+    def _stream_split(self, split: int, addr: str, skip: int, gen: int) -> None:
+        """Pipelined pull of one split over one persistent connection.
+
+        One cross-process span per stream (parented under the epoch's
+        trace); its context rides the FIRST ``get_next`` only — the
+        worker records one matching span per stream, never per batch."""
+        with _remote_span(
+            "data_service.fetch_split", context=self._trace_ctx,
+            split=split, worker=addr, skip=skip, gen=gen,
+        ) as sp:
+            self._stream_split_traced(
+                split, addr, skip, gen, getattr(sp, "context", None)
+            )
+
+    def _stream_split_traced(
+        self, split: int, addr: str, skip: int, gen: int,
+        trace_ctx: dict | None,
+    ) -> None:
+        with self._reshard_lock:
+            self._stream_rids[split] += 1
+            rid = self._stream_rids[split]
+        request = {
+            "kind": "get_next",
+            "epoch": self._epoch,
+            "split": split,
+            "num_shards": self._num_shards,
+            "skip": skip,
+            "gen": gen,
+            "wire": self._wire,
+            # Per-stream resume token + monotonic attempt number: the
+            # worker adopts/rebuilds its iterator slot by comparing this
+            # stream's skip to the slot position whenever the sid changes
+            # (reconnect-with-resume), and refuses frames whose rid is
+            # stale (a severed predecessor's buffered pipeline).
+            "sid": f"{self._client_id}-{split}-{uuid.uuid4().hex[:8]}",
+            "rid": rid,
+        }
+        # Dialing rides the net substrate: backoff+jitter inside a short
+        # connect deadline (the fetch loop owns the longer retry/evict
+        # policy), breaker feed, and sever-target registration (chaos).
+        s, token = netrpc.connect_stream(
+            addr, endpoint=f"data_worker:{addr}", timeout_s=self._timeout,
+            connect_deadline_s=2.0, policy=self._stream_policy,
+        )
+        try:
+            self._stream_pump(s, request, split, addr, trace_ctx)
+        finally:
+            netrpc.unregister_stream(token)
+            try:
+                s.close()
+            except OSError:
+                pass
+
+    def _stream_pump(self, s: socket.socket, request: dict, split: int,
+                     addr: str, trace_ctx: dict | None) -> None:
+        outstanding = 0
+        traced_sent = trace_ctx is None  # inject once per stream
+        while not self._closed:
+            # Credit window: keep W get_nexts on the wire.  Requests
+            # are tiny JSON frames; the responses stream back in order
+            # on the same socket while we decode/enqueue.
+            target = max(1, self._window_depth())
+            while outstanding < target:
+                if not traced_sent:
+                    traced_sent = True
+                    _send_msg(s, dict(request, trace=trace_ctx))
+                else:
+                    _send_msg(s, request)
+                outstanding += 1
+            t0 = time.perf_counter()
+            header, data = _recv_msg(s)
+            self._m_fetch.observe(time.perf_counter() - t0, worker=addr)
+            outstanding -= 1
+            if not header.get("ok"):
+                raise _WorkerRefusal(
+                    f"data worker {addr}: {header.get('error')}",
+                    stale_rid=header.get("stale_rid"),
+                )
+            if header.get("eof"):
+                # In-flight requests beyond EOF answer eof too; the
+                # socket just closes under them.
+                return
+            batch = decode_batch(data)
+            # Exactly-once accounting: count only fully-received,
+            # decoded batches — a response torn mid-wire is refetched
+            # by the takeover worker, a counted one never is.
+            with self._reshard_lock:
+                self._received[split] += 1
+            if self._controller:
+                self._controller.note_bytes(wirelib.tensor_bytes(batch))
+            if not self._buffer_put((split, batch)):
+                return
+
+    def _handle_stream_failure(
+        self, split: int, addr: str, err: BaseException
+    ) -> bool:
+        """True = assignment refreshed, retry the split; False = stop."""
+        with self._reshard_lock:
+            if self._assignments[split]["addr"] != addr:
+                return True  # assignment already refreshed elsewhere
+            # Snapshot ONLY this fetcher's split with ONLY its own count:
+            # a sibling fetcher of the same dead worker may be holding a
+            # decoded-but-not-yet-counted batch, and a whole-worker report
+            # would snapshot its count one short (delivering that batch
+            # twice after takeover).
+            count = int(self._received[split])
+        if self._elastic:
+            # The RPC runs OUTSIDE the lock: holding it across a blocking
+            # (up to 10 s) dispatcher round-trip would stall every healthy
+            # fetcher at its per-batch count increment.
+            with _remote_span(
+                "data_service.report_failure", context=self._trace_ctx,
+                worker=addr, split=split,
+            ) as _rp_span:
+                try:
+                    resp, _ = _rpc(
+                        self._dispatcher,
+                        {
+                            "kind": "report_worker_failure",
+                            "epoch": self._epoch,
+                            "addr": addr,
+                            "split": split,
+                            "received": {str(split): count},
+                        },
+                        timeout=10.0,
+                        trace=getattr(_rp_span, "context", None),
+                        endpoint=self._dispatcher_ep,
+                    )
+                except OSError as e:
+                    resp = {
+                        "ok": False,
+                        "error": f"dispatcher unreachable: {e}",
+                    }
+            if resp.get("ok"):
+                with self._reshard_lock:
+                    # Concurrent reports interleave; only move forward (a
+                    # lower-gen response must not roll assignments back).
+                    if int(resp["gen"]) >= self._gen:
+                        self._gen = int(resp["gen"])
+                        self._assignments = {
+                            int(s): dict(v)
+                            for s, v in resp["splits"].items()
+                        }
+                    if addr not in self._dead_workers:
+                        self._dead_workers.add(addr)
+                        self._m_dropped.inc()
+                    gen = self._gen
+                moved = resp.get("moved", [])
+                self._m_resharded.inc(len(moved))
+                _record_event(
+                    "data_reshard",
+                    worker=addr,
+                    splits=len(moved),
+                    gen=gen,
+                    epoch=self._epoch,
+                )
+                logger.warning(
+                    "data worker %s died mid-epoch (%s); splits %s "
+                    "resharded at gen %d",
+                    addr, err, moved, gen,
+                )
+                return True
+            logger.warning(
+                "elastic reshard for %s failed: %s",
+                addr, resp.get("error"),
+            )
+        if self._ignore_errors:
+            self._m_dropped.inc()
+            logger.warning(
+                "dropping dead data worker %s (split %d remainder lost)",
+                addr, split,
+            )
+            return False
+        e = ConnectionError(f"data worker {addr} died mid-epoch")
+        e.__cause__ = err
+        self._fail(e)
+        return False
+
+    # -- consumer -------------------------------------------------------------
+
+    def __iter__(self) -> Iterator[Batch]:
+        return self
+
+    def __next__(self) -> Batch:
+        if self._protocol == "per_connection":
+            return self._next_per_connection()
+        if self._finished:
+            if self._err is not None:
+                raise self._err
+            raise StopIteration
+        t0 = time.perf_counter()
+        try:
+            item = self._q.get(timeout=self._timeout)
+        except queue.Empty:
+            raise TimeoutError(
+                f"no batch from the data service within {self._timeout}s"
+            ) from None
+        wait = time.perf_counter() - t0
+        self._m_wait.observe(wait)
+        if self._controller:
+            self._controller.observe_wait(wait)
+        if item is self._ERR or item is self._DONE:
+            self._finished = True
+            if self._err is not None:
+                raise self._err
+            raise StopIteration
+        _split, batch = item
+        with self._reshard_lock:
+            # Not consumed YET: the puller (the Prefetcher) buffers
+            # ahead of the trainer, and a batch still in ITS buffer at
+            # close was never trained on.  Remember the handout order;
+            # note_consumed() advances the per-split consumed ledger
+            # when the downstream consumer actually takes the batch.
+            self._handout.append(_split)
+        self._m_batches.inc()
+        return batch
+
+    def note_consumed(self, n: int = 1) -> None:
+        """Advance the consumed ledger by ``n`` batches, in handout order.
+
+        Called by the downstream consumer (``Prefetcher.__next__``) when
+        batches actually reach the training loop — counting at our own
+        ``__next__`` would overshoot by whatever the consumer still has
+        buffered at close, and a same-epoch successor would skip batches
+        that were never trained on (lost work)."""
+        with self._reshard_lock:
+            for _ in range(n):
+                if not self._handout:
+                    break
+                s = self._handout.popleft()
+                self._consumed[s] = self._consumed.get(s, 0) + 1
+
+    def _next_per_connection(self) -> Batch:
+        while self._live:
+            if self._rr >= len(self._live):
+                self._rr = 0
+            addr = self._live[self._rr]
+            try:
+                header, data = _rpc(
+                    addr,
+                    {
+                        "kind": "get_next",
+                        "epoch": self._epoch,
+                        "num_shards": self._num_shards,
+                        "wire": self._wire,
+                    },
+                    timeout=self._timeout,
+                    # get_next is NOT idempotent: a transport retry after
+                    # a lost response would skip a batch — the v1 fault
+                    # policy (drop/raise) handles it instead.
+                    policy=netrpc.RetryPolicy(deadline_s=self._timeout,
+                                              max_attempts=1),
+                )
+            except OSError as e:
+                if not self._ignore_errors:
+                    raise ConnectionError(
+                        f"data worker {addr} died mid-epoch"
+                    ) from e
+                logger.warning("dropping dead data worker %s", addr)
+                self._m_dropped.inc()
+                self._live.remove(addr)
+                continue
+            if not header.get("ok"):
+                # Worker refused (shard/pool mismatch after membership
+                # change) — its data can't be served consistently this epoch.
+                if not self._ignore_errors:
+                    raise RuntimeError(
+                        f"data worker {addr}: {header.get('error')}"
+                    )
+                logger.warning(
+                    "dropping data worker %s: %s", addr, header.get("error")
+                )
+                self._m_dropped.inc()
+                self._live.remove(addr)
+                continue
+            if header.get("eof"):
+                self._live.remove(addr)
+                continue
+            self._rr = (self._rr + 1) % len(self._live)
+            self._m_batches.inc()
+            return decode_batch(data)
+        raise StopIteration
+
+    def received_counts(self) -> dict[int, int]:
+        """Cumulative fully-received batches per split (the exactly-once
+        ledger the elastic re-shard skip counts come from)."""
+        if self._protocol == "per_connection":
+            return {}
+        with self._reshard_lock:
+            return dict(self._received)
+
+    def consumed_counts(self) -> dict[int, int]:
+        """Cumulative batches handed to the consumer per split (the
+        cross-client continuation ledger — what a drain journals)."""
+        if self._protocol == "per_connection":
+            return {}
+        with self._reshard_lock:
+            return dict(self._consumed)
+
+    def close(self) -> None:
+        """Stop fetcher threads and release buffered batches.  Flushes a
+        final progress report first (best-effort), so a successor client
+        on the same epoch seeds from this client's true consumed
+        position rather than a stale periodic report."""
+        if self._protocol == "per_connection":
+            return
+        try:
+            self.flush_progress(timeout=2.0)
+        except (OSError, ConnectionError):
+            pass
+        self._closed = True
+        self._progress_stop.set()
+        if self._controller is not None:
+            self._controller.unregister()
+        while True:
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                break
+        # The drain above may have discarded the DONE sentinel; re-arm it
+        # so a consumer blocked in __next__ wakes NOW instead of sitting
+        # out the full get_next_timeout_s.
+        try:
+            self._q.put_nowait(self._DONE)
+        except queue.Full:  # pragma: no cover - queue was just drained
+            pass
+        for t in self._fetchers:
+            t.join(timeout=5)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

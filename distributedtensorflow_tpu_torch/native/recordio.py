@@ -52,8 +52,7 @@ class RecordWriter:
 
     def close(self) -> None:
         if self._h is not None:
-            self._finalizer.detach()
-            self._lib.dtf_writer_close(self._h)
+            self._finalizer()  # closes the handle once (see RecordReader)
             self._h = None
 
     def __enter__(self) -> "RecordWriter":
@@ -234,8 +233,12 @@ class RecordReader:
 
     def close(self) -> None:
         if self._h is not None:
-            self._finalizer.detach()
-            self._lib.dtf_reader_close(self._h)
+            # the finalizer closes the handle at most once: when a reader
+            # and the generator reading it are garbage of one cycle, the
+            # collector runs the finalizer before the generator's
+            # ``finally`` calls close(), and a second close freed the
+            # handle twice
+            self._finalizer()
             self._h = None
 
     def __enter__(self) -> "RecordReader":

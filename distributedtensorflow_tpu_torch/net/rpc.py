@@ -1,12 +1,12 @@
 """Resilient RPC substrate: deadlines, retries, reconnection, breakers.
 
 Twin of ``distributedtensorflow_tpu/net/rpc.py``, framework-free and copied
-whole.  Of the transports named below the port has the fleet ``/varz``
-scrapes (``obs/fleet.py``), the alert webhook (``obs/alerts.py``) and the
-serve HTTP path; the data service and the MPMD links wait for their
-modules, and the endpoint prefixes stay the reference's, so
-``tools/check_metrics_schema.py`` gates the port's labels as it gates the
-JAX package's.
+whole.  Of the transports named below the port has the data service
+(``data/service.py``), the fleet ``/varz`` scrapes (``obs/fleet.py``),
+the alert webhook (``obs/alerts.py``) and the serve HTTP path; the MPMD
+links wait for their module, and the endpoint prefixes stay the
+reference's, so ``tools/check_metrics_schema.py`` gates the port's labels
+as it gates the JAX package's.
 
 Every cross-process byte in this codebase rides one of four transports —
 data-service RPCs/streams (``data/service.py``), MPMD pipeline links

@@ -11,6 +11,14 @@ backward runs in the thread itself, so a collective inside a backward
 (BatchNorm's statistics) meets its peers; CUDA tensors of two threads on
 one card would share the card's single autograd thread and deadlock
 there, so ranks on a card are processes.
+
+Every group, the world's and a mesh's subgroups, lives until every
+thread has ended.  gloo's ``connectFullMesh`` can hand one side of a
+pair its connection while the other side still finishes its handshake:
+a rank whose ``fn`` returned at once (it calls no collective) and so
+dropped its group then closed the pair under a peer still in its
+constructor, which failed with "Connection closed by peer" on a busy
+host.
 """
 
 from __future__ import annotations
@@ -30,13 +38,17 @@ def run_mesh(fn: Callable[[int, Any], Any], spec, world: int, *,
     ``PrefixStore`` a subgroup, as the world's)."""
     from ..parallel.mesh import build_mesh
 
+    subgroups: list = []  # alive until every thread has ended
+
     def body(rank, group, store):
         def new_group(ranks):
             if rank not in ranks:
                 return None
-            return dist.ProcessGroupGloo(
+            sub = dist.ProcessGroupGloo(
                 dist.PrefixStore(f"sub{ranks}", store), ranks.index(rank),
                 len(ranks), datetime.timedelta(seconds=timeout))
+            subgroups.append(sub)  # list.append is atomic under the GIL
+            return sub
 
         return fn(rank, build_mesh(spec, group, new_group))
 
@@ -49,14 +61,16 @@ def run_ranks(fn: Callable[..., Any], world: int, *,
     thread with its own gloo group of ``world`` ranks.  After every thread
     ended, the exception raised first by any rank is raised (a rank that
     fails leaves its peers waiting in a collective until the group's
-    ``timeout``, and their timeouts come later)."""
+    ``timeout``, and their timeouts come later).  The groups are dropped
+    only after every thread ended (see the module's docstring)."""
     store = dist.HashStore()
     results: list = [None] * world
+    groups: list = [None] * world
     errors: list = []
 
     def body(rank):
         try:
-            group = dist.ProcessGroupGloo(
+            group = groups[rank] = dist.ProcessGroupGloo(
                 dist.PrefixStore("ranks", store), rank, world,
                 datetime.timedelta(seconds=timeout))
             results[rank] = fn(rank, group, store) if with_store \

@@ -24,9 +24,7 @@ What differs from JAX:
 - ``steps_per_call`` > 1 takes a multi-step function
   (``train.engine.make_multi_train_step``: on the card one replayed CUDA
   graph of k steps) and k stacked batches a call (``input_prebundled``:
-  the iterator yields them, as ``data.Prefetcher(bundle=k)`` does).  The
-  input plane's record fields (``input_record_fields``) wait for
-  ``data/adaptive.py`` (ROADMAP item 11).
+  the iterator yields them, as ``data.Prefetcher(bundle=k)`` does).
 - The last step (``total_steps``) is a log boundary too, so a run whose
   length is not a multiple of ``log_every`` reports its last loss.
 - ``Callback.on_log`` is the port's addition: it hands each log record
@@ -50,6 +48,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..data.adaptive import input_record_fields
 from ..parallel import bootstrap
 from ..utils.metrics import MetricWriter, ThroughputMeter
 from .state import TrainState
@@ -624,6 +623,8 @@ class Trainer:
             self._refresh_state_bytes(state)  # the moments exist now
             self._state_bytes_fresh = True
         record.update(obs.memory.train_state_record_fields())
+        # the live input-plane depths (adaptive prefetch, credit window)
+        record.update(input_record_fields())
         obs.memory.update_registry(snapshot=mem_snap)
         breakdown = self._window_breakdown(step)
         record.update(breakdown)

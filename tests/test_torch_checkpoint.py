@@ -482,8 +482,8 @@ def test_sigterm_stops_at_a_step_boundary_with_a_saved_step(
     handler back; the rerun trains steps 3-6."""
     build = train_torch.build
 
-    def signalling_build(args, checkpointer=None):
-        wl, state, step, batches = build(args, checkpointer)
+    def signalling_build(args, *rest, **kw):
+        wl, state, step, batches = build(args, *rest, **kw)
 
         def step_and_signal(state, batch):
             state, metrics = step(state, batch)

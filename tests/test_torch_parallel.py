@@ -432,3 +432,56 @@ def test_metric_writer_on_the_chief_only_and_rate_per_chip(tmp_path):
     assert math.isclose(rates["examples_per_sec_per_chip"] * 4,
                         rates["examples_per_sec"])
     assert ThroughputMeter(8).n_chips == 1
+
+
+@pytest.mark.parametrize("spec,world", [(None, 2),
+                                        (tmesh.MeshSpec(data=2, model=2), 4)])
+def test_thread_ranks_keep_every_group_until_all_ranks_end(monkeypatch,
+                                                           spec, world):
+    """A rank whose ``fn`` returns at once (it calls no collective) must
+    not drop its group while a peer may still be in gloo's constructor:
+    the dropped pair failed the peer's ``connectFullMesh`` with
+    "Connection closed by peer" on a busy host.  Every group, the world's
+    and a mesh's subgroups, lives until every thread has ended (fake
+    groups here, whose deletion is observed)."""
+    import gc
+    import threading
+
+    from distributedtensorflow_tpu_torch.testing import ranks
+
+    deleted, made = [], []
+
+    class Group:
+        def __init__(self, store, rank, size, timeout):
+            self._rank, self._size = rank, size
+            made.append(1)
+
+        def rank(self):
+            return self._rank
+
+        def size(self):
+            return self._size
+
+        def __del__(self):
+            deleted.append(1)
+
+    monkeypatch.setattr(ranks.dist, "ProcessGroupGloo", Group)
+    first_done = threading.Event()
+
+    def fn(rank, *_):
+        if rank == 0:
+            first_done.set()
+            return True
+        assert first_done.wait(10)
+        for _ in range(20):  # rank 0's thread ends meanwhile
+            gc.collect()
+            threading.Event().wait(0.01)
+        return not deleted
+
+    if spec is None:
+        out = run_ranks(fn, world)
+    else:
+        out = run_mesh(fn, spec, world)
+    assert all(out), "a group was dropped while a rank still ran"
+    gc.collect()
+    assert len(deleted) == len(made) >= world

@@ -153,10 +153,25 @@ def test_prefetcher_counts_into_the_registry():
 
 
 def test_adaptive_prefetch_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Prefetcher(_source(), "cpu", adaptive=True)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Prefetcher(_source(), "cpu", controller=object())
+    """The adaptive depth is ported now (``data/adaptive.py``; the name
+    stays): ``adaptive=True`` seeds a controller at ``buffer_size`` within
+    ``max_depth`` and the budget, a given controller is the one used, and
+    either yields the batches a fixed depth yields."""
+    from distributedtensorflow_tpu_torch.data import AdaptiveDepthController
+
+    want = [b["image"] for b in Prefetcher(_source(steps=5), "cpu")]
+    with Prefetcher(_source(steps=5), "cpu", buffer_size=3, adaptive=True,
+                    max_depth=4, bytes_budget=1 << 20) as pf:
+        ctl = pf._controller
+        assert (ctl.depth, ctl.max_depth, ctl.bytes_budget,
+                ctl.component) == (3, 4, 1 << 20, "prefetcher")
+        got = [b["image"] for b in pf]
+    mine = AdaptiveDepthController(initial=1, component="prefetcher")
+    with Prefetcher(_source(steps=5), "cpu", controller=mine) as pf:
+        assert pf._controller is mine and pf.depth == 1
+        got2 = [b["image"] for b in pf]
+    for a, b, c in zip(want, got, got2, strict=True):
+        assert torch.equal(a, b) and torch.equal(a, c)
 
 
 def test_device_put_bundle_matches_jax(devices):

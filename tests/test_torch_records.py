@@ -273,3 +273,36 @@ def test_record_batches_feed_the_step(mnist_records):
     assert b["label"].dtype == torch.long
     assert b["image"].dtype == torch.float32
     assert b["image"].shape == (BATCH, 28, 28, 1)
+
+
+def test_reader_closed_once_when_collected_with_its_generator(tmp_path):
+    """A generator reading a ``RecordReader``, both garbage of one cycle
+    (a data worker's cached pipeline once the worker stopped): the
+    collector runs the reader's finalizer before the generator's
+    ``finally`` calls ``close``, and the handle is closed once (a second
+    close freed it twice and crashed the process)."""
+    import gc
+
+    from distributedtensorflow_tpu_torch.native.recordio import RecordReader
+
+    files = trd.write_record_shards(
+        iter([{"x": np.zeros(4, np.float32)} for _ in range(50)]),
+        str(tmp_path / "t-{:02d}.rec"), num_shards=1)
+
+    def read():
+        with RecordReader(files) as reader:
+            yield from reader
+
+    class Cycle:
+        pass
+
+    for _ in range(10):
+        holder = Cycle()
+        holder.self, holder.records = holder, read()
+        assert next(holder.records)
+        del holder
+        gc.collect()
+    reader = RecordReader(files)
+    reader._finalizer()  # as the collector would
+    reader.close()
+    assert reader._h is None

@@ -127,9 +127,12 @@ from distributedtensorflow_tpu_torch.checkpoint import (
 )
 from distributedtensorflow_tpu_torch.data import (
     Prefetcher,
+    ReplicaBatches,
     current_input_context,
     device_put_batch,
     device_put_bundle,
+    replica_is_split,
+    replica_leader,
     skip_batches,
 )
 from distributedtensorflow_tpu_torch.device import resolve_device
@@ -496,6 +499,33 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "on the device ahead of the step (the Prefetcher's "
                         "buffer_size); 0 copies each batch in the training "
                         "loop's own thread")
+    p.add_argument("--adaptive-prefetch", action="store_true",
+                   help="autotune the prefetch depth from consumer "
+                        "blocking time (grow while the trainer waits on "
+                        "data, shrink when waits are ~0), bounded by "
+                        "--prefetch-budget-mb; live depth exported as the "
+                        "data_prefetch_depth gauge + per-record field")
+    p.add_argument("--prefetch-budget-mb", type=float, default=256.0,
+                   help="host-bytes budget bounding the adaptive prefetch "
+                        "depth and data-service credit window")
+    p.add_argument("--data-service", type=int, default=0, metavar="N",
+                   help="disaggregated input: spawn a loopback dispatcher "
+                        "plus N in-process data workers serving the "
+                        "workload input (or --data-dir records, partitioned "
+                        "N ways under this rank's slice) and consume via "
+                        "the streaming DataServiceClient — persistent "
+                        "pipelined connections, credit window, elastic "
+                        "re-sharding on worker death. 0 = direct host input")
+    p.add_argument("--data-service-wire", choices=("raw", "npz"),
+                   default="raw",
+                   help="data-service batch wire format: 'raw' "
+                        "(dtype/shape header + raw tensor bytes, the fast "
+                        "path) or 'npz' (legacy per-batch archive)")
+    p.add_argument("--data-service-window", type=int, default=0,
+                   metavar="W",
+                   help="per-split credit window of outstanding pipelined "
+                        "get_next requests (0 = adaptive: autotuned from "
+                        "consumer waits within --prefetch-budget-mb)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--mesh", default=None,
                    help="mesh axes, e.g. 'data=2', 'data=-1' (every "
@@ -592,13 +622,17 @@ def _device_batches(source, device, mesh=None, accum_steps=1, bundle=1):
             return
 
 
-def device_iter(args, source, device, mesh=None, accum_steps=1, bundle=1):
+def device_iter(args, source, device, mesh=None, accum_steps=1, bundle=1,
+                adaptive=False):
     """The device batches of ``source``: through a :class:`Prefetcher` of
     ``--prefetch-depth`` (its own thread and, on the card, its own CUDA
-    stream), or in the caller's thread for depth 0."""
+    stream; ``adaptive``: the depth tuned within ``--prefetch-budget-mb``),
+    or in the caller's thread for depth 0."""
     if args.prefetch_depth > 0:
         return Prefetcher(source, device, mesh, args.prefetch_depth,
-                          bundle=bundle, accum_steps=accum_steps)
+                          bundle=bundle, accum_steps=accum_steps,
+                          adaptive=adaptive,
+                          bytes_budget=int(args.prefetch_budget_mb * 2**20))
     return _device_batches(source, device, mesh, accum_steps, bundle)
 
 
@@ -623,7 +657,7 @@ def bootstrap_mesh(args):
     return build_mesh(spec or MeshSpec(data=-1)), device
 
 
-def build(args: argparse.Namespace, checkpointer=None):
+def build(args: argparse.Namespace, checkpointer=None, feed=None):
     """``(workload, state, step_fn, batches)`` for ``args``: the model
     from seeded random weights on the device, the optimizer, the train
     step (``--steps-per-call`` k > 1: k steps a call, and the batches
@@ -632,7 +666,12 @@ def build(args: argparse.Namespace, checkpointer=None):
     :func:`bootstrap_mesh`) this rank's state, step and share of each
     batch.  With a ``checkpointer`` (a ``CheckpointManager``) the state
     is its newest verified checkpoint, if it has one, and the batches
-    start after the ones the saved run consumed."""
+    start after the ones the saved run consumed.  With
+    ``--data-service`` the batches come through ``feed`` (the run's
+    :class:`DataServiceFeed`); over ``pipe``, ``seq``, ``expert`` or
+    ``model`` only the replica's first rank reads it, and every rank of
+    the replica steps on its batches
+    (:class:`~distributedtensorflow_tpu_torch.data.ReplicaBatches`)."""
     mesh, device = bootstrap_mesh(args)
     if checkpointer is not None and mesh is not None:
         # every rank of the mesh takes part in a save (a split model's
@@ -694,14 +733,134 @@ def build(args: argparse.Namespace, checkpointer=None):
         dynamics_every=args.dynamics_every,
         dynamics_modules=dynamics_modules(wl.cfg, model))
     ctx = current_input_context(wl.global_batch_size, mesh)
-    source = record_source(args, ctx) if args.data_dir \
-        else wl.input_fn(ctx, args.seed)
+    # the service's order is its client's: over a split axis only the
+    # replica's first rank reads it, and the others take its batches
+    split = args.data_service and replica_is_split(mesh)
+    if split and not replica_leader(mesh):
+        return wl, state, step, ReplicaBatches(None, mesh, device)
+    if args.data_service:
+        if feed is None:
+            raise ValueError("--data-service: build() takes the run's "
+                             "DataServiceFeed")
+        source = feed.source(wl, ctx)
+    elif args.data_dir:
+        source = record_source(args, ctx)
+    else:
+        source = wl.input_fn(ctx, args.seed)
     if state.step:
         logger.info("fast-forwarding input %d batches", state.step)
         source = skip_batches(source, state.step)
     batches = device_iter(args, source, device, mesh, accum,
-                          bundle=args.steps_per_call)
+                          bundle=args.steps_per_call,
+                          adaptive=args.adaptive_prefetch)
+    if split:
+        batches = ReplicaBatches(batches, mesh, device)
     return wl, state, step, batches
+
+
+class DataServiceFeed:
+    """``--data-service N`` (``train.py:1164-1226,1251-1310``): a
+    loopback :class:`~distributedtensorflow_tpu_torch.data.DispatchServer`
+    and N in-process
+    :class:`~distributedtensorflow_tpu_torch.data.WorkerServer` s, each
+    serving one split of this rank's input pipeline: the preset's
+    synthetic stream from seed ``--seed + 1009 (split + 1)``, or the
+    ``--data-dir`` records as pipeline ``id x N + split`` of ``pipelines x
+    N``.  :meth:`source` starts them and reads the run's one epoch
+    through the streaming
+    :class:`~distributedtensorflow_tpu_torch.data.DataServiceClient`
+    (``--data-service-wire``, ``--data-service-window``, the credit
+    window's bytes budget ``--prefetch-budget-mb``); :meth:`stop` ends
+    the client, the workers and the dispatcher, where train.py leaves
+    them to the process's exit.  Under ``--fleet`` each worker embeds a
+    status server, a peer of the fleet.
+
+    The dispatcher journals to ``dispatcher.journal`` under ``--logdir``
+    (input pipeline ``i`` > 0: ``dispatcher.<i>.journal``), a new one
+    each run: an earlier run's journal names workers that are gone and
+    an epoch this run does not read, so it is replaced, not replayed."""
+
+    def __init__(self, args):
+        self.args = args
+        self.dispatcher = None
+        self.workers: list = []
+        self.client = None
+
+    def _journal(self, ctx) -> str | None:
+        if not self.args.logdir:
+            return None
+        pipeline = ctx.input_pipeline_id
+        path = os.path.join(self.args.logdir, "dispatcher.journal"
+                            if not pipeline else
+                            f"dispatcher.{pipeline}.journal")
+        if os.path.exists(path):
+            logger.info("data service: replacing %s (an earlier run's)",
+                        path)
+            os.remove(path)
+        return path
+
+    def source(self, wl, ctx):
+        """Start the service and return the client of its epoch."""
+        from distributedtensorflow_tpu_torch.data import (
+            DataServiceClient,
+            DispatchServer,
+            InputContext,
+            WorkerServer,
+            repeated_record_dataset,
+        )
+
+        args = self.args
+
+        def input_fn(split, num_shards):
+            if args.data_dir:
+                # pipeline (id * N + split) of (pipelines * N), each a
+                # whole per-rank batch
+                wctx = InputContext(
+                    num_input_pipelines=ctx.num_input_pipelines * num_shards,
+                    input_pipeline_id=ctx.input_pipeline_id * num_shards
+                    + split,
+                    global_batch_size=wl.global_batch_size * num_shards)
+                return repeated_record_dataset(
+                    record_files(args.data_dir), wctx,
+                    batch_size=ctx.per_host_batch_size,
+                    policy=args.autoshard,
+                    shuffle_buffer=args.shuffle_buffer,
+                    seed=args.seed + split)
+            return wl.input_fn(ctx, args.seed + 1009 * (split + 1))
+
+        self.dispatcher = DispatchServer(port=0,
+                                         journal_path=self._journal(ctx))
+        try:
+            for _ in range(args.data_service):
+                self.workers.append(WorkerServer(
+                    self.dispatcher.target(), input_fn, port=0,
+                    status_port=0 if args.fleet else None))
+            logger.info("data service: dispatcher %s + %d loopback "
+                        "worker(s), wire=%s", self.dispatcher.target(),
+                        len(self.workers), args.data_service_wire)
+            self.client = DataServiceClient(
+                self.dispatcher.target(), epoch=0,
+                wire=args.data_service_wire,
+                window=args.data_service_window or 2,
+                adaptive_window=args.data_service_window == 0,
+                bytes_budget=int(args.prefetch_budget_mb * 2**20))
+        except BaseException:
+            self.stop()
+            raise
+        return self.client
+
+    def stop(self) -> None:
+        """Close the client, then stop the workers and the dispatcher
+        (idempotent)."""
+        if self.client is not None:
+            self.client.close()
+            self.client = None
+        workers, self.workers = self.workers, []
+        for w in workers:
+            w.stop()
+        if self.dispatcher is not None:
+            self.dispatcher.stop()
+            self.dispatcher = None
 
 
 def dynamics_modules(cfg, model) -> dict[str, str]:
@@ -902,6 +1061,13 @@ def check_flags(args) -> None:
     if args.prefetch_depth < 0:
         raise SystemExit(f"--prefetch-depth must be >= 0, got "
                          f"{args.prefetch_depth}")
+    if args.adaptive_prefetch and args.prefetch_depth == 0:
+        raise SystemExit("--adaptive-prefetch needs --prefetch-depth > 0 "
+                         "(depth 0 has no prefetch queue to tune)")
+    if args.data_service < 0:
+        raise SystemExit(f"--data-service must be >= 0, got "
+                         f"{args.data_service}")
+
     if args.target_metric:  # the gate must be able to fire
         if args.target_value is None:
             raise SystemExit("--target-metric requires --target-value")
@@ -917,8 +1083,9 @@ class _Planes:
     status server; :meth:`stop` ends them as ``train.py``'s ``finally``
     does.  Over ranks only the chief writes their files."""
 
-    def __init__(self, args, trainer, dynamics=None):
+    def __init__(self, args, trainer, dynamics=None, feed=None):
         self.args = args
+        self.feed = feed
         self.fleet = self.slo = self.history = self.alerts = None
         self.dynamics = dynamics
         try:
@@ -948,6 +1115,9 @@ class _Planes:
             chief_host = ("127.0.0.1" if args.status_host in ("0.0.0.0", "")
                           else args.status_host)
             self.fleet.add_peer("chief", f"{chief_host}:{server.port}")
+            for i, w in enumerate(self.feed.workers if self.feed else []):
+                if w.status_addr is not None:  # its status server bound
+                    self.fleet.add_peer(f"data_worker{i}", w.status_addr)
             for spec in args.fleet_peer or []:
                 name, sep, addr = spec.partition("=")
                 if not sep or not name or not addr:
@@ -1086,7 +1256,26 @@ def _train(args) -> list[dict]:
         enable_determinism()  # before the first cuBLAS call
     checkpointer = CheckpointManager(args.checkpoint_dir) \
         if args.checkpoint_dir else None
-    wl, state, step, batches = build(args, checkpointer)
+    feed = DataServiceFeed(args) if args.data_service else None
+    prefit = None
+    if feed is not None and args.logdir and not args.no_trace:
+        # the client's epoch handshake (its spans, the dispatcher's and the
+        # workers') runs when build() makes it, before the Trainer's own
+        # recorder exists: this one takes them (train.py:1228-1240)
+        prefit = obs.TraceRecorder(
+            os.path.join(args.logdir, "trace.jsonl")).install()
+    try:
+        return _fit(args, checkpointer, feed)
+    finally:
+        if feed is not None:  # the run's workers end with it, not later
+            feed.stop()
+        if prefit is not None:
+            prefit.uninstall()
+            prefit.close()
+
+
+def _fit(args, checkpointer, feed) -> list[dict]:
+    wl, state, step, batches = build(args, checkpointer, feed=feed)
     mesh, _ = bootstrap_mesh(args)  # the mesh build() made
     group = {"group": mesh} if mesh is not None else {}
     eval_step = make_eval_step(wl.eval_fn(state.model, **group), mesh)
@@ -1168,7 +1357,7 @@ def _train(args) -> list[dict]:
                      checkpointer=checkpointer, preemption=preemption,
                      callbacks=[cb for cb in (printer, dynamics)
                                 if cb is not None]) as trainer:
-            planes = _Planes(args, trainer, dynamics)
+            planes = _Planes(args, trainer, dynamics, feed)
             try:
                 trainer.fit(state, batches, eval_iter_fn=eval_iter_fn)
             finally:
