@@ -105,13 +105,13 @@ Phases, each fatal on failure:
     with torchrun's variables, train gpt_lm (K1f, K1b, K2, K3f, K4f, K4b
     in fp32), bert_mlm_packed (four microbatches, the flash gate at 512),
     cifar_resnet20 (BatchNorm over the global batch) and gpt_moe (global
-    routing), fp32, 2 layers, dropout 0, 3 steps, against the one-process
+    routing), fp32, 2 layers, dropout 0, 2 steps, against the one-process
     step on the same global batch: losses within 1e-5 relative, BatchNorm
     buffers within 1e-5 of their max-abs and equal on both ranks, each
     kernel's launches per step and rank as derived; cifar_resnet20 again
     in its preset's bf16, within 1e-2.
-15. ckpt: checkpoint and resume on gpt_lm as phase 9 builds it.
-    (a) six steps uninterrupted, twice (bit-identical), against three
+15. ckpt: checkpoint and resume on gpt_lm as phase 9 builds it, cut to
+    6 layers.  (a) six steps uninterrupted, twice (bit-identical), against three
     steps, an async save, a fresh build whose weights come from another
     seed, ``restore``, ``skip_batches`` and three more: losses and the
     state's ``tree_fingerprint`` bit for bit, the resumed steps launching
@@ -232,7 +232,7 @@ Phases, each fatal on failure:
     one microbatch (32768 tokens, 8 experts): the same token sets but at
     boundary ties (counted); bf16 against fp32 first-step losses at
     --test-size (1e-2); 2 layers at k = 2 equal k = 1 bit for bit.
-21. optim: lamb on bert_mlm, lars on imagenet_resnet50 (256), adafactor
+21. optim: lamb on bert_mlm (cut to 4 layers), lars on imagenet_resnet50 (256), adafactor
     on t5_seq2seq and lion on gpt_lm, each 1+3 steps through
     ``--optimizer`` beside the preset's own optimizer (step ms each), a
     profiled step's device time and its optimizer update's span, and the
@@ -365,6 +365,32 @@ Phases, each fatal on failure:
     rank's optimizer state half the unsharded, K1f/K1b/K2/K3f launched on
     every rank (K4f/K4b too over expert), and the bf16 step's ms with and
     without ``--zero --overlap`` (``run_quad``; no scaling time).
+31. jobs (run after phase 23): the ``--job`` roles.  (a) gpt_lm at full
+    width cut to 2 layers (B 8 x S 2048, bf16, the fused head) trains 4
+    steps through ``train_torch.main`` with a checkpoint every 2 while
+    ``train_torch.main --job evaluator`` polls the directory on another
+    thread (``--poll-interval 0.2``, ``--steps`` the last step): it
+    evaluates the last step, and its eval_loss equals, within 1e-6
+    relative, ``weighted_evaluate`` of that step restored in this
+    process on the same 10 batches; K1f, K1b, K2, K3f, K4f and K4b
+    launch the trainer's steps' counts plus, for each evaluation, 10
+    eval forwards (K1f 2L+1, K2 L, K4f 1 each); each evaluation's ms.
+    (b) ``--job async-ps --workload widedeep`` at its preset width, 2 PS
+    shards (threads of this process, on the CPU) and 2 worker processes
+    on the card, 8 steps of 256 a worker: the global version is workers
+    x ps x steps, the staleness histogram has entries, each worker held a
+    CUDA context, and the first batch worker 0 trained on has a lower
+    loss under the final parameters than under the seeded initial ones;
+    a second run of 30 steps a worker kills worker 1 once the version
+    reaches 8, and the version still advances to the survivor's last
+    step.  (c) 1 ps, 1 chief and 1 worker of one TF_CONFIG cluster as
+    ``train_torch.py`` processes on loopback ports, started together:
+    all exit 0 and the ps task absorbs its push budget.  (d) a
+    Coordinator of two process workers with status servers: each answers
+    ``/varz``, 6 slow closures run out of process while worker 0 is
+    killed mid-closure (the closure re-queued, ``worker_respawns_total``
+    up by one), then 4 more run on the respawned pool.  (b)-(d) start
+    first, side by side, and (a) runs on the card meanwhile.
 
 Kernel launch counts are set to 0 just before phases 5, 6 (each generate
 run), 9-11, 13, 14 (each path; in each rank's process), 15's resumed
@@ -373,7 +399,8 @@ steps and decoding, each server run of 19, 20's steps, each of 21's
 optimizer runs, each of 23's ``train_torch.main`` runs, 24's two
 ``train_torch.main`` runs and its serving runs, 25's, 26's and 27's
 steps, 28's resumed steps and 29's and 30's
-steps (in each rank's process), and read just after (a
+steps (in each rank's process), 31's trainer and evaluator together,
+and read just after (a
 replayed graph counts what its capture counted); a kernel of the path
 that did not launch, or a gpt_lm, gpt_moe or BERT training step that
 launched a kernel another number of times than its forward,
@@ -2828,7 +2855,8 @@ def run_consistency_baseline(torch, mods, train, cuda, family,
 
 
 #: The two-rank check on the one card: (preset, global batch, dtype),
-#: cut to DP_LAYERS layers (ResNet-20 whole), DP_STEPS steps.
+#: cut to DP_LAYERS layers (ResNet-20 whole), DP_STEPS steps (3 until
+#: the jobs phase needed the seconds).
 #: bert_mlm_packed runs its four microbatches with the flash gate at 512;
 #: cifar_resnet20 also in its preset's bf16 (the card's global BatchNorm
 #: on bf16 activations).
@@ -2836,7 +2864,7 @@ DP_RUNS = (("gpt_lm", 8, "float32"), ("bert_mlm_packed", 32, "float32"),
            ("cifar_resnet20", 256, "float32"),
            ("cifar_resnet20", 256, "bfloat16"), ("gpt_moe", 8, "float32"))
 DP_LAYERS = 2
-DP_STEPS = 3
+DP_STEPS = 2
 #: Relative tolerance against one process, by dtype: in bf16 each rank
 #: rounds the activations and gradients of its own rows.
 DP_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
@@ -2844,16 +2872,12 @@ DP_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
 
 def _dp_launches(name):
     """Launches per step and rank of a DP_RUNS preset at DP_LAYERS
-    layers.  GPT (block remat): LayerNorm forward twice a LayerNorm and
-    once for ln_f, backward once each, the flash forward twice a layer,
-    K3f once, the head once each; BERT (4 microbatches, no remat): 2L + 2
-    LayerNorms a microbatch once each way, K2 and K3f once a layer."""
+    layers.  GPT: :func:`_gpt_step_launches`; BERT (4 microbatches, no
+    remat): 2L + 2 LayerNorms a microbatch once each way, K2 and K3f once
+    a layer."""
     n = DP_LAYERS
     if name in ("gpt_lm", "gpt_moe"):
-        return {**NO_LAUNCHES, "layernorm_fwd": 4 * n + 1,
-                "layernorm_bwd": 2 * n + 1, "flash_fwd": 2 * n,
-                "flash_bwd_fused": n, "fused_xent_fwd": 1,
-                "fused_xent_dx": 1, "fused_xent_dw": 1}
+        return _gpt_step_launches(n)
     if name == "bert_mlm_packed":
         return {**NO_LAUNCHES, "layernorm_fwd": 4 * (2 * n + 2),
                 "layernorm_bwd": 4 * (2 * n + 2), "flash_fwd": 4 * n,
@@ -3106,6 +3130,10 @@ def run_dp(torch, cuda, train_torch, fa, train_row):
 #: The ckpt phase: steps before the save and after the restore; the
 #: SIGTERM child's depth and length.
 CKPT_STEPS = 3
+#: Layers of (a)-(d)'s gpt_lm at full width (the whole 12 until the jobs
+#: phase needed the seconds: a smaller checkpoint to commit and restore,
+#: the same checks)
+CKPT_LAYERS = 6
 #: Steps timed apart from and beside a commit (8 until the whole script
 #: neared its 1200 s limit).
 CKPT_OVERLAP_STEPS = 4
@@ -3315,23 +3343,11 @@ def run_ckpt_sigterm(ckdir, device="cuda"):
             f"{err3[-2000:]}")
 
 
-def run_ckpt(torch, cuda, train_torch, smi, device="cuda"):
-    """The checkpoint plane on gpt_lm at full width.  (a) U, the
-    uninterrupted run, twice; R: CKPT_STEPS steps, an async save, a fresh
-    build whose weights come from another seed, ``restore_latest``,
-    ``skip_batches`` and CKPT_STEPS more steps: R's losses and final
-    fingerprint equal U's bit for bit, and the resumed steps launch the
-    train phase's kernels their derived counts.  (b) SIGTERM and restart
-    (:func:`run_ckpt_sigterm`).  (c) A flipped byte in the newest step is
-    rejected and the step before restored; a directory without its commit
-    marker is not a step.  (d) The checkpoint's bytes, the blocking ms of
-    an async and a sync save, the background commit, the restore, the
-    fast-forward, and a step that overlaps a commit beside one that does
-    not (then CKPT_OVERLAP_STEPS of each).  Then the determinism survey (:func:`det_worker`).  ``device``
-    "cpu" rehearses it at test size (no survey, no memory profile)."""
+def _ckpt_a_to_d(torch, cuda, train_torch, smi, device, ckdir):
+    """:func:`run_ckpt`'s (a), (c) and (d) in ``ckdir``; the resumed
+    steps' launches."""
     import os
     import shutil
-    import tempfile
 
     from distributedtensorflow_tpu_torch.checkpoint import CheckpointManager
     from distributedtensorflow_tpu_torch.data import (
@@ -3345,170 +3361,199 @@ def run_ckpt(torch, cuda, train_torch, smi, device="cuda"):
     )
     from distributedtensorflow_tpu_torch.utils.determinism import flatten
 
-    ckdir = tempfile.mkdtemp(prefix="dtf_ckpt_")
-    try:
-        # (a) U twice
-        dev = torch.device(device)
-        args = _ckpt_args(train_torch, device)
-        u1, fp1, u_ms = _ckpt_run_u(torch, train_torch, device)
-        u2, fp2, _ = _ckpt_run_u(torch, train_torch, device)
-        empty_cache(torch, dev)
-        emit({"phase": "ckpt_u", "losses": u1, "rerun_losses": u2,
-              "rerun_bit_identical": u1 == u2 and fp1 == fp2,
-              "fingerprint": fp1, "step_ms": u_ms})
-        if u1 != u2 or fp1 != fp2:
-            raise AssertionError(f"ckpt: the uninterrupted run does not "
-                                 f"repeat on the card: {u1} vs {u2}")
+    # (a) U twice
+    dev = torch.device(device)
+    args = _ckpt_args(train_torch, device)
+    u1, fp1, u_ms = _ckpt_run_u(torch, train_torch, device)
+    u2, fp2, _ = _ckpt_run_u(torch, train_torch, device)
+    empty_cache(torch, dev)
+    emit({"phase": "ckpt_u", "losses": u1, "rerun_losses": u2,
+          "rerun_bit_identical": u1 == u2 and fp1 == fp2,
+          "fingerprint": fp1, "step_ms": u_ms})
+    if u1 != u2 or fp1 != fp2:
+        raise AssertionError(f"ckpt: the uninterrupted run does not "
+                             f"repeat on the card: {u1} vs {u2}")
 
-        # R: steps 1-3, an async save of step 3, step 4 during its commit
-        wl, state, step, batches = train_torch.build(args)
-        for _ in range(CKPT_STEPS):
-            state, _, _ = _timed_step(torch, step, state, next(batches))
-        saved_fp = _fingerprint(state)
-        mgr = CheckpointManager(os.path.join(ckdir, "a"))
-        t0 = time.perf_counter()
-        mgr.save(state.step, state)  # the first: allocates its host buffers
-        first_ms = 1e3 * (time.perf_counter() - t0)
-        state, overlap_loss, overlap_ms = _timed_step(torch, step, state,
-                                                      next(batches))
-        t1 = time.perf_counter()
-        mgr.wait()
-        first_commit_s = time.perf_counter() - t0 - first_ms / 1e3
-        wait_after_step_s = time.perf_counter() - t1
-        state, alone_loss, alone_ms = _timed_step(torch, step, state,
+    # R: steps 1-3, an async save of step 3, step 4 during its commit
+    wl, state, step, batches = train_torch.build(args)
+    for _ in range(CKPT_STEPS):
+        state, _, _ = _timed_step(torch, step, state, next(batches))
+    saved_fp = _fingerprint(state)
+    mgr = CheckpointManager(os.path.join(ckdir, "a"))
+    t0 = time.perf_counter()
+    mgr.save(state.step, state)  # the first: allocates its host buffers
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    state, overlap_loss, overlap_ms = _timed_step(torch, step, state,
                                                   next(batches))
-        # step 5, async again (the buffers reused), its commit alone
-        t0 = time.perf_counter()
-        mgr.save(state.step, state)
-        async_ms = 1e3 * (time.perf_counter() - t0)
-        t1 = time.perf_counter()
-        mgr.wait()
-        commit_s = time.perf_counter() - t1
-        payload = os.path.join(ckdir, "a", str(CKPT_STEPS), cm.PAYLOAD)
-        nbytes = os.path.getsize(payload)
-        tensor_bytes = sum(
-            t.numel() * t.element_size() for t in flatten(
-                cm.as_tree(state)).values() if isinstance(t, torch.Tensor))
-        # a sync save of the same state, timed whole (its host buffers
-        # allocated: a second one reusing them measured the same within
-        # 2% and went when the whole script neared its 1200 s limit)
-        sync_mgr = CheckpointManager(os.path.join(ckdir, "s"), max_to_keep=1,
-                                     async_save=False)
-        t0 = time.perf_counter()
-        sync_mgr.save(1, state)
-        sync_ms = 1e3 * (time.perf_counter() - t0)
-        del sync_mgr
-        shutil.rmtree(os.path.join(ckdir, "s"))
-        # CKPT_OVERLAP_STEPS steps alone, then as many while an async
-        # save of the state commits (a throwaway directory)
-        apart_ms, beside_ms = [], []
-        for times in (apart_ms, beside_ms):
-            if times is beside_ms:
-                omgr = CheckpointManager(os.path.join(ckdir, "o"))
-                omgr.save(state.step, state)
-            for _ in range(CKPT_OVERLAP_STEPS):
-                state, _, t = _timed_step(torch, step, state, next(batches))
-                times.append(t)
-        t1 = time.perf_counter()
-        omgr.wait()
-        beside_left_s = time.perf_counter() - t1
-        del omgr
-        shutil.rmtree(os.path.join(ckdir, "o"))
-        del state, step, batches
-        empty_cache(torch, dev)
+    t1 = time.perf_counter()
+    mgr.wait()
+    first_commit_s = time.perf_counter() - t0 - first_ms / 1e3
+    wait_after_step_s = time.perf_counter() - t1
+    state, alone_loss, alone_ms = _timed_step(torch, step, state,
+                                              next(batches))
+    # step 5, async again (the buffers reused), its commit alone
+    t0 = time.perf_counter()
+    mgr.save(state.step, state)
+    async_ms = 1e3 * (time.perf_counter() - t0)
+    t1 = time.perf_counter()
+    mgr.wait()
+    commit_s = time.perf_counter() - t1
+    payload = os.path.join(ckdir, "a", str(CKPT_STEPS), cm.PAYLOAD)
+    nbytes = os.path.getsize(payload)
+    tensor_bytes = sum(
+        t.numel() * t.element_size() for t in flatten(
+            cm.as_tree(state)).values() if isinstance(t, torch.Tensor))
+    # a sync save of the same state, timed whole (its host buffers
+    # allocated: a second one reusing them measured the same within
+    # 2% and went when the whole script neared its 1200 s limit)
+    sync_mgr = CheckpointManager(os.path.join(ckdir, "s"), max_to_keep=1,
+                                 async_save=False)
+    t0 = time.perf_counter()
+    sync_mgr.save(1, state)
+    sync_ms = 1e3 * (time.perf_counter() - t0)
+    del sync_mgr
+    shutil.rmtree(os.path.join(ckdir, "s"))
+    # CKPT_OVERLAP_STEPS steps alone, then as many while an async
+    # save of the state commits (a throwaway directory)
+    apart_ms, beside_ms = [], []
+    for times in (apart_ms, beside_ms):
+        if times is beside_ms:
+            omgr = CheckpointManager(os.path.join(ckdir, "o"))
+            omgr.save(state.step, state)
+        for _ in range(CKPT_OVERLAP_STEPS):
+            state, _, t = _timed_step(torch, step, state, next(batches))
+            times.append(t)
+    t1 = time.perf_counter()
+    omgr.wait()
+    beside_left_s = time.perf_counter() - t1
+    del omgr
+    shutil.rmtree(os.path.join(ckdir, "o"))
+    del state, step, batches
+    empty_cache(torch, dev)
 
-        # R resumed: a fresh build, weights from another seed, restore
-        _, fresh, step, _ = train_torch.build(args)
-        fresh.model.load_state_dict(wl.init_params(
-            wl.cfg, torch.Generator().manual_seed(SEED + 1)))
-        sync(torch, dev)
-        t0 = time.perf_counter()
-        restored = mgr.restore(CKPT_STEPS, fresh)
-        sync(torch, dev)
-        restore_s = time.perf_counter() - t0
-        restored_ok = restored.step == CKPT_STEPS and \
-            _fingerprint(fresh) == saved_fp
-        t0 = time.perf_counter()
-        source = skip_batches(wl.input_fn(InputContext(
-            global_batch_size=wl.global_batch_size), SEED), CKPT_STEPS)
-        skip_ms = 1e3 * (time.perf_counter() - t0)
-        sync(torch, dev)
-        cuda.launches.clear()
-        r_losses = []
-        for _ in range(CKPT_STEPS):
-            fresh, loss, _ = _timed_step(torch, step, fresh, device_put_batch(
-                next(source), fresh.model.device))
-            r_losses.append(loss)
-        sync(torch, dev)
-        launches = dict(cuda.launches)
-        r_fp = _fingerprint(fresh)
-        del fresh, step
-        empty_cache(torch, dev)
-        exact = r_losses == u1[CKPT_STEPS:] and r_fp == fp1
-        emit({"phase": "ckpt_resume", "losses": r_losses,
-              "u_losses": u1[CKPT_STEPS:], "restored_equal_saved": restored_ok,
-              "bit_identical": exact, "overlap_step_loss": overlap_loss,
-              "u_loss_4": u1[CKPT_STEPS], "launches": launches,
-              "launches_per_step": {k: v / CKPT_STEPS
-                                    for k, v in launches.items()}})
-        if not restored_ok or not exact or overlap_loss != u1[CKPT_STEPS] \
-                or alone_loss != u1[CKPT_STEPS + 1]:
-            raise AssertionError(
-                f"ckpt: the resumed run differs from the uninterrupted one: "
-                f"restored {restored_ok}, losses {r_losses} vs "
-                f"{u1[CKPT_STEPS:]}, steps around the save {overlap_loss}, "
-                f"{alone_loss} vs {u1[CKPT_STEPS:CKPT_STEPS + 2]}")
-        _check_launches("ckpt_resume", launches, CKPT_STEPS,
-                        TRAIN_LAUNCHES_PER_STEP)
+    # R resumed: a fresh build, weights from another seed, restore
+    _, fresh, step, _ = train_torch.build(args)
+    fresh.model.load_state_dict(wl.init_params(
+        wl.cfg, torch.Generator().manual_seed(SEED + 1)))
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    restored = mgr.restore(CKPT_STEPS, fresh)
+    sync(torch, dev)
+    restore_s = time.perf_counter() - t0
+    restored_ok = restored.step == CKPT_STEPS and \
+        _fingerprint(fresh) == saved_fp
+    t0 = time.perf_counter()
+    source = skip_batches(wl.input_fn(InputContext(
+        global_batch_size=wl.global_batch_size), SEED), CKPT_STEPS)
+    skip_ms = 1e3 * (time.perf_counter() - t0)
+    sync(torch, dev)
+    cuda.launches.clear()
+    r_losses = []
+    for _ in range(CKPT_STEPS):
+        fresh, loss, _ = _timed_step(torch, step, fresh, device_put_batch(
+            next(source), fresh.model.device))
+        r_losses.append(loss)
+    sync(torch, dev)
+    launches = dict(cuda.launches)
+    r_fp = _fingerprint(fresh)
+    del fresh, step
+    empty_cache(torch, dev)
+    exact = r_losses == u1[CKPT_STEPS:] and r_fp == fp1
+    emit({"phase": "ckpt_resume", "losses": r_losses,
+          "u_losses": u1[CKPT_STEPS:], "restored_equal_saved": restored_ok,
+          "bit_identical": exact, "overlap_step_loss": overlap_loss,
+          "u_loss_4": u1[CKPT_STEPS], "launches": launches,
+          "launches_per_step": {k: v / CKPT_STEPS
+                                for k, v in launches.items()}})
+    if not restored_ok or not exact or overlap_loss != u1[CKPT_STEPS] \
+            or alone_loss != u1[CKPT_STEPS + 1]:
+        raise AssertionError(
+            f"ckpt: the resumed run differs from the uninterrupted one: "
+            f"restored {restored_ok}, losses {r_losses} vs "
+            f"{u1[CKPT_STEPS:]}, steps around the save {overlap_loss}, "
+            f"{alone_loss} vs {u1[CKPT_STEPS:CKPT_STEPS + 2]}")
+    _check_launches("ckpt_resume", launches, CKPT_STEPS,
+                    _gpt_step_launches(wl.cfg.num_layers))
 
-        # (c) a flipped byte in the newest step (5); a step without marker
-        newest = os.path.join(ckdir, "a", str(CKPT_STEPS + 2), cm.PAYLOAD)
-        with open(newest, "r+b") as f:
-            f.seek(os.path.getsize(newest) // 2)
-            b = f.read(1)
-            f.seek(-1, os.SEEK_CUR)
-            f.write(bytes([b[0] ^ 0xFF]))
-        os.makedirs(os.path.join(ckdir, "a", "99"))
-        shutil.copy(payload, os.path.join(ckdir, "a", "99"))
-        _, target, _, _ = train_torch.build(args)
-        t0 = time.perf_counter()
-        got = mgr.restore_latest(target)
-        fallback_s = time.perf_counter() - t0
-        report = mgr.last_restore_report
-        corrupt_ok = (got is not None and target.step == CKPT_STEPS
-                      and _fingerprint(target) == saved_fp
-                      and [r["step"] for r in report["rejected"]]
-                      == [CKPT_STEPS + 2]
-                      and mgr.all_steps() == [CKPT_STEPS, CKPT_STEPS + 2])
-        emit({"phase": "ckpt_corrupt", "last_restore_report": report,
-              "all_steps": mgr.all_steps(), "restored_step": target.step,
-              "seconds_with_fallback": fallback_s, "ok": corrupt_ok})
-        del target
-        empty_cache(torch, dev)
-        if not corrupt_ok:
-            raise AssertionError(f"ckpt_corrupt: {report}")
-        shutil.rmtree(os.path.join(ckdir, "a"))
+    # (c) a flipped byte in the newest step (5); a step without marker
+    newest = os.path.join(ckdir, "a", str(CKPT_STEPS + 2), cm.PAYLOAD)
+    with open(newest, "r+b") as f:
+        f.seek(os.path.getsize(newest) // 2)
+        b = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([b[0] ^ 0xFF]))
+    os.makedirs(os.path.join(ckdir, "a", "99"))
+    shutil.copy(payload, os.path.join(ckdir, "a", "99"))
+    _, target, _, _ = train_torch.build(args)
+    t0 = time.perf_counter()
+    got = mgr.restore_latest(target)
+    fallback_s = time.perf_counter() - t0
+    report = mgr.last_restore_report
+    corrupt_ok = (got is not None and target.step == CKPT_STEPS
+                  and _fingerprint(target) == saved_fp
+                  and [r["step"] for r in report["rejected"]]
+                  == [CKPT_STEPS + 2]
+                  and mgr.all_steps() == [CKPT_STEPS, CKPT_STEPS + 2])
+    emit({"phase": "ckpt_corrupt", "last_restore_report": report,
+          "all_steps": mgr.all_steps(), "restored_step": target.step,
+          "seconds_with_fallback": fallback_s, "ok": corrupt_ok})
+    del target
+    empty_cache(torch, dev)
+    if not corrupt_ok:
+        raise AssertionError(f"ckpt_corrupt: {report}")
+    shutil.rmtree(os.path.join(ckdir, "a"))
 
-        memory_profile = os.path.join(ckdir, "memory.pickle")
-        if device == "cuda":
-            save_device_memory_profile(memory_profile)
-        emit({"phase": "ckpt_numbers", "device": smi,
-              "checkpoint_bytes": nbytes, "tensor_bytes": tensor_bytes,
-              "async_save_blocking_ms_first": first_ms,
-              "async_save_blocking_ms": async_ms,
-              "sync_save_blocking_ms": sync_ms,
-              "background_commit_s_first_overlapping_a_step": first_commit_s,
-              "background_commit_s": commit_s,
-              "wait_after_overlapped_step_s": wait_after_step_s,
-              "restore_s": restore_s, "skip_batches_ms": skip_ms,
-              "step_ms_overlapping_commit": overlap_ms,
-              "step_ms_alone": alone_ms, "u_step_ms": u_ms,
-              "steps_ms_apart": apart_ms, "steps_ms_beside_commit": beside_ms,
-              "commit_s_left_after_those_steps": beside_left_s,
-              "median_ms_apart_beside": [statistics.median(apart_ms),
-                                         statistics.median(beside_ms)],
-              "memory_profile_bytes": os.path.getsize(memory_profile)
-              if device == "cuda" else None})
+    memory_profile = os.path.join(ckdir, "memory.pickle")
+    if device == "cuda":
+        save_device_memory_profile(memory_profile)
+    emit({"phase": "ckpt_numbers", "device": smi,
+          "checkpoint_bytes": nbytes, "tensor_bytes": tensor_bytes,
+          "async_save_blocking_ms_first": first_ms,
+          "async_save_blocking_ms": async_ms,
+          "sync_save_blocking_ms": sync_ms,
+          "background_commit_s_first_overlapping_a_step": first_commit_s,
+          "background_commit_s": commit_s,
+          "wait_after_overlapped_step_s": wait_after_step_s,
+          "restore_s": restore_s, "skip_batches_ms": skip_ms,
+          "step_ms_overlapping_commit": overlap_ms,
+          "step_ms_alone": alone_ms, "u_step_ms": u_ms,
+          "steps_ms_apart": apart_ms, "steps_ms_beside_commit": beside_ms,
+          "commit_s_left_after_those_steps": beside_left_s,
+          "median_ms_apart_beside": [statistics.median(apart_ms),
+                                     statistics.median(beside_ms)],
+          "memory_profile_bytes": os.path.getsize(memory_profile)
+          if device == "cuda" else None})
+
+    return launches
+
+
+def run_ckpt(torch, cuda, train_torch, smi, device="cuda"):
+    """The checkpoint plane on gpt_lm at full width (cut to CKPT_LAYERS
+    layers on the card).  (a) U, the uninterrupted run, twice; R:
+    CKPT_STEPS steps, an async save, a fresh build whose weights come
+    from another seed, ``restore_latest``, ``skip_batches`` and
+    CKPT_STEPS more steps: R's losses and final fingerprint equal U's bit
+    for bit, and the resumed steps launch the train phase's kernels their
+    derived counts for those layers.  (b) SIGTERM and restart
+    (:func:`run_ckpt_sigterm`).  (c) A flipped byte in the newest step is
+    rejected and the step before restored; a directory without its commit
+    marker is not a step.  (d) The checkpoint's bytes, the blocking ms of
+    an async and a sync save, the background commit, the restore, the
+    fast-forward, and a step that overlaps a commit beside one that does
+    not (then CKPT_OVERLAP_STEPS of each).  Then the determinism survey
+    (:func:`det_worker`).  ``device`` "cpu" rehearses it at test size (no
+    survey, no memory profile)."""
+    import os
+    import shutil
+    import tempfile
+
+    ckdir = tempfile.mkdtemp(prefix="dtf_ckpt_")
+    cut = _cut_config(train_torch, num_layers=CKPT_LAYERS) \
+        if device == "cuda" else contextlib.nullcontext()
+    try:
+        with cut:
+            launches = _ckpt_a_to_d(torch, cuda, train_torch, smi, device,
+                                    ckdir)
 
         # (b) SIGTERM and restart, beside the determinism survey's process
         # (neither records a time)
@@ -4831,6 +4876,10 @@ OPTIM_RUNS = (
     ("adafactor", "t5_seq2seq", 64, ("--lr", "1e-2")),
     ("lion", "gpt_lm", 8, ("--lr", "3e-5", "--weight-decay", "0.1")),
 )
+#: Layers of each OPTIM_RUNS preset (None: its own): BERT-base's pair at
+#: 4 of its 12 (the whole 12 until the jobs phase needed the seconds; the
+#: update's checks are per parameter, as many kinds at 4 layers)
+OPTIM_LAYERS = {"bert_mlm": 4}
 OPTIM_STEPS = 3
 #: The card's first update against the CPU's from the same parameters and
 #: gradients: max |difference| over max |update|.
@@ -4950,13 +4999,16 @@ def run_optim(torch, cuda, train_torch, device="cuda"):
         flags = ("--optimizer", opt, *lr_flags)
         row = {"phase": f"optim_{opt}", "workload": name, "batch": batch,
                "optimizer": opt, "flags": list(flags)}
+        cut = _layer_fields(name, OPTIM_LAYERS.get(name))
+        row["layers"] = OPTIM_LAYERS.get(name)
         for tag, extra in (("default", ()), (opt, flags)):
             record = {}
-            state, step, batches, got, run = baseline_steps(
-                torch, cuda, train_torch, name, batch, OPTIM_STEPS,
-                f"optim_{opt}_{tag}", device, extra=extra,
-                on_build=_capture_first_update(record) if tag == opt
-                else None)
+            with _cut_config(train_torch, **cut):
+                state, step, batches, got, run = baseline_steps(
+                    torch, cuda, train_torch, name, batch, OPTIM_STEPS,
+                    f"optim_{opt}_{tag}", device, extra=extra,
+                    on_build=_capture_first_update(record) if tag == opt
+                    else None)
             row[f"{tag}_step_ms_median"] = run["step_ms_median"]
             row[f"{tag}_step_ms"] = run["step_ms"]
             row[f"{tag}_losses"] = run["losses"]
@@ -4969,8 +5021,10 @@ def run_optim(torch, cuda, train_torch, device="cuda"):
                                                   batches))
             del state, step, batches
             empty_cache(torch, torch.device(device))
-        row["first_update_rel_err"], row["first_update_worst"] = \
-            _cpu_update_err(torch, train_torch, name, batch, flags, record)
+        with _cut_config(train_torch, **cut):
+            row["first_update_rel_err"], row["first_update_worst"] = \
+                _cpu_update_err(torch, train_torch, name, batch, flags,
+                                record)
         row["tol"] = OPTIM_TOL
         del record
         emit(row)
@@ -8282,9 +8336,445 @@ def run_dataservice(torch, cuda, train_torch, device="cuda"):
     return launches
 
 
+JOBS_LAYERS = 2          # (a): gpt_lm at full width cut to 2 layers
+JOBS_STEPS = 4           # (a): the trainer's steps, a checkpoint every 2
+JOBS_EVERY = 2
+JOBS_EVAL_RTOL = 1e-6    # (a): the sidecar's eval_loss against this process
+JOBS_PS_STEPS = 6        # (b): async steps a worker (batch 256 a worker)
+JOBS_KILL_STEPS = 12     # (b): the kill run's steps a worker
+JOBS_KILL_AT = 8         # (b): the global version the kill waits for
+JOBS_CLUSTER_STEPS = 2   # (c): steps of the TF_CONFIG cluster's workers
+JOBS_CLOSURES = 6        # (d): slow closures over two process workers
+
+
+def _jobs_eval_launches(layers):
+    """Launches of one eval forward of gpt_lm at ``layers`` layers: the
+    LayerNorm forward twice a block and once for ln_f, the flash forward
+    once a block, the fused head's forward once."""
+    return {**NO_LAUNCHES, "layernorm_fwd": 2 * layers + 1,
+            "flash_fwd": layers, "fused_xent_fwd": 1}
+
+
+def _gpt_step_launches(layers):
+    """Launches of one gpt_lm (or gpt_moe) training step at ``layers``
+    layers (block remat, K3f, the fused head): the LayerNorm forward
+    twice a LayerNorm and once for ln_f, backward once each, the flash
+    forward twice a layer, K3f once, the head once each."""
+    return {**NO_LAUNCHES, "layernorm_fwd": 4 * layers + 1,
+            "layernorm_bwd": 2 * layers + 1, "flash_fwd": 2 * layers,
+            "flash_bwd_fused": layers, "fused_xent_fwd": 1,
+            "fused_xent_dx": 1, "fused_xent_dw": 1}
+
+
+def _jobs_pid(x):
+    """(d)'s closure: the worker's pid and twice ``x``."""
+    return os.getpid(), 2 * x
+
+
+def _jobs_slow(x):
+    """(d)'s closure that a kill interrupts: the worker's pid and ``x``."""
+    time.sleep(0.4)
+    return os.getpid(), x
+
+
+def _jobs_sidecar(torch, cuda, train_torch, tmp, device):
+    """(a): the trainer (``train_torch.main``, this thread) and the
+    ``--job evaluator`` sidecar (another thread) on one checkpoint
+    directory, then the evaluated step restored here and evaluated on the
+    same batches.  Returns the row and the failures."""
+    import threading
+
+    from distributedtensorflow_tpu_torch.checkpoint import CheckpointManager
+    from distributedtensorflow_tpu_torch.data import (
+        current_input_context,
+        device_put_batch,
+    )
+    from distributedtensorflow_tpu_torch.train import (
+        TrainState,
+        make_eval_step,
+        weighted_evaluate,
+    )
+    from distributedtensorflow_tpu_torch.train import sidecar as sidecar_mod
+
+    cuda_dev = device == "cuda"
+    ck = os.path.join(tmp, "ck")
+    workload = _trainer_argv(device)
+    evals, out = [], {}
+    timed = sidecar_mod.SidecarEvaluator._evaluate_state
+
+    def evaluate_state(self, step, state):
+        t0 = time.perf_counter()
+        metrics = timed(self, step, state)  # float() of each: synced
+        evals.append({"step": step, "ms": 1e3 * (time.perf_counter() - t0)})
+        return metrics
+
+    def evaluator():
+        try:
+            out["history"] = train_torch.main(
+                ["--job", "evaluator", *workload, "--checkpoint-dir", ck,
+                 "--steps", str(JOBS_STEPS), "--poll-interval", "0.2",
+                 "--idle-timeout", "60"])
+        except BaseException as e:  # noqa: BLE001 — reported below
+            out["error"] = repr(e)
+
+    failures = []
+    sidecar_mod.SidecarEvaluator._evaluate_state = evaluate_state
+    try:
+        with _cut_config(train_torch, num_layers=JOBS_LAYERS):
+            cuda.launches.clear()
+            t0 = time.time()
+            thread = threading.Thread(target=evaluator, name="jobs-sidecar")
+            thread.start()
+            try:
+                records = train_torch.main(
+                    [*workload, "--steps", str(JOBS_STEPS), "--log-every",
+                     str(JOBS_EVERY), "--checkpoint-dir", ck,
+                     "--checkpoint-every", str(JOBS_EVERY)])
+            finally:
+                thread.join(timeout=600)
+            sync(torch, torch.device(device))
+            launches = dict(cuda.launches)
+            seconds = time.time() - t0
+            # the evaluated step restored here, on the evaluator's batches
+            args = train_torch.parse_args(workload)
+            wl = train_torch.workload_of(args)
+            model = wl.model_cls(wl.cfg, device=device)
+            state = TrainState.create(model, wl.make_optimizer)
+            CheckpointManager(ck).restore(JOBS_STEPS, state)
+            ctx = current_input_context(wl.global_batch_size)
+            batches = [device_put_batch(b, device) for b, _ in zip(
+                wl.input_fn(ctx, SEED + 999), range(train_torch.EVAL_STEPS))]
+            eval_step = make_eval_step(wl.eval_fn(model))
+            sync(torch, torch.device(device))
+            t1 = time.perf_counter()
+            ref = weighted_evaluate(eval_step, state, iter(batches))
+            ref_ms = 1e3 * (time.perf_counter() - t1)
+            del model, state, batches
+    finally:
+        sidecar_mod.SidecarEvaluator._evaluate_state = timed
+    empty_cache(torch, torch.device(device))
+    history = out.get("history") or {}
+    if "error" in out or JOBS_STEPS not in history:
+        failures.append(f"(a) the evaluator: {out.get('error')}, evaluated "
+                        f"{sorted(history)}")
+        got = None
+    else:
+        got = history[JOBS_STEPS]["loss"]
+        if abs(got - ref["loss"]) > JOBS_EVAL_RTOL * abs(ref["loss"]):
+            failures.append(f"(a) eval_loss {got} against {ref['loss']} "
+                            "in this process")
+    n_evals = len(history)
+    step_l = _gpt_step_launches(JOBS_LAYERS)
+    eval_l = _jobs_eval_launches(JOBS_LAYERS)
+    want = {k: JOBS_STEPS * step_l[k]
+            + n_evals * train_torch.EVAL_STEPS * eval_l[k]
+            for k in (*DS_KERNELS,)}
+    got_l = {k: launches.get(k, 0) for k in want}
+    if cuda_dev and got_l != want:
+        failures.append(f"(a) launches {got_l}, expected {want}")
+    losses = [r["loss"] for r in records]
+    if not all(math.isfinite(x) for x in losses):
+        failures.append(f"(a) trainer losses {losses}")
+    row = {"phase": "jobs", "part": "sidecar", "layers": JOBS_LAYERS,
+           "batch": 8, "seq": 2048 if cuda_dev else None,
+           "steps": JOBS_STEPS, "checkpoint_every": JOBS_EVERY,
+           "trainer_losses": losses, "evaluated_steps": sorted(history),
+           "evaluations": evals, "eval_loss": got,
+           "eval_loss_here": ref["loss"],
+           "eval_loss_rel_err": None if got is None
+           else abs(got - ref["loss"]) / abs(ref["loss"]),
+           "bit_equal": got == ref["loss"], "rtol": JOBS_EVAL_RTOL,
+           "eval_ms_here": ref_ms, "launches": got_l,
+           "expected_launches": want, "seconds": seconds}
+    return row, failures
+
+
+def _jobs_async_ps(torch, train_torch, tmp, device, out):
+    """(b): ``train_torch.main --job async-ps`` on widedeep at its
+    preset width, 2 PS shards and 2 worker processes computing on
+    ``device``; the trainer it made is kept (its final parameters and
+    where its workers ran).  Then the first batch worker 0 trained on,
+    under the seeded initial weights and under the final ones."""
+    from distributedtensorflow_tpu_torch.data import (
+        InputContext,
+        device_put_batch,
+    )
+    from distributedtensorflow_tpu_torch.parallel import param_server as pps
+
+    base = pps.AsyncPSTrainer
+    made = []
+
+    class Kept(base):
+        def stop(self):
+            self.kept = {"version": self.global_version(),
+                         "params": self.current_params(),
+                         "where": self.worker_devices()}
+            made.append(self)
+            super().stop()
+
+    test = [] if device == "cuda" else ["--test-size"]
+    t0 = time.time()
+    pps.AsyncPSTrainer = Kept
+    try:
+        records = train_torch.main(
+            ["--job", "async-ps", "--workload", "widedeep", "--num-ps", "2",
+             "--num-workers", "2", "--steps", str(JOBS_PS_STEPS), "--seed",
+             str(SEED), "--device", device, "--logdir",
+             os.path.join(tmp, "async_ps"), *test])
+    finally:
+        pps.AsyncPSTrainer = base
+    seconds = time.time() - t0
+    kept = made[0].kept
+    wl = train_torch.get_workload("widedeep", test_size=bool(test),
+                                  global_batch_size=2 * 256)
+    model = wl.model_cls(wl.cfg, device=device)
+    loss_fn = wl.loss_fn(model)
+    first = device_put_batch(next(wl.input_fn(InputContext(2, 0, 512), SEED)),
+                             device)
+    first_loss = {}
+    for tag, params in (("initial", wl.init_params(
+            wl.cfg, torch.Generator().manual_seed(SEED))), ("final", {
+                k: torch.from_numpy(v) for k, v in kept["params"].items()})):
+        model.load_state_dict(params)
+        with torch.no_grad():
+            first_loss[tag] = float(loss_fn(first)[0])
+    out["b"] = {"records": records, "version": kept["version"],
+                "where": kept["where"], "first_batch_loss": first_loss,
+                "seconds": seconds}
+
+
+def _jobs_kill(trainer_cls, device, out):
+    """(b)'s fault: an ``AsyncPSTrainer`` (widedeep, 2 PS, 2 workers of
+    JOBS_KILL_STEPS steps, 50 ms between steps) whose worker 1 is killed
+    once the global version reaches JOBS_KILL_AT; worker 0 finishes."""
+    from distributedtensorflow_tpu_torch.parallel.sharding import (
+        MinSizePartitioner,
+    )
+
+    t0 = time.time()
+    trainer = trainer_cls(
+        "widedeep", num_ps=2, num_workers=2, steps=JOBS_KILL_STEPS,
+        batch_size=256, test_size=device != "cuda", seed=SEED,
+        worker_sleep_s=0.05, device=device,
+        partitioner=MinSizePartitioner(min_shard_bytes=64 << 10))
+    with trainer:
+        trainer.start()
+        deadline = time.monotonic() + 300
+        while trainer.global_version() < JOBS_KILL_AT:
+            if time.monotonic() > deadline:
+                raise TimeoutError("(b) the kill run never started")
+            time.sleep(0.05)
+        before = trainer.global_version()
+        trainer.kill_worker(1)
+        trainer.join(timeout=300)
+        results = trainer.worker_results()
+        out["kill"] = {"version_at_kill": before,
+                       "version_after": trainer.global_version(),
+                       "finished": sorted(results),
+                       "survivor_steps": len(results.get(0, ([],))[0]),
+                       "where": trainer.worker_devices(),
+                       "seconds": time.time() - t0}
+
+
+def _jobs_coordinator(out):
+    """(d): a Coordinator of two process workers with status servers:
+    each answers ``/varz``; JOBS_CLOSURES slow closures run out of
+    process while worker 0 is killed mid-closure (its closure re-queues,
+    it respawns once); then a closure on each worker."""
+    import urllib.request
+
+    from distributedtensorflow_tpu_torch.parallel import coordinator as pc
+
+    t0 = time.time()
+    respawns = lambda: sum(pc._M_RESPAWNS.value(worker=str(i))  # noqa: E731
+                           for i in range(2))
+    r0, q0 = respawns(), pc._M_RETRIED.value()
+    coord = pc.Coordinator(num_workers=2, use_processes=True,
+                           worker_status_ports=True, respawn_backoff_s=0.05,
+                           respawn_backoff_max_s=0.1)
+    try:
+        start_s = time.time() - t0
+        varz = {}
+        for addr in coord.worker_status_addrs():
+            with urllib.request.urlopen(f"http://{addr}/varz",
+                                        timeout=30) as r:
+                varz[addr] = r.status
+        pids = coord.worker_pids()
+        rvs = [coord.schedule(_jobs_slow, (i,)) for i in range(JOBS_CLOSURES)]
+        time.sleep(0.15)  # worker 0 is inside its first closure
+        coord.kill_worker_process(0)
+        coord.join(timeout=120)
+        got = [rv.fetch() for rv in rvs]
+        after = [coord.schedule(_jobs_pid, (i,)) for i in range(4)]
+        coord.join(timeout=120)
+        later = [rv.fetch() for rv in after]
+        out["d"] = {"varz_status": list(varz.values()),
+                    "results": sorted(v for _, v in got),
+                    "closure_pids": sorted({p for p, _ in got + later}),
+                    "pids_before": pids, "pids_after": coord.worker_pids(),
+                    "parent_pid": os.getpid(),
+                    "requeued": pc._M_RETRIED.value() - q0,
+                    "respawns": respawns() - r0,
+                    "later": sorted(v for _, v in later),
+                    "start_s": start_s, "seconds": time.time() - t0}
+    finally:
+        coord.shutdown()
+
+
+def _jobs_cluster_start(tmp, device):
+    """(c): 1 ps, 1 chief and 1 worker of one TF_CONFIG cluster on
+    loopback ports, each ``train_torch.py`` (widedeep at its preset
+    width), started together."""
+    from distributedtensorflow_tpu_torch.parallel.bootstrap import free_port
+
+    cluster = {kind: [f"127.0.0.1:{free_port()}"]
+               for kind in ("ps", "chief", "worker")}
+    flags = ["--workload", "widedeep", "--steps", str(JOBS_CLUSTER_STEPS),
+             "--batch-size", "256", "--idle-timeout", "120", "--seed",
+             str(SEED), "--device", device,
+             *([] if device == "cuda" else ["--test-size"])]
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    for kind in ("ps", "chief", "worker"):
+        env = {**os.environ, "DTFT_PS_WAIT_S": "120", "TF_CONFIG": json.dumps(
+            {"cluster": cluster, "task": {"type": kind, "index": 0}})}
+        log = open(os.path.join(tmp, f"cluster_{kind}.log"), "w")
+        procs.append((kind, subprocess.Popen(
+            [sys.executable, os.path.join(here, "train_torch.py"), *flags],
+            cwd=here, env=env, stdout=log, stderr=subprocess.STDOUT), log))
+    return procs
+
+
+def run_jobs(torch, cuda, train_torch, device="cuda"):
+    """The ``--job`` roles (see the module's docstring): (c)'s three
+    processes, (b)'s two async runs and (d)'s process pool start first,
+    side by side; (a) runs on the card meanwhile.  On the CPU (a
+    rehearsal) the test sizes run and the launch and CUDA checks are
+    left out."""
+    import tempfile
+    import threading
+
+    from distributedtensorflow_tpu_torch.parallel import param_server as pps
+
+    cuda_dev = device == "cuda"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_jobs_")
+    t0 = time.time()
+    failures, out, errors = [], {}, {}
+    threads, cluster = [], []
+
+    def guarded(name, fn, *a):
+        def body():
+            try:
+                fn(*a)
+            except BaseException as e:  # noqa: BLE001 — reported below
+                errors[name] = repr(e)
+        t = threading.Thread(target=body, name=f"jobs-{name}")
+        t.start()
+        threads.append(t)
+
+    try:
+        cluster = _jobs_cluster_start(tmp, device)
+        # the class itself, before (b) swaps the module's for one that
+        # keeps its end
+        guarded("kill", _jobs_kill, pps.AsyncPSTrainer, device, out)
+        guarded("b", _jobs_async_ps, torch, train_torch, tmp, device, out)
+        guarded("d", _jobs_coordinator, out)
+        row_a, fail_a = _jobs_sidecar(torch, cuda, train_torch, tmp, device)
+        emit(row_a)
+        failures += fail_a
+        for t in threads:
+            t.join(timeout=600)
+        failures += [f"({k}) raised {v}" for k, v in errors.items()]
+        # (b)
+        total = 2 * 2 * JOBS_PS_STEPS
+        if "b" in out:
+            b = out["b"]
+            final = b["records"][-1]
+            hist = final.get("staleness_hist", {})
+            where = b["where"]
+            ok_b = (b["version"] == total and sum(hist.values()) == total
+                    and bool(hist) and final.get("final")
+                    and b["first_batch_loss"]["final"]
+                    < b["first_batch_loss"]["initial"]
+                    and sorted(where) == [0, 1]
+                    and (not cuda_dev or all(w["cuda_context"]
+                                             for w in where.values())))
+            emit({"phase": "jobs", "part": "async_ps", "workload": "widedeep",
+                  "num_ps": 2, "num_workers": 2, "steps": JOBS_PS_STEPS,
+                  "batch_per_worker": 256, "global_version": b["version"],
+                  "expected_version": total, "staleness_hist": hist,
+                  "loss_first": final.get("loss_first"),
+                  "loss_last": final.get("loss_last"),
+                  "eval": {k: final[k] for k in ("accuracy", "log_loss")
+                           if k in final},
+                  "first_batch_loss": b["first_batch_loss"],
+                  "workers": where, "seconds": b["seconds"],
+                  "updates_per_sec": total / b["seconds"], "ok": ok_b})
+            if not ok_b:
+                failures.append(f"(b) async-ps: version {b['version']} of "
+                                f"{total}, hist {hist}, first batch "
+                                f"{b['first_batch_loss']}, workers {where}")
+        if "kill" in out:
+            k = out["kill"]
+            ok_k = (k["finished"] == [0]
+                    and k["version_after"] > k["version_at_kill"]
+                    and k["survivor_steps"] == JOBS_KILL_STEPS
+                    and (not cuda_dev or k["where"][0]["cuda_context"]))
+            emit({"phase": "jobs", "part": "async_ps_kill", **k, "ok": ok_k})
+            if not ok_k:
+                failures.append(f"(b) kill: {k}")
+        # (c)
+        logs = {}
+        for kind, proc, log in cluster:
+            rc = proc.wait(timeout=300)
+            log.close()
+            logs[kind] = (rc, _read(os.path.join(tmp,
+                                                  f"cluster_{kind}.log")))
+        budget = 2 * JOBS_CLUSTER_STEPS
+        ok_c = (all(rc == 0 for rc, _ in logs.values())
+                and f"ps task 0 done at version {budget}" in logs["ps"][1]
+                and "chief task 0 = async worker 0/2" in logs["chief"][1]
+                and "worker task 0 = async worker 1/2" in logs["worker"][1]
+                and all("staleness" in logs[k][1]
+                        for k in ("chief", "worker")))
+        emit({"phase": "jobs", "part": "ps_cluster", "tasks": sorted(logs),
+              "rc": {k: rc for k, (rc, _) in logs.items()},
+              "steps": JOBS_CLUSTER_STEPS, "push_budget": budget,
+              "ok": ok_c, "seconds": time.time() - t0})
+        if not ok_c:
+            failures.append("(c) ps cluster: " + "; ".join(
+                f"{k} rc {rc}: {text[-1500:]}"
+                for k, (rc, text) in logs.items()))
+        # (d)
+        if "d" in out:
+            d = out["d"]
+            ok_d = (d["varz_status"] == [200, 200]
+                    and d["results"] == list(range(JOBS_CLOSURES))
+                    and d["parent_pid"] not in d["closure_pids"]
+                    and d["requeued"] >= 1 and d["respawns"] == 1
+                    and d["later"] == [0, 2, 4, 6]
+                    and len(d["pids_after"]) == 2)
+            emit({"phase": "jobs", "part": "coordinator", **d, "ok": ok_d})
+            if not ok_d:
+                failures.append(f"(d) coordinator: {d}")
+    finally:
+        for t in threads:
+            t.join(timeout=60)
+        for _, proc, log in cluster:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "jobs_seconds", "seconds": time.time() - t0})
+    if failures:
+        raise AssertionError(f"jobs: {failures}")
+    return collections.Counter(row_a["launches"])
+
+
 PHASES = ("layernorm", "kernels", "xent", "serving", "serve_cli", "train",
           "baseline", "dp", "ckpt", "trainer", "multistep", "presets2",
-          "bert_moe", "optim", "records", "dataservice", "planes",
+          "bert_moe", "optim", "records", "dataservice", "jobs", "planes",
           "scaleout", "seqexpert", "pipeline", "splitckpt", "splitzero",
           "quad")
 
@@ -8480,6 +8970,9 @@ def main(argv=None) -> int:
     if "dataservice" in phases:
         launches.update(run_dataservice(torch, _cuda, train_torch))
     done("dataservice")
+    if "jobs" in phases:
+        launches.update(run_jobs(torch, _cuda, train_torch))
+    done("jobs")
     if "planes" in phases:
         import serve_torch
 

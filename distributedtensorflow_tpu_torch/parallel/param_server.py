@@ -1,0 +1,876 @@
+"""Async parameter server: true stale-gradient training (reference config #5).
+
+Twin of ``distributedtensorflow_tpu/parallel/param_server.py`` (the
+reference's ``ParameterServerStrategyV2`` with its ``ClusterCoordinator``):
+variables are partitioned across parameter-server tasks, and every worker
+loops pull -> grad -> push with **no synchronization against its peers**:
+gradients are applied to whatever the current parameters are (stale
+gradients), and training continues through a worker's loss because
+workers are stateless.
+
+Async PS is a **host-side training mode** for the sparse/recsys family
+(Wide&Deep), where embedding-dominated models, update cost far below
+transfer cost and tolerance to staleness make it the published idiom;
+the dense presets keep the synchronous step.
+
+Architecture, over the data service's wire (``data/service.py``:
+``uint64 LE length + JSON frame [+ npz frame]``), byte for byte the
+reference's, so a client of either package drives a server of the other:
+
+- :class:`PSServer`: one PS task, a shard of the flat parameters and the
+  optimizer state of that shard (the reference keeps an optimizer's slot
+  variables with their variable on the PS), as CPU tensors: the parameter
+  server *is* the host-side store.  ``push`` applies the update at once
+  under the shard lock and bumps a version counter; the staleness of each
+  push (``version at apply - version at pull``) is recorded.
+- :func:`partition_params`: placement by size onto the least-loaded PS,
+  large axis-0-splittable variables first cut by the sharded-variable
+  partitioners (``sharding.Partitioner``), the reference's
+  ``ShardedVariable`` layout.
+- :class:`AsyncPSClient`: pull and reassemble the flat parameters, split
+  and push the gradients.
+- :class:`AsyncPSTrainer`: the PS servers as threads of this process, the
+  workers as OS processes of the ``spawn`` context (real death) computing
+  gradients on ``device`` (``cuda`` unless the caller asks for the CPU:
+  an H100 takes several processes, where the reference pins its workers
+  to the CPU because a TPU host's chips belong to one process);
+  ``kill_worker`` is the fault injection, and the surviving workers keep
+  the global version advancing.
+- The TF_CONFIG cluster path (the reference's legacy ps/worker tiers):
+  :func:`build_cluster_pieces` derives byte-identical shards and plan on
+  every task from the shared flags and seed (seeded on the CPU from a
+  ``torch.Generator``), a ``ps`` task serves its shard through
+  :meth:`PSServer.serve_until`, and a ``chief``/``worker`` task runs
+  :func:`worker_loop` against ``cluster["ps"]`` (``train_torch.py``'s
+  ``--job auto``).
+
+The flat names and layouts are the port's own: the models' ``state_dict``
+names, ``nn.Linear``-style (out, in) weights.  Only parameters live on
+the PS: a workload with buffers (BatchNorm's running statistics) is
+refused, as the reference refuses its mutable collections.
+
+Per-shard optimizer correctness: each shard is updated alone, which is
+exact for elementwise optimizers only (sgd, momentum, adam, adamw,
+adagrad, without global-norm clipping), the restriction the reference's
+PS placement imposes, where each PS updates its variables in isolation.
+Global-norm clipping, if wanted, belongs to the worker before the push;
+an optimizer that mixes information across variables would silently
+become per-shard here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import multiprocessing as mp
+import os
+import socket
+import socketserver
+import threading
+import time
+from typing import Any, Callable, Sequence
+
+import numpy as np
+import torch
+
+from ..data.service import (
+    _recv_msg,
+    _rpc,
+    _send_msg,
+    decode_batch,
+    encode_batch,
+)
+from .sharding import Partitioner
+
+logger = logging.getLogger(__name__)
+
+FlatParams = dict[str, np.ndarray]
+
+#: Per-connection socket timeout inside the PS request handler: bounds how
+#: long a wedged peer (half-open TCP) can occupy a handler thread.
+_HANDLER_SOCKET_TIMEOUT_S = 30.0
+#: Response-send timeout.  settimeout() is a TOTAL deadline for sendall
+#: (not an idle bound), so a live-but-slow worker pulling a large shard
+#: over a thin link needs far more than the receive bound; this only
+#: exists to eventually unstick a truly dead peer.
+_HANDLER_SEND_TIMEOUT_S = 600.0
+#: serve_until's post-done drain cap: after the exit condition holds, wait
+#: at most this long for inflight handlers before returning anyway.
+_DRAIN_CAP_S = 5.0
+
+
+# --- placement plan ---------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class _Piece:
+    """One contiguous axis-0 slice of a variable living on one PS."""
+
+    ps: int
+    start: int
+    stop: int  # 0/0 for unsplit (whole-array) placement
+
+    def wire_key(self, key: str) -> str:
+        if self.stop == 0:
+            return key
+        return f"{key}@{self.start}:{self.stop}"
+
+
+@dataclasses.dataclass(frozen=True)
+class PlacementPlan:
+    """Where every variable (piece) lives; JSON-serializable for workers."""
+
+    num_ps: int
+    pieces: dict[str, tuple[_Piece, ...]]
+
+    def to_json(self) -> str:
+        return json.dumps({
+            "num_ps": self.num_ps,
+            "pieces": {
+                k: [[p.ps, p.start, p.stop] for p in v]
+                for k, v in self.pieces.items()
+            },
+        })
+
+    @staticmethod
+    def from_json(s: str) -> "PlacementPlan":
+        raw = json.loads(s)
+        return PlacementPlan(
+            num_ps=raw["num_ps"],
+            pieces={
+                k: tuple(_Piece(*p) for p in v)
+                for k, v in raw["pieces"].items()
+            },
+        )
+
+
+def partition_params(
+    flat: FlatParams,
+    num_ps: int,
+    partitioner: Partitioner | None = None,
+) -> tuple[list[FlatParams], PlacementPlan]:
+    """Place variables on ``num_ps`` shards (the reference's placement).
+
+    Greedy by bytes onto the least-loaded PS, largest first; a variable the
+    ``partitioner`` wants split (and whose axis 0 allows it) is first cut
+    into up to ``num_ps`` axis-0 pieces, the ``ShardedVariable`` embedding
+    split (axis 0 only).
+    """
+    shards: list[FlatParams] = [{} for _ in range(num_ps)]
+    loads = [0] * num_ps
+    pieces: dict[str, tuple[_Piece, ...]] = {}
+    # Big-first for better balance.
+    for key, arr in sorted(flat.items(), key=lambda kv: -kv[1].nbytes):
+        arr = np.asarray(arr)
+        n_sub = 1
+        if (
+            partitioner is not None
+            and arr.ndim >= 1
+            and arr.shape[0] >= 2
+        ):
+            want = partitioner.num_shards(arr.shape, arr.dtype)
+            n_sub = max(1, min(want, num_ps, arr.shape[0]))
+        if n_sub == 1:
+            ps = loads.index(min(loads))
+            shards[ps][key] = arr
+            loads[ps] += arr.nbytes
+            pieces[key] = (_Piece(ps, 0, 0),)
+            continue
+        bounds = np.linspace(0, arr.shape[0], n_sub + 1).astype(int)
+        plist = []
+        for i in range(n_sub):
+            start, stop = int(bounds[i]), int(bounds[i + 1])
+            piece = arr[start:stop]
+            ps = loads.index(min(loads))
+            p = _Piece(ps, start, stop)
+            shards[ps][p.wire_key(key)] = piece
+            loads[ps] += piece.nbytes
+            plist.append(p)
+        pieces[key] = tuple(plist)
+    return shards, PlacementPlan(num_ps=num_ps, pieces=pieces)
+
+
+def reassemble(plan: PlacementPlan, per_ps: Sequence[FlatParams]) -> FlatParams:
+    """Inverse of :func:`partition_params`: concat pieces along axis 0."""
+    out: FlatParams = {}
+    for key, plist in plan.pieces.items():
+        if len(plist) == 1 and plist[0].stop == 0:
+            out[key] = per_ps[plist[0].ps][key]
+        else:
+            out[key] = np.concatenate(
+                [per_ps[p.ps][p.wire_key(key)] for p in plist], axis=0
+            )
+    return out
+
+
+def split_like(plan: PlacementPlan, flat: FlatParams) -> list[FlatParams]:
+    """Split a full flat tree (e.g. gradients) back into per-PS dicts."""
+    per_ps: list[FlatParams] = [{} for _ in range(plan.num_ps)]
+    for key, plist in plan.pieces.items():
+        arr = flat[key]
+        for p in plist:
+            piece = arr if p.stop == 0 else arr[p.start:p.stop]
+            per_ps[p.ps][p.wire_key(key)] = np.asarray(piece)
+    return per_ps
+
+
+# --- PS server --------------------------------------------------------------
+
+class PSServer:
+    """One parameter-server task: a param shard + its optimizer state.
+
+    The push path is the async heart: apply-on-receipt under the shard
+    lock, no cross-worker barrier, version counter + staleness histogram.
+    ``make_optimizer`` is the port's ``named parameters -> optimizer``
+    (a workload's ``make_optimizer``), built over this shard's wire keys.
+    """
+
+    def __init__(
+        self,
+        shard: FlatParams,
+        make_optimizer: Callable[[list], Any],
+        *,
+        port: int = 0,
+        bind: str = "127.0.0.1",
+    ):
+        self._lock = threading.Lock()
+        # the shard and its optimizer state stay on the host's CPU: the
+        # parameter server is the host-side store, whatever device the
+        # workers compute on
+        self._params = {
+            k: torch.tensor(np.asarray(v)).requires_grad_(True)
+            for k, v in shard.items()
+        }
+        self._opt = (make_optimizer(list(self._params.items()))
+                     if self._params else None)
+        self._version = 0
+        self._updates = 0
+        self._inflight = 0  # requests mid-handler (serve_until drains)
+        self._staleness: dict[int, int] = {}
+        self._push_by_worker: dict[int, int] = {}
+        self._stopping = threading.Event()
+
+        outer = self
+
+        class Handler(socketserver.BaseRequestHandler):
+            def handle(self) -> None:  # one request per connection
+                # Count the request from BEFORE the receive: if inflight
+                # were only incremented after _recv_msg returned, a push
+                # that has been fully received but not yet counted could
+                # still be torn down by a stop() racing serve_until's
+                # drain.  The socket timeout bounds how long a wedged peer
+                # can hold the inflight count (serve_until additionally
+                # caps its drain, so a dead client can never pin the task).
+                self.request.settimeout(_HANDLER_SOCKET_TIMEOUT_S)
+                with outer._lock:
+                    outer._inflight += 1
+                try:
+                    try:
+                        header, data = _recv_msg(self.request)
+                    except (ConnectionError, json.JSONDecodeError, OSError):
+                        return
+                    # Request received — switch to the (much longer) send
+                    # deadline before building/streaming the response.
+                    self.request.settimeout(_HANDLER_SEND_TIMEOUT_S)
+                    self._handle(header, data)
+                except OSError:
+                    return  # peer vanished mid-response; nothing to unwind
+                finally:
+                    with outer._lock:
+                        outer._inflight -= 1
+
+            def _handle(self, header, data) -> None:
+                op = header.get("op")
+                if op == "pull":
+                    # the optimizer updates the shard in place: copy it
+                    # under the lock (a memcpy), encode outside it, so a
+                    # pull never stalls concurrent pushes for the encode
+                    with outer._lock:
+                        version = outer._version
+                        snapshot = {k: v.detach().clone()
+                                    for k, v in outer._params.items()}
+                    blob = encode_batch(
+                        {k: v.numpy() for k, v in snapshot.items()}
+                    )
+                    _send_msg(self.request, {"version": version}, blob)
+                elif op == "push":
+                    grads = decode_batch(data)
+                    try:
+                        stale = outer._push(
+                            grads, int(header["pulled_version"]),
+                            int(header.get("worker", -1)),
+                        )
+                    except KeyError as e:
+                        _send_msg(self.request, {"error": str(e)})
+                        return
+                    with outer._lock:
+                        version = outer._version
+                    _send_msg(
+                        self.request,
+                        {"version": version, "staleness": stale},
+                    )
+                elif op == "stats":
+                    with outer._lock:
+                        _send_msg(self.request, {
+                            "version": outer._version,
+                            "updates": outer._updates,
+                            "staleness_hist": {
+                                str(k): v for k, v in outer._staleness.items()
+                            },
+                            "pushes_by_worker": {
+                                str(k): v
+                                for k, v in outer._push_by_worker.items()
+                            },
+                            "keys": sorted(outer._params),
+                        })
+                elif op == "stop":
+                    outer._stopping.set()
+                    _send_msg(self.request, {"ok": True})
+                    threading.Thread(
+                        target=outer._server.shutdown, daemon=True
+                    ).start()
+                else:
+                    _send_msg(self.request, {"error": f"unknown op {op!r}"})
+
+        class Server(socketserver.ThreadingTCPServer):
+            allow_reuse_address = True
+            daemon_threads = True
+
+        self._last_push_t = time.monotonic()
+        self._server = Server((bind, port), Handler)
+        self.port = self._server.server_address[1]
+        self._thread = threading.Thread(
+            target=self._server.serve_forever, daemon=True,
+            name=f"ps-server-{self.port}",
+        )
+        self._thread.start()
+
+    @property
+    def address(self) -> str:
+        return f"127.0.0.1:{self.port}"
+
+    def _push(self, grads: FlatParams, pulled_version: int, worker: int) -> int:
+        with self._lock:
+            if set(grads) != set(self._params):
+                raise KeyError(
+                    f"push keys {sorted(grads)[:3]}… do not match shard keys"
+                )
+            staleness = self._version - pulled_version
+            for k, p in self._params.items():
+                p.grad = torch.as_tensor(np.asarray(grads[k])).to(p.dtype)
+            if self._opt is not None:
+                self._opt.step()
+                self._opt.zero_grad(set_to_none=True)
+            self._version += 1
+            self._updates += 1
+            self._staleness[staleness] = self._staleness.get(staleness, 0) + 1
+            self._push_by_worker[worker] = self._push_by_worker.get(worker, 0) + 1
+            self._last_push_t = time.monotonic()
+        return staleness
+
+    def serve_until(
+        self,
+        total_updates: int | None = None,
+        *,
+        idle_timeout_s: float | None = None,
+        startup_grace_s: float | None = None,
+        poll_s: float = 0.2,
+    ) -> int:
+        """Block this thread until the shard has absorbed ``total_updates``
+        pushes, ``stop`` arrives, or no push for ``idle_timeout_s``: the
+        loop of a standalone ps task of the cluster launcher path (the
+        reference's ps task blocks in ``server.join()``).  Returns the
+        final version.
+
+        Before the FIRST push the clock uses ``startup_grace_s`` instead
+        (None = idle_timeout_s): cluster tasks start unordered and the
+        workers' interpreter and model startup can far exceed a reasonable
+        steady-state idle bound.  With one clock for both, the ps tier
+        gives up exactly when slow workers are about to connect and the
+        cluster deadlocks into "PS tasks unreachable".  A dead cluster
+        still exits: the grace is finite, sized for startup rather than
+        steady-state idleness."""
+        done_since: float | None = None
+        with self._lock:
+            first_version = self._version
+        while True:
+            with self._lock:
+                version = self._version
+                last = self._last_push_t
+                inflight = self._inflight
+            # Drain before returning: the budget-completing push's handler
+            # may still be writing its response, and returning here lets
+            # the caller stop()/exit and tear the daemon thread down
+            # mid-send (the worker would see a connection reset).  The
+            # drain is CAPPED: a peer that wedged mid-request (half-open
+            # TCP, stalled host) must not pin the ps task forever — after
+            # _DRAIN_CAP_S we return anyway and let stop() reset it.
+            no_push_yet = version == first_version
+            bound = (
+                startup_grace_s
+                if (no_push_yet and startup_grace_s is not None)
+                else idle_timeout_s
+            )
+            done = (
+                (total_updates is not None and version >= total_updates)
+                or self._stopping.is_set()
+                or (bound is not None and time.monotonic() - last > bound)
+            )
+            if done:
+                if done_since is None:
+                    done_since = time.monotonic()
+                if (
+                    inflight == 0
+                    or time.monotonic() - done_since > _DRAIN_CAP_S
+                ):
+                    return version
+            else:
+                done_since = None
+            time.sleep(poll_s if not done else 0.01)
+
+    def params(self) -> FlatParams:
+        with self._lock:
+            return {k: v.detach().clone().numpy()
+                    for k, v in self._params.items()}
+
+    def stop(self) -> None:
+        self._stopping.set()
+        self._server.shutdown()
+        self._server.server_close()
+        self._thread.join(timeout=5)
+
+
+# --- client -----------------------------------------------------------------
+
+
+class PSUnavailableError(ConnectionError):
+    """A PS task is unreachable — fatal, as in the reference."""
+
+
+class AsyncPSClient:
+    """Worker-side pull/push against the PS group."""
+
+    def __init__(self, addrs: Sequence[str], plan: PlacementPlan,
+                 *, worker_id: int = -1, timeout: float = 60.0):
+        if len(addrs) != plan.num_ps:
+            raise ValueError(f"{len(addrs)} addrs for {plan.num_ps}-PS plan")
+        self._addrs = list(addrs)
+        self._plan = plan
+        self._worker_id = worker_id
+        self._timeout = timeout
+
+    def _rpc(self, ps: int, request: dict, data: bytes | None = None):
+        try:
+            if data is None:
+                from ..net.rpc import RetryPolicy  # noqa: PLC0415
+
+                # Single-shot with an honest endpoint identity: PS loss
+                # is FATAL by contract (the reference's semantics) — the
+                # net substrate's default retries would mask it, and the
+                # default data_worker label would render PS traffic as
+                # data-plane traffic in every rpc_* time series.
+                return _rpc(
+                    self._addrs[ps], request, timeout=self._timeout,
+                    endpoint=f"peer:ps{ps}",
+                    policy=RetryPolicy(deadline_s=self._timeout,
+                                       max_attempts=1),
+                )
+            host, port = self._addrs[ps].rsplit(":", 1)
+            with socket.create_connection(
+                (host, int(port)), timeout=self._timeout
+            ) as s:
+                _send_msg(s, request, data)
+                return _recv_msg(s)
+        except (ConnectionError, OSError, TimeoutError) as e:
+            raise PSUnavailableError(
+                f"PS {ps} at {self._addrs[ps]}: {e!r}"
+            ) from e
+
+    def pull(self) -> tuple[FlatParams, list[int]]:
+        """Fetch all shards; returns (full flat params, per-PS versions)."""
+        per_ps, versions = [], []
+        for ps in range(self._plan.num_ps):
+            header, blob = self._rpc(ps, {"op": "pull"})
+            per_ps.append(decode_batch(blob))
+            versions.append(int(header["version"]))
+        return reassemble(self._plan, per_ps), versions
+
+    def push(self, flat_grads: FlatParams, versions: Sequence[int]) -> dict:
+        """Push grads; applied immediately per shard (stale OK)."""
+        stats = {"staleness": [], "version": []}
+        for ps, shard in enumerate(split_like(self._plan, flat_grads)):
+            header, _ = self._rpc(
+                ps,
+                {"op": "push", "pulled_version": versions[ps],
+                 "worker": self._worker_id},
+                encode_batch(shard),
+            )
+            if "error" in header:
+                raise RuntimeError(f"PS {ps} rejected push: {header['error']}")
+            stats["staleness"].append(int(header["staleness"]))
+            stats["version"].append(int(header["version"]))
+        return stats
+
+    def stats(self) -> list[dict]:
+        return [
+            self._rpc(ps, {"op": "stats"})[0]
+            for ps in range(self._plan.num_ps)
+        ]
+
+
+# --- worker process ---------------------------------------------------------
+
+
+def _spec_workload(spec: dict, num_workers: int):
+    """The workload a spec names, at its global batch (``batch_size`` a
+    worker), in ``spec["dtype"]`` when it names one (``--dtype``)."""
+    from ..workloads import get_workload  # noqa: PLC0415
+
+    wl = get_workload(
+        spec["workload"], test_size=spec.get("test_size", True),
+        global_batch_size=spec["batch_size"] * num_workers,
+    )
+    if spec.get("dtype"):
+        wl = dataclasses.replace(wl, cfg=dataclasses.replace(
+            wl.cfg, dtype=getattr(torch, spec["dtype"])))
+    return wl
+
+
+def _param_names(wl) -> list[str]:
+    """The workload's parameter names; raises for one with buffers."""
+    model = wl.model_cls(wl.cfg, device="meta")
+    names = [n for n, _ in model.named_parameters()]
+    extra = sorted(set(model.state_dict()) - set(names))
+    if extra:
+        # Buffers (BatchNorm's running statistics, flax's batch_stats)
+        # have no PS placement story: the reference's PS path is
+        # params-only as well (BN-free sparse/recsys models).  Fail here,
+        # not in every worker.
+        collections = sorted({
+            "batch_stats" if n.rsplit(".", 1)[-1] in ("mean", "var") else n
+            for n in extra})
+        raise ValueError(
+            f"async-PS supports params-only workloads; "
+            f"{wl.name!r} also has collections {collections} "
+            "(e.g. batch norm) — use the sync engine for it"
+        )
+    return names
+
+
+def worker_loop(
+    worker_id: int,
+    num_workers: int,
+    addrs: Sequence[str],
+    plan: PlacementPlan,
+    spec: dict,
+) -> tuple[list[float], list[int]]:
+    """The async-PS worker: pull -> grad -> push for ``spec["steps"]`` steps.
+
+    Rebuilds the workload by name in this process (each reference worker
+    likewise re-traces the train fn against the PS-resident variables) on
+    ``spec["device"]`` (``cuda`` unless it says otherwise; a worker that
+    cannot reach the card raises, it never falls back to the CPU).  Its
+    input is pipeline ``worker_id`` of ``num_workers`` of the preset's
+    stream of ``spec["seed"]``, its dropout keys those of seed
+    ``1000 + worker_id``.  Returns ``(per-step losses, per-push
+    staleness)``.
+    """
+    from ..data.input_pipeline import InputContext, device_put_batch  # noqa: PLC0415
+    from ..device import resolve_device  # noqa: PLC0415
+    from ..train.engine import dropout_keys  # noqa: PLC0415
+
+    device = resolve_device(spec.get("device"))
+    wl = _spec_workload(spec, num_workers)
+    ctx = InputContext(
+        num_input_pipelines=num_workers,
+        input_pipeline_id=worker_id,
+        global_batch_size=spec["batch_size"] * num_workers,
+    )
+    data = wl.input_fn(ctx, spec.get("seed", 0))
+    client = AsyncPSClient(addrs, plan, worker_id=worker_id)
+    model = wl.model_cls(wl.cfg, device=device)
+    params = dict(model.named_parameters())
+    loss_fn = wl.loss_fn(model)
+
+    losses: list[float] = []
+    staleness: list[int] = []
+    for step in range(spec["steps"]):
+        flat, versions = client.pull()
+        with torch.no_grad():
+            for name, p in params.items():
+                p.copy_(torch.from_numpy(flat[name]))
+        batch = device_put_batch(next(data), device)
+        key, = dropout_keys(1000 + worker_id, step, 1, device=device)
+        model.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(batch, key)
+        loss.backward()
+        grads = {name: p.grad.detach().float().cpu().numpy()
+                 for name, p in params.items()}
+        stats = client.push(grads, versions)
+        losses.append(float(loss.detach()))
+        staleness.extend(stats["staleness"])
+        if spec.get("sleep_s"):
+            time.sleep(spec["sleep_s"])
+    return losses, staleness
+
+
+def _async_worker_main(
+    worker_id: int,
+    num_workers: int,
+    addrs: list[str],
+    plan_json: str,
+    spec: dict,
+    queue,
+) -> None:
+    """Child main for spawned workers (module-level: spawn pickles it).
+    Sends ``(worker_id, losses, staleness, where)``: ``where`` names the
+    device the worker computed on and whether it holds a CUDA context."""
+    losses, staleness = worker_loop(
+        worker_id, num_workers, addrs,
+        PlacementPlan.from_json(plan_json), spec,
+    )
+    where = {"device": str(spec.get("device") or "cuda"), "pid": os.getpid(),
+             "cuda_context": torch.cuda.is_initialized()}
+    queue.put((worker_id, losses, staleness, where))
+
+
+def build_cluster_pieces(
+    spec: dict,
+    num_ps: int,
+    num_workers: int,
+    partitioner: Partitioner | None = None,
+    make_optimizer: Callable[[list], Any] | None = None,
+    *,
+    workload_obj=None,
+):
+    """Deterministic (workload, shards, plan, make_optimizer) for a PS job.
+
+    Every task of a TF_CONFIG-launched PS cluster (ps tasks, worker tasks,
+    the chief) calls this with the SAME CLI flags and seed and gets
+    byte-identical initial shards and an identical placement plan: the
+    weights are the workload's seeded initialisation on the CPU, from a
+    ``torch.Generator`` of ``spec["seed"]``.  So no plan or parameter
+    transfer is needed at bootstrap, the launcher contract of the
+    reference's per-task TF_CONFIG scripts (the same flags on every task).
+    """
+    wl = workload_obj if workload_obj is not None \
+        else _spec_workload(spec, num_workers)
+    names = _param_names(wl)
+    state = wl.init_params(
+        wl.cfg, torch.Generator().manual_seed(spec.get("seed", 0)))
+    flat = {n: state[n].detach().to(torch.float32).numpy() for n in names}
+    shards, plan = partition_params(flat, num_ps, partitioner)
+    return wl, shards, plan, (make_optimizer or wl.make_optimizer)
+
+
+# --- orchestration ----------------------------------------------------------
+
+
+class AsyncPSTrainer:
+    """Drive async-PS training for a workload preset.
+
+    Usage::
+
+        t = AsyncPSTrainer("widedeep", num_ps=2, num_workers=2,
+                           steps=40, batch_size=64)
+        t.start()
+        t.join()
+        loss0, lossN = t.first_last_mean_loss()
+        params = t.current_params()     # live (possibly mid-push) snapshot
+        t.stop()
+
+    Workers are real OS processes computing on ``device``;
+    :meth:`kill_worker` SIGKILLs one and the rest keep pushing (the
+    reference's workers-are-stateless elasticity).  PS tasks are daemon
+    threads in this process — a PS death is fatal by design, as in the
+    reference (``PSUnavailableError``).
+    """
+
+    def __init__(
+        self,
+        workload: str,
+        *,
+        num_ps: int = 2,
+        num_workers: int = 2,
+        steps: int = 20,
+        batch_size: int = 64,
+        test_size: bool = True,
+        partitioner: Partitioner | None = None,
+        make_optimizer: Callable[[list], Any] | None = None,
+        seed: int = 0,
+        worker_sleep_s: float = 0.0,
+        device: str = "cuda",
+        dtype: str | None = None,
+    ):
+        self._spec = {
+            "workload": workload, "steps": steps, "batch_size": batch_size,
+            "test_size": test_size, "seed": seed, "sleep_s": worker_sleep_s,
+            "device": device, "dtype": dtype,
+        }
+        self._num_workers = num_workers
+        wl, shards, self._plan, self._make_opt = build_cluster_pieces(
+            self._spec, num_ps, num_workers, partitioner, make_optimizer
+        )
+        self._servers = [
+            PSServer(shard, self._make_opt) for shard in shards
+        ]
+        self._addrs = [s.address for s in self._servers]
+        self._workload = wl
+        self._ctx = mp.get_context("spawn")
+        self._queue = self._ctx.Queue()
+        self._procs: dict[int, mp.Process] = {}
+        self._results: dict[int, tuple[list[float], list[int]]] = {}
+        self._where: dict[int, dict] = {}
+        self._killed: set[int] = set()
+
+    # -- lifecycle
+
+    def start(self) -> "AsyncPSTrainer":
+        for i in range(self._num_workers):
+            self._spawn(i)
+        return self
+
+    def _spawn(self, worker_id: int) -> None:
+        p = self._ctx.Process(
+            target=_async_worker_main,
+            args=(worker_id, self._num_workers, self._addrs,
+                  self._plan.to_json(), self._spec, self._queue),
+            name=f"async-ps-worker-{worker_id}",
+            daemon=True,
+        )
+        p.start()
+        self._procs[worker_id] = p
+
+    def kill_worker(self, worker_id: int) -> None:
+        """Fault injection: the worker dies mid-loop; training continues."""
+        self._killed.add(worker_id)
+        self._procs[worker_id].kill()
+
+    def respawn_worker(self, worker_id: int) -> None:
+        """Elastic re-join: a replacement worker enters the pull/push loop."""
+        self._procs[worker_id].join(timeout=5)
+        self._spawn(worker_id)
+
+    def join(self, timeout: float = 300.0) -> None:
+        """Wait for all *live* workers to finish their step budget.
+
+        Deliberately killed workers (:meth:`kill_worker`) are tolerated —
+        that is the elasticity contract.  A worker that crashes on its own
+        (nonzero exit without a kill) is an application error and raises,
+        matching the coordinator's parked-error semantics: a run where
+        every worker silently died must not report success.
+        """
+        deadline = time.monotonic() + timeout
+        while True:
+            self._drain()
+            crashed = [
+                i for i, p in self._procs.items()
+                if i not in self._results and i not in self._killed
+                and p.exitcode not in (0, None)
+            ]
+            if crashed:
+                raise RuntimeError(
+                    f"async-PS worker(s) {crashed} exited "
+                    f"{[self._procs[i].exitcode for i in crashed]} without "
+                    "being killed — check worker stderr"
+                )
+            expected = sum(
+                1 for i, p in self._procs.items()
+                if i not in self._results and i not in self._killed
+            )
+            if expected == 0:
+                return
+            if time.monotonic() > deadline:
+                raise TimeoutError("async-PS join timed out")
+            time.sleep(0.05)
+
+    def _drain(self) -> None:
+        while True:
+            try:
+                wid, losses, staleness, where = self._queue.get_nowait()
+            except Exception:
+                return
+            self._results[wid] = (losses, staleness)
+            self._where[wid] = where
+
+    # -- results / introspection
+
+    @property
+    def workload(self):
+        return self._workload
+
+    def worker_results(self) -> dict[int, tuple[list[float], list[int]]]:
+        self._drain()
+        return dict(self._results)
+
+    def worker_devices(self) -> dict[int, dict]:
+        """Per finished worker: the device it computed on, its pid and
+        whether it held a CUDA context."""
+        self._drain()
+        return dict(self._where)
+
+    def ps_stats(self) -> list[dict]:
+        client = AsyncPSClient(self._addrs, self._plan)
+        return client.stats()
+
+    def global_version(self) -> int:
+        """Total updates applied across PS shards (monotone progress)."""
+        return sum(s["version"] for s in self.ps_stats())
+
+    def current_params(self) -> FlatParams:
+        """Live snapshot of the flat parameters (state_dict names)."""
+        client = AsyncPSClient(self._addrs, self._plan)
+        flat, _ = client.pull()
+        return flat
+
+    def evaluate(self, batches: int = 4, seed: int = 10_000) -> dict:
+        """Run the workload's eval_fn on the *current* PS params, on the
+        workers' device."""
+        from ..data.input_pipeline import InputContext, device_put_batch  # noqa: PLC0415
+
+        device = self._spec["device"]
+        wl = self._workload
+        model = wl.model_cls(wl.cfg, device=device)
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                               self.current_params().items()})
+        metric_fn = wl.eval_fn(model)
+        ctx = InputContext(1, 0, self._spec["batch_size"])
+        data = wl.input_fn(ctx, seed)
+        metrics: dict[str, float] = {}
+        for _ in range(batches):
+            m = metric_fn(device_put_batch(next(data), device))
+            for k, v in m.items():
+                metrics[k] = metrics.get(k, 0.0) + float(v) / batches
+        return metrics
+
+    def first_last_mean_loss(self, k: int = 4) -> tuple[float, float]:
+        """Mean of the first/last k losses across workers that finished."""
+        self._drain()
+        first, last = [], []
+        for losses, _ in self._results.values():
+            first.extend(losses[:k])
+            last.extend(losses[-k:])
+        if not first:  # every worker killed before finishing
+            return float("nan"), float("nan")
+        return float(np.mean(first)), float(np.mean(last))
+
+    def stop(self) -> None:
+        for p in self._procs.values():
+            if p.is_alive():
+                p.terminate()
+        for p in self._procs.values():
+            p.join(timeout=5)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=5)
+        for s in self._servers:
+            s.stop()
+        self._queue.close()
+        self._queue.join_thread()
+
+    def __enter__(self) -> "AsyncPSTrainer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.stop()

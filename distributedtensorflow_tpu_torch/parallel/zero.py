@@ -313,10 +313,19 @@ def restore_step_zero(mgr, step: int, target):
     """Restore checkpoint ``step`` into ``target`` across ZeRO layouts
     (the manager converts the optimizer state, :func:`localize_opt_state`);
     ``(state, rechunked)`` with ``rechunked`` None when the saved layout
-    was the target's, else ``{"from": degree, "to": degree}``."""
+    was the target's (or the probe of it failed: then the restore is
+    direct), else ``{"from": degree, "to": degree}``."""
     zero = getattr(target, "zero", None)
     to = zero.degree if zero is not None else 1
-    saved = saved_opt_layout(mgr, step, target) or 1
+    try:
+        saved = saved_opt_layout(mgr, step, target) or 1
+    except ValueError as e:
+        # no slots (plain SGD), no manifest, or shapes of no layout: the
+        # direct restore surfaces a real mismatch itself (the reference's
+        # fallback, parallel/zero.py:384-391)
+        logger.warning("checkpoint step %d: ZeRO layout probe failed (%s); "
+                       "attempting a direct restore", step, e)
+        saved = to
     state = mgr.restore(step, target)
     if saved != to:
         logger.warning("checkpoint step %d was saved at ZeRO degree %d; "

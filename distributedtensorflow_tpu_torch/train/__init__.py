@@ -1,5 +1,5 @@
-"""Training of the port: state, optimizer, step engine, losses and the
-Trainer's fit loop."""
+"""Training of the port: state, optimizer, step engine, losses, the
+Trainer's fit loop and the sidecar evaluator."""
 
 from .engine import (  # noqa: F401
     accumulate_gradients,
@@ -26,6 +26,7 @@ from .optimizers import (  # noqa: F401
     sgd,
     warmup_cosine_decay_schedule,
 )
+from .sidecar import SidecarEvaluator  # noqa: F401
 from .state import TrainState, create_sharded_state  # noqa: F401
 from .trainer import (  # noqa: F401
     Callback,

@@ -19,6 +19,8 @@ parameters only, and the update is the sharder's.
 
 from __future__ import annotations
 
+import collections
+import copy
 import dataclasses
 
 import torch
@@ -73,6 +75,39 @@ class TrainState:
         self.optimizer.zero_grad(set_to_none=True)
         self.step += 1
         return self
+
+    def snapshot(self) -> "TrainState":
+        """A deep copy of the step, the parameters, the buffers and the
+        optimizer state (JAX ``TrainState.snapshot``, ``train/state.py:52``),
+        on the device they live on: safe to hand to a
+        :class:`~..parallel.Coordinator` closure while training goes on
+        updating this state in place.  The copy is for reading (an eval,
+        a save): its ``zero`` and ``placement`` are this state's layouts
+        and it has no ``overlap`` hooks.  A model's process groups are
+        shared, not copied."""
+        memo: dict = {}
+        for mod in self.model.modules():  # groups and meshes stay shared
+            for key in ("group", "mesh"):
+                value = mod.__dict__.get(key)
+                if value is not None:
+                    memo[id(value)] = value
+        with torch.no_grad():
+            model = copy.deepcopy(self.model, memo)
+            opt = self.optimizer
+            # not deepcopy(opt): Optimizer.__getstate__ keeps only its
+            # defaults, state and groups, and the port's optimizers carry
+            # their schedule and rate table beside them
+            new = object.__new__(type(opt))
+            new.__dict__.update(opt.__dict__)
+            new.param_groups = [
+                {k: [copy.deepcopy(p, memo) for p in v] if k == "params"
+                 else copy.deepcopy(v) for k, v in group.items()}
+                for group in opt.param_groups]
+            new.state = collections.defaultdict(dict, {
+                copy.deepcopy(p, memo): copy.deepcopy(st)
+                for p, st in opt.state.items()})
+        return dataclasses.replace(self, model=model, optimizer=new,
+                                   overlap=None)
 
     def advance(self, k: int) -> "TrainState":
         """``step`` and the optimizer's schedule count ``k`` further: the

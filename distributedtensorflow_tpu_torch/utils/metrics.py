@@ -88,6 +88,16 @@ class MetricWriter:
                                      allow_nan=False) + "\n")
         self._jsonl.flush()
 
+    def write_record(self, record: Mapping[str, Any]) -> None:
+        """Append one free-form JSON record (chief only, flushed): for
+        rows that are not step-keyed scalars (the async parameter
+        server's progress records carry a nested staleness histogram)."""
+        if self._closed or self._jsonl is None:
+            return
+        self._jsonl.write(json.dumps(json_sanitize(dict(record)),
+                                     allow_nan=False) + "\n")
+        self._jsonl.flush()
+
     def close(self) -> None:
         if self._closed:
             return

@@ -107,6 +107,24 @@ on the command line win) or a preset name::
         --device cpu --steps 4 --batch-size 8 --data-dir /data/train \
         --eval-data-dir /data/val --eval-every 4
     python train_torch.py --config run.json --device cpu
+
+Roles (``train.py``'s ``--job``): ``--job evaluator`` polls
+``--checkpoint-dir`` every ``--poll-interval`` seconds and evaluates each
+new checkpoint (the newest, skipping the ones in between) until the one
+of ``--steps``, ``--max-evaluations`` or ``--idle-timeout`` seconds
+without a new one, writing ``eval/<name>`` rows with ``--logdir``;
+``--job async-ps`` trains the preset on ``--num-ps`` parameter-server
+shards (threads of this process, on the CPU) and ``--num-workers``
+worker processes that compute on ``--device`` and push without a
+barrier.  ``--job auto`` (the default) takes the role TF_CONFIG gives:
+the evaluator for an ``evaluator`` task, a task of the parameter-server
+tier for any task of a cluster with a ``ps`` job (the same flags on
+every task), else training::
+
+    python train_torch.py --workload mnist_lenet --test-size --device cpu \
+        --steps 4 --job evaluator --checkpoint-dir /tmp/ck --max-evaluations 1
+    python train_torch.py --job async-ps --workload widedeep --test-size \
+        --device cpu --steps 8 --logdir /tmp/ps
 """
 
 from __future__ import annotations
@@ -117,6 +135,7 @@ import json
 import logging
 import os
 import sys
+import time
 
 import torch
 
@@ -243,7 +262,9 @@ def shardable_batches(it, mesh=None):
         yield batch if keep == n else {k: v[:keep] for k, v in batch.items()}
 
 
-def parse_args(argv=None) -> argparse.Namespace:
+def build_parser() -> argparse.ArgumentParser:
+    """``train_torch.py``'s flags, with ``train.py``'s names, choices and
+    defaults where they are twins."""
     # allow_abbrev=False: apply_config_file finds the typed flags by their
     # option strings, which an abbreviation would dodge
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0],
@@ -304,6 +325,29 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "wire: bf16 halves the bytes between stages and is "
                         "bit-exact for bf16 models (requires one); the "
                         "schedule's buffers stay fp32")
+    p.add_argument("--job", choices=("auto", "train", "evaluator",
+                                     "async-ps"),
+                   default="auto",
+                   help="role of this process: train, sidecar evaluator "
+                        "(polls --checkpoint-dir and evaluates new "
+                        "checkpoints), or async-ps (host-side stale-"
+                        "gradient parameter-server training, reference "
+                        "config #5). auto = evaluator iff TF_CONFIG "
+                        "task.type == 'evaluator'; a TF_CONFIG cluster "
+                        "WITH a 'ps' job routes ps/chief/worker tasks to "
+                        "the async-PS tier (legacy PS launcher semantics)")
+    p.add_argument("--num-ps", type=int, default=2,
+                   help="async-ps: number of parameter-server shards")
+    p.add_argument("--num-workers", type=int, default=2,
+                   help="async-ps: number of gradient-worker processes")
+    p.add_argument("--poll-interval", type=float, default=10.0,
+                   help="evaluator: seconds between checkpoint-dir polls")
+    p.add_argument("--max-evaluations", type=int, default=None,
+                   help="evaluator: stop after N evaluations")
+    p.add_argument("--idle-timeout", type=float, default=600.0,
+                   help="evaluator: stop after this long with no new "
+                        "checkpoint; ps-cluster ps task: exit after this "
+                        "long with no gradient push")
     p.add_argument("--sp-scheme", choices=("ring", "ulysses"),
                    default="ring",
                    help="sequence-parallel attention of the GPT LMs over a "
@@ -555,6 +599,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="per-rank input sharding policy for --data-dir")
     p.add_argument("--shuffle-buffer", type=int, default=4096,
                    help="record shuffle buffer for --data-dir (0 = off)")
+    return p
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    p = build_parser()
     argv = sys.argv[1:] if argv is None else list(argv)
     args = p.parse_args(argv)
     if args.config:
@@ -657,6 +706,30 @@ def bootstrap_mesh(args):
     return build_mesh(spec or MeshSpec(data=-1)), device
 
 
+def workload_of(args: argparse.Namespace):
+    """The preset the flags name, with its optimizer flags
+    (:func:`apply_optimizer_flags`) and ``--dtype``, not yet bound to a
+    mesh."""
+    try:
+        wl = get_workload(
+            args.workload, test_size=args.test_size,
+            global_batch_size=args.batch_size, sp_scheme=args.sp_scheme,
+            seq_len=args.seq_len, remat=_REMAT[args.remat],
+            attn_impl=args.attn_impl,
+            xent_impl=args.xent_impl, kv_heads=args.kv_heads,
+            attn_window=args.attn_window, quant=args.quant,
+            pp_virtual=args.pp_virtual,
+            pp_handoff=_PP_HANDOFF[args.pp_handoff_dtype],
+            pp_schedule=args.pipeline_schedule)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    wl = apply_optimizer_flags(wl, args)
+    if args.dtype:
+        wl = dataclasses.replace(wl, cfg=dataclasses.replace(
+            wl.cfg, dtype=getattr(torch, args.dtype)))
+    return wl
+
+
 def build(args: argparse.Namespace, checkpointer=None, feed=None):
     """``(workload, state, step_fn, batches)`` for ``args``: the model
     from seeded random weights on the device, the optimizer, the train
@@ -677,24 +750,7 @@ def build(args: argparse.Namespace, checkpointer=None, feed=None):
         # every rank of the mesh takes part in a save (a split model's
         # pieces are gathered) and in the preemption's agreement
         checkpointer.set_mesh(mesh.world)
-    try:
-        wl = get_workload(
-            args.workload, test_size=args.test_size,
-            global_batch_size=args.batch_size, sp_scheme=args.sp_scheme,
-            seq_len=args.seq_len, remat=_REMAT[args.remat],
-            attn_impl=args.attn_impl,
-            xent_impl=args.xent_impl, kv_heads=args.kv_heads,
-            attn_window=args.attn_window, quant=args.quant,
-            pp_virtual=args.pp_virtual,
-            pp_handoff=_PP_HANDOFF[args.pp_handoff_dtype],
-            pp_schedule=args.pipeline_schedule)
-    except ValueError as e:
-        raise SystemExit(str(e)) from None
-    wl = apply_optimizer_flags(wl, args)
-    if args.dtype:
-        wl = dataclasses.replace(wl, cfg=dataclasses.replace(
-            wl.cfg, dtype=getattr(torch, args.dtype)))
-    wl = wl.for_mesh(mesh)
+    wl = workload_of(args).for_mesh(mesh)
     accum = wl.accum_steps if args.accum_steps is None else args.accum_steps
     replicas = 1 if mesh is None else replica_count(mesh)
     if wl.global_batch_size % (replicas * accum):
@@ -1216,11 +1272,314 @@ class _Planes:
                 logger.exception("final metrics.prom export failed")
 
 
-def main(argv=None) -> list[dict]:
-    """Train; returns the log records (the chief prints them).  A process
-    group this call started is shut down at its end, and the goodput
-    ledger it installed uninstalled."""
+def resolve_job(args) -> tuple[str, tuple | None]:
+    """``(job, ps_cluster)``: ``--job``, or for ``auto`` the role TF_CONFIG
+    gives (``train.py:922-954``): an ``evaluator`` task is outside the
+    training cluster and runs the sidecar; a cluster WITH a ``ps`` job is
+    the legacy parameter-server launcher path (``ps-cluster``, with
+    ``(cluster, task type, task index)``): ps tasks serve shards, chief
+    and worker tasks run the async pull/push loop.  Clusters without
+    ``ps`` train synchronously.  A malformed TF_CONFIG trains (and never
+    routes into the PS tier on a half-parsed cluster)."""
+    if args.job != "auto":
+        return args.job, None
+    tf_config = os.environ.get("TF_CONFIG")
+    task_type, task_index, cluster = None, 0, {}
+    try:
+        if tf_config:
+            parsed = json.loads(tf_config)
+            cluster = parsed.get("cluster", {}) or {}
+            task = parsed.get("task", {}) or {}
+            task_type = task.get("type")
+            task_index = int(task.get("index", 0))
+    except (ValueError, AttributeError, TypeError):
+        task_type, task_index, cluster = None, 0, {}
+    if task_type == "evaluator":
+        return "evaluator", None
+    if cluster.get("ps"):
+        return "ps-cluster", (cluster, task_type, task_index)
+    return "train", None
+
+
+def run_evaluator(args) -> dict[int, dict]:
+    """The sidecar-evaluator role (``train.py:217-313``): poll
+    ``--checkpoint-dir`` and evaluate each new checkpoint on
+    ``--device``, standalone (it never joins the training cluster).  The
+    template is the trainer's preset with the same workload and optimizer
+    flags, in one process: unchunked, so a ``--zero`` trainer's
+    checkpoint is re-cut into it on restore (its decay mask is then the
+    plain bias-norm rule, as the trainer's without ZeRO).  Evaluates one
+    finite unshuffled pass over ``--eval-data-dir``/``--data-dir``, or
+    ``EVAL_STEPS`` synthetic batches of seed ``--seed + 999``; stops
+    after the checkpoint of ``--steps``, ``--max-evaluations`` or
+    ``--idle-timeout`` seconds without a new one.  Returns ``{step:
+    metrics}``; with ``--logdir`` the ``eval/<name>`` rows go to
+    ``metrics.jsonl``."""
+    from distributedtensorflow_tpu_torch.train import SidecarEvaluator
+
+    if not args.checkpoint_dir:
+        raise SystemExit("--job evaluator requires --checkpoint-dir")
+    if args.deterministic:
+        enable_determinism()
+    device = resolve_device(args.device)
+    wl = workload_of(args).for_mesh(None)
+    logger.info("evaluator: workload=%s device=%s watching %s", wl.name,
+                device, args.checkpoint_dir)
+    model = wl.model_cls(wl.cfg, device=device)
+    model.load_state_dict(
+        wl.init_params(wl.cfg, torch.Generator().manual_seed(args.seed)))
+    state = TrainState.create(model, wl.make_optimizer)
+    eval_step = make_eval_step(wl.eval_fn(model))
+    ctx = current_input_context(wl.global_batch_size)
+    if args.eval_data_dir or args.data_dir:
+        source, eval_steps = (lambda: record_eval_source(args, ctx)), 0
+    else:
+        source = lambda: wl.input_fn(ctx, args.seed + 999)  # noqa: E731
+        eval_steps = EVAL_STEPS  # synthetic iterators are endless
+    sidecar = SidecarEvaluator(
+        CheckpointManager(args.checkpoint_dir),
+        eval_step,
+        lambda: device_iter(args, source(), device),
+        state,
+        eval_steps=eval_steps,
+        poll_interval_s=args.poll_interval,
+        max_evaluations=args.max_evaluations,
+        stop_after_step=args.steps if args.steps > 0 else None,
+        idle_timeout_s=args.idle_timeout,
+        logdir=args.logdir,
+    )
+    history = sidecar.run()
+    logger.info("evaluator: done; evaluated %d checkpoints", len(history))
+    return history
+
+
+def _ps_partitioner():
+    """The PS placement of both async roles: variables over 64 KiB split
+    by rows (``train.py:345,471``)."""
+    from distributedtensorflow_tpu_torch.parallel.sharding import (
+        MinSizePartitioner,
+    )
+
+    return MinSizePartitioner(min_shard_bytes=64 << 10)
+
+
+def run_async_ps(args) -> list[dict]:
+    """The async parameter-server role (``train.py:316-417``, reference
+    config #5): this process hosts ``--num-ps`` PS shards as threads (on
+    the CPU) and spawns ``--num-workers`` gradient-worker processes that
+    compute on ``--device``, pushing without a barrier (stale
+    gradients).  Records (also ``--logdir``'s ``metrics.jsonl``): the
+    global version as it moves, then a final one with the first and last
+    mean losses, the staleness histogram of every push and the preset's
+    eval metrics on the final parameters; ``--target-metric`` gates on
+    them.  Returns the records; the servers and workers are stopped when
+    it returns or raises."""
+    import time as time_mod
+
+    from distributedtensorflow_tpu_torch.parallel.param_server import (
+        AsyncPSTrainer,
+    )
+    from distributedtensorflow_tpu_torch.utils.metrics import MetricWriter
+
+    if args.target_metric and args.target_value is None:
+        raise SystemExit("--target-metric requires --target-value")
+    batch = args.batch_size or 256
+    # the train and evaluator roles' optimizer flags and checks
+    base_wl = get_workload(args.workload, test_size=args.test_size,
+                           global_batch_size=batch * args.num_workers)
+    flagged = apply_optimizer_flags(base_wl, args)
+    kwargs = {}
+    if flagged is not base_wl:
+        kwargs["make_optimizer"] = flagged.make_optimizer
+    records: list[dict] = []
+    writer = MetricWriter(args.logdir, use_tensorboard=False)
+    try:
+        trainer = AsyncPSTrainer(
+            args.workload, num_ps=args.num_ps, num_workers=args.num_workers,
+            steps=args.steps, batch_size=batch, test_size=args.test_size,
+            partitioner=_ps_partitioner(), seed=args.seed,
+            device=args.device, dtype=args.dtype, **kwargs)
+    except BaseException:
+        writer.close()
+        raise
+    logger.info(
+        "async-ps: workload=%s ps=%d workers=%d steps=%d batch=%d/worker",
+        args.workload, args.num_ps, args.num_workers, args.steps, batch)
+
+    def record(rec):
+        records.append(rec)
+        writer.write_record(rec)
+
+    total = args.num_workers * args.num_ps * args.steps
+    with writer, trainer:
+        trainer.start()
+        last = -1
+        while True:
+            try:
+                trainer.join(timeout=2.0)
+                break
+            except TimeoutError:
+                pass
+            v = trainer.global_version()
+            if v != last:
+                record({"time": time_mod.time(), "global_version": v,
+                        "of": total})
+                logger.info("async-ps: %d/%d updates applied", v, total)
+            last = v
+        metrics = trainer.evaluate(batches=4)
+        hist: dict[str, int] = {}
+        for st in trainer.ps_stats():
+            for k, n in st["staleness_hist"].items():
+                hist[k] = hist.get(k, 0) + n
+        first, last_loss = trainer.first_last_mean_loss()
+        logger.info(
+            "async-ps: done — %d updates, loss %.4f -> %.4f, staleness %s, "
+            "eval %s", trainer.global_version(), first, last_loss,
+            dict(sorted(hist.items(), key=lambda kv: int(kv[0]))),
+            {k: round(v, 4) for k, v in metrics.items()})
+        record({"time": time_mod.time(), "final": True,
+                "loss_first": first, "loss_last": last_loss,
+                "staleness_hist": hist, **metrics})
+        if args.target_metric:
+            got = metrics.get(args.target_metric)
+            if got is None:
+                raise SystemExit(
+                    f"--target-metric {args.target_metric} not in {metrics}")
+            ok = (got >= args.target_value if args.target_mode == "max"
+                  else got <= args.target_value)
+            if not ok:
+                raise SystemExit(
+                    f"async-ps: target {args.target_metric}="
+                    f"{args.target_value} not reached (got {got:.4f})")
+            logger.info("async-ps: target %s=%s reached (%.4f)",
+                        args.target_metric, args.target_value, got)
+    return records
+
+
+def _ps_wait_s() -> float:
+    """A worker's wait for the PS tier to answer (seconds,
+    ``DTFT_PS_WAIT_S``, default 180).  ONE definition: the ps tier's
+    startup grace is derived from it, so the two clocks cannot drift
+    apart (``train.py:420-425``)."""
+    return float(os.environ.get("DTFT_PS_WAIT_S", "180"))
+
+
+def run_ps_cluster_task(args, cluster, task_type, task_index) -> list[dict]:
+    """One task of a TF_CONFIG parameter-server cluster
+    (``train.py:427-548``): a ``ps`` task serves its shard (on the CPU)
+    until the job's push budget is absorbed; ``chief`` and ``worker``
+    tasks run the async pull -> grad -> push loop on ``--device``, the
+    chief as worker 0 and the workers after the chiefs.  Every task
+    derives byte-identical shards and placement from the shared flags
+    (``build_cluster_pieces``), so the bootstrap moves no parameters.
+    Returns one record: the ps task's final version, or the worker's
+    losses and staleness histogram.  Starts no process group."""
+    from distributedtensorflow_tpu_torch.parallel.param_server import (
+        AsyncPSClient,
+        PSServer,
+        PSUnavailableError,
+        build_cluster_pieces,
+        worker_loop,
+    )
+
+    if task_type not in ("ps", "chief", "worker"):
+        raise SystemExit(
+            f"TF_CONFIG task.type {task_type!r} has no role in a ps "
+            "cluster (expected ps, chief, or worker)")
+    ps_addrs = list(cluster["ps"])
+    chiefs = list(cluster.get("chief", []))
+    workers = chiefs + list(cluster.get("worker", []))
+    num_ps, num_workers = len(ps_addrs), len(workers)
+    if num_workers == 0:
+        raise SystemExit("TF_CONFIG ps cluster has no chief/worker tasks")
+    batch = args.batch_size or 256
+    spec = {"workload": args.workload, "steps": args.steps,
+            "batch_size": batch, "test_size": args.test_size,
+            "seed": args.seed, "sleep_s": 0.0, "device": args.device,
+            "dtype": args.dtype}
+    base_wl = get_workload(args.workload, test_size=args.test_size,
+                           global_batch_size=batch * num_workers)
+    flagged = apply_optimizer_flags(base_wl, args)
+    make_opt = flagged.make_optimizer if flagged is not base_wl else None
+    _wl, shards, plan, make_opt = build_cluster_pieces(
+        spec, num_ps, num_workers, _ps_partitioner(), make_opt,
+        workload_obj=base_wl)
+
+    if task_type == "ps":
+        host, port = ps_addrs[task_index].rsplit(":", 1)
+        bind = host if host in ("127.0.0.1", "localhost") else "0.0.0.0"
+        server = PSServer(shards[task_index], make_opt, port=int(port),
+                          bind=bind)
+        try:
+            total = num_workers * args.steps  # one push per worker-step
+            logger.info(
+                "ps task %d/%d serving %d vars on %s (budget %d pushes)",
+                task_index, num_ps, len(shards[task_index]),
+                ps_addrs[task_index], total)
+            # the startup grace covers the workers' own bounded wait for
+            # the tier (DTFT_PS_WAIT_S) plus build slack, so the ps tier
+            # never idles out while a slow worker is still starting
+            grace = max(float(args.idle_timeout or 0), _ps_wait_s() + 120)
+            version = server.serve_until(
+                total, idle_timeout_s=args.idle_timeout,
+                startup_grace_s=grace)
+            logger.info("ps task %d done at version %d", task_index,
+                        version)
+        finally:
+            server.stop()
+        return [{"ps_task": task_index, "version": version,
+                 "budget": total}]
+
+    # chief/worker: the chief is worker 0 (it trains too, the common TF
+    # arrangement); "worker" indices shift past the chiefs
+    worker_id = task_index if task_type == "chief" \
+        else task_index + len(chiefs)
+    # a bounded wait for the PS tier to come up (tasks start unordered)
+    client = AsyncPSClient(ps_addrs, plan, worker_id=worker_id)
+    wait_s = _ps_wait_s()
+    deadline = time.time() + wait_s
+    while True:
+        try:
+            client.stats()
+            break
+        except PSUnavailableError:
+            if time.time() > deadline:
+                raise SystemExit(f"PS tasks unreachable after {wait_s:.0f}s")
+            time.sleep(0.5)
+    logger.info("%s task %d = async worker %d/%d against ps=%s", task_type,
+                task_index, worker_id, num_workers, ps_addrs)
+    losses, staleness = worker_loop(worker_id, num_workers, ps_addrs, plan,
+                                    spec)
+    hist: dict[int, int] = {}
+    for st in staleness:
+        hist[st] = hist.get(st, 0) + 1
+    logger.info(
+        "worker %d done: loss %.4f -> %.4f over %d steps, staleness %s",
+        worker_id, losses[0] if losses else float("nan"),
+        losses[-1] if losses else float("nan"), len(losses),
+        dict(sorted(hist.items())))
+    return [{"worker": worker_id, "losses": losses,
+             "staleness_hist": hist}]
+
+
+def main(argv=None):
+    """Run the role of ``--job`` (:func:`resolve_job`): train, and return
+    the log records (the chief prints them); or the sidecar evaluator
+    (:func:`run_evaluator`, its ``{step: metrics}``), the async parameter
+    server (:func:`run_async_ps`, its records) or a task of a TF_CONFIG
+    ps cluster (:func:`run_ps_cluster_task`), each chosen before any
+    process group starts (``bootstrap`` would count the ps tasks into its
+    world and wait for them).  A process group this call started is
+    shut down at its end, and the goodput ledger it installed
+    uninstalled."""
     args = parse_args(argv)
+    job, ps_cluster = resolve_job(args)
+    if job == "evaluator":
+        return run_evaluator(args)
+    if job == "async-ps":
+        return run_async_ps(args)
+    if job == "ps-cluster":
+        return run_ps_cluster_task(args, *ps_cluster)
     check_flags(args)
     # the goodput ledger FIRST, so that setup books as `init`; it reloads
     # a prior <logdir>/goodput.json, so a restarted run keeps one ledger
