@@ -392,6 +392,38 @@ Phases, each fatal on failure:
     up by one), then 4 more run on the respawned pool.  (b)-(d) start
     first, side by side, and (a) runs on the card meanwhile.
 
+32. hostdist (run after phase 31): host-side distribution.  (a) the MPMD
+    stage-per-process pipeline (``parallel.pipeline_mpmd``) at
+    GPT-2-small's widths (vocab 50257, hidden 768, 12 heads, seq 1024)
+    cut to 4 layers over 2 stages, microbatch 4, 4 microbatches, window
+    2, fp32, 4 steps, each stage a ``spawn`` process worker of the
+    ``Coordinator`` through ``run_mpmd_pipeline``: the losses fall and
+    equal, bit for bit, ``reference_run``'s (the same stage modules from
+    the same seeds over the same microbatches in the same order, in this
+    process), whose trained stages give the first step's batch a lower
+    loss than the run's first; each stage's K1f, K1b, K2 and K3f
+    launches equal the derived counts (stage 0: K1f 32, K2 16, K1b 16, K3f 8 a step; the
+    last: K1f 20, K2 8, K1b 20, K3f 8); each stage's step ms.  (b) the
+    JAX test's kill run (hidden 64, 2 stages, 30 steps) on the card:
+    worker 1's process killed after stage 0's second trace row, every
+    stage closure re-queued, one respawn, the run completing with stage
+    1's ``metrics.jsonl`` at steps 0..29 once each.  (c) beside (b):
+    ``tools/timeline.py --fleet`` stitches (a)'s ``mpmd.step`` and
+    ``pipeline.handoff`` spans into one trace, ``check_metrics_schema.py``
+    passes each stage's ``metrics.jsonl`` and ``metrics.prom``,
+    ``run_report.py --json`` gives schedule "mpmd", 16 handoffs (p50 and
+    p99 printed) and stage 0's ``link_stalls``.  (d) started with (b):
+    two children of the port's ``testing.run(..., backend="gloo")`` hold
+    their rows of one array on the card: ``MultiWorkerMirroredStrategy``'s
+    ``reduce`` (sum, mean, max, min over axis None, 0, 1) and ``gather``
+    equal numpy's of the whole; a two-rank ``HostCollectives`` ring
+    all-reduces, all-gathers, broadcasts and meets at a barrier, and
+    times a 64 MiB fp32 all-reduce (the host's loopback); beside them a
+    child killed by ``terminate`` is an expected exit and one asleep past
+    a 5 s join raises ``SubprocessTimeoutError``.  (a) and (b) run on one
+    pool of two process workers that the script starts before phase 31,
+    so their imports and CUDA starts run beside it.
+
 Kernel launch counts are set to 0 just before phases 5, 6 (each generate
 run), 9-11, 13, 14 (each path; in each rank's process), 15's resumed
 steps, 16's run through ``train_torch.main``, 17's runs, 18's training
@@ -400,7 +432,8 @@ optimizer runs, each of 23's ``train_torch.main`` runs, 24's two
 ``train_torch.main`` runs and its serving runs, 25's, 26's and 27's
 steps, 28's resumed steps and 29's and 30's
 steps (in each rank's process), 31's trainer and evaluator together,
-and read just after (a
+and 32's MPMD stages (in each stage's process, over its run), and read
+just after (a
 replayed graph counts what its capture counted); a kernel of the path
 that did not launch, or a gpt_lm, gpt_moe or BERT training step that
 launched a kernel another number of times than its forward,
@@ -3154,7 +3187,9 @@ def ckpt_worker(argv_json) -> int:
     log lines on stderr as ``train_torch.py`` prints them.  With
     ``CKPT_WORKER_GO`` in the environment the child starts Python, torch
     and its CUDA context, then waits for that file before the run (a
-    relaunch started early: its run begins when the file appears)."""
+    relaunch started early: its run begins when the file appears; it
+    also imports what its first optimizer would, which would otherwise
+    lie on the critical path)."""
     import logging
 
     import torch
@@ -3165,6 +3200,9 @@ def ckpt_worker(argv_json) -> int:
     if go:
         if torch.cuda.is_available():
             torch.zeros(1, device="cuda")
+        # torch.optim imports torch._dynamo at a process's first optimizer
+        # (9.4 s on the H100's host): the relaunch takes it while it waits
+        import torch._dynamo  # noqa: F401
         deadline = time.time() + 600
         while not os.path.exists(go):
             if time.time() > deadline:
@@ -4205,11 +4243,14 @@ def _ms_pair(torch, train_torch, name, batch, k, layers, calls, device,
     return out
 
 
-def _ms_restore_in_place(torch, train_torch, argv, ckdir, device):
+def _ms_restore_in_place(torch, train_torch, argv, ckdir, saved):
     """A k-step function that restores a checkpoint into its own state
     after its graph was captured (the optimizer's moments are new
-    tensors): 16 steps, a restore of step 8, the last 8 steps again, the
-    same fingerprint both times."""
+    tensors): 16 steps, a restore of step ``saved`` from ``ckdir`` (the
+    resume run's checkpoint of those steps, the same bits as this run's
+    at that step), the last 8 steps again, the same fingerprint both
+    times (until the whole script neared its 1200 s limit, this run wrote
+    and waited for a checkpoint of its own)."""
     from distributedtensorflow_tpu_torch.checkpoint import CheckpointManager
     from distributedtensorflow_tpu_torch.data import (
         current_input_context,
@@ -4219,12 +4260,7 @@ def _ms_restore_in_place(torch, train_torch, argv, ckdir, device):
     args = train_torch.parse_args(argv + ["--steps-per-call", str(MS_K)])
     wl, state, step, batches = train_torch.build(args)
     mgr = CheckpointManager(ckdir)
-    for _ in range(2):
-        state, _ = step(state, next(batches))
-    mgr.save(state.step, state, force=True)
-    mgr.wait()
-    saved = state.step
-    for _ in range(2):
+    for _ in range(4):
         state, m = step(state, next(batches))
     first = (_fingerprint(state), [float(v) for v in m["loss"]])
     mgr.restore(saved, state)
@@ -4406,7 +4442,7 @@ def run_multistep(torch, cuda, train_torch, device="cuda"):
         resume_ok = (both == [r["loss"] for r in four["records"]]
                      and resumed["fingerprint"] == four["fingerprint"])
         first, second, graphs = _ms_restore_in_place(
-            torch, train_torch, argv, os.path.join(tmp, "ck2"), device)
+            torch, train_torch, argv, ck, 8)
         in_place_ok = first == second and first[0] == four["fingerprint"]
         if not resume_ok or not in_place_ok:
             failures.append(f"(f) resume {both} / fingerprint equal "
@@ -4877,9 +4913,10 @@ OPTIM_RUNS = (
     ("lion", "gpt_lm", 8, ("--lr", "3e-5", "--weight-decay", "0.1")),
 )
 #: Layers of each OPTIM_RUNS preset (None: its own): BERT-base's pair at
-#: 4 of its 12 (the whole 12 until the jobs phase needed the seconds; the
-#: update's checks are per parameter, as many kinds at 4 layers)
-OPTIM_LAYERS = {"bert_mlm": 4}
+#: 2 of its 12 (the whole 12 until the jobs phase needed the seconds, 4
+#: until the hostdist phase did; the update's checks are per parameter,
+#: as many kinds at 2 layers)
+OPTIM_LAYERS = {"bert_mlm": 2}
 OPTIM_STEPS = 3
 #: The card's first update against the CPU's from the same parameters and
 #: gradients: max |difference| over max |update|.
@@ -8772,11 +8809,417 @@ def run_jobs(torch, cuda, train_torch, device="cuda"):
     return collections.Counter(row_a["launches"])
 
 
+HOSTDIST_STEPS = 4        # (a): optimizer steps of the full-width MPMD run
+HOSTDIST_LR = 1e-3        # (a): each stage's Adam
+HOSTDIST_KILL_STEPS = 30  # (b): steps of the kill run at the JAX test's size
+HOSTDIST_RING_MIB = 64    # (d): the timed fp32 all-reduce of the ring
+HOSTDIST_RING_REPS = 3
+HOSTDIST_TIMEOUT_S = 5    # (d): the runner's join timeout a sleeper outlives
+HOSTDIST_RTOL = 1e-6      # (d): sums and means, of the terms' own reduction
+
+
+def _mpmd_config(pm, device, **kw):
+    """(a)'s MPMD run: GPT-2-small's widths (vocab 50257, hidden 768, 12
+    heads, seq 1024) cut to 4 layers over 2 stages, microbatch 4, 4
+    microbatches, window 2, fp32; on the CPU (a rehearsal) the JAX test's
+    size."""
+    full = dict(vocab_size=50257, hidden_size=768, num_heads=12,
+                seq_len=1024, microbatch_size=4) if device == "cuda" else {}
+    return pm.MPMDConfig(**{
+        "n_stages": 2, "n_steps": HOSTDIST_STEPS, "n_microbatches": 4,
+        "num_layers": 4, "window": 2, "lr": HOSTDIST_LR, "seed": SEED,
+        "device": device, **full, **kw})
+
+
+def _mpmd_launches(cfg, stage):
+    """A stage's launches over the run: each block's two LayerNorms and
+    its attention, once in the forward a microbatch sends (not on the
+    last stage, whose forward runs under autograd) and once more in the
+    recomputation its backward takes, then once backward (K1b, K3f); the
+    last stage's ln_f once each way."""
+    lps = cfg.num_layers // cfg.n_stages
+    last = stage == cfg.n_stages - 1
+    passes = 1 if last else 2
+    per = {"layernorm_fwd": passes * 2 * lps + last, "flash_fwd": passes * lps,
+           "layernorm_bwd": 2 * lps + last, "flash_bwd_fused": lps}
+    n = cfg.n_steps * cfg.n_microbatches
+    return {**NO_LAUNCHES, **{k: n * v for k, v in per.items()}}
+
+
+def hostdist_child(task_id, peers, whole, device):
+    """(d) in a child of the port's ``testing.run``: the process group is
+    up (gloo); ``MultiWorkerMirroredStrategy``'s ``reduce`` and ``gather``
+    of this rank's rows of ``whole`` (on ``device``) against numpy's of
+    the whole, then a two-rank ``HostCollectives`` ring at ``peers``:
+    all-reduce, all-gather, broadcast, barrier and a timed
+    HOSTDIST_RING_MIB MiB fp32 all-reduce (the host's loopback)."""
+    import numpy as np
+    import torch
+
+    from distributedtensorflow_tpu_torch.native import HostCollectives
+    from distributedtensorflow_tpu_torch.parallel.mesh import replica_index
+    from distributedtensorflow_tpu_torch.strategies import (
+        MultiWorkerMirroredStrategy,
+    )
+
+    strat = MultiWorkerMirroredStrategy(backend="gloo", device=device)
+    n, i = strat.num_replicas_in_sync, replica_index(strat.mesh)
+    rows = whole.shape[0] // n
+    shard = torch.from_numpy(whole[i * rows:(i + 1) * rows].copy()).to(
+        strat.device)
+    bad = []
+    for op in ("sum", "mean", "max", "min"):
+        for axis in (None, 0, 1):
+            got = strat.reduce(op, shard, axis=axis)
+            want = getattr(np, op)(whole, axis=axis)
+            if op in ("sum", "mean"):
+                scale = getattr(np, op)(np.abs(whole), axis=axis)
+                ok = bool(np.all(np.abs(got - want)
+                                 <= HOSTDIST_RTOL * scale))
+            else:
+                ok = bool(np.array_equal(got, want))
+            if not ok or got.shape != np.shape(want):
+                bad.append((op, axis))
+    gathered = bool(np.array_equal(strat.gather(shard), whole))
+    big = np.full(HOSTDIST_RING_MIB << 18, task_id + 1.0, np.float32)
+    with HostCollectives(task_id, peers, timeout_ms=120_000) as ring:
+        x = np.arange(5, dtype=np.int64) + 10 * task_id
+        ring_ok = (np.array_equal(ring.all_reduce(x), 2 * np.arange(5) + 10)
+                   and np.array_equal(ring.all_gather(x),
+                                      np.stack([x - 10 * task_id,
+                                                x - 10 * task_id + 10]))
+                   and np.array_equal(ring.broadcast(x, root=1),
+                                      np.arange(5) + 10))
+        ring.barrier()
+        ms = []
+        for _ in range(HOSTDIST_RING_REPS):
+            ring.barrier()
+            t0 = time.perf_counter()
+            out = ring.all_reduce(big)
+            ms.append(1e3 * (time.perf_counter() - t0))
+        ring_ok = ring_ok and bool(np.all(out == 3.0))
+    return {"world": strat.mesh.size, "device": str(shard.device),
+            "reduce_bad": bad, "gather_equal": gathered, "ring_ok": ring_ok,
+            "allreduce_ms": ms, "pid": os.getpid()}
+
+
+def _hostdist_sleep(task_id, seconds):
+    """(d)'s sleeper: task 0 returns at once, the others sleep."""
+    if task_id:
+        time.sleep(seconds)
+    return task_id
+
+
+def _hostdist_terminate():
+    """(d): a child killed by ``terminate`` is an expected exit."""
+    from distributedtensorflow_tpu_torch import testing
+
+    runner = testing.MultiProcessRunner(_hostdist_sleep, 2, args=(120,),
+                                        init_distributed=False).start()
+    runner.terminate(1)
+    killed = runner.join(timeout=120)
+    return {"values": killed.return_values, "exit_codes": killed.exit_codes}
+
+
+def _hostdist_timeout():
+    """(d): a child asleep past a HOSTDIST_TIMEOUT_S join raises
+    ``SubprocessTimeoutError``."""
+    from distributedtensorflow_tpu_torch import testing
+
+    t0 = time.time()
+    try:
+        testing.MultiProcessRunner(
+            _hostdist_sleep, 2, args=(60,), init_distributed=False,
+            timeout=HOSTDIST_TIMEOUT_S).start().join()
+    except testing.SubprocessTimeoutError as e:
+        return {"raised_after_s": time.time() - t0,
+                "values": e.result.return_values,
+                "exit_codes": e.result.exit_codes}
+    return None
+
+
+def _hostdist_children(device):
+    """(d): two children of ``testing.run(..., backend="gloo")`` run
+    :func:`hostdist_child` on one array and a ring at fresh ports."""
+    from distributedtensorflow_tpu_torch import testing
+
+    t0 = time.time()
+    whole = np.random.default_rng(SEED).standard_normal((16, 3)).astype(
+        np.float32)
+    peers = [f"127.0.0.1:{testing.pick_unused_port()}" for _ in range(2)]
+    res = testing.run(hostdist_child, 2, args=(peers, whole, device),
+                      backend="gloo", timeout=300)
+    return {"children": res.return_values, "exit_codes": res.exit_codes,
+            "seconds": time.time() - t0}
+
+
+def _hostdist_kill(pm, device, tmp, coord):
+    """(b): the JAX test's kill run (2 stages, 4 microbatches of 4, the
+    JAX defaults' widths) on ``device``, HOSTDIST_KILL_STEPS steps, on
+    (a)'s warm pool ``coord``: worker 1's process is killed once stage 0
+    shows progress (two rows in its trace); every stage closure
+    re-queues, the process respawns, the run completes."""
+    import threading
+
+    from distributedtensorflow_tpu_torch.parallel import coordinator as pc
+
+    logdir = os.path.join(tmp, "mpmd_kill")
+    cfg = pm.MPMDConfig(n_stages=2, n_steps=HOSTDIST_KILL_STEPS,
+                        n_microbatches=4, microbatch_size=4,
+                        recv_timeout_s=60, connect_timeout_s=45,
+                        seed=SEED, device=device)
+    respawns = lambda: sum(pc._M_RESPAWNS.value(worker=str(i))  # noqa: E731
+                           for i in range(2))
+    r0, q0 = respawns(), pc._M_RETRIED.value()
+    killed = {}
+
+    def killer():
+        path = os.path.join(logdir, "stage0", "trace.jsonl")
+        deadline = time.time() + 120
+        while time.time() < deadline:
+            try:
+                with open(path) as f:
+                    if sum(1 for _ in f) >= 2:
+                        break
+            except OSError:
+                pass
+            time.sleep(0.02)
+        coord.kill_worker_process(1)
+        killed["t"] = time.time()
+
+    t0 = time.time()
+    thread = threading.Thread(target=killer)
+    thread.start()
+    try:
+        res = pm.run_mpmd_pipeline(cfg, logdir, coordinator=coord,
+                                   join_timeout_s=400)
+    finally:
+        thread.join()
+    with open(os.path.join(logdir, "stage1", "metrics.jsonl")) as f:
+        steps = [json.loads(line)["step"] for line in f]
+    return {"losses": res["losses"], "stage1_steps": steps,
+            "killed": bool(killed), "requeued": pc._M_RETRIED.value() - q0,
+            "respawns": respawns() - r0,
+            "kill_after_s": killed.get("t", t0) - t0,
+            "seconds": time.time() - t0}
+
+
+def _hostdist_tools(logdir, n_steps, m):
+    """(c): ``tools/timeline.py --fleet``, ``check_metrics_schema.py`` and
+    ``run_report.py --json`` over (a)'s stage directories, unchanged."""
+    stages = [os.path.join(logdir, f"stage{i}") for i in range(2)]
+    tl = os.path.join(logdir, "timeline_fleet.json")
+    r = subprocess.run([sys.executable, "tools/timeline.py", "--fleet",
+                        *stages, "-o", tl], capture_output=True, text=True,
+                       timeout=120)
+    names = set()
+    if r.returncode == 0:
+        with open(tl) as f:
+            doc = json.load(f)
+        events = doc["traceEvents"] if isinstance(doc, dict) else doc
+        names = {e.get("name") for e in events if e.get("ph") == "X"}
+    schema_rc, schema_out = _schema([os.path.join(s, name) for s in stages
+                                     for name in ("metrics.jsonl",
+                                                  "metrics.prom")])
+    reports = []
+    for s in stages:
+        rep = subprocess.run([sys.executable, "tools/run_report.py", s,
+                              "--json"], capture_output=True, text=True,
+                             timeout=120)
+        reports.append(json.loads(rep.stdout)["pipeline"]
+                       if rep.returncode == 0 else None)
+    hand = (reports[1] or {}).get("handoff", {})
+    ok = (r.returncode == 0 and {"mpmd.step", "pipeline.handoff"} <= names
+          and schema_rc == 0 and reports[1] is not None
+          and reports[1].get("schedule") == "mpmd"
+          and reports[1].get("stages") == 2
+          and hand.get("count") == n_steps * m
+          and reports[0] is not None and "link_stalls" in reports[0])
+    return {"phase": "hostdist", "part": "tools",
+            "timeline_rc": r.returncode, "span_names": sorted(
+                n for n in names if n), "schema_rc": schema_rc,
+            "schema": schema_out[-400:], "pipeline_stage0": reports[0],
+            "pipeline_stage1": reports[1],
+            "handoff_p50_ms": 1e3 * hand["p50_s"] if "p50_s" in hand
+            else None,
+            "handoff_p99_ms": 1e3 * hand["p99_s"] if "p99_s" in hand
+            else None, "ok": bool(ok)}
+
+
+def _hostdist_warm():
+    """A pool worker's first closure: its CUDA context, cuBLAS handle and
+    a first optimizer (``torch.optim`` imports ``torch._dynamo`` at the
+    first one: 9.4 s in a fresh process on the H100's host), so that a
+    stage's first steps cost no start."""
+    import torch
+
+    from distributedtensorflow_tpu_torch.train.optimizers import adamw
+
+    x = torch.nn.Parameter(torch.ones(64, 64, device="cuda"))
+    adamw([x], 1e-3, weight_decay=0.0)
+    return float((x @ x).sum())
+
+
+def hostdist_pool(warm=False):
+    """The phase's two ``spawn`` process workers (started before the jobs
+    phase, so that their Python, torch and, with ``warm``, CUDA starts run
+    beside it; jobs waits on process starts of its own)."""
+    from distributedtensorflow_tpu_torch.parallel.coordinator import (
+        Coordinator,
+    )
+
+    pool = Coordinator(num_workers=2, use_processes=True, max_retries=8)
+    if warm:
+        for _ in range(2):
+            pool.schedule(_hostdist_warm)
+    return pool
+
+
+def run_hostdist(torch, cuda, device="cuda", pool=None):
+    """Host-side distribution (see the module's docstring): (a) the
+    full-width MPMD run through ``run_mpmd_pipeline`` on ``pool``
+    (default: one started here), alone; then (b)'s kill run on the same
+    pool, (d)'s three runners, this process's ``reference_run`` and (c)'s
+    tools side by side.  On the CPU (a rehearsal) the JAX
+    test's size runs and the launch checks are left out."""
+    import tempfile
+    import threading
+
+    from distributedtensorflow_tpu_torch.parallel import pipeline_mpmd as pm
+
+    cuda_dev = device == "cuda"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_hostdist_")
+    t0 = time.time()
+    failures, out, errors, threads = [], {}, {}, []
+    launches = collections.Counter()
+
+    def guarded(name, fn, *a):
+        def body():
+            try:
+                out[name] = fn(*a)
+            except BaseException as e:  # noqa: BLE001 — reported below
+                errors[name] = repr(e)
+        t = threading.Thread(target=body, name=f"hostdist-{name}")
+        t.start()
+        threads.append(t)
+
+    pool = pool or hostdist_pool()
+    try:
+        # (a): the full-width MPMD run, the stages process workers, alone
+        cfg = _mpmd_config(pm, device)
+        logdir = os.path.join(tmp, "mpmd")
+        ta = time.time()
+        res = pm.run_mpmd_pipeline(cfg, logdir, coordinator=pool,
+                                   join_timeout_s=600)
+        seconds_a = time.time() - ta
+        # (b) on the warm pool (its respawn a process start) beside (d)'s
+        # three runners (six process starts), the reference and (c)
+        guarded("b", _hostdist_kill, pm, device, tmp, pool)
+        guarded("d", _hostdist_children, device)
+        guarded("d_terminate", _hostdist_terminate)
+        guarded("d_timeout", _hostdist_timeout)
+        tr = time.time()
+        states = [pm.init_stage_state(cfg, i) for i in range(cfg.n_stages)]
+        init_s = time.time() - tr
+        ref, trained = pm.reference_run(cfg, states)
+        ref_s = time.time() - tr - init_s
+        # the first step's batch, before (the run's first loss) and after
+        # the run's updates (a loss over freshly drawn batches moves
+        # less in 4 steps than from one batch to the next)
+        first_after = pm.batch_loss(cfg, trained, 0)
+        del trained
+        empty_cache(torch, torch.device(device))
+        got = res["losses"]
+        stages = res["stage_results"]
+        want = [_mpmd_launches(cfg, s) for s in range(cfg.n_stages)]
+        stage_l = [{k: r["launches"].get(k, 0) for k in want[0]}
+                   for r in stages]
+        for r in stages:
+            launches.update(r["launches"])
+        params = [sum(math.prod(s) for s in pm.stage_shapes(
+            cfg, i).values()) for i in range(cfg.n_stages)]
+        diff = max(abs(a - b) for a, b in zip(got, ref))
+        ok_a = (len(got) == cfg.n_steps and got == ref
+                and all(math.isfinite(v) for v in got)
+                and first_after < got[0]
+                and (not cuda_dev or stage_l == want))
+        emit({"phase": "hostdist", "part": "mpmd",
+              "config": dataclasses.asdict(cfg), "losses": got,
+              "losses_in_process": ref, "bit_equal": got == ref,
+              "max_abs_diff": diff, "first_batch_loss": [got[0],
+                                                         first_after],
+              "launches": stage_l, "expected_launches": want,
+              "step_ms": [[1e3 * s for s in r["step_seconds"]]
+                          for r in stages],
+              "median_step_ms_after_first": [
+                  1e3 * statistics.median(r["step_seconds"][1:])
+                  for r in stages],
+              "stage_started_after_s": [r["started_at"] - ta
+                                        for r in stages],
+              "stage_setup_s": [r["setup_seconds"] for r in stages],
+              "stage_params": params, "logits_gb_a_microbatch":
+              cfg.microbatch_size * cfg.seq_len * cfg.vocab_size * 4 / 1e9,
+              "seconds": seconds_a, "in_process_init_seconds": init_s,
+              "in_process_seconds": ref_s, "ok": bool(ok_a)})
+        if not ok_a:
+            failures.append(f"(a) mpmd: losses {got} against {ref}, the "
+                            f"first batch {got[0]} -> {first_after}, "
+                            f"launches {stage_l} against {want}")
+        row_c = _hostdist_tools(logdir, cfg.n_steps, cfg.n_microbatches)
+        emit(row_c)
+        if not row_c["ok"]:
+            failures.append(f"(c) tools: {row_c}")
+        for t in threads:
+            t.join(timeout=600)
+        failures += [f"({k}) raised {v}" for k, v in errors.items()]
+        if "b" in out:
+            b = out["b"]
+            ok_b = (b["killed"] and len(b["losses"]) == HOSTDIST_KILL_STEPS
+                    and b["losses"][-1] < b["losses"][0]
+                    and b["stage1_steps"] == list(range(HOSTDIST_KILL_STEPS))
+                    and b["requeued"] >= 2 and b["respawns"] == 1)
+            emit({"phase": "hostdist", "part": "kill", **b, "ok": ok_b})
+            if not ok_b:
+                failures.append(f"(b) kill: {b}")
+        if {"d", "d_terminate", "d_timeout"} <= set(out):
+            d = out["d"]
+            kids = d["children"]
+            term, late = out["d_terminate"], out["d_timeout"]
+            ms = [m for c in kids.values() for m in c["allreduce_ms"]]
+            ok_d = (sorted(kids) == [0, 1]
+                    and all(c["world"] == 2 and not c["reduce_bad"]
+                            and c["gather_equal"] and c["ring_ok"]
+                            and c["device"].startswith(device)
+                            for c in kids.values())
+                    and term["values"] == {0: 0}
+                    and term["exit_codes"] == {0: 0, 1: -9}
+                    and late is not None and late["exit_codes"][1] == -9)
+            emit({"phase": "hostdist", "part": "runner", **d,
+                  "terminate": term, "timeout": late,
+                  "ring_mib": HOSTDIST_RING_MIB,
+                  "ring_allreduce_ms_median": statistics.median(ms),
+                  "ring_algbw_gb_s": HOSTDIST_RING_MIB * 2**20 / 1e9
+                  / (statistics.median(ms) / 1e3),
+                  "ring_note": "the host's loopback TCP on the machine with "
+                               "the card, two processes", "ok": ok_d})
+            if not ok_d:
+                failures.append(f"(d) runner: {d}, {term}, {late}")
+    finally:
+        for t in threads:
+            t.join(timeout=60)
+        pool.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "hostdist_seconds", "seconds": time.time() - t0})
+    if failures:
+        raise AssertionError(f"hostdist: {failures}")
+    return launches
+
+
 PHASES = ("layernorm", "kernels", "xent", "serving", "serve_cli", "train",
           "baseline", "dp", "ckpt", "trainer", "multistep", "presets2",
-          "bert_moe", "optim", "records", "dataservice", "jobs", "planes",
-          "scaleout", "seqexpert", "pipeline", "splitckpt", "splitzero",
-          "quad")
+          "bert_moe", "optim", "records", "dataservice", "jobs", "hostdist",
+          "planes", "scaleout", "seqexpert", "pipeline", "splitckpt",
+          "splitzero", "quad")
 
 
 def main(argv=None) -> int:
@@ -8970,9 +9413,15 @@ def main(argv=None) -> int:
     if "dataservice" in phases:
         launches.update(run_dataservice(torch, _cuda, train_torch))
     done("dataservice")
+    # the hostdist phase's process workers import torch and start their
+    # CUDA contexts beside the jobs phase, which waits on process starts
+    pool = hostdist_pool(warm=True) if "hostdist" in phases else None
     if "jobs" in phases:
         launches.update(run_jobs(torch, _cuda, train_torch))
     done("jobs")
+    if "hostdist" in phases:
+        launches.update(run_hostdist(torch, _cuda, pool=pool))
+    done("hostdist")
     if "planes" in phases:
         import serve_torch
 

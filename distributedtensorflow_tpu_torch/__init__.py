@@ -17,7 +17,14 @@ Ported so far:
 - checkpoint and resume (``checkpoint``);
 - ``train.py``'s fit loop, ``train.Trainer``, and the telemetry it
   carries (``obs``: registry, spans, anomaly detector, flight recorder,
-  goodput, memory, MFU, reactive profiling, status server).
+  goodput, memory, MFU, reactive profiling, status server);
+- host-side distribution: the closure dispatcher, the sidecar
+  evaluator and the async parameter server (``parallel.coordinator``,
+  ``train.sidecar``, ``parallel.param_server``), the host ring
+  collectives (``native.HostCollectives``), the multi-process runner
+  (``testing.multi_process_runner``), the strategy classes
+  (``strategies``) and the MPMD stage-per-process pipeline
+  (``parallel.pipeline_mpmd``).
 
 The hand-written Hopper kernels live in ``csrc/``: the LayerNorm forward
 and backward (``ops.layernorm``), single-token decode attention
@@ -27,3 +34,5 @@ caller passes ``device="cpu"`` (:func:`device.resolve_device`).
 """
 
 __version__ = "0.2.0"
+
+from . import strategies  # noqa: F401,E402  (the reference's strategy zoo)

@@ -34,9 +34,12 @@ from .input_pipeline import (  # noqa: F401
     device_put_batch,
     device_put_bundle,
     input_record_fields,
+    make_input_fn_dataset,
     pack_sequences,
     replica_is_split,
     replica_leader,
+    shard_dataset,
     skip_batches,
     synthetic_classification,
+    tfdata_iterator,
 )

@@ -3,7 +3,12 @@
 Twin of ``distributedtensorflow_tpu/data/input_pipeline.py``:
 ``InputContext`` (``:54-69``), the per-host split that the synthetic
 sources read, and :func:`current_input_context` (``:72``), which fills it
-from the rank; :func:`device_put_batch` (``:87``), which puts a host batch
+from the rank's mesh (the ambient one of a ``Strategy.scope()`` when no
+mesh is passed); :func:`shard_dataset`, :func:`tfdata_iterator` and
+:func:`make_input_fn_dataset` (``:80``, ``:346``, ``:352``), which take
+any dataset with ``.shard(n, i)`` and ``.as_numpy_iterator()`` (a
+``tf.data.Dataset`` among them; the port does not import TensorFlow);
+:func:`device_put_batch` (``:87``), which puts a host batch
 on the device; ``synthetic_classification`` (``:321-342``) and
 ``pack_sequences`` (``:361-425``), copies with the same seeds and the same
 numpy draws, so both packages see identical batches;
@@ -26,14 +31,14 @@ import queue
 import threading
 import time
 import weakref
-from typing import Iterable, Iterator, Sequence
+from typing import Any, Callable, Iterable, Iterator, Sequence
 
 import numpy as np
 import torch
 
 from .. import obs
 from ..parallel import collectives
-from ..parallel.mesh import replica_count, replica_index
+from ..parallel.mesh import current_mesh, replica_count, replica_index
 from .adaptive import (  # noqa: F401  (input_record_fields re-exported)
     AdaptiveDepthController,
     input_record_fields,
@@ -61,12 +66,36 @@ class InputContext:
 
 def current_input_context(global_batch_size: int,
                           mesh=None) -> InputContext:
-    """One input pipeline per replica of ``mesh`` (none: one in all),
-    this rank's the ``input_pipeline_id``-th."""
+    """One input pipeline per replica of ``mesh`` (default: the ambient
+    mesh, ``parallel.mesh.current_mesh``; none: one in all), this rank's
+    the ``input_pipeline_id``-th."""
+    if mesh is None:
+        mesh = current_mesh()
     return InputContext(
         num_input_pipelines=1 if mesh is None else replica_count(mesh),
         input_pipeline_id=0 if mesh is None else replica_index(mesh),
         global_batch_size=global_batch_size)
+
+
+def shard_dataset(ds, ctx: InputContext):
+    """The DATA-policy shard of ``ds`` for this input pipeline
+    (``ds.shard(n, i)``; ``ds`` itself for one pipeline)."""
+    if ctx.num_input_pipelines > 1:
+        ds = ds.shard(ctx.num_input_pipelines, ctx.input_pipeline_id)
+    return ds
+
+
+def tfdata_iterator(ds) -> Iterator[Any]:
+    """The batches of ``ds`` as numpy trees (``ds.as_numpy_iterator()``)."""
+    yield from ds.as_numpy_iterator()
+
+
+def make_input_fn_dataset(input_fn: Callable[[InputContext], Any],
+                          global_batch_size: int, mesh=None):
+    """``distribute_datasets_from_function`` (``input_lib.py:1077``):
+    ``(input_fn(ctx), ctx)`` for this rank's :func:`current_input_context`."""
+    ctx = current_input_context(global_batch_size, mesh)
+    return input_fn(ctx), ctx
 
 
 def _leaf_to_device(v, device) -> torch.Tensor:

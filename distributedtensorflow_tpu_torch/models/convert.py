@@ -755,3 +755,60 @@ def shards_for_rank(tree, cfg, coords: dict, shape: dict, *, layout=None,
             entry[k] = v
     out["opt_state"] = sd
     return out
+
+
+# ------------------------------------------------------------ MPMD stages
+
+
+def _mpmd_name(path: tuple[str, ...]) -> tuple[str, bool]:
+    """A JAX MPMD stage's parameter path -> (the port stage's name, is a
+    Dense kernel): ``wte/embedding`` is ``wte.weight``, block ``h<i>``'s
+    leaves ``h.<i>....`` as :func:`_flax_path` maps them, ``kernel``
+    leaves ``weight``."""
+    if path == ("wte", "embedding"):
+        return "wte.weight", False
+    parts = list(path)
+    if parts[0][:1] == "h" and parts[0][1:].isdigit():
+        parts = ["h", parts[0][1:]] + parts[1:]
+    if parts[-1] == "kernel":
+        return ".".join(parts[:-1] + ["weight"]), True
+    return ".".join(parts), False
+
+
+def mpmd_stage_params_from_flax(tree) -> dict[str, torch.Tensor]:
+    """The port's ``parallel.pipeline_mpmd.StageModel`` state for a JAX
+    MPMD stage's parameter tree (numpy arrays: ``wte/embedding`` on the
+    first stage, the blocks ``h<i>`` numbered within the stage, ``ln_f``
+    and the untied ``head/kernel`` on the last): Dense kernels (in, out)
+    become ``nn.Linear``'s (out, in) weights, the rest keep their
+    shapes."""
+    state = {}
+    for path in _leaves(tree):
+        leaf = tree
+        for key in path:
+            leaf = leaf[key]
+        name, is_kernel = _mpmd_name(path)
+        arr = np.asarray(leaf, dtype=np.float32)
+        state[name] = torch.tensor(arr.T if is_kernel else arr)
+    return state
+
+
+def mpmd_stage_params_to_flax(state) -> dict:
+    """The JAX MPMD stage's tree for a port stage's ``state`` (or its
+    gradients by parameter name): the inverse of
+    :func:`mpmd_stage_params_from_flax`."""
+    tree: dict = {}
+    for name, t in state.items():
+        parts = name.split(".")
+        if parts[0] == "h":
+            parts = [f"h{parts[1]}"] + parts[2:]
+        arr = t.detach().to("cpu", torch.float32).numpy()
+        if name == "wte.weight":
+            parts = ["wte", "embedding"]
+        elif parts[-1] == "weight":
+            parts[-1], arr = "kernel", arr.T
+        node = tree
+        for key in parts[:-1]:
+            node = node.setdefault(key, {})
+        node[parts[-1]] = np.array(arr)
+    return tree

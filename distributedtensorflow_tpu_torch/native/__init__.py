@@ -1,10 +1,10 @@
-"""ctypes bindings for the repo's C++ record IO, built for the port.
+"""ctypes bindings for the repo's C++ runtime library, built for the port.
 
-Twin of the record-IO half of ``distributedtensorflow_tpu/native/``: the
-threaded record reader and writer and CRC32-C of ``native/src/``
-(``crc32c.cc``, ``recordio.cc``), compiled with g++ on first use into
-the port's own ``build/torch_native/`` (:mod:`.lib`).  The host
-collectives (``ringcomm.cc``, ``HostCollectives``) are not ported.
+Twin of ``distributedtensorflow_tpu/native/``: the threaded record
+reader and writer and CRC32-C (``crc32c.cc``, ``recordio.cc``) and the
+host ring collectives (``ringcomm.cc``, :class:`HostCollectives`) of
+``native/src/``, compiled with g++ on first use into the port's own
+``build/torch_native/`` (:mod:`.lib`).
 """
 
 from .lib import build_native_library, load_native_library, native_available
@@ -16,8 +16,10 @@ from .recordio import (
     crc32c,
     masked_crc32c,
 )
+from .ringcomm import HostCollectives
 
 __all__ = [
+    "HostCollectives",
     "RecordCorruptionError",
     "RecordReader",
     "RecordWriter",

@@ -1,8 +1,9 @@
-"""Build (if needed) and load the port's record-IO library.
+"""Build (if needed) and load the port's native library.
 
 The shared object is compiled from the repo's C++ sources
-(``native/src/crc32c.cc`` and ``recordio.cc``) with the system g++ into
-``build/torch_native/libdtf_record.so`` at the repo root, never
+(``native/src/crc32c.cc``, ``recordio.cc`` and ``ringcomm.cc``: the
+record IO, CRC32-C and the host ring collectives) with the system g++
+into ``build/torch_native/libdtf_native.so`` at the repo root, never
 downloaded and never written beside the sources.  Concurrent builds
 (test workers, ranks) take turns on an exclusive lock file, and the
 library is linked to a temporary name and renamed, so a reader never
@@ -23,7 +24,7 @@ logger = logging.getLogger(__name__)
 
 _REPO = Path(__file__).resolve().parent.parent.parent
 _NATIVE_DIR = _REPO / "native"
-_SOURCES = ("src/crc32c.cc", "src/recordio.cc")
+_SOURCES = ("src/crc32c.cc", "src/recordio.cc", "src/ringcomm.cc")
 _HEADERS = ("src/crc32c.h",)
 
 _lib: ctypes.CDLL | None = None
@@ -33,7 +34,7 @@ def _lib_path() -> Path:
     override = os.environ.get("DTF_TORCH_NATIVE_LIB")
     if override:
         return Path(override)
-    return _REPO / "build" / "torch_native" / "libdtf_record.so"
+    return _REPO / "build" / "torch_native" / "libdtf_native.so"
 
 
 def _needs_build(so: Path) -> bool:
@@ -65,7 +66,7 @@ def build_native_library(force: bool = False) -> Path:
                    "-fPIC", "-Wall", "-Wextra", "-pthread",
                    *[str(_NATIVE_DIR / s) for s in _SOURCES],
                    "-shared", "-pthread", "-o", str(tmp)]
-            logger.info("building the record library: %s", " ".join(cmd))
+            logger.info("building the native library: %s", " ".join(cmd))
             subprocess.run(cmd, check=True, capture_output=True, text=True)
             os.replace(tmp, so)
         except subprocess.CalledProcessError as e:
@@ -109,6 +110,31 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dtf_crc32c.argtypes = [c.c_char_p, c.c_uint64]
     lib.dtf_crc32c_masked.restype = c.c_uint32
     lib.dtf_crc32c_masked.argtypes = [c.c_char_p, c.c_uint64]
+    # the host ring collectives (``ringcomm.cc``)
+    lib.dtf_comm_create.restype = c.c_void_p
+    lib.dtf_comm_create.argtypes = [
+        c.c_int, c.c_int, c.POINTER(c.c_char_p), c.c_int,
+    ]
+    lib.dtf_comm_rank.restype = c.c_int
+    lib.dtf_comm_rank.argtypes = [c.c_void_p]
+    lib.dtf_comm_size.restype = c.c_int
+    lib.dtf_comm_size.argtypes = [c.c_void_p]
+    lib.dtf_comm_destroy.restype = None
+    lib.dtf_comm_destroy.argtypes = [c.c_void_p]
+    lib.dtf_comm_allreduce.restype = c.c_int
+    lib.dtf_comm_allreduce.argtypes = [
+        c.c_void_p, c.c_void_p, c.c_uint64, c.c_int, c.c_int,
+    ]
+    lib.dtf_comm_allgather.restype = c.c_int
+    lib.dtf_comm_allgather.argtypes = [
+        c.c_void_p, c.c_void_p, c.c_uint64, c.c_void_p,
+    ]
+    lib.dtf_comm_broadcast.restype = c.c_int
+    lib.dtf_comm_broadcast.argtypes = [
+        c.c_void_p, c.c_void_p, c.c_uint64, c.c_int,
+    ]
+    lib.dtf_comm_barrier.restype = c.c_int
+    lib.dtf_comm_barrier.argtypes = [c.c_void_p]
     return lib
 
 

@@ -4,8 +4,9 @@ layout rules and tensor parallelism (``sharding``), ZeRO (``zero``), the
 overlapped gradient sync (``overlap``), the MoE layer and its
 expert-parallel region (``moe``), sequence parallelism
 (``ring_attention``), the pipeline schedules (``pipeline``), the closure
-dispatcher (``coordinator``) and the async parameter server
-(``param_server``).
+dispatcher (``coordinator``), the async parameter server
+(``param_server``) and the MPMD stage-per-process pipeline
+(``pipeline_mpmd``).
 
 The dispatcher's and the parameter server's names are exported lazily:
 both use ``obs``, which imports ``parallel.bootstrap`` while it loads."""

@@ -35,12 +35,23 @@ batch axis: a stage's blocks see every row of its replica, and their
 gradients are summed over ``data`` and ``fsdp`` only
 (``models.gpt_pipeline`` sums the replicated embedding and final
 LayerNorm over ``pipe`` itself).
+
+The strategy presets (``:232-250`` of the reference) are
+:func:`one_device_mesh`, :func:`mirrored_mesh` and
+:func:`multi_worker_mesh`; :func:`set_mesh` enters a mesh as the ambient
+one (``jax.sharding.set_mesh``: a ``Strategy.scope()``), which
+:func:`current_mesh` reads (``data.current_input_context`` when no mesh
+is passed).  The ambient mesh is a context variable: each thread starts
+without one.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
+import os
 
 import torch.distributed as dist
 
@@ -138,6 +149,11 @@ class Mesh:
     @property
     def axis_names(self) -> tuple[str, ...]:
         return CANONICAL_AXES
+
+    @property
+    def size(self) -> int:
+        """The number of ranks the mesh spans."""
+        return math.prod(self.shape.values())
 
 
 def parse_mesh(text: str | None) -> MeshSpec | None:
@@ -247,3 +263,59 @@ def replica_index(mesh: Mesh) -> int:
     for a in data_axes(mesh):
         idx = idx * mesh.shape[a] + mesh.coords[a]
     return idx
+
+
+# --- the strategy presets: each reference strategy is a mesh shape. ---
+
+
+def one_device_mesh() -> Mesh:
+    """``OneDeviceStrategy``: a mesh of this rank alone (every axis 1),
+    whatever process group is up."""
+    return build_mesh(MeshSpec(data=1), SOLO)
+
+
+def mirrored_mesh(group=None, new_group=None) -> Mesh:
+    """``MirroredStrategy`` (in-host sync DP): ``data`` over the ranks of
+    this host, one process a device.  ``LOCAL_WORLD_SIZE`` (torchrun's)
+    ranks a host, in rank order; the whole of ``group`` without it.  With
+    several hosts every rank makes every host's group, in host order
+    (``new_group``: as :func:`build_mesh`'s)."""
+    group = resolve_group(group)
+    world = 1 if group is None else group.size()
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    if local >= world:
+        return build_mesh(MeshSpec(data=-1), group, new_group)
+    if world % local:
+        raise ValueError(f"LOCAL_WORLD_SIZE={local} does not divide the "
+                         f"world of {world} ranks")
+    new_group = new_group or _new_group
+    host = group.rank() // local
+    hosts = [new_group(list(range(h * local, (h + 1) * local)))
+             for h in range(world // local)]
+    return build_mesh(MeshSpec(data=-1), hosts[host], new_group)
+
+
+def multi_worker_mesh(group=None, new_group=None) -> Mesh:
+    """``MultiWorkerMirroredStrategy``: ``data`` over every rank of
+    ``group`` (default: the default process group)."""
+    return build_mesh(MeshSpec(data=-1), group, new_group)
+
+
+_AMBIENT: contextvars.ContextVar = contextvars.ContextVar(
+    "ambient_mesh", default=None)
+
+
+@contextlib.contextmanager
+def set_mesh(mesh: Mesh):
+    """``mesh`` as the ambient mesh inside the block (the previous one,
+    or none, after it)."""
+    token = _AMBIENT.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _AMBIENT.reset(token)
+
+
+def current_mesh() -> Mesh | None:
+    """The ambient mesh of :func:`set_mesh`, or None outside one."""
+    return _AMBIENT.get()

@@ -24,6 +24,7 @@ host.
 from __future__ import annotations
 
 import datetime
+import itertools
 import threading
 from typing import Any, Callable
 
@@ -38,19 +39,38 @@ def run_mesh(fn: Callable[[int, Any], Any], spec, world: int, *,
     ``PrefixStore`` a subgroup, as the world's)."""
     from ..parallel.mesh import build_mesh
 
+    return run_group_ranks(
+        lambda rank, group, new_group: fn(
+            rank, build_mesh(spec, group, new_group)),
+        world, timeout=timeout)
+
+
+def run_group_ranks(fn: Callable[[int, Any, Any], Any], world: int, *,
+                    timeout: float = 60.0) -> list:
+    """:func:`run_ranks` with ``fn(rank, group, new_group)``: ``new_group(
+    ranks)`` makes a bare gloo subgroup of ``ranks`` over the threads'
+    store (None on a rank outside it), the ``new_group`` that
+    ``parallel.mesh.build_mesh`` takes; every rank calls it for the same
+    subgroups in the same order, so the n-th call is one subgroup on
+    every rank (its store prefix: two meshes over the same ranks make two
+    groups)."""
     subgroups: list = []  # alive until every thread has ended
 
     def body(rank, group, store):
+        calls = itertools.count()
+
         def new_group(ranks):
+            n = next(calls)
             if rank not in ranks:
                 return None
             sub = dist.ProcessGroupGloo(
-                dist.PrefixStore(f"sub{ranks}", store), ranks.index(rank),
-                len(ranks), datetime.timedelta(seconds=timeout))
+                dist.PrefixStore(f"sub{n}:{ranks}", store),
+                ranks.index(rank), len(ranks),
+                datetime.timedelta(seconds=timeout))
             subgroups.append(sub)  # list.append is atomic under the GIL
             return sub
 
-        return fn(rank, build_mesh(spec, group, new_group))
+        return fn(rank, group, new_group)
 
     return run_ranks(body, world, timeout=timeout, with_store=True)
 

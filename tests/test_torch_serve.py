@@ -293,7 +293,7 @@ def test_engine_thread_serves_and_stops(served):
 
 # ----------------------------------------------------- import and device rules
 
-_BANNED = {"jax", "flax", "optax", "orbax", "safetensors",
+_BANNED = {"jax", "flax", "optax", "orbax", "safetensors", "tensorflow",
            "distributedtensorflow_tpu", "bench", "bench_probe"}
 
 
@@ -338,7 +338,9 @@ def test_port_imports_no_jax():
                 "net/breaker.py", "net/rpc.py", "obs/tsdb.py",
                 "obs/slo.py", "obs/alerts.py", "obs/fleet.py",
                 "obs/dynamics.py", "parallel/ring_attention.py",
-                "parallel/moe.py", "data/adaptive.py", "data/service.py"):
+                "parallel/moe.py", "data/adaptive.py", "data/service.py",
+                "native/ringcomm.py", "testing/multi_process_runner.py",
+                "strategies.py", "parallel/pipeline_mpmd.py"):
         assert port / sub in files
     found = {str(f.relative_to(ROOT)): sorted(set(_imports(f)) & _BANNED)
              for f in files}
