@@ -423,6 +423,26 @@ Phases, each fatal on failure:
     a 5 s join raises ``SubprocessTimeoutError``.  (a) and (b) run on one
     pool of two process workers that the script starts before phase 31,
     so their imports and CUDA starts run beside it.
+33. resilience (run after phase 32): supervised restarts and fault
+    injection through ``train_torch.main`` on gpt_lm at full width cut to
+    2 layers (B 8 x S 1024, bf16, AdamW, the fused head, K3f): an uncut
+    48-step run, then the JAX smoke test's five-fault plan scaled to 48
+    steps (``worker_kill`` 14, ``checkpoint_truncate`` 18, ``nan_loss``
+    28, ``data_stall`` 0.1 s at 40, ``preemption`` 44; a checkpoint
+    every 8 steps, a log every 4, ``--restart-backoff 0.05 --goodput
+    --flight-recorder``): (a) at k = 1 with ``--profiler-port`` and a
+    2-step capture POSTed mid-run, in this process; (b) at k = 4 (the
+    restores under a k-step CUDA graph) in a ``--resilience-worker``
+    process started before phase 32 (its CUDA context and first
+    optimizer made beside that phase), meanwhile.  Each: the fits' steps
+    and the restarts (failure, resumed step) as ``RES_TABLE`` derives
+    them, the torn step 24 rejected (``checkpoint_corrupt``) and the NaN
+    restart resuming below it, every fault paired in ``faults.jsonl``,
+    ``badput_restart`` > 0 and the goodput buckets within 1% of wall,
+    ``check_metrics_schema.py`` and ``run_report.py`` (5 faults) green,
+    K1f, K1b, K2, K3f, K4f and K4b launched the steps run times the
+    2-layer step's counts (replayed steps count), and the final model and
+    optimizer state's ``tree_fingerprint`` equal to the uncut run's.
 
 Kernel launch counts are set to 0 just before phases 5, 6 (each generate
 run), 9-11, 13, 14 (each path; in each rank's process), 15's resumed
@@ -432,7 +452,8 @@ optimizer runs, each of 23's ``train_torch.main`` runs, 24's two
 ``train_torch.main`` runs and its serving runs, 25's, 26's and 27's
 steps, 28's resumed steps and 29's and 30's
 steps (in each rank's process), 31's trainer and evaluator together,
-and 32's MPMD stages (in each stage's process, over its run), and read
+32's MPMD stages (in each stage's process, over its run) and each of
+33's runs (its k = 4 run in the worker's process), and read
 just after (a
 replayed graph counts what its capture counted); a kernel of the path
 that did not launch, or a gpt_lm, gpt_moe or BERT training step that
@@ -9215,11 +9236,353 @@ def run_hostdist(torch, cuda, device="cuda", pool=None):
     return launches
 
 
+RES_LAYERS = 2          # gpt_lm at full width cut to 2 layers
+RES_STEPS = 48
+RES_EVERY = 8           # --checkpoint-every
+RES_LOG = 4             # --log-every
+RES_PROFILE_AT = 6      # (a): the step whose end POSTs /profilez?steps=2
+#: The JAX test's five-fault plan (tests/test_train_chaos_smoke.py) scaled
+#: to 48 steps.
+RES_PLAN = [
+    {"step": 14, "kind": "worker_kill"},
+    {"step": 18, "kind": "checkpoint_truncate"},
+    {"step": 28, "kind": "nan_loss"},
+    {"step": 40, "kind": "data_stall", "stall_s": 0.1},
+    {"step": 44, "kind": "preemption"},
+]
+#: The plan's restart table at --steps-per-call k, derived from the fit
+#: loop: each fit's (first step, last step) and each restart's (failure,
+#: resumed step).  k = 1: the kill fires at 14 and step 8's save restores;
+#: the save at 24 (the first at or after 18) is torn; the NaN injected at
+#: 28 is flagged at its log step 28 and the restore below 28 rejects 24
+#: for 16; the stall at 40 fires before that step's save, so 32 restores;
+#: the preemption at 44 saves 44 and resumes there.  k = 4: a call spans
+#: 4 steps and the hooks fire at its end, so the kill fires at 16, the NaN
+#: lands in the call after 28 (its first step, 29) and is flagged at 32,
+#: whose forced stop save then stands as the newest before the stall.
+RES_TABLE = {
+    1: {"fits": [(0, 14), (8, 28), (16, 40), (32, 44), (44, 48)],
+        "restarts": [("worker_kill", 8), ("nan_loss", 16),
+                     ("data_stall", 32), ("preemption", 44)],
+        "corrupt": [24]},
+    4: {"fits": [(0, 16), (8, 32), (16, 40), (32, 44), (44, 48)],
+        "restarts": [("worker_kill", 8), ("nan_loss", 16),
+                     ("data_stall", 32), ("preemption", 44)],
+        "corrupt": [24]},
+}
+
+
+def _res_argv(device):
+    """gpt_lm at full width (cut by the caller) at B 8 x S 1024, bf16,
+    block remat, the fused head and K3f; on the CPU at test size."""
+    size = ["--batch-size", "8", "--seq-len", "1024", "--remat", "on"] \
+        if device == "cuda" else ["--test-size", "--batch-size", "8"]
+    return ["--workload", "gpt_lm", *size, "--seed", str(SEED), "--device",
+            device]
+
+
+def _state_tensors(torch, state) -> dict:
+    """The model's and the optimizer's tensors by name, as they are."""
+    out = {f"model/{k}": v for k, v in state.model.state_dict().items()}
+    for i, st in state.optimizer.state_dict()["state"].items():
+        for k, v in st.items():
+            if torch.is_tensor(v):
+                out[f"opt/{i}/{k}"] = v
+    return out
+
+
+def _res_run(torch, cuda, train_torch, train_lib, argv, device,
+             profile_port=None):
+    """``train_torch.main(argv)`` with a Callback, first among the run's,
+    that counts the steps each fit runs (restarts replay steps; a fault
+    raised by a later callback ends the fit after its step) and keeps the
+    last fit's state, and with ``profile_port`` POSTs
+    ``/profilez?steps=2`` to the profiler server there at
+    RES_PROFILE_AT.  Launch counts set to 0 just before, read just after.
+    ``(records, fits, the final state's fingerprint, launches, answers,
+    seconds)``."""
+    import urllib.request
+
+    from distributedtensorflow_tpu_torch.utils import tree_fingerprint
+
+    fits, answers, last = [], [], {}
+
+    class Watch(train_lib.Callback):
+        def on_fit_begin(self, trainer, state):
+            fits.append([int(state.step), int(state.step)])
+
+        def on_step_end(self, trainer, step, state, metrics):
+            fits[-1][1] = step
+            if profile_port and len(fits) == 1 and step == RES_PROFILE_AT:
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{profile_port}/profilez?steps=2",
+                    data=b"", method="POST")
+                with urllib.request.urlopen(req, timeout=30) as r:
+                    answers.append((r.status, json.loads(r.read())))
+
+        def on_fit_end(self, trainer, state):
+            last["state"] = state
+
+    make, watch = train_torch.Trainer, Watch()
+    train_torch.Trainer = lambda *a, callbacks=None, **kw: make(
+        *a, callbacks=[watch, *(callbacks or [])], **kw)
+    try:
+        sync(torch, torch.device(device))
+        cuda.launches.clear()
+        t0 = time.time()
+        records = train_torch.main(argv)
+        sync(torch, torch.device(device))
+        seconds = time.time() - t0
+        launches = dict(cuda.launches)
+    finally:
+        train_torch.Trainer = make
+    fingerprint = tree_fingerprint(_state_tensors(torch, last["state"]))
+    return records, [tuple(f) for f in fits], fingerprint, launches, \
+        answers, seconds
+
+
+def _res_checks(tag, logdir, flight_rows, faults, table) -> list[str]:
+    """The restart table's invariants on a run's flight and fault rows."""
+    problems = []
+    restarts = [(e["failure"], e["step"]) for e in flight_rows
+                if e["kind"] == "restart"]
+    if restarts != table["restarts"]:
+        problems.append(f"{tag} restarts {restarts}, expected "
+                        f"{table['restarts']}")
+    corrupt = [e["step"] for e in flight_rows
+               if e["kind"] == "checkpoint_corrupt"]
+    if corrupt != table["corrupt"]:
+        problems.append(f"{tag} rejected steps {corrupt}, expected "
+                        f"{table['corrupt']}")
+    nan = [step for kind, step in restarts if kind == "nan_loss"]
+    if not nan or not corrupt or nan[0] >= corrupt[0]:
+        problems.append(f"{tag} the NaN restart resumed at {nan}, not "
+                        f"below the torn step {corrupt}")
+    injected = [r for r in faults if r["phase"] == "injected"]
+    recovered = {r["id"] for r in faults if r["phase"] == "recovered"}
+    if [r["kind"] for r in injected] != [f["kind"] for f in RES_PLAN] \
+            or {r["id"] for r in injected} != recovered:
+        problems.append(f"{tag} faults {faults}")
+    return problems
+
+
+def _res_part(torch, cuda, train_torch, train_lib, k, tmp, device):
+    """RES_PLAN at ``--steps-per-call`` k (under the caller's cut config):
+    ``(row, problems, launches)``, the row with the final state's
+    ``fingerprint``; at k = 1 with ``--profiler-port`` and a 2-step
+    capture."""
+    cuda_dev = device == "cuda"
+    tag = "(a)" if k == 1 else "(b)"
+    logdir = os.path.join(tmp, f"logs{k}")
+    argv = [*_res_argv(device), "--steps", str(RES_STEPS), "--log-every",
+            str(RES_LOG), "--checkpoint-every", str(RES_EVERY),
+            "--checkpoint-dir", os.path.join(tmp, f"ck{k}"), "--logdir",
+            logdir, "--fault-plan", os.path.join(tmp, "plan.json"),
+            "--restart-backoff", "0.05", "--goodput", "--flight-recorder",
+            "--steps-per-call", str(k)]
+    port = None
+    if k == 1:
+        from distributedtensorflow_tpu_torch.parallel.bootstrap import (
+            free_port,
+        )
+
+        port = free_port()
+        argv += ["--profiler-port", str(port)]
+    records, fits, fingerprint, got_l, answers, secs = _res_run(
+        torch, cuda, train_torch, train_lib, argv, device, profile_port=port)
+    table = RES_TABLE[k]
+    steps = sum(b - a for a, b in table["fits"])
+    per_step = _gpt_step_launches(RES_LAYERS)
+    want_l = {n: steps * v for n, v in per_step.items() if v}
+    flight_rows = _rows_of(os.path.join(logdir, "flight.jsonl"))
+    faults = _rows_of(os.path.join(logdir, "faults.jsonl"))
+    problems = _res_checks(tag, logdir, flight_rows, faults, table)
+    if fits != table["fits"]:
+        problems.append(f"{tag} fits {fits}, expected {table['fits']}")
+    if records[-1]["step"] != RES_STEPS:
+        problems.append(f"{tag} ended at {records[-1]['step']}")
+    if cuda_dev and got_l != want_l:
+        problems.append(f"{tag} launches {got_l}, expected {want_l}")
+    with open(os.path.join(logdir, "goodput.json")) as f:
+        merged = json.load(f)["merged"]
+    buckets, wall = merged["buckets"], merged["wall_s"]
+    if not buckets.get("badput_restart", 0.0) > 0.0 or abs(
+            sum(buckets.values()) - wall) > max(0.01 * wall, 0.05):
+        problems.append(f"{tag} goodput {buckets} wall {wall}")
+    names = ["metrics.jsonl", "flight.jsonl", "faults.jsonl", "goodput.json"]
+    if k == 1:
+        names.append("captures.jsonl")
+    rc, text = _schema([os.path.join(logdir, n) for n in names])
+    if rc:
+        problems.append(f"{tag} schema: {text}")
+    rep = subprocess.run([sys.executable, "tools/run_report.py", logdir,
+                          "--json"], capture_output=True, text=True,
+                         timeout=120)
+    res = json.loads(rep.stdout).get("resilience", {}) \
+        if rep.returncode == 0 else {}
+    if res.get("faults_injected") != len(RES_PLAN) \
+            or res.get("unpaired") != []:
+        problems.append(f"{tag} run_report rc {rep.returncode}: {res}")
+    row = {"phase": "resilience", "part": tag, "k": k, "layers": RES_LAYERS,
+           "batch": 8, "seq": 1024 if cuda_dev else None,
+           "steps": RES_STEPS, "plan": RES_PLAN, "fits": fits,
+           "steps_run": steps,
+           "restarts": [(e["failure"], e["step"], e["attempt"],
+                         e["backoff_s"]) for e in flight_rows
+                        if e["kind"] == "restart"],
+           "rejected": [e["step"] for e in flight_rows
+                        if e["kind"] == "checkpoint_corrupt"],
+           "badput_restart_s": buckets.get("badput_restart"),
+           "goodput_buckets": buckets, "wall_s": wall, "launches": got_l,
+           "expected_launches": want_l, "fingerprint": fingerprint,
+           "first_loss": records[0]["loss"], "last_loss": records[-1]["loss"],
+           "seconds": secs, "pid": os.getpid()}
+    if k == 1:
+        caps = _rows_of(os.path.join(logdir, "captures.jsonl"))
+        row["capture"] = {"answer": answers, "rows": caps}
+        if not (answers and answers[0][0] == 200 and [
+                (c["trigger"], c["step_end"] - c["step_begin"])
+                for c in caps] == [("manual", 2)]):
+            problems.append(f"(a) capture {answers} {caps}")
+    return row, problems, got_l
+
+
+def resilience_worker(argv_json) -> int:
+    """(b) in a process of its own (``--resilience-worker``), started
+    before the hostdist phase: its CUDA context and first optimizer (the
+    ``torch._dynamo`` import) are made there, then it waits for the
+    phase's ``go`` file and runs RES_PLAN at k = 4, writing its row, its
+    problems and its launches to ``result.json``.  It exits when its
+    parent does."""
+    import torch
+
+    import train_torch
+    from distributedtensorflow_tpu_torch import train as train_lib
+    from distributedtensorflow_tpu_torch.ops import _cuda
+
+    cfg = json.loads(argv_json)
+    tmp, device = cfg["dir"], cfg["device"]
+    if device == "cuda":
+        _hostdist_warm()
+    open(os.path.join(tmp, "ready"), "w").close()
+    go = os.path.join(tmp, "go")
+    while not os.path.exists(go):
+        if os.getppid() != cfg["parent"]:
+            return 1
+        time.sleep(0.05)
+    with _cut_config(train_torch, num_layers=RES_LAYERS):
+        row, problems, launches = _res_part(torch, _cuda, train_torch,
+                                            train_lib, 4, tmp, device)
+    out = os.path.join(tmp, "result.json")
+    with open(f"{out}.tmp", "w") as f:
+        json.dump({"row": row, "problems": problems, "launches": launches},
+                  f)
+    os.replace(f"{out}.tmp", out)
+    return 0
+
+
+def start_resilience_worker(device="cuda"):
+    """``(process, directory, log)`` of :func:`resilience_worker`, the
+    plan written into its directory."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resilience_")
+    with open(os.path.join(tmp, "plan.json"), "w") as f:
+        json.dump({"faults": RES_PLAN}, f)
+    log = open(os.path.join(tmp, "worker.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "chip_smoke.py", "--resilience-worker",
+         json.dumps({"dir": tmp, "device": device,
+                     "parent": os.getpid()})],
+        stdout=log, stderr=subprocess.STDOUT)
+    return proc, tmp, log
+
+
+def run_resilience(torch, cuda, train_torch, device="cuda", worker=None):
+    """Supervised restarts and fault injection (see the module's
+    docstring): the uncut run, (a) the five-fault plan at k = 1 with the
+    telemetry flags and an on-demand capture, both here, and (b) the plan
+    at k = 4 in ``worker`` (:func:`start_resilience_worker`) meanwhile,
+    or here after (a) without one.  On the CPU (a rehearsal) the test
+    size runs and the launch checks are left out."""
+    from distributedtensorflow_tpu_torch import train as train_lib
+
+    cuda_dev = device == "cuda"
+    proc, tmp, log = worker if worker is not None \
+        else (None, None, None)
+    if tmp is None:
+        import tempfile
+
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_resilience_")
+        with open(os.path.join(tmp, "plan.json"), "w") as f:
+            json.dump({"faults": RES_PLAN}, f)
+    t0 = time.time()
+    failures, parts = [], []
+    launches = collections.Counter()
+    per_step = _gpt_step_launches(RES_LAYERS)
+    try:
+        if proc is not None:
+            emit({"phase": "resilience", "part": "worker",
+                  "ready": os.path.exists(os.path.join(tmp, "ready"))})
+            open(os.path.join(tmp, "go"), "w").close()
+        with _cut_config(train_torch, num_layers=RES_LAYERS):
+            _, fits, uncut, got_l, _, secs = _res_run(
+                torch, cuda, train_torch, train_lib,
+                [*_res_argv(device), "--steps", str(RES_STEPS),
+                 "--log-every", str(RES_STEPS)], device)
+            launches.update(got_l)
+            emit({"phase": "resilience", "part": "uncut", "fits": fits,
+                  "fingerprint": uncut, "seconds": secs, "launches": got_l})
+            if cuda_dev and got_l != {k: RES_STEPS * v
+                                      for k, v in per_step.items() if v}:
+                failures.append(f"uncut launches {got_l}")
+            parts.append(_res_part(torch, cuda, train_torch, train_lib, 1,
+                                   tmp, device))
+            if proc is None:
+                parts.append(_res_part(torch, cuda, train_torch, train_lib,
+                                       4, tmp, device))
+        if proc is not None:
+            out = os.path.join(tmp, "result.json")
+            deadline = time.time() + 600
+            while not os.path.exists(out) and proc.poll() is None \
+                    and time.time() < deadline:
+                time.sleep(0.1)
+            if not os.path.exists(out):
+                log.flush()
+                failures.append(f"(b) the worker exited {proc.poll()}: "
+                                f"{_read(log.name)[-3000:]}")
+            else:
+                with open(out) as f:
+                    got = json.load(f)
+                parts.append((got["row"], got["problems"], got["launches"]))
+        for row, problems, got_l in parts:
+            launches.update(got_l)
+            row["bit_equal_to_uncut"] = row["fingerprint"] == uncut
+            if not row["bit_equal_to_uncut"]:
+                problems.append(f"{row['part']} final state differs from "
+                                f"the uncut run's")
+            row["ok"] = not problems
+            emit(row)
+            failures += problems
+    finally:
+        if proc is not None:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            log.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+        empty_cache(torch, torch.device(device))
+    emit({"phase": "resilience_seconds", "seconds": time.time() - t0})
+    if failures:
+        raise AssertionError(f"resilience: {failures}")
+    return launches
+
+
 PHASES = ("layernorm", "kernels", "xent", "serving", "serve_cli", "train",
           "baseline", "dp", "ckpt", "trainer", "multistep", "presets2",
           "bert_moe", "optim", "records", "dataservice", "jobs", "hostdist",
-          "planes", "scaleout", "seqexpert", "pipeline", "splitckpt",
-          "splitzero", "quad")
+          "resilience", "planes", "scaleout", "seqexpert", "pipeline",
+          "splitckpt", "splitzero", "quad")
 
 
 def main(argv=None) -> int:
@@ -9235,6 +9598,8 @@ def main(argv=None) -> int:
                    help=argparse.SUPPRESS)
     p.add_argument("--split-worker", default=None, help=argparse.SUPPRESS)
     p.add_argument("--quad-worker", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--resilience-worker", default=None,
+                   help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.dp_worker:
         return dp_worker(args.dp_worker)
@@ -9250,6 +9615,8 @@ def main(argv=None) -> int:
         return split_worker(args.split_worker)
     if args.quad_worker:
         return quad_worker(args.quad_worker)
+    if args.resilience_worker:
+        return resilience_worker(args.resilience_worker)
     phases = set(args.phases.split(","))
     import torch
     import torch.nn.functional as F
@@ -9419,9 +9786,23 @@ def main(argv=None) -> int:
     if "jobs" in phases:
         launches.update(run_jobs(torch, _cuda, train_torch))
     done("jobs")
-    if "hostdist" in phases:
-        launches.update(run_hostdist(torch, _cuda, pool=pool))
-    done("hostdist")
+    # the resilience phase's (b) process starts its CUDA context and its
+    # first optimizer beside the hostdist phase, which waits on process
+    # starts of its own, and runs beside the phase's (a)
+    res_worker = start_resilience_worker() if "resilience" in phases \
+        else None
+    try:
+        if "hostdist" in phases:
+            launches.update(run_hostdist(torch, _cuda, pool=pool))
+        done("hostdist")
+        if "resilience" in phases:
+            launches.update(run_resilience(torch, _cuda, train_torch,
+                                           worker=res_worker))
+    finally:
+        if res_worker is not None and res_worker[0].poll() is None:
+            res_worker[0].kill()
+            res_worker[0].wait()
+    done("resilience")
     if "planes" in phases:
         import serve_torch
 

@@ -157,8 +157,8 @@ _LAST_PROV_LOCK = threading.Lock()
 
 def last_provenance() -> dict | None:
     """The most recent NaN-provenance verdict in this process (or None).
-    (The JAX package's supervisor attaches it to its ``nan_loss``
-    restart event; the port's resilience layer is still to come.)"""
+    ``resilience.Supervisor`` attaches it to its ``nan_loss`` restart
+    event, as the JAX package's does."""
     with _LAST_PROV_LOCK:
         return dict(_LAST_PROV) if _LAST_PROV is not None else None
 

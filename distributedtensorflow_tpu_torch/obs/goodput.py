@@ -2,8 +2,9 @@
 
 Twin of ``distributedtensorflow_tpu/obs/goodput.py``, framework-free and
 copied but for the chief check (:func:`..parallel.bootstrap.process_index`)
-and the resilience hooks (in-process restarts, elastic resizes), which
-wait for the port's resilience plane.  Spans and flight events answer
+and the elastic-resize hooks, which wait for the port's resize
+controller (:meth:`GoodputLedger.note_restart` books the supervisor's
+in-process restarts).  Spans and flight events answer
 "where did *this step's* time go" and "is the run alive right now"; the
 ledger answers the question that decides what a run costs: of the total
 wall-clock it consumed — first-dispatch kernel loads, checkpoint stalls,
@@ -338,6 +339,22 @@ class GoodputLedger:
         with self._lock:
             self._resumed_step = int(step)
 
+    def note_restart(self, seconds: float) -> None:
+        """An in-process supervised restart (``resilience.Supervisor``):
+        book the failure-to-re-entry window (classification and backoff;
+        the restore books under its own span) into ``badput_restart``, the
+        bucket the cross-process merge uses for the heartbeat-to-restart
+        gap.  Attributed like span seconds, so the ``other`` residual
+        shrinks by the same amount and the buckets still sum to wall."""
+        s = max(float(seconds), 0.0)
+        if not s:
+            return
+        with self._lock:
+            self._buckets["badput_restart"] = (
+                self._buckets.get("badput_restart", 0.0) + s
+            )
+            self._attr_total += s
+
     def note_event(self, kind: str) -> None:
         """Flight-event tap: stamps the preemption-drain window and counts
         low-rate event kinds per generation."""
@@ -510,6 +527,14 @@ def note_restore(step: int) -> None:
     led = _default
     if led is not None:
         led.note_restore(step)
+
+
+def note_restart(seconds: float) -> None:
+    """Deep-layer hook (``resilience.Supervisor``): no-op when no
+    ledger."""
+    led = _default
+    if led is not None:
+        led.note_restart(seconds)
 
 
 def note_event(kind: str) -> None:

@@ -41,10 +41,11 @@ absolute wall-clock ``t0`` and a ``trace_id`` shared across process
 boundaries, so ``tools/timeline.py --fleet`` can stitch a client span in
 one process's ``trace.jsonl`` against the dispatcher/worker spans it
 caused in another's.  The context travels as a two-field dict
-``{"trace_id", "span_id"}`` (the JAX package injects it into its data
-service's RPC frames and its serve requests; those layers are not ported
-yet) and :class:`remote_span` is the emitting context manager (near-free
-when no recorder is installed).
+``{"trace_id", "span_id"}``: the data service injects it into its RPC
+frames and reads it back (``data/service.py``), and the serving engine
+records the spans of requests that carry one (``serve/engine.py``), as
+the JAX package's layers do.  :class:`remote_span` is the emitting
+context manager (near-free when no recorder is installed).
 """
 
 from __future__ import annotations

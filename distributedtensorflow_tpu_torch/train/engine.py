@@ -237,6 +237,13 @@ class _InstrumentedStep:
             "wall seconds of the first dispatch (kernel loads + run)",
         )
 
+    def reset(self) -> None:
+        """Forget the step's captured state (the wrapped step's
+        ``reset``, where it has one): after a cold re-initialisation."""
+        reset = getattr(self._fn, "reset", None)
+        if reset is not None:
+            reset()
+
     def __call__(self, *args):
         if self._first:
             self._first = False
@@ -470,6 +477,15 @@ class _GraphedSteps:
         state.advance(k)
         table = table.clone()
         return state, {name: table[:, j] for j, name in enumerate(keys)}
+
+    def reset(self) -> None:
+        """Drop the graphs: the next call runs its steps eagerly again and
+        captures anew (a state re-initialised in place has no optimizer
+        moments until its first eager step makes them)."""
+        self._warm = False
+        self._graphs.clear()
+        self._pool = None
+        self._captured_on = None
 
     def _addresses(self, state) -> tuple:
         """Where the state's tensors live: a graph reads and writes these

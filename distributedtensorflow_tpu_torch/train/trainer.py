@@ -87,6 +87,9 @@ class TrainerConfig:
     max_captures: int = 8
     capture_cooldown_s: float = 120.0
     capture_spread_factor: float = 3.0
+    # On-demand captures only (train_torch.py's --profiler-port, whose
+    # server arms them): the engine exists without a status server.
+    capture_on_demand: bool = False
     # Informational stamps of modes built into the state and the step
     # elsewhere (ZeRO, quantized compute, the overlapped gradient sync and
     # the pipeline schedule, which train_torch.py sets): set, they stamp
@@ -226,6 +229,10 @@ class Trainer:
         self.watchdog = None
         #: Whether the LAST fit's watchdog fired.
         self.watchdog_fired = False
+        #: Set by ``resilience.Supervisor`` while it owns this trainer
+        #: (``restarts``, ``max_restarts``, ``last_failure``, ...):
+        #: /statusz shows it under ``supervisor``.
+        self.supervisor_status: dict | None = None
         # Last log-boundary record + step: what /statusz and /healthz
         # report (plain reads; handlers never sync the device).
         self._last_record: dict = {}
@@ -251,7 +258,8 @@ class Trainer:
         #: Reactive profiler: owns every profiler window of the fit.
         self.capture: obs.CaptureEngine | None = None
         if (config.profile_dir or config.auto_profile
-                or config.status_port is not None):
+                or config.status_port is not None
+                or config.capture_on_demand):
             self.capture = obs.CaptureEngine(
                 config.logdir,
                 max_captures=config.max_captures,
@@ -402,6 +410,15 @@ class Trainer:
     def preempted(self) -> bool:
         """Whether the last fit exited via the preemption save path."""
         return self._preempted
+
+    def clear_preempted(self) -> None:
+        """Re-arm after a supervised in-process resume: the next fit must
+        not inherit the consumed notice (the handler's flag included)."""
+        self._preempted = False
+        if self.preemption is not None:
+            reset = getattr(self.preemption, "reset", None)
+            if reset is not None:
+                reset()
 
     def _refresh_state_bytes(self, state) -> None:
         """Per-device parameter and optimizer-state bytes (/memz, gauges,
@@ -764,6 +781,8 @@ class Trainer:
         if self.checkpointer is not None:
             out["checkpoint"] = {"saves": self._ckpt_count,
                                  "last_saved_step": self._last_ckpt_step}
+        if self.supervisor_status:
+            out["supervisor"] = dict(self.supervisor_status)
         if self.capture is not None:
             cap_state = self.capture.state()
             out["captures"] = {

@@ -8,8 +8,12 @@ there is one) into a Chrome-trace file, :func:`annotate`
 and :func:`named_scope` name a region on its timeline
 (``record_function``, which labels the host range and the kernels it
 launches alike), and :func:`save_device_memory_profile` dumps the CUDA
-caching allocator's snapshot.  JAX's remote profiling server has no
-``torch.profiler`` counterpart and is left out.
+caching allocator's snapshot.  :func:`start_server` is the remote
+capture server: JAX's is a ``jax.profiler`` server that TensorBoard pulls
+XPlane traces from, which ``torch.profiler`` has no counterpart of; the
+port's serves the capture engine's ``/profilez`` over HTTP (``POST
+/profilez?steps=N`` arms a capture of the next N steps, ``GET`` its
+state), so no TensorBoard client can pull from it.
 """
 
 from __future__ import annotations
@@ -93,6 +97,20 @@ def trace(logdir: str) -> Iterator[torch.profiler.profile]:
         yield prof
     finally:
         stop_trace()
+
+
+def start_server(port: int, host: str = "127.0.0.1"):
+    """Start the on-demand capture server on ``port`` (0: an ephemeral
+    one) and return it (``.port``, ``.stop()``): an ``obs.StatusServer``
+    whose ``/profilez`` arms and reads the process's capture engine
+    (``obs.capture.default_engine()``, the Trainer's), with the handlers
+    of the status server's own ``/profilez``.  A capture lands in
+    ``<logdir>/captures/<id>/`` with its row in ``captures.jsonl``."""
+    from ..obs.server import StatusServer  # noqa: PLC0415
+
+    server = StatusServer(port, host=host).start()
+    logger.info("profiler server listening on port %d", server.port)
+    return server
 
 
 def annotate(name: str) -> contextlib.AbstractContextManager:

@@ -92,6 +92,20 @@ arithmetic (``utils.enable_determinism``)::
     python train_torch.py --workload gpt_lm --test-size --device cpu \
         --steps 8 --checkpoint-dir /tmp/ck --checkpoint-every 2
 
+Supervised restarts (``train.py``'s flags): ``--fault-plan`` injects the
+faults of a JSON plan (``resilience.chaos``; ``faults.jsonl`` under
+``--logdir``) and ``--max-restarts`` (a plan without it: ``len(plan) +
+2``) lets ``resilience.Supervisor`` restart a failed fit from the newest
+verified checkpoint, restored into the live state, after a backoff of
+``--restart-backoff`` seconds doubling up to ``--restart-backoff-max``; a
+spent budget exits 3 and an injected fault left unrecovered exits 4.
+``--profiler-port`` serves on-demand ``torch.profiler`` captures (``POST
+/profilez?steps=N``)::
+
+    python train_torch.py --workload mnist_lenet --test-size --device cpu \
+        --steps 120 --checkpoint-every 20 --checkpoint-dir /tmp/ck \
+        --logdir /tmp/r --fault-plan plan.json --restart-backoff 0.05
+
 Record files (``train.py``'s flags): ``--data-dir`` trains from the record
 files there (``*.tfrecord``, ``*.rio``, ``*.rec``, written by
 ``data.write_record_shards`` of either package) in place of the preset's
@@ -130,6 +144,7 @@ every task), else training::
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import json
 import logging
@@ -489,6 +504,31 @@ def build_parser() -> argparse.ArgumentParser:
                    help="POST every alert transition to this http:// URL "
                         "as JSON (through net.rpc: deadline, retries, "
                         "circuit breaker)")
+    p.add_argument("--profiler-port", type=int, default=None, metavar="PORT",
+                   help="start the on-demand profiler server on this port "
+                        "(0 = ephemeral; a fixed port is offset by the "
+                        "rank): POST /profilez?steps=N captures a "
+                        "torch.profiler window of the next N steps into "
+                        "<logdir>/captures/<id>/, GET /profilez reads the "
+                        "capture engine's state")
+    p.add_argument("--fault-plan", default=None, metavar="JSON",
+                   help="chaos fault plan: inject NaN losses, checkpoint "
+                        "truncation, worker kills, data stalls, and "
+                        "synthetic preemptions at planned steps "
+                        "(resilience.chaos schema); implies supervised "
+                        "restarts and writes <logdir>/faults.jsonl")
+    p.add_argument("--max-restarts", type=int, default=0,
+                   help="supervised self-healing: restart the fit (restore "
+                        "from the last VERIFIED checkpoint, exponential "
+                        "backoff) up to N times on NaN loss, worker crash, "
+                        "data stall, or injected fault before exiting "
+                        "non-zero. 0 = die on first failure (unless "
+                        "--fault-plan sets a budget)")
+    p.add_argument("--restart-backoff", type=float, default=1.0,
+                   help="base seconds of the supervised-restart exponential "
+                        "backoff (doubles per restart)")
+    p.add_argument("--restart-backoff-max", type=float, default=60.0,
+                   help="clamp on the supervised-restart backoff")
     p.add_argument("--flight-recorder", action="store_true",
                    help="record a bounded ring of structured events (step/"
                         "checkpoint/anomaly/preemption/compile markers), "
@@ -730,7 +770,27 @@ def workload_of(args: argparse.Namespace):
     return wl
 
 
-def build(args: argparse.Namespace, checkpointer=None, feed=None):
+@dataclasses.dataclass
+class Built:
+    """What :func:`build` makes of the flags: the preset, the state, the
+    train step, the mesh and device, and ``make_train_iter(start_step)``,
+    a fresh iterator of device batches after ``start_step`` consumed
+    ones (once a run, or once a supervised restart)."""
+    wl: object
+    state: TrainState
+    step: object
+    mesh: object
+    device: torch.device
+    make_train_iter: object
+    #: a supervised run's state before its first step and before any
+    #: restore (:func:`reinit_fn`): the optimizer's ``state_dict`` and, for
+    #: a state split over ``model``, ``expert`` or ``pipe``, this rank's
+    #: initial weights on the host
+    initial: tuple | None = None
+
+
+def build(args: argparse.Namespace, checkpointer=None, feed=None, *,
+          boot=None, built: list | None = None):
     """``(workload, state, step_fn, batches)`` for ``args``: the model
     from seeded random weights on the device, the optimizer, the train
     step (``--steps-per-call`` k > 1: k steps a call, and the batches
@@ -744,8 +804,22 @@ def build(args: argparse.Namespace, checkpointer=None, feed=None):
     :class:`DataServiceFeed`); over ``pipe``, ``seq``, ``expert`` or
     ``model`` only the replica's first rank reads it, and every rank of
     the replica steps on its batches
-    (:class:`~distributedtensorflow_tpu_torch.data.ReplicaBatches`)."""
-    mesh, device = bootstrap_mesh(args)
+    (:class:`~distributedtensorflow_tpu_torch.data.ReplicaBatches`).
+    ``boot``: :func:`bootstrap_mesh`'s ``(mesh, device)`` when the caller
+    has it; ``built``: a list that gets the :class:`Built` (its
+    ``make_train_iter`` rebuilds the batches after a restart)."""
+    b = build_run(args, checkpointer, feed, boot=boot)
+    if built is not None:
+        built.append(b)
+    return b.wl, b.state, b.step, b.make_train_iter(b.state.step)
+
+
+def build_run(args: argparse.Namespace, checkpointer=None, feed=None,
+              boot=None) -> Built:
+    """:func:`build`'s pieces, the batches as ``make_train_iter``
+    (:class:`Built`); ``boot``: :func:`bootstrap_mesh`'s ``(mesh,
+    device)`` when the caller has it already."""
+    mesh, device = boot if boot is not None else bootstrap_mesh(args)
     if checkpointer is not None and mesh is not None:
         # every rank of the mesh takes part in a save (a split model's
         # pieces are gathered) and in the preemption's agreement
@@ -781,6 +855,12 @@ def build(args: argparse.Namespace, checkpointer=None, feed=None):
     else:
         state = TrainState.create(model, wl.make_optimizer)
     state.overlap = overlap_plan(args, model, mesh, zero, wl.cfg)
+    initial = None
+    if args.fault_plan or args.max_restarts > 0:
+        initial = (copy.deepcopy(state.optimizer.state_dict()),
+                   {k: v.detach().to("cpu", copy=True)
+                    for k, v in state.model.state_dict().items()}
+                   if state.placement is not None else None)
     if checkpointer is not None:
         checkpointer.restore_latest(state)
     step = make_multi_train_step(
@@ -792,26 +872,57 @@ def build(args: argparse.Namespace, checkpointer=None, feed=None):
     # the service's order is its client's: over a split axis only the
     # replica's first rank reads it, and the others take its batches
     split = args.data_service and replica_is_split(mesh)
-    if split and not replica_leader(mesh):
-        return wl, state, step, ReplicaBatches(None, mesh, device)
-    if args.data_service:
-        if feed is None:
-            raise ValueError("--data-service: build() takes the run's "
-                             "DataServiceFeed")
-        source = feed.source(wl, ctx)
-    elif args.data_dir:
-        source = record_source(args, ctx)
-    else:
-        source = wl.input_fn(ctx, args.seed)
-    if state.step:
-        logger.info("fast-forwarding input %d batches", state.step)
-        source = skip_batches(source, state.step)
-    batches = device_iter(args, source, device, mesh, accum,
-                          bundle=args.steps_per_call,
-                          adaptive=args.adaptive_prefetch)
-    if split:
-        batches = ReplicaBatches(batches, mesh, device)
-    return wl, state, step, batches
+
+    def make_train_iter(start_step: int):
+        if split and not replica_leader(mesh):
+            return ReplicaBatches(None, mesh, device)
+        if args.data_service:
+            if feed is None:
+                raise ValueError("--data-service: build() takes the run's "
+                                 "DataServiceFeed")
+            source = feed.source(wl, ctx)  # a fresh epoch a (re)start
+        elif args.data_dir:
+            source = record_source(args, ctx)
+        else:
+            source = wl.input_fn(ctx, args.seed)
+        if start_step:
+            logger.info("fast-forwarding input %d batches", start_step)
+            source = skip_batches(source, start_step)
+        batches = device_iter(args, source, device, mesh, accum,
+                              bundle=args.steps_per_call,
+                              adaptive=args.adaptive_prefetch)
+        if split:
+            batches = ReplicaBatches(batches, mesh, device)
+        return batches
+
+    return Built(wl, state, step, mesh, device, make_train_iter, initial)
+
+
+def reinit_fn(args, built: Built):
+    """``reinit(state)``: a supervised cold restart's state (no usable
+    checkpoint), the live ``state`` re-initialised in place: the model's
+    weights from ``--seed`` (a state split over ``model``, ``expert`` or
+    ``pipe``: this rank's initial pieces, kept on the host by the build),
+    ZeRO's rows from them, the optimizer's state as it was before the
+    first step (``built.initial``), step 0, and the k-step graphs
+    dropped."""
+    opt0, pieces = built.initial
+
+    def reinit(st):
+        weights = pieces if pieces is not None else built.wl.init_params(
+            built.wl.cfg, torch.Generator().manual_seed(args.seed))
+        with torch.no_grad():
+            st.model.load_state_dict(weights)
+        if st.zero is not None:
+            st.zero.refresh_rows()
+        st.optimizer.load_state_dict(copy.deepcopy(opt0))
+        st.step = 0
+        reset = getattr(built.step, "reset", None)
+        if reset is not None:
+            reset()
+        return st
+
+    return reinit
 
 
 class DataServiceFeed:
@@ -822,8 +933,8 @@ class DataServiceFeed:
     serving one split of this rank's input pipeline: the preset's
     synthetic stream from seed ``--seed + 1009 (split + 1)``, or the
     ``--data-dir`` records as pipeline ``id x N + split`` of ``pipelines x
-    N``.  :meth:`source` starts them and reads the run's one epoch
-    through the streaming
+    N``.  :meth:`source` starts them and reads an epoch a (re)start of
+    the fit through the streaming
     :class:`~distributedtensorflow_tpu_torch.data.DataServiceClient`
     (``--data-service-wire``, ``--data-service-window``, the credit
     window's bytes budget ``--prefetch-budget-mb``); :meth:`stop` ends
@@ -834,13 +945,20 @@ class DataServiceFeed:
     The dispatcher journals to ``dispatcher.journal`` under ``--logdir``
     (input pipeline ``i`` > 0: ``dispatcher.<i>.journal``), a new one
     each run: an earlier run's journal names workers that are gone and
-    an epoch this run does not read, so it is replaced, not replayed."""
+    an epoch this run does not read, so it is replaced, not replayed.
+    Within the run it is replayed: :meth:`restart_dispatcher` (chaos's
+    ``dispatcher_kill``) brings a dispatcher back on the same port from
+    it.  Each (re)start of the fit reads a fresh epoch (0, 1, ...), so the
+    workers' iterators start from batch 0 and the resume's fast-forward
+    lands where the uncut run would be (``train.py:1241-1268``)."""
 
     def __init__(self, args):
         self.args = args
         self.dispatcher = None
         self.workers: list = []
         self.client = None
+        self.journal_path: str | None = None
+        self._epoch = 0
 
     def _journal(self, ctx) -> str | None:
         if not self.args.logdir:
@@ -856,9 +974,40 @@ class DataServiceFeed:
         return path
 
     def source(self, wl, ctx):
-        """Start the service and return the client of its epoch."""
+        """Start the service (at the first call) and return a client of
+        its next epoch, closing the previous one."""
+        self._start(wl, ctx)
+        from distributedtensorflow_tpu_torch.data import DataServiceClient
+
+        args = self.args
+        if self.client is not None:
+            self.client.close()
+            self.client = None
+        self.client = DataServiceClient(
+            self.dispatcher.target(), epoch=self._epoch,
+            wire=args.data_service_wire,
+            window=args.data_service_window or 2,
+            adaptive_window=args.data_service_window == 0,
+            bytes_budget=int(args.prefetch_budget_mb * 2**20))
+        self._epoch += 1
+        return self.client
+
+    def restart_dispatcher(self):
+        """A dispatcher on the killed one's port from the run's journal
+        (chaos's ``dispatcher_kill`` restart hook); it replaces the
+        feed's, so :meth:`stop` ends it."""
+        from distributedtensorflow_tpu_torch.data import DispatchServer
+
+        port = self.dispatcher.port
+        self.dispatcher = DispatchServer(port=port,
+                                         journal_path=self.journal_path)
+        return self.dispatcher
+
+    def _start(self, wl, ctx) -> None:
+        """Start the dispatcher and the workers (once)."""
+        if self.dispatcher is not None:
+            return
         from distributedtensorflow_tpu_torch.data import (
-            DataServiceClient,
             DispatchServer,
             InputContext,
             WorkerServer,
@@ -884,8 +1033,9 @@ class DataServiceFeed:
                     seed=args.seed + split)
             return wl.input_fn(ctx, args.seed + 1009 * (split + 1))
 
+        self.journal_path = self._journal(ctx)
         self.dispatcher = DispatchServer(port=0,
-                                         journal_path=self._journal(ctx))
+                                         journal_path=self.journal_path)
         try:
             for _ in range(args.data_service):
                 self.workers.append(WorkerServer(
@@ -894,16 +1044,9 @@ class DataServiceFeed:
             logger.info("data service: dispatcher %s + %d loopback "
                         "worker(s), wire=%s", self.dispatcher.target(),
                         len(self.workers), args.data_service_wire)
-            self.client = DataServiceClient(
-                self.dispatcher.target(), epoch=0,
-                wire=args.data_service_wire,
-                window=args.data_service_window or 2,
-                adaptive_window=args.data_service_window == 0,
-                bytes_budget=int(args.prefetch_budget_mb * 2**20))
         except BaseException:
             self.stop()
             raise
-        return self.client
 
     def stop(self) -> None:
         """Close the client, then stop the workers and the dispatcher
@@ -1613,10 +1756,31 @@ def main(argv=None):
 def _train(args) -> list[dict]:
     if args.deterministic:
         enable_determinism()  # before the first cuBLAS call
+    boot = bootstrap_mesh(args)
+    chaos = None
+    if args.fault_plan:
+        from distributedtensorflow_tpu_torch.parallel import collectives
+        from distributedtensorflow_tpu_torch.resilience import (
+            ChaosInjector,
+            FaultPlan,
+        )
+
+        # over ranks every rank injects the same plan; the mesh's first
+        # rank writes faults.jsonl, as the chief writes dynamics.jsonl
+        mesh = boot[0]
+        chief = mesh is None or collectives.group_rank(mesh.world) == 0
+        chaos = ChaosInjector(FaultPlan.load(args.fault_plan),
+                              logdir=args.logdir if chief else None)
+        logger.warning("chaos: %d fault(s) planned from %s; faults.jsonl in "
+                       "%s", len(chaos.plan), args.fault_plan, args.logdir)
     checkpointer = CheckpointManager(args.checkpoint_dir) \
         if args.checkpoint_dir else None
+    if checkpointer is not None and chaos is not None:
+        # the truncation fault tears the bytes at the storage layer, where
+        # the real fault lives
+        checkpointer = chaos.wrap_checkpointer(checkpointer)
     feed = DataServiceFeed(args) if args.data_service else None
-    prefit = None
+    prefit = profiler_server = None
     if feed is not None and args.logdir and not args.no_trace:
         # the client's epoch handshake (its spans, the dispatcher's and the
         # workers') runs when build() makes it, before the Trainer's own
@@ -1624,8 +1788,16 @@ def _train(args) -> list[dict]:
         prefit = obs.TraceRecorder(
             os.path.join(args.logdir, "trace.jsonl")).install()
     try:
-        return _fit(args, checkpointer, feed)
+        if args.profiler_port is not None:
+            from distributedtensorflow_tpu_torch.utils import profiler
+
+            port = args.profiler_port
+            profiler_server = profiler.start_server(
+                port + bootstrap.process_index() if port else 0)
+        return _fit(args, checkpointer, feed, chaos, boot)
     finally:
+        if profiler_server is not None:
+            profiler_server.stop()
         if feed is not None:  # the run's workers end with it, not later
             feed.stop()
         if prefit is not None:
@@ -1633,9 +1805,12 @@ def _train(args) -> list[dict]:
             prefit.close()
 
 
-def _fit(args, checkpointer, feed) -> list[dict]:
-    wl, state, step, batches = build(args, checkpointer, feed=feed)
-    mesh, _ = bootstrap_mesh(args)  # the mesh build() made
+def _fit(args, checkpointer, feed, chaos=None, boot=None) -> list[dict]:
+    made: list = []
+    wl, state, step, batches = build(args, checkpointer, feed=feed,
+                                     boot=boot, built=made)
+    built = made[0]
+    mesh = built.mesh
     group = {"group": mesh} if mesh is not None else {}
     eval_step = make_eval_step(wl.eval_fn(state.model, **group), mesh)
     eval_ctx = current_input_context(wl.global_batch_size, mesh)
@@ -1656,6 +1831,17 @@ def _fit(args, checkpointer, feed) -> list[dict]:
     preemption = PreemptionHandler(
         checkpointer, mesh=mesh.world if mesh is not None else None) \
         if checkpointer else None
+    supervise = chaos is not None or args.max_restarts > 0
+    if chaos is not None:
+        if preemption is not None:
+            chaos.attach_preemption(preemption)
+        if feed is not None and feed.dispatcher is not None:
+            # dispatcher_kill: kill the live dispatcher, restart it on the
+            # same port from the journal, and probe the endpoint's
+            # breaker through a full open -> half_open -> closed cycle
+            chaos.attach_data_service(feed.dispatcher,
+                                      feed.restart_dispatcher)
+    reinit = reinit_fn(args, built) if supervise else None
     config = TrainerConfig(
         total_steps=args.steps, log_every=args.log_every,
         eval_every=args.eval_every, eval_steps=0 if records else EVAL_STEPS,
@@ -1667,6 +1853,7 @@ def _fit(args, checkpointer, feed) -> list[dict]:
         profile_steps=args.profile_steps, auto_profile=args.auto_profile,
         max_captures=args.max_captures,
         capture_cooldown_s=args.capture_cooldown,
+        capture_on_demand=args.profiler_port is not None,
         watchdog_timeout=args.watchdog_timeout,
         target_metric=args.target_metric, target_value=args.target_value,
         target_mode=args.target_mode, trace=not args.no_trace,
@@ -1697,6 +1884,11 @@ def _fit(args, checkpointer, feed) -> list[dict]:
         elif args.estimate_flops == "on":
             step = _counting_first_step(step, config)
     printer = _PrintRecords(wl, bootstrap.is_chief())
+    if chaos is not None:
+        # inside the dynamics wrapper (train.py:1372-1390): the provenance
+        # pass probes the state the injection left
+        step = chaos.wrap_train_step(
+            step, modules=dynamics_modules(wl.cfg, state.model))
     dynamics = None
     if args.dynamics_every > 0:
         # every rank holds the same rows (the stats read the summed
@@ -1714,17 +1906,77 @@ def _fit(args, checkpointer, feed) -> list[dict]:
     try:
         with Trainer(step, config, eval_step=eval_step,
                      checkpointer=checkpointer, preemption=preemption,
-                     callbacks=[cb for cb in (printer, dynamics)
+                     callbacks=[cb for cb in (chaos, printer, dynamics)
                                 if cb is not None]) as trainer:
             planes = _Planes(args, trainer, dynamics, feed)
             try:
-                trainer.fit(state, batches, eval_iter_fn=eval_iter_fn)
+                if supervise:
+                    state = _supervised_fit(args, trainer, state, built,
+                                            batches, eval_iter_fn, chaos,
+                                            reinit)
+                else:
+                    state = trainer.fit(state, batches,
+                                        eval_iter_fn=eval_iter_fn)
             finally:
                 planes.stop()
     finally:
         if preemption is not None:
             preemption.uninstall()
+    logger.info("done at step %d", state.step)
     return printer.records
+
+
+def _supervised_fit(args, trainer, state, built, batches, eval_iter_fn,
+                    chaos, reinit):
+    """``Trainer.fit`` under ``resilience.Supervisor``
+    (``train.py:1762-1820``), the first fit on ``batches`` and each
+    restart's on ``built.make_train_iter``: a budget of
+    ``--max-restarts``, or with a fault plan and no budget ``len(plan) +
+    2``; a spent budget exits 3, and injected faults left unrecovered
+    exit 4, each closing the goodput ledger as ``failed``."""
+    from distributedtensorflow_tpu_torch.resilience import (
+        RestartBudgetExhausted,
+        Supervisor,
+        SupervisorConfig,
+    )
+
+    budget = args.max_restarts
+    if budget <= 0:  # a fault plan implies a restart budget
+        budget = len(chaos.plan) + 2
+    first = [batches]
+
+    def make_train_iter(start_step: int):
+        # the first fit takes the batches build() made at this step
+        if first:
+            return first.pop()
+        return built.make_train_iter(start_step)
+
+    supervisor = Supervisor(
+        trainer, make_train_iter=make_train_iter, reinit_fn=reinit,
+        eval_iter_fn=eval_iter_fn,
+        config=SupervisorConfig(max_restarts=budget,
+                                backoff_base_s=args.restart_backoff,
+                                backoff_max_s=args.restart_backoff_max),
+        chaos=chaos)
+    ledger = obs.goodput.default_ledger()
+    try:
+        state = supervisor.run(state)
+    except RestartBudgetExhausted as e:
+        # a clean non-zero exit the job scheduler can act on, the failure
+        # history in the log (and in flight.jsonl and faults.jsonl)
+        logger.error("supervisor gave up: %s; failures: %s", e, e.failures)
+        if ledger is not None:
+            ledger.close(ended="failed")
+        raise SystemExit(3) from e
+    if chaos is not None and chaos.unrecovered():
+        logger.error("chaos: run finished with UNRECOVERED faults: %s",
+                     chaos.unrecovered())
+        if ledger is not None:
+            # the run did end: close the generation, so that a later
+            # merge does not take it for one that died mid-flight
+            ledger.close(ended="failed")
+        raise SystemExit(4)
+    return state
 
 
 if __name__ == "__main__":
